@@ -1,0 +1,14 @@
+"""Model configurations the port serves (one module per architecture, as
+in ``repro.configs``)."""
+from repro_torch.configs import gemma_2b
+from repro_torch.configs.common import ArchConfig
+
+ARCHS = {gemma_2b.ARCH_ID: gemma_2b}
+
+
+def get_config(arch_id: str, reduced: bool = False) -> ArchConfig:
+    if arch_id not in ARCHS:
+        raise KeyError(f"unknown arch {arch_id!r}; the port has "
+                       f"{sorted(ARCHS)}")
+    m = ARCHS[arch_id]
+    return m.reduced() if reduced else m.full()

@@ -1,0 +1,80 @@
+"""Hardware shapes for the block solver (a torch-free copy of the
+``MemoryLevel``/``HardwareShape`` schema of ``repro.core.lifting``), plus
+the H100 the port runs on.
+
+``TPU_V5E`` is copied unchanged so tests can hold the port's solver
+against the reference's on the same table.  ``H100`` describes the card
+the way the reference's ``GPU_A100`` describes an A100: the SM's shared
+memory stands in for VMEM, the SMs form the mesh axis, the tensor-core
+fragment is the matrix tile and a warp is the register tile.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class MemoryLevel:
+    name: str
+    capacity_bytes: int            # per unit
+    bandwidth_Bps: float           # bytes/second into the level below
+    energy_pJ_per_byte: float      # access energy (model; relative scale)
+
+
+@dataclass(frozen=True)
+class HardwareShape:
+    """An array-view of the machine: the resource hierarchy the lifted
+    axes index (mesh levels, the on-chip fast memory, device memory) and
+    the alignment of the matrix unit and the register tile."""
+    name: str
+    mesh_axes: tuple[tuple[str, int], ...]
+    vmem: MemoryLevel
+    hbm: MemoryLevel
+    ici_Bps: float
+    ici_energy_pJ_per_byte: float
+    peak_flops: float                             # per chip, bf16
+    flop_energy_pJ: float
+    mxu_tile: tuple[int, int] = (128, 128)
+    vreg_tile: tuple[int, int] = (8, 128)
+    sa_power_W: float = 200.0
+    acc_dtypes: tuple = ("float32", "bfloat16", "int32")
+
+
+TPU_V5E = HardwareShape(
+    name="tpu_v5e",
+    mesh_axes=(("data", 16), ("model", 16)),
+    vmem=MemoryLevel("vmem", capacity_bytes=64 * 2**20, bandwidth_Bps=4e12,
+                     energy_pJ_per_byte=0.06),
+    hbm=MemoryLevel("hbm", capacity_bytes=16 * 2**30, bandwidth_Bps=819e9,
+                    energy_pJ_per_byte=5.0),
+    ici_Bps=50e9,
+    ici_energy_pJ_per_byte=10.0,
+    peak_flops=197e12,
+    flop_energy_pJ=0.25,
+)
+
+# NVIDIA H100 SXM (data sheet): 132 SMs, 227 KB of shared memory usable by
+# one block (232,448 bytes), 80 GB HBM3 at 3.35 TB/s, 989 TFLOP/s dense
+# bf16 on the tensor cores, NVLink 900 GB/s.  Tensor cores accumulate in
+# f32 only.  The energy entries are model scales, like the reference's.
+H100 = HardwareShape(
+    name="h100",
+    mesh_axes=(("sm", 132),),
+    vmem=MemoryLevel("smem", capacity_bytes=232_448, bandwidth_Bps=3.3e13,
+                     energy_pJ_per_byte=0.09),
+    hbm=MemoryLevel("hbm", capacity_bytes=80 * 10**9, bandwidth_Bps=3.35e12,
+                    energy_pJ_per_byte=4.0),
+    ici_Bps=900e9,
+    ici_energy_pJ_per_byte=8.0,
+    peak_flops=989e12,
+    flop_energy_pJ=0.4,
+    mxu_tile=(16, 16),            # tensor-core m16n16k16 fragment
+    vreg_tile=(1, 32),            # one warp, coalesced 32-lane accesses
+    sa_power_W=700.0,
+    acc_dtypes=("float32",),
+)
+
+#: peak rates of one H100 SXM at its 700 W limit (data sheet, dense; f32
+#: outside the tensor cores): with ``H100.hbm.bandwidth_Bps``, the
+#: denominators of the roofline bounds ``chip_smoke.py`` reports
+H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}

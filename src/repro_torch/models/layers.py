@@ -1,0 +1,93 @@
+"""Building-block layers: norms, the gated MLP, rotary embeddings, the
+embedding and the vocab head (``repro.models.layers``).
+
+Plain functions over parameter dicts (``nn.ParameterDict`` or any mapping
+of tensors), for the configs ``models.transformer`` accepts (RMSNorm, no
+biases).  Norms and softmax run in f32; every product goes through
+``ops.matmul`` (f32 accumulate), with the reference's casts at the same
+places.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.common import ArchConfig
+from repro_torch.kernels import ops
+
+
+def apply_norm(p, x: torch.Tensor, cfg: ArchConfig,
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in f32: ``x * rsqrt(mean(x^2) + eps) * scale`` (no ``1 +
+    scale``), cast back to x's dtype."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * p["scale"].float()).to(x.dtype)
+
+
+def _gate_act(cfg: ArchConfig, u: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp == "swiglu":
+        return F.silu(u)
+    return F.gelu(u, approximate="tanh")        # geglu and gelu
+
+
+def apply_mlp(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    # the first product stays f32 through the activation
+    h = ops.matmul(x, p["wi"], out_dtype=torch.float32)
+    if cfg.mlp in ("swiglu", "geglu"):
+        u, v = h.chunk(2, dim=-1)
+        h = _gate_act(cfg, u) * v
+    else:
+        h = _gate_act(cfg, h)
+    return ops.matmul(h.to(x.dtype), p["wo"], out_dtype=x.dtype)
+
+
+def rope_tables(positions: torch.Tensor, dim: int, theta: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """sin/cos tables for integer positions (any leading shape) x dim/2."""
+    half = dim // 2
+    freqs = torch.pow(1.0 / theta, torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
+               rope_pct: float = 1.0) -> torch.Tensor:
+    """Half-split rotary embedding.  x: (..., seq, heads, head_dim);
+    sin/cos: (..., seq, rot/2) broadcast over heads; partial rotary rotates
+    the leading ``rope_pct`` of each head."""
+    hd = x.shape[-1]
+    rot = int(hd * rope_pct)
+    rot -= rot % 2
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr.float().chunk(2, dim=-1)
+    s = sin[..., None, :rot // 2]
+    c = cos[..., None, :rot // 2]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+    return torch.cat([out, xp], dim=-1) if rot < hd else out
+
+
+def embed_tokens(params, tokens: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    x = params["embed"]["table"][tokens]
+    if cfg.tie_embeddings:
+        # gemma convention, the factor rounded to x's dtype; a CPU scalar
+        # tensor, so no host-to-device copy (and no stream sync) per call
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def logits_from_hidden(params, x: torch.Tensor,
+                       cfg: ArchConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        # the (vocab, d) table in its stored layout: never copied transposed
+        logits = ops.matmul(x, params["embed"]["table"], transpose_b=True,
+                            out_dtype=torch.float32)
+    else:
+        logits = ops.matmul(x, params["unembed"]["w"],
+                            out_dtype=torch.float32)
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits

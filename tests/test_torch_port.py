@@ -1,0 +1,127 @@
+"""The port's package boundary and set-up: no JAX or ``repro`` import, the
+device policy, the copied block solver against the reference's, the H100
+page-size derivation, the kernel build command, and ``chip_smoke.py``
+refusing to run without a card."""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core.blocking import solve_recurrence_blocks
+from repro_torch.hardware import H100, TPU_V5E
+from repro_torch.kernels import build, ops
+
+ROOT = Path(__file__).resolve().parents[1]
+ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = (
+        "import pkgutil, sys, importlib, repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages("
+        "repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert len(mods) >= 14, mods\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=ENV, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_need_a_card_unless_cpu_is_asked_for(monkeypatch):
+    from repro_torch.configs import gemma_2b
+    from repro_torch.models import transformer
+    from repro_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = gemma_2b.reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_lm(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_paged_pools(cfg, 8)
+    assert resolve_device("cpu") == torch.device("cpu")
+    params = transformer.init_lm(cfg, torch.Generator(), device="cpu")
+    assert params["embed"]["table"].device.type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def _grid():
+    for s in (64, 256, 512, 4096):
+        for token_elems, state_elems, quad, lin in (
+                (512, 8 * 258, 8, 8 * 256),        # gemma-2b decode page
+                (64, 4 * 34, 4, 4 * 32),           # reduced gemma-2b
+                (2 * 128 + 24 * 65, 2 * 24 * 64 * 128, 25, 96)):   # SSD
+            for dtype in ("float32", "bfloat16"):
+                yield s, token_elems, state_elems, quad, lin, dtype
+
+
+@pytest.mark.parametrize("table", ["v5e", "h100"])
+def test_block_solver_copy_matches_reference(table):
+    """Over a grid of shapes, the copied solver picks the reference's
+    chunk on the v5e table and on the port's H100 table (handed to the
+    reference as its own HardwareShape)."""
+    pytest.importorskip("jax")
+    from repro.core import blocking as jb
+    from repro.core import lifting as jl
+    port_hw = TPU_V5E if table == "v5e" else H100
+    ref_hw = jl.HardwareShape(
+        **{f.name: getattr(port_hw, f.name)
+           for f in dataclasses.fields(port_hw)
+           if f.name not in ("vmem", "hbm")},
+        vmem=jl.MemoryLevel(**dataclasses.asdict(port_hw.vmem)),
+        hbm=jl.MemoryLevel(**dataclasses.asdict(port_hw.hbm)))
+    if table == "v5e":
+        assert ref_hw == jl.TPU_V5E
+    for s, te, se, quad, lin, dtype in _grid():
+        kw = dict(token_elems=te, state_elems=se, quad_elems=quad,
+                  lin_elems=lin, dtype=dtype)
+        got = solve_recurrence_blocks(s, hardware=port_hw, **kw)
+        want = jb.solve_recurrence_blocks(s, hardware=ref_hw, **kw)
+        assert (got.bs, got.vmem_bytes) == (want.bs, want.vmem_bytes)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("max_len", [64, 512, 4096])
+def test_h100_page_size_is_the_smallest_aligned_chunk(dtype, max_len):
+    """At gemma-2b widths the decode working set (~180 KB) exceeds a
+    quarter of the H100's 227 KB of shared memory at every candidate, so
+    the solver degrades to its smallest aligned chunk: 16 tokens."""
+    assert ops.default_decode_page(max_len, 1, 8, 256, dtype=dtype) == 16
+
+
+def test_nvcc_command_and_build_directory():
+    assert build.BUILD_DIR == ROOT / "build" / "kernels"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    assert build.sources() == ["flash_fwd", "gemm", "paged_decode"]
+    out = build.library_path("gemm")
+    assert out.parent == build.BUILD_DIR
+    assert out.name.startswith("gemm-") and out.suffix == ".so"
+    cmd = build.nvcc_command("gemm", out, nvcc="/x/nvcc")
+    assert cmd[0] == "/x/nvcc"
+    flags = " ".join(cmd)
+    for flag in ("-gencode arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-shared", "-Xcompiler -fPIC"):
+        assert flag in flags
+    assert cmd[-3:] == ["-o", str(out), str(build.CSRC / "gemm.cu")]
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """Without a card (and, separately, alone in a directory without the
+    package) the smoke exits non-zero and prints no result line."""
+    runs = [(ROOT / "chip_smoke.py", ROOT)]
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    runs.append((alone, tmp_path))
+    for script, cwd in runs:
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120,
+                             env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
