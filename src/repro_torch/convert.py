@@ -28,11 +28,13 @@ def _groups(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-def params_from_numpy(tree: dict, device="cuda", dtype=None):
+def params_from_numpy(tree: dict, device="cuda", dtype=None,
+                      trainable: bool = False):
     """The port's parameters from a nested dict of numpy arrays (e.g.
     ``jax.tree.map(np.asarray, params)`` of the reference's ``init_lm``).
     ``dtype`` (a ``torch.dtype``) overrides the arrays' own; bfloat16
-    arrays, which numpy lacks, arrive as float32 and need it."""
+    arrays, which numpy lacks, arrive as float32 and need it.
+    ``trainable`` makes the parameters require gradients."""
     device = resolve_device(device)
     tensors = {}
     for group, leaves in _groups(tree).items():
@@ -41,4 +43,4 @@ def params_from_numpy(tree: dict, device="cuda", dtype=None):
             t = torch.from_numpy(np.array(arr, copy=True))
             tensors[group][name] = t.to(device=device,
                                         dtype=dtype or t.dtype)
-    return build_params(tensors)
+    return build_params(tensors, trainable)

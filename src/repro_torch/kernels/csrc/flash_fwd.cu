@@ -1,10 +1,15 @@
 // K2: flash attention forward (online softmax) over the grouped-query layout
 //
 //   q (B, Sq, KV, G, hd), k / v (B, Sk, KV, hd)  ->  out (B, Sq, KV*G, hd)
+//   optional export: m, l (B, KV, G, Sq) float32
 //
 // Replaces: src/repro/kernels/emit.py, _softmax_kind (the online-softmax
 // recurrence kind that ops.attention reaches through the derived streaming
-// schedule; prefill attention under attn_impl="pallas").
+// schedule; prefill attention under attn_impl="pallas"), including its
+// state export (emit.py:378-382, the attention_stats form): the final
+// running max m and denominator l of every row, which the flash backward
+// (flash_bwd.cu) rebuilds p from.  The export only adds two stores per
+// row: the output is the same bit for bit with it on or off.
 //
 // What bounds it on an H100: at gemma-2b prefill shapes (G = 8 query heads
 // over one KV head, hd = 256) the work is 4*Sq*Sk*G*hd/2 flops against
@@ -67,8 +72,9 @@ __device__ __forceinline__ void load_rows(T* dst, int pitch,
 template <typename T, int HD, int BN>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-          int KV, int G, float scale, int causal, int window) {
+          const T* __restrict__ v, T* __restrict__ out,
+          float* __restrict__ m_out, float* __restrict__ l_out, int Sq,
+          int Sk, int KV, int G, float scale, int causal, int window) {
   constexpr int PITCH = HD + 16 / sizeof(T);   // 16-byte rows, staggered banks
   constexpr int KPT = BN / 4;                  // keys scored per thread
   constexpr int DPT = HD / 4;                  // acc columns per thread
@@ -167,13 +173,18 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(l_run, 1e-30f);
     T* o = out + q_off(r);
     for (int j = 0; j < DPT; ++j) o[q4 + 4 * j] = from_f<T>(acc[j] * inv);
+    if (m_out != nullptr && q4 == 0) {   // (b, kvh, g, pos) of (B, KV, G, Sq)
+      const size_t idx = ((size_t)(b * KV + kvh) * G + row % G) * Sq + qpos;
+      m_out[idx] = m_run;
+      l_out[idx] = l_run;
+    }
   }
 }
 
 template <typename T, int HD, int BN>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int KV, int G, float scale, int causal,
-           int window, cudaStream_t s) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* m_out, float* l_out, int B, int Sq, int Sk, int KV, int G,
+           float scale, int causal, int window, cudaStream_t s) {
   constexpr int PITCH = HD + 16 / sizeof(T);
   const size_t smem = (size_t)(BM + 2 * BN) * PITCH * sizeof(T) +
                       (size_t)BM * (BN + 1) * sizeof(float);
@@ -184,25 +195,26 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Sq * G + BM - 1) / BM, KV, B);
   kern<<<grid, THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, KV, G, scale,
-      causal, window);
+      static_cast<const T*>(v), static_cast<T*>(out), m_out, l_out, Sq, Sk,
+      KV, G, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int BN>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                void* out, int B, int Sq, int Sk, int KV, int G, float scale,
-                int causal, int window, cudaStream_t s) {
+                void* out, float* m_out, float* l_out, int B, int Sq, int Sk,
+                int KV, int G, float scale, int causal, int window,
+                cudaStream_t s) {
   switch (hd) {
     case 64:
-      return launch<T, 64, BN>(q, k, v, out, B, Sq, Sk, KV, G, scale, causal,
-                               window, s);
+      return launch<T, 64, BN>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
+                               scale, causal, window, s);
     case 128:
-      return launch<T, 128, BN>(q, k, v, out, B, Sq, Sk, KV, G, scale,
-                                causal, window, s);
+      return launch<T, 128, BN>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
+                                scale, causal, window, s);
     case 256:
-      return launch<T, 256, BN>(q, k, v, out, B, Sq, Sk, KV, G, scale,
-                                causal, window, s);
+      return launch<T, 256, BN>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
+                                scale, causal, window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -215,17 +227,23 @@ extern "C" const char* repro_error_string(int code) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike); hd in
-// {64, 128, 256}; all tensors contiguous and 16-byte aligned.
+// {64, 128, 256}; all tensors contiguous and 16-byte aligned.  m_out and
+// l_out: both null (no export) or both (B, KV, G, Sq) float32.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
-                               void* out, int B, int Sq, int Sk, int KV,
-                               int G, int hd, float scale, int causal,
-                               int window, int dtype, void* stream) {
+                               void* out, void* m_out, void* l_out, int B,
+                               int Sq, int Sk, int KV, int G, int hd,
+                               float scale, int causal, int window,
+                               int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((m_out == nullptr) != (l_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* mo = static_cast<float*>(m_out);
+  float* lo = static_cast<float*>(l_out);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16, 64>(hd, q, k, v, out, B, Sq, Sk, KV, G,
-                                          scale, causal, window, s);
+    return dispatch_hd<__nv_bfloat16, 64>(hd, q, k, v, out, mo, lo, B, Sq, Sk,
+                                          KV, G, scale, causal, window, s);
   if (dtype == 0)
-    return dispatch_hd<float, 32>(hd, q, k, v, out, B, Sq, Sk, KV, G, scale,
-                                  causal, window, s);
+    return dispatch_hd<float, 32>(hd, q, k, v, out, mo, lo, B, Sq, Sk, KV, G,
+                                  scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

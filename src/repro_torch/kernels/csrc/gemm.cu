@@ -3,27 +3,42 @@
 // Replaces: src/repro/kernels/emit.py, emit_pallas, (mul, add) branch (the
 // blocked einsum into an f32 accumulator that ops.matmul reaches through
 // _pallas_matmul_f32, including its transpose_b form for the tied logits
-// head).
+// head), and the two VJP forms of src/repro/kernels/ops.py: _gemm_tb
+// (a @ b.T) and _gemm_ta (a.T @ b, the transposed-first-operand schedule
+// of both weight gradients).
 //
-// Layouts: A is row-major (m, k).  B is row-major (k, n), or with
-// transpose_b row-major (n, k), read in its stored layout: the (256000,
-// 2048) tied embedding table is never copied transposed.  C is row-major
-// (m, n) float32; the caller casts to its out dtype.
+// Layouts: A is row-major (m, k), or with transpose_a row-major (k, m)
+// read as its transpose in place.  B is row-major (k, n), or with
+// transpose_b row-major (n, k), read in its stored layout: neither the
+// (256000, 2048) tied embedding table nor the vocab-sized logits gradient
+// is ever copied transposed.  C is row-major (m, n) float32; the caller
+// casts to its out dtype.
 //
-// What bounds it on an H100: at prefill (m = prompt length) the products
-// are compute-bound on the tensor cores (989 TFLOP/s bf16); at decode
-// (m = slots = 4) every product is a GEMV that must stream the weight once
-// (gemma-2b: ~5.0 GB of bf16 weights per decode step, 1.5 ms at 3.35 TB/s),
-// so device-memory bandwidth bounds it.
+// Operand types: A and B are each float32 or bfloat16.  In a training
+// step the cotangent reaching the VJP products is f32 (the primal returns
+// f32; the cast to bf16 sits outside) while weights and activations are
+// bf16: as in the reference's einsum, a bf16 operand is widened to f32
+// exactly in its tile load and the product accumulates in f32.  The f32
+// operand is never rounded to bf16.
 //
-// Design: one 128-thread block per 64x64 output tile, a k-step of 32
-// through shared memory.  bf16 inputs use nvcuda::wmma 16x16x16 fragments
-// with an f32 accumulator (each warp owns a 32x32 quarter); f32 inputs use
-// plain f32 FMA (no TF32) on a 64x64 tile with a k-step of 16, 4x4 outputs
-// per thread.  Loads are 16-byte vectors where the rows allow it, masked
-// scalars on ragged edges, so any m, n, k works.  The simple kernel does
-// not pipeline its loads and wastes 60 of 64 tile rows at decode: both are
-// later work (TMA + wgmma, a split-k GEMV path).
+// What bounds it on an H100: at prefill and training row counts the
+// products are compute-bound (989 TFLOP/s bf16 on the tensor cores, 67
+// TFLOP/s f32 outside them); at decode (m = slots = 4) every product is a
+// GEMV that must stream the weight once (gemma-2b: ~5.0 GB of bf16 weights
+// per decode step, 1.5 ms at 3.35 TB/s), so device-memory bandwidth bounds
+// it.
+//
+// Design: bf16 x bf16 without transpose_a: one 128-thread block per 64x64
+// output tile, a k-step of 32 through shared memory, nvcuda::wmma
+// 16x16x16 fragments with an f32 accumulator (each warp owns a 32x32
+// quarter); 16-byte vector loads where the rows allow it, masked scalars on
+// ragged edges.  Every other form (f32, mixed, transpose_a): one
+// 256-thread block per 128x128 output tile, a k-step of 8, each operand
+// widened to f32 as it is staged k-major in shared memory, 8x8 outputs per
+// thread in registers by plain f32 FMA (no TF32), so the f32 contract
+// holds exactly.  Any m, n, k works.  Neither path pipelines its loads,
+// and decode's m = 4 wastes 60 of 64 tile rows: later work (TMA + wgmma, a
+// split-k GEMV path, tensor-core products for the f32 cotangent).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -123,51 +138,89 @@ gemm_bf16(const __nv_bfloat16* __restrict__ A,
   }
 }
 
-constexpr int FBK = 16, FTHREADS = 256;
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
-template <bool TB>
+constexpr int FBM = 128, FBN = 128, FBK = 8, FTHREADS = 256;
+
+// C = op(A) op(B) with op(A) (M, K), op(B) (K, N); A stored (M, K), or
+// (K, M) when TA; B stored (K, N), or (N, K) when TB.
+template <typename AT, typename BT, bool TA, bool TB>
 __global__ void __launch_bounds__(FTHREADS)
-gemm_f32(const float* __restrict__ A, const float* __restrict__ B,
+gemm_fma(const AT* __restrict__ A, const BT* __restrict__ B,
          float* __restrict__ C, int M, int N, int K) {
-  // both tiles k-major so the inner loop reads rows of shared memory
-  __shared__ float As[FBK][BM + 4];
-  __shared__ float Bs[FBK][BN + 4];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  // both tiles k-major (f32) so the inner loop reads rows of shared memory
+  __shared__ __align__(16) float As[FBK][FBM + 4];
+  __shared__ __align__(16) float Bs[FBK][FBN + 4];
+  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
+  float acc[8][8];
+  for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += FBK) {
-    for (int e = threadIdx.x; e < BM * FBK; e += FTHREADS) {
-      const int r = e / FBK, c = e % FBK;
-      const int gr = m0 + r, gc = k0 + c;
-      As[c][r] = (gr < M && gc < K) ? A[(size_t)gr * K + gc] : 0.f;
+    for (int e = threadIdx.x; e < FBM * FBK; e += FTHREADS) {
+      // consecutive threads walk the stored row: coalesced either way
+      const int r = TA ? e % FBM : e / FBK, c = TA ? e / FBM : e % FBK;
+      const int gm = m0 + r, gk = k0 + c;
+      float val = 0.f;
+      if (gm < M && gk < K)
+        val = to_f(TA ? A[(size_t)gk * M + gm] : A[(size_t)gm * K + gk]);
+      As[c][r] = val;
     }
-    for (int e = threadIdx.x; e < BN * FBK; e += FTHREADS) {
-      if (TB) {            // B stored (n, k)
-        const int n = e / FBK, c = e % FBK;
-        const int gn = n0 + n, gc = k0 + c;
-        Bs[c][n] = (gn < N && gc < K) ? B[(size_t)gn * K + gc] : 0.f;
-      } else {             // B stored (k, n)
-        const int c = e / BN, n = e % BN;
-        const int gn = n0 + n, gc = k0 + c;
-        Bs[c][n] = (gn < N && gc < K) ? B[(size_t)gc * N + gn] : 0.f;
-      }
+    for (int e = threadIdx.x; e < FBN * FBK; e += FTHREADS) {
+      const int n = TB ? e / FBK : e % FBN, c = TB ? e % FBK : e / FBN;
+      const int gn = n0 + n, gk = k0 + c;
+      float val = 0.f;
+      if (gn < N && gk < K)
+        val = to_f(TB ? B[(size_t)gn * K + gk] : B[(size_t)gk * N + gn]);
+      Bs[c][n] = val;
     }
     __syncthreads();
+#pragma unroll
     for (int kk = 0; kk < FBK; ++kk) {
-      float a[4], b[4];
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-      for (int i = 0; i < 4; ++i)
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
   }
-  for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j) {
-      const int r = m0 + ty + 16 * i, c = n0 + tx + 16 * j;
-      if (r < M && c < N) C[(size_t)r * N + c] = acc[i][j];
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (r >= M) continue;
+    for (int j = 0; j < 8; ++j) {
+      const int c = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (c < N) C[(size_t)r * N + c] = acc[i][j];
     }
+  }
+}
+
+template <typename AT, typename BT>
+void launch_fma(const void* a, const void* b, float* c, int m, int n, int k,
+                int ta, int tb, cudaStream_t s) {
+  const dim3 grid((n + FBN - 1) / FBN, (m + FBM - 1) / FBM);
+  auto A = static_cast<const AT*>(a);
+  auto B = static_cast<const BT*>(b);
+  if (ta && tb)
+    gemm_fma<AT, BT, true, true><<<grid, FTHREADS, 0, s>>>(A, B, c, m, n, k);
+  else if (ta)
+    gemm_fma<AT, BT, true, false><<<grid, FTHREADS, 0, s>>>(A, B, c, m, n, k);
+  else if (tb)
+    gemm_fma<AT, BT, false, true><<<grid, FTHREADS, 0, s>>>(A, B, c, m, n, k);
+  else
+    gemm_fma<AT, BT, false, false><<<grid, FTHREADS, 0, s>>>(A, B, c, m, n,
+                                                              k);
 }
 
 }  // namespace
@@ -176,34 +229,39 @@ extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = float32 inputs, 1 = bfloat16 inputs.  vec_a / vec_b: the
+// a_dtype / b_dtype: 0 = float32, 1 = bfloat16, per operand.  transpose_a:
+// A is stored (k, m); transpose_b: B is stored (n, k).  vec_a / vec_b: the
 // caller certifies 16-byte aligned rows (base pointer aligned and the row
-// length a multiple of 8 elements), allowing vector loads.
+// length a multiple of 8 elements), allowing vector loads (wmma path).
 extern "C" int repro_gemm(const void* a, const void* b, void* c, int m,
-                          int n, int k, int transpose_b, int dtype, int vec_a,
-                          int vec_b, void* stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+                          int n, int k, int transpose_a, int transpose_b,
+                          int a_dtype, int b_dtype, int vec_a, int vec_b,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  float* C = static_cast<float*>(c);
+  if ((a_dtype != 0 && a_dtype != 1) || (b_dtype != 0 && b_dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a_dtype == 1 && b_dtype == 1 && !transpose_a) {
+    const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
     auto A = static_cast<const __nv_bfloat16*>(a);
     auto B = static_cast<const __nv_bfloat16*>(b);
     if (transpose_b)
-      gemm_bf16<true><<<grid, THREADS, 0, s>>>(A, B, static_cast<float*>(c),
-                                               m, n, k, vec_a, vec_b);
+      gemm_bf16<true><<<grid, THREADS, 0, s>>>(A, B, C, m, n, k, vec_a,
+                                               vec_b);
     else
-      gemm_bf16<false><<<grid, THREADS, 0, s>>>(A, B, static_cast<float*>(c),
-                                                m, n, k, vec_a, vec_b);
-  } else if (dtype == 0) {
-    auto A = static_cast<const float*>(a);
-    auto B = static_cast<const float*>(b);
-    if (transpose_b)
-      gemm_f32<true><<<grid, FTHREADS, 0, s>>>(A, B, static_cast<float*>(c),
-                                               m, n, k);
-    else
-      gemm_f32<false><<<grid, FTHREADS, 0, s>>>(A, B, static_cast<float*>(c),
-                                                m, n, k);
+      gemm_bf16<false><<<grid, THREADS, 0, s>>>(A, B, C, m, n, k, vec_a,
+                                                vec_b);
+  } else if (a_dtype == 0 && b_dtype == 0) {
+    launch_fma<float, float>(a, b, C, m, n, k, transpose_a, transpose_b, s);
+  } else if (a_dtype == 0) {
+    launch_fma<float, __nv_bfloat16>(a, b, C, m, n, k, transpose_a,
+                                     transpose_b, s);
+  } else if (b_dtype == 0) {
+    launch_fma<__nv_bfloat16, float>(a, b, C, m, n, k, transpose_a,
+                                     transpose_b, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    launch_fma<__nv_bfloat16, __nv_bfloat16>(a, b, C, m, n, k, transpose_a,
+                                             transpose_b, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,11 +9,22 @@ is no fallback: a kernel that cannot take its inputs raises.  Inside
 ``chip_smoke.py`` computes the reference it holds the kernels against on
 the card.
 
+``matmul`` and ``attention`` are differentiable (``torch.autograd.Function``
+, the counterparts of the reference's ``jax.custom_vjp`` rules): the
+matmul's gradients are two more K1 products, and the attention's forward
+saves K2's exported (m, l) statistics for the K3/K4 backward.
+
 ================  =======================  =============================
 entry             kernel (``csrc/``)       replaces (``repro``)
 ================  =======================  =============================
-``matmul``        K1 ``gemm.cu``           ``emit_pallas`` (mul, add)
-``attention``     K2 ``flash_fwd.cu``      ``emit._softmax_kind``
+``matmul``        K1 ``gemm.cu``           ``emit_pallas`` (mul, add);
+                                           VJP ``ops._gemm_tb``,
+                                           ``ops._gemm_ta``
+``attention``,    K2 ``flash_fwd.cu``      ``emit._softmax_kind`` (with
+``attention_                               its (m, l) export)
+stats``
+``flash_dq``      K3 ``flash_bwd.cu``      ``emit._flash_dq_kind``
+``flash_dkv``     K4 ``flash_bwd.cu``      ``emit._flash_dkv_kind``
 ``paged_decode_   K5 ``paged_decode.cu``   ``emit._windowed_decode_kind``
 batched``
 ================  =======================  =============================
@@ -31,19 +42,21 @@ from repro_torch.kernels import build, ref
 
 #: kernel launches since import (or the caller's last reset), by kernel id;
 #: a wrapper adds one exactly where it launches its kernel
-LAUNCHES = {"K1": 0, "K2": 0, "K5": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PLAIN = False
 _C = ctypes.c_int
 _P = ctypes.c_void_p
+_F = ctypes.c_float
+#: C entry point -> (library, argument types before the trailing stream)
 _SIGNATURES = {
-    "gemm": ("repro_gemm", [_P, _P, _P, _C, _C, _C, _C, _C, _C, _C, _P]),
-    "flash_fwd": ("repro_flash_fwd", [_P, _P, _P, _P, _C, _C, _C, _C, _C,
-                                      _C, ctypes.c_float, _C, _C, _C, _P]),
-    "paged_decode": ("repro_paged_decode", [_P, _P, _P, _P, _P, _P, _C, _C,
-                                            _C, _C, _C, _C, ctypes.c_float,
-                                            _C, _C, _P]),
+    "repro_gemm": ("gemm", [_P, _P, _P] + [_C] * 9),
+    "repro_flash_fwd": ("flash_fwd", [_P] * 6 + [_C] * 6 + [_F, _C, _C, _C]),
+    "repro_flash_dq": ("flash_bwd", [_P] * 8 + [_C] * 6 + [_F, _C, _C, _C]),
+    "repro_flash_dkv": ("flash_bwd", [_P] * 9 + [_C] * 6 + [_F, _C, _C, _C]),
+    "repro_paged_decode": ("paged_decode", [_P] * 6 + [_C] * 6
+                           + [_F, _C, _C]),
 }
 
 
@@ -79,31 +92,36 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
     return dev.type == "cuda" and not _PLAIN
 
 
-def _entry(lib: str):
-    name, argtypes = _SIGNATURES[lib]
+def _entry(name: str):
+    lib, argtypes = _SIGNATURES[name]
     handle = build.load(lib)
     fn = getattr(handle, name)
     if fn.argtypes is None:
-        fn.argtypes = argtypes
+        fn.argtypes = argtypes + [_P]
         fn.restype = ctypes.c_int
         handle.repro_error_string.argtypes = [ctypes.c_int]
         handle.repro_error_string.restype = ctypes.c_char_p
     return fn, handle
 
 
-def _launch(lib: str, *args) -> None:
-    fn, handle = _entry(lib)
+def _launch(name: str, *args) -> None:
+    fn, handle = _entry(name)
     code = fn(*args, torch.cuda.current_stream().cuda_stream)
     if code != 0:
         msg = handle.repro_error_string(code).decode()
-        raise RuntimeError(f"{lib} kernel launch failed: {msg} ({code})")
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
 
 
-def _check_kernel_dtype(what: str, *tensors: torch.Tensor) -> int:
+def _check_kernel_dtype(what: str, *tensors: torch.Tensor,
+                        mixed: bool = False) -> int:
+    """The kernels' dtype code (0 f32, 1 bf16) of operands of one dtype;
+    with ``mixed``, also an (f32, bf16) pair, whose code is the first
+    operand's.  Operands must be contiguous."""
     dtypes = {t.dtype for t in tensors}
-    if len(dtypes) != 1 or next(iter(dtypes)) not in _DTYPE_CODE:
+    if not dtypes <= set(_DTYPE_CODE) or (len(dtypes) != 1 and not mixed):
         raise TypeError(f"{what} kernel takes float32 or bfloat16 operands "
-                        f"of one dtype, got {sorted(map(str, dtypes))}")
+                        f"of one dtype{' or one of each' if mixed else ''}, "
+                        f"got {sorted(map(str, dtypes))}")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{what} kernel takes contiguous operands")
@@ -118,20 +136,71 @@ def _aligned16(t: torch.Tensor, row: int) -> bool:
 # K1: matmul
 # ---------------------------------------------------------------------------
 
-def _gemm(x2: torch.Tensor, w2: torch.Tensor, transpose_b: bool
-          ) -> torch.Tensor:
-    """Launch K1 on 2-D operands; returns the f32 ``(m, n)`` product."""
-    dtype = _check_kernel_dtype("gemm", x2, w2)
-    m, k = x2.shape
-    n = w2.shape[0] if transpose_b else w2.shape[1]
-    out = torch.empty((m, n), device=x2.device, dtype=torch.float32)
+def _gemm(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
+          transpose_b: bool = False) -> torch.Tensor:
+    """Launch K1 on 2-D operands; returns the f32 ``op(a) @ op(b)``, where
+    ``op(a)`` reads a stored ``(k, m)`` as its transpose when
+    ``transpose_a`` and ``op(b)`` a stored ``(n, k)`` when
+    ``transpose_b``.  Operands may be f32, bf16 or one of each."""
+    code_a = _check_kernel_dtype("gemm", a, b, mixed=True)
+    code_b = _DTYPE_CODE[b.dtype]
+    k, m = a.shape if transpose_a else a.shape[::-1]
+    n = b.shape[0] if transpose_b else b.shape[1]
+    out = torch.empty((m, n), device=a.device, dtype=torch.float32)
     if m and n:
-        vec_a = _aligned16(x2, k)
-        vec_b = _aligned16(w2, k if transpose_b else n)
-        _launch("gemm", x2.data_ptr(), w2.data_ptr(), out.data_ptr(), m, n,
-                k, int(transpose_b), dtype, int(vec_a), int(vec_b))
+        vec_a = _aligned16(a, m if transpose_a else k)
+        vec_b = _aligned16(b, k if transpose_b else n)
+        _launch("repro_gemm", a.data_ptr(), b.data_ptr(), out.data_ptr(), m,
+                n, k, int(transpose_a), int(transpose_b), code_a, code_b,
+                int(vec_a), int(vec_b))
         LAUNCHES["K1"] += 1
     return out
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
+             transpose_b: bool = False) -> torch.Tensor:
+    """The f32 2-D product through K1 (CUDA) or its plain version."""
+    if _use_kernel(a, b):
+        return _gemm(a, b, transpose_a, transpose_b)
+    return ref.matmul(a, b, transpose_b, transpose_a=transpose_a)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``y = x2 @ w2`` (or ``x2 @ w2.T``) in f32, the counterpart of the
+    reference's ``_pallas_matmul_f32`` custom VJP.  Both gradients are two
+    more K1 products that read every transposed operand in its stored
+    layout (no transpose copy of a weight, an activation or the
+    vocab-sized logits gradient).  The cotangent ``g`` is f32 (the cast to
+    the out dtype sits outside), so the products are mixed (f32, bf16)
+    under bf16 weights; their f32 results are cast to ``x2.dtype`` /
+    ``w2.dtype``, as ``_pallas_matmul_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x2, w2, transpose_b):
+        ctx.save_for_backward(x2, w2)
+        ctx.transpose_b = transpose_b
+        return _product(x2, w2, transpose_b=transpose_b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w2 = ctx.saved_tensors
+        g = g.contiguous()
+        need_x, need_w = ctx.needs_input_grad[:2]
+        dx = dw = None
+        if ctx.transpose_b:
+            # y = x w^T: dx = g @ w (stored layout); dw = g^T @ x
+            if need_x:
+                dx = _product(g, w2)
+            if need_w:
+                dw = _product(g, x2, transpose_a=True)
+        else:
+            # dx = g @ w^T; dw = x^T @ g
+            if need_x:
+                dx = _product(g, w2, transpose_b=True)
+            if need_w:
+                dw = _product(x2, g, transpose_a=True)
+        return (None if dx is None else dx.to(x2.dtype),
+                None if dw is None else dw.to(w2.dtype), None)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *, transpose_b: bool = False,
@@ -142,7 +211,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, transpose_b: bool = False,
     Leading dims of ``x`` and trailing dims of ``w`` collapse to one 2-D
     product.  ``transpose_b`` contracts against the stored layout of a
     ``(..., k)`` weight, ``y = x @ w.T``, with no transpose copy (the tied
-    logits head)."""
+    logits head).  Differentiable in ``x`` and ``w``."""
     kdim = x.shape[-1]
     if transpose_b:
         if w.shape[-1] != kdim:
@@ -157,25 +226,18 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, transpose_b: bool = False,
         w2 = w.reshape(kdim, -1)
         out_tail = w.shape[1:]
     x2 = x.reshape(-1, kdim)
-    if _use_kernel(x2, w2):
-        y = _gemm(x2, w2, transpose_b)
-    else:
-        y = ref.matmul(x2, w2, transpose_b)
+    if torch.is_grad_enabled() and (x2.requires_grad or w2.requires_grad):
+        y = _MatmulF32.apply(x2, w2, transpose_b)
+    else:          # serving: no autograd node per product
+        y = _product(x2, w2, transpose_b=transpose_b)
     return y.to(out_dtype or x.dtype).reshape(*x.shape[:-1], *out_tail)
 
 
 # ---------------------------------------------------------------------------
-# K2: attention (prefill)
+# K2: attention (prefill and training forward); K3, K4: its backward
 # ---------------------------------------------------------------------------
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              scale: float, causal: bool = True, window: int = 0,
-              prefix_len: int = 0) -> torch.Tensor:
-    """Grouped-query attention, the flash forward.
-
-    ``q (B, Sq, KV, G, hd)`` (K/V heads never repeated), ``k/v (B, Sk, KV,
-    hd)`` -> ``(B, Sq, KV*G, hd)`` in ``q.dtype``.  ``window`` (causal
-    only) drops keys more than ``window`` behind the query."""
+def _check_attention(q, k, v, causal, window, prefix_len) -> None:
     if prefix_len:
         raise NotImplementedError(
             "prefix_len > 0 (the VLM prefix-LM mask) is not ported yet; see "
@@ -186,21 +248,154 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != b or k.shape[2] != kv or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"attention shape mismatch q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
+
+
+def _check_flash(what: str, tensors, hd: int) -> int:
+    dtype = _check_kernel_dtype(what, *tensors)
+    if hd not in (64, 128, 256) or any(t.shape[-1] != hd for t in tensors):
+        raise ValueError(f"{what} kernel takes hd = vd in (64, 128, 256), "
+                         f"got {[tuple(t.shape) for t in tensors]}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what} kernel takes 16-byte aligned operands")
+    return dtype
+
+
+def _check_stats(what: str, shape, *stats: torch.Tensor) -> None:
+    for t in stats:
+        if t.shape != shape or t.dtype != torch.float32 or \
+                not t.is_contiguous():
+            raise ValueError(f"{what} kernel takes contiguous float32 "
+                             f"statistics of shape {tuple(shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
+def _flash_fwd(q, k, v, scale, causal, window, export: bool):
+    """K2 or its plain version: ``out``, plus ``(m, l)`` when ``export``."""
     if not _use_kernel(q, k, v):
+        if export:
+            return ref.attention_stats(q, k, v, scale=scale, causal=causal,
+                                       window=window)
         return ref.attention(q, k, v, scale=scale, causal=causal,
                              window=window)
-    dtype = _check_kernel_dtype("flash_fwd", q, k, v)
-    if hd not in (64, 128, 256) or k.shape[-1] != hd or v.shape[-1] != hd:
-        raise ValueError(f"flash_fwd kernel takes hd = vd in (64, 128, 256), "
-                         f"got q {tuple(q.shape)} v {tuple(v.shape)}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_fwd kernel takes 16-byte aligned operands")
+    b, sq, kv, g, hd = q.shape
+    dtype = _check_flash("flash_fwd", (q, k, v), hd)
     out = torch.empty((b, sq, kv * g, hd), device=q.device, dtype=q.dtype)
-    _launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, sq, k.shape[1], kv, g, hd, float(scale),
-            int(causal), int(window), dtype)
+    m = l = None
+    if export:
+        m = torch.empty((b, kv, g, sq), device=q.device, dtype=torch.float32)
+        l = torch.empty_like(m)
+    _launch("repro_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), m.data_ptr() if export else None,
+            l.data_ptr() if export else None, b, sq, k.shape[1], kv, g, hd,
+            float(scale), int(causal), int(window), dtype)
     LAUNCHES["K2"] += 1
-    return out
+    return (out, m, l) if export else out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with the reference's derived VJP
+    (``_flash_grouped_fwd``/``_flash_grouped_bwd``): the forward runs K2
+    with the (m, l) export and saves ``(q, k, v, out, m, l)``; the
+    backward computes ``delta = rowsum(dO * out)`` in plain PyTorch (the
+    reference's one jnp reduction) and runs K3 for dq and K4 for dk, dv,
+    the latter already summed over the query heads of each KV head."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window):
+        out, m, l = _flash_fwd(q, k, v, scale, causal, window, export=True)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.args = (scale, causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        scale, causal, window = ctx.args
+        b, sq, kv, g, _ = q.shape
+        do = dout.contiguous().reshape(b, sq, kv, g, -1)
+        delta = (do.float() * out.reshape(do.shape).float()).sum(-1)
+        delta = delta.permute(0, 2, 3, 1).contiguous()     # (b, kv, g, sq)
+        args = dict(scale=scale, causal=causal, window=window)
+        dq = flash_dq(q, k, v, do, m, l, delta, **args)
+        dk, dv = flash_dkv(q, k, v, do, m, l, delta, **args)
+        return dq, dk, dv, None, None, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              scale: float, causal: bool = True, window: int = 0,
+              prefix_len: int = 0) -> torch.Tensor:
+    """Grouped-query attention, the flash forward.
+
+    ``q (B, Sq, KV, G, hd)`` (K/V heads never repeated), ``k/v (B, Sk, KV,
+    hd)`` -> ``(B, Sq, KV*G, hd)`` in ``q.dtype``.  ``window`` (causal
+    only) drops keys more than ``window`` behind the query.
+    Differentiable: when a gradient is wanted the forward exports (m, l)
+    and the backward runs K3 and K4."""
+    _check_attention(q, k, v, causal, window, prefix_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, float(scale), bool(causal),
+                                     int(window))
+    return _flash_fwd(q, k, v, scale, causal, window, export=False)
+
+
+def attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, causal: bool = True, window: int = 0
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 with its state export: ``(out, m, l)``, ``out`` as
+    :func:`attention` returns it (the same bits), ``m, l (B, KV, G, Sq)``
+    f32 the final running max and denominator of each row."""
+    _check_attention(q, k, v, causal, window, 0)
+    return _flash_fwd(q, k, v, scale, causal, window, export=True)
+
+
+def _bwd_args(what, q, k, v, do, m, l, delta):
+    b, sq, kv, g, hd = q.shape
+    if do.shape != q.shape[:4] + (v.shape[-1],):
+        raise ValueError(f"{what}: dO {tuple(do.shape)} does not match q "
+                         f"{tuple(q.shape)} / v {tuple(v.shape)}")
+    dtype = _check_flash(what, (q, k, v, do), hd)
+    _check_stats(what, (b, kv, g, sq), m, l, delta)
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            m.data_ptr(), l.data_ptr(), delta.data_ptr()), dtype
+
+
+def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             do: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+             delta: torch.Tensor, *, scale: float, causal: bool = True,
+             window: int = 0) -> torch.Tensor:
+    """K3: dq ``(B, Sq, KV, G, hd)`` in ``q.dtype`` from ``do (B, Sq, KV,
+    G, vd)`` and the saved ``m, l`` with ``delta = rowsum(dO * out)``, all
+    three ``(B, KV, G, Sq)`` f32."""
+    if not _use_kernel(q, k, v, do, m, l, delta):
+        return ref.flash_dq(q, k, v, do, m, l, delta, scale=scale,
+                            causal=causal, window=window)
+    ptrs, dtype = _bwd_args("flash_dq", q, k, v, do, m, l, delta)
+    b, sq, kv, g, hd = q.shape
+    dq = torch.empty_like(q)
+    _launch("repro_flash_dq", *ptrs, dq.data_ptr(), b, sq, k.shape[1], kv,
+            g, hd, float(scale), int(causal), int(window), dtype)
+    LAUNCHES["K3"] += 1
+    return dq
+
+
+def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              do: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+              delta: torch.Tensor, *, scale: float, causal: bool = True,
+              window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4: ``(dk, dv)``, each ``(B, Sk, KV, hd)`` in k's / v's dtype,
+    summed over the G query heads that share each KV head."""
+    if not _use_kernel(q, k, v, do, m, l, delta):
+        return ref.flash_dkv(q, k, v, do, m, l, delta, scale=scale,
+                             causal=causal, window=window)
+    ptrs, dtype = _bwd_args("flash_dkv", q, k, v, do, m, l, delta)
+    b, sq, kv, g, hd = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("repro_flash_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), b, sq,
+            k.shape[1], kv, g, hd, float(scale), int(causal), int(window),
+            dtype)
+    LAUNCHES["K4"] += 1
+    return dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +463,7 @@ def paged_decode_batched(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("paged_decode kernel takes 16-byte aligned operands")
     out = torch.empty((slots, kv, g, hd), device=q.device,
                       dtype=torch.float32)
-    _launch("paged_decode", q.data_ptr(), k_pool.data_ptr(),
+    _launch("repro_paged_decode", q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), pos.data_ptr(), tables.data_ptr(),
             out.data_ptr(), slots, kv, g, hd, int(page), tables.shape[1],
             float(scale), int(window), dtype)

@@ -70,7 +70,12 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
 
 def embed_tokens(params, tokens: torch.Tensor,
                  cfg: ArchConfig) -> torch.Tensor:
-    x = params["embed"]["table"][tokens]
+    # index_select: its backward is one index_add_ into the table, which
+    # (unlike advanced indexing's sorted scatter) reads nothing back to
+    # the host
+    table = params["embed"]["table"]
+    x = table.index_select(0, tokens.reshape(-1)).reshape(
+        *tokens.shape, table.shape[-1])
     if cfg.tie_embeddings:
         # gemma convention, the factor rounded to x's dtype; a CPU scalar
         # tensor, so no host-to-device copy (and no stream sync) per call

@@ -9,8 +9,9 @@ stacks; here a Python loop indexes the stacked tensors.
 
 Entry points:
 
-    init_lm(cfg, generator, device)            -> params
+    init_lm(cfg, generator, device, trainable) -> params
     forward(params, cfg, tokens)               -> (hidden, cache)
+    lm_loss(params, cfg, tokens, targets)      -> (loss, metrics)
     prefill(params, cfg, tokens)               -> (logits, cache)
     init_paged_pools(cfg, pool_tokens, ...)    -> {"k", "v"}
     decode_step_paged_batched(params, cfg, tokens, pos, pools, tables, page)
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.common import ArchConfig
 from repro_torch.device import resolve_device
@@ -64,9 +66,10 @@ def param_shapes(cfg: ArchConfig) -> dict:
     return shapes
 
 
-def build_params(tensors: dict) -> nn.ModuleDict:
-    """Nest ``{"group.sub": {name: tensor}}`` into the parameter tree
-    (frozen parameters: this slice serves, it does not train)."""
+def build_params(tensors: dict, trainable: bool = False) -> nn.ModuleDict:
+    """Nest ``{"group.sub": {name: tensor}}`` into the parameter tree.
+    Serving keeps the parameters frozen; ``trainable`` makes them
+    require gradients."""
     root = nn.ModuleDict()
     for group, leaves in tensors.items():
         node = root
@@ -76,18 +79,19 @@ def build_params(tensors: dict) -> nn.ModuleDict:
                 node[part] = nn.ModuleDict()
             node = node[part]
         node[parts[-1]] = nn.ParameterDict(
-            {n: nn.Parameter(t, requires_grad=False)
+            {n: nn.Parameter(t, requires_grad=trainable)
              for n, t in leaves.items()})
     return root
 
 
 def init_lm(cfg: ArchConfig, generator: torch.Generator,
-            device="cuda") -> nn.ModuleDict:
+            device="cuda", trainable: bool = False) -> nn.ModuleDict:
     """Random parameters with the reference's shapes and scales: normal(0,
     scale) drawn in f32 from ``generator`` on ``device``, then cast to
     ``cfg.dtype``; norm scales are ones.  (``jax.random`` and torch draw
     different numbers from one seed: tests carry the JAX draw across with
-    ``convert.params_from_numpy`` instead.)"""
+    ``convert.params_from_numpy`` instead.)  ``trainable`` as in
+    :func:`build_params`."""
     device = resolve_device(device)
     dtype = getattr(torch, str(cfg.dtype))
     tensors = {}
@@ -101,34 +105,58 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator,
                                 dtype=torch.float32, device=device)
                 t = t.mul_(scale).to(dtype)
             tensors[group][name] = t
-    return build_params(tensors)
+    return build_params(tensors, trainable)
 
 
-def _layer(params, i: int) -> dict:
-    """Layer ``i``'s slices of the stacked parameters, as plain dicts."""
+def _layers(params) -> list[dict]:
+    """Each layer's slices of the stacked parameters, as plain dicts.
+    ``unbind`` makes the slices in one op, so under autograd the stacked
+    gradient is one ``stack`` of the per-layer gradients, not a
+    full-size zero tensor per layer."""
     layers = params["layers"]
-    return {name: {k: t[i] for k, t in layers[name].items()}
+    cols = {name: {k: t.unbind(0) for k, t in layers[name].items()}
             for name in ("ln1", "ln2", "attn", "mlp")}
+    return [{name: {k: ts[i] for k, ts in group.items()}
+             for name, group in cols.items()}
+            for i in range(len(cols["ln1"]["scale"]))]
+
+
+def _block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
+           positions: torch.Tensor):
+    """One pre-norm dense layer: returns the new residual and its K/V."""
+    h = apply_norm(lp["ln1"], x, cfg)
+    a_out, kv = attn.attention_fwd(lp["attn"], h, cfg, positions=positions,
+                                   window=cfg.local_window)
+    x = x + a_out
+    h2 = apply_norm(lp["ln2"], x, cfg)
+    return x + apply_mlp(lp["mlp"], h2, cfg), kv
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor
             ) -> tuple[torch.Tensor, attn.KV]:
     """Full-sequence forward: ``(hidden (B, S, d), cache)`` where the
     cache is the per-layer K/V stacked on a leading layer axis, ``(L, B,
-    S, KV, hd)`` each."""
+    S, KV, hd)`` each.
+
+    Under autograd, ``cfg.remat`` rematerializes each layer (the
+    reference's ``jax.checkpoint`` around its scanned body): only the
+    layer inputs are kept, and the backward reruns each layer's forward,
+    kernels included.  ``remat_policy="dots"`` is not ported."""
     _check_family(cfg, "forward")
+    remat = cfg.remat and torch.is_grad_enabled()
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported; the port "
+            f"rematerializes whole layers (remat_policy='full')")
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        h = apply_norm(lp["ln1"], x, cfg)
-        a_out, kv = attn.attention_fwd(lp["attn"], h, cfg,
-                                       positions=positions,
-                                       window=cfg.local_window)
-        x = x + a_out
-        h2 = apply_norm(lp["ln2"], x, cfg)
-        x = x + apply_mlp(lp["mlp"], h2, cfg)
+    for lp in _layers(params):
+        if remat:
+            x, kv = checkpoint(_block, lp, x, cfg, positions,
+                               use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, kv = _block(lp, x, cfg, positions)
         ks.append(kv.k)
         vs.append(kv.v)
     x = apply_norm(params["final_norm"], x, cfg)
@@ -170,8 +198,7 @@ def decode_step_paged_batched(params, cfg: ArchConfig, tokens: torch.Tensor,
     are garbage the engine drops."""
     _check_family(cfg, "decode_step_paged_batched")
     x = embed_tokens(params, tokens[:, None], cfg)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layers(params)):
         h = apply_norm(lp["ln1"], x, cfg)
         a_out = attn.attention_decode_paged_batched(
             lp["attn"], h, pools["k"][i], pools["v"][i], pos, cfg,
@@ -181,3 +208,19 @@ def decode_step_paged_batched(params, cfg: ArchConfig, tokens: torch.Tensor,
         x = x + apply_mlp(lp["mlp"], h2, cfg)
     x = apply_norm(params["final_norm"], x, cfg)
     return logits_from_hidden(params, x, cfg)[:, 0]
+
+
+def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
+            targets: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """Mean next-token NLL (``repro.models.transformer.lm_loss`` for the
+    dense family): f32 ``log_softmax`` of the logits, the NLL of each
+    target, its mean.  The dense family's MoE aux terms are zero, so the
+    loss is the NLL; the metrics keep the reference's keys."""
+    hidden, _ = forward(params, cfg, tokens)
+    logits = logits_from_hidden(params, hidden, cfg)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    loss = nll.mean()
+    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss, {"nll": loss.detach(), "moe_aux": zero, "moe_z": zero,
+                  "dropped": zero}

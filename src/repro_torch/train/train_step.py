@@ -1,0 +1,93 @@
+"""The training step (``repro.train.train_step``): loss and gradients
+through the port's kernels, gradient accumulation over microbatches, and
+AdamW.
+
+The step has the reference's ``make_train_step`` semantics with no
+gradient compression and no planned mesh: the forward rematerializes each
+layer when ``cfg.remat`` is set, every product runs on K1 (its VJP forms
+for the gradients), attention on K2 with its (m, l) export and the K3/K4
+backward.  The state is updated IN PLACE (parameters, masters, m, v): the
+returned state holds the same tensors.  Metrics stay device tensors.
+
+    state = init_state(cfg, params, device)
+    step = make_train_step(cfg, opt_cfg, microbatches)
+    state, metrics = step(state, batch)      # batch: {"tokens", "targets"}
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.common import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+from repro_torch.optim import adamw
+
+
+class TrainState(NamedTuple):
+    params: object              # the parameter tree (nn.ModuleDict)
+    opt: adamw.AdamWState
+    step: torch.Tensor          # () int32
+
+
+def init_state(cfg: ArchConfig, params, device="cuda") -> TrainState:
+    """The train state around ``params`` (made trainable in place), with a
+    fresh AdamW state, on ``device`` (default the card; raises without
+    one unless ``device="cpu"``)."""
+    device = resolve_device(device)
+    for name, p in params.named_parameters():
+        if p.device.type != device.type:
+            raise ValueError(f"parameter {name} lives on {p.device}, not "
+                             f"{device}")
+        p.requires_grad_(True)
+    return TrainState(params, adamw.init(dict(params.named_parameters())),
+                      torch.zeros((), dtype=torch.int32, device=device))
+
+
+def loss_and_grads(params, cfg: ArchConfig, batch: dict
+                   ) -> tuple[torch.Tensor, dict, dict]:
+    """``(loss, metrics, {name: gradient})`` of ``lm_loss`` on one batch;
+    each gradient in its parameter's dtype."""
+    names, leaves = zip(*params.named_parameters())
+    loss, metrics = transformer.lm_loss(params, cfg, batch["tokens"],
+                                        batch["targets"])
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), metrics, dict(zip(names, grads))
+
+
+def make_train_step(cfg: ArchConfig,
+                    opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+                    microbatches: int = 1):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    With ``microbatches > 1`` the batch splits along its first axis and
+    the gradients of the microbatches are summed into f32 accumulators
+    and averaged; the loss and metrics are the microbatches' means."""
+
+    def train_step(state: TrainState, batch: dict):
+        if microbatches == 1:
+            loss, metrics, grads = loss_and_grads(state.params, cfg, batch)
+        else:
+            mbs = [dict(zip(batch, parts)) for parts in zip(
+                *(t.chunk(microbatches, dim=0) for t in batch.values()))]
+            grads, losses, ms = None, [], []
+            for mb in mbs:
+                loss, m, g = loss_and_grads(state.params, cfg, mb)
+                if grads is None:
+                    grads = {k: t.float() for k, t in g.items()}
+                else:
+                    for k, t in g.items():
+                        grads[k].add_(t)
+                losses.append(loss)
+                ms.append(m)
+            grads = {k: t / microbatches for k, t in grads.items()}
+            loss = torch.stack(losses).mean()
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        _, opt, opt_m = adamw.update(opt_cfg, grads, state.opt,
+                                     dict(state.params.named_parameters()))
+        metrics = dict(metrics, loss=loss, **opt_m)
+        return TrainState(state.params, opt, state.step + 1), metrics
+
+    return train_step

@@ -27,7 +27,7 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
-        "assert len(mods) >= 14, mods\n"
+        "assert len(mods) >= 25, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], env=ENV, cwd=ROOT,
@@ -50,6 +50,24 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for(monkeypatch):
     assert params["embed"]["table"].device.type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def test_training_entry_points_need_a_card_unless_cpu_is_asked_for(
+        monkeypatch):
+    from repro_torch.configs import gemma_2b
+    from repro_torch.models import transformer
+    from repro_torch.train import train_step
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = gemma_2b.reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_lm(cfg, torch.Generator(), trainable=True)
+    params = transformer.init_lm(cfg, torch.Generator(), device="cpu",
+                                 trainable=True)
+    assert all(p.requires_grad for p in params.parameters())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_step.init_state(cfg, params)
+    state = train_step.init_state(cfg, params, device="cpu")
+    assert state.step.device.type == "cpu"
 
 
 def _grid():
@@ -99,7 +117,8 @@ def test_h100_page_size_is_the_smallest_aligned_chunk(dtype, max_len):
 def test_nvcc_command_and_build_directory():
     assert build.BUILD_DIR == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
-    assert build.sources() == ["flash_fwd", "gemm", "paged_decode"]
+    assert build.sources() == ["flash_bwd", "flash_fwd", "gemm",
+                               "paged_decode"]
     out = build.library_path("gemm")
     assert out.parent == build.BUILD_DIR
     assert out.name.startswith("gemm-") and out.suffix == ".so"
