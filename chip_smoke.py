@@ -3,18 +3,19 @@
 
     python3 chip_smoke.py
 
-Five phases; any failure exits non-zero before the result line:
+Seven phases; any failure exits non-zero before the result line:
 
 1. device   the card's name, power limit and compute capability (9, 0).
 2. build    nvcc builds every kernel under src/repro_torch/kernels/csrc/
             into build/kernels/, all sources in parallel.
 3. kernels  each kernel (K1 gemm with its VJP forms, K2 flash_fwd with
             and without its (m, l) export, K3/K4 flash_bwd, K5
-            paged_decode) against its plain PyTorch version on the same
-            card inputs, at gemma-2b full-width serving and training
-            shapes, in bf16 and f32, with the tolerance stated; kernel,
-            plain and library times (CUDA events) and the roofline bound
-            of each case.
+            paged_decode, K6 ssd_scan with and without its per-chunk
+            state export, K7 ssd_bwd) against its plain PyTorch version on
+            the same card inputs, at gemma-2b and mamba2-780m full-width
+            serving and training shapes, with the tolerance stated;
+            kernel, plain and library times (CUDA events) and the roofline
+            bound of each case.
 4. path     gemma-2b at full width (18 layers, bf16, random weights from a
             seeded generator) served by ServeEngine(max_slots=4,
             max_len=512) over 6 requests; every kernel of the path must
@@ -27,11 +28,29 @@ Five phases; any failure exits non-zero before the result line:
             against the plain path; every kernel of the path must have
             launched its derived number of times; the third step runs
             under sync debug mode "error"; one step is profiled.
+6. ssm_path mamba2-780m at full width (48 layers, bf16, seeded weights)
+            served by ServeEngine(max_slots=4, max_len=512) over 6
+            requests, one prompt over 256 tokens (its prefill carries the
+            state across a chunk boundary and pads its last chunk), the
+            others a ragged chunk; K6 must launch 48 times per prompt and
+            K1 its derived count; one prefill and one decode step agree
+            with the plain path (in f32 on the same weights end to end;
+            in bf16 layer by layer, and end to end beside the plain bf16
+            path's own distance from f32); a decode iteration (4 slots)
+            runs under sync debug mode "error".
+7. ssm_train mamba2-780m at full width takes 3 AdamW steps (B=2, S=2048:
+            8 chunks of 256 a sequence, remat on); step 1's loss and
+            gradients against the plain path (as the prefill's, with
+            each layer's VJP); K1, K6 (twice a layer: the
+            remat rerun) and K7 launch their derived counts; step 3 under
+            sync debug mode "error"; one step is profiled.
 
-The last two lines before the final one are the kernels' JSON record and
+Each path phase resets the peak memory statistics before it runs.  The
+last two lines before the final one are the kernels' JSON record and
 the card's ``nvidia-smi`` name and power limit; the final line is
 ``{"ok": true, "device": {...}}``.  Needs no network and one card.
 """
+import contextlib
 import json
 import math
 import os
@@ -49,11 +68,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: rounds its output to bf16.
 #: K3/K4 bf16: the same p difference through dS, and outputs rounded to
 #: bf16 (2^-8); K4 also sums the G heads in another order.
+#: K6/K7 (f32 only, by the reference's contract): summation order and the
+#: kernels' fused multiply-adds.
 TOL = {("K1", "bfloat16"): 1e-4, ("K1", "float32"): 1e-4,
        ("K2", "bfloat16"): 2e-2, ("K2", "float32"): 1e-4,
        ("K3", "bfloat16"): 2e-2, ("K3", "float32"): 1e-4,
        ("K4", "bfloat16"): 2e-2, ("K4", "float32"): 1e-4,
-       ("K5", "bfloat16"): 2e-2, ("K5", "float32"): 1e-4}
+       ("K5", "bfloat16"): 2e-2, ("K5", "float32"): 1e-4,
+       ("K6", "float32"): 1e-4, ("K7", "float32"): 1e-4}
 #: the served path's logits (kernels vs plain versions, 18 bf16 layers):
 #: per-layer bf16 rounding differences compound through the residual stream
 PATH_TOL = 5e-2
@@ -64,7 +86,34 @@ PATH_TOL = 5e-2
 #: loss is a mean over 1024 tokens and moves far less.
 LOSS_TOL = 5e-3          # |loss_k - loss_p| / |loss_p|
 GRAD_TOL = 5e-2          # ||g_k - g_p|| / ||g_p|| per leaf
+#: mamba2-780m against the plain path, on the 300-token prompt (prefill
+#: and decode logits, state, conv tail) and on the B=2 S=2048 batch (loss,
+#: gradients).  f32 (the served model's bf16 weights, exact in float32:
+#: K1's f32 path and the same K6/K7): only summation order differs, so the
+#: whole 48-layer path is held tightly: SSM_F32_TOL x max|plain|, and the
+#: loss and every gradient leaf as gemma's.
+SSM_F32_TOL = 5e-3
+#: bf16 (the served model), layer by layer: each layer is fed the plain
+#: path's input on both sides, so nothing compounds.  K1's sums differ
+#: from the plain product's by ~1e-5 relative (its kernel cases), which
+#: flips a bf16 rounding (2^-8) here and there: each layer's output, state,
+#: conv tail and decode step agree within SSM_LAYER_TOL x max|plain| (5
+#: bf16 ulps at the max; 6.9e-3 at worst on an H100 80GB HBM3), and each
+#: leaf of its VJP within SSM_LAYER_GRAD_TOL in relative norm (3.3e-3 at
+#: worst there).
+SSM_LAYER_TOL = 2e-2
+SSM_LAYER_GRAD_TOL = 1e-2
+#: bf16, end to end: each rounding flip grows through 48 random-weight
+#: layers, and the plain bf16 path itself sits 0.33 of the largest logit
+#: and 0.12-0.65 in gradient norm from the f32 function of the same weights
+#: (H100 80GB HBM3).  That plain path is the witness: the kernels' bf16
+#: logits, state, conv tail and gradients must sit no farther from the f32
+#: function than SSM_BF16_RATIO x its distance (0.81-1.02 measured there).
+SSM_BF16_RATIO = 1.25
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 512, 3
+#: mamba2-780m's training shape: the context Mamba-2 was trained at
+#: (arXiv:2405.21060), 8 chunks of 256 a sequence
+SSM_B, SSM_S = 2, 2048
 
 
 def fail(msg: str) -> None:
@@ -233,7 +282,84 @@ def phase_kernels(torch):
               + tables.numel() * 4,
               f"K5 {dname} slots=4 pos={positions} page={page} G=8 hd=256")
     _gemm_training_cases(torch, rec, gen)
+    _ssm_gemm_cases(torch, rec, gen)
+    _ssd_cases(torch, rec, gen)
     return rec
+
+
+def ssd_work(b, s, h, p, n, q):
+    """``(flops, f32 elements of the chunk-shaped operands)`` of one SSD
+    scan that this data needs: per chunk of ``m <= q`` real tokens the
+    causal half of the scores (``m (m + 1) n``, once for all heads) and
+    of P.X, the readout and the state update per head.  Returns the
+    forward's and the reverse scan's flops: the latter replays the scores
+    and the readout and adds dP, P'dY, dG.B, dG'.C and four (q, p, n)
+    products a head."""
+    fwd = bwd = 0.0
+    for c0 in range(0, s, q):
+        m = min(q, s - c0)
+        pairs = m * (m + 1) / 2
+        fwd += b * (2 * pairs * n + h * (2 * pairs * p + 4 * m * p * n))
+        bwd += b * (3 * 2 * pairs * n + h * (2 * 2 * pairs * p
+                                             + 5 * 2 * m * p * n))
+    return fwd, bwd
+
+
+def _ssd_cases(torch, rec, gen):
+    """K6 (with and without its h_in export) and K7 at mamba2-780m's
+    shapes (48 heads of 64, state 128): the training step's B=2 S=2048
+    q=256, a prefill of 175 tokens (q = 175, one ragged chunk) and one of
+    300 (q = 256, a padded second chunk, through the ops-level pad/slice
+    of ``ops.scan_ssd`` on both sides).  No single PyTorch call computes
+    the SSD scan, so neither has a library time."""
+    from repro_torch.kernels import ops, ref
+    h, p, n = 48, 64, 128
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    for b, s, q in ((SSM_B, SSM_S, 256), (1, 175, 175), (1, 300, 256)):
+        x, B, C = randn(b, s, h, p), randn(b, s, n), randn(b, s, n)
+        dA, h0 = -0.3 * randn(b, s, h).abs(), 0.1 * randn(b, h, p, n)
+        nc = -(-s // q)
+        fwd, bwd = ssd_work(b, s, h, p, n, q)
+        io = 4 * (2 * b * s * n + 2 * b * s * h * p + b * s * h
+                  + 2 * b * h * p * n)
+        if s % q:
+            _case(torch, rec, "K6", "float32", ("K6", "float32"),
+                  lambda: ops.scan_ssd(x, dA, B, C, init_state=h0, chunk=q),
+                  lambda: _plain(ops, ops.scan_ssd, x, dA, B, C,
+                                 init_state=h0, chunk=q),
+                  None, fwd, io,
+                  f"K6 float32 B={b} S={s} (padded) q={q} h={h} p={p} n={n}")
+            continue
+        for export in (False, True):
+            _case(torch, rec, "K6", "float32", ("K6", "float32"),
+                  lambda: ops.ssd_scan_chunked(x, dA, B, C, h0, q,
+                                               export)[:2 + export],
+                  lambda: ref.ssd_scan(x, dA, B, C, h0, q,
+                                       export)[:2 + export],
+                  None, fwd, io + export * 4 * b * nc * h * p * n,
+                  f"K6 float32 B={b} S={s} q={q} h={h} p={p} n={n}"
+                  + (" export" if export else ""))
+        if b == SSM_B:
+            _, _, h_in = ops.ssd_scan_chunked(x, dA, B, C, h0, q, True)
+            dy, dhf = randn(b, s, h, p), randn(b, h, p, n)
+            args = (C, B, dy, x, dA, h_in, dhf)
+            again = ops.ssd_bwd_chunked(*args)
+            _case(torch, rec, "K7", "float32", ("K7", "float32"),
+                  lambda: ops.ssd_bwd_chunked(*args),
+                  lambda: ref.ssd_bwd(*args), None, bwd,
+                  4 * (4 * b * s * n + 3 * b * s * h * p + 2 * b * s * h
+                       + 2 * b * h * p * n + b * nc * h * p * n),
+                  f"K7 float32 B={b} S={s} q={q} h={h} p={p} n={n}")
+            out = ops.ssd_bwd_chunked(*args)
+            require(all(torch.equal(a, o) for a, o in zip(again, out)),
+                    "K7 reruns differ (its head sums must be deterministic)")
+            del h_in, dy, dhf, args, again, out
+        del x, B, C, dA, h0
+
+
+def _plain(ops, fn, *args, **kw):
+    with ops.reference_mode():
+        return fn(*args, **kw)
 
 
 def _attention_training_cases(torch, rec, gen, dt, dname, es):
@@ -289,31 +415,42 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es):
           f"K4 {dname} B={b} S={s} KV=1 G={g} hd={hd} causal")
 
 
-def _gemm_training_cases(torch, rec, gen):
-    """K1 at the training step's T = 1024 rows: the bf16 forward products
-    and the VJP forms, whose cotangent is f32 under bf16 weights and
-    activations (mixed operands).  The library yardstick of a mixed
-    product is torch.matmul on f32 copies of both operands, made outside
-    the timed call."""
-    from repro_torch.kernels import ops, ref
-    t = TRAIN_B * TRAIN_S
+def _gemm_training_cases(torch, rec, gen, label="", t=TRAIN_B * TRAIN_S,
+                         weights=((2048, 2048), (2048, 32768),
+                                  (16384, 2048)), tied_head=(2048, 256000)):
+    """K1 at a training step's ``t`` rows (gemma-2b's T = 1024 by
+    default): the bf16 forward products and the VJP forms, whose cotangent
+    is f32 under bf16 weights and activations (mixed operands), of each
+    ``(k, n)`` weight ``y = x w`` and of a tied head ``y = x table^T``
+    (``(d, V)``, or None).  The library yardstick of a mixed product is
+    torch.matmul on f32 copies of both operands, made outside the timed
+    call."""
     bf, f32 = torch.bfloat16, torch.float32
-    randn = lambda *shape, dt=bf, sc=1.0: (torch.randn(
-        *shape, generator=gen, device="cuda") * sc).to(dt)
     # (label, a shape, a dtype, b shape, b dtype, transpose_a, transpose_b)
-    forms = []
-    for k, n, tb in ((2048, 2048, False), (2048, 32768, False),
-                     (16384, 2048, False), (2048, 256000, True)):
-        forms.append(("fwd", (t, k), bf, (n, k) if tb else (k, n), bf,
-                      False, tb))
-    for k, n in ((2048, 2048), (2048, 32768), (16384, 2048)):
+    forms = [("fwd", (t, k), bf, (k, n), bf, False, False)
+             for k, n in weights]
+    if tied_head:
+        d, v = tied_head
+        forms.append(("fwd", (t, d), bf, (v, d), bf, False, True))
+    for k, n in weights:
         # y = x w: dx = g w^T (transpose_b), dw = x^T g (transpose_a)
         forms.append(("dx", (t, n), f32, (k, n), bf, False, True))
         forms.append(("dw", (t, k), bf, (t, n), f32, True, False))
-    # the tied head y = x table^T: dx = g table, dw = g^T x
-    forms.append(("dx head", (t, 256000), f32, (256000, 2048), bf, False,
-                  False))
-    forms.append(("dw head", (t, 256000), f32, (t, 2048), bf, True, False))
+    if tied_head:
+        # the tied head y = x table^T: dx = g table, dw = g^T x
+        forms.append(("dx head", (t, v), f32, (v, d), bf, False, False))
+        forms.append(("dw head", (t, v), f32, (t, d), bf, True, False))
+    _gemm_forms(torch, rec, gen, f"K1 {label}train", forms)
+
+
+def _gemm_forms(torch, rec, gen, prefix, forms):
+    """Each K1 form ``(label, a shape, a dtype, b shape, b dtype,
+    transpose_a, transpose_b)`` against its plain version, at the bf16
+    tolerance."""
+    from repro_torch.kernels import ops, ref
+    f32 = torch.float32
+    randn = lambda *shape, dt, sc=1.0: (torch.randn(
+        *shape, generator=gen, device="cuda") * sc).to(dt)
     for label, ash, adt, bsh, bdt, ta, tb in forms:
         a = randn(*ash, dt=adt)
         b = randn(*bsh, dt=bdt, sc=ash[0 if ta else 1] ** -0.5)
@@ -333,9 +470,26 @@ def _gemm_training_cases(torch, rec, gen):
               2.0 * m * n * k,
               a.numel() * a.element_size() + b.numel() * b.element_size()
               + m * n * 4,
-              f"K1 train {label} {str(adt)[6:]}x{str(bdt)[6:]} m={m} k={k} "
+              f"{prefix} {label} {str(adt)[6:]}x{str(bdt)[6:]} m={m} k={k} "
               f"n={n} ta={int(ta)} tb={int(tb)}")
         del a, b, a32, b32, al, bl
+
+
+def _ssm_gemm_cases(torch, rec, gen):
+    """K1 at mamba2-780m's products: w_in (1536, 6448), w_out (3072,
+    1536) and the untied head (1536, 50280), bf16, at the served rows (1
+    a slot's decode step, 3 the conv tail, 175 and 300 two prefills; the
+    head reads the last position only) and at the training step's 4,096
+    rows with the VJP forms."""
+    bf = torch.bfloat16
+    w_in, w_out, head = (1536, 6448), (3072, 1536), (1536, 50280)
+    forms = [("fwd", (m, k), bf, (k, n), bf, False, False)
+             for m, ws in ((1, (w_in, w_out, head)), (3, (w_in,)),
+                           (175, (w_in, w_out)), (300, (w_in, w_out)))
+             for k, n in ws]
+    _gemm_forms(torch, rec, gen, "K1 mamba2 serve", forms)
+    _gemm_training_cases(torch, rec, gen, "mamba2 ", SSM_B * SSM_S,
+                         (w_in, w_out, head), None)
 
 
 def phase_path(torch):
@@ -346,6 +500,8 @@ def phase_path(torch):
     from repro_torch.serving import PagePool, ServeEngine, pages_needed
 
     cfg = gemma_2b.full()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = transformer.init_lm(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -391,8 +547,9 @@ def phase_path(torch):
                 in zip(rids, reqs)), "a request did not get max_new tokens")
     require(all(launches[k] > 0 for k in ("K1", "K2", "K5")),
             f"a kernel of the path never launched: {launches}")
-    require(launches["K3"] == launches["K4"] == 0,
+    require(launches["K3"] == launches["K4"] == launches["K7"] == 0,
             f"serving launched a backward kernel: {launches}")
+    require(launches["K6"] == 0, f"gemma serving launched K6: {launches}")
     require(launches["K5"] == cfg.n_layers * decode_steps,
             f"K5 launches {launches['K5']} != n_layers x decode steps")
     require(launches["K2"] == cfg.n_layers * prefills,
@@ -579,7 +736,8 @@ def phase_train(torch):
     # K1 per step: 6 products a layer + the head forward, the 6 L again
     # under remat, and 2 VJP products for each of the 6 L + 1
     want = {"K1": n * (6 * L + 1 + 6 * L + 2 * (6 * L + 1)),
-            "K2": n * 2 * L, "K3": n * L, "K4": n * L, "K5": 0}
+            "K2": n * 2 * L, "K3": n * L, "K4": n * L, "K5": 0, "K6": 0,
+            "K7": 0}
     print(f"[train] launches over {n} steps {launches} (derived {want})",
           flush=True)
     require(launches == want, "kernel launches differ from the derived "
@@ -605,6 +763,425 @@ def phase_train(torch):
           f"TFLOP/s = {ops_ms:.3f} ms + AdamW {bytes_opt / 1e9:.3f} GB at "
           f"3.35 TB/s = {opt_ms:.3f} ms = {ops_ms + opt_ms:.3f} ms", flush=True)
     profile_step(torch, lambda: step(state, batches[0]), n=1, what="train")
+    return launches
+
+
+def _ssm_model(torch, trainable=False):
+    from repro_torch.configs import mamba2_780m
+    from repro_torch.models import transformer
+    cfg = mamba2_780m.full()
+    params = transformer.init_lm(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        trainable=trainable)
+    return cfg, params
+
+
+def phase_ssm_path(torch):
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving import ServeEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = _ssm_model(torch)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"[ssm_path] mamba2-780m full width: {n_params / 1e6:.1f} M params "
+          f"bf16, init {time.perf_counter() - t0:.1f} s", flush=True)
+    engine = ServeEngine(cfg, params, max_slots=4, max_len=512)
+    rng = np.random.default_rng(0)
+    # one prompt over one chunk (256): its prefill crosses a chunk boundary
+    # and pads its last chunk; the others are one ragged chunk each
+    lens = [300] + [int(n) for n in rng.integers(32, 201, 5)]
+    reqs = [(rng.integers(0, cfg.vocab_size, n).tolist(),
+             int(rng.integers(16, 33))) for n in lens]
+    print(f"[ssm_path] prompts {[len(p) for p, _ in reqs]} max_new "
+          f"{[n for _, n in reqs]}", flush=True)
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    clock = lambda: time.perf_counter() - t0
+    rids = [engine.submit(p, n, now=0.0) for p, n in reqs]
+    iters, first_seen, decode_only = 0, {}, []
+    while not engine.idle:
+        waiting, t_it = len(engine._waiting), time.perf_counter()
+        emitted = engine.step(clock())   # ends in the iteration's host read
+        if len(engine._waiting) == waiting:      # admitted nothing
+            decode_only.append(time.perf_counter() - t_it)
+        iters += 1
+        for rid, _ in emitted:
+            first_seen.setdefault(rid, clock())
+    torch.cuda.synchronize()
+    wall = clock()
+    launches = dict(ops.LAUNCHES)
+    results = engine.results()
+    n_tok = sum(len(results[r]["tokens"]) for r in rids)
+    ttft = [first_seen[r] for r in rids]      # all six submitted at t = 0
+    prefills = len(rids)
+    slot_steps = engine.kernel_calls
+    print(f"[ssm_path] {n_tok} tokens in {wall:.3f} s over {iters} "
+          f"iterations: {n_tok / wall:.1f} tok/s; TTFT p50 "
+          f"{np.percentile(ttft, 50):.4f} s max {max(ttft):.4f} s; decode-"
+          f"only iterations {len(decode_only)}, mean "
+          f"{1e3 * sum(decode_only) / max(1, len(decode_only)):.3f} ms "
+          f"(host clock, 1-4 live slots); slot decode steps {slot_steps}; "
+          f"launches {launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    require(all(len(results[r]["tokens"]) == n for r, (_, n)
+                in zip(rids, reqs)), "a request did not get max_new tokens")
+    L = cfg.n_layers
+    # K1 a prefill: w_in, w_out and the conv tail's w_in a layer, and the
+    # head; a slot's decode step: w_in and w_out a layer, and the head
+    want = {"K1": prefills * (3 * L + 1) + slot_steps * (2 * L + 1),
+            "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": L * prefills, "K7": 0}
+    print(f"[ssm_path] launches {launches} (derived {want})", flush=True)
+    require(launches == want, "ssm serving launches differ from the derived "
+            "counts")
+
+    with torch.inference_mode():
+        # the 300-token prompt (two chunks, the second padded)
+        prompt = torch.tensor([reqs[0][0]], device="cuda")
+        tok = torch.tensor([results[rids[0]]["tokens"][0]], device="cuda")
+        _ssm_agreement(torch, cfg, params, prompt, tok)
+        _ssm_layers(torch, cfg, params, prompt, tok)
+        torch.cuda.empty_cache()
+
+        # one decode iteration of 4 slots (the engine's per-slot loop
+        # without its host read) under the "error" sync debug mode
+        slots = []
+        for p, _ in reqs[1:5]:
+            lg, c = transformer.prefill(params, cfg,
+                                        torch.tensor([p], device="cuda"))
+            slots.append([lg.argmax(-1),
+                          transformer.prefill_cache_to_decode(cfg, c, 512)])
+
+        def iteration():
+            picks = []
+            for sl in slots:
+                logits, sl[1] = transformer.decode_step(params, cfg, sl[0],
+                                                        None, sl[1])
+                sl[0] = torch.argmax(logits, dim=-1)
+                picks.append(sl[0])
+            return torch.cat(picks)
+
+        iteration()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            iteration()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        print("[ssm_path] decode iteration (4 slots) ran with no host sync "
+              "(sync debug mode 'error')", flush=True)
+        it_ms = time_ms(torch, iteration)
+        b_ms, _ = bound(0.0, w_bytes, "bfloat16")
+        print(f"[ssm_path] decode iteration (4 slots, per-slot steps): "
+              f"{it_ms:.3f} ms; weight bytes {w_bytes / 1e9:.3f} GB -> "
+              f"bound {b_ms:.3f} ms (read once), {4 * b_ms:.3f} ms (once a "
+              f"slot)", flush=True)
+        profile_step(torch, iteration, what="ssm decode")
+    return launches
+
+
+def _f32_copy(params, trainable=False):
+    """The same weights in float32 (every bf16 value is exact in f32)."""
+    from repro_torch.models import transformer
+    tensors = {}
+    for name, p in params.named_parameters():
+        group, leaf = name.rsplit(".", 1)
+        tensors.setdefault(group, {})[leaf] = p.detach().float()
+    return transformer.build_params(tensors, trainable)
+
+
+def _plain_if(ops, plain):
+    return ops.reference_mode() if plain else contextlib.nullcontext()
+
+
+def _rel(torch, a, b, norm=False):
+    """max|a - b| / max|b| (or the ratio of the norms)."""
+    a, b = a.float(), b.float()
+    if norm:
+        return ((a - b).norm() / b.norm()).item()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def _ratio(kern, wit):
+    return kern / wit if wit else (0.0 if not kern else math.inf)
+
+
+def _ssm_agreement(torch, cfg, params, prompt, tok):
+    """One prefill (logits, state, conv tail) and one decode step of
+    ``tok`` from its cache, through the kernels and the plain versions, in
+    the served bf16 and on its weights in f32: f32 kernels against f32
+    plain tightly; bf16 kernels against the f32 plain path beside the
+    plain bf16 path's own distance from it (the witness)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    cf, pf = cfg.with_(dtype="float32"), _f32_copy(params)
+    out = {}
+    for c, prm in ((cf, pf), (cfg, params)):
+        for plain in (False, True):
+            with _plain_if(ops, plain):
+                lg, cache = transformer.prefill(prm, c, prompt)
+                dec, _ = transformer.decode_step(
+                    prm, c, tok, None,
+                    transformer.prefill_cache_to_decode(c, cache, 512))
+            require(bool(torch.isfinite(lg).all() and torch.isfinite(dec)
+                         .all()), f"{c.dtype} logits not finite")
+            out[c.dtype, plain] = {"prefill logits": lg, "decode logits":
+                                   dec, "state": cache.state,
+                                   "conv tail": cache.conv}
+    del pf
+    require(int(out["bfloat16", False]["prefill logits"][0].argmax())
+            == int(tok[0]), "engine's first token differs from a fresh "
+            "prefill's")
+    n = prompt.shape[1]
+    for what, ref32 in out["float32", True].items():
+        err = _rel(torch, out["float32", False][what], ref32)
+        print(f"[ssm_path] float32 {what} {tuple(ref32.shape)} kernels vs "
+              f"plain ({n}-token prompt): {err:.3e} of max|plain| (tol "
+              f"{SSM_F32_TOL:g})", flush=True)
+        require(err <= SSM_F32_TOL, f"float32 {what} disagrees with plain")
+        kern = _rel(torch, out["bfloat16", False][what], ref32)
+        wit = _rel(torch, out["bfloat16", True][what], ref32)
+        both = _rel(torch, out["bfloat16", False][what],
+                    out["bfloat16", True][what])
+        print(f"[ssm_path] bfloat16 {what}, max|diff| / max|f32 plain|: "
+              f"kernels vs f32 {kern:.3e}, plain bf16 vs f32 {wit:.3e} "
+              f"(ratio {_ratio(kern, wit):.3f}, tol {SSM_BF16_RATIO:g}); "
+              f"kernels vs "
+              f"plain bf16 {both:.3e}", flush=True)
+        require(kern <= SSM_BF16_RATIO * wit, f"bfloat16 {what}: the "
+                f"kernels sit farther from the f32 function than plain bf16")
+
+
+def _ssm_layers(torch, cfg, params, prompt, tok):
+    """The served bf16 model layer by layer: each layer's prefill (output,
+    state, conv tail) and decode step (output, state), through the kernels
+    and the plain versions on the same input (the plain path's residual
+    stream and cache), so that nothing compounds."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm, transformer
+    from repro_torch.models.layers import apply_norm, embed_tokens
+    x = embed_tokens(params, prompt, cfg)
+    xd = embed_tokens(params, tok[:, None], cfg)
+    worst = {}
+    for i, lp in enumerate(transformer._layers(params)):
+        h, hd = apply_norm(lp["ln1"], x, cfg), apply_norm(lp["ln1"], xd, cfg)
+        res = []
+        for plain in (False, True):
+            with _plain_if(ops, plain):
+                res.append(ssm.apply_mamba2(lp["mixer"], h, cfg))
+        # the decode step from the plain prefill's cache on both sides
+        cache = res[1][1]
+        for plain in (False, True):
+            with _plain_if(ops, plain):
+                res[plain] += ssm.decode_mamba2(lp["mixer"], hd, cache, cfg)
+        (ok, ck, dk, sk), (op, cp, dp, sp) = res
+        for what, a, b in (("prefill out", ok, op),
+                           ("state", ck.state, cp.state),
+                           ("conv tail", ck.conv, cp.conv),
+                           ("decode out", dk, dp),
+                           ("decode state", sk.state, sp.state)):
+            worst[what] = max(worst.get(what, (0.0, 0)),
+                              (_rel(torch, a, b), i))
+        x, xd = x + op, xd + dp
+    for what, (err, i) in worst.items():
+        print(f"[ssm_path] bfloat16 per layer (the same input on both "
+              f"sides), {what}: worst {err:.3e} of max|plain| at layer {i} "
+              f"(tol {SSM_LAYER_TOL:g})", flush=True)
+        require(err <= SSM_LAYER_TOL, f"bfloat16 layer {i} {what} disagrees "
+                f"with plain")
+
+
+def _ssm_grad_agreement(torch, cfg, params, batch):
+    """Step 1's loss and gradients through the kernels and the plain
+    versions, in bf16 and on its weights in f32: f32 kernels against f32
+    plain tightly; bf16 kernels against the f32 plain gradients beside the
+    plain bf16 ones' own distance from them (the witness).  Returns the
+    bf16 kernels' loss."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_step as ts
+    cf, pf = cfg.with_(dtype="float32"), _f32_copy(params, trainable=True)
+    out = {}
+    for c, prm in ((cf, pf), (cfg, params)):
+        for plain in (False, True):
+            with _plain_if(ops, plain):
+                loss, _, grads = ts.loss_and_grads(prm, c, batch)
+            out[c.dtype, plain] = (loss.item(), grads)
+    del pf
+    (lk, gk), (lp, gp) = out["float32", False], out["float32", True]
+    (lkb, gkb), (lpb, gpb) = out["bfloat16", False], out["bfloat16", True]
+    for dt, a, b in (("float32", lk, lp), ("bfloat16", lkb, lpb)):
+        print(f"[ssm_train] {dt} step-1 loss kernels {a:.6f} plain {b:.6f} "
+              f"rel {abs(a - b) / abs(b):.3e} (tol {LOSS_TOL:g}); f32 plain "
+              f"{lp:.6f}", flush=True)
+        require(abs(a - b) <= LOSS_TOL * abs(b), f"{dt} loss disagrees with "
+                f"plain")
+    worst, worst_ratio = 0.0, 0.0
+    for name in gk:
+        require(bool(torch.isfinite(gk[name]).all()
+                     and torch.isfinite(gkb[name]).all()),
+                f"{name}: non-finite grad")
+        err = _rel(torch, gk[name], gp[name], norm=True)
+        kern = _rel(torch, gkb[name], gp[name], norm=True)
+        wit = _rel(torch, gpb[name], gp[name], norm=True)
+        both = _rel(torch, gkb[name], gpb[name], norm=True)
+        worst = max(worst, err)
+        worst_ratio = max(worst_ratio, _ratio(kern, wit))
+        print(f"[ssm_train]   grad {name} {tuple(gk[name].shape)}, rel norm "
+              f"err: float32 kernels vs plain {err:.3e}; bfloat16 kernels vs "
+              f"f32 plain {kern:.3e}, plain bf16 vs f32 plain {wit:.3e} "
+              f"(ratio {_ratio(kern, wit):.3f}), kernels vs plain bf16 "
+              f"{both:.3e}",
+              flush=True)
+        require(err <= GRAD_TOL, f"{name}: f32 gradient disagrees with plain")
+        require(kern <= SSM_BF16_RATIO * wit, f"{name}: the bf16 kernels' "
+                f"gradient sits farther from the f32 one than plain bf16's")
+    print(f"[ssm_train] step-1 gradients over {len(gk)} leaves: float32 "
+          f"kernels vs plain worst rel norm err {worst:.3e} (tol "
+          f"{GRAD_TOL:g}); bfloat16 worst ratio {worst_ratio:.3f} (tol "
+          f"{SSM_BF16_RATIO:g})", flush=True)
+    return lkb
+
+
+def _ssm_layer_grads(torch, cfg, params, batch):
+    """The bf16 model's VJP layer by layer: each layer (its norm and
+    mixer) gets the plain path's input and one seeded cotangent on both
+    sides, so that nothing compounds; the gradients of its input and of
+    each of its parameters are held to SSM_LAYER_GRAD_TOL."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm, transformer
+    from repro_torch.models.layers import apply_norm, embed_tokens
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    with torch.no_grad():
+        x = embed_tokens(params, batch["tokens"], cfg)
+    worst = {}
+    for i, lp in enumerate(transformer._layers(params)):
+        leaves = {f"{g}.{k}": t.detach().requires_grad_(True)
+                  for g, grp in lp.items() for k, t in grp.items()}
+        lpl = {g: {k: leaves[f"{g}.{k}"] for k in grp}
+               for g, grp in lp.items()}
+        ct = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+        res = []
+        for plain in (False, True):
+            xin = x.detach().requires_grad_(True)
+            with _plain_if(ops, plain):
+                o, _ = ssm.apply_mamba2(
+                    lpl["mixer"], apply_norm(lpl["ln1"], xin, cfg), cfg,
+                    want_cache=False)
+                res.append((o.detach(), torch.autograd.grad(
+                    o, [xin, *leaves.values()], ct)))
+        for name, a, b in zip(["input", *leaves], res[0][1], res[1][1]):
+            worst[name] = max(worst.get(name, (0.0, 0)),
+                              (_rel(torch, a, b, norm=True), i))
+        x = x + res[1][0]
+        del res, leaves, lpl
+    for name, (err, i) in worst.items():
+        print(f"[ssm_train] bfloat16 per-layer VJP (the same input and "
+              f"cotangent on both sides), grad {name}: worst rel norm err "
+              f"{err:.3e} at layer {i} (tol {SSM_LAYER_GRAD_TOL:g})",
+              flush=True)
+        require(err <= SSM_LAYER_GRAD_TOL, f"bfloat16 layer {i} grad {name} "
+                f"disagrees with plain")
+
+
+def phase_ssm_train(torch):
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.hardware import H100, H100_PEAK_FLOPS
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+    from repro_torch.train import train_step as ts
+
+    cfg, params = _ssm_model(torch, trainable=True)
+    require(cfg.remat, "mamba2-780m trains with remat on")
+    data = SyntheticLM(PipelineConfig(cfg.vocab_size, SSM_S, SSM_B, seed=0))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                data.global_batch(i).items()} for i in range(TRAIN_STEPS)]
+    n_params = sum(p.numel() for p in params.parameters())
+    tokens = SSM_B * SSM_S
+
+    # step 1's loss and gradients against the plain path (f32, and bf16
+    # beside its witness), then the bf16 VJP layer by layer
+    lk = _ssm_grad_agreement(torch, cfg, params, batches[0])
+    _ssm_layer_grads(torch, cfg, params, batches[0])
+    torch.cuda.empty_cache()
+
+    state = ts.init_state(cfg, params, "cuda")
+    step = ts.make_train_step(cfg)
+    before = {k: t.reshape(-1)[:4096].clone()
+              for k, t in state.opt.master.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rows = []
+    for i, batch in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if i == len(batches) - 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            start.record()
+            state, metrics = step(state, batch)
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
+        rows.append((ms, loss, gnorm))
+        print(f"[ssm_train] step {i + 1}: {ms:.3f} ms, {tokens / ms * 1e3:.1f}"
+              f" tok/s, loss {loss:.6f}, grad_norm {gnorm:.6f}", flush=True)
+        require(math.isfinite(loss) and math.isfinite(gnorm),
+                f"step {i + 1}: loss or grad norm not finite")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print("[ssm_train] step 3 ran with no host sync (sync debug mode "
+          "'error')", flush=True)
+    require(abs(rows[0][1] - lk) <= 1e-6 * abs(lk), f"step 1's loss "
+            f"{rows[0][1]} != the kernels' loss_and_grads {lk}")
+    changed = sum(not torch.equal(before[k], t.reshape(-1)[:4096])
+                  for k, t in state.opt.master.items())
+    require(changed == len(before), f"only {changed} of {len(before)} f32 "
+            f"master leaves changed")
+    L, n = cfg.n_layers, TRAIN_STEPS
+    # K1 a step: w_in and w_out a layer and the head forward, the 2 L
+    # again under remat, and 2 VJP products for each of the 2 L + 1 (the
+    # loss asks for no cache: no conv-tail product); K6 a layer in the
+    # forward and again in its remat rerun; K7 once a layer
+    want = {"K1": n * (2 * L + 1 + 2 * L + 2 * (2 * L + 1)), "K2": 0,
+            "K3": 0, "K4": 0, "K5": 0, "K6": n * 2 * L, "K7": n * L}
+    print(f"[ssm_train] launches over {n} steps {launches} (derived {want})",
+          flush=True)
+    require(launches == want, "kernel launches differ from the derived "
+            "counts")
+
+    # the step's bound, in three parts: the projections and the head (3x
+    # the forward's products) at the bf16 peak; the SSD scans' f32 flops
+    # (forward and reverse scan, what this data needs) at the f32 peak;
+    # AdamW's 28 B a parameter at 3.35 TB/s
+    mm_params = sum(p.numel() for name, p in params.named_parameters()
+                    if name.endswith(("w_in", "w_out", "unembed.w")))
+    h, hp, sn = ssm.n_ssd_heads(cfg), cfg.ssm_head_dim, cfg.ssm_state
+    fwd, bwd = ssd_work(SSM_B, SSM_S, h, hp, sn, cfg.ssm_chunk)
+    mm_ms = 6 * mm_params * tokens / H100_PEAK_FLOPS["bfloat16"] * 1e3
+    ssd_ms = L * (fwd + bwd) / H100_PEAK_FLOPS["float32"] * 1e3
+    opt_ms = n_params * 28 / H100.hbm.bandwidth_Bps * 1e3
+    mean_ms = sum(r[0] for r in rows[1:]) / (len(rows) - 1)
+    print(f"[ssm_train] mamba2-780m full width, {n_params / 1e6:.1f} M params, "
+          f"B={SSM_B} S={SSM_S}: step ms {[round(r[0], 3) for r in rows]} "
+          f"(steps 2-3 mean {mean_ms:.3f} ms, {tokens / mean_ms * 1e3:.1f} "
+          f"tok/s); peak memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"[ssm_train] bound: products {6 * mm_params * tokens / 1e12:.3f} "
+          f"TFLOP at 989 TFLOP/s = {mm_ms:.3f} ms + SSD scans "
+          f"{L * (fwd + bwd) / 1e12:.3f} TFLOP at 67 TFLOP/s = {ssd_ms:.3f} "
+          f"ms + AdamW {n_params * 28 / 1e9:.3f} GB at 3.35 TB/s = "
+          f"{opt_ms:.3f} ms = {mm_ms + ssd_ms + opt_ms:.3f} ms", flush=True)
+    profile_step(torch, lambda: step(state, batches[0]), n=1,
+                 what="ssm train")
     return launches
 
 
@@ -644,6 +1221,10 @@ def main() -> None:
     serve = phase_path(torch)
     torch.cuda.empty_cache()
     train = phase_train(torch)
+    torch.cuda.empty_cache()
+    ssm_serve = phase_ssm_path(torch)
+    torch.cuda.empty_cache()
+    ssm_train = phase_ssm_train(torch)
 
     src = "src/repro_torch/kernels/csrc/"
     head = {"K1": ("K1_gemm", src + "gemm.cu",
@@ -660,15 +1241,24 @@ def main() -> None:
                    "K4 bfloat16 B=2 S=512 KV=1 G=8 hd=256 causal"),
             "K5": ("K5_paged_decode", src + "paged_decode.cu",
                    "src/repro/kernels/emit.py:826",
-                   next(s for s in rec["K5"] if "bfloat16" in s))}
+                   next(s for s in rec["K5"] if "bfloat16" in s)),
+            "K6": ("K6_ssd_scan", src + "ssd.cu",
+                   "src/repro/kernels/emit.py:392",
+                   f"K6 float32 B={SSM_B} S={SSM_S} q=256 h=48 p=64 n=128 "
+                   f"export"),
+            "K7": ("K7_ssd_bwd", src + "ssd.cu",
+                   "src/repro/kernels/emit.py:717",
+                   f"K7 float32 B={SSM_B} S={SSM_S} q=256 h=48 p=64 n=128")}
+    runs = {"path": serve, "train": train, "ssm_path": ssm_serve,
+            "ssm_train": ssm_train}
     kernels = []
     for kid, (name, source, replaces, shape) in head.items():
-        # launches: the serving path's run plus the training path's
+        # launches: the four path runs', each counted from 0
+        by_path = {k: run[kid] for k, run in runs.items()}
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
-                            launches=serve.get(kid, 0) + train[kid],
-                            launches_serve=serve.get(kid, 0),
-                            launches_train=train[kid],
+                            launches=sum(by_path.values()),
+                            launches_by_path=by_path,
                             shape=shape, **rec[kid][shape]))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

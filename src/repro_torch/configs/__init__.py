@@ -1,9 +1,9 @@
 """Model configurations the port serves (one module per architecture, as
 in ``repro.configs``)."""
-from repro_torch.configs import gemma_2b
+from repro_torch.configs import gemma_2b, mamba2_780m
 from repro_torch.configs.common import ArchConfig
 
-ARCHS = {gemma_2b.ARCH_ID: gemma_2b}
+ARCHS = {gemma_2b.ARCH_ID: gemma_2b, mamba2_780m.ARCH_ID: mamba2_780m}
 
 
 def get_config(arch_id: str, reduced: bool = False) -> ArchConfig:

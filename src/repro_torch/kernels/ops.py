@@ -9,10 +9,12 @@ is no fallback: a kernel that cannot take its inputs raises.  Inside
 ``chip_smoke.py`` computes the reference it holds the kernels against on
 the card.
 
-``matmul`` and ``attention`` are differentiable (``torch.autograd.Function``
-, the counterparts of the reference's ``jax.custom_vjp`` rules): the
-matmul's gradients are two more K1 products, and the attention's forward
-saves K2's exported (m, l) statistics for the K3/K4 backward.
+``matmul``, ``attention`` and ``scan_ssd`` are differentiable
+(``torch.autograd.Function``, the counterparts of the reference's
+``jax.custom_vjp`` rules): the matmul's gradients are two more K1
+products, the attention's forward saves K2's exported (m, l) statistics
+for the K3/K4 backward, and the SSD scan's forward saves K6's exported
+per-chunk states for the K7 reverse scan.
 
 ================  =======================  =============================
 entry             kernel (``csrc/``)       replaces (``repro``)
@@ -27,6 +29,9 @@ stats``
 ``flash_dkv``     K4 ``flash_bwd.cu``      ``emit._flash_dkv_kind``
 ``paged_decode_   K5 ``paged_decode.cu``   ``emit._windowed_decode_kind``
 batched``
+``scan_ssd``      K6 ``ssd.cu``            ``emit._ssd_kind`` (with its
+                                           per-chunk ``h_in`` export)
+(its backward)    K7 ``ssd.cu``            ``emit._ssd_backward_kind``
 ================  =======================  =============================
 """
 from __future__ import annotations
@@ -42,7 +47,7 @@ from repro_torch.kernels import build, ref
 
 #: kernel launches since import (or the caller's last reset), by kernel id;
 #: a wrapper adds one exactly where it launches its kernel
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PLAIN = False
@@ -57,6 +62,8 @@ _SIGNATURES = {
     "repro_flash_dkv": ("flash_bwd", [_P] * 9 + [_C] * 6 + [_F, _C, _C, _C]),
     "repro_paged_decode": ("paged_decode", [_P] * 6 + [_C] * 6
                            + [_F, _C, _C]),
+    "repro_ssd_scan": ("ssd", [_P] * 8 + [_C] * 6),
+    "repro_ssd_bwd": ("ssd", [_P] * 14 + [_C] * 6),
 }
 
 
@@ -469,3 +476,161 @@ def paged_decode_batched(q: torch.Tensor, k_pool: torch.Tensor,
             float(scale), int(window), dtype)
     LAUNCHES["K5"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K6: the SSD chunked scan; K7: its reverse scan
+# ---------------------------------------------------------------------------
+
+#: the head width the SSD kernels are written for (every Mamba-2 size),
+#: the widest state and the longest chunk they hold in shared memory
+SSD_HEAD_DIM, SSD_MAX_STATE, SSD_MAX_CHUNK = 64, 128, 256
+
+
+def _check_ssd(what: str, tensors, p: int, n: int, q: int) -> None:
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{what} kernel takes float32 operands, got "
+                        f"{sorted({str(t.dtype) for t in tensors})}")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} kernel takes contiguous operands")
+    if p != SSD_HEAD_DIM or not 0 < n <= SSD_MAX_STATE or \
+            not 0 < q <= SSD_MAX_CHUNK:
+        raise ValueError(f"{what} kernel takes head_dim {SSD_HEAD_DIM}, "
+                         f"state <= {SSD_MAX_STATE} and chunk <= "
+                         f"{SSD_MAX_CHUNK}, got p={p} n={n} q={q}")
+
+
+def ssd_scan_chunked(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
+                     C: torch.Tensor, h0: torch.Tensor, chunk: int,
+                     export_h_in: bool = False):
+    """K6 or its plain version on a sequence already padded to a multiple
+    of ``chunk``: ``xdt (b, S, h, p)``, ``dA (b, S, h)``, ``B/C (b, S,
+    n)``, ``h0 (b, h, p, n)``, f32 and contiguous.  Returns ``(y (b, S, h,
+    p), final (b, h, p, n), h_in (b, S // chunk, h, p, n) | None)``; the
+    ``h_in`` export changes neither ``y`` nor ``final`` by a bit."""
+    if not _use_kernel(xdt, dA, B, C, h0):
+        return ref.ssd_scan(xdt, dA, B, C, h0, chunk, export_h_in)
+    b, s, h, p = xdt.shape
+    n = B.shape[-1]
+    _check_ssd("ssd_scan", (xdt, dA, B, C, h0), p, n, chunk)
+    if s % chunk:
+        raise ValueError(f"ssd_scan kernel takes S = {s} a multiple of the "
+                         f"chunk {chunk}")
+    y = torch.empty_like(xdt)
+    final = torch.empty_like(h0)
+    h_in = (torch.empty((b, s // chunk, h, p, n), device=xdt.device,
+                        dtype=torch.float32) if export_h_in else None)
+    _launch("repro_ssd_scan", C.data_ptr(), B.data_ptr(), xdt.data_ptr(),
+            dA.data_ptr(), h0.data_ptr(), y.data_ptr(), final.data_ptr(),
+            h_in.data_ptr() if export_h_in else None, b, s, h, p, n, chunk)
+    LAUNCHES["K6"] += 1
+    return y, final, h_in
+
+
+def ssd_bwd_chunked(C: torch.Tensor, B: torch.Tensor, dY: torch.Tensor,
+                    X: torch.Tensor, dA: torch.Tensor, Hin: torch.Tensor,
+                    dHf: torch.Tensor):
+    """K7 or its plain version: the reverse scan over a padded sequence in
+    forward order (``C/B (b, S, n)``, ``dY/X (b, S, h, p)``, ``dA (b, S,
+    h)``, ``Hin (b, nc, h, p, n)`` from K6's export, ``dHf (b, h, p,
+    n)``; the chunk is ``S // nc``).  Returns ``(dX, dh0, dB, dC, ddA)``
+    f32.  The kernel walks the chunks backwards itself (no flipped
+    copies); ``dB``/``dC``, sums over every head, come from per-head
+    partials summed in a fixed order by a second pass, so reruns are
+    bit-identical."""
+    if not _use_kernel(C, B, dY, X, dA, Hin, dHf):
+        return ref.ssd_bwd(C, B, dY, X, dA, Hin, dHf)
+    b, s, h, p = X.shape
+    n = B.shape[-1]
+    nc = Hin.shape[1]
+    if not nc or s % nc or Hin.shape != (b, nc, h, p, n):
+        raise ValueError(f"ssd_bwd kernel: Hin {tuple(Hin.shape)} does not "
+                         f"split S = {s} into chunks")
+    _check_ssd("ssd_bwd", (C, B, dY, X, dA, Hin, dHf), p, n, s // nc)
+    dX, dh0 = torch.empty_like(X), torch.empty_like(dHf)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    ddA = torch.empty_like(dA)
+    # per-head partials of dB and dC, summed over the heads by the
+    # kernel's second pass
+    parts = torch.empty((2, b, h, s, n), device=X.device,
+                        dtype=torch.float32)
+    _launch("repro_ssd_bwd", C.data_ptr(), B.data_ptr(), dY.data_ptr(),
+            X.data_ptr(), dA.data_ptr(), Hin.data_ptr(), dHf.data_ptr(),
+            dX.data_ptr(), dh0.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            ddA.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), b, s,
+            h, p, n, s // nc)
+    LAUNCHES["K7"] += 1
+    return dX, dh0, dB, dC, ddA
+
+
+def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """``t`` zero-padded by ``pad`` positions along its sequence axis (dim
+    1), contiguous."""
+    if not pad:
+        return t.contiguous()
+    shape = list(t.shape)
+    shape[1] = pad
+    return torch.cat([t, t.new_zeros(shape)], dim=1)
+
+
+def _scan_padded(xdt, dA, B, C, h0, chunk, export_h_in):
+    """The ops-level pad/slice contract around K6: the sequence pads to a
+    multiple of the chunk with the identity step (zero input, zero log
+    decay) and ``y`` is sliced back."""
+    s = xdt.shape[1]
+    pad = (-s) % chunk
+    y, final, h_in = ssd_scan_chunked(
+        *(_pad_seq(t, pad) for t in (xdt, dA, B, C)), h0.contiguous(),
+        chunk, export_h_in)
+    return y[:, :s], final, h_in
+
+
+class _ScanSSD(torch.autograd.Function):
+    """The SSD scan with the reference's derived VJP (``_ssd_kernel_fwd``
+    / ``_ssd_kernel_bwd``): the forward runs K6 with the per-chunk state
+    export and saves ``(xdt, dA, B, C, h_in)``; the backward runs K7,
+    seeded with the final-state cotangent."""
+
+    @staticmethod
+    def forward(ctx, xdt, dA, B, C, h0, chunk):
+        y, final, h_in = _scan_padded(xdt, dA, B, C, h0, chunk, True)
+        ctx.save_for_backward(xdt, dA, B, C, h_in)
+        ctx.pad = (-xdt.shape[1]) % chunk
+        return y, final
+
+    @staticmethod
+    def backward(ctx, gy, gfinal):
+        xdt, dA, B, C, h_in = ctx.saved_tensors
+        pad, s = ctx.pad, xdt.shape[1]
+        dX, dh0, dB, dC, ddA = ssd_bwd_chunked(
+            *(_pad_seq(t, pad) for t in (C, B, gy.float(), xdt, dA)), h_in,
+            gfinal.float().contiguous())
+        return (dX[:, :s].to(xdt.dtype), ddA[:, :s].to(dA.dtype),
+                dB[:, :s].to(B.dtype), dC[:, :s].to(C.dtype), dh0, None)
+
+
+def scan_ssd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, *, init_state: torch.Tensor | None = None,
+             chunk: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-2 SSD chunked scan (``repro.kernels.ops.scan_ssd``).
+
+    ``xdt (B, S, H, P)`` the dt-folded input, ``dA (B, S, H)`` the log
+    decay, ``B/C (B, S, N)`` the state projections, all f32; returns ``(y
+    (B, S, H, P), final state (B, H, P, N))`` f32.  Any ``S``: the
+    sequence pads to a multiple of the chunk with the identity step (zero
+    input, zero log decay) and ``y`` is sliced back.  Differentiable in
+    all five inputs: when a gradient is wanted the forward exports the
+    per-chunk entering states and the backward runs K7."""
+    b, s, h, p = xdt.shape
+    if chunk is None:
+        raise NotImplementedError(
+            "the derived SSD chunk (ssm_chunk = 0, ops.default_ssd_chunk) "
+            "is not ported; pass the config's chunk (ROADMAP.md, Queue 1)")
+    chunk = max(1, min(int(chunk), s))
+    if init_state is None:
+        init_state = xdt.new_zeros((b, h, p, B.shape[-1]))
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xdt, dA, B, C, init_state)):
+        return _ScanSSD.apply(xdt, dA, B, C, init_state, chunk)
+    y, final, _ = _scan_padded(xdt, dA, B, C, init_state, chunk, False)
+    return y, final

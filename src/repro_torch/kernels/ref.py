@@ -6,7 +6,8 @@ the wrappers in ``kernels/ops.py`` and, on the card, the reference
 ``chip_smoke.py`` holds each kernel against.  Counterparts in the JAX
 package: ``ops._xla_matmul_f32``, ``models.chunked_attention`` /
 ``ops._oracle_attention``, ``kernels.ref.flash_dq_ref`` /
-``flash_dkv_ref`` and ``ops._batched_oracle``.
+``flash_dkv_ref``, ``ops._batched_oracle``, ``kernels.ref.ssd_scan_ref``
+and ``ssd_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -143,3 +144,124 @@ def paged_decode_batched(q: torch.Tensor, k_pool: torch.Tensor,
     o = torch.einsum("shgj,sjhd->shgd", p.to(v.dtype).float(), v.float())
     o = o / l.clamp_min(1e-30)
     return torch.where((pos >= 0)[:, None, None, None], o, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the SSD (Mamba-2) chunked scan and its reverse scan
+# ---------------------------------------------------------------------------
+
+def _ssd_chunk_factors(dab: torch.Tensor, Cb: torch.Tensor,
+                       Bb: torch.Tensor, tril: torch.Tensor):
+    """One chunk's forward factoring, in the reference's order: ``csh``
+    the in-chunk cumulative log decay ``(b, h, q)``, the masked segsum
+    decay ``L (b, h, q, q)``, the scores ``G = C.B' (b, q, q)``, ``P = G
+    L``, ``in_decay = exp(csh)``, ``total`` ``(b, h)`` and the decay to
+    the chunk's end ``decay_states (b, h, q)``."""
+    csh = torch.cumsum(dab, dim=1).transpose(1, 2)             # (b, h, i)
+    seg = csh[..., :, None] - csh[..., None, :]                # (b, h, i, j)
+    L = torch.exp(torch.where(tril, seg, MASK_NEG_INF))
+    G = torch.einsum("bin,bjn->bij", Cb, Bb)
+    P = G[:, None] * L
+    in_decay = torch.exp(csh)
+    total = csh[..., -1]
+    decay_states = torch.exp(total[..., None] - csh)
+    return csh, L, G, P, in_decay, total, decay_states
+
+
+def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, h0: torch.Tensor, chunk: int,
+             export_h_in: bool = False):
+    """The chunked SSD scan (the semantics of ``repro.kernels.ref.
+    ssd_scan_ref``, step for step): ``xdt (b, S, h, p)`` the dt-folded
+    input, ``dA (b, S, h)`` the log decay, ``B/C (b, S, n)``, ``h0 (b, h,
+    p, n)``, all f32, with ``S`` a multiple of ``chunk``.  Returns ``(y
+    (b, S, h, p), final state (b, h, p, n), h_in (b, nc, h, p, n) | None)``
+    where ``h_in[:, c]`` is the state entering chunk ``c`` (the
+    checkpoints the reverse scan replays from)."""
+    b, s, h, p = xdt.shape
+    n = B.shape[-1]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    nc, q = s // chunk, chunk
+    xc = xdt.float().reshape(b, nc, q, h, p)
+    dac = dA.float().reshape(b, nc, q, h)
+    Bc = B.float().reshape(b, nc, q, n)
+    Cc = C.float().reshape(b, nc, q, n)
+    tril = torch.ones(q, q, dtype=torch.bool, device=xdt.device).tril()
+    h_prev = h0.float()
+    ys, h_in = [], []
+    for c in range(nc):
+        xb, Bb, Cb = xc[:, c], Bc[:, c], Cc[:, c]
+        if export_h_in:
+            h_in.append(h_prev)
+        _, _, _, P, in_decay, total, decay_states = _ssd_chunk_factors(
+            dac[:, c], Cb, Bb, tril)
+        y = torch.einsum("bhij,bjhp->bihp", P, xb)
+        t_off = torch.einsum("bin,bhpn->bihp", Cb, h_prev)
+        y = y + t_off * in_decay.transpose(1, 2)[..., None]
+        xd = xb * decay_states.transpose(1, 2)[..., None]
+        S = torch.einsum("bjn,bjhp->bhpn", Bb, xd)
+        h_prev = torch.exp(total)[..., None, None] * h_prev + S
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(b, s, h, p)
+    return y, h_prev, (torch.stack(h_in, dim=1) if export_h_in else None)
+
+
+def ssd_bwd(C: torch.Tensor, B: torch.Tensor, dY: torch.Tensor,
+            X: torch.Tensor, dA: torch.Tensor, Hin: torch.Tensor,
+            dHf: torch.Tensor):
+    """The SSD reverse scan (the semantics of ``repro.kernels.ref.
+    ssd_bwd_ref``, einsum for einsum), over operands in forward order:
+    ``C/B (b, S, n)``, ``dY/X (b, S, h, p)``, ``dA (b, S, h)``, the saved
+    entering states ``Hin (b, nc, h, p, n)`` (the chunk is ``S // nc``)
+    and the final-state cotangent ``dHf (b, h, p, n)``, all f32.  Walks
+    the chunks from last to first carrying the state cotangent ``dh``,
+    replaying each chunk's forward factoring from its ``Hin``.  Returns
+    ``(dX (b, S, h, p), dh0 (b, h, p, n), dB (b, S, n), dC (b, S, n),
+    ddA (b, S, h))`` f32, in forward order."""
+    b, s, n = C.shape
+    h, p = X.shape[2:]
+    nc = Hin.shape[1]
+    q = s // nc
+    rs = lambda t, *tail: t.float().reshape(b, nc, q, *tail)
+    Cc, Bc, dYc, Xc, dAc = (rs(C, n), rs(B, n), rs(dY, h, p), rs(X, h, p),
+                            rs(dA, h))
+    tril = torch.ones(q, q, dtype=torch.bool, device=C.device).tril()
+    last = torch.arange(q, device=C.device)[None, :] == q - 1
+    dh = dHf.float()
+    dX, dB, dC, ddA = [None] * nc, [None] * nc, [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        Cb, Bb, dYb, Xb, Hc = Cc[:, c], Bc[:, c], dYc[:, c], Xc[:, c], \
+            Hin[:, c].float()
+        _, L, G, P, in_decay, total, decay_states = _ssd_chunk_factors(
+            dAc[:, c], Cb, Bb, tril)
+        t_off = torch.einsum("bin,bhpn->bihp", Cb, Hc)
+        Xd = Xb * decay_states.transpose(1, 2)[..., None]
+        dtotal = torch.einsum("bhpn,bhpn->bh", dh, Hc) * torch.exp(total)
+        dh_prev = torch.exp(total)[..., None, None] * dh
+        dBb = torch.einsum("bhpn,bjhp->bjn", dh, Xd)
+        dXd = torch.einsum("bjn,bhpn->bjhp", Bb, dh)
+        dXb = dXd * decay_states.transpose(1, 2)[..., None]
+        ddec = torch.einsum("bjhp,bjhp->bhj", dXd, Xb)
+        dtotal = dtotal + torch.sum(ddec * decay_states, dim=2)
+        dcsh = -(ddec * decay_states)
+        dt_off = dYb * in_decay.transpose(1, 2)[..., None]
+        din_decay = torch.sum(dYb * t_off, dim=-1).transpose(1, 2)
+        dcsh = dcsh + din_decay * in_decay
+        dCb = torch.einsum("bihp,bhpn->bin", dt_off, Hc)
+        dh_prev = dh_prev + torch.einsum("bin,bihp->bhpn", Cb, dt_off)
+        dP = torch.einsum("bihp,bjhp->bhij", dYb, Xb)
+        dXb = dXb + torch.einsum("bhij,bihp->bjhp", P, dYb)
+        dG = torch.sum(dP * L, dim=1)
+        dL = dP * G[:, None]
+        dseg = torch.where(tril, dL * L, 0.0)
+        dcsh = dcsh + dseg.sum(dim=3) - dseg.sum(dim=2)
+        dCb = dCb + torch.einsum("bij,bjn->bin", dG, Bb)
+        dBb = dBb + torch.einsum("bij,bin->bjn", dG, Cb)
+        dcsh = dcsh + torch.where(last, dtotal[..., None], 0.0)
+        ddA[c] = torch.flip(torch.cumsum(torch.flip(dcsh, dims=(2,)), dim=2),
+                            dims=(2,)).transpose(1, 2)
+        dX[c], dB[c], dC[c] = dXb, dBb, dCb
+        dh = dh_prev
+    cat = lambda ts, *tail: torch.stack(ts, dim=1).reshape(b, s, *tail)
+    return cat(dX, h, p), dh, cat(dB, n), cat(dC, n), cat(ddA, h)

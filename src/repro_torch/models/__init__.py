@@ -1,2 +1,3 @@
-"""Model assembly for the port: layers, attention and the dense decoder LM
-(``repro.models`` counterparts)."""
+"""Model assembly for the port: layers, attention, the Mamba-2 block and
+the decoder LM of the dense and ssm families (``repro.models``
+counterparts)."""

@@ -19,8 +19,13 @@ Under page pressure the engine preempts: the youngest other running
 sequence is evicted (slabs freed, request re-queued with its tokens so
 far) and re-prefills when re-admitted — recompute preemption.
 
-Only the batched paged path of dense GQA/MQA models is ported: contiguous
-per-slot families and ``batched=False`` raise ``NotImplementedError``.
+The ssm family (Mamba-2) has no paged view: each slot holds its own
+contiguous cache (the conv tail and the SSD state, carried forward from
+its prefill) and decodes alone, one ``decode_step`` per slot, with the
+greedy argmax on the device and still ONE host transfer per iteration
+after every slot has launched.  Each slot's next input token stays on the
+device.  Other contiguous families and ``batched=False`` on the paged
+path raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -56,7 +61,10 @@ class _Slot:
     n_emitted: int = 0
     slabs: list = field(default_factory=list)     # the page table
     row: int = -1                                 # stacked-table row
-    first_token: Optional[torch.Tensor] = None    # prefill argmax (device)
+    cache: Optional[dict] = None                  # contiguous families
+    #: the last argmax, (1,) on the device: the prefill's first token, then
+    #: (contiguous families) each decode step's, fed to the next step
+    next_token: Optional[torch.Tensor] = None
 
 
 def _paged_capable(cfg: ArchConfig) -> bool:
@@ -73,7 +81,8 @@ class ServeEngine:
     ``max_len`` bounds any sequence (prompt + generated); ``pool_pages``
     sizes the shared slab pool; ``page=None`` derives the page size on the
     H100 table (``ops.default_decode_page``); ``dtype`` is the pool's
-    (default: the parameters').  The caller supplies timestamps (``now``)
+    (default: the parameters').  The pool and page apply to the paged
+    (dense) path only.  The caller supplies timestamps (``now``)
     so latency metrics use one clock.  ``device`` defaults to ``"cuda"``.
     """
 
@@ -84,34 +93,43 @@ class ServeEngine:
                  eos_id: Optional[int] = None,
                  batched: Optional[bool] = None, device="cuda"):
         self.device = resolve_device(device)
-        if not _paged_capable(cfg):
+        self.paged = _paged_capable(cfg)
+        if not self.paged and cfg.family != "ssm":
             raise NotImplementedError(
                 f"family {cfg.family!r}/{cfg.attention!r} serves through "
-                f"contiguous per-slot caches, which the port does not have "
-                f"yet (ROADMAP.md, Queue 1)")
-        if batched is False:
+                f"contiguous per-slot caches, which the port has for the "
+                f"ssm family only (ROADMAP.md, Queue 1)")
+        if batched and not self.paged:
+            raise ValueError(
+                f"batched decode needs the paged path; family "
+                f"{cfg.family!r} serves contiguous")
+        if batched is False and self.paged:
             raise NotImplementedError(
-                "the per-slot (batched=False) decode path is not ported yet "
-                "(ROADMAP.md, Queue 1)")
+                "the per-slot (batched=False) paged decode path is not "
+                "ported yet (ROADMAP.md, Queue 1)")
         self.cfg = cfg
         self.params = params
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
         self.eos_id = eos_id
-        if dtype is None:
-            dtype = params["embed"]["table"].dtype
-        if page is None:
-            g = cfg.n_heads // max(1, cfg.n_kv_heads)
-            page = min(ops.default_decode_page(
-                self.max_len, cfg.n_kv_heads, max(2, g), cfg.head_dim_,
-                dtype=dtype), self.max_len)
-        self.page = int(page)
-        if pool_pages is None:
-            pool_pages = self.max_slots * pages_needed(self.max_len,
-                                                       self.page)
-        self.pool = PagePool(cfg, pool_pages, self.page, dtype, self.device)
-        #: batched decode steps since construction (one per iteration that
-        #: decoded; each launches K5 once per layer)
+        self.page = self.pool = None
+        if self.paged:
+            if dtype is None:
+                dtype = params["embed"]["table"].dtype
+            if page is None:
+                g = cfg.n_heads // max(1, cfg.n_kv_heads)
+                page = min(ops.default_decode_page(
+                    self.max_len, cfg.n_kv_heads, max(2, g), cfg.head_dim_,
+                    dtype=dtype), self.max_len)
+            self.page = int(page)
+            if pool_pages is None:
+                pool_pages = self.max_slots * pages_needed(self.max_len,
+                                                           self.page)
+            self.pool = PagePool(cfg, pool_pages, self.page, dtype,
+                                 self.device)
+        #: decode steps since construction: one per iteration that decoded
+        #: on the paged path (each launches K5 once per layer), one per
+        #: slot and iteration on the contiguous path
         self.kernel_calls = 0
         #: device -> host transfers since construction: one per admitted
         #: prompt (its first token) and one per decode iteration
@@ -129,6 +147,14 @@ class ServeEngine:
         prompt = tuple(int(t) for t in prompt)
         if not prompt:
             raise ValueError("empty prompt")
+        if self.cfg.family == "ssm" and len(prompt) < self.cfg.conv_width - 1:
+            # the reference's apply_mamba2 then returns a conv tail of
+            # fewer than conv_width - 1 rows, which decode_mamba2 cannot
+            # extend (repro/models/ssm.py, the cache of apply_mamba2)
+            raise ValueError(
+                f"prompt of {len(prompt)} tokens is shorter than "
+                f"conv_width - 1 = {self.cfg.conv_width - 1}: the Mamba-2 "
+                f"prefill's conv tail would be too short to decode from")
         if len(prompt) + max_new > self.max_len:
             raise ValueError(
                 f"prompt {len(prompt)} + max_new {max_new} exceeds "
@@ -145,7 +171,10 @@ class ServeEngine:
         one batched step.  Returns the ``(rid, token)`` pairs emitted."""
         with torch.inference_mode():
             emitted = self._admit(now)
-            emitted.extend(self._decode_batched(now))
+            if self.paged:
+                emitted.extend(self._decode_batched(now))
+            else:
+                emitted.extend(self._decode_sequential(now))
         return emitted
 
     @property
@@ -181,8 +210,7 @@ class ServeEngine:
                 continue
             self._waiting.pop(0)
             self._slots.append(slot)
-            tok = self._emit(slot, self._to_host(slot.first_token), now)
-            slot.first_token = None
+            tok = self._emit(slot, self._to_host(slot.next_token)[0], now)
             emitted.append((req.rid, tok))
             self._retire_if_done(slot, now)
         return emitted
@@ -193,14 +221,19 @@ class ServeEngine:
         slot = _Slot(req=req, tokens=tokens,
                      n_emitted=len(self._out[req.rid]))
         s0 = len(tokens)
-        used = {s.row for s in self._slots}
-        slot.row = min(i for i in range(self.max_slots) if i not in used)
-        slot.slabs = self.pool.alloc(pages_needed(s0, self.page))
+        if self.paged:
+            used = {s.row for s in self._slots}
+            slot.row = min(i for i in range(self.max_slots) if i not in used)
+            slot.slabs = self.pool.alloc(pages_needed(s0, self.page))
         logits, cache = transformer.prefill(
             self.params, self.cfg,
             torch.tensor([tokens], dtype=torch.long, device=self.device))
-        self.pool.write_prefill(cache, slot.slabs, s0)
-        slot.first_token = torch.argmax(logits[0])
+        if self.paged:
+            self.pool.write_prefill(cache, slot.slabs, s0)
+        else:
+            slot.cache = transformer.prefill_cache_to_decode(
+                self.cfg, cache, self.max_len)
+        slot.next_token = torch.argmax(logits[0]).reshape(1)
         if req.admit_t is None:
             req.admit_t = now
         return slot
@@ -253,6 +286,29 @@ class ServeEngine:
             emitted.append((slot.req.rid, tok))
         return emitted
 
+    def _decode_sequential(self, now: float) -> list[tuple[int, int]]:
+        """The contiguous path: one ``decode_step`` per slot, fed the
+        slot's last token where it already lies on the device; the greedy
+        argmax stays on the device and the stacked tokens cross to the host
+        once, after every slot has launched."""
+        if not self._slots:
+            return []
+        picks = []
+        for slot in self._slots:
+            logits, slot.cache = transformer.decode_step(
+                self.params, self.cfg, slot.next_token, None, slot.cache)
+            slot.next_token = torch.argmax(logits, dim=-1)
+            self.kernel_calls += 1
+            picks.append(slot.next_token)
+        live = list(self._slots)
+        toks = self._to_host(torch.cat(picks))
+        emitted = []
+        for slot, tok in zip(live, toks):
+            tok = self._emit(slot, int(tok), now)
+            self._retire_if_done(slot, now)
+            emitted.append((slot.req.rid, tok))
+        return emitted
+
     def _emit(self, slot: _Slot, tok: int, now: float) -> int:
         if slot.req.first_tok_t is None:
             slot.req.first_tok_t = now
@@ -268,7 +324,8 @@ class ServeEngine:
                 len(slot.tokens) >= self.max_len)
         if done and slot in self._slots:
             slot.req.done_t = now
-            self.pool.free(slot.slabs)
+            if self.paged:
+                self.pool.free(slot.slabs)
             self._slots.remove(slot)
             self._done[slot.req.rid] = slot.req
 

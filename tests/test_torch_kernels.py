@@ -157,3 +157,89 @@ def test_flash_backward_kernels_match_plain(h100, dtype, rel, s, g, hd,
         assert got.dtype == dtype and got.shape == exp.shape
         err = (got.float() - exp.float()).abs().max().item()
         assert err <= rel * exp.float().abs().max().item(), err
+
+
+def _ssd_case(dev, b, s, h, n=128, p=64, seed=6):
+    """Inputs of the SSD scan at Mamba-2's head width: a per-token log
+    decay of -0.3|N(0, 1)| (the reference's tests), unit-normal X, B, C
+    and a 0.1-normal entering state."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    return (rnd(b, s, h, p), -0.3 * rnd(b, s, h).abs(), rnd(b, s, n),
+            rnd(b, s, n), 0.1 * rnd(b, h, p, n))
+
+
+def _rel_err(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+#: K6/K7 against their plain versions: both f32, differing in summation
+#: order and in the kernel's fused multiply-adds (relative to the largest
+#: plain entry of each output)
+SSD_REL = 1e-4
+SSD_SHAPES = [(51, 3 * 51 + 20), (175, 400), (256, 600)]
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("q,s", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain(h100, q, s):
+    """K6 over several chunks with a padded tail, with and without the
+    per-chunk state export: the export leaves y and the final state the
+    same bits, and h_in[:, 0] is the entering state."""
+    xdt, dA, B, C, h0 = _ssd_case(h100, 2, s, 4)
+    pad = (-s) % q
+    args = [ops._pad_seq(t, pad) for t in (xdt, dA, B, C)] + [h0]
+    y, final, none = ops.ssd_scan_chunked(*args, q)
+    ye, finale, h_in = ops.ssd_scan_chunked(*args, q, export_h_in=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K6"] == 2 and none is None
+    assert torch.equal(y, ye) and torch.equal(final, finale)
+    assert torch.equal(h_in[:, 0], h0)
+    yr, fr, hr = ref.ssd_scan(*args, q, export_h_in=True)
+    for got, want in ((y, yr), (final, fr), (h_in, hr)):
+        assert _rel_err(got, want) <= SSD_REL
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("q,s", SSD_SHAPES)
+def test_ssd_pad_contract_keeps_the_final_state(h100, q, s):
+    """A sequence padded to a multiple of the chunk with identity steps
+    (zero input, zero log decay) ends in the state of the same tokens
+    scanned as one unpadded chunk (q = s <= 256) or in unpadded chunks of
+    the padded length's divisor."""
+    xdt, dA, B, C, h0 = _ssd_case(h100, 1, s, 4, seed=7)
+    y, final = ops.scan_ssd(xdt, dA, B, C, init_state=h0, chunk=q)
+    whole = s if s <= 256 else next(c for c in range(256, 0, -1)
+                                    if s % c == 0)
+    y1, final1 = ops.scan_ssd(xdt, dA, B, C, init_state=h0, chunk=whole)
+    torch.cuda.synchronize()
+    assert y.shape == xdt.shape
+    assert _rel_err(final, final1) <= SSD_REL
+    assert _rel_err(y, y1) <= SSD_REL
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("q,s", SSD_SHAPES)
+def test_ssd_bwd_kernel_matches_plain(h100, q, s):
+    """K7 from K6's own export, seeded with a non-zero final-state
+    cotangent, against its plain version; a rerun is the same bits (the
+    head sums of dB and dC take no atomics)."""
+    xdt, dA, B, C, h0 = _ssd_case(h100, 2, s, 4, seed=8)
+    gen = torch.Generator(device=h100).manual_seed(9)
+    pad = (-s) % q
+    args = [ops._pad_seq(t, pad) for t in (xdt, dA, B, C)]
+    _, _, h_in = ops.ssd_scan_chunked(*args, h0, q, export_h_in=True)
+    dy = ops._pad_seq(torch.randn(xdt.shape, generator=gen, device=h100),
+                      pad)
+    dhf = torch.randn(h0.shape, generator=gen, device=h100)
+    xp, dap, bp, cp = args
+    got = ops.ssd_bwd_chunked(cp, bp, dy, xp, dap, h_in, dhf)
+    again = ops.ssd_bwd_chunked(cp, bp, dy, xp, dap, h_in, dhf)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K7"] == 2
+    want = ref.ssd_bwd(cp, bp, dy, xp, dap, h_in, dhf)
+    for name, g, a, w in zip(("dX", "dh0", "dB", "dC", "ddA"), got, again,
+                             want):
+        assert torch.equal(g, a), name
+        assert g.shape == w.shape, name
+        assert _rel_err(g, w) <= SSD_REL, (name, _rel_err(g, w))

@@ -30,10 +30,11 @@ def gemma():
     return cfg, params, port_config("gemma-2b", reduced=True), tp
 
 
+@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-780m"])
 @pytest.mark.parametrize("reduced", [False, True])
-def test_arch_config_copy_matches_reference(reduced):
-    ref = get_config("gemma-2b", reduced=reduced)
-    port = port_config("gemma-2b", reduced=reduced)
+def test_arch_config_copy_matches_reference(reduced, arch):
+    ref = get_config(arch, reduced=reduced)
+    port = port_config(arch, reduced=reduced)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     assert port.param_count() == ref.param_count()
     assert port.head_dim_ == ref.head_dim_
@@ -76,7 +77,7 @@ def test_full_config_is_gemma_2b_full_width():
 def test_other_families_raise(gemma):
     *_, tcfg, _ = gemma
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.param_shapes(tcfg.with_(family="ssm"))
+        tt.param_shapes(tcfg.with_(family="hybrid"))
 
 
 @pytest.mark.parametrize("attn_impl", ["pallas", "xla"])

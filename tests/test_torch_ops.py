@@ -136,7 +136,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     q = torch.ones(1, 3, 1, 2, 8, requires_grad=True)
     ops.attention(q, torch.ones(1, 3, 1, 8), torch.ones(1, 3, 1, 8),
                   scale=1.0).sum().backward()
-    assert ops.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    xdt = torch.ones(1, 5, 2, 3, requires_grad=True)
+    y, _ = ops.scan_ssd(xdt, -torch.ones(1, 5, 2), torch.ones(1, 5, 4),
+                        torch.ones(1, 5, 4), chunk=2)
+    y.sum().backward()
+    assert ops.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
+                            "K6": 0, "K7": 0}
 
 
 def test_other_devices_raise():

@@ -52,6 +52,19 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for(monkeypatch):
         resolve_device("meta")
 
 
+def test_ssm_caches_need_a_card_unless_cpu_is_asked_for(monkeypatch):
+    from repro_torch.configs import mamba2_780m
+    from repro_torch.models import ssm, transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = mamba2_780m.reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ssm.init_ssm_cache(cfg, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_cache(cfg, 2, 32)
+    cache = ssm.init_ssm_cache(cfg, 2, device="cpu")
+    assert cache.conv.device.type == cache.state.device.type == "cpu"
+
+
 def test_training_entry_points_need_a_card_unless_cpu_is_asked_for(
         monkeypatch):
     from repro_torch.configs import gemma_2b
@@ -118,7 +131,7 @@ def test_nvcc_command_and_build_directory():
     assert build.BUILD_DIR == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert build.sources() == ["flash_bwd", "flash_fwd", "gemm",
-                               "paged_decode"]
+                               "paged_decode", "ssd"]
     out = build.library_path("gemm")
     assert out.parent == build.BUILD_DIR
     assert out.name.startswith("gemm-") and out.suffix == ".so"

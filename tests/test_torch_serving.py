@@ -130,7 +130,57 @@ def test_engine_scope_and_device_policy(gemma, monkeypatch):
     with pytest.raises(NotImplementedError, match="per-slot"):
         ServeEngine(tcfg, tp, batched=False, device="cpu")
     with pytest.raises(NotImplementedError, match="contiguous"):
-        ServeEngine(tcfg.with_(family="ssm"), tp, device="cpu")
+        ServeEngine(tcfg.with_(family="hybrid"), tp, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(tcfg, tp)
+
+
+@pytest.fixture(scope="module")
+def mamba():
+    cfg = get_config("mamba2-780m", reduced=True)
+    params, _ = registry.init(cfg, jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, params), device="cpu")
+    return cfg, params, port_config("mamba2-780m", reduced=True), tp
+
+
+def test_ssm_engine_greedy_tokens_match_reference(mamba):
+    """Reduced mamba2-780m through the per-slot contiguous path: 4
+    requests on 2 slots, one prompt longer than the chunk (8), so its
+    prefill carries the state across a chunk boundary and pads its last
+    chunk, the others a ragged chunk; every request's greedy tokens equal
+    the JAX engine's, and each iteration reads the device once for its
+    decode plus once per prompt it admits."""
+    cfg, params, tcfg, tp = mamba
+    rng = np.random.default_rng(9)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).tolist(), m)
+            for n, m in ((5, 6), (13, 4), (3, 7), (9, 5))]
+    want, _ = _run(JServeEngine(cfg, params, max_slots=2, max_len=32,
+                                interpret=True), reqs)
+    engine = ServeEngine(tcfg, tp, max_slots=2, max_len=32, device="cpu")
+    assert engine.pool is None
+    rids = [engine.submit(p, n) for p, n in reqs]
+    while not engine.idle:
+        waiting, before = len(engine._waiting), engine.host_transfers
+        calls0 = engine.kernel_calls
+        engine.step()
+        admitted = waiting - len(engine._waiting)
+        decoded = engine.kernel_calls - calls0
+        assert engine.host_transfers - before == admitted + (decoded > 0)
+    results = engine.results()
+    assert [results[r]["tokens"] for r in rids] == want
+    assert engine.kernel_calls == sum(n for _, n in reqs) - len(reqs)
+
+
+def test_ssm_engine_rejects_prompts_shorter_than_the_conv_tail(mamba):
+    """A prompt shorter than conv_width - 1 tokens leaves the reference's
+    prefill a conv tail its decode step cannot extend: the port refuses it
+    at submission, naming the cause."""
+    *_, tcfg, tp = mamba
+    engine = ServeEngine(tcfg, tp, device="cpu")
+    with pytest.raises(ValueError, match="conv_width - 1 = 3"):
+        engine.submit([1, 2], 4)
+    with pytest.raises(ValueError, match="batched decode needs the paged"):
+        ServeEngine(tcfg, tp, batched=True, device="cpu")
+    engine.submit([1, 2, 3], 1)
+    assert len(engine.run()) == 1

@@ -78,8 +78,12 @@ def jax_run(request, gemma):
     return request.param, losses, _flat(grads), _flat(st.params)
 
 
-def test_synthetic_batches_match_reference():
-    cfg = port_config("gemma-2b", reduced=True)
+@pytest.mark.parametrize("arch,reduced", [("gemma-2b", True),
+                                          ("mamba2-780m", False)])
+def test_synthetic_batches_match_reference(arch, reduced):
+    """The numpy pipeline's batches, at the reduced gemma vocab and at
+    mamba2-780m's full 50280, equal the reference's."""
+    cfg = get_config(arch, reduced=reduced)
     for seed, seq, batch in ((0, 16, 2), (7, 33, 3)):
         ours = SyntheticLM(PipelineConfig(cfg.vocab_size, seq, batch,
                                           seed=seed))
@@ -211,3 +215,56 @@ def test_init_state_makes_params_trainable_on_the_asked_device(gemma):
     assert int(st.step) == 0 and int(st.opt.step) == 0
     assert st.opt.master.keys() == dict(params.named_parameters()).keys()
     assert all(t.dtype == torch.float32 for t in st.opt.m.values())
+
+
+@pytest.fixture(scope="module")
+def mamba_run():
+    """Reduced mamba2-780m: three JAX train steps (the reference's SSD
+    kernel in interpret mode, its derived K7-equivalent backward), their
+    losses, step-1 gradients and final parameters."""
+    cfg = get_config("mamba2-780m", reduced=True)
+    state, _ = jts.init_state(cfg, jax.random.PRNGKey(1))
+    batches = [jax.tree.map(jnp.asarray, b) for b in _batches(cfg)]
+    loss_fn = lambda p, b: jts.registry.loss(p, cfg, b)
+    (_, _), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+        state.params, batches[0])
+    step = jax.jit(jts.make_train_step(cfg))
+    losses, st = [], state
+    for b in batches:
+        st, m = step(st, b)
+        losses.append(float(m["loss"]))
+    return cfg, state, losses, _flat(grads), _flat(st.params)
+
+
+def test_ssm_train_step_matches_reference(mamba_run):
+    """The port's mamba2 train step (K1 products and their VJP, the SSD
+    scan with its checkpoint export and reverse scan, remat per layer)
+    against three JAX ``make_train_step`` steps, held as the gemma steps
+    are (``test_train_step_matches_reference``); the loss is computed
+    without the per-layer caches the reference's jit drops."""
+    cfg, state, jlosses, jgrads, jfinal = mamba_run
+    tcfg = port_config("mamba2-780m", reduced=True)
+    assert tcfg.remat
+    batches = [_tensors(b) for b in _batches(cfg)]
+    params = _port(state.params)
+    _, _, grads = ts.loss_and_grads(params, tcfg, batches[0])
+    assert grads.keys() == jgrads.keys()
+    for k, g in grads.items():
+        want = jgrads[k]
+        np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=REL * np.abs(want).max(), err_msg=k)
+    tstate = ts.init_state(tcfg, params, device="cpu")
+    step = ts.make_train_step(tcfg)
+    for b, want in zip(batches, jlosses):
+        tstate, m = step(tstate, b)
+        np.testing.assert_allclose(float(m["loss"]), want, rtol=REL)
+    opt = adamw.AdamWConfig()
+    lr_sum = sum(float(adamw.schedule(opt, torch.tensor(i + 1)))
+                 for i in range(STEPS))
+    for k, p in tstate.params.named_parameters():
+        want = jfinal[k]
+        bound = 2 * lr_sum * (1 + opt.weight_decay * np.abs(want).max())
+        np.testing.assert_allclose(p.detach().numpy(), want, rtol=0,
+                                   atol=bound + 1e-6, err_msg=k)
+        assert not np.array_equal(p.detach().numpy(),
+                                  _flat(state.params)[k]), k
