@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven phases; any failure exits non-zero before the result line:
+Nine phases; any failure exits non-zero before the result line:
 
 1. device   the card's name, power limit and compute capability (9, 0).
 2. build    nvcc builds every kernel under src/repro_torch/kernels/csrc/
@@ -11,11 +11,13 @@ Seven phases; any failure exits non-zero before the result line:
 3. kernels  each kernel (K1 gemm with its VJP forms, K2 flash_fwd with
             and without its (m, l) export, K3/K4 flash_bwd, K5
             paged_decode, K6 ssd_scan with and without its per-chunk
-            state export, K7 ssd_bwd) against its plain PyTorch version on
-            the same card inputs, at gemma-2b and mamba2-780m full-width
-            serving and training shapes, with the tolerance stated;
-            kernel, plain and library times (CUDA events) and the roofline
-            bound of each case.
+            state export, K7 ssd_bwd, K8 gated_scan forward and reverse)
+            against its plain PyTorch version on the same card inputs, at
+            gemma-2b, mamba2-780m and recurrentgemma-9b full-width serving
+            and training shapes (K2-K4 also at recurrentgemma-9b's window
+            2048 over S=4096 with 16 query heads), with the tolerance
+            stated; kernel, plain and library times (CUDA events) and the
+            roofline bound of each case.
 4. path     gemma-2b at full width (18 layers, bf16, random weights from a
             seeded generator) served by ServeEngine(max_slots=4,
             max_len=512) over 6 requests; every kernel of the path must
@@ -44,6 +46,22 @@ Seven phases; any failure exits non-zero before the result line:
             each layer's VJP); K1, K6 (twice a layer: the
             remat rerun) and K7 launch their derived counts; step 3 under
             sync debug mode "error"; one step is profiled.
+8. hybrid_path recurrentgemma-9b at full width and depth (38 layers,
+            bf16, 9.40 B seeded parameters): make_prefill on B=1 S=4096
+            (K8 26 launches, K2 12, K1 its derived count) and
+            greedy_generate on B=2 prompts of 64 tokens plus 32 new,
+            cache_len 128 (token-by-token ingestion as in the reference:
+            K1 only); one prefill and one decode step agree with the plain
+            path as mamba2's do (f32 end to end, bf16 layer by layer and
+            beside the plain bf16 path's distance from f32); a decode step
+            under sync debug mode "error"; prefill and decode profiled.
+9. hybrid_train recurrentgemma-9b at full widths, depth cut to 5 layers
+            (one (rglru, rglru, local) group and the 2-layer tail, 2.17 B
+            parameters), 3 AdamW steps at B=4 S=4096 in 4 microbatches,
+            remat on (the window cuts in K2-K4); step 1's loss and
+            gradients against the plain path as mamba2's; K1-K4 and K8
+            launch their derived counts; step 3 under sync debug mode
+            "error"; one step is profiled.
 
 Each path phase resets the peak memory statistics before it runs.  The
 last two lines before the final one are the kernels' JSON record and
@@ -70,12 +88,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: bf16 (2^-8); K4 also sums the G heads in another order.
 #: K6/K7 (f32 only, by the reference's contract): summation order and the
 #: kernels' fused multiply-adds.
+#: K8 (f32 only): the plain walk's steps in its order, the multiply and the
+#: add rounded separately on both sides; only exp() may differ in a bit.
 TOL = {("K1", "bfloat16"): 1e-4, ("K1", "float32"): 1e-4,
        ("K2", "bfloat16"): 2e-2, ("K2", "float32"): 1e-4,
        ("K3", "bfloat16"): 2e-2, ("K3", "float32"): 1e-4,
        ("K4", "bfloat16"): 2e-2, ("K4", "float32"): 1e-4,
        ("K5", "bfloat16"): 2e-2, ("K5", "float32"): 1e-4,
-       ("K6", "float32"): 1e-4, ("K7", "float32"): 1e-4}
+       ("K6", "float32"): 1e-4, ("K7", "float32"): 1e-4,
+       ("K8", "float32"): 1e-6}
 #: the served path's logits (kernels vs plain versions, 18 bf16 layers):
 #: per-layer bf16 rounding differences compound through the residual stream
 PATH_TOL = 5e-2
@@ -114,6 +135,15 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 512, 3
 #: mamba2-780m's training shape: the context Mamba-2 was trained at
 #: (arXiv:2405.21060), 8 chunks of 256 a sequence
 SSM_B, SSM_S = 2, 2048
+#: recurrentgemma-9b: the prefill and training sequence (twice the 2048
+#: window, so the window cuts), the training batch in 4 microbatches, the
+#: depth the training state fits one card at (5 of 38 layers: one group
+#: and the tail), and greedy_generate's batch, prompt, new tokens and cache
+HYB_S, HYB_B, HYB_MB, HYB_TRAIN_LAYERS = 4096, 4, 4, 5
+GEN_B, GEN_PROMPT, GEN_NEW, GEN_CACHE = 2, 64, 32, 128
+#: the prompt tokens ingested (plain f32) into the decode cache that the
+#: decode-step agreement starts from
+HYB_DECODE_CTX = 16
 
 
 def fail(msg: str) -> None:
@@ -284,6 +314,11 @@ def phase_kernels(torch):
     _gemm_training_cases(torch, rec, gen)
     _ssm_gemm_cases(torch, rec, gen)
     _ssd_cases(torch, rec, gen)
+    # recurrentgemma-9b's local layers: window 2048 over S=4096, 16 query
+    # heads over one KV head
+    _attention_training_cases(torch, rec, gen, torch.bfloat16, "bfloat16",
+                              2, b=1, s=HYB_S, g=16, window=2048)
+    _gated_cases(torch, rec, gen)
     return rec
 
 
@@ -362,33 +397,52 @@ def _plain(ops, fn, *args, **kw):
         return fn(*args, **kw)
 
 
-def _attention_training_cases(torch, rec, gen, dt, dname, es):
-    """K2 with its (m, l) export, then K3 and K4, at the training shape:
-    q (2, 512, 1, 8, 256), k/v (2, 512, 1, 256), m/l/delta (2, 1, 8,
-    512).  The library yardstick of K3 and K4 is one pair: the backward
-    alone of SDPA (enable_gqa) through torch.autograd.grad."""
+def _pairs(s: int, window: int = 0) -> int:
+    """(query, key) pairs a causal (windowed) mask keeps over ``s``
+    positions."""
+    w = min(window, s) if window else s
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
+                              s=TRAIN_S, g=8, window=0):
+    """K2 with its (m, l) export, then K3 and K4, at a training shape (by
+    default gemma-2b's: q (2, 512, 1, 8, 256), k/v (2, 512, 1, 256),
+    m/l/delta (2, 1, 8, 512)); with a ``window``, K2 without the export
+    too (the prefill's form).  The library yardstick of K3 and K4 is one
+    pair: the backward alone of SDPA (enable_gqa, the window as a boolean
+    mask) through torch.autograd.grad."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    b, s, g, hd = TRAIN_B, TRAIN_S, 8, 256
+    hd = 256
     scale = hd ** -0.5
     randn = lambda *shape: torch.randn(*shape, generator=gen,
                                        device="cuda").to(dt)
     q, k, v, do = (randn(b, s, 1, g, hd), randn(b, s, 1, hd),
                    randn(b, s, 1, hd), randn(b, s, 1, g, hd))
-    pairs = b * g * s * (s + 1) // 2
+    pairs = b * g * _pairs(s, window)
     qkv_bytes = (2 * b * s * g + 2 * b * s) * hd * es
     stat_bytes = b * g * s * 4
-    args = dict(scale=scale, causal=True, window=0)
+    args = dict(scale=scale, causal=True, window=window)
     qs = q.reshape(b, s, g, hd).transpose(1, 2)
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    mask = ref._mask(s, s, True, window, "cuda") if window else None
+    sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(
+        q_, k_, v_, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+    tag = f"window={window}" if window else "causal"
+    shape = f"B={b} S={s} KV=1 G={g} hd={hd} {tag}"
+    if window:
+        _case(torch, rec, "K2", dname, ("K2", dname),
+              lambda: ops.attention(q, k, v, **args),
+              lambda: ref.attention(q, k, v, **args),
+              lambda: sdpa(qs, ks, vs), 4.0 * pairs * hd,
+              (b * s * g * 2 + 2 * b * s) * hd * es, f"K2 {dname} {shape}")
     _case(torch, rec, "K2", dname, ("K2", dname),
           lambda: ops.attention_stats(q, k, v, **args),
           lambda: ref.attention_stats(q, k, v, **args),
-          lambda: F.scaled_dot_product_attention(
-              qs, ks, vs, is_causal=True, enable_gqa=True),
+          lambda: sdpa(qs, ks, vs),
           4.0 * pairs * hd, (b * s * g * 2 + 2 * b * s) * hd * es
-          + 2 * stat_bytes,
-          f"K2 {dname} B={b} S={s} KV=1 G={g} hd={hd} causal export")
+          + 2 * stat_bytes, f"K2 {dname} {shape} export")
     out, m, l = ops.attention_stats(q, k, v, **args)
     delta = (do.float() * out.reshape(do.shape).float()).sum(-1)
     delta = delta.permute(0, 2, 3, 1).contiguous()
@@ -396,8 +450,7 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es):
     qg = qs.detach().requires_grad_(True)
     kg = ks.detach().requires_grad_(True)
     vg = vs.detach().requires_grad_(True)
-    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                        enable_gqa=True)
+    og = sdpa(qg, kg, vg)
     dos = do.reshape(b, s, g, hd).transpose(1, 2)
     sdpa_bwd = lambda: torch.autograd.grad(og, (qg, kg, vg), dos,
                                            retain_graph=True)
@@ -405,14 +458,38 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es):
           lambda: ops.flash_dq(*bwd, **args),
           lambda: ref.flash_dq(*bwd, **args), sdpa_bwd,
           2.0 * 3 * pairs * hd, qkv_bytes + 3 * stat_bytes
-          + b * s * g * hd * es,
-          f"K3 {dname} B={b} S={s} KV=1 G={g} hd={hd} causal")
+          + b * s * g * hd * es, f"K3 {dname} {shape}")
     _case(torch, rec, "K4", dname, ("K4", dname),
           lambda: ops.flash_dkv(*bwd, **args),
           lambda: ref.flash_dkv(*bwd, **args), sdpa_bwd,
           2.0 * 4 * pairs * hd, qkv_bytes + 3 * stat_bytes
-          + 2 * b * s * hd * es,
-          f"K4 {dname} B={b} S={s} KV=1 G={g} hd={hd} causal")
+          + 2 * b * s * hd * es, f"K4 {dname} {shape}")
+
+
+def _gated_cases(torch, rec, gen):
+    """K8's forward and reverse walks at recurrentgemma-9b's lru width
+    (4096): the prefill's and a training microbatch's B=1 S=4096, with and
+    without an entering state, and a ragged B=2 S=300.  It reads log_a and
+    b and writes h (12 B an element; h0 read and the final state written
+    besides), 3 f32 operations an element (exp, multiply, add).  No single
+    PyTorch call computes the scan: no library time."""
+    from repro_torch.kernels import ops, ref
+    w = 4096
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    for b, s in ((1, HYB_S), (2, 300)):
+        la, bb = -0.5 * randn(b, s, w).abs(), randn(b, s, w)
+        h0 = 0.5 * randn(b, w)
+        for reverse in (False, True):
+            for with_h0 in ((False, True) if b == 1 else (True,)):
+                hh = h0 if with_h0 else None
+                _case(torch, rec, "K8", "float32", ("K8", "float32"),
+                      lambda: ops.gated_recurrence(la, bb, hh, reverse),
+                      lambda: ref.gated_scan(la, bb, hh, reverse), None,
+                      3.0 * b * s * w,
+                      4 * (3 * b * s * w + (1 + with_h0) * b * w),
+                      f"K8 float32 B={b} S={s} w={w}"
+                      + " reverse" * reverse + " h0" * with_h0)
+        del la, bb, h0
 
 
 def _gemm_training_cases(torch, rec, gen, label="", t=TRAIN_B * TRAIN_S,
@@ -549,7 +626,8 @@ def phase_path(torch):
             f"a kernel of the path never launched: {launches}")
     require(launches["K3"] == launches["K4"] == launches["K7"] == 0,
             f"serving launched a backward kernel: {launches}")
-    require(launches["K6"] == 0, f"gemma serving launched K6: {launches}")
+    require(launches["K6"] == launches["K8"] == 0,
+            f"gemma serving launched K6 or K8: {launches}")
     require(launches["K5"] == cfg.n_layers * decode_steps,
             f"K5 launches {launches['K5']} != n_layers x decode steps")
     require(launches["K2"] == cfg.n_layers * prefills,
@@ -737,7 +815,7 @@ def phase_train(torch):
     # under remat, and 2 VJP products for each of the 6 L + 1
     want = {"K1": n * (6 * L + 1 + 6 * L + 2 * (6 * L + 1)),
             "K2": n * 2 * L, "K3": n * L, "K4": n * L, "K5": 0, "K6": 0,
-            "K7": 0}
+            "K7": 0, "K8": 0}
     print(f"[train] launches over {n} steps {launches} (derived {want})",
           flush=True)
     require(launches == want, "kernel launches differ from the derived "
@@ -837,7 +915,8 @@ def phase_ssm_path(torch):
     # K1 a prefill: w_in, w_out and the conv tail's w_in a layer, and the
     # head; a slot's decode step: w_in and w_out a layer, and the head
     want = {"K1": prefills * (3 * L + 1) + slot_steps * (2 * L + 1),
-            "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": L * prefills, "K7": 0}
+            "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": L * prefills, "K7": 0,
+            "K8": 0}
     print(f"[ssm_path] launches {launches} (derived {want})", flush=True)
     require(launches == want, "ssm serving launches differ from the derived "
             "counts")
@@ -997,12 +1076,12 @@ def _ssm_layers(torch, cfg, params, prompt, tok):
                 f"with plain")
 
 
-def _ssm_grad_agreement(torch, cfg, params, batch):
+def _grad_agreement(torch, tag, cfg, params, batch):
     """Step 1's loss and gradients through the kernels and the plain
     versions, in bf16 and on its weights in f32: f32 kernels against f32
     plain tightly; bf16 kernels against the f32 plain gradients beside the
     plain bf16 ones' own distance from them (the witness).  Returns the
-    bf16 kernels' loss."""
+    bf16 kernels' loss.  ``tag`` heads the printed lines."""
     from repro_torch.kernels import ops
     from repro_torch.train import train_step as ts
     cf, pf = cfg.with_(dtype="float32"), _f32_copy(params, trainable=True)
@@ -1016,7 +1095,7 @@ def _ssm_grad_agreement(torch, cfg, params, batch):
     (lk, gk), (lp, gp) = out["float32", False], out["float32", True]
     (lkb, gkb), (lpb, gpb) = out["bfloat16", False], out["bfloat16", True]
     for dt, a, b in (("float32", lk, lp), ("bfloat16", lkb, lpb)):
-        print(f"[ssm_train] {dt} step-1 loss kernels {a:.6f} plain {b:.6f} "
+        print(f"[{tag}] {dt} step-1 loss kernels {a:.6f} plain {b:.6f} "
               f"rel {abs(a - b) / abs(b):.3e} (tol {LOSS_TOL:g}); f32 plain "
               f"{lp:.6f}", flush=True)
         require(abs(a - b) <= LOSS_TOL * abs(b), f"{dt} loss disagrees with "
@@ -1032,7 +1111,7 @@ def _ssm_grad_agreement(torch, cfg, params, batch):
         both = _rel(torch, gkb[name], gpb[name], norm=True)
         worst = max(worst, err)
         worst_ratio = max(worst_ratio, _ratio(kern, wit))
-        print(f"[ssm_train]   grad {name} {tuple(gk[name].shape)}, rel norm "
+        print(f"[{tag}]   grad {name} {tuple(gk[name].shape)}, rel norm "
               f"err: float32 kernels vs plain {err:.3e}; bfloat16 kernels vs "
               f"f32 plain {kern:.3e}, plain bf16 vs f32 plain {wit:.3e} "
               f"(ratio {_ratio(kern, wit):.3f}), kernels vs plain bf16 "
@@ -1041,7 +1120,7 @@ def _ssm_grad_agreement(torch, cfg, params, batch):
         require(err <= GRAD_TOL, f"{name}: f32 gradient disagrees with plain")
         require(kern <= SSM_BF16_RATIO * wit, f"{name}: the bf16 kernels' "
                 f"gradient sits farther from the f32 one than plain bf16's")
-    print(f"[ssm_train] step-1 gradients over {len(gk)} leaves: float32 "
+    print(f"[{tag}] step-1 gradients over {len(gk)} leaves: float32 "
           f"kernels vs plain worst rel norm err {worst:.3e} (tol "
           f"{GRAD_TOL:g}); bfloat16 worst ratio {worst_ratio:.3f} (tol "
           f"{SSM_BF16_RATIO:g})", flush=True)
@@ -1106,7 +1185,7 @@ def phase_ssm_train(torch):
 
     # step 1's loss and gradients against the plain path (f32, and bf16
     # beside its witness), then the bf16 VJP layer by layer
-    lk = _ssm_grad_agreement(torch, cfg, params, batches[0])
+    lk = _grad_agreement(torch, "ssm_train", cfg, params, batches[0])
     _ssm_layer_grads(torch, cfg, params, batches[0])
     torch.cuda.empty_cache()
 
@@ -1153,7 +1232,8 @@ def phase_ssm_train(torch):
     # loss asks for no cache: no conv-tail product); K6 a layer in the
     # forward and again in its remat rerun; K7 once a layer
     want = {"K1": n * (2 * L + 1 + 2 * L + 2 * (2 * L + 1)), "K2": 0,
-            "K3": 0, "K4": 0, "K5": 0, "K6": n * 2 * L, "K7": n * L}
+            "K3": 0, "K4": 0, "K5": 0, "K6": n * 2 * L, "K7": n * L,
+            "K8": 0}
     print(f"[ssm_train] launches over {n} steps {launches} (derived {want})",
           flush=True)
     require(launches == want, "kernel launches differ from the derived "
@@ -1182,6 +1262,467 @@ def phase_ssm_train(torch):
           f"{opt_ms:.3f} ms = {mm_ms + ssd_ms + opt_ms:.3f} ms", flush=True)
     profile_step(torch, lambda: step(state, batches[0]), n=1,
                  what="ssm train")
+    return launches
+
+
+def _hybrid_model(torch, n_layers=None, trainable=False):
+    from repro_torch.configs import recurrentgemma_9b
+    from repro_torch.models import transformer
+    cfg = recurrentgemma_9b.full()
+    if n_layers:
+        cfg = cfg.with_(n_layers=n_layers)
+    params = transformer.init_lm(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        trainable=trainable)
+    return cfg, params
+
+
+def _hybrid_counts(cfg):
+    """``(RG-LRU layers, local layers, K1 launches of one forward)``: 5
+    products an RG-LRU layer (w_x, w_gate, wa, wi, w_out) and 4 a local
+    layer (q, k, v, o), 2 an MLP, and the head (the forward's last
+    position in a prefill or a decode step, every position in the
+    loss)."""
+    from repro_torch.models import transformer
+    g, tail, n_rec, n_att = transformer.hybrid_layout(cfg)
+    rec, att = g * n_rec + tail, g * n_att
+    return rec, att, 7 * rec + 6 * att + 1
+
+
+def _zero_launches(**counts):
+    want = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")}
+    want.update(counts)
+    return want
+
+
+def _cast_cache(torch, cache, dtype):
+    """A hybrid decode cache in ``dtype`` (the RG-LRU states stay f32)."""
+    from repro_torch.models.attention import KV
+    from repro_torch.models.rglru import RGLRUCache
+    out = {}
+    for key, c in cache.items():
+        if isinstance(c, RGLRUCache):
+            out[key] = RGLRUCache(c.h, c.conv.to(dtype))
+        else:
+            out[key] = KV(c.k.to(dtype), c.v.to(dtype))
+    return out
+
+
+def _hybrid_ctx_cache(torch, cfg, params, ctx):
+    """The decode cache after ingesting ``ctx (1, n)`` token by token
+    through the plain path (as ``greedy_generate`` ingests a prompt)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    cache = transformer.init_cache(cfg, 1, GEN_CACHE,
+                                   dtype=getattr(torch, cfg.dtype),
+                                   device="cuda")
+    with ops.reference_mode():
+        for t in range(ctx.shape[1]):
+            _, cache = transformer.decode_step(
+                params, cfg, ctx[:, t],
+                torch.full((1,), t, dtype=torch.int32, device="cuda"), cache)
+    return cache
+
+
+def _hybrid_agreement(torch, cfg, params, tokens, ctx):
+    """One prefill of ``tokens`` (logits and the forward cache: the RG-LRU
+    states and conv tails, the local layers' K/V) and one decode step of
+    ``ctx``'s last token from the cache of the rest, through the kernels
+    and the plain versions, in the served bf16 and on its weights in f32
+    (at full depth): f32 kernels against f32 plain tightly; bf16 kernels
+    against the f32 plain path beside the plain bf16 path's own distance
+    from it (the witness)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    cf, pf = cfg.with_(dtype="float32"), _f32_copy(params)
+    n = ctx.shape[1] - 1
+    cache32 = _hybrid_ctx_cache(torch, cf, pf, ctx[:, :n])
+    pos = torch.full((1,), n, dtype=torch.int32, device="cuda")
+    out = {}
+    for c, prm in ((cf, pf), (cfg, params)):
+        cache = cache32 if c is cf else _cast_cache(torch, cache32,
+                                                    torch.bfloat16)
+        for plain in (False, True):
+            with _plain_if(ops, plain):
+                lg, fc = transformer.prefill(prm, c, tokens)
+                dec, dc = transformer.decode_step(prm, c, ctx[:, n], pos,
+                                                  cache)
+            require(bool(torch.isfinite(lg).all() and torch.isfinite(dec)
+                         .all()), f"{c.dtype} logits not finite")
+            out[c.dtype, plain] = {
+                "prefill logits": lg, "state": fc["rec"].h,
+                "tail state": fc["tail"].h, "conv tail": fc["rec"].conv,
+                "local K": fc["att"].k, "local V": fc["att"].v,
+                "decode logits": dec, "decode state": dc["rec"].h,
+                "decode ring K": dc["att"].k}
+    del pf, cache32
+    for what, ref32 in out["float32", True].items():
+        err = _rel(torch, out["float32", False][what], ref32)
+        print(f"[hybrid_path] float32 {what} {tuple(ref32.shape)} kernels "
+              f"vs plain ({tokens.shape[1]}-token prefill, decode at "
+              f"position {n}): {err:.3e} of max|plain| (tol "
+              f"{SSM_F32_TOL:g})", flush=True)
+        require(err <= SSM_F32_TOL, f"float32 {what} disagrees with plain")
+        kern = _rel(torch, out["bfloat16", False][what], ref32)
+        wit = _rel(torch, out["bfloat16", True][what], ref32)
+        both = _rel(torch, out["bfloat16", False][what],
+                    out["bfloat16", True][what])
+        print(f"[hybrid_path] bfloat16 {what}, max|diff| / max|f32 plain|: "
+              f"kernels vs f32 {kern:.3e}, plain bf16 vs f32 {wit:.3e} "
+              f"(ratio {_ratio(kern, wit):.3f}, tol {SSM_BF16_RATIO:g}); "
+              f"kernels vs plain bf16 {both:.3e}", flush=True)
+        require(kern <= SSM_BF16_RATIO * wit, f"bfloat16 {what}: the "
+                f"kernels sit farther from the f32 function than plain bf16")
+
+
+def _hybrid_sublayers(torch, cfg, kind, lp, x, positions, xd, cd, pos):
+    """One hybrid layer's sublayers through the kernels and the plain
+    versions, each fed the plain path's input on both sides: the mixer
+    (RG-LRU or local attention, prefill and decode step) and the MLP.
+    Returns ``{name: (kernels, plain)}`` and the plain path's new
+    residuals (prefill, decode)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import rglru
+    from repro_torch.models.layers import apply_mlp, apply_norm
+    res = {}
+
+    def both(name, fn):
+        got = []
+        for plain in (False, True):
+            with _plain_if(ops, plain):
+                got.append(fn())
+        for i, part in enumerate(name):
+            res[part] = (got[0][i], got[1][i])
+        return got[1]
+
+    h, hd = apply_norm(lp["ln1"], x, cfg), apply_norm(lp["ln1"], xd, cfg)
+    if kind == "rglru":
+        names = ("prefill rglru out", "state", "conv tail")
+        fwd = lambda: _flat_out(rglru.apply_rglru(lp["rec"], h, cfg))
+        dnames = ("decode rglru out", "decode state")
+        dec = lambda: _flat_out(rglru.decode_rglru(lp["rec"], hd, cd,
+                                                   cfg))[:2]
+    else:
+        names = ("prefill local out", "local K", "local V")
+        fwd = lambda: _flat_out(attn.attention_fwd(
+            lp["attn"], h, cfg, positions=positions,
+            window=cfg.local_window))
+        dnames = ("decode local out", "decode ring K")
+        dec = lambda: _flat_out(attn.attention_decode_ring(
+            lp["attn"], hd, cd, pos, cfg))[:2]
+    x, xd = x + both(names, fwd)[0], xd + both(dnames, dec)[0]
+    m, dm = both(("prefill mlp out", "decode mlp out"), lambda: (
+        apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg),
+        apply_mlp(lp["mlp"], apply_norm(lp["ln2"], xd, cfg), cfg)))
+    return res, x + m, xd + dm
+
+
+def _flat_out(pair):
+    """``(out, cache)`` as ``(out, *cache fields)``."""
+    return (pair[0], *pair[1])
+
+
+def _hybrid_layers(torch, cfg, params, tokens, cache, tok, pos):
+    """The served bf16 model layer by layer (each sublayer fed the plain
+    path's input on both sides, so that nothing compounds): each RG-LRU
+    and local layer's prefill (output, state, conv tail or K/V), decode
+    step from ``cache`` (output, state or ring K) and MLP."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import embed_tokens
+    x = embed_tokens(params, tokens, cfg)
+    xd = embed_tokens(params, tok[:, None], cfg)
+    positions = torch.arange(x.shape[1], device="cuda")[None, :]
+    rec = transformer._cache_slices(cache["rec"], 2) + \
+        transformer._cache_slices(cache["tail"], 1)
+    rec, att = iter(rec), iter(transformer._cache_slices(cache["att"], 2))
+    worst = {}
+    for i, (kind, lp) in enumerate(transformer._hybrid_layers(params, cfg)):
+        cd = next(rec if kind == "rglru" else att)
+        res, x, xd = _hybrid_sublayers(torch, cfg, kind, lp, x, positions,
+                                       xd, cd, pos)
+        for what, (a, b) in res.items():
+            worst[what] = max(worst.get(what, (0.0, 0)),
+                              (_rel(torch, a, b), i))
+    for what, (err, i) in worst.items():
+        print(f"[hybrid_path] bfloat16 per layer (the same input on both "
+              f"sides), {what}: worst {err:.3e} of max|plain| at layer {i} "
+              f"(tol {SSM_LAYER_TOL:g})", flush=True)
+        require(err <= SSM_LAYER_TOL, f"bfloat16 layer {i} {what} disagrees "
+                f"with plain")
+
+
+def phase_hybrid_path(torch):
+    import numpy as np
+    from repro_torch.hardware import H100_PEAK_FLOPS
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.train import serve_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = _hybrid_model(torch)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"[hybrid_path] recurrentgemma-9b full width and depth "
+          f"({cfg.n_layers} layers): {n_params / 1e9:.3f} B params bf16, "
+          f"init {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, HYB_S))).cuda()
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (GEN_B, GEN_PROMPT))).cuda()
+    n_rec, n_att, k1 = _hybrid_counts(cfg)
+    prefill = serve_step.make_prefill(cfg)
+    with torch.inference_mode():
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = prefill(params, {"tokens": tokens})
+        end.record()
+        torch.cuda.synchronize()
+        launches_p = dict(ops.LAUNCHES)
+        prefill_ms = start.elapsed_time(end)
+        require(tuple(logits.shape) == (1, cfg.vocab_size) and
+                bool(torch.isfinite(logits).all()), "prefill logits")
+        g, tail, _, n_att_g = transformer.hybrid_layout(cfg)
+        require(tuple(cache["att"].k.shape) == (g, n_att_g, 1, HYB_S, 1,
+                                                cfg.head_dim_) and
+                tuple(cache["tail"].h.shape) == (tail, 1, cfg.lru_width),
+                "prefill cache shapes")
+        del cache
+        want = _zero_launches(K1=k1, K2=n_att, K8=n_rec)
+        print(f"[hybrid_path] make_prefill B=1 S={HYB_S}: {prefill_ms:.3f} ms"
+              f" ({HYB_S / prefill_ms * 1e3:.1f} tok/s); launches "
+              f"{launches_p} (derived {want})", flush=True)
+        require(launches_p == want, "prefill launches differ from the "
+                "derived counts")
+        d, hd, g = cfg.d_model, cfg.head_dim_, cfg.n_heads
+        head = cfg.vocab_size * d
+        layer_mm = sum(p.numel() for name, p in params.named_parameters()
+                       if name.endswith(("w_x", "w_gate", "wa", "wi",
+                                         "w_out", "wq", "wk", "wv", "wo")))
+        flops = 2 * HYB_S * layer_mm + 2 * head \
+            + n_att * 4 * _pairs(HYB_S, cfg.local_window) * g * hd
+        print(f"[hybrid_path] prefill bound: {flops / 1e12:.3f} TFLOP at 989 "
+              f"TFLOP/s = {flops / H100_PEAK_FLOPS['bfloat16'] * 1e3:.3f} ms "
+              f"(weights {w_bytes / 1e9:.3f} GB at 3.35 TB/s = "
+              f"{bound(0.0, w_bytes, 'bfloat16')[0]:.3f} ms); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = serve_step.greedy_generate(params, cfg, prompts, GEN_NEW,
+                                         GEN_CACHE)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches_g = dict(ops.LAUNCHES)
+        steps = GEN_PROMPT + GEN_NEW
+        require(tuple(out.shape) == (GEN_B, steps) and
+                torch.equal(out[:, :GEN_PROMPT], prompts) and
+                bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+                "greedy_generate output")
+        want = _zero_launches(K1=steps * k1)
+        print(f"[hybrid_path] greedy_generate B={GEN_B}, {GEN_PROMPT} prompt "
+              f"tokens (ingested one by one) + {GEN_NEW} new, cache_len "
+              f"{GEN_CACHE}: {gen_s:.3f} s, {steps} decode steps, "
+              f"{gen_s * 1e3 / steps:.3f} ms a step (host clock), "
+              f"{GEN_B * GEN_NEW / gen_s:.2f} new tok/s; launches "
+              f"{launches_g} (derived {want}); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        require(launches_g == want, "greedy_generate launches differ from "
+                "the derived counts")
+
+        # agreement with the plain path: the prefill of the 4096 tokens and
+        # a decode step at position HYB_DECODE_CTX
+        ctx = prompts[:1, :HYB_DECODE_CTX + 1]
+        _hybrid_agreement(torch, cfg, params, tokens, ctx)
+        torch.cuda.empty_cache()
+        cache = _hybrid_ctx_cache(torch, cfg, params, ctx[:, :-1])
+        pos = torch.full((1,), HYB_DECODE_CTX, dtype=torch.int32,
+                         device="cuda")
+        _hybrid_layers(torch, cfg, params, tokens, cache, ctx[:, -1], pos)
+
+        # one generation decode step (B=2) from the ingested prompts' cache,
+        # under the "error" sync debug mode, then timed and profiled
+        cache = transformer.init_cache(cfg, GEN_B, GEN_CACHE, device="cuda")
+        for t in range(8):
+            _, cache = transformer.decode_step(
+                params, cfg, prompts[:, t],
+                torch.full((GEN_B,), t, dtype=torch.int32, device="cuda"),
+                cache)
+        pos = torch.full((GEN_B,), 8, dtype=torch.int32, device="cuda")
+        decode = serve_step.make_decode(cfg)
+        step = lambda: decode(params, prompts[:, 8], pos, cache)
+        step()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        print("[hybrid_path] decode step ran with no host sync (sync debug "
+              "mode 'error')", flush=True)
+        step_ms = time_ms(torch, step, iters=5, warmup=1)
+        b_ms, _ = bound(0.0, w_bytes, "bfloat16")
+        print(f"[hybrid_path] decode step (B={GEN_B}): {step_ms:.3f} ms (CUDA "
+              f"events); weight bytes {w_bytes / 1e9:.3f} GB -> bound "
+              f"{b_ms:.3f} ms; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        profile_step(torch, step, n=2, what="hybrid decode")
+        profile_step(torch, lambda: prefill(params, {"tokens": tokens}), n=1,
+                     what="hybrid prefill")
+    return {k: launches_p[k] + launches_g[k] for k in launches_p}
+
+
+def _hybrid_layer_grads(torch, cfg, params, batch):
+    """The bf16 model's VJP layer by layer: each layer (both sublayers and
+    their norms) gets the plain path's input and one seeded cotangent on
+    both sides, so that nothing compounds; the gradients of its input (the
+    residual's identity included) and of each of its parameters are held
+    to SSM_LAYER_GRAD_TOL."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import embed_tokens
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    with torch.no_grad():
+        x = embed_tokens(params, batch["tokens"], cfg)
+    positions = torch.arange(x.shape[1], device="cuda")[None, :]
+    worst = {}
+    for i, (kind, lp) in enumerate(transformer._hybrid_layers(params, cfg)):
+        leaves = {f"{g}.{k}": t.detach().requires_grad_(True)
+                  for g, grp in lp.items() for k, t in grp.items()}
+        lpl = {g: {k: leaves[f"{g}.{k}"] for k in grp}
+               for g, grp in lp.items()}
+        ct = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+        res = []
+        for plain in (False, True):
+            xin = x.detach().requires_grad_(True)
+            with _plain_if(ops, plain):
+                o, _ = transformer._BLOCKS[kind](lpl, xin, cfg, positions,
+                                                 False)
+                res.append((o.detach(), torch.autograd.grad(
+                    o, [xin, *leaves.values()], ct)))
+        for name, a, b in zip(["input", *leaves], res[0][1], res[1][1]):
+            key = f"{kind} {name}"
+            worst[key] = max(worst.get(key, (0.0, 0)),
+                             (_rel(torch, a, b, norm=True), i))
+        x = res[1][0]
+        del res, leaves, lpl
+    for name, (err, i) in worst.items():
+        print(f"[hybrid_train] bfloat16 per-layer VJP (the same input and "
+              f"cotangent on both sides), grad {name}: worst rel norm err "
+              f"{err:.3e} at layer {i} (tol {SSM_LAYER_GRAD_TOL:g})",
+              flush=True)
+        require(err <= SSM_LAYER_GRAD_TOL, f"bfloat16 layer {i} grad {name} "
+                f"disagrees with plain")
+
+
+def phase_hybrid_train(torch):
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.hardware import H100, H100_PEAK_FLOPS
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_step as ts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = _hybrid_model(torch, HYB_TRAIN_LAYERS, trainable=True)
+    require(cfg.remat, "recurrentgemma-9b trains with remat on")
+    data = SyntheticLM(PipelineConfig(cfg.vocab_size, HYB_S, HYB_B, seed=0))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                data.global_batch(i).items()} for i in range(TRAIN_STEPS)]
+    n_params = sum(p.numel() for p in params.parameters())
+    tokens = HYB_B * HYB_S
+    print(f"[hybrid_train] recurrentgemma-9b full widths, {cfg.n_layers} "
+          f"layers: {n_params / 1e9:.3f} B params bf16", flush=True)
+
+    # step 1's loss and gradients on its first microbatch (B=1) against
+    # the plain path (f32, and bf16 beside its witness), then the bf16 VJP
+    # layer by layer
+    mb = {k: v[:HYB_B // HYB_MB] for k, v in batches[0].items()}
+    _grad_agreement(torch, "hybrid_train", cfg, params, mb)
+    _hybrid_layer_grads(torch, cfg, params, mb)
+    torch.cuda.empty_cache()
+
+    state = ts.init_state(cfg, params, "cuda")
+    step = ts.make_train_step(cfg, microbatches=HYB_MB)
+    before = {k: t.reshape(-1)[:4096].clone()
+              for k, t in state.opt.master.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rows = []
+    for i, batch in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if i == len(batches) - 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            start.record()
+            state, metrics = step(state, batch)
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
+        rows.append((ms, loss, gnorm))
+        print(f"[hybrid_train] step {i + 1}: {ms:.3f} ms, "
+              f"{tokens / ms * 1e3:.1f} tok/s, loss {loss:.6f}, grad_norm "
+              f"{gnorm:.6f}", flush=True)
+        require(math.isfinite(loss) and math.isfinite(gnorm),
+                f"step {i + 1}: loss or grad norm not finite")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print("[hybrid_train] step 3 ran with no host sync (sync debug mode "
+          "'error')", flush=True)
+    changed = sum(not torch.equal(before[k], t.reshape(-1)[:4096])
+                  for k, t in state.opt.master.items())
+    require(changed == len(before), f"only {changed} of {len(before)} f32 "
+            f"master leaves changed")
+    n_rec, n_att, k1 = _hybrid_counts(cfg)
+    n, m = TRAIN_STEPS, HYB_MB
+    # a microbatch: the forward's K1 products, the layers' again under
+    # remat, 2 VJP products for each forward one; K2 a local layer in the
+    # forward and the remat rerun, K3/K4 once; K8 an RG-LRU layer in the
+    # forward, the remat rerun and the reverse walk
+    want = _zero_launches(K1=n * m * (k1 + (k1 - 1) + 2 * k1),
+                          K2=n * m * 2 * n_att, K3=n * m * n_att,
+                          K4=n * m * n_att, K8=n * m * 3 * n_rec)
+    print(f"[hybrid_train] launches over {n} steps {launches} (derived "
+          f"{want})", flush=True)
+    require(launches == want, "kernel launches differ from the derived "
+            "counts")
+
+    # the step's bound: the products (3x the forward's) and attention at
+    # the bf16 peak, AdamW's 28 B a parameter at 3.35 TB/s
+    mm_params = sum(p.numel() for name, p in params.named_parameters()
+                    if name.endswith(("w_x", "w_gate", "wa", "wi", "w_out",
+                                      "wq", "wk", "wv", "wo", "table")))
+    attn_flops = n_att * 4 * HYB_B * _pairs(HYB_S, cfg.local_window) \
+        * cfg.n_heads * cfg.head_dim_
+    flops = 3 * (2 * tokens * mm_params + attn_flops)
+    mm_ms = flops / H100_PEAK_FLOPS["bfloat16"] * 1e3
+    opt_ms = n_params * 28 / H100.hbm.bandwidth_Bps * 1e3
+    mean_ms = sum(r[0] for r in rows[1:]) / (len(rows) - 1)
+    print(f"[hybrid_train] recurrentgemma-9b {cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B params, B={HYB_B} S={HYB_S} in {m} "
+          f"microbatches: step ms {[round(r[0], 3) for r in rows]} (steps "
+          f"2-3 mean {mean_ms:.3f} ms, {tokens / mean_ms * 1e3:.1f} tok/s); "
+          f"peak memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"[hybrid_train] bound: products {flops / 1e12:.3f} TFLOP at 989 "
+          f"TFLOP/s = {mm_ms:.3f} ms + AdamW {n_params * 28 / 1e9:.3f} GB at "
+          f"3.35 TB/s = {opt_ms:.3f} ms = {mm_ms + opt_ms:.3f} ms", flush=True)
+    profile_step(torch, lambda: step(state, batches[0]), n=1,
+                 what="hybrid train")
     return launches
 
 
@@ -1225,6 +1766,10 @@ def main() -> None:
     ssm_serve = phase_ssm_path(torch)
     torch.cuda.empty_cache()
     ssm_train = phase_ssm_train(torch)
+    torch.cuda.empty_cache()
+    hybrid_serve = phase_hybrid_path(torch)
+    torch.cuda.empty_cache()
+    hybrid_train = phase_hybrid_train(torch)
 
     src = "src/repro_torch/kernels/csrc/"
     head = {"K1": ("K1_gemm", src + "gemm.cu",
@@ -1248,12 +1793,16 @@ def main() -> None:
                    f"export"),
             "K7": ("K7_ssd_bwd", src + "ssd.cu",
                    "src/repro/kernels/emit.py:717",
-                   f"K7 float32 B={SSM_B} S={SSM_S} q=256 h=48 p=64 n=128")}
+                   f"K7 float32 B={SSM_B} S={SSM_S} q=256 h=48 p=64 n=128"),
+            "K8": ("K8_gated_scan", src + "gated_scan.cu",
+                   "src/repro/kernels/emit.py:461",
+                   f"K8 float32 B=1 S={HYB_S} w=4096")}
     runs = {"path": serve, "train": train, "ssm_path": ssm_serve,
-            "ssm_train": ssm_train}
+            "ssm_train": ssm_train, "hybrid_path": hybrid_serve,
+            "hybrid_train": hybrid_train}
     kernels = []
     for kid, (name, source, replaces, shape) in head.items():
-        # launches: the four path runs', each counted from 0
+        # launches: the path runs', each counted from 0
         by_path = {k: run[kid] for k, run in runs.items()}
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,

@@ -1,9 +1,10 @@
 """Model configurations the port serves (one module per architecture, as
 in ``repro.configs``)."""
-from repro_torch.configs import gemma_2b, mamba2_780m
+from repro_torch.configs import gemma_2b, mamba2_780m, recurrentgemma_9b
 from repro_torch.configs.common import ArchConfig
 
-ARCHS = {gemma_2b.ARCH_ID: gemma_2b, mamba2_780m.ARCH_ID: mamba2_780m}
+ARCHS = {gemma_2b.ARCH_ID: gemma_2b, mamba2_780m.ARCH_ID: mamba2_780m,
+         recurrentgemma_9b.ARCH_ID: recurrentgemma_9b}
 
 
 def get_config(arch_id: str, reduced: bool = False) -> ArchConfig:

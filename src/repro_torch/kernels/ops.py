@@ -9,12 +9,13 @@ is no fallback: a kernel that cannot take its inputs raises.  Inside
 ``chip_smoke.py`` computes the reference it holds the kernels against on
 the card.
 
-``matmul``, ``attention`` and ``scan_ssd`` are differentiable
-(``torch.autograd.Function``, the counterparts of the reference's
-``jax.custom_vjp`` rules): the matmul's gradients are two more K1
-products, the attention's forward saves K2's exported (m, l) statistics
-for the K3/K4 backward, and the SSD scan's forward saves K6's exported
-per-chunk states for the K7 reverse scan.
+``matmul``, ``attention``, ``scan_ssd`` and ``gated_scan`` are
+differentiable (``torch.autograd.Function``, the counterparts of the
+reference's ``jax.custom_vjp`` rules): the matmul's gradients are two more
+K1 products, the attention's forward saves K2's exported (m, l) statistics
+for the K3/K4 backward, the SSD scan's forward saves K6's exported
+per-chunk states for the K7 reverse scan, and the gated scan's backward
+is K8's reverse walk.
 
 ================  =======================  =============================
 entry             kernel (``csrc/``)       replaces (``repro``)
@@ -32,6 +33,8 @@ batched``
 ``scan_ssd``      K6 ``ssd.cu``            ``emit._ssd_kind`` (with its
                                            per-chunk ``h_in`` export)
 (its backward)    K7 ``ssd.cu``            ``emit._ssd_backward_kind``
+``gated_scan``    K8 ``gated_scan.cu``     ``emit._gated_kind`` (and its
+(and backward)                             ``gated_backward`` kind)
 ================  =======================  =============================
 """
 from __future__ import annotations
@@ -47,7 +50,8 @@ from repro_torch.kernels import build, ref
 
 #: kernel launches since import (or the caller's last reset), by kernel id;
 #: a wrapper adds one exactly where it launches its kernel
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
+            "K8": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PLAIN = False
@@ -64,6 +68,7 @@ _SIGNATURES = {
                            + [_F, _C, _C]),
     "repro_ssd_scan": ("ssd", [_P] * 8 + [_C] * 6),
     "repro_ssd_bwd": ("ssd", [_P] * 14 + [_C] * 6),
+    "repro_gated_scan": ("gated_scan", [_P] * 5 + [_C] * 4),
 }
 
 
@@ -232,7 +237,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, transpose_b: bool = False,
                              f"@ {tuple(w.shape)}")
         w2 = w.reshape(kdim, -1)
         out_tail = w.shape[1:]
-    x2 = x.reshape(-1, kdim)
+    # K1 reads row-major operands: an activation that arrives strided
+    # (e.g. an einsum's permuted result) is copied, never a weight
+    x2 = x.reshape(-1, kdim).contiguous()
     if torch.is_grad_enabled() and (x2.requires_grad or w2.requires_grad):
         y = _MatmulF32.apply(x2, w2, transpose_b)
     else:          # serving: no autograd node per product
@@ -634,3 +641,87 @@ def scan_ssd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
         return _ScanSSD.apply(xdt, dA, B, C, init_state, chunk)
     y, final, _ = _scan_padded(xdt, dA, B, C, init_state, chunk, False)
     return y, final
+
+
+# ---------------------------------------------------------------------------
+# K8: the RG-LRU gated scan, forward and reverse
+# ---------------------------------------------------------------------------
+
+def gated_recurrence(log_a: torch.Tensor, b_in: torch.Tensor,
+                     h0: torch.Tensor | None = None, reverse: bool = False
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8 or its plain version: ``h_t = exp(log_a_t) h_{t-1} + b_t`` over
+    ``log_a/b_in (B, S, w)`` f32 contiguous, from ``h0 (B, w)`` (zeros when
+    None); ``reverse`` walks backwards with the gate one step ahead (see
+    ``ref.gated_scan``).  Returns ``(h (B, S, w), final (B, w))`` f32.  The
+    kernel walks any ``S``: there is no chunk and so no padding."""
+    if log_a.dim() != 3 or b_in.shape != log_a.shape or (
+            h0 is not None and h0.shape != (log_a.shape[0],
+                                            log_a.shape[2])):
+        raise ValueError(f"gated scan shapes log_a {tuple(log_a.shape)}, b "
+                         f"{tuple(b_in.shape)}, h0 "
+                         f"{None if h0 is None else tuple(h0.shape)}")
+    operands = (log_a, b_in) if h0 is None else (log_a, b_in, h0)
+    if not _use_kernel(*operands):
+        return ref.gated_scan(log_a, b_in, h0, reverse)
+    if any(t.dtype != torch.float32 for t in operands):
+        raise TypeError(f"gated_scan kernel takes float32 operands, got "
+                        f"{sorted({str(t.dtype) for t in operands})}")
+    if any(not t.is_contiguous() for t in operands):
+        raise ValueError("gated_scan kernel takes contiguous operands")
+    b, s, w = log_a.shape
+    h = torch.empty_like(b_in)
+    final = torch.empty((b, w), device=b_in.device, dtype=torch.float32)
+    _launch("repro_gated_scan", log_a.data_ptr(), b_in.data_ptr(),
+            None if h0 is None else h0.data_ptr(), h.data_ptr(),
+            final.data_ptr(), b, s, w, int(reverse))
+    LAUNCHES["K8"] += 1
+    return h, final
+
+
+class _GatedScan(torch.autograd.Function):
+    """The gated scan with the reference's derived VJP
+    (``_gated_kernel_fwd`` / ``_gated_kernel_bwd``): the forward runs K8
+    and saves ``(log_a, h0, h)``; the backward folds the final-state
+    cotangent into the last step's, runs K8's reverse walk for ``dbar``,
+    and forms the per-token cotangents elementwise in plain PyTorch, as
+    the reference does in jnp outside its kernel: ``dlog_a = dbar a
+    h_prev``, ``db = dbar``, ``dh0 = a_0 dbar_0``."""
+
+    @staticmethod
+    def forward(ctx, log_a, b_in, h0):
+        h, final = gated_recurrence(log_a, b_in, h0)
+        ctx.save_for_backward(log_a, h0, h)
+        return h, final
+
+    @staticmethod
+    def backward(ctx, gy, gfin):
+        log_a, h0, h = ctx.saved_tensors
+        dy = gy.float().clone(memory_format=torch.contiguous_format)
+        dy[:, -1] += gfin.float()
+        dbar, _ = gated_recurrence(log_a, dy, reverse=True)
+        a = torch.exp(log_a.float())
+        first = h.new_zeros(h[:, :1].shape) if h0 is None else \
+            h0.float()[:, None]
+        h_prev = torch.cat([first, h[:, :-1]], dim=1)
+        dlog_a = (dbar * a * h_prev).to(log_a.dtype)
+        dh0 = None
+        if h0 is not None and ctx.needs_input_grad[2]:
+            dh0 = (a[:, 0] * dbar[:, 0]).to(h0.dtype)
+        return dlog_a, dbar, dh0
+
+
+def gated_scan(log_a: torch.Tensor, b_in: torch.Tensor, *,
+               init_state: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU gated linear scan (``repro.kernels.ops.gated_scan``):
+    ``h_t = exp(log_a_t) h_{t-1} + b_t`` over ``log_a/b_in (B, S, w)`` f32
+    from ``init_state (B, w)`` f32 (zeros when None).  Returns ``(h (B, S,
+    w), final (B, w))`` f32, at any ``S``.  Differentiable in all three
+    inputs: the backward runs K8's reverse walk (the reference's
+    ``gated_backward`` kind)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (log_a, b_in, init_state)):
+        return _GatedScan.apply(log_a, b_in, init_state)
+    return gated_recurrence(log_a, b_in, init_state)

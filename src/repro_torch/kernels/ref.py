@@ -6,8 +6,8 @@ the wrappers in ``kernels/ops.py`` and, on the card, the reference
 ``chip_smoke.py`` holds each kernel against.  Counterparts in the JAX
 package: ``ops._xla_matmul_f32``, ``models.chunked_attention`` /
 ``ops._oracle_attention``, ``kernels.ref.flash_dq_ref`` /
-``flash_dkv_ref``, ``ops._batched_oracle``, ``kernels.ref.ssd_scan_ref``
-and ``ssd_bwd_ref``.
+``flash_dkv_ref``, ``ops._batched_oracle``, ``kernels.ref.ssd_scan_ref``,
+``ssd_bwd_ref`` and ``gated_scan_ref``.
 """
 from __future__ import annotations
 
@@ -265,3 +265,35 @@ def ssd_bwd(C: torch.Tensor, B: torch.Tensor, dY: torch.Tensor,
         dh = dh_prev
     cat = lambda ts, *tail: torch.stack(ts, dim=1).reshape(b, s, *tail)
     return cat(dX, h, p), dh, cat(dB, n), cat(dC, n), cat(ddA, h)
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU gated linear scan, forward and reverse
+# ---------------------------------------------------------------------------
+
+def gated_scan(log_a: torch.Tensor, b_in: torch.Tensor,
+               h0: torch.Tensor | None = None, reverse: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gated linear scan walked step by step (the semantics of
+    ``repro.kernels.ref.gated_scan_ref`` and ``gated_chunk_ref``):
+    ``h_t = a_t * h_{t-1} + b_t`` with ``a = exp(log_a)`` and ``h_{-1} =
+    h0`` (zeros when None).  ``log_a/b_in (B, S, w)``, ``h0 (B, w)``, all
+    f32.  Returns ``(h (B, S, w), final (B, w))``, ``final`` the last step's
+    ``h``.
+
+    ``reverse`` walks ``t = S-1 .. 0`` with the gate one step ahead, ``h_t
+    = a_{t+1} * h_{t+1} + b_t`` (a gate of 1 past the end, ``h_S = h0``):
+    the cotangent recurrence ``dbar_t = dy_t + a_{t+1} dbar_{t+1}`` of the
+    reference's ``ops._gated_kernel_bwd``, on forward-order operands;
+    ``final`` is then ``h_0``."""
+    a = torch.exp(log_a.float())
+    b = b_in.float()
+    bsz, s, w = b.shape
+    if reverse:
+        a = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], dim=1)
+    carry = b.new_zeros((bsz, w)) if h0 is None else h0.float()
+    h = torch.empty_like(b)
+    for t in (range(s - 1, -1, -1) if reverse else range(s)):
+        carry = a[:, t] * carry + b[:, t]
+        h[:, t] = carry
+    return h, carry

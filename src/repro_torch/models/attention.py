@@ -1,5 +1,6 @@
-"""Attention for the dense family: the prefill forward and the batched
-paged decode (``repro.models.attention``).
+"""Attention (``repro.models.attention``): the prefill forward, the
+batched paged decode of the dense family and the ring-cache decode of the
+local (windowed) layers.
 
 Grouped-query attention never repeats K/V heads: queries are reshaped to
 ``(kv_heads, group)`` and the kernels contract them against the
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.configs.common import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import MASK_NEG_INF
 from repro_torch.models.layers import apply_rope, rope_tables
 
 
@@ -107,3 +109,67 @@ def attention_decode_paged_batched(p, x: torch.Tensor, k_pool: torch.Tensor,
                                    page=page, scale=scale, window=window)
     out = ctx.reshape(slots, 1, h, hd).to(x.dtype)
     return _out_proj(out, p["wo"], x.dtype)
+
+
+def _cache_write(cache: torch.Tensor, new: torch.Tensor,
+                 slot: torch.Tensor) -> torch.Tensor:
+    """A new cache with ``new (B, 1, ...)`` written at each row's ``slot
+    (B,)`` of ``cache (B, S, ...)``: a one-hot select on the device (the
+    reference's ``_cache_write``), so no index is read on the host."""
+    b, s = cache.shape[:2]
+    hit = torch.arange(s, device=cache.device)[None, :] == slot[:, None]
+    hit = hit.reshape(b, s, *([1] * (cache.dim() - 2)))
+    return torch.where(hit, new.to(cache.dtype), cache)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """The materialized masked softmax of the reference's ``_attend``:
+    ``q (B, Sq, KV, G, hd)``, ``k/v (B, Sk, KV, hd)``, ``mask``
+    broadcastable to ``(B, KV, G, Sq, Sk)`` -> ``(B, Sq, KV*G, hd)`` in
+    v's dtype; f32 scores and softmax, the weights rounded to v's dtype
+    before the f32-accumulated product."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    w = torch.softmax(torch.where(mask, s, MASK_NEG_INF), dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype).float(),
+                       v.float()).to(v.dtype)
+    b, sq, kv, g, hd = out.shape
+    return out.reshape(b, sq, kv * g, hd)
+
+
+def attention_decode_ring(p, x: torch.Tensor, cache: KV, pos: torch.Tensor,
+                          cfg: ArchConfig) -> tuple[torch.Tensor, KV]:
+    """One-token decode against a RING cache for windowed (local)
+    attention.  x: (B, 1, d); ``pos (B,)`` the new token's absolute
+    positions on the device; ``cache`` k/v (B, W, KV, hd), W =
+    min(window, cache_len).
+
+    The cache holds exactly the last W tokens: after the write at slot
+    ``pos % W``, slot j carries the key/value of absolute position ``pos -
+    ((pos - j) mod W)``, and slots whose position is negative are masked.
+    Returns the output and a new cache (the input cache is not written).
+    The reference computes this in jnp with no Pallas kernel; so does the
+    port, in plain PyTorch."""
+    b = x.shape[0]
+    hd = p["wq"].shape[-1]
+    scale = hd ** -0.5
+    wlen = cache.k.shape[1]
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if cfg.rope_pct > 0:
+        sin, cos = rope_tables(pos[:, None], int(hd * cfg.rope_pct),
+                               cfg.rope_theta)
+        q = apply_rope(q, sin, cos, _rope_pct(cfg, hd))
+        k = apply_rope(k, sin, cos, _rope_pct(cfg, hd))
+    pos = pos.long()
+    slot = pos % wlen
+    ck = _cache_write(cache.k, k, slot)
+    cv = _cache_write(cache.v, v, slot)
+    j = torch.arange(wlen, device=x.device)[None, :]
+    kpos = pos[:, None] - torch.remainder(pos[:, None] - j, wlen)
+    mask = (kpos >= 0)[:, None, None, None, :]
+    kvh = ck.shape[2]
+    qg = q.reshape(b, 1, kvh, q.shape[2] // kvh, hd)
+    out = _attend(qg, ck, cv, mask, scale)
+    return _out_proj(out, p["wo"], x.dtype), KV(ck, cv)

@@ -1,13 +1,18 @@
 """Decoder-LM assembly (``repro.models.transformer``) for the dense family
-with full attention and the attention-free ssm (Mamba-2) family.
+with full attention, the attention-free ssm (Mamba-2) family and the hybrid
+(RG-LRU + local attention) family.
 
 Parameters are a nested ``nn.ModuleDict`` of ``nn.ParameterDict``s with the
 reference's names and layouts — layer stacks keep their leading ``layers``
 axis (``layers.attn.wq`` is ``(L, d, h, hd)``, ``layers.mixer.w_in`` is
-``(L, d, 2 d_inner + 2 n + h)``, ``embed.table`` is ``(V, d)``) — so
-carrying weights across from the JAX package is a copy with no transposes
-(``repro_torch.convert``).  The reference scans its layer stacks; here a
-Python loop indexes the stacked tensors.
+``(L, d, 2 d_inner + 2 n + h)``, ``embed.table`` is ``(V, d)``), the
+hybrid's groups their ``(groups, n_rec)`` / ``(groups, n_att)`` axes
+(``groups.rec.w_x`` is ``(g, n_rec, d, lru)``, ``groups.att.wq`` ``(g,
+n_att, d, h, hd)``) and its recurrent tail a ``(tail,)`` axis
+(``tail.rec.*``) — so carrying weights across from the JAX package is a
+copy with no transposes (``repro_torch.convert``).  The reference scans its
+layer stacks (the hybrid its layer groups); here a Python loop indexes the
+stacked tensors.
 
 Entry points:
 
@@ -18,9 +23,10 @@ Entry points:
     dense:  init_paged_pools(cfg, pool_tokens, ...) -> {"k", "v"}
             decode_step_paged_batched(params, cfg, tokens, pos, pools,
                                       tables, page)    -> logits
-    ssm:    init_cache(cfg, batch, cache_len, ...)  -> {"layers": SSMCache}
-            prefill_cache_to_decode(cfg, cache, cache_len) -> decode cache
+    ssm, hybrid:
+            init_cache(cfg, batch, cache_len, ...)  -> decode cache
             decode_step(params, cfg, tokens, pos, cache) -> (logits, cache)
+    ssm:    prefill_cache_to_decode(cfg, cache, cache_len) -> decode cache
 """
 from __future__ import annotations
 
@@ -31,15 +37,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.common import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import ssm
+from repro_torch.models import rglru, ssm
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        logits_from_hidden)
 
-DENSE, SSM = ("dense", "full"), ("ssm", "none")
+DENSE, SSM, HYBRID = ("dense", "full"), ("ssm", "none"), ("hybrid", "full")
 
 
 def _check_family(cfg: ArchConfig, what: str,
-                  ported: tuple = (DENSE, SSM)) -> None:
+                  ported: tuple = (DENSE, SSM, HYBRID)) -> None:
     if (cfg.family, cfg.attention) not in ported:
         raise NotImplementedError(
             f"{what}: the port covers {' and '.join(map(str, ported))} as "
@@ -52,35 +58,68 @@ def _check_family(cfg: ArchConfig, what: str,
             f"yet (ROADMAP.md, Queue 1)")
 
 
+def _attn_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    return {"wq": (lead + (d, h, hd), d ** -0.5),
+            "wk": (lead + (d, kv, hd), d ** -0.5),
+            "wv": (lead + (d, kv, hd), d ** -0.5),
+            "wo": (lead + (h, hd, d), (h * hd) ** -0.5)}
+
+
+def _mlp_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    wi = 2 * f if cfg.mlp in ("swiglu", "geglu") else f
+    return {"wi": (lead + (d, wi), d ** -0.5), "wo": (lead + (f, d), f ** -0.5)}
+
+
+def _norm_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
+    return {"scale": (lead + (cfg.d_model,), "ones")}
+
+
+def hybrid_layout(cfg: ArchConfig) -> tuple[int, int, int, int]:
+    """``(groups, tail, n_rec, n_att)`` of a hybrid stack: ``groups``
+    repeats of ``cfg.layer_pattern`` (``n_rec`` RG-LRU and ``n_att`` local
+    attention layers each), then ``tail`` RG-LRU layers."""
+    pat = cfg.layer_pattern
+    g = cfg.n_layers // len(pat)
+    n_rec = sum(1 for k in pat if k == "rglru")
+    return g, cfg.n_layers - g * len(pat), n_rec, len(pat) - n_rec
+
+
 def param_shapes(cfg: ArchConfig) -> dict:
     """``{group: {name: (shape, init scale, "ones" or "zeros")}}`` of the
     LM, in the reference's ``Collector`` order and scales."""
     _check_family(cfg, "param_shapes")
-    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
-    if cfg.family == "ssm":
-        shapes = {"embed": {"table": ((cfg.vocab_size, d), d ** -0.5)}}
-        if not cfg.tie_embeddings:
-            shapes["unembed"] = {"w": ((d, cfg.vocab_size), d ** -0.5)}
-        shapes["final_norm"] = {"scale": ((d,), "ones")}
-        shapes["layers.ln1"] = {"scale": ((L, d), "ones")}
-        shapes["layers.mixer"] = ssm.param_shapes(cfg, (L,))
-        return shapes
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    wi = 2 * f if cfg.mlp in ("swiglu", "geglu") else f
-    shapes = {
-        "embed": {"table": ((cfg.vocab_size, d), d ** -0.5)},
-        "final_norm": {"scale": ((d,), "ones")},
-        "layers.ln1": {"scale": ((L, d), "ones")},
-        "layers.ln2": {"scale": ((L, d), "ones")},
-        "layers.attn": {"wq": ((L, d, h, hd), d ** -0.5),
-                        "wk": ((L, d, kv, hd), d ** -0.5),
-                        "wv": ((L, d, kv, hd), d ** -0.5),
-                        "wo": ((L, h, hd, d), (h * hd) ** -0.5)},
-        "layers.mlp": {"wi": ((L, d, wi), d ** -0.5),
-                       "wo": ((L, f, d), f ** -0.5)},
-    }
+    d, L = cfg.d_model, cfg.n_layers
+    shapes = {"embed": {"table": ((cfg.vocab_size, d), d ** -0.5)}}
     if not cfg.tie_embeddings:
         shapes["unembed"] = {"w": ((d, cfg.vocab_size), d ** -0.5)}
+    shapes["final_norm"] = _norm_shapes(cfg, ())
+    if cfg.family == "ssm":
+        shapes["layers.ln1"] = _norm_shapes(cfg, (L,))
+        shapes["layers.mixer"] = ssm.param_shapes(cfg, (L,))
+    elif cfg.family == "hybrid":
+        g, tail, n_rec, n_att = hybrid_layout(cfg)
+        rec, att = (g, n_rec), (g, n_att)
+        shapes.update({
+            "groups.rec_ln1": _norm_shapes(cfg, rec),
+            "groups.rec_ln2": _norm_shapes(cfg, rec),
+            "groups.rec": rglru.param_shapes(cfg, rec),
+            "groups.rec_mlp": _mlp_shapes(cfg, rec),
+            "groups.att_ln1": _norm_shapes(cfg, att),
+            "groups.att_ln2": _norm_shapes(cfg, att),
+            "groups.att": _attn_shapes(cfg, att),
+            "groups.att_mlp": _mlp_shapes(cfg, att)})
+        if tail:
+            shapes.update({"tail.ln1": _norm_shapes(cfg, (tail,)),
+                           "tail.ln2": _norm_shapes(cfg, (tail,)),
+                           "tail.rec": rglru.param_shapes(cfg, (tail,)),
+                           "tail.mlp": _mlp_shapes(cfg, (tail,))})
+    else:
+        shapes.update({"layers.ln1": _norm_shapes(cfg, (L,)),
+                       "layers.ln2": _norm_shapes(cfg, (L,)),
+                       "layers.attn": _attn_shapes(cfg, (L,)),
+                       "layers.mlp": _mlp_shapes(cfg, (L,))})
     return shapes
 
 
@@ -128,21 +167,54 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator,
     return build_params(tensors, trainable)
 
 
-def _layers(params) -> list[dict]:
-    """Each layer's slices of the stacked parameters, as plain dicts.
-    ``unbind`` makes the slices in one op, so under autograd the stacked
-    gradient is one ``stack`` of the per-layer gradients, not a
-    full-size zero tensor per layer."""
-    cols = {name: {k: t.unbind(0) for k, t in group.items()}
-            for name, group in params["layers"].items()}
+def _unbind(t: torch.Tensor, depth: int) -> list[torch.Tensor]:
+    """The slices of ``t`` over its ``depth`` leading axes, in index
+    order."""
+    parts = [t]
+    for _ in range(depth):
+        parts = [p for part in parts for p in part.unbind(0)]
+    return parts
+
+
+def _slices(groups, depth: int) -> list[dict]:
+    """``{name: {leaf: stacked tensor}}`` as per-layer plain dicts, split
+    along the ``depth`` leading stack axes.  ``unbind`` makes the slices
+    in one op, so under autograd the stacked gradient is one ``stack`` of
+    the per-layer gradients, not a full-size zero tensor per layer."""
+    cols = {name: {k: _unbind(t, depth) for k, t in group.items()}
+            for name, group in groups.items()}
+    n = len(next(iter(next(iter(cols.values())).values())))
     return [{name: {k: ts[i] for k, ts in group.items()}
-             for name, group in cols.items()}
-            for i in range(len(cols["ln1"]["scale"]))]
+             for name, group in cols.items()} for i in range(n)]
+
+
+def _layers(params) -> list[dict]:
+    """Each layer's slices of the ``layers`` stack (dense, ssm)."""
+    return _slices(params["layers"], 1)
+
+
+def _hybrid_layers(params, cfg: ArchConfig) -> list[tuple[str, dict]]:
+    """The hybrid stack's layers in order as ``(kind, params)``: each
+    group's pattern, then the tail.  An RG-LRU layer's params are ``{ln1,
+    ln2, rec, mlp}``, a local attention layer's ``{ln1, ln2, attn, mlp}``
+    (the dense layer's names)."""
+    g, tail, _, _ = hybrid_layout(cfg)
+    grp = params["groups"]
+    rec = iter(_slices({"ln1": grp["rec_ln1"], "ln2": grp["rec_ln2"],
+                        "rec": grp["rec"], "mlp": grp["rec_mlp"]}, 2))
+    att = iter(_slices({"ln1": grp["att_ln1"], "ln2": grp["att_ln2"],
+                        "attn": grp["att"], "mlp": grp["att_mlp"]}, 2))
+    out = [(kind, next(rec) if kind == "rglru" else next(att))
+           for _ in range(g) for kind in cfg.layer_pattern]
+    if tail:
+        out += [("rglru", lp) for lp in _slices(params["tail"], 1)]
+    return out
 
 
 def _block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
            positions: torch.Tensor, want_cache: bool):
-    """One pre-norm dense layer: returns the new residual and its K/V."""
+    """One pre-norm attention layer (dense, or the hybrid's local layer):
+    returns the new residual and its K/V."""
     h = apply_norm(lp["ln1"], x, cfg)
     a_out, kv = attn.attention_fwd(lp["attn"], h, cfg, positions=positions,
                                    window=cfg.local_window)
@@ -160,45 +232,93 @@ def _ssm_block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
     return x + out, c
 
 
+def _rglru_block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
+                 positions: torch.Tensor, want_cache: bool):
+    """One pre-norm RG-LRU layer and its MLP: the new residual and its
+    RGLRUCache."""
+    out, c = rglru.apply_rglru(lp["rec"], apply_norm(lp["ln1"], x, cfg), cfg)
+    x = x + out
+    return x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg), c
+
+
+_BLOCKS = {"dense": _block, "local": _block, "ssm": _ssm_block,
+           "rglru": _rglru_block}
+
+
+def _stacked(caches: list, lead: tuple[int, ...]):
+    """The per-layer caches (NamedTuples of one type) as one, each field
+    stacked into the ``lead`` stack axes."""
+    return type(caches[0])(*(torch.stack(t).reshape(*lead, *t[0].shape)
+                             for t in zip(*caches)))
+
+
+def _cache_slices(cache, depth: int) -> list:
+    """A stacked cache (NamedTuple) as per-layer caches, over its ``depth``
+    leading stack axes."""
+    return [type(cache)(*fields)
+            for fields in zip(*(_unbind(t, depth) for t in cache))]
+
+
+def _stack_caches(cfg: ArchConfig, caches: list):
+    """``[(kind, cache)]`` per layer, in order, as the family's cache: one
+    stack over the layers (dense K/V, ssm), or the hybrid's ``{"rec":
+    (g, n_rec, ...), "att": (g, n_att, ...), "tail": (tail, ...)}``."""
+    if cfg.family != "hybrid":
+        return _stacked([c for _, c in caches], (len(caches),))
+    g, tail, n_rec, n_att = hybrid_layout(cfg)
+    body = caches[:len(caches) - tail]
+    out = {"rec": _stacked([c for k, c in body if k == "rglru"], (g, n_rec)),
+           "att": _stacked([c for k, c in body if k != "rglru"], (g, n_att))}
+    if tail:
+        out["tail"] = _stacked([c for _, c in caches[-tail:]], (tail,))
+    return out
+
+
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             want_cache: bool = True):
     """Full-sequence forward: ``(hidden (B, S, d), cache)``.  The cache
-    is the per-layer state stacked on a leading layer axis: K/V ``(L, B,
-    S, KV, hd)`` each (dense), or an ``SSMCache`` of ``conv (L, B, W-1,
-    conv_dim)`` and ``state (L, B, H, p, N)`` (ssm); None when not
+    is the per-layer state stacked on the leading stack axes: K/V ``(L, B,
+    S, KV, hd)`` each (dense), an ``SSMCache`` of ``conv (L, B, W-1,
+    conv_dim)`` and ``state (L, B, H, p, N)`` (ssm), or the hybrid's
+    ``{"rec": RGLRUCache, "att": KV, "tail": RGLRUCache}`` (``h (g, n_rec,
+    B, lru)``, ``conv (g, n_rec, B, W-1, lru)``, K/V ``(g, n_att, B, S, KV,
+    hd)``, the tail's on a ``(tail,)`` axis); None when not
     ``want_cache`` (the loss: under ``jax.jit`` the reference's XLA drops
     what the loss does not read, and eager PyTorch would compute it).
 
-    Under autograd, ``cfg.remat`` rematerializes each layer (the
-    reference's ``jax.checkpoint`` around its scanned body): only the
+    Under autograd, ``cfg.remat`` rematerializes each layer: only the
     layer inputs are kept, and the backward reruns each layer's forward,
-    kernels included.  ``remat_policy="dots"`` is not ported."""
+    kernels included.  The reference checkpoints its scanned body (the
+    hybrid's whole 3-layer group, its 2 tail layers not at all); per layer
+    is the same function.  ``remat_policy="dots"`` is not ported."""
     _check_family(cfg, "forward")
     remat = cfg.remat and torch.is_grad_enabled()
     if remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r} is not ported; the port "
             f"rematerializes whole layers (remat_policy='full')")
-    block = _ssm_block if cfg.family == "ssm" else _block
+    if cfg.family == "hybrid":
+        layers = _hybrid_layers(params, cfg)
+    else:
+        layers = [(cfg.family, lp) for lp in _layers(params)]
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     caches = []
-    for lp in _layers(params):
+    for kind, lp in layers:
+        block = _BLOCKS[kind]
         if remat:
             x, c = checkpoint(block, lp, x, cfg, positions, want_cache,
                               use_reentrant=False, preserve_rng_state=False)
         else:
             x, c = block(lp, x, cfg, positions, want_cache)
-        caches.append(c)
+        caches.append((kind, c))
     x = apply_norm(params["final_norm"], x, cfg)
     if not want_cache:
         return x, None
-    kind = ssm.SSMCache if cfg.family == "ssm" else attn.KV
-    return x, kind(*(torch.stack(t) for t in zip(*caches)))
+    return x, _stack_caches(cfg, caches)
 
 
-def prefill(params, cfg: ArchConfig, tokens: torch.Tensor
-            ) -> tuple[torch.Tensor, attn.KV]:
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor):
     """Full-prompt forward; returns ``(last-position logits (B, vocab),
     the per-layer cache in forward layout)``."""
     hidden, cache = forward(params, cfg, tokens)
@@ -206,44 +326,90 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor
     return logits, cache
 
 
+def _repeat(cache, lead: tuple[int, ...]):
+    return type(cache)(*(t.repeat(*lead, *(1,) * t.dim()) for t in cache))
+
+
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device="cuda") -> dict:
-    """The ssm family's decode cache: ``{"layers": SSMCache}`` of zeros,
-    stacked over the layers (its size does not depend on ``cache_len``).
-    The dense family decodes through paged pools (``init_paged_pools``)."""
-    _check_family(cfg, "init_cache", (SSM,))
-    c = ssm.init_ssm_cache(cfg, batch, dtype, device)
-    return {"layers": ssm.SSMCache(
-        *(t[None].repeat(cfg.n_layers, *(1,) * t.dim()) for t in c))}
+    """The decode cache, zeros.  The ssm family's is ``{"layers":
+    SSMCache}`` stacked over the layers (its size does not depend on
+    ``cache_len``); the hybrid's ``{"rec": RGLRUCache (g, n_rec, ...),
+    "att": KV (g, n_att, B, W, KV, hd), "tail": RGLRUCache (tail, ...)}``,
+    the local layers' RING caches ``W = min(local_window, cache_len)``
+    long.  The dense family decodes through paged pools
+    (``init_paged_pools``)."""
+    _check_family(cfg, "init_cache", (SSM, HYBRID))
+    if cfg.family == "ssm":
+        return {"layers": _repeat(
+            ssm.init_ssm_cache(cfg, batch, dtype, device), (cfg.n_layers,))}
+    g, tail, n_rec, n_att = hybrid_layout(cfg)
+    rc = rglru.init_rglru_cache(cfg, batch, dtype, device)
+    wlen = min(cfg.local_window, cache_len) if cfg.local_window else \
+        cache_len
+    kv = torch.zeros((g, n_att, batch, wlen, cfg.n_kv_heads, cfg.head_dim_),
+                     dtype=dtype, device=rc.h.device)
+    out = {"rec": _repeat(rc, (g, n_rec)), "att": attn.KV(kv, kv.clone())}
+    if tail:
+        out["tail"] = _repeat(rc, (tail,))
+    return out
 
 
 def prefill_cache_to_decode(cfg: ArchConfig, cache, cache_len: int) -> dict:
     """Re-lay a prefill cache as a decode cache: the ssm cache carries
-    forward unchanged (the final state IS the decode state)."""
+    forward unchanged (the final state IS the decode state).  The hybrid
+    family has no such re-layout in the reference (ring caches, grouped
+    layers): it ingests its prompt token by token
+    (``train.serve_step.greedy_generate``)."""
     _check_family(cfg, "prefill_cache_to_decode", (SSM,))
     return {"layers": cache}
 
 
+def _hybrid_decode_layer(kind: str, lp: dict, x: torch.Tensor, cache,
+                         pos: torch.Tensor, cfg: ArchConfig):
+    """One hybrid layer's decode step (RG-LRU or ring-cache local
+    attention, then the MLP): the new residual and the layer's cache."""
+    h = apply_norm(lp["ln1"], x, cfg)
+    if kind == "rglru":
+        out, c = rglru.decode_rglru(lp["rec"], h, cache, cfg)
+    else:
+        out, c = attn.attention_decode_ring(lp["attn"], h, cache, pos, cfg)
+    x = x + out
+    return x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg), c
+
+
 def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, pos,
                 cache: dict) -> tuple[torch.Tensor, dict]:
-    """One decode step of the ssm family.  ``tokens (B,)`` int on the
-    device; ``pos`` (absolute positions) is unused, as in the reference:
-    the state carries the position.  Returns ``(logits (B, vocab), the new
-    cache)``; the step reads nothing back to the host."""
-    _check_family(cfg, "decode_step", (SSM,))
+    """One decode step of the ssm or hybrid family.  ``tokens (B,)`` int on
+    the device; ``pos (B,)`` the new tokens' absolute positions on the
+    device, which the hybrid's ring caches read (the ssm family's state
+    carries the position, and ``pos`` is unused, as in the reference).
+    Returns ``(logits (B, vocab), the new cache)``; the step reads nothing
+    back to the host."""
+    _check_family(cfg, "decode_step", (SSM, HYBRID))
     x = embed_tokens(params, tokens[:, None], cfg)
-    old = cache["layers"]
     new = []
-    for i, lp in enumerate(_layers(params)):
-        out, c = ssm.decode_mamba2(
-            lp["mixer"], apply_norm(lp["ln1"], x, cfg),
-            ssm.SSMCache(old.conv[i], old.state[i]), cfg)
-        x = x + out
-        new.append(c)
+    if cfg.family == "ssm":
+        for lp, c in zip(_layers(params), _cache_slices(cache["layers"], 1)):
+            out, c = ssm.decode_mamba2(
+                lp["mixer"], apply_norm(lp["ln1"], x, cfg), c, cfg)
+            x = x + out
+            new.append(("ssm", c))
+        new_cache = {"layers": _stack_caches(cfg, new)}
+    else:
+        rec = _cache_slices(cache["rec"], 2)
+        if "tail" in cache:
+            rec += _cache_slices(cache["tail"], 1)
+        rec, att = iter(rec), iter(_cache_slices(cache["att"], 2))
+        for kind, lp in _hybrid_layers(params, cfg):
+            x, c = _hybrid_decode_layer(kind, lp, x,
+                                        next(rec if kind == "rglru" else att),
+                                        pos, cfg)
+            new.append((kind, c))
+        new_cache = _stack_caches(cfg, new)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = logits_from_hidden(params, x, cfg)[:, 0]
-    return logits, {"layers": ssm.SSMCache(
-        *(torch.stack(t) for t in zip(*new)))}
+    return logits, new_cache
 
 
 def init_paged_pools(cfg: ArchConfig, pool_tokens: int,
@@ -287,9 +453,9 @@ def decode_step_paged_batched(params, cfg: ArchConfig, tokens: torch.Tensor,
 def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
             targets: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """Mean next-token NLL (``repro.models.transformer.lm_loss`` for the
-    dense and ssm families): f32 ``log_softmax`` of the logits, the NLL of
-    each target, its mean.  Their MoE aux terms are zero, so the loss is
-    the NLL; the metrics keep the reference's keys."""
+    dense, ssm and hybrid families): f32 ``log_softmax`` of the logits,
+    the NLL of each target, its mean.  Their MoE aux terms are zero, so
+    the loss is the NLL; the metrics keep the reference's keys."""
     hidden, _ = forward(params, cfg, tokens, want_cache=False)
     logits = logits_from_hidden(params, hidden, cfg)
     logp = torch.log_softmax(logits.float(), dim=-1)

@@ -25,7 +25,9 @@ its prefill) and decodes alone, one ``decode_step`` per slot, with the
 greedy argmax on the device and still ONE host transfer per iteration
 after every slot has launched.  Each slot's next input token stays on the
 device.  Other contiguous families and ``batched=False`` on the paged
-path raise ``NotImplementedError``.
+path raise ``NotImplementedError``; so does the hybrid family, which the
+reference's engine cannot serve either (``greedy_generate`` is its
+generation entry).
 """
 from __future__ import annotations
 
@@ -94,6 +96,14 @@ class ServeEngine:
                  batched: Optional[bool] = None, device="cuda"):
         self.device = resolve_device(device)
         self.paged = _paged_capable(cfg)
+        if cfg.family == "hybrid":
+            raise NotImplementedError(
+                "the hybrid family has no prefill-to-decode cache re-layout "
+                "in the reference (its ring caches and grouped layers; "
+                "src/repro/models/transformer.py:540-559), so ServeEngine "
+                "cannot serve it there either; generate with "
+                "repro_torch.train.serve_step.greedy_generate, which ingests "
+                "the prompt token by token")
         if not self.paged and cfg.family != "ssm":
             raise NotImplementedError(
                 f"family {cfg.family!r}/{cfg.attention!r} serves through "

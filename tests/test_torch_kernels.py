@@ -243,3 +243,71 @@ def test_ssd_bwd_kernel_matches_plain(h100, q, s):
         assert torch.equal(g, a), name
         assert g.shape == w.shape, name
         assert _rel_err(g, w) <= SSD_REL, (name, _rel_err(g, w))
+
+
+#: K8 against its plain version: the same steps in the same order with the
+#: multiply and the add rounded separately on both sides; only exp() may
+#: differ in its last bit (the kernel's expf against PyTorch's exp
+#: kernel), so 1e-6 relative to the largest plain entry of each output
+GATED_REL = 1e-6
+
+
+def _gated_case(dev, b, s, w, seed, integer=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if integer:
+        ints = lambda *shape: torch.randint(-3, 4, shape, generator=g,
+                                            device=dev).float()
+        return torch.zeros(b, s, w, device=dev), ints(b, s, w), ints(b, w)
+    return (-0.5 * torch.randn(b, s, w, generator=g, device=dev).abs(),
+            torch.randn(b, s, w, generator=g, device=dev),
+            0.5 * torch.randn(b, w, generator=g, device=dev))
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,w", [(1, 1, 5), (2, 300, 70), (1, 1000, 256),
+                                   (3, 33, 4096)])
+def test_gated_scan_kernel_matches_plain(h100, reverse, with_h0, b, s, w):
+    """K8's forward and reverse walks, with and without an entering state,
+    at ragged lengths and widths (not multiples of its 32-step load groups
+    or 32-channel blocks), against the plain walk."""
+    la, bb, h0 = _gated_case(h100, b, s, w, seed=10 + s)
+    h0 = h0 if with_h0 else None
+    h, f = ops.gated_recurrence(la, bb, h0, reverse=reverse)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K8"] == 1
+    hr, fr = ref.gated_scan(la, bb, h0, reverse=reverse)
+    assert _rel_err(h, hr) <= GATED_REL and _rel_err(f, fr) <= GATED_REL
+    assert torch.equal(f, h[:, 0] if reverse else h[:, -1])
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gated_scan_kernel_is_exact_where_log_a_is_zero(h100, reverse):
+    """With log_a = 0 on integers every partial sum is an exact integer:
+    the kernel equals its plain version bit for bit."""
+    la, bb, h0 = _gated_case(h100, 2, 517, 300, seed=11, integer=True)
+    h, f = ops.gated_recurrence(la, bb, h0, reverse=reverse)
+    hr, fr = ref.gated_scan(la, bb, h0, reverse=reverse)
+    assert torch.equal(h, hr) and torch.equal(f, fr)
+
+
+@pytest.mark.h100
+def test_gated_scan_backward_runs_the_reverse_walk(h100):
+    """Autograd through ``ops.gated_scan`` launches K8 twice (the forward
+    and the reverse walk) and matches the plain version's gradients."""
+    la, bb, h0 = _gated_case(h100, 2, 300, 70, seed=12)
+    g = torch.Generator(device=h100).manual_seed(13)
+    gy = torch.randn(la.shape, generator=g, device=h100)
+    gf = torch.randn(h0.shape, generator=g, device=h100)
+    grads = []
+    for plain in (False, True):
+        tin = [t.clone().requires_grad_(True) for t in (la, bb, h0)]
+        with ops.reference_mode() if plain else torch.enable_grad():
+            h, f = ops.gated_scan(tin[0], tin[1], init_state=tin[2])
+            grads.append(torch.autograd.grad(
+                (h * gy).sum() + (f * gf).sum(), tin))
+    assert ops.LAUNCHES["K8"] == 2
+    for got, want in zip(*grads):
+        assert _rel_err(got, want) <= GATED_REL

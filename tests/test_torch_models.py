@@ -30,7 +30,8 @@ def gemma():
     return cfg, params, port_config("gemma-2b", reduced=True), tp
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-780m",
+                                  "recurrentgemma-9b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_arch_config_copy_matches_reference(reduced, arch):
     ref = get_config(arch, reduced=reduced)
@@ -77,7 +78,7 @@ def test_full_config_is_gemma_2b_full_width():
 def test_other_families_raise(gemma):
     *_, tcfg, _ = gemma
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.param_shapes(tcfg.with_(family="hybrid"))
+        tt.param_shapes(tcfg.with_(family="moe"))
 
 
 @pytest.mark.parametrize("attn_impl", ["pallas", "xla"])

@@ -140,8 +140,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     y, _ = ops.scan_ssd(xdt, -torch.ones(1, 5, 2), torch.ones(1, 5, 4),
                         torch.ones(1, 5, 4), chunk=2)
     y.sum().backward()
+    la = -torch.ones(1, 5, 3, requires_grad=True)
+    h, _ = ops.gated_scan(la, torch.ones(1, 5, 3))
+    h.sum().backward()
     assert ops.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
-                            "K6": 0, "K7": 0}
+                            "K6": 0, "K7": 0, "K8": 0}
 
 
 def test_other_devices_raise():

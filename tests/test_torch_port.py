@@ -27,7 +27,9 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
-        "assert len(mods) >= 25, mods\n"
+        "assert len(mods) >= 27, mods\n"
+        "assert {'repro_torch.models.rglru', "
+        "'repro_torch.train.serve_step'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], env=ENV, cwd=ROOT,
@@ -63,6 +65,32 @@ def test_ssm_caches_need_a_card_unless_cpu_is_asked_for(monkeypatch):
         transformer.init_cache(cfg, 2, 32)
     cache = ssm.init_ssm_cache(cfg, 2, device="cpu")
     assert cache.conv.device.type == cache.state.device.type == "cpu"
+
+
+def test_hybrid_entry_points_need_a_card_unless_cpu_is_asked_for(
+        monkeypatch):
+    """The RG-LRU cache, the hybrid decode cache and the parameters
+    default to the card; ``greedy_generate`` runs where the caller's
+    tensors are, here on the CPU because they were made there."""
+    from repro_torch.configs import recurrentgemma_9b
+    from repro_torch.models import rglru, transformer
+    from repro_torch.train import serve_step
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = recurrentgemma_9b.reduced().with_(n_layers=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rglru.init_rglru_cache(cfg, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_cache(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_lm(cfg, torch.Generator())
+    cache = rglru.init_rglru_cache(cfg, 2, device="cpu")
+    assert cache.h.device.type == cache.conv.device.type == "cpu"
+    params = transformer.init_lm(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    out = serve_step.greedy_generate(params, cfg,
+                                     torch.zeros(2, 3, dtype=torch.long), 2,
+                                     16)
+    assert out.shape == (2, 5) and out.device.type == "cpu"
 
 
 def test_training_entry_points_need_a_card_unless_cpu_is_asked_for(
@@ -130,8 +158,8 @@ def test_h100_page_size_is_the_smallest_aligned_chunk(dtype, max_len):
 def test_nvcc_command_and_build_directory():
     assert build.BUILD_DIR == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
-    assert build.sources() == ["flash_bwd", "flash_fwd", "gemm",
-                               "paged_decode", "ssd"]
+    assert build.sources() == ["flash_bwd", "flash_fwd", "gated_scan",
+                               "gemm", "paged_decode", "ssd"]
     out = build.library_path("gemm")
     assert out.parent == build.BUILD_DIR
     assert out.name.startswith("gemm-") and out.suffix == ".so"

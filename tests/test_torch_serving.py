@@ -129,8 +129,10 @@ def test_engine_scope_and_device_policy(gemma, monkeypatch):
     *_, tcfg, tp = gemma
     with pytest.raises(NotImplementedError, match="per-slot"):
         ServeEngine(tcfg, tp, batched=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="contiguous"):
+    with pytest.raises(NotImplementedError, match="re-layout.*greedy_generate"):
         ServeEngine(tcfg.with_(family="hybrid"), tp, device="cpu")
+    with pytest.raises(NotImplementedError, match="contiguous"):
+        ServeEngine(tcfg.with_(family="moe"), tp, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(tcfg, tp)

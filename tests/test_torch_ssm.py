@@ -310,6 +310,20 @@ def test_prefill_and_decode_step_match_jax(mamba):
             getattr(jzero["layers"], name).shape
 
 
+def test_greedy_generate_matches_jax(mamba):
+    """``serve_step.greedy_generate`` (one prefill, its cache carried into
+    the decode steps) gives the reference's tokens."""
+    from repro.train import serve_step as jserve
+    from repro_torch.train import serve_step
+    cfg, params, tcfg, tp = mamba
+    prompt = np.random.default_rng(10).integers(0, cfg.vocab_size, (2, 11))
+    want = jserve.greedy_generate(params, cfg, jnp.asarray(prompt, jnp.int32),
+                                  6, 32)
+    got = serve_step.greedy_generate(tp, tcfg, torch.from_numpy(prompt), 6,
+                                     32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_other_families_still_raise(mamba):
     *_, tcfg, tp = mamba
     with pytest.raises(NotImplementedError, match="ROADMAP"):
