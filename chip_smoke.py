@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nine phases; any failure exits non-zero before the result line:
+Ten phases; any failure exits non-zero before the result line:
 
 1. device   the card's name, power limit and compute capability (9, 0).
 2. build    nvcc builds every kernel under src/repro_torch/kernels/csrc/
@@ -62,6 +62,21 @@ Nine phases; any failure exits non-zero before the result line:
             gradients against the plain path as mamba2's; K1-K4 and K8
             launch their derived counts; step 3 under sync debug mode
             "error"; one step is profiled.
+10. moa_path the MoA expression pipeline (ops.apply -> normal form ->
+            derived schedule on the H100 table -> K1 or K9) through its
+            user entries: moa_gemm at 4096^3 (bf16, f32; K1), max-plus and
+            min-plus at 4096^3, 8192^3, ragged 4000x3000x5000 and bf16
+            4096^3 (K9, bit for bit against the plain version), and
+            through apply (K9): (add, add) 2048^3, a batched (mul, add)
+            e=16 1024^3, the chain A@B@C over 512^4 points, Hadamard
+            8192^2, the lone max along rows and min along columns of
+            8192^2, max-plus with a col-layout B and with a psi-view A
+            (the profiler must list K9 alone: no operand copy), and
+            examples/kron_compress.py at 64x64 (x) 64x64 (kron on K9, the
+            compressed apply on two K1 products, |Wx - vec(B X A^T)| <=
+            1e-3).  K1 and K9 launch their derived counts; one apply runs
+            under sync debug mode "error"; each case prints kernel, plain
+            and library ms (CUDA events), the bound and the error.
 
 Each path phase resets the peak memory statistics before it runs.  The
 last two lines before the final one are the kernels' JSON record and
@@ -626,8 +641,8 @@ def phase_path(torch):
             f"a kernel of the path never launched: {launches}")
     require(launches["K3"] == launches["K4"] == launches["K7"] == 0,
             f"serving launched a backward kernel: {launches}")
-    require(launches["K6"] == launches["K8"] == 0,
-            f"gemma serving launched K6 or K8: {launches}")
+    require(launches["K6"] == launches["K8"] == launches["K9"] == 0,
+            f"gemma serving launched K6, K8 or K9: {launches}")
     require(launches["K5"] == cfg.n_layers * decode_steps,
             f"K5 launches {launches['K5']} != n_layers x decode steps")
     require(launches["K2"] == cfg.n_layers * prefills,
@@ -813,9 +828,8 @@ def phase_train(torch):
     L, n = cfg.n_layers, TRAIN_STEPS
     # K1 per step: 6 products a layer + the head forward, the 6 L again
     # under remat, and 2 VJP products for each of the 6 L + 1
-    want = {"K1": n * (6 * L + 1 + 6 * L + 2 * (6 * L + 1)),
-            "K2": n * 2 * L, "K3": n * L, "K4": n * L, "K5": 0, "K6": 0,
-            "K7": 0, "K8": 0}
+    want = _zero_launches(K1=n * (6 * L + 1 + 6 * L + 2 * (6 * L + 1)),
+                          K2=n * 2 * L, K3=n * L, K4=n * L)
     print(f"[train] launches over {n} steps {launches} (derived {want})",
           flush=True)
     require(launches == want, "kernel launches differ from the derived "
@@ -914,9 +928,8 @@ def phase_ssm_path(torch):
     L = cfg.n_layers
     # K1 a prefill: w_in, w_out and the conv tail's w_in a layer, and the
     # head; a slot's decode step: w_in and w_out a layer, and the head
-    want = {"K1": prefills * (3 * L + 1) + slot_steps * (2 * L + 1),
-            "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": L * prefills, "K7": 0,
-            "K8": 0}
+    want = _zero_launches(K1=prefills * (3 * L + 1) + slot_steps * (2 * L + 1),
+                          K6=L * prefills)
     print(f"[ssm_path] launches {launches} (derived {want})", flush=True)
     require(launches == want, "ssm serving launches differ from the derived "
             "counts")
@@ -1231,9 +1244,8 @@ def phase_ssm_train(torch):
     # again under remat, and 2 VJP products for each of the 2 L + 1 (the
     # loss asks for no cache: no conv-tail product); K6 a layer in the
     # forward and again in its remat rerun; K7 once a layer
-    want = {"K1": n * (2 * L + 1 + 2 * L + 2 * (2 * L + 1)), "K2": 0,
-            "K3": 0, "K4": 0, "K5": 0, "K6": n * 2 * L, "K7": n * L,
-            "K8": 0}
+    want = _zero_launches(K1=n * (2 * L + 1 + 2 * L + 2 * (2 * L + 1)),
+                          K6=n * 2 * L, K7=n * L)
     print(f"[ssm_train] launches over {n} steps {launches} (derived {want})",
           flush=True)
     require(launches == want, "kernel launches differ from the derived "
@@ -1290,7 +1302,7 @@ def _hybrid_counts(cfg):
 
 
 def _zero_launches(**counts):
-    want = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")}
+    want = {f"K{i}": 0 for i in range(1, 10)}
     want.update(counts)
     return want
 
@@ -1726,6 +1738,256 @@ def phase_hybrid_train(torch):
     return launches
 
 
+#: moa_path: the demo's GEMM size (examples/moa_gemm_demo.py), the
+#: tropical sizes, and examples/kron_compress.py at 64x64 (x) 64x64
+MOA_N, MOA_BIG, MOA_RAGGED, KRON = 4096, 8192, (4000, 3000, 5000), 64
+#: kron_compress's own tolerance on |Wx - vec(B X A^T)|_inf
+KRON_TOL = 1e-3
+#: K9's (mul, add) and (add, add) sums and moa_gemm's (K1) f32 products
+#: fold in another order than the plain version (K9's tiled (mul, add)
+#: also fuses into FMA): max|kernel - plain| <= MOA_SUM_TOL x max|plain|;
+#: K1 bf16 x bf16 products are exact in f32, so only the order differs
+#: there too.  The tropical cases and the Hadamard, lone reduces and kron
+#: (one rounding each, in any order) are held bit for bit.
+MOA_SUM_TOL = 1e-4
+#: f32 outside the tensor cores: 67 TFLOP/s, an FMA counted as two, so
+#: 33.5 T lane-instructions/s
+F32_INSTR_PER_S = 33.5e12
+
+
+def k9_bound(instrs: float, nbytes: float) -> tuple[float, str]:
+    """The least time for ``instrs`` f32 lane-instructions and ``nbytes``
+    of device memory traffic on an H100 at 700 W (ms, what bounds it)."""
+    from repro_torch.hardware import H100
+    t_ops = instrs / F32_INSTR_PER_S * 1e3
+    t_bytes = nbytes / H100.hbm.bandwidth_Bps * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _moa_cases(torch, E, ops):
+    """The moa_path cases: ``(label, kernel id, path call, plain call,
+    library call or None, exact?, (bound ms, by))`` on seeded card
+    inputs; each path call goes through a user entry (``ops.moa_gemm``,
+    ``semiring_matmul``, ``apply``, ``hadamard``, ``ipophp``)."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rnd = lambda *s, dt=torch.float32: torch.randn(
+        *s, generator=gen, device="cuda").to(dt)
+    cases = []
+
+    def add(label, kid, fn, library, exact, bnd):
+        cases.append((label, kid, fn, library, exact, bnd))
+
+    n = MOA_N
+    for dt, dname in ((torch.bfloat16, "bfloat16"), (torch.float32,
+                                                     "float32")):
+        a, b = rnd(n, n, dt=dt), rnd(n, n, dt=dt) * n ** -0.5
+        es = a.element_size()
+        # f32 out: the held sums differ only in order (a bf16 out would
+        # flip roundings of equal-but-for-the-last-bit sums)
+        add(f"K1 {dname} moa_gemm {n}^3", "K1",
+            lambda a=a, b=b: ops.moa_gemm(a, b, out_dtype=torch.float32),
+            lambda a=a, b=b: torch.matmul(a, b), False,
+            bound(2.0 * n ** 3, 2 * n * n * es + n * n * 4, dname))
+    for plus in ("max", "min"):
+        for (m, k, nn), dt in (((MOA_N,) * 3, torch.float32),
+                               ((MOA_BIG,) * 3, torch.float32),
+                               (MOA_RAGGED, torch.float32),
+                               ((MOA_N,) * 3, torch.bfloat16)):
+            a, b = rnd(m, k, dt=dt), rnd(k, nn, dt=dt)
+            es = a.element_size()
+            tag = "x".join(map(str, (m, k, nn)))
+            add(f"K9 {str(dt)[6:]} {plus}-plus {tag}", "K9",
+                lambda a=a, b=b, plus=plus: ops.semiring_matmul(
+                    a, b, plus=plus, times="add"), None, True,
+                k9_bound(2.0 * m * k * nn, (m * k + k * nn) * es + m * nn * 4))
+    m = MOA_N // 2
+    a, b = rnd(m, m), rnd(m, m)
+    addadd = E.inner("add", "add", E.arr("A", (m, m)), E.arr("B", (m, m)))
+    add(f"K9 float32 (add, add) {m}^3", "K9",
+        lambda a=a, b=b: ops.apply(addadd, a, b),
+        None, False, k9_bound(2.0 * m ** 3, 3 * m * m * 4))
+    e, m = 16, MOA_N // 4
+    x, w = rnd(e, m, m), rnd(e, m, m) * m ** -0.5
+    batched = E.inner("add", "mul", E.arr("X", (e, m, m)),
+                      E.arr("W", (e, m, m)), batch=1)
+    add(f"K9 float32 batched (mul, add) e={e} {m}^3", "K9",
+        lambda x=x, w=w: ops.apply(batched, x, w),
+        lambda x=x, w=w: torch.bmm(x, w), False,
+        k9_bound(1.0 * e * m ** 3, 3 * e * m * m * 4))
+    m = MOA_N // 8
+    ca, cb, cc = (rnd(m, m) * m ** -0.5 for _ in range(3))
+    chain = E.arr("A", (m, m)) @ E.arr("B", (m, m)) @ E.arr("C", (m, m))
+    # the normal form's nest: m^4 points, two multiplies and an add each
+    add(f"K9 float32 chain A@B@C {m}^4 terms", "K9",
+        lambda: ops.apply(chain, ca, cb, cc),
+        lambda: torch.linalg.multi_dot([ca, cb, cc]), False,
+        k9_bound(3.0 * m ** 4, 4 * m * m * 4))
+    m = MOA_BIG
+    ha, hb = rnd(m, m), rnd(m, m)
+    add(f"K9 float32 hadamard {m}^2", "K9",
+        lambda: ops.hadamard(ha, hb), lambda: ha * hb, True,
+        k9_bound(1.0 * m * m, 3 * m * m * 4))
+    lone = rnd(m, m)
+    for op, axis, lib in (("max", 1, torch.amax), ("min", 0, torch.amin)):
+        red = E.reduce(op, E.arr("A", (m, m)), axis)
+        add(f"K9 float32 lone {op} axis {axis} {m}^2", "K9",
+            lambda red=red: ops.apply(red, lone),
+            lambda lib=lib, axis=axis: lib(lone, dim=axis), True,
+            k9_bound(1.0 * m * m, (m * m + m) * 4))
+    n = MOA_N
+    a, bt = rnd(n, n), rnd(n, n)                         # bt: stored (n, k)
+    col = E.inner("max", "add", E.arr("A", (n, n)),
+                  E.arr("B", (n, n), layout="col"))
+    add(f"K9 float32 max-plus col-layout B {n}^3", "K9",
+        lambda: ops.apply(col, a, bt), None, True,
+        k9_bound(2.0 * n ** 3, 3 * n * n * 4))
+    stack, b = rnd(8, n, n), rnd(n, n)
+    psi = E.inner("max", "add", E.psi((3,), E.arr("S", (8, n, n))),
+                  E.arr("B", (n, n)))
+    add(f"K9 float32 max-plus psi((3,), (8, {n}, {n})) A {n}^3", "K9",
+        lambda: ops.apply(psi, stack, b), None, True,
+        k9_bound(2.0 * n ** 3, 3 * n * n * 4))
+    ka, kb = rnd(KRON, KRON), rnd(KRON, KRON)
+    add(f"K9 float32 kron {KRON}x{KRON} (x) {KRON}x{KRON}", "K9",
+        lambda: ops.ipophp(ka, kb, "kp"), lambda: torch.kron(ka, kb), True,
+        k9_bound(1.0 * KRON ** 4, (2 * KRON ** 2 + KRON ** 4) * 4))
+    return cases, (col, a, bt), (ka, kb)
+
+
+#: profiles one max-plus apply with a col-layout B and one with a psi
+#: slab of a stack, in a process of its own, and prints each call's
+#: device kernels
+NOCOPY_PROBE = r"""
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.core import expr as E
+from repro_torch.kernels import ops
+n = int(sys.argv[2])
+g = torch.Generator(device="cuda").manual_seed(17)
+a, bt, b = (torch.randn(n, n, generator=g, device="cuda") for _ in range(3))
+stack = torch.randn(8, n, n, generator=g, device="cuda")
+cases = {
+    "col-layout B": (E.inner("max", "add", E.arr("A", (n, n)),
+                             E.arr("B", (n, n), layout="col")), a, bt),
+    "psi-view A": (E.inner("max", "add", E.psi((3,), E.arr("S", (8, n, n))),
+                           E.arr("B", (n, n))), stack, b)}
+for label, (expr, *arrs) in cases.items():
+    ops.apply(expr, *arrs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ops.apply(expr, *arrs)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    print("\t".join([label] + names))
+"""
+
+
+def _nocopy_kernels(n: int) -> dict:
+    """``{case: device kernel names}`` of one col-layout and one psi-view
+    max-plus apply at n^3.  In a fresh process: after the earlier phases'
+    large traces, torch.profiler records no device rows in this one (seen
+    on the H100 machine, in every profiler session of this phase)."""
+    out = subprocess.run([sys.executable, "-c", NOCOPY_PROBE,
+                          os.path.join(ROOT, "src"), str(n)],
+                         capture_output=True, text=True, timeout=300)
+    require(out.returncode == 0, f"the no-copy profile failed: "
+            f"{out.stderr[-2000:]}")
+    rows = [line.split("\t") for line in out.stdout.splitlines() if line]
+    return {r[0]: r[1:] for r in rows}
+
+
+def phase_moa_path(torch, rec):
+    """The MoA expression pipeline on the card (``ops.apply`` and its
+    builders): each case's path call once with the launch counts from 0,
+    then each held against its plain version (``ops.reference_mode()``)
+    and timed beside its library call and bound."""
+    from repro_torch.core import expr as E
+    from repro_torch.kernels import ops
+    torch.cuda.reset_peak_memory_stats()
+    cases, col, (ka, kb) = _moa_cases(torch, E, ops)
+    k1_calls = sum(1 for c in cases if c[1] == "K1")
+    k9_calls = len(cases) - k1_calls
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn(KRON * KRON, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+
+    # the path: every case once, kron_compress's compressed apply (two
+    # moa_gemms), and one apply under sync debug mode "error"
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = [c[2]() for c in cases]
+    X = x.reshape(KRON, KRON)
+    T = ops.apply(E.matmul_expr(KRON, KRON, KRON, transpose_b=True), X, kb)
+    Y = ops.moa_gemm(ka, T)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        synced = ops.apply(*col)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    want = _zero_launches(K1=k1_calls + 2, K9=k9_calls + 1)
+    print(f"[moa_path] {len(cases)} cases + kron_compress's 2 moa_gemms + 1 "
+          f"apply under sync debug 'error' in {path_s:.3f} s; launches "
+          f"{launches} (derived {want}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    require(launches == want, f"moa_path launches {launches} != {want}")
+    i_col = next(i for i, c in enumerate(cases) if "col-layout" in c[0])
+    require(torch.equal(synced, outs[i_col]),
+            "the apply under sync debug mode differs from the path's")
+
+    # kron_compress: W x against vec(B X A^T)
+    W = outs[-1]
+    y_dense = W @ x
+    err = (y_dense - Y.reshape(-1)).abs().max().item()
+    print(f"[moa_path] kron_compress {KRON}x{KRON} (x) {KRON}x{KRON}: "
+          f"|Wx - vec(B X A^T)|_inf = {err:.3e} (tol {KRON_TOL:g}); "
+          f"max|Wx| = {y_dense.abs().max().item():.3f}", flush=True)
+    require(err <= KRON_TOL, "kron_compress disagrees")
+
+    # no operand copy for the col-layout and psi leaves: K9 alone runs.
+    for label, names in _nocopy_kernels(MOA_N).items():
+        print(f"[moa_path] profiler, max-plus with a {label}: device "
+              f"kernels {names}", flush=True)
+        require(names and all("k9_" in n for n in names),
+                f"{label}: kernels other than K9 ran: {names}")
+
+    for (label, kid, fn, library, exact, (b_ms, b_by)), out in zip(cases,
+                                                                  outs):
+        require(bool(torch.isfinite(out.float()).all()), f"{label}: "
+                "non-finite")
+        plain = lambda fn=fn: _plain(ops, fn)
+        want_out = plain()
+        torch.cuda.synchronize()
+        diff = (out.float() - want_out.float()).abs().max().item()
+        scale = want_out.float().abs().max().item()
+        ok = torch.equal(out, want_out) if exact else \
+            diff <= MOA_SUM_TOL * scale
+        del want_out
+        big = MOA_BIG in (out.shape[0], out.shape[-1]) and out.dim() == 2 \
+            and "hadamard" not in label and "lone" not in label
+        ms = time_ms(torch, fn, iters=2 if big else 10,
+                     warmup=1 if big else 3)
+        plain_ms = time_ms(torch, plain, iters=1, warmup=0)
+        lib_ms = time_ms(torch, library) if library is not None else None
+        print(f"[moa_path] {label}: max_abs_err={diff:.3e} "
+              f"({'bit for bit' if exact else f'tol {MOA_SUM_TOL:g} x max|plain|'}"
+              f") ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+              f"{lib_ms if lib_ms is None else round(lib_ms, 4)} "
+              f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        require(ok, f"{label}: kernel disagrees with its plain version")
+        rec.setdefault(kid, {})[label] = dict(
+            max_abs_err=diff, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by)
+    return launches
+
+
 def profile_step(torch, step, n: int = 3, what: str = "decode") -> None:
     """Device time by kernel over ``n`` steps (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1770,6 +2032,8 @@ def main() -> None:
     hybrid_serve = phase_hybrid_path(torch)
     torch.cuda.empty_cache()
     hybrid_train = phase_hybrid_train(torch)
+    torch.cuda.empty_cache()
+    moa = phase_moa_path(torch, rec)
 
     src = "src/repro_torch/kernels/csrc/"
     head = {"K1": ("K1_gemm", src + "gemm.cu",
@@ -1796,10 +2060,13 @@ def main() -> None:
                    f"K7 float32 B={SSM_B} S={SSM_S} q=256 h=48 p=64 n=128"),
             "K8": ("K8_gated_scan", src + "gated_scan.cu",
                    "src/repro/kernels/emit.py:461",
-                   f"K8 float32 B=1 S={HYB_S} w=4096")}
+                   f"K8 float32 B=1 S={HYB_S} w=4096"),
+            "K9": ("K9_semiring", src + "semiring.cu",
+                   "src/repro/kernels/emit.py:125",
+                   f"K9 float32 max-plus {MOA_BIG}x{MOA_BIG}x{MOA_BIG}")}
     runs = {"path": serve, "train": train, "ssm_path": ssm_serve,
             "ssm_train": ssm_train, "hybrid_path": hybrid_serve,
-            "hybrid_train": hybrid_train}
+            "hybrid_train": hybrid_train, "moa_path": moa}
     kernels = []
     for kid, (name, source, replaces, shape) in head.items():
         # launches: the path runs', each counted from 0

@@ -1,11 +1,15 @@
-"""The carried-state block solver (a copy of the part of
-``repro.core.blocking`` the port uses).
+"""The block solvers (a copy of the part of ``repro.core.blocking`` the
+port uses).
 
-``solve_recurrence_blocks`` picks the streamed-axis block of a chunked
-scan a priori from the working set and the hardware table: enumerate
-aligned candidates, keep those whose resident bytes fit the fast-memory
-budget, maximize arithmetic intensity.  The port derives its KV page size
-with it (``kernels.ops.default_decode_page``), on the ``H100`` table.
+``solve_blocks`` is the paper's a-priori GEMM block choice: enumerate
+hardware-aligned (bm, bk, bn), keep those whose working set (double-
+buffered input blocks, the accumulator and, for semirings other than
+(mul, add), the materialized combine intermediate) fits the fast-memory
+budget, maximize arithmetic intensity.  ``core.schedule`` derives its
+contraction blocks with it.  ``solve_recurrence_blocks`` picks the
+streamed-axis block of a chunked scan the same way; the port derives its
+KV page size with it (``kernels.ops.default_decode_page``), on the
+``H100`` table.
 """
 from __future__ import annotations
 
@@ -43,6 +47,99 @@ def _candidates(limit: int, align: int) -> Iterable[int]:
         seen.add(c)
         c *= 2
     return sorted(seen)
+
+
+def _sublane_multiple(dtype) -> int:
+    """Second-minor tiling multiple of the TPU layout by dtype width."""
+    return {8: 8, 4: 8, 2: 16, 1: 32}.get(dtype_size(dtype), 8)
+
+
+@dataclass(frozen=True)
+class BlockChoice:
+    bm: int
+    bk: int
+    bn: int
+    vmem_bytes: int                 # working set incl. buffering
+    arithmetic_intensity: float     # flops / byte moved into fast memory
+    utilization: float              # fraction of the matrix tile filled
+
+    def as_tuple(self) -> tuple[int, int, int]:
+        return (self.bm, self.bk, self.bn)
+
+
+def gemm_working_set(bm: int, bk: int, bn: int, esize: int, acc_size: int,
+                     buffering: int = 2,
+                     materialized_combine: bool = False) -> int:
+    """Resident bytes of one (bm, bk, bn) GEMM grid step: double-buffered
+    input blocks, the acc-width accumulator, and (non-(mul, add) semirings)
+    the materialized f32 combine intermediate."""
+    ws = (bm * bk + bk * bn) * esize * buffering + bm * bn * acc_size
+    if materialized_combine:
+        ws += bm * bn * bk * acc_size
+    return ws
+
+
+def solve_blocks(m: int, k: int, n: int, dtype="bfloat16",
+                 hardware: HardwareShape = TPU_V5E,
+                 vmem_budget_frac: float = 0.5,
+                 buffering: int = 2,
+                 acc_dtype="float32",
+                 materialized_combine: bool = False) -> BlockChoice:
+    """Choose (bm, bk, bn) for C[m, n] += A[m, k] B[k, n]: aligned
+    candidates (the matrix tile on the lane axes, the sublane packing on
+    k), those whose working set fits the budget, the highest arithmetic
+    intensity, then the smaller working set, then the smaller blocks.
+    ``materialized_combine`` adds the (bm, bn, bk) f32 intermediate of a
+    semiring other than (mul, add), which lands on flatter tiles."""
+    esize = dtype_size(dtype)
+    acc_size = dtype_size(acc_dtype)
+    if str(acc_dtype) not in hardware.acc_dtypes:
+        raise ValueError(
+            f"hardware {hardware.name!r} has no {acc_dtype!r} accumulation "
+            f"path (supports {hardware.acc_dtypes})")
+    budget = int(hardware.vmem.capacity_bytes * vmem_budget_frac)
+    lane = hardware.mxu_tile[1]
+    sub = _sublane_multiple(dtype) if hardware.mxu_tile == (128, 128) else 1
+    align_mn = lane if lane > 1 else hardware.vreg_tile[1]
+    align_k = sub if sub > 1 else 1
+
+    best: Optional[BlockChoice] = None
+    cand_m = _candidates(max(min(m, 4096), align_mn), align_mn)
+    cand_n = _candidates(max(min(n, 4096), align_mn), align_mn)
+    cand_k = _candidates(max(min(k, 8192), align_k * 8), align_k * 8)
+    for bm in cand_m:
+        for bn in cand_n:
+            for bk in cand_k:
+                ws = gemm_working_set(bm, bk, bn, esize, acc_size,
+                                      buffering=buffering,
+                                      materialized_combine=materialized_combine)
+                if ws > budget:
+                    continue
+                flops = 2.0 * bm * bn * bk
+                moved = (bm * bk + bk * bn) * esize + bm * bn * esize
+                ai = flops / moved
+                util = (min(bm, m) * min(bn, n)) / float(bm * bn)
+                cand = BlockChoice(bm, bk, bn, ws, ai, util)
+                if best is None or _better(cand, best):
+                    best = cand
+    if best is None:
+        raise ValueError("no feasible block for the given budget")
+    return best
+
+
+def _better(a: BlockChoice, b: BlockChoice) -> bool:
+    if abs(a.arithmetic_intensity - b.arithmetic_intensity) > 1e-9:
+        return a.arithmetic_intensity > b.arithmetic_intensity
+    if a.vmem_bytes != b.vmem_bytes:
+        return a.vmem_bytes < b.vmem_bytes
+    return (a.bm, a.bn, a.bk) < (b.bm, b.bn, b.bk)
+
+
+def grid_for(m: int, k: int, n: int, blocks: BlockChoice
+             ) -> tuple[int, int, int]:
+    """The grid covering the problem (ceil-div per lifted axis)."""
+    cdiv = lambda a, b: -(-a // b)
+    return (cdiv(m, blocks.bm), cdiv(n, blocks.bn), cdiv(k, blocks.bk))
 
 
 def recurrence_working_set(bs: int, token_elems: int, state_elems: int,

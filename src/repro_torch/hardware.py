@@ -39,6 +39,9 @@ class HardwareShape:
     sa_power_W: float = 200.0
     acc_dtypes: tuple = ("float32", "bfloat16", "int32")
 
+    def mesh_axis_names(self) -> tuple[str, ...]:
+        return tuple(n for n, _ in self.mesh_axes)
+
 
 TPU_V5E = HardwareShape(
     name="tpu_v5e",

@@ -35,23 +35,37 @@ batched``
 (its backward)    K7 ``ssd.cu``            ``emit._ssd_backward_kind``
 ``gated_scan``    K8 ``gated_scan.cu``     ``emit._gated_kind`` (and its
 (and backward)                             ``gated_backward`` kind)
+``apply`` and     K9 ``semiring.cu``       ``emit_pallas`` with any other
+its builders                               semiring, ``_general_combine``
 ================  =======================  =============================
+
+``apply(expr, *arrays)`` is the MoA expression entry (the paper's
+pipeline): the expression is psi-reduced to its normal form
+(``core.expr``), lifted and scheduled (``core.schedule.get_schedule``, on
+the ``H100`` table by default), and run.  A (mul, add) normal form that is
+one 2-D product of stored operands goes to K1 with its transpose flags;
+every other normal form goes to K9 through its launch descriptor
+(``kernels/emit.py``), which reads every leaf in place.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import threading
+from collections import OrderedDict
 
 import torch
 
+from repro_torch.core import expr as E
+from repro_torch.core import schedule as sched_mod
 from repro_torch.core.blocking import solve_recurrence_blocks
-from repro_torch.hardware import H100
-from repro_torch.kernels import build, ref
+from repro_torch.hardware import H100, HardwareShape
+from repro_torch.kernels import build, emit, ref
 
 #: kernel launches since import (or the caller's last reset), by kernel id;
 #: a wrapper adds one exactly where it launches its kernel
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
-            "K8": 0}
+            "K8": 0, "K9": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PLAIN = False
@@ -69,6 +83,7 @@ _SIGNATURES = {
     "repro_ssd_scan": ("ssd", [_P] * 8 + [_C] * 6),
     "repro_ssd_bwd": ("ssd", [_P] * 14 + [_C] * 6),
     "repro_gated_scan": ("gated_scan", [_P] * 5 + [_C] * 4),
+    "repro_semiring": ("semiring", [_P] * 5 + [_C] * 2),
 }
 
 
@@ -725,3 +740,214 @@ def gated_scan(log_a: torch.Tensor, b_in: torch.Tensor, *,
             for t in (log_a, b_in, init_state)):
         return _GatedScan.apply(log_a, b_in, init_state)
     return gated_recurrence(log_a, b_in, init_state)
+
+
+# ---------------------------------------------------------------------------
+# the MoA expression entry: normal form -> derived schedule -> K1 or K9
+# ---------------------------------------------------------------------------
+
+_PLANS: "OrderedDict[tuple, tuple]" = OrderedDict()
+_PLANS_LOCK = threading.Lock()
+_PLANS_SIZE = 512
+
+
+def _k1_form(nf: "E.NormalForm"):
+    """``(transpose_a, transpose_b)`` when ``nf`` is one (mul, add) 2-D
+    product of stored operands, each read row-wise or column-wise (K1's
+    forms); None otherwise."""
+    if (nf.combine, nf.reduce_op) != ("mul", "add") or \
+            len(nf.leaves) != 2 or len(nf.out_axes) != 2 or \
+            len(nf.reduce_axes) != 1:
+        return None
+    (i, j), k = nf.out_axes, nf.reduce_axes[0]
+    flags = []
+    for leaf, rows in zip(nf.leaves, (i, k)):
+        syms = tuple(t for t, _ in leaf.dims)
+        if leaf.layout == "col":
+            syms = syms[::-1]                     # the storage order
+        cols = j if rows == k else k
+        if syms == (rows, cols):
+            flags.append(False)
+        elif syms == (cols, rows):
+            flags.append(True)
+        else:
+            return None
+    return tuple(flags)
+
+
+def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
+          blocks, acc_dtype: str) -> tuple:
+    """The memoised route of one normal form: ``("K1", transpose_a,
+    transpose_b)`` or ``("K9", launch descriptor)``; derives (or re-reads
+    from the schedule cache) its bundle first, whose padding policy the
+    descriptor applies."""
+    block_key = blocks.as_tuple() if hasattr(blocks, "as_tuple") else (
+        tuple(blocks) if isinstance(blocks, (list, tuple)) else blocks)
+    key = (nf.key(), dtypes, out_dtype, hardware.name, block_key, acc_dtype)
+    with _PLANS_LOCK:
+        plan = _PLANS.get(key)
+        if plan is not None:
+            _PLANS.move_to_end(key)
+            return plan
+    bundle = sched_mod.get_schedule(nf, dtype=dtypes[0], hardware=hardware,
+                                    blocks=blocks, acc_dtype=acc_dtype)
+    flags = _k1_form(nf)
+    plan = ("K1",) + flags if flags is not None else (
+        "K9", emit.describe(bundle, nf))
+    with _PLANS_LOCK:
+        _PLANS[key] = plan
+        while len(_PLANS) > _PLANS_SIZE:
+            _PLANS.popitem(last=False)
+    return plan
+
+
+def semiring_contract(launch: "emit.Launch", *arrays: torch.Tensor,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """K9 or its plain version (``ref.eval_nf``) on the leaves' storage
+    buffers: the normal form ``launch.nf`` in f32, returned in
+    ``out_dtype``."""
+    if not _use_kernel(*arrays):
+        return ref.eval_nf(launch.nf, *arrays).to(out_dtype)
+    dtypes = tuple(t.dtype for t in arrays)
+    desc = launch.c_struct(dtypes, out_dtype)
+    for t in arrays:
+        if not t.is_contiguous():
+            raise ValueError("K9 takes contiguous storage buffers")
+    out = torch.empty(launch.out_ext, device=arrays[0].device,
+                      dtype=out_dtype)
+    if out.numel():
+        ptrs = [t.data_ptr() for t in arrays] + [None] * (3 - len(arrays))
+        _launch("repro_semiring", ctypes.addressof(desc), *ptrs,
+                out.data_ptr(), emit.COMBINE_CODE[launch.combine],
+                emit.REDUCE_CODE[launch.reduce_op])
+        LAUNCHES["K9"] += 1
+    return out
+
+
+def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
+          blocks=None, acc_dtype: str = "float32",
+          hardware: HardwareShape = H100, mesh=None, shard=None,
+          verify=False) -> torch.Tensor:
+    """Evaluate a composed MoA expression (``repro.kernels.ops.apply``).
+
+    ``arrays`` bind the expression's leaves in composition order by their
+    *storage* shapes: a row-major leaf takes its logical shape, a
+    column-major leaf the reversed (physical buffer) shape, so
+    ``transpose(arr((n, k)))`` and ``arr((k, n), layout="col")`` bind the
+    same ``(n, k)`` array, as they share a normal form.  The normal form is
+    scheduled on ``hardware`` (cached per normal form) and run on K1 or K9
+    (CUDA tensors) or their plain versions (CPU tensors); the result is in
+    ``out_dtype`` (default the first array's dtype), accumulated in f32.
+    """
+    if mesh is not None or shard is not None:
+        raise NotImplementedError(
+            "apply(mesh=/shard=) runs a distributed plan; it is not ported "
+            "yet (ROADMAP.md, Queue 1, Distributed)")
+    if verify:
+        raise NotImplementedError(
+            "apply(verify=) runs the static verifier of repro.analysis; it "
+            "is not ported yet (ROADMAP.md, Queue 1)")
+    nf = E.normal_form(expr)
+    shapes = nf.leaf_storage_shapes()
+    if len(arrays) != len(shapes):
+        raise ValueError(f"expression has {len(shapes)} leaves, got "
+                         f"{len(arrays)} arrays")
+    for i, (a, s) in enumerate(zip(arrays, shapes)):
+        if tuple(a.shape) != s:
+            raise ValueError(f"leaf {i} ({nf.leaves[i].array!r}) expects "
+                             f"storage shape {s}, got {tuple(a.shape)}")
+    out_dtype = out_dtype or arrays[0].dtype
+    dtypes = tuple(str(a.dtype).removeprefix("torch.") for a in arrays)
+    plan = _plan(nf, dtypes, out_dtype, hardware, blocks, str(acc_dtype))
+    if plan[0] == "K1":
+        return _product(*arrays, transpose_a=plan[1],
+                        transpose_b=plan[2]).to(out_dtype)
+    return semiring_contract(plan[1], *arrays, out_dtype=out_dtype)
+
+
+def moa_gemm(a: torch.Tensor, b: torch.Tensor, *, blocks=None,
+             out_dtype=None, hardware: HardwareShape = H100) -> torch.Tensor:
+    """C = A @ B through the derived MoA schedule (K1)."""
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"contraction mismatch {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    return apply(E.matmul_expr(m, k, n), a, b, blocks=blocks,
+                 out_dtype=out_dtype or a.dtype, hardware=hardware)
+
+
+def hadamard(a: torch.Tensor, b: torch.Tensor, *, block=None,
+             hardware: HardwareShape = H100) -> torch.Tensor:
+    """The elementwise product through K9, in ``a.dtype``.  ``block`` pins
+    the schedule's (bm, bn); by default the elementwise policy derives it
+    (the reference's fixed (256, 256) does not fit the H100's shared
+    memory)."""
+    if a.shape != b.shape:
+        raise ValueError(f"hadamard shape mismatch {tuple(a.shape)} vs "
+                         f"{tuple(b.shape)}")
+    m, n = a.shape
+    return apply(E.hadamard_expr(m, n), a, b, blocks=block,
+                 out_dtype=a.dtype, hardware=hardware)
+
+
+def semiring_matmul(a: torch.Tensor, b: torch.Tensor, *, plus: str,
+                    times: str, blocks=None,
+                    hardware: HardwareShape = H100) -> torch.Tensor:
+    """A matmul over any registered semiring, e.g. ``plus="min",
+    times="add"`` (tropical shortest path), f32 out: the same derived
+    schedule as ``moa_gemm``, run by K9 (K1 for (add, mul))."""
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"contraction mismatch {tuple(a.shape)} . "
+                         f"{tuple(b.shape)}")
+    expr = E.inner(plus, times, E.arr("A", (m, k)), E.arr("B", (k, n)))
+    return apply(expr, a, b, blocks=blocks, out_dtype=torch.float32,
+                 hardware=hardware)
+
+
+def _outer_expr(m: int, n: int, p: int, q: int) -> "E.Expr":
+    """The outer product of (m, n) and (p, q) as the degenerate inner
+    product of (m, n, 1) and (1, p, q): contracted extent 1."""
+    return E.inner("add", "mul", E.arr("A", (m, n, 1)),
+                   E.arr("B", (1, p, q)))
+
+
+def outer(a: torch.Tensor, b: torch.Tensor, *,
+          hardware: HardwareShape = H100) -> torch.Tensor:
+    """The outer product of matrices, ``(m, n, p, q)``, through K9: the MoA
+    degenerate inner product (contracted extent 1), in ``a.dtype``."""
+    m, n = a.shape
+    p, q = b.shape
+    return apply(_outer_expr(m, n, p, q), a.reshape(m, n, 1),
+                 b.reshape(1, p, q), out_dtype=a.dtype, hardware=hardware)
+
+
+def kron(a: torch.Tensor, b: torch.Tensor, *,
+         hardware: HardwareShape = H100) -> torch.Tensor:
+    """The Kronecker product: the outer product read through the gamma
+    re-layout ``(m, n, p, q) -> (m, p, n, q)``, which the normal form
+    folds into the output's indexing, so K9 writes the ``(m p, n q)``
+    result directly (one launch, no transpose copy)."""
+    m, n = a.shape
+    p, q = b.shape
+    expr = E.transpose(_outer_expr(m, n, p, q), (0, 2, 1, 3))
+    return apply(expr, a.reshape(m, n, 1), b.reshape(1, p, q),
+                 out_dtype=a.dtype, hardware=hardware).reshape(m * p, n * q)
+
+
+def ipophp(a: torch.Tensor, b: torch.Tensor, mode: str, *,
+           hardware: HardwareShape = H100) -> torch.Tensor:
+    """The unified inner / outer / Hadamard / Kronecker operator (one
+    blocked circuit: 'ip' the full schedule, 'op'/'kp' its contraction-
+    degenerate form, 'hp' its pairing-degenerate form)."""
+    if mode == "ip":
+        return moa_gemm(a, b, hardware=hardware)
+    if mode == "op":
+        return outer(a, b, hardware=hardware)
+    if mode == "kp":
+        return kron(a, b, hardware=hardware)
+    if mode == "hp":
+        return hadamard(a, b, hardware=hardware)
+    raise ValueError(f"unknown ipophp mode {mode!r}")

@@ -11,7 +11,11 @@ package: ``ops._xla_matmul_f32``, ``models.chunked_attention`` /
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from repro_torch.core import semiring
 
 #: the masked-score value of the reference (``repro.core.semiring``):
 #: finite, so a fully masked block keeps exp() well defined
@@ -297,3 +301,187 @@ def gated_scan(log_a: torch.Tensor, b_in: torch.Tensor,
         carry = a[:, t] * carry + b[:, t]
         h[:, t] = carry
     return h, carry
+
+
+# ---------------------------------------------------------------------------
+# normal forms over any registered semiring (K9, and K1's matmul forms)
+# ---------------------------------------------------------------------------
+
+#: most elements a plain general-semiring fold pairs at once (1 GiB of
+#: f32): the contraction is walked in slabs of its first contracted axis
+#: so that the paired (out x slab x other contracted) block stays under
+#: this; the whole broadcast of an 8192^3 product would be 2 TiB
+SLAB_ELEMS = 1 << 28
+
+
+def _letters(n: int) -> str:
+    return "abcdefghijklmnopqrstuvwxyz"[:n]
+
+
+def _fold_slabs(operands, combine: str, reduce_op: str, n_out: int,
+                slab_elems: int) -> torch.Tensor:
+    """``reduce_op`` over dims ``n_out..`` of the ``combine`` pairing of
+    ``operands``, f32 tensors aligned (by broadcasting) to one (out +
+    contracted) shape; the first contracted dim is walked in slabs."""
+    comb = semiring.combine_def(combine).torch_fn
+    rdef = semiring.reduce_def(reduce_op)
+    shape = torch.broadcast_shapes(*(x.shape for x in operands))
+    red = tuple(range(n_out, len(shape)))
+    per = 1
+    for d, e in enumerate(shape):
+        if d != n_out:
+            per *= e
+    k = shape[n_out]
+    slab = max(1, slab_elems // max(per, 1))
+    acc = None
+    for s0 in range(0, k, slab):
+        w = min(slab, k - s0)
+        parts = [x.narrow(n_out, s0, w) if x.shape[n_out] > 1 else x
+                 for x in operands]
+        part = rdef.torch_reducer(functools.reduce(comb, parts), dim=red)
+        acc = part if acc is None else rdef.torch_fn(acc, part)
+    return acc
+
+
+def eval_nf(nf, *arrays: torch.Tensor, slab_elems: int = SLAB_ELEMS
+            ) -> torch.Tensor:
+    """The plain version of K9 (and of K1 on a normal form): evaluate a
+    ``core.expr.NormalForm`` over its leaves' storage buffers, f32 result
+    accumulated in f32 (``repro.kernels.ref.eval_nf``).
+
+    Leaves bind by storage shape (a col-layout leaf takes the reversed
+    buffer, a constant dim is indexed out); every operand is cast to f32
+    and aligned to the (out + contracted) axes; (mul, add) is an einsum,
+    any other semiring pairs with its combine op and folds the contracted
+    axes with its reduce op, the first contracted axis in slabs of at most
+    ``slab_elems`` paired elements."""
+    if len(arrays) != len(nf.leaves):
+        raise ValueError(f"normal form has {len(nf.leaves)} leaves, got "
+                         f"{len(arrays)}")
+    bound = []
+    for leaf, x in zip(nf.leaves, arrays):
+        storage = leaf.storage_shape()
+        if tuple(x.shape) != storage:
+            raise ValueError(f"leaf {leaf.array!r} expects storage shape "
+                             f"{storage}, got {tuple(x.shape)}")
+        if leaf.layout == "col":
+            x = x.permute(*reversed(range(x.dim())))
+        x = x[tuple(t if isinstance(t, int) else slice(None)
+                    for t, _ in leaf.dims)]
+        syms = tuple(t for t, _ in leaf.dims if isinstance(t, str))
+        if len(set(syms)) != len(syms):
+            raise NotImplementedError(
+                f"leaf {leaf.array!r} repeats an index (diagonal access)")
+        bound.append((syms, x.float()))
+    joint = tuple(nf.out_axes) + tuple(nf.reduce_axes)
+    if (nf.combine, nf.reduce_op) == ("mul", "add"):
+        letters = dict(zip(joint, _letters(len(joint))))
+        spec = ",".join("".join(letters[s] for s in syms)
+                        for syms, _ in bound)
+        spec += "->" + "".join(letters[s] for s in nf.out_axes)
+        return torch.einsum(spec, *(x for _, x in bound))
+    aligned = []
+    for syms, x in bound:
+        x = x.permute(*sorted(range(len(syms)),
+                              key=lambda d: joint.index(syms[d])))
+        shape = [nf.extent_map[s] if s in syms else 1 for s in joint]
+        aligned.append(x.reshape(shape))
+    if not nf.reduce_axes:
+        comb = semiring.combine_def(nf.combine).torch_fn
+        out = functools.reduce(comb, aligned)
+        return out.expand(nf.out_shape()).contiguous()
+    return _fold_slabs(aligned, nf.combine, nf.reduce_op,
+                       len(nf.out_axes), slab_elems)
+
+
+def eval_expr(expr, *arrays: torch.Tensor, slab_elems: int = SLAB_ELEMS
+              ) -> torch.Tensor:
+    """Evaluate a ``core.expr`` expression directly, node by node, in f32
+    (``repro.kernels.ref.eval_expr``, the DNF semantics before any normal
+    form): a second, independent plain version of ``ops.apply``.  Leaves
+    bind in composition order by storage shape; a general-semiring inner
+    product walks its contraction in slabs (``slab_elems``)."""
+    from repro_torch.core import expr as E
+    it = iter(arrays)
+
+    def ev(e) -> torch.Tensor:
+        if isinstance(e, E.Arr):
+            x = next(it)
+            storage = e.shape if e.layout == "row" else tuple(
+                reversed(e.shape))
+            if tuple(x.shape) != storage:
+                raise ValueError(f"leaf {e.name!r} expects storage shape "
+                                 f"{storage}, got {tuple(x.shape)}")
+            if e.layout == "col":
+                x = x.permute(*reversed(range(x.dim())))
+            return x.float()
+        if isinstance(e, E.Transpose):
+            return ev(e.x).permute(*e.perm)
+        if isinstance(e, E.Psi):
+            return ev(e.x)[e.idx]
+        if isinstance(e, E.Combine):
+            return semiring.combine_def(e.op).torch_fn(ev(e.a), ev(e.b))
+        if isinstance(e, E.Reduce):
+            return semiring.reduce_def(e.op).torch_reducer(ev(e.x),
+                                                           dim=(e.axis,))
+        if isinstance(e, E.Inner):
+            a, b = ev(e.a), ev(e.b)
+            nb, na, nrest = e.batch, a.dim(), b.dim() - e.batch - 1
+            if (e.plus, e.times) == ("add", "mul"):
+                lt = _letters(na + nrest)
+                sa = lt[:na]
+                sb = lt[:nb] + lt[na - 1] + lt[na:]
+                return torch.einsum(f"{sa},{sb}->{lt[:na - 1]}{lt[na:]}",
+                                    a, b)
+            # align to (a's leading axes, b's trailing axes, contraction)
+            ar = a.movedim(na - 1, -1).reshape(
+                a.shape[:-1] + (1,) * nrest + a.shape[-1:])
+            bm = b.movedim(nb, -1)
+            br = bm.reshape(bm.shape[:nb] + (1,) * (na - 1 - nb)
+                            + bm.shape[nb:])
+            return _fold_slabs([ar, br], e.times, e.plus,
+                               na - 1 + nrest, slab_elems)
+        raise TypeError(f"not an Expr node: {e!r}")
+
+    out = ev(expr)
+    if next(it, None) is not None:
+        raise ValueError("more arrays than expression leaves")
+    return out
+
+
+def gemm_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None
+             ) -> torch.Tensor:
+    """C = A @ B with f32 accumulation, in ``out_dtype`` (default
+    ``a.dtype``)."""
+    return (a.float() @ b.float()).to(out_dtype or a.dtype)
+
+
+def hadamard_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The elementwise product in f32, in the operands' dtype."""
+    return (a.float() * b.float()).to(torch.promote_types(a.dtype, b.dtype))
+
+
+def outer_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The MoA outer product of two matrices, ``(m, n, p, q)``."""
+    return torch.einsum("mn,pq->mnpq", a.float(), b.float()).to(
+        torch.promote_types(a.dtype, b.dtype))
+
+
+def kron_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The Kronecker product: the outer product transposed and reshaped."""
+    m, n = a.shape
+    p, q = b.shape
+    return outer_ref(a, b).permute(0, 2, 1, 3).reshape(m * p, n * q)
+
+
+def ipophp_ref(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    """The unified inner / outer / Hadamard / Kronecker operator."""
+    if mode == "ip":
+        return gemm_ref(a, b)
+    if mode == "hp":
+        return hadamard_ref(a, b)
+    if mode == "op":
+        return outer_ref(a, b)
+    if mode == "kp":
+        return kron_ref(a, b)
+    raise ValueError(f"unknown ipophp mode {mode!r}")

@@ -311,3 +311,182 @@ def test_gated_scan_backward_runs_the_reverse_walk(h100):
     assert ops.LAUNCHES["K8"] == 2
     for got, want in zip(*grads):
         assert _rel_err(got, want) <= GATED_REL
+
+
+# ---------------------------------------------------------------------------
+# K9: the general-semiring contraction (ops.apply and its builders)
+# ---------------------------------------------------------------------------
+
+def _k9(expr, *arrays, out_dtype=torch.float32):
+    """K9 on the card, then its plain version on the same tensors."""
+    from repro_torch.kernels import emit
+    nf = ops.E.normal_form(expr)
+    plan = ops._plan(nf, tuple(str(a.dtype)[6:] for a in arrays), out_dtype,
+                     ops.H100, None, "float32")
+    assert plan[0] == "K9" and isinstance(plan[1], emit.Launch)
+    got = ops.apply(expr, *arrays, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        want = ops.apply(expr, *arrays, out_dtype=out_dtype)
+    return got, want, plan[1].mode
+
+
+def _mm(plus, times, m, k, n, a_layout="row"):
+    E = ops.E
+    b = E.arr("B", (k, n), a_layout)
+    return E.inner(plus, times, E.arr("A", (m, k)), b)
+
+
+#: (mul, add) and (add, add) fold in another order than the plain
+#: version's (and (mul, add) fuses into FMA): 1e-5 of the largest
+#: entry's sum of magnitudes per contracted term
+K9_SUM_REL = 1e-5
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("plus,times", [("add", "mul"), ("add", "add"),
+                                        ("max", "add"), ("min", "add"),
+                                        ("max", "mul"), ("min", "mul")])
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_k9_every_semiring_pair_matches_plain(h100, plus, times, dtype):
+    """Every (combine, reduce) pair at a shape the H100 schedule does not
+    pad (so (mul, max) / (mul, min), with no inert element, may run);
+    ``ops.apply`` of a 2-D (mul, add) product is K1's, so that pair runs
+    batched (one more out axis) to reach K9."""
+    g = torch.Generator(device=h100).manual_seed(20)
+    E = ops.E
+    if (plus, times) == ("add", "mul"):
+        expr = E.inner(plus, times, E.arr("X", (2, 64, 128)),
+                       E.arr("W", (2, 128, 96)), batch=1)
+        shapes = [(2, 64, 128), (2, 128, 96)]
+    else:
+        expr = _mm(plus, times, 96, 96, 96)
+        shapes = [(96, 96), (96, 96)]
+    arrays = [torch.randn(*s, generator=g, device=h100).to(dtype)
+              for s in shapes]
+    got, want, _ = _k9(expr, *arrays)
+    assert ops.LAUNCHES["K9"] == 1
+    if plus in ("max", "min"):
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=K9_SUM_REL * shapes[0][-1] *
+                                   want.abs().max().item())
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("plus", ["max", "min"])
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (37, 70, 130), (130, 33, 65),
+                                   (200, 513, 70)])
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_k9_tropical_is_bit_for_bit_at_ragged_shapes(h100, plus, m, k, n,
+                                                     dtype):
+    """Masking past the logical extents stands for the inert padding: the
+    tropical product equals its plain version bit for bit at shapes that
+    are no multiple of K9's 64x64x32 tiles, f32 and bf16 inputs."""
+    g = torch.Generator(device=h100).manual_seed(m + k + n)
+    a = torch.randn(m, k, generator=g, device=h100).to(dtype)
+    b = torch.randn(k, n, generator=g, device=h100).to(dtype)
+    got = ops.semiring_matmul(a, b, plus=plus, times="add")
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        want = ops.semiring_matmul(a, b, plus=plus, times="add")
+    assert ops.LAUNCHES["K9"] == 1 and got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("plus,times", [("add", "mul"), ("add", "add")])
+def test_k9_sums_are_exact_on_integers(h100, plus, times):
+    """On integer-valued inputs every partial sum is exact, so the fused
+    (mul, add) and the (add, add) folds equal the plain version bit for
+    bit."""
+    g = torch.Generator(device=h100).manual_seed(21)
+    E = ops.E
+    x = torch.randint(-4, 5, (3, 70, 130), generator=g, device=h100).float()
+    w = torch.randint(-4, 5, (3, 130, 45), generator=g, device=h100).float()
+    expr = E.inner(plus, times, E.arr("X", (3, 70, 130)),
+                   E.arr("W", (3, 130, 45)), batch=1)
+    got, want, mode = _k9(expr, x, w)
+    assert mode == 0 and torch.equal(got, want)
+
+
+@pytest.mark.h100
+def test_k9_reads_col_and_psi_leaves_in_place(h100):
+    """A col-layout B (its stored (n, k) buffer) and a psi slab of a stack
+    (a base offset into the whole buffer) go to K9 as strides and a base:
+    bit for bit against the plain version, which slices and transposes."""
+    g = torch.Generator(device=h100).manual_seed(22)
+    E = ops.E
+    a = torch.randn(100, 70, generator=g, device=h100)
+    bt = torch.randn(90, 70, generator=g, device=h100)      # stored (n, k)
+    got, want, _ = _k9(_mm("max", "add", 100, 70, 90, "col"), a, bt)
+    assert torch.equal(got, want)
+    assert torch.equal(want, (a[:, :, None] + bt.t()[None]).amax(1))
+    stack = torch.randn(5, 100, 70, generator=g, device=h100)
+    b = torch.randn(70, 90, generator=g, device=h100)
+    expr = E.inner("min", "add", E.psi((3,), E.arr("S", (5, 100, 70))),
+                   E.arr("B", (70, 90)))
+    got, want, _ = _k9(expr, stack, b)
+    assert torch.equal(got, want)
+    assert torch.equal(want, (stack[3][:, :, None] + b[None]).amin(1))
+
+
+@pytest.mark.h100
+def test_k9_propagates_nan_as_torch_maximum(h100):
+    """NaN inputs and -inf + inf pairs give NaN where ``torch.maximum`` /
+    ``torch.amax`` do, and +-inf elsewhere as they do."""
+    g = torch.Generator(device=h100).manual_seed(23)
+    a = torch.randn(40, 50, generator=g, device=h100)
+    b = torch.randn(50, 60, generator=g, device=h100)
+    a[3, 7] = float("nan")
+    a[5, :] = float("-inf")
+    b[:, 9] = float("inf")
+    a[8, 2] = float("inf")
+    b[2, 11] = float("-inf")
+    for plus in ("max", "min"):
+        got = ops.semiring_matmul(a, b, plus=plus, times="add")
+        torch.cuda.synchronize()
+        want = getattr(torch, "amax" if plus == "max" else "amin")(
+            a[:, :, None] + b[None], dim=1)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert bool(torch.isnan(want).any())
+        keep = ~torch.isnan(want)
+        assert torch.equal(got[keep], want[keep])
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_k9_elementwise_reduce_chain_and_kron(h100, dtype):
+    """The thread and warp paths and the outer product: Hadamard (bf16
+    out), the lone max along rows (warp) and min along columns (thread),
+    the 3-operand chain, mul over a reduce, and kron written in place."""
+    g = torch.Generator(device=h100).manual_seed(24)
+    E = ops.E
+    rnd = lambda *s: torch.randn(*s, generator=g, device=h100).to(dtype)
+    a, b = rnd(70, 130), rnd(70, 130)
+    got = ops.hadamard(a, b)
+    assert got.dtype == dtype
+    assert torch.equal(got, (a.float() * b.float()).to(dtype))
+    x = rnd(70, 130)
+    for op, axis, mode in (("max", 1, 2), ("min", 0, 1)):
+        got, want, m = _k9(E.reduce(op, E.arr("A", (70, 130)), axis), x)
+        assert m == mode and torch.equal(got, want)
+    chain = E.arr("A", (33, 40)) @ E.arr("B", (40, 50)) @ E.arr("C", (50, 20))
+    ca, cb, cc = rnd(33, 40), rnd(40, 50), rnd(50, 20)
+    got, want, mode = _k9(chain, ca, cb, cc)
+    assert mode == 1
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=K9_SUM_REL * 2000 * want.abs().max().item())
+    scale = E.combine("mul", E.reduce("add", E.arr("X", (30, 40, 50)), 1),
+                      E.arr("Y", (30, 50)))
+    sx, sy = rnd(30, 40, 50), rnd(30, 50)
+    got, want, _ = _k9(scale, sx, sy)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=K9_SUM_REL * 40 * want.abs().max().item())
+    p, q = rnd(16, 24), rnd(8, 12)
+    ops.reset_launches()
+    got = ops.kron(p, q)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K9"] == 1
+    assert torch.equal(got, ref.kron_ref(p, q))

@@ -143,8 +143,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     la = -torch.ones(1, 5, 3, requires_grad=True)
     h, _ = ops.gated_scan(la, torch.ones(1, 5, 3))
     h.sum().backward()
+    ops.semiring_matmul(x, torch.ones(8, 5), plus="max", times="add")
+    ops.moa_gemm(x, torch.ones(8, 5))
     assert ops.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
-                            "K6": 0, "K7": 0, "K8": 0}
+                            "K6": 0, "K7": 0, "K8": 0, "K9": 0}
 
 
 def test_other_devices_raise():

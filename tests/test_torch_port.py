@@ -27,9 +27,11 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
-        "assert len(mods) >= 27, mods\n"
+        "assert len(mods) >= 37, mods\n"
         "assert {'repro_torch.models.rglru', "
-        "'repro_torch.train.serve_step'} <= set(mods), mods\n"
+        "'repro_torch.train.serve_step', 'repro_torch.core.expr', "
+        "'repro_torch.core.schedule', 'repro_torch.kernels.emit'} "
+        "<= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], env=ENV, cwd=ROOT,
@@ -159,7 +161,7 @@ def test_nvcc_command_and_build_directory():
     assert build.BUILD_DIR == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert build.sources() == ["flash_bwd", "flash_fwd", "gated_scan",
-                               "gemm", "paged_decode", "ssd"]
+                               "gemm", "paged_decode", "semiring", "ssd"]
     out = build.library_path("gemm")
     assert out.parent == build.BUILD_DIR
     assert out.name.startswith("gemm-") and out.suffix == ".so"
