@@ -71,7 +71,9 @@ Ten phases; any failure exits non-zero before the result line:
             e=16 1024^3, the chain A@B@C over 512^4 points, Hadamard
             8192^2, the lone max along rows and min along columns of
             8192^2, max-plus with a col-layout B and with a psi-view A
-            (the profiler must list K9 alone: no operand copy), and
+            (the profiler must list K9 alone: no operand copy), max-plus
+            2048^3 on strided views (a column slice of a wider A and a
+            transposed B, which apply copies first), and
             examples/kron_compress.py at 64x64 (x) 64x64 (kron on K9, the
             compressed apply on two K1 products, |Wx - vec(B X A^T)| <=
             1e-3).  K1 and K9 launch their derived counts; one apply runs
@@ -1841,6 +1843,15 @@ def _moa_cases(torch, E, ops):
     add(f"K9 float32 max-plus col-layout B {n}^3", "K9",
         lambda: ops.apply(col, a, bt), None, True,
         k9_bound(2.0 * n ** 3, 3 * n * n * 4))
+    # strided views through a user entry: apply copies a column slice of a
+    # wider A and a transposed B to row-major buffers, then runs K9
+    m = MOA_N // 2
+    wide, bv = rnd(m, m + 64), rnd(m, m)
+    add(f"K9 float32 max-plus strided views (A[:, :{m}] of {m}x{m + 64}, "
+        f"B transposed) {m}^3", "K9",
+        lambda: ops.semiring_matmul(wide[:, :m], bv.t(), plus="max",
+                                    times="add"), None, True,
+        k9_bound(2.0 * m ** 3, 3 * m * m * 4))
     stack, b = rnd(8, n, n), rnd(n, n)
     psi = E.inner("max", "add", E.psi((3,), E.arr("S", (8, n, n))),
                   E.arr("B", (n, n)))
@@ -2006,9 +2017,15 @@ def profile_step(torch, step, n: int = 3, what: str = "decode") -> None:
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"[profile] {n} {what} steps: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)", flush=True)
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"[profile]   {e.self_device_time_total / 1e3 / n:9.4f} ms/step"
-              f"  x{e.count // n:<4d} {e.key[:70]}")
+    # the 12 largest rows, then every other row of the port's own kernels
+    # (their symbols open with an anonymous namespace, PyTorch's name
+    # at::), so each kernel's share of the step shows
+    ours = ("(anonymous namespace)::", "void (anonymous namespace)::")
+    ranked = sorted(rows, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):
+        if i < 12 or (e.key.startswith(ours) and "at::" not in e.key):
+            print(f"[profile]   {e.self_device_time_total / 1e3 / n:9.4f} "
+                  f"ms/step  x{e.count // n:<4d} {e.key[:70]}")
 
 
 def main() -> None:

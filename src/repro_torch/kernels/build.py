@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` is a self-contained translation unit with a plain C
-interface (no PyTorch headers, so a build takes seconds, not minutes).  It
-compiles for ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` at the repo
-root (git-ignored) on first use; the hash is the source's SHA-256, so an
-edited source rebuilds and an unchanged one is loaded as built.  All
-missing libraries build in parallel, one ``nvcc`` per source.
+Each ``csrc/<name>.cu`` is a translation unit with a plain C interface
+(no PyTorch headers, so a build takes seconds, not minutes); the flash
+kernels share ``csrc/hopper.cuh`` (TMA, mbarriers, wgmma).  It compiles
+for ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` at the repo root
+(git-ignored) on first use; the hash is the SHA-256 of the source and the
+shared headers, so an edit rebuilds and an unchanged one is loaded as
+built.  All missing libraries build in parallel, one ``nvcc`` per
+source.
 
 Each C entry point takes pointers and the CUDA stream as ``void*`` and
 sizes as ``int``, launches on that stream and returns
@@ -54,9 +56,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed on the source's hash."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to: keyed on the hash of the source
+    and of the shared headers (``csrc/*.cuh``) it may include."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def nvcc_command(name: str, out: Path, nvcc: str = "nvcc") -> list[str]:

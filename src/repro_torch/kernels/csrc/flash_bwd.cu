@@ -17,21 +17,42 @@
 // What bounds them on an H100: at gemma-2b training shapes (B = 2, S =
 // 512, G = 8 query heads over one KV head, hd = 256) each kernel does 3
 // (K3) or 4 (K4) products of 2*pairs*G*hd flops over a few MB of
-// operands: compute-bound on paper (989 TFLOP/s bf16).  These first
-// kernels run plain f32 FMA, so the CUDA cores (67 TFLOP/s f32) and
-// shared-memory bandwidth bound them; tensor cores (wgmma) and TMA are
-// later work.
+// operands: bytes-bound on paper there (~4 us), operations-bound (989
+// TFLOP/s bf16) at the window-2048 shape (B = 1, S = 4096, G = 16).
 //
-// K3 design: one 256-thread block per (tile of 64 query rows, KV head,
-// batch), where a row is one (query position, group head) pair, as in
-// flash_fwd.cu, so each K/V tile is loaded once for the G heads.  A loop
-// over key tiles (32 keys bf16, 16 f32) with the forward's causal/window
-// block-skip replaces the TPU's sequential grid axis.  Four threads share
-// a row: each scores BN/4 keys (q.k and dO.v), writes dS to shared memory,
-// then carries hd/4 columns of the f32 dq accumulator in registers.  The
-// scale is applied once at the end, then the cast to q's dtype.
+// K3, bf16 (dtype 1): K2's tensor-core design (flash_fwd.cu) in K2's
+// orientation, rows are (query position, group head) pairs and the key
+// tiles stream through a TMA ring, so each K/V tile serves the whole
+// group.  Per consumer warpgroup of 64 rows the Q and dO tiles stay in
+// shared memory (copied once with cp.async), and the rows' lse and delta
+// sit in registers.  Per key tile two wgmma products give S = Q.K^T and
+// dP = dO.V^T in f32 registers; p = exp(s - lse) (f32, not rounded) and
+// dS = p (dP - delta) are formed in registers; then dQ += dS.K runs with
+// dS as the register A operand and the K tile read MN-major from the ring
+// (no transpose copy).  The tiles are software-pipelined as the
+// forward's: S and dP of tile t run while dS of tile t - 1 folds into dQ.
+// Precision of dS: the reference keeps dS in f32 for dS.K; here dS is
+// rounded to bf16 for the tensor-core product (a relative 2^-9 a term,
+// random in sign), which holds the card tests' 1e-2 and chip_smoke's
+// tolerances with nothing loosened, so the hi/lo split into two bf16
+// products is not needed.  Budgets at hd = 256: 32 keys a tile, dQ 128
+// f32 registers a thread, S and dP 16 each, two dS tiles 8 each (240 a
+// consumer thread through setmaxnreg); shared memory Q + dO 64 KB a
+// warpgroup and 3 stages of 16 KB K + 16 KB V with two warpgroups (4
+// with one); 64 keys a tile at hd <= 128.  One or two consumer
+// warpgroups a block as K2 chooses them.  The scale is applied once in
+// the flush, then the cast to q's dtype.
 //
-// K4 design (the transposed weld): one 256-thread block owns a tile of 16
+// K3, float32 (dtype 0): the first design, unchanged: one 256-thread
+// block per (tile of 64 query rows, KV head, batch), a loop over key
+// tiles of 16 keys with the forward's causal/window block-skip; four
+// threads share a row: each scores BN/4 keys (q.k and dO.v) on plain f32
+// FMA, writes dS to shared memory, then carries hd/4 columns of the f32
+// dq accumulator in registers.
+//
+// K4 design (the transposed weld; both dtypes on plain f32 FMA from shared
+// memory, bound by the CUDA cores and shared-memory bandwidth, as K3's
+// f32 form): one 256-thread block owns a tile of 16
 // keys of one (batch, KV head) and streams the query rows (position,
 // group head) in tiles of 32.  Streaming every row of all G heads of the
 // KV head sums their contributions in the block's own f32 accumulators,
@@ -46,6 +67,10 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -353,16 +378,20 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// which = 0: K3 (out0 = dq); which = 1: K4 (out0 = dk, out1 = dv)
+// which = 0: K3 (out0 = dq), its FMA form (f32 only: bf16 takes
+// tc::dispatch_dq); which = 1: K4 (out0 = dk, out1 = dv)
 template <typename T, int HD>
 int launch_which(int which, const void* q, const void* k, const void* v,
                  const void* dout, const float* m, const float* l,
                  const float* delta, void* out0, void* out1, int B, int Sq,
                  int Sk, int KV, int G, float scale, int causal, int window,
                  cudaStream_t s) {
-  if (which == 0)
-    return launch_dq<T, HD>(q, k, v, dout, m, l, delta, out0, B, Sq, Sk, KV,
-                            G, scale, causal, window, s);
+  if (which == 0) {
+    if constexpr (std::is_same_v<T, float>)
+      return launch_dq<T, HD>(q, k, v, dout, m, l, delta, out0, B, Sq, Sk,
+                              KV, G, scale, causal, window, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return launch_dkv<T, HD>(q, k, v, dout, m, l, delta, out0, out1, B, Sq, Sk,
                            KV, G, scale, causal, window, s);
 }
@@ -391,6 +420,304 @@ int dispatch_hd(int which, int hd, const void* q, const void* k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3, bf16: the tensor-core form
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+
+// keys per tile: 32 at hd = 256 keeps dQ (128 f32 registers a thread),
+// S and dP (16 each) and two dS tiles (8 each) under the consumers' 240
+// (48 keys measured slower: spills and a 2-stage ring)
+__host__ __device__ constexpr int keys_per_tile(int hd) {
+  return hd == 256 ? 32 : 64;
+}
+
+// K/V ring depth: as many stages as fit beside the Q and dO tiles (3 at
+// hd = 256 with two consumer warpgroups, 4 with one), at most 4
+__host__ __device__ constexpr int dq_stages(int hd, int nwg) {
+  const int fit = (225 * 1024 - 2 * nwg * (int)tile_bytes(64, hd)) /
+                  (2 * (int)tile_bytes(keys_per_tile(hd), hd));
+  return fit < 4 ? fit : 4;
+}
+
+template <int HD, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+flash_dq_tc(const __grid_constant__ CUtensorMap tm_k,
+            const __grid_constant__ CUtensorMap tm_v,
+            const bf16* __restrict__ q, const bf16* __restrict__ dout,
+            const float* __restrict__ m, const float* __restrict__ l,
+            const float* __restrict__ delta, bf16* __restrict__ dq, int Sq,
+            int Sk, int KV, int G, float scale, int causal, int window) {
+  constexpr int BN = keys_per_tile(HD);
+  constexpr uint32_t Q_BYTES = tile_bytes(64, HD);
+  using Ring = KVRing<HD, BN, dq_stages(HD, NWG)>;
+  const float scale_log2 = scale * LOG2E;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);           // NWG x Q_BYTES
+  uint8_t* Os = Qs + NWG * Q_BYTES;            // dO rows, NWG x Q_BYTES
+  Ring ring(Os + NWG * Q_BYTES);
+
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int rows = Sq * G;
+  // the forward's key tiles for this block's rows: the backward visits
+  // exactly the tiles the forward did
+  int kstart, ntiles;
+  key_tiles(blockIdx.x * 64 * NWG, 64 * NWG, Sq, Sk, G, causal, window, BN,
+            kstart, ntiles);
+
+  if (threadIdx.x == NWG * 128) {
+    prefetch_map(&tm_k);
+    prefetch_map(&tm_v);
+  }
+  if (threadIdx.x == 0) ring.init(NWG * 128);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NWG) {
+    // ---- producer: one thread keeps the K/V ring full ----
+    if constexpr (NWG == 2) setmaxnreg_dec<24>();
+    if (threadIdx.x == NWG * 128)
+      ring.produce(&tm_k, &tm_v, ntiles, kstart, kvh, b);
+  } else {
+    // ---- consumers: 64 rows per warpgroup ----
+    if constexpr (NWG == 2) setmaxnreg_inc<240>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int rw = blockIdx.x * 64 * NWG + wg * 64;   // its first row
+    uint8_t* Qw = Qs + wg * Q_BYTES;
+    uint8_t* Ow = Os + wg * Q_BYTES;
+    // row (pos, g) of q, dO and dq: ((b*Sq + pos)*KV + kvh)*G*HD + g*HD
+    auto row_off = [&](int row) -> long long {
+      if (row >= rows) return -1;
+      return ((long long)(b * Sq + row / G) * KV + kvh) * G * HD +
+             (long long)(row % G) * HD;
+    };
+    load_rows_sw128<HD>(Qw, q, tid, [&](int i) { return row_off(rw + i); });
+    load_rows_sw128<HD>(Ow, dout, tid,
+                        [&](int i) { return row_off(rw + i); });
+
+    const int row0 = rw + warp * 16 + lane / 4, row1 = row0 + 8;
+    const int qp0 = row0 / G, qp1 = row1 / G;
+    const int t4 = lane % 4;
+    const int wq_lo = rw / G;
+    const int wq_hi = (min(rw + 64, rows) - 1) / G;
+    // the row's log-sum-exp (log2 domain) and delta, while the tiles land
+    float lse0 = 0.f, lse1 = 0.f, dl0 = 0.f, dl1 = 0.f;
+    if (row0 < rows) {
+      const size_t i0 = ((size_t)(b * KV + kvh) * G + row0 % G) * Sq + qp0;
+      lse0 = m[i0] * LOG2E + log2f(fmaxf(l[i0], 1e-30f));
+      dl0 = delta[i0];
+    }
+    if (row1 < rows) {
+      const size_t i1 = ((size_t)(b * KV + kvh) * G + row1 % G) * Sq + qp1;
+      lse1 = m[i1] * LOG2E + log2f(fmaxf(l[i1], 1e-30f));
+      dl1 = delta[i1];
+    }
+    cp_async_wait_all();
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);
+
+    const uint64_t dq_desc = make_desc(Qw, 16, 1024);
+    const uint64_t do_desc = make_desc(Ow, 16, 1024);
+    float acc[HD / 2];
+    float sc[BN / 2], dp[BN / 2];
+    uint32_t ds[BN / 16][4], dsn[BN / 16][4];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
+
+    // S = Q K^T and dP = dO V^T of tile t over hd in steps of 16, both
+    // K-major, committed as one group
+    auto issue_s_dp = [&](int t) {
+      const uint64_t dk = make_desc(ring.k_tile(t), 16, 1024);
+      const uint64_t dv = make_desc(ring.v_tile(t), 16, 1024);
+      ring.wait_k(t);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t qo = (kk / 4) * 8192 + (kk % 4) * 32;
+        const uint32_t ko = (kk / 4) * BN * 128 + (kk % 4) * 32;
+        wgmma_ss<BN>(sc, dq_desc + (qo >> 4), dk + (ko >> 4), kk > 0);
+      }
+      ring.wait_v(t);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t qo = (kk / 4) * 8192 + (kk % 4) * 32;
+        const uint32_t ko = (kk / 4) * BN * 128 + (kk % 4) * 32;
+        wgmma_ss<BN>(dp, do_desc + (qo >> 4), dv + (ko >> 4), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // dQ += dS K of tile t over its keys in steps of 16, K read MN-major
+    auto issue_dq = [&](int t, uint32_t (&da)[BN / 16][4]) {
+      const uint64_t dk_mn = make_desc(ring.k_tile(t), BN * 128, 1024);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs_mn<HD>(acc, da[kk], dk_mn + ((kk * 2048) >> 4), 1);
+      wgmma_commit();
+    };
+    // p = exp(s - lse) (f32, not rounded), dS = p (dP - delta), then dS
+    // in bf16 into `da`, the A operand of dQ += dS K
+    auto form_ds = [&](int t, uint32_t (&da)[BN / 16][4]) {
+      const int k0 = kstart + t * BN;
+      const bool need_mask =
+          k0 + BN > Sk ||
+          (causal && (k0 + BN - 1 > wq_lo ||
+                      (window > 0 && k0 <= wq_hi - window)));
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float a = sc[4 * j + e];
+          float c = sc[4 * j + 2 + e];
+          if (need_mask) {
+            const int kp = k0 + 8 * j + 2 * t4 + e;
+            if (kp >= Sk || !visible(kp, qp0, causal, window))
+              a = MASK_NEG_INF;
+            if (kp >= Sk || !visible(kp, qp1, causal, window))
+              c = MASK_NEG_INF;
+          }
+          // 2^(s * scale_log2 - lse) in one fused multiply-add; a masked
+          // score gives 2^(-huge) = 0
+          const float pa = exp2_fast(fmaf(a, scale_log2, -lse0));
+          const float pc = exp2_fast(fmaf(c, scale_log2, -lse1));
+          sc[4 * j + e] = pa * (dp[4 * j + e] - dl0);
+          sc[4 * j + 2 + e] = pc * (dp[4 * j + 2 + e] - dl1);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        da[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        da[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        da[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        da[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+
+    // Software pipeline inside the warpgroup, as the forward's: S and dP
+    // of tile t run while dS of tile t - 1 folds into dQ; V of a stage is
+    // released when dP is in, K when its dQ product is done.  dS
+    // alternates between two register tiles, as the forward's P.
+    auto step = [&](int t, uint32_t (&cur)[BN / 16][4],
+                    uint32_t (&nxt)[BN / 16][4]) {
+      issue_s_dp(t);
+      issue_dq(t - 1, cur);
+      wgmma_wait<1>();                         // S, dP of tile t are in
+      fence_regs(sc);
+      fence_regs(dp);
+      ring.release_v(t);
+      form_ds(t, nxt);
+      wgmma_wait<0>();                         // dQ of tile t - 1 is done
+      fence_regs(acc);
+      fence_regs(cur);
+      ring.release_k(t - 1);
+    };
+    auto finish = [&](uint32_t (&last)[BN / 16][4]) {
+      fence_regs(acc);
+      wgmma_fence();
+      issue_dq(ntiles - 1, last);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(last);
+      ring.release_k(ntiles - 1);
+    };
+    issue_s_dp(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    ring.release_v(0);
+    form_ds(0, ds);
+    int t = 1;
+    for (; t + 1 < ntiles; t += 2) {
+      step(t, ds, dsn);
+      step(t + 1, dsn, ds);
+    }
+    if (t < ntiles) {
+      step(t, ds, dsn);
+      finish(dsn);
+    } else {
+      finish(ds);
+    }
+
+    // the scale once, then the cast to q's dtype
+    const long long o0 = row_off(row0), o1 = row_off(row1);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (o0 >= 0)
+        *reinterpret_cast<uint32_t*>(dq + o0 + col) =
+            pack_bf16(acc[4 * j + 0] * scale, acc[4 * j + 1] * scale);
+      if (o1 >= 0)
+        *reinterpret_cast<uint32_t*>(dq + o1 + col) =
+            pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+    }
+  }
+}
+
+template <int HD, int NWG>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* m, const float* l, const float* delta, void* dq,
+              int B, int Sq, int Sk, int KV, int G, float scale, int causal,
+              int window, cudaStream_t s) {
+  constexpr int BN = keys_per_tile(HD);
+  CUtensorMap tm_k, tm_v;
+  int err = encode_rows_map(&tm_k, k, B, Sk, KV, HD, BN);
+  if (err == 0) err = encode_rows_map(&tm_v, v, B, Sk, KV, HD, BN);
+  if (err != 0) return err;
+  constexpr size_t smem = 1024 + 2 * NWG * tile_bytes(64, HD) +
+                          KVRing<HD, BN, dq_stages(HD, NWG)>::BYTES;
+  auto kern = flash_dq_tc<HD, NWG>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Sq * G + 64 * NWG - 1) / (64 * NWG), KV, B);
+  kern<<<grid, 128 * (NWG + 1), smem, s>>>(
+      tm_k, tm_v, static_cast<const bf16*>(q), static_cast<const bf16*>(dout),
+      m, l, delta, static_cast<bf16*>(dq), Sq, Sk, KV, G, scale, causal,
+      window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// two consumer warpgroups (128-row blocks) once those blocks fill the SMs
+template <int HD>
+int launch_dq_rows(const void* q, const void* k, const void* v,
+                   const void* dout, const float* m, const float* l,
+                   const float* delta, void* dq, int B, int Sq, int Sk,
+                   int KV, int G, float scale, int causal, int window,
+                   cudaStream_t s) {
+  const long long blocks128 = (long long)((Sq * G + 127) / 128) * KV * B;
+  if (blocks128 >= sm_count())
+    return launch_dq<HD, 2>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk, KV, G,
+                            scale, causal, window, s);
+  return launch_dq<HD, 1>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk, KV, G,
+                          scale, causal, window, s);
+}
+
+int dispatch_dq(int hd, const void* q, const void* k, const void* v,
+                const void* dout, const float* m, const float* l,
+                const float* delta, void* dq, int B, int Sq, int Sk, int KV,
+                int G, float scale, int causal, int window, cudaStream_t s) {
+  switch (hd) {
+    case 64:
+      return launch_dq_rows<64>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk, KV,
+                                G, scale, causal, window, s);
+    case 128:
+      return launch_dq_rows<128>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk,
+                                 KV, G, scale, causal, window, s);
+    case 256:
+      return launch_dq_rows<256>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk,
+                                 KV, G, scale, causal, window, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace tc
+
 int run(int which, const void* q, const void* k, const void* v,
         const void* dout, const void* m, const void* l, const void* delta,
         void* out0, void* out1, int B, int Sq, int Sk, int KV, int G, int hd,
@@ -399,6 +726,9 @@ int run(int which, const void* q, const void* k, const void* v,
   auto M = static_cast<const float*>(m);
   auto L = static_cast<const float*>(l);
   auto D = static_cast<const float*>(delta);
+  if (which == 0 && dtype == 1)
+    return tc::dispatch_dq(hd, q, k, v, dout, M, L, D, out0, B, Sq, Sk, KV, G,
+                           scale, causal, window, s);
   if (dtype == 1)
     return dispatch_hd<__nv_bfloat16>(which, hd, q, k, v, dout, M, L, D, out0,
                                       out1, B, Sq, Sk, KV, G, scale, causal,

@@ -131,9 +131,21 @@ def _entry(name: str):
     return fn, handle
 
 
+#: torch's raw accessor of the current stream's handle, which its own
+#: kernel launchers use: the public ``current_stream()`` builds a Stream
+#: object, several microseconds a launch on the host's critical path
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream() -> int:
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(torch.cuda.current_device())
+    return torch.cuda.current_stream().cuda_stream
+
+
 def _launch(name: str, *args) -> None:
     fn, handle = _entry(name)
-    code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    code = fn(*args, _stream())
     if code != 0:
         msg = handle.repro_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
@@ -280,6 +292,16 @@ def _check_attention(q, k, v, causal, window, prefix_len) -> None:
 
 
 def _check_flash(what: str, tensors, hd: int) -> int:
+    # the common case in one pass over the operands (host time of small
+    # calls); anything off falls through to the checks that name it
+    code = _DTYPE_CODE.get(tensors[0].dtype)
+    if code is not None and hd in (64, 128, 256):
+        for t in tensors:
+            if t.dtype != tensors[0].dtype or t.shape[-1] != hd or \
+                    not t.is_contiguous() or t.data_ptr() % 16:
+                break
+        else:
+            return code
     dtype = _check_kernel_dtype(what, *tensors)
     if hd not in (64, 128, 256) or any(t.shape[-1] != hd for t in tensors):
         raise ValueError(f"{what} kernel takes hd = vd in (64, 128, 256), "
@@ -838,6 +860,7 @@ def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
     scheduled on ``hardware`` (cached per normal form) and run on K1 or K9
     (CUDA tensors) or their plain versions (CPU tensors); the result is in
     ``out_dtype`` (default the first array's dtype), accumulated in f32.
+    A strided view binds like its contiguous copy (it is copied first).
     """
     if mesh is not None or shard is not None:
         raise NotImplementedError(
@@ -856,6 +879,9 @@ def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
         if tuple(a.shape) != s:
             raise ValueError(f"leaf {i} ({nf.leaves[i].array!r}) expects "
                              f"storage shape {s}, got {tuple(a.shape)}")
+    # the kernels read row-major storage buffers: a strided view (a
+    # transpose, a slice) is copied, as the reference takes any array
+    arrays = tuple(a.contiguous() for a in arrays)
     out_dtype = out_dtype or arrays[0].dtype
     dtypes = tuple(str(a.dtype).removeprefix("torch.") for a in arrays)
     plan = _plan(nf, dtypes, out_dtype, hardware, blocks, str(acc_dtype))

@@ -36,19 +36,31 @@ def test_gemm_kernel_matches_plain(h100, dtype, m, k, n, tb):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
+#: (b, s, kv, g, hd, window) of the flash kernels' cases: ragged Sq*G and
+#: Sk (70, 130, 1000: no multiple of any tile), G in {2, 4, 8, 16}, hd in
+#: {64, 128, 256}, a window that cuts inside a key tile (300 over 1000)
+#: with the K/V ring wrapping many times, and B = 2 with KV = 2 (the
+#: tensor maps' batch and head strides).  The (2, 1000, 2, ...) cases have
+#: enough 128-row blocks to fill the card, so the bf16 kernels run two
+#: consumer warpgroups a block; the others run one.
+FLASH_SHAPES = [(1, 70, 1, 8, 256, 0), (1, 130, 1, 8, 256, 33),
+                (2, 130, 2, 2, 64, 0), (2, 70, 2, 4, 128, 17),
+                (1, 1000, 1, 2, 64, 0), (2, 512, 1, 8, 256, 0),
+                (2, 1000, 2, 16, 256, 300), (2, 1000, 2, 8, 128, 300),
+                (2, 1000, 2, 16, 64, 0)]
+
+
 @pytest.mark.h100
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("s,window", [(70, 0), (130, 33)])
-def test_flash_kernel_matches_plain(h100, dtype, atol, s, window):
-    g = torch.Generator(device=h100).manual_seed(1)
-    q = torch.randn(1, s, 1, 8, 256, generator=g, device=h100).to(dtype)
-    k = torch.randn(1, s, 1, 256, generator=g, device=h100).to(dtype)
-    v = torch.randn(1, s, 1, 256, generator=g, device=h100).to(dtype)
-    got = ops.attention(q, k, v, scale=256 ** -0.5, window=window)
+@pytest.mark.parametrize("b,s,kv,g,hd,window", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(h100, dtype, atol, b, s, kv, g, hd,
+                                    window):
+    q, k, v, _ = _attn_case(h100, dtype, b, s, g, hd, 1, kv=kv)
+    got = ops.attention(q, k, v, scale=hd ** -0.5, window=window)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["K2"] == 1
-    want = ref.attention(q, k, v, scale=256 ** -0.5, window=window)
+    want = ref.attention(q, k, v, scale=hd ** -0.5, window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
@@ -104,27 +116,30 @@ def test_gemm_transposed_and_mixed_forms_match_plain(h100, ta, tb, a_dt,
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
-def _attn_case(dev, dtype, b, s, g, hd, seed):
+def _attn_case(dev, dtype, b, s, g, hd, seed, kv=1):
+    """q, k, v, dO of the grouped layout from a seeded generator."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     rnd = lambda *shape: torch.randn(*shape, generator=gen,
                                      device=dev).to(dtype)
-    return (rnd(b, s, 1, g, hd), rnd(b, s, 1, hd), rnd(b, s, 1, hd),
-            rnd(b, s, 1, g, hd))
+    return (rnd(b, s, kv, g, hd), rnd(b, s, kv, hd), rnd(b, s, kv, hd),
+            rnd(b, s, kv, g, hd))
 
 
 @pytest.mark.h100
 @pytest.mark.parametrize("dtype", [_F32, _BF16])
-@pytest.mark.parametrize("s,window", [(70, 0), (130, 33)])
-def test_flash_export_leaves_output_unchanged(h100, dtype, s, window):
-    q, k, v, _ = _attn_case(h100, dtype, 2, s, 8, 256, 4)
-    plain_out = ops.attention(q, k, v, scale=256 ** -0.5, window=window)
-    out, m, l = ops.attention_stats(q, k, v, scale=256 ** -0.5,
-                                    window=window)
+@pytest.mark.parametrize("b,s,kv,g,hd,window",
+                         [(2, 70, 1, 8, 256, 0), (2, 130, 1, 8, 256, 33),
+                          (2, 1000, 2, 16, 256, 300), (1, 130, 2, 4, 64, 0)])
+def test_flash_export_leaves_output_unchanged(h100, dtype, b, s, kv, g, hd,
+                                              window):
+    q, k, v, _ = _attn_case(h100, dtype, b, s, g, hd, 4, kv=kv)
+    scale = hd ** -0.5
+    plain_out = ops.attention(q, k, v, scale=scale, window=window)
+    out, m, l = ops.attention_stats(q, k, v, scale=scale, window=window)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["K2"] == 2
     assert torch.equal(out, plain_out)
-    _, rm, rl = ref.attention_stats(q, k, v, scale=256 ** -0.5,
-                                    window=window)
+    _, rm, rl = ref.attention_stats(q, k, v, scale=scale, window=window)
     torch.testing.assert_close(m, rm, rtol=0, atol=1e-4)
     # l sums p in f32 online (kernel) or at once (plain): order only
     torch.testing.assert_close(l, rl, rtol=1e-4, atol=0)
@@ -132,16 +147,18 @@ def test_flash_export_leaves_output_unchanged(h100, dtype, s, window):
 
 @pytest.mark.h100
 @pytest.mark.parametrize("dtype,rel", [(_F32, 1e-4), (_BF16, 1e-2)])
-@pytest.mark.parametrize("s,g,hd,window", [(70, 8, 256, 0), (130, 8, 256, 33),
-                                           (37, 4, 64, 0), (45, 2, 128, 7)])
-def test_flash_backward_kernels_match_plain(h100, dtype, rel, s, g, hd,
-                                            window):
+@pytest.mark.parametrize("b,s,kv,g,hd,window",
+                         [(2, 70, 1, 8, 256, 0), (2, 130, 1, 8, 256, 33),
+                          (2, 37, 1, 4, 64, 0), (2, 45, 1, 2, 128, 7)]
+                         + FLASH_SHAPES[2:])
+def test_flash_backward_kernels_match_plain(h100, dtype, rel, b, s, kv, g,
+                                            hd, window):
     """K3 and K4 against their plain versions at ragged lengths, causal
     and windowed, from the kernel's own (m, l) and delta.  Tolerance
     relative to the largest entry: f32 differs in summation order only;
-    bf16 rounds the outputs (2^-8) and K4 sums the group in another
-    order."""
-    q, k, v, do = _attn_case(h100, dtype, 2, s, g, hd, 5)
+    bf16 rounds the outputs (2^-8), K3 rounds dS to bf16 for its
+    tensor-core product, and K4 sums the group in another order."""
+    q, k, v, do = _attn_case(h100, dtype, b, s, g, hd, 5, kv=kv)
     scale = hd ** -0.5
     out, m, l = ops.attention_stats(q, k, v, scale=scale, window=window)
     delta = (do.float() * out.reshape(do.shape).float()).sum(-1)
@@ -490,3 +507,31 @@ def test_k9_elementwise_reduce_chain_and_kron(h100, dtype):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["K9"] == 1
     assert torch.equal(got, ref.kron_ref(p, q))
+
+
+@pytest.mark.h100
+def test_apply_takes_strided_views_on_both_routes(h100):
+    """A transposed view through ``moa_gemm`` (K1) and through
+    ``semiring_matmul`` (K9), and a column slice ``x[:, :k]`` of a wider
+    tensor (K9), each equal the plain version on contiguous copies."""
+    g = torch.Generator(device=h100).manual_seed(25)
+    a = torch.randn(130, 70, generator=g, device=h100)
+    bt = torch.randn(90, 70, generator=g, device=h100)      # b = bt.t()
+    wide = torch.randn(130, 100, generator=g, device=h100)
+    x = wide[:, :70]
+    assert not bt.t().is_contiguous() and not x.is_contiguous()
+    got = ops.moa_gemm(a, bt.t())
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 1 and ops.LAUNCHES["K9"] == 0
+    torch.testing.assert_close(got, ref.matmul(a, bt.t().contiguous()),
+                               rtol=1e-5, atol=1e-4)
+    got_t = ops.semiring_matmul(a, bt.t(), plus="max", times="add")
+    got_x = ops.semiring_matmul(x, bt.t(), plus="max", times="add")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K9"] == 2
+    with ops.reference_mode():
+        want_t = ops.semiring_matmul(a, bt.t().contiguous(), plus="max",
+                                     times="add")
+        want_x = ops.semiring_matmul(x.contiguous(), bt.t().contiguous(),
+                                     plus="max", times="add")
+    assert torch.equal(got_t, want_t) and torch.equal(got_x, want_x)

@@ -307,6 +307,51 @@ def test_semiring_matmul_and_moa_gemm_match(m, k, n, plus):
     assert np.max(np.abs(gm.numpy() - np.asarray(wm))) <= 5e-5 * k
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["K1", "K9"])
+def test_apply_takes_strided_views(route, dtype, monkeypatch):
+    """A transposed view and a column slice ``x[:, :k]`` of a wider array
+    bind like their contiguous copies on both routes, and reach the kernel
+    wrappers (``_product`` for K1, ``semiring_contract`` for K9) as
+    contiguous buffers, which the card's kernels require; the results
+    match the JAX entry on the same values."""
+    rng = np.random.default_rng(31)
+    a = torch.from_numpy(rng.standard_normal((13, 7)).astype(np.float32))
+    bt = torch.from_numpy(rng.standard_normal((9, 7)).astype(np.float32))
+    wide = torch.from_numpy(rng.standard_normal((13, 12)).astype(np.float32))
+    a, bt, wide = a.to(dtype), bt.to(dtype), wide.to(dtype)
+    x = wide[:, :7]
+    assert not bt.t().is_contiguous() and not x.is_contiguous()
+    seen = []
+    for name in ("_product", "semiring_contract"):
+        def spy(*args, _fn=getattr(ops, name), **kw):
+            seen.append(all(t.is_contiguous() for t in args
+                            if isinstance(t, torch.Tensor)))
+            return _fn(*args, **kw)
+        monkeypatch.setattr(ops, name, spy)
+    if route == "K1":
+        call = lambda p, q: ops.moa_gemm(p, q, out_dtype=torch.float32)
+        jcall = lambda p, q: jops.moa_gemm(p, q, interpret=True,
+                                           out_dtype=jnp.float32)
+    else:
+        call = lambda p, q: ops.semiring_matmul(p, q, plus="max",
+                                                times="add")
+        jcall = lambda p, q: jops.semiring_matmul(p, q, plus="max",
+                                                  times="add",
+                                                  interpret=True)
+    for lhs in (a, x):
+        got = call(lhs, bt.t())
+        assert torch.equal(got, call(lhs.contiguous(), bt.t().contiguous()))
+        want = jcall(jnp.asarray(lhs.float().numpy()).astype(
+            jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32),
+            jnp.asarray(bt.t().float().numpy()).astype(
+                jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32))
+        tol = 0.0 if route == "K9" else 5e-5 * 7
+        assert np.max(np.abs(got.float().numpy() - np.asarray(
+            want, dtype=np.float32))) <= tol
+    assert len(seen) == 4 and all(seen)
+
+
 @pytest.mark.parametrize("mode", ["ip", "op", "kp", "hp"])
 def test_ipophp_outer_kron_hadamard_match(mode):
     rng = np.random.default_rng(7)
