@@ -17,7 +17,12 @@ Ten phases; any failure exits non-zero before the result line:
             and training shapes (K2-K4 also at recurrentgemma-9b's window
             2048 over S=4096 with 16 query heads), with the tolerance
             stated; kernel, plain and library times (CUDA events) and the
-            roofline bound of each case.
+            roofline bound of each case.  Each K1 row prints its route
+            (ops.gemm_route), its device time in a CUDA graph (graph_ms)
+            and the time of K1's first kernels on the same operands
+            (old_ms); gemma-2b's six per-layer decode
+            products at 4 rows and the decode step's K1 total; K4 and the
+            split-k decode rows are rerun and must give the same bits.
 4. path     gemma-2b at full width (18 layers, bf16, random weights from a
             seeded generator) served by ServeEngine(max_slots=4,
             max_len=512) over 6 requests; every kernel of the path must
@@ -224,11 +229,14 @@ def _parts(x):
 
 
 def _case(torch, rec, name, dtype, tol_key, kern, plain, library, flops,
-          nbytes, shape):
+          nbytes, shape, extra=None, bnd=None):
     """Hold ``kern`` against ``plain`` (each returns a tensor or a tuple
     of tensors, each part held to the tolerance relative to its own
     largest plain entry), time kernel, plain and library calls, and
-    record the case under ``rec[name][shape]``."""
+    record the case under ``rec[name][shape]``.  ``extra`` (K1's route,
+    the first kernel's time, ...) is printed after the shape and
+    recorded; ``bnd`` a ``(ms, by)`` bound given by the caller instead of
+    ``bound(flops, nbytes, dtype)``."""
     out = _parts(kern())
     torch.cuda.synchronize()
     ref = _parts(plain())
@@ -244,9 +252,11 @@ def _case(torch, rec, name, dtype, tol_key, kern, plain, library, flops,
     tol = TOL[tol_key]
     ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
     lib_ms = time_ms(torch, library) if library is not None else None
-    b_ms, b_by = bound(flops, nbytes, dtype)
+    b_ms, b_by = bnd if bnd is not None else bound(flops, nbytes, dtype)
     ok = all(e <= tol * sc for e, sc in zip(errs, scales))
-    print(f"[kernels] {shape}: max_abs_err={err:.3e} max_rel_err="
+    note = "".join(f" {k}={v:.4f}" if isinstance(v, float) else f" {k}={v}"
+                   for k, v in (extra or {}).items())
+    print(f"[kernels] {shape}{note}: max_abs_err={err:.3e} max_rel_err="
           f"{rel:.3e} (tol {tol:g} x max|plain|) ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
           f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}",
@@ -255,6 +265,105 @@ def _case(torch, rec, name, dtype, tol_key, kern, plain, library, flops,
     rec.setdefault(name, {})[shape] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound_ms=b_ms, bound_by=b_by)
+    rec[name][shape].update(extra or {})
+
+
+def _route(ops, a, b, ta, tb) -> str:
+    """K1's route for ``op(a) @ op(b)`` (``ops.gemm_route``), with the
+    decode path's split of k."""
+    route = ops._route(a, b, ta, tb)
+    if route == "gemv":
+        m = a.shape[0]
+        n = b.shape[0] if tb else b.shape[1]
+        return f"gemv split-k={ops.gemv_splits(m, n, a.shape[1])}"
+    return route
+
+
+def graph_ms(torch, fn) -> float:
+    """``fn``'s device time: ten calls captured in one CUDA graph and
+    replayed (``time_ms`` of a replay / 10), so the host's Python and
+    launch path drop out of it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        fn()
+        with torch.cuda.graph(graph):
+            for _ in range(10):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    ms = time_ms(torch, graph.replay) / 10
+    del graph
+    return ms
+
+
+def _k1_extra(torch, ops, a, b, ta, tb, old=True, call=None) -> dict:
+    """K1's route; (``old``) the time of its first kernels on the same
+    operands (``gemm_bf16`` / ``gemm_fma``, PRs 11-12, kept for the shapes
+    TMA cannot read): the same call's before-and-after on this card; and
+    (``call``, the timed entry) its device time in a CUDA graph."""
+    extra = {"path": _route(ops, a, b, ta, tb)}
+    if call is not None:
+        extra["graph_ms"] = graph_ms(torch, call)
+    if old:
+        k, m = a.shape if ta else a.shape[::-1]
+        n = b.shape[0] if tb else b.shape[1]
+        out = torch.empty((m, n), device=a.device, dtype=torch.float32)
+        args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, int(ta),
+                int(tb), ops._DTYPE_CODE[a.dtype], ops._DTYPE_CODE[b.dtype],
+                int(ops._aligned16(a, m if ta else k)),
+                int(ops._aligned16(b, k if tb else n)))
+        extra["old_ms"] = time_ms(torch, lambda: ops._launch("repro_gemm",
+                                                             *args))
+        del out
+    return extra
+
+
+def _rerun_equal(torch, fn, what: str) -> None:
+    """Two runs of ``fn`` give the same bits (no atomics in its sums)."""
+    first, again = _parts(fn()), _parts(fn())
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(first, again)),
+            f"{what}: reruns differ (its partial sums must be summed in a "
+            f"fixed order)")
+    print(f"[kernels] {what}: rerun bit-identical", flush=True)
+
+
+#: gemma-2b's per-layer products at decode (the 4 slots' rows): q, k, v,
+#: o, the fused GeGLU input (2 x 16384) and the MLP output
+GEMMA_DECODE = (("wq", 2048, 2048), ("wk", 2048, 256), ("wv", 2048, 256),
+                ("wo", 2048, 2048), ("wi", 2048, 32768),
+                ("wo_mlp", 16384, 2048))
+
+
+def _gemm_decode_cases(torch, rec, gen):
+    """K1 at gemma-2b's six per-layer decode products (m = 4 slots, bf16,
+    weights (k, n)), each held to its plain version, split over k where
+    the columns do not fill the card (a rerun is the same bits); then the
+    decode step's K1 total, 18 layers of the six and the tied head."""
+    from repro_torch.kernels import ops, ref
+    bf = torch.bfloat16
+    total = bound_total = 0.0
+    for name, k, n in GEMMA_DECODE:
+        x = torch.randn(4, k, generator=gen, device="cuda").to(bf)
+        w = (torch.randn(k, n, generator=gen, device="cuda")
+             * k ** -0.5).to(bf)
+        shape = f"K1 bfloat16 decode {name} m=4 k={k} n={n}"
+        call = lambda: ops.matmul(x, w, out_dtype=torch.float32)
+        _case(torch, rec, "K1", "bfloat16", ("K1", "bfloat16"), call,
+              lambda: ref.matmul(x, w), lambda: torch.matmul(x, w),
+              2.0 * 4 * n * k, (4 * k + n * k) * 2 + 4 * n * 4, shape,
+              _k1_extra(torch, ops, x, w, False, False, call=call))
+        if ops.gemv_splits(4, n, k) > 1:
+            _rerun_equal(torch, lambda: ops.matmul(
+                x, w, out_dtype=torch.float32), f"K1 split-k {name}")
+        total += 18 * rec["K1"][shape]["ms"]
+        bound_total += 18 * rec["K1"][shape]["bound_ms"]
+        del x, w
+    head = rec["K1"]["K1 bfloat16 m=4 k=2048 n=256000 tb=1"]
+    print(f"[kernels] K1 gemma-2b decode step: 18 x 6 layer products + the "
+          f"head = {total + head['ms']:.4f} ms (bound "
+          f"{bound_total + head['bound_ms']:.4f} ms, bytes)", flush=True)
 
 
 def phase_kernels(torch):
@@ -284,7 +393,12 @@ def phase_kernels(torch):
                       lambda: ref.matmul(x, w, tb),
                       lambda: torch.matmul(x, wl),
                       2.0 * m * n * k, (m * k + n * k) * es + m * n * 4,
-                      f"K1 {dname} m={m} k={k} n={n} tb={int(tb)}")
+                      f"K1 {dname} m={m} k={k} n={n} tb={int(tb)}",
+                      _k1_extra(torch, ops, x, w, False, tb,
+                                old=dt != torch.float32,
+                                call=lambda: ops.matmul(
+                                    x, w, transpose_b=tb,
+                                    out_dtype=torch.float32)))
         # K2: causal prefill attention, one KV head under 8 query heads
         for s in (128, 512):
             q = randn(1, s, 1, 8, 256)
@@ -328,6 +442,7 @@ def phase_kernels(torch):
               live_keys * 2 * 256 * es + 4 * 8 * 256 * (es + 4) + 4 * 4
               + tables.numel() * 4,
               f"K5 {dname} slots=4 pos={positions} page={page} G=8 hd=256")
+    _gemm_decode_cases(torch, rec, gen)
     _gemm_training_cases(torch, rec, gen)
     _ssm_gemm_cases(torch, rec, gen)
     _ssd_cases(torch, rec, gen)
@@ -476,11 +591,16 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
           lambda: ref.flash_dq(*bwd, **args), sdpa_bwd,
           2.0 * 3 * pairs * hd, qkv_bytes + 3 * stat_bytes
           + b * s * g * hd * es, f"K3 {dname} {shape}")
+    nsplit = ops.dkv_splits(b, s, s, 1, g, True, window)
     _case(torch, rec, "K4", dname, ("K4", dname),
           lambda: ops.flash_dkv(*bwd, **args),
           lambda: ref.flash_dkv(*bwd, **args), sdpa_bwd,
           2.0 * 4 * pairs * hd, qkv_bytes + 3 * stat_bytes
-          + 2 * b * s * hd * es, f"K4 {dname} {shape}")
+          + 2 * b * s * hd * es, f"K4 {dname} {shape}",
+          {"path": "tc" if dt == torch.bfloat16 else "fma",
+           "row_splits": nsplit if dt == torch.bfloat16 else 1})
+    _rerun_equal(torch, lambda: ops.flash_dkv(*bwd, **args),
+                 f"K4 {dname} {shape}")
 
 
 def _gated_cases(torch, rec, gen):
@@ -554,18 +674,30 @@ def _gemm_forms(torch, rec, gen, prefix, forms):
         al = a32.t() if ta else a32
         bl = b32.t() if tb else b32
         mixed = adt != bdt
-        # an f32 operand makes exact f32 products: their peak is f32's
-        peak = "float32" if f32 in (adt, bdt) else "bfloat16"
+        nbytes = a.numel() * a.element_size() + \
+            b.numel() * b.element_size() + m * n * 4
+        extra = _k1_extra(torch, ops, a, b, ta, tb,
+                          call=lambda: ops._gemm(a, b, ta, tb))
+        bnd = None
+        if extra["path"] == "split":
+            # the split design's work: three bf16 products at the tensor
+            # cores' peak, and the split's bytes (the f32 operand read, its
+            # three bf16 parts written and read back); beside it the f32
+            # FMA bound of the exact f32 product
+            f_elems = (a if adt == f32 else b).numel()
+            bnd = bound(3 * 2.0 * m * n * k, nbytes + 12 * f_elems,
+                        "bfloat16")
+            extra["fma_bound_ms"] = bound(2.0 * m * n * k, nbytes,
+                                          "float32")[0]
+        peak = "float32" if adt == bdt == f32 else "bfloat16"
         _case(torch, rec, "K1", peak, ("K1", "bfloat16"),
               lambda: ops._gemm(a, b, ta, tb),
               lambda: ref.matmul(a, b, tb, transpose_a=ta),
               (lambda: torch.matmul(al, bl)) if mixed else
               (lambda: torch.matmul(a.t() if ta else a, b.t() if tb else b)),
-              2.0 * m * n * k,
-              a.numel() * a.element_size() + b.numel() * b.element_size()
-              + m * n * 4,
+              2.0 * m * n * k, nbytes,
               f"{prefix} {label} {str(adt)[6:]}x{str(bdt)[6:]} m={m} k={k} "
-              f"n={n} ta={int(ta)} tb={int(tb)}")
+              f"n={n} ta={int(ta)} tb={int(tb)}", extra, bnd)
         del a, b, a32, b32, al, bl
 
 
@@ -1786,7 +1918,8 @@ def _moa_cases(torch, E, ops):
         es = a.element_size()
         # f32 out: the held sums differ only in order (a bf16 out would
         # flip roundings of equal-but-for-the-last-bit sums)
-        add(f"K1 {dname} moa_gemm {n}^3", "K1",
+        route = _route(ops, a, b, False, False)
+        add(f"K1 {dname} moa_gemm {n}^3 path={route}", "K1",
             lambda a=a, b=b: ops.moa_gemm(a, b, out_dtype=torch.float32),
             lambda a=a, b=b: torch.matmul(a, b), False,
             bound(2.0 * n ** 3, 2 * n * n * es + n * n * 4, dname))

@@ -50,20 +50,50 @@
 // FMA, writes dS to shared memory, then carries hd/4 columns of the f32
 // dq accumulator in registers.
 //
-// K4 design (the transposed weld; both dtypes on plain f32 FMA from shared
-// memory, bound by the CUDA cores and shared-memory bandwidth, as K3's
-// f32 form): one 256-thread block owns a tile of 16
-// keys of one (batch, KV head) and streams the query rows (position,
-// group head) in tiles of 32.  Streaming every row of all G heads of the
-// KV head sums their contributions in the block's own f32 accumulators,
-// so dk and dv come out already reduced over the group: no atomics and no
-// per-group (.., G, ..) intermediate (the reference emits per-group
-// outputs and sums them afterwards).  Sixteen threads share a key: each
-// scores two streamed rows, and each carries hd/16 columns of dk and of
-// dv.  Rows past the end, like the reference's padded query rows, are
-// always masked.  Only Sk/16 * KV * B blocks run (64 at the training
-// shapes), under half the SMs: splitting the stream across blocks needs a
-// second reduction pass, later work.
+// K4, bf16 (dtype 1, G | 64): FlashAttention-3's dK/dV kernel in the
+// grouped layout.  A block owns 64 keys of one (batch, KV head): K and V
+// stay resident in swizzled shared memory (one TMA load each), and the
+// streamed rows, (position, group head) pairs as K3's, come in tiles of
+// 64 through a 2-stage (hd = 256) or 4-stage ring: Q and dO by TMA through
+// a 5-D map of the (B, S, KV, G, hd) layout (hopper.cuh,
+// encode_group_rows_map), the rows' lse and delta computed into shared
+// memory by one producer warp.  Four products a tile, no transpose copy:
+// S^T = K Q^T and dP^T = V dO^T (both operands K-major over hd), P^T =
+// exp(S^T scale - lse) of the visible pairs (0 elsewhere) and dS^T = P^T
+// (dP^T - delta) in f32 registers, then dV += P^T dO and dK += dS^T Q with
+// P^T / dS^T rounded to bf16 as the register A operand and dO / Q read
+// MN-major through wgmma's transpose bit.  Registers: dK and dV for 64
+// keys at hd = 256 are 2 x 128 f32 a thread, more than one warpgroup
+// holds, so the work is split over two consumer warpgroups without a
+// product recomputed: warpgroup 0 forms S^T and P^T, hands P^T (f32,
+// double-buffered, 16 KB a tile) to warpgroup 1 in shared memory over
+// named barriers, and accumulates dV; warpgroup 1 forms dP^T, dS^T and
+// accumulates dK (240 registers each by setmaxnreg, the producer 24).
+// Filling the card: 64-key blocks give only Sk/64 x KV x B blocks (64 at
+// recurrentgemma-9b's window shape, 16 at gemma-2b's training shape), so
+// each key tile's row stream is split over nsplit blocks (ops.dkv_splits:
+// enough for two blocks a SM); each split writes f32 partial dK/dV to a
+// workspace and dkv_reduce sums them in split order, scales dk and casts
+// (no float atomics: reruns are the same bits).  With nsplit = 1 the
+// block writes bf16 directly.  Precision: the reference keeps p and dS in
+// f32 for these products; here both are rounded to bf16 (a relative 2^-9
+// a term, random in sign), which holds the unchanged tolerances.  What
+// bounds it: the window shape's 4 products (0.2085 ms at 989 TFLOP/s);
+// each tile's Q and dO (64 KB at hd = 256) stream from L2 for 8.4 MFLOP,
+// 128 FLOP a byte, and the two warpgroups wait on each other once a tile.
+//
+// K4, float32 (and a G that does not divide 64): the first design (the
+// transposed weld, plain f32 FMA from shared memory, bound by the CUDA
+// cores and shared-memory bandwidth, as K3's f32 form): one 256-thread
+// block owns a tile of 16 keys of one (batch, KV head) and streams the
+// query rows (position, group head) in tiles of 32.  Streaming every row
+// of all G heads of the KV head sums their contributions in the block's
+// own f32 accumulators, so dk and dv come out already reduced over the
+// group: no atomics and no per-group (.., G, ..) intermediate (the
+// reference emits per-group outputs and sums them afterwards).  Sixteen
+// threads share a key: each scores two streamed rows, and each carries
+// hd/16 columns of dk and of dv.  Rows past the end, like the reference's
+// padded query rows, are always masked.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -716,12 +746,370 @@ int dispatch_dq(int hd, const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4, bf16: the tensor-core form
+// ---------------------------------------------------------------------------
+
+// A block's keys; the streamed rows of a row tile (32-row tiles in a
+// 4-stage ring measured slower at hd = 256 than 64-row tiles in 2)
+constexpr int DKV_KEYS = 64, DKV_ROWS = 64;
+
+// The row tiles that can see a key of the tile at j0 (the forward's
+// causal and window block-skip with the roles swapped): `t0` the first,
+// `count` of them.  ops.dkv_row_tiles is the same rule in Python.
+__device__ inline void dkv_row_tiles(int j0, int Sq, int Sk, int G,
+                                     int causal, int window, int& t0,
+                                     int& count) {
+  const int rows = Sq * G;
+  int rstart = 0, rend = rows;
+  if (causal) {
+    rstart = j0 * G;                           // positions >= j0
+    if (window > 0) {
+      const int jmax = min(Sk, j0 + DKV_KEYS) - 1;
+      rend = min(rows, (jmax + window) * G);   // positions < jmax + window
+    }
+  }
+  t0 = rstart / DKV_ROWS;
+  count = max(0, (rend + DKV_ROWS - 1) / DKV_ROWS - t0);
+}
+
+// Shared memory: K and V resident, two f32 P^T tiles, the ring's Q and dO
+// tiles (1024-byte aligned), its rows' statistics, the barriers; as many
+// stages as fit, at most 4
+template <int HD>
+struct DkvSmem {
+  static constexpr int R = DKV_ROWS;
+  static constexpr uint32_t KV = tile_bytes(DKV_KEYS, HD);
+  static constexpr uint32_t ROWS = tile_bytes(R, HD);
+  static constexpr uint32_t P = DKV_KEYS * R * 4;       // one f32 P^T tile
+  static constexpr int FIT =
+      (225 * 1024 - 2 * (int)KV - 2 * (int)P) / (2 * (int)ROWS + 8 * R);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr size_t BYTES = 1024 + 2 * KV + 2 * P +
+                                  STAGES * (2 * ROWS + 8 * R) +
+                                  (2 * STAGES + 1) * sizeof(uint64_t);
+  static_assert(BYTES <= 232448, "K4 shared memory");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(384, 1)
+flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_do,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             const float* __restrict__ m, const float* __restrict__ l,
+             const float* __restrict__ delta, bf16* __restrict__ dk,
+             bf16* __restrict__ dv, float* __restrict__ ws, int Sq, int Sk,
+             int KV, int G, float scale, int causal, int window,
+             int nsplit) {
+  using L = DkvSmem<HD>;
+  constexpr int S = L::STAGES, R = L::R;
+  constexpr uint32_t CHUNK = R * 128;      // 64 columns of a row tile
+  const float scale_log2 = scale * LOG2E;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = align1024(smem_raw);
+  uint8_t* Vs = Ks + L::KV;
+  float* Pbuf = reinterpret_cast<float*>(Vs + L::KV);     // 2 x 64 x R f32
+  uint8_t* ring = reinterpret_cast<uint8_t*>(Pbuf + 2 * DKV_KEYS * R);
+  auto q_tile = [&](int s) { return ring + s * 2 * L::ROWS; };
+  auto do_tile = [&](int s) { return q_tile(s) + L::ROWS; };
+  // lse (log2 domain) then delta of the stage's R rows
+  auto stats = [&](int s) {
+    return reinterpret_cast<float*>(ring + S * 2 * L::ROWS) + s * 2 * R;
+  };
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + S * (2 * L::ROWS + 8 * R));
+  uint64_t* empty = full + S;
+  uint64_t* kv_full = empty + S;
+
+  const int jt = blockIdx.x, split = blockIdx.y;
+  const int kvh = blockIdx.z % KV, b = blockIdx.z / KV;
+  const int j0 = jt * DKV_KEYS;
+  const int rows = Sq * G;
+  int t0, count;
+  dkv_row_tiles(j0, Sq, Sk, G, causal, window, t0, count);
+  const int per = (count + nsplit - 1) / nsplit;
+  const int first = t0 + split * per;
+  const int ntiles = max(0, min(count, (split + 1) * per) - split * per);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1 + 32);           // the TMA thread + stats warp
+      mbar_init(empty + s, 256);             // every consumer thread
+    }
+    mbar_init(kv_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread streams Q / dO tiles by TMA, one warp
+    // the rows' statistics ----
+    setmaxnreg_dec<24>();
+    const int tid = threadIdx.x - 256;
+    if (tid == 0) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_do);
+      mbar_expect_tx(kv_full, 2 * L::KV);
+#pragma unroll
+      for (int c = 0; c < HD / 64; ++c) {
+        tma_load_4d(Ks + c * 8192, &tm_k, kv_full, c * 64, kvh, j0, b);
+        tma_load_4d(Vs + c * 8192, &tm_v, kv_full, c * 64, kvh, j0, b);
+      }
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % S;
+        const int pos0 = (first + i) * R / G;
+        mbar_wait(empty + s, ((i / S) & 1) ^ 1);
+        mbar_expect_tx(full + s, 2 * L::ROWS);
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c) {
+          tma_load_5d(q_tile(s) + c * CHUNK, &tm_q, full + s, c * 64, 0, kvh,
+                      pos0, b);
+          tma_load_5d(do_tile(s) + c * CHUNK, &tm_do, full + s, c * 64, 0,
+                      kvh, pos0, b);
+        }
+      }
+    } else if (tid >= 32 && tid < 64) {
+      const int lane = tid - 32;
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % S;
+        mbar_wait(empty + s, ((i / S) & 1) ^ 1);
+        float* st = stats(s);
+#pragma unroll
+        for (int h = 0; h < R / 32; ++h) {
+          const int r = (first + i) * R + lane + 32 * h;
+          float lse = 0.f, dl = 0.f;
+          if (r < rows) {
+            const size_t idx =
+                ((size_t)(b * KV + kvh) * G + r % G) * Sq + r / G;
+            lse = m[idx] * LOG2E + log2f(fmaxf(l[idx], 1e-30f));
+            dl = delta[idx];
+          }
+          st[lane + 32 * h] = lse;
+          st[R + lane + 32 * h] = dl;
+        }
+        mbar_arrive(full + s);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup 0 P^T and dV, warpgroup 1 dP^T, dS^T, dK
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int t4 = lane % 4;
+    const int kp0 = j0 + warp * 16 + lane / 4, kp1 = kp0 + 8;   // its keys
+    const uint64_t dk_desc = make_desc(Ks, 16, 1024);
+    const uint64_t dv_desc = make_desc(Vs, 16, 1024);
+    float acc[HD / 2];
+    float sc[R / 2];
+    uint32_t pa[R / 16][4];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % S;
+      const int r0 = (first + i) * R;
+      mbar_wait(full + s, (i / S) & 1);
+      const float* st = stats(s);
+      // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1): 64 keys x R rows,
+      // both operands K-major over hd
+      const uint64_t a_desc = wg == 0 ? dk_desc : dv_desc;
+      const uint64_t b_desc =
+          make_desc(wg == 0 ? q_tile(s) : do_tile(s), 16, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t oa = (kk / 4) * 8192 + (kk % 4) * 32;
+        const uint32_t ob = (kk / 4) * CHUNK + (kk % 4) * 32;
+        wgmma_ss<R>(sc, a_desc + (oa >> 4), b_desc + (ob >> 4), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      float* P = Pbuf + (i & 1) * (DKV_KEYS * R);
+      if (wg == 0) {
+        // P^T = exp(s * scale - lse) of the visible pairs, 0 elsewhere
+        const bool need_mask =
+            j0 + DKV_KEYS > Sk || r0 + R > rows ||
+            (causal && (r0 / G < j0 + DKV_KEYS - 1 ||
+                        (window > 0 && (r0 + R - 1) / G >= j0 + window)));
+#pragma unroll
+        for (int j = 0; j < R / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int rl = 8 * j + 2 * t4 + e;
+            const float lse = st[rl];
+            float p0 = exp2_fast(fmaf(sc[4 * j + e], scale_log2, -lse));
+            float p1 = exp2_fast(fmaf(sc[4 * j + 2 + e], scale_log2, -lse));
+            if (need_mask) {
+              const int r = r0 + rl, qp = r / G;
+              const bool row_ok = r < rows;
+              if (!row_ok || kp0 >= Sk || !visible(kp0, qp, causal, window))
+                p0 = 0.f;
+              if (!row_ok || kp1 >= Sk || !visible(kp1, qp, causal, window))
+                p1 = 0.f;
+            }
+            sc[4 * j + e] = p0;
+            sc[4 * j + 2 + e] = p1;
+          }
+        }
+        // hand P^T (f32) to warpgroup 1: thread i's values at [k][i], so
+        // each of its threads reads the positions it holds itself
+        if (i >= 2) named_bar_sync(3 + (i & 1), 256);
+#pragma unroll
+        for (int e = 0; e < R / 2; ++e) P[e * 128 + tid] = sc[e];
+        named_bar_arrive(1 + (i & 1), 256);
+      } else {
+        // dS^T = P^T (dP^T - delta), P^T from warpgroup 0
+        named_bar_sync(1 + (i & 1), 256);
+#pragma unroll
+        for (int j = 0; j < R / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float dl = st[R + 8 * j + 2 * t4 + e];
+            sc[4 * j + e] = P[(4 * j + e) * 128 + tid] * (sc[4 * j + e] - dl);
+            sc[4 * j + 2 + e] =
+                P[(4 * j + 2 + e) * 128 + tid] * (sc[4 * j + 2 + e] - dl);
+          }
+        }
+        if (i + 2 < ntiles) named_bar_arrive(3 + (i & 1), 256);
+      }
+      // dV += P^T dO (0) or dK += dS^T Q (1): the f32 tile rounded to bf16
+      // as the register A operand, dO / Q read MN-major (no transpose copy)
+#pragma unroll
+      for (int kk = 0; kk < R / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      const uint64_t mn_desc =
+          make_desc(wg == 0 ? do_tile(s) : q_tile(s), CHUNK, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < R / 16; ++kk)
+        wgmma_rs_mn<HD>(acc, pa[kk], mn_desc + ((kk * 2048) >> 4), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      mbar_arrive(empty + s);
+    }
+
+    // flush: dv (warpgroup 0) and dk (1, scaled once), in bf16 straight
+    // to the outputs when the block is the key tile's only split, else as
+    // f32 partials that dkv_reduce sums in split order
+    const float mul = wg == 1 ? scale : 1.f;
+    const size_t plane = (size_t)gridDim.z * Sk * HD;    // B * KV * Sk * HD
+    bf16* out = wg == 0 ? dv : dk;
+    float* part = ws + ((size_t)(wg == 0 ? 1 : 0) * nsplit + split) * plane;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kp = h ? kp1 : kp0;
+      if (kp >= Sk) continue;
+      const size_t o = ((size_t)(b * Sk + kp) * KV + kvh) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        const float x0 = acc[4 * j + 2 * h] * mul;
+        const float x1 = acc[4 * j + 2 * h + 1] * mul;
+        if (nsplit == 1)
+          *reinterpret_cast<uint32_t*>(out + o + col) = pack_bf16(x0, x1);
+        else
+          *reinterpret_cast<float2*>(part + o + col) = make_float2(x0, x1);
+      }
+    }
+  }
+}
+
+// dk = bf16(sum of the dk partials), dv the same, over the splits in
+// order (no atomics: reruns are the same bits); four elements a thread
+__global__ void dkv_reduce(const float* __restrict__ ws, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, size_t plane, int nsplit) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= plane) return;
+  for (int which = 0; which < 2; ++which) {
+    const float* src = ws + (size_t)which * nsplit * plane + i;
+    float4 sum = *reinterpret_cast<const float4*>(src);
+    for (int s = 1; s < nsplit; ++s) {
+      const float4 v = *reinterpret_cast<const float4*>(src + s * plane);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    bf16* out = (which == 0 ? dk : dv) + i;
+    *reinterpret_cast<uint32_t*>(out) = pack_bf16(sum.x, sum.y);
+    *reinterpret_cast<uint32_t*>(out + 2) = pack_bf16(sum.z, sum.w);
+  }
+}
+
+template <int HD>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const float* m, const float* l, const float* delta, void* dk,
+               void* dv, float* ws, int B, int Sq, int Sk, int KV, int G,
+               float scale, int causal, int window, int nsplit,
+               cudaStream_t s) {
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  constexpr int R = DKV_ROWS;
+  int err = encode_group_rows_map(&tm_q, q, B, Sq, KV, G, HD, R);
+  if (err == 0)
+    err = encode_group_rows_map(&tm_do, dout, B, Sq, KV, G, HD, R);
+  if (err == 0) err = encode_rows_map(&tm_k, k, B, Sk, KV, HD, DKV_KEYS);
+  if (err == 0) err = encode_rows_map(&tm_v, v, B, Sk, KV, HD, DKV_KEYS);
+  if (err != 0) return err;
+  constexpr size_t smem = DkvSmem<HD>::BYTES;
+  auto kern = flash_dkv_tc<HD>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Sk + DKV_KEYS - 1) / DKV_KEYS, nsplit, B * KV);
+  kern<<<grid, 384, smem, s>>>(
+      tm_q, tm_do, tm_k, tm_v, m, l, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), ws, Sq, Sk, KV, G, scale, causal, window,
+      nsplit);
+  if (nsplit > 1) {
+    const size_t plane = (size_t)B * Sk * KV * HD;
+    const int threads = 256;
+    const unsigned blocks = (unsigned)((plane / 4 + threads - 1) / threads);
+    dkv_reduce<<<blocks, threads, 0, s>>>(ws, static_cast<bf16*>(dk),
+                                          static_cast<bf16*>(dv), plane,
+                                          nsplit);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_dkv(int hd, const void* q, const void* k, const void* v,
+                 const void* dout, const float* m, const float* l,
+                 const float* delta, void* dk, void* dv, float* ws, int B,
+                 int Sq, int Sk, int KV, int G, float scale, int causal,
+                 int window, int nsplit, cudaStream_t s) {
+  if (G <= 0 || DKV_ROWS % G != 0 || nsplit < 1 ||
+      (nsplit > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 64:
+      return launch_dkv<64>(q, k, v, dout, m, l, delta, dk, dv, ws, B, Sq, Sk,
+                            KV, G, scale, causal, window, nsplit, s);
+    case 128:
+      return launch_dkv<128>(q, k, v, dout, m, l, delta, dk, dv, ws, B, Sq,
+                             Sk, KV, G, scale, causal, window, nsplit, s);
+    case 256:
+      return launch_dkv<256>(q, k, v, dout, m, l, delta, dk, dv, ws, B, Sq,
+                             Sk, KV, G, scale, causal, window, nsplit, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace tc
 
 int run(int which, const void* q, const void* k, const void* v,
         const void* dout, const void* m, const void* l, const void* delta,
-        void* out0, void* out1, int B, int Sq, int Sk, int KV, int G, int hd,
-        float scale, int causal, int window, int dtype, void* stream) {
+        void* out0, void* out1, float* ws, int B, int Sq, int Sk, int KV,
+        int G, int hd, float scale, int causal, int window, int dtype,
+        int nsplit, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto M = static_cast<const float*>(m);
   auto L = static_cast<const float*>(l);
@@ -729,6 +1117,9 @@ int run(int which, const void* q, const void* k, const void* v,
   if (which == 0 && dtype == 1)
     return tc::dispatch_dq(hd, q, k, v, dout, M, L, D, out0, B, Sq, Sk, KV, G,
                            scale, causal, window, s);
+  if (which == 1 && dtype == 1 && nsplit > 0)
+    return tc::dispatch_dkv(hd, q, k, v, dout, M, L, D, out0, out1, ws, B, Sq,
+                            Sk, KV, G, scale, causal, window, nsplit, s);
   if (dtype == 1)
     return dispatch_hd<__nv_bfloat16>(which, hd, q, k, v, dout, M, L, D, out0,
                                       out1, B, Sq, Sk, KV, G, scale, causal,
@@ -754,16 +1145,22 @@ extern "C" int repro_flash_dq(const void* q, const void* k, const void* v,
                               int Sk, int KV, int G, int hd, float scale,
                               int causal, int window, int dtype,
                               void* stream) {
-  return run(0, q, k, v, dout, m, l, delta, dq, nullptr, B, Sq, Sk, KV, G,
-             hd, scale, causal, window, dtype, stream);
+  return run(0, q, k, v, dout, m, l, delta, dq, nullptr, nullptr, B, Sq, Sk,
+             KV, G, hd, scale, causal, window, dtype, 0, stream);
 }
 
+// nsplit: 0 takes the FMA kernel (float32, or a G that does not divide
+// 64); >= 1 the bf16 tensor-core kernel with each key tile's row stream
+// split over nsplit blocks, whose f32 partials (ws: 2 x nsplit x B x Sk x
+// KV x hd, needed when nsplit > 1) a second pass sums in split order.
 extern "C" int repro_flash_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const void* m,
                                const void* l, const void* delta, void* dk,
-                               void* dv, int B, int Sq, int Sk, int KV, int G,
-                               int hd, float scale, int causal, int window,
-                               int dtype, void* stream) {
-  return run(1, q, k, v, dout, m, l, delta, dk, dv, B, Sq, Sk, KV, G, hd,
-             scale, causal, window, dtype, stream);
+                               void* dv, void* ws, int B, int Sq, int Sk,
+                               int KV, int G, int hd, float scale, int causal,
+                               int window, int dtype, int nsplit,
+                               void* stream) {
+  return run(1, q, k, v, dout, m, l, delta, dk, dv, static_cast<float*>(ws),
+             B, Sq, Sk, KV, G, hd, scale, causal, window, dtype, nsplit,
+             stream);
 }

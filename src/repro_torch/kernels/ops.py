@@ -39,6 +39,14 @@ batched``
 its builders                               semiring, ``_general_combine``
 ================  =======================  =============================
 
+K1 takes one of its routes by :func:`gemm_route`, a shape rule applied
+before launch: the TMA + wgmma tile path (bf16), its split form (one f32
+operand as three bf16 parts, made once by :func:`split_bf16` for both of a
+backward's products, which is no K1 launch of its own), the decode rows'
+weight stream (at most 16 rows) or, where TMA cannot read an operand, the
+first kernels.  K4's bf16 tensor-core form splits each key tile's row
+stream over :func:`dkv_splits` blocks.  Either counts one launch a call.
+
 ``apply(expr, *arrays)`` is the MoA expression entry (the paper's
 pipeline): the expression is psi-reduced to its normal form
 (``core.expr``), lifted and scheduled (``core.schedule.get_schedule``, on
@@ -51,6 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import threading
 from collections import OrderedDict
 
@@ -75,9 +84,13 @@ _F = ctypes.c_float
 #: C entry point -> (library, argument types before the trailing stream)
 _SIGNATURES = {
     "repro_gemm": ("gemm", [_P, _P, _P] + [_C] * 9),
+    "repro_gemm_tc": ("gemm", [_P] * 7 + [_C] * 5),
+    "repro_gemv": ("gemm", [_P] * 4 + [_C] * 5),
+    "repro_split_bf16": ("gemm", [_P] * 4 + [ctypes.c_longlong]),
     "repro_flash_fwd": ("flash_fwd", [_P] * 6 + [_C] * 6 + [_F, _C, _C, _C]),
     "repro_flash_dq": ("flash_bwd", [_P] * 8 + [_C] * 6 + [_F, _C, _C, _C]),
-    "repro_flash_dkv": ("flash_bwd", [_P] * 9 + [_C] * 6 + [_F, _C, _C, _C]),
+    "repro_flash_dkv": ("flash_bwd", [_P] * 10 + [_C] * 6
+                        + [_F, _C, _C, _C, _C]),
     "repro_paged_decode": ("paged_decode", [_P] * 6 + [_C] * 6
                            + [_F, _C, _C]),
     "repro_ssd_scan": ("ssd", [_P] * 8 + [_C] * 6),
@@ -119,7 +132,14 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
     return dev.type == "cuda" and not _PLAIN
 
 
+#: C entry point -> (function, library), bound on first use
+_ENTRIES: dict = {}
+
+
 def _entry(name: str):
+    found = _ENTRIES.get(name)
+    if found is not None:
+        return found
     lib, argtypes = _SIGNATURES[name]
     handle = build.load(lib)
     fn = getattr(handle, name)
@@ -128,6 +148,7 @@ def _entry(name: str):
         fn.restype = ctypes.c_int
         handle.repro_error_string.argtypes = [ctypes.c_int]
         handle.repro_error_string.restype = ctypes.c_char_p
+    _ENTRIES[name] = (fn, handle)
     return fn, handle
 
 
@@ -175,32 +196,139 @@ def _aligned16(t: torch.Tensor, row: int) -> bool:
 # K1: matmul
 # ---------------------------------------------------------------------------
 
+#: K1's decode-row path takes products of at most this many rows (the
+#: serving steps' 1-4 slots, padded to mma.sync's 16)
+K1_DECODE_ROWS = 16
+#: the k granule of the decode-row kernel (one 16-byte load a thread)
+K1_GEMV_UNIT = 32
+#: the SMs a grid must fill (H100's mesh axis)
+SM_COUNT = dict(H100.mesh_axes)["sm"]
+
+
+@functools.lru_cache(maxsize=4096)
+def gemm_route(m: int, n: int, k: int, a_dtype, b_dtype,
+               transpose_a: bool = False, transpose_b: bool = False,
+               a_base_ok: bool = True, b_base_ok: bool = True) -> str:
+    """K1's kernel for one product, chosen from its shapes before launch:
+
+    - ``"fma"``: f32 x f32 (exact f32 FMA, ``gemm_fma``);
+    - ``"wmma"`` / ``"fma"``: the first kernels (``gemm_bf16``, bf16 x
+      bf16 without ``transpose_a``; ``gemm_fma`` otherwise) where TMA
+      cannot read an operand: a stored row length (``m`` or ``k`` of A,
+      ``k`` or ``n`` of B) not a multiple of 8 elements, a base not
+      16-byte aligned (``*_base_ok``), or ``k == 0``;
+    - ``"gemv"``: bf16 x bf16 with at most ``K1_DECODE_ROWS`` rows,
+      no ``transpose_a`` and ``k % 32 == 0`` (the weight-streaming decode
+      kernel, split over k by :func:`gemv_splits`);
+    - ``"tile"``: the other bf16 x bf16 products (TMA + wgmma);
+    - ``"split"``: one f32 and one bf16 operand: the f32 one as its three
+      bf16 parts (:func:`split_bf16`), three wgmmas a k-step on the tile
+      path."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    if a_dtype == f32 and b_dtype == f32:
+        return "fma"
+    a_row = m if transpose_a else k
+    b_row = k if transpose_b else n
+    aligned = (k > 0 and a_row % 8 == 0 and b_row % 8 == 0 and a_base_ok
+               and b_base_ok)
+    if not aligned:
+        return "wmma" if a_dtype == b_dtype == bf16 and not transpose_a \
+            else "fma"
+    if a_dtype != b_dtype:
+        return "split"
+    if m <= K1_DECODE_ROWS and not transpose_a and k % K1_GEMV_UNIT == 0:
+        return "gemv"
+    return "tile"
+
+
+@functools.lru_cache(maxsize=1024)
+def gemv_splits(m: int, n: int, k: int) -> int:
+    """The decode-row kernel's split of k: enough blocks of 64 columns for
+    four a SM (``n`` alone fills the card at the vocab head: no split), at
+    least four units of 32 k a split, and no empty split."""
+    units = k // K1_GEMV_UNIT
+    tiles = -(-n // 64)
+    want = max(1, min(-(-4 * SM_COUNT // tiles), units // 4))
+    per = -(-units // want)
+    return -(-units // per)
+
+
+def split_bf16(g: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``(hi, mid, lo)`` bf16 of an f32 tensor (``ref.split_bf16``): ``g
+    = hi + mid + lo`` within 2^-24 of ``|g|`` (a hand-written elementwise
+    pass on the card, not a K1 launch)."""
+    if not _use_kernel(g):
+        return ref.split_bf16(g)
+    if g.dtype != torch.float32 or not g.is_contiguous() or \
+            g.data_ptr() % 16:
+        raise ValueError("split_bf16 takes a contiguous, 16-byte aligned "
+                         "float32 tensor")
+    parts = torch.empty((3,) + tuple(g.shape), device=g.device,
+                        dtype=torch.bfloat16)
+    _launch("repro_split_bf16", g.data_ptr(), parts[0].data_ptr(),
+            parts[1].data_ptr(), parts[2].data_ptr(), g.numel())
+    return tuple(parts)
+
+
+def _route(a: torch.Tensor, b: torch.Tensor, transpose_a: bool,
+           transpose_b: bool) -> str:
+    k, m = a.shape if transpose_a else a.shape[::-1]
+    n = b.shape[0] if transpose_b else b.shape[1]
+    return gemm_route(m, n, k, a.dtype, b.dtype, transpose_a, transpose_b,
+                      a.data_ptr() % 16 == 0, b.data_ptr() % 16 == 0)
+
+
 def _gemm(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
-          transpose_b: bool = False) -> torch.Tensor:
+          transpose_b: bool = False, split=None) -> torch.Tensor:
     """Launch K1 on 2-D operands; returns the f32 ``op(a) @ op(b)``, where
     ``op(a)`` reads a stored ``(k, m)`` as its transpose when
     ``transpose_a`` and ``op(b)`` a stored ``(n, k)`` when
-    ``transpose_b``.  Operands may be f32, bf16 or one of each."""
+    ``transpose_b``.  Operands may be f32, bf16 or one of each; the route
+    is :func:`gemm_route`'s.  ``split``: the three bf16 parts of the f32
+    operand of a mixed product, when the caller has made them (else they
+    are made here)."""
     code_a = _check_kernel_dtype("gemm", a, b, mixed=True)
     code_b = _DTYPE_CODE[b.dtype]
     k, m = a.shape if transpose_a else a.shape[::-1]
     n = b.shape[0] if transpose_b else b.shape[1]
     out = torch.empty((m, n), device=a.device, dtype=torch.float32)
-    if m and n:
+    if not (m and n):
+        return out
+    route = _route(a, b, transpose_a, transpose_b)
+    if route in ("tile", "split"):
+        a_ptrs, b_ptrs = (a.data_ptr(), None, None), (b.data_ptr(), None,
+                                                      None)
+        if route == "split":
+            parts = split if split is not None else \
+                split_bf16(a if code_a == 0 else b)
+            ptrs = tuple(t.data_ptr() for t in parts)
+            a_ptrs, b_ptrs = (ptrs, b_ptrs) if code_a == 0 else (a_ptrs,
+                                                                 ptrs)
+        _launch("repro_gemm_tc", *a_ptrs, *b_ptrs, out.data_ptr(), m, n, k,
+                int(transpose_a), int(transpose_b))
+    elif route == "gemv":
+        nsplit = gemv_splits(m, n, k)
+        ws = torch.empty((nsplit, m, n), device=a.device,
+                         dtype=torch.float32) if nsplit > 1 else None
+        _launch("repro_gemv", a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(), m, n, k,
+                int(transpose_b), nsplit)
+    else:
         vec_a = _aligned16(a, m if transpose_a else k)
         vec_b = _aligned16(b, k if transpose_b else n)
         _launch("repro_gemm", a.data_ptr(), b.data_ptr(), out.data_ptr(), m,
                 n, k, int(transpose_a), int(transpose_b), code_a, code_b,
                 int(vec_a), int(vec_b))
-        LAUNCHES["K1"] += 1
+    LAUNCHES["K1"] += 1
     return out
 
 
 def _product(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
-             transpose_b: bool = False) -> torch.Tensor:
-    """The f32 2-D product through K1 (CUDA) or its plain version."""
+             transpose_b: bool = False, split=None) -> torch.Tensor:
+    """The f32 2-D product through K1 (CUDA) or its plain version (which
+    ignores ``split`` and multiplies the f32 operand exactly)."""
     if _use_kernel(a, b):
-        return _gemm(a, b, transpose_a, transpose_b)
+        return _gemm(a, b, transpose_a, transpose_b, split)
     return ref.matmul(a, b, transpose_b, transpose_a=transpose_a)
 
 
@@ -211,8 +339,13 @@ class _MatmulF32(torch.autograd.Function):
     layout (no transpose copy of a weight, an activation or the
     vocab-sized logits gradient).  The cotangent ``g`` is f32 (the cast to
     the out dtype sits outside), so the products are mixed (f32, bf16)
-    under bf16 weights; their f32 results are cast to ``x2.dtype`` /
-    ``w2.dtype``, as ``_pallas_matmul_bwd`` does."""
+    under bf16 weights: on the card ``g`` is split once, for both of its
+    products, into three bf16 parts (:func:`split_bf16`), and each product
+    runs as three bf16 tensor-core products into one f32 accumulator (K1's
+    "split" route; the parts hold ``g`` within 2^-24 of its magnitude, so
+    only the order of the f32 sums differs from the reference's).  Their
+    f32 results are cast to ``x2.dtype`` / ``w2.dtype``, as
+    ``_pallas_matmul_bwd`` does."""
 
     @staticmethod
     def forward(ctx, x2, w2, transpose_b):
@@ -225,19 +358,20 @@ class _MatmulF32(torch.autograd.Function):
         x2, w2 = ctx.saved_tensors
         g = g.contiguous()
         need_x, need_w = ctx.needs_input_grad[:2]
-        dx = dw = None
         if ctx.transpose_b:
             # y = x w^T: dx = g @ w (stored layout); dw = g^T @ x
-            if need_x:
-                dx = _product(g, w2)
-            if need_w:
-                dw = _product(g, x2, transpose_a=True)
+            forms = ((g, w2, False, False), (g, x2, True, False))
         else:
             # dx = g @ w^T; dw = x^T @ g
-            if need_x:
-                dx = _product(g, w2, transpose_b=True)
-            if need_w:
-                dw = _product(x2, g, transpose_a=True)
+            forms = ((g, w2, False, True), (x2, g, True, False))
+        forms = [f if need else None
+                 for f, need in zip(forms, (need_x, need_w))]
+        split = None
+        if _use_kernel(g, x2, w2) and any(
+                f is not None and _route(*f) == "split" for f in forms):
+            split = split_bf16(g)
+        dx, dw = (None if f is None else _product(*f, split=split)
+                  for f in forms)
         return (None if dx is None else dx.to(x2.dtype),
                 None if dw is None else dw.to(w2.dtype), None)
 
@@ -441,12 +575,56 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              causal=causal, window=window)
     ptrs, dtype = _bwd_args("flash_dkv", q, k, v, do, m, l, delta)
     b, sq, kv, g, hd = q.shape
+    sk = k.shape[1]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("repro_flash_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), b, sq,
-            k.shape[1], kv, g, hd, float(scale), int(causal), int(window),
-            dtype)
+    # the tensor-core form (bf16, G dividing its row tile) with its row
+    # stream split over nsplit blocks a key tile, whose f32 partials a
+    # second pass sums in split order; nsplit = 0 takes the FMA kernel
+    nsplit = dkv_splits(b, sq, sk, kv, g, bool(causal), int(window)) \
+        if dtype == 1 and DKV_ROWS % g == 0 else 0
+    ws = torch.empty((2, nsplit, b, sk, kv, hd), device=q.device,
+                     dtype=torch.float32) if nsplit > 1 else None
+    _launch("repro_flash_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, sq, sk, kv, g, hd,
+            float(scale), int(causal), int(window), dtype, nsplit)
     LAUNCHES["K4"] += 1
     return dk, dv
+
+
+#: K4's tensor-core blocks: keys of a block, streamed rows of a tile
+DKV_KEYS = DKV_ROWS = 64
+
+
+def dkv_row_tiles(j0: int, sq: int, sk: int, g: int, causal: bool,
+                  window: int) -> tuple[int, int]:
+    """``(first, count)``: the 64-row tiles of the streamed (position,
+    group head) rows that can see a key of the tile starting at ``j0``
+    (the kernel's ``dkv_row_tiles``): the forward's causal and window
+    block-skip with the roles swapped."""
+    rows = sq * g
+    rstart, rend = 0, rows
+    if causal:
+        rstart = j0 * g
+        if window > 0:
+            jmax = min(sk, j0 + DKV_KEYS) - 1
+            rend = min(rows, (jmax + window) * g)
+    t0 = rstart // DKV_ROWS
+    return t0, max(0, -(-rend // DKV_ROWS) - t0)
+
+
+@functools.lru_cache(maxsize=256)
+def dkv_splits(b: int, sq: int, sk: int, kv: int, g: int, causal: bool,
+               window: int) -> int:
+    """How many blocks share each key tile's row stream in K4's
+    tensor-core form: enough for two blocks a SM over the grid, at most a
+    key tile's row tiles.  Split ``s`` of a key tile with ``count`` row
+    tiles takes ``[first + s * per, first + min(count, (s + 1) * per))``,
+    ``per = ceil(count / nsplit)``."""
+    key_tiles = -(-sk // DKV_KEYS)
+    most = max((dkv_row_tiles(j * DKV_KEYS, sq, sk, g, causal, window)[1]
+                for j in range(key_tiles)), default=0)
+    base = key_tiles * kv * b
+    return max(1, min(most, -(-2 * SM_COUNT // base)))
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,21 @@ def matmul(x2: torch.Tensor, w2: torch.Tensor, transpose_b: bool = False,
     return (x.t() if transpose_a else x) @ (w.t() if transpose_b else w)
 
 
+def split_bf16(g: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``(hi, mid, lo)`` bf16 of an f32 tensor: ``hi = bf16(g)``, ``mid =
+    bf16(g - hi)``, ``lo = bf16(g - hi - mid)`` (round to nearest even;
+    each difference is exact in f32).  Each part holds the next 8 bits, so
+    ``|g - hi - mid - lo| <= 2^-24 |g|`` for normal values (``hi`` alone
+    is within 2^-8, ``hi + mid`` within 2^-16).  K1's split route multiplies
+    the three parts as bf16 into one f32 accumulator."""
+    g = g.float()
+    hi = g.to(torch.bfloat16)
+    r1 = g - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
 def _mask(sq: int, sk: int, causal: bool, window: int, device):
     """(sq, sk) bool: key j visible from query i (causal, window)."""
     qpos = torch.arange(sq, device=device)[:, None]

@@ -1,0 +1,198 @@
+"""The host-side rules around K1 and K4 on the CPU: the plain version of
+K1's three-part f32 split, K1's route rule and its decode split of k, and
+K4's split of each key tile's row stream (the kernels themselves are held
+against their plain versions on the card in ``test_torch_kernels.py``)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+def _wide_range(rng, shape):
+    """f32 values over many binades (a cotangent's spread)."""
+    return torch.from_numpy((rng.standard_normal(shape)
+                             * np.exp(rng.standard_normal(shape) * 4))
+                            .astype(np.float32))
+
+
+@pytest.mark.parametrize("parts,bound", [(1, 2.0 ** -8), (2, 2.0 ** -16),
+                                         (3, 2.0 ** -24)])
+def test_split_bf16_reconstructs_within_its_bound(parts, bound):
+    """hi, hi + mid and hi + mid + lo hold each element within 2^-8,
+    2^-16 and 2^-24 of its magnitude; every part is bf16."""
+    g = _wide_range(np.random.default_rng(0), (257, 129))
+    split = ref.split_bf16(g)
+    assert len(split) == 3 and all(p.dtype == _BF16 for p in split)
+    approx = sum(p.double() for p in split[:parts])
+    err = (g.double() - approx).abs()
+    assert (err <= bound * g.double().abs()).all()
+
+
+@pytest.mark.parametrize("transpose_b", [False, True])
+def test_split_products_match_the_f32_product(transpose_b):
+    """sum over the parts of part @ w (each product exact in f64 here, as
+    bf16 x bf16 products are exact in the tensor cores' f32) is the f32
+    operand's product within 2^-24 of sum |g| |w| a term."""
+    rng = np.random.default_rng(1)
+    g = _wide_range(rng, (33, 200))
+    w = torch.from_numpy(rng.standard_normal(
+        (72, 200) if transpose_b else (200, 72)).astype(np.float32)).to(_BF16)
+    wl = (w.t() if transpose_b else w).double()
+    got = sum(p.double() @ wl for p in ref.split_bf16(g))
+    exact = g.double() @ wl
+    scale = g.double().abs() @ wl.abs()
+    assert ((got - exact).abs() <= 2.0 ** -24 * scale).all()
+    # two parts miss that by 2^8
+    two = sum(p.double() @ wl for p in ref.split_bf16(g)[:2])
+    assert ((two - exact).abs() <= 2.0 ** -16 * scale).all()
+
+
+def test_split_bf16_entry_takes_the_plain_version_on_the_cpu():
+    g = torch.randn(5, 8)
+    for got, want in zip(ops.split_bf16(g), ref.split_bf16(g)):
+        assert torch.equal(got, want)
+
+
+#: (m, n, k, a dtype, b dtype, transpose_a, transpose_b, route)
+ROUTES = [
+    (4, 2048, 2048, _BF16, _BF16, False, False, "gemv"),
+    (4, 256000, 2048, _BF16, _BF16, False, True, "gemv"),
+    (1, 50280, 1536, _BF16, _BF16, False, False, "gemv"),
+    (16, 2048, 2048, _BF16, _BF16, False, False, "gemv"),
+    (17, 2048, 2048, _BF16, _BF16, False, False, "tile"),
+    (16, 2048, 2056, _BF16, _BF16, False, False, "tile"),  # k % 32 != 0
+    (8, 2048, 2048, _BF16, _BF16, True, False, "tile"),    # transpose_a
+    (4, 2048, 2048, _BF16, _BF16, True, False, "fma"),     # m % 8, ta
+    (1024, 256000, 2048, _BF16, _BF16, False, True, "tile"),
+    (4096, 4096, 4096, _BF16, _BF16, False, False, "tile"),
+    (2048, 32768, 1024, _BF16, _F32, True, False, "split"),
+    (1024, 2048, 256000, _F32, _BF16, False, False, "split"),
+    (256000, 2048, 1024, _F32, _BF16, True, False, "split"),
+    (4, 2048, 2048, _F32, _BF16, False, True, "split"),
+    (1024, 2048, 2048, _F32, _F32, False, False, "fma"),
+    (4, 8, 8, _F32, _F32, False, False, "fma"),
+    (37, 130, 72, _BF16, _BF16, False, False, "wmma"),      # n % 8
+    (37, 130, 72, _BF16, _BF16, False, True, "tile"),
+    (37, 130, 72, _BF16, _BF16, True, True, "fma"),        # m % 8, ta
+    (37, 130, 72, _F32, _BF16, False, True, "split"),
+    (3, 129, 257, _BF16, _BF16, False, True, "wmma"),      # k % 8
+    (130, 33, 5, _F32, _BF16, False, False, "fma"),
+    (8, 8, 0, _BF16, _BF16, False, False, "wmma"),         # k == 0
+]
+
+
+@pytest.mark.parametrize("m,n,k,a_dt,b_dt,ta,tb,route", ROUTES)
+def test_gemm_route_rule(m, n, k, a_dt, b_dt, ta, tb, route):
+    assert ops.gemm_route(m, n, k, a_dt, b_dt, ta, tb) == route
+
+
+@pytest.mark.parametrize("a_ok,b_ok", [(False, True), (True, False)])
+@pytest.mark.parametrize("a_dt,b_dt,old", [(_BF16, _BF16, "wmma"),
+                                           (_F32, _BF16, "fma"),
+                                           (_BF16, _F32, "fma")])
+def test_gemm_route_needs_aligned_bases(a_ok, b_ok, a_dt, b_dt, old):
+    """A base off a 16-byte boundary keeps the first kernels (TMA and the
+    split pass read 16-byte vectors)."""
+    assert ops.gemm_route(64, 64, 64, a_dt, b_dt, False, False, a_ok,
+                          b_ok) == old
+
+
+def test_gemm_route_reads_the_tensors():
+    """``_route`` takes the stored shapes and the base addresses."""
+    x = torch.zeros(64 * 104 + 1, dtype=_BF16)
+    w = torch.zeros(104, 64, dtype=_BF16)
+    assert ops._route(x[:64 * 104].view(64, 104), w, False, False) == "tile"
+    assert ops._route(x[1:].view(64, 104), w, False, False) == "wmma"
+    assert ops._route(x[:4 * 104].view(4, 104), w, False, False) == "tile"
+    assert ops._route(torch.zeros(4, 128, dtype=_BF16),
+                      torch.zeros(128, 64, dtype=_BF16), False,
+                      False) == "gemv"
+
+
+@pytest.mark.parametrize("m,n,k", [(4, 2048, 2048), (4, 256, 2048),
+                                   (1, 50280, 1536), (4, 256000, 2048),
+                                   (16, 2048, 16384), (3, 6448, 1536),
+                                   (2, 4096, 12288), (1, 64, 32)])
+def test_gemv_splits_partition_k(m, n, k):
+    """The decode kernel's splits cover k's units of 32 exactly once, none
+    empty, at least 4 units each where there are 4; no split where the
+    columns alone fill four blocks a SM."""
+    nsplit = ops.gemv_splits(m, n, k)
+    units = k // ops.K1_GEMV_UNIT
+    per = -(-units // nsplit)
+    spans = [range(s * per, min(units, (s + 1) * per)) for s in range(nsplit)]
+    assert all(len(r) > 0 for r in spans)
+    assert sorted(u for r in spans for u in r) == list(range(units))
+    if units >= 4:
+        assert per >= 4
+    if -(-n // 64) >= 4 * ops.SM_COUNT:
+        assert nsplit == 1
+
+
+#: (b, sq, kv, g, causal, window) of the K4 split plans
+DKV_PLANS = [(2, 512, 1, 8, True, 0), (1, 4096, 1, 16, True, 2048),
+             (2, 70, 1, 8, True, 0), (2, 130, 1, 8, True, 33),
+             (1, 513, 1, 16, True, 100), (2, 45, 1, 2, True, 7),
+             (1, 300, 2, 4, False, 0), (4, 4200, 1, 2, True, 0)]
+
+
+def _visible(sq, sk, g, causal, window):
+    """(rows, keys) bool: row (pos, g) sees key j (the plain mask)."""
+    if causal:
+        vis = ref._mask(sq, sk, True, window, "cpu")
+    else:
+        vis = torch.ones(sq, sk, dtype=torch.bool)
+    return vis.repeat_interleave(g, dim=0)
+
+
+@pytest.mark.parametrize("b,sq,kv,g,causal,window", DKV_PLANS)
+@pytest.mark.parametrize("nsplit", [None, 1, 3])
+def test_dkv_split_plan_covers_every_visible_pair_once(b, sq, kv, g, causal,
+                                                       window, nsplit):
+    """Over all key tiles and their splits, the row tiles that K4's
+    tensor-core blocks stream cover every visible (row, key) pair of the
+    plain mask exactly once (``nsplit`` None: the plan's own count, two
+    blocks a SM where the key tiles' rows allow)."""
+    sk = sq
+    if nsplit is None:
+        nsplit = ops.dkv_splits(b, sq, sk, kv, g, causal, window)
+        most = max(ops.dkv_row_tiles(j, sq, sk, g, causal, window)[1]
+                   for j in range(0, sk, ops.DKV_KEYS))
+        base = -(-sk // ops.DKV_KEYS) * kv * b
+        assert nsplit == max(1, min(most, -(-2 * ops.SM_COUNT // base)))
+    rows = sq * g
+    hits = torch.zeros(rows, sk, dtype=torch.int32)
+    for j0 in range(0, sk, ops.DKV_KEYS):
+        first, count = ops.dkv_row_tiles(j0, sq, sk, g, causal, window)
+        per = -(-count // nsplit)
+        for s in range(nsplit):
+            lo = first + s * per
+            hi = first + min(count, (s + 1) * per)
+            for t in range(lo, hi):
+                r0 = t * ops.DKV_ROWS
+                hits[r0:min(rows, r0 + ops.DKV_ROWS),
+                     j0:min(sk, j0 + ops.DKV_KEYS)] += 1
+    vis = _visible(sq, sk, g, causal, window)
+    assert (hits[vis] == 1).all()
+    assert int(hits.max()) <= 1
+
+
+def test_flash_dkv_plain_version_on_the_cpu_counts_no_launch():
+    """On the CPU the K4 wrapper computes its plain version (the plan is a
+    card concern) and counts nothing."""
+    rng = np.random.default_rng(2)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    q, k, v, do = t(1, 9, 1, 4, 64), t(1, 9, 1, 64), t(1, 9, 1, 64), \
+        t(1, 9, 1, 4, 64)
+    out, m, l = ops.attention_stats(q, k, v, scale=0.125)
+    delta = (do * out.reshape(do.shape)).sum(-1).permute(0, 2, 3, 1)
+    ops.reset_launches()
+    dk, dv = ops.flash_dkv(q, k, v, do, m, l, delta.contiguous(),
+                           scale=0.125)
+    assert ops.LAUNCHES["K4"] == 0
+    rk, rv = ref.flash_dkv(q, k, v, do, m, l, delta.contiguous(),
+                           scale=0.125)
+    assert torch.equal(dk, rk) and torch.equal(dv, rv)

@@ -98,22 +98,107 @@ _F32, _BF16 = torch.float32, torch.bfloat16
 @pytest.mark.parametrize("a_dt,b_dt", [(_F32, _BF16), (_BF16, _F32),
                                        (_BF16, _BF16), (_F32, _F32)])
 @pytest.mark.parametrize("m,k,n", [(37, 72, 130), (130, 5, 33),
-                                   (3, 257, 129)])
+                                   (3, 257, 129), (296, 200, 520),
+                                   (128, 512, 264)])
 def test_gemm_transposed_and_mixed_forms_match_plain(h100, ta, tb, a_dt,
                                                      b_dt, m, k, n):
     """K1's VJP forms: ``transpose_a`` (a stored (k, m) read as its
     transpose), ``transpose_b`` and the plain form, with (f32, bf16)
-    mixed operands, at ragged m, n, k (edges of the 128x128 tile)."""
+    mixed operands, at ragged m, n, k (edges of the 128x128 tile).  The
+    last two shapes have every stored row a multiple of 8 elements, so
+    bf16 x bf16 takes the tile path and the mixed pairs the split path
+    (the f32 operand as three bf16 parts); the others the first kernels
+    where an operand's rows are not."""
     g = torch.Generator(device=h100).manual_seed(3)
     a = torch.randn(*((k, m) if ta else (m, k)), generator=g,
                     device=h100).to(a_dt)
     b = torch.randn(*((n, k) if tb else (k, n)), generator=g,
                     device=h100).to(b_dt)
+    route = ops._route(a, b, ta, tb)
+    if (m, k, n) in ((296, 200, 520), (128, 512, 264)):
+        assert route == {(_BF16, _BF16): "tile", (_F32, _F32): "fma"}.get(
+            (a_dt, b_dt), "split")
     got = ops._gemm(a, b, ta, tb)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["K1"] == 1 and got.dtype == torch.float32
     want = ref.matmul(a, b, tb, transpose_a=ta)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("ta,tb", [(True, False), (False, True),
+                                   (False, False), (True, True)])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_gemm_tile_path_at_model_widths(h100, ta, tb, mixed):
+    """The tile path where its 128x256 tiles fill the card (bf16 x bf16)
+    and the split path's 128x128 tiles (an f32 operand, first or second by
+    the transpose), at gemma-2b-like widths with a ragged edge, each
+    (transpose_a, transpose_b) pair."""
+    g = torch.Generator(device=h100).manual_seed(30)
+    m, k, n = 2048, 136, 2304
+    a_dt = _F32 if mixed and not tb else _BF16
+    b_dt = _F32 if mixed and tb else _BF16
+    a = torch.randn(*((k, m) if ta else (m, k)), generator=g,
+                    device=h100).to(a_dt)
+    b = (torch.randn(*((n, k) if tb else (k, n)), generator=g,
+                     device=h100) * k ** -0.5).to(b_dt)
+    assert ops._route(a, b, ta, tb) == ("split" if mixed else "tile")
+    got = ops._gemm(a, b, ta, tb)
+    again = ops._gemm(a, b, ta, tb)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 2 and torch.equal(got, again)
+    want = ref.matmul(a, b, tb, transpose_a=ta)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("m", [1, 3, 4, 16])
+@pytest.mark.parametrize("k,n,tb", [(2048, 2048, False), (2048, 2048, True),
+                                    (16384, 2048, False),
+                                    (2048, 256000, True),
+                                    (1536, 50280, False)])
+def test_gemm_decode_rows_match_plain(h100, m, k, n, tb):
+    """The decode-row path (weight streaming, mma.sync on rows padded to
+    16) at the serving steps' row counts: the 2048-column products split
+    over k (a second pass adds the partials in split order, so a rerun is
+    the same bits), the vocab head (no split) and mamba2's untied head (a
+    ragged last column tile)."""
+    g = torch.Generator(device=h100).manual_seed(31 + m)
+    x = torch.randn(m, k, generator=g, device=h100).to(_BF16)
+    w = (torch.randn(*((n, k) if tb else (k, n)), generator=g, device=h100)
+         * k ** -0.5).to(_BF16)
+    assert ops._route(x, w, False, tb) == "gemv"
+    if n == 2048:
+        assert ops.gemv_splits(m, n, k) > 1
+    got = ops.matmul(x, w, transpose_b=tb, out_dtype=torch.float32)
+    again = ops.matmul(x, w, transpose_b=tb, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 2 and torch.equal(got, again)
+    torch.testing.assert_close(got, ref.matmul(x, w, tb), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("dt", [_BF16, _F32])
+def test_gemm_alignment_boundary(h100, dt):
+    """Rows of 104 elements take the tensor-core paths; rows of 100, or a
+    base off a 16-byte boundary, the first kernels; each agrees with the
+    plain version."""
+    g = torch.Generator(device=h100).manual_seed(32)
+    w = torch.randn(104, 64, generator=g, device=h100).to(_BF16)
+    for k, offset, want_route in ((104, 0, "tile" if dt == _BF16 else
+                                   "split"), (100, 0, None), (104, 1, None)):
+        flat = torch.randn(64 * k + offset, generator=g, device=h100).to(dt)
+        x = flat[offset:].view(64, k)
+        route = ops._route(x, w[:k], False, False)
+        if want_route is None:
+            assert route == ("wmma" if dt == _BF16 else "fma")
+        else:
+            assert route == want_route
+        got = ops._gemm(x, w[:k])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref.matmul(x, w[:k]), rtol=1e-5,
+                                   atol=1e-4)
 
 
 def _attn_case(dev, dtype, b, s, g, hd, seed, kv=1):
@@ -149,7 +234,9 @@ def test_flash_export_leaves_output_unchanged(h100, dtype, b, s, kv, g, hd,
 @pytest.mark.parametrize("dtype,rel", [(_F32, 1e-4), (_BF16, 1e-2)])
 @pytest.mark.parametrize("b,s,kv,g,hd,window",
                          [(2, 70, 1, 8, 256, 0), (2, 130, 1, 8, 256, 33),
-                          (2, 37, 1, 4, 64, 0), (2, 45, 1, 2, 128, 7)]
+                          (2, 37, 1, 4, 64, 0), (2, 45, 1, 2, 128, 7),
+                          (1, 513, 1, 16, 128, 100), (1, 200, 1, 4, 256, 0),
+                          (4, 4200, 1, 2, 64, 0)]
                          + FLASH_SHAPES[2:])
 def test_flash_backward_kernels_match_plain(h100, dtype, rel, b, s, kv, g,
                                             hd, window):
@@ -157,7 +244,11 @@ def test_flash_backward_kernels_match_plain(h100, dtype, rel, b, s, kv, g,
     and windowed, from the kernel's own (m, l) and delta.  Tolerance
     relative to the largest entry: f32 differs in summation order only;
     bf16 rounds the outputs (2^-8), K3 rounds dS to bf16 for its
-    tensor-core product, and K4 sums the group in another order."""
+    tensor-core product, K4 rounds P and dS to bf16 for its products and
+    sums the group in another order.  In bf16 K4 runs its tensor-core form
+    with each key tile's rows split over blocks (every shape but the B=4
+    S=4200 one, whose key tiles fill the card alone); a rerun of K4 is the
+    same bits (its split partials are summed in a fixed order)."""
     q, k, v, do = _attn_case(h100, dtype, b, s, g, hd, 5, kv=kv)
     scale = hd ** -0.5
     out, m, l = ops.attention_stats(q, k, v, scale=scale, window=window)
@@ -166,8 +257,11 @@ def test_flash_backward_kernels_match_plain(h100, dtype, rel, b, s, kv, g,
     args = (q, k, v, do, m, l, delta)
     dq = ops.flash_dq(*args, scale=scale, window=window)
     dk, dv = ops.flash_dkv(*args, scale=scale, window=window)
+    dk2, dv2 = ops.flash_dkv(*args, scale=scale, window=window)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["K3"] == 1 and ops.LAUNCHES["K4"] == 1
+    assert ops.LAUNCHES["K3"] == 1 and ops.LAUNCHES["K4"] == 2
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert (ops.dkv_splits(b, s, s, kv, g, True, window) == 1) == (b == 4)
     want = (ref.flash_dq(*args, scale=scale, window=window),
             *ref.flash_dkv(*args, scale=scale, window=window))
     for got, exp in zip((dq, dk, dv), want):
