@@ -93,8 +93,9 @@ _SIGNATURES = {
                         + [_F, _C, _C, _C, _C]),
     "repro_paged_decode": ("paged_decode", [_P] * 6 + [_C] * 6
                            + [_F, _C, _C]),
-    "repro_ssd_scan": ("ssd", [_P] * 8 + [_C] * 6),
-    "repro_ssd_bwd": ("ssd", [_P] * 14 + [_C] * 6),
+    "repro_ssd_workspace": ("ssd", [_C] * 7),
+    "repro_ssd_scan": ("ssd", [_P] * 9 + [ctypes.c_longlong] + [_C] * 6),
+    "repro_ssd_bwd": ("ssd", [_P] * 13 + [ctypes.c_longlong] + [_C] * 7),
     "repro_gated_scan": ("gated_scan", [_P] * 5 + [_C] * 4),
     "repro_semiring": ("semiring", [_P] * 5 + [_C] * 2),
 }
@@ -132,6 +133,8 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
     return dev.type == "cuda" and not _PLAIN
 
 
+#: C entry points that launch nothing: no stream, a size returned
+_QUERIES = {"repro_ssd_workspace"}
 #: C entry point -> (function, library), bound on first use
 _ENTRIES: dict = {}
 
@@ -144,8 +147,9 @@ def _entry(name: str):
     handle = build.load(lib)
     fn = getattr(handle, name)
     if fn.argtypes is None:
-        fn.argtypes = argtypes + [_P]
-        fn.restype = ctypes.c_int
+        query = name in _QUERIES
+        fn.argtypes = argtypes if query else argtypes + [_P]
+        fn.restype = ctypes.c_longlong if query else ctypes.c_int
         handle.repro_error_string.argtypes = [ctypes.c_int]
         handle.repro_error_string.restype = ctypes.c_char_p
     _ENTRIES[name] = (fn, handle)
@@ -705,8 +709,36 @@ def paged_decode_batched(q: torch.Tensor, k_pool: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 #: the head width the SSD kernels are written for (every Mamba-2 size),
-#: the widest state and the longest chunk they hold in shared memory
+#: the widest state and the longest chunk they take
 SSD_HEAD_DIM, SSD_MAX_STATE, SSD_MAX_CHUNK = 64, 128, 256
+#: bf16 parts of each f32 operand of the kernels' tensor-core products:
+#: hi = bf16(x), lo = bf16(x - hi), and a.b = lo.hi + hi.lo + hi.hi
+SSD_SPLIT_PARTS = 2
+#: K7 sums dB's and dC's per-head terms, and dG, over groups of at most
+#: this many heads in registers (see :func:`ssd_head_groups`): three groups
+#: at mamba2-780m's 48 heads; fewer, longer groups move fewer partials
+#: through device memory and ran K7 faster on an H100 (PERF.md)
+SSD_GROUP_HEADS = 16
+
+
+def ssd_head_groups(h: int) -> list[tuple[int, int]]:
+    """K7's head groups, ``(first head, count)`` in order: the fewest
+    groups of at most ``SSD_GROUP_HEADS`` heads, of sizes that differ by at
+    most one (group ``g`` of ``ng`` starts at ``g * h // ng``, the kernel's
+    ``group_first``).  Each group's blocks sum its heads' terms in head
+    order; ``ssd_bwd_sum`` then sums the groups in order."""
+    ng = -(-h // SSD_GROUP_HEADS)
+    return [(g * h // ng, (g + 1) * h // ng - g * h // ng)
+            for g in range(ng)]
+
+
+def _ssd_workspace(backward: bool, b: int, s: int, h: int, n: int, q: int,
+                   device: torch.device) -> torch.Tensor:
+    """The scratch of one K6 (``backward`` False) or K7 call, its size from
+    the kernels' own layout (``repro_ssd_workspace``)."""
+    fn, _ = _entry("repro_ssd_workspace")
+    floats = fn(int(backward), b, s, h, n, q, len(ssd_head_groups(h)))
+    return torch.empty(floats, device=device, dtype=torch.float32)
 
 
 def _check_ssd(what: str, tensors, p: int, n: int, q: int) -> None:
@@ -728,8 +760,18 @@ def ssd_scan_chunked(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     """K6 or its plain version on a sequence already padded to a multiple
     of ``chunk``: ``xdt (b, S, h, p)``, ``dA (b, S, h)``, ``B/C (b, S,
     n)``, ``h0 (b, h, p, n)``, f32 and contiguous.  Returns ``(y (b, S, h,
-    p), final (b, h, p, n), h_in (b, S // chunk, h, p, n) | None)``; the
-    ``h_in`` export changes neither ``y`` nor ``final`` by a bit."""
+    p), final (b, h, p, n), h_in (b, S // chunk, h, p, n) | None)``.
+
+    The kernel is the chunked-SSD decomposition over a chunk-parallel grid
+    (``csrc/ssd.cu``): the decays and the scores ``C B'`` once per chunk;
+    ``y``'s diagonal part ``(G . L) X`` per (chunk, head, 64-row tile)
+    while, on a second stream, each chunk's state contribution (a GEMM per
+    chunk with the heads side by side) and one pass over the chunks give
+    the entering states; then the readout ``ind (C h_in')``.  Its products
+    run on the tensor cores at f32 accuracy (each f32 operand in
+    ``SSD_SPLIT_PARTS`` bf16 parts).  The entering states are always
+    computed, so the ``h_in`` export changes neither ``y`` nor ``final``
+    by a bit."""
     if not _use_kernel(xdt, dA, B, C, h0):
         return ref.ssd_scan(xdt, dA, B, C, h0, chunk, export_h_in)
     b, s, h, p = xdt.shape
@@ -740,13 +782,14 @@ def ssd_scan_chunked(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
                          f"chunk {chunk}")
     y = torch.empty_like(xdt)
     final = torch.empty_like(h0)
-    h_in = (torch.empty((b, s // chunk, h, p, n), device=xdt.device,
-                        dtype=torch.float32) if export_h_in else None)
+    h_in = torch.empty((b, s // chunk, h, p, n), device=xdt.device,
+                       dtype=torch.float32)
+    ws = _ssd_workspace(False, b, s, h, n, chunk, xdt.device)
     _launch("repro_ssd_scan", C.data_ptr(), B.data_ptr(), xdt.data_ptr(),
             dA.data_ptr(), h0.data_ptr(), y.data_ptr(), final.data_ptr(),
-            h_in.data_ptr() if export_h_in else None, b, s, h, p, n, chunk)
+            h_in.data_ptr(), ws.data_ptr(), ws.numel(), b, s, h, p, n, chunk)
     LAUNCHES["K6"] += 1
-    return y, final, h_in
+    return y, final, (h_in if export_h_in else None)
 
 
 def ssd_bwd_chunked(C: torch.Tensor, B: torch.Tensor, dY: torch.Tensor,
@@ -756,10 +799,16 @@ def ssd_bwd_chunked(C: torch.Tensor, B: torch.Tensor, dY: torch.Tensor,
     forward order (``C/B (b, S, n)``, ``dY/X (b, S, h, p)``, ``dA (b, S,
     h)``, ``Hin (b, nc, h, p, n)`` from K6's export, ``dHf (b, h, p,
     n)``; the chunk is ``S // nc``).  Returns ``(dX, dh0, dB, dC, ddA)``
-    f32.  The kernel walks the chunks backwards itself (no flipped
-    copies); ``dB``/``dC``, sums over every head, come from per-head
-    partials summed in a fixed order by a second pass, so reruns are
-    bit-identical."""
+    f32.
+
+    The kernel reads every tensor in forward order (no flipped copies): per
+    chunk in parallel ``C' (ind dY)``, one reverse pass over the chunks for
+    each chunk's exit-state cotangent and ``dh0``, then per chunk and tile
+    the cotangents from the saved ``Hin``, on the tensor cores at f32
+    accuracy as K6, the dG / dB / dC chain on a second stream.  ``dG``,
+    ``dB`` and ``dC``, sums over every head, are summed over each of
+    :func:`ssd_head_groups` in registers in head order and the groups'
+    partials in group order: no atomics, so reruns are bit-identical."""
     if not _use_kernel(C, B, dY, X, dA, Hin, dHf):
         return ref.ssd_bwd(C, B, dY, X, dA, Hin, dHf)
     b, s, h, p = X.shape
@@ -772,15 +821,12 @@ def ssd_bwd_chunked(C: torch.Tensor, B: torch.Tensor, dY: torch.Tensor,
     dX, dh0 = torch.empty_like(X), torch.empty_like(dHf)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
     ddA = torch.empty_like(dA)
-    # per-head partials of dB and dC, summed over the heads by the
-    # kernel's second pass
-    parts = torch.empty((2, b, h, s, n), device=X.device,
-                        dtype=torch.float32)
+    ws = _ssd_workspace(True, b, s, h, n, s // nc, X.device)
     _launch("repro_ssd_bwd", C.data_ptr(), B.data_ptr(), dY.data_ptr(),
             X.data_ptr(), dA.data_ptr(), Hin.data_ptr(), dHf.data_ptr(),
             dX.data_ptr(), dh0.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-            ddA.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), b, s,
-            h, p, n, s // nc)
+            ddA.data_ptr(), ws.data_ptr(), ws.numel(), b, s, h, p, n,
+            s // nc, len(ssd_head_groups(h)))
     LAUNCHES["K7"] += 1
     return dX, dh0, dB, dC, ddA
 

@@ -356,6 +356,52 @@ def test_ssd_bwd_kernel_matches_plain(h100, q, s):
         assert _rel_err(g, w) <= SSD_REL, (name, _rel_err(g, w))
 
 
+#: K6/K7 at mamba2-780m's training shape (B=2 S=2048) across the kernels'
+#: shape rules: h = 48 (three head groups of 16) and h = 20 (two groups of
+#: 10: the group size does not divide it); n = 128, 64, 16 and 30 (not a
+#: multiple of 4: 4-byte copies); q = 256, 175 (a ragged last tile and a
+#: padded tail), 64 and 1
+SSD_WIDE = [(48, 128, 256), (48, 128, 175), (48, 128, 64), (48, 128, 1),
+            (48, 64, 256), (48, 16, 256), (48, 30, 256), (20, 128, 256),
+            (20, 128, 64), (20, 30, 175)]
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("h,n,q", SSD_WIDE)
+def test_ssd_kernels_at_model_widths(h100, h, n, q):
+    """K6 with and without its export (the same bits), K7 seeded from K6's
+    own export with a non-zero final-state cotangent, each against its
+    plain version; reruns of both give the same bits."""
+    s = 2048
+    xdt, dA, B, C, h0 = _ssd_case(h100, 2, s, h, n=n, seed=10)
+    gen = torch.Generator(device=h100).manual_seed(11)
+    pad = (-s) % q
+    xp, dap, bp, cp = [ops._pad_seq(t, pad) for t in (xdt, dA, B, C)]
+    y, final, _ = ops.ssd_scan_chunked(xp, dap, bp, cp, h0, q)
+    ye, finale, h_in = ops.ssd_scan_chunked(xp, dap, bp, cp, h0, q, True)
+    again = ops.ssd_scan_chunked(xp, dap, bp, cp, h0, q, True)
+    dy = ops._pad_seq(torch.randn(xdt.shape, generator=gen, device=h100),
+                      pad)
+    dhf = torch.randn(h0.shape, generator=gen, device=h100)
+    got = ops.ssd_bwd_chunked(cp, bp, dy, xp, dap, h_in, dhf)
+    got2 = ops.ssd_bwd_chunked(cp, bp, dy, xp, dap, h_in, dhf)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K6"] == 3 and ops.LAUNCHES["K7"] == 2
+    assert torch.equal(y, ye) and torch.equal(final, finale)
+    assert all(torch.equal(a, b) for a, b in zip((ye, finale, h_in), again))
+    assert torch.equal(h_in[:, 0], h0)
+    yr, fr, hr = ref.ssd_scan(xp, dap, bp, cp, h0, q, export_h_in=True)
+    for name, g, w in (("y", y, yr), ("final", final, fr), ("h_in", h_in,
+                                                             hr)):
+        assert _rel_err(g, w) <= SSD_REL, (name, _rel_err(g, w))
+    want = ref.ssd_bwd(cp, bp, dy, xp, dap, h_in, dhf)
+    for name, g, a, w in zip(("dX", "dh0", "dB", "dC", "ddA"), got, got2,
+                             want):
+        assert torch.equal(g, a), name
+        assert g.shape == w.shape, name
+        assert _rel_err(g, w) <= SSD_REL, (name, _rel_err(g, w))
+
+
 #: K8 against its plain version: the same steps in the same order with the
 #: multiply and the add rounded separately on both sides; only exp() may
 #: differ in its last bit (the kernel's expf against PyTorch's exp
