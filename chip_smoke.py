@@ -73,9 +73,11 @@ Ten phases; any failure exits non-zero before the result line:
             min-plus at 4096^3, 8192^3, ragged 4000x3000x5000 and bf16
             4096^3 (K9, bit for bit against the plain version), and
             through apply (K9): (add, add) 2048^3, a batched (mul, add)
-            e=16 1024^3, the chain A@B@C over 512^4 points, Hadamard
-            8192^2, the lone max along rows and min along columns of
-            8192^2, max-plus with a col-layout B and with a psi-view A
+            e=16 1024^3, the chains A@B@C ((mul, add) and max-plus) over
+            512^4 points (contracted pairwise), Hadamard 8192^2, the lone
+            max along rows, min along columns and sum along columns of
+            8192^2, the lone max over the last two axes of (4096, 64, 64),
+            max-plus with a col-layout B and with a psi-view A
             (the profiler must list K9 alone: no operand copy), max-plus
             2048^3 on strided views (a column slice of a wider A and a
             transposed B, which apply copies first), and
@@ -1900,7 +1902,8 @@ MOA_N, MOA_BIG, MOA_RAGGED, KRON = 4096, 8192, (4000, 3000, 5000), 64
 KRON_TOL = 1e-3
 #: K9's (mul, add) and (add, add) sums and moa_gemm's (K1) f32 products
 #: fold in another order than the plain version (K9's tiled (mul, add)
-#: also fuses into FMA): max|kernel - plain| <= MOA_SUM_TOL x max|plain|;
+#: also multiplies bf16 hi / lo parts on the tensor cores, within about
+#: 2^-16 of each product): max|kernel - plain| <= MOA_SUM_TOL x max|plain|;
 #: K1 bf16 x bf16 products are exact in f32, so only the order differs
 #: there too.  The tropical cases and the Hadamard, lone reduces and kron
 #: (one rounding each, in any order) are held bit for bit.
@@ -1919,18 +1922,29 @@ def k9_bound(instrs: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def k9_tc_bound(terms: float, nbytes: float) -> tuple[tuple[float, str],
+                                                     dict]:
+    """K9's (mul, add) TILE (and CHAIN's stages) on the tensor cores: the
+    design's work is three bf16 products a term, bound at the bf16 peak
+    or by the bytes (as K1's split and K6 / K7); beside it the f32 FMA
+    bound of ``terms`` exact FMAs (one lane-instruction each)."""
+    return (bound(3 * 2.0 * terms, nbytes, "bfloat16"),
+            {"fma_bound_ms": k9_bound(terms, nbytes)[0]})
+
+
 def _moa_cases(torch, E, ops):
     """The moa_path cases: ``(label, kernel id, path call, plain call,
-    library call or None, exact?, (bound ms, by))`` on seeded card
-    inputs; each path call goes through a user entry (``ops.moa_gemm``,
+    library call or None, exact?, (bound ms, by), extra)`` on seeded card
+    inputs (``extra``: further numbers for the row, or {}); each path
+    call goes through a user entry (``ops.moa_gemm``,
     ``semiring_matmul``, ``apply``, ``hadamard``, ``ipophp``)."""
     gen = torch.Generator(device="cuda").manual_seed(15)
     rnd = lambda *s, dt=torch.float32: torch.randn(
         *s, generator=gen, device="cuda").to(dt)
     cases = []
 
-    def add(label, kid, fn, library, exact, bnd):
-        cases.append((label, kid, fn, library, exact, bnd))
+    def add(label, kid, fn, library, exact, bnd, extra=None):
+        cases.append((label, kid, fn, library, exact, bnd, extra or {}))
 
     n = MOA_N
     for dt, dname in ((torch.bfloat16, "bfloat16"), (torch.float32,
@@ -1969,15 +1983,25 @@ def _moa_cases(torch, E, ops):
     add(f"K9 float32 batched (mul, add) e={e} {m}^3", "K9",
         lambda x=x, w=w: ops.apply(batched, x, w),
         lambda x=x, w=w: torch.bmm(x, w), False,
-        k9_bound(1.0 * e * m ** 3, 3 * e * m * m * 4))
+        *k9_tc_bound(1.0 * e * m ** 3, 3 * e * m * m * 4))
     m = MOA_N // 8
     ca, cb, cc = (rnd(m, m) * m ** -0.5 for _ in range(3))
     chain = E.arr("A", (m, m)) @ E.arr("B", (m, m)) @ E.arr("C", (m, m))
-    # the normal form's nest: m^4 points, two multiplies and an add each
-    add(f"K9 float32 chain A@B@C {m}^4 terms", "K9",
+    # the function's work: two m^3 contractions (K9's CHAIN, as the
+    # reference's einsum), each term three bf16 products on the tensor
+    # cores (an FMA a term beside it); the normal form's nest of m^4
+    # points would be 3 m^4 instructions (6.154 ms at 512)
+    add(f"K9 float32 chain A@B@C {m}^4 terms (pairwise)", "K9",
         lambda: ops.apply(chain, ca, cb, cc),
         lambda: torch.linalg.multi_dot([ca, cb, cc]), False,
-        k9_bound(3.0 * m ** 4, 4 * m * m * 4))
+        *k9_tc_bound(2.0 * m ** 3, 4 * m * m * 4))
+    ta, tb, tc = rnd(m, m), rnd(m, m), rnd(m, m)
+    tchain = E.inner("max", "add", E.inner("max", "add", E.arr("A", (m, m)),
+                                           E.arr("B", (m, m))),
+                     E.arr("C", (m, m)))
+    add(f"K9 float32 max-plus chain {m}^4 terms (pairwise)", "K9",
+        lambda: ops.apply(tchain, ta, tb, tc), None, True,
+        k9_bound(4.0 * m ** 3, 4 * m * m * 4))
     m = MOA_BIG
     ha, hb = rnd(m, m), rnd(m, m)
     add(f"K9 float32 hadamard {m}^2", "K9",
@@ -1990,6 +2014,15 @@ def _moa_cases(torch, E, ops):
             lambda red=red: ops.apply(red, lone),
             lambda lib=lib, axis=axis: lib(lone, dim=axis), True,
             k9_bound(1.0 * m * m, (m * m + m) * 4))
+    cube = rnd(MOA_N, 64, 64)
+    two = E.reduce("max", E.reduce("max", E.arr("A", (MOA_N, 64, 64)), 2), 1)
+    add(f"K9 float32 lone max over axes (1, 2) of ({MOA_N}, 64, 64)", "K9",
+        lambda: ops.apply(two, cube), lambda: torch.amax(cube, dim=(1, 2)),
+        True, k9_bound(1.0 * cube.numel(), (cube.numel() + MOA_N) * 4))
+    lsum = E.reduce("add", E.arr("A", (m, m)), 0)
+    add(f"K9 float32 lone sum axis 0 {m}^2", "K9",
+        lambda: ops.apply(lsum, lone), lambda: torch.sum(lone, dim=0), False,
+        k9_bound(1.0 * m * m, (m * m + m) * 4))
     n = MOA_N
     a, bt = rnd(n, n), rnd(n, n)                         # bt: stored (n, k)
     col = E.inner("max", "add", E.arr("A", (n, n)),
@@ -2122,8 +2155,8 @@ def phase_moa_path(torch, rec):
         require(names and all("k9_" in n for n in names),
                 f"{label}: kernels other than K9 ran: {names}")
 
-    for (label, kid, fn, library, exact, (b_ms, b_by)), out in zip(cases,
-                                                                  outs):
+    for (label, kid, fn, library, exact, (b_ms, b_by), extra), out in zip(
+            cases, outs):
         require(bool(torch.isfinite(out.float()).all()), f"{label}: "
                 "non-finite")
         plain = lambda fn=fn: _plain(ops, fn)
@@ -2140,16 +2173,23 @@ def phase_moa_path(torch, rec):
                      warmup=1 if big else 3)
         plain_ms = time_ms(torch, plain, iters=1, warmup=0)
         lib_ms = time_ms(torch, library) if library is not None else None
-        print(f"[moa_path] {label}: max_abs_err={diff:.3e} "
+        # a sub-millisecond K9 call may be host-bound: its device time too
+        g_ms = graph_ms(torch, fn) if kid == "K9" and ms < 1.0 else None
+        note = "".join(f" {k}={v:.4f}" for k, v in extra.items())
+        print(f"[moa_path] {label}{note}: max_abs_err={diff:.3e} "
               f"({'bit for bit' if exact else f'tol {MOA_SUM_TOL:g} x max|plain|'}"
-              f") ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+              f") ms={ms:.4f}"
+              f"{'' if g_ms is None else f' graph_ms={g_ms:.4f}'} "
+              f"plain_ms={plain_ms:.4f} library_ms="
               f"{lib_ms if lib_ms is None else round(lib_ms, 4)} "
               f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}",
               flush=True)
         require(ok, f"{label}: kernel disagrees with its plain version")
         rec.setdefault(kid, {})[label] = dict(
             max_abs_err=diff, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=b_ms, bound_by=b_by)
+            bound_ms=b_ms, bound_by=b_by, **extra)
+        if g_ms is not None:
+            rec[kid][label]["graph_ms"] = g_ms
     return launches
 
 

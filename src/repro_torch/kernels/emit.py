@@ -17,6 +17,13 @@ reference's: ``bundle_pad_value`` runs on the bundle, so a semiring with
 no inert element (e.g. (max, mul)) raises the same ``ValueError`` exactly
 where its schedule needs padding.
 
+Every launch decision is made here, on the host, where the CPU tests can
+hold it: the path (``_mode``: TILE, MAP, REDUCE, CHAIN or THREAD), TILE's
+K split and REDUCE's variant and split (shapes only, in ``describe``),
+and each operand's orientation and copy width (``vector_ok``, at the
+launch's pointers, in ``Launch.c_descs``).  A chain becomes two TILE
+stages whose operands are the chain's leaves and the f32 scratch T.
+
 ``run_descriptor`` is a plain PyTorch executor of a descriptor through
 ``torch.as_strided``: it reads exactly the strides, base offsets and
 extents that K9 is given (the CPU tests drive it).
@@ -25,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -40,35 +47,71 @@ MAX_OUT, MAX_RED, MAX_IN = 4, 3, 3
 COMBINE_CODE = {"mul": 0, "add": 1}
 REDUCE_CODE = {"add": 0, "max": 1, "min": 2}
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: K9's modes: a 64x64 output tile per block with the contraction staged
-#: through shared memory (two operands, one contracted axis, the M side
-#: free of the N axis and the N side free of the M axis); a thread per
-#: output; a warp per output (one contracted axis, contiguous in every
-#: operand that walks it)
-TILE, THREAD, WARP = 0, 1, 2
-TILE_M = 64
-#: the CUDA grid's y and z limit (tile rows, leading out cells)
+ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+#: K9's paths (``Launch.mode``, chosen by :func:`_mode`):
+#: TILE    two operands, one contracted axis, the M side free of the N
+#:         axis and the N side free of M: 128x128 output tiles, K staged
+#:         through a two-stage ring, split over blocks where the tiles
+#:         alone do not fill the card;
+#: THREAD  a thread per output (every nest no other path takes);
+#: REDUCE  one contracted axis: a warp per output where it is contiguous
+#:         in every operand that walks it (``Launch.rows``), else column
+#:         strips, split over blocks where they do not fill the card;
+#: MAP     no contracted axis, or only contracted extents of 1: runs of 4
+#:         outputs along the last out axis;
+#: CHAIN   three operands contracted pairwise, as two TILE stages
+#:         (``Launch.stages``) through an f32 scratch buffer.
+TILE, THREAD, REDUCE, MAP, CHAIN = 0, 1, 2, 3, 4
+#: TILE's output tile (rows and columns) and slab depth
+TILE_M, TILE_K = 128, 16
+#: a REDUCE column strip (32 lanes of 4) and the warps of a block
+REDUCE_STRIP, REDUCE_WARPS = 128, 8
+#: MAP and REDUCE read and write runs of this many elements
+RUN = 4
+#: the H100's SMs: a grid below this many blocks leaves SMs idle
+NUM_SM = 132
+#: the fewest contracted elements a split of TILE (REDUCE) takes
+TILE_SPLIT_MIN, REDUCE_SPLIT_MIN = 64, 256
+#: the CUDA grid's y and z limit (tile rows, leading out cells, splits)
 GRID_YZ = 65535
+#: (combine, reduce) pairs whose chains contract pairwise: the combine
+#: distributes over the reduce
+CHAIN_PAIRS = {("mul", "add"), ("add", "max"), ("add", "min")}
 
 
 class K9Desc(ctypes.Structure):
     """The fixed-size descriptor ``csrc/semiring.cu`` takes by value (its
-    ``Desc``): out axes right-aligned into 4 slots and contracted axes
-    into 3 (extent 1, stride 0 before them, so the last contracted axis is
-    the kernel's innermost loop); per operand a stride per slot (out slots
-    0-3, contracted 4-6) and a base offset, all int64 elements."""
+    ``Desc``, field for field): out axes right-aligned into 4 slots and
+    contracted axes into 3 (extent 1, stride 0 before them, so the last
+    contracted axis is the kernel's innermost loop); per operand a stride
+    per slot (out slots 0-3, contracted 4-6) and a base offset, all int64
+    elements; then what the host decided for the launch: the contracted
+    elements of a split and the number of splits, per operand whether
+    TILE reads it along K (``k_fast``) and whether it is read by vectors
+    (``vec``), whether the output is stored by vectors, REDUCE's variant,
+    and which buffer each operand reads (``src``: 0-2 the inputs, 3 the
+    chain's scratch) and the descriptor writes (``dst``: 0 the output, 1
+    the scratch)."""
     _fields_ = [("out_ext", ctypes.c_longlong * MAX_OUT),
                 ("red_ext", ctypes.c_longlong * MAX_RED),
                 ("stride", (ctypes.c_longlong * (MAX_OUT + MAX_RED)) * MAX_IN),
                 ("base", ctypes.c_longlong * MAX_IN),
                 ("out_stride", ctypes.c_longlong * MAX_OUT),
+                ("k_split", ctypes.c_longlong),
                 ("in_dtype", ctypes.c_int * MAX_IN),
+                ("k_fast", ctypes.c_int * MAX_IN),
+                ("vec", ctypes.c_int * MAX_IN),
+                ("src", ctypes.c_int * MAX_IN),
                 ("n_in", ctypes.c_int),
                 ("n_red", ctypes.c_int),
                 ("out_dtype", ctypes.c_int),
                 ("mode", ctypes.c_int),
                 ("a_op", ctypes.c_int),
-                ("b_op", ctypes.c_int)]
+                ("b_op", ctypes.c_int),
+                ("splits", ctypes.c_int),
+                ("rows", ctypes.c_int),
+                ("vec_out", ctypes.c_int),
+                ("dst", ctypes.c_int)]
 
 
 @dataclass(frozen=True)
@@ -81,10 +124,77 @@ class Operand:
     base: int
 
 
+def _prod(xs) -> int:
+    p = 1
+    for x in xs:
+        p *= x
+    return p
+
+
+def _row_major(ext) -> tuple[int, ...]:
+    st, acc = [], 1
+    for e in reversed(ext):
+        st.append(acc)
+        acc *= e
+    return tuple(reversed(st))
+
+
+def vector_ok(fast_stride: int, other_strides, base: int, ptr: int,
+              elems: int, elem_bytes: int) -> bool:
+    """Whether an operand can be read in vectors of ``elems`` elements
+    along its fast axis: the fast stride is 1 and every vector's first
+    element (``base`` plus any multiple of the other strides, at a fast
+    index that is a multiple of ``elems``) lies a multiple of ``elems``
+    elements from a pointer aligned to the vector's bytes."""
+    return (fast_stride == 1 and ptr % (elems * elem_bytes) == 0
+            and base % elems == 0
+            and all(s % elems == 0 for s in other_strides))
+
+
+def tile_k_fast(s_row: int, s_k: int) -> bool:
+    """TILE reads an operand along whichever of its row and contracted
+    strides is smaller (the contracted one on a tie), so row-major,
+    col-layout and transposed leaves are all read coalesced."""
+    return abs(s_k) <= abs(s_row)
+
+
+def tile_splits(lead: int, m: int, n: int, k: int) -> tuple[int, int]:
+    """``(splits, k_split)``: TILE splits K over blocks only where its
+    128x128 tiles do not fill the SMs, into at most one split per
+    ``TILE_SPLIT_MIN`` contracted elements, each a multiple of the slab."""
+    tiles = lead * -(-m // TILE_M) * -(-n // TILE_M)
+    s = 1
+    if tiles < NUM_SM:
+        s = max(1, min(-(-NUM_SM // tiles), k // TILE_SPLIT_MIN,
+                       GRID_YZ // max(lead, 1)))
+    if s == 1:
+        return 1, max(k, 1)
+    k_split = -(-k // s)
+    k_split = -(-k_split // TILE_K) * TILE_K
+    return -(-k // k_split), k_split
+
+
+def reduce_splits(lead: int, x: int, k: int) -> tuple[int, int]:
+    """``(splits, k_split)`` of REDUCE's column strips: split the
+    contracted axis over blocks where the strips do not fill 4 blocks a
+    SM, into as many splits as still fit in one such wave and at most one
+    per ``REDUCE_SPLIT_MIN`` elements."""
+    strips = lead * -(-x // REDUCE_STRIP)
+    want = 4 * NUM_SM
+    s = 1
+    if strips < want:
+        s = max(1, min(want // strips, k // REDUCE_SPLIT_MIN, GRID_YZ))
+    if s == 1:
+        return 1, max(k, 1)
+    k_split = -(-k // s)
+    return -(-k // k_split), k_split
+
+
 @dataclass(frozen=True)
 class Launch:
-    """K9's launch descriptor for one normal form."""
-    nf: "E.NormalForm"
+    """K9's launch descriptor for one normal form (``nf``; None for a
+    chain's stage)."""
+    nf: Optional["E.NormalForm"]
     out_axes: tuple[str, ...]
     out_ext: tuple[int, ...]
     red_axes: tuple[str, ...]
@@ -95,18 +205,62 @@ class Launch:
     pad_value: float             # the inert element the masking stands for
     mode: int
     roles: tuple[int, int] = (0, 1)     # TILE: the M-side and N-side operand
+    splits: int = 1              # TILE / REDUCE columns: blocks along K
+    k_split: int = 0             # contracted elements a split
+    rows: bool = False           # REDUCE: a warp per output
+    stages: tuple["Launch", ...] = ()   # CHAIN: T = op0 (x) op1, T (x) op2
+    _descs: dict = field(default_factory=dict, compare=False, hash=False,
+                         repr=False)
 
     @property
     def out_strides(self) -> tuple[int, ...]:
         """Row-major strides of the (contiguous) logical output."""
-        st, acc = [], 1
-        for e in reversed(self.out_ext):
-            st.append(acc)
-            acc *= e
-        return tuple(reversed(st))
+        return _row_major(self.out_ext)
 
-    def c_struct(self, in_dtypes, out_dtype) -> K9Desc:
-        """Pack for the kernel; raises for what K9 cannot take."""
+    @property
+    def tmp_elems(self) -> int:
+        """f32 elements of the chain's scratch buffer T (0: none)."""
+        return _prod(self.stages[0].out_ext) if self.stages else 0
+
+    @property
+    def work_elems(self) -> int:
+        """f32 elements of the split partials (0: no split)."""
+        runs = self.stages or (self,)
+        return max((r.splits * _prod(r.out_ext) for r in runs
+                    if r.splits > 1), default=0)
+
+    def _vectors(self, in_dtypes, ptrs) -> tuple[list[int], list[int]]:
+        """Per operand: TILE's orientation (k_fast) and whether the path
+        reads it in vectors (16 bytes for TILE; runs of ``RUN`` for MAP and
+        REDUCE), by :func:`vector_ok` at this launch's pointers."""
+        nout = len(self.out_ext)
+        k_fast, vec = [0] * MAX_IN, [0] * MAX_IN
+        for i, (opn, dt) in enumerate(zip(self.operands, in_dtypes)):
+            size = ELEM_BYTES[dt]
+            st = opn.strides
+            if self.mode == TILE:
+                row = nout - 2 if i == self.roles[0] else nout - 1
+                kf = tile_k_fast(st[row], st[nout])
+                k_fast[i] = int(kf)
+                fast = nout if kf else row
+                elems = 16 // size
+            elif self.mode == MAP:
+                fast, elems = nout - 1, RUN
+                st = st[:nout]
+            elif self.mode == REDUCE:
+                fast, elems = (nout if self.rows else nout - 1), RUN
+            else:
+                continue
+            if not st:
+                continue
+            others = [s for a, s in enumerate(st) if a != fast]
+            vec[i] = int(vector_ok(st[fast], others, opn.base, ptrs[i],
+                                   elems, size))
+        return k_fast, vec
+
+    def c_struct(self, in_dtypes, out_dtype, ptrs) -> K9Desc:
+        """Pack for the kernel; raises for what K9 cannot take.  ``ptrs``
+        are the operands' data pointers, which the vector rule reads."""
         nout, nred, nin = (len(self.out_ext), len(self.red_ext),
                            len(self.operands))
         if nout > MAX_OUT or nred > MAX_RED or not 1 <= nin <= MAX_IN:
@@ -117,13 +271,16 @@ class Launch:
             if dt not in DTYPE_CODE:
                 raise TypeError(f"K9 takes float32 or bfloat16 operands and "
                                 f"output, got {dt}")
+        ptrs = tuple(ptrs)
         d = K9Desc()
         lead, rlead = MAX_OUT - nout, MAX_RED - nred
+        out_strides = self.out_strides
         for s in range(MAX_OUT):
             d.out_ext[s] = self.out_ext[s - lead] if s >= lead else 1
-            d.out_stride[s] = self.out_strides[s - lead] if s >= lead else 0
+            d.out_stride[s] = out_strides[s - lead] if s >= lead else 0
         for s in range(MAX_RED):
             d.red_ext[s] = self.red_ext[s - rlead] if s >= rlead else 1
+        k_fast, vec = self._vectors(in_dtypes, ptrs)
         for i, (opn, dt) in enumerate(zip(self.operands, in_dtypes)):
             for s in range(MAX_OUT):
                 d.stride[i][s] = opn.strides[s - lead] if s >= lead else 0
@@ -131,39 +288,155 @@ class Launch:
                 d.stride[i][MAX_OUT + rlead + s] = opn.strides[nout + s]
             d.base[i] = opn.base
             d.in_dtype[i] = DTYPE_CODE[dt]
+            d.k_fast[i], d.vec[i], d.src[i] = k_fast[i], vec[i], i
         d.n_in, d.n_red = nin, nred
         d.out_dtype = DTYPE_CODE[out_dtype]
         d.mode = self.mode
         d.a_op, d.b_op = self.roles
+        d.splits = self.splits
+        d.k_split = self.k_split or max(self.red_ext[-1:] or (1,))
+        d.rows = int(self.rows)
+        d.vec_out = int(bool(self.out_ext) and self.out_ext[-1] % RUN == 0)
+        d.dst = 0
         return d
 
+    def c_descs(self, in_dtypes, out_dtype, ptrs, tmp_ptr: int = 0):
+        """The descriptors one ``repro_semiring`` call runs, in order: this
+        launch's own, or a chain's two stages (T = op0 (x) op1 into the f32
+        scratch at ``tmp_ptr``, 0 for a launch with none, then T (x) op2
+        into the output).  ``ptrs``: the operands' data pointers.  Memoised
+        by dtypes and the pointers' alignment (all the vector rule reads
+        of them)."""
+        ptrs = tuple(ptrs)
+        key = (tuple(in_dtypes), out_dtype, tuple(p % 16 for p in ptrs),
+               tmp_ptr % 16)
+        descs = self._descs.get(key)
+        if descs is None:
+            descs = self._descs[key] = self._build_descs(in_dtypes, out_dtype,
+                                                         ptrs, tmp_ptr)
+        return descs
 
-def _mode(out_ext, red_ext, operands) -> tuple[int, tuple[int, int]]:
-    """Which of K9's paths takes this nest (see ``TILE``, ``THREAD``,
-    ``WARP``), and for TILE which operand feeds the M side."""
+    def _build_descs(self, in_dtypes, out_dtype, ptrs, tmp_ptr):
+        if not self.stages:
+            return (K9Desc * 1)(self.c_struct(in_dtypes, out_dtype, ptrs))
+        first, second = self.stages
+        d1 = first.c_struct(in_dtypes[:2], torch.float32, ptrs[:2])
+        d2 = second.c_struct((torch.float32, in_dtypes[2]), out_dtype,
+                             (tmp_ptr, ptrs[2]))
+        d1.dst = 1
+        d2.src[0], d2.src[1] = 3, 2
+        return (K9Desc * 2)(d1, d2)
+
+
+def _tile_roles(out_ext, red_ext, operands) -> Optional[tuple[int, int]]:
+    """TILE's (M-side, N-side) operands, or None where TILE cannot take
+    the nest (or its grid would pass the CUDA limits)."""
     nout = len(out_ext)
-    if len(operands) == 2 and len(red_ext) == 1 and nout >= 2:
-        lead = 1
-        for e in out_ext[:-2]:
-            lead *= e
-        if lead <= GRID_YZ and -(-out_ext[-2] // TILE_M) <= GRID_YZ:
-            m_ax, n_ax = nout - 2, nout - 1
-            for a, b in ((0, 1), (1, 0)):
-                if operands[a].strides[n_ax] == 0 and \
-                        operands[b].strides[m_ax] == 0:
-                    return TILE, (a, b)
-    if len(red_ext) == 1 and red_ext[0] >= 32 and all(
-            abs(o.strides[nout]) <= 1 for o in operands):
-        return WARP, (0, 1)
+    if len(operands) != 2 or len(red_ext) != 1 or nout < 2:
+        return None
+    lead = _prod(out_ext[:-2])
+    if lead > GRID_YZ or -(-out_ext[-2] // TILE_M) > GRID_YZ:
+        return None
+    m_ax, n_ax = nout - 2, nout - 1
+    for a, b in ((0, 1), (1, 0)):
+        if operands[a].strides[n_ax] == 0 and operands[b].strides[m_ax] == 0:
+            return a, b
+    return None
+
+
+def _chain_stages(out_ext, red_ext, operands, combine, reduce_op, pad):
+    """CHAIN's two TILE stages, or None where the nest is no chain: three
+    operands, two contracted axes j and k, the first operand walking j and
+    not k, the middle both, the last k and not j; of the last two out
+    axes the first operand walks one, the last operand the other and the
+    middle neither.  Stage 1 contracts j into T (leading out axes, the
+    first operand's out axis, k), row-major f32; stage 2 contracts k of T
+    and the last operand into the output."""
+    nout = len(out_ext)
+    if (len(operands) != 3 or len(red_ext) != 2 or nout < 2
+            or (combine, reduce_op) not in CHAIN_PAIRS):
+        return None
+    a, b, c = operands
+    walks = lambda o, ax: o.strides[ax] != 0
+    for j, k in ((nout, nout + 1), (nout + 1, nout)):
+        if (walks(a, j) and not walks(a, k) and walks(b, j) and walks(b, k)
+                and walks(c, k) and not walks(c, j)):
+            break
+    else:
+        return None
+    last = (nout - 2, nout - 1)
+    xa = [x for x in last if walks(a, x)]
+    xc = [x for x in last if walks(c, x)]
+    if len(xa) != 1 or len(xc) != 1 or xa == xc or \
+            any(walks(b, x) for x in last):
+        return None
+    xa = xa[0]
+    lead = range(nout - 2)
+    kx = red_ext[k - nout]
+    t_ext = tuple(out_ext[i] for i in lead) + (out_ext[xa], kx)
+    t_str = _row_major(t_ext)
+    s1_ops = (Operand(a.array, a.storage_shape,
+                      tuple(a.strides[i] for i in lead)
+                      + (a.strides[xa], 0, a.strides[j]), a.base),
+              Operand(b.array, b.storage_shape,
+                      tuple(b.strides[i] for i in lead)
+                      + (0, b.strides[k], b.strides[j]), b.base))
+    s1_out = tuple(f"o{i}" for i in range(len(t_ext) - 1)) + ("k",)
+    t_strides = [0] * (nout + 1)
+    for i in lead:
+        t_strides[i] = t_str[i]
+    t_strides[xa], t_strides[nout] = t_str[-2], t_str[-1]
+    s2_ops = (Operand("T", t_ext, tuple(t_strides), 0),
+              Operand(c.array, c.storage_shape,
+                      tuple(c.strides[:nout]) + (c.strides[k],), c.base))
+    r1 = _tile_roles(t_ext, (red_ext[j - nout],), s1_ops)
+    r2 = _tile_roles(out_ext, (kx,), s2_ops)
+    if r1 is None or r2 is None:
+        return None
+    s1 = _tile_launch(s1_out, t_ext, ("j",), (red_ext[j - nout],), s1_ops,
+                      combine, reduce_op, pad, r1)
+    s2 = _tile_launch(tuple(f"o{i}" for i in range(nout)), out_ext, ("k",),
+                      (kx,), s2_ops, combine, reduce_op, pad, r2)
+    return s1, s2
+
+
+def _tile_launch(out_axes, out_ext, red_axes, red_ext, operands, combine,
+                 reduce_op, pad, roles, nf=None) -> Launch:
+    splits, k_split = tile_splits(_prod(out_ext[:-2]), out_ext[-2],
+                                  out_ext[-1], red_ext[0])
+    return Launch(nf, out_axes, out_ext, red_axes, red_ext, operands,
+                  combine, reduce_op, pad, TILE, roles, splits, k_split)
+
+
+def _mode(out_ext, red_ext, operands, combine: str = "mul",
+          reduce_op: str = "add") -> tuple[int, tuple[int, int]]:
+    """Which of K9's paths takes this nest (see ``TILE`` ... ``CHAIN``),
+    and for TILE which operand feeds the M side: MAP where every
+    contracted extent is 1, then TILE, CHAIN, REDUCE (one contracted
+    axis), THREAD for the rest."""
+    if all(e == 1 for e in red_ext):
+        return MAP, (0, 1)
+    roles = _tile_roles(out_ext, red_ext, operands)
+    if roles is not None:
+        return TILE, roles
+    if _chain_stages(out_ext, red_ext, operands, combine, reduce_op,
+                     0.0) is not None:
+        return CHAIN, (0, 1)
+    if len(red_ext) == 1 and _prod(out_ext[:-1]) <= GRID_YZ:
+        return REDUCE, (0, 1)
     return THREAD, (0, 1)
 
 
-def describe(bundle: "sched_mod.ScheduleBundle",
-             nf: "E.NormalForm") -> Launch:
-    """K9's descriptor for a normal form and its cached bundle.  Applies
-    the bundle's padding policy (``bundle_pad_value``: raises for a
-    semiring without an inert element where the schedule pads)."""
-    pad = sched_mod.bundle_pad_value(bundle)
+def reduce_rows(out_ext, red_ext, operands) -> bool:
+    """REDUCE's variant: a warp per output where the contracted axis has
+    stride 0 or 1 in every operand and at least a warp's worth of
+    elements; else column strips along the last out axis."""
+    nout = len(out_ext)
+    return red_ext[0] >= 32 and all(abs(o.strides[nout]) <= 1
+                                    for o in operands)
+
+
+def _operands(nf: "E.NormalForm") -> tuple[Operand, ...]:
     ext = nf.extent_map
     axes = tuple(nf.out_axes) + tuple(nf.reduce_axes)
     operands = []
@@ -172,12 +445,45 @@ def describe(bundle: "sched_mod.ScheduleBundle",
         operands.append(Operand(leaf.array, leaf.storage_shape(),
                                 tuple(acc.coeffs.get(a, 0) for a in axes),
                                 acc.const))
+    return tuple(operands)
+
+
+def is_chain(nf: "E.NormalForm") -> bool:
+    """Whether K9 contracts this normal form pairwise (CHAIN)."""
+    ext = nf.extent_map
+    return _mode(tuple(ext[a] for a in nf.out_axes),
+                 tuple(ext[a] for a in nf.reduce_axes), _operands(nf),
+                 nf.combine, nf.reduce_op)[0] == CHAIN
+
+
+def describe(bundle: Optional["sched_mod.ScheduleBundle"],
+             nf: "E.NormalForm") -> Launch:
+    """K9's descriptor for a normal form and its cached bundle.  Applies
+    the bundle's padding policy (``bundle_pad_value``: raises for a
+    semiring without an inert element where the schedule pads); without a
+    bundle (a chain, which reads no schedule blocks), the semiring's inert
+    element."""
+    pad = sched_mod.bundle_pad_value(bundle) if bundle is not None else \
+        semiring.pad_value(nf.combine, nf.reduce_op)
+    ext = nf.extent_map
+    operands = _operands(nf)
     out_ext = tuple(ext[a] for a in nf.out_axes)
     red_ext = tuple(ext[a] for a in nf.reduce_axes)
-    mode, roles = _mode(out_ext, red_ext, operands)
-    return Launch(nf, tuple(nf.out_axes), out_ext, tuple(nf.reduce_axes),
-                  red_ext, tuple(operands), nf.combine, nf.reduce_op, pad,
-                  mode, roles)
+    mode, roles = _mode(out_ext, red_ext, operands, nf.combine, nf.reduce_op)
+    common = (nf, tuple(nf.out_axes), out_ext, tuple(nf.reduce_axes),
+              red_ext, operands, nf.combine, nf.reduce_op, pad)
+    if mode == TILE:
+        return _tile_launch(*common[1:], roles, nf=nf)
+    if mode == CHAIN:
+        stages = _chain_stages(out_ext, red_ext, operands, nf.combine,
+                               nf.reduce_op, pad)
+        return Launch(*common, CHAIN, stages=stages)
+    if mode == REDUCE:
+        rows = reduce_rows(out_ext, red_ext, operands)
+        splits, k_split = (1, red_ext[0]) if rows else reduce_splits(
+            _prod(out_ext[:-1]), out_ext[-1] if out_ext else 1, red_ext[0])
+        return Launch(*common, REDUCE, roles, splits, k_split, rows)
+    return Launch(*common, mode, roles)
 
 
 def run_descriptor(launch: Launch, *arrays: torch.Tensor,

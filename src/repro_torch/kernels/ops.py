@@ -97,7 +97,7 @@ _SIGNATURES = {
     "repro_ssd_scan": ("ssd", [_P] * 9 + [ctypes.c_longlong] + [_C] * 6),
     "repro_ssd_bwd": ("ssd", [_P] * 13 + [ctypes.c_longlong] + [_C] * 7),
     "repro_gated_scan": ("gated_scan", [_P] * 5 + [_C] * 4),
-    "repro_semiring": ("semiring", [_P] * 5 + [_C] * 2),
+    "repro_semiring": ("semiring", [_P, _C] + [_P] * 6 + [_C] * 2),
 }
 
 
@@ -1026,7 +1026,7 @@ def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
     """The memoised route of one normal form: ``("K1", transpose_a,
     transpose_b)`` or ``("K9", launch descriptor)``; derives (or re-reads
     from the schedule cache) its bundle first, whose padding policy the
-    descriptor applies."""
+    descriptor applies (a chain has none)."""
     block_key = blocks.as_tuple() if hasattr(blocks, "as_tuple") else (
         tuple(blocks) if isinstance(blocks, (list, tuple)) else blocks)
     key = (nf.key(), dtypes, out_dtype, hardware.name, block_key, acc_dtype)
@@ -1035,8 +1035,13 @@ def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
         if plan is not None:
             _PLANS.move_to_end(key)
             return plan
-    bundle = sched_mod.get_schedule(nf, dtype=dtypes[0], hardware=hardware,
-                                    blocks=blocks, acc_dtype=acc_dtype)
+    # K9 contracts a chain pairwise and reads no schedule blocks (the
+    # derived working set models the reference's nest, which the H100's
+    # 227 KB refuse for tropical chains from a few dozen elements on): a
+    # chain takes the semiring's inert element for its padding
+    bundle = None if emit.is_chain(nf) else sched_mod.get_schedule(
+        nf, dtype=dtypes[0], hardware=hardware, blocks=blocks,
+        acc_dtype=acc_dtype)
     flags = _k1_form(nf)
     plan = ("K1",) + flags if flags is not None else (
         "K9", emit.describe(bundle, nf))
@@ -1051,20 +1056,27 @@ def semiring_contract(launch: "emit.Launch", *arrays: torch.Tensor,
                       out_dtype=torch.float32) -> torch.Tensor:
     """K9 or its plain version (``ref.eval_nf``) on the leaves' storage
     buffers: the normal form ``launch.nf`` in f32, returned in
-    ``out_dtype``."""
+    ``out_dtype``.  On the card one call runs the launch's path (a
+    chain's two stages, a split's fold) on scratch buffers allocated
+    here."""
     if not _use_kernel(*arrays):
         return ref.eval_nf(launch.nf, *arrays).to(out_dtype)
     dtypes = tuple(t.dtype for t in arrays)
-    desc = launch.c_struct(dtypes, out_dtype)
     for t in arrays:
         if not t.is_contiguous():
             raise ValueError("K9 takes contiguous storage buffers")
-    out = torch.empty(launch.out_ext, device=arrays[0].device,
-                      dtype=out_dtype)
+    dev = arrays[0].device
+    ptrs = [t.data_ptr() for t in arrays]
+    scratch = [torch.empty(n, device=dev, dtype=torch.float32) if n else None
+               for n in (launch.tmp_elems, launch.work_elems)]
+    descs = launch.c_descs(dtypes, out_dtype, ptrs, scratch[0].data_ptr()
+                           if scratch[0] is not None else 0)
+    out = torch.empty(launch.out_ext, device=dev, dtype=out_dtype)
     if out.numel():
-        ptrs = [t.data_ptr() for t in arrays] + [None] * (3 - len(arrays))
-        _launch("repro_semiring", ctypes.addressof(desc), *ptrs,
-                out.data_ptr(), emit.COMBINE_CODE[launch.combine],
+        _launch("repro_semiring", ctypes.addressof(descs), len(descs),
+                *(ptrs + [None] * (3 - len(arrays))), out.data_ptr(),
+                *(None if t is None else t.data_ptr() for t in scratch),
+                emit.COMBINE_CODE[launch.combine],
                 emit.REDUCE_CODE[launch.reduce_op])
         LAUNCHES["K9"] += 1
     return out
@@ -1157,6 +1169,7 @@ def semiring_matmul(a: torch.Tensor, b: torch.Tensor, *, plus: str,
                  hardware=hardware)
 
 
+@functools.lru_cache(maxsize=256)
 def _outer_expr(m: int, n: int, p: int, q: int) -> "E.Expr":
     """The outer product of (m, n) and (p, q) as the degenerate inner
     product of (m, n, 1) and (1, p, q): contracted extent 1."""
@@ -1182,9 +1195,14 @@ def kron(a: torch.Tensor, b: torch.Tensor, *,
     result directly (one launch, no transpose copy)."""
     m, n = a.shape
     p, q = b.shape
-    expr = E.transpose(_outer_expr(m, n, p, q), (0, 2, 1, 3))
-    return apply(expr, a.reshape(m, n, 1), b.reshape(1, p, q),
-                 out_dtype=a.dtype, hardware=hardware).reshape(m * p, n * q)
+    return apply(_kron_expr(m, n, p, q), a.reshape(m, n, 1),
+                 b.reshape(1, p, q), out_dtype=a.dtype,
+                 hardware=hardware).reshape(m * p, n * q)
+
+
+@functools.lru_cache(maxsize=256)
+def _kron_expr(m: int, n: int, p: int, q: int) -> "E.Expr":
+    return E.transpose(_outer_expr(m, n, p, q), (0, 2, 1, 3))
 
 
 def ipophp(a: torch.Tensor, b: torch.Tensor, mode: str, *,

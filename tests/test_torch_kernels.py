@@ -495,7 +495,8 @@ def _mm(plus, times, m, k, n, a_layout="row"):
 
 
 #: (mul, add) and (add, add) fold in another order than the plain
-#: version's (and (mul, add) fuses into FMA): 1e-5 of the largest
+#: version's (and (mul, add) multiplies bf16 hi / lo parts on the tensor
+#: cores, within about 2^-16 of each product): 1e-5 of the largest
 #: entry's sum of magnitudes per contracted term
 K9_SUM_REL = 1e-5
 
@@ -540,7 +541,7 @@ def test_k9_tropical_is_bit_for_bit_at_ragged_shapes(h100, plus, m, k, n,
                                                      dtype):
     """Masking past the logical extents stands for the inert padding: the
     tropical product equals its plain version bit for bit at shapes that
-    are no multiple of K9's 64x64x32 tiles, f32 and bf16 inputs."""
+    are no multiple of K9's 128x128x16 tiles, f32 and bf16 inputs."""
     g = torch.Generator(device=h100).manual_seed(m + k + n)
     a = torch.randn(m, k, generator=g, device=h100).to(dtype)
     b = torch.randn(k, n, generator=g, device=h100).to(dtype)
@@ -555,8 +556,9 @@ def test_k9_tropical_is_bit_for_bit_at_ragged_shapes(h100, plus, m, k, n,
 @pytest.mark.h100
 @pytest.mark.parametrize("plus,times", [("add", "mul"), ("add", "add")])
 def test_k9_sums_are_exact_on_integers(h100, plus, times):
-    """On integer-valued inputs every partial sum is exact, so the fused
-    (mul, add) and the (add, add) folds equal the plain version bit for
+    """On integer-valued inputs every product (its bf16 parts exact too)
+    and every partial sum is exact, so the (mul, add) products on the
+    tensor cores and the (add, add) folds equal the plain version bit for
     bit."""
     g = torch.Generator(device=h100).manual_seed(21)
     E = ops.E
@@ -615,9 +617,10 @@ def test_k9_propagates_nan_as_torch_maximum(h100):
 @pytest.mark.h100
 @pytest.mark.parametrize("dtype", [_F32, _BF16])
 def test_k9_elementwise_reduce_chain_and_kron(h100, dtype):
-    """The thread and warp paths and the outer product: Hadamard (bf16
-    out), the lone max along rows (warp) and min along columns (thread),
+    """The map, reduce and chain paths and the outer product: Hadamard
+    (bf16 out), the lone max along rows and min along columns (reduce),
     the 3-operand chain, mul over a reduce, and kron written in place."""
+    from repro_torch.kernels import emit
     g = torch.Generator(device=h100).manual_seed(24)
     E = ops.E
     rnd = lambda *s: torch.randn(*s, generator=g, device=h100).to(dtype)
@@ -626,13 +629,13 @@ def test_k9_elementwise_reduce_chain_and_kron(h100, dtype):
     assert got.dtype == dtype
     assert torch.equal(got, (a.float() * b.float()).to(dtype))
     x = rnd(70, 130)
-    for op, axis, mode in (("max", 1, 2), ("min", 0, 1)):
+    for op, axis in (("max", 1), ("min", 0)):
         got, want, m = _k9(E.reduce(op, E.arr("A", (70, 130)), axis), x)
-        assert m == mode and torch.equal(got, want)
+        assert m == emit.REDUCE and torch.equal(got, want)
     chain = E.arr("A", (33, 40)) @ E.arr("B", (40, 50)) @ E.arr("C", (50, 20))
     ca, cb, cc = rnd(33, 40), rnd(40, 50), rnd(50, 20)
     got, want, mode = _k9(chain, ca, cb, cc)
-    assert mode == 1
+    assert mode == emit.CHAIN
     torch.testing.assert_close(got, want, rtol=0,
                                atol=K9_SUM_REL * 2000 * want.abs().max().item())
     scale = E.combine("mul", E.reduce("add", E.arr("X", (30, 40, 50)), 1),
@@ -675,3 +678,316 @@ def test_apply_takes_strided_views_on_both_routes(h100):
         want_x = ops.semiring_matmul(x.contiguous(), bt.t().contiguous(),
                                      plus="max", times="add")
     assert torch.equal(got_t, want_t) and torch.equal(got_x, want_x)
+
+
+# K9's paths (emit._mode): the pipelined TILE, MAP, REDUCE, CHAIN, THREAD
+
+#: ragged (m, k, n): a single element, and sizes off every tile, slab and
+#: vector multiple (TILE's 128 x 128 x 16, MAP's and REDUCE's runs of 4)
+K9_RAGGED = [(1, 1, 1), (37, 70, 130), (130, 33, 65), (257, 300, 129)]
+
+
+def _leaf_case(E, kind, m, k, n, rnd, plus="max", times="add"):
+    """An (m, k) x (k, n) contraction whose A or B is read through
+    ``kind``: row-major, a col-layout B (stored (n, k)), a transposed A
+    (stored (k, m)) or a psi slab of a stack of three; its arrays."""
+    if kind == "row":
+        return (E.inner(plus, times, E.arr("A", (m, k)), E.arr("B", (k, n))),
+                [rnd(m, k), rnd(k, n)])
+    if kind == "col":
+        return (E.inner(plus, times, E.arr("A", (m, k)),
+                        E.arr("B", (k, n), "col")), [rnd(m, k), rnd(n, k)])
+    if kind == "trans":
+        return (E.inner(plus, times, E.transpose(E.arr("A", (k, m)), (1, 0)),
+                        E.arr("B", (k, n))), [rnd(k, m), rnd(k, n)])
+    return (E.inner(plus, times, E.psi((1,), E.arr("S", (3, m, k))),
+                    E.arr("B", (k, n))), [rnd(3, m, k), rnd(k, n)])
+
+
+def _sum_close(got, want, k):
+    """(mul, add) / (add, add) sums: K9_SUM_REL per contracted term of the
+    largest entry, and a bf16 output's own rounding (2^-8)."""
+    tol = K9_SUM_REL * k * want.float().abs().max().item()
+    if got.dtype == torch.bfloat16:
+        tol += 2.0 ** -8 * want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("kind", ["row", "col", "trans", "psi"])
+@pytest.mark.parametrize("m,k,n", K9_RAGGED)
+@pytest.mark.parametrize("in_dt,out_dt", [(_F32, _F32), (_BF16, _F32),
+                                          (_F32, _BF16), (_BF16, _BF16)])
+def test_k9_tile_leaves_match_plain(h100, kind, m, k, n, in_dt, out_dt):
+    """The pipelined TILE path on row-major, col-layout, transposed and
+    psi leaves (each read along its smaller stride, by 16-byte or 4-byte
+    copies): max-plus bit for bit, (mul, add) batched within K9_SUM_REL."""
+    from repro_torch.kernels import emit
+    g = torch.Generator(device=h100).manual_seed(m + 3 * k + 7 * n)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=h100).to(in_dt)
+    expr, arrays = _leaf_case(ops.E, kind, m, k, n, rnd)
+    # every contracted extent 1: MAP before TILE
+    path = emit.TILE if k > 1 else emit.MAP
+    got, want, mode = _k9(expr, *arrays, out_dtype=out_dt)
+    assert mode == path and got.dtype == out_dt
+    assert torch.equal(got, want)
+    E = ops.E
+    x, w = rnd(2, m, k), rnd(2, k, n)
+    batched = E.inner("add", "mul", E.arr("X", (2, m, k)),
+                      E.arr("W", (2, k, n)), batch=1)
+    got, want, mode = _k9(batched, x, w, out_dtype=out_dt)
+    assert mode == path
+    _sum_close(got, want, k)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("dt", [_F32, _BF16])
+def test_k9_tile_copy_width_boundary(h100, dt):
+    """The copy width the host picks (``emit.vector_ok``): 16-byte copies
+    where rows are a multiple of 16 bytes and the base is aligned, 4-byte
+    ones (element loads for bf16) a row or a base off it; the two agree
+    bit for bit with the plain version, and a K split of a small grid
+    too."""
+    from repro_torch.kernels import emit
+    E = ops.E
+    per = 16 // torch.empty((), dtype=dt).element_size()
+    g = torch.Generator(device=h100).manual_seed(31)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=h100).to(dt)
+    cases = []
+    for k in (8 * per, 8 * per + 1, 8 * per - 2):       # A's rows
+        for n in (144, 8 * per + 2):                    # B's rows
+            cases.append((rnd(150, k), rnd(k, n), k % per == 0,
+                          n % per == 0))
+    stor = rnd(150 * 8 * per + 1)
+    a_off = stor[1:].view(150, 8 * per)                 # base off 16 bytes
+    cases.append((a_off, rnd(8 * per, 144), False, True))
+    for a, b, a_ok, b_ok in cases:
+        expr = E.inner("max", "add", E.arr("A", tuple(a.shape)),
+                       E.arr("B", tuple(b.shape)))
+        nf = E.normal_form(expr)
+        plan = ops._plan(nf, (str(dt)[6:],) * 2, torch.float32, ops.H100,
+                         None, "float32")
+        d = plan[1].c_descs((dt, dt), torch.float32,
+                            (a.data_ptr(), b.data_ptr()))[0]
+        assert d.mode == emit.TILE and d.k_fast[0] == 1 and d.k_fast[1] == 0
+        assert d.vec[0] == int(a_ok)
+        assert d.vec[1] == int(b_ok)
+        got, want, _ = _k9(expr, a, b)
+        assert torch.equal(got, want)
+    a, b = rnd(100, 3000), rnd(3000, 90)                # 1 tile: K split
+    expr = E.inner("min", "add", E.arr("A", (100, 3000)),
+                   E.arr("B", (3000, 90)))
+    got, want, _ = _k9(expr, a, b)
+    plan = ops._plan(E.normal_form(expr), (str(dt)[6:],) * 2, torch.float32,
+                     ops.H100, None, "float32")
+    assert plan[1].splits > 1 and torch.equal(got, want)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("m,n", [(1, 1), (37, 70), (33, 65), (64, 128)])
+@pytest.mark.parametrize("in_dt,out_dt", [(_F32, _F32), (_BF16, _F32),
+                                          (_F32, _BF16), (_BF16, _BF16)])
+def test_k9_map_matches_plain(h100, m, n, in_dt, out_dt):
+    """MAP: Hadamard and a pointwise add of three operands (vectors and an
+    edge run), the outer product (a broadcast operand) and kron (an
+    output written through the gamma permutation): bit for bit."""
+    from repro_torch.kernels import emit
+    E = ops.E
+    g = torch.Generator(device=h100).manual_seed(m * n)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=h100).to(in_dt)
+    a, b, c = rnd(m, n), rnd(m, n), rnd(m, n)
+    got, want, mode = _k9(E.combine("mul", E.arr("A", (m, n)),
+                                    E.arr("B", (m, n))), a, b,
+                          out_dtype=out_dt)
+    assert mode == emit.MAP and torch.equal(got, want)
+    three = E.combine("add", E.combine("add", E.arr("A", (m, n)),
+                                       E.arr("B", (m, n))),
+                      E.arr("C", (m, n)))
+    got, want, mode = _k9(three, a, b, c, out_dtype=out_dt)
+    assert mode == emit.MAP and torch.equal(got, want)
+    p, q = rnd(m, 5), rnd(3, n)
+    got, want, mode = _k9(ops._outer_expr(m, 5, 3, n), p.reshape(m, 5, 1),
+                          q.reshape(1, 3, n), out_dtype=out_dt)
+    assert mode == emit.MAP and torch.equal(got, want)
+    ops.reset_launches()
+    got = ops.kron(p, q)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K9"] == 1
+    assert torch.equal(got, ref.kron_ref(p, q))
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("m,n", [(2, 3), (37, 70), (130, 33), (700, 3000)])
+@pytest.mark.parametrize("in_dt,out_dt", [(_F32, _F32), (_BF16, _F32),
+                                          (_F32, _BF16), (_BF16, _BF16)])
+def test_k9_reduce_matches_plain(h100, m, n, in_dt, out_dt):
+    """REDUCE along rows (a warp an output) and along columns (strips,
+    split and folded where they do not fill the card): max / min bit for
+    bit, sums within K9_SUM_REL; a matrix-vector product and mul over a
+    reduce take it with two operands."""
+    from repro_torch.kernels import emit
+    E = ops.E
+    g = torch.Generator(device=h100).manual_seed(m + n)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=h100).to(in_dt)
+    x = rnd(m, n)
+    for op in ("max", "min", "add"):
+        for axis in (0, 1):
+            got, want, mode = _k9(E.reduce(op, E.arr("A", (m, n)), axis), x,
+                                  out_dtype=out_dt)
+            assert mode == emit.REDUCE
+            if op == "add":
+                _sum_close(got, want, x.shape[axis])
+            else:
+                assert torch.equal(got, want)
+    v = rnd(n)
+    mv = E.inner("add", "mul", E.arr("A", (m, n)), E.arr("v", (n,)))
+    got, want, mode = _k9(mv, x, v, out_dtype=out_dt)
+    assert mode == emit.REDUCE
+    _sum_close(got, want, n)
+    y = rnd(m)
+    scale = E.combine("mul", E.reduce("add", E.arr("A", (m, n)), axis=1),
+                      E.arr("y", (m,)))
+    got, want, mode = _k9(scale, x, y, out_dtype=out_dt)
+    assert mode == emit.REDUCE
+    _sum_close(got, want, n)
+
+
+def _chain(E, plus, times, m, j, k, n, batch=0):
+    shapes = [(m, j), (j, k), (k, n)]
+    if batch:
+        shapes = [(batch,) + s for s in shapes]
+    A, B, C = (E.arr(nm, s) for nm, s in zip("ABC", shapes))
+    inner = E.inner(plus, times, E.inner(plus, times, A, B, batch=int(
+        bool(batch))), C, batch=int(bool(batch)))
+    return inner, shapes
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("plus", ["max", "min"])
+@pytest.mark.parametrize("m,j,k,n", [(1, 2, 2, 1), (37, 70, 130, 45),
+                                     (200, 33, 257, 129)])
+@pytest.mark.parametrize("in_dt,out_dt", [(_F32, _F32), (_BF16, _F32),
+                                          (_F32, _BF16), (_BF16, _BF16)])
+def test_k9_tropical_chain_is_bit_for_bit(h100, plus, m, j, k, n, in_dt,
+                                          out_dt):
+    """CHAIN contracts a tropical chain pairwise (T = A (x) B, then
+    T (x) C); rounding is monotone, so it equals the plain version's nest
+    bit for bit on finite inputs, batched too."""
+    from repro_torch.kernels import emit
+    E = ops.E
+    g = torch.Generator(device=h100).manual_seed(m + j + k + n)
+    for batch in (0, 3):
+        expr, shapes = _chain(E, plus, "add", m, j, k, n, batch)
+        arrays = [torch.randn(*s, generator=g, device=h100).to(in_dt)
+                  for s in shapes]
+        ops.reset_launches()
+        got, want, mode = _k9(expr, *arrays, out_dtype=out_dt)
+        assert mode == emit.CHAIN and ops.LAUNCHES["K9"] == 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.h100
+def test_k9_sums_rerun_to_the_same_bits(h100):
+    """REDUCE's split column sums and row sums and CHAIN's (mul, add)
+    stages (a K split on the small grid) fold in a fixed order: a rerun
+    gives the same bits; each within K9_SUM_REL of the plain version."""
+    from repro_torch.kernels import emit
+    E = ops.E
+    g = torch.Generator(device=h100).manual_seed(41)
+    x = torch.randn(3000, 700, generator=g, device=h100)
+    for axis in (0, 1):
+        expr = E.reduce("add", E.arr("A", (3000, 700)), axis)
+        first, want, mode = _k9(expr, x)
+        assert mode == emit.REDUCE
+        _sum_close(first, want, x.shape[axis])
+        assert torch.equal(ops.apply(expr, x), first)
+    expr, shapes = _chain(E, "add", "mul", 200, 640, 512, 100)
+    arrays = [torch.randn(*s, generator=g, device=h100) * s[0] ** -0.5
+              for s in shapes]
+    first, want, mode = _k9(expr, *arrays)
+    nf = E.normal_form(expr)
+    stages = ops._plan(nf, ("float32",) * 3, torch.float32, ops.H100, None,
+                       "float32")[1].stages
+    assert mode == emit.CHAIN and all(s.splits > 1 for s in stages)
+    _sum_close(first, want, 640 + 512)
+    assert torch.equal(ops.apply(expr, *arrays), first)
+
+
+@pytest.mark.h100
+def test_k9_every_path_propagates_nan(h100):
+    """A NaN input gives NaN where the plain version has one, on MAP,
+    REDUCE (rows and columns), CHAIN and THREAD, and the same values
+    elsewhere."""
+    from repro_torch.kernels import emit
+    E = ops.E
+    g = torch.Generator(device=h100).manual_seed(43)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=h100)
+    a, b = rnd(40, 50), rnd(40, 50)
+    a[3, 7] = b[9, 1] = float("nan")
+    cube = rnd(20, 30, 40)
+    cube[4, 5, 6] = float("nan")
+    chain, shapes = _chain(E, "max", "add", 30, 40, 50, 20)
+    ca, cb, cc = (rnd(*s) for s in shapes)
+    cb[4, 9] = float("nan")
+    cases = [(E.combine("add", E.arr("A", (40, 50)), E.arr("B", (40, 50))),
+              (a, b), emit.MAP),
+             (E.reduce("max", E.arr("A", (40, 50)), 1), (a,), emit.REDUCE),
+             (E.reduce("min", E.arr("A", (40, 50)), 0), (a,), emit.REDUCE),
+             (chain, (ca, cb, cc), emit.CHAIN),
+             (E.reduce("max", E.reduce("max", E.arr("X", (20, 30, 40)), 2),
+                       1), (cube,), emit.THREAD)]
+    for expr, arrays, path in cases:
+        got, want, mode = _k9(expr, *arrays)
+        assert mode == path
+        assert bool(torch.isnan(want).any())
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        keep = ~torch.isnan(want)
+        assert torch.equal(got[keep], want[keep])
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+def test_k9_tensor_core_tile_carries_inf_and_nan(h100, dtype):
+    """(mul, add) on the tensor cores (batched TILE and CHAIN's stages)
+    with an inf, a NaN, infinities of both signs in one sum and a finite
+    value past bf16's range: the plain version's NaNs, signed infs and
+    finite entries in the same places, the finite ones within K9_SUM_REL
+    of their row's largest.
+    The chain's operands are positive, so its infs do not hang on the
+    order in which the plain einsum contracts."""
+    from repro_torch.kernels import emit
+    E = ops.E
+    g = torch.Generator(device=h100).manual_seed(47)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=h100)
+    big = 3.4e38 if dtype == _F32 else torch.finfo(torch.bfloat16).max
+    e, m, k, n = 5, 70, 150, 90
+    x, w = rnd(e, m, k), rnd(e, k, n)
+    x[0, 2, 5] = float("inf")
+    x[1, 3, 7] = float("nan")
+    w[2, 4, 6] = float("-inf")
+    x[4, 0, 0] = x[4, 0, 1] = float("inf")
+    x[3, 1, 2] = big
+    w[3, 2] *= 1e-3
+    w[0, 5, :4] = 0.0
+    batched = E.inner("add", "mul", E.arr("X", (e, m, k)),
+                      E.arr("W", (e, k, n)), batch=1)
+    chain, shapes = _chain(E, "add", "mul", 60, 130, 140, 70)
+    ca, cb, cc = (rnd(*s).abs() for s in shapes)
+    ca[2, 3] = float("inf")
+    ca[8, 4] = cc[9, 11] = float("nan")
+    ca[5, 1] = big
+    cb[1] *= 1e-3
+    for expr, arrays, path, terms in (
+            (batched, (x.to(dtype), w), emit.TILE, k),
+            (chain, (ca.to(dtype), cb, cc), emit.CHAIN, 130 + 140)):
+        got, want, mode = _k9(expr, *arrays)
+        assert mode == path
+        assert bool(torch.isnan(want).any() and torch.isinf(want).any())
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(test(got), test(want))
+        fin = torch.isfinite(want)
+        assert bool(fin.any())
+        zero = torch.zeros_like(want)
+        scale = torch.where(fin, want.abs(), zero).amax(-1, keepdim=True)
+        err = torch.where(fin, (got - want).abs(), zero)
+        assert bool((err <= K9_SUM_REL * terms * scale).all())

@@ -474,7 +474,8 @@ def test_descriptor_drives_a_strided_executor(name):
     want = jops.apply(J_FAM[name][0], *map(jnp.asarray, ins),
                       interpret=True, out_dtype=jnp.float32)
     _close(name, got, want)
-    d = launch.c_struct((torch.float32,) * len(ins), torch.float32)
+    d = launch.c_struct((torch.float32,) * len(ins), torch.float32,
+                        (0,) * len(ins))
     assert d.n_in == len(ins) and d.n_red == len(launch.red_ext)
 
 
@@ -492,16 +493,16 @@ def test_descriptor_reads_col_and_psi_leaves_in_place():
         psi.operands[0].strides == (30, 0, 1)
     assert psi.out_ext == (20, 17) and psi.red_ext == (30,)
     assert psi.pad_value == float("inf")             # padded on the v5e grid
-    d = psi.c_struct((torch.float32, torch.float32), torch.bfloat16)
+    d = psi.c_struct((torch.float32, torch.float32), torch.bfloat16, (0, 0))
     assert list(d.out_ext) == [1, 1, 20, 17] and list(d.red_ext) == [1, 1, 30]
     assert d.base[0] == 600 and list(d.stride[0])[:7] == [0, 0, 30, 0, 0, 0, 1]
     assert d.out_dtype == 1
     chain = _launch("chain")[1]
-    assert chain.mode == emit.THREAD and len(chain.operands) == 3
-    assert _launch("lone_max")[1].mode == emit.WARP
-    assert _launch("lone_min")[1].mode == emit.THREAD
+    assert chain.mode == emit.CHAIN and len(chain.operands) == 3
+    assert _launch("lone_max")[1].mode == emit.REDUCE
+    assert _launch("lone_min")[1].mode == emit.REDUCE
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        col.c_struct((torch.float16, torch.float32), torch.float32)
+        col.c_struct((torch.float16, torch.float32), torch.float32, (0, 0))
 
 
 @pytest.mark.parametrize("plus,times", [("max", "add"), ("min", "add"),
