@@ -21,8 +21,11 @@ Ten phases; any failure exits non-zero before the result line:
             (ops.gemm_route), its device time in a CUDA graph (graph_ms)
             and the time of K1's first kernels on the same operands
             (old_ms); gemma-2b's six per-layer decode
-            products at 4 rows and the decode step's K1 total; K4 and the
-            split-k decode rows are rerun and must give the same bits.
+            products at 4 rows and the decode step's K1 total; K5 also at
+            gemma-2b's whole 8192-token context (4 slots); each K5 and K8
+            row prints its split count or chunk length and its CUDA-graph
+            time (graph_ms); K4, K5, K8 and the split-k decode rows are
+            rerun and must give the same bits.
 4. path     gemma-2b at full width (18 layers, bf16, random weights from a
             seeded generator) served by ServeEngine(max_slots=4,
             max_len=512) over 6 requests; every kernel of the path must
@@ -113,8 +116,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: K6/K7 (f32 only, by the reference's contract): summation order and the
 #: kernels' split products (each f32 operand as bf16 hi + lo, 2^-16 of it
 #: dropped; ~1e-5 of max|plain| measured, test_torch_ssd_design.py).
-#: K8 (f32 only): the plain walk's steps in its order, the multiply and the
-#: add rounded separately on both sides; only exp() may differ in a bit.
+#: K8 (f32 only): the plain walk's steps, the multiply and the add rounded
+#: separately on both sides; exp() may differ in a bit, and each chunk's
+#: entering state is folded from the chunks' aggregates rather than walked
+#: step by step, a last-bit difference that the gates decay.
 TOL = {("K1", "bfloat16"): 1e-4, ("K1", "float32"): 1e-4,
        ("K2", "bfloat16"): 2e-2, ("K2", "float32"): 1e-4,
        ("K3", "bfloat16"): 2e-2, ("K3", "float32"): 1e-4,
@@ -420,32 +425,9 @@ def phase_kernels(torch):
         _attention_training_cases(torch, rec, gen, dt, dname, es)
         # K5: 4 slots, ragged positions, one dead slot, page 16, scrambled
         # slabs of a pool sized for max_len 512
-        page, pool_pages = 16, 4 * 32
-        positions = [200, 37, -1, 511]
-        perm = torch.randperm(pool_pages, generator=gen, device=dev)
-        width = max(p // page + 1 for p in positions)
-        tables = torch.zeros((4, width), dtype=torch.int32, device=dev)
-        used = 0
-        for i, p in enumerate(positions):
-            n_pg = p // page + 1 if p >= 0 else 0
-            tables[i, :n_pg] = perm[used:used + n_pg].int()
-            used += n_pg
-        pos = torch.tensor(positions, dtype=torch.int32, device=dev)
-        q = randn(4, 1, 8, 256)
-        kp = randn(pool_pages * page, 1, 256)
-        vp = randn(pool_pages * page, 1, 256)
-        live_keys = sum(p + 1 for p in positions if p >= 0)
-        args = dict(page=page, scale=256 ** -0.5)
-        out = ops.paged_decode_batched(q, kp, vp, pos, tables, **args)
-        require(bool((out[2] == 0).all()), "K5 dead slot row is not zero")
-        _case(torch, rec, "K5", dname, ("K5", dname),
-              lambda: ops.paged_decode_batched(q, kp, vp, pos, tables, **args),
-              lambda: ref.paged_decode_batched(q, kp, vp, pos, tables,
-                                               **args),
-              None, 4.0 * live_keys * 8 * 256,
-              live_keys * 2 * 256 * es + 4 * 8 * 256 * (es + 4) + 4 * 4
-              + tables.numel() * 4,
-              f"K5 {dname} slots=4 pos={positions} page={page} G=8 hd=256")
+        _decode_case(torch, rec, gen, dt, [200, 37, -1, 511], 4 * 32)
+    # K5 at gemma-2b's whole context: 4 slots at position 8191
+    _decode_case(torch, rec, gen, torch.bfloat16, [8191] * 4, 4 * 512)
     _gemm_decode_cases(torch, rec, gen)
     _gemm_training_cases(torch, rec, gen)
     _ssm_gemm_cases(torch, rec, gen)
@@ -456,6 +438,44 @@ def phase_kernels(torch):
                               2, b=1, s=HYB_S, g=16, window=2048)
     _gated_cases(torch, rec, gen)
     return rec
+
+
+def _decode_case(torch, rec, gen, dt, positions, pool_pages, page=16):
+    """K5 over 4 slots at ``positions`` (-1: dead), scrambled slabs of a
+    pool of ``pool_pages``, G = 8, hd = 256: its split count, its time in
+    a CUDA graph, and a rerun."""
+    from repro_torch.kernels import ops, ref
+    dname = str(dt).removeprefix("torch.")
+    es = torch.tensor([], dtype=dt).element_size()
+    perm = torch.randperm(pool_pages, generator=gen, device="cuda")
+    width = max(p // page + 1 for p in positions)
+    tables = torch.zeros((4, width), dtype=torch.int32, device="cuda")
+    used = 0
+    for i, p in enumerate(positions):
+        n_pg = p // page + 1 if p >= 0 else 0
+        tables[i, :n_pg] = perm[used:used + n_pg].int()
+        used += n_pg
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    randn = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
+    q = randn(4, 1, 8, 256)
+    kp, vp = randn(pool_pages * page, 1, 256), randn(pool_pages * page, 1,
+                                                     256)
+    live_keys = sum(p + 1 for p in positions if p >= 0)
+    args = dict(page=page, scale=256 ** -0.5)
+    call = lambda: ops.paged_decode_batched(q, kp, vp, pos, tables, **args)
+    out = call()
+    require(all(bool((out[i] == 0).all())
+                for i, p in enumerate(positions) if p < 0),
+            "K5 dead slot row is not zero")
+    shape = f"K5 {dname} slots=4 pos={positions} page={page} G=8 hd=256"
+    extra = {"splits": ops.decode_splits(4, 1, width),
+             "graph_ms": graph_ms(torch, call)}
+    _case(torch, rec, "K5", dname, ("K5", dname), call,
+          lambda: ref.paged_decode_batched(q, kp, vp, pos, tables, **args),
+          None, 4.0 * live_keys * 8 * 256,
+          live_keys * 2 * 256 * es + 4 * 8 * 256 * (es + 4) + 4 * 4
+          + tables.numel() * 4, shape, extra)
+    _rerun_equal(torch, call, shape)
 
 
 def ssd_work(b, s, h, p, n, q):
@@ -632,7 +652,9 @@ def _gated_cases(torch, rec, gen):
     without an entering state, and a ragged B=2 S=300.  It reads log_a and
     b and writes h (12 B an element; h0 read and the final state written
     besides), 3 f32 operations an element (exp, multiply, add).  No single
-    PyTorch call computes the scan: no library time."""
+    PyTorch call computes the scan: no library time.  Each row prints its
+    chunk length and its time in a CUDA graph, and is rerun for the same
+    bits."""
     from repro_torch.kernels import ops, ref
     w = 4096
     randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
@@ -642,13 +664,17 @@ def _gated_cases(torch, rec, gen):
         for reverse in (False, True):
             for with_h0 in ((False, True) if b == 1 else (True,)):
                 hh = h0 if with_h0 else None
-                _case(torch, rec, "K8", "float32", ("K8", "float32"),
-                      lambda: ops.gated_recurrence(la, bb, hh, reverse),
+                call = lambda: ops.gated_recurrence(la, bb, hh, reverse)
+                shape = (f"K8 float32 B={b} S={s} w={w}"
+                         + " reverse" * reverse + " h0" * with_h0)
+                extra = {"chunk": ops.gated_chunks(b, s, w),
+                         "graph_ms": graph_ms(torch, call)}
+                _case(torch, rec, "K8", "float32", ("K8", "float32"), call,
                       lambda: ref.gated_scan(la, bb, hh, reverse), None,
                       3.0 * b * s * w,
-                      4 * (3 * b * s * w + (1 + with_h0) * b * w),
-                      f"K8 float32 B={b} S={s} w={w}"
-                      + " reverse" * reverse + " h0" * with_h0)
+                      4 * (3 * b * s * w + (1 + with_h0) * b * w), shape,
+                      extra)
+                _rerun_equal(torch, call, shape)
         del la, bb, h0
 
 

@@ -91,12 +91,14 @@ _SIGNATURES = {
     "repro_flash_dq": ("flash_bwd", [_P] * 8 + [_C] * 6 + [_F, _C, _C, _C]),
     "repro_flash_dkv": ("flash_bwd", [_P] * 10 + [_C] * 6
                         + [_F, _C, _C, _C, _C]),
-    "repro_paged_decode": ("paged_decode", [_P] * 6 + [_C] * 6
+    "repro_paged_decode": ("paged_decode", [_P] * 7 + [_C] * 7
                            + [_F, _C, _C]),
     "repro_ssd_workspace": ("ssd", [_C] * 7),
     "repro_ssd_scan": ("ssd", [_P] * 9 + [ctypes.c_longlong] + [_C] * 6),
     "repro_ssd_bwd": ("ssd", [_P] * 13 + [ctypes.c_longlong] + [_C] * 7),
-    "repro_gated_scan": ("gated_scan", [_P] * 5 + [_C] * 4),
+    "repro_gated_workspace": ("gated_scan", [_C] * 4),
+    "repro_gated_scan": ("gated_scan", [_P] * 6 + [ctypes.c_longlong]
+                         + [_C] * 5),
     "repro_semiring": ("semiring", [_P, _C] + [_P] * 6 + [_C] * 2),
 }
 
@@ -134,7 +136,7 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
 
 
 #: C entry points that launch nothing: no stream, a size returned
-_QUERIES = {"repro_ssd_workspace"}
+_QUERIES = {"repro_ssd_workspace", "repro_gated_workspace"}
 #: C entry point -> (function, library), bound on first use
 _ENTRIES: dict = {}
 
@@ -652,6 +654,24 @@ def default_decode_page(view_tokens: int, hkv: int, g: int, hd: int,
     return choice.bs
 
 
+#: blocks a SM that K5's page splits aim for: a block's warps stage their
+#: pages in most of a SM's shared memory (206 KB in bf16), one block a SM
+DECODE_BLOCKS_PER_SM = 1
+
+
+@functools.lru_cache(maxsize=256)
+def decode_splits(slots: int, kv: int, width: int) -> int:
+    """How many blocks share each (slot, KV head)'s pages in K5: enough
+    for ``DECODE_BLOCKS_PER_SM`` blocks a SM over the grid, at most one a
+    page.  Split ``s`` takes pages ``[s * per, min(width, (s + 1) *
+    per))``, ``per = ceil(width / n)``, and the count is trimmed so that no
+    split is empty.  A rule on the table's width alone: ``pos`` is device
+    data, and reading it here would sync the host each decode step."""
+    want = -(-DECODE_BLOCKS_PER_SM * SM_COUNT // (slots * kv))
+    per = -(-width // max(1, min(width, want)))
+    return -(-width // per)
+
+
 def paged_decode_batched(q: torch.Tensor, k_pool: torch.Tensor,
                          v_pool: torch.Tensor, pos: torch.Tensor,
                          tables: torch.Tensor, *, page: int, scale: float,
@@ -694,12 +714,17 @@ def paged_decode_batched(q: torch.Tensor, k_pool: torch.Tensor,
                          f"256, a multiple of 8; got q {tuple(q.shape)}")
     if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
         raise ValueError("paged_decode kernel takes 16-byte aligned operands")
+    width = tables.shape[1]
+    nsplit = decode_splits(slots, kv, width)
     out = torch.empty((slots, kv, g, hd), device=q.device,
                       dtype=torch.float32)
+    # the splits' (acc, m, l) partials, folded in split order into out
+    part = torch.empty(nsplit * slots * kv * g * (hd + 2), device=q.device,
+                       dtype=torch.float32)
     _launch("repro_paged_decode", q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), pos.data_ptr(), tables.data_ptr(),
-            out.data_ptr(), slots, kv, g, hd, int(page), tables.shape[1],
-            float(scale), int(window), dtype)
+            out.data_ptr(), part.data_ptr(), slots, kv, g, hd, int(page),
+            width, nsplit, float(scale), int(window), dtype)
     LAUNCHES["K5"] += 1
     return out
 
@@ -908,6 +933,27 @@ def scan_ssd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
 # K8: the RG-LRU gated scan, forward and reverse
 # ---------------------------------------------------------------------------
 
+#: channels a K8 block walks (the kernel's ``STRIP``, a thread each) and
+#: the chunk lengths it takes, longest first
+GATED_STRIP = 64
+GATED_CHUNKS = (64, 32, 16)
+
+
+@functools.lru_cache(maxsize=256)
+def gated_chunks(b: int, s: int, w: int) -> int:
+    """K8's chunk length at ``(b, s, w)``: the longest of
+    ``GATED_CHUNKS`` that still gives four blocks a SM over the grid of
+    (batch row, ``GATED_STRIP``-channel strip, chunk), else the shortest.
+    Chunk ``c`` covers steps ``[c L, min(s, (c + 1) L))``.  (The
+    reference's ``default_gated_chunk`` sizes a full-width TPU block, not
+    a channel strip: not ported, ROADMAP Queue 2.)"""
+    strips = -(-w // GATED_STRIP)
+    for chunk in GATED_CHUNKS[:-1]:
+        if b * strips * -(-s // chunk) >= 4 * SM_COUNT:
+            return chunk
+    return GATED_CHUNKS[-1]
+
+
 def gated_recurrence(log_a: torch.Tensor, b_in: torch.Tensor,
                      h0: torch.Tensor | None = None, reverse: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -915,7 +961,8 @@ def gated_recurrence(log_a: torch.Tensor, b_in: torch.Tensor,
     ``log_a/b_in (B, S, w)`` f32 contiguous, from ``h0 (B, w)`` (zeros when
     None); ``reverse`` walks backwards with the gate one step ahead (see
     ``ref.gated_scan``).  Returns ``(h (B, S, w), final (B, w))`` f32.  The
-    kernel walks any ``S``: there is no chunk and so no padding."""
+    kernel takes any ``S`` and ``w`` without padding: its last chunk
+    (:func:`gated_chunks`) and channel strip may be short."""
     if log_a.dim() != 3 or b_in.shape != log_a.shape or (
             h0 is not None and h0.shape != (log_a.shape[0],
                                             log_a.shape[2])):
@@ -931,11 +978,15 @@ def gated_recurrence(log_a: torch.Tensor, b_in: torch.Tensor,
     if any(not t.is_contiguous() for t in operands):
         raise ValueError("gated_scan kernel takes contiguous operands")
     b, s, w = log_a.shape
+    chunk = gated_chunks(b, s, w)
     h = torch.empty_like(b_in)
     final = torch.empty((b, w), device=b_in.device, dtype=torch.float32)
+    nbytes = _entry("repro_gated_workspace")[0](b, s, w, chunk)
+    ws = torch.empty(nbytes, device=b_in.device, dtype=torch.uint8)
     _launch("repro_gated_scan", log_a.data_ptr(), b_in.data_ptr(),
             None if h0 is None else h0.data_ptr(), h.data_ptr(),
-            final.data_ptr(), b, s, w, int(reverse))
+            final.data_ptr(), ws.data_ptr(), nbytes, b, s, w, chunk,
+            int(reverse))
     LAUNCHES["K8"] += 1
     return h, final
 

@@ -89,6 +89,72 @@ def test_paged_decode_kernel_matches_plain(h100, dtype, atol, page, window):
     torch.testing.assert_close(got, want, rtol=0, atol=atol)
 
 
+def _paged_case(dev, dtype, slots, kv, g, hd, page, width, positions,
+                seed):
+    """Scrambled slabs of a pool of ``slots * width`` pages, one table row
+    of ``width`` pages a slot."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
+    pool_pages = slots * width
+    q = rnd(slots, kv, g, hd)
+    kp, vp = rnd(pool_pages * page, kv, hd), rnd(pool_pages * page, kv, hd)
+    perm = torch.randperm(pool_pages, generator=gen, device=dev).int()
+    tables = perm.reshape(slots, width).contiguous()
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    return q, kp, vp, pos, tables
+
+
+#: K5's split-k cases: G = 16 (two row tiles); gemma-2b's whole 8192-token
+#: context; a 64-page table whose splits (two pages each) mostly lie past
+#: the live pages; splits of 7 pages (112 keys) with window 40 across
+#: their edges at positions 1130 and 120; two KV heads at a head width
+#: that is not a multiple of 16
+PAGED_SPLIT_CASES = [
+    (4, 1, 16, 256, 16, 4, (40, 3, -1, 63), 0),
+    (4, 1, 8, 256, 16, 512, (8191, 8191, 8191, 8191), 0),
+    (4, 1, 8, 256, 16, 64, (40, 3, -1, 63), 0),
+    (4, 1, 8, 256, 16, 200, (1130, 120, -1, 3000), 40),
+    (3, 2, 4, 72, 4, 30, (100, 0, 57), 0),
+]
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("slots,kv,g,hd,page,width,positions,window",
+                         PAGED_SPLIT_CASES)
+def test_paged_decode_splits_match_plain(h100, dtype, atol, slots, kv, g,
+                                         hd, page, width, positions,
+                                         window):
+    q, kp, vp, pos, tables = _paged_case(h100, dtype, slots, kv, g, hd,
+                                         page, width, positions, 40)
+    args = dict(page=page, scale=hd ** -0.5, window=window)
+    got = ops.paged_decode_batched(q, kp, vp, pos, tables, **args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K5"] == 1
+    for s, p in enumerate(positions):
+        if p < 0:
+            assert (got[s] == 0).all()
+    want = ref.paged_decode_batched(q, kp, vp, pos, tables, **args)
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [PAGED_SPLIT_CASES[1],
+                                  PAGED_SPLIT_CASES[3]])
+def test_paged_decode_reruns_are_bit_identical(h100, dtype, case):
+    """The splits' partials are folded in split order: two runs give the
+    same bits."""
+    slots, kv, g, hd, page, width, positions, window = case
+    q, kp, vp, pos, tables = _paged_case(h100, dtype, slots, kv, g, hd,
+                                         page, width, positions, 41)
+    args = dict(page=page, scale=hd ** -0.5, window=window)
+    first = ops.paged_decode_batched(q, kp, vp, pos, tables, **args)
+    again = ops.paged_decode_batched(q, kp, vp, pos, tables, **args)
+    assert torch.equal(first, again)
+
+
 _F32, _BF16 = torch.float32, torch.bfloat16
 
 
@@ -402,10 +468,13 @@ def test_ssd_kernels_at_model_widths(h100, h, n, q):
         assert _rel_err(g, w) <= SSD_REL, (name, _rel_err(g, w))
 
 
-#: K8 against its plain version: the same steps in the same order with the
-#: multiply and the add rounded separately on both sides; only exp() may
-#: differ in its last bit (the kernel's expf against PyTorch's exp
-#: kernel), so 1e-6 relative to the largest plain entry of each output
+#: K8 against its plain version: the same steps with the multiply and the
+#: add rounded separately on both sides; exp() may differ in its last bit
+#: (the kernel's expf against PyTorch's exp kernel), and each chunk's
+#: entering state is folded from the chunks' aggregates (A, H), not walked
+#: step by step, so it may differ in its last bits too, a difference that
+#: the gates (a < 1) decay along the chunk; 1e-6 relative to the largest
+#: plain entry of each output
 GATED_REL = 1e-6
 
 
@@ -448,6 +517,53 @@ def test_gated_scan_kernel_is_exact_where_log_a_is_zero(h100, reverse):
     h, f = ops.gated_recurrence(la, bb, h0, reverse=reverse)
     hr, fr = ref.gated_scan(la, bb, h0, reverse=reverse)
     assert torch.equal(h, hr) and torch.equal(f, fr)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b,s,w", [(1, 15, 64), (1, 16, 65), (1, 17, 130),
+                                   (2, 33, 70), (1, 129, 260),
+                                   (1, 2049, 256), (1, 4096, 4096)])
+def test_gated_scan_at_chunk_and_strip_edges(h100, reverse, b, s, w):
+    """K8's chunks (``ops.gated_chunks``: 16 steps at the short shapes, 64
+    at 4096 x 4096) and 64-channel strips at their edges: one step short
+    of a chunk, exactly one, one past, ragged strips, and past groups of
+    eight chunks (129 and 2049 steps of 16-step chunks), with an entering
+    state."""
+    la, bb, h0 = _gated_case(h100, b, s, w, seed=20 + s)
+    h, f = ops.gated_recurrence(la, bb, h0, reverse=reverse)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K8"] == 1
+    hr, fr = ref.gated_scan(la, bb, h0, reverse=reverse)
+    assert _rel_err(h, hr) <= GATED_REL and _rel_err(f, fr) <= GATED_REL
+    assert torch.equal(f, h[:, 0] if reverse else h[:, -1])
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gated_scan_unaligned_operands(h100, reverse):
+    """Bases that are not 16-byte aligned take the kernel's 4-byte
+    copies."""
+    b, s, w = 2, 100, 128
+    la, bb, h0 = _gated_case(h100, b, s, w, seed=21)
+    shift = lambda x: torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(
+        x.shape)
+    la, bb = shift(la), shift(bb)
+    assert la.data_ptr() % 16 and la.is_contiguous()
+    h, f = ops.gated_recurrence(la, bb, h0, reverse=reverse)
+    hr, fr = ref.gated_scan(la, bb, h0, reverse=reverse)
+    assert _rel_err(h, hr) <= GATED_REL and _rel_err(f, fr) <= GATED_REL
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gated_scan_reruns_are_bit_identical(h100, reverse):
+    """Each chunk's entering state is folded in chunk order whichever
+    block finishes first: two runs give the same bits."""
+    la, bb, h0 = _gated_case(h100, 1, 4096, 4096, seed=22)
+    first = ops.gated_recurrence(la, bb, h0, reverse=reverse)
+    again = ops.gated_recurrence(la, bb, h0, reverse=reverse)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 @pytest.mark.h100
