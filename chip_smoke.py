@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Ten phases; any failure exits non-zero before the result line:
+Thirteen phases; any failure exits non-zero before the result line:
 
 1. device   the card's name, power limit and compute capability (9, 0).
 2. build    nvcc builds every kernel under src/repro_torch/kernels/csrc/
@@ -25,20 +25,49 @@ Ten phases; any failure exits non-zero before the result line:
             gemma-2b's whole 8192-token context (4 slots); each K5 and K8
             row prints its split count or chunk length and its CUDA-graph
             time (graph_ms); K4, K5, K8 and the split-k decode rows are
-            rerun and must give the same bits.
+            rerun and must give the same bits.  The rest of the dense
+            family's shapes: K2-K4 at stablelm-1.6b's training attention
+            (32 KV heads of 64, G = 1), K1 at its served and trained
+            products, K2 at command-r-plus-104b's prefill (8 KV heads of
+            128, G = 12), K5 there at 4 slots and at one, K1 at its decode
+            products (d 12288, the tied 256000-row head), and K5 at one
+            slot at gemma-2b's shape (ops.paged_decode).
 4. path     gemma-2b at full width (18 layers, bf16, random weights from a
             seeded generator) served by ServeEngine(max_slots=4,
             max_len=512) over 6 requests; every kernel of the path must
             have launched, K5 once per layer per decode iteration; one
             prefill and one batched decode step are recomputed through the
-            plain versions and must agree.
+            plain versions and must agree.  The same requests then go
+            through ServeEngine(batched=False): one decode_step_paged a
+            slot, K5 at one slot; derived launches, one per-slot step
+            against the plain path, a 4-slot iteration under sync debug
+            mode "error" against 4 slot-steps' weight bytes.
 5. train    gemma-2b at full width (bf16, seeded weights) takes 3 AdamW
             steps of make_train_step on SyntheticLM batches (B=2, S=512,
             seed 0), remat on; step 1's loss and gradients are first held
             against the plain path; every kernel of the path must have
             launched its derived number of times; the third step runs
             under sync debug mode "error"; one step is profiled.
-6. ssm_path mamba2-780m at full width (48 layers, bf16, seeded weights)
+6. stablelm_path stablelm-1.6b at full width (24 layers, 32 heads of 64
+            over 32 KV heads, LayerNorm and biases, rotary on a quarter of
+            each head, bf16, 1.645 B seeded parameters) served by
+            ServeEngine(max_slots=4, max_len=512) over 6 requests through
+            contiguous per-slot caches (G = 1 is not paged-capable, as in
+            the reference): derived K1 / K2 launches; prefill and
+            contiguous decode logits against the plain path; a decode step
+            under sync debug mode "error", timed against the bytes it must
+            read, and a 4-slot iteration.
+7. stablelm_train stablelm-1.6b takes 3 AdamW steps at B=2 S=2048 in its
+            2 microbatches, remat on; step 1's loss and gradients against
+            the plain path in f32 (the same weights) and in bf16; K1-K4
+            launch their derived counts; step 3 under sync debug "error".
+8. cmdr_path command-r-plus-104b at full width with its depth cut to 2 of
+            64 layers (6.29 B parameters; the whole model does not fit
+            one card): 4 requests through the batched paged ServeEngine
+            (G = 12), then greedy_generate at B=1, 64 + 16 tokens; derived
+            launches; prefill, contiguous and batched decode logits
+            against the plain path.
+9. ssm_path mamba2-780m at full width (48 layers, bf16, seeded weights)
             served by ServeEngine(max_slots=4, max_len=512) over 6
             requests, one prompt over 256 tokens (its prefill carries the
             state across a chunk boundary and pads its last chunk), the
@@ -48,13 +77,13 @@ Ten phases; any failure exits non-zero before the result line:
             in bf16 layer by layer, and end to end beside the plain bf16
             path's own distance from f32); a decode iteration (4 slots)
             runs under sync debug mode "error".
-7. ssm_train mamba2-780m at full width takes 3 AdamW steps (B=2, S=2048:
+10. ssm_train mamba2-780m at full width takes 3 AdamW steps (B=2, S=2048:
             8 chunks of 256 a sequence, remat on); step 1's loss and
             gradients against the plain path (as the prefill's, with
             each layer's VJP); K1, K6 (twice a layer: the
             remat rerun) and K7 launch their derived counts; step 3 under
             sync debug mode "error"; one step is profiled.
-8. hybrid_path recurrentgemma-9b at full width and depth (38 layers,
+11. hybrid_path recurrentgemma-9b at full width and depth (38 layers,
             bf16, 9.40 B seeded parameters): make_prefill on B=1 S=4096
             (K8 26 launches, K2 12, K1 its derived count) and
             greedy_generate on B=2 prompts of 64 tokens plus 32 new,
@@ -63,14 +92,14 @@ Ten phases; any failure exits non-zero before the result line:
             path as mamba2's do (f32 end to end, bf16 layer by layer and
             beside the plain bf16 path's distance from f32); a decode step
             under sync debug mode "error"; prefill and decode profiled.
-9. hybrid_train recurrentgemma-9b at full widths, depth cut to 5 layers
+12. hybrid_train recurrentgemma-9b at full widths, depth cut to 5 layers
             (one (rglru, rglru, local) group and the 2-layer tail, 2.17 B
             parameters), 3 AdamW steps at B=4 S=4096 in 4 microbatches,
             remat on (the window cuts in K2-K4); step 1's loss and
             gradients against the plain path as mamba2's; K1-K4 and K8
             launch their derived counts; step 3 under sync debug mode
             "error"; one step is profiled.
-10. moa_path the MoA expression pipeline (ops.apply -> normal form ->
+13. moa_path the MoA expression pipeline (ops.apply -> normal form ->
             derived schedule on the H100 table -> K1 or K9) through its
             user entries: moa_gemm at 4096^3 (bf16, f32; K1), max-plus and
             min-plus at 4096^3, 8192^3, ragged 4000x3000x5000 and bf16
@@ -175,6 +204,13 @@ GEN_B, GEN_PROMPT, GEN_NEW, GEN_CACHE = 2, 64, 32, 128
 #: the prompt tokens ingested (plain f32) into the decode cache that the
 #: decode-step agreement starts from
 HYB_DECODE_CTX = 16
+#: stablelm-1.6b's training batch (2 sequences of 2048, its 2 microbatches)
+STABLELM_B, STABLELM_S = 2, 2048
+#: command-r-plus-104b's depth on one card (2 of its 64 layers: 6.29 B
+#: parameters, 12.6 GB in bf16; the whole model is ~208 GB) and its
+#: greedy_generate prompt, new tokens and cache length
+CMDR_LAYERS = 2
+CMDR_PROMPT, CMDR_NEW, CMDR_CACHE = 64, 16, 128
 
 
 def fail(msg: str) -> None:
@@ -437,19 +473,83 @@ def phase_kernels(torch):
     _attention_training_cases(torch, rec, gen, torch.bfloat16, "bfloat16",
                               2, b=1, s=HYB_S, g=16, window=2048)
     _gated_cases(torch, rec, gen)
+    _dense_family_cases(torch, rec, gen)
     return rec
 
 
-def _decode_case(torch, rec, gen, dt, positions, pool_pages, page=16):
-    """K5 over 4 slots at ``positions`` (-1: dead), scrambled slabs of a
-    pool of ``pool_pages``, G = 8, hd = 256: its split count, its time in
-    a CUDA graph, and a rerun."""
+def _dense_family_cases(torch, rec, gen):
+    """The rest of the dense family's kernel shapes.  stablelm-1.6b: K2-K4
+    at its training attention (32 KV heads of 64, G = 1, one microbatch
+    B=1 S=2048; bf16 and f32), K1 at its served and trained products.
+    command-r-plus-104b: K2 at a 512-token prefill (8 KV heads of 128, G =
+    12), K5 at 4 slots and at one, K1 at its decode products (d 12288).
+    gemma-2b: K5 at one slot (ServeEngine(batched=False))."""
+    bf = torch.bfloat16
+    mb = STABLELM_B // 2
+    for dt in (bf, torch.float32):
+        dname = str(dt).removeprefix("torch.")
+        _attention_training_cases(torch, rec, gen, dt, dname,
+                                  torch.tensor([], dtype=dt).element_size(),
+                                  b=mb, s=STABLELM_S, g=1, kv=32, hd=64)
+    proj, wi, wo, head = (2048, 2048), (2048, 11264), (5632, 2048), \
+        (2048, 100352)
+    _gemm_forms(torch, rec, gen, "K1 stablelm serve",
+                [("fwd", (m, k), bf, (k, n), bf, False, False)
+                 for m in (1, 128) for k, n in (proj, wi, wo, head)])
+    _gemm_training_cases(torch, rec, gen, "stablelm ", mb * STABLELM_S,
+                         (proj, wi, wo, head), None)
+    _prefill_attention_case(torch, rec, gen, bf, 512, kv=8, g=12, hd=128)
+    _decode_case(torch, rec, gen, bf, [200, 37, -1, 511], 4 * 32, kv=8,
+                 g=12, hd=128)
+    _decode_case(torch, rec, gen, bf, [200], 32, kv=8, g=12, hd=128)
+    _decode_case(torch, rec, gen, bf, [300], 32)
+    d = 12288
+    forms = [("fwd", (m, k), bf, (k, n), bf, False, False)
+             for m in (1, 4) for k, n in ((d, d), (d, 1024), (d, 67584),
+                                          (33792, d))]
+    forms += [("fwd head", (m, d), bf, (256000, d), bf, False, True)
+              for m in (1, 4)]
+    _gemm_forms(torch, rec, gen, "K1 command-r serve", forms)
+
+
+def _prefill_attention_case(torch, rec, gen, dt, s, kv, g, hd, b=1):
+    """K2 without its export (the prefill's form), causal, at ``kv`` KV
+    heads of ``hd`` under ``g`` query heads each, against SDPA."""
+    import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     dname = str(dt).removeprefix("torch.")
     es = torch.tensor([], dtype=dt).element_size()
+    randn = lambda *shape: torch.randn(*shape, generator=gen,
+                                       device="cuda").to(dt)
+    q, k, v = randn(b, s, kv, g, hd), randn(b, s, kv, hd), randn(b, s, kv,
+                                                                 hd)
+    qs = q.reshape(b, s, kv * g, hd).transpose(1, 2)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    args = dict(scale=hd ** -0.5)
+    _case(torch, rec, "K2", dname, ("K2", dname),
+          lambda: ops.attention(q, k, v, **args),
+          lambda: ref.attention(q, k, v, **args),
+          lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                 enable_gqa=True),
+          4.0 * b * kv * g * _pairs(s) * hd,
+          (b * s * g * 2 + 2 * b * s) * kv * hd * es,
+          f"K2 {dname} B={b} S={s} KV={kv} G={g} hd={hd} causal")
+
+
+def _decode_case(torch, rec, gen, dt, positions, pool_pages, page=16, kv=1,
+                 g=8, hd=256):
+    """K5 over one slot a position of ``positions`` (-1: dead), scrambled
+    slabs of a pool of ``pool_pages``, ``kv`` KV heads of ``hd`` under
+    ``g`` query heads each (gemma-2b's 1, 8, 256 by default): its split
+    count, its time in a CUDA graph, and a rerun.  One slot goes through
+    the single-sequence entry ``ops.paged_decode``."""
+    from repro_torch.kernels import ops, ref
+    dname = str(dt).removeprefix("torch.")
+    es = torch.tensor([], dtype=dt).element_size()
+    slots = len(positions)
     perm = torch.randperm(pool_pages, generator=gen, device="cuda")
     width = max(p // page + 1 for p in positions)
-    tables = torch.zeros((4, width), dtype=torch.int32, device="cuda")
+    tables = torch.zeros((slots, width), dtype=torch.int32, device="cuda")
     used = 0
     for i, p in enumerate(positions):
         n_pg = p // page + 1 if p >= 0 else 0
@@ -457,24 +557,32 @@ def _decode_case(torch, rec, gen, dt, positions, pool_pages, page=16):
         used += n_pg
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     randn = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
-    q = randn(4, 1, 8, 256)
-    kp, vp = randn(pool_pages * page, 1, 256), randn(pool_pages * page, 1,
-                                                     256)
+    q = randn(slots, kv, g, hd)
+    kp, vp = randn(pool_pages * page, kv, hd), randn(pool_pages * page, kv,
+                                                     hd)
     live_keys = sum(p + 1 for p in positions if p >= 0)
-    args = dict(page=page, scale=256 ** -0.5)
-    call = lambda: ops.paged_decode_batched(q, kp, vp, pos, tables, **args)
-    out = call()
-    require(all(bool((out[i] == 0).all())
-                for i, p in enumerate(positions) if p < 0),
-            "K5 dead slot row is not zero")
-    shape = f"K5 {dname} slots=4 pos={positions} page={page} G=8 hd=256"
-    extra = {"splits": ops.decode_splits(4, 1, width),
+    args = dict(page=page, scale=hd ** -0.5)
+    plain = lambda: ref.paged_decode_batched(q, kp, vp, pos, tables, **args)
+    if slots == 1:
+        call = lambda: ops.paged_decode(q[0], kp, vp, pos, tables[0], **args)
+        plain_one = plain
+        plain = lambda: plain_one()[0]
+    else:
+        call = lambda: ops.paged_decode_batched(q, kp, vp, pos, tables,
+                                                **args)
+        out = call()
+        require(all(bool((out[i] == 0).all())
+                    for i, p in enumerate(positions) if p < 0),
+                "K5 dead slot row is not zero")
+    heads = "" if kv == 1 else f" KV={kv}"
+    shape = (f"K5 {dname} slots={slots} pos={positions} page={page}{heads} "
+             f"G={g} hd={hd}")
+    extra = {"splits": ops.decode_splits(slots, kv, width),
              "graph_ms": graph_ms(torch, call)}
-    _case(torch, rec, "K5", dname, ("K5", dname), call,
-          lambda: ref.paged_decode_batched(q, kp, vp, pos, tables, **args),
-          None, 4.0 * live_keys * 8 * 256,
-          live_keys * 2 * 256 * es + 4 * 8 * 256 * (es + 4) + 4 * 4
-          + tables.numel() * 4, shape, extra)
+    _case(torch, rec, "K5", dname, ("K5", dname), call, plain,
+          None, 4.0 * live_keys * kv * g * hd,
+          live_keys * kv * 2 * hd * es + slots * kv * g * hd * (es + 4)
+          + slots * 4 + tables.numel() * 4, shape, extra)
     _rerun_equal(torch, call, shape)
 
 
@@ -580,7 +688,7 @@ def _pairs(s: int, window: int = 0) -> int:
 
 
 def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
-                              s=TRAIN_S, g=8, window=0):
+                              s=TRAIN_S, g=8, window=0, kv=1, hd=256):
     """K2 with its (m, l) export, then K3 and K4, at a training shape (by
     default gemma-2b's: q (2, 512, 1, 8, 256), k/v (2, 512, 1, 256),
     m/l/delta (2, 1, 8, 512)); with a ``window``, K2 without the export
@@ -589,34 +697,34 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
     mask) through torch.autograd.grad."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    hd = 256
     scale = hd ** -0.5
     randn = lambda *shape: torch.randn(*shape, generator=gen,
                                        device="cuda").to(dt)
-    q, k, v, do = (randn(b, s, 1, g, hd), randn(b, s, 1, hd),
-                   randn(b, s, 1, hd), randn(b, s, 1, g, hd))
-    pairs = b * g * _pairs(s, window)
-    qkv_bytes = (2 * b * s * g + 2 * b * s) * hd * es
-    stat_bytes = b * g * s * 4
+    q, k, v, do = (randn(b, s, kv, g, hd), randn(b, s, kv, hd),
+                   randn(b, s, kv, hd), randn(b, s, kv, g, hd))
+    pairs = b * kv * g * _pairs(s, window)
+    qkv_bytes = (2 * b * s * g + 2 * b * s) * kv * hd * es
+    stat_bytes = b * kv * g * s * 4
     args = dict(scale=scale, causal=True, window=window)
-    qs = q.reshape(b, s, g, hd).transpose(1, 2)
+    qs = q.reshape(b, s, kv * g, hd).transpose(1, 2)
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
     mask = ref._mask(s, s, True, window, "cuda") if window else None
     sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(
         q_, k_, v_, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
     tag = f"window={window}" if window else "causal"
-    shape = f"B={b} S={s} KV=1 G={g} hd={hd} {tag}"
+    shape = f"B={b} S={s} KV={kv} G={g} hd={hd} {tag}"
     if window:
         _case(torch, rec, "K2", dname, ("K2", dname),
               lambda: ops.attention(q, k, v, **args),
               lambda: ref.attention(q, k, v, **args),
               lambda: sdpa(qs, ks, vs), 4.0 * pairs * hd,
-              (b * s * g * 2 + 2 * b * s) * hd * es, f"K2 {dname} {shape}")
+              (b * s * g * 2 + 2 * b * s) * kv * hd * es,
+              f"K2 {dname} {shape}")
     _case(torch, rec, "K2", dname, ("K2", dname),
           lambda: ops.attention_stats(q, k, v, **args),
           lambda: ref.attention_stats(q, k, v, **args),
           lambda: sdpa(qs, ks, vs),
-          4.0 * pairs * hd, (b * s * g * 2 + 2 * b * s) * hd * es
+          4.0 * pairs * hd, (b * s * g * 2 + 2 * b * s) * kv * hd * es
           + 2 * stat_bytes, f"K2 {dname} {shape} export")
     out, m, l = ops.attention_stats(q, k, v, **args)
     delta = (do.float() * out.reshape(do.shape).float()).sum(-1)
@@ -626,20 +734,20 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
     kg = ks.detach().requires_grad_(True)
     vg = vs.detach().requires_grad_(True)
     og = sdpa(qg, kg, vg)
-    dos = do.reshape(b, s, g, hd).transpose(1, 2)
+    dos = do.reshape(b, s, kv * g, hd).transpose(1, 2)
     sdpa_bwd = lambda: torch.autograd.grad(og, (qg, kg, vg), dos,
                                            retain_graph=True)
     _case(torch, rec, "K3", dname, ("K3", dname),
           lambda: ops.flash_dq(*bwd, **args),
           lambda: ref.flash_dq(*bwd, **args), sdpa_bwd,
           2.0 * 3 * pairs * hd, qkv_bytes + 3 * stat_bytes
-          + b * s * g * hd * es, f"K3 {dname} {shape}")
-    nsplit = ops.dkv_splits(b, s, s, 1, g, True, window)
+          + b * s * kv * g * hd * es, f"K3 {dname} {shape}")
+    nsplit = ops.dkv_splits(b, s, s, kv, g, True, window)
     _case(torch, rec, "K4", dname, ("K4", dname),
           lambda: ops.flash_dkv(*bwd, **args),
           lambda: ref.flash_dkv(*bwd, **args), sdpa_bwd,
           2.0 * 4 * pairs * hd, qkv_bytes + 3 * stat_bytes
-          + 2 * b * s * hd * es, f"K4 {dname} {shape}",
+          + 2 * b * s * kv * hd * es, f"K4 {dname} {shape}",
           {"path": "tc" if dt == torch.bfloat16 else "fma",
            "row_splits": nsplit if dt == torch.bfloat16 else 1})
     _rerun_equal(torch, lambda: ops.flash_dkv(*bwd, **args),
@@ -767,59 +875,46 @@ def _ssm_gemm_cases(torch, rec, gen):
                          (w_in, w_out, head), None)
 
 
-def phase_path(torch):
+def _model(torch, module, n_layers=None, trainable=False):
+    """A config module's full-width config (``n_layers`` cuts its depth)
+    and its bf16 parameters from seed 0."""
+    from repro_torch.models import transformer
+    cfg = module.full()
+    if n_layers:
+        cfg = cfg.with_(n_layers=n_layers)
+    params = transformer.init_lm(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        trainable=trainable)
+    return cfg, params
+
+
+def phase_path(torch, card):
     import numpy as np
     from repro_torch.configs import gemma_2b
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
-    from repro_torch.serving import PagePool, ServeEngine, pages_needed
+    from repro_torch.serving import ServeEngine
 
-    cfg = gemma_2b.full()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = transformer.init_lm(
-        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    cfg, params = _model(torch, gemma_2b)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     print(f"[path] gemma-2b full width: {n_params / 1e9:.3f} B params bf16, "
           f"init {time.perf_counter() - t0:.1f} s", flush=True)
     engine = ServeEngine(cfg, params, max_slots=4, max_len=512)
-    rng = np.random.default_rng(0)
-    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(32, 201))
-                          ).tolist(), int(rng.integers(16, 33)))
-            for _ in range(6)]
+    reqs = _dense_reqs(cfg, 6)
     print(f"[path] page={engine.page} (derived on the H100 table) "
           f"pool_pages={engine.pool.pool_pages} prompts="
           f"{[len(p) for p, _ in reqs]} max_new={[n for _, n in reqs]}",
           flush=True)
 
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    clock = lambda: time.perf_counter() - t0
-    rids = [engine.submit(p, n, now=0.0) for p, n in reqs]
-    iters, first_seen = 0, {}
-    while not engine.idle:
-        emitted = engine.step(clock())   # ends in the iteration's host read
-        iters += 1
-        for rid, _ in emitted:
-            first_seen.setdefault(rid, clock())
-    torch.cuda.synchronize()
-    wall = clock()
-    launches = dict(ops.LAUNCHES)
-    results = engine.results()
-    n_tok = sum(len(results[r]["tokens"]) for r in rids)
-    ttft = [first_seen[r] for r in rids]      # all six submitted at t = 0
+    run = _run_engine(torch, engine, reqs)
+    rids, results, launches = run[:3]
+    _serve_line(torch, np, "path", reqs, *run, engine)
     decode_steps = engine.kernel_calls
     prefills = len(rids) + sum(results[r]["request"].evictions for r in rids)
-    print(f"[path] {n_tok} tokens in {wall:.3f} s over {iters} iterations: "
-          f"{n_tok / wall:.1f} tok/s; TTFT p50 {np.percentile(ttft, 50):.4f}"
-          f" s max {max(ttft):.4f} s; decode steps {decode_steps}, prefills "
-          f"{prefills}; launches {launches}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    require(all(len(results[r]["tokens"]) == n for r, (_, n)
-                in zip(rids, reqs)), "a request did not get max_new tokens")
     require(all(launches[k] > 0 for k in ("K1", "K2", "K5")),
             f"a kernel of the path never launched: {launches}")
     require(launches["K3"] == launches["K4"] == launches["K7"] == 0,
@@ -847,14 +942,33 @@ def phase_path(torch):
               flush=True)
         require(err <= PATH_TOL * scale, "prefill disagrees with plain")
 
-        pool = PagePool(cfg, 4 * pages_needed(512, engine.page),
-                        engine.page, torch.bfloat16, "cuda")
+        pool, tables, toks, poss, live, b_ms = _batched_decode_check(
+            torch, "path", cfg, params, reqs, engine.page, card)
+    per_slot = _per_slot_paged_path(torch, cfg, params, reqs, results, rids,
+                                    pool, tables, toks, poss, live, b_ms,
+                                    card)
+    return launches, per_slot
+
+
+def _batched_decode_check(torch, tag, cfg, params, reqs, page, card):
+    """One batched paged decode step over 3 live slots (the first three
+    prompts of ``reqs``, prefilled into scrambled slabs) and a dead one:
+    its logits and pool writes against the plain path, then the step under
+    sync debug mode "error", timed against every weight byte read once
+    (the tied table counted once), and profiled.  Returns ``(pool,
+    tables, toks, poss, live slots, bound ms)``."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving import PagePool, pages_needed
+    with torch.inference_mode():
+        pool = PagePool(cfg, 4 * pages_needed(512, page), page,
+                        torch.bfloat16, "cuda")
         live = [0, 1, 3]                 # slot 2 is dead
-        tables = torch.zeros((4, pages_needed(201, engine.page)),
+        tables = torch.zeros((4, pages_needed(201, page)),
                              dtype=torch.int32, device="cuda")
         toks, poss = [0] * 4, [-1] * 4
         for slot, (p, _) in zip(live, reqs):
-            slabs = pool.alloc(pages_needed(len(p) + 1, engine.page))
+            slabs = pool.alloc(pages_needed(len(p) + 1, page))
             lgt, cache = transformer.prefill(
                 params, cfg, torch.tensor([p], device="cuda"))
             pool.write_prefill(cache, slabs, len(p))
@@ -864,12 +978,10 @@ def phase_path(torch):
         poss = torch.tensor(poss, dtype=torch.int32, device="cuda")
         pools_r = {k: t.clone() for k, t in pool.pools.items()}
         dk = transformer.decode_step_paged_batched(
-            params, cfg, toks, poss, pool.pools, tables=tables,
-            page=engine.page)
+            params, cfg, toks, poss, pool.pools, tables=tables, page=page)
         with ops.reference_mode():
             dr = transformer.decode_step_paged_batched(
-                params, cfg, toks, poss, pools_r, tables=tables,
-                page=engine.page)
+                params, cfg, toks, poss, pools_r, tables=tables, page=page)
         dk, dr = dk[live], dr[live]
         err = (dk - dr).abs().max().item()
         scale = dr.abs().max().item()
@@ -878,7 +990,8 @@ def phase_path(torch):
             a, b = pool.pools[key].float(), pools_r[key].float()
             require((a - b).abs().max().item() <= PATH_TOL * b.abs().max()
                     .item(), f"decode {key} pool writes disagree with plain")
-        print(f"[path] batched decode logits {tuple(dk.shape)} (3 live "
+        del pools_r
+        print(f"[{tag}] batched decode logits {tuple(dk.shape)} (3 live "
               f"slots + 1 dead) vs plain: max_abs_err={err:.3e} (tol "
               f"{PATH_TOL:g} x {scale:.3g})", flush=True)
         require(err <= PATH_TOL * scale, "batched decode disagrees with plain")
@@ -886,8 +999,7 @@ def phase_path(torch):
         # one batched decode step (3 live slots + 1 dead) against its bound:
         # every weight byte read once (the tied table counted once)
         step = lambda: transformer.decode_step_paged_batched(
-            params, cfg, toks, poss, pool.pools, tables=tables,
-            page=engine.page)
+            params, cfg, toks, poss, pool.pools, tables=tables, page=page)
         # the step reads nothing back to the host: any synchronizing call
         # inside it raises under the "error" sync debug mode
         step()
@@ -896,15 +1008,146 @@ def phase_path(torch):
             step()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        print("[path] decode step ran with no host sync (sync debug mode "
-              "'error')", flush=True)
+        print(f"[{tag}] decode step ran with no host sync (sync debug mode "
+              f"'error')", flush=True)
         step_ms = time_ms(torch, step)
         w_bytes = sum(p.numel() * p.element_size()
                       for p in params.parameters())
         b_ms, _ = bound(0.0, w_bytes, "bfloat16")
-        print(f"[path] decode step: {step_ms:.3f} ms; weight bytes "
-              f"{w_bytes / 1e9:.3f} GB -> bound {b_ms:.3f} ms", flush=True)
+        print(f"[{tag}] decode step: {step_ms:.3f} ms; weight bytes "
+              f"{w_bytes / 1e9:.3f} GB -> bound {b_ms:.3f} ms ({card})",
+              flush=True)
         profile_step(torch, step)
+    return pool, tables, toks, poss, live, b_ms
+
+
+def _run_engine(torch, engine, reqs):
+    """Submit ``reqs`` at t = 0 and step the engine until idle, with the
+    launch counts from 0: ``(rids, results, launches, wall s, iterations,
+    {rid: first-token time}, [decode-only iteration s])``."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    clock = lambda: time.perf_counter() - t0
+    rids = [engine.submit(p, n, now=0.0) for p, n in reqs]
+    iters, first_seen, decode_only = 0, {}, []
+    while not engine.idle:
+        waiting, t_it = len(engine._waiting), time.perf_counter()
+        emitted = engine.step(clock())   # ends in the iteration's host read
+        if len(engine._waiting) == waiting:      # admitted nothing
+            decode_only.append(time.perf_counter() - t_it)
+        iters += 1
+        for rid, _ in emitted:
+            first_seen.setdefault(rid, clock())
+    torch.cuda.synchronize()
+    wall = clock()
+    launches = dict(ops.LAUNCHES)
+    results = engine.results()
+    require(all(len(results[r]["tokens"]) == n for r, (_, n)
+                in zip(rids, reqs)), "a request did not get max_new tokens")
+    return rids, results, launches, wall, iters, first_seen, decode_only
+
+
+def _serve_line(torch, np, tag, reqs, rids, results, launches, wall, iters,
+                first_seen, decode_only, engine) -> None:
+    n_tok = sum(len(results[r]["tokens"]) for r in rids)
+    ttft = [first_seen[r] for r in rids]      # all submitted at t = 0
+    print(f"[{tag}] {n_tok} tokens in {wall:.3f} s over {iters} iterations: "
+          f"{n_tok / wall:.1f} tok/s; TTFT p50 {np.percentile(ttft, 50):.4f}"
+          f" s max {max(ttft):.4f} s; decode-only iterations "
+          f"{len(decode_only)}, mean "
+          f"{1e3 * sum(decode_only) / max(1, len(decode_only)):.3f} ms (host "
+          f"clock); decode steps {engine.kernel_calls}; evictions "
+          f"{sum(results[r]['request'].evictions for r in rids)}; launches "
+          f"{launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+
+def _per_slot_paged_path(torch, cfg, params, reqs, batched_results,
+                         batched_rids, pool, tables, toks, poss, live,
+                         slot_bound_ms, card):
+    """gemma-2b's requests once more through ServeEngine(batched=False):
+    each slot decodes alone through decode_step_paged, K5 at one slot (two
+    kernels a layer: the split blocks and their combine).  Its launches
+    are derived; one slot's decode step (from the batched check's pool)
+    agrees with the plain path; a 4-slot iteration of per-slot steps is
+    timed against 4 slot-steps' weight bytes."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving import ServeEngine, pages_needed
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServeEngine(cfg, params, max_slots=4, max_len=512,
+                         batched=False)
+    require(engine.paged and not engine.batched,
+            "batched=False must decode one paged slot at a time")
+    run = _run_engine(torch, engine, reqs)
+    rids, results, launches = run[:3]
+    _serve_line(torch, np, "path", reqs, *run, engine)
+    prefills = len(rids) + sum(results[r]["request"].evictions for r in rids)
+    L = cfg.n_layers
+    want = _zero_launches(K1=(prefills + engine.kernel_calls) * (6 * L + 1),
+                          K2=L * prefills, K5=L * engine.kernel_calls)
+    print(f"[path] batched=False: launches {launches} (derived {want}); "
+          f"K5 at one slot, {L} launches a slot's decode step", flush=True)
+    require(launches == want, "per-slot paged launches differ from the "
+            "derived counts")
+    same = sum(results[a]["tokens"] == batched_results[b]["tokens"]
+               for a, b in zip(rids, batched_rids))
+    print(f"[path] batched=False tokens equal to the batched engine's for "
+          f"{same} of {len(rids)} requests (K5 splits a slot's keys by the "
+          f"slot count, so the two sum them in other orders)", flush=True)
+
+    with torch.inference_mode():
+        slot = live[0]
+        n_pg = pages_needed(int(poss[slot]) + 1, engine.page)
+        one = dict(table=tables[slot, :n_pg].contiguous(), page=engine.page)
+        args = (toks[slot:slot + 1], poss[slot:slot + 1])
+        pools_r = {k: t.clone() for k, t in pool.pools.items()}
+        dk = transformer.decode_step_paged(params, cfg, *args, pool.pools,
+                                           **one)
+        with ops.reference_mode():
+            dr = transformer.decode_step_paged(params, cfg, *args, pools_r,
+                                               **one)
+        err = (dk - dr).abs().max().item()
+        scale = dr.abs().max().item()
+        require(bool(torch.isfinite(dk).all()), "per-slot decode logits not "
+                "finite")
+        print(f"[path] per-slot paged decode logits {tuple(dk.shape)} vs "
+              f"plain: max_abs_err={err:.3e} (tol {PATH_TOL:g} x "
+              f"{scale:.3g})", flush=True)
+        require(err <= PATH_TOL * scale, "per-slot decode disagrees with "
+                "plain")
+        # one iteration of 4 per-slot steps: the 3 live slots of the
+        # batched check and a fourth on the same pool
+        extra = pool.alloc(pages_needed(len(reqs[3][0]) + 1, engine.page))
+        lgt, cache = transformer.prefill(
+            params, cfg, torch.tensor([reqs[3][0]], device="cuda"))
+        pool.write_prefill(cache, extra, len(reqs[3][0]))
+        dev = lambda x: torch.tensor(x, dtype=torch.int32, device="cuda")
+        steps = [(toks[s:s + 1], poss[s:s + 1], tables[s, :pages_needed(
+            int(poss[s]) + 1, engine.page)].contiguous()) for s in live]
+        steps.append((lgt.argmax(-1), dev([len(reqs[3][0])]), dev(extra)))
+
+        def iteration():
+            return torch.cat([torch.argmax(transformer.decode_step_paged(
+                params, cfg, t, p, pool.pools, table=tb, page=engine.page),
+                dim=-1) for t, p, tb in steps])
+
+        iteration()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            iteration()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        it_ms = time_ms(torch, iteration)
+        print(f"[path] batched=False decode iteration (4 slots, per-slot "
+              f"steps, no host sync under sync debug 'error'): {it_ms:.3f} "
+              f"ms; bound 4 x {slot_bound_ms:.3f} = {4 * slot_bound_ms:.3f} "
+              f"ms (each slot-step reads every weight byte once; {card})",
+              flush=True)
+        profile_step(torch, iteration, what="per-slot paged decode")
     return launches
 
 
@@ -920,14 +1163,10 @@ def phase_train(torch):
     from repro_torch.configs import gemma_2b
     from repro_torch.hardware import H100, H100_PEAK_FLOPS
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer
     from repro_torch.train import train_step as ts
 
-    cfg = gemma_2b.full()
+    cfg, params = _model(torch, gemma_2b, trainable=True)
     require(cfg.remat, "gemma-2b trains with remat on")
-    params = transformer.init_lm(
-        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
-        trainable=True)
     batches = _batches(torch, cfg)
     n_params = sum(p.numel() for p in params.parameters())
     tokens = TRAIN_B * TRAIN_S
@@ -1041,18 +1280,43 @@ def phase_train(torch):
     return launches
 
 
-def _ssm_model(torch, trainable=False):
-    from repro_torch.configs import mamba2_780m
-    from repro_torch.models import transformer
-    cfg = mamba2_780m.full()
-    params = transformer.init_lm(
-        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
-        trainable=trainable)
-    return cfg, params
-
-
-def phase_ssm_path(torch):
+def _dense_reqs(cfg, n: int):
+    """``n`` requests from seed 0: prompts of 32-200 tokens (51-175 for
+    the first six), 16-32 new tokens, as gemma-2b's ``[path]`` draws
+    them."""
     import numpy as np
+    rng = np.random.default_rng(0)
+    return [(rng.integers(0, cfg.vocab_size, int(rng.integers(32, 201))
+                          ).tolist(), int(rng.integers(16, 33)))
+            for _ in range(n)]
+
+
+def _agree(torch, tag, what, kern, plain) -> None:
+    """``kern`` within PATH_TOL x max|plain| of ``plain``."""
+    require(bool(torch.isfinite(kern).all()), f"{tag}: {what} not finite")
+    err = (kern.float() - plain.float()).abs().max().item()
+    scale = plain.float().abs().max().item()
+    print(f"[{tag}] {what} {tuple(kern.shape)} vs plain: max_abs_err="
+          f"{err:.3e} (tol {PATH_TOL:g} x {scale:.3g})", flush=True)
+    require(err <= PATH_TOL * scale, f"{tag}: {what} disagrees with plain")
+
+
+def _step_bytes(params, cfg) -> int:
+    """The weight bytes a decode step must read: every parameter, but of
+    an untied embedding table the token's row only (a tied table is read
+    whole by the head)."""
+    total = sum(p.numel() * p.element_size() for p in params.parameters())
+    if not cfg.tie_embeddings:
+        t = params["embed"]["table"]
+        total -= (t.shape[0] - 1) * t.shape[1] * t.element_size()
+    return total
+
+
+def phase_stablelm_path(torch, card):
+    """stablelm-1.6b at full width served through contiguous per-slot
+    caches (G = 1 is not paged-capable, as in the reference)."""
+    import numpy as np
+    from repro_torch.configs import stablelm_1_6b
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
     from repro_torch.serving import ServeEngine
@@ -1060,7 +1324,325 @@ def phase_ssm_path(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg, params = _ssm_model(torch)
+    cfg, params = _model(torch, stablelm_1_6b)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    all_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"[stablelm_path] stablelm-1.6b full width: {n_params / 1e9:.3f} B "
+          f"params bf16, init {time.perf_counter() - t0:.1f} s", flush=True)
+    engine = ServeEngine(cfg, params, max_slots=4, max_len=512)
+    require(engine.pool is None and not engine.paged, "stablelm (G = 1) "
+            "must serve through contiguous per-slot caches")
+    reqs = _dense_reqs(cfg, 6)
+    print(f"[stablelm_path] contiguous per-slot caches of 512; prompts "
+          f"{[len(p) for p, _ in reqs]} max_new {[n for _, n in reqs]}",
+          flush=True)
+    run = _run_engine(torch, engine, reqs)
+    rids, results, launches = run[:3]
+    _serve_line(torch, np, "stablelm_path", reqs, *run, engine)
+    L, prefills = cfg.n_layers, len(rids)
+    # K1: q, k, v, o, wi, wo a layer and the head, in a prefill and in a
+    # slot's decode step; K2 a layer in a prefill; the decode attends in
+    # plain PyTorch, as the reference's attention_decode does in jnp
+    want = _zero_launches(K1=(prefills + engine.kernel_calls) * (6 * L + 1),
+                          K2=L * prefills)
+    print(f"[stablelm_path] launches {launches} (derived {want})", flush=True)
+    require(launches == want, "stablelm serving launches differ from the "
+            "derived counts")
+
+    with torch.inference_mode():
+        prompt = torch.tensor([reqs[0][0]], device="cuda")
+        lk, ck = transformer.prefill(params, cfg, prompt)
+        with ops.reference_mode():
+            lr, cr = transformer.prefill(params, cfg, prompt)
+        _agree(torch, "stablelm_path", "prefill logits", lk, lr)
+        require(int(lk[0].argmax()) == results[rids[0]]["tokens"][0],
+                "engine's first token differs from a fresh prefill's")
+        tok = lk.argmax(-1)
+        pos = torch.tensor([prompt.shape[1]], dtype=torch.int32,
+                           device="cuda")
+        cache = transformer.prefill_cache_to_decode(cfg, ck, 512)
+        dk, _ = transformer.decode_step(params, cfg, tok, pos, cache)
+        with ops.reference_mode():
+            dr, _ = transformer.decode_step(
+                params, cfg, tok, pos,
+                transformer.prefill_cache_to_decode(cfg, cr, 512))
+        _agree(torch, "stablelm_path", "contiguous decode logits", dk, dr)
+        del ck, cr
+
+        step = lambda: transformer.decode_step(params, cfg, tok, pos, cache)
+        step()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        step_ms = time_ms(torch, step)
+        w_bytes = _step_bytes(params, cfg)
+        c_bytes = 2 * cache["layers"].k.numel() * 2
+        b_ms, _ = bound(0.0, w_bytes + c_bytes, "bfloat16")
+        print(f"[stablelm_path] decode step (1 slot, cache of 512), no host "
+              f"sync under sync debug 'error': {step_ms:.3f} ms; bound "
+              f"{b_ms:.3f} ms: weights {w_bytes / 1e9:.3f} GB (every "
+              f"parameter {all_bytes / 1e9:.3f} GB less the untied "
+              f"embedding table but one row) + K/V cache "
+              f"{c_bytes / 1e9:.3f} GB, at 3.35 TB/s ({card})", flush=True)
+        slots = []
+        for p, _ in reqs[1:5]:
+            lg, c = transformer.prefill(params, cfg,
+                                        torch.tensor([p], device="cuda"))
+            slots.append((lg.argmax(-1), torch.tensor(
+                [len(p)], dtype=torch.int32, device="cuda"),
+                transformer.prefill_cache_to_decode(cfg, c, 512)))
+
+        def iteration():
+            return torch.cat([torch.argmax(transformer.decode_step(
+                params, cfg, t, p, c)[0], dim=-1) for t, p, c in slots])
+
+        it_ms = time_ms(torch, iteration)
+        print(f"[stablelm_path] decode iteration (4 slots, per-slot steps): "
+              f"{it_ms:.3f} ms; bound 4 x {b_ms:.3f} = {4 * b_ms:.3f} ms "
+              f"({card})", flush=True)
+        profile_step(torch, step, what="stablelm decode")
+    return launches
+
+
+def _dense_grad_agreement(torch, tag, cfg, params, batch):
+    """Step 1's loss and gradients through the kernels against the plain
+    versions, in f32 (the same weights, exact in f32) and in bf16, each
+    held as ``[train]`` holds gemma-2b's bf16 step: the loss within
+    LOSS_TOL, each gradient leaf within GRAD_TOL in relative norm.
+    Returns the bf16 kernels' loss."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_step as ts
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.with_(dtype=dtype)
+        prm = _f32_copy(params, trainable=True) if dtype == "float32" \
+            else params
+        loss_k, _, gk = ts.loss_and_grads(prm, c, batch)
+        with ops.reference_mode():
+            loss_p, _, gp = ts.loss_and_grads(prm, c, batch)
+        lk, lp = loss_k.item(), loss_p.item()
+        print(f"[{tag}] {dtype} step-1 loss kernels {lk:.6f} plain {lp:.6f} "
+              f"rel {abs(lk - lp) / abs(lp):.3e} (tol {LOSS_TOL:g})",
+              flush=True)
+        require(abs(lk - lp) <= LOSS_TOL * abs(lp), f"{dtype} loss "
+                f"disagrees with plain")
+        worst = 0.0
+        for name in gk:
+            require(bool(torch.isfinite(gk[name]).all()),
+                    f"{name}: non-finite {dtype} grad")
+            rel = _rel(torch, gk[name], gp[name], norm=True)
+            worst = max(worst, rel)
+            print(f"[{tag}]   {dtype} grad {name} {tuple(gk[name].shape)}: "
+                  f"rel norm err {rel:.3e}", flush=True)
+            require(rel <= GRAD_TOL, f"{name}: {dtype} gradient disagrees "
+                    f"with plain")
+        print(f"[{tag}] {dtype} step-1 gradients vs plain: worst rel norm "
+              f"err {worst:.3e} (tol {GRAD_TOL:g}) over {len(gk)} leaves",
+              flush=True)
+        del gk, gp, prm
+    return lk
+
+
+def phase_stablelm_train(torch, card):
+    """stablelm-1.6b at full width: 3 AdamW steps of make_train_step at
+    B=2 S=2048 in its 2 microbatches, remat on."""
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.hardware import H100, H100_PEAK_FLOPS
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_step as ts
+
+    cfg, params = _model(torch, stablelm_1_6b, trainable=True)
+    mb = cfg.train_microbatches
+    require(cfg.remat and mb == 2, "stablelm-1.6b trains in 2 microbatches "
+            "with remat on")
+    data = SyntheticLM(PipelineConfig(cfg.vocab_size, STABLELM_S, STABLELM_B,
+                                      seed=0))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                data.global_batch(i).items()} for i in range(TRAIN_STEPS)]
+    n_params = sum(p.numel() for p in params.parameters())
+    tokens = STABLELM_B * STABLELM_S
+    lk = _dense_grad_agreement(torch, "stablelm_train", cfg, params,
+                               batches[0])
+    torch.cuda.empty_cache()
+
+    state = ts.init_state(cfg, params, "cuda")
+    step = ts.make_train_step(cfg, microbatches=mb)
+    before = {k: t.reshape(-1)[:4096].clone()
+              for k, t in state.opt.master.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rows = []
+    for i, batch in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if i == len(batches) - 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            start.record()
+            state, metrics = step(state, batch)
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
+        rows.append((ms, loss, gnorm))
+        print(f"[stablelm_train] step {i + 1}: {ms:.3f} ms, "
+              f"{tokens / ms * 1e3:.1f} tok/s, loss {loss:.6f}, grad_norm "
+              f"{gnorm:.6f}", flush=True)
+        require(math.isfinite(loss) and math.isfinite(gnorm),
+                f"step {i + 1}: loss or grad norm not finite")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print("[stablelm_train] step 3 ran with no host sync (sync debug mode "
+          "'error')", flush=True)
+    # the step's loss is the mean of its microbatches' means: the whole
+    # batch's mean up to the order of the f32 sums
+    require(abs(rows[0][1] - lk) <= 1e-5 * abs(lk), f"step 1's loss "
+            f"{rows[0][1]} != the kernels' loss_and_grads {lk}")
+    changed = sum(not torch.equal(before[k], t.reshape(-1)[:4096])
+                  for k, t in state.opt.master.items())
+    require(changed == len(before), f"only {changed} of {len(before)} f32 "
+            f"master leaves changed")
+    L, n = cfg.n_layers, TRAIN_STEPS * mb
+    # per microbatch, as gemma-2b's [train]: K1 6 products a layer + the
+    # head, the 6 L again under remat, 2 VJP products for each of the
+    # 6 L + 1; K2 a layer forward and in its remat rerun; K3, K4 a layer
+    want = _zero_launches(K1=n * (6 * L + 1 + 6 * L + 2 * (6 * L + 1)),
+                          K2=n * 2 * L, K3=n * L, K4=n * L)
+    print(f"[stablelm_train] launches over {TRAIN_STEPS} steps of {mb} "
+          f"microbatches {launches} (derived {want})", flush=True)
+    require(launches == want, "kernel launches differ from the derived "
+            "counts")
+    # the bound as [train]'s: the products (3x the forward's) and the
+    # attention at the bf16 peak, AdamW's 28 B a parameter at 3.35 TB/s
+    mm_params = sum(p.numel() for name, p in params.named_parameters()
+                    if name.endswith(("wq", "wk", "wv", "wo", "wi",
+                                      "unembed.w")))
+    pairs = STABLELM_B * STABLELM_S * (STABLELM_S + 1) // 2
+    flops = 3 * (2 * tokens * mm_params
+                 + L * 4 * pairs * cfg.n_heads * cfg.head_dim_)
+    ops_ms = flops / H100_PEAK_FLOPS["bfloat16"] * 1e3
+    opt_ms = n_params * 28 / H100.hbm.bandwidth_Bps * 1e3
+    mean_ms = sum(r[0] for r in rows[1:]) / (len(rows) - 1)
+    print(f"[stablelm_train] stablelm-1.6b full width, {n_params / 1e9:.3f} "
+          f"B params, B={STABLELM_B} S={STABLELM_S} in {mb} microbatches: "
+          f"step ms {[round(r[0], 3) for r in rows]} (steps 2-3 mean "
+          f"{mean_ms:.3f} ms, {tokens / mean_ms * 1e3:.1f} tok/s); peak "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"[stablelm_train] bound: products {flops / 1e12:.3f} TFLOP at 989 "
+          f"TFLOP/s = {ops_ms:.3f} ms + AdamW {n_params * 28 / 1e9:.3f} GB at "
+          f"3.35 TB/s = {opt_ms:.3f} ms = {ops_ms + opt_ms:.3f} ms ({card})",
+          flush=True)
+    profile_step(torch, lambda: step(state, batches[0]), n=1,
+                 what="stablelm train")
+    return launches
+
+
+def phase_cmdr_path(torch, card):
+    """command-r-plus-104b at full width, cut to CMDR_LAYERS layers: the
+    batched paged ServeEngine (G = 12), then greedy_generate at B=1."""
+    import numpy as np
+    from repro_torch.configs import command_r_plus_104b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving import ServeEngine
+    from repro_torch.train import serve_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = _model(torch, command_r_plus_104b, CMDR_LAYERS)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[cmdr_path] command-r-plus-104b full width, {CMDR_LAYERS} of 64 "
+          f"layers: {n_params / 1e9:.3f} B params bf16 (the tied 256000 x "
+          f"12288 table {cfg.vocab_size * cfg.d_model / 1e9:.3f} B), init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    engine = ServeEngine(cfg, params, max_slots=4, max_len=512)
+    require(engine.batched, "command-r (G = 12) must serve batched paged")
+    reqs = _dense_reqs(cfg, 4)
+    print(f"[cmdr_path] page={engine.page} prompts "
+          f"{[len(p) for p, _ in reqs]} max_new {[n for _, n in reqs]}",
+          flush=True)
+    run = _run_engine(torch, engine, reqs)
+    rids, results, launches = run[:3]
+    _serve_line(torch, np, "cmdr_path", reqs, *run, engine)
+    L = cfg.n_layers
+    prefills = len(rids) + sum(results[r]["request"].evictions for r in rids)
+    want = _zero_launches(K1=(prefills + engine.kernel_calls) * (6 * L + 1),
+                          K2=L * prefills, K5=L * engine.kernel_calls)
+    print(f"[cmdr_path] launches {launches} (derived {want})", flush=True)
+    require(launches == want, "command-r serving launches differ from the "
+            "derived counts")
+
+    # greedy_generate B=1: one prefill re-laid as the contiguous decode
+    # cache, then a decode step a token (K1 only; attention in plain
+    # PyTorch, as the reference's attention_decode in jnp)
+    prompt = torch.tensor([reqs[0][0][:CMDR_PROMPT]], device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = serve_step.greedy_generate(params, cfg, prompt, CMDR_NEW,
+                                         CMDR_CACHE)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen = dict(ops.LAUNCHES)
+    want_gen = _zero_launches(K1=(1 + CMDR_NEW) * (6 * L + 1), K2=L)
+    print(f"[cmdr_path] greedy_generate B=1 prompt {CMDR_PROMPT} + "
+          f"{CMDR_NEW} new, cache {CMDR_CACHE}: {gen_s:.3f} s "
+          f"({CMDR_NEW / gen_s:.1f} tok/s, host clock); launches {gen} "
+          f"(derived {want_gen})", flush=True)
+    require(out.shape == (1, CMDR_PROMPT + CMDR_NEW)
+            and torch.equal(out[:, :CMDR_PROMPT], prompt),
+            "greedy_generate's output is not the prompt and its new tokens")
+    require(gen == want_gen, "greedy_generate launches differ from the "
+            "derived counts")
+    for k, v in gen.items():
+        launches[k] += v
+
+    with torch.inference_mode():
+        lk, ck = transformer.prefill(params, cfg, prompt)
+        with ops.reference_mode():
+            lr, cr = transformer.prefill(params, cfg, prompt)
+        _agree(torch, "cmdr_path", "prefill logits", lk, lr)
+        require(int(lk[0].argmax()) == int(out[0, CMDR_PROMPT]),
+                "greedy_generate's first token differs from a fresh "
+                "prefill's")
+        tok = lk.argmax(-1)
+        pos = torch.tensor([CMDR_PROMPT], dtype=torch.int32, device="cuda")
+        dk, _ = transformer.decode_step(
+            params, cfg, tok, pos,
+            transformer.prefill_cache_to_decode(cfg, ck, CMDR_CACHE))
+        with ops.reference_mode():
+            dr, _ = transformer.decode_step(
+                params, cfg, tok, pos,
+                transformer.prefill_cache_to_decode(cfg, cr, CMDR_CACHE))
+        _agree(torch, "cmdr_path", "contiguous decode logits "
+               "(greedy_generate's step)", dk, dr)
+        del ck, cr, lr, dr
+    _batched_decode_check(torch, "cmdr_path", cfg, params, reqs,
+                          engine.page, card)
+    print(f"[cmdr_path] peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return launches
+
+
+def phase_ssm_path(torch):
+    import numpy as np
+    from repro_torch.configs import mamba2_780m
+    from repro_torch.models import transformer
+    from repro_torch.serving import ServeEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = _model(torch, mamba2_780m)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
@@ -1076,38 +1658,11 @@ def phase_ssm_path(torch):
     print(f"[ssm_path] prompts {[len(p) for p, _ in reqs]} max_new "
           f"{[n for _, n in reqs]}", flush=True)
 
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    clock = lambda: time.perf_counter() - t0
-    rids = [engine.submit(p, n, now=0.0) for p, n in reqs]
-    iters, first_seen, decode_only = 0, {}, []
-    while not engine.idle:
-        waiting, t_it = len(engine._waiting), time.perf_counter()
-        emitted = engine.step(clock())   # ends in the iteration's host read
-        if len(engine._waiting) == waiting:      # admitted nothing
-            decode_only.append(time.perf_counter() - t_it)
-        iters += 1
-        for rid, _ in emitted:
-            first_seen.setdefault(rid, clock())
-    torch.cuda.synchronize()
-    wall = clock()
-    launches = dict(ops.LAUNCHES)
-    results = engine.results()
-    n_tok = sum(len(results[r]["tokens"]) for r in rids)
-    ttft = [first_seen[r] for r in rids]      # all six submitted at t = 0
+    run = _run_engine(torch, engine, reqs)
+    rids, results, launches = run[:3]
+    _serve_line(torch, np, "ssm_path", reqs, *run, engine)
     prefills = len(rids)
     slot_steps = engine.kernel_calls
-    print(f"[ssm_path] {n_tok} tokens in {wall:.3f} s over {iters} "
-          f"iterations: {n_tok / wall:.1f} tok/s; TTFT p50 "
-          f"{np.percentile(ttft, 50):.4f} s max {max(ttft):.4f} s; decode-"
-          f"only iterations {len(decode_only)}, mean "
-          f"{1e3 * sum(decode_only) / max(1, len(decode_only)):.3f} ms "
-          f"(host clock, 1-4 live slots); slot decode steps {slot_steps}; "
-          f"launches {launches}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    require(all(len(results[r]["tokens"]) == n for r, (_, n)
-                in zip(rids, reqs)), "a request did not get max_new tokens")
     L = cfg.n_layers
     # K1 a prefill: w_in, w_out and the conv tail's w_in a layer, and the
     # head; a slot's decode step: w_in and w_out a layer, and the head
@@ -1365,13 +1920,14 @@ def _ssm_layer_grads(torch, cfg, params, batch):
 
 
 def phase_ssm_train(torch):
+    from repro_torch.configs import mamba2_780m
     from repro_torch.data import PipelineConfig, SyntheticLM
     from repro_torch.hardware import H100, H100_PEAK_FLOPS
     from repro_torch.kernels import ops
     from repro_torch.models import ssm
     from repro_torch.train import train_step as ts
 
-    cfg, params = _ssm_model(torch, trainable=True)
+    cfg, params = _model(torch, mamba2_780m, trainable=True)
     require(cfg.remat, "mamba2-780m trains with remat on")
     data = SyntheticLM(PipelineConfig(cfg.vocab_size, SSM_S, SSM_B, seed=0))
     batches = [{k: torch.from_numpy(v).cuda() for k, v in
@@ -1458,18 +2014,6 @@ def phase_ssm_train(torch):
     profile_step(torch, lambda: step(state, batches[0]), n=1,
                  what="ssm train")
     return launches
-
-
-def _hybrid_model(torch, n_layers=None, trainable=False):
-    from repro_torch.configs import recurrentgemma_9b
-    from repro_torch.models import transformer
-    cfg = recurrentgemma_9b.full()
-    if n_layers:
-        cfg = cfg.with_(n_layers=n_layers)
-    params = transformer.init_lm(
-        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
-        trainable=trainable)
-    return cfg, params
 
 
 def _hybrid_counts(cfg):
@@ -1649,6 +2193,7 @@ def _hybrid_layers(torch, cfg, params, tokens, cache, tok, pos):
 
 def phase_hybrid_path(torch):
     import numpy as np
+    from repro_torch.configs import recurrentgemma_9b
     from repro_torch.hardware import H100_PEAK_FLOPS
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
@@ -1657,7 +2202,7 @@ def phase_hybrid_path(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg, params = _hybrid_model(torch)
+    cfg, params = _model(torch, recurrentgemma_9b)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
@@ -1822,6 +2367,7 @@ def _hybrid_layer_grads(torch, cfg, params, batch):
 
 
 def phase_hybrid_train(torch):
+    from repro_torch.configs import recurrentgemma_9b
     from repro_torch.data import PipelineConfig, SyntheticLM
     from repro_torch.hardware import H100, H100_PEAK_FLOPS
     from repro_torch.kernels import ops
@@ -1829,7 +2375,8 @@ def phase_hybrid_train(torch):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cfg, params = _hybrid_model(torch, HYB_TRAIN_LAYERS, trainable=True)
+    cfg, params = _model(torch, recurrentgemma_9b, HYB_TRAIN_LAYERS,
+                         trainable=True)
     require(cfg.remat, "recurrentgemma-9b trains with remat on")
     data = SyntheticLM(PipelineConfig(cfg.vocab_size, HYB_S, HYB_B, seed=0))
     batches = [{k: torch.from_numpy(v).cuda() for k, v in
@@ -2235,8 +2782,10 @@ def profile_step(torch, step, n: int = 3, what: str = "decode") -> None:
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    kernels = sum(e.count for e in rows) / n
     print(f"[profile] {n} {what} steps: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)", flush=True)
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {kernels:.0f} "
+          f"device kernels and copies a step", flush=True)
     # the 12 largest rows, then every other row of the port's own kernels
     # (their symbols open with an anonymous namespace, PyTorch's name
     # at::), so each kernel's share of the step shows
@@ -2258,9 +2807,15 @@ def main() -> None:
     smi_line = phase_device(torch)
     phase_build()
     rec = phase_kernels(torch)
-    serve = phase_path(torch)
+    serve, serve_per_slot = phase_path(torch, smi_line)
     torch.cuda.empty_cache()
     train = phase_train(torch)
+    torch.cuda.empty_cache()
+    stablelm_serve = phase_stablelm_path(torch, smi_line)
+    torch.cuda.empty_cache()
+    stablelm_train = phase_stablelm_train(torch, smi_line)
+    torch.cuda.empty_cache()
+    cmdr_serve = phase_cmdr_path(torch, smi_line)
     torch.cuda.empty_cache()
     ssm_serve = phase_ssm_path(torch)
     torch.cuda.empty_cache()
@@ -2301,7 +2856,10 @@ def main() -> None:
             "K9": ("K9_semiring", src + "semiring.cu",
                    "src/repro/kernels/emit.py:125",
                    f"K9 float32 max-plus {MOA_BIG}x{MOA_BIG}x{MOA_BIG}")}
-    runs = {"path": serve, "train": train, "ssm_path": ssm_serve,
+    runs = {"path": serve, "path_per_slot": serve_per_slot, "train": train,
+            "stablelm_path": stablelm_serve,
+            "stablelm_train": stablelm_train, "cmdr_path": cmdr_serve,
+            "ssm_path": ssm_serve,
             "ssm_train": ssm_train, "hybrid_path": hybrid_serve,
             "hybrid_train": hybrid_train, "moa_path": moa}
     kernels = []

@@ -1,10 +1,11 @@
 """Model configurations the port serves (one module per architecture, as
 in ``repro.configs``)."""
-from repro_torch.configs import gemma_2b, mamba2_780m, recurrentgemma_9b
+from repro_torch.configs import (command_r_plus_104b, gemma_2b, mamba2_780m,
+                                 recurrentgemma_9b, stablelm_1_6b)
 from repro_torch.configs.common import ArchConfig
 
-ARCHS = {gemma_2b.ARCH_ID: gemma_2b, mamba2_780m.ARCH_ID: mamba2_780m,
-         recurrentgemma_9b.ARCH_ID: recurrentgemma_9b}
+ARCHS = {m.ARCH_ID: m for m in (gemma_2b, stablelm_1_6b, command_r_plus_104b,
+                                mamba2_780m, recurrentgemma_9b)}
 
 
 def get_config(arch_id: str, reduced: bool = False) -> ArchConfig:

@@ -29,7 +29,9 @@ stats``
 ``flash_dq``      K3 ``flash_bwd.cu``      ``emit._flash_dq_kind``
 ``flash_dkv``     K4 ``flash_bwd.cu``      ``emit._flash_dkv_kind``
 ``paged_decode_   K5 ``paged_decode.cu``   ``emit._windowed_decode_kind``
-batched``
+batched``,                                 (every slot in one launch;
+``paged_decode``                           one sequence: the same kernel
+                                           at one slot)
 ``scan_ssd``      K6 ``ssd.cu``            ``emit._ssd_kind`` (with its
                                            per-chunk ``h_in`` export)
 (its backward)    K7 ``ssd.cu``            ``emit._ssd_backward_kind``
@@ -634,7 +636,7 @@ def dkv_splits(b: int, sq: int, sk: int, kv: int, g: int, causal: bool,
 
 
 # ---------------------------------------------------------------------------
-# K5: batched paged decode
+# K5: paged decode, every slot in one launch or one sequence
 # ---------------------------------------------------------------------------
 
 def default_decode_page(view_tokens: int, hkv: int, g: int, hd: int,
@@ -727,6 +729,25 @@ def paged_decode_batched(q: torch.Tensor, k_pool: torch.Tensor,
             width, nsplit, float(scale), int(window), dtype)
     LAUNCHES["K5"] += 1
     return out
+
+
+def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 pos: torch.Tensor, table: torch.Tensor, *, page: int,
+                 scale: float, window: int = 0) -> torch.Tensor:
+    """One decode step of ONE sequence (the reference's ``paged_decode``):
+    ``q (KV, G, hd)``, the slab pools as in :func:`paged_decode_batched`,
+    ``pos (1,)`` int32 the query's position (>= 0) and ``table (width,)``
+    int32 its view->slab map, both on the device.  The same K5 kernel at
+    one slot (its splits are :func:`decode_splits` at one slot, so its
+    keys may be summed in another order than the same slot's in a batched
+    launch); the plain version is ``ref.paged_decode_batched`` at one slot.
+    Returns ``(KV, G, vd)`` f32."""
+    if q.dim() != 3 or table.dim() != 1 or pos.shape != (1,):
+        raise ValueError(f"paged_decode takes q (KV, G, hd), pos (1,) and "
+                         f"a 1-D table; got q {tuple(q.shape)}, pos "
+                         f"{tuple(pos.shape)}, table {tuple(table.shape)}")
+    return paged_decode_batched(q[None], k_pool, v_pool, pos, table[None],
+                                page=page, scale=scale, window=window)[0]
 
 
 # ---------------------------------------------------------------------------

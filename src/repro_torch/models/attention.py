@@ -1,6 +1,8 @@
-"""Attention (``repro.models.attention``): the prefill forward, the
-batched paged decode of the dense family and the ring-cache decode of the
-local (windowed) layers.
+"""Attention (``repro.models.attention``): the prefill forward, the dense
+family's decodes (contiguous per-slot caches, one sequence's paged view,
+every slot's paged views in one launch) and the ring-cache decode of the
+local (windowed) layers.  The q/k/v and output biases (``use_bias``) are
+added where the reference adds them.
 
 Grouped-query attention never repeats K/V heads: queries are reshaped to
 ``(kv_heads, group)`` and the kernels contract them against the
@@ -39,6 +41,36 @@ def _rope_pct(cfg: ArchConfig, hd: int) -> float:
     return 1.0 if cfg.rope_pct == 1.0 else (hd * cfg.rope_pct) / hd
 
 
+def _qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+         bias: bool = True):
+    """The q, k, v projections ``(B, S, heads, hd)`` of ``x (B, S, d)``:
+    plus their biases (``use_bias``; the reference's ring decode adds none,
+    ``bias=False``), then the rotary embedding of ``positions``
+    (broadcastable to ``(B, S)``) on the leading ``rope_pct`` of each
+    head."""
+    hd = p["wq"].shape[-1]
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if bias and cfg.use_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if cfg.rope_pct > 0:
+        sin, cos = rope_tables(positions, int(hd * cfg.rope_pct),
+                               cfg.rope_theta)
+        q = apply_rope(q, sin, cos, _rope_pct(cfg, hd))
+        k = apply_rope(k, sin, cos, _rope_pct(cfg, hd))
+    return q, k, v
+
+
+def _out(p, out: torch.Tensor, cfg: ArchConfig, dtype) -> torch.Tensor:
+    """The output projection of ``out (B, S, heads, hd)``, plus its bias
+    (``use_bias``)."""
+    o = _out_proj(out, p["wo"], dtype)
+    return o + p["bo"].to(dtype) if cfg.use_bias else o
+
+
 def attention_fwd(p, x: torch.Tensor, cfg: ArchConfig, *,
                   positions: torch.Tensor, window: int = 0,
                   prefix_len: int = 0) -> tuple[torch.Tensor, KV]:
@@ -47,20 +79,37 @@ def attention_fwd(p, x: torch.Tensor, cfg: ArchConfig, *,
     cache.  ``prefix_len > 0`` (the VLM prefix-LM) raises for now."""
     b, s, _ = x.shape
     hd = p["wq"].shape[-1]
-    scale = hd ** -0.5
-    q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
-    if cfg.rope_pct > 0:
-        sin, cos = rope_tables(positions, int(hd * cfg.rope_pct),
-                               cfg.rope_theta)
-        q = apply_rope(q, sin, cos, _rope_pct(cfg, hd))
-        k = apply_rope(k, sin, cos, _rope_pct(cfg, hd))
+    q, k, v = _qkv(p, x, cfg, positions)
     kvh = k.shape[2]
     qg = q.reshape(b, s, kvh, q.shape[2] // kvh, hd)
-    out = ops.attention(qg, k, v, scale=scale, causal=True, window=window,
-                        prefix_len=prefix_len)
-    return _out_proj(out, p["wo"], x.dtype), KV(k, v)
+    out = ops.attention(qg, k, v, scale=hd ** -0.5, causal=True,
+                        window=window, prefix_len=prefix_len)
+    return _out(p, out, cfg, x.dtype), KV(k, v)
+
+
+def attention_decode_paged(p, x: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, pos: torch.Tensor,
+                           cfg: ArchConfig, *, table: torch.Tensor,
+                           page: int, window: int = 0) -> torch.Tensor:
+    """One-token decode of ONE sequence against its paged view of the slab
+    pools, through K5 at one slot (``ops.paged_decode``).
+
+    x: (1, 1, d); pos: (1,) int32 the new token's position on the device;
+    ``table`` the (width,) int32 view->slab map on the device.  The new
+    K/V row is written into ``k_pool`` / ``v_pool`` IN PLACE at
+    ``table[pos // page] * page + pos % page`` (the reference returns new
+    pools).  Returns the output (1, 1, d)."""
+    hd = p["wq"].shape[-1]
+    q, k, v = _qkv(p, x, cfg, pos[:, None])
+    vpos = pos.long()
+    row = table.long()[vpos // page] * page + vpos % page
+    k_pool[row] = k[:, 0].to(k_pool.dtype)
+    v_pool[row] = v[:, 0].to(v_pool.dtype)
+    kvh, h = k_pool.shape[1], q.shape[2]
+    qg = q[0, 0].reshape(kvh, h // kvh, hd).to(k_pool.dtype)
+    ctx = ops.paged_decode(qg, k_pool, v_pool, pos, table, page=page,
+                           scale=hd ** -0.5, window=window)
+    return _out(p, ctx.reshape(1, 1, h, hd).to(x.dtype), cfg, x.dtype)
 
 
 def attention_decode_paged_batched(p, x: torch.Tensor, k_pool: torch.Tensor,
@@ -79,15 +128,7 @@ def attention_decode_paged_batched(p, x: torch.Tensor, k_pool: torch.Tensor,
     (same row, same value), so the scatter stays one launch with no host
     sync.  At least one slot must be live."""
     hd = p["wq"].shape[-1]
-    scale = hd ** -0.5
-    q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
-    if cfg.rope_pct > 0:
-        sin, cos = rope_tables(pos[:, None], int(hd * cfg.rope_pct),
-                               cfg.rope_theta)
-        q = apply_rope(q, sin, cos, _rope_pct(cfg, hd))
-        k = apply_rope(k, sin, cos, _rope_pct(cfg, hd))
+    q, k, v = _qkv(p, x, cfg, pos[:, None])
     slots = x.shape[0]
     vpos = pos.long()
     live = vpos >= 0
@@ -106,9 +147,9 @@ def attention_decode_paged_batched(p, x: torch.Tensor, k_pool: torch.Tensor,
     h = q.shape[2]
     qg = q[:, 0].reshape(slots, kvh, h // kvh, hd).to(k_pool.dtype)
     ctx = ops.paged_decode_batched(qg, k_pool, v_pool, pos, tables,
-                                   page=page, scale=scale, window=window)
-    out = ctx.reshape(slots, 1, h, hd).to(x.dtype)
-    return _out_proj(out, p["wo"], x.dtype)
+                                   page=page, scale=hd ** -0.5,
+                                   window=window)
+    return _out(p, ctx.reshape(slots, 1, h, hd).to(x.dtype), cfg, x.dtype)
 
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor,
@@ -137,6 +178,33 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, kv * g, hd)
 
 
+def attention_decode(p, x: torch.Tensor, cache: KV, pos: torch.Tensor,
+                     cfg: ArchConfig, *, window: int = 0
+                     ) -> tuple[torch.Tensor, KV]:
+    """One-token decode against contiguous caches.  x: (B, 1, d); ``cache``
+    k/v (B, cache_len, KV, hd); ``pos (B,)`` the new token's absolute
+    positions on the device.  The new K/V are written at ``pos`` (a one-hot
+    select), and each row attends to the keys at positions ``<= pos`` (and
+    ``> pos - window`` with a window).  Returns the output and a new cache
+    (the input cache is not written).  The reference computes this in jnp
+    with no Pallas kernel; so does the port, in plain PyTorch (its
+    projections through K1)."""
+    b = x.shape[0]
+    hd = p["wq"].shape[-1]
+    q, k, v = _qkv(p, x, cfg, pos[:, None])
+    pos = pos.long()
+    ck = _cache_write(cache.k, k, pos)
+    cv = _cache_write(cache.v, v, pos)
+    kpos = torch.arange(ck.shape[1], device=x.device)[None, :]
+    valid = kpos <= pos[:, None]
+    if window > 0:
+        valid = valid & (kpos > pos[:, None] - window)
+    kvh = ck.shape[2]
+    qg = q.reshape(b, 1, kvh, q.shape[2] // kvh, hd)
+    out = _attend(qg, ck, cv, valid[:, None, None, None, :], hd ** -0.5)
+    return _out(p, out, cfg, x.dtype), KV(ck, cv)
+
+
 def attention_decode_ring(p, x: torch.Tensor, cache: KV, pos: torch.Tensor,
                           cfg: ArchConfig) -> tuple[torch.Tensor, KV]:
     """One-token decode against a RING cache for windowed (local)
@@ -152,16 +220,8 @@ def attention_decode_ring(p, x: torch.Tensor, cache: KV, pos: torch.Tensor,
     port, in plain PyTorch."""
     b = x.shape[0]
     hd = p["wq"].shape[-1]
-    scale = hd ** -0.5
     wlen = cache.k.shape[1]
-    q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
-    if cfg.rope_pct > 0:
-        sin, cos = rope_tables(pos[:, None], int(hd * cfg.rope_pct),
-                               cfg.rope_theta)
-        q = apply_rope(q, sin, cos, _rope_pct(cfg, hd))
-        k = apply_rope(k, sin, cos, _rope_pct(cfg, hd))
+    q, k, v = _qkv(p, x, cfg, pos[:, None], bias=False)
     pos = pos.long()
     slot = pos % wlen
     ck = _cache_write(cache.k, k, slot)
@@ -171,5 +231,5 @@ def attention_decode_ring(p, x: torch.Tensor, cache: KV, pos: torch.Tensor,
     mask = (kpos >= 0)[:, None, None, None, :]
     kvh = ck.shape[2]
     qg = q.reshape(b, 1, kvh, q.shape[2] // kvh, hd)
-    out = _attend(qg, ck, cv, mask, scale)
-    return _out_proj(out, p["wo"], x.dtype), KV(ck, cv)
+    out = _attend(qg, ck, cv, mask, hd ** -0.5)
+    return _out(p, out, cfg, x.dtype), KV(ck, cv)

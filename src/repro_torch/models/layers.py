@@ -2,10 +2,9 @@
 embedding and the vocab head (``repro.models.layers``).
 
 Plain functions over parameter dicts (``nn.ParameterDict`` or any mapping
-of tensors), for the configs ``models.transformer`` accepts (RMSNorm, no
-biases).  Norms and softmax run in f32; every product goes through
-``ops.matmul`` (f32 accumulate), with the reference's casts at the same
-places.
+of tensors): RMSNorm or LayerNorm, the MLP with or without its biases.
+Norms and softmax run in f32; every product goes through ``ops.matmul``
+(f32 accumulate), with the reference's casts at the same places.
 """
 from __future__ import annotations
 
@@ -18,9 +17,18 @@ from repro_torch.kernels import ops
 
 def apply_norm(p, x: torch.Tensor, cfg: ArchConfig,
                eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in f32: ``x * rsqrt(mean(x^2) + eps) * scale`` (no ``1 +
-    scale``), cast back to x's dtype."""
+    """In f32, cast back to x's dtype.  RMSNorm: ``x * rsqrt(mean(x^2) +
+    eps) * scale`` (no ``1 + scale``).  LayerNorm: ``(x - mean) *
+    rsqrt(var + eps) * scale (+ bias)``, the population variance, and the
+    bias only where the leaf exists (``use_bias``)."""
     xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"].float()
+        if "bias" in p:
+            out = out + p["bias"].float()
+        return out.to(x.dtype)
     ms = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * p["scale"].float()).to(x.dtype)
 
@@ -32,14 +40,20 @@ def _gate_act(cfg: ArchConfig, u: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    # the first product stays f32 through the activation
+    # the first product stays f32 through the activation; the biases
+    # (use_bias) join the f32 pre-activation and the output in x's dtype
     h = ops.matmul(x, p["wi"], out_dtype=torch.float32)
+    if cfg.use_bias:
+        h = h + p["bi"].float()
     if cfg.mlp in ("swiglu", "geglu"):
         u, v = h.chunk(2, dim=-1)
         h = _gate_act(cfg, u) * v
     else:
         h = _gate_act(cfg, h)
-    return ops.matmul(h.to(x.dtype), p["wo"], out_dtype=x.dtype)
+    out = ops.matmul(h.to(x.dtype), p["wo"], out_dtype=x.dtype)
+    if cfg.use_bias:
+        out = out + p["bo"].to(x.dtype)
+    return out
 
 
 def rope_tables(positions: torch.Tensor, dim: int, theta: float

@@ -1,6 +1,7 @@
 """Decoder-LM assembly (``repro.models.transformer``) for the dense family
-with full attention, the attention-free ssm (Mamba-2) family and the hybrid
-(RG-LRU + local attention) family.
+with full attention (RMSNorm or LayerNorm, with or without biases,
+sequential or parallel blocks), the attention-free ssm (Mamba-2) family and
+the hybrid (RG-LRU + local attention) family.
 
 Parameters are a nested ``nn.ModuleDict`` of ``nn.ParameterDict``s with the
 reference's names and layouts — layer stacks keep their leading ``layers``
@@ -20,13 +21,15 @@ Entry points:
     forward(params, cfg, tokens, want_cache)   -> (hidden, cache)
     lm_loss(params, cfg, tokens, targets)      -> (loss, metrics)
     prefill(params, cfg, tokens)               -> (logits, cache)
+    init_cache(cfg, batch, cache_len, ...)     -> decode cache
+    decode_step(params, cfg, tokens, pos, cache) -> (logits, cache)
+    dense, ssm:
+            prefill_cache_to_decode(cfg, cache, cache_len) -> decode cache
     dense:  init_paged_pools(cfg, pool_tokens, ...) -> {"k", "v"}
+            decode_step_paged(params, cfg, tokens, pos, pools, table,
+                              page)            -> logits  (one sequence)
             decode_step_paged_batched(params, cfg, tokens, pos, pools,
                                       tables, page)    -> logits
-    ssm, hybrid:
-            init_cache(cfg, batch, cache_len, ...)  -> decode cache
-            decode_step(params, cfg, tokens, pos, cache) -> (logits, cache)
-    ssm:    prefill_cache_to_decode(cfg, cache, cache_len) -> decode cache
 """
 from __future__ import annotations
 
@@ -52,28 +55,38 @@ def _check_family(cfg: ArchConfig, what: str,
             f"(family, attention); family={cfg.family!r} "
             f"attention={cfg.attention!r} is not ported yet (ROADMAP.md, "
             f"Queue 1)")
-    if cfg.use_bias or cfg.norm != "rmsnorm" or cfg.parallel_block:
-        raise NotImplementedError(
-            f"{what}: biases, layernorm and parallel blocks are not ported "
-            f"yet (ROADMAP.md, Queue 1)")
 
 
 def _attn_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    return {"wq": (lead + (d, h, hd), d ** -0.5),
-            "wk": (lead + (d, kv, hd), d ** -0.5),
-            "wv": (lead + (d, kv, hd), d ** -0.5),
-            "wo": (lead + (h, hd, d), (h * hd) ** -0.5)}
+    shapes = {"wq": (lead + (d, h, hd), d ** -0.5),
+              "wk": (lead + (d, kv, hd), d ** -0.5),
+              "wv": (lead + (d, kv, hd), d ** -0.5),
+              "wo": (lead + (h, hd, d), (h * hd) ** -0.5)}
+    if cfg.use_bias:
+        shapes.update({"bq": (lead + (h, hd), "zeros"),
+                       "bk": (lead + (kv, hd), "zeros"),
+                       "bv": (lead + (kv, hd), "zeros"),
+                       "bo": (lead + (d,), "zeros")})
+    return shapes
 
 
 def _mlp_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     wi = 2 * f if cfg.mlp in ("swiglu", "geglu") else f
-    return {"wi": (lead + (d, wi), d ** -0.5), "wo": (lead + (f, d), f ** -0.5)}
+    shapes = {"wi": (lead + (d, wi), d ** -0.5),
+              "wo": (lead + (f, d), f ** -0.5)}
+    if cfg.use_bias:
+        shapes.update({"bi": (lead + (wi,), "zeros"),
+                       "bo": (lead + (d,), "zeros")})
+    return shapes
 
 
 def _norm_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
-    return {"scale": (lead + (cfg.d_model,), "ones")}
+    shapes = {"scale": (lead + (cfg.d_model,), "ones")}
+    if cfg.norm == "layernorm" and cfg.use_bias:
+        shapes["bias"] = (lead + (cfg.d_model,), "zeros")
+    return shapes
 
 
 def hybrid_layout(cfg: ArchConfig) -> tuple[int, int, int, int]:
@@ -116,9 +129,10 @@ def param_shapes(cfg: ArchConfig) -> dict:
                            "tail.rec": rglru.param_shapes(cfg, (tail,)),
                            "tail.mlp": _mlp_shapes(cfg, (tail,))})
     else:
-        shapes.update({"layers.ln1": _norm_shapes(cfg, (L,)),
-                       "layers.ln2": _norm_shapes(cfg, (L,)),
-                       "layers.attn": _attn_shapes(cfg, (L,)),
+        shapes["layers.ln1"] = _norm_shapes(cfg, (L,))
+        if not cfg.parallel_block:
+            shapes["layers.ln2"] = _norm_shapes(cfg, (L,))
+        shapes.update({"layers.attn": _attn_shapes(cfg, (L,)),
                        "layers.mlp": _mlp_shapes(cfg, (L,))})
     return shapes
 
@@ -211,6 +225,17 @@ def _hybrid_layers(params, cfg: ArchConfig) -> list[tuple[str, dict]]:
     return out
 
 
+def _with_mlp(lp: dict, x: torch.Tensor, h: torch.Tensor,
+              a_out: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The residual after an attention layer's MLP: ``x + a_out +
+    mlp(h)`` on the attention's normed input ``h`` (``parallel_block``),
+    else ``x + a_out`` then its MLP behind the second norm."""
+    if cfg.parallel_block:
+        return x + a_out + apply_mlp(lp["mlp"], h, cfg)
+    x = x + a_out
+    return x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg)
+
+
 def _block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
            positions: torch.Tensor, want_cache: bool):
     """One pre-norm attention layer (dense, or the hybrid's local layer):
@@ -218,9 +243,7 @@ def _block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
     h = apply_norm(lp["ln1"], x, cfg)
     a_out, kv = attn.attention_fwd(lp["attn"], h, cfg, positions=positions,
                                    window=cfg.local_window)
-    x = x + a_out
-    h2 = apply_norm(lp["ln2"], x, cfg)
-    return x + apply_mlp(lp["mlp"], h2, cfg), kv
+    return _with_mlp(lp, x, h, a_out, cfg), kv
 
 
 def _ssm_block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -332,14 +355,20 @@ def _repeat(cache, lead: tuple[int, ...]):
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device="cuda") -> dict:
-    """The decode cache, zeros.  The ssm family's is ``{"layers":
-    SSMCache}`` stacked over the layers (its size does not depend on
-    ``cache_len``); the hybrid's ``{"rec": RGLRUCache (g, n_rec, ...),
-    "att": KV (g, n_att, B, W, KV, hd), "tail": RGLRUCache (tail, ...)}``,
-    the local layers' RING caches ``W = min(local_window, cache_len)``
-    long.  The dense family decodes through paged pools
-    (``init_paged_pools``)."""
-    _check_family(cfg, "init_cache", (SSM, HYBRID))
+    """The contiguous decode cache, zeros.  The dense family's is
+    ``{"layers": KV}``, k/v ``(L, B, cache_len, KV, hd)`` (with a
+    ``local_window`` it is read as a RING of ``cache_len`` slots, as in the
+    reference); the ssm family's ``{"layers": SSMCache}`` stacked over the
+    layers (its size does not depend on ``cache_len``); the hybrid's
+    ``{"rec": RGLRUCache (g, n_rec, ...), "att": KV (g, n_att, B, W, KV,
+    hd), "tail": RGLRUCache (tail, ...)}``, the local layers' ring caches
+    ``W = min(local_window, cache_len)`` long."""
+    _check_family(cfg, "init_cache")
+    if cfg.family == "dense":
+        kv = torch.zeros((cfg.n_layers, batch, cache_len, cfg.n_kv_heads,
+                          cfg.head_dim_), dtype=dtype,
+                         device=resolve_device(device))
+        return {"layers": attn.KV(kv, kv.clone())}
     if cfg.family == "ssm":
         return {"layers": _repeat(
             ssm.init_ssm_cache(cfg, batch, dtype, device), (cfg.n_layers,))}
@@ -355,14 +384,32 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
     return out
 
 
+def has_prefill_decode_relayout(cfg: ArchConfig) -> bool:
+    """True when :func:`prefill_cache_to_decode` can re-lay this family's
+    prefill cache (a rule on the config alone, as in the reference)."""
+    return ((cfg.family == "dense" and not cfg.local_window)
+            or cfg.family == "ssm")
+
+
 def prefill_cache_to_decode(cfg: ArchConfig, cache, cache_len: int) -> dict:
-    """Re-lay a prefill cache as a decode cache: the ssm cache carries
-    forward unchanged (the final state IS the decode state).  The hybrid
-    family has no such re-layout in the reference (ring caches, grouped
-    layers): it ingests its prompt token by token
-    (``train.serve_step.greedy_generate``)."""
-    _check_family(cfg, "prefill_cache_to_decode", (SSM,))
-    return {"layers": cache}
+    """Re-lay a prefill cache as a decode cache: the dense family's K/V
+    ``(L, B, S, KV, hd)`` padded with zeros along the sequence to
+    ``cache_len`` (later positions stay masked until written); the ssm
+    cache carries forward unchanged (the final state IS the decode state).
+    The windowed dense and the hybrid families have no such re-layout in
+    the reference (ring caches, grouped layers): they ingest their prompt
+    token by token (``train.serve_step.greedy_generate``)."""
+    _check_family(cfg, "prefill_cache_to_decode", (DENSE, SSM))
+    if not has_prefill_decode_relayout(cfg):
+        raise NotImplementedError(
+            "prefill_cache_to_decode: windowed dense layers decode from "
+            "ring caches, which have no prefill re-layout in the reference; "
+            "ingest the prompt token by token (greedy_generate)")
+    if cfg.family == "ssm":
+        return {"layers": cache}
+    pad = lambda t: torch.nn.functional.pad(
+        t, (0, 0, 0, 0, 0, cache_len - t.shape[2]))
+    return {"layers": attn.KV(pad(cache.k), pad(cache.v))}
 
 
 def _hybrid_decode_layer(kind: str, lp: dict, x: torch.Tensor, cache,
@@ -380,16 +427,27 @@ def _hybrid_decode_layer(kind: str, lp: dict, x: torch.Tensor, cache,
 
 def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, pos,
                 cache: dict) -> tuple[torch.Tensor, dict]:
-    """One decode step of the ssm or hybrid family.  ``tokens (B,)`` int on
-    the device; ``pos (B,)`` the new tokens' absolute positions on the
-    device, which the hybrid's ring caches read (the ssm family's state
-    carries the position, and ``pos`` is unused, as in the reference).
-    Returns ``(logits (B, vocab), the new cache)``; the step reads nothing
-    back to the host."""
-    _check_family(cfg, "decode_step", (SSM, HYBRID))
+    """One decode step over contiguous caches.  ``tokens (B,)`` int on the
+    device; ``pos (B,)`` the new tokens' absolute positions on the device,
+    which the dense caches and the hybrid's ring caches read (the ssm
+    family's state carries the position, and ``pos`` is unused, as in the
+    reference).  Returns ``(logits (B, vocab), the new cache)``; the step
+    reads nothing back to the host."""
+    _check_family(cfg, "decode_step")
     x = embed_tokens(params, tokens[:, None], cfg)
     new = []
-    if cfg.family == "ssm":
+    if cfg.family == "dense":
+        for lp, c in zip(_layers(params), _cache_slices(cache["layers"], 1)):
+            h = apply_norm(lp["ln1"], x, cfg)
+            if cfg.local_window:
+                a_out, c = attn.attention_decode_ring(lp["attn"], h, c, pos,
+                                                      cfg)
+            else:
+                a_out, c = attn.attention_decode(lp["attn"], h, c, pos, cfg)
+            x = _with_mlp(lp, x, h, a_out, cfg)
+            new.append(("dense", c))
+        new_cache = {"layers": _stack_caches(cfg, new)}
+    elif cfg.family == "ssm":
         for lp, c in zip(_layers(params), _cache_slices(cache["layers"], 1)):
             out, c = ssm.decode_mamba2(
                 lp["mixer"], apply_norm(lp["ln1"], x, cfg), c, cfg)
@@ -424,6 +482,27 @@ def init_paged_pools(cfg: ArchConfig, pool_tokens: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def decode_step_paged(params, cfg: ArchConfig, tokens: torch.Tensor,
+                      pos: torch.Tensor, pools: dict, *, table: torch.Tensor,
+                      page: int) -> torch.Tensor:
+    """One decode step of ONE sequence through its paged view: one K5
+    launch (at one slot) per layer.
+
+    tokens/pos: (1,) on the device (pos int32); ``table``: (width,) int32
+    view->slab map on the device.  The pools are updated IN PLACE.
+    Returns logits (1, vocab)."""
+    _check_family(cfg, "decode_step_paged", (DENSE,))
+    x = embed_tokens(params, tokens[:, None], cfg)
+    for i, lp in enumerate(_layers(params)):
+        h = apply_norm(lp["ln1"], x, cfg)
+        a_out = attn.attention_decode_paged(
+            lp["attn"], h, pools["k"][i], pools["v"][i], pos, cfg,
+            table=table, page=page, window=cfg.local_window)
+        x = _with_mlp(lp, x, h, a_out, cfg)
+    x = apply_norm(params["final_norm"], x, cfg)
+    return logits_from_hidden(params, x, cfg)[:, 0]
+
+
 def decode_step_paged_batched(params, cfg: ArchConfig, tokens: torch.Tensor,
                               pos: torch.Tensor, pools: dict, *,
                               tables: torch.Tensor, page: int
@@ -443,9 +522,7 @@ def decode_step_paged_batched(params, cfg: ArchConfig, tokens: torch.Tensor,
         a_out = attn.attention_decode_paged_batched(
             lp["attn"], h, pools["k"][i], pools["v"][i], pos, cfg,
             tables=tables, page=page, window=cfg.local_window)
-        x = x + a_out
-        h2 = apply_norm(lp["ln2"], x, cfg)
-        x = x + apply_mlp(lp["mlp"], h2, cfg)
+        x = _with_mlp(lp, x, h, a_out, cfg)
     x = apply_norm(params["final_norm"], x, cfg)
     return logits_from_hidden(params, x, cfg)[:, 0]
 

@@ -19,15 +19,18 @@ Under page pressure the engine preempts: the youngest other running
 sequence is evicted (slabs freed, request re-queued with its tokens so
 far) and re-prefills when re-admitted — recompute preemption.
 
-The ssm family (Mamba-2) has no paged view: each slot holds its own
-contiguous cache (the conv tail and the SSD state, carried forward from
-its prefill) and decodes alone, one ``decode_step`` per slot, with the
-greedy argmax on the device and still ONE host transfer per iteration
-after every slot has launched.  Each slot's next input token stays on the
-device.  Other contiguous families and ``batched=False`` on the paged
-path raise ``NotImplementedError``; so does the hybrid family, which the
-reference's engine cannot serve either (``greedy_generate`` is its
-generation entry).
+Families without a paged view serve through contiguous per-slot caches,
+carried forward from each slot's prefill: the ssm family (Mamba-2: the conv
+tail and the SSD state) and dense models that are not paged-capable
+(multi-head attention, G = 1, e.g. stablelm-1.6b: their K/V padded to
+``max_len``).  Each slot decodes alone, one ``decode_step`` per slot, with
+the greedy argmax on the device and still ONE host transfer per iteration
+after every slot has launched; each slot's next input token stays on the
+device.  ``batched=False`` on a paged-capable model takes the same
+per-slot loop through ``decode_step_paged``: one K5 launch (at one slot)
+per layer and slot, each slot reading its own page table.  The hybrid
+family raises ``NotImplementedError``: the reference's engine cannot serve
+it either (``greedy_generate`` is its generation entry).
 """
 from __future__ import annotations
 
@@ -65,7 +68,7 @@ class _Slot:
     row: int = -1                                 # stacked-table row
     cache: Optional[dict] = None                  # contiguous families
     #: the last argmax, (1,) on the device: the prefill's first token, then
-    #: (contiguous families) each decode step's, fed to the next step
+    #: (per-slot decode) each decode step's, fed to the next step
     next_token: Optional[torch.Tensor] = None
 
 
@@ -84,8 +87,11 @@ class ServeEngine:
     sizes the shared slab pool; ``page=None`` derives the page size on the
     H100 table (``ops.default_decode_page``); ``dtype`` is the pool's
     (default: the parameters').  The pool and page apply to the paged
-    (dense) path only.  The caller supplies timestamps (``now``)
-    so latency metrics use one clock.  ``device`` defaults to ``"cuda"``.
+    (grouped dense) path only.  ``batched``: None or True decodes every
+    paged slot in one launch, False one slot at a time; True on a model
+    that is not paged-capable raises.  The caller supplies timestamps
+    (``now``) so latency metrics use one clock.  ``device`` defaults to
+    ``"cuda"``.
     """
 
     def __init__(self, cfg: ArchConfig, params, *,
@@ -104,19 +110,19 @@ class ServeEngine:
                 "cannot serve it there either; generate with "
                 "repro_torch.train.serve_step.greedy_generate, which ingests "
                 "the prompt token by token")
-        if not self.paged and cfg.family != "ssm":
+        if not self.paged and not transformer.has_prefill_decode_relayout(
+                cfg):
             raise NotImplementedError(
                 f"family {cfg.family!r}/{cfg.attention!r} serves through "
                 f"contiguous per-slot caches, which the port has for the "
-                f"ssm family only (ROADMAP.md, Queue 1)")
+                f"dense (full attention) and ssm families only (ROADMAP.md, "
+                f"Queue 1)")
         if batched and not self.paged:
             raise ValueError(
                 f"batched decode needs the paged path; family "
-                f"{cfg.family!r} serves contiguous")
-        if batched is False and self.paged:
-            raise NotImplementedError(
-                "the per-slot (batched=False) paged decode path is not "
-                "ported yet (ROADMAP.md, Queue 1)")
+                f"{cfg.family!r} with {cfg.n_heads} heads over "
+                f"{cfg.n_kv_heads} KV heads serves contiguous")
+        self.batched = self.paged and batched is not False
         self.cfg = cfg
         self.params = params
         self.max_slots = int(max_slots)
@@ -138,8 +144,8 @@ class ServeEngine:
             self.pool = PagePool(cfg, pool_pages, self.page, dtype,
                                  self.device)
         #: decode steps since construction: one per iteration that decoded
-        #: on the paged path (each launches K5 once per layer), one per
-        #: slot and iteration on the contiguous path
+        #: on the batched path (each launches K5 once per layer), one per
+        #: slot and iteration on the per-slot paths
         self.kernel_calls = 0
         #: device -> host transfers since construction: one per admitted
         #: prompt (its first token) and one per decode iteration
@@ -177,11 +183,12 @@ class ServeEngine:
         return rid
 
     def step(self, now: float = 0.0) -> list[tuple[int, int]]:
-        """One engine iteration: admit, then decode every active slot in
-        one batched step.  Returns the ``(rid, token)`` pairs emitted."""
+        """One engine iteration: admit, then decode every active slot: in
+        one batched step, or one step a slot.  Returns the ``(rid, token)``
+        pairs emitted."""
         with torch.inference_mode():
             emitted = self._admit(now)
-            if self.paged:
+            if self.batched:
                 emitted.extend(self._decode_batched(now))
             else:
                 emitted.extend(self._decode_sequential(now))
@@ -202,6 +209,10 @@ class ServeEngine:
                 for rid, req in self._done.items()}
 
     # -- scheduling --------------------------------------------------------
+
+    def _int32(self, x) -> torch.Tensor:
+        """A host list as an int32 tensor on the engine's device."""
+        return torch.tensor(x, dtype=torch.int32, device=self.device)
 
     def _to_host(self, t: torch.Tensor) -> list:
         """The engine's only device -> host read."""
@@ -231,9 +242,10 @@ class ServeEngine:
         slot = _Slot(req=req, tokens=tokens,
                      n_emitted=len(self._out[req.rid]))
         s0 = len(tokens)
-        if self.paged:
+        if self.batched:
             used = {s.row for s in self._slots}
             slot.row = min(i for i in range(self.max_slots) if i not in used)
+        if self.paged:
             slot.slabs = self.pool.alloc(pages_needed(s0, self.page))
         logits, cache = transformer.prefill(
             self.params, self.cfg,
@@ -282,11 +294,9 @@ class ServeEngine:
                 rows.append([0] * width)
                 toks.append(0)
                 poss.append(-1)
-        as_dev = lambda x: torch.tensor(x, dtype=torch.int32,
-                                        device=self.device)
         logits = transformer.decode_step_paged_batched(
-            self.params, self.cfg, as_dev(toks), as_dev(poss),
-            self.pool.pools, tables=as_dev(rows), page=self.page)
+            self.params, self.cfg, self._int32(toks), self._int32(poss),
+            self.pool.pools, tables=self._int32(rows), page=self.page)
         self.kernel_calls += 1
         next_toks = self._to_host(torch.argmax(logits, dim=-1))
         emitted = []
@@ -297,23 +307,42 @@ class ServeEngine:
         return emitted
 
     def _decode_sequential(self, now: float) -> list[tuple[int, int]]:
-        """The contiguous path: one ``decode_step`` per slot, fed the
-        slot's last token where it already lies on the device; the greedy
-        argmax stays on the device and the stacked tokens cross to the host
-        once, after every slot has launched."""
-        if not self._slots:
-            return []
-        picks = []
-        for slot in self._slots:
-            logits, slot.cache = transformer.decode_step(
-                self.params, self.cfg, slot.next_token, None, slot.cache)
+        """The per-slot paths (contiguous caches, or ``batched=False`` on
+        the paged path): one decode step per slot, fed the slot's last
+        token where it already lies on the device; the greedy argmax stays
+        on the device and the stacked tokens cross to the host once, after
+        every slot has launched.  A paged slot first grows its page table
+        (which may evict a later slot: it drops out of this iteration)."""
+        live = []
+        for slot in list(self._slots):
+            if slot not in self._slots:   # evicted by an earlier ensure
+                continue
+            pos = self._int32([len(slot.tokens) - 1])
+            if self.paged:
+                try:
+                    self._ensure_pages(slot, len(slot.tokens))
+                except OutOfPages:
+                    continue              # pool saturated; retry next step
+                logits = transformer.decode_step_paged(
+                    self.params, self.cfg, slot.next_token, pos,
+                    self.pool.pools, table=self._int32(slot.slabs),
+                    page=self.page)
+            else:
+                logits, slot.cache = transformer.decode_step(
+                    self.params, self.cfg, slot.next_token, pos, slot.cache)
             slot.next_token = torch.argmax(logits, dim=-1)
             self.kernel_calls += 1
-            picks.append(slot.next_token)
-        live = list(self._slots)
-        toks = self._to_host(torch.cat(picks))
+            live.append(slot)
+        if not live:
+            return []
+        toks = self._to_host(torch.cat([s.next_token for s in live]))
         emitted = []
         for slot, tok in zip(live, toks):
+            if slot not in self._slots:
+                # evicted after its launch by a later slot's allocation:
+                # drop the token; greedy decode recomputes it identically
+                # on re-admission
+                continue
             tok = self._emit(slot, int(tok), now)
             self._retire_if_done(slot, now)
             emitted.append((slot.req.rid, tok))

@@ -6,13 +6,13 @@ batched greedy generation loop.
     out = greedy_generate(params, cfg, prompt, n_new, cache_len)
 
 ``greedy_generate`` ingests the prompt as the reference does for each
-family: the ssm family in one prefill whose cache IS the decode cache
-(``transformer.prefill_cache_to_decode``); the hybrid family, whose ring
-caches and grouped layers have no forward-layout equivalent, token by
-token through ``decode_step``.  The dense family's contiguous decode
-(``attention_decode``) is not ported: it raises.  Positions are device
-tensors and the argmax runs on the device, so a step reads nothing back to
-the host.
+family: the dense (full attention) and ssm families in one prefill whose
+cache is re-laid as the decode cache (``transformer.
+prefill_cache_to_decode``: the dense K/V padded to ``cache_len``, the ssm
+state as it is); the hybrid family, whose ring caches and grouped layers
+have no forward-layout equivalent, token by token through ``decode_step``.
+Positions are device tensors and the argmax runs on the device, so a step
+reads nothing back to the host.
 """
 from __future__ import annotations
 
@@ -40,15 +40,10 @@ def greedy_generate(params, cfg: ArchConfig, prompt: torch.Tensor,
     n_new)``: the prompt, then ``n_new`` greedy tokens.  Each new token is
     one ``decode_step``, as in the reference (whose last step's logits go
     unused)."""
-    if cfg.family not in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"greedy_generate covers the ssm and hybrid families; family "
-            f"{cfg.family!r} decodes through the contiguous attention_decode, "
-            f"which is not ported (ROADMAP.md, Queue 1)")
     b, s0 = prompt.shape
     dev = prompt.device
     decode = make_decode(cfg)
-    if cfg.family == "ssm":
+    if transformer.has_prefill_decode_relayout(cfg):
         logits, fwd = make_prefill(cfg)(params, {"tokens": prompt})
         cache = transformer.prefill_cache_to_decode(cfg, fwd, cache_len)
     else:

@@ -413,14 +413,18 @@ def test_train_step_gradients_match_jax(hybrid):
 
 def test_engine_and_dense_generation_refuse_with_reasons(hybrid):
     """``ServeEngine`` refuses the hybrid family for the reference's own
-    reason and points to ``greedy_generate``; ``greedy_generate`` refuses
-    the dense family, whose contiguous decode is not ported."""
+    reason and points to ``greedy_generate``; ``greedy_generate`` runs the
+    dense family (its contiguous decode), where the hybrid's prefill
+    re-layout still raises."""
     from repro_torch.serving import ServeEngine
     *_, tcfg, tp = hybrid
     with pytest.raises(NotImplementedError, match="greedy_generate"):
         ServeEngine(tcfg, tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_step.greedy_generate(tp, port_config("gemma-2b", reduced=True),
-                                   torch.zeros(1, 3, dtype=torch.long), 2, 8)
+    gcfg = port_config("gemma-2b", reduced=True)
+    gp = tt.init_lm(gcfg, torch.Generator().manual_seed(0), device="cpu")
+    prompt = torch.tensor([[1, 2, 3]])
+    out = serve_step.greedy_generate(gp, gcfg, prompt, 2, 8)
+    assert out.shape == (1, 5) and torch.equal(out[:, :3], prompt)
+    assert ((out >= 0) & (out < gcfg.vocab_size)).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.prefill_cache_to_decode(tcfg, None, 8)

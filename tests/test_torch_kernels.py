@@ -48,12 +48,18 @@ FLASH_SHAPES = [(1, 70, 1, 8, 256, 0), (1, 130, 1, 8, 256, 33),
                 (1, 1000, 1, 2, 64, 0), (2, 512, 1, 8, 256, 0),
                 (2, 1000, 2, 16, 256, 300), (2, 1000, 2, 8, 128, 300),
                 (2, 1000, 2, 16, 64, 0)]
+#: the rest of the dense family: stablelm-1.6b's multi-head attention (G =
+#: 1, 32 KV heads of 64) at its training shape and ragged (130 rows of one
+#: head a tile), and command-r-plus-104b's GQA (8 KV heads, G = 12, hd 128)
+DENSE_FLASH_SHAPES = [(2, 2048, 32, 1, 64, 0), (1, 130, 32, 1, 64, 0),
+                      (1, 512, 8, 12, 128, 0)]
 
 
 @pytest.mark.h100
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,s,kv,g,hd,window", FLASH_SHAPES)
+@pytest.mark.parametrize("b,s,kv,g,hd,window",
+                         FLASH_SHAPES + DENSE_FLASH_SHAPES)
 def test_flash_kernel_matches_plain(h100, dtype, atol, b, s, kv, g, hd,
                                     window):
     q, k, v, _ = _attn_case(h100, dtype, b, s, g, hd, 1, kv=kv)
@@ -115,6 +121,12 @@ PAGED_SPLIT_CASES = [
     (4, 1, 8, 256, 16, 64, (40, 3, -1, 63), 0),
     (4, 1, 8, 256, 16, 200, (1130, 120, -1, 3000), 40),
     (3, 2, 4, 72, 4, 30, (100, 0, 57), 0),
+    # one slot at gemma-2b's shape (ServeEngine(batched=False)), and
+    # command-r-plus-104b's 8 KV heads of 128 under G = 12, at 4 slots and
+    # at one
+    (1, 1, 8, 256, 16, 32, (300,), 0),
+    (4, 8, 12, 128, 16, 32, (200, 37, -1, 511), 0),
+    (1, 8, 12, 128, 16, 32, (200,), 0),
 ]
 
 
@@ -153,6 +165,30 @@ def test_paged_decode_reruns_are_bit_identical(h100, dtype, case):
     first = ops.paged_decode_batched(q, kp, vp, pos, tables, **args)
     again = ops.paged_decode_batched(q, kp, vp, pos, tables, **args)
     assert torch.equal(first, again)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("kv,g,hd,width,position,window",
+                         [(1, 8, 256, 32, 300, 0), (8, 12, 128, 32, 200, 0),
+                          (2, 4, 72, 30, 57, 40)])
+def test_paged_decode_single_slot_matches_plain(h100, dtype, atol, kv, g, hd,
+                                                width, position, window):
+    """``ops.paged_decode``, one sequence (q (KV, G, hd), a 1-D table):
+    one K5 launch at one slot, against its plain version and against the
+    batched entry's plain version at one slot."""
+    q, kp, vp, pos, tables = _paged_case(h100, dtype, 1, kv, g, hd, 16,
+                                         width, (position,), 42)
+    args = dict(page=16, scale=hd ** -0.5, window=window)
+    got = ops.paged_decode(q[0], kp, vp, pos, tables[0], **args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K5"] == 1 and got.shape == (kv, g, hd)
+    want = ref.paged_decode_batched(q, kp, vp, pos, tables, **args)[0]
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    with ops.reference_mode():
+        plain = ops.paged_decode(q[0], kp, vp, pos, tables[0], **args)
+    assert torch.equal(plain, want) and ops.LAUNCHES["K5"] == 1
 
 
 _F32, _BF16 = torch.float32, torch.bfloat16
@@ -280,7 +316,8 @@ def _attn_case(dev, dtype, b, s, g, hd, seed, kv=1):
 @pytest.mark.parametrize("dtype", [_F32, _BF16])
 @pytest.mark.parametrize("b,s,kv,g,hd,window",
                          [(2, 70, 1, 8, 256, 0), (2, 130, 1, 8, 256, 33),
-                          (2, 1000, 2, 16, 256, 300), (1, 130, 2, 4, 64, 0)])
+                          (2, 1000, 2, 16, 256, 300), (1, 130, 2, 4, 64, 0)]
+                         + DENSE_FLASH_SHAPES)
 def test_flash_export_leaves_output_unchanged(h100, dtype, b, s, kv, g, hd,
                                               window):
     q, k, v, _ = _attn_case(h100, dtype, b, s, g, hd, 4, kv=kv)
@@ -328,6 +365,37 @@ def test_flash_backward_kernels_match_plain(h100, dtype, rel, b, s, kv, g,
     assert ops.LAUNCHES["K3"] == 1 and ops.LAUNCHES["K4"] == 2
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     assert (ops.dkv_splits(b, s, s, kv, g, True, window) == 1) == (b == 4)
+    want = (ref.flash_dq(*args, scale=scale, window=window),
+            *ref.flash_dkv(*args, scale=scale, window=window))
+    for got, exp in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == exp.shape
+        err = (got.float() - exp.float()).abs().max().item()
+        assert err <= rel * exp.float().abs().max().item(), err
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("dtype,rel", [(_F32, 1e-4), (_BF16, 1e-2)])
+@pytest.mark.parametrize("b,s,kv,g,hd,window", DENSE_FLASH_SHAPES)
+def test_flash_backward_kernels_match_plain_dense_family(h100, dtype, rel, b,
+                                                         s, kv, g, hd,
+                                                         window):
+    """K3 and K4 at the rest of the dense family's shapes (G = 1 over 32
+    KV heads of 64; G = 12 over 8 of 128), held as
+    ``test_flash_backward_kernels_match_plain`` holds its shapes; K4's
+    rerun is the same bits, whatever its row split
+    (``ops.dkv_splits``)."""
+    q, k, v, do = _attn_case(h100, dtype, b, s, g, hd, 5, kv=kv)
+    scale = hd ** -0.5
+    out, m, l = ops.attention_stats(q, k, v, scale=scale, window=window)
+    delta = (do.float() * out.reshape(do.shape).float()).sum(-1)
+    delta = delta.permute(0, 2, 3, 1).contiguous()
+    args = (q, k, v, do, m, l, delta)
+    dq = ops.flash_dq(*args, scale=scale, window=window)
+    dk, dv = ops.flash_dkv(*args, scale=scale, window=window)
+    dk2, dv2 = ops.flash_dkv(*args, scale=scale, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K3"] == 1 and ops.LAUNCHES["K4"] == 2
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     want = (ref.flash_dq(*args, scale=scale, window=window),
             *ref.flash_dkv(*args, scale=scale, window=window))
     for got, exp in zip((dq, dk, dv), want):

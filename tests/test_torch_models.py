@@ -31,7 +31,8 @@ def gemma():
 
 
 @pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-780m",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "stablelm-1.6b",
+                                  "command-r-plus-104b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_arch_config_copy_matches_reference(reduced, arch):
     ref = get_config(arch, reduced=reduced)
@@ -64,6 +65,26 @@ def test_init_lm_names_shapes_and_scales_follow_reference(gemma):
     assert abs(tp["layers"]["attn"]["wq"].std().item() - d ** -0.5) < 0.01
     assert abs(tp["embed"]["table"].std().item() - d ** -0.5) < 0.01
     assert (tp["final_norm"]["scale"] == 1).all()
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "command-r-plus-104b"])
+def test_init_lm_names_and_shapes_follow_reference_dense_family(arch):
+    """The rest of the dense family: LayerNorm (with its bias leaf where
+    ``use_bias``), the q/k/v/o and MLP biases, and no ``ln2`` in
+    parallel blocks, under the reference's names and shapes; biases
+    zeros, norm scales ones."""
+    cfg = get_config(arch, reduced=True)
+    params, _ = registry.init(cfg, jax.random.PRNGKey(0))
+    tcfg = port_config(arch, reduced=True)
+    tp = tt.init_lm(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    got = {k: tuple(t.shape) for k, t in tp.state_dict().items()}
+    assert got == _flat_shapes(params)
+    for k, t in tp.state_dict().items():
+        leaf = k.rsplit(".", 1)[1]
+        if leaf in ("bq", "bk", "bv", "bo", "bi", "bias"):
+            assert (t == 0).all(), k
+        elif leaf == "scale":
+            assert (t == 1).all(), k
 
 
 def test_full_config_is_gemma_2b_full_width():

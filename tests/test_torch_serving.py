@@ -127,8 +127,9 @@ def test_one_host_transfer_per_iteration(gemma):
 
 def test_engine_scope_and_device_policy(gemma, monkeypatch):
     *_, tcfg, tp = gemma
-    with pytest.raises(NotImplementedError, match="per-slot"):
-        ServeEngine(tcfg, tp, batched=False, device="cpu")
+    # batched=False on the paged path decodes one slot at a time
+    engine = ServeEngine(tcfg, tp, batched=False, device="cpu")
+    assert engine.paged and not engine.batched
     with pytest.raises(NotImplementedError, match="re-layout.*greedy_generate"):
         ServeEngine(tcfg.with_(family="hybrid"), tp, device="cpu")
     with pytest.raises(NotImplementedError, match="contiguous"):

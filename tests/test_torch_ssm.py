@@ -328,9 +328,14 @@ def test_other_families_still_raise(mamba):
     *_, tcfg, tp = mamba
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.init_paged_pools(tcfg, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.decode_step(tp, port_config("gemma-2b", reduced=True), None,
-                       None, None)
+    # the dense decode_step is ported: contiguous caches
+    gcfg = port_config("gemma-2b", reduced=True)
+    gp = tt.init_lm(gcfg, torch.Generator().manual_seed(0), device="cpu")
+    cache = tt.init_cache(gcfg, 1, 8, dtype=torch.float32, device="cpu")
+    logits, cache = tt.decode_step(gp, gcfg, torch.tensor([3]),
+                                   torch.tensor([0]), cache)
+    assert logits.shape == (1, gcfg.vocab_size)
+    assert cache["layers"].k.shape == (gcfg.n_layers, 1, 8, 1, 32)
     with pytest.raises(NotImplementedError, match="derived SSD chunk"):
         ops.scan_ssd(*[torch.zeros(1, 4, 1, 4)] + [torch.zeros(1, 4, 1)]
                      + [torch.zeros(1, 4, 2)] * 2)
