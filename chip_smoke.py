@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Thirteen phases; any failure exits non-zero before the result line:
+Fourteen phases; any failure exits non-zero before the result line:
 
 1. device   the card's name, power limit and compute capability (9, 0).
 2. build    nvcc builds every kernel under src/repro_torch/kernels/csrc/
@@ -31,7 +31,13 @@ Thirteen phases; any failure exits non-zero before the result line:
             products, K2 at command-r-plus-104b's prefill (8 KV heads of
             128, G = 12), K5 there at 4 slots and at one, K1 at its decode
             products (d 12288, the tied 256000-row head), and K5 at one
-            slot at gemma-2b's shape (ops.paged_decode).
+            slot at gemma-2b's shape (ops.paged_decode).  K1's expert
+            form at deepseek-moe-16b's expert GEMMs (E=64: wi and wo at
+            decode, cap 8, on the gemv route; at an S=2048 prefill, cap
+            240, on the tile route) and at a ragged stack (E=8, cap 24,
+            d 200, f 136), each with torch.bmm's time, K9's on the same
+            operands and a bit-identical rerun; K2 at its prefill (16 KV
+            heads of 128, G = 1, S=2048).
 4. path     gemma-2b at full width (18 layers, bf16, random weights from a
             seeded generator) served by ServeEngine(max_slots=4,
             max_len=512) over 6 requests; every kernel of the path must
@@ -118,6 +124,19 @@ Thirteen phases; any failure exits non-zero before the result line:
             1e-3).  K1 and K9 launch their derived counts; one apply runs
             under sync debug mode "error"; each case prints kernel, plain
             and library ms (CUDA events), the bound and the error.
+14. moe_path deepseek-moe-16b at full width and depth (28 layers: one
+            dense, 27 with 64 routed experts top-6 and 2 shared, bf16,
+            16.38 B seeded parameters): make_prefill B=1 S=2048 (K1 250
+            launches, 54 of them the expert form, K2 28) timed by events
+            against its bound, rerun bit for bit, its routings against the
+            plain path's counted; every layer against its plain version on
+            the same input (attention and K/V; the MoE FFN with the
+            routing held to the plain router's, at the prefill's 2048
+            tokens and at 2 decode rows; the router logits; the routings
+            that differ counted); greedy_generate B=2, 64 prompt tokens
+            ingested one by one + 16 new (K1 250 a step); a decode step
+            under sync debug mode "error", timed against every weight byte
+            and against the active parameters' bytes; profiles.
 
 Each path phase resets the peak memory statistics before it runs.  The
 last two lines before the final one are the kernels' JSON record and
@@ -211,6 +230,18 @@ STABLELM_B, STABLELM_S = 2, 2048
 #: greedy_generate prompt, new tokens and cache length
 CMDR_LAYERS = 2
 CMDR_PROMPT, CMDR_NEW, CMDR_CACHE = 64, 16, 128
+#: deepseek-moe-16b: the prefill sequence, and greedy_generate's batch,
+#: prompt, new tokens and cache length
+MOE_S = 2048
+MOE_GEN_B, MOE_PROMPT, MOE_NEW, MOE_CACHE = 2, 64, 16, 128
+#: deepseek-moe-16b's expert GEMMs (E=64, d 2048, f 1408: wi to 2f, wo
+#: back) at decode (2 tokens: cap 8) and at the S=2048 prefill (cap 240),
+#: and a ragged stack whose k, row and column edges fall inside tiles
+MOE_EXPERT_CASES = (("decode wi", 64, 8, 2048, 2816),
+                    ("decode wo", 64, 8, 1408, 2048),
+                    ("prefill wi", 64, 240, 2048, 2816),
+                    ("prefill wo", 64, 240, 1408, 2048),
+                    ("ragged", 8, 24, 200, 136))
 
 
 def fail(msg: str) -> None:
@@ -474,7 +505,43 @@ def phase_kernels(torch):
                               2, b=1, s=HYB_S, g=16, window=2048)
     _gated_cases(torch, rec, gen)
     _dense_family_cases(torch, rec, gen)
+    _expert_cases(torch, rec, gen)
+    _prefill_attention_case(torch, rec, gen, torch.bfloat16, MOE_S, kv=16,
+                            g=1, hd=128)
     return rec
+
+
+def _expert_cases(torch, rec, gen):
+    """K1's expert form (``ops.expert_gemm``, bf16, f32 out) at
+    ``MOE_EXPERT_CASES``, each held to ``ref.expert_gemm``, with its route,
+    its CUDA-graph time, ``torch.bmm``'s time (the library row, bf16 out),
+    K9's time and error on the same operands (its batched TILE, the route
+    ``apply`` took before), and a rerun that must give the same bits."""
+    from repro_torch.core import expr as E
+    from repro_torch.kernels import ops, ref
+    bf = torch.bfloat16
+    for name, e, cap, d, f in MOE_EXPERT_CASES:
+        x = torch.randn(e, cap, d, generator=gen, device="cuda").to(bf)
+        w = (torch.randn(e, d, f, generator=gen, device="cuda")
+             * d ** -0.5).to(bf)
+        call = lambda: ops.expert_gemm(x, w, out_dtype=torch.float32)
+        k9 = ops._plan(E.normal_form(E.expert_gemm_expr(e, cap, d, f)),
+                       ("bfloat16",) * 2, torch.float32, ops.H100, None,
+                       "float32", False)[1]
+        k9_call = lambda: ops.semiring_contract(k9, x, w,
+                                                out_dtype=torch.float32)
+        k9_err = (k9_call() - ref.expert_gemm(x, w)).abs().max().item()
+        extra = {"path": ops.expert_route(e, cap, d, f, bf, bf),
+                 "graph_ms": graph_ms(torch, call),
+                 "k9_ms": time_ms(torch, k9_call), "k9_err": f"{k9_err:.3e}"}
+        _case(torch, rec, "K1", "bfloat16", ("K1", "bfloat16"), call,
+              lambda: ref.expert_gemm(x, w), lambda: torch.bmm(x, w),
+              2.0 * e * cap * d * f, (e * cap * d + e * d * f) * 2
+              + e * cap * f * 4,
+              f"K1 bfloat16 expert {name} E={e} cap={cap} d={d} f={f}",
+              extra)
+        _rerun_equal(torch, call, f"K1 expert {name}")
+        del x, w
 
 
 def _dense_family_cases(torch, rec, gen):
@@ -2766,6 +2833,320 @@ def phase_moa_path(torch, rec):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# moe_path: deepseek-moe-16b, the MoE family's serving path
+# ---------------------------------------------------------------------------
+
+def _moe_counts(cfg):
+    """``(K1 launches of one forward, those of K1's expert form)``: 6 a
+    dense layer (q, k, v, o and the MLP's two), 9 a MoE layer (q, k, v,
+    o, the f32 router, the two expert GEMMs and the shared experts' two)
+    and the head (the last position in a prefill, each row in a decode
+    step)."""
+    nd = cfg.first_dense_layers
+    n_moe = cfg.n_layers - nd
+    return 6 * nd + 9 * n_moe + 1, 2 * n_moe
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    """``module.name`` set to ``value``, restored on exit."""
+    orig = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _spy(module, name, record):
+    """Wrap ``module.name`` so that each call passes its arguments and
+    result to ``record``; restored on exit."""
+    orig = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        out = orig(*args, **kw)
+        record(args, out)
+        return out
+    return _patched(module, name, wrapped)
+
+
+def _routing_flips(torch, kern, plain) -> tuple[int, int]:
+    """``(set, order)``: the (token, layer) routings whose top-k experts
+    differ between two lists of per-layer ``idx (t, k)`` as sets (another
+    expert chosen), and those with the same set in another order (two
+    near-tied gates swapped: the same dispatch, sums and output but for
+    the gates' last bits)."""
+    sets = order = 0
+    for a, b in zip(kern, plain):
+        other = (a.sort(-1).values != b.sort(-1).values).any(-1)
+        sets += int(other.sum())
+        order += int(((a != b).any(-1) & ~other).sum())
+    return sets, order
+
+
+def _moe_layers_check(torch, cfg, params, tokens, rows):
+    """Every layer of the served bf16 model, each sublayer fed the plain
+    path's input on both sides (so that nothing compounds): attention and
+    its K/V at the prefill's tokens; the dense layer's MLP; each MoE FFN
+    at the prefill's 2048 tokens (cap 240, K1's tile route) and at the 2
+    decode-shaped ``rows`` (cap 8, the gemv route), with the routing held
+    to the plain router's (its top-k and gates fed to both sides), so the
+    expert GEMMs are compared on one dispatch; the router logits (f32 on
+    K1's FMA route) against the plain product; and the routings that the
+    two routers order differently, counted."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.layers import apply_mlp, apply_norm, embed_tokens
+    x = embed_tokens(params, tokens, cfg)
+    xd = embed_tokens(params, rows[:, None], cfg)
+    positions = torch.arange(x.shape[1], device="cuda")[None, :]
+    worst, flips, routed = {}, (0, 0), 0
+
+    def both(fn):
+        got = []
+        for plain in (False, True):
+            with _plain_if(ops, plain):
+                got.append(fn())
+        return got
+
+    def note(what, i, a, b, tol):
+        err = _rel(torch, a, b)
+        worst[what] = max(worst.get(what, (0.0, 0, tol)), (err, i, tol))
+
+    for i, (kind, lp) in enumerate(transformer._moe_layers(params, cfg)):
+        h = apply_norm(lp["ln1"], x, cfg)
+        (ok, kk), (op, kp) = both(lambda: attn.attention_fwd(
+            lp["attn"], h, cfg, positions=positions))
+        note("attention out", i, ok, op, SSM_LAYER_TOL)
+        note("K", i, kk.k, kp.k, SSM_LAYER_TOL)
+        note("V", i, kk.v, kp.v, SSM_LAYER_TOL)
+        x = x + op
+        outs = []
+        for tag, inp in (("prefill", x), ("decode rows", xd)):
+            h2 = apply_norm(lp["ln2"], inp, cfg)
+            if kind == "dense":
+                yk, yp = both(lambda: apply_mlp(lp["mlp"], h2, cfg))
+                note(f"{tag} dense mlp out", i, yk, yp, SSM_LAYER_TOL)
+            else:
+                xt = h2.reshape(-1, cfg.d_model)
+                rk, rp = both(lambda: moe.route(lp["moe"], xt, cfg))
+                note("router logits", i, rk[0], rp[0], TOL["K1", "float32"])
+                flips = tuple(map(sum, zip(flips, _routing_flips(
+                    torch, [rk[3]], [rp[3]]))))
+                routed += xt.shape[0]
+                with _patched(moe, "route", lambda p, t, c, _r=rp: _r):
+                    yk, yp = both(lambda: moe.apply_moe(lp["moe"], h2,
+                                                        cfg)[0])
+                note(f"{tag} moe out (routing held)", i, yk, yp,
+                     SSM_LAYER_TOL)
+            outs.append(yp)
+        x, xd = x + outs[0], xd + outs[1]
+    for what, (err, i, tol) in worst.items():
+        print(f"[moe_path] bfloat16 per layer (the same input on both "
+              f"sides), {what}: worst {err:.3e} of max|plain| at layer {i} "
+              f"(tol {tol:g})", flush=True)
+        require(err <= tol, f"layer {i} {what} disagrees with plain")
+    print(f"[moe_path] per layer, the same input: of {routed} (token, "
+          f"layer) routings, {flips[0]} choose other experts and {flips[1]} "
+          f"order the same experts otherwise under the kernels' router than "
+          f"under the plain one (reported, not held: a last-bit difference "
+          f"swaps near-tied experts)", flush=True)
+
+
+def phase_moe_path(torch, card):
+    """deepseek-moe-16b at full width and depth: make_prefill, each layer
+    against its plain version, greedy_generate, a decode step."""
+    import numpy as np
+    from repro_torch.configs import deepseek_moe_16b
+    from repro_torch.hardware import H100_PEAK_FLOPS
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, transformer
+    from repro_torch.train import serve_step
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, params = _model(torch, deepseek_moe_16b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"[moe_path] deepseek-moe-16b full width and depth "
+          f"({cfg.n_layers} layers, {cfg.n_experts} experts top-"
+          f"{cfg.top_k} + {cfg.n_shared_experts} shared): "
+          f"{n_params / 1e9:.3f} B params ({w_bytes / 1e9:.3f} GB, bf16 "
+          f"and the f32 router), init {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, MOE_S))).cuda()
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MOE_GEN_B, MOE_PROMPT))).cuda()
+    k1, k1e = _moe_counts(cfg)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    expert = [0]
+    count_expert = lambda a, o: expert.__setitem__(0, expert[0] + 1)
+    prefill = serve_step.make_prefill(cfg)
+    with torch.inference_mode():
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with _spy(ops, "_expert_gemm", count_expert):
+            start.record()
+            logits, cache = prefill(params, {"tokens": tokens})
+            end.record()
+            torch.cuda.synchronize()
+        launches_p = dict(ops.LAUNCHES)
+        prefill_ms = start.elapsed_time(end)
+        require(tuple(logits.shape) == (1, cfg.vocab_size) and
+                bool(torch.isfinite(logits).all()), "prefill logits")
+        require(set(cache) == {"dense", "moe"} and
+                tuple(cache["moe"].k.shape) == (n_moe, 1, MOE_S,
+                                                cfg.n_kv_heads,
+                                                cfg.head_dim_),
+                "prefill cache shapes")
+        want = _zero_launches(K1=k1, K2=cfg.n_layers)
+        print(f"[moe_path] make_prefill B=1 S={MOE_S}: {prefill_ms:.3f} ms "
+              f"(CUDA events; {MOE_S / prefill_ms * 1e3:.1f} tok/s); "
+              f"launches {launches_p} (derived {want}), K1's expert form "
+              f"{expert[0]} (derived {k1e}: 2 a MoE layer)", flush=True)
+        require(launches_p == want and expert[0] == k1e,
+                "prefill launches differ from the derived counts")
+        cap = moe.capacity(cfg, MOE_S)
+        d, f, e = cfg.d_model, cfg.moe_ff, cfg.n_experts
+        dense_mm = sum(p.numel() for name, p in params.named_parameters()
+                       if name.endswith(("wq", "wk", "wv", "wo", "wi",
+                                         "router", "shared_wi",
+                                         "shared_wo"))
+                       and ".moe.w" not in name)
+        flops = 2 * MOE_S * dense_mm + 2 * d * cfg.vocab_size \
+            + n_moe * 2 * e * cap * (d * 2 * f + f * d) \
+            + cfg.n_layers * 4 * _pairs(MOE_S) * cfg.n_heads * cfg.head_dim_
+        step_bytes = _step_bytes(params, cfg)
+        b_ms, b_by = bound(flops, step_bytes, "bfloat16")
+        print(f"[moe_path] prefill bound: {flops / 1e12:.3f} TFLOP (the "
+              f"experts at capacity {cap} of {MOE_S} x {cfg.top_k} / {e} "
+              f"assignments) at 989 TFLOP/s = "
+              f"{flops / H100_PEAK_FLOPS['bfloat16'] * 1e3:.3f} ms, weights "
+              f"{step_bytes / 1e9:.3f} GB at 3.35 TB/s = "
+              f"{bound(0.0, step_bytes, 'bfloat16')[0]:.3f} ms: bound "
+              f"{b_ms:.3f} ms ({b_by}), {100 * b_ms / prefill_ms:.1f}% of "
+              f"it reached; {card}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        again, cache2 = prefill(params, {"tokens": tokens})
+        require(torch.equal(logits, again) and all(
+            torch.equal(a, b) for key in cache
+            for a, b in zip(cache[key], cache2[key])),
+            "a rerun of the prefill differs (dispatch and combine must sum "
+            "in a fixed order)")
+        print("[moe_path] prefill rerun bit-identical (logits and K/V)",
+              flush=True)
+        del cache, cache2, again
+
+        # the end-to-end routings: each path routes its own residual
+        # stream, so a flip compounds; reported, not held
+        routes = {}
+        for plain in (False, True):
+            seen = routes.setdefault(plain, [])
+            with _plain_if(ops, plain), _spy(
+                    moe, "route", lambda a, o, s=seen: s.append(o[3])):
+                lg, _ = prefill(params, {"tokens": tokens})
+            routes[plain, "logits"] = lg
+        sets, order = _routing_flips(torch, routes[False], routes[True])
+        lk, lp = routes[False, "logits"], routes[True, "logits"]
+        same = int(lk.argmax()) == int(lp.argmax())
+        print(f"[moe_path] end to end ({cfg.n_layers} bf16 layers, each "
+              f"path its own residual): of {MOE_S * n_moe} (token, layer) "
+              f"routings, {sets} choose other experts than the plain "
+              f"path's and {order} order the same experts otherwise; "
+              f"last-position "
+              f"logits max|diff| {(lk - lp).abs().max().item():.3e} of "
+              f"{lp.abs().max().item():.3g}, argmax "
+              f"{'equal' if same else 'differs'}"
+              f" (reported, not held: routing is discontinuous)", flush=True)
+        del routes, lk, lp
+        torch.cuda.empty_cache()
+        _moe_layers_check(torch, cfg, params, tokens, prompts[:, 0])
+        torch.cuda.empty_cache()
+
+        # greedy_generate: the prompts ingested token by token, as the
+        # reference does for moe (no forward->decode re-layout)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        expert[0] = 0
+        t0 = time.perf_counter()
+        with _spy(ops, "_expert_gemm", count_expert):
+            out = serve_step.greedy_generate(params, cfg, prompts, MOE_NEW,
+                                             MOE_CACHE)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches_g = dict(ops.LAUNCHES)
+        steps = MOE_PROMPT + MOE_NEW
+        require(tuple(out.shape) == (MOE_GEN_B, steps) and
+                torch.equal(out[:, :MOE_PROMPT], prompts) and
+                bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+                "greedy_generate output")
+        want = _zero_launches(K1=steps * k1)
+        print(f"[moe_path] greedy_generate B={MOE_GEN_B}, {MOE_PROMPT} "
+              f"prompt tokens (ingested one by one) + {MOE_NEW} new, "
+              f"cache_len {MOE_CACHE}: {gen_s:.3f} s, {steps} decode steps, "
+              f"{gen_s * 1e3 / steps:.3f} ms a step (host clock), "
+              f"{MOE_GEN_B * MOE_NEW / gen_s:.2f} new tok/s; launches "
+              f"{launches_g} (derived {want}), K1's expert form {expert[0]} "
+              f"(derived {steps * k1e})", flush=True)
+        require(launches_g == want and expert[0] == steps * k1e,
+                "greedy_generate launches differ from the derived counts")
+
+        # one decode step (B=2) from 8 ingested tokens: under the "error"
+        # sync debug mode, against the plain path, timed and profiled
+        cache = transformer.init_cache(cfg, MOE_GEN_B, MOE_CACHE,
+                                       device="cuda")
+        for t in range(8):
+            _, cache = transformer.decode_step(
+                params, cfg, prompts[:, t],
+                torch.full((MOE_GEN_B,), t, dtype=torch.int32,
+                           device="cuda"), cache)
+        pos = torch.full((MOE_GEN_B,), 8, dtype=torch.int32, device="cuda")
+        decode = serve_step.make_decode(cfg)
+        step = lambda: decode(params, prompts[:, 8], pos, cache)
+        dk, _ = step()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        print("[moe_path] decode step ran with no host sync (sync debug "
+              "mode 'error')", flush=True)
+        with ops.reference_mode():
+            dp, _ = step()
+        print(f"[moe_path] decode step logits vs plain: max|diff| "
+              f"{(dk - dp).abs().max().item():.3e} of "
+              f"{dp.abs().max().item():.3g}, argmax equal in "
+              f"{int((dk.argmax(-1) == dp.argmax(-1)).sum())} of "
+              f"{MOE_GEN_B} rows (reported; the per-layer checks hold "
+              f"the kernels)", flush=True)
+        step_ms = time_ms(torch, step, iters=5, warmup=1)
+        all_ms = bound(0.0, step_bytes, "bfloat16")[0]
+        active = cfg.param_count()[1] * 2
+        act_ms = bound(0.0, active, "bfloat16")[0]
+        print(f"[moe_path] decode step (B={MOE_GEN_B}): {step_ms:.3f} ms "
+              f"(CUDA events); bound, every weight byte read once "
+              f"({step_bytes / 1e9:.3f} GB, what the capacity-padded "
+              f"experts read): {all_ms:.3f} ms; bound, the active "
+              f"parameters only ({active / 1e9:.3f} GB): {act_ms:.3f} ms; "
+              f"{card}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        profile_step(torch, step, n=2, what="moe decode")
+        profile_step(torch, lambda: prefill(params, {"tokens": tokens}),
+                     n=1, what="moe prefill")
+    return {k: launches_p[k] + launches_g[k] for k in launches_p}
+
+
 def profile_step(torch, step, n: int = 3, what: str = "decode") -> None:
     """Device time by kernel over ``n`` steps (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2826,6 +3207,8 @@ def main() -> None:
     hybrid_train = phase_hybrid_train(torch)
     torch.cuda.empty_cache()
     moa = phase_moa_path(torch, rec)
+    torch.cuda.empty_cache()
+    moe_serve = phase_moe_path(torch, smi_line)
 
     src = "src/repro_torch/kernels/csrc/"
     head = {"K1": ("K1_gemm", src + "gemm.cu",
@@ -2861,7 +3244,8 @@ def main() -> None:
             "stablelm_train": stablelm_train, "cmdr_path": cmdr_serve,
             "ssm_path": ssm_serve,
             "ssm_train": ssm_train, "hybrid_path": hybrid_serve,
-            "hybrid_train": hybrid_train, "moa_path": moa}
+            "hybrid_train": hybrid_train, "moa_path": moa,
+            "moe_path": moe_serve}
     kernels = []
     for kid, (name, source, replaces, shape) in head.items():
         # launches: the path runs', each counted from 0

@@ -5,7 +5,11 @@
 // _pallas_matmul_f32, including its transpose_b form for the tied logits
 // head), and the two VJP forms of src/repro/kernels/ops.py: _gemm_tb
 // (a @ b.T) and _gemm_ta (a.T @ b, the transposed-first-operand schedule
-// of both weight gradients).
+// of both weight gradients).  Its expert form replaces emit_pallas on
+// expert_gemm_expr (src/repro/kernels/ops.py, expert_gemm and the
+// _pallas_expert_f32 forward of expert_matmul): the capacity-padded MoE
+// GEMM x (E, cap, d) @ w (E, d, f) -> (E, cap, f), the expert axis one
+// more lift of the same blocked product.
 //
 // Layouts: A is row-major (m, k), or with transpose_a row-major (k, m)
 // read as its transpose in place.  B is row-major (k, n), or with
@@ -53,6 +57,15 @@
 //         not fill the card (2048-column products), k is split and a
 //         second pass adds the partials in split order (no atomics:
 //         reruns are the same bits).
+//   the expert form (repro_expert_gemm, bf16 x bf16, w stored (E, d, f)):
+//         the tile path with the experts' tiles one after another in the
+//         persistent walk, A, B and C read and written through rank-3
+//         tensor maps (expert outermost), so each expert's ragged k, row
+//         and column edges are zero-filled or clipped inside that expert
+//         (a 2-D map over the stacked (E d, f) weight would read the next
+//         expert's rows at a ragged d); at cap <= 16 rows (decode) the
+//         decode-row kernel with the expert as grid axis z, its k split
+//         sized by the E x n/64 blocks.
 //   the first kernels where TMA cannot read an operand (a stored row
 //         length not a multiple of 8 elements, a base not 16-byte
 //         aligned, k = 0): bf16 x bf16 without transpose_a on
@@ -66,7 +79,12 @@
 // weight once (gemma-2b: ~5.0 GB of bf16 weights per decode step, 1.5 ms
 // at 3.35 TB/s), so device-memory bandwidth bounds it.  The tile path
 // does not overlap a tile's f32 store with the next tile's products (the
-// consumers store from registers), which costs most at short k.
+// consumers store from registers), which costs most at short k.  The
+// expert form reads every expert's weight (the reference's capacity-padded
+// dispatch computes all E experts): at decode (cap 8) that stream is the
+// whole cost, bytes-bound (deepseek-moe-16b: 0.74 GB for wi, 0.22 ms);
+// at prefill (cap 240) the products are at the bytes / operations
+// crossover, and the padding of cap to 256 rows wastes 6%.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -299,6 +317,26 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
 }
+// The expert form's rank-3 maps: one box at (c0, c1, expert)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -327,10 +365,17 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t a,
 // K-major) or (K, N) (TB = 0, MN-major).  A split f32 operand comes as its
 // three bf16 parts (PA or PB = 3): three wgmmas a k-step into the same
 // accumulator, the other operand's tile read once.
-template <int BN, int TA, int TB, int PA, int PB>
+// EX: the expert form, E products A[e] (M, K) B[e] (K, N) -> C[e] (M, N)
+// (TA = TB = 0, bf16): the tiles of expert e follow those of e - 1, and
+// A, B and C are rank-3 tensor maps with the expert outermost, so each
+// expert's ragged k, row and column edges read as zeros (and stores
+// clip) inside that expert.
+template <int BN, int TA, int TB, int PA, int PB, bool EX = false>
 __global__ void __launch_bounds__(384, 1)
 gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
-        int N, int K, int tma_c, int n_fast) {
+        int N, int K, int tma_c, int n_fast, int E) {
+  static_assert(!EX || (TA == 0 && TB == 0 && PA == 1 && PB == 1),
+                "the expert form is bf16 x bf16, A (M, K), B (K, N)");
   using L = TileSmem<BN, PA, PB>;
   constexpr int S = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -346,11 +391,14 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
 
   const int KT = (K + TBK - 1) / TBK;
   const int mt = (M + TBM - 1) / TBM, nt = (N + BN - 1) / BN;
-  const int tiles = mt * nt;
-  // tile -> (m0, n0): the larger operand's tile is the one the blocks in
-  // flight share in L2 (the N tiles of one M tile together when A is
-  // larger, else the M tiles of one N tile)
-  auto origin = [&](int tile, int& m0, int& n0) {
+  const int tiles = EX ? E * mt * nt : mt * nt;
+  // tile -> (e, m0, n0): the experts in order; within one, the larger
+  // operand's tile is the one the blocks in flight share in L2 (the N
+  // tiles of one M tile together when A is larger, else the M tiles of
+  // one N tile)
+  auto origin = [&](int tile, int& e, int& m0, int& n0) {
+    e = EX ? tile / (mt * nt) : 0;
+    if (EX) tile -= e * mt * nt;
     m0 = (n_fast ? tile / nt : tile % mt) * TBM;
     n0 = (n_fast ? tile % nt : tile / mt) * BN;
   };
@@ -373,8 +421,8 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
     if (threadIdx.x == 256) {
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        int m0, n0;
-        origin(tile, m0, n0);
+        int e, m0, n0;
+        origin(tile, e, m0, n0);
         for (int kt = 0; kt < KT; ++kt, ++it) {
           const int s = it % S, k0 = kt * TBK;
           mbar_wait(empty + s, ((it / S) & 1) ^ 1);
@@ -385,6 +433,8 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
               tma_load_2d(a_tile(s, h), &maps.a[h], full + s, m0, k0);
               tma_load_2d(a_tile(s, h) + 8192, &maps.a[h], full + s,
                           m0 + 64, k0);
+            } else if constexpr (EX) {
+              tma_load_3d(a_tile(s, h), &maps.a[h], full + s, k0, m0, e);
             } else {
               tma_load_2d(a_tile(s, h), &maps.a[h], full + s, k0, m0);
             }
@@ -395,9 +445,14 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
               tma_load_2d(b_tile(s, h), &maps.b[h], full + s, k0, n0);
             } else {
 #pragma unroll
-              for (int c = 0; c < BN / 64; ++c)
-                tma_load_2d(b_tile(s, h) + c * 8192, &maps.b[h], full + s,
-                            n0 + 64 * c, k0);
+              for (int c = 0; c < BN / 64; ++c) {
+                if constexpr (EX)
+                  tma_load_3d(b_tile(s, h) + c * 8192, &maps.b[h], full + s,
+                              n0 + 64 * c, k0, e);
+                else
+                  tma_load_2d(b_tile(s, h) + c * 8192, &maps.b[h], full + s,
+                              n0 + 64 * c, k0);
+              }
             }
           }
         }
@@ -440,8 +495,8 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
     };
     auto release = [&](int kt) { mbar_arrive(empty + (it0 + kt) % S); };
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      int m0, n0;
-      origin(tile, m0, n0);
+      int e, m0, n0;
+      origin(tile, e, m0, n0);
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       if constexpr (!PROMOTE) {
@@ -514,9 +569,14 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
           named_bar_sync(1 + wg, 128);
           if (tid == 0) {
 #pragma unroll
-            for (int b = 0; b < CCOLS / 32; ++b)
-              tma_store_2d(&maps.c, cw + b * 8192, n0 + r * CCOLS + 32 * b,
-                           m0 + wg * 64);
+            for (int b = 0; b < CCOLS / 32; ++b) {
+              if constexpr (EX)
+                tma_store_3d(&maps.c, cw + b * 8192,
+                             n0 + r * CCOLS + 32 * b, m0 + wg * 64, e);
+              else
+                tma_store_2d(&maps.c, cw + b * 8192,
+                             n0 + r * CCOLS + 32 * b, m0 + wg * 64);
+            }
             bulk_commit();
           }
         }
@@ -527,7 +587,7 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
         for (int h = 0; h < 2; ++h) {
           const int r = r0 + 8 * h;
           if (r >= M) continue;
-          float* row = C + (size_t)r * N;
+          float* row = C + ((size_t)e * M + r) * N;
 #pragma unroll
           for (int j = 0; j < BN / 8; ++j) {
             const int c = n0 + 8 * j + 2 * (lane % 4);
@@ -546,11 +606,11 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
   }
 }
 
-template <int BN, int TA, int TB, int PA, int PB>
+template <int BN, int TA, int TB, int PA, int PB, bool EX = false>
 int launch_tile_t(const TileMaps& maps, float* c, int m, int n, int k,
-                  int tma_c, int n_fast, cudaStream_t s) {
+                  int tma_c, int n_fast, cudaStream_t s, int e = 1) {
   constexpr size_t smem = TileSmem<BN, PA, PB>::BYTES;
-  auto kern = gemm_tc<BN, TA, TB, PA, PB>;
+  auto kern = gemm_tc<BN, TA, TB, PA, PB, EX>;
   static bool sized = false;               // once a kernel (host time)
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -558,9 +618,10 @@ int launch_tile_t(const TileMaps& maps, float* c, int m, int n, int k,
     if (e != cudaSuccess) return static_cast<int>(e);
     sized = true;
   }
-  const long long tiles = (long long)((m + TBM - 1) / TBM) * ((n + BN - 1) / BN);
+  const long long tiles =
+      (long long)e * ((m + TBM - 1) / TBM) * ((n + BN - 1) / BN);
   const int grid = (int)(tiles < sm_count() ? tiles : sm_count());
-  kern<<<grid, 384, smem, s>>>(maps, c, m, n, k, tma_c, n_fast);
+  kern<<<grid, 384, smem, s>>>(maps, c, m, n, k, tma_c, n_fast, e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -630,6 +691,58 @@ int launch_tile(const void* const a[3], const void* const b[3], float* c,
                                         n_fast, s);
   return launch_tile_parts<128, 1, 1>(ta, tb, maps, c, m, n, k, tma_c,
                                       n_fast, s);
+}
+
+// The rank-3 map of E row-major (rows, cols) matrices, one after another
+// (bf16 operands in boxes of box_rows x 64 columns, 128-byte swizzled;
+// the f32 output in boxes of 64 rows x 32 columns, swizzled as the
+// staging buffer is written): box (c, r, e) is rows r .. of columns c ..
+// of matrix e, and what lies past that matrix's rows or columns reads as
+// zeros (or is not stored), whatever the next matrix holds.  Needs a
+// 16-byte aligned base and rows a multiple of 16 bytes.
+static inline int encode_expert_map(CUtensorMap* map, const void* base,
+                                    int E, int rows, int cols, int box_rows,
+                                    bool out) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t es = out ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * es,
+                                 (cuuint64_t)rows * cols * es};
+  const cuuint32_t box[3] = {out ? 32u : 64u, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map, out ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(base), dims, strides, box, estr,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      !out && (cols * 2) % 128 == 0 ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
+                                    : CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The expert form on the tile path: x (E, m, k) and w (E, k, n) bf16
+// into c (E, m, n) f32; BN = 256 where its tiles fill the SMs.
+int launch_tile_expert(const void* x, const void* w, float* c, int e, int m,
+                       int n, int k, cudaStream_t s) {
+  const long long tiles256 =
+      (long long)e * ((m + TBM - 1) / TBM) * ((n + 255) / 256);
+  const int bn = tiles256 >= sm_count() ? 256 : 128;
+  TileMaps maps;
+  int err = encode_expert_map(&maps.a[0], x, e, m, k, TBM, false);
+  if (err == 0) err = encode_expert_map(&maps.b[0], w, e, k, n, 64, false);
+  const int tma_c = n % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  if (err == 0 && tma_c)
+    err = encode_expert_map(&maps.c, c, e, m, n, 64, true);
+  if (err != 0) return err;
+  const int n_fast = m > n;
+  if (bn == 256)
+    return launch_tile_t<256, 0, 0, 1, 1, true>(maps, c, m, n, k, tma_c,
+                                                n_fast, s, e);
+  return launch_tile_t<128, 0, 0, 1, 1, true>(maps, c, m, n, k, tma_c,
+                                              n_fast, s, e);
 }
 
 // g = hi + mid + lo + r: hi = bf16(g), mid = bf16(g - hi), lo = bf16(g -
@@ -707,13 +820,19 @@ constexpr int GEMV_WARPS = 4, GEMV_COLS = 64, GEMV_UNIT = 32;
 // holds columns nb + 8 g .. + 7 of k rows 4 t .. 4 t + 3 of each half,
 // paired along k with byte permutes; tile j is the columns nb + 8 g + j.
 // The four warps' sums are added in warp order; with nsplit > 1 the block
-// writes its split's partial (ws), summed by gemv_reduce.
+// writes its split's partial (ws), summed by gemv_reduce.  The expert
+// form stacks E such products (x (E, M, K), w (E, K, N), out (E, M, N)):
+// blockIdx.z is the expert.
 template <bool TB>
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
 gemv_mma(const bf16* __restrict__ x, const bf16* __restrict__ w,
          float* __restrict__ out, float* __restrict__ ws, int M, int N,
          int K, int nsplit) {
   __shared__ float red[GEMV_WARPS - 1][32][33];
+  const size_t ex = blockIdx.z;
+  x += ex * M * K;
+  w += ex * K * N;
+  out += ex * M * N;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int nb = blockIdx.x * GEMV_COLS;
@@ -792,7 +911,9 @@ gemv_mma(const bf16* __restrict__ x, const bf16* __restrict__ w,
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] += red[q][4 * j + e][lane];
-  float* dst = nsplit == 1 ? out : ws + (size_t)blockIdx.y * M * N;
+  float* dst = nsplit == 1
+                   ? out
+                   : ws + ((size_t)blockIdx.y * gridDim.z + ex) * M * N;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -817,11 +938,12 @@ __global__ void gemv_reduce(const float* __restrict__ ws,
 }
 
 int launch_gemv(const void* x, const void* w, float* c, float* ws, int m,
-                int n, int k, int tb, int nsplit, cudaStream_t s) {
+                int n, int k, int tb, int nsplit, cudaStream_t s,
+                int e = 1) {
   if (m < 1 || m > 16 || k % GEMV_UNIT != 0 || nsplit < 1 ||
-      (nsplit > 1 && ws == nullptr))
+      (nsplit > 1 && ws == nullptr) || e < 1 || e > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + GEMV_COLS - 1) / GEMV_COLS, nsplit);
+  const dim3 grid((n + GEMV_COLS - 1) / GEMV_COLS, nsplit, e);
   auto X = static_cast<const bf16*>(x);
   auto W = static_cast<const bf16*>(w);
   if (tb)
@@ -831,7 +953,7 @@ int launch_gemv(const void* x, const void* w, float* c, float* ws, int m,
     gemv_mma<false><<<grid, GEMV_WARPS * 32, 0, s>>>(X, W, c, ws, m, n, k,
                                                      nsplit);
   if (nsplit > 1) {
-    const long long total = (long long)m * n;
+    const long long total = (long long)e * m * n;
     gemv_reduce<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(ws, c, total,
                                                                 nsplit);
   }
@@ -911,6 +1033,24 @@ extern "C" int repro_gemv(const void* x, const void* w, void* c, void* ws,
   return tc::launch_gemv(x, w, static_cast<float*>(c),
                          static_cast<float*>(ws), m, n, k, transpose_b,
                          nsplit, static_cast<cudaStream_t>(stream));
+}
+
+// The expert form: x (e, m, k) times w (e, k, n), bf16, into c (e, m, n)
+// f32, expert by expert.  route 0: the tile path (rows of a multiple of 16
+// bytes, bases 16-byte aligned, k >= 1); route 1: the decode rows (m <=
+// 16, k % 32 == 0; ws: nsplit x e x m x n f32 when nsplit > 1, the
+// partials summed in split order).
+extern "C" int repro_expert_gemm(const void* x, const void* w, void* c,
+                                 void* ws, int e, int m, int n, int k,
+                                 int route, int nsplit, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (e < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 1)
+    return tc::launch_gemv(x, w, static_cast<float*>(c),
+                           static_cast<float*>(ws), m, n, k, 0, nsplit, s,
+                           e);
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return tc::launch_tile_expert(x, w, static_cast<float*>(c), e, m, n, k, s);
 }
 
 // The three bf16 parts (hi, mid, lo) of n f32 values (16-byte aligned).

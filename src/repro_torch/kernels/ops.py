@@ -23,6 +23,10 @@ entry             kernel (``csrc/``)       replaces (``repro``)
 ``matmul``        K1 ``gemm.cu``           ``emit_pallas`` (mul, add);
                                            VJP ``ops._gemm_tb``,
                                            ``ops._gemm_ta``
+``expert_gemm``,  K1 ``gemm.cu``, its      ``emit_pallas`` on
+``expert_         expert form              ``expert_gemm_expr`` (the
+matmul``                                   forward of
+                                           ``_pallas_expert_f32``)
 ``attention``,    K2 ``flash_fwd.cu``      ``emit._softmax_kind`` (with
 ``attention_                               its (m, l) export)
 stats``
@@ -53,9 +57,11 @@ stream over :func:`dkv_splits` blocks.  Either counts one launch a call.
 pipeline): the expression is psi-reduced to its normal form
 (``core.expr``), lifted and scheduled (``core.schedule.get_schedule``, on
 the ``H100`` table by default), and run.  A (mul, add) normal form that is
-one 2-D product of stored operands goes to K1 with its transpose flags;
-every other normal form goes to K9 through its launch descriptor
-(``kernels/emit.py``), which reads every leaf in place.
+one 2-D product of stored operands goes to K1 with its transpose flags,
+and a stack of them over a shared leading (expert) axis to K1's expert
+form where :func:`expert_route` allows (aligned bf16); every other normal
+form goes to K9 through its launch descriptor (``kernels/emit.py``),
+which reads every leaf in place.
 """
 from __future__ import annotations
 
@@ -88,6 +94,7 @@ _SIGNATURES = {
     "repro_gemm": ("gemm", [_P, _P, _P] + [_C] * 9),
     "repro_gemm_tc": ("gemm", [_P] * 7 + [_C] * 5),
     "repro_gemv": ("gemm", [_P] * 4 + [_C] * 5),
+    "repro_expert_gemm": ("gemm", [_P] * 4 + [_C] * 6),
     "repro_split_bf16": ("gemm", [_P] * 4 + [ctypes.c_longlong]),
     "repro_flash_fwd": ("flash_fwd", [_P] * 6 + [_C] * 6 + [_F, _C, _C, _C]),
     "repro_flash_dq": ("flash_bwd", [_P] * 8 + [_C] * 6 + [_F, _C, _C, _C]),
@@ -250,12 +257,14 @@ def gemm_route(m: int, n: int, k: int, a_dtype, b_dtype,
 
 
 @functools.lru_cache(maxsize=1024)
-def gemv_splits(m: int, n: int, k: int) -> int:
-    """The decode-row kernel's split of k: enough blocks of 64 columns for
-    four a SM (``n`` alone fills the card at the vocab head: no split), at
-    least four units of 32 k a split, and no empty split."""
+def gemv_splits(m: int, n: int, k: int, e: int = 1) -> int:
+    """The decode-row kernel's split of k: enough blocks of 64 columns (of
+    each of the ``e`` experts of the expert form) for four a SM (``n``
+    alone fills the card at the vocab head, ``e x n`` at a MoE layer's
+    experts: no split), at least four units of 32 k a split, and no empty
+    split."""
     units = k // K1_GEMV_UNIT
-    tiles = -(-n // 64)
+    tiles = e * -(-n // 64)
     want = max(1, min(-(-4 * SM_COUNT // tiles), units // 4))
     per = -(-units // want)
     return -(-units // per)
@@ -414,6 +423,123 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, transpose_b: bool = False,
     else:          # serving: no autograd node per product
         y = _product(x2, w2, transpose_b=transpose_b)
     return y.to(out_dtype or x.dtype).reshape(*x.shape[:-1], *out_tail)
+
+
+# ---------------------------------------------------------------------------
+# K1's expert form: the capacity-padded MoE GEMM
+# ---------------------------------------------------------------------------
+
+def expert_route(e: int, cap: int, d: int, f: int, x_dtype, w_dtype,
+                 base_ok: bool = True) -> str:
+    """The kernel of one expert form ``(e, cap, d) @ (e, d, f)``, from
+    :func:`gemm_route` on one expert's product ``(cap, f, d)``: K1's
+    ``"gemv"`` (bf16 x bf16, ``cap <= K1_DECODE_ROWS``, ``d % 32 == 0``)
+    or ``"tile"`` (the other bf16 x bf16 forms whose rows TMA reads) with
+    the expert axis, else ``"K9"`` (its batched TILE path: any other
+    dtype, a row of ``d`` or ``f`` not a multiple of 8 elements, or a base
+    not 16-byte aligned).  Dtypes are torch dtypes or their names."""
+    names = {str(t).removeprefix("torch.") for t in (x_dtype, w_dtype)}
+    if names != {"bfloat16"} or not (e and cap and f):
+        return "K9"
+    bf16 = torch.bfloat16
+    route = gemm_route(cap, f, d, bf16, bf16, False, False, base_ok, base_ok)
+    return route if route in ("gemv", "tile") else "K9"
+
+
+def _expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch K1's expert form on ``x (e, cap, d)``, ``w (e, d, f)`` bf16
+    (a route of :func:`expert_route`); returns the f32 ``(e, cap, f)``."""
+    _check_kernel_dtype("expert gemm", x, w)
+    e, m, k = x.shape
+    n = w.shape[2]
+    route = expert_route(e, m, k, n, x.dtype, w.dtype,
+                         x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    if route == "K9":
+        raise ValueError(f"K1's expert form takes aligned bf16 operands; "
+                         f"{tuple(x.shape)} {x.dtype} x {tuple(w.shape)} "
+                         f"{w.dtype} is K9's (ops.expert_route)")
+    out = torch.empty((e, m, n), device=x.device, dtype=torch.float32)
+    nsplit = gemv_splits(m, n, k, e) if route == "gemv" else 1
+    ws = torch.empty((nsplit, e, m, n), device=x.device,
+                     dtype=torch.float32) if nsplit > 1 else None
+    _launch("repro_expert_gemm", x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), e, m, n, k,
+            int(route == "gemv"), nsplit)
+    LAUNCHES["K1"] += 1
+    return out
+
+
+def _expert_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The f32 expert form through K1 (CUDA) or its plain version."""
+    if _use_kernel(x, w):
+        return _expert_gemm(x, w)
+    return ref.expert_gemm(x, w)
+
+
+@functools.lru_cache(maxsize=256)
+def _expert_expr(e: int, cap: int, d: int, f: int) -> "E.Expr":
+    return E.expert_gemm_expr(e, cap, d, f)
+
+
+def expert_gemm(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
+                blocks=None, hardware: HardwareShape = H100) -> torch.Tensor:
+    """``(E, cap, d) x (E, d, f) -> (E, cap, f)``, the capacity-padded
+    expert GEMM (``repro.kernels.ops.expert_gemm``): the MoA expression
+    ``expert_gemm_expr`` through :func:`apply`, the expert axis one more
+    lift of the blocked product.  Its plan runs K1's expert form or K9 by
+    :func:`expert_route`; accumulated in f32, returned in ``out_dtype``
+    (default ``x.dtype``)."""
+    e, cap, d = x.shape
+    e2, d2, f = w.shape
+    if e != e2 or d != d2:
+        raise ValueError(f"expert gemm mismatch {tuple(x.shape)} x "
+                         f"{tuple(w.shape)}")
+    return apply(_expert_expr(e, cap, d, f), x, w,
+                 out_dtype=out_dtype or x.dtype, blocks=blocks,
+                 hardware=hardware)
+
+
+class _ExpertMatmulF32(torch.autograd.Function):
+    """``y = x @ w`` per expert in f32, the counterpart of the reference's
+    ``_pallas_expert_f32`` custom VJP.  Its backward is two more expert
+    forms (``dx = g wᵀ``, ``dw = xᵀ g``), which K1 does not have on the
+    card yet: there it raises; on the CPU it computes them plainly."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return expert_gemm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        if _use_kernel(g, x, w):
+            raise NotImplementedError(
+                "expert_matmul's backward (K1's expert VJP forms dx = g wᵀ, "
+                "dw = xᵀ g) is not ported to the card yet (ROADMAP.md, "
+                "Queue 1, MoE training)")
+        dx = ref.expert_gemm(g, w.transpose(1, 2), x.dtype)
+        dw = ref.expert_gemm(x.transpose(1, 2), g, w.dtype)
+        return dx, dw
+
+
+def expert_matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
+                  mesh=None, shard=None) -> torch.Tensor:
+    """The batched expert contraction ``ecd,edf->ecf``
+    (``repro.kernels.ops.expert_matmul``), the MoE dispatch's hot path:
+    :func:`expert_gemm` in f32, cast to ``out_dtype`` (default
+    ``x.dtype``).  Differentiable in ``x`` and ``w`` on the CPU; on the
+    card its backward raises (the MoE training slice).  ``mesh=`` /
+    ``shard=`` (expert parallelism) raise."""
+    if mesh is not None or shard is not None:
+        raise NotImplementedError(
+            "expert_matmul(mesh=/shard=) runs a distributed plan; it is not "
+            "ported yet (ROADMAP.md, Queue 1, Distributed)")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        y = _ExpertMatmulF32.apply(x, w)
+    else:
+        y = expert_gemm(x, w, out_dtype=torch.float32)
+    return y.to(out_dtype or x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -1070,38 +1196,49 @@ _PLANS_SIZE = 512
 
 
 def _k1_form(nf: "E.NormalForm"):
-    """``(transpose_a, transpose_b)`` when ``nf`` is one (mul, add) 2-D
-    product of stored operands, each read row-wise or column-wise (K1's
-    forms); None otherwise."""
+    """``(transpose_a, transpose_b, batched)`` when ``nf`` is one (mul,
+    add) 2-D product of stored operands, each read row-wise or column-wise
+    (K1's forms), or a stack of such products over one leading axis that
+    both row-major leaves and the output share, read untransposed (the
+    lifted expert axis of ``expert_gemm_expr``: ``batched``); None
+    otherwise."""
     if (nf.combine, nf.reduce_op) != ("mul", "add") or \
-            len(nf.leaves) != 2 or len(nf.out_axes) != 2 or \
+            len(nf.leaves) != 2 or len(nf.out_axes) not in (2, 3) or \
             len(nf.reduce_axes) != 1:
         return None
-    (i, j), k = nf.out_axes, nf.reduce_axes[0]
+    batched = len(nf.out_axes) == 3
+    lead = nf.out_axes[:1] if batched else ()
+    (i, j), k = nf.out_axes[-2:], nf.reduce_axes[0]
     flags = []
     for leaf, rows in zip(nf.leaves, (i, k)):
         syms = tuple(t for t, _ in leaf.dims)
         if leaf.layout == "col":
             syms = syms[::-1]                     # the storage order
+        if syms[:len(lead)] != lead:
+            return None
+        syms = syms[len(lead):]
         cols = j if rows == k else k
         if syms == (rows, cols):
             flags.append(False)
-        elif syms == (cols, rows):
+        elif syms == (cols, rows) and not batched:
             flags.append(True)
         else:
             return None
-    return tuple(flags)
+    return (*flags, batched)
 
 
 def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
-          blocks, acc_dtype: str) -> tuple:
+          blocks, acc_dtype: str, aligned: bool = True) -> tuple:
     """The memoised route of one normal form: ``("K1", transpose_a,
-    transpose_b)`` or ``("K9", launch descriptor)``; derives (or re-reads
-    from the schedule cache) its bundle first, whose padding policy the
-    descriptor applies (a chain has none)."""
+    transpose_b, batched)`` or ``("K9", launch descriptor)``; derives (or
+    re-reads from the schedule cache) its bundle first, whose padding
+    policy the descriptor applies (a chain has none).  A batched (expert)
+    form takes K1 where :func:`expert_route` gives it one of K1's routes
+    (``aligned``: every base 16-byte aligned), else K9."""
     block_key = blocks.as_tuple() if hasattr(blocks, "as_tuple") else (
         tuple(blocks) if isinstance(blocks, (list, tuple)) else blocks)
-    key = (nf.key(), dtypes, out_dtype, hardware.name, block_key, acc_dtype)
+    key = (nf.key(), dtypes, out_dtype, hardware.name, block_key, acc_dtype,
+           aligned)
     with _PLANS_LOCK:
         plan = _PLANS.get(key)
         if plan is not None:
@@ -1115,6 +1252,10 @@ def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
         nf, dtype=dtypes[0], hardware=hardware, blocks=blocks,
         acc_dtype=acc_dtype)
     flags = _k1_form(nf)
+    if flags is not None and flags[2]:
+        (e, cap, d), (_, _, f) = nf.leaf_storage_shapes()
+        if expert_route(e, cap, d, f, *dtypes[:2], aligned) == "K9":
+            flags = None
     plan = ("K1",) + flags if flags is not None else (
         "K9", emit.describe(bundle, nf))
     with _PLANS_LOCK:
@@ -1192,8 +1333,11 @@ def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
     arrays = tuple(a.contiguous() for a in arrays)
     out_dtype = out_dtype or arrays[0].dtype
     dtypes = tuple(str(a.dtype).removeprefix("torch.") for a in arrays)
-    plan = _plan(nf, dtypes, out_dtype, hardware, blocks, str(acc_dtype))
+    plan = _plan(nf, dtypes, out_dtype, hardware, blocks, str(acc_dtype),
+                 all(a.data_ptr() % 16 == 0 for a in arrays))
     if plan[0] == "K1":
+        if plan[3]:
+            return _expert_product(*arrays).to(out_dtype)
         return _product(*arrays, transpose_a=plan[1],
                         transpose_b=plan[2]).to(out_dtype)
     return semiring_contract(plan[1], *arrays, out_dtype=out_dtype)

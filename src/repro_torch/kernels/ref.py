@@ -33,6 +33,15 @@ def matmul(x2: torch.Tensor, w2: torch.Tensor, transpose_b: bool = False,
     return (x.t() if transpose_a else x) @ (w.t() if transpose_b else w)
 
 
+def expert_gemm(x: torch.Tensor, w: torch.Tensor,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """The capacity-padded expert GEMM ``x (E, cap, d) @ w (E, d, f) ->
+    (E, cap, f)``: ``einsum("ecd,edf->ecf")`` on the operands promoted to
+    f32 (exact for bf16), accumulated in f32, then cast to
+    ``out_dtype``."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(out_dtype)
+
+
 def split_bf16(g: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """``(hi, mid, lo)`` bf16 of an f32 tensor: ``hi = bf16(g)``, ``mid =
     bf16(g - hi)``, ``lo = bf16(g - hi - mid)`` (round to nearest even;

@@ -1,7 +1,9 @@
 """Decoder-LM assembly (``repro.models.transformer``) for the dense family
 with full attention (RMSNorm or LayerNorm, with or without biases,
-sequential or parallel blocks), the attention-free ssm (Mamba-2) family and
-the hybrid (RG-LRU + local attention) family.
+sequential or parallel blocks), the attention-free ssm (Mamba-2) family,
+the hybrid (RG-LRU + local attention) family and the moe family without a
+``layer_pattern`` (deepseek: dense first layers, then attention + MoE FFN
+layers).
 
 Parameters are a nested ``nn.ModuleDict`` of ``nn.ParameterDict``s with the
 reference's names and layouts — layer stacks keep their leading ``layers``
@@ -10,15 +12,18 @@ axis (``layers.attn.wq`` is ``(L, d, h, hd)``, ``layers.mixer.w_in`` is
 hybrid's groups their ``(groups, n_rec)`` / ``(groups, n_att)`` axes
 (``groups.rec.w_x`` is ``(g, n_rec, d, lru)``, ``groups.att.wq`` ``(g,
 n_att, d, h, hd)``) and its recurrent tail a ``(tail,)`` axis
-(``tail.rec.*``) — so carrying weights across from the JAX package is a
-copy with no transposes (``repro_torch.convert``).  The reference scans its
-layer stacks (the hybrid its layer groups); here a Python loop indexes the
-stacked tensors.
+(``tail.rec.*``), the moe family's ``dense_layers.*`` ``(nd,)`` and
+``layers.*`` ``(L - nd,)`` stacks (``layers.moe.wi`` is ``(L - nd, e, d,
+2 f)``, its router f32) — so carrying weights across from the JAX package
+is a copy with no transposes (``repro_torch.convert``).  The reference
+scans its layer stacks (the hybrid its layer groups); here a Python loop
+indexes the stacked tensors.
 
 Entry points:
 
     init_lm(cfg, generator, device, trainable) -> params
-    forward(params, cfg, tokens, want_cache)   -> (hidden, cache)
+    forward(params, cfg, tokens, want_cache, with_aux)
+                                               -> (hidden, cache[, aux])
     lm_loss(params, cfg, tokens, targets)      -> (loss, metrics)
     prefill(params, cfg, tokens)               -> (logits, cache)
     init_cache(cfg, batch, cache_len, ...)     -> decode cache
@@ -33,6 +38,8 @@ Entry points:
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -40,21 +47,36 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.common import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import rglru, ssm
+from repro_torch.models import moe, rglru, ssm
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        logits_from_hidden)
 
-DENSE, SSM, HYBRID = ("dense", "full"), ("ssm", "none"), ("hybrid", "full")
+DENSE, SSM, HYBRID, MOE = (("dense", "full"), ("ssm", "none"),
+                           ("hybrid", "full"), ("moe", "full"))
 
 
 def _check_family(cfg: ArchConfig, what: str,
-                  ported: tuple = (DENSE, SSM, HYBRID)) -> None:
+                  ported: tuple = (DENSE, SSM, HYBRID, MOE)) -> None:
     if (cfg.family, cfg.attention) not in ported:
         raise NotImplementedError(
             f"{what}: the port covers {' and '.join(map(str, ported))} as "
             f"(family, attention); family={cfg.family!r} "
             f"attention={cfg.attention!r} is not ported yet (ROADMAP.md, "
             f"Queue 1)")
+    if cfg.family == "moe" and cfg.layer_pattern:
+        raise NotImplementedError(
+            f"{what}: a moe config with a layer_pattern (llama4's grouped "
+            f"local and full layers) is not ported yet (ROADMAP.md, Queue "
+            f"1, MoE)")
+
+
+class Aux(NamedTuple):
+    """The MoE terms of a forward (``repro.models.transformer.Aux``): the
+    load-balance and z losses summed over the MoE layers, the dropped share
+    averaged over them; zeros for the other families."""
+    moe_aux: torch.Tensor
+    moe_z: torch.Tensor
+    dropped: torch.Tensor
 
 
 def _attn_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
@@ -100,8 +122,10 @@ def hybrid_layout(cfg: ArchConfig) -> tuple[int, int, int, int]:
 
 
 def param_shapes(cfg: ArchConfig) -> dict:
-    """``{group: {name: (shape, init scale, "ones" or "zeros")}}`` of the
-    LM, in the reference's ``Collector`` order and scales."""
+    """``{group: {name: (shape, init scale, "ones" or "zeros"[, dtype])}}``
+    of the LM, in the reference's ``Collector`` order and scales; a leaf
+    with a dtype (the MoE router's ``"float32"``) keeps it whatever
+    ``cfg.dtype`` is."""
     _check_family(cfg, "param_shapes")
     d, L = cfg.d_model, cfg.n_layers
     shapes = {"embed": {"table": ((cfg.vocab_size, d), d ** -0.5)}}
@@ -111,6 +135,18 @@ def param_shapes(cfg: ArchConfig) -> dict:
     if cfg.family == "ssm":
         shapes["layers.ln1"] = _norm_shapes(cfg, (L,))
         shapes["layers.mixer"] = ssm.param_shapes(cfg, (L,))
+    elif cfg.family == "moe":
+        nd = cfg.first_dense_layers
+        if nd:
+            shapes.update({"dense_layers.ln1": _norm_shapes(cfg, (nd,)),
+                           "dense_layers.ln2": _norm_shapes(cfg, (nd,)),
+                           "dense_layers.attn": _attn_shapes(cfg, (nd,)),
+                           "dense_layers.mlp": _mlp_shapes(cfg, (nd,))})
+        lead = (L - nd,)
+        shapes.update({"layers.ln1": _norm_shapes(cfg, lead),
+                       "layers.ln2": _norm_shapes(cfg, lead),
+                       "layers.attn": _attn_shapes(cfg, lead),
+                       "layers.moe": moe.moe_shapes(cfg, lead)})
     elif cfg.family == "hybrid":
         g, tail, n_rec, n_att = hybrid_layout(cfg)
         rec, att = (g, n_rec), (g, n_att)
@@ -159,7 +195,8 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator,
             device="cuda", trainable: bool = False) -> nn.ModuleDict:
     """Random parameters with the reference's shapes and scales: normal(0,
     scale) drawn in f32 from ``generator`` on ``device``, then cast to
-    ``cfg.dtype``; norm scales are ones, biases zeros.  (``jax.random`` and torch draw
+    ``cfg.dtype`` (or the leaf's own dtype); norm scales are ones, biases
+    zeros.  (``jax.random`` and torch draw
     different numbers from one seed: tests carry the JAX draw across with
     ``convert.params_from_numpy`` instead.)  ``trainable`` as in
     :func:`build_params`."""
@@ -168,15 +205,21 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator,
     tensors = {}
     for group, leaves in param_shapes(cfg).items():
         tensors[group] = {}
-        for name, (shape, scale) in leaves.items():
+        for name, (shape, scale, *own) in leaves.items():
+            dt = getattr(torch, own[0]) if own else dtype
             if scale == "ones":
-                t = torch.ones(shape, dtype=dtype, device=device)
+                t = torch.ones(shape, dtype=dt, device=device)
             elif scale == "zeros":
-                t = torch.zeros(shape, dtype=dtype, device=device)
+                t = torch.zeros(shape, dtype=dt, device=device)
             else:
-                t = torch.randn(shape, generator=generator,
-                                dtype=torch.float32, device=device)
-                t = t.mul_(scale).to(dtype)
+                # a leaf of over 2^32 elements (deepseek-moe-16b's stacked
+                # experts) is drawn a leading slice at a time, so that its
+                # f32 draw never holds the whole leaf
+                t = torch.empty(shape, dtype=dt, device=device)
+                for part in (t.unbind(0) if t.numel() > 2 ** 32 else (t,)):
+                    part.copy_(torch.randn(
+                        part.shape, generator=generator, dtype=torch.float32,
+                        device=device).mul_(scale))
             tensors[group][name] = t
     return build_params(tensors, trainable)
 
@@ -225,6 +268,16 @@ def _hybrid_layers(params, cfg: ArchConfig) -> list[tuple[str, dict]]:
     return out
 
 
+def _moe_layers(params, cfg: ArchConfig) -> list[tuple[str, dict]]:
+    """The moe stack's layers in order as ``(kind, params)``: the dense
+    first layers (``{ln1, ln2, attn, mlp}``, kind ``"dense"``), then the
+    MoE layers (``{ln1, ln2, attn, moe}``, kind ``"moe"``)."""
+    out = []
+    if cfg.first_dense_layers:
+        out = [("dense", lp) for lp in _slices(params["dense_layers"], 1)]
+    return out + [("moe", lp) for lp in _layers(params)]
+
+
 def _with_mlp(lp: dict, x: torch.Tensor, h: torch.Tensor,
               a_out: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """The residual after an attention layer's MLP: ``x + a_out +
@@ -264,8 +317,21 @@ def _rglru_block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
     return x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg), c
 
 
+def _moe_block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
+               positions: torch.Tensor, want_cache: bool):
+    """One pre-norm attention layer with the MoE FFN: the new residual and
+    ``(K/V, MoEStats)``."""
+    a_out, kv = attn.attention_fwd(lp["attn"], apply_norm(lp["ln1"], x, cfg),
+                                   cfg, positions=positions,
+                                   window=cfg.local_window)
+    x = x + a_out
+    m_out, stats = moe.apply_moe(lp["moe"], apply_norm(lp["ln2"], x, cfg),
+                                 cfg)
+    return x + m_out, (kv, stats)
+
+
 _BLOCKS = {"dense": _block, "local": _block, "ssm": _ssm_block,
-           "rglru": _rglru_block}
+           "rglru": _rglru_block, "moe": _moe_block}
 
 
 def _stacked(caches: list, lead: tuple[int, ...]):
@@ -284,8 +350,16 @@ def _cache_slices(cache, depth: int) -> list:
 
 def _stack_caches(cfg: ArchConfig, caches: list):
     """``[(kind, cache)]`` per layer, in order, as the family's cache: one
-    stack over the layers (dense K/V, ssm), or the hybrid's ``{"rec":
-    (g, n_rec, ...), "att": (g, n_att, ...), "tail": (tail, ...)}``."""
+    stack over the layers (dense K/V, ssm), the moe family's ``{"dense":
+    (nd, ...), "moe": (L - nd, ...)}`` K/V, or the hybrid's ``{"rec": (g,
+    n_rec, ...), "att": (g, n_att, ...), "tail": (tail, ...)}``."""
+    if cfg.family == "moe":
+        out = {}
+        for kind in ("dense", "moe"):
+            layer = [c for k, c in caches if k == kind]
+            if layer:
+                out[kind] = _stacked(layer, (len(layer),))
+        return out
     if cfg.family != "hybrid":
         return _stacked([c for _, c in caches], (len(caches),))
     g, tail, n_rec, n_att = hybrid_layout(cfg)
@@ -298,11 +372,13 @@ def _stack_caches(cfg: ArchConfig, caches: list):
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
-            want_cache: bool = True):
-    """Full-sequence forward: ``(hidden (B, S, d), cache)``.  The cache
+            want_cache: bool = True, with_aux: bool = False):
+    """Full-sequence forward: ``(hidden (B, S, d), cache)``, and the
+    forward's :class:`Aux` as a third element when ``with_aux``.  The cache
     is the per-layer state stacked on the leading stack axes: K/V ``(L, B,
     S, KV, hd)`` each (dense), an ``SSMCache`` of ``conv (L, B, W-1,
-    conv_dim)`` and ``state (L, B, H, p, N)`` (ssm), or the hybrid's
+    conv_dim)`` and ``state (L, B, H, p, N)`` (ssm), the moe family's
+    ``{"dense": KV (nd, ...), "moe": KV (L - nd, ...)}``, or the hybrid's
     ``{"rec": RGLRUCache, "att": KV, "tail": RGLRUCache}`` (``h (g, n_rec,
     B, lru)``, ``conv (g, n_rec, B, W-1, lru)``, K/V ``(g, n_att, B, S, KV,
     hd)``, the tail's on a ``(tail,)`` axis); None when not
@@ -322,11 +398,13 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             f"rematerializes whole layers (remat_policy='full')")
     if cfg.family == "hybrid":
         layers = _hybrid_layers(params, cfg)
+    elif cfg.family == "moe":
+        layers = _moe_layers(params, cfg)
     else:
         layers = [(cfg.family, lp) for lp in _layers(params)]
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    caches = []
+    caches, stats = [], []
     for kind, lp in layers:
         block = _BLOCKS[kind]
         if remat:
@@ -334,11 +412,19 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
                               use_reentrant=False, preserve_rng_state=False)
         else:
             x, c = block(lp, x, cfg, positions, want_cache)
+        if kind == "moe":
+            c, st = c
+            stats.append(st)
         caches.append((kind, c))
     x = apply_norm(params["final_norm"], x, cfg)
-    if not want_cache:
-        return x, None
-    return x, _stack_caches(cfg, caches)
+    out = (x, _stack_caches(cfg, caches) if want_cache else None)
+    if not with_aux:
+        return out
+    if not stats:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return out + (Aux(zero, zero, zero),)
+    aux, z, dropped = (torch.stack(t) for t in zip(*stats))
+    return out + (Aux(aux.sum(), z.sum(), dropped.mean()),)
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor):
@@ -362,13 +448,20 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
     layers (its size does not depend on ``cache_len``); the hybrid's
     ``{"rec": RGLRUCache (g, n_rec, ...), "att": KV (g, n_att, B, W, KV,
     hd), "tail": RGLRUCache (tail, ...)}``, the local layers' ring caches
-    ``W = min(local_window, cache_len)`` long."""
+    ``W = min(local_window, cache_len)`` long; the moe family's ``{"dense":
+    KV (nd, B, cache_len, KV, hd), "moe": KV (L - nd, ...)}``."""
     _check_family(cfg, "init_cache")
+    def kv(n: int) -> attn.KV:
+        t = torch.zeros((n, batch, cache_len, cfg.n_kv_heads, cfg.head_dim_),
+                        dtype=dtype, device=resolve_device(device))
+        return attn.KV(t, t.clone())
+
     if cfg.family == "dense":
-        kv = torch.zeros((cfg.n_layers, batch, cache_len, cfg.n_kv_heads,
-                          cfg.head_dim_), dtype=dtype,
-                         device=resolve_device(device))
-        return {"layers": attn.KV(kv, kv.clone())}
+        return {"layers": kv(cfg.n_layers)}
+    if cfg.family == "moe":
+        nd = cfg.first_dense_layers
+        return {"moe": kv(cfg.n_layers - nd), **({"dense": kv(nd)} if nd
+                                                  else {})}
     if cfg.family == "ssm":
         return {"layers": _repeat(
             ssm.init_ssm_cache(cfg, batch, dtype, device), (cfg.n_layers,))}
@@ -398,7 +491,14 @@ def prefill_cache_to_decode(cfg: ArchConfig, cache, cache_len: int) -> dict:
     cache carries forward unchanged (the final state IS the decode state).
     The windowed dense and the hybrid families have no such re-layout in
     the reference (ring caches, grouped layers): they ingest their prompt
-    token by token (``train.serve_step.greedy_generate``)."""
+    token by token (``train.serve_step.greedy_generate``), as does the moe
+    family, whose forward cache the reference does not re-lay either."""
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "prefill_cache_to_decode: the moe family has no forward->decode "
+            "cache re-layout in the reference (src/repro/models/"
+            "transformer.py:542-560 returns None); ingest the prompt token "
+            "by token (greedy_generate)")
     _check_family(cfg, "prefill_cache_to_decode", (DENSE, SSM))
     if not has_prefill_decode_relayout(cfg):
         raise NotImplementedError(
@@ -429,7 +529,7 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, pos,
                 cache: dict) -> tuple[torch.Tensor, dict]:
     """One decode step over contiguous caches.  ``tokens (B,)`` int on the
     device; ``pos (B,)`` the new tokens' absolute positions on the device,
-    which the dense caches and the hybrid's ring caches read (the ssm
+    which the dense and moe caches and the hybrid's ring caches read (the ssm
     family's state carries the position, and ``pos`` is unused, as in the
     reference).  Returns ``(logits (B, vocab), the new cache)``; the step
     reads nothing back to the host."""
@@ -447,6 +547,21 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, pos,
             x = _with_mlp(lp, x, h, a_out, cfg)
             new.append(("dense", c))
         new_cache = {"layers": _stack_caches(cfg, new)}
+    elif cfg.family == "moe":
+        caches = [c for key in ("dense", "moe") if key in cache
+                  for c in _cache_slices(cache[key], 1)]
+        for (kind, lp), c in zip(_moe_layers(params, cfg), caches):
+            h = apply_norm(lp["ln1"], x, cfg)
+            a_out, c = attn.attention_decode(lp["attn"], h, c, pos, cfg)
+            if kind == "dense":
+                x = _with_mlp(lp, x, h, a_out, cfg)
+            else:
+                x = x + a_out
+                m_out, _ = moe.apply_moe(
+                    lp["moe"], apply_norm(lp["ln2"], x, cfg), cfg)
+                x = x + m_out
+            new.append((kind, c))
+        new_cache = _stack_caches(cfg, new)
     elif cfg.family == "ssm":
         for lp, c in zip(_layers(params), _cache_slices(cache["layers"], 1)):
             out, c = ssm.decode_mamba2(
@@ -529,15 +644,22 @@ def decode_step_paged_batched(params, cfg: ArchConfig, tokens: torch.Tensor,
 
 def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
             targets: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    """Mean next-token NLL (``repro.models.transformer.lm_loss`` for the
-    dense, ssm and hybrid families): f32 ``log_softmax`` of the logits,
-    the NLL of each target, its mean.  Their MoE aux terms are zero, so
-    the loss is the NLL; the metrics keep the reference's keys."""
-    hidden, _ = forward(params, cfg, tokens, want_cache=False)
+    """``repro.models.transformer.lm_loss``: the mean next-token NLL (f32
+    ``log_softmax`` of the logits, the NLL of each target, its mean) plus
+    0.01 x the MoE load-balance loss and 1e-3 x its z-loss (the
+    reference's default weights), which are zero but for the moe family;
+    the metrics are the reference's (``nll``, ``moe_aux``, ``moe_z``,
+    ``dropped``).  The moe
+    family's gradient needs K1's expert VJP forms, which the card does
+    not have yet (``ops.expert_matmul``)."""
+    hidden, _, aux = forward(params, cfg, tokens, want_cache=False,
+                             with_aux=True)
     logits = logits_from_hidden(params, hidden, cfg)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    loss = nll.mean()
-    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss, {"nll": loss.detach(), "moe_aux": zero, "moe_z": zero,
-                  "dropped": zero}
+    mean = nll.mean()
+    loss = mean
+    if cfg.family == "moe":
+        loss = mean + 0.01 * aux.moe_aux + 1e-3 * aux.moe_z
+    return loss, {"nll": mean.detach(), "moe_aux": aux.moe_aux.detach(),
+                  "moe_z": aux.moe_z.detach(), "dropped": aux.dropped.detach()}

@@ -29,8 +29,9 @@ after every slot has launched; each slot's next input token stays on the
 device.  ``batched=False`` on a paged-capable model takes the same
 per-slot loop through ``decode_step_paged``: one K5 launch (at one slot)
 per layer and slot, each slot reading its own page table.  The hybrid
-family raises ``NotImplementedError``: the reference's engine cannot serve
-it either (``greedy_generate`` is its generation entry).
+and moe families raise ``NotImplementedError``: the reference's engine
+cannot serve them either, having no forward->decode cache re-layout for
+them (``greedy_generate`` is their generation entry).
 """
 from __future__ import annotations
 
@@ -108,6 +109,14 @@ class ServeEngine:
                 "in the reference (its ring caches and grouped layers; "
                 "src/repro/models/transformer.py:540-559), so ServeEngine "
                 "cannot serve it there either; generate with "
+                "repro_torch.train.serve_step.greedy_generate, which ingests "
+                "the prompt token by token")
+        if cfg.family == "moe":
+            raise NotImplementedError(
+                "family 'moe' has no forward->decode cache re-layout in the "
+                "reference (src/repro/models/transformer.py:542-560 returns "
+                "None), so ServeEngine cannot serve it there either "
+                "(src/repro/serving/engine.py:222-229); generate with "
                 "repro_torch.train.serve_step.greedy_generate, which ingests "
                 "the prompt token by token")
         if not self.paged and not transformer.has_prefill_decode_relayout(

@@ -10,7 +10,9 @@ family: the dense (full attention) and ssm families in one prefill whose
 cache is re-laid as the decode cache (``transformer.
 prefill_cache_to_decode``: the dense K/V padded to ``cache_len``, the ssm
 state as it is); the hybrid family, whose ring caches and grouped layers
-have no forward-layout equivalent, token by token through ``decode_step``.
+have no forward-layout equivalent, and the moe family, whose forward cache
+the reference does not re-lay either, token by token through
+``decode_step``.
 Positions are device tensors and the argmax runs on the device, so a step
 reads nothing back to the host.
 """

@@ -53,13 +53,15 @@ FLASH_SHAPES = [(1, 70, 1, 8, 256, 0), (1, 130, 1, 8, 256, 33),
 #: head a tile), and command-r-plus-104b's GQA (8 KV heads, G = 12, hd 128)
 DENSE_FLASH_SHAPES = [(2, 2048, 32, 1, 64, 0), (1, 130, 32, 1, 64, 0),
                       (1, 512, 8, 12, 128, 0)]
+#: deepseek-moe-16b's prefill attention: 16 KV heads of 128, G = 1
+MOE_FLASH_SHAPES = [(1, 2048, 16, 1, 128, 0)]
 
 
 @pytest.mark.h100
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,s,kv,g,hd,window",
-                         FLASH_SHAPES + DENSE_FLASH_SHAPES)
+                         FLASH_SHAPES + DENSE_FLASH_SHAPES + MOE_FLASH_SHAPES)
 def test_flash_kernel_matches_plain(h100, dtype, atol, b, s, kv, g, hd,
                                     window):
     q, k, v, _ = _attn_case(h100, dtype, b, s, g, hd, 1, kv=kv)
@@ -301,6 +303,67 @@ def test_gemm_alignment_boundary(h100, dt):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref.matmul(x, w[:k]), rtol=1e-5,
                                    atol=1e-4)
+
+
+#: (e, cap, d, f, route) of K1's expert form: deepseek-moe-16b's decode
+#: (cap 8) and S=2048 prefill (cap 240) products, wi and wo; a stack whose
+#: 2048-column products split k (8 experts x 32 column blocks); a ragged
+#: expert (d = 200 and f = 136: no multiple of a tile, so each expert's
+#: k, row and column edges fall inside a tile, where the rank-3 maps
+#: zero-fill and clip); cap 17 (one row past the decode rows) and cap 16
+#: at a d that is no multiple of 32 on the tile path
+EXPERT_CASES = [(64, 8, 2048, 2816, "gemv"), (64, 8, 1408, 2048, "gemv"),
+                (64, 240, 2048, 2816, "tile"), (64, 240, 1408, 2048, "tile"),
+                (8, 16, 2048, 2048, "gemv"), (8, 24, 200, 136, "tile"),
+                (5, 17, 64, 72, "tile"), (3, 16, 40, 64, "tile")]
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("e,cap,d,f,route", EXPERT_CASES)
+def test_expert_gemm_matches_plain(h100, e, cap, d, f, route):
+    """``ops.expert_gemm`` on aligned bf16 runs K1's expert form (one
+    launch, the route ``ops.expert_route`` names) and agrees with
+    ``ref.expert_gemm`` (f32 sums in another order: the 2-D K1 cases'
+    tolerance); a rerun gives the same bits."""
+    g = torch.Generator(device=h100).manual_seed(e + cap + d + f)
+    x = torch.randn(e, cap, d, generator=g, device=h100).to(_BF16)
+    w = (torch.randn(e, d, f, generator=g, device=h100)
+         * d ** -0.5).to(_BF16)
+    assert ops.expert_route(e, cap, d, f, _BF16, _BF16) == route
+    if (e, d, f) == (8, 2048, 2048):
+        assert ops.gemv_splits(cap, f, d, e) > 1
+    got = ops.expert_gemm(x, w, out_dtype=torch.float32)
+    again = ops.expert_gemm(x, w, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 2 and ops.LAUNCHES["K9"] == 0
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ref.expert_gemm(x, w), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.h100
+def test_expert_gemm_routes_other_forms_to_k9(h100):
+    """A row of d = 201 (no multiple of 8 elements) and f32 operands take
+    K9's batched tile; ``expert_matmul`` casts; its backward raises on the
+    card instead of running the plain version."""
+    g = torch.Generator(device=h100).manual_seed(61)
+    for (e, cap, d, f), dt in (((4, 24, 201, 64), _BF16),
+                               ((4, 24, 64, 72), _F32)):
+        x = torch.randn(e, cap, d, generator=g, device=h100).to(dt)
+        w = torch.randn(e, d, f, generator=g, device=h100).to(dt)
+        ops.reset_launches()
+        got = ops.expert_matmul(x, w, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["K1"] == 0 and ops.LAUNCHES["K9"] == 1
+        torch.testing.assert_close(got, ref.expert_gemm(x, w), rtol=0,
+                                   atol=K9_SUM_REL * d *
+                                   ref.expert_gemm(x, w).abs().max().item())
+    x = torch.randn(2, 8, 64, device=h100, dtype=_BF16, requires_grad=True)
+    w = torch.randn(2, 64, 64, device=h100, dtype=_BF16, requires_grad=True)
+    y = ops.expert_matmul(x, w, out_dtype=torch.float32)
+    assert ops.LAUNCHES["K1"] == 1 and y.dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        y.sum().backward()
 
 
 def _attn_case(dev, dtype, b, s, g, hd, seed, kv=1):
@@ -659,13 +722,16 @@ def test_gated_scan_backward_runs_the_reverse_walk(h100):
 # ---------------------------------------------------------------------------
 
 def _k9(expr, *arrays, out_dtype=torch.float32):
-    """K9 on the card, then its plain version on the same tensors."""
+    """K9 on the card, then its plain version on the same tensors.  K9
+    runs from the plan of unaligned bases: ``ops.apply`` gives an aligned
+    bf16 batched (mul, add) form to K1's expert form (``ops.expert_route``),
+    and K9 is what these tests hold."""
     from repro_torch.kernels import emit
     nf = ops.E.normal_form(expr)
     plan = ops._plan(nf, tuple(str(a.dtype)[6:] for a in arrays), out_dtype,
-                     ops.H100, None, "float32")
+                     ops.H100, None, "float32", False)
     assert plan[0] == "K9" and isinstance(plan[1], emit.Launch)
-    got = ops.apply(expr, *arrays, out_dtype=out_dtype)
+    got = ops.semiring_contract(plan[1], *arrays, out_dtype=out_dtype)
     torch.cuda.synchronize()
     with ops.reference_mode():
         want = ops.apply(expr, *arrays, out_dtype=out_dtype)

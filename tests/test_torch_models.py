@@ -32,7 +32,7 @@ def gemma():
 
 @pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-780m",
                                   "recurrentgemma-9b", "stablelm-1.6b",
-                                  "command-r-plus-104b"])
+                                  "command-r-plus-104b", "deepseek-moe-16b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_arch_config_copy_matches_reference(reduced, arch):
     ref = get_config(arch, reduced=reduced)
@@ -99,7 +99,7 @@ def test_full_config_is_gemma_2b_full_width():
 def test_other_families_raise(gemma):
     *_, tcfg, _ = gemma
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.param_shapes(tcfg.with_(family="moe"))
+        tt.param_shapes(tcfg.with_(family="vlm"))
 
 
 @pytest.mark.parametrize("attn_impl", ["pallas", "xla"])

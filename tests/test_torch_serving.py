@@ -133,6 +133,9 @@ def test_engine_scope_and_device_policy(gemma, monkeypatch):
     with pytest.raises(NotImplementedError, match="re-layout.*greedy_generate"):
         ServeEngine(tcfg.with_(family="hybrid"), tp, device="cpu")
     with pytest.raises(NotImplementedError, match="contiguous"):
+        ServeEngine(tcfg.with_(family="vlm"), tp, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="forward->decode.*greedy_generate"):
         ServeEngine(tcfg.with_(family="moe"), tp, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
