@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fourteen phases; any failure exits non-zero before the result line:
+Sixteen phases; any failure exits non-zero before the result line:
 
 1. device   the card's name, power limit and compute capability (9, 0).
 2. build    nvcc builds every kernel under src/repro_torch/kernels/csrc/
@@ -37,7 +37,13 @@ Fourteen phases; any failure exits non-zero before the result line:
             240, on the tile route) and at a ragged stack (E=8, cap 24,
             d 200, f 136), each with torch.bmm's time, K9's on the same
             operands and a bit-identical rerun; K2 at its prefill (16 KV
-            heads of 128, G = 1, S=2048).
+            heads of 128, G = 1, S=2048).  K1's expert VJP forms (dx = g
+            wᵀ, dw = xᵀ g, the f32 cotangent split into three bf16 parts)
+            at deepseek's training products (cap 240: wi, wo) and on the
+            ragged stack, each with torch.bmm on f32 copies and a rerun;
+            K2 (export), K3, K4 at its training attention (B=1 S=2048);
+            K2 at llama4-scout-17b-a16e's prefill (8 KV heads of 128, G =
+            5, S=2048), windowed 8192 and causal.
 4. path     gemma-2b at full width (18 layers, bf16, random weights from a
             seeded generator) served by ServeEngine(max_slots=4,
             max_len=512) over 6 requests; every kernel of the path must
@@ -137,6 +143,28 @@ Fourteen phases; any failure exits non-zero before the result line:
             ingested one by one + 16 new (K1 250 a step); a decode step
             under sync debug mode "error", timed against every weight byte
             and against the active parameters' bytes; profiles.
+15. moe_train deepseek-moe-16b at full width, depth cut to 5 of 28 layers
+            (the dense one and 4 MoE layers, 2.857 B parameters; the whole
+            model's AdamW state, ~260 GB, fits no card): step 1 (its first
+            microbatch) against the plain path: the loss with each path's
+            own routing (the routings that differ counted), the loss and
+            every gradient leaf with the plain routing held on both paths,
+            each MoE layer's output and gradients on the plain path's
+            input, routing held, and one layer's rerun bit for bit; then 3
+            AdamW steps at B=2 S=2048 in 2 microbatches (cap 240), remat
+            on: K1 (its expert form and VJP forms), K2-K4 launch their
+            derived counts, step 3 under sync debug mode "error", step ms
+            against its bound, peak memory under 80 GB, a profiled step.
+16. llama4_path llama4-scout-17b-a16e at full width (40 heads over 8 KV
+            heads of 128, 16 experts of 8192, top-1, 1 shared, vocab
+            202048 untied), depth cut to 8 of 48 layers (two (local,
+            local, local, full) groups, 19.69 B parameters, 39.4 GB): its
+            make_prefill B=1 S=2048 (K1, the expert tile at cap 160, K2:
+            the local layers' window 8192 cuts nothing at S = 2048, so
+            every layer's attention is causal) and the rest of moe_path's
+            steps (the same code); then one local layer's
+            decode from a seeded 8192-slot ring at position 9000 (the ring
+            has wrapped) against the plain path.
 
 Each path phase resets the peak memory statistics before it runs.  The
 last two lines before the final one are the kernels' JSON record and
@@ -230,8 +258,9 @@ STABLELM_B, STABLELM_S = 2, 2048
 #: greedy_generate prompt, new tokens and cache length
 CMDR_LAYERS = 2
 CMDR_PROMPT, CMDR_NEW, CMDR_CACHE = 64, 16, 128
-#: deepseek-moe-16b: the prefill sequence, and greedy_generate's batch,
-#: prompt, new tokens and cache length
+#: the MoE serving phases (deepseek-moe-16b, llama4-scout-17b-a16e): the
+#: prefill sequence, and greedy_generate's batch, prompt, new tokens and
+#: cache length
 MOE_S = 2048
 MOE_GEN_B, MOE_PROMPT, MOE_NEW, MOE_CACHE = 2, 64, 16, 128
 #: deepseek-moe-16b's expert GEMMs (E=64, d 2048, f 1408: wi to 2f, wo
@@ -242,6 +271,23 @@ MOE_EXPERT_CASES = (("decode wi", 64, 8, 2048, 2816),
                     ("prefill wi", 64, 240, 2048, 2816),
                     ("prefill wo", 64, 240, 1408, 2048),
                     ("ragged", 8, 24, 200, 136))
+#: K1's expert VJP forms at deepseek-moe-16b's training products (one
+#: 2048-token microbatch: cap 240; wi (64, 2048, 2816), wo (64, 1408,
+#: 2048)) and at the ragged stack: (name, e, cap, d, f) of the forward
+#: x (e, cap, d) @ w (e, d, f) whose dx = g wᵀ and dw = xᵀ g are timed
+MOE_VJP_CASES = (("wi", 64, 240, 2048, 2816), ("wo", 64, 240, 1408, 2048),
+                 ("ragged", 8, 24, 200, 136))
+#: deepseek-moe-16b's training run: depth cut to 5 of 28 layers (the
+#: dense one and 4 MoE layers: 2.857 B parameters, ~57 GB of parameters,
+#: masters, moments, gradients and f32 accumulators; the full model's
+#: AdamW state, ~260 GB, fits no card), B=2 S=2048 in 2 microbatches
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_MB = 5, 2, 2048, 2
+#: llama4-scout-17b-a16e at full width, depth cut to 8 of 48 layers (two
+#: (local, local, local, full) groups: 19.69 B parameters, 39.4 GB in
+#: bf16; the whole model's ~216 GB fits no card), and the position of
+#: the wrapped-ring decode check (its ring is the window, 8192 slots)
+LLAMA4_LAYERS = 8
+LLAMA4_RING_POS = 9000
 
 
 def fail(msg: str) -> None:
@@ -508,6 +554,17 @@ def phase_kernels(torch):
     _expert_cases(torch, rec, gen)
     _prefill_attention_case(torch, rec, gen, torch.bfloat16, MOE_S, kv=16,
                             g=1, hd=128)
+    _expert_vjp_cases(torch, rec, gen)
+    # deepseek-moe-16b's training attention (one microbatch): K2 with its
+    # export, K3, K4 at 16 KV heads of 128, G = 1
+    _attention_training_cases(torch, rec, gen, torch.bfloat16, "bfloat16",
+                              2, b=1, s=MOE_TRAIN_S, g=1, kv=16, hd=128)
+    # llama4-scout-17b-a16e's prefill: 8 KV heads of 128, G = 5, the call
+    # its local layers make (window 8192 cuts nothing at S = 2048: the
+    # causal function, with the window's checks run) and its full layers'
+    for window in (8192, 0):
+        _prefill_attention_case(torch, rec, gen, torch.bfloat16, MOE_S,
+                                kv=8, g=5, hd=128, window=window)
     return rec
 
 
@@ -542,6 +599,55 @@ def _expert_cases(torch, rec, gen):
               extra)
         _rerun_equal(torch, call, f"K1 expert {name}")
         del x, w
+
+
+def _expert_vjp_cases(torch, rec, gen):
+    """K1's expert VJP forms (``ops._expert_gemm`` on the split route: the
+    f32 cotangent g as three bf16 parts, split in the timed call as the
+    backward does once for both) at ``MOE_VJP_CASES``: dx = g wᵀ (w read
+    in its stored (e, d, f) layout) and dw = xᵀ g (x read in its stored
+    (e, cap, d) layout), each held to ``ref.expert_gemm`` on the
+    transposed views, with its route, its CUDA-graph time, ``torch.bmm``
+    on f32 copies (made outside the timed call) as the library row, the
+    split design's bound (three bf16 products, or the bytes: the operands,
+    the f32 result, and 12 B an f32 element of g for its parts), and a
+    rerun that must give the same bits."""
+    from repro_torch.kernels import ops, ref
+    bf, f32 = torch.bfloat16, torch.float32
+    for name, e, cap, d, f in MOE_VJP_CASES:
+        x = torch.randn(e, cap, d, generator=gen, device="cuda").to(bf)
+        w = (torch.randn(e, d, f, generator=gen, device="cuda")
+             * d ** -0.5).to(bf)
+        g = torch.randn(e, cap, f, generator=gen, device="cuda")
+        x32, w32 = x.float(), w.float()
+        g_bytes = 4 * g.numel()
+        for form, a, b, ta, tb, lib in (
+                ("dx", g, w, False, True,
+                 lambda: torch.bmm(g, w32.transpose(1, 2))),
+                ("dw", x, g, True, False,
+                 lambda: torch.bmm(x32.transpose(1, 2), g))):
+            m, k = (a.shape[2], a.shape[1]) if ta else a.shape[1:]
+            n = b.shape[1] if tb else b.shape[2]
+            call = lambda: ops._expert_gemm(a, b, ta, tb)
+            nbytes = x.numel() * 2 * (form == "dw") + \
+                w.numel() * 2 * (form == "dx") + g_bytes + e * m * n * 4
+            extra = {"path": ops.expert_route(e, m, k, n, a.dtype, b.dtype,
+                                              True, ta, tb),
+                     "graph_ms": graph_ms(torch, call),
+                     "fma_bound_ms": bound(2.0 * e * m * n * k, nbytes,
+                                           "float32")[0]}
+            require(extra["path"] == "split", f"expert {form} {name}: route "
+                    f"{extra['path']}, not split")
+            _case(torch, rec, "K1", "bfloat16", ("K1", "bfloat16"), call,
+                  lambda: ref.expert_gemm(a.transpose(1, 2) if ta else a,
+                                          b.transpose(1, 2) if tb else b),
+                  lib, 2.0 * e * m * n * k, nbytes,
+                  f"K1 mixed expert {form} {name} E={e} cap={cap} d={d} "
+                  f"f={f}", extra,
+                  bound(3 * 2.0 * e * m * n * k, nbytes + 3 * g_bytes,
+                        "bfloat16"))
+            _rerun_equal(torch, call, f"K1 expert {form} {name}")
+        del x, w, g, x32, w32
 
 
 def _dense_family_cases(torch, rec, gen):
@@ -579,9 +685,13 @@ def _dense_family_cases(torch, rec, gen):
     _gemm_forms(torch, rec, gen, "K1 command-r serve", forms)
 
 
-def _prefill_attention_case(torch, rec, gen, dt, s, kv, g, hd, b=1):
-    """K2 without its export (the prefill's form), causal, at ``kv`` KV
-    heads of ``hd`` under ``g`` query heads each, against SDPA."""
+def _prefill_attention_case(torch, rec, gen, dt, s, kv, g, hd, b=1,
+                            window=0):
+    """K2 without its export (the prefill's form), causal (and windowed by
+    ``window``), at ``kv`` KV heads of ``hd`` under ``g`` query heads
+    each, against SDPA (a window that cuts as a boolean mask, else
+    ``is_causal``), with its CUDA-graph time and a rerun for the same
+    bits."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     dname = str(dt).removeprefix("torch.")
@@ -592,15 +702,20 @@ def _prefill_attention_case(torch, rec, gen, dt, s, kv, g, hd, b=1):
                                                                  hd)
     qs = q.reshape(b, s, kv * g, hd).transpose(1, 2)
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
-    args = dict(scale=hd ** -0.5)
-    _case(torch, rec, "K2", dname, ("K2", dname),
-          lambda: ops.attention(q, k, v, **args),
+    args = dict(scale=hd ** -0.5, window=window)
+    mask = ref._mask(s, s, True, window, "cuda") if 0 < window < s else None
+    call = lambda: ops.attention(q, k, v, **args)
+    shape = (f"K2 {dname} B={b} S={s} KV={kv} G={g} hd={hd} "
+             + (f"window={window}" if window else "causal"))
+    _case(torch, rec, "K2", dname, ("K2", dname), call,
           lambda: ref.attention(q, k, v, **args),
-          lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                                 enable_gqa=True),
-          4.0 * b * kv * g * _pairs(s) * hd,
-          (b * s * g * 2 + 2 * b * s) * kv * hd * es,
-          f"K2 {dname} B={b} S={s} KV={kv} G={g} hd={hd} causal")
+          lambda: F.scaled_dot_product_attention(
+              qs, ks, vs, attn_mask=mask, is_causal=mask is None,
+              enable_gqa=True),
+          4.0 * b * kv * g * _pairs(s, window) * hd,
+          (b * s * g * 2 + 2 * b * s) * kv * hd * es, shape,
+          {"graph_ms": graph_ms(torch, call)})
+    _rerun_equal(torch, call, shape)
 
 
 def _decode_case(torch, rec, gen, dt, positions, pool_pages, page=16, kv=1,
@@ -761,7 +876,8 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
     m/l/delta (2, 1, 8, 512)); with a ``window``, K2 without the export
     too (the prefill's form).  The library yardstick of K3 and K4 is one
     pair: the backward alone of SDPA (enable_gqa, the window as a boolean
-    mask) through torch.autograd.grad."""
+    mask) through torch.autograd.grad.  Each row also prints its CUDA-graph
+    time, and each kernel is rerun for the same bits."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     scale = hd ** -0.5
@@ -775,24 +891,27 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
     args = dict(scale=scale, causal=True, window=window)
     qs = q.reshape(b, s, kv * g, hd).transpose(1, 2)
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
-    mask = ref._mask(s, s, True, window, "cuda") if window else None
+    mask = ref._mask(s, s, True, window, "cuda") if 0 < window < s else None
     sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(
         q_, k_, v_, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
     tag = f"window={window}" if window else "causal"
     shape = f"B={b} S={s} KV={kv} G={g} hd={hd} {tag}"
+    graph = lambda call: {"graph_ms": graph_ms(torch, call)}
     if window:
-        _case(torch, rec, "K2", dname, ("K2", dname),
-              lambda: ops.attention(q, k, v, **args),
+        fwd = lambda: ops.attention(q, k, v, **args)
+        _case(torch, rec, "K2", dname, ("K2", dname), fwd,
               lambda: ref.attention(q, k, v, **args),
               lambda: sdpa(qs, ks, vs), 4.0 * pairs * hd,
               (b * s * g * 2 + 2 * b * s) * kv * hd * es,
-              f"K2 {dname} {shape}")
-    _case(torch, rec, "K2", dname, ("K2", dname),
-          lambda: ops.attention_stats(q, k, v, **args),
+              f"K2 {dname} {shape}", graph(fwd))
+        _rerun_equal(torch, fwd, f"K2 {dname} {shape}")
+    export = lambda: ops.attention_stats(q, k, v, **args)
+    _case(torch, rec, "K2", dname, ("K2", dname), export,
           lambda: ref.attention_stats(q, k, v, **args),
           lambda: sdpa(qs, ks, vs),
           4.0 * pairs * hd, (b * s * g * 2 + 2 * b * s) * kv * hd * es
-          + 2 * stat_bytes, f"K2 {dname} {shape} export")
+          + 2 * stat_bytes, f"K2 {dname} {shape} export", graph(export))
+    _rerun_equal(torch, export, f"K2 {dname} {shape} export")
     out, m, l = ops.attention_stats(q, k, v, **args)
     delta = (do.float() * out.reshape(do.shape).float()).sum(-1)
     delta = delta.permute(0, 2, 3, 1).contiguous()
@@ -804,11 +923,12 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
     dos = do.reshape(b, s, kv * g, hd).transpose(1, 2)
     sdpa_bwd = lambda: torch.autograd.grad(og, (qg, kg, vg), dos,
                                            retain_graph=True)
-    _case(torch, rec, "K3", dname, ("K3", dname),
-          lambda: ops.flash_dq(*bwd, **args),
+    dq = lambda: ops.flash_dq(*bwd, **args)
+    _case(torch, rec, "K3", dname, ("K3", dname), dq,
           lambda: ref.flash_dq(*bwd, **args), sdpa_bwd,
           2.0 * 3 * pairs * hd, qkv_bytes + 3 * stat_bytes
-          + b * s * kv * g * hd * es, f"K3 {dname} {shape}")
+          + b * s * kv * g * hd * es, f"K3 {dname} {shape}", graph(dq))
+    _rerun_equal(torch, dq, f"K3 {dname} {shape}")
     nsplit = ops.dkv_splits(b, s, s, kv, g, True, window)
     _case(torch, rec, "K4", dname, ("K4", dname),
           lambda: ops.flash_dkv(*bwd, **args),
@@ -816,7 +936,8 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
           2.0 * 4 * pairs * hd, qkv_bytes + 3 * stat_bytes
           + 2 * b * s * kv * hd * es, f"K4 {dname} {shape}",
           {"path": "tc" if dt == torch.bfloat16 else "fma",
-           "row_splits": nsplit if dt == torch.bfloat16 else 1})
+           "row_splits": nsplit if dt == torch.bfloat16 else 1,
+           **graph(lambda: ops.flash_dkv(*bwd, **args))})
     _rerun_equal(torch, lambda: ops.flash_dkv(*bwd, **args),
                  f"K4 {dname} {shape}")
 
@@ -2885,16 +3006,16 @@ def _routing_flips(torch, kern, plain) -> tuple[int, int]:
     return sets, order
 
 
-def _moe_layers_check(torch, cfg, params, tokens, rows):
+def _moe_layers_check(torch, cfg, params, tokens, rows, phase):
     """Every layer of the served bf16 model, each sublayer fed the plain
-    path's input on both sides (so that nothing compounds): attention and
-    its K/V at the prefill's tokens; the dense layer's MLP; each MoE FFN
-    at the prefill's 2048 tokens (cap 240, K1's tile route) and at the 2
-    decode-shaped ``rows`` (cap 8, the gemv route), with the routing held
-    to the plain router's (its top-k and gates fed to both sides), so the
-    expert GEMMs are compared on one dispatch; the router logits (f32 on
-    K1's FMA route) against the plain product; and the routings that the
-    two routers order differently, counted."""
+    path's input on both sides (so that nothing compounds): attention (a
+    local layer's windowed) and its K/V at the prefill's tokens; the dense
+    layer's MLP; each MoE FFN at the prefill's tokens (K1's tile route)
+    and at the 2 decode-shaped ``rows`` (cap 8, the gemv route), with the
+    routing held to the plain router's (its top-k and gates fed to both
+    sides), so the expert GEMMs are compared on one dispatch; the router
+    logits (f32 on K1's FMA route) against the plain product; and the
+    routings that the two routers order differently, counted."""
     from repro_torch.kernels import ops
     from repro_torch.models import attention as attn
     from repro_torch.models import moe, transformer
@@ -2917,8 +3038,9 @@ def _moe_layers_check(torch, cfg, params, tokens, rows):
 
     for i, (kind, lp) in enumerate(transformer._moe_layers(params, cfg)):
         h = apply_norm(lp["ln1"], x, cfg)
+        window = cfg.local_window if kind == "moe_local" else 0
         (ok, kk), (op, kp) = both(lambda: attn.attention_fwd(
-            lp["attn"], h, cfg, positions=positions))
+            lp["attn"], h, cfg, positions=positions, window=window))
         note("attention out", i, ok, op, SSM_LAYER_TOL)
         note("K", i, kk.k, kp.k, SSM_LAYER_TOL)
         note("V", i, kk.v, kp.v, SSM_LAYER_TOL)
@@ -2944,22 +3066,30 @@ def _moe_layers_check(torch, cfg, params, tokens, rows):
             outs.append(yp)
         x, xd = x + outs[0], xd + outs[1]
     for what, (err, i, tol) in worst.items():
-        print(f"[moe_path] bfloat16 per layer (the same input on both "
+        print(f"[{phase}] bfloat16 per layer (the same input on both "
               f"sides), {what}: worst {err:.3e} of max|plain| at layer {i} "
               f"(tol {tol:g})", flush=True)
         require(err <= tol, f"layer {i} {what} disagrees with plain")
-    print(f"[moe_path] per layer, the same input: of {routed} (token, "
+    print(f"[{phase}] per layer, the same input: of {routed} (token, "
           f"layer) routings, {flips[0]} choose other experts and {flips[1]} "
           f"order the same experts otherwise under the kernels' router than "
           f"under the plain one (reported, not held: a last-bit difference "
           f"swaps near-tied experts)", flush=True)
 
 
-def phase_moe_path(torch, card):
-    """deepseek-moe-16b at full width and depth: make_prefill, each layer
-    against its plain version, greedy_generate, a decode step."""
+def _kv_leaves(cache):
+    """The K and V tensors of a cache: a KV pair or a dict of them."""
+    pairs = cache.values() if isinstance(cache, dict) else (cache,)
+    return [t for kv in pairs for t in kv]
+
+
+def _moe_serve_phase(torch, card, module, phase, n_layers=None):
+    """A MoE config at full width (``n_layers`` cuts its depth):
+    make_prefill B=1 S=MOE_S (derived launches, the bound, a bit-identical
+    rerun, the end-to-end routings), each layer against its plain version,
+    greedy_generate, a decode step under sync debug "error" against its
+    bounds, and profiles.  Returns ``(cfg, params, launches)``."""
     import numpy as np
-    from repro_torch.configs import deepseek_moe_16b
     from repro_torch.hardware import H100_PEAK_FLOPS
     from repro_torch.kernels import ops
     from repro_torch.models import moe, transformer
@@ -2967,24 +3097,34 @@ def phase_moe_path(torch, card):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cfg, params = _model(torch, deepseek_moe_16b)
+    cfg, params = _model(torch, module, n_layers=n_layers)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    L = cfg.n_layers
+    full_l = module.full().n_layers
+    depth = ("full depth" if L == full_l else
+             f"depth cut to {L} of {full_l} layers")
+    layout = f"{L} layers"
+    if cfg.layer_pattern:
+        layout += (f", {transformer.moe_groups(cfg)[0]} groups of "
+                   f"{cfg.layer_pattern}, window {cfg.local_window}")
     n_params = sum(p.numel() for p in params.parameters())
     w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    print(f"[moe_path] deepseek-moe-16b full width and depth "
-          f"({cfg.n_layers} layers, {cfg.n_experts} experts top-"
-          f"{cfg.top_k} + {cfg.n_shared_experts} shared): "
-          f"{n_params / 1e9:.3f} B params ({w_bytes / 1e9:.3f} GB, bf16 "
-          f"and the f32 router), init {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"[{phase}] {cfg.name} full width, {depth} ({layout}; "
+          f"{cfg.n_experts} "
+          f"experts of {cfg.moe_ff} top-{cfg.top_k} + "
+          f"{cfg.n_shared_experts} shared): {n_params / 1e9:.3f} B params "
+          f"({w_bytes / 1e9:.3f} GB, bf16 and the f32 router), init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (1, MOE_S))).cuda()
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (MOE_GEN_B, MOE_PROMPT))).cuda()
     k1, k1e = _moe_counts(cfg)
-    n_moe = cfg.n_layers - cfg.first_dense_layers
+    n_moe = L - cfg.first_dense_layers
+    windows = [cfg.local_window if kind == "moe_local" else 0
+               for kind, _ in transformer._moe_layers(params, cfg)]
     expert = [0]
     count_expert = lambda a, o: expert.__setitem__(0, expert[0] + 1)
     prefill = serve_step.make_prefill(cfg)
@@ -3003,19 +3143,21 @@ def phase_moe_path(torch, card):
         prefill_ms = start.elapsed_time(end)
         require(tuple(logits.shape) == (1, cfg.vocab_size) and
                 bool(torch.isfinite(logits).all()), "prefill logits")
-        require(set(cache) == {"dense", "moe"} and
-                tuple(cache["moe"].k.shape) == (n_moe, 1, MOE_S,
-                                                cfg.n_kv_heads,
-                                                cfg.head_dim_),
-                "prefill cache shapes")
-        want = _zero_launches(K1=k1, K2=cfg.n_layers)
-        print(f"[moe_path] make_prefill B=1 S={MOE_S}: {prefill_ms:.3f} ms "
+        kv = _kv_leaves(cache)
+        require(all(tuple(t.shape[-4:]) == (1, MOE_S, cfg.n_kv_heads,
+                                            cfg.head_dim_) for t in kv) and
+                sum(math.prod(t.shape[:-4]) for t in kv) == 2 * L,
+                "prefill cache shapes: K and V of every layer, (1, S, KV, "
+                "hd) each")
+        want = _zero_launches(K1=k1, K2=L)
+        cap = moe.capacity(cfg, MOE_S)
+        print(f"[{phase}] make_prefill B=1 S={MOE_S}: {prefill_ms:.3f} ms "
               f"(CUDA events; {MOE_S / prefill_ms * 1e3:.1f} tok/s); "
               f"launches {launches_p} (derived {want}), K1's expert form "
-              f"{expert[0]} (derived {k1e}: 2 a MoE layer)", flush=True)
+              f"{expert[0]} (derived {k1e}: 2 a MoE layer, cap {cap})",
+              flush=True)
         require(launches_p == want and expert[0] == k1e,
                 "prefill launches differ from the derived counts")
-        cap = moe.capacity(cfg, MOE_S)
         d, f, e = cfg.d_model, cfg.moe_ff, cfg.n_experts
         dense_mm = sum(p.numel() for name, p in params.named_parameters()
                        if name.endswith(("wq", "wk", "wv", "wo", "wi",
@@ -3024,10 +3166,11 @@ def phase_moe_path(torch, card):
                        and ".moe.w" not in name)
         flops = 2 * MOE_S * dense_mm + 2 * d * cfg.vocab_size \
             + n_moe * 2 * e * cap * (d * 2 * f + f * d) \
-            + cfg.n_layers * 4 * _pairs(MOE_S) * cfg.n_heads * cfg.head_dim_
+            + sum(4 * _pairs(MOE_S, w) for w in windows) * cfg.n_heads \
+            * cfg.head_dim_
         step_bytes = _step_bytes(params, cfg)
         b_ms, b_by = bound(flops, step_bytes, "bfloat16")
-        print(f"[moe_path] prefill bound: {flops / 1e12:.3f} TFLOP (the "
+        print(f"[{phase}] prefill bound: {flops / 1e12:.3f} TFLOP (the "
               f"experts at capacity {cap} of {MOE_S} x {cfg.top_k} / {e} "
               f"assignments) at 989 TFLOP/s = "
               f"{flops / H100_PEAK_FLOPS['bfloat16'] * 1e3:.3f} ms, weights "
@@ -3039,13 +3182,12 @@ def phase_moe_path(torch, card):
               flush=True)
         again, cache2 = prefill(params, {"tokens": tokens})
         require(torch.equal(logits, again) and all(
-            torch.equal(a, b) for key in cache
-            for a, b in zip(cache[key], cache2[key])),
+            torch.equal(a, b) for a, b in zip(kv, _kv_leaves(cache2))),
             "a rerun of the prefill differs (dispatch and combine must sum "
             "in a fixed order)")
-        print("[moe_path] prefill rerun bit-identical (logits and K/V)",
+        print(f"[{phase}] prefill rerun bit-identical (logits and K/V)",
               flush=True)
-        del cache, cache2, again
+        del cache, cache2, again, kv
 
         # the end-to-end routings: each path routes its own residual
         # stream, so a flip compounds; reported, not held
@@ -3059,18 +3201,19 @@ def phase_moe_path(torch, card):
         sets, order = _routing_flips(torch, routes[False], routes[True])
         lk, lp = routes[False, "logits"], routes[True, "logits"]
         same = int(lk.argmax()) == int(lp.argmax())
-        print(f"[moe_path] end to end ({cfg.n_layers} bf16 layers, each "
-              f"path its own residual): of {MOE_S * n_moe} (token, layer) "
-              f"routings, {sets} choose other experts than the plain "
-              f"path's and {order} order the same experts otherwise; "
-              f"last-position "
+        print(f"[{phase}] end to end ({L} bf16 layers, each path its own "
+              f"residual): of {MOE_S * n_moe} (token, layer) routings, "
+              f"{sets} choose other experts than the plain path's and "
+              f"{order} order the same experts otherwise; last-position "
               f"logits max|diff| {(lk - lp).abs().max().item():.3e} of "
               f"{lp.abs().max().item():.3g}, argmax "
               f"{'equal' if same else 'differs'}"
               f" (reported, not held: routing is discontinuous)", flush=True)
+        require(cfg.top_k > 1 or order == 0,
+                "top-1 routings cannot differ in order alone")
         del routes, lk, lp
         torch.cuda.empty_cache()
-        _moe_layers_check(torch, cfg, params, tokens, prompts[:, 0])
+        _moe_layers_check(torch, cfg, params, tokens, prompts[:, 0], phase)
         torch.cuda.empty_cache()
 
         # greedy_generate: the prompts ingested token by token, as the
@@ -3091,7 +3234,7 @@ def phase_moe_path(torch, card):
                 bool(((out >= 0) & (out < cfg.vocab_size)).all()),
                 "greedy_generate output")
         want = _zero_launches(K1=steps * k1)
-        print(f"[moe_path] greedy_generate B={MOE_GEN_B}, {MOE_PROMPT} "
+        print(f"[{phase}] greedy_generate B={MOE_GEN_B}, {MOE_PROMPT} "
               f"prompt tokens (ingested one by one) + {MOE_NEW} new, "
               f"cache_len {MOE_CACHE}: {gen_s:.3f} s, {steps} decode steps, "
               f"{gen_s * 1e3 / steps:.3f} ms a step (host clock), "
@@ -3119,11 +3262,11 @@ def phase_moe_path(torch, card):
             step()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        print("[moe_path] decode step ran with no host sync (sync debug "
-              "mode 'error')", flush=True)
+        print(f"[{phase}] decode step ran with no host sync (sync debug "
+              f"mode 'error')", flush=True)
         with ops.reference_mode():
             dp, _ = step()
-        print(f"[moe_path] decode step logits vs plain: max|diff| "
+        print(f"[{phase}] decode step logits vs plain: max|diff| "
               f"{(dk - dp).abs().max().item():.3e} of "
               f"{dp.abs().max().item():.3g}, argmax equal in "
               f"{int((dk.argmax(-1) == dp.argmax(-1)).sum())} of "
@@ -3133,7 +3276,7 @@ def phase_moe_path(torch, card):
         all_ms = bound(0.0, step_bytes, "bfloat16")[0]
         active = cfg.param_count()[1] * 2
         act_ms = bound(0.0, active, "bfloat16")[0]
-        print(f"[moe_path] decode step (B={MOE_GEN_B}): {step_ms:.3f} ms "
+        print(f"[{phase}] decode step (B={MOE_GEN_B}): {step_ms:.3f} ms "
               f"(CUDA events); bound, every weight byte read once "
               f"({step_bytes / 1e9:.3f} GB, what the capacity-padded "
               f"experts read): {all_ms:.3f} ms; bound, the active "
@@ -3141,10 +3284,330 @@ def phase_moe_path(torch, card):
               f"{card}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
-        profile_step(torch, step, n=2, what="moe decode")
+        profile_step(torch, step, n=2, what=f"{phase} decode")
         profile_step(torch, lambda: prefill(params, {"tokens": tokens}),
-                     n=1, what="moe prefill")
-    return {k: launches_p[k] + launches_g[k] for k in launches_p}
+                     n=1, what=f"{phase} prefill")
+    return cfg, params, {k: launches_p[k] + launches_g[k] for k in launches_p}
+
+
+def phase_moe_path(torch, card):
+    """deepseek-moe-16b at full width and depth (``_moe_serve_phase``)."""
+    from repro_torch.configs import deepseek_moe_16b
+    return _moe_serve_phase(torch, card, deepseek_moe_16b, "moe_path")[2]
+
+
+
+def _held_route(record):
+    """A ``moe.route`` that routes each layer as ``record`` (the router
+    slice's data pointer -> its top-k ``idx``) says: the router's logits
+    and probabilities on its own input, the recorded experts, their
+    probabilities renormalised as ``route`` does.  Both paths then compute
+    one function, differentiable in the router as ``route`` is."""
+    from repro_torch.models import moe
+    orig = moe.route
+
+    def held(p, xt, cfg):
+        logits, probs, _, _ = orig(p, xt, cfg)
+        idx = record[p["router"].data_ptr()]
+        gates = probs.gather(1, idx)
+        return (logits, probs,
+                gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx)
+    return held
+
+
+def _moe_train_agreement(torch, cfg, params, batch):
+    """Step 1 (the first microbatch: the step's shapes) against the plain
+    path.  (1) Each path routes its own residual: the loss is held within
+    LOSS_TOL and the routings that differ are counted (a flip compounds;
+    reported).  (2) The plain path's routing held on both paths (the same
+    function): the loss within LOSS_TOL and every gradient leaf within
+    GRAD_TOL in relative norm.  (3) Each MoE layer on the plain path's
+    input, routing held: its output within SSM_LAYER_TOL and the
+    gradients of its input and leaves within SSM_LAYER_GRAD_TOL, the
+    routings its two routers order otherwise counted; the first layer's
+    loss and gradients rerun bit for bit."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, transformer
+    from repro_torch.train import train_step as ts
+    record, inputs, own, losses = {}, [], {}, {}
+
+    for plain in (False, True):
+        seen = own.setdefault(plain, [])
+
+        def routed(a, o, seen=seen, plain=plain):
+            seen.append(o[3])
+            if plain:
+                record[a[0]["router"].data_ptr()] = o[3]
+        with contextlib.ExitStack() as stack, torch.no_grad():
+            stack.enter_context(_plain_if(ops, plain))
+            stack.enter_context(_spy(moe, "route", routed))
+            if plain:
+                stack.enter_context(_spy(moe, "apply_moe",
+                                         lambda a, o: inputs.append(a[1])))
+            losses[plain] = transformer.lm_loss(
+                params, cfg, batch["tokens"], batch["targets"])[0].item()
+    lk, lp = losses[False], losses[True]
+    sets, order = _routing_flips(torch, own[False], own[True])
+    n_moe = len(inputs)
+    print(f"[moe_train] step-1 loss, each path its own routing: kernels "
+          f"{lk:.6f} plain {lp:.6f} rel {abs(lk - lp) / abs(lp):.3e} (tol "
+          f"{LOSS_TOL:g}); of {own[True][0].shape[0] * n_moe} (token, "
+          f"layer) routings {sets} choose other experts and {order} order "
+          f"the same ones otherwise (reported)", flush=True)
+    require(abs(lk - lp) <= LOSS_TOL * abs(lp), "loss disagrees with plain")
+    del own
+
+    held = _held_route(record)
+    res = {}
+    for plain in (False, True):
+        with _plain_if(ops, plain), _patched(moe, "route", held):
+            res[plain] = ts.loss_and_grads(params, cfg, batch)
+    (loss_k, _, gk), (loss_p, _, gp) = res[False], res[True]
+    lk, lp = loss_k.item(), loss_p.item()
+    print(f"[moe_train] step-1 loss, the plain routing held on both paths: "
+          f"kernels {lk:.6f} plain {lp:.6f} rel {abs(lk - lp) / abs(lp):.3e} "
+          f"(tol {LOSS_TOL:g})", flush=True)
+    require(abs(lk - lp) <= LOSS_TOL * abs(lp), "held-routing loss "
+            "disagrees with plain")
+    worst = (0.0, "")
+    for name in gk:
+        require(bool(torch.isfinite(gk[name]).all()), f"{name}: non-finite "
+                f"grad")
+        rel = _rel(torch, gk[name], gp[name], norm=True)
+        worst = max(worst, (rel, name))
+        require(rel <= GRAD_TOL, f"{name}: gradient disagrees with plain "
+                f"({rel:.3e})")
+    print(f"[moe_train] step-1 gradients, routing held: worst rel norm err "
+          f"{worst[0]:.3e} ({worst[1]}; tol {GRAD_TOL:g}) over {len(gk)} "
+          f"leaves", flush=True)
+    del res, gk, gp
+
+    layers = [lp for kind, lp in transformer._moe_layers(params, cfg)
+              if kind == "moe"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst, flips, routed = {}, (0, 0), 0
+    for i, (lp, x) in enumerate(zip(layers, inputs)):
+        c = torch.randn(x.shape, generator=gen, device="cuda")
+        leaves = list(lp["moe"].values())
+
+        def vjp(plain):
+            with _plain_if(ops, plain), _patched(moe, "route", held):
+                xg = x.detach().requires_grad_()
+                y, st = moe.apply_moe(lp["moe"], xg, cfg)
+                loss = (y.float() * c).sum() + 0.01 * st.aux_loss \
+                    + 1e-3 * st.z_loss
+                return (loss.detach(), y.detach()) + torch.autograd.grad(
+                    loss, [xg] + leaves)
+        got, want = vjp(False), vjp(True)
+        with torch.no_grad():
+            xt = x.reshape(-1, cfg.d_model)
+            flips = tuple(map(sum, zip(flips, _routing_flips(
+                torch, [moe.route(lp["moe"], xt, cfg)[3]],
+                [record[lp["moe"]["router"].data_ptr()]]))))
+        routed += xt.shape[0]
+        for what, a, b, tol, norm in (
+                [("moe out", got[1], want[1], SSM_LAYER_TOL, False),
+                 ("input grad", got[2], want[2], SSM_LAYER_GRAD_TOL, True)]
+                + [(f"{name} grad", a, b, SSM_LAYER_GRAD_TOL, True)
+                   for name, a, b in zip(lp["moe"], got[3:], want[3:])]):
+            err = _rel(torch, a, b, norm=norm)
+            worst[what] = max(worst.get(what, (0.0, 0, tol)), (err, i, tol))
+        if i == 0:
+            again = vjp(False)
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    "a MoE layer's loss and gradients differ on a rerun")
+            print("[moe_train] MoE layer 1's loss and gradients (input, "
+                  "router, experts, shared) rerun bit-identical", flush=True)
+        del got, want
+    for what, (err, i, tol) in worst.items():
+        print(f"[moe_train] bfloat16 MoE layer on the plain path's input, "
+              f"routing held, {what}: worst {err:.3e} at MoE layer {i + 1} "
+              f"(tol {tol:g}, {'relative norm' if 'grad' in what else 'of max|plain|'})",
+              flush=True)
+        require(err <= tol, f"MoE layer {i + 1} {what} disagrees with plain")
+    print(f"[moe_train] per MoE layer, the same input: of {routed} (token, "
+          f"layer) routings, {flips[0]} choose other experts and {flips[1]} "
+          f"order the same ones otherwise under the kernels' router "
+          f"(reported)", flush=True)
+
+
+def phase_moe_train(torch, card):
+    """deepseek-moe-16b at full width, MOE_TRAIN_LAYERS deep: step 1
+    against the plain path, then 3 AdamW steps at B=2 S=2048 in 2
+    microbatches, remat on."""
+    from repro_torch.configs import deepseek_moe_16b
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.hardware import H100, H100_PEAK_FLOPS
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.train import train_step as ts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = _model(torch, deepseek_moe_16b, n_layers=MOE_TRAIN_LAYERS,
+                         trainable=True)
+    torch.cuda.synchronize()
+    mb, L = MOE_TRAIN_MB, cfg.n_layers
+    nd = cfg.first_dense_layers
+    n_moe = L - nd
+    require(cfg.remat, "deepseek-moe-16b trains with remat on")
+    n_params = sum(p.numel() for p in params.parameters())
+    tokens = MOE_TRAIN_B * MOE_TRAIN_S
+    s_mb = MOE_TRAIN_S                     # a microbatch: one sequence
+    cap = moe.capacity(cfg, s_mb)
+    print(f"[moe_train] deepseek-moe-16b full width, depth cut to {L} of 28 "
+          f"layers ({nd} dense, {n_moe} MoE): {n_params / 1e9:.3f} B params; "
+          f"B={MOE_TRAIN_B} S={MOE_TRAIN_S} in {mb} microbatches (cap "
+          f"{cap}); init {time.perf_counter() - t0:.1f} s", flush=True)
+    data = SyntheticLM(PipelineConfig(cfg.vocab_size, MOE_TRAIN_S,
+                                      MOE_TRAIN_B, seed=0))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                data.global_batch(i).items()} for i in range(TRAIN_STEPS)]
+    first = {k: v[:MOE_TRAIN_B // mb] for k, v in batches[0].items()}
+    _moe_train_agreement(torch, cfg, params, first)
+    torch.cuda.empty_cache()
+
+    state = ts.init_state(cfg, params, "cuda")
+    step = ts.make_train_step(cfg, microbatches=mb)
+    before = {k: t.reshape(-1)[:4096].clone()
+              for k, t in state.opt.master.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    expert = [0]
+    rows = []
+    with _spy(ops, "_expert_gemm",
+              lambda a, o: expert.__setitem__(0, expert[0] + 1)):
+        for i, batch in enumerate(batches):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if i == len(batches) - 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                start.record()
+                state, metrics = step(state, batch)
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+            vals = {k: metrics[k].item() for k in ("loss", "grad_norm",
+                                                   "nll", "moe_aux", "moe_z",
+                                                   "dropped")}
+            rows.append((ms, vals))
+            print(f"[moe_train] step {i + 1}: {ms:.3f} ms, "
+                  f"{tokens / ms * 1e3:.1f} tok/s, "
+                  + ", ".join(f"{k} {v:.6f}" for k, v in vals.items()),
+                  flush=True)
+            require(all(math.isfinite(v) for v in vals.values()),
+                    f"step {i + 1}: a metric is not finite")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print("[moe_train] step 3 ran with no host sync (sync debug mode "
+          "'error')", flush=True)
+    changed = sum(not torch.equal(before[k], t.reshape(-1)[:4096])
+                  for k, t in state.opt.master.items())
+    require(changed == len(before), f"only {changed} of {len(before)} f32 "
+            f"master leaves changed")
+    # per microbatch: K1 6 products a dense layer and 9 a MoE layer (q,
+    # k, v, o, the f32 router, the two expert GEMMs, the shared pair),
+    # the head; the layers again under remat; 2 VJP products for each; K2
+    # a layer forward and in its remat rerun, K3 and K4 a layer; the
+    # expert form 2 a MoE layer forward, 2 in the rerun, 4 VJP forms
+    prods = 6 * nd + 9 * n_moe
+    n = TRAIN_STEPS * mb
+    want = _zero_launches(K1=n * (prods + 1 + prods + 2 * (prods + 1)),
+                          K2=n * 2 * L, K3=n * L, K4=n * L)
+    print(f"[moe_train] launches over {TRAIN_STEPS} steps of {mb} "
+          f"microbatches {launches} (derived {want}); K1's expert form "
+          f"{expert[0]} (derived {n * 8 * n_moe}: 2 a MoE layer forward, 2 "
+          f"in the remat rerun, 4 VJP forms)", flush=True)
+    require(launches == want and expert[0] == n * 8 * n_moe,
+            "kernel launches differ from the derived counts")
+    # the bound: products at the bf16 peak (the forward, its remat rerun,
+    # the VJP products at three bf16 products each: the f32 cotangent is
+    # split), attention's (K3 1.5x, K4 2x the forward's), and AdamW's 28 B
+    # a parameter at 3.35 TB/s
+    d, f, e = cfg.d_model, cfg.moe_ff, cfg.n_experts
+    layer_mm = sum(p.numel() for name, p in params.named_parameters()
+                   if name.endswith(("wq", "wk", "wv", "wo", "wi",
+                                     "router", "shared_wi", "shared_wo"))
+                   and ".moe.w" not in name)
+    f_layers = 2 * s_mb * layer_mm
+    f_head = 2 * s_mb * d * cfg.vocab_size
+    f_exp = n_moe * 2 * e * cap * (d * 2 * f + f * d)
+    f_attn = L * 4 * _pairs(s_mb) * cfg.n_heads * cfg.head_dim_
+    flops = mb * (2 * (f_layers + f_exp + f_attn) + f_head
+                  + 3 * 2 * (f_layers + f_exp + f_head) + 3.5 * f_attn)
+    ops_ms = flops / H100_PEAK_FLOPS["bfloat16"] * 1e3
+    opt_ms = n_params * 28 / H100.hbm.bandwidth_Bps * 1e3
+    mean_ms = sum(r[0] for r in rows[1:]) / (len(rows) - 1)
+    print(f"[moe_train] step ms {[round(r[0], 3) for r in rows]} (steps 2-3 "
+          f"mean {mean_ms:.3f} ms, {tokens / mean_ms * 1e3:.1f} tok/s); peak "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"[moe_train] bound: products {flops / 1e12:.3f} TFLOP at 989 "
+          f"TFLOP/s = {ops_ms:.3f} ms + AdamW {n_params * 28 / 1e9:.3f} GB "
+          f"at 3.35 TB/s = {opt_ms:.3f} ms = {ops_ms + opt_ms:.3f} ms "
+          f"({100 * (ops_ms + opt_ms) / mean_ms:.1f}% of it reached; "
+          f"{card})", flush=True)
+    require(peak < 80e9, f"peak memory {peak / 1e9:.1f} GB over the card's "
+            f"80 GB")
+    profile_step(torch, lambda: step(state, batches[0]), n=1,
+                 what="moe train")
+    return launches
+
+
+def phase_llama4_path(torch, card):
+    """llama4-scout-17b-a16e at full width, LLAMA4_LAYERS deep
+    (``_moe_serve_phase``), then a local layer's decode from a wrapped
+    ring against its plain version."""
+    from repro_torch.configs import llama4_scout_17b_a16e
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import apply_norm
+
+    cfg, params, launches = _moe_serve_phase(
+        torch, card, llama4_scout_17b_a16e, "llama4_path", LLAMA4_LAYERS)
+    # a local layer's decode from a wrapped ring: its 8192 slots hold
+    # positions pos - 8191 .. pos (seeded K/V), the new token's K/V lands
+    # in slot pos % 8192
+    kind, lp = transformer._moe_layers(params, cfg)[0]
+    require(kind == "moe_local", "llama4's first layer is local")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b = MOE_GEN_B
+    shape = (b, cfg.local_window, cfg.n_kv_heads, cfg.head_dim_)
+    with torch.inference_mode():
+        ring = attn.KV(*(torch.randn(shape, generator=gen,
+                                     device="cuda").to(torch.bfloat16)
+                         for _ in range(2)))
+        x = torch.randn(b, 1, cfg.d_model, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        pos = torch.tensor([LLAMA4_RING_POS, LLAMA4_RING_POS + 77],
+                           dtype=torch.int32, device="cuda")
+        h = apply_norm(lp["ln1"], x, cfg)
+        got = []
+        for plain in (False, True):
+            with _plain_if(ops, plain):
+                got.append(attn.attention_decode_ring(lp["attn"], h, ring,
+                                                      pos, cfg))
+        (ok, ck), (op, cp) = got
+        written = (ck.k != ring.k).flatten(2).any(-1)
+        slots = (pos.long() % cfg.local_window).tolist()
+        require(all(written[i].nonzero().flatten().tolist() == [slots[i]]
+                    for i in range(b)),
+                "the ring write missed slot pos % window")
+        errs = [_rel(torch, ok, op), _rel(torch, ck.k, cp.k),
+                _rel(torch, ck.v, cp.v)]
+    print(f"[llama4_path] local layer decode from a wrapped "
+          f"{cfg.local_window}-slot ring at pos {pos.tolist()} (written to "
+          f"slots {slots}): out, K, V vs plain {errs[0]:.3e}, "
+          f"{errs[1]:.3e}, {errs[2]:.3e} of max|plain| (tol "
+          f"{SSM_LAYER_TOL:g})", flush=True)
+    require(max(errs) <= SSM_LAYER_TOL, "ring decode disagrees with plain")
+    return launches
+
 
 
 def profile_step(torch, step, n: int = 3, what: str = "decode") -> None:
@@ -3209,6 +3672,10 @@ def main() -> None:
     moa = phase_moa_path(torch, rec)
     torch.cuda.empty_cache()
     moe_serve = phase_moe_path(torch, smi_line)
+    torch.cuda.empty_cache()
+    moe_train = phase_moe_train(torch, smi_line)
+    torch.cuda.empty_cache()
+    llama4_serve = phase_llama4_path(torch, smi_line)
 
     src = "src/repro_torch/kernels/csrc/"
     head = {"K1": ("K1_gemm", src + "gemm.cu",
@@ -3245,7 +3712,8 @@ def main() -> None:
             "ssm_path": ssm_serve,
             "ssm_train": ssm_train, "hybrid_path": hybrid_serve,
             "hybrid_train": hybrid_train, "moa_path": moa,
-            "moe_path": moe_serve}
+            "moe_path": moe_serve, "moe_train": moe_train,
+            "llama4_path": llama4_serve}
     kernels = []
     for kid, (name, source, replaces, shape) in head.items():
         # launches: the path runs', each counted from 0

@@ -9,7 +9,8 @@
 // expert_gemm_expr (src/repro/kernels/ops.py, expert_gemm and the
 // _pallas_expert_f32 forward of expert_matmul): the capacity-padded MoE
 // GEMM x (E, cap, d) @ w (E, d, f) -> (E, cap, f), the expert axis one
-// more lift of the same blocked product.
+// more lift of the same blocked product; and the two expert GEMMs of
+// _pallas_expert_bwd, dx = g w^T and dw = x^T g, on the split route.
 //
 // Layouts: A is row-major (m, k), or with transpose_a row-major (k, m)
 // read as its transpose in place.  B is row-major (k, n), or with
@@ -65,7 +66,13 @@
 //         (a 2-D map over the stacked (E d, f) weight would read the next
 //         expert's rows at a ragged d); at cap <= 16 rows (decode) the
 //         decode-row kernel with the expert as grid axis z, its k split
-//         sized by the E x n/64 blocks.
+//         sized by the E x n/64 blocks.  Its VJP forms (the f32 cotangent
+//         g (E, cap, f) against bf16 x and w; repro_expert_gemm_split)
+//         take the split path's tile through the same rank-3 maps: dx =
+//         g w^T with g's three parts as A and w read K-major in its
+//         stored (E, d, f) layout, dw = x^T g with x read MN-major in its
+//         stored (E, cap, d) layout and g's parts as B, so k = cap is the
+//         ragged edge that zero-fills inside each expert.
 //   the first kernels where TMA cannot read an operand (a stored row
 //         length not a multiple of 8 elements, a base not 16-byte
 //         aligned, k = 0): bf16 x bf16 without transpose_a on
@@ -365,17 +372,21 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t a,
 // K-major) or (K, N) (TB = 0, MN-major).  A split f32 operand comes as its
 // three bf16 parts (PA or PB = 3): three wgmmas a k-step into the same
 // accumulator, the other operand's tile read once.
-// EX: the expert form, E products A[e] (M, K) B[e] (K, N) -> C[e] (M, N)
-// (TA = TB = 0, bf16): the tiles of expert e follow those of e - 1, and
-// A, B and C are rank-3 tensor maps with the expert outermost, so each
-// expert's ragged k, row and column edges read as zeros (and stores
-// clip) inside that expert.
+// EX: the expert form, E products op(A[e]) (M, K) op(B[e]) (K, N) -> C[e]
+// (M, N): the tiles of expert e follow those of e - 1, and A, B and C are
+// rank-3 tensor maps with the expert outermost, so each expert's ragged
+// k, row and column edges read as zeros (and stores clip) inside that
+// expert.  Three forms: the forward (bf16 x bf16, A (M, K), B (K, N)) and
+// its two VJP forms, dx = g w^T (A the split f32 g (M, K), B w stored (N,
+// K)) and dw = x^T g (A x stored (K, M), B the split g (K, N)).
 template <int BN, int TA, int TB, int PA, int PB, bool EX = false>
 __global__ void __launch_bounds__(384, 1)
 gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
         int N, int K, int tma_c, int n_fast, int E) {
-  static_assert(!EX || (TA == 0 && TB == 0 && PA == 1 && PB == 1),
-                "the expert form is bf16 x bf16, A (M, K), B (K, N)");
+  static_assert(!EX || (TA == 0 && TB == 0 && PA == 1 && PB == 1) ||
+                    (TA == 0 && TB == 1 && PA == 3 && PB == 1) ||
+                    (TA == 1 && TB == 0 && PA == 1 && PB == 3),
+                "the expert forms: x w, g w^T (g split), x^T g (g split)");
   using L = TileSmem<BN, PA, PB>;
   constexpr int S = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -429,7 +440,11 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
           mbar_expect_tx(full + s, L::STAGE);
 #pragma unroll
           for (int h = 0; h < PA; ++h) {
-            if constexpr (TA) {
+            if constexpr (TA && EX) {
+              tma_load_3d(a_tile(s, h), &maps.a[h], full + s, m0, k0, e);
+              tma_load_3d(a_tile(s, h) + 8192, &maps.a[h], full + s,
+                          m0 + 64, k0, e);
+            } else if constexpr (TA) {
               tma_load_2d(a_tile(s, h), &maps.a[h], full + s, m0, k0);
               tma_load_2d(a_tile(s, h) + 8192, &maps.a[h], full + s,
                           m0 + 64, k0);
@@ -441,7 +456,9 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
           }
 #pragma unroll
           for (int h = 0; h < PB; ++h) {
-            if constexpr (TB) {
+            if constexpr (TB && EX) {
+              tma_load_3d(b_tile(s, h), &maps.b[h], full + s, k0, n0, e);
+            } else if constexpr (TB) {
               tma_load_2d(b_tile(s, h), &maps.b[h], full + s, k0, n0);
             } else {
 #pragma unroll
@@ -723,21 +740,41 @@ static inline int encode_expert_map(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The expert form on the tile path: x (E, m, k) and w (E, k, n) bf16
-// into c (E, m, n) f32; BN = 256 where its tiles fill the SMs.
-int launch_tile_expert(const void* x, const void* w, float* c, int e, int m,
-                       int n, int k, cudaStream_t s) {
+// The expert forms on the tile path, c (E, m, n) f32 = op(a) op(b) per
+// expert: the forward x (E, m, k) w (E, k, n), bf16 (BN = 256 where its
+// tiles fill the SMs); dx = g w^T, a = g (E, m, k) as its three bf16
+// parts, b = w stored (E, n, k) (tb); dw = x^T g, a = x stored (E, k, m)
+// (ta), b = g (E, k, n) as its three parts.  Other forms are refused.
+int launch_tile_expert(const void* const a[3], const void* const b[3],
+                       float* c, int e, int m, int n, int k, int ta, int tb,
+                       cudaStream_t s) {
+  const int pa = a[1] ? 3 : 1, pb = b[1] ? 3 : 1;
+  const bool fwd = pa == 1 && pb == 1 && !ta && !tb;
+  const bool dx = pa == 3 && pb == 1 && !ta && tb;
+  const bool dw = pa == 1 && pb == 3 && ta && !tb;
+  if (!(fwd || dx || dw)) return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles256 =
       (long long)e * ((m + TBM - 1) / TBM) * ((n + 255) / 256);
-  const int bn = tiles256 >= sm_count() ? 256 : 128;
+  const int bn = fwd && tiles256 >= sm_count() ? 256 : 128;
   TileMaps maps;
-  int err = encode_expert_map(&maps.a[0], x, e, m, k, TBM, false);
-  if (err == 0) err = encode_expert_map(&maps.b[0], w, e, k, n, 64, false);
+  int err = 0;
+  for (int h = 0; h < pa && err == 0; ++h)
+    err = ta ? encode_expert_map(&maps.a[h], a[h], e, k, m, 64, false)
+             : encode_expert_map(&maps.a[h], a[h], e, m, k, TBM, false);
+  for (int h = 0; h < pb && err == 0; ++h)
+    err = tb ? encode_expert_map(&maps.b[h], b[h], e, n, k, bn, false)
+             : encode_expert_map(&maps.b[h], b[h], e, k, n, 64, false);
   const int tma_c = n % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
   if (err == 0 && tma_c)
     err = encode_expert_map(&maps.c, c, e, m, n, 64, true);
   if (err != 0) return err;
-  const int n_fast = m > n;
+  const int n_fast = (long long)m * pa > (long long)n * pb;   // A larger
+  if (dx)
+    return launch_tile_t<128, 0, 1, 3, 1, true>(maps, c, m, n, k, tma_c,
+                                                n_fast, s, e);
+  if (dw)
+    return launch_tile_t<128, 1, 0, 1, 3, true>(maps, c, m, n, k, tma_c,
+                                                n_fast, s, e);
   if (bn == 256)
     return launch_tile_t<256, 0, 0, 1, 1, true>(maps, c, m, n, k, tma_c,
                                                 n_fast, s, e);
@@ -1050,7 +1087,30 @@ extern "C" int repro_expert_gemm(const void* x, const void* w, void* c,
                            static_cast<float*>(ws), m, n, k, 0, nsplit, s,
                            e);
   if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return tc::launch_tile_expert(x, w, static_cast<float*>(c), e, m, n, k, s);
+  const void* const as[3] = {x, nullptr, nullptr};
+  const void* const bs[3] = {w, nullptr, nullptr};
+  return tc::launch_tile_expert(as, bs, static_cast<float*>(c), e, m, n, k,
+                                0, 0, s);
+}
+
+// The expert VJP forms on the split route, c (e, m, n) f32: dx = g w^T
+// (a, a_mid, a_lo the parts of g (e, m, k); b = w stored (e, n, k);
+// transpose_b) and dw = x^T g (a = x stored (e, k, m), transpose_a; b,
+// b_mid, b_lo the parts of g (e, k, n)).  Rows of a multiple of 16 bytes,
+// bases 16-byte aligned, k >= 1.
+extern "C" int repro_expert_gemm_split(const void* a, const void* a_mid,
+                                       const void* a_lo, const void* b,
+                                       const void* b_mid, const void* b_lo,
+                                       void* c, int e, int m, int n, int k,
+                                       int transpose_a, int transpose_b,
+                                       void* stream) {
+  if (e < 1 || k < 1 || (a_mid && !a_lo) || (b_mid && !b_lo))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* const as[3] = {a, a_mid, a_lo};
+  const void* const bs[3] = {b, b_mid, b_lo};
+  return tc::launch_tile_expert(as, bs, static_cast<float*>(c), e, m, n, k,
+                                transpose_a, transpose_b,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // The three bf16 parts (hi, mid, lo) of n f32 values (16-byte aligned).

@@ -26,7 +26,8 @@ entry             kernel (``csrc/``)       replaces (``repro``)
 ``expert_gemm``,  K1 ``gemm.cu``, its      ``emit_pallas`` on
 ``expert_         expert form              ``expert_gemm_expr`` (the
 matmul``                                   forward of
-                                           ``_pallas_expert_f32``)
+                                           ``_pallas_expert_f32``; its
+                                           VJP ``_pallas_expert_bwd``)
 ``attention``,    K2 ``flash_fwd.cu``      ``emit._softmax_kind`` (with
 ``attention_                               its (m, l) export)
 stats``
@@ -95,6 +96,7 @@ _SIGNATURES = {
     "repro_gemm_tc": ("gemm", [_P] * 7 + [_C] * 5),
     "repro_gemv": ("gemm", [_P] * 4 + [_C] * 5),
     "repro_expert_gemm": ("gemm", [_P] * 4 + [_C] * 6),
+    "repro_expert_gemm_split": ("gemm", [_P] * 7 + [_C] * 6),
     "repro_split_bf16": ("gemm", [_P] * 4 + [ctypes.c_longlong]),
     "repro_flash_fwd": ("flash_fwd", [_P] * 6 + [_C] * 6 + [_F, _C, _C, _C]),
     "repro_flash_dq": ("flash_bwd", [_P] * 8 + [_C] * 6 + [_F, _C, _C, _C]),
@@ -430,41 +432,83 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, transpose_b: bool = False,
 # ---------------------------------------------------------------------------
 
 def expert_route(e: int, cap: int, d: int, f: int, x_dtype, w_dtype,
-                 base_ok: bool = True) -> str:
-    """The kernel of one expert form ``(e, cap, d) @ (e, d, f)``, from
-    :func:`gemm_route` on one expert's product ``(cap, f, d)``: K1's
-    ``"gemv"`` (bf16 x bf16, ``cap <= K1_DECODE_ROWS``, ``d % 32 == 0``)
-    or ``"tile"`` (the other bf16 x bf16 forms whose rows TMA reads) with
-    the expert axis, else ``"K9"`` (its batched TILE path: any other
-    dtype, a row of ``d`` or ``f`` not a multiple of 8 elements, or a base
-    not 16-byte aligned).  Dtypes are torch dtypes or their names."""
-    names = {str(t).removeprefix("torch.") for t in (x_dtype, w_dtype)}
-    if names != {"bfloat16"} or not (e and cap and f):
+                 base_ok: bool = True, transpose_a: bool = False,
+                 transpose_b: bool = False) -> str:
+    """The kernel of one expert form ``op(x) (e, cap, d) @ op(w) (e, d,
+    f)``, from :func:`gemm_route` on one expert's product ``(cap, f,
+    d)`` (``transpose_a``: x stored ``(e, d, cap)``; ``transpose_b``: w
+    stored ``(e, f, d)``).  K1 takes three forms where TMA reads every
+    row (a multiple of 8 elements, bases 16-byte aligned, ``base_ok``):
+
+    - the forward, bf16 x bf16 with no transpose: ``"gemv"`` (``cap <=
+      K1_DECODE_ROWS``, ``d % 32 == 0``) or ``"tile"``;
+    - the two VJP forms of :func:`expert_matmul`, whose f32 cotangent
+      meets a bf16 operand: ``dx = g wᵀ`` (f32 x bf16, ``transpose_b``)
+      and ``dw = xᵀ g`` (bf16 x f32, ``transpose_a``), on ``"split"``
+      (the f32 operand as three bf16 parts; never ``"gemv"``).
+
+    Everything else is ``"K9"`` (its batched TILE path, which takes each
+    operand's own dtype): other dtypes or transposes, unaligned rows or
+    bases.  Dtypes are torch dtypes or their names."""
+    names = tuple(str(t).removeprefix("torch.") for t in (x_dtype, w_dtype))
+    if not (e and cap and f and d):
         return "K9"
-    bf16 = torch.bfloat16
-    route = gemm_route(cap, f, d, bf16, bf16, False, False, base_ok, base_ok)
-    return route if route in ("gemv", "tile") else "K9"
+    form = (names, bool(transpose_a), bool(transpose_b))
+    dts = tuple(getattr(torch, n) for n in names)
+    if form == (("bfloat16", "bfloat16"), False, False):
+        route = gemm_route(cap, f, d, *dts, False, False, base_ok, base_ok)
+        return route if route in ("gemv", "tile") else "K9"
+    if form in ((("float32", "bfloat16"), False, True),
+                (("bfloat16", "float32"), True, False)):
+        route = gemm_route(cap, f, d, *dts, transpose_a, transpose_b,
+                           base_ok, base_ok)
+        return "split" if route == "split" else "K9"
+    return "K9"
 
 
-def _expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch K1's expert form on ``x (e, cap, d)``, ``w (e, d, f)`` bf16
-    (a route of :func:`expert_route`); returns the f32 ``(e, cap, f)``."""
-    _check_kernel_dtype("expert gemm", x, w)
-    e, m, k = x.shape
-    n = w.shape[2]
-    route = expert_route(e, m, k, n, x.dtype, w.dtype,
-                         x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+def _expert_shape(a: torch.Tensor, b: torch.Tensor, transpose_a: bool,
+                  transpose_b: bool) -> tuple[int, int, int, int]:
+    """``(e, m, k, n)`` of ``op(a) (e, m, k) @ op(b) (e, k, n)``."""
+    e = a.shape[0]
+    m, k = (a.shape[2], a.shape[1]) if transpose_a else a.shape[1:]
+    n = b.shape[1] if transpose_b else b.shape[2]
+    return e, m, k, n
+
+
+def _expert_gemm(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
+                 transpose_b: bool = False, split=None) -> torch.Tensor:
+    """Launch K1's expert form on ``op(a) (e, m, k) @ op(b) (e, k, n)``
+    (a K1 route of :func:`expert_route`: bf16 x bf16, or a VJP form on
+    the split route, whose f32 operand's three bf16 parts ``split`` the
+    caller may have made); returns the f32 ``(e, m, n)``."""
+    code_a = _check_kernel_dtype("expert gemm", a, b, mixed=True)
+    e, m, k, n = _expert_shape(a, b, transpose_a, transpose_b)
+    route = expert_route(e, m, k, n, a.dtype, b.dtype,
+                         a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0,
+                         transpose_a, transpose_b)
     if route == "K9":
-        raise ValueError(f"K1's expert form takes aligned bf16 operands; "
-                         f"{tuple(x.shape)} {x.dtype} x {tuple(w.shape)} "
-                         f"{w.dtype} is K9's (ops.expert_route)")
-    out = torch.empty((e, m, n), device=x.device, dtype=torch.float32)
-    nsplit = gemv_splits(m, n, k, e) if route == "gemv" else 1
-    ws = torch.empty((nsplit, e, m, n), device=x.device,
-                     dtype=torch.float32) if nsplit > 1 else None
-    _launch("repro_expert_gemm", x.data_ptr(), w.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), e, m, n, k,
-            int(route == "gemv"), nsplit)
+        raise ValueError(f"K1's expert form takes aligned bf16 operands or "
+                         f"a VJP form; {tuple(a.shape)} {a.dtype} x "
+                         f"{tuple(b.shape)} {b.dtype} (transpose_a="
+                         f"{transpose_a}, transpose_b={transpose_b}) is "
+                         f"K9's (ops.expert_route)")
+    out = torch.empty((e, m, n), device=a.device, dtype=torch.float32)
+    if route == "split":
+        parts = split if split is not None else \
+            split_bf16(a if code_a == 0 else b)
+        ptrs = tuple(t.data_ptr() for t in parts)
+        a_ptrs, b_ptrs = (a.data_ptr(), None, None), (b.data_ptr(), None,
+                                                      None)
+        a_ptrs, b_ptrs = (ptrs, b_ptrs) if code_a == 0 else (a_ptrs, ptrs)
+        _launch("repro_expert_gemm_split", *a_ptrs, *b_ptrs, out.data_ptr(),
+                e, m, n, k, int(transpose_a), int(transpose_b))
+    else:
+        nsplit = gemv_splits(m, n, k, e) if route == "gemv" else 1
+        ws = torch.empty((nsplit, e, m, n), device=a.device,
+                         dtype=torch.float32) if nsplit > 1 else None
+        _launch("repro_expert_gemm", a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), None if ws is None else ws.data_ptr(), e, m,
+                n, k, int(route == "gemv"), nsplit)
     LAUNCHES["K1"] += 1
     return out
 
@@ -502,8 +546,18 @@ def expert_gemm(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
 class _ExpertMatmulF32(torch.autograd.Function):
     """``y = x @ w`` per expert in f32, the counterpart of the reference's
     ``_pallas_expert_f32`` custom VJP.  Its backward is two more expert
-    forms (``dx = g wᵀ``, ``dw = xᵀ g``), which K1 does not have on the
-    card yet: there it raises; on the CPU it computes them plainly."""
+    forms, ``dx = g wᵀ`` and ``dw = xᵀ g``, each reading its transposed
+    operand in its stored layout.  The cotangent ``g`` is f32 (the cast to
+    the out dtype sits outside), so under bf16 weights both are mixed: on
+    the card ``g`` is split once, for both, into three bf16 parts
+    (:func:`split_bf16`), and each form runs on K1's split route (three
+    bf16 tensor-core products into one f32 accumulator, as
+    ``_MatmulF32``'s).  A form that K1 cannot read (a row not a multiple
+    of 8 elements; f32 weights) runs on K9's batched TILE path, on the
+    transposed operand's row-major copy (``expert_gemm``), which takes the
+    mixed pair as it is.  Results are cast to ``x.dtype`` / ``w.dtype``,
+    as ``_pallas_expert_bwd`` does; on the CPU both are the plain
+    ``ref.expert_gemm``."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -513,14 +567,36 @@ class _ExpertMatmulF32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        if _use_kernel(g, x, w):
-            raise NotImplementedError(
-                "expert_matmul's backward (K1's expert VJP forms dx = g wᵀ, "
-                "dw = xᵀ g) is not ported to the card yet (ROADMAP.md, "
-                "Queue 1, MoE training)")
-        dx = ref.expert_gemm(g, w.transpose(1, 2), x.dtype)
-        dw = ref.expert_gemm(x.transpose(1, 2), g, w.dtype)
-        return dx, dw
+        g = g.contiguous()
+        need = ctx.needs_input_grad[:2]
+        if not _use_kernel(g, x, w):
+            dx = ref.expert_gemm(g, w.transpose(1, 2), x.dtype) \
+                if need[0] else None
+            dw = ref.expert_gemm(x.transpose(1, 2), g, w.dtype) \
+                if need[1] else None
+            return dx, dw
+        # dx = g wᵀ (w stored (e, d, f)); dw = xᵀ g (x stored (e, cap, d))
+        forms = [form if want else None for form, want in zip(
+            ((g, w, False, True), (x, g, True, False)), need)]
+        routes = [None if form is None else expert_route(
+            *_expert_shape(*form), form[0].dtype, form[1].dtype,
+            form[0].data_ptr() % 16 == 0 and form[1].data_ptr() % 16 == 0,
+            *form[2:]) for form in forms]
+        split = split_bf16(g) if "split" in routes else None
+        out = []
+        for form, route, dtype in zip(forms, routes, (x.dtype, w.dtype)):
+            if form is None:
+                out.append(None)
+                continue
+            a, b, ta, tb = form
+            if route == "split":
+                r = _expert_gemm(a, b, ta, tb, split=split)
+            else:
+                r = expert_gemm(a.transpose(1, 2) if ta else a,
+                                b.transpose(1, 2) if tb else b,
+                                out_dtype=torch.float32)
+            out.append(r.to(dtype))
+        return tuple(out)
 
 
 def expert_matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
@@ -528,9 +604,9 @@ def expert_matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
     """The batched expert contraction ``ecd,edf->ecf``
     (``repro.kernels.ops.expert_matmul``), the MoE dispatch's hot path:
     :func:`expert_gemm` in f32, cast to ``out_dtype`` (default
-    ``x.dtype``).  Differentiable in ``x`` and ``w`` on the CPU; on the
-    card its backward raises (the MoE training slice).  ``mesh=`` /
-    ``shard=`` (expert parallelism) raise."""
+    ``x.dtype``).  Differentiable in ``x`` and ``w`` (K1's expert VJP
+    forms on the card).  ``mesh=`` / ``shard=`` (expert parallelism)
+    raise."""
     if mesh is not None or shard is not None:
         raise NotImplementedError(
             "expert_matmul(mesh=/shard=) runs a distributed plan; it is not "

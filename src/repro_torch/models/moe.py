@@ -13,9 +13,13 @@ The reference scatters with ``.at[].add``; on the card a scatter-add sums
 in an order that changes from run to run, so here dispatch and combine are
 gathers only: each expert slot reads its token through a slot -> token map
 (a zero row for an empty slot), and each token sums its k contributions in
-expert order, the order of the reference's scatter, in ``x.dtype``.  A
-rerun gives the same bits, and no step reads anything back to the host
-(``cap`` comes from shapes).
+expert order, the order of the reference's scatter, in ``x.dtype``.  Their
+backwards are gathers too (:class:`_GatherRows`; autograd through
+``index_select`` would sum by ``index_add_``, atomics on the card): a
+token sums its kept slots' gradients in expert order, and a slot reads
+the gradient of the one assignment it holds.  A rerun, forward and
+backward, gives the same bits, and no step reads anything back to the
+host (``cap`` comes from shapes).
 """
 from __future__ import annotations
 
@@ -70,6 +74,64 @@ def route(p, xt: torch.Tensor, cfg: ArchConfig):
     return logits, probs, gates, idx
 
 
+class _GatherRows(torch.autograd.Function):
+    """``out[i] = src[fwd[i]]``, a zero row where ``fwd[i] == len(src)``
+    (``pad``), whose backward is a gather as well: ``bwd (n, c)`` lists,
+    for each row ``j`` of ``src``, the rows of ``out`` that read it (``len
+    (out)`` for none), and its gradient is theirs summed in that column
+    order, in the gradient's dtype.  No atomic adds either way."""
+
+    @staticmethod
+    def forward(ctx, src, fwd, bwd, pad: bool):
+        ctx.save_for_backward(bwd)
+        if pad:
+            src = torch.cat([src, src.new_zeros(1, src.shape[1])])
+        return src.index_select(0, fwd)
+
+    @staticmethod
+    def backward(ctx, g):
+        (bwd,) = ctx.saved_tensors
+        g = torch.cat([g, g.new_zeros(1, g.shape[1])])
+        out = g.index_select(0, bwd[:, 0])
+        for c in range(1, bwd.shape[1]):
+            out = out + g.index_select(0, bwd[:, c])
+        return out, None, None, None
+
+
+def slot_maps(idx: torch.Tensor, e: int, cap: int):
+    """The dispatch's maps of the top-k experts ``idx (t, k)``, with the
+    ``t k`` assignments sorted by expert (stably: a token keeps its place
+    within its expert's run): ``counts (e,)``, each expert's assignments;
+    ``slot_asg (e cap,)``, the assignment that slot c of expert j holds
+    (the c-th of its run; ``t k`` for an empty slot); ``slot (t k,)``,
+    each assignment's slot (clamped to ``cap - 1`` past capacity) and
+    ``keep``, whether it is below capacity; ``tok_slots (t, k)``, a
+    token's kept slots in expert order (``e cap`` where dropped); and
+    ``by_expert (t, k)``, that order."""
+    t, k = idx.shape
+    dev = idx.device
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    experts = torch.arange(e, device=dev)
+    sorted_e = flat_e.index_select(0, order)
+    starts = torch.searchsorted(sorted_e, experts)
+    counts = torch.searchsorted(sorted_e, experts, right=True) - starts
+    pos = torch.arange(cap, device=dev)
+    run = (starts[:, None] + pos).clamp_max(t * k - 1)
+    slot_asg = torch.where(pos < counts[:, None],
+                           order.index_select(0, run.reshape(-1)).reshape(
+                               e, cap), t * k).reshape(-1)
+    rank = torch.empty_like(order).scatter_(
+        0, order, torch.arange(t * k, device=dev))
+    at = rank - starts.index_select(0, flat_e)
+    keep = at < cap
+    slot = flat_e * cap + at.clamp_max(cap - 1)
+    by_expert = torch.argsort(idx, dim=-1)
+    tok_slots = torch.where(keep, slot, e * cap).reshape(t, k).gather(
+        1, by_expert)
+    return counts, slot_asg, slot, keep, tok_slots, by_expert
+
+
 def apply_moe(p, x: torch.Tensor, cfg: ArchConfig
               ) -> tuple[torch.Tensor, MoEStats]:
     """``x (B, S, d) -> (B, S, d)`` and its stats: the load-balance loss
@@ -82,27 +144,15 @@ def apply_moe(p, x: torch.Tensor, cfg: ArchConfig
     xt = x.reshape(t, d)
     logits, probs, gates, idx = route(p, xt, cfg)
     dev = x.device
-
-    # sort the t k assignments by expert; each expert's run is contiguous
-    flat_e = idx.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    experts = torch.arange(e, device=dev)
-    sorted_e = flat_e.index_select(0, order)
-    starts = torch.searchsorted(sorted_e, experts)
-    counts = torch.searchsorted(sorted_e, experts, right=True) - starts
-
+    cap = capacity(cfg, t)
+    counts, slot_asg, slot, keep, tok_slots, by_expert = slot_maps(idx, e,
+                                                                   cap)
     aux = e * torch.sum(probs.mean(0) * (counts.float() / (t * k)))
     z = torch.logsumexp(logits, dim=-1).square().mean()
 
-    # dispatch: slot c of expert j holds the c-th assignment of its run
-    cap = capacity(cfg, t)
-    pos = torch.arange(cap, device=dev)
-    run = (starts[:, None] + pos).clamp_max(t * k - 1)
-    slot_tok = torch.where(pos < counts[:, None],
-                           order.index_select(0, run.reshape(-1)).reshape(
-                               e, cap).div(k, rounding_mode="floor"), t)
-    xe = torch.cat([xt, xt.new_zeros(1, d)]).index_select(
-        0, slot_tok.reshape(-1)).reshape(e, cap, d)
+    # dispatch: each slot reads its token (the zero row t for an empty one)
+    xe = _GatherRows.apply(xt, slot_asg.div(k, rounding_mode="floor"),
+                           tok_slots, True).reshape(e, cap, d)
 
     h = ops.expert_matmul(xe, p["wi"], out_dtype=torch.float32)
     u, v = h.chunk(2, dim=-1)
@@ -111,15 +161,10 @@ def apply_moe(p, x: torch.Tensor, cfg: ArchConfig
 
     # combine: each assignment's slot, its gate (0 past capacity), and the
     # k contributions of a token summed in expert order
-    rank = torch.empty_like(order).scatter_(
-        0, order, torch.arange(t * k, device=dev))
-    at = rank - starts.index_select(0, flat_e)
-    keep = at < cap
-    slot = flat_e * cap + at.clamp_max(cap - 1)
-    contrib = ye.reshape(e * cap, d).index_select(0, slot)
+    contrib = _GatherRows.apply(ye.reshape(e * cap, d), slot,
+                                slot_asg[:, None], False)
     contrib = (contrib * (gates.reshape(-1) * keep).to(x.dtype)[:, None]
                ).reshape(t, k, d)
-    by_expert = torch.argsort(idx, dim=-1)
     y = torch.zeros((t, d), dtype=x.dtype, device=dev)
     for j in range(k):
         y = y + contrib.gather(1, by_expert[:, j, None, None].expand(

@@ -1,9 +1,10 @@
 """Decoder-LM assembly (``repro.models.transformer``) for the dense family
 with full attention (RMSNorm or LayerNorm, with or without biases,
 sequential or parallel blocks), the attention-free ssm (Mamba-2) family,
-the hybrid (RG-LRU + local attention) family and the moe family without a
-``layer_pattern`` (deepseek: dense first layers, then attention + MoE FFN
-layers).
+the hybrid (RG-LRU + local attention) family and the moe family
+(deepseek: dense first layers, then attention + MoE FFN layers; llama4:
+groups of a ``layer_pattern`` of local (windowed) and full attention
+layers, each with the MoE FFN).
 
 Parameters are a nested ``nn.ModuleDict`` of ``nn.ParameterDict``s with the
 reference's names and layouts — layer stacks keep their leading ``layers``
@@ -14,8 +15,10 @@ hybrid's groups their ``(groups, n_rec)`` / ``(groups, n_att)`` axes
 n_att, d, h, hd)``) and its recurrent tail a ``(tail,)`` axis
 (``tail.rec.*``), the moe family's ``dense_layers.*`` ``(nd,)`` and
 ``layers.*`` ``(L - nd,)`` stacks (``layers.moe.wi`` is ``(L - nd, e, d,
-2 f)``, its router f32) — so carrying weights across from the JAX package
-is a copy with no transposes (``repro_torch.convert``).  The reference
+2 f)``, its router f32) or, with a ``layer_pattern``, its ``groups.{ln1,
+ln2, attn, moe}`` ``(g, len(pattern))`` stacks — so carrying weights
+across from the JAX package is a copy with no transposes
+(``repro_torch.convert``).  The reference
 scans its layer stacks (the hybrid its layer groups); here a Python loop
 indexes the stacked tensors.
 
@@ -63,11 +66,6 @@ def _check_family(cfg: ArchConfig, what: str,
             f"(family, attention); family={cfg.family!r} "
             f"attention={cfg.attention!r} is not ported yet (ROADMAP.md, "
             f"Queue 1)")
-    if cfg.family == "moe" and cfg.layer_pattern:
-        raise NotImplementedError(
-            f"{what}: a moe config with a layer_pattern (llama4's grouped "
-            f"local and full layers) is not ported yet (ROADMAP.md, Queue "
-            f"1, MoE)")
 
 
 class Aux(NamedTuple):
@@ -121,6 +119,15 @@ def hybrid_layout(cfg: ArchConfig) -> tuple[int, int, int, int]:
     return g, cfg.n_layers - g * len(pat), n_rec, len(pat) - n_rec
 
 
+def moe_groups(cfg: ArchConfig) -> tuple[int, int, int]:
+    """``(groups, n_local, n_full)`` of a moe stack with a
+    ``layer_pattern`` (llama4): ``groups`` repeats of the pattern, each of
+    ``n_local`` local and ``n_full`` full attention layers."""
+    pat = cfg.layer_pattern
+    n_local = sum(1 for k in pat if k == "local")
+    return cfg.n_layers // len(pat), n_local, len(pat) - n_local
+
+
 def param_shapes(cfg: ArchConfig) -> dict:
     """``{group: {name: (shape, init scale, "ones" or "zeros"[, dtype])}}``
     of the LM, in the reference's ``Collector`` order and scales; a leaf
@@ -135,6 +142,12 @@ def param_shapes(cfg: ArchConfig) -> dict:
     if cfg.family == "ssm":
         shapes["layers.ln1"] = _norm_shapes(cfg, (L,))
         shapes["layers.mixer"] = ssm.param_shapes(cfg, (L,))
+    elif cfg.family == "moe" and cfg.layer_pattern:
+        lead = (moe_groups(cfg)[0], len(cfg.layer_pattern))
+        shapes.update({"groups.ln1": _norm_shapes(cfg, lead),
+                       "groups.ln2": _norm_shapes(cfg, lead),
+                       "groups.attn": _attn_shapes(cfg, lead),
+                       "groups.moe": moe.moe_shapes(cfg, lead)})
     elif cfg.family == "moe":
         nd = cfg.first_dense_layers
         if nd:
@@ -191,6 +204,14 @@ def build_params(tensors: dict, trainable: bool = False) -> nn.ModuleDict:
     return root
 
 
+def _draw_parts(t: torch.Tensor) -> list[torch.Tensor]:
+    """``t`` as leading slices of at most 2^32 elements, in index order
+    (``t`` itself when it is that small)."""
+    if t.numel() <= 2 ** 32:
+        return [t]
+    return [p for part in t.unbind(0) for p in _draw_parts(part)]
+
+
 def init_lm(cfg: ArchConfig, generator: torch.Generator,
             device="cuda", trainable: bool = False) -> nn.ModuleDict:
     """Random parameters with the reference's shapes and scales: normal(0,
@@ -212,11 +233,11 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator,
             elif scale == "zeros":
                 t = torch.zeros(shape, dtype=dt, device=device)
             else:
-                # a leaf of over 2^32 elements (deepseek-moe-16b's stacked
-                # experts) is drawn a leading slice at a time, so that its
-                # f32 draw never holds the whole leaf
+                # a leaf of over 2^32 elements (the moe family's stacked
+                # experts) is drawn a leading slice at a time, each of at
+                # most 2^32, so that its f32 draw never holds the whole leaf
                 t = torch.empty(shape, dtype=dt, device=device)
-                for part in (t.unbind(0) if t.numel() > 2 ** 32 else (t,)):
+                for part in _draw_parts(t):
                     part.copy_(torch.randn(
                         part.shape, generator=generator, dtype=torch.float32,
                         device=device).mul_(scale))
@@ -271,7 +292,13 @@ def _hybrid_layers(params, cfg: ArchConfig) -> list[tuple[str, dict]]:
 def _moe_layers(params, cfg: ArchConfig) -> list[tuple[str, dict]]:
     """The moe stack's layers in order as ``(kind, params)``: the dense
     first layers (``{ln1, ln2, attn, mlp}``, kind ``"dense"``), then the
-    MoE layers (``{ln1, ln2, attn, moe}``, kind ``"moe"``)."""
+    MoE layers (``{ln1, ln2, attn, moe}``, kind ``"moe"``); with a
+    ``layer_pattern``, each group's layers in pattern order, kind
+    ``"moe_local"`` or ``"moe_full"``."""
+    if cfg.layer_pattern:
+        pat = cfg.layer_pattern
+        return [(f"moe_{pat[i % len(pat)]}", lp)
+                for i, lp in enumerate(_slices(params["groups"], 2))]
     out = []
     if cfg.first_dense_layers:
         out = [("dense", lp) for lp in _slices(params["dense_layers"], 1)]
@@ -318,20 +345,26 @@ def _rglru_block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
 
 
 def _moe_block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
-               positions: torch.Tensor, want_cache: bool):
-    """One pre-norm attention layer with the MoE FFN: the new residual and
-    ``(K/V, MoEStats)``."""
+               positions: torch.Tensor, want_cache: bool, window: int = 0):
+    """One pre-norm attention layer (full, or windowed by ``window``) with
+    the MoE FFN: the new residual and ``(K/V, MoEStats)``."""
     a_out, kv = attn.attention_fwd(lp["attn"], apply_norm(lp["ln1"], x, cfg),
-                                   cfg, positions=positions,
-                                   window=cfg.local_window)
+                                   cfg, positions=positions, window=window)
     x = x + a_out
     m_out, stats = moe.apply_moe(lp["moe"], apply_norm(lp["ln2"], x, cfg),
                                  cfg)
     return x + m_out, (kv, stats)
 
 
+def _moe_local_block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
+                     positions: torch.Tensor, want_cache: bool):
+    """llama4's local layer: the MoE layer windowed by ``local_window``."""
+    return _moe_block(lp, x, cfg, positions, want_cache, cfg.local_window)
+
+
 _BLOCKS = {"dense": _block, "local": _block, "ssm": _ssm_block,
-           "rglru": _rglru_block, "moe": _moe_block}
+           "rglru": _rglru_block, "moe": _moe_block, "moe_full": _moe_block,
+           "moe_local": _moe_local_block}
 
 
 def _stacked(caches: list, lead: tuple[int, ...]):
@@ -351,8 +384,13 @@ def _cache_slices(cache, depth: int) -> list:
 def _stack_caches(cfg: ArchConfig, caches: list):
     """``[(kind, cache)]`` per layer, in order, as the family's cache: one
     stack over the layers (dense K/V, ssm), the moe family's ``{"dense":
-    (nd, ...), "moe": (L - nd, ...)}`` K/V, or the hybrid's ``{"rec": (g,
-    n_rec, ...), "att": (g, n_att, ...), "tail": (tail, ...)}``."""
+    (nd, ...), "moe": (L - nd, ...)}`` K/V (with a ``layer_pattern``, one
+    K/V over ``(g, len(pattern))``, as the reference's scanned groups
+    stack it), or the hybrid's ``{"rec": (g, n_rec, ...), "att": (g,
+    n_att, ...), "tail": (tail, ...)}``."""
+    if cfg.family == "moe" and cfg.layer_pattern:
+        return _stacked([c for _, c in caches],
+                        (moe_groups(cfg)[0], len(cfg.layer_pattern)))
     if cfg.family == "moe":
         out = {}
         for kind in ("dense", "moe"):
@@ -378,7 +416,9 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     is the per-layer state stacked on the leading stack axes: K/V ``(L, B,
     S, KV, hd)`` each (dense), an ``SSMCache`` of ``conv (L, B, W-1,
     conv_dim)`` and ``state (L, B, H, p, N)`` (ssm), the moe family's
-    ``{"dense": KV (nd, ...), "moe": KV (L - nd, ...)}``, or the hybrid's
+    ``{"dense": KV (nd, ...), "moe": KV (L - nd, ...)}`` (with a
+    ``layer_pattern``, K/V ``(g, len(pattern), B, S, KV, hd)``), or the
+    hybrid's
     ``{"rec": RGLRUCache, "att": KV, "tail": RGLRUCache}`` (``h (g, n_rec,
     B, lru)``, ``conv (g, n_rec, B, W-1, lru)``, K/V ``(g, n_att, B, S, KV,
     hd)``, the tail's on a ``(tail,)`` axis); None when not
@@ -389,7 +429,13 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     layer inputs are kept, and the backward reruns each layer's forward,
     kernels included.  The reference checkpoints its scanned body (the
     hybrid's whole 3-layer group, its 2 tail layers not at all); per layer
-    is the same function.  ``remat_policy="dots"`` is not ported."""
+    is the same function (the reference also checkpoints each sublayer
+    of a moe group).  ``remat_policy="dots"`` is not ported.
+
+    The :class:`Aux` sums the MoE layers' load-balance and z losses; its
+    dropped share is their mean, except with a ``layer_pattern``, where
+    (as the reference sums each group's terms before its mean over the
+    groups) it is the sum over a group's layers averaged over groups."""
     _check_family(cfg, "forward")
     remat = cfg.remat and torch.is_grad_enabled()
     if remat and cfg.remat_policy != "full":
@@ -412,7 +458,7 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
                               use_reentrant=False, preserve_rng_state=False)
         else:
             x, c = block(lp, x, cfg, positions, want_cache)
-        if kind == "moe":
+        if kind.startswith("moe"):
             c, st = c
             stats.append(st)
         caches.append((kind, c))
@@ -424,6 +470,8 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         return out + (Aux(zero, zero, zero),)
     aux, z, dropped = (torch.stack(t) for t in zip(*stats))
+    if cfg.layer_pattern:
+        dropped = dropped.reshape(moe_groups(cfg)[0], -1).sum(1)
     return out + (Aux(aux.sum(), z.sum(), dropped.mean()),)
 
 
@@ -449,15 +497,24 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
     ``{"rec": RGLRUCache (g, n_rec, ...), "att": KV (g, n_att, B, W, KV,
     hd), "tail": RGLRUCache (tail, ...)}``, the local layers' ring caches
     ``W = min(local_window, cache_len)`` long; the moe family's ``{"dense":
-    KV (nd, B, cache_len, KV, hd), "moe": KV (L - nd, ...)}``."""
+    KV (nd, B, cache_len, KV, hd), "moe": KV (L - nd, ...)}``, or with a
+    ``layer_pattern`` ``{"local": KV (g, n_local, B, W, KV, hd), "full":
+    KV (g, n_full, B, cache_len, KV, hd)}``, the local layers' ring
+    caches ``W`` long."""
     _check_family(cfg, "init_cache")
-    def kv(n: int) -> attn.KV:
-        t = torch.zeros((n, batch, cache_len, cfg.n_kv_heads, cfg.head_dim_),
-                        dtype=dtype, device=resolve_device(device))
+    def kv(*lead: int, length: int = cache_len) -> attn.KV:
+        t = torch.zeros((*lead, batch, length, cfg.n_kv_heads,
+                         cfg.head_dim_), dtype=dtype,
+                        device=resolve_device(device))
         return attn.KV(t, t.clone())
 
     if cfg.family == "dense":
         return {"layers": kv(cfg.n_layers)}
+    if cfg.family == "moe" and cfg.layer_pattern:
+        g, nl, nf = moe_groups(cfg)
+        wlen = min(cfg.local_window, cache_len) if cfg.local_window else \
+            cache_len
+        return {"local": kv(g, nl, length=wlen), "full": kv(g, nf)}
     if cfg.family == "moe":
         nd = cfg.first_dense_layers
         return {"moe": kv(cfg.n_layers - nd), **({"dense": kv(nd)} if nd
@@ -547,6 +604,27 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, pos,
             x = _with_mlp(lp, x, h, a_out, cfg)
             new.append(("dense", c))
         new_cache = {"layers": _stack_caches(cfg, new)}
+    elif cfg.family == "moe" and cfg.layer_pattern:
+        g, nl, nf = moe_groups(cfg)
+        local = iter(_cache_slices(cache["local"], 2))
+        full = iter(_cache_slices(cache["full"], 2))
+        new_local, new_full = [], []
+        for kind, lp in _moe_layers(params, cfg):
+            h = apply_norm(lp["ln1"], x, cfg)
+            if kind == "moe_local":
+                a_out, c = attn.attention_decode_ring(lp["attn"], h,
+                                                      next(local), pos, cfg)
+                new_local.append(c)
+            else:
+                a_out, c = attn.attention_decode(lp["attn"], h, next(full),
+                                                 pos, cfg)
+                new_full.append(c)
+            x = x + a_out
+            m_out, _ = moe.apply_moe(lp["moe"], apply_norm(lp["ln2"], x, cfg),
+                                     cfg)
+            x = x + m_out
+        new_cache = {"local": _stacked(new_local, (g, nl)),
+                     "full": _stacked(new_full, (g, nf))}
     elif cfg.family == "moe":
         caches = [c for key in ("dense", "moe") if key in cache
                   for c in _cache_slices(cache[key], 1)]
@@ -649,9 +727,7 @@ def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
     0.01 x the MoE load-balance loss and 1e-3 x its z-loss (the
     reference's default weights), which are zero but for the moe family;
     the metrics are the reference's (``nll``, ``moe_aux``, ``moe_z``,
-    ``dropped``).  The moe
-    family's gradient needs K1's expert VJP forms, which the card does
-    not have yet (``ops.expert_matmul``)."""
+    ``dropped``)."""
     hidden, _, aux = forward(params, cfg, tokens, want_cache=False,
                              with_aux=True)
     logits = logits_from_hidden(params, hidden, cfg)

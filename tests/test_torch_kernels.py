@@ -55,13 +55,19 @@ DENSE_FLASH_SHAPES = [(2, 2048, 32, 1, 64, 0), (1, 130, 32, 1, 64, 0),
                       (1, 512, 8, 12, 128, 0)]
 #: deepseek-moe-16b's prefill attention: 16 KV heads of 128, G = 1
 MOE_FLASH_SHAPES = [(1, 2048, 16, 1, 128, 0)]
+#: llama4-scout-17b-a16e's prefill attention: 8 KV heads of 128, G = 5
+#: (no power of two), windowed (its local layers) and causal (its full
+#: ones); a ragged length with a window that cuts inside a key tile
+LLAMA4_FLASH_SHAPES = [(1, 2048, 8, 5, 128, 8192), (1, 2048, 8, 5, 128, 0),
+                       (1, 300, 8, 5, 128, 100)]
 
 
 @pytest.mark.h100
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,s,kv,g,hd,window",
-                         FLASH_SHAPES + DENSE_FLASH_SHAPES + MOE_FLASH_SHAPES)
+                         FLASH_SHAPES + DENSE_FLASH_SHAPES + MOE_FLASH_SHAPES
+                         + LLAMA4_FLASH_SHAPES)
 def test_flash_kernel_matches_plain(h100, dtype, atol, b, s, kv, g, hd,
                                     window):
     q, k, v, _ = _attn_case(h100, dtype, b, s, g, hd, 1, kv=kv)
@@ -344,8 +350,7 @@ def test_expert_gemm_matches_plain(h100, e, cap, d, f, route):
 @pytest.mark.h100
 def test_expert_gemm_routes_other_forms_to_k9(h100):
     """A row of d = 201 (no multiple of 8 elements) and f32 operands take
-    K9's batched tile; ``expert_matmul`` casts; its backward raises on the
-    card instead of running the plain version."""
+    K9's batched tile; ``expert_matmul`` casts."""
     g = torch.Generator(device=h100).manual_seed(61)
     for (e, cap, d, f), dt in (((4, 24, 201, 64), _BF16),
                                ((4, 24, 64, 72), _F32)):
@@ -358,12 +363,118 @@ def test_expert_gemm_routes_other_forms_to_k9(h100):
         torch.testing.assert_close(got, ref.expert_gemm(x, w), rtol=0,
                                    atol=K9_SUM_REL * d *
                                    ref.expert_gemm(x, w).abs().max().item())
-    x = torch.randn(2, 8, 64, device=h100, dtype=_BF16, requires_grad=True)
-    w = torch.randn(2, 64, 64, device=h100, dtype=_BF16, requires_grad=True)
-    y = ops.expert_matmul(x, w, out_dtype=torch.float32)
-    assert ops.LAUNCHES["K1"] == 1 and y.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        y.sum().backward()
+
+
+def _expert_vjp_plain(x, w, g):
+    """The plain expert VJP forms: ``dx = g wᵀ``, ``dw = xᵀ g`` in f32."""
+    return (ref.expert_gemm(g, w.transpose(1, 2)),
+            ref.expert_gemm(x.transpose(1, 2), g))
+
+
+#: (e, cap, d, f) of K1's expert VJP forms on the split route:
+#: deepseek-moe-16b's training products at a 2048-token microbatch (cap
+#: 240; wi with f = 2816, wo from f = 1408 back to 2048), the ragged stack
+#: (d 200, f 136, cap 24: each expert's k edge (cap, for dw) and row and
+#: column edges fall inside a tile, where the rank-3 maps zero-fill and
+#: clip), and cap 17 at one tile of d and f
+EXPERT_VJP_CASES = [(64, 240, 2048, 2816), (64, 240, 1408, 2048),
+                    (8, 24, 200, 136), (5, 17, 64, 72)]
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("e,cap,d,f", EXPERT_VJP_CASES)
+def test_expert_vjp_forms_match_plain(h100, e, cap, d, f):
+    """``dx = g wᵀ`` and ``dw = xᵀ g`` (f32 g against bf16 x and w) on
+    K1's split route (``ops.expert_route`` says "split"; one launch each,
+    ``g`` split once for both), each held to ``ref.expert_gemm`` on the
+    transposed views within 1e-4 of its largest entry (g's three bf16
+    parts hold it within 2^-24; f32 sums in another order, each 64-k
+    stage added in f32), and each rerun to the same bits."""
+    gen = torch.Generator(device=h100).manual_seed(e + cap + d + f)
+    x = torch.randn(e, cap, d, generator=gen, device=h100).to(_BF16)
+    w = (torch.randn(e, d, f, generator=gen, device=h100)
+         * d ** -0.5).to(_BF16)
+    gr = torch.randn(e, cap, f, generator=gen, device=h100)
+    assert ops.expert_route(e, cap, f, d, _F32, _BF16,
+                            transpose_b=True) == "split"
+    assert ops.expert_route(e, d, cap, f, _BF16, _F32,
+                            transpose_a=True) == "split"
+    parts = ops.split_bf16(gr)
+    dx = ops._expert_gemm(gr, w, False, True, split=parts)
+    dw = ops._expert_gemm(x, gr, True, False, split=parts)
+    dx2 = ops._expert_gemm(gr, w, False, True, split=parts)
+    dw2 = ops._expert_gemm(x, gr, True, False)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 4 and ops.LAUNCHES["K9"] == 0
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    for got, want in zip((dx, dw), _expert_vjp_plain(x, w, gr)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("e,cap,d,f,k1", [(2, 8, 64, 64, 3),
+                                          (4, 24, 201, 64, 1),
+                                          (3, 40, 128, 136, 3)])
+def test_expert_matmul_backward_matches_plain(h100, e, cap, d, f, k1):
+    """``expert_matmul``'s backward on the card: the gradients of x and w
+    (cast to bf16, as ``_pallas_expert_bwd``'s) against the plain VJP.
+    Aligned forms launch K1 three times (the forward and both VJP forms);
+    a row of d = 201 sends the forward and dw = xᵀ g, which read rows of
+    d, to K9 (dw on x's transposed row-major copy, bf16 against f32),
+    while dx = g wᵀ reads rows of f only and stays on K1's split route."""
+    gen = torch.Generator(device=h100).manual_seed(e * cap + d)
+    x = torch.randn(e, cap, d, generator=gen, device=h100).to(_BF16)
+    w = (torch.randn(e, d, f, generator=gen, device=h100)
+         * d ** -0.5).to(_BF16)
+    gr = torch.randn(e, cap, f, generator=gen, device=h100)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = ops.expert_matmul(xg, wg, out_dtype=torch.float32)
+    y.backward(gr)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == k1 and ops.LAUNCHES["K9"] == 3 - k1
+    for got, want in zip((xg.grad, wg.grad), _expert_vjp_plain(x, w, gr)):
+        assert got.dtype == _BF16 and got.shape[0] == e
+        # the result's bf16 rounding (2^-8) on top of the forms' f32 sums
+        torch.testing.assert_close(got.float(), want, rtol=2 ** -8,
+                                   atol=1e-3 * want.abs().max().item())
+
+
+@pytest.mark.h100
+def test_moe_layer_loss_and_gradients_rerun_bit_identical(h100):
+    """One MoE layer (reduced deepseek-moe-16b in bf16 on the card: K1's
+    expert form, its VJP forms, the f32 router on K1's FMA route): a
+    loss of its output and stats, and the gradients of every leaf and of
+    the input, rerun to the same bits (dispatch and combine are gathers
+    both ways: no atomic adds)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, transformer
+    cfg = get_config("deepseek-moe-16b", reduced=True).with_(
+        dtype="bfloat16")
+    params = transformer.init_lm(cfg, torch.Generator(
+        device=h100).manual_seed(0), device=h100, trainable=True)
+    lp = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    gen = torch.Generator(device=h100).manual_seed(3)
+    x = torch.randn(2, 96, cfg.d_model, generator=gen,
+                    device=h100).to(_BF16).requires_grad_()
+    c = torch.randn(2, 96, cfg.d_model, generator=gen, device=h100)
+    leaves = [x] + list(params["layers"]["moe"].values())
+
+    def run():
+        y, st = moe.apply_moe(lp, x, cfg)
+        loss = (y.float() * c).sum() + 0.01 * st.aux_loss + 1e-3 * st.z_loss
+        return (loss.detach(),) + torch.autograd.grad(loss, leaves)
+
+    first = run()
+    ops.reset_launches()
+    again = run()
+    torch.cuda.synchronize()
+    # the router, both expert GEMMs and the shared pair, each forward and
+    # VJP: the router's and the shared products' two each, the experts'
+    assert ops.LAUNCHES["K1"] == 5 + 2 * 5
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(bool(torch.isfinite(t.float()).all()) for t in first)
 
 
 def _attn_case(dev, dtype, b, s, g, hd, seed, kv=1):
@@ -438,12 +549,14 @@ def test_flash_backward_kernels_match_plain(h100, dtype, rel, b, s, kv, g,
 
 @pytest.mark.h100
 @pytest.mark.parametrize("dtype,rel", [(_F32, 1e-4), (_BF16, 1e-2)])
-@pytest.mark.parametrize("b,s,kv,g,hd,window", DENSE_FLASH_SHAPES)
+@pytest.mark.parametrize("b,s,kv,g,hd,window",
+                         DENSE_FLASH_SHAPES + MOE_FLASH_SHAPES)
 def test_flash_backward_kernels_match_plain_dense_family(h100, dtype, rel, b,
                                                          s, kv, g, hd,
                                                          window):
     """K3 and K4 at the rest of the dense family's shapes (G = 1 over 32
-    KV heads of 64; G = 12 over 8 of 128), held as
+    KV heads of 64; G = 12 over 8 of 128) and at deepseek-moe-16b's
+    training attention (G = 1 over 16 KV heads of 128), held as
     ``test_flash_backward_kernels_match_plain`` holds its shapes; K4's
     rerun is the same bits, whatever its row split
     (``ops.dkv_splits``)."""

@@ -1,12 +1,13 @@
-"""The port's MoE family (``repro_torch.models.moe``, K1's expert form in
-``kernels.ops`` and ``kernels.ref``, the moe branches of
-``models.transformer``, ``train.serve_step`` and ``serving``) against the
-JAX package on the CPU: the same numpy inputs and the same weights
-(carried across with ``params_from_numpy``), reduced deepseek-moe-16b in
-float32 (3 layers: one dense, two MoE; d_model 128, 8 experts of width 64,
-top-2, one shared expert).  Routing is held to the reference exactly: the
-top-k indices are equal, ties going to the lower expert as in
-``jax.lax.top_k``."""
+"""The port's MoE family (``repro_torch.models.moe``, K1's expert form and
+its VJP in ``kernels.ops`` and ``kernels.ref``, the moe branches of
+``models.transformer``, ``train`` and ``serving``) against the JAX package
+on the CPU: the same numpy inputs and the same weights (carried across
+with ``params_from_numpy``), reduced deepseek-moe-16b in float32 (3
+layers: one dense, two MoE; d_model 128, 8 experts of width 64, top-2, one
+shared expert).  Routing is held to the reference exactly: the top-k
+indices are equal, ties going to the lower expert as in
+``jax.lax.top_k``.  Training: the gradients of ``lm_loss`` and two
+microbatched train steps against the reference's."""
 import dataclasses
 
 import numpy as np
@@ -17,19 +18,24 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config  # noqa: E402
+from repro.data import PipelineConfig as JPipelineConfig  # noqa: E402
+from repro.data import SyntheticLM as JSyntheticLM  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models import registry  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
 from repro.serving import ServeEngine as JServeEngine  # noqa: E402
 from repro.train import serve_step as jserve  # noqa: E402
+from repro.train import train_step as jts  # noqa: E402
 from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serving import ServeEngine  # noqa: E402
 from repro_torch.train import serve_step  # noqa: E402
+from repro_torch.train import train_step as ts  # noqa: E402
 
 ARCH = "deepseek-moe-16b"
 #: f32 on both sides: the same products and sums in other orders, so the
@@ -212,16 +218,20 @@ def test_plain_expert_gemm_matches_reference(dtype):
             _close(got, ein, MOE_TOL)
 
 
-def test_expert_matmul_gradients_match_reference():
+@pytest.mark.parametrize("interpret", [None, True])
+def test_expert_matmul_gradients_match_reference(interpret):
     """On the CPU, ``expert_matmul``'s backward (the plain forms of K1's
     expert VJP, ``dx = g wᵀ``, ``dw = xᵀ g``) against ``jax.grad`` of the
-    reference's ``expert_matmul``."""
+    reference's ``expert_matmul``: its default CPU path and, with
+    ``interpret=True``, its ``_pallas_expert_f32`` custom VJP, whose
+    backward runs two more expert GEMMs in the Pallas interpreter."""
     rng = np.random.default_rng(12)
     x = rng.standard_normal((2, 8, 16)).astype(np.float32)
     w = rng.standard_normal((2, 16, 24)).astype(np.float32)
     g = rng.standard_normal((2, 8, 24)).astype(np.float32)
     jdx, jdw = jax.grad(lambda a, b: jnp.sum(
-        jops.expert_matmul(a, b, out_dtype=jnp.float32) * g),
+        jops.expert_matmul(a, b, out_dtype=jnp.float32,
+                           interpret=interpret) * g),
         argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
     tx = torch.from_numpy(x).requires_grad_()
     tw = torch.from_numpy(w).requires_grad_()
@@ -247,6 +257,55 @@ ROUTES = [((64, 8, 2048, 2816, "bfloat16", True), "gemv"),
           ((64, 8, 2048, 2816, "bfloat16", False), "K9"),
           ((64, 8, 2048, 2816, "float32", True), "K9"),
           ((64, 240, 2048, 2816, "float32", True), "K9")]
+
+
+#: (e, m, k, n, a dtype, b dtype, aligned, transpose_a, transpose_b) ->
+#: route of K1's expert VJP forms at deepseek's training shapes (dx = g
+#: wᵀ: f32 x bf16 with transpose_b; dw = xᵀ g: bf16 x f32 with
+#: transpose_a): the split route where TMA reads every row, never gemv
+#: (not even at cap 8 rows), K9 for a row of 201 or 138 elements, an
+#: unaligned base, other dtypes or other transposes
+VJP_ROUTES = [((64, 240, 2816, 2048, "float32", "bfloat16", True, 0, 1),
+               "split"),
+              ((64, 2048, 240, 2816, "bfloat16", "float32", True, 1, 0),
+               "split"),
+              ((64, 240, 2048, 1408, "float32", "bfloat16", True, 0, 1),
+               "split"),
+              ((64, 1408, 240, 2048, "bfloat16", "float32", True, 1, 0),
+               "split"),
+              ((8, 24, 136, 200, "float32", "bfloat16", True, 0, 1),
+               "split"),
+              ((8, 200, 24, 136, "bfloat16", "float32", True, 1, 0),
+               "split"),
+              ((64, 8, 2816, 2048, "float32", "bfloat16", True, 0, 1),
+               "split"),
+              ((64, 8, 8, 2816, "bfloat16", "float32", True, 1, 0),
+               "split"),
+              ((8, 201, 24, 136, "bfloat16", "float32", True, 1, 0), "K9"),
+              ((8, 24, 138, 200, "float32", "bfloat16", True, 0, 1), "K9"),
+              ((8, 200, 24, 138, "bfloat16", "float32", True, 1, 0), "K9"),
+              ((64, 240, 2816, 2048, "float32", "bfloat16", False, 0, 1),
+               "K9"),
+              ((64, 8, 64, 2048, "bfloat16", "bfloat16", True, 1, 0), "K9"),
+              ((64, 8, 64, 2048, "bfloat16", "bfloat16", True, 0, 1), "K9"),
+              ((64, 240, 2816, 2048, "float32", "float32", True, 0, 1),
+               "K9"),
+              ((64, 240, 2816, 2048, "float32", "bfloat16", True, 0, 0),
+               "K9"),
+              ((64, 240, 2816, 2048, "bfloat16", "float32", True, 0, 1),
+               "K9")]
+
+
+@pytest.mark.parametrize("case,route", VJP_ROUTES)
+def test_expert_vjp_routes(case, route):
+    """``ops.expert_route`` for the expert VJP forms (a host rule): K1's
+    split route for an aligned (f32, bf16) ``dx`` or (bf16, f32) ``dw``,
+    never ``"gemv"`` with ``transpose_a``, else K9."""
+    e, m, k, n, adt, bdt, aligned, ta, tb = case
+    got = ops.expert_route(e, m, k, n, adt, bdt, aligned, bool(ta),
+                           bool(tb))
+    assert got == route
+    assert not (ta and got == "gemv")
 
 
 @pytest.mark.parametrize("case,route", ROUTES)
@@ -358,7 +417,161 @@ def test_engine_refuses_moe_with_the_reference_reason(deepseek):
 
 def test_layer_pattern_moe_raises(deepseek):
     """A moe config with a ``layer_pattern`` (llama4's grouped local and
-    full layers) is not ported yet."""
+    full layers) builds its parameters, but what the reference refuses it
+    still raises with the reference's reason: the forward->decode cache
+    re-layout (ring and grouped caches; ``greedy_generate`` ingests token
+    by token) and so the engine."""
     *_, tcfg, _ = deepseek
-    with pytest.raises(NotImplementedError, match="layer_pattern.*ROADMAP"):
-        tt.param_shapes(tcfg.with_(layer_pattern=("local", "full")))
+    lcfg = port_config("llama4-scout-17b-a16e", reduced=True)
+    shapes = tt.param_shapes(tcfg.with_(layer_pattern=("local", "full"),
+                                        local_window=8, n_layers=4))
+    assert shapes["groups.moe"]["wi"][0] == (2, 2, 8, 128, 128)
+    assert not tt.has_prefill_decode_relayout(lcfg)
+    with pytest.raises(NotImplementedError, match="greedy_generate"):
+        tt.prefill_cache_to_decode(lcfg, None, 16)
+    params = tt.init_lm(lcfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="forward->decode.*greedy_generate"):
+        ServeEngine(lcfg, params, device="cpu")
+
+
+def _gather_case(deepseek, k_cap=1.25, seed=0):
+    """A real routing of reduced deepseek's first MoE layer on 40 tokens
+    and its dispatch maps (``moe.slot_maps``)."""
+    cfg, params, tcfg, tp = deepseek
+    tcfg = tcfg.with_(capacity_factor=k_cap)
+    _, tlp = _moe_layer(params, tp, 0)
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (40, cfg.d_model)).astype(np.float32))
+    idx = moe.route(tlp, x, tcfg)[3]
+    cap = moe.capacity(tcfg, 40)
+    return tcfg, idx, cap, moe.slot_maps(idx, tcfg.n_experts, cap)
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.3])
+def test_dispatch_and_combine_gradients_equal_index_select(
+        deepseek, capacity_factor):
+    """The dispatch and combine gathers (``moe._GatherRows``) on
+    integer-valued rows and cotangents (every sum exact, in any order):
+    their outputs and gradients are bit for bit those of autograd through
+    the ``index_select``s they replace (whose backward is ``index_add_``),
+    and a rerun gives the same bits.  At ``capacity_factor`` 0.3 some
+    assignments drop: the combine's clamped slots collide at ``cap - 1``
+    and the dispatch's dropped slots read the zero row.  The combine's
+    cotangent is zero on a dropped assignment, as the model's is (its gate
+    is multiplied by ``keep``): the gather drops it, ``index_add_`` adds
+    that zero."""
+    tcfg, idx, cap, maps = _gather_case(deepseek, capacity_factor)
+    counts, slot_asg, slot, keep, tok_slots, _ = maps
+    e, k, d = tcfg.n_experts, tcfg.top_k, tcfg.d_model
+    t = idx.shape[0]
+    if capacity_factor < 1:
+        assert not bool(keep.all())
+    rng = np.random.default_rng(1)
+    ints = lambda *s: torch.from_numpy(rng.integers(-4, 5, s).astype(
+        np.float32))
+    xt, ye = ints(t, d), ints(e * cap, d)
+    gx, gy = ints(e * cap, d), ints(t * k, d) * keep[:, None]
+    tok = slot_asg.div(k, rounding_mode="floor")
+    cases = (
+        (xt, gx, lambda s: moe._GatherRows.apply(s, tok, tok_slots, True),
+         lambda s: torch.cat([s, s.new_zeros(1, d)]).index_select(0, tok)),
+        (ye, gy, lambda s: moe._GatherRows.apply(s, slot, slot_asg[:, None],
+                                                 False),
+         lambda s: s.index_select(0, slot)))
+    for src, g, ours, theirs in cases:
+        runs = []
+        for fn in (ours, ours, theirs):
+            leaf = src.clone().requires_grad_()
+            out = fn(leaf)
+            runs.append((out.detach(), torch.autograd.grad(out, leaf, g)[0]))
+        for a, b in runs[1:]:
+            assert torch.equal(runs[0][0], a) and torch.equal(runs[0][1], b)
+
+
+def test_lm_loss_gradients_match_reference(deepseek):
+    """Every leaf's gradient of ``lm_loss`` (remat on: each layer rerun
+    in the backward) against ``jax.grad`` of the reference's, within 1e-5
+    of the leaf's largest entry; each MoE layer's top-k indices equal the
+    reference router's on the same input, and the remat rerun routes as
+    the forward did."""
+    cfg, params, tcfg, tp = deepseek
+    assert tcfg.remat
+    rng = np.random.default_rng(13)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 16))
+    targets = rng.integers(0, cfg.vocab_size, (2, 16))
+    (_, _), jgrads = jax.value_and_grad(
+        lambda p: jt.lm_loss(p, cfg, jnp.asarray(tokens),
+                             jnp.asarray(targets)), has_aux=True)(params)
+    jgrads = _flat(jax.tree.map(np.asarray, jgrads))
+    tp = params_from_numpy(jax.tree.map(np.asarray, params), device="cpu",
+                           trainable=True)
+    seen = []
+    orig = moe.route
+
+    def spy(p, xt, c):
+        out = orig(p, xt, c)
+        seen.append((p["router"].detach(), xt.detach(), out[3]))
+        return out
+    moe.route = spy
+    try:
+        _, _, grads = ts.loss_and_grads(
+            tp, tcfg, {"tokens": torch.from_numpy(tokens),
+                       "targets": torch.from_numpy(targets)})
+    finally:
+        moe.route = orig
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    assert len(seen) == 2 * n_moe                # forward, then remat rerun
+    # the backward reruns the layers last first
+    for (router, xt, idx), (_, xt2, idx2) in zip(seen[:n_moe],
+                                                 seen[n_moe:][::-1]):
+        assert torch.equal(idx, idx2) and torch.equal(xt, xt2)
+        np.testing.assert_array_equal(idx.numpy(), _jax_route(
+            {"router": jnp.asarray(router.numpy())}, xt.numpy(), cfg))
+    assert grads.keys() == jgrads.keys()
+    for name, g in grads.items():
+        _close(g, jgrads[name], MOE_TOL)
+
+
+def test_train_steps_match_reference():
+    """Two ``make_train_step`` steps in 2 microbatches (remat on) against
+    the reference's (jitted, its expert GEMMs' custom VJP on the CPU
+    path): each step's loss and moe metrics (``nll``, ``moe_aux``,
+    ``moe_z``, ``dropped``, the microbatches' means) within 1e-5, and the
+    update itself after step 2 (each parameter less its start) against the
+    reference's: per leaf within 1e-3 in relative norm, and every element
+    within 3e-2 of the summed learning rate.  AdamW moves an element by
+    about the learning rate a step whatever its gradient's size, so a
+    wrong sign or scale shows here; what is left is f32 rounding (an ulp
+    of a parameter is ~1e-3 of the summed rate; measured at most 1.3e-2
+    of it, and 1e-4 in relative norm)."""
+    cfg = get_config(ARCH, reduced=True)
+    tcfg = port_config(ARCH, reduced=True)
+    state, _ = jts.init_state(cfg, jax.random.PRNGKey(2))
+    batches = [JSyntheticLM(JPipelineConfig(cfg.vocab_size, 16, 4), cfg
+                            ).global_batch(i) for i in range(2)]
+    step = jax.jit(jts.make_train_step(cfg, microbatches=2))
+    tstate = ts.init_state(tcfg, params_from_numpy(
+        jax.tree.map(np.asarray, state.params), device="cpu"), device="cpu")
+    tstep = ts.make_train_step(tcfg, microbatches=2)
+    jst = state
+    for b in batches:
+        jst, jm = step(jst, jax.tree.map(jnp.asarray, b))
+        tstate, tm = tstep(tstate, {k: torch.from_numpy(v)
+                                    for k, v in b.items()})
+        for key in ("loss", "nll", "moe_aux", "moe_z", "dropped"):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]),
+                                       rtol=STAT_TOL, err_msg=key)
+    opt = adamw.AdamWConfig()
+    lr_sum = sum(float(adamw.schedule(opt, torch.tensor(i + 1)))
+                 for i in range(2))
+    jfinal = _flat(jax.tree.map(np.asarray, jst.params))
+    start = _flat(jax.tree.map(np.asarray, state.params))
+    for name, p in tstate.params.named_parameters():
+        step_got = p.detach().numpy() - start[name]
+        step_want = jfinal[name] - start[name]
+        scale = np.linalg.norm(step_want)
+        assert scale > 0, name
+        assert np.linalg.norm(step_got - step_want) <= 1e-3 * scale, name
+        np.testing.assert_allclose(step_got, step_want, rtol=0,
+                                   atol=3e-2 * lr_sum, err_msg=name)

@@ -53,6 +53,23 @@ def _tensors(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
+def _hold_update(params, start, want, lr_sum):
+    """The update itself, each parameter less its start, against the
+    reference's: per leaf within 1e-3 in relative norm, and every element
+    within 3e-2 of the summed learning rate.  An AdamW step moves an
+    element by about the learning rate whatever its gradient's size, so a
+    wrong sign or scale shows here; what is left is f32 rounding (an ulp
+    of a parameter is ~1e-3 of the summed rate)."""
+    for k, p in params.named_parameters():
+        got = p.detach().numpy() - start[k]
+        step = want[k] - start[k]
+        scale = np.linalg.norm(step)
+        assert scale > 0, k
+        assert np.linalg.norm(got - step) <= 1e-3 * scale, k
+        np.testing.assert_allclose(got, step, rtol=0, atol=3e-2 * lr_sum,
+                                   err_msg=k)
+
+
 @pytest.fixture(scope="module")
 def gemma():
     cfg = get_config("gemma-2b", reduced=True)
@@ -147,10 +164,8 @@ def test_train_step_matches_reference(gemma, jax_run):
     (``attn_impl`` "pallas" runs the reference's interpret-mode flash
     kernels and their derived backward, "xla" its jnp oracle): the loss of
     each step and the step-1 gradients within 1e-5 relative (per leaf, to
-    its largest entry); the parameters after three steps within the bound
-    the summed learning rate gives, as an Adam step moves each entry by
-    at most lr * (1 + weight_decay * |w|) and two runs can at worst move
-    it in opposite directions."""
+    its largest entry); the update after three steps held to the
+    reference's (``_hold_update``)."""
     cfg, state, tcfg = gemma
     _, jlosses, jgrads, jfinal = jax_run
     batches = [_tensors(b) for b in _batches(cfg)]
@@ -169,13 +184,7 @@ def test_train_step_matches_reference(gemma, jax_run):
     opt = adamw.AdamWConfig()
     lr_sum = sum(float(adamw.schedule(opt, torch.tensor(i + 1)))
                  for i in range(STEPS))
-    for k, p in tstate.params.named_parameters():
-        want = jfinal[k]
-        bound = 2 * lr_sum * (1 + opt.weight_decay * np.abs(want).max())
-        np.testing.assert_allclose(p.detach().numpy(), want, rtol=0,
-                                   atol=bound + 1e-6)
-        assert not np.array_equal(p.detach().numpy(),
-                                  _flat(state.params)[k])
+    _hold_update(tstate.params, _flat(state.params), jfinal, lr_sum)
 
 
 def test_microbatches_and_remat_give_the_same_step(gemma):
@@ -261,10 +270,4 @@ def test_ssm_train_step_matches_reference(mamba_run):
     opt = adamw.AdamWConfig()
     lr_sum = sum(float(adamw.schedule(opt, torch.tensor(i + 1)))
                  for i in range(STEPS))
-    for k, p in tstate.params.named_parameters():
-        want = jfinal[k]
-        bound = 2 * lr_sum * (1 + opt.weight_decay * np.abs(want).max())
-        np.testing.assert_allclose(p.detach().numpy(), want, rtol=0,
-                                   atol=bound + 1e-6, err_msg=k)
-        assert not np.array_equal(p.detach().numpy(),
-                                  _flat(state.params)[k]), k
+    _hold_update(tstate.params, _flat(state.params), jfinal, lr_sum)
