@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Sixteen phases; any failure exits non-zero before the result line:
+Eighteen phases; any failure exits non-zero before the result line:
 
 1. device   the card's name, power limit and compute capability (9, 0).
 2. build    nvcc builds every kernel under src/repro_torch/kernels/csrc/
@@ -43,7 +43,18 @@ Sixteen phases; any failure exits non-zero before the result line:
             ragged stack, each with torch.bmm on f32 copies and a rerun;
             K2 (export), K3, K4 at its training attention (B=1 S=2048);
             K2 at llama4-scout-17b-a16e's prefill (8 KV heads of 128, G =
-            5, S=2048), windowed 8192 and causal.
+            5, S=2048), windowed 8192 and causal.  K1's f32 FMA kernel at
+            the MoE routers (deepseek's (t, 2048) x (2048, 64) and its dw
+            VJP, llama4's (t, 5120) x (5120, 16); torch.matmul in f32 the
+            library row).  K1's head form (ops.head_matmul) at
+            minicpm3-4b's absorbed decode products (m = 1, 2, 4 rows over
+            40 heads, strided views of one stored wkv_b table; torch.einsum
+            on the same views the library row; a rerun), and a head form
+            K1 refuses (64 rows) on K9; K2 (prefill and export), K3, K4 at
+            minicpm3-4b's MLA attention (B=1 S=4096, 40 KV heads of one
+            query head, q.k 96 and v 64 zero-padded to 128), SDPA on the
+            unpadded tensors the library row, the unpadded work's bound
+            beside the padded one's.
 4. path     gemma-2b at full width (18 layers, bf16, random weights from a
             seeded generator) served by ServeEngine(max_slots=4,
             max_len=512) over 6 requests; every kernel of the path must
@@ -165,6 +176,23 @@ Sixteen phases; any failure exits non-zero before the result line:
             steps (the same code); then one local layer's
             decode from a seeded 8192-slot ring at position 9000 (the ring
             has wrapped) against the plain path.
+17. mla_path minicpm3-4b at full width and depth (62 layers of MLA, 40
+            heads, q rank 768, kv rank 256; 4.26 B seeded parameters):
+            make_prefill B=1 S=4096 (K1 7L+1, K2 L on the padded MLA
+            attention) against its bound; 6 requests through ServeEngine
+            over contiguous per-slot latent caches (tokens/s, TTFT;
+            K1 8L+1 a slot-step, 2L of them the head form, counted by a
+            spy on ops._head_gemm); greedy_generate B=2, 64 + 16; the
+            prefill's logits and MLACache and one decode step against the
+            plain path (f32 on the same weights at full depth, bf16 beside
+            the plain bf16 witness); a B=2 decode step under sync debug
+            mode "error" against every weight byte; profiles.
+18. mla_train minicpm3-4b at full width, depth cut to 24 of 62 layers
+            (1.88 B parameters): step 1's first microbatch against the
+            plain path (loss and every gradient, f32 and bf16), 3 AdamW
+            steps at B=2 S=4096 in 2 microbatches, remat on (K1, K2-K4 on
+            the padded attention, derived counts), step 3 under sync debug
+            "error", peak memory, a profiled step.
 
 Each path phase resets the peak memory statistics before it runs.  The
 last two lines before the final one are the kernels' JSON record and
@@ -196,13 +224,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: separately on both sides; exp() may differ in a bit, and each chunk's
 #: entering state is folded from the chunks' aggregates rather than walked
 #: step by step, a last-bit difference that the gates decay.
+#: K9 bf16 (mul, add): bf16 products are exact in f32 on both sides; the
+#: sums differ in order only (moa_path's MOA_SUM_TOL).
 TOL = {("K1", "bfloat16"): 1e-4, ("K1", "float32"): 1e-4,
        ("K2", "bfloat16"): 2e-2, ("K2", "float32"): 1e-4,
        ("K3", "bfloat16"): 2e-2, ("K3", "float32"): 1e-4,
        ("K4", "bfloat16"): 2e-2, ("K4", "float32"): 1e-4,
        ("K5", "bfloat16"): 2e-2, ("K5", "float32"): 1e-4,
        ("K6", "float32"): 1e-4, ("K7", "float32"): 1e-4,
-       ("K8", "float32"): 1e-6}
+       ("K8", "float32"): 1e-6,
+       ("K9", "bfloat16"): 1e-4}
 #: the served path's logits (kernels vs plain versions, 18 bf16 layers):
 #: per-layer bf16 rounding differences compound through the residual stream
 PATH_TOL = 5e-2
@@ -288,6 +319,17 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_MB = 5, 2, 2048, 2
 #: the wrapped-ring decode check (its ring is the window, 8192 slots)
 LLAMA4_LAYERS = 8
 LLAMA4_RING_POS = 9000
+#: minicpm3-4b (MLA): the prefill and training sequence (the reference's
+#: chunked-branch length, attn_chunk_min_seq), the absorbed decode's K1
+#: head-form rows (1-4 slots), MLA's attention widths (q.k 96, v 64) that
+#: K2-K4 take zero-padded to 128, and the training run: depth cut to 24
+#: of 62 layers (1.880 B parameters by param_count, ~34 GB of AdamW
+#: state; the whole model's ~77 GB leaves no room for activations), B=2
+#: in 2 microbatches
+MLA_S = 4096
+MLA_HEAD_ROWS = (1, 2, 4)
+MLA_WIDTHS = (96, 64)
+MLA_TRAIN_LAYERS, MLA_TRAIN_B, MLA_TRAIN_MB = 24, 2, 2
 
 
 def fail(msg: str) -> None:
@@ -565,7 +607,91 @@ def phase_kernels(torch):
     for window in (8192, 0):
         _prefill_attention_case(torch, rec, gen, torch.bfloat16, MOE_S,
                                 kv=8, g=5, hd=128, window=window)
+    _router_cases(torch, rec, gen)
+    _head_form_cases(torch, rec, gen)
+    # minicpm3-4b's MLA attention at its chunked-branch length: 40 KV
+    # heads of one query head, q.k 96 and v 64 zero-padded to 128, at
+    # MLA's scale; the prefill's K2, then K2 (export), K3, K4 in training
+    _prefill_attention_case(torch, rec, gen, torch.bfloat16, MLA_S, kv=40,
+                            g=1, hd=128, native=MLA_WIDTHS)
+    _attention_training_cases(torch, rec, gen, torch.bfloat16, "bfloat16",
+                              2, b=1, s=MLA_S, g=1, kv=40, hd=128,
+                              native=MLA_WIDTHS)
     return rec
+
+
+def _router_cases(torch, rec, gen):
+    """K1's f32 FMA kernel at the MoE routers (f32 x f32): deepseek-moe-16b's
+    (t, 2048) x (2048, 64) and llama4-scout-17b-a16e's (t, 5120) x (5120,
+    16), at a 2048-token prefill and at the 2 rows of a decode step, and
+    deepseek's dw = x^T g VJP at 2048 tokens; torch.matmul in f32 (TF32
+    off) is the library row."""
+    f32 = torch.float32
+    forms = [(f"{name} fwd", (t, d), f32, (d, e), f32, False, False)
+             for name, d, e in (("deepseek", 2048, 64), ("llama4", 5120, 16))
+             for t in (MOE_S, MOE_GEN_B)]
+    forms.append(("deepseek dw", (MOE_S, 2048), f32, (MOE_S, 64), f32, True,
+                  False))
+    _gemm_forms(torch, rec, gen, "K1 router", forms)
+
+
+def _head_form_cases(torch, rec, gen):
+    """K1's head form (``ops._head_gemm``, the launch ``ops.head_matmul``
+    makes) at minicpm3-4b's absorbed decode products, ``MLA_HEAD_ROWS``
+    rows over 40 heads, each weight a strided view of one stored (256, 40,
+    128) ``wkv_b`` table: ``q_lat = q_nope w_uk^T`` (q_nope the first 64
+    of each head's 96 columns, w_uk the table's first 64: k 64, n 256,
+    ``transpose_b``) and ``out = ctx w_uv`` (w_uv its last 64: k 256, n
+    64).  Each is held to ``ref.head_gemm``, with its route, its
+    CUDA-graph time, ``torch.einsum`` on the same views as the library
+    row, its bound (bytes) and a rerun that must give the same bits.
+    Then a form K1 refuses (64 rows) lands on K9 and matches the plain
+    version."""
+    from repro_torch.kernels import ops, ref
+    bf = torch.bfloat16
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    table = (randn(256, 40, 128) * 256 ** -0.5).to(bf)
+    for m in MLA_HEAD_ROWS + (64,):
+        q, ctx = randn(m, 40, 96).to(bf), randn(m, 40, 256).to(bf)
+        for name, x, w, tb in (("q_lat", q[..., :64], table[..., :64], True),
+                               ("out", ctx, table[..., 64:], False)):
+            if m == 64 and name == "out":
+                continue
+            k = x.shape[-1]
+            n = w.shape[0] if tb else w.shape[2]
+            eq = "mhk,nhk->hmn" if tb else "mhk,khn->hmn"
+            route = ops.head_route(40, m, k, n, bf, bf, tb,
+                                   ops.head_aligned(x, w))
+            flops = 2.0 * m * 40 * n * k
+            nbytes = (x.numel() + w.numel()) * 2 + 40 * m * n * 4
+            shape = (f"K1 bfloat16 head {name} m={m} h=40 k={k} n={n} "
+                     f"tb={int(tb)}")
+            if m == 64:
+                # 64 rows: no decode-row product, so K9 (row-major copies)
+                require(route == "K9", f"{shape}: route {route}, not K9")
+                ops.reset_launches()
+                call = lambda: ops.head_matmul(x[:, None], w,
+                                               transpose_b=tb,
+                                               out_dtype=torch.float32)
+                call()
+                torch.cuda.synchronize()
+                require(ops.LAUNCHES["K9"] == 1 and ops.LAUNCHES["K1"] == 0,
+                        f"{shape}: launches {ops.LAUNCHES}, not one K9")
+                _case(torch, rec, "K9", "bfloat16", ("K9", "bfloat16"),
+                      lambda: call()[:, 0].transpose(0, 1),
+                      lambda: ref.head_gemm(x, w, tb),
+                      lambda: torch.einsum(eq, x, w), flops, nbytes,
+                      shape.replace("K1", "K9"), {"path": "K9"})
+                continue
+            require(route == "gemv", f"{shape}: route {route}, not gemv")
+            call = lambda: ops._head_gemm(x, w, tb)
+            _case(torch, rec, "K1", "bfloat16", ("K1", "bfloat16"), call,
+                  lambda: ref.head_gemm(x, w, tb),
+                  lambda: torch.einsum(eq, x, w), flops, nbytes, shape,
+                  {"path": f"head gemv split-k="
+                           f"{ops.gemv_splits(m, n, k, 40)}",
+                   "graph_ms": graph_ms(torch, call)})
+            _rerun_equal(torch, call, f"K1 head {name} m={m}")
 
 
 def _expert_cases(torch, rec, gen):
@@ -685,13 +811,33 @@ def _dense_family_cases(torch, rec, gen):
     _gemm_forms(torch, rec, gen, "K1 command-r serve", forms)
 
 
+def _padded(torch, native, q, k, v, do=None):
+    """With ``native`` ``(qk, vd)`` widths (MLA's), zero the columns of q
+    and k past ``qk`` and of v (and dO) past ``vd`` in place, as
+    ``attention.mla_attention`` pads them; returns the unpadded (B, heads,
+    S, width) copies of q, k, v for the library yardstick (None
+    otherwise)."""
+    if not native:
+        return None
+    qk, vd = native
+    for t, w in ((q, qk), (k, qk), (v, vd)) + (((do, vd),) if do is not
+                                               None else ()):
+        t[..., w:] = 0
+    b, s, kv = k.shape[:3]
+    heads = lambda t: t.reshape(b, s, -1, t.shape[-1]).transpose(1, 2)
+    return (heads(q)[..., :qk].contiguous(), heads(k)[..., :qk].contiguous(),
+            heads(v)[..., :vd].contiguous())
+
+
 def _prefill_attention_case(torch, rec, gen, dt, s, kv, g, hd, b=1,
-                            window=0):
+                            window=0, native=None):
     """K2 without its export (the prefill's form), causal (and windowed by
     ``window``), at ``kv`` KV heads of ``hd`` under ``g`` query heads
     each, against SDPA (a window that cuts as a boolean mask, else
     ``is_causal``), with its CUDA-graph time and a rerun for the same
-    bits."""
+    bits.  ``native`` ``(qk, vd)``: the inputs zero-padded from those
+    widths (MLA), SDPA timed on the unpadded tensors, and the bound of the
+    unpadded work printed beside the padded one's."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     dname = str(dt).removeprefix("torch.")
@@ -702,19 +848,29 @@ def _prefill_attention_case(torch, rec, gen, dt, s, kv, g, hd, b=1,
                                                                  hd)
     qs = q.reshape(b, s, kv * g, hd).transpose(1, 2)
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
-    args = dict(scale=hd ** -0.5, window=window)
+    unpadded = _padded(torch, native, q, k, v)
+    if unpadded:
+        qs, ks, vs = unpadded
+    args = dict(scale=(native[0] if native else hd) ** -0.5, window=window)
     mask = ref._mask(s, s, True, window, "cuda") if 0 < window < s else None
     call = lambda: ops.attention(q, k, v, **args)
     shape = (f"K2 {dname} B={b} S={s} KV={kv} G={g} hd={hd} "
-             + (f"window={window}" if window else "causal"))
+             + (f"window={window}" if window else "causal")
+             + (f" padded from {native}" if native else ""))
+    pairs = b * kv * g * _pairs(s, window)
+    extra = {"graph_ms": graph_ms(torch, call)}
+    if native:
+        qk, vd = native
+        extra["unpadded_bound_ms"] = bound(
+            2.0 * pairs * (qk + vd),
+            b * s * kv * (g + 1) * (qk + vd) * es, dname)[0]
     _case(torch, rec, "K2", dname, ("K2", dname), call,
           lambda: ref.attention(q, k, v, **args),
           lambda: F.scaled_dot_product_attention(
               qs, ks, vs, attn_mask=mask, is_causal=mask is None,
               enable_gqa=True),
-          4.0 * b * kv * g * _pairs(s, window) * hd,
-          (b * s * g * 2 + 2 * b * s) * kv * hd * es, shape,
-          {"graph_ms": graph_ms(torch, call)})
+          4.0 * pairs * hd, (b * s * g * 2 + 2 * b * s) * kv * hd * es,
+          shape, extra)
     _rerun_equal(torch, call, shape)
 
 
@@ -870,17 +1026,21 @@ def _pairs(s: int, window: int = 0) -> int:
 
 
 def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
-                              s=TRAIN_S, g=8, window=0, kv=1, hd=256):
+                              s=TRAIN_S, g=8, window=0, kv=1, hd=256,
+                              native=None):
     """K2 with its (m, l) export, then K3 and K4, at a training shape (by
     default gemma-2b's: q (2, 512, 1, 8, 256), k/v (2, 512, 1, 256),
     m/l/delta (2, 1, 8, 512)); with a ``window``, K2 without the export
     too (the prefill's form).  The library yardstick of K3 and K4 is one
     pair: the backward alone of SDPA (enable_gqa, the window as a boolean
     mask) through torch.autograd.grad.  Each row also prints its CUDA-graph
-    time, and each kernel is rerun for the same bits."""
+    time, and each kernel is rerun for the same bits.  ``native`` ``(qk,
+    vd)``: the inputs zero-padded from those widths (MLA's, at its own
+    scale), SDPA timed on the unpadded tensors, and the bound of the
+    unpadded work printed beside each padded row's."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    scale = hd ** -0.5
+    scale = (native[0] if native else hd) ** -0.5
     randn = lambda *shape: torch.randn(*shape, generator=gen,
                                        device="cuda").to(dt)
     q, k, v, do = (randn(b, s, kv, g, hd), randn(b, s, kv, hd),
@@ -891,26 +1051,44 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
     args = dict(scale=scale, causal=True, window=window)
     qs = q.reshape(b, s, kv * g, hd).transpose(1, 2)
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    unpadded = _padded(torch, native, q, k, v, do)
+    if unpadded:
+        qs, ks, vs = unpadded
     mask = ref._mask(s, s, True, window, "cuda") if 0 < window < s else None
     sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(
         q_, k_, v_, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
     tag = f"window={window}" if window else "causal"
-    shape = f"B={b} S={s} KV={kv} G={g} hd={hd} {tag}"
-    graph = lambda call: {"graph_ms": graph_ms(torch, call)}
+    shape = f"B={b} S={s} KV={kv} G={g} hd={hd} {tag}" + (
+        f" padded from {native}" if native else "")
+
+    def graph(call, flops=None, nbytes=None):
+        extra = {"graph_ms": graph_ms(torch, call)}
+        if native:          # the same work at the unpadded widths
+            extra["unpadded_bound_ms"] = bound(flops, nbytes, dname)[0]
+        return extra
+
+    # the unpadded widths' work: (q.k, v) widths and their bytes
+    qk, vd = native or (hd, hd)
+    rows = b * s * kv
+    nat = dict(q=rows * g * qk * es, k=rows * qk * es, v=rows * vd * es,
+               o=rows * g * vd * es)
+    fwd_flops = 2.0 * pairs * (qk + vd)
+    fwd_bytes = nat["q"] + nat["k"] + nat["v"] + nat["o"]
     if window:
         fwd = lambda: ops.attention(q, k, v, **args)
         _case(torch, rec, "K2", dname, ("K2", dname), fwd,
               lambda: ref.attention(q, k, v, **args),
               lambda: sdpa(qs, ks, vs), 4.0 * pairs * hd,
               (b * s * g * 2 + 2 * b * s) * kv * hd * es,
-              f"K2 {dname} {shape}", graph(fwd))
+              f"K2 {dname} {shape}", graph(fwd, fwd_flops, fwd_bytes))
         _rerun_equal(torch, fwd, f"K2 {dname} {shape}")
     export = lambda: ops.attention_stats(q, k, v, **args)
     _case(torch, rec, "K2", dname, ("K2", dname), export,
           lambda: ref.attention_stats(q, k, v, **args),
           lambda: sdpa(qs, ks, vs),
           4.0 * pairs * hd, (b * s * g * 2 + 2 * b * s) * kv * hd * es
-          + 2 * stat_bytes, f"K2 {dname} {shape} export", graph(export))
+          + 2 * stat_bytes, f"K2 {dname} {shape} export",
+          graph(export, fwd_flops, fwd_bytes + 2 * stat_bytes))
     _rerun_equal(torch, export, f"K2 {dname} {shape} export")
     out, m, l = ops.attention_stats(q, k, v, **args)
     delta = (do.float() * out.reshape(do.shape).float()).sum(-1)
@@ -920,14 +1098,18 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
     kg = ks.detach().requires_grad_(True)
     vg = vs.detach().requires_grad_(True)
     og = sdpa(qg, kg, vg)
-    dos = do.reshape(b, s, kv * g, hd).transpose(1, 2)
+    dos = do.reshape(b, s, kv * g, hd).transpose(1, 2)[..., :vd]
     sdpa_bwd = lambda: torch.autograd.grad(og, (qg, kg, vg), dos,
                                            retain_graph=True)
     dq = lambda: ops.flash_dq(*bwd, **args)
+    # unpadded: s = q k^T, dp = dO v^T, dq = ds k; K4 also dv = p^T dO,
+    # dk = ds^T q
+    bwd_bytes = fwd_bytes + nat["o"] + 3 * stat_bytes
     _case(torch, rec, "K3", dname, ("K3", dname), dq,
           lambda: ref.flash_dq(*bwd, **args), sdpa_bwd,
           2.0 * 3 * pairs * hd, qkv_bytes + 3 * stat_bytes
-          + b * s * kv * g * hd * es, f"K3 {dname} {shape}", graph(dq))
+          + b * s * kv * g * hd * es, f"K3 {dname} {shape}",
+          graph(dq, 2.0 * pairs * (2 * qk + vd), bwd_bytes + nat["q"]))
     _rerun_equal(torch, dq, f"K3 {dname} {shape}")
     nsplit = ops.dkv_splits(b, s, s, kv, g, True, window)
     _case(torch, rec, "K4", dname, ("K4", dname),
@@ -937,7 +1119,9 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
           + 2 * b * s * kv * hd * es, f"K4 {dname} {shape}",
           {"path": "tc" if dt == torch.bfloat16 else "fma",
            "row_splits": nsplit if dt == torch.bfloat16 else 1,
-           **graph(lambda: ops.flash_dkv(*bwd, **args))})
+           **graph(lambda: ops.flash_dkv(*bwd, **args),
+                   2.0 * pairs * (2 * qk + 2 * vd),
+                   bwd_bytes + nat["k"] + nat["v"])})
     _rerun_equal(torch, lambda: ops.flash_dkv(*bwd, **args),
                  f"K4 {dname} {shape}")
 
@@ -1468,6 +1652,52 @@ def phase_train(torch):
     return launches
 
 
+def _train_steps(torch, tag, step, state, batches, tokens,
+                 keys=("loss", "grad_norm")):
+    """``step`` over ``batches`` from launch counts 0 and fresh peak
+    memory statistics, the last step under sync debug mode "error": each
+    step's ms (CUDA events), tokens/s and metrics ``keys`` printed and
+    held finite, and every f32 master leaf required to move.  Returns
+    ``(state, rows, launches, peak)``, a row ``(ms, {key: value})`` a
+    step."""
+    from repro_torch.kernels import ops
+    before = {k: t.reshape(-1)[:4096].clone()
+              for k, t in state.opt.master.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rows = []
+    for i, batch in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if i == len(batches) - 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            start.record()
+            state, metrics = step(state, batch)
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        vals = {k: metrics[k].item() for k in keys}
+        rows.append((ms, vals))
+        print(f"[{tag}] step {i + 1}: {ms:.3f} ms, {tokens / ms * 1e3:.1f} "
+              f"tok/s, " + ", ".join(f"{k} {v:.6f}" for k, v in vals.items()),
+              flush=True)
+        require(all(math.isfinite(v) for v in vals.values()),
+                f"step {i + 1}: a metric is not finite")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] step {len(batches)} ran with no host sync (sync debug "
+          f"mode 'error')", flush=True)
+    changed = sum(not torch.equal(before[k], t.reshape(-1)[:4096])
+                  for k, t in state.opt.master.items())
+    require(changed == len(before), f"only {changed} of {len(before)} f32 "
+            f"master leaves changed")
+    return state, rows, launches, peak
+
+
 def _dense_reqs(cfg, n: int):
     """``n`` requests from seed 0: prompts of 32-200 tokens (51-175 for
     the first six), 16-32 new tokens, as gemma-2b's ``[path]`` draws
@@ -1658,44 +1888,12 @@ def phase_stablelm_train(torch, card):
 
     state = ts.init_state(cfg, params, "cuda")
     step = ts.make_train_step(cfg, microbatches=mb)
-    before = {k: t.reshape(-1)[:4096].clone()
-              for k, t in state.opt.master.items()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    rows = []
-    for i, batch in enumerate(batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if i == len(batches) - 1:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            start.record()
-            state, metrics = step(state, batch)
-            end.record()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end)
-        loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
-        rows.append((ms, loss, gnorm))
-        print(f"[stablelm_train] step {i + 1}: {ms:.3f} ms, "
-              f"{tokens / ms * 1e3:.1f} tok/s, loss {loss:.6f}, grad_norm "
-              f"{gnorm:.6f}", flush=True)
-        require(math.isfinite(loss) and math.isfinite(gnorm),
-                f"step {i + 1}: loss or grad norm not finite")
-    launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    print("[stablelm_train] step 3 ran with no host sync (sync debug mode "
-          "'error')", flush=True)
+    state, rows, launches, peak = _train_steps(
+        torch, "stablelm_train", step, state, batches, tokens)
     # the step's loss is the mean of its microbatches' means: the whole
     # batch's mean up to the order of the f32 sums
-    require(abs(rows[0][1] - lk) <= 1e-5 * abs(lk), f"step 1's loss "
-            f"{rows[0][1]} != the kernels' loss_and_grads {lk}")
-    changed = sum(not torch.equal(before[k], t.reshape(-1)[:4096])
-                  for k, t in state.opt.master.items())
-    require(changed == len(before), f"only {changed} of {len(before)} f32 "
-            f"master leaves changed")
+    require(abs(rows[0][1]["loss"] - lk) <= 1e-5 * abs(lk), f"step 1's "
+            f"loss {rows[0][1]['loss']} != the kernels' loss_and_grads {lk}")
     L, n = cfg.n_layers, TRAIN_STEPS * mb
     # per microbatch, as gemma-2b's [train]: K1 6 products a layer + the
     # head, the 6 L again under remat, 2 VJP products for each of the
@@ -1930,6 +2128,31 @@ def _ratio(kern, wit):
     return kern / wit if wit else (0.0 if not kern else math.inf)
 
 
+def _f32_witness(torch, tag, out, setting):
+    """Hold ``out[(dtype, plain)][what]`` (``dtype`` "float32" or
+    "bfloat16", ``plain`` the plain path's) for each ``what``: the f32
+    kernels within SSM_F32_TOL x max|plain| of the f32 plain path; the
+    bf16 kernels no farther from the f32 plain path than SSM_BF16_RATIO
+    x the plain bf16 path's own distance from it (the witness).
+    ``setting`` names the input in the printed lines."""
+    for what, ref32 in out["float32", True].items():
+        err = _rel(torch, out["float32", False][what], ref32)
+        print(f"[{tag}] float32 {what} {tuple(ref32.shape)} kernels vs "
+              f"plain ({setting}): {err:.3e} of max|plain| (tol "
+              f"{SSM_F32_TOL:g})", flush=True)
+        require(err <= SSM_F32_TOL, f"float32 {what} disagrees with plain")
+        kern = _rel(torch, out["bfloat16", False][what], ref32)
+        wit = _rel(torch, out["bfloat16", True][what], ref32)
+        both = _rel(torch, out["bfloat16", False][what],
+                    out["bfloat16", True][what])
+        print(f"[{tag}] bfloat16 {what}, max|diff| / max|f32 plain|: "
+              f"kernels vs f32 {kern:.3e}, plain bf16 vs f32 {wit:.3e} "
+              f"(ratio {_ratio(kern, wit):.3f}, tol {SSM_BF16_RATIO:g}); "
+              f"kernels vs plain bf16 {both:.3e}", flush=True)
+        require(kern <= SSM_BF16_RATIO * wit, f"bfloat16 {what}: the "
+                f"kernels sit farther from the f32 function than plain bf16")
+
+
 def _ssm_agreement(torch, cfg, params, prompt, tok):
     """One prefill (logits, state, conv tail) and one decode step of
     ``tok`` from its cache, through the kernels and the plain versions, in
@@ -1956,24 +2179,7 @@ def _ssm_agreement(torch, cfg, params, prompt, tok):
     require(int(out["bfloat16", False]["prefill logits"][0].argmax())
             == int(tok[0]), "engine's first token differs from a fresh "
             "prefill's")
-    n = prompt.shape[1]
-    for what, ref32 in out["float32", True].items():
-        err = _rel(torch, out["float32", False][what], ref32)
-        print(f"[ssm_path] float32 {what} {tuple(ref32.shape)} kernels vs "
-              f"plain ({n}-token prompt): {err:.3e} of max|plain| (tol "
-              f"{SSM_F32_TOL:g})", flush=True)
-        require(err <= SSM_F32_TOL, f"float32 {what} disagrees with plain")
-        kern = _rel(torch, out["bfloat16", False][what], ref32)
-        wit = _rel(torch, out["bfloat16", True][what], ref32)
-        both = _rel(torch, out["bfloat16", False][what],
-                    out["bfloat16", True][what])
-        print(f"[ssm_path] bfloat16 {what}, max|diff| / max|f32 plain|: "
-              f"kernels vs f32 {kern:.3e}, plain bf16 vs f32 {wit:.3e} "
-              f"(ratio {_ratio(kern, wit):.3f}, tol {SSM_BF16_RATIO:g}); "
-              f"kernels vs "
-              f"plain bf16 {both:.3e}", flush=True)
-        require(kern <= SSM_BF16_RATIO * wit, f"bfloat16 {what}: the "
-                f"kernels sit farther from the f32 function than plain bf16")
+    _f32_witness(torch, "ssm_path", out, f"{prompt.shape[1]}-token prompt")
 
 
 def _ssm_layers(torch, cfg, params, prompt, tok):
@@ -2131,41 +2337,10 @@ def phase_ssm_train(torch):
 
     state = ts.init_state(cfg, params, "cuda")
     step = ts.make_train_step(cfg)
-    before = {k: t.reshape(-1)[:4096].clone()
-              for k, t in state.opt.master.items()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    rows = []
-    for i, batch in enumerate(batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if i == len(batches) - 1:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            start.record()
-            state, metrics = step(state, batch)
-            end.record()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end)
-        loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
-        rows.append((ms, loss, gnorm))
-        print(f"[ssm_train] step {i + 1}: {ms:.3f} ms, {tokens / ms * 1e3:.1f}"
-              f" tok/s, loss {loss:.6f}, grad_norm {gnorm:.6f}", flush=True)
-        require(math.isfinite(loss) and math.isfinite(gnorm),
-                f"step {i + 1}: loss or grad norm not finite")
-    launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    print("[ssm_train] step 3 ran with no host sync (sync debug mode "
-          "'error')", flush=True)
-    require(abs(rows[0][1] - lk) <= 1e-6 * abs(lk), f"step 1's loss "
-            f"{rows[0][1]} != the kernels' loss_and_grads {lk}")
-    changed = sum(not torch.equal(before[k], t.reshape(-1)[:4096])
-                  for k, t in state.opt.master.items())
-    require(changed == len(before), f"only {changed} of {len(before)} f32 "
-            f"master leaves changed")
+    state, rows, launches, peak = _train_steps(
+        torch, "ssm_train", step, state, batches, tokens)
+    require(abs(rows[0][1]["loss"] - lk) <= 1e-6 * abs(lk), f"step 1's "
+            f"loss {rows[0][1]['loss']} != the kernels' loss_and_grads {lk}")
     L, n = cfg.n_layers, TRAIN_STEPS
     # K1 a step: w_in and w_out a layer and the head forward, the 2 L
     # again under remat, and 2 VJP products for each of the 2 L + 1 (the
@@ -2283,23 +2458,8 @@ def _hybrid_agreement(torch, cfg, params, tokens, ctx):
                 "decode logits": dec, "decode state": dc["rec"].h,
                 "decode ring K": dc["att"].k}
     del pf, cache32
-    for what, ref32 in out["float32", True].items():
-        err = _rel(torch, out["float32", False][what], ref32)
-        print(f"[hybrid_path] float32 {what} {tuple(ref32.shape)} kernels "
-              f"vs plain ({tokens.shape[1]}-token prefill, decode at "
-              f"position {n}): {err:.3e} of max|plain| (tol "
-              f"{SSM_F32_TOL:g})", flush=True)
-        require(err <= SSM_F32_TOL, f"float32 {what} disagrees with plain")
-        kern = _rel(torch, out["bfloat16", False][what], ref32)
-        wit = _rel(torch, out["bfloat16", True][what], ref32)
-        both = _rel(torch, out["bfloat16", False][what],
-                    out["bfloat16", True][what])
-        print(f"[hybrid_path] bfloat16 {what}, max|diff| / max|f32 plain|: "
-              f"kernels vs f32 {kern:.3e}, plain bf16 vs f32 {wit:.3e} "
-              f"(ratio {_ratio(kern, wit):.3f}, tol {SSM_BF16_RATIO:g}); "
-              f"kernels vs plain bf16 {both:.3e}", flush=True)
-        require(kern <= SSM_BF16_RATIO * wit, f"bfloat16 {what}: the "
-                f"kernels sit farther from the f32 function than plain bf16")
+    _f32_witness(torch, "hybrid_path", out, f"{tokens.shape[1]}-token "
+                 f"prefill, decode at position {n}")
 
 
 def _hybrid_sublayers(torch, cfg, kind, lp, x, positions, xd, cd, pos):
@@ -2584,40 +2744,8 @@ def phase_hybrid_train(torch):
 
     state = ts.init_state(cfg, params, "cuda")
     step = ts.make_train_step(cfg, microbatches=HYB_MB)
-    before = {k: t.reshape(-1)[:4096].clone()
-              for k, t in state.opt.master.items()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    rows = []
-    for i, batch in enumerate(batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if i == len(batches) - 1:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            start.record()
-            state, metrics = step(state, batch)
-            end.record()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end)
-        loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
-        rows.append((ms, loss, gnorm))
-        print(f"[hybrid_train] step {i + 1}: {ms:.3f} ms, "
-              f"{tokens / ms * 1e3:.1f} tok/s, loss {loss:.6f}, grad_norm "
-              f"{gnorm:.6f}", flush=True)
-        require(math.isfinite(loss) and math.isfinite(gnorm),
-                f"step {i + 1}: loss or grad norm not finite")
-    launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    print("[hybrid_train] step 3 ran with no host sync (sync debug mode "
-          "'error')", flush=True)
-    changed = sum(not torch.equal(before[k], t.reshape(-1)[:4096])
-                  for k, t in state.opt.master.items())
-    require(changed == len(before), f"only {changed} of {len(before)} f32 "
-            f"master leaves changed")
+    state, rows, launches, peak = _train_steps(
+        torch, "hybrid_train", step, state, batches, tokens)
     n_rec, n_att, k1 = _hybrid_counts(cfg)
     n, m = TRAIN_STEPS, HYB_MB
     # a microbatch: the forward's K1 products, the layers' again under
@@ -3470,46 +3598,12 @@ def phase_moe_train(torch, card):
 
     state = ts.init_state(cfg, params, "cuda")
     step = ts.make_train_step(cfg, microbatches=mb)
-    before = {k: t.reshape(-1)[:4096].clone()
-              for k, t in state.opt.master.items()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
     expert = [0]
-    rows = []
     with _spy(ops, "_expert_gemm",
               lambda a, o: expert.__setitem__(0, expert[0] + 1)):
-        for i, batch in enumerate(batches):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            if i == len(batches) - 1:
-                torch.cuda.set_sync_debug_mode("error")
-            try:
-                start.record()
-                state, metrics = step(state, batch)
-                end.record()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(end)
-            vals = {k: metrics[k].item() for k in ("loss", "grad_norm",
-                                                   "nll", "moe_aux", "moe_z",
-                                                   "dropped")}
-            rows.append((ms, vals))
-            print(f"[moe_train] step {i + 1}: {ms:.3f} ms, "
-                  f"{tokens / ms * 1e3:.1f} tok/s, "
-                  + ", ".join(f"{k} {v:.6f}" for k, v in vals.items()),
-                  flush=True)
-            require(all(math.isfinite(v) for v in vals.values()),
-                    f"step {i + 1}: a metric is not finite")
-    launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    print("[moe_train] step 3 ran with no host sync (sync debug mode "
-          "'error')", flush=True)
-    changed = sum(not torch.equal(before[k], t.reshape(-1)[:4096])
-                  for k, t in state.opt.master.items())
-    require(changed == len(before), f"only {changed} of {len(before)} f32 "
-            f"master leaves changed")
+        state, rows, launches, peak = _train_steps(
+            torch, "moe_train", step, state, batches, tokens,
+            ("loss", "grad_norm", "nll", "moe_aux", "moe_z", "dropped"))
     # per microbatch: K1 6 products a dense layer and 9 a MoE layer (q,
     # k, v, o, the f32 router, the two expert GEMMs, the shared pair),
     # the head; the layers again under remat; 2 VJP products for each; K2
@@ -3609,6 +3703,287 @@ def phase_llama4_path(torch, card):
     return launches
 
 
+def _mla_counts(cfg):
+    """``(K1 launches of one forward, of one decode step)``: a forward
+    makes 7 products a layer (wq_a, wq_b, wkv_a, wkv_b, wo and the MLP's
+    two) and the head; a decode step 8 (wq_a, wq_b, wkv_a, the two
+    absorbed head-form products on wkv_b's views, wo and the MLP's two)
+    and the head."""
+    L = cfg.n_layers
+    return 7 * L + 1, 8 * L + 1
+
+
+def _mla_mm_params(params) -> int:
+    """The parameters a token's forward multiplies: every product's weight
+    (the untied embedding table is gathered, the norms scale)."""
+    return sum(p.numel() for name, p in params.named_parameters()
+               if name.endswith(("wq_a", "wq_b", "wkv_a", "wkv_b", "wo",
+                                 "wi", "unembed.w")))
+
+
+def _mla_agreement(torch, cfg, params, tokens, cache_len):
+    """One prefill of ``tokens`` (logits, the stacked ``MLACache``) and
+    one decode step from its re-laid cache (its logits and latents),
+    through the kernels and the plain versions, in the served bf16 and on
+    its weights in f32 at full depth: f32 kernels against f32 plain
+    within SSM_F32_TOL (in f32 the head-form products take K9: f32 is no
+    K1 head form); bf16 kernels against the f32 plain path beside the
+    plain bf16 path's own distance from it (the witness), as the hybrid's
+    ``_hybrid_agreement``."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    cf, pf = cfg.with_(dtype="float32"), _f32_copy(params)
+    n = tokens.shape[1]
+    pos = torch.full((1,), n, dtype=torch.int32, device="cuda")
+    out = {}
+    for c, prm in ((cf, pf), (cfg, params)):
+        for plain in (False, True):
+            with _plain_if(ops, plain):
+                lg, fc = transformer.prefill(prm, c, tokens)
+                dec, dc = transformer.decode_step(
+                    prm, c, tokens[:, -1], pos,
+                    transformer.prefill_cache_to_decode(c, fc, cache_len))
+            require(bool(torch.isfinite(lg).all() and torch.isfinite(dec)
+                         .all()), f"{c.dtype} logits not finite")
+            out[c.dtype, plain] = {
+                "prefill logits": lg, "c_kv": fc.c_kv, "k_pe": fc.k_pe,
+                "decode logits": dec, "decode c_kv": dc["layers"].c_kv[
+                    :, :, n]}
+            del fc, dc
+    del pf
+    _f32_witness(torch, "mla_path", out, f"{n}-token prefill, decode at "
+                 f"position {n}")
+
+
+def phase_mla_path(torch, card):
+    """minicpm3-4b at full width and depth: make_prefill B=1 S=MLA_S (K2 on
+    the padded MLA attention), ServeEngine over contiguous per-slot latent
+    caches, greedy_generate (K1's head form in each decode step), the
+    agreement with the plain path, a decode step under sync debug
+    "error", profiles."""
+    import numpy as np
+    from repro_torch.configs import minicpm3_4b
+    from repro_torch.hardware import H100_PEAK_FLOPS
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving import ServeEngine
+    from repro_torch.train import serve_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = phase_t0 = time.perf_counter()
+    cfg, params = _model(torch, minicpm3_4b)
+    torch.cuda.synchronize()
+    L, V, d, h = cfg.n_layers, cfg.vocab_size, cfg.d_model, cfg.n_heads
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"[mla_path] minicpm3-4b full width and depth ({L} layers, MLA "
+          f"q rank 768, kv rank 256, {h} heads of 64 + 32 rope, v 64): "
+          f"{n_params / 1e9:.3f} B params bf16 ({w_bytes / 1e9:.3f} GB; "
+          f"param_count {cfg.param_count()[0]:,}), init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, V, (1, MLA_S))).cuda()
+    prompts = torch.from_numpy(rng.integers(
+        0, V, (MOE_GEN_B, MOE_PROMPT))).cuda()
+    k1_fwd, k1_step = _mla_counts(cfg)
+    heads = [0]
+    count_head = lambda a, o: heads.__setitem__(0, heads[0] + 1)
+    prefill = serve_step.make_prefill(cfg)
+    with torch.inference_mode():
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = prefill(params, {"tokens": tokens})
+        end.record()
+        torch.cuda.synchronize()
+        launches_p = dict(ops.LAUNCHES)
+        prefill_ms = start.elapsed_time(end)
+        require(tuple(logits.shape) == (1, V) and
+                bool(torch.isfinite(logits).all()), "prefill logits")
+        require(tuple(cache.c_kv.shape) == (L, 1, MLA_S, 256) and
+                tuple(cache.k_pe.shape) == (L, 1, MLA_S, 32),
+                "prefill MLACache shapes")
+        del cache
+        want = _zero_launches(K1=k1_fwd, K2=L)
+        print(f"[mla_path] make_prefill B=1 S={MLA_S}: {prefill_ms:.3f} ms "
+              f"({MLA_S / prefill_ms * 1e3:.1f} tok/s); launches "
+              f"{launches_p} (derived {want})", flush=True)
+        require(launches_p == want, "prefill launches differ from the "
+                "derived counts")
+        qk, vd = MLA_WIDTHS
+        pairs = MLA_S * (MLA_S + 1) // 2
+        mm = _mla_mm_params(params) - V * d        # the head: one row
+        att = L * h * pairs * 2 * (qk + vd)
+        flops = 2 * MLA_S * mm + 2 * V * d + att
+        padded = L * h * pairs * 4 * 128
+        print(f"[mla_path] prefill bound: {flops / 1e12:.3f} TFLOP at 989 "
+              f"TFLOP/s = {flops / H100_PEAK_FLOPS['bfloat16'] * 1e3:.3f} ms "
+              f"(attention {att / 1e12:.3f} TFLOP unpadded, "
+              f"{padded / 1e12:.3f} padded to 128 as K2 runs it); peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"({card})", flush=True)
+        torch.cuda.empty_cache()
+
+    engine = ServeEngine(cfg, params, max_slots=4, max_len=512)
+    require(engine.pool is None and not engine.paged, "MLA must serve "
+            "through contiguous per-slot caches")
+    reqs = _dense_reqs(cfg, 6)
+    print(f"[mla_path] contiguous per-slot latent caches of 512; prompts "
+          f"{[len(p) for p, _ in reqs]} max_new {[n for _, n in reqs]}",
+          flush=True)
+    with _spy(ops, "_head_gemm", count_head):
+        run = _run_engine(torch, engine, reqs)
+    rids, results, launches_e = run[:3]
+    _serve_line(torch, np, "mla_path", reqs, *run, engine)
+    prefills = len(rids)
+    want = _zero_launches(K1=prefills * k1_fwd + engine.kernel_calls *
+                          k1_step, K2=L * prefills)
+    print(f"[mla_path] engine launches {launches_e} (derived {want}); K1's "
+          f"head form {heads[0]} (derived {2 * L} a slot-step x "
+          f"{engine.kernel_calls})", flush=True)
+    require(launches_e == want and heads[0] == 2 * L * engine.kernel_calls,
+            "engine launches differ from the derived counts")
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        heads[0] = 0
+        t0 = time.perf_counter()
+        with _spy(ops, "_head_gemm", count_head):
+            out = serve_step.greedy_generate(params, cfg, prompts, MOE_NEW,
+                                             MOE_CACHE)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches_g = dict(ops.LAUNCHES)
+        require(tuple(out.shape) == (MOE_GEN_B, MOE_PROMPT + MOE_NEW) and
+                torch.equal(out[:, :MOE_PROMPT], prompts) and
+                bool(((out >= 0) & (out < V)).all()),
+                "greedy_generate output")
+        want = _zero_launches(K1=k1_fwd + MOE_NEW * k1_step, K2=L)
+        print(f"[mla_path] greedy_generate B={MOE_GEN_B}, {MOE_PROMPT} prompt "
+              f"tokens (one prefill, its cache re-laid) + {MOE_NEW} new, "
+              f"cache_len {MOE_CACHE}: {gen_s:.3f} s, "
+              f"{MOE_GEN_B * MOE_NEW / gen_s:.2f} new tok/s; launches "
+              f"{launches_g} (derived {want}); K1's head form {heads[0]} "
+              f"({2 * L} a decode step); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        require(launches_g == want and heads[0] == MOE_NEW * 2 * L,
+                "greedy_generate launches differ from the derived counts")
+
+        _mla_agreement(torch, cfg, params, tokens, MLA_S + 64)
+        torch.cuda.empty_cache()
+
+        # one decode step (B=2) from the prompts' prefill cache, under the
+        # "error" sync debug mode, then timed and profiled
+        _, fwd = prefill(params, {"tokens": prompts})
+        cache = transformer.prefill_cache_to_decode(cfg, fwd, MOE_CACHE)
+        pos = torch.full((MOE_GEN_B,), MOE_PROMPT, dtype=torch.int32,
+                         device="cuda")
+        decode = serve_step.make_decode(cfg)
+        tok = prompts[:, -1]
+        step = lambda: decode(params, tok, pos, cache)
+        step()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        print("[mla_path] decode step ran with no host sync (sync debug "
+              "mode 'error')", flush=True)
+        step_ms = time_ms(torch, step, iters=5, warmup=1)
+        s_bytes = _step_bytes(params, cfg)
+        c_bytes = sum(t.numel() * t.element_size() for t in cache["layers"])
+        b_ms, _ = bound(0.0, s_bytes + c_bytes, "bfloat16")
+        print(f"[mla_path] decode step (B={MOE_GEN_B}, latent cache of "
+              f"{MOE_CACHE}): {step_ms:.3f} ms (CUDA events); bound "
+              f"{b_ms:.3f} ms: weights {s_bytes / 1e9:.3f} GB (every "
+              f"parameter but the untied embedding table's other rows) + "
+              f"latent cache {c_bytes / 1e9:.4f} GB at 3.35 TB/s; peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"({card})", flush=True)
+        profile_step(torch, step, n=2, what="mla decode")
+        profile_step(torch, lambda: prefill(params, {"tokens": tokens}), n=1,
+                     what="mla prefill")
+    print(f"[mla_path] phase wall {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    return {k: launches_p[k] + launches_e[k] + launches_g[k]
+            for k in launches_p}
+
+
+def phase_mla_train(torch, card):
+    """minicpm3-4b at full width, depth cut to MLA_TRAIN_LAYERS: step 1's
+    first microbatch against the plain path (f32 and bf16), then 3 AdamW
+    steps at B=MLA_TRAIN_B S=MLA_S in MLA_TRAIN_MB microbatches, remat
+    on."""
+    from repro_torch.configs import minicpm3_4b
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.hardware import H100, H100_PEAK_FLOPS
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_step as ts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    phase_t0 = time.perf_counter()
+    cfg, params = _model(torch, minicpm3_4b, MLA_TRAIN_LAYERS,
+                         trainable=True)
+    mb, L = MLA_TRAIN_MB, cfg.n_layers
+    require(cfg.remat, "minicpm3-4b trains with remat on")
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[mla_train] minicpm3-4b full width, depth cut to {L} of "
+          f"{minicpm3_4b.full().n_layers} layers: {n_params / 1e9:.3f} B "
+          f"params (param_count {cfg.param_count()[0]:,}), B={MLA_TRAIN_B} "
+          f"S={MLA_S} in {mb} microbatches", flush=True)
+    data = SyntheticLM(PipelineConfig(cfg.vocab_size, MLA_S, MLA_TRAIN_B,
+                                      seed=0))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                data.global_batch(i).items()} for i in range(TRAIN_STEPS)]
+    tokens = MLA_TRAIN_B * MLA_S
+    first = {k: v[:MLA_TRAIN_B // mb] for k, v in batches[0].items()}
+    _dense_grad_agreement(torch, "mla_train", cfg, params, first)
+    torch.cuda.empty_cache()
+
+    state = ts.init_state(cfg, params, "cuda")
+    step = ts.make_train_step(cfg, microbatches=mb)
+    state, rows, launches, peak = _train_steps(
+        torch, "mla_train", step, state, batches, tokens)
+    n = TRAIN_STEPS * mb
+    k1 = _mla_counts(cfg)[0]
+    # per microbatch: the forward's products, the layers' again under
+    # remat, two VJP products each; K2 a layer forward and in its remat
+    # rerun; K3, K4 a layer; no K5-K9 (the head form serves decode only)
+    want = _zero_launches(K1=n * (k1 + (k1 - 1) + 2 * k1), K2=n * 2 * L,
+                          K3=n * L, K4=n * L)
+    print(f"[mla_train] launches over {TRAIN_STEPS} steps of {mb} "
+          f"microbatches {launches} (derived {want})", flush=True)
+    require(launches == want, "kernel launches differ from the derived "
+            "counts")
+    qk, vd = MLA_WIDTHS
+    pairs = MLA_TRAIN_B * MLA_S * (MLA_S + 1) // 2
+    att = L * cfg.n_heads * pairs * 2 * (qk + vd)
+    flops = 3 * (2 * tokens * _mla_mm_params(params) + att)
+    ops_ms = flops / H100_PEAK_FLOPS["bfloat16"] * 1e3
+    opt_ms = n_params * 28 / H100.hbm.bandwidth_Bps * 1e3
+    mean_ms = sum(r[0] for r in rows[1:]) / (len(rows) - 1)
+    print(f"[mla_train] step ms {[round(r[0], 3) for r in rows]} (steps 2-3 "
+          f"mean {mean_ms:.3f} ms, {tokens / mean_ms * 1e3:.1f} tok/s); peak "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"[mla_train] bound: products and unpadded attention "
+          f"{flops / 1e12:.3f} TFLOP at 989 TFLOP/s = {ops_ms:.3f} ms + "
+          f"AdamW {n_params * 28 / 1e9:.3f} GB at 3.35 TB/s = {opt_ms:.3f} "
+          f"ms = {ops_ms + opt_ms:.3f} ms ({card})", flush=True)
+    require(peak < 80e9, "peak memory over the card's 80 GB")
+    profile_step(torch, lambda: step(state, batches[0]), n=1,
+                 what="mla train")
+    print(f"[mla_train] phase wall {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    return launches
+
+
 
 def profile_step(torch, step, n: int = 3, what: str = "decode") -> None:
     """Device time by kernel over ``n`` steps (torch.profiler)."""
@@ -3676,6 +4051,10 @@ def main() -> None:
     moe_train = phase_moe_train(torch, smi_line)
     torch.cuda.empty_cache()
     llama4_serve = phase_llama4_path(torch, smi_line)
+    torch.cuda.empty_cache()
+    mla_serve = phase_mla_path(torch, smi_line)
+    torch.cuda.empty_cache()
+    mla_train = phase_mla_train(torch, smi_line)
 
     src = "src/repro_torch/kernels/csrc/"
     head = {"K1": ("K1_gemm", src + "gemm.cu",
@@ -3713,7 +4092,8 @@ def main() -> None:
             "ssm_train": ssm_train, "hybrid_path": hybrid_serve,
             "hybrid_train": hybrid_train, "moa_path": moa,
             "moe_path": moe_serve, "moe_train": moe_train,
-            "llama4_path": llama4_serve}
+            "llama4_path": llama4_serve, "mla_path": mla_serve,
+            "mla_train": mla_train}
     kernels = []
     for kid, (name, source, replaces, shape) in head.items():
         # launches: the path runs', each counted from 0

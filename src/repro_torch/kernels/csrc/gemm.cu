@@ -10,7 +10,11 @@
 // _pallas_expert_f32 forward of expert_matmul): the capacity-padded MoE
 // GEMM x (E, cap, d) @ w (E, d, f) -> (E, cap, f), the expert axis one
 // more lift of the same blocked product; and the two expert GEMMs of
-// _pallas_expert_bwd, dx = g w^T and dw = x^T g, on the split route.
+// _pallas_expert_bwd, dx = g w^T and dw = x^T g, on the split route.  Its
+// head form replaces emit_pallas on head_gemm_expr (src/repro/kernels/
+// ops.py, head_matmul: MLA decode's absorbed products x (m, h, k) @ w (k,
+// h, n), or w (n, h, k) read transposed, -> (h, m, n), the weight a
+// head-middle slice of the stored (kv_rank, h, nope + v) table).
 //
 // Layouts: A is row-major (m, k), or with transpose_a row-major (k, m)
 // read as its transpose in place.  B is row-major (k, n), or with
@@ -73,6 +77,10 @@
 //         stored (E, d, f) layout, dw = x^T g with x read MN-major in its
 //         stored (E, cap, d) layout and g's parts as B, so k = cap is the
 //         ragged edge that zero-fills inside each expert.
+//   the head form (repro_head_gemm, bf16 x bf16, m <= 16): the decode-row
+//         kernel with the head as grid axis z, each operand read through
+//         its row and head strides (a multiple of 16 bytes), so a slice
+//         of a weight table is streamed in place, never copied.
 //   the first kernels where TMA cannot read an operand (a stored row
 //         length not a multiple of 8 elements, a base not 16-byte
 //         aligned, k = 0): bf16 x bf16 without transpose_a on
@@ -91,7 +99,9 @@
 // dispatch computes all E experts): at decode (cap 8) that stream is the
 // whole cost, bytes-bound (deepseek-moe-16b: 0.74 GB for wi, 0.22 ms);
 // at prefill (cap 240) the products are at the bytes / operations
-// crossover, and the padding of cap to 256 rows wastes 6%.
+// crossover, and the padding of cap to 256 rows wastes 6%.  The head form
+// streams 1.31 MB a product at minicpm3-4b's decode (0.0004 ms at 3.35
+// TB/s): the launch, not the card, bounds it.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -859,16 +869,24 @@ constexpr int GEMV_WARPS = 4, GEMV_COLS = 64, GEMV_UNIT = 32;
 // The four warps' sums are added in warp order; with nsplit > 1 the block
 // writes its split's partial (ws), summed by gemv_reduce.  The expert
 // form stacks E such products (x (E, M, K), w (E, K, N), out (E, M, N)):
-// blockIdx.z is the expert.
+// blockIdx.z is the expert.  The head form stacks one product a head,
+// each operand read through its strides (st): x rows x_row apart and
+// heads x_ex apart, w's stored rows (k, or n with TB) w_row apart and
+// heads w_ex apart, so a slice of a (K, H, N) table is read in place; out
+// (H, M, N).
+struct GemvStrides {
+  long long x_row, x_ex, w_row, w_ex;
+};
+
 template <bool TB>
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
 gemv_mma(const bf16* __restrict__ x, const bf16* __restrict__ w,
          float* __restrict__ out, float* __restrict__ ws, int M, int N,
-         int K, int nsplit) {
+         int K, int nsplit, GemvStrides st) {
   __shared__ float red[GEMV_WARPS - 1][32][33];
   const size_t ex = blockIdx.z;
-  x += ex * M * K;
-  w += ex * K * N;
+  x += ex * st.x_ex;
+  w += ex * st.w_ex;
   out += ex * M * N;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -877,8 +895,8 @@ gemv_mma(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int per = (units + nsplit - 1) / nsplit;
   const int u0 = blockIdx.y * per, u1 = min(units, u0 + per);
   const bool row0 = g < M, row1 = g + 8 < M;
-  const bf16* x0 = x + (size_t)g * K;
-  const bf16* x1 = x + (size_t)(g + 8) * K;
+  const bf16* x0 = x + g * st.x_row;
+  const bf16* x1 = x + (g + 8) * st.x_row;
   float acc[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -894,7 +912,7 @@ gemv_mma(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int n = nb + 8 * j + g;
-        wv[j] = n < N ? ld_stream(w + (size_t)n * K + k0 + 8 * t) : zero;
+        wv[j] = n < N ? ld_stream(w + n * st.w_row + k0 + 8 * t) : zero;
       }
       const uint4 xa = row0 ? *reinterpret_cast<const uint4*>(x0 + k0 + 8 * t) : zero;
       const uint4 xb = row1 ? *reinterpret_cast<const uint4*>(x1 + k0 + 8 * t) : zero;
@@ -910,7 +928,7 @@ gemv_mma(const bf16* __restrict__ x, const bf16* __restrict__ w,
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          wr[h][r] = col_ok ? ld_stream(w + (size_t)(k0 + 16 * h + 4 * t + r) * N +
+          wr[h][r] = col_ok ? ld_stream(w + (k0 + 16 * h + 4 * t + r) * st.w_row +
                                         nb + 8 * g)
                             : zero;
 #pragma unroll
@@ -974,21 +992,25 @@ __global__ void gemv_reduce(const float* __restrict__ ws,
   out[i] = sum;
 }
 
+// st: null for row-major operands (x (e, m, k), w (e, k, n) or (e, n, k))
 int launch_gemv(const void* x, const void* w, float* c, float* ws, int m,
                 int n, int k, int tb, int nsplit, cudaStream_t s,
-                int e = 1) {
+                int e = 1, const GemvStrides* st = nullptr) {
   if (m < 1 || m > 16 || k % GEMV_UNIT != 0 || nsplit < 1 ||
       (nsplit > 1 && ws == nullptr) || e < 1 || e > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const GemvStrides dense = {k, (long long)m * k, tb ? k : n,
+                             (long long)k * n};
+  const GemvStrides& S = st ? *st : dense;
   const dim3 grid((n + GEMV_COLS - 1) / GEMV_COLS, nsplit, e);
   auto X = static_cast<const bf16*>(x);
   auto W = static_cast<const bf16*>(w);
   if (tb)
     gemv_mma<true><<<grid, GEMV_WARPS * 32, 0, s>>>(X, W, c, ws, m, n, k,
-                                                    nsplit);
+                                                    nsplit, S);
   else
     gemv_mma<false><<<grid, GEMV_WARPS * 32, 0, s>>>(X, W, c, ws, m, n, k,
-                                                     nsplit);
+                                                     nsplit, S);
   if (nsplit > 1) {
     const long long total = (long long)e * m * n;
     gemv_reduce<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(ws, c, total,
@@ -1091,6 +1113,29 @@ extern "C" int repro_expert_gemm(const void* x, const void* w, void* c,
   const void* const bs[3] = {w, nullptr, nullptr};
   return tc::launch_tile_expert(as, bs, static_cast<float*>(c), e, m, n, k,
                                 0, 0, s);
+}
+
+// The head form: x (m, h, k) times w (k, h, n), or (n, h, k) with
+// transpose_b, bf16, into c (h, m, n) f32, head by head, each operand read
+// through its strides (elements; the last axis contiguous): x_row and
+// x_head of x's m and h axes, w_row and w_head of w's first and h axes.
+// m <= 16, k % 32 == 0, every stride a multiple of 8 elements and the
+// bases 16-byte aligned; ws: nsplit x h x m x n f32 when nsplit > 1, the
+// partials summed in split order.
+extern "C" int repro_head_gemm(const void* x, const void* w, void* c,
+                               void* ws, int h, int m, int n, int k,
+                               int transpose_b, int nsplit, long long x_row,
+                               long long x_head, long long w_row,
+                               long long w_head, void* stream) {
+  if ((x_row | x_head | w_row | w_head) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      (!transpose_b && n % 8 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const tc::GemvStrides st = {x_row, x_head, w_row, w_head};
+  return tc::launch_gemv(x, w, static_cast<float*>(c),
+                         static_cast<float*>(ws), m, n, k, transpose_b,
+                         nsplit, static_cast<cudaStream_t>(stream), h, &st);
 }
 
 // The expert VJP forms on the split route, c (e, m, n) f32: dx = g w^T

@@ -28,6 +28,9 @@ entry             kernel (``csrc/``)       replaces (``repro``)
 matmul``                                   forward of
                                            ``_pallas_expert_f32``; its
                                            VJP ``_pallas_expert_bwd``)
+``head_matmul``   K1 ``gemm.cu``, its      ``emit_pallas`` on
+                  head form                ``head_gemm_expr``
+                                           (``ops.head_matmul``)
 ``attention``,    K2 ``flash_fwd.cu``      ``emit._softmax_kind`` (with
 ``attention_                               its (m, l) export)
 stats``
@@ -59,10 +62,12 @@ pipeline): the expression is psi-reduced to its normal form
 (``core.expr``), lifted and scheduled (``core.schedule.get_schedule``, on
 the ``H100`` table by default), and run.  A (mul, add) normal form that is
 one 2-D product of stored operands goes to K1 with its transpose flags,
-and a stack of them over a shared leading (expert) axis to K1's expert
-form where :func:`expert_route` allows (aligned bf16); every other normal
-form goes to K9 through its launch descriptor (``kernels/emit.py``),
-which reads every leaf in place.
+a stack of them over a shared leading (expert) axis to K1's expert form
+where :func:`expert_route` allows (aligned bf16), and a stack over a head
+axis in the middle of both operands (``head_gemm_expr``) to K1's head
+form where :func:`head_route` allows, reading both operands through
+their strides; every other normal form goes to K9 through its launch
+descriptor (``kernels/emit.py``), which reads every leaf in place.
 """
 from __future__ import annotations
 
@@ -97,6 +102,8 @@ _SIGNATURES = {
     "repro_gemv": ("gemm", [_P] * 4 + [_C] * 5),
     "repro_expert_gemm": ("gemm", [_P] * 4 + [_C] * 6),
     "repro_expert_gemm_split": ("gemm", [_P] * 7 + [_C] * 6),
+    "repro_head_gemm": ("gemm", [_P] * 4 + [_C] * 6
+                        + [ctypes.c_longlong] * 4),
     "repro_split_bf16": ("gemm", [_P] * 4 + [ctypes.c_longlong]),
     "repro_flash_fwd": ("flash_fwd", [_P] * 6 + [_C] * 6 + [_F, _C, _C, _C]),
     "repro_flash_dq": ("flash_bwd", [_P] * 8 + [_C] * 6 + [_F, _C, _C, _C]),
@@ -616,6 +623,113 @@ def expert_matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
     else:
         y = expert_gemm(x, w, out_dtype=torch.float32)
     return y.to(out_dtype or x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K1's head form: the per-head GEMM over a head-middle weight (MLA decode)
+# ---------------------------------------------------------------------------
+
+def head_aligned(*tensors: torch.Tensor) -> bool:
+    """True when K1's head form can read every operand in place: the last
+    axis contiguous, every other stride (of an axis longer than 1) a
+    multiple of 16 bytes, and the base 16-byte aligned."""
+    for t in tensors:
+        if t.data_ptr() % 16 or (t.shape[-1] > 1 and t.stride(-1) != 1):
+            return False
+        es = t.element_size()
+        if any(size > 1 and (stride * es) % 16
+               for size, stride in zip(t.shape[:-1], t.stride()[:-1])):
+            return False
+    return True
+
+
+def head_route(h: int, m: int, k: int, n: int, x_dtype, w_dtype,
+               transpose_b: bool = False, aligned: bool = True) -> str:
+    """The kernel of one head form ``x (m, h, k) @ w (k, h, n) -> (h, m,
+    n)`` (``transpose_b``: w stored ``(n, h, k)``): ``"gemv"``, K1's
+    decode-row kernel with a head grid axis, reading both operands in
+    place through their row and head strides, where :func:`gemm_route`
+    gives one head's product ``"gemv"`` (bf16 x bf16, ``m <=
+    K1_DECODE_ROWS``, ``k % 32 == 0``, rows of a multiple of 8 elements)
+    and every operand is ``aligned`` (:func:`head_aligned`); ``"K9"``
+    otherwise (its batched path on row-major copies).  Dtypes are torch
+    dtypes or their names."""
+    names = tuple(str(t).removeprefix("torch.") for t in (x_dtype, w_dtype))
+    if not (h and m and k and n) or names != ("bfloat16", "bfloat16"):
+        return "K9"
+    bf = torch.bfloat16
+    route = gemm_route(m, n, k, bf, bf, False, bool(transpose_b), aligned,
+                       aligned)
+    return "gemv" if route == "gemv" else "K9"
+
+
+def _head_gemm(x: torch.Tensor, w: torch.Tensor,
+               transpose_b: bool = False) -> torch.Tensor:
+    """Launch K1's head form on ``x (m, h, k)`` and ``w (k, h, n)`` (``(n,
+    h, k)`` with ``transpose_b``), strided views read in place; returns the
+    f32 ``(h, m, n)``.  The k range is split over :func:`gemv_splits`
+    blocks, whose partials a second pass sums in split order."""
+    m, h, k = x.shape
+    n = w.shape[0] if transpose_b else w.shape[2]
+    route = head_route(h, m, k, n, x.dtype, w.dtype, transpose_b,
+                       head_aligned(x, w))
+    if route != "gemv":
+        raise ValueError(f"K1's head form takes aligned bf16 operands of at "
+                         f"most {K1_DECODE_ROWS} rows and k % "
+                         f"{K1_GEMV_UNIT} == 0; {tuple(x.shape)} {x.dtype} "
+                         f"x {tuple(w.shape)} {w.dtype} (transpose_b="
+                         f"{transpose_b}) is K9's (ops.head_route)")
+    nsplit = gemv_splits(m, n, k, h)
+    out = torch.empty((h, m, n), device=x.device, dtype=torch.float32)
+    ws = torch.empty((nsplit, h, m, n), device=x.device,
+                     dtype=torch.float32) if nsplit > 1 else None
+    # the stride of an axis of one element is never stepped
+    st = lambda t, i: t.stride(i) if t.shape[i] > 1 else 0
+    _launch("repro_head_gemm", x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), h, m, n, k,
+            int(transpose_b), nsplit, st(x, 0), st(x, 1), st(w, 0),
+            st(w, 1))
+    LAUNCHES["K1"] += 1
+    return out
+
+
+def _head_product(x: torch.Tensor, w: torch.Tensor,
+                  transpose_b: bool = False) -> torch.Tensor:
+    """The f32 head form through K1 (CUDA) or its plain version."""
+    if _use_kernel(x, w):
+        return _head_gemm(x, w, transpose_b)
+    return ref.head_gemm(x, w, transpose_b)
+
+
+@functools.lru_cache(maxsize=256)
+def _head_expr(h: int, m: int, k: int, n: int, transpose_b: bool):
+    return E.head_gemm_expr(h, m, k, n, transpose_b=transpose_b)
+
+
+def head_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                transpose_b: bool = False, out_dtype=None,
+                hardware: HardwareShape = H100) -> torch.Tensor:
+    """Per-head contraction ``bshk,khn->bshn`` (``bshk,nhk->bshn`` with
+    ``transpose_b``), MLA decode's absorbed products
+    (``repro.kernels.ops.head_matmul``): the MoA expression
+    ``head_gemm_expr`` through :func:`apply`, the head axis one more lift
+    of the blocked product.  The head-middle weight is read in its stored
+    layout, a strided view of the ``(kv_rank, heads, dim)`` table included
+    (no per-step relayout copy), on K1's head form or K9 by
+    :func:`head_route`; accumulated in f32, returned in ``out_dtype``
+    (default ``x.dtype``)."""
+    b, s, h, kdim = x.shape
+    if transpose_b:
+        n, h2, k2 = w.shape
+    else:
+        k2, h2, n = w.shape
+    if h2 != h or k2 != kdim:
+        raise ValueError(f"head_matmul mismatch {tuple(x.shape)} . "
+                         f"{tuple(w.shape)}{'.T' if transpose_b else ''}")
+    y = apply(_head_expr(h, b * s, kdim, n, bool(transpose_b)),
+              x.reshape(b * s, h, kdim), w, out_dtype=torch.float32,
+              hardware=hardware)                        # (h, b*s, n)
+    return y.transpose(0, 1).reshape(b, s, h, n).to(out_dtype or x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -1276,7 +1390,10 @@ def _k1_form(nf: "E.NormalForm"):
     add) 2-D product of stored operands, each read row-wise or column-wise
     (K1's forms), or a stack of such products over one leading axis that
     both row-major leaves and the output share, read untransposed (the
-    lifted expert axis of ``expert_gemm_expr``: ``batched``); None
+    lifted expert axis of ``expert_gemm_expr``: ``batched`` True); or
+    ``(False, transpose_b, "head")`` for a stack over an axis in the
+    middle of both stored leaves, x ``(m, h, k)`` and w ``(k, h, n)`` or
+    ``(n, h, k)`` (the lifted head axis of ``head_gemm_expr``); None
     otherwise."""
     if (nf.combine, nf.reduce_op) != ("mul", "add") or \
             len(nf.leaves) != 2 or len(nf.out_axes) not in (2, 3) or \
@@ -1285,11 +1402,15 @@ def _k1_form(nf: "E.NormalForm"):
     batched = len(nf.out_axes) == 3
     lead = nf.out_axes[:1] if batched else ()
     (i, j), k = nf.out_axes[-2:], nf.reduce_axes[0]
-    flags = []
-    for leaf, rows in zip(nf.leaves, (i, k)):
+    stored = []
+    for leaf in nf.leaves:
         syms = tuple(t for t, _ in leaf.dims)
-        if leaf.layout == "col":
-            syms = syms[::-1]                     # the storage order
+        stored.append(syms[::-1] if leaf.layout == "col" else syms)
+    if batched and stored[0] == (i, lead[0], k) and \
+            stored[1] in ((k, lead[0], j), (j, lead[0], k)):
+        return (False, stored[1][0] == j, "head")
+    flags = []
+    for syms, rows in zip(stored, (i, k)):
         if syms[:len(lead)] != lead:
             return None
         syms = syms[len(lead):]
@@ -1310,7 +1431,9 @@ def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
     re-reads from the schedule cache) its bundle first, whose padding
     policy the descriptor applies (a chain has none).  A batched (expert)
     form takes K1 where :func:`expert_route` gives it one of K1's routes
-    (``aligned``: every base 16-byte aligned), else K9."""
+    (``aligned``: every base 16-byte aligned), a head form (``batched``
+    ``"head"``) where :func:`head_route` does (``aligned``: the views'
+    strides as :func:`head_aligned` reads them), else K9."""
     block_key = blocks.as_tuple() if hasattr(blocks, "as_tuple") else (
         tuple(blocks) if isinstance(blocks, (list, tuple)) else blocks)
     key = (nf.key(), dtypes, out_dtype, hardware.name, block_key, acc_dtype,
@@ -1328,7 +1451,12 @@ def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
         nf, dtype=dtypes[0], hardware=hardware, blocks=blocks,
         acc_dtype=acc_dtype)
     flags = _k1_form(nf)
-    if flags is not None and flags[2]:
+    if flags is not None and flags[2] == "head":
+        (m, h, k), w_shape = nf.leaf_storage_shapes()
+        n = w_shape[0] if flags[1] else w_shape[2]
+        if head_route(h, m, k, n, *dtypes[:2], flags[1], aligned) == "K9":
+            flags = None
+    elif flags is not None and flags[2]:
         (e, cap, d), (_, _, f) = nf.leaf_storage_shapes()
         if expert_route(e, cap, d, f, *dtypes[:2], aligned) == "K9":
             flags = None
@@ -1385,7 +1513,8 @@ def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
     scheduled on ``hardware`` (cached per normal form) and run on K1 or K9
     (CUDA tensors) or their plain versions (CPU tensors); the result is in
     ``out_dtype`` (default the first array's dtype), accumulated in f32.
-    A strided view binds like its contiguous copy (it is copied first).
+    A strided view binds like its contiguous copy: it is copied first,
+    but by K1's head form, which reads it in place.
     """
     if mesh is not None or shard is not None:
         raise NotImplementedError(
@@ -1404,11 +1533,21 @@ def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
         if tuple(a.shape) != s:
             raise ValueError(f"leaf {i} ({nf.leaves[i].array!r}) expects "
                              f"storage shape {s}, got {tuple(a.shape)}")
-    # the kernels read row-major storage buffers: a strided view (a
-    # transpose, a slice) is copied, as the reference takes any array
-    arrays = tuple(a.contiguous() for a in arrays)
     out_dtype = out_dtype or arrays[0].dtype
     dtypes = tuple(str(a.dtype).removeprefix("torch.") for a in arrays)
+    flags = _k1_form(nf)
+    if flags is not None and flags[2] == "head":
+        # K1's head form reads its operands through their strides (a
+        # slice of a weight table is not copied)
+        plan = _plan(nf, dtypes, out_dtype, hardware, blocks, str(acc_dtype),
+                     head_aligned(*arrays))
+        if plan[0] == "K1":
+            return _head_product(*arrays, plan[2]).to(out_dtype)
+        return semiring_contract(plan[1], *(a.contiguous() for a in arrays),
+                                 out_dtype=out_dtype)
+    # the other kernels read row-major storage buffers: a strided view (a
+    # transpose, a slice) is copied, as the reference takes any array
+    arrays = tuple(a.contiguous() for a in arrays)
     plan = _plan(nf, dtypes, out_dtype, hardware, blocks, str(acc_dtype),
                  all(a.data_ptr() % 16 == 0 for a in arrays))
     if plan[0] == "K1":

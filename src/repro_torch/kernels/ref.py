@@ -42,6 +42,16 @@ def expert_gemm(x: torch.Tensor, w: torch.Tensor,
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(out_dtype)
 
 
+def head_gemm(x: torch.Tensor, w: torch.Tensor,
+              transpose_b: bool = False) -> torch.Tensor:
+    """The per-head GEMM over a head-middle weight, ``x (m, h, k) @ w (k,
+    h, n) -> (h, m, n)`` (``w`` stored ``(n, h, k)`` with
+    ``transpose_b``): ``einsum`` on the operands promoted to f32 (exact
+    for bf16), accumulated and returned in f32.  Any strides."""
+    eq = "mhk,nhk->hmn" if transpose_b else "mhk,khn->hmn"
+    return torch.einsum(eq, x.float(), w.float())
+
+
 def split_bf16(g: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """``(hi, mid, lo)`` bf16 of an f32 tensor: ``hi = bf16(g)``, ``mid =
     bf16(g - hi)``, ``lo = bf16(g - hi - mid)`` (round to nearest even;

@@ -1,8 +1,10 @@
 """Attention (``repro.models.attention``): the prefill forward, the dense
 family's decodes (contiguous per-slot caches, one sequence's paged view,
-every slot's paged views in one launch) and the ring-cache decode of the
-local (windowed) layers.  The q/k/v and output biases (``use_bias``) are
-added where the reference adds them.
+every slot's paged views in one launch), the ring-cache decode of the
+local (windowed) layers, and MLA (multi-head latent attention: the
+non-absorbed forward on K2, the absorbed one-token decode over the
+latent cache on K1's head form).  The q/k/v and output biases
+(``use_bias``) are added where the reference adds them.
 
 Grouped-query attention never repeats K/V heads: queries are reshaped to
 ``(kv_heads, group)`` and the kernels contract them against the
@@ -233,3 +235,116 @@ def attention_decode_ring(p, x: torch.Tensor, cache: KV, pos: torch.Tensor,
     qg = q.reshape(b, 1, kvh, q.shape[2] // kvh, hd)
     out = _attend(qg, ck, cv, mask, hd ** -0.5)
     return _out(p, out, cfg, x.dtype), KV(ck, cv)
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+#: MLA widths (MiniCPM3-4B): q_rank, kv_rank, qk_nope, qk_rope, v_head
+MLA_DIMS = (768, 256, 64, 32, 64)
+#: the head width K2 takes MLA's attention at: its q.k width (nope + rope
+#: = 96) and v width (64) are not among K2's 64 / 128 / 256, so both are
+#: zero-padded to this
+MLA_PAD_HD = 128
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor       # (B, S, kv_rank)
+    k_pe: torch.Tensor       # (B, S, rope_dim)
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor,
+         eps: float = 1e-6) -> torch.Tensor:
+    """MLA's RMSNorm of the latents, in f32, cast back to x's dtype."""
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+            * scale.float()).to(x.dtype)
+
+
+def _mla_qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    """``(q_nope, q_pe, c_kv, k_pe)`` of ``x (B, S, d)``: the queries
+    ``(B, S, h, nope)`` / ``(B, S, h, rope)`` through the normed q latent,
+    the normed kv latent ``(B, S, kv_rank)`` and the shared rotary key
+    ``(B, S, rope)``, the rotary embedding of ``positions``
+    (broadcastable to ``(B, S)``) on ``q_pe`` and ``k_pe``."""
+    _, kvr, nope, rope, _ = MLA_DIMS
+    cq = _rms(_proj(x, p["wq_a"]), p["q_norm"])
+    q = _proj(cq, p["wq_b"])                        # (B, S, h, nope + rope)
+    kv_all = _proj(x, p["wkv_a"])                   # (B, S, kv_rank + rope)
+    c_kv = _rms(kv_all[..., :kvr], p["kv_norm"])
+    sin, cos = rope_tables(positions, rope, cfg.rope_theta)
+    q_pe = apply_rope(q[..., nope:], sin, cos)
+    k_pe = apply_rope(kv_all[..., None, kvr:], sin, cos)[:, :, 0, :]
+    return q[..., :nope], q_pe, c_kv, k_pe
+
+
+def mla_attention(q_nope: torch.Tensor, q_pe: torch.Tensor,
+                  k_nope: torch.Tensor, k_pe: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """MLA's causal full-sequence attention on K2 (K3 / K4 for its
+    gradients): ``q'' = [q_nope, q_pe]`` and ``k'' = [k_nope, k_pe
+    broadcast over the heads]`` (the reference's chunked branch folds its
+    two score terms alike), zero-padded with ``v`` to ``MLA_PAD_HD`` and
+    taken as ``h`` KV heads of one query head each, at MLA's own
+    ``scale``; the output is sliced back to v's width ``(B, S, h, vd)``.
+    Exact: a zero column adds nothing to a score, the padded output
+    columns are zeros, and their gradients fall away at the slice."""
+    b, s, h, nope = q_nope.shape
+    rope, vd = q_pe.shape[-1], v.shape[-1]
+    zeros = lambda n: q_nope.new_zeros(()).expand(b, s, h, n)
+    pad = MLA_PAD_HD - nope - rope
+    q = torch.cat([q_nope, q_pe, zeros(pad)], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, rope),
+                   zeros(pad)], dim=-1)
+    v = torch.cat([v, zeros(MLA_PAD_HD - vd)], dim=-1)
+    out = ops.attention(q.reshape(b, s, h, 1, MLA_PAD_HD), k, v,
+                        scale=scale, causal=True)
+    return out[..., :vd]
+
+
+def mla_fwd(p, x: torch.Tensor, cfg: ArchConfig, *,
+            positions: torch.Tensor) -> tuple[torch.Tensor, MLACache]:
+    """Full-sequence MLA (training, prefill): the non-absorbed expansion
+    of the kv latent into per-head keys and values, then
+    :func:`mla_attention` on K2 at every length (the reference computes
+    the same function in einsums below ``cfg.attn_chunk_min_seq`` and by
+    chunks above it).  Returns the output and the ``MLACache`` (the normed
+    kv latent and the rotated shared key)."""
+    _, _, nope, rope, _ = MLA_DIMS
+    q_nope, q_pe, c_kv, k_pe = _mla_qkv(p, x, cfg, positions)
+    kv = _proj(c_kv, p["wkv_b"])                    # (B, S, h, nope + vd)
+    out = mla_attention(q_nope, q_pe, kv[..., :nope], k_pe, kv[..., nope:],
+                        (nope + rope) ** -0.5)
+    return _out_proj(out, p["wo"], x.dtype), MLACache(c_kv, k_pe)
+
+
+def mla_decode(p, x: torch.Tensor, cache: MLACache, pos: torch.Tensor,
+               cfg: ArchConfig) -> tuple[torch.Tensor, MLACache]:
+    """Absorbed one-token MLA decode over the latent cache.  x: (B, 1, d);
+    ``cache`` c_kv (B, cache_len, kv_rank), k_pe (B, cache_len, rope);
+    ``pos (B,)`` the new token's absolute positions on the device.  The
+    new latents are written at ``pos`` (a one-hot select); ``W_UK`` is
+    absorbed into the query and ``W_UV`` applied to the latent context by
+    ``ops.head_matmul`` on strided views of the stored ``wkv_b`` (K1's
+    head form: no per-step weight relayout).  The attention over the
+    latent cache is plain PyTorch, as the reference's is jnp.  Returns the
+    output and a new cache (the input cache is not written)."""
+    _, _, nope, rope, _ = MLA_DIMS
+    q_nope, q_pe, c_new, kpe_new = _mla_qkv(p, x, cfg, pos[:, None])
+    pos = pos.long()
+    c_kv = _cache_write(cache.c_kv, c_new, pos)
+    k_pe = _cache_write(cache.k_pe, kpe_new, pos)
+    q_lat = ops.head_matmul(q_nope, p["wkv_b"][..., :nope], transpose_b=True,
+                            out_dtype=x.dtype)      # (B, 1, h, kv_rank)
+    sc = torch.einsum("bshr,bkr->bhsk", q_lat.float(), c_kv.float())
+    sp = torch.einsum("bshr,bkr->bhsk", q_pe.float(), k_pe.float())
+    valid = torch.arange(c_kv.shape[1], device=x.device)[None, :] \
+        <= pos[:, None]
+    scores = torch.where(valid[:, None, None, :], (sc + sp) * (nope + rope)
+                         ** -0.5, MASK_NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhsk,bkr->bshr", w.float(), c_kv.float()).to(
+        x.dtype).contiguous()
+    out = ops.head_matmul(ctx, p["wkv_b"][..., nope:], out_dtype=x.dtype)
+    return _out_proj(out, p["wo"], x.dtype), MLACache(c_kv, k_pe)

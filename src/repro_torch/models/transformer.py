@@ -1,6 +1,7 @@
 """Decoder-LM assembly (``repro.models.transformer``) for the dense family
 with full attention (RMSNorm or LayerNorm, with or without biases,
-sequential or parallel blocks), the attention-free ssm (Mamba-2) family,
+sequential or parallel blocks) or MLA (multi-head latent attention,
+minicpm3-4b), the attention-free ssm (Mamba-2) family,
 the hybrid (RG-LRU + local attention) family and the moe family
 (deepseek: dense first layers, then attention + MoE FFN layers; llama4:
 groups of a ``layer_pattern`` of local (windowed) and full attention
@@ -8,7 +9,8 @@ layers, each with the MoE FFN).
 
 Parameters are a nested ``nn.ModuleDict`` of ``nn.ParameterDict``s with the
 reference's names and layouts — layer stacks keep their leading ``layers``
-axis (``layers.attn.wq`` is ``(L, d, h, hd)``, ``layers.mixer.w_in`` is
+axis (``layers.attn.wq`` is ``(L, d, h, hd)``, MLA's ``layers.attn.wkv_b``
+``(L, kv_rank, h, nope + vd)``, ``layers.mixer.w_in`` is
 ``(L, d, 2 d_inner + 2 n + h)``, ``embed.table`` is ``(V, d)``), the
 hybrid's groups their ``(groups, n_rec)`` / ``(groups, n_att)`` axes
 (``groups.rec.w_x`` is ``(g, n_rec, d, lru)``, ``groups.att.wq`` ``(g,
@@ -54,12 +56,13 @@ from repro_torch.models import moe, rglru, ssm
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        logits_from_hidden)
 
-DENSE, SSM, HYBRID, MOE = (("dense", "full"), ("ssm", "none"),
-                           ("hybrid", "full"), ("moe", "full"))
+DENSE, MLA, SSM, HYBRID, MOE = (("dense", "full"), ("dense", "mla"),
+                                ("ssm", "none"), ("hybrid", "full"),
+                                ("moe", "full"))
 
 
 def _check_family(cfg: ArchConfig, what: str,
-                  ported: tuple = (DENSE, SSM, HYBRID, MOE)) -> None:
+                  ported: tuple = (DENSE, MLA, SSM, HYBRID, MOE)) -> None:
     if (cfg.family, cfg.attention) not in ported:
         raise NotImplementedError(
             f"{what}: the port covers {' and '.join(map(str, ported))} as "
@@ -77,7 +80,24 @@ class Aux(NamedTuple):
     dropped: torch.Tensor
 
 
+def _mla_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
+    """The reference's ``init_mla`` tree: the q latent's down and up
+    projections and norm, the kv latent's (plus the shared rotary key),
+    and the output projection."""
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kvr, nope, rope, vd = attn.MLA_DIMS
+    return {"wq_a": (lead + (d, qr), d ** -0.5),
+            "q_norm": (lead + (qr,), "ones"),
+            "wq_b": (lead + (qr, h, nope + rope), qr ** -0.5),
+            "wkv_a": (lead + (d, kvr + rope), d ** -0.5),
+            "kv_norm": (lead + (kvr,), "ones"),
+            "wkv_b": (lead + (kvr, h, nope + vd), kvr ** -0.5),
+            "wo": (lead + (h, vd, d), (h * vd) ** -0.5)}
+
+
 def _attn_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
+    if cfg.attention == "mla":
+        return _mla_shapes(cfg, lead)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     shapes = {"wq": (lead + (d, h, hd), d ** -0.5),
               "wk": (lead + (d, kv, hd), d ** -0.5),
@@ -319,10 +339,14 @@ def _with_mlp(lp: dict, x: torch.Tensor, h: torch.Tensor,
 def _block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
            positions: torch.Tensor, want_cache: bool):
     """One pre-norm attention layer (dense, or the hybrid's local layer):
-    returns the new residual and its K/V."""
+    returns the new residual and its K/V (MLA: its ``MLACache``)."""
     h = apply_norm(lp["ln1"], x, cfg)
-    a_out, kv = attn.attention_fwd(lp["attn"], h, cfg, positions=positions,
-                                   window=cfg.local_window)
+    if cfg.attention == "mla":
+        a_out, kv = attn.mla_fwd(lp["attn"], h, cfg, positions=positions)
+    else:
+        a_out, kv = attn.attention_fwd(lp["attn"], h, cfg,
+                                       positions=positions,
+                                       window=cfg.local_window)
     return _with_mlp(lp, x, h, a_out, cfg), kv
 
 
@@ -414,8 +438,10 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     """Full-sequence forward: ``(hidden (B, S, d), cache)``, and the
     forward's :class:`Aux` as a third element when ``with_aux``.  The cache
     is the per-layer state stacked on the leading stack axes: K/V ``(L, B,
-    S, KV, hd)`` each (dense), an ``SSMCache`` of ``conv (L, B, W-1,
-    conv_dim)`` and ``state (L, B, H, p, N)`` (ssm), the moe family's
+    S, KV, hd)`` each (dense; MLA an ``MLACache`` of ``c_kv (L, B, S,
+    kv_rank)`` and ``k_pe (L, B, S, rope)``), an ``SSMCache`` of ``conv
+    (L, B, W-1, conv_dim)`` and ``state (L, B, H, p, N)`` (ssm), the moe
+    family's
     ``{"dense": KV (nd, ...), "moe": KV (L - nd, ...)}`` (with a
     ``layer_pattern``, K/V ``(g, len(pattern), B, S, KV, hd)``), or the
     hybrid's
@@ -492,7 +518,8 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
     """The contiguous decode cache, zeros.  The dense family's is
     ``{"layers": KV}``, k/v ``(L, B, cache_len, KV, hd)`` (with a
     ``local_window`` it is read as a RING of ``cache_len`` slots, as in the
-    reference); the ssm family's ``{"layers": SSMCache}`` stacked over the
+    reference), MLA's ``{"layers": MLACache}``, c_kv ``(L, B, cache_len,
+    kv_rank)`` and k_pe ``(L, B, cache_len, rope)``; the ssm family's ``{"layers": SSMCache}`` stacked over the
     layers (its size does not depend on ``cache_len``); the hybrid's
     ``{"rec": RGLRUCache (g, n_rec, ...), "att": KV (g, n_att, B, W, KV,
     hd), "tail": RGLRUCache (tail, ...)}``, the local layers' ring caches
@@ -508,6 +535,12 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                         device=resolve_device(device))
         return attn.KV(t, t.clone())
 
+    if cfg.family == "dense" and cfg.attention == "mla":
+        _, kvr, _, rope, _ = attn.MLA_DIMS
+        zeros = lambda n: torch.zeros((cfg.n_layers, batch, cache_len, n),
+                                      dtype=dtype,
+                                      device=resolve_device(device))
+        return {"layers": attn.MLACache(zeros(kvr), zeros(rope))}
     if cfg.family == "dense":
         return {"layers": kv(cfg.n_layers)}
     if cfg.family == "moe" and cfg.layer_pattern:
@@ -543,8 +576,9 @@ def has_prefill_decode_relayout(cfg: ArchConfig) -> bool:
 
 def prefill_cache_to_decode(cfg: ArchConfig, cache, cache_len: int) -> dict:
     """Re-lay a prefill cache as a decode cache: the dense family's K/V
-    ``(L, B, S, KV, hd)`` padded with zeros along the sequence to
-    ``cache_len`` (later positions stay masked until written); the ssm
+    ``(L, B, S, KV, hd)`` (MLA's ``MLACache``, ``(L, B, S, rank)`` each)
+    padded with zeros along the sequence to ``cache_len`` (later
+    positions stay masked until written); the ssm
     cache carries forward unchanged (the final state IS the decode state).
     The windowed dense and the hybrid families have no such re-layout in
     the reference (ring caches, grouped layers): they ingest their prompt
@@ -556,7 +590,7 @@ def prefill_cache_to_decode(cfg: ArchConfig, cache, cache_len: int) -> dict:
             "cache re-layout in the reference (src/repro/models/"
             "transformer.py:542-560 returns None); ingest the prompt token "
             "by token (greedy_generate)")
-    _check_family(cfg, "prefill_cache_to_decode", (DENSE, SSM))
+    _check_family(cfg, "prefill_cache_to_decode", (DENSE, MLA, SSM))
     if not has_prefill_decode_relayout(cfg):
         raise NotImplementedError(
             "prefill_cache_to_decode: windowed dense layers decode from "
@@ -565,8 +599,8 @@ def prefill_cache_to_decode(cfg: ArchConfig, cache, cache_len: int) -> dict:
     if cfg.family == "ssm":
         return {"layers": cache}
     pad = lambda t: torch.nn.functional.pad(
-        t, (0, 0, 0, 0, 0, cache_len - t.shape[2]))
-    return {"layers": attn.KV(pad(cache.k), pad(cache.v))}
+        t, (0, 0) * (t.dim() - 3) + (0, cache_len - t.shape[2]))
+    return {"layers": type(cache)(*(pad(t) for t in cache))}
 
 
 def _hybrid_decode_layer(kind: str, lp: dict, x: torch.Tensor, cache,
@@ -596,7 +630,9 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, pos,
     if cfg.family == "dense":
         for lp, c in zip(_layers(params), _cache_slices(cache["layers"], 1)):
             h = apply_norm(lp["ln1"], x, cfg)
-            if cfg.local_window:
+            if cfg.attention == "mla":
+                a_out, c = attn.mla_decode(lp["attn"], h, c, pos, cfg)
+            elif cfg.local_window:
                 a_out, c = attn.attention_decode_ring(lp["attn"], h, c, pos,
                                                       cfg)
             else:
@@ -663,12 +699,23 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, pos,
     return logits, new_cache
 
 
+def _check_paged(cfg: ArchConfig, what: str) -> None:
+    """The paged decode covers the dense family's K/V heads; MLA's latent
+    cache has no paged view, and the reference refuses it too
+    (``src/repro/models/transformer.py:568``, ``:586``, ``:627``)."""
+    if cfg.attention == "mla":
+        raise ValueError(f"{what}: paged pools cover dense GQA decode, not "
+                         f"family={cfg.family!r} attention="
+                         f"{cfg.attention!r}")
+    _check_family(cfg, what, (DENSE,))
+
+
 def init_paged_pools(cfg: ArchConfig, pool_tokens: int,
                      dtype=torch.float32, device="cuda") -> dict:
     """Per-layer stacked K/V slab pools ``(L, pool_tokens, KV, hd)`` for
     paged decode.  A sequence's cache is the view its page table describes
     (shared across layers: every layer writes the same positions)."""
-    _check_family(cfg, "init_paged_pools", (DENSE,))
+    _check_paged(cfg, "init_paged_pools")
     device = resolve_device(device)
     shape = (cfg.n_layers, pool_tokens, cfg.n_kv_heads, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -684,7 +731,7 @@ def decode_step_paged(params, cfg: ArchConfig, tokens: torch.Tensor,
     tokens/pos: (1,) on the device (pos int32); ``table``: (width,) int32
     view->slab map on the device.  The pools are updated IN PLACE.
     Returns logits (1, vocab)."""
-    _check_family(cfg, "decode_step_paged", (DENSE,))
+    _check_paged(cfg, "decode_step_paged")
     x = embed_tokens(params, tokens[:, None], cfg)
     for i, lp in enumerate(_layers(params)):
         h = apply_norm(lp["ln1"], x, cfg)
@@ -708,7 +755,7 @@ def decode_step_paged_batched(params, cfg: ArchConfig, tokens: torch.Tensor,
     ``tables``: (slots, width) int32 view->slab map on the device.  The
     pools are updated IN PLACE.  Returns logits (slots, vocab); dead rows
     are garbage the engine drops."""
-    _check_family(cfg, "decode_step_paged_batched", (DENSE,))
+    _check_paged(cfg, "decode_step_paged_batched")
     x = embed_tokens(params, tokens[:, None], cfg)
     for i, lp in enumerate(_layers(params)):
         h = apply_norm(lp["ln1"], x, cfg)

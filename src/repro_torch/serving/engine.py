@@ -23,7 +23,8 @@ Families without a paged view serve through contiguous per-slot caches,
 carried forward from each slot's prefill: the ssm family (Mamba-2: the conv
 tail and the SSD state) and dense models that are not paged-capable
 (multi-head attention, G = 1, e.g. stablelm-1.6b: their K/V padded to
-``max_len``).  Each slot decodes alone, one ``decode_step`` per slot, with
+``max_len``; MLA, e.g. minicpm3-4b: its latent cache padded alike).  Each
+slot decodes alone, one ``decode_step`` per slot, with
 the greedy argmax on the device and still ONE host transfer per iteration
 after every slot has launched; each slot's next input token stays on the
 device.  ``batched=False`` on a paged-capable model takes the same
@@ -74,8 +75,8 @@ class _Slot:
 
 
 def _paged_capable(cfg: ArchConfig) -> bool:
-    """The paged path covers dense GQA/MQA-grouped decode (g >= 2), as in
-    the reference."""
+    """The paged path covers dense GQA/MQA-grouped decode (g >= 2), not
+    MLA's latent cache, as in the reference."""
     return (cfg.family == "dense" and cfg.attention != "mla"
             and cfg.n_heads // cfg.n_kv_heads >= 2)
 
@@ -124,8 +125,8 @@ class ServeEngine:
             raise NotImplementedError(
                 f"family {cfg.family!r}/{cfg.attention!r} serves through "
                 f"contiguous per-slot caches, which the port has for the "
-                f"dense (full attention) and ssm families only (ROADMAP.md, "
-                f"Queue 1)")
+                f"dense (full attention, MLA) and ssm families only "
+                f"(ROADMAP.md, Queue 1)")
         if batched and not self.paged:
             raise ValueError(
                 f"batched decode needs the paged path; family "

@@ -6,10 +6,10 @@ batched greedy generation loop.
     out = greedy_generate(params, cfg, prompt, n_new, cache_len)
 
 ``greedy_generate`` ingests the prompt as the reference does for each
-family: the dense (full attention) and ssm families in one prefill whose
-cache is re-laid as the decode cache (``transformer.
-prefill_cache_to_decode``: the dense K/V padded to ``cache_len``, the ssm
-state as it is); the hybrid family, whose ring caches and grouped layers
+family: the dense (full attention, MLA) and ssm families in one prefill
+whose cache is re-laid as the decode cache (``transformer.
+prefill_cache_to_decode``: the dense K/V or MLA latents padded to
+``cache_len``, the ssm state as it is); the hybrid family, whose ring caches and grouped layers
 have no forward-layout equivalent, and the moe family, whose forward cache
 the reference does not re-lay either, token by token through
 ``decode_step``.

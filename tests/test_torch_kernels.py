@@ -60,6 +60,10 @@ MOE_FLASH_SHAPES = [(1, 2048, 16, 1, 128, 0)]
 #: ones); a ragged length with a window that cuts inside a key tile
 LLAMA4_FLASH_SHAPES = [(1, 2048, 8, 5, 128, 8192), (1, 2048, 8, 5, 128, 0),
                        (1, 300, 8, 5, 128, 100)]
+#: minicpm3-4b's MLA attention as K2-K4 take it: 40 KV heads of one query
+#: head each, its q.k (96) and v (64) widths zero-padded to 128; its
+#: chunked-branch length and a ragged one at B = 2
+MLA_FLASH_SHAPES = [(1, 4096, 40, 1, 128, 0), (2, 300, 40, 1, 128, 0)]
 
 
 @pytest.mark.h100
@@ -67,7 +71,7 @@ LLAMA4_FLASH_SHAPES = [(1, 2048, 8, 5, 128, 8192), (1, 2048, 8, 5, 128, 0),
                                         (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,s,kv,g,hd,window",
                          FLASH_SHAPES + DENSE_FLASH_SHAPES + MOE_FLASH_SHAPES
-                         + LLAMA4_FLASH_SHAPES)
+                         + LLAMA4_FLASH_SHAPES + MLA_FLASH_SHAPES)
 def test_flash_kernel_matches_plain(h100, dtype, atol, b, s, kv, g, hd,
                                     window):
     q, k, v, _ = _attn_case(h100, dtype, b, s, g, hd, 1, kv=kv)
@@ -365,6 +369,103 @@ def test_expert_gemm_routes_other_forms_to_k9(h100):
                                    ref.expert_gemm(x, w).abs().max().item())
 
 
+#: the rows of K1's head form at minicpm3-4b's decode (1-4 slots, and on
+#: to K1_DECODE_ROWS)
+HEAD_ROWS = [1, 2, 3, 4, 8, 16]
+
+
+def _mla_head_operands(dev, m, tb, seed=71):
+    """``(x, w)`` of one of minicpm3-4b's absorbed decode products, as
+    ``mla_decode`` passes them: strided views of one (256, 40, 128) bf16
+    ``wkv_b`` table, ``w_uk`` its first 64 columns (``transpose_b``: q_nope
+    (m, 1, 40, 64), itself the first 64 of 96 columns) or ``w_uv`` its last
+    64 (the latent context (m, 1, 40, 256))."""
+    gen = torch.Generator(device=dev).manual_seed(seed + m)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    table = (rnd(256, 40, 128) * 256 ** -0.5).to(_BF16)
+    if tb:
+        return rnd(m, 1, 40, 96).to(_BF16)[..., :64], table[..., :64]
+    return rnd(m, 1, 40, 256).to(_BF16), table[..., 64:]
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("tb", [True, False])
+@pytest.mark.parametrize("m", HEAD_ROWS)
+def test_head_form_matches_plain(h100, m, tb):
+    """``ops.head_matmul`` at minicpm3-4b's absorbed decode products runs
+    K1's head form (``ops.head_route`` "gemv"; one launch, no K9) on the
+    strided views of the stored table, and agrees with ``ref.head_gemm``
+    (f32 sums in another order: the 2-D K1 cases' tolerance); a rerun
+    gives the same bits (the k splits summed in order)."""
+    x, w = _mla_head_operands(h100, m, tb)
+    n = 256 if tb else 64
+    assert ops.head_aligned(x.reshape(m, 40, -1), w)
+    assert ops.head_route(40, m, x.shape[-1], n, _BF16, _BF16, tb) == "gemv"
+    got = ops.head_matmul(x, w, transpose_b=tb, out_dtype=torch.float32)
+    again = ops.head_matmul(x, w, transpose_b=tb, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 2 and ops.LAUNCHES["K9"] == 0
+    assert got.shape == (m, 1, 40, n) and torch.equal(got, again)
+    want = ref.head_gemm(x.reshape(m, 40, -1), w, tb).transpose(0, 1)
+    torch.testing.assert_close(got.reshape(m, 40, n), want, rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("case", ["rows", "f32", "unaligned"])
+def test_head_form_routes_refused_forms_to_k9(h100, case):
+    """A head form that K1 refuses (64 rows; f32 operands; a view whose
+    base is off 16 bytes) takes K9 (on row-major copies) and agrees with
+    ``ref.head_gemm``."""
+    m = 64 if case == "rows" else 4
+    x, w = _mla_head_operands(h100, m, True)
+    if case == "f32":
+        x, w = x.float(), w.float()
+    if case == "unaligned":
+        x = torch.cat([x, x[..., :1]], dim=-1)[..., 1:]
+    assert ops.head_route(40, m, 64, 256, x.dtype, w.dtype, True,
+                          ops.head_aligned(x.reshape(m, 40, 64), w)) == "K9"
+    got = ops.head_matmul(x, w, transpose_b=True, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 0 and ops.LAUNCHES["K9"] == 1
+    want = ref.head_gemm(x.reshape(m, 40, 64), w, True).transpose(0, 1)
+    torch.testing.assert_close(got.reshape(m, 40, 256), want, rtol=0,
+                               atol=K9_SUM_REL * 64 *
+                               want.abs().max().item())
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("s", [300, 4096])
+def test_mla_padded_attention_matches_plain(h100, s):
+    """minicpm3-4b's attention through ``attention.mla_attention`` (q''
+    and k'' of width 96 and v of 64 zero-padded to 128; one K2 launch
+    forward, K3 and K4 backward) against the same function on the plain
+    versions, in bf16: the output and the gradients of q_nope, q_pe,
+    k_nope, k_pe (summed over the heads) and v, each within 2e-2 of its
+    largest plain entry (the flash kernels' bf16 tolerance)."""
+    from repro_torch.models import attention
+    gen = torch.Generator(device=h100).manual_seed(s)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=h100
+                                     ).to(_BF16).requires_grad_(True)
+    ins = (rnd(1, s, 40, 64), rnd(1, s, 40, 32), rnd(1, s, 40, 64),
+           rnd(1, s, 32), rnd(1, s, 40, 64))
+    dout = torch.randn(1, s, 40, 64, generator=gen, device=h100).to(_BF16)
+    results = []
+    for plain in (False, True):
+        ctx = ops.reference_mode() if plain else torch.enable_grad()
+        with ctx:
+            out = attention.mla_attention(*ins, 96 ** -0.5)
+            grads = torch.autograd.grad(out, ins, dout)
+        results.append((out, *grads))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K2"] == ops.LAUNCHES["K3"] == \
+        ops.LAUNCHES["K4"] == 1
+    for got, want in zip(*results):
+        assert got.shape == want.shape and got.dtype == _BF16
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
 def _expert_vjp_plain(x, w, g):
     """The plain expert VJP forms: ``dx = g wᵀ``, ``dw = xᵀ g`` in f32."""
     return (ref.expert_gemm(g, w.transpose(1, 2)),
@@ -550,13 +651,15 @@ def test_flash_backward_kernels_match_plain(h100, dtype, rel, b, s, kv, g,
 @pytest.mark.h100
 @pytest.mark.parametrize("dtype,rel", [(_F32, 1e-4), (_BF16, 1e-2)])
 @pytest.mark.parametrize("b,s,kv,g,hd,window",
-                         DENSE_FLASH_SHAPES + MOE_FLASH_SHAPES)
+                         DENSE_FLASH_SHAPES + MOE_FLASH_SHAPES
+                         + MLA_FLASH_SHAPES)
 def test_flash_backward_kernels_match_plain_dense_family(h100, dtype, rel, b,
                                                          s, kv, g, hd,
                                                          window):
     """K3 and K4 at the rest of the dense family's shapes (G = 1 over 32
-    KV heads of 64; G = 12 over 8 of 128) and at deepseek-moe-16b's
-    training attention (G = 1 over 16 KV heads of 128), held as
+    KV heads of 64; G = 12 over 8 of 128), at deepseek-moe-16b's
+    training attention (G = 1 over 16 KV heads of 128) and at
+    minicpm3-4b's padded MLA attention (G = 1 over 40 of 128), held as
     ``test_flash_backward_kernels_match_plain`` holds its shapes; K4's
     rerun is the same bits, whatever its row split
     (``ops.dkv_splits``)."""
