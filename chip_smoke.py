@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eighteen phases; any failure exits non-zero before the result line:
+Twenty-two phases; any failure exits non-zero before the result line:
 
 1. device   the card's name, power limit and compute capability (9, 0).
 2. build    nvcc builds every kernel under src/repro_torch/kernels/csrc/
@@ -54,7 +54,17 @@ Eighteen phases; any failure exits non-zero before the result line:
             minicpm3-4b's MLA attention (B=1 S=4096, 40 KV heads of one
             query head, q.k 96 and v 64 zero-padded to 128), SDPA on the
             unpadded tensors the library row, the unpadded work's bound
-            beside the padded one's.
+            beside the padded one's.  K2-K4's prefix-LM form at
+            paligemma-3b's prefill (B=1 S=4096, one KV head of 256 under
+            8 query heads, prefix 256; K2 alone and with export, K3, K4)
+            and training microbatch (B=1, 256 + 768 positions), and in
+            f32 at a ragged shape (S=1000, prefix 100), SDPA with the
+            boolean mask the library row; their bidirectional form at
+            whisper-base's encoder (B=4, 1500 frames, 8 KV heads of 64)
+            and cross-attention (448 rows over 1500), SDPA without a
+            mask; K1 at paligemma's adapter and 257216-row head (and its
+            VJP forms), and at whisper's products and 51865-row head,
+            whose VJP forms take K1's first FMA kernels.
 4. path     gemma-2b at full width (18 layers, bf16, random weights from a
             seeded generator) served by ServeEngine(max_slots=4,
             max_len=512) over 6 requests; every kernel of the path must
@@ -193,6 +203,35 @@ Eighteen phases; any failure exits non-zero before the result line:
             steps at B=2 S=4096 in 2 microbatches, remat on (K1, K2-K4 on
             the padded attention, derived counts), step 3 under sync debug
             "error", peak memory, a profiled step.
+19. vlm_path paligemma-3b at full width and depth (18 layers, 2.509 B
+            seeded parameters): make_prefill B=1 over 256 patches + 3840
+            tokens (K1 6L+2, K2 L, every K2 launch with prefix 256, read
+            from the kernel's own arguments) against its bound; patches
+            0 and 1 swapped must move position 0's hidden state (the
+            prefix is live); the prefill's logits and K/V and a decode
+            step against the plain path (f32 at full depth, bf16 beside
+            the plain bf16 witness); greedy_generate B=2, 64 + 16 token
+            by token (the reference's path); a decode step under sync
+            debug "error" against every weight byte; profiles.
+20. vlm_train paligemma-3b at full width and depth: step 1's first
+            microbatch against the plain path (f32 and bf16), 3 AdamW
+            steps at B=2 of 256 patches + 768 tokens in 2 microbatches,
+            remat on (K1 24L+5 a microbatch, K2-K4 with prefix 256),
+            step 3 under sync debug "error", peak memory, a profile.
+21. encdec_path whisper-base at full width and depth (6 + 6 layers, 67.4
+            M): make_prefill B=4 over 1500 frames + 64 tokens (K1
+            6E+12L+2; K2 bidirectional in the encoder and the
+            cross-attention, causal in the decoder), 64 make_decode
+            steps from init_cache with the prefill's cross K/V,
+            greedy_generate B=4, 8 + 32, the prefill's logits, self and
+            cross K/V and a decode step against the plain path (f32 and
+            bf16), a decode step under sync debug "error", profiles.
+22. encdec_train whisper-base: step 1's first microbatch against the
+            plain path (the key biases' vanishing gradients held against
+            their value biases'), 3 AdamW steps at B=8 of 1500 frames +
+            448 tokens in 4 microbatches (K1 24E+40L+5 a microbatch,
+            K2-K4 bidirectional and causal as derived), step 3 under
+            sync debug "error", peak memory, a profile.
 
 Each path phase resets the peak memory statistics before it runs.  The
 last two lines before the final one are the kernels' JSON record and
@@ -330,6 +369,20 @@ MLA_S = 4096
 MLA_HEAD_ROWS = (1, 2, 4)
 MLA_WIDTHS = (96, 64)
 MLA_TRAIN_LAYERS, MLA_TRAIN_B, MLA_TRAIN_MB = 24, 2, 2
+#: paligemma-3b (vlm): the prefill is the reference's 4k budget, its 256
+#: patches and the text behind them (src/repro/models/registry.py:81,
+#: :88-91); the training batch: 2 sequences of 256 patches + 768 text
+#: tokens (1024 positions) in 2 microbatches
+VLM_S = 4096
+VLM_TRAIN_B, VLM_TRAIN_TEXT, VLM_TRAIN_MB = 2, 768, 2
+#: whisper-base (enc-dec): make_prefill at B=4 over its 1500 frames with
+#: a 64-token decoder prompt; 64 make_decode steps from position 0 over
+#: init_cache(4, 448) (448: its decoder context) holding the prefill's
+#: cross K/V; greedy_generate at B=4, 8 + 32 tokens; training B=8 of 1500
+#: frames and 448 tokens in its 4 microbatches (cfg.train_microbatches)
+ENC_B, ENC_PROMPT, ENC_DECODE, ENC_CACHE = 4, 64, 64, 448
+ENC_GEN_PROMPT, ENC_GEN_NEW = 8, 32
+ENC_TRAIN_B, ENC_TRAIN_S = 8, 448
 
 
 def fail(msg: str) -> None:
@@ -617,7 +670,62 @@ def phase_kernels(torch):
     _attention_training_cases(torch, rec, gen, torch.bfloat16, "bfloat16",
                               2, b=1, s=MLA_S, g=1, kv=40, hd=128,
                               native=MLA_WIDTHS)
+    _vlm_encdec_cases(torch, rec, gen)
     return rec
+
+
+def _vlm_encdec_cases(torch, rec, gen):
+    """K2-K4's prefix-LM form at paligemma-3b's shapes (one KV head of 256
+    under 8 query heads, 256 patches): the prefill's K2 at S=4096, K2
+    (export), K3, K4 there and at a training microbatch (B=1, 256 + 768
+    positions), and an f32 case at a ragged shape (S=1000, prefix 100: no
+    multiple of any tile, past the 64-key tile).  The bidirectional form
+    at whisper-base's encoder (B=4, 1500 frames, 8 KV heads of 64, G = 1)
+    and cross-attention (448 decoder rows over 1500 encoder rows), SDPA
+    without a mask the library row.  K1 at paligemma's adapter and tied
+    257216-row head (with its training VJP forms), and at whisper's
+    products and its tied 51865-row head with the VJP forms: the f32
+    cotangent's stored row of 51865 (no multiple of 8) takes K1's first
+    FMA kernels."""
+    from repro_torch.configs import paligemma_3b, whisper_base
+    bf, f32 = torch.bfloat16, torch.float32
+    vcfg, wcfg = paligemma_3b.full(), whisper_base.full()
+    p, d, hd = vcfg.num_patches, vcfg.d_model, vcfg.head_dim_
+    heads = dict(kv=vcfg.n_kv_heads, g=vcfg.n_heads // vcfg.n_kv_heads,
+                 hd=hd)
+    _prefill_attention_case(torch, rec, gen, bf, VLM_S, prefix=p, **heads)
+    for s in (VLM_S, p + VLM_TRAIN_TEXT):
+        _attention_training_cases(torch, rec, gen, bf, "bfloat16", 2, b=1,
+                                  s=s, prefix=p, **heads)
+    _attention_training_cases(torch, rec, gen, f32, "float32", 4, b=1,
+                              s=1000, g=8, kv=1, hd=256, prefix=100)
+    enc, wd, mb = wcfg.encoder_seq, wcfg.d_model, wcfg.train_microbatches
+    wheads = dict(kv=wcfg.n_kv_heads, g=wcfg.n_heads // wcfg.n_kv_heads,
+                  hd=wcfg.head_dim_)
+    for sq in (enc, ENC_TRAIN_S):
+        _prefill_attention_case(torch, rec, gen, bf, sq, b=ENC_B,
+                                causal=False, sk=enc, **wheads)
+        _attention_training_cases(torch, rec, gen, bf, "bfloat16", 2,
+                                  b=ENC_B, s=sq, causal=False, sk=enc,
+                                  **wheads)
+    _gemm_forms(torch, rec, gen, "K1 paligemma serve",
+                [("fwd adapter", (p, d), bf, (d, d), bf, False, False),
+                 ("fwd head", (2, d), bf, (vcfg.vocab_size, d), bf, False,
+                  True)])
+    _gemm_training_cases(torch, rec, gen, "paligemma ", VLM_TRAIN_TEXT, (),
+                         (d, vcfg.vocab_size))
+    wf = wcfg.d_ff
+    _gemm_forms(torch, rec, gen, "K1 whisper serve",
+                [("fwd adapter", (ENC_B * enc, wd), bf, (wd, wd), bf, False,
+                  False),
+                 ("fwd mlp", (ENC_B * enc, wd), bf, (wd, wf), bf, False,
+                  False),
+                 ("fwd head", (ENC_B, wd), bf, (wcfg.vocab_size, wd), bf,
+                  False, True)])
+    _gemm_training_cases(torch, rec, gen, "whisper ",
+                         ENC_TRAIN_B // mb * ENC_TRAIN_S,
+                         ((wd, wd), (wd, wf), (wf, wd)),
+                         (wd, wcfg.vocab_size))
 
 
 def _router_cases(torch, rec, gen):
@@ -829,35 +937,59 @@ def _padded(torch, native, q, k, v, do=None):
             heads(v)[..., :vd].contiguous())
 
 
+def _mask_form(ref, s, sk, causal, window, prefix):
+    """``(visible pairs of one (batch, query head), SDPA's boolean mask or
+    None, its is_causal, the case's tag)`` of a K2-K4 mask: causal (and
+    windowed, or with a prefix-LM prefix: counted from the mask itself,
+    the pairs this run's kernels must visit) or bidirectional over ``sk``
+    keys."""
+    if not causal:
+        return s * sk, None, False, f"bidirectional Sk={sk}"
+    if prefix:
+        mask = ref._mask(s, s, True, window, "cuda", prefix)
+        tag = (f"window={window} " if window else "") + f"prefix={prefix}"
+        return int(mask.sum()), mask, False, tag
+    mask = ref._mask(s, s, True, window, "cuda") if 0 < window < s else None
+    return (_pairs(s, window), mask, mask is None,
+            f"window={window}" if window else "causal")
+
+
 def _prefill_attention_case(torch, rec, gen, dt, s, kv, g, hd, b=1,
-                            window=0, native=None):
-    """K2 without its export (the prefill's form), causal (and windowed by
-    ``window``), at ``kv`` KV heads of ``hd`` under ``g`` query heads
-    each, against SDPA (a window that cuts as a boolean mask, else
-    ``is_causal``), with its CUDA-graph time and a rerun for the same
-    bits.  ``native`` ``(qk, vd)``: the inputs zero-padded from those
-    widths (MLA), SDPA timed on the unpadded tensors, and the bound of the
-    unpadded work printed beside the padded one's."""
+                            window=0, native=None, prefix=0, causal=True,
+                            sk=None):
+    """K2 without its export (the prefill's form), causal (windowed by
+    ``window``, or with the prefix-LM's ``prefix``) or bidirectional
+    (``causal=False``, over ``sk`` keys: the encoder's and the
+    cross-attention's form), at ``kv`` KV heads of ``hd`` under ``g``
+    query heads each, against SDPA (a window that cuts or a prefix as a
+    boolean mask, else ``is_causal`` or no mask), with its CUDA-graph time
+    and a rerun for the same bits.  ``native`` ``(qk, vd)``: the inputs
+    zero-padded from those widths (MLA), SDPA timed on the unpadded
+    tensors, and the bound of the unpadded work printed beside the padded
+    one's."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     dname = str(dt).removeprefix("torch.")
     es = torch.tensor([], dtype=dt).element_size()
+    sk = sk or s
     randn = lambda *shape: torch.randn(*shape, generator=gen,
                                        device="cuda").to(dt)
-    q, k, v = randn(b, s, kv, g, hd), randn(b, s, kv, hd), randn(b, s, kv,
-                                                                 hd)
+    q, k, v = randn(b, s, kv, g, hd), randn(b, sk, kv, hd), randn(b, sk, kv,
+                                                                  hd)
     qs = q.reshape(b, s, kv * g, hd).transpose(1, 2)
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
     unpadded = _padded(torch, native, q, k, v)
     if unpadded:
         qs, ks, vs = unpadded
     args = dict(scale=(native[0] if native else hd) ** -0.5, window=window)
-    mask = ref._mask(s, s, True, window, "cuda") if 0 < window < s else None
+    if prefix or not causal:
+        args.update(prefix_len=prefix, causal=causal)
+    visible, mask, is_causal, tag = _mask_form(ref, s, sk, causal,
+                                               window, prefix)
     call = lambda: ops.attention(q, k, v, **args)
-    shape = (f"K2 {dname} B={b} S={s} KV={kv} G={g} hd={hd} "
-             + (f"window={window}" if window else "causal")
+    shape = (f"K2 {dname} B={b} S={s} KV={kv} G={g} hd={hd} {tag}"
              + (f" padded from {native}" if native else ""))
-    pairs = b * kv * g * _pairs(s, window)
+    pairs = b * kv * g * visible
     extra = {"graph_ms": graph_ms(torch, call)}
     if native:
         qk, vd = native
@@ -867,9 +999,9 @@ def _prefill_attention_case(torch, rec, gen, dt, s, kv, g, hd, b=1,
     _case(torch, rec, "K2", dname, ("K2", dname), call,
           lambda: ref.attention(q, k, v, **args),
           lambda: F.scaled_dot_product_attention(
-              qs, ks, vs, attn_mask=mask, is_causal=mask is None,
+              qs, ks, vs, attn_mask=mask, is_causal=is_causal,
               enable_gqa=True),
-          4.0 * pairs * hd, (b * s * g * 2 + 2 * b * s) * kv * hd * es,
+          4.0 * pairs * hd, (b * s * g * 2 + 2 * b * sk) * kv * hd * es,
           shape, extra)
     _rerun_equal(torch, call, shape)
 
@@ -1027,37 +1159,42 @@ def _pairs(s: int, window: int = 0) -> int:
 
 def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
                               s=TRAIN_S, g=8, window=0, kv=1, hd=256,
-                              native=None):
+                              native=None, prefix=0, causal=True, sk=None):
     """K2 with its (m, l) export, then K3 and K4, at a training shape (by
     default gemma-2b's: q (2, 512, 1, 8, 256), k/v (2, 512, 1, 256),
     m/l/delta (2, 1, 8, 512)); with a ``window``, K2 without the export
-    too (the prefill's form).  The library yardstick of K3 and K4 is one
-    pair: the backward alone of SDPA (enable_gqa, the window as a boolean
-    mask) through torch.autograd.grad.  Each row also prints its CUDA-graph
-    time, and each kernel is rerun for the same bits.  ``native`` ``(qk,
-    vd)``: the inputs zero-padded from those widths (MLA's, at its own
-    scale), SDPA timed on the unpadded tensors, and the bound of the
-    unpadded work printed beside each padded row's."""
+    too (the prefill's form).  ``prefix``: the prefix-LM mask;
+    ``causal=False``: bidirectional over ``sk`` keys.  The library
+    yardstick of K3 and K4 is one pair: the backward alone of SDPA
+    (enable_gqa, a window or a prefix as a boolean mask) through
+    torch.autograd.grad.  Each row also prints its CUDA-graph time, and
+    each kernel is rerun for the same bits.  ``native`` ``(qk, vd)``: the
+    inputs zero-padded from those widths (MLA's, at its own scale), SDPA
+    timed on the unpadded tensors, and the bound of the unpadded work
+    printed beside each padded row's."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     scale = (native[0] if native else hd) ** -0.5
+    sk = sk or s
     randn = lambda *shape: torch.randn(*shape, generator=gen,
                                        device="cuda").to(dt)
-    q, k, v, do = (randn(b, s, kv, g, hd), randn(b, s, kv, hd),
-                   randn(b, s, kv, hd), randn(b, s, kv, g, hd))
-    pairs = b * kv * g * _pairs(s, window)
-    qkv_bytes = (2 * b * s * g + 2 * b * s) * kv * hd * es
+    q, k, v, do = (randn(b, s, kv, g, hd), randn(b, sk, kv, hd),
+                   randn(b, sk, kv, hd), randn(b, s, kv, g, hd))
+    visible, mask, is_causal, tag = _mask_form(ref, s, sk, causal,
+                                               window, prefix)
+    pairs = b * kv * g * visible
+    qkv_bytes = (2 * b * s * g + 2 * b * sk) * kv * hd * es
     stat_bytes = b * kv * g * s * 4
-    args = dict(scale=scale, causal=True, window=window)
+    args = dict(scale=scale, causal=causal, window=window)
+    if prefix:
+        args["prefix_len"] = prefix
     qs = q.reshape(b, s, kv * g, hd).transpose(1, 2)
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
     unpadded = _padded(torch, native, q, k, v, do)
     if unpadded:
         qs, ks, vs = unpadded
-    mask = ref._mask(s, s, True, window, "cuda") if 0 < window < s else None
     sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(
-        q_, k_, v_, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
-    tag = f"window={window}" if window else "causal"
+        q_, k_, v_, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
     shape = f"B={b} S={s} KV={kv} G={g} hd={hd} {tag}" + (
         f" padded from {native}" if native else "")
 
@@ -1069,8 +1206,8 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
 
     # the unpadded widths' work: (q.k, v) widths and their bytes
     qk, vd = native or (hd, hd)
-    rows = b * s * kv
-    nat = dict(q=rows * g * qk * es, k=rows * qk * es, v=rows * vd * es,
+    rows, krows = b * s * kv, b * sk * kv
+    nat = dict(q=rows * g * qk * es, k=krows * qk * es, v=krows * vd * es,
                o=rows * g * vd * es)
     fwd_flops = 2.0 * pairs * (qk + vd)
     fwd_bytes = nat["q"] + nat["k"] + nat["v"] + nat["o"]
@@ -1079,14 +1216,14 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
         _case(torch, rec, "K2", dname, ("K2", dname), fwd,
               lambda: ref.attention(q, k, v, **args),
               lambda: sdpa(qs, ks, vs), 4.0 * pairs * hd,
-              (b * s * g * 2 + 2 * b * s) * kv * hd * es,
+              (b * s * g * 2 + 2 * b * sk) * kv * hd * es,
               f"K2 {dname} {shape}", graph(fwd, fwd_flops, fwd_bytes))
         _rerun_equal(torch, fwd, f"K2 {dname} {shape}")
     export = lambda: ops.attention_stats(q, k, v, **args)
     _case(torch, rec, "K2", dname, ("K2", dname), export,
           lambda: ref.attention_stats(q, k, v, **args),
           lambda: sdpa(qs, ks, vs),
-          4.0 * pairs * hd, (b * s * g * 2 + 2 * b * s) * kv * hd * es
+          4.0 * pairs * hd, (b * s * g * 2 + 2 * b * sk) * kv * hd * es
           + 2 * stat_bytes, f"K2 {dname} {shape} export",
           graph(export, fwd_flops, fwd_bytes + 2 * stat_bytes))
     _rerun_equal(torch, export, f"K2 {dname} {shape} export")
@@ -1111,12 +1248,12 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
           + b * s * kv * g * hd * es, f"K3 {dname} {shape}",
           graph(dq, 2.0 * pairs * (2 * qk + vd), bwd_bytes + nat["q"]))
     _rerun_equal(torch, dq, f"K3 {dname} {shape}")
-    nsplit = ops.dkv_splits(b, s, s, kv, g, True, window)
+    nsplit = ops.dkv_splits(b, s, sk, kv, g, causal, window, prefix)
     _case(torch, rec, "K4", dname, ("K4", dname),
           lambda: ops.flash_dkv(*bwd, **args),
           lambda: ref.flash_dkv(*bwd, **args), sdpa_bwd,
           2.0 * 4 * pairs * hd, qkv_bytes + 3 * stat_bytes
-          + 2 * b * s * kv * hd * es, f"K4 {dname} {shape}",
+          + 2 * b * sk * kv * hd * es, f"K4 {dname} {shape}",
           {"path": "tc" if dt == torch.bfloat16 else "fma",
            "row_splits": nsplit if dt == torch.bfloat16 else 1,
            **graph(lambda: ops.flash_dkv(*bwd, **args),
@@ -1216,6 +1353,12 @@ def _gemm_forms(torch, rec, gen, prefix, forms):
             f_elems = (a if adt == f32 else b).numel()
             bnd = bound(3 * 2.0 * m * n * k, nbytes + 12 * f_elems,
                         "bfloat16")
+            extra["fma_bound_ms"] = bound(2.0 * m * n * k, nbytes,
+                                          "float32")[0]
+        elif mixed:
+            # a mixed product on the first FMA kernels (an unaligned
+            # stored row): the f32 FMA bound of its exact product beside
+            # the bf16 one
             extra["fma_bound_ms"] = bound(2.0 * m * n * k, nbytes,
                                           "float32")[0]
         peak = "float32" if adt == bdt == f32 else "bfloat16"
@@ -1825,12 +1968,17 @@ def phase_stablelm_path(torch, card):
     return launches
 
 
-def _dense_grad_agreement(torch, tag, cfg, params, batch):
+def _dense_grad_agreement(torch, tag, cfg, params, batch, vanishing=None):
     """Step 1's loss and gradients through the kernels against the plain
     versions, in f32 (the same weights, exact in f32) and in bf16, each
     held as ``[train]`` holds gemma-2b's bf16 step: the loss within
     LOSS_TOL, each gradient leaf within GRAD_TOL in relative norm.
-    Returns the bf16 kernels' loss."""
+    ``vanishing`` maps a leaf whose gradient is zero in exact arithmetic
+    (an attention's key bias: the softmax cancels a shift of a row's
+    scores, so both paths' gradients are rounding noise) to a sibling
+    leaf, and its error is taken relative to that sibling's gradient
+    norm.  Returns the bf16 kernels' loss."""
+    vanishing = vanishing or {}
     from repro_torch.kernels import ops
     from repro_torch.train import train_step as ts
     for dtype in ("float32", "bfloat16"):
@@ -1851,9 +1999,17 @@ def _dense_grad_agreement(torch, tag, cfg, params, batch):
             require(bool(torch.isfinite(gk[name]).all()),
                     f"{name}: non-finite {dtype} grad")
             rel = _rel(torch, gk[name], gp[name], norm=True)
+            note = ""
+            if name in vanishing:
+                sib = gp[vanishing[name]].float().norm()
+                rel = ((gk[name].float() - gp[name].float()).norm()
+                       / sib).item()
+                own = gp[name].float().norm().item() / sib.item()
+                note = (f" (of ||grad {vanishing[name]}||; its own plain "
+                        f"norm {own:.3e} of that)")
             worst = max(worst, rel)
             print(f"[{tag}]   {dtype} grad {name} {tuple(gk[name].shape)}: "
-                  f"rel norm err {rel:.3e}", flush=True)
+                  f"rel norm err {rel:.3e}{note}", flush=True)
             require(rel <= GRAD_TOL, f"{name}: {dtype} gradient disagrees "
                     f"with plain")
         print(f"[{tag}] {dtype} step-1 gradients vs plain: worst rel norm "
@@ -3730,29 +3886,20 @@ def _mla_agreement(torch, cfg, params, tokens, cache_len):
     K1 head form); bf16 kernels against the f32 plain path beside the
     plain bf16 path's own distance from it (the witness), as the hybrid's
     ``_hybrid_agreement``."""
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer
-    cf, pf = cfg.with_(dtype="float32"), _f32_copy(params)
     n = tokens.shape[1]
     pos = torch.full((1,), n, dtype=torch.int32, device="cuda")
-    out = {}
-    for c, prm in ((cf, pf), (cfg, params)):
-        for plain in (False, True):
-            with _plain_if(ops, plain):
-                lg, fc = transformer.prefill(prm, c, tokens)
-                dec, dc = transformer.decode_step(
-                    prm, c, tokens[:, -1], pos,
-                    transformer.prefill_cache_to_decode(c, fc, cache_len))
-            require(bool(torch.isfinite(lg).all() and torch.isfinite(dec)
-                         .all()), f"{c.dtype} logits not finite")
-            out[c.dtype, plain] = {
-                "prefill logits": lg, "c_kv": fc.c_kv, "k_pe": fc.k_pe,
-                "decode logits": dec, "decode c_kv": dc["layers"].c_kv[
-                    :, :, n]}
-            del fc, dc
-    del pf
-    _f32_witness(torch, "mla_path", out, f"{n}-token prefill, decode at "
-                 f"position {n}")
+
+    def run(c, prm):
+        lg, fc = transformer.prefill(prm, c, tokens)
+        dec, dc = transformer.decode_step(
+            prm, c, tokens[:, -1], pos,
+            transformer.prefill_cache_to_decode(c, fc, cache_len))
+        return {"prefill logits": lg, "c_kv": fc.c_kv, "k_pe": fc.k_pe,
+                "decode logits": dec,
+                "decode c_kv": dc["layers"].c_kv[:, :, n]}
+    _witness(torch, "mla_path", cfg, params, run, f"{n}-token prefill, "
+             f"decode at position {n}")
 
 
 def phase_mla_path(torch, card):
@@ -3985,6 +4132,613 @@ def phase_mla_train(torch, card):
 
 
 
+def _mask_spy(record):
+    """``ops._launch`` wrapped to record ``(entry, causal, window,
+    prefix)`` of every K2-K4 launch: the mask arguments the kernels
+    receive."""
+    from repro_torch.kernels import ops
+    orig = ops._launch
+
+    def wrapped(name, *args):
+        if name.startswith("repro_flash"):
+            i = ops._SIGNATURES[name][1].index(ops._F)
+            record.append((name, *args[i + 1:i + 4]))
+        return orig(name, *args)
+    return _patched(ops, "_launch", wrapped)
+
+
+def _mask_counts(record) -> dict:
+    """``{(kernel, "causal" / "bidirectional", window, prefix): launches}``
+    of a ``_mask_spy`` record."""
+    names = {"repro_flash_fwd": "K2", "repro_flash_dq": "K3",
+             "repro_flash_dkv": "K4"}
+    out = {}
+    for name, causal, window, prefix in record:
+        key = (names[name], "causal" if causal else "bidirectional",
+               window, prefix)
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _witness(torch, tag, cfg, params, run, setting):
+    """``run(cfg, params)`` (a dict of output tensors) through the kernels
+    and the plain versions, in the served bf16 and on its weights in f32:
+    held by ``_f32_witness``."""
+    from repro_torch.kernels import ops
+    cf, pf = cfg.with_(dtype="float32"), _f32_copy(params)
+    out = {}
+    for c, prm in ((cf, pf), (cfg, params)):
+        for plain in (False, True):
+            with _plain_if(ops, plain):
+                got = run(c, prm)
+            require(all(bool(torch.isfinite(t).all()) for t in got.values()),
+                    f"{tag}: {c.dtype} outputs not finite")
+            out[c.dtype, plain] = got
+    del pf
+    _f32_witness(torch, tag, out, setting)
+
+
+def _sync_free(torch, tag, step) -> None:
+    """One call of ``step`` under sync debug mode "error"."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"[{tag}] decode step ran with no host sync (sync debug mode "
+          f"'error')", flush=True)
+
+
+def _timed(torch, fn):
+    """``(fn's result, its ms by CUDA events)``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _vlm_counts(cfg):
+    """``(K1 launches of one prefill, of one decode step, of one training
+    microbatch)``: 6 products a layer (q, k, v, o, the MLP's two), the
+    adapter's one (prefill) and the head.  A microbatch: the forward's
+    6L + 2, the layers' 6L again under remat, two VJP products each but
+    the adapter's one (the patches take no gradient): 24L + 5."""
+    L = cfg.n_layers
+    return 6 * L + 2, 6 * L + 1, 24 * L + 5
+
+
+def _vlm_batch(torch, cfg, b, text, seed):
+    """A seeded batch of ``b`` rows: ``text`` tokens behind the f32 stub
+    patches ``(b, P, d)``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, text),
+                                    generator=gen, device="cuda"),
+            "patches": torch.randn(b, cfg.num_patches, cfg.d_model,
+                                   generator=gen, device="cuda")}
+
+
+def _mm_params(params, names) -> int:
+    """The parameters a row multiplies: the leaves ending in ``names``."""
+    return sum(p.numel() for n, p in params.named_parameters()
+               if n.endswith(names))
+
+
+def phase_vlm_path(torch, card):
+    """paligemma-3b at full width and depth: make_prefill B=1 over its 256
+    patches and 3840 text tokens (K2 with the prefix-LM's prefix 256 in
+    every layer), the patch swap, greedy_generate on the reference's
+    token-by-token path, the agreement with the plain path, a decode step
+    under sync debug "error", profiles."""
+    import numpy as np
+    from repro_torch.configs import paligemma_3b
+    from repro_torch.hardware import H100_PEAK_FLOPS
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry, transformer
+    from repro_torch.train import serve_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = phase_t0 = time.perf_counter()
+    cfg, params = _model(torch, paligemma_3b)
+    torch.cuda.synchronize()
+    L, V, d, P = cfg.n_layers, cfg.vocab_size, cfg.d_model, cfg.num_patches
+    text = VLM_S - P
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"[vlm_path] paligemma-3b full width and depth ({L} layers, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV head of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff} GeGLU, tied vocab {V}, "
+          f"{P} stub patches): {n_params / 1e9:.3f} B params bf16 "
+          f"({w_bytes / 1e9:.3f} GB; param_count {cfg.param_count()[0]:,}), "
+          f"init {time.perf_counter() - t0:.1f} s", flush=True)
+    batch = _vlm_batch(torch, cfg, 1, text, 0)
+    k1_fwd, k1_step, _ = _vlm_counts(cfg)
+    prefill = serve_step.make_prefill(cfg)
+    masks = []
+    with torch.inference_mode():
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with _mask_spy(masks):
+            (logits, cache), prefill_ms = _timed(
+                torch, lambda: prefill(params, batch))
+        launches_p = dict(ops.LAUNCHES)
+        require(tuple(logits.shape) == (1, V) and
+                bool(torch.isfinite(logits).all()), "prefill logits")
+        require(tuple(cache.k.shape) == (L, 1, VLM_S, 1, cfg.head_dim),
+                "prefill K/V shapes")
+        del cache
+        want = _zero_launches(K1=k1_fwd, K2=L)
+        print(f"[vlm_path] make_prefill B=1, {P} patches + {text} tokens "
+              f"= {VLM_S} positions: {prefill_ms:.3f} ms "
+              f"({VLM_S / prefill_ms * 1e3:.1f} positions/s); launches "
+              f"{launches_p} (derived {want}); K2 masks "
+              f"{_mask_counts(masks)}", flush=True)
+        require(launches_p == want, "prefill launches differ from the "
+                "derived counts")
+        require(_mask_counts(masks) == {("K2", "causal", 0, P): L},
+                f"every layer's K2 must take the prefix {P}")
+        pairs = VLM_S * (VLM_S + 1) // 2 + P * (P - 1) // 2
+        mm = _mm_params(params, ("wq", "wk", "wv", "wo", "wi"))
+        att = 4.0 * L * cfg.n_heads * pairs * cfg.head_dim
+        flops = 2.0 * VLM_S * mm + 2.0 * P * d * d + 2.0 * V * d + att
+        print(f"[vlm_path] prefill bound: {flops / 1e12:.3f} TFLOP at 989 "
+              f"TFLOP/s = {flops / H100_PEAK_FLOPS['bfloat16'] * 1e3:.3f} ms "
+              f"(products {(flops - att) / 1e12:.3f} TFLOP; prefix-LM "
+              f"attention {att / 1e12:.3f} TFLOP over {pairs:,} visible "
+              f"pairs a head, {P * (P - 1) // 2:,} of them the prefix's "
+              f"above the diagonal); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"({card})", flush=True)
+
+        # the prefix is live on the kernel path: position 0 sees patch 1
+        order = [1, 0] + list(range(2, P))
+        h = [transformer.forward(params, cfg, batch["tokens"],
+                                 want_cache=False, patches=pt)[0][:, 0]
+             for pt in (batch["patches"], batch["patches"][:, order])]
+        diff = (h[0].float() - h[1].float()).abs().max().item()
+        scale = h[0].float().abs().max().item()
+        print(f"[vlm_path] patches 0 and 1 swapped: position 0's hidden "
+              f"state moves by {diff:.4e} (max|h| {scale:.4e}; a causal "
+              f"mask would leave it unchanged)", flush=True)
+        require(diff > 1e-3 * scale, "swapping patches 0 and 1 must move "
+                "position 0 (the prefix attends both ways)")
+        del h
+        torch.cuda.empty_cache()
+
+        pos0 = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+        def run(c, prm):
+            lg, fc = registry.prefill(prm, c, batch)
+            dt = getattr(torch, str(c.dtype))
+            dec, _ = registry.decode_step(
+                prm, c, batch["tokens"][:, 0], pos0,
+                registry.init_cache(c, 1, 16, dtype=dt, device="cuda"))
+            return {"prefill logits": lg, "K": fc.k, "V": fc.v,
+                    "decode logits": dec}
+        _witness(torch, "vlm_path", cfg, params, run,
+                 f"{P} patches + {text} tokens; a decode step at position 0")
+        torch.cuda.empty_cache()
+
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, V, (MOE_GEN_B, MOE_PROMPT))).cuda()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = serve_step.greedy_generate(params, cfg, prompts, MOE_NEW,
+                                         MOE_CACHE)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches_g = dict(ops.LAUNCHES)
+        require(tuple(out.shape) == (MOE_GEN_B, MOE_PROMPT + MOE_NEW) and
+                torch.equal(out[:, :MOE_PROMPT], prompts) and
+                bool(((out >= 0) & (out < V)).all()),
+                "greedy_generate output")
+        want = _zero_launches(K1=(MOE_PROMPT + MOE_NEW) * k1_step)
+        print(f"[vlm_path] greedy_generate B={MOE_GEN_B}, {MOE_PROMPT} "
+              f"prompt tokens ingested one by one (the reference's path: "
+              f"no patches, no relayout) + {MOE_NEW} new, cache_len "
+              f"{MOE_CACHE}: {gen_s:.3f} s, {MOE_GEN_B * MOE_NEW / gen_s:.2f} "
+              f"new tok/s, {MOE_GEN_B * (MOE_PROMPT + MOE_NEW) / gen_s:.2f} "
+              f"tok/s in all; launches {launches_g} (derived {want})",
+              flush=True)
+        require(launches_g == want, "greedy_generate launches differ from "
+                "the derived counts")
+
+        cache = registry.init_cache(cfg, MOE_GEN_B, MOE_CACHE,
+                                     device="cuda")
+        pos = torch.full((MOE_GEN_B,), MOE_PROMPT, dtype=torch.int32,
+                         device="cuda")
+        decode = serve_step.make_decode(cfg)
+        step = lambda: decode(params, prompts[:, -1], pos, cache)
+        step()
+        _sync_free(torch, "vlm_path", step)
+        step_ms = time_ms(torch, step, iters=5, warmup=1)
+        s_bytes = _step_bytes(params, cfg)
+        c_bytes = sum(t.numel() * t.element_size() for t in cache["layers"])
+        b_ms, _ = bound(0.0, s_bytes + c_bytes, "bfloat16")
+        print(f"[vlm_path] decode step (B={MOE_GEN_B}, cache of "
+              f"{MOE_CACHE}): {step_ms:.3f} ms (CUDA events), "
+              f"{MOE_GEN_B / step_ms * 1e3:.1f} tok/s; bound {b_ms:.3f} ms: "
+              f"weights {s_bytes / 1e9:.3f} GB + cache {c_bytes / 1e9:.4f} GB "
+              f"at 3.35 TB/s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})",
+              flush=True)
+        profile_step(torch, step, n=2, what="vlm decode")
+        profile_step(torch, lambda: prefill(params, batch), n=1,
+                     what="vlm prefill")
+    print(f"[vlm_path] phase wall {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    return {k: launches_p[k] + launches_g[k] for k in launches_p}
+
+
+def phase_vlm_train(torch, card):
+    """paligemma-3b at full width and depth: step 1's first microbatch
+    against the plain path (f32 and bf16), then 3 AdamW steps at B=2 of
+    256 patches + 768 text in 2 microbatches, remat on; K2 (export), K3,
+    K4 with the prefix in every layer."""
+    from repro_torch.configs import paligemma_3b
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.hardware import H100, H100_PEAK_FLOPS
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_step as ts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    phase_t0 = time.perf_counter()
+    cfg, params = _model(torch, paligemma_3b, trainable=True)
+    mb, L, P = VLM_TRAIN_MB, cfg.n_layers, cfg.num_patches
+    s = P + VLM_TRAIN_TEXT
+    require(cfg.remat, "paligemma-3b trains with remat on")
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[vlm_train] paligemma-3b full width and depth: "
+          f"{n_params / 1e9:.3f} B params, B={VLM_TRAIN_B} of {P} patches "
+          f"+ {VLM_TRAIN_TEXT} tokens in {mb} microbatches", flush=True)
+    data = SyntheticLM(PipelineConfig(cfg.vocab_size, VLM_TRAIN_TEXT,
+                                      VLM_TRAIN_B, seed=0), cfg)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                data.global_batch(i).items()} for i in range(TRAIN_STEPS)]
+    first = {k: v[:VLM_TRAIN_B // mb] for k, v in batches[0].items()}
+    _dense_grad_agreement(torch, "vlm_train", cfg, params, first)
+    torch.cuda.empty_cache()
+
+    state = ts.init_state(cfg, params, "cuda")
+    step = ts.make_train_step(cfg, microbatches=mb)
+    masks = []
+    with _mask_spy(masks):
+        state, rows, launches, peak = _train_steps(
+            torch, "vlm_train", step, state, batches, VLM_TRAIN_B * s)
+    n = TRAIN_STEPS * mb
+    want = _zero_launches(K1=n * _vlm_counts(cfg)[2], K2=n * 2 * L,
+                          K3=n * L, K4=n * L)
+    want_masks = {(k, "causal", 0, P): c * n * L
+                  for k, c in (("K2", 2), ("K3", 1), ("K4", 1))}
+    print(f"[vlm_train] launches over {TRAIN_STEPS} steps of {mb} "
+          f"microbatches {launches} (derived {want}); masks "
+          f"{_mask_counts(masks)}", flush=True)
+    require(launches == want, "kernel launches differ from the derived "
+            "counts")
+    require(_mask_counts(masks) == want_masks, "K2-K4 must take the prefix "
+            f"{P} in every layer")
+    tokens = VLM_TRAIN_B * s
+    pairs = VLM_TRAIN_B * (s * (s + 1) // 2 + P * (P - 1) // 2)
+    att = 4.0 * L * cfg.n_heads * pairs * cfg.head_dim
+    mm = _mm_params(params, ("wq", "wk", "wv", "wo", "wi"))
+    fwd = (2.0 * tokens * mm + 2.0 * VLM_TRAIN_B * P * cfg.d_model ** 2
+           + 2.0 * VLM_TRAIN_B * VLM_TRAIN_TEXT * cfg.vocab_size
+           * cfg.d_model + att)
+    flops = 3 * fwd
+    ops_ms = flops / H100_PEAK_FLOPS["bfloat16"] * 1e3
+    opt_ms = n_params * 28 / H100.hbm.bandwidth_Bps * 1e3
+    mean_ms = sum(r[0] for r in rows[1:]) / (len(rows) - 1)
+    print(f"[vlm_train] step ms {[round(r[0], 3) for r in rows]} (steps 2-3 "
+          f"mean {mean_ms:.3f} ms, {tokens / mean_ms * 1e3:.1f} positions/s, "
+          f"{VLM_TRAIN_B * VLM_TRAIN_TEXT / mean_ms * 1e3:.1f} text tok/s); "
+          f"peak memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"[vlm_train] bound: products and prefix-LM attention "
+          f"{flops / 1e12:.3f} TFLOP at 989 TFLOP/s = {ops_ms:.3f} ms + "
+          f"AdamW {n_params * 28 / 1e9:.3f} GB at 3.35 TB/s = {opt_ms:.3f} "
+          f"ms = {ops_ms + opt_ms:.3f} ms ({card})", flush=True)
+    require(peak < 80e9, "peak memory over the card's 80 GB")
+    profile_step(torch, lambda: step(state, batches[0]), n=1,
+                 what="vlm train")
+    print(f"[vlm_train] phase wall {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    return launches
+
+
+def _encdec_counts(cfg):
+    """``(K1 launches of one prefill, of one decode step, of one training
+    microbatch; K2 launches of one forward)``.  The encoder: 6 products a
+    layer (q, k, v, o, the MLP's two) behind the adapter's one; the
+    decoder: 10 (self q, k, v, o; the cross K/V of the encoder states,
+    projected in every layer, and cross q, o; the MLP's two); the prefill
+    projects the cross K/V once more for its cache (2 a layer) and takes
+    the head; a decode step 8 a layer (self q, k, v, o, cross q, o, the
+    MLP's two) and the head.  A microbatch: the forward, the layers again
+    under remat, two VJP products each but the adapter's one (the frames
+    take no gradient): 24E + 40L + 5.  K2: the encoder's E and the
+    cross-attention's L bidirectional, the decoder's L causal."""
+    E, L = cfg.encoder_layers, cfg.n_layers
+    return (6 * E + 12 * L + 2, 8 * L + 1, 24 * E + 40 * L + 5,
+            E + 2 * L)
+
+
+def _encdec_model(torch, trainable=False):
+    from repro_torch.configs import whisper_base
+    from repro_torch.models import registry
+    cfg = whisper_base.full()
+    params = registry.init(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda", trainable=trainable)
+    return cfg, params
+
+
+def _encdec_flops(cfg, b, sd, prefill):
+    """The products' and the attention's flops of one forward over ``b``
+    rows of ``cfg.encoder_seq`` frames and ``sd`` decoder tokens (the
+    prefill: its cross K/V projected once more, the head on the last
+    position; else the head on every position)."""
+    E, L, d, V = cfg.encoder_layers, cfg.n_layers, cfg.d_model, \
+        cfg.vocab_size
+    se, h, hd, f = cfg.encoder_seq, cfg.n_heads, cfg.head_dim_, cfg.d_ff
+    enc_rows, dec_rows = b * se, b * sd
+    prods = (enc_rows * (d * d + E * (4 * d * d + 2 * d * f))
+             + dec_rows * L * (6 * d * d + 2 * d * f)
+             + enc_rows * L * 2 * d * d * (2 if prefill else 1)
+             + (b if prefill else dec_rows) * d * V)
+    att = 4.0 * b * h * hd * (E * se * se + L * sd * (sd + 1) // 2
+                              + L * sd * se)
+    return 2.0 * prods, att
+
+
+def phase_encdec_path(torch, card):
+    """whisper-base at full width and depth: make_prefill B=4 over 1500
+    frames and a 64-token prompt (K2 bidirectional in the encoder and the
+    cross-attention, causal in the decoder), 64 make_decode steps over
+    init_cache with the prefill's cross K/V, greedy_generate, the
+    agreement with the plain path, a decode step under sync debug
+    "error", profiles."""
+    import numpy as np
+    from repro_torch.hardware import H100_PEAK_FLOPS
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.train import serve_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = phase_t0 = time.perf_counter()
+    cfg, params = _encdec_model(torch)
+    torch.cuda.synchronize()
+    E, L, V, d = cfg.encoder_layers, cfg.n_layers, cfg.vocab_size, \
+        cfg.d_model
+    se = cfg.encoder_seq
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[encdec_path] whisper-base full width and depth ({E} encoder "
+          f"+ {L} decoder layers, d {d}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff} GELU, LayerNorm and biases, "
+          f"tied vocab {V}, {se} stub frames): {n_params / 1e6:.3f} M "
+          f"params bf16 (param_count {cfg.param_count()[0]:,}), init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"tokens": torch.randint(0, V, (ENC_B, ENC_PROMPT),
+                                     generator=gen, device="cuda"),
+             "frames": torch.randn(ENC_B, se, d, generator=gen,
+                                   device="cuda")}
+    k1_fwd, k1_step, _, k2_fwd = _encdec_counts(cfg)
+    prefill = serve_step.make_prefill(cfg)
+    decode = serve_step.make_decode(cfg)
+    masks = []
+    with torch.inference_mode():
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with _mask_spy(masks):
+            (logits, pcache), prefill_ms = _timed(
+                torch, lambda: prefill(params, batch))
+        launches_p = dict(ops.LAUNCHES)
+        require(tuple(logits.shape) == (ENC_B, V) and
+                bool(torch.isfinite(logits).all()), "prefill logits")
+        heads = (cfg.n_kv_heads, cfg.head_dim_)
+        require(tuple(pcache.self_kv.k.shape) == (L, ENC_B, ENC_PROMPT,
+                                                  *heads) and
+                tuple(pcache.cross_kv.k.shape) == (L, ENC_B, se, *heads),
+                "prefill EncDecCache shapes")
+        want = _zero_launches(K1=k1_fwd, K2=k2_fwd)
+        want_masks = {("K2", "bidirectional", 0, 0): E + L,
+                      ("K2", "causal", 0, 0): L}
+        prods, att = _encdec_flops(cfg, ENC_B, ENC_PROMPT, True)
+        print(f"[encdec_path] make_prefill B={ENC_B}, {se} frames + "
+              f"{ENC_PROMPT} tokens: {prefill_ms:.3f} ms; launches "
+              f"{launches_p} (derived {want}); K2 masks "
+              f"{_mask_counts(masks)}; bound {(prods + att) / 1e12:.4f} "
+              f"TFLOP at 989 TFLOP/s = "
+              f"{(prods + att) / H100_PEAK_FLOPS['bfloat16'] * 1e3:.4f} ms "
+              f"(attention {att / 1e12:.4f} TFLOP)", flush=True)
+        require(launches_p == want, "prefill launches differ from the "
+                "derived counts")
+        require(_mask_counts(masks) == want_masks, "K2's masks differ: the "
+                "encoder and cross-attention bidirectional, the decoder "
+                "causal")
+
+        # 64 decode steps from position 0 over init_cache, its cross K/V
+        # the prefill's (the reference's test_decode_matches_forward)
+        cache = registry.init_cache(cfg, ENC_B, ENC_CACHE, device="cuda")
+        cache = cache._replace(cross_kv=pcache.cross_kv)
+        ops.reset_launches()
+
+        def steps(cache):
+            lg = None
+            for t in range(ENC_DECODE):
+                pos = torch.full((ENC_B,), t, dtype=torch.int32,
+                                 device="cuda")
+                tok = batch["tokens"][:, t % ENC_PROMPT]
+                lg, cache = decode(params, tok, pos, cache)
+            return lg, cache
+        (lg, cache), dec_ms = _timed(torch, lambda: steps(cache))
+        launches_d = dict(ops.LAUNCHES)
+        want = _zero_launches(K1=ENC_DECODE * k1_step)
+        require(bool(torch.isfinite(lg).all()), "decode logits")
+        print(f"[encdec_path] {ENC_DECODE} make_decode steps B={ENC_B} over "
+              f"init_cache({ENC_B}, {ENC_CACHE}) with the prefill's cross "
+              f"K/V: {dec_ms:.3f} ms ({dec_ms / ENC_DECODE:.4f} ms a step, "
+              f"{ENC_B * ENC_DECODE / dec_ms * 1e3:.1f} tok/s); launches "
+              f"{launches_d} (derived {want})", flush=True)
+        require(launches_d == want, "decode launches differ from the "
+                "derived counts")
+
+        pos0 = torch.zeros(ENC_B, dtype=torch.int32, device="cuda")
+
+        def run(c, prm):
+            lg, pc = registry.prefill(prm, c, batch)
+            dt = getattr(torch, str(c.dtype))
+            ic = registry.init_cache(c, ENC_B, ENC_PROMPT, dtype=dt,
+                                     device="cuda")
+            dec, _ = registry.decode_step(
+                prm, c, batch["tokens"][:, 0], pos0,
+                ic._replace(cross_kv=pc.cross_kv))
+            return {"prefill logits": lg, "self K": pc.self_kv.k,
+                    "self V": pc.self_kv.v, "cross K": pc.cross_kv.k,
+                    "cross V": pc.cross_kv.v, "decode logits": dec}
+        _witness(torch, "encdec_path", cfg, params, run,
+                 f"{se} frames + {ENC_PROMPT} tokens; a decode step at "
+                 f"position 0 over the prefill's cross K/V")
+
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, V, (ENC_B, ENC_GEN_PROMPT))).cuda()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = serve_step.greedy_generate(params, cfg, prompts, ENC_GEN_NEW,
+                                         ENC_CACHE)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches_g = dict(ops.LAUNCHES)
+        require(tuple(out.shape) == (ENC_B, ENC_GEN_PROMPT + ENC_GEN_NEW)
+                and torch.equal(out[:, :ENC_GEN_PROMPT], prompts) and
+                bool(((out >= 0) & (out < V)).all()),
+                "greedy_generate output")
+        want = _zero_launches(K1=(ENC_GEN_PROMPT + ENC_GEN_NEW) * k1_step)
+        print(f"[encdec_path] greedy_generate B={ENC_B}, {ENC_GEN_PROMPT} "
+              f"prompt tokens one by one from init_cache's zero cross K/V "
+              f"(the reference's path) + {ENC_GEN_NEW} new, cache_len "
+              f"{ENC_CACHE}: {gen_s:.3f} s, "
+              f"{ENC_B * ENC_GEN_NEW / gen_s:.2f} new tok/s; launches "
+              f"{launches_g} (derived {want})", flush=True)
+        require(launches_g == want, "greedy_generate launches differ from "
+                "the derived counts")
+
+        pos = torch.full((ENC_B,), ENC_DECODE, dtype=torch.int32,
+                         device="cuda")
+        step = lambda: decode(params, batch["tokens"][:, 0], pos, cache)
+        step()
+        _sync_free(torch, "encdec_path", step)
+        step_ms = time_ms(torch, step, iters=10, warmup=2)
+        s_bytes = _step_bytes(params, cfg)
+        c_bytes = sum(t.numel() * t.element_size()
+                      for kv in cache for t in kv)
+        b_ms, _ = bound(0.0, s_bytes + c_bytes, "bfloat16")
+        print(f"[encdec_path] decode step (B={ENC_B}, self cache of "
+              f"{ENC_CACHE}, cross K/V of {se}): {step_ms:.4f} ms (CUDA "
+              f"events); bound {b_ms:.4f} ms: weights {s_bytes / 1e6:.1f} MB "
+              f"+ caches {c_bytes / 1e6:.1f} MB at 3.35 TB/s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})",
+              flush=True)
+        profile_step(torch, step, n=3, what="encdec decode")
+        profile_step(torch, lambda: prefill(params, batch), n=2,
+                     what="encdec prefill")
+    print(f"[encdec_path] phase wall {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    return {k: launches_p[k] + launches_d[k] + launches_g[k]
+            for k in launches_p}
+
+
+def phase_encdec_train(torch, card):
+    """whisper-base at full width and depth: step 1's first microbatch
+    against the plain path (f32 and bf16; the key biases' vanishing
+    gradients held against their value biases'), then 3 AdamW steps at
+    B=8 of 1500 frames and 448 tokens in its 4 microbatches, remat on."""
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.hardware import H100, H100_PEAK_FLOPS
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_step as ts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    phase_t0 = time.perf_counter()
+    cfg, params = _encdec_model(torch, trainable=True)
+    mb, E, L = cfg.train_microbatches, cfg.encoder_layers, cfg.n_layers
+    require(cfg.remat, "whisper-base trains with remat on")
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[encdec_train] whisper-base full width and depth: "
+          f"{n_params / 1e6:.3f} M params, B={ENC_TRAIN_B} of "
+          f"{cfg.encoder_seq} frames + {ENC_TRAIN_S} tokens in {mb} "
+          f"microbatches", flush=True)
+    data = SyntheticLM(PipelineConfig(cfg.vocab_size, ENC_TRAIN_S,
+                                      ENC_TRAIN_B, seed=0), cfg)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                data.global_batch(i).items()} for i in range(TRAIN_STEPS)]
+    first = {k: v[:ENC_TRAIN_B // mb] for k, v in batches[0].items()}
+    vanishing = {f"{stack}.{a}.bk": f"{stack}.{a}.bv"
+                 for stack, a in (("encoder", "attn"),
+                                  ("decoder", "self_attn"),
+                                  ("decoder", "cross_attn"))}
+    _dense_grad_agreement(torch, "encdec_train", cfg, params, first,
+                          vanishing)
+    torch.cuda.empty_cache()
+
+    state = ts.init_state(cfg, params, "cuda")
+    step = ts.make_train_step(cfg, microbatches=mb)
+    masks, routes = [], {}
+
+    def count_route(args, out):
+        r = ops._route(*args[:4])
+        routes[r] = routes.get(r, 0) + 1
+    tokens = ENC_TRAIN_B * ENC_TRAIN_S
+    with _mask_spy(masks), _spy(ops, "_gemm", count_route):
+        state, rows, launches, peak = _train_steps(
+            torch, "encdec_train", step, state, batches, tokens)
+    n = TRAIN_STEPS * mb
+    k1 = _encdec_counts(cfg)[2]
+    want = _zero_launches(K1=n * k1, K2=n * 2 * (E + 2 * L),
+                          K3=n * (E + 2 * L), K4=n * (E + 2 * L))
+    want_masks = {}
+    for k, c in (("K2", 2), ("K3", 1), ("K4", 1)):
+        want_masks[k, "bidirectional", 0, 0] = c * n * (E + L)
+        want_masks[k, "causal", 0, 0] = c * n * L
+    print(f"[encdec_train] launches over {TRAIN_STEPS} steps of {mb} "
+          f"microbatches {launches} (derived {want}); masks "
+          f"{_mask_counts(masks)}; K1 by route {routes} (the tied head's "
+          f"dx and dw on the first FMA kernels: derived {2 * n})",
+          flush=True)
+    require(launches == want, "kernel launches differ from the derived "
+            "counts")
+    require(routes.get("fma") == 2 * n, "the head's VJPs (a stored row of "
+            f"{cfg.vocab_size}) must take K1's FMA kernels, and nothing "
+            "else")
+    require(_mask_counts(masks) == want_masks, "K2-K4's masks differ from "
+            "the derived ones")
+    prods, att = _encdec_flops(cfg, ENC_TRAIN_B, ENC_TRAIN_S, False)
+    flops = 3 * (prods + att)
+    ops_ms = flops / H100_PEAK_FLOPS["bfloat16"] * 1e3
+    opt_ms = n_params * 28 / H100.hbm.bandwidth_Bps * 1e3
+    mean_ms = sum(r[0] for r in rows[1:]) / (len(rows) - 1)
+    print(f"[encdec_train] step ms {[round(r[0], 3) for r in rows]} (steps "
+          f"2-3 mean {mean_ms:.3f} ms, {tokens / mean_ms * 1e3:.1f} decoder "
+          f"tok/s, {ENC_TRAIN_B * cfg.encoder_seq / mean_ms * 1e3:.1f} "
+          f"frames/s); peak memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"[encdec_train] bound: products and attention "
+          f"{flops / 1e12:.4f} TFLOP at 989 TFLOP/s = {ops_ms:.3f} ms + "
+          f"AdamW {n_params * 28 / 1e9:.4f} GB at 3.35 TB/s = {opt_ms:.4f} "
+          f"ms = {ops_ms + opt_ms:.3f} ms ({card})", flush=True)
+    require(peak < 80e9, "peak memory over the card's 80 GB")
+    profile_step(torch, lambda: step(state, batches[0]), n=1,
+                 what="encdec train")
+    print(f"[encdec_train] phase wall {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    return launches
+
+
 def profile_step(torch, step, n: int = 3, what: str = "decode") -> None:
     """Device time by kernel over ``n`` steps (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -4055,6 +4809,14 @@ def main() -> None:
     mla_serve = phase_mla_path(torch, smi_line)
     torch.cuda.empty_cache()
     mla_train = phase_mla_train(torch, smi_line)
+    torch.cuda.empty_cache()
+    vlm_serve = phase_vlm_path(torch, smi_line)
+    torch.cuda.empty_cache()
+    vlm_train = phase_vlm_train(torch, smi_line)
+    torch.cuda.empty_cache()
+    encdec_serve = phase_encdec_path(torch, smi_line)
+    torch.cuda.empty_cache()
+    encdec_train = phase_encdec_train(torch, smi_line)
 
     src = "src/repro_torch/kernels/csrc/"
     head = {"K1": ("K1_gemm", src + "gemm.cu",
@@ -4093,7 +4855,9 @@ def main() -> None:
             "hybrid_train": hybrid_train, "moa_path": moa,
             "moe_path": moe_serve, "moe_train": moe_train,
             "llama4_path": llama4_serve, "mla_path": mla_serve,
-            "mla_train": mla_train}
+            "mla_train": mla_train, "vlm_path": vlm_serve,
+            "vlm_train": vlm_train, "encdec_path": encdec_serve,
+            "encdec_train": encdec_train}
     kernels = []
     for kid, (name, source, replaces, shape) in head.items():
         # launches: the path runs', each counted from 0

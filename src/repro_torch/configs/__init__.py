@@ -2,13 +2,15 @@
 in ``repro.configs``)."""
 from repro_torch.configs import (command_r_plus_104b, deepseek_moe_16b,
                                  gemma_2b, llama4_scout_17b_a16e,
-                                 mamba2_780m, minicpm3_4b, recurrentgemma_9b,
-                                 stablelm_1_6b)
+                                 mamba2_780m, minicpm3_4b, paligemma_3b,
+                                 recurrentgemma_9b, stablelm_1_6b,
+                                 whisper_base)
 from repro_torch.configs.common import ArchConfig
 
 ARCHS = {m.ARCH_ID: m for m in (gemma_2b, stablelm_1_6b, command_r_plus_104b,
                                 minicpm3_4b, mamba2_780m, recurrentgemma_9b,
-                                deepseek_moe_16b, llama4_scout_17b_a16e)}
+                                deepseek_moe_16b, llama4_scout_17b_a16e,
+                                paligemma_3b, whisper_base)}
 
 
 def get_config(arch_id: str, reduced: bool = False) -> ArchConfig:

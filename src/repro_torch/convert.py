@@ -1,8 +1,9 @@
 """Carry the JAX package's parameters into the port.
 
-The reference's ``init_lm`` returns a nested dict of arrays; the port's
-parameter tree has the same names and layouts, so the conversion is a
-copy: no transposes, no renames.
+The reference's ``registry.init`` returns a nested dict of arrays (the
+decoder LMs' tree, with the vlm family's ``frontend.adapter``, or the
+enc-dec tree); the port's parameter tree has the same names and layouts,
+so the conversion is a copy: no transposes, no renames.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ def _groups(tree: dict, prefix: str = "") -> dict:
 def params_from_numpy(tree: dict, device="cuda", dtype=None,
                       trainable: bool = False):
     """The port's parameters from a nested dict of numpy arrays (e.g.
-    ``jax.tree.map(np.asarray, params)`` of the reference's ``init_lm``).
+    ``jax.tree.map(np.asarray, params)`` of the reference's
+    ``registry.init``).
     ``dtype`` (a ``torch.dtype``) overrides the arrays' own; bfloat16
     arrays, which numpy lacks, arrive as float32 and need it.
     ``trainable`` makes the parameters require gradients."""

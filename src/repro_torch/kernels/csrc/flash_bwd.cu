@@ -12,7 +12,12 @@
 // Both rebuild p = exp(s - (m + log max(l, 1e-30))) in f32 from the
 // recomputed, masked scores s = q.k * scale (masked scores take
 // MASK_NEG_INF, as in the forward); unlike the forward, p is NOT rounded
-// to V's dtype, as in the reference.  dS = p * (dO.v - delta).
+// to V's dtype, as in the reference.  dS = p * (dO.v - delta).  The mask
+// is the forward's (flash_fwd.cu): bidirectional with causal = 0, else
+// causal, windowed, and re-admitting every pair below `prefix` (emit.py
+// :541-551, :646); K3 widens its key range as K2 does, K4 its row range
+// with the roles swapped (a key tile that starts below the prefix is seen
+// from row 0).
 //
 // What bounds them on an H100: at gemma-2b training shapes (B = 2, S =
 // 512, G = 8 query heads over one KV head, hd = 256) each kernel does 3
@@ -146,9 +151,10 @@ __device__ __forceinline__ float dot_row(const T* a, const T* b) {
 }
 
 __device__ __forceinline__ bool visible(int kp, int qp, int causal,
-                                        int window) {
+                                        int window, int prefix) {
   if (!causal) return true;
-  return kp <= qp && (window <= 0 || kp > qp - window);
+  return (kp <= qp && (window <= 0 || kp > qp - window)) ||
+         (qp < prefix && kp < prefix);
 }
 
 // ---------------------------------------------------------------------------
@@ -163,7 +169,8 @@ flash_dq(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, const T* __restrict__ dout,
          const float* __restrict__ m, const float* __restrict__ l,
          const float* __restrict__ delta, T* __restrict__ dq, int Sq,
-         int Sk, int KV, int G, float scale, int causal, int window) {
+         int Sk, int KV, int G, float scale, int causal, int window,
+         int prefix) {
   constexpr int PITCH = HD + 16 / sizeof(T);
   constexpr int KPT = BN / 4;                  // keys scored per thread
   constexpr int DPT = HD / 4;                  // dq columns per thread
@@ -198,14 +205,18 @@ flash_dq(const T* __restrict__ q, const T* __restrict__ k,
     dl = delta[idx];
   }
 
-  // the forward's key range for this tile of rows (causal block-skip +
-  // window): the backward visits exactly the blocks the forward did
+  // the forward's key range for this tile of rows (causal block-skip,
+  // window, prefix): the backward visits exactly the blocks the forward did
   const int qmin = r0 / G;
   const int qmax = min(Sq - 1, (min(r0 + BM, rows) - 1) / G);
   int kend = Sk, kstart = 0;
   if (causal) {
     kend = min(Sk, qmax + 1);
     if (window > 0) kstart = max(0, qmin - window + 1);
+    if (qmin < prefix) {
+      kend = max(kend, min(Sk, prefix));
+      kstart = 0;
+    }
   }
   kstart = (kstart / BN) * BN;
 
@@ -227,7 +238,7 @@ flash_dq(const T* __restrict__ q, const T* __restrict__ k,
       const float dot = dot_row<T, HD>(Qs + r * PITCH, Ks + c * PITCH);
       const float dpv = dot_row<T, HD>(Os + r * PITCH, Vs + c * PITCH);
       const int kp = k0 + c;
-      const bool ok = kp < Sk && visible(kp, qpos, causal, window);
+      const bool ok = kp < Sk && visible(kp, qpos, causal, window, prefix);
       const float s = ok ? dot * scale : MASK_NEG_INF;
       const float p = expf(s - lse);
       Ds[r * (BN + 1) + c] = p * (dpv - dl);
@@ -263,7 +274,7 @@ flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
           const float* __restrict__ m, const float* __restrict__ l,
           const float* __restrict__ delta, T* __restrict__ dk,
           T* __restrict__ dv, int Sq, int Sk, int KV, int G, float scale,
-          int causal, int window) {
+          int causal, int window, int prefix) {
   constexpr int PITCH = HD + 16 / sizeof(T);
   constexpr int TPK = THREADS / BJ;            // threads per key
   constexpr int RPT = BI / TPK;                // streamed rows per thread
@@ -291,14 +302,19 @@ flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
   load_rows<T, HD>(Ks, PITCH, k, BJ, kv_off);
   load_rows<T, HD>(Vs, PITCH, v, BJ, kv_off);
 
-  // streamed rows that can see a key of this tile (the forward's causal
-  // and window block-skip with the roles swapped)
+  // streamed rows that can see a key of this tile (the forward's causal,
+  // window and prefix block-skip with the roles swapped: a tile that starts
+  // below the prefix is seen from row 0)
   int rstart = 0, rend = rows;
   if (causal) {
     rstart = j0 * G;                            // positions >= j0
     if (window > 0) {
       const int jmax = min(Sk, j0 + BJ) - 1;    // positions < jmax + window
       rend = min(rows, (jmax + window) * G);
+    }
+    if (j0 < prefix) {
+      rstart = 0;
+      rend = max(rend, min(rows, prefix * G));
     }
   }
   rstart = (rstart / BI) * BI;
@@ -335,7 +351,7 @@ flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
       const float dot = dot_row<T, HD>(Ks + jl * PITCH, Qs + c * PITCH);
       const float dpv = dot_row<T, HD>(Vs + jl * PITCH, Os + c * PITCH);
       const bool ok = rr < rows && kpos < Sk &&
-                      visible(kpos, rr / G, causal, window);
+                      visible(kpos, rr / G, causal, window, prefix);
       const float s = ok ? dot * scale : MASK_NEG_INF;
       const float p = expf(s - lse_s[c]);
       Ps[jl * (BI + 1) + c] = p;
@@ -370,7 +386,7 @@ template <typename T, int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* m, const float* l, const float* delta, void* dq,
               int B, int Sq, int Sk, int KV, int G, float scale, int causal,
-              int window, cudaStream_t s) {
+              int window, int prefix, cudaStream_t s) {
   constexpr int BN = sizeof(T) == 2 ? 32 : 16;
   constexpr int PITCH = HD + 16 / sizeof(T);
   const size_t smem = (size_t)(2 * BM + 2 * BN) * PITCH * sizeof(T) +
@@ -383,7 +399,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), m, l, delta,
-      static_cast<T*>(dq), Sq, Sk, KV, G, scale, causal, window);
+      static_cast<T*>(dq), Sq, Sk, KV, G, scale, causal, window, prefix);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -391,7 +407,7 @@ template <typename T, int HD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* m, const float* l, const float* delta, void* dk,
                void* dv, int B, int Sq, int Sk, int KV, int G, float scale,
-               int causal, int window, cudaStream_t s) {
+               int causal, int window, int prefix, cudaStream_t s) {
   constexpr int PITCH = HD + 16 / sizeof(T);
   const size_t smem = (size_t)(2 * BJ + 2 * BI) * PITCH * sizeof(T) +
                       (size_t)(2 * BJ * (BI + 1) + 2 * BI) * sizeof(float);
@@ -404,7 +420,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), m, l, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, KV, G, scale, causal,
-      window);
+      window, prefix);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -415,15 +431,15 @@ int launch_which(int which, const void* q, const void* k, const void* v,
                  const void* dout, const float* m, const float* l,
                  const float* delta, void* out0, void* out1, int B, int Sq,
                  int Sk, int KV, int G, float scale, int causal, int window,
-                 cudaStream_t s) {
+                 int prefix, cudaStream_t s) {
   if (which == 0) {
     if constexpr (std::is_same_v<T, float>)
       return launch_dq<T, HD>(q, k, v, dout, m, l, delta, out0, B, Sq, Sk,
-                              KV, G, scale, causal, window, s);
+                              KV, G, scale, causal, window, prefix, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_dkv<T, HD>(q, k, v, dout, m, l, delta, out0, out1, B, Sq, Sk,
-                           KV, G, scale, causal, window, s);
+                           KV, G, scale, causal, window, prefix, s);
 }
 
 template <typename T>
@@ -431,20 +447,20 @@ int dispatch_hd(int which, int hd, const void* q, const void* k,
                 const void* v, const void* dout, const float* m,
                 const float* l, const float* delta, void* out0, void* out1,
                 int B, int Sq, int Sk, int KV, int G, float scale, int causal,
-                int window, cudaStream_t s) {
+                int window, int prefix, cudaStream_t s) {
   switch (hd) {
     case 64:
       return launch_which<T, 64>(which, q, k, v, dout, m, l, delta, out0,
                                  out1, B, Sq, Sk, KV, G, scale, causal,
-                                 window, s);
+                                 window, prefix, s);
     case 128:
       return launch_which<T, 128>(which, q, k, v, dout, m, l, delta, out0,
                                   out1, B, Sq, Sk, KV, G, scale, causal,
-                                  window, s);
+                                  window, prefix, s);
     case 256:
       return launch_which<T, 256>(which, q, k, v, dout, m, l, delta, out0,
                                   out1, B, Sq, Sk, KV, G, scale, causal,
-                                  window, s);
+                                  window, prefix, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -481,7 +497,8 @@ flash_dq_tc(const __grid_constant__ CUtensorMap tm_k,
             const bf16* __restrict__ q, const bf16* __restrict__ dout,
             const float* __restrict__ m, const float* __restrict__ l,
             const float* __restrict__ delta, bf16* __restrict__ dq, int Sq,
-            int Sk, int KV, int G, float scale, int causal, int window) {
+            int Sk, int KV, int G, float scale, int causal, int window,
+            int prefix) {
   constexpr int BN = keys_per_tile(HD);
   constexpr uint32_t Q_BYTES = tile_bytes(64, HD);
   using Ring = KVRing<HD, BN, dq_stages(HD, NWG)>;
@@ -496,8 +513,8 @@ flash_dq_tc(const __grid_constant__ CUtensorMap tm_k,
   // the forward's key tiles for this block's rows: the backward visits
   // exactly the tiles the forward did
   int kstart, ntiles;
-  key_tiles(blockIdx.x * 64 * NWG, 64 * NWG, Sq, Sk, G, causal, window, BN,
-            kstart, ntiles);
+  key_tiles(blockIdx.x * 64 * NWG, 64 * NWG, Sq, Sk, G, causal, window,
+            prefix, BN, kstart, ntiles);
 
   if (threadIdx.x == NWG * 128) {
     prefetch_map(&tm_k);
@@ -606,9 +623,9 @@ flash_dq_tc(const __grid_constant__ CUtensorMap tm_k,
           float c = sc[4 * j + 2 + e];
           if (need_mask) {
             const int kp = k0 + 8 * j + 2 * t4 + e;
-            if (kp >= Sk || !visible(kp, qp0, causal, window))
+            if (kp >= Sk || !visible(kp, qp0, causal, window, prefix))
               a = MASK_NEG_INF;
-            if (kp >= Sk || !visible(kp, qp1, causal, window))
+            if (kp >= Sk || !visible(kp, qp1, causal, window, prefix))
               c = MASK_NEG_INF;
           }
           // 2^(s * scale_log2 - lse) in one fused multiply-add; a masked
@@ -692,7 +709,7 @@ template <int HD, int NWG>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* m, const float* l, const float* delta, void* dq,
               int B, int Sq, int Sk, int KV, int G, float scale, int causal,
-              int window, cudaStream_t s) {
+              int window, int prefix, cudaStream_t s) {
   constexpr int BN = keys_per_tile(HD);
   CUtensorMap tm_k, tm_v;
   int err = encode_rows_map(&tm_k, k, B, Sk, KV, HD, BN);
@@ -708,7 +725,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, 128 * (NWG + 1), smem, s>>>(
       tm_k, tm_v, static_cast<const bf16*>(q), static_cast<const bf16*>(dout),
       m, l, delta, static_cast<bf16*>(dq), Sq, Sk, KV, G, scale, causal,
-      window);
+      window, prefix);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -718,29 +735,30 @@ int launch_dq_rows(const void* q, const void* k, const void* v,
                    const void* dout, const float* m, const float* l,
                    const float* delta, void* dq, int B, int Sq, int Sk,
                    int KV, int G, float scale, int causal, int window,
-                   cudaStream_t s) {
+                   int prefix, cudaStream_t s) {
   const long long blocks128 = (long long)((Sq * G + 127) / 128) * KV * B;
   if (blocks128 >= sm_count())
     return launch_dq<HD, 2>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk, KV, G,
-                            scale, causal, window, s);
+                            scale, causal, window, prefix, s);
   return launch_dq<HD, 1>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk, KV, G,
-                          scale, causal, window, s);
+                          scale, causal, window, prefix, s);
 }
 
 int dispatch_dq(int hd, const void* q, const void* k, const void* v,
                 const void* dout, const float* m, const float* l,
                 const float* delta, void* dq, int B, int Sq, int Sk, int KV,
-                int G, float scale, int causal, int window, cudaStream_t s) {
+                int G, float scale, int causal, int window, int prefix,
+                cudaStream_t s) {
   switch (hd) {
     case 64:
       return launch_dq_rows<64>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk, KV,
-                                G, scale, causal, window, s);
+                                G, scale, causal, window, prefix, s);
     case 128:
       return launch_dq_rows<128>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk,
-                                 KV, G, scale, causal, window, s);
+                                 KV, G, scale, causal, window, prefix, s);
     case 256:
       return launch_dq_rows<256>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk,
-                                 KV, G, scale, causal, window, s);
+                                 KV, G, scale, causal, window, prefix, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -758,8 +776,8 @@ constexpr int DKV_KEYS = 64, DKV_ROWS = 64;
 // causal and window block-skip with the roles swapped): `t0` the first,
 // `count` of them.  ops.dkv_row_tiles is the same rule in Python.
 __device__ inline void dkv_row_tiles(int j0, int Sq, int Sk, int G,
-                                     int causal, int window, int& t0,
-                                     int& count) {
+                                     int causal, int window, int prefix,
+                                     int& t0, int& count) {
   const int rows = Sq * G;
   int rstart = 0, rend = rows;
   if (causal) {
@@ -767,6 +785,10 @@ __device__ inline void dkv_row_tiles(int j0, int Sq, int Sk, int G,
     if (window > 0) {
       const int jmax = min(Sk, j0 + DKV_KEYS) - 1;
       rend = min(rows, (jmax + window) * G);   // positions < jmax + window
+    }
+    if (j0 < prefix) {                         // seen by every prefix row
+      rstart = 0;
+      rend = max(rend, min(rows, prefix * G));
     }
   }
   t0 = rstart / DKV_ROWS;
@@ -800,7 +822,7 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
              const float* __restrict__ m, const float* __restrict__ l,
              const float* __restrict__ delta, bf16* __restrict__ dk,
              bf16* __restrict__ dv, float* __restrict__ ws, int Sq, int Sk,
-             int KV, int G, float scale, int causal, int window,
+             int KV, int G, float scale, int causal, int window, int prefix,
              int nsplit) {
   using L = DkvSmem<HD>;
   constexpr int S = L::STAGES, R = L::R;
@@ -827,7 +849,7 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
   const int j0 = jt * DKV_KEYS;
   const int rows = Sq * G;
   int t0, count;
-  dkv_row_tiles(j0, Sq, Sk, G, causal, window, t0, count);
+  dkv_row_tiles(j0, Sq, Sk, G, causal, window, prefix, t0, count);
   const int per = (count + nsplit - 1) / nsplit;
   const int first = t0 + split * per;
   const int ntiles = max(0, min(count, (split + 1) * per) - split * per);
@@ -945,9 +967,11 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
             if (need_mask) {
               const int r = r0 + rl, qp = r / G;
               const bool row_ok = r < rows;
-              if (!row_ok || kp0 >= Sk || !visible(kp0, qp, causal, window))
+              if (!row_ok || kp0 >= Sk || !visible(kp0, qp, causal, window,
+                                                   prefix))
                 p0 = 0.f;
-              if (!row_ok || kp1 >= Sk || !visible(kp1, qp, causal, window))
+              if (!row_ok || kp1 >= Sk || !visible(kp1, qp, causal, window,
+                                                   prefix))
                 p1 = 0.f;
             }
             sc[4 * j + e] = p0;
@@ -1049,7 +1073,7 @@ template <int HD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* m, const float* l, const float* delta, void* dk,
                void* dv, float* ws, int B, int Sq, int Sk, int KV, int G,
-               float scale, int causal, int window, int nsplit,
+               float scale, int causal, int window, int prefix, int nsplit,
                cudaStream_t s) {
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
   constexpr int R = DKV_ROWS;
@@ -1067,7 +1091,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   const dim3 grid((Sk + DKV_KEYS - 1) / DKV_KEYS, nsplit, B * KV);
   kern<<<grid, 384, smem, s>>>(
       tm_q, tm_do, tm_k, tm_v, m, l, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), ws, Sq, Sk, KV, G, scale, causal, window,
+      static_cast<bf16*>(dv), ws, Sq, Sk, KV, G, scale, causal, window, prefix,
       nsplit);
   if (nsplit > 1) {
     const size_t plane = (size_t)B * Sk * KV * HD;
@@ -1084,20 +1108,22 @@ int dispatch_dkv(int hd, const void* q, const void* k, const void* v,
                  const void* dout, const float* m, const float* l,
                  const float* delta, void* dk, void* dv, float* ws, int B,
                  int Sq, int Sk, int KV, int G, float scale, int causal,
-                 int window, int nsplit, cudaStream_t s) {
+                 int window, int prefix, int nsplit, cudaStream_t s) {
   if (G <= 0 || DKV_ROWS % G != 0 || nsplit < 1 ||
       (nsplit > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
     case 64:
       return launch_dkv<64>(q, k, v, dout, m, l, delta, dk, dv, ws, B, Sq, Sk,
-                            KV, G, scale, causal, window, nsplit, s);
+                            KV, G, scale, causal, window, prefix, nsplit, s);
     case 128:
       return launch_dkv<128>(q, k, v, dout, m, l, delta, dk, dv, ws, B, Sq,
-                             Sk, KV, G, scale, causal, window, nsplit, s);
+                             Sk, KV, G, scale, causal, window, prefix, nsplit,
+                             s);
     case 256:
       return launch_dkv<256>(q, k, v, dout, m, l, delta, dk, dv, ws, B, Sq,
-                             Sk, KV, G, scale, causal, window, nsplit, s);
+                             Sk, KV, G, scale, causal, window, prefix, nsplit,
+                             s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1108,25 +1134,27 @@ int dispatch_dkv(int hd, const void* q, const void* k, const void* v,
 int run(int which, const void* q, const void* k, const void* v,
         const void* dout, const void* m, const void* l, const void* delta,
         void* out0, void* out1, float* ws, int B, int Sq, int Sk, int KV,
-        int G, int hd, float scale, int causal, int window, int dtype,
-        int nsplit, void* stream) {
+        int G, int hd, float scale, int causal, int window, int prefix,
+        int dtype, int nsplit, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto M = static_cast<const float*>(m);
   auto L = static_cast<const float*>(l);
   auto D = static_cast<const float*>(delta);
   if (which == 0 && dtype == 1)
     return tc::dispatch_dq(hd, q, k, v, dout, M, L, D, out0, B, Sq, Sk, KV, G,
-                           scale, causal, window, s);
+                           scale, causal, window, prefix, s);
   if (which == 1 && dtype == 1 && nsplit > 0)
     return tc::dispatch_dkv(hd, q, k, v, dout, M, L, D, out0, out1, ws, B, Sq,
-                            Sk, KV, G, scale, causal, window, nsplit, s);
+                            Sk, KV, G, scale, causal, window, prefix, nsplit,
+                            s);
   if (dtype == 1)
     return dispatch_hd<__nv_bfloat16>(which, hd, q, k, v, dout, M, L, D, out0,
                                       out1, B, Sq, Sk, KV, G, scale, causal,
-                                      window, s);
+                                      window, prefix, s);
   if (dtype == 0)
     return dispatch_hd<float>(which, hd, q, k, v, dout, M, L, D, out0, out1,
-                              B, Sq, Sk, KV, G, scale, causal, window, s);
+                              B, Sq, Sk, KV, G, scale, causal, window, prefix,
+                              s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1138,15 +1166,16 @@ extern "C" const char* repro_error_string(int code) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs alike);
 // m, l, delta float32 (B, KV, G, Sq); hd = vd in {64, 128, 256}; all
-// tensors contiguous and 16-byte aligned.
+// tensors contiguous and 16-byte aligned; window and prefix as the
+// forward's (causal = 1 only).
 extern "C" int repro_flash_dq(const void* q, const void* k, const void* v,
                               const void* dout, const void* m, const void* l,
                               const void* delta, void* dq, int B, int Sq,
                               int Sk, int KV, int G, int hd, float scale,
-                              int causal, int window, int dtype,
+                              int causal, int window, int prefix, int dtype,
                               void* stream) {
   return run(0, q, k, v, dout, m, l, delta, dq, nullptr, nullptr, B, Sq, Sk,
-             KV, G, hd, scale, causal, window, dtype, 0, stream);
+             KV, G, hd, scale, causal, window, prefix, dtype, 0, stream);
 }
 
 // nsplit: 0 takes the FMA kernel (float32, or a G that does not divide
@@ -1158,9 +1187,9 @@ extern "C" int repro_flash_dkv(const void* q, const void* k, const void* v,
                                const void* l, const void* delta, void* dk,
                                void* dv, void* ws, int B, int Sq, int Sk,
                                int KV, int G, int hd, float scale, int causal,
-                               int window, int dtype, int nsplit,
+                               int window, int prefix, int dtype, int nsplit,
                                void* stream) {
   return run(1, q, k, v, dout, m, l, delta, dk, dv, static_cast<float*>(ws),
-             B, Sq, Sk, KV, G, hd, scale, causal, window, dtype, nsplit,
+             B, Sq, Sk, KV, G, hd, scale, causal, window, prefix, dtype, nsplit,
              stream);
 }

@@ -65,6 +65,17 @@
 // Both forms, as in emit.py: masked scores take MASK_NEG_INF (the bf16
 // form adds their p = exp(MASK_NEG_INF - m) = 0 as an exact 0), p is cast
 // to V's dtype before P.V, and the flush divides by max(l, 1e-30).
+//
+// The mask (emit.py:315-329): with causal = 0 every key is visible (the
+// encoder's and cross-attention's bidirectional form, Sq and Sk free);
+// else key j is visible from query i when j <= i (and j > i - window with
+// a window), or when both lie below `prefix` (the prefix-LM form: the
+// image patches attend to each other both ways).  The prefix re-admits
+// key tiles above the diagonal: a row tile with a position below the
+// prefix reads keys from 0 to at least the prefix's end (key_tiles), and
+// every tile that crosses the diagonal already takes the element mask,
+// so the prefix only widens the key range.  prefix = 0 is the causal
+// form as it was, the same tiles and the same bits.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -112,7 +123,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out,
           float* __restrict__ m_out, float* __restrict__ l_out, int Sq,
-          int Sk, int KV, int G, float scale, int causal, int window) {
+          int Sk, int KV, int G, float scale, int causal, int window,
+          int prefix) {
   constexpr int PITCH = HD + 16 / sizeof(T);   // 16-byte rows, staggered banks
   constexpr int KPT = BN / 4;                  // keys scored per thread
   constexpr int DPT = HD / 4;                  // acc columns per thread
@@ -139,13 +151,18 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   };
   load_rows<T, HD>(Qs, PITCH, q, BM, q_off);
 
-  // key range this tile of rows can see (causal block-skip + window)
+  // key range this tile of rows can see (causal block-skip + window; rows
+  // below the prefix also see every key below it)
   const int qmin = r0 / G;
   const int qmax = min(Sq - 1, (min(r0 + BM, rows) - 1) / G);
   int kend = Sk, kstart = 0;
   if (causal) {
     kend = min(Sk, qmax + 1);
     if (window > 0) kstart = max(0, qmin - window + 1);
+    if (qmin < prefix) {
+      kend = max(kend, min(Sk, prefix));
+      kstart = 0;
+    }
   }
   kstart = (kstart / BN) * BN;
 
@@ -174,10 +191,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int d = 0; d < HD; ++d) dot = fmaf(to_f(qr[d]), to_f(kr[d]), dot);
       const int kp = k0 + c;
       bool ok = kp < Sk;
-      if (causal) {
-        ok = ok && kp <= qpos;
-        if (window > 0) ok = ok && kp > qpos - window;
-      }
+      if (causal)
+        ok = ok && ((kp <= qpos && (window <= 0 || kp > qpos - window)) ||
+                    (qpos < prefix && kp < prefix));
       s[j] = ok ? dot * scale : MASK_NEG_INF;
       m_tile = fmaxf(m_tile, s[j]);
     }
@@ -222,7 +238,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD, int BN>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* m_out, float* l_out, int B, int Sq, int Sk, int KV, int G,
-           float scale, int causal, int window, cudaStream_t s) {
+           float scale, int causal, int window, int prefix, cudaStream_t s) {
   constexpr int PITCH = HD + 16 / sizeof(T);
   const size_t smem = (size_t)(BM + 2 * BN) * PITCH * sizeof(T) +
                       (size_t)BM * (BN + 1) * sizeof(float);
@@ -234,25 +250,25 @@ int launch(const void* q, const void* k, const void* v, void* out,
   kern<<<grid, THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), m_out, l_out, Sq, Sk,
-      KV, G, scale, causal, window);
+      KV, G, scale, causal, window, prefix);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int BN>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v,
                 void* out, float* m_out, float* l_out, int B, int Sq, int Sk,
-                int KV, int G, float scale, int causal, int window,
+                int KV, int G, float scale, int causal, int window, int prefix,
                 cudaStream_t s) {
   switch (hd) {
     case 64:
       return launch<T, 64, BN>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
-                               scale, causal, window, s);
+                               scale, causal, window, prefix, s);
     case 128:
       return launch<T, 128, BN>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
-                                scale, causal, window, s);
+                                scale, causal, window, prefix, s);
     case 256:
       return launch<T, 256, BN>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
-                                scale, causal, window, s);
+                                scale, causal, window, prefix, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -283,10 +299,11 @@ __host__ __device__ constexpr int stages(int hd, int nwg) {
 }
 
 __device__ __forceinline__ bool visible(int kp, int qp, int Sk, int causal,
-                                        int window) {
+                                        int window, int prefix) {
   if (kp >= Sk) return false;
   if (!causal) return true;
-  return kp <= qp && (window <= 0 || kp > qp - window);
+  return (kp <= qp && (window <= 0 || kp > qp - window)) ||
+         (qp < prefix && kp < prefix);
 }
 
 template <int HD, int NWG>
@@ -296,7 +313,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_k,
              const bf16* __restrict__ q, bf16* __restrict__ out,
              float* __restrict__ m_out, float* __restrict__ l_out, int Sq,
              int Sk, int KV, int G, float scale_log2, int causal,
-             int window) {
+             int window, int prefix) {
   constexpr int BN = keys_per_tile(HD, NWG);
   constexpr uint32_t Q_BYTES = tile_bytes(64, HD);
   using Ring = KVRing<HD, BN, stages(HD, NWG)>;
@@ -307,8 +324,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_k,
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int rows = Sq * G;
   int kstart, ntiles;
-  key_tiles(blockIdx.x * 64 * NWG, 64 * NWG, Sq, Sk, G, causal, window, BN,
-            kstart, ntiles);
+  key_tiles(blockIdx.x * 64 * NWG, 64 * NWG, Sq, Sk, G, causal, window,
+            prefix, BN, kstart, ntiles);
 
   if (threadIdx.x == NWG * 128) {
     prefetch_map(&tm_k);
@@ -403,8 +420,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_k,
           float c = sc[4 * j + 2 + e];
           if (need_mask) {
             const int kp = k0 + 8 * j + 2 * t4 + e;
-            if (!visible(kp, qp0, Sk, causal, window)) a = -INFINITY;
-            if (!visible(kp, qp1, Sk, causal, window)) c = -INFINITY;
+            if (!visible(kp, qp0, Sk, causal, window, prefix)) a = -INFINITY;
+            if (!visible(kp, qp1, Sk, causal, window, prefix)) c = -INFINITY;
           }
           sc[4 * j + e] = a;
           sc[4 * j + 2 + e] = c;
@@ -539,7 +556,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_k,
 template <int HD, int NWG>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* m_out, float* l_out, int B, int Sq, int Sk, int KV, int G,
-           float scale, int causal, int window, cudaStream_t s) {
+           float scale, int causal, int window, int prefix, cudaStream_t s) {
   constexpr int BN = keys_per_tile(HD, NWG);
   CUtensorMap tm_k, tm_v;
   int err = encode_rows_map(&tm_k, k, B, Sk, KV, HD, BN);
@@ -554,7 +571,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((Sq * G + 64 * NWG - 1) / (64 * NWG), KV, B);
   kern<<<grid, 128 * (NWG + 1), smem, s>>>(
       tm_k, tm_v, static_cast<const bf16*>(q), static_cast<bf16*>(out),
-      m_out, l_out, Sq, Sk, KV, G, scale * LOG2E, causal, window);
+      m_out, l_out, Sq, Sk, KV, G, scale * LOG2E, causal, window, prefix);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -562,28 +579,30 @@ int launch(const void* q, const void* k, const void* v, void* out,
 template <int HD>
 int launch_rows(const void* q, const void* k, const void* v, void* out,
                 float* m_out, float* l_out, int B, int Sq, int Sk, int KV,
-                int G, float scale, int causal, int window, cudaStream_t s) {
+                int G, float scale, int causal, int window, int prefix,
+                cudaStream_t s) {
   const long long blocks128 = (long long)((Sq * G + 127) / 128) * KV * B;
   if (blocks128 >= sm_count())
     return launch<HD, 2>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G, scale,
-                         causal, window, s);
+                         causal, window, prefix, s);
   return launch<HD, 1>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G, scale,
-                       causal, window, s);
+                       causal, window, prefix, s);
 }
 
 int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
              float* m_out, float* l_out, int B, int Sq, int Sk, int KV,
-             int G, float scale, int causal, int window, cudaStream_t s) {
+             int G, float scale, int causal, int window, int prefix,
+             cudaStream_t s) {
   switch (hd) {
     case 64:
       return launch_rows<64>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
-                             scale, causal, window, s);
+                             scale, causal, window, prefix, s);
     case 128:
       return launch_rows<128>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
-                              scale, causal, window, s);
+                              scale, causal, window, prefix, s);
     case 256:
       return launch_rows<256>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
-                              scale, causal, window, s);
+                              scale, causal, window, prefix, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -599,11 +618,12 @@ extern "C" const char* repro_error_string(int code) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike); hd in
 // {64, 128, 256}; all tensors contiguous and 16-byte aligned.  m_out and
-// l_out: both null (no export) or both (B, KV, G, Sq) float32.
+// l_out: both null (no export) or both (B, KV, G, Sq) float32.  window and
+// prefix apply with causal = 1 only (0: none).
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, void* m_out, void* l_out, int B,
                                int Sq, int Sk, int KV, int G, int hd,
-                               float scale, int causal, int window,
+                               float scale, int causal, int window, int prefix,
                                int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((m_out == nullptr) != (l_out == nullptr))
@@ -612,9 +632,9 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
   float* lo = static_cast<float*>(l_out);
   if (dtype == 1)
     return tc::dispatch(hd, q, k, v, out, mo, lo, B, Sq, Sk, KV, G, scale,
-                        causal, window, s);
+                        causal, window, prefix, s);
   if (dtype == 0)
     return dispatch_hd<float, 32>(hd, q, k, v, out, mo, lo, B, Sq, Sk, KV, G,
-                                  scale, causal, window, s);
+                                  scale, causal, window, prefix, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

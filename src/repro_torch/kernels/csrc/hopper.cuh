@@ -507,11 +507,14 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 // The key tiles of BN keys that a block of query rows [r0, r0 + bm) reads
 // (rows are (position, group head) pairs, G heads a position): the causal
 // block-skip (stop at the diagonal) and the window (start at its first
-// tile).  At least one tile, so producer and consumers always meet: a
-// block whose rows see no key reads one masked tile.
+// tile); a block with a row below the prefix (prefix-LM) reads from key 0
+// to at least the prefix's end, whose keys every such row sees.  At least
+// one tile, so producer and consumers always meet: a block whose rows see
+// no key reads one masked tile.
 __device__ __forceinline__ void key_tiles(int r0, int bm, int Sq, int Sk,
                                           int G, int causal, int window,
-                                          int bn, int& kstart, int& ntiles) {
+                                          int prefix, int bn, int& kstart,
+                                          int& ntiles) {
   const int rows = Sq * G;
   const int qmin = r0 / G;
   const int qmax = min(Sq - 1, (min(r0 + bm, rows) - 1) / G);
@@ -520,6 +523,10 @@ __device__ __forceinline__ void key_tiles(int r0, int bm, int Sq, int Sk,
   if (causal) {
     kend = min(Sk, qmax + 1);
     if (window > 0) kstart = max(0, qmin - window + 1);
+    if (qmin < prefix) {
+      kend = max(kend, min(Sk, prefix));
+      kstart = 0;
+    }
   }
   kstart = (kstart / bn) * bn;
   ntiles = max(1, (kend - kstart + bn - 1) / bn);

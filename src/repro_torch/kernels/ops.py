@@ -105,10 +105,9 @@ _SIGNATURES = {
     "repro_head_gemm": ("gemm", [_P] * 4 + [_C] * 6
                         + [ctypes.c_longlong] * 4),
     "repro_split_bf16": ("gemm", [_P] * 4 + [ctypes.c_longlong]),
-    "repro_flash_fwd": ("flash_fwd", [_P] * 6 + [_C] * 6 + [_F, _C, _C, _C]),
-    "repro_flash_dq": ("flash_bwd", [_P] * 8 + [_C] * 6 + [_F, _C, _C, _C]),
-    "repro_flash_dkv": ("flash_bwd", [_P] * 10 + [_C] * 6
-                        + [_F, _C, _C, _C, _C]),
+    "repro_flash_fwd": ("flash_fwd", [_P] * 6 + [_C] * 6 + [_F] + [_C] * 4),
+    "repro_flash_dq": ("flash_bwd", [_P] * 8 + [_C] * 6 + [_F] + [_C] * 4),
+    "repro_flash_dkv": ("flash_bwd", [_P] * 10 + [_C] * 6 + [_F] + [_C] * 5),
     "repro_paged_decode": ("paged_decode", [_P] * 7 + [_C] * 7
                            + [_F, _C, _C]),
     "repro_ssd_workspace": ("ssd", [_C] * 7),
@@ -737,12 +736,11 @@ def head_matmul(x: torch.Tensor, w: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def _check_attention(q, k, v, causal, window, prefix_len) -> None:
-    if prefix_len:
-        raise NotImplementedError(
-            "prefix_len > 0 (the VLM prefix-LM mask) is not ported yet; see "
-            "ROADMAP.md, Queue 1, the enc-dec/VLM families")
-    if not causal and window:
-        raise ValueError(f"window={window} requires causal attention")
+    # the reference's honor-or-raise contract (emit.py:289-292): a window
+    # or a prefix is a refinement of the causal mask
+    if not causal and (window or prefix_len):
+        raise ValueError(f"window={window} / prefix_len={prefix_len} "
+                         f"require causal attention")
     b, sq, kv, g, hd = q.shape
     if k.shape[0] != b or k.shape[2] != kv or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"attention shape mismatch q {tuple(q.shape)} "
@@ -778,14 +776,14 @@ def _check_stats(what: str, shape, *stats: torch.Tensor) -> None:
                              f"{t.dtype} {tuple(t.shape)}")
 
 
-def _flash_fwd(q, k, v, scale, causal, window, export: bool):
+def _flash_fwd(q, k, v, scale, causal, window, prefix_len, export: bool):
     """K2 or its plain version: ``out``, plus ``(m, l)`` when ``export``."""
     if not _use_kernel(q, k, v):
+        args = dict(scale=scale, causal=causal, window=window,
+                    prefix_len=prefix_len)
         if export:
-            return ref.attention_stats(q, k, v, scale=scale, causal=causal,
-                                       window=window)
-        return ref.attention(q, k, v, scale=scale, causal=causal,
-                             window=window)
+            return ref.attention_stats(q, k, v, **args)
+        return ref.attention(q, k, v, **args)
     b, sq, kv, g, hd = q.shape
     dtype = _check_flash("flash_fwd", (q, k, v), hd)
     out = torch.empty((b, sq, kv * g, hd), device=q.device, dtype=q.dtype)
@@ -796,7 +794,7 @@ def _flash_fwd(q, k, v, scale, causal, window, export: bool):
     _launch("repro_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), m.data_ptr() if export else None,
             l.data_ptr() if export else None, b, sq, k.shape[1], kv, g, hd,
-            float(scale), int(causal), int(window), dtype)
+            float(scale), int(causal), int(window), int(prefix_len), dtype)
     LAUNCHES["K2"] += 1
     return (out, m, l) if export else out
 
@@ -810,24 +808,26 @@ class _FlashAttention(torch.autograd.Function):
     the latter already summed over the query heads of each KV head."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, window):
-        out, m, l = _flash_fwd(q, k, v, scale, causal, window, export=True)
+    def forward(ctx, q, k, v, scale, causal, window, prefix_len):
+        out, m, l = _flash_fwd(q, k, v, scale, causal, window, prefix_len,
+                               export=True)
         ctx.save_for_backward(q, k, v, out, m, l)
-        ctx.args = (scale, causal, window)
+        ctx.args = (scale, causal, window, prefix_len)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, m, l = ctx.saved_tensors
-        scale, causal, window = ctx.args
+        scale, causal, window, prefix_len = ctx.args
         b, sq, kv, g, _ = q.shape
         do = dout.contiguous().reshape(b, sq, kv, g, -1)
         delta = (do.float() * out.reshape(do.shape).float()).sum(-1)
         delta = delta.permute(0, 2, 3, 1).contiguous()     # (b, kv, g, sq)
-        args = dict(scale=scale, causal=causal, window=window)
+        args = dict(scale=scale, causal=causal, window=window,
+                    prefix_len=prefix_len)
         dq = flash_dq(q, k, v, do, m, l, delta, **args)
         dk, dv = flash_dkv(q, k, v, do, m, l, delta, **args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -836,26 +836,32 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Grouped-query attention, the flash forward.
 
     ``q (B, Sq, KV, G, hd)`` (K/V heads never repeated), ``k/v (B, Sk, KV,
-    hd)`` -> ``(B, Sq, KV*G, hd)`` in ``q.dtype``.  ``window`` (causal
-    only) drops keys more than ``window`` behind the query.
+    hd)`` -> ``(B, Sq, KV*G, hd)`` in ``q.dtype``.  ``causal=False`` is
+    the bidirectional form (any Sq, Sk: the encoder, cross-attention);
+    ``window`` (causal only) drops keys more than ``window`` behind the
+    query; ``prefix_len`` (causal only, the prefix-LM) makes the leading
+    ``prefix_len`` positions attend to each other both ways.
     Differentiable: when a gradient is wanted the forward exports (m, l)
     and the backward runs K3 and K4."""
     _check_attention(q, k, v, causal, window, prefix_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, float(scale), bool(causal),
-                                     int(window))
-    return _flash_fwd(q, k, v, scale, causal, window, export=False)
+                                     int(window), int(prefix_len))
+    return _flash_fwd(q, k, v, scale, causal, window, prefix_len,
+                      export=False)
 
 
 def attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float, causal: bool = True, window: int = 0
+                    scale: float, causal: bool = True, window: int = 0,
+                    prefix_len: int = 0
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2 with its state export: ``(out, m, l)``, ``out`` as
     :func:`attention` returns it (the same bits), ``m, l (B, KV, G, Sq)``
     f32 the final running max and denominator of each row."""
-    _check_attention(q, k, v, causal, window, 0)
-    return _flash_fwd(q, k, v, scale, causal, window, export=True)
+    _check_attention(q, k, v, causal, window, prefix_len)
+    return _flash_fwd(q, k, v, scale, causal, window, prefix_len,
+                      export=True)
 
 
 def _bwd_args(what, q, k, v, do, m, l, delta):
@@ -872,18 +878,21 @@ def _bwd_args(what, q, k, v, do, m, l, delta):
 def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              do: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
              delta: torch.Tensor, *, scale: float, causal: bool = True,
-             window: int = 0) -> torch.Tensor:
+             window: int = 0, prefix_len: int = 0) -> torch.Tensor:
     """K3: dq ``(B, Sq, KV, G, hd)`` in ``q.dtype`` from ``do (B, Sq, KV,
     G, vd)`` and the saved ``m, l`` with ``delta = rowsum(dO * out)``, all
-    three ``(B, KV, G, Sq)`` f32."""
+    three ``(B, KV, G, Sq)`` f32; the mask as :func:`attention`'s."""
+    _check_attention(q, k, v, causal, window, prefix_len)
     if not _use_kernel(q, k, v, do, m, l, delta):
         return ref.flash_dq(q, k, v, do, m, l, delta, scale=scale,
-                            causal=causal, window=window)
+                            causal=causal, window=window,
+                            prefix_len=prefix_len)
     ptrs, dtype = _bwd_args("flash_dq", q, k, v, do, m, l, delta)
     b, sq, kv, g, hd = q.shape
     dq = torch.empty_like(q)
     _launch("repro_flash_dq", *ptrs, dq.data_ptr(), b, sq, k.shape[1], kv,
-            g, hd, float(scale), int(causal), int(window), dtype)
+            g, hd, float(scale), int(causal), int(window), int(prefix_len),
+            dtype)
     LAUNCHES["K3"] += 1
     return dq
 
@@ -891,12 +900,16 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               do: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
               delta: torch.Tensor, *, scale: float, causal: bool = True,
-              window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+              window: int = 0, prefix_len: int = 0
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """K4: ``(dk, dv)``, each ``(B, Sk, KV, hd)`` in k's / v's dtype,
-    summed over the G query heads that share each KV head."""
+    summed over the G query heads that share each KV head; the mask as
+    :func:`attention`'s."""
+    _check_attention(q, k, v, causal, window, prefix_len)
     if not _use_kernel(q, k, v, do, m, l, delta):
         return ref.flash_dkv(q, k, v, do, m, l, delta, scale=scale,
-                             causal=causal, window=window)
+                             causal=causal, window=window,
+                             prefix_len=prefix_len)
     ptrs, dtype = _bwd_args("flash_dkv", q, k, v, do, m, l, delta)
     b, sq, kv, g, hd = q.shape
     sk = k.shape[1]
@@ -904,13 +917,15 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # the tensor-core form (bf16, G dividing its row tile) with its row
     # stream split over nsplit blocks a key tile, whose f32 partials a
     # second pass sums in split order; nsplit = 0 takes the FMA kernel
-    nsplit = dkv_splits(b, sq, sk, kv, g, bool(causal), int(window)) \
+    nsplit = dkv_splits(b, sq, sk, kv, g, bool(causal), int(window),
+                        int(prefix_len)) \
         if dtype == 1 and DKV_ROWS % g == 0 else 0
     ws = torch.empty((2, nsplit, b, sk, kv, hd), device=q.device,
                      dtype=torch.float32) if nsplit > 1 else None
     _launch("repro_flash_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(),
             None if ws is None else ws.data_ptr(), b, sq, sk, kv, g, hd,
-            float(scale), int(causal), int(window), dtype, nsplit)
+            float(scale), int(causal), int(window), int(prefix_len), dtype,
+            nsplit)
     LAUNCHES["K4"] += 1
     return dk, dv
 
@@ -920,11 +935,12 @@ DKV_KEYS = DKV_ROWS = 64
 
 
 def dkv_row_tiles(j0: int, sq: int, sk: int, g: int, causal: bool,
-                  window: int) -> tuple[int, int]:
+                  window: int, prefix_len: int = 0) -> tuple[int, int]:
     """``(first, count)``: the 64-row tiles of the streamed (position,
     group head) rows that can see a key of the tile starting at ``j0``
-    (the kernel's ``dkv_row_tiles``): the forward's causal and window
-    block-skip with the roles swapped."""
+    (the kernel's ``dkv_row_tiles``): the forward's causal, window and
+    prefix block-skip with the roles swapped (a key tile that starts below
+    the prefix is seen from row 0)."""
     rows = sq * g
     rstart, rend = 0, rows
     if causal:
@@ -932,20 +948,24 @@ def dkv_row_tiles(j0: int, sq: int, sk: int, g: int, causal: bool,
         if window > 0:
             jmax = min(sk, j0 + DKV_KEYS) - 1
             rend = min(rows, (jmax + window) * g)
+        if j0 < prefix_len:
+            rstart = 0
+            rend = max(rend, min(rows, prefix_len * g))
     t0 = rstart // DKV_ROWS
     return t0, max(0, -(-rend // DKV_ROWS) - t0)
 
 
 @functools.lru_cache(maxsize=256)
 def dkv_splits(b: int, sq: int, sk: int, kv: int, g: int, causal: bool,
-               window: int) -> int:
+               window: int, prefix_len: int = 0) -> int:
     """How many blocks share each key tile's row stream in K4's
     tensor-core form: enough for two blocks a SM over the grid, at most a
     key tile's row tiles.  Split ``s`` of a key tile with ``count`` row
     tiles takes ``[first + s * per, first + min(count, (s + 1) * per))``,
     ``per = ceil(count / nsplit)``."""
     key_tiles = -(-sk // DKV_KEYS)
-    most = max((dkv_row_tiles(j * DKV_KEYS, sq, sk, g, causal, window)[1]
+    most = max((dkv_row_tiles(j * DKV_KEYS, sq, sk, g, causal, window,
+                              prefix_len)[1]
                 for j in range(key_tiles)), default=0)
     base = key_tiles * kv * b
     return max(1, min(most, -(-2 * SM_COUNT // base)))

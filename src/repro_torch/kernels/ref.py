@@ -67,29 +67,36 @@ def split_bf16(g: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return hi, mid, lo
 
 
-def _mask(sq: int, sk: int, causal: bool, window: int, device):
-    """(sq, sk) bool: key j visible from query i (causal, window)."""
+def _mask(sq: int, sk: int, causal: bool, window: int, device,
+          prefix_len: int = 0):
+    """(sq, sk) bool, the causal mask: key j visible from query i when ``j
+    <= i`` (and ``j > i - window`` with a window), or when both lie below
+    ``prefix_len`` (the prefix-LM's bidirectional block)."""
     qpos = torch.arange(sq, device=device)[:, None]
     kpos = torch.arange(sk, device=device)[None, :]
     mask = kpos <= qpos
     if window:
         mask = mask & (kpos > qpos - window)
+    if prefix_len:
+        mask = mask | ((qpos < prefix_len) & (kpos < prefix_len))
     return mask
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool,
-            window: int) -> torch.Tensor:
+            window: int, prefix_len: int = 0) -> torch.Tensor:
     """Masked f32 scores ``(B, KV, G, Sq, Sk)`` on the grouped layout;
-    masked entries take ``MASK_NEG_INF``."""
+    masked entries take ``MASK_NEG_INF``; no mask unless ``causal``."""
     s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
     if causal:
-        mask = _mask(q.shape[1], k.shape[1], causal, window, q.device)
+        mask = _mask(q.shape[1], k.shape[1], causal, window, q.device,
+                     prefix_len)
         s = torch.where(mask, s, MASK_NEG_INF)
     return s
 
 
 def attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float, causal: bool = True, window: int = 0
+                    scale: float, causal: bool = True, window: int = 0,
+                    prefix_len: int = 0
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Masked-softmax attention on the grouped layout, with the softmax
     statistics.
@@ -102,7 +109,7 @@ def attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     denominator, as the flash kernel does."""
     b, sq, kv, g, _ = q.shape
     vd = v.shape[-1]
-    s = _scores(q, k, scale, causal, window)
+    s = _scores(q, k, scale, causal, window, prefix_len)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -113,18 +120,19 @@ def attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              scale: float, causal: bool = True,
-              window: int = 0) -> torch.Tensor:
+              scale: float, causal: bool = True, window: int = 0,
+              prefix_len: int = 0) -> torch.Tensor:
     """:func:`attention_stats` without the statistics."""
     return attention_stats(q, k, v, scale=scale, causal=causal,
-                           window=window)[0]
+                           window=window, prefix_len=prefix_len)[0]
 
 
-def _probs_and_ds(q, k, v, do, m, l, delta, scale, causal, window):
+def _probs_and_ds(q, k, v, do, m, l, delta, scale, causal, window,
+                  prefix_len):
     """The flash backward's rebuilt ``p = exp(s - (m + log max(l,
     1e-30)))`` (f32, NOT rounded to v's dtype, as in the reference) and
     ``dS = p * (dO.v - delta)``, both ``(B, KV, G, Sq, Sk)``."""
-    s = _scores(q, k, scale, causal, window)
+    s = _scores(q, k, scale, causal, window, prefix_len)
     lse = m.float() + torch.log(l.float().clamp_min(1e-30))
     p = torch.exp(s - lse[..., None])
     dp = torch.einsum("bqhgd,bkhd->bhgqk", do.float(), v.float())
@@ -134,12 +142,13 @@ def _probs_and_ds(q, k, v, do, m, l, delta, scale, causal, window):
 def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              do: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
              delta: torch.Tensor, *, scale: float, causal: bool = True,
-             window: int = 0) -> torch.Tensor:
+             window: int = 0, prefix_len: int = 0) -> torch.Tensor:
     """Flash-backward dq, unblocked: ``q, do (B, Sq, KV, G, ·)``, ``k, v
     (B, Sk, KV, ·)``, ``m, l, delta (B, KV, G, Sq)`` f32 -> ``dq (B, Sq,
     KV, G, hd)`` in ``q.dtype``; the scale applied once at the end (the
     semantics of ``repro.kernels.ref.flash_dq_ref``)."""
-    _, ds = _probs_and_ds(q, k, v, do, m, l, delta, scale, causal, window)
+    _, ds = _probs_and_ds(q, k, v, do, m, l, delta, scale, causal, window,
+                          prefix_len)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
     return dq.to(q.dtype)
 
@@ -147,11 +156,13 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               do: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
               delta: torch.Tensor, *, scale: float, causal: bool = True,
-              window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+              window: int = 0, prefix_len: int = 0
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Flash-backward dk, dv, unblocked and summed over the query heads of
     each KV head in f32 (the reference's ``flash_dkv_ref`` followed by its
     group sum): ``(B, Sk, KV, hd)`` each, in k's / v's dtype."""
-    p, ds = _probs_and_ds(q, k, v, do, m, l, delta, scale, causal, window)
+    p, ds = _probs_and_ds(q, k, v, do, m, l, delta, scale, causal, window,
+                          prefix_len)
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, q.float()) * scale
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)

@@ -1,6 +1,8 @@
-"""Attention (``repro.models.attention``): the prefill forward, the dense
-family's decodes (contiguous per-slot caches, one sequence's paged view,
-every slot's paged views in one launch), the ring-cache decode of the
+"""Attention (``repro.models.attention``): the full-sequence forward
+(causal, windowed or prefix-LM; bidirectional for the encoder; cross-
+attention over given K/V), the dense family's decodes (contiguous
+per-slot caches, one sequence's paged view, every slot's paged views in
+one launch), the ring-cache decode of the
 local (windowed) layers, and MLA (multi-head latent attention: the
 non-absorbed forward on K2, the absorbed one-token decode over the
 latent cache on K1's head form).  The q/k/v and output biases
@@ -75,16 +77,29 @@ def _out(p, out: torch.Tensor, cfg: ArchConfig, dtype) -> torch.Tensor:
 
 def attention_fwd(p, x: torch.Tensor, cfg: ArchConfig, *,
                   positions: torch.Tensor, window: int = 0,
-                  prefix_len: int = 0) -> tuple[torch.Tensor, KV]:
-    """Causal full-sequence attention (prefill) through the K2 flash
-    kernel.  Returns the output and the rotated per-layer K/V for the
-    cache.  ``prefix_len > 0`` (the VLM prefix-LM) raises for now."""
+                  causal: bool = True, prefix_len: int = 0,
+                  kv_override: KV | None = None) -> tuple[torch.Tensor, KV]:
+    """Full-sequence attention (training, prefill) through the K2 flash
+    kernel.  Returns the output and the per-layer K/V (rotated) for the
+    cache.  ``prefix_len``: the leading positions attend to each other
+    both ways (the VLM's prefix-LM over its image patches).  ``causal``
+    False: bidirectional (the whisper encoder; the reference takes it in
+    einsums, the port on K2's bidirectional form).  ``kv_override``: the
+    given K/V are attended to, and none are projected (whisper's
+    cross-attention; the queries are not rotated, as in the reference).
+    A window or a prefix without ``causal`` raises (``ops.attention``)."""
     b, s, _ = x.shape
     hd = p["wq"].shape[-1]
-    q, k, v = _qkv(p, x, cfg, positions)
+    if kv_override is None:
+        q, k, v = _qkv(p, x, cfg, positions)
+    else:
+        q = _proj(x, p["wq"])
+        if cfg.use_bias:
+            q = q + p["bq"].to(x.dtype)
+        k, v = kv_override
     kvh = k.shape[2]
     qg = q.reshape(b, s, kvh, q.shape[2] // kvh, hd)
-    out = ops.attention(qg, k, v, scale=hd ** -0.5, causal=True,
+    out = ops.attention(qg, k, v, scale=hd ** -0.5, causal=causal,
                         window=window, prefix_len=prefix_len)
     return _out(p, out, cfg, x.dtype), KV(k, v)
 

@@ -1,5 +1,6 @@
-"""Building-block layers: norms, the gated MLP, rotary embeddings, the
-embedding and the vocab head (``repro.models.layers``).
+"""Building-block layers: norms, the gated MLP, rotary and sinusoidal
+position embeddings, the embedding and the vocab head
+(``repro.models.layers``).
 
 Plain functions over parameter dicts (``nn.ParameterDict`` or any mapping
 of tensors): RMSNorm or LayerNorm, the MLP with or without its biases.
@@ -80,6 +81,20 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
     c = cos[..., None, :rot // 2]
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
     return torch.cat([out, xp], dim=-1) if rot < hd else out
+
+
+def sinusoid_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal position encodings ``(..., d)`` f32
+    of integer ``positions`` (any shape): ``[sin(p f), cos(p f)]`` with
+    ``f_i = exp(-i log(10000) / (d/2 - 1))``, every step in f32 as the
+    reference's."""
+    half = d // 2
+    # a CPU scalar tensor: no host-to-device copy (and no stream sync)
+    step = torch.log(torch.tensor(10000.0)) / (half - 1)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) * step)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def embed_tokens(params, tokens: torch.Tensor,

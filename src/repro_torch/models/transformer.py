@@ -1,7 +1,9 @@
 """Decoder-LM assembly (``repro.models.transformer``) for the dense family
 with full attention (RMSNorm or LayerNorm, with or without biases,
 sequential or parallel blocks) or MLA (multi-head latent attention,
-minicpm3-4b), the attention-free ssm (Mamba-2) family,
+minicpm3-4b), the vlm family (paligemma-3b: the dense stack behind a
+``frontend.adapter`` over stub patch embeddings, prefix-LM attention over
+the patches), the attention-free ssm (Mamba-2) family,
 the hybrid (RG-LRU + local attention) family and the moe family
 (deepseek: dense first layers, then attention + MoE FFN layers; llama4:
 groups of a ``layer_pattern`` of local (windowed) and full attention
@@ -27,10 +29,10 @@ indexes the stacked tensors.
 Entry points:
 
     init_lm(cfg, generator, device, trainable) -> params
-    forward(params, cfg, tokens, want_cache, with_aux)
+    forward(params, cfg, tokens, want_cache, with_aux, patches)
                                                -> (hidden, cache[, aux])
-    lm_loss(params, cfg, tokens, targets)      -> (loss, metrics)
-    prefill(params, cfg, tokens)               -> (logits, cache)
+    lm_loss(params, cfg, tokens, targets, patches) -> (loss, metrics)
+    prefill(params, cfg, tokens, patches)      -> (logits, cache)
     init_cache(cfg, batch, cache_len, ...)     -> decode cache
     decode_step(params, cfg, tokens, pos, cache) -> (logits, cache)
     dense, ssm:
@@ -43,6 +45,7 @@ Entry points:
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -51,18 +54,20 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.common import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, rglru, ssm
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        logits_from_hidden)
 
-DENSE, MLA, SSM, HYBRID, MOE = (("dense", "full"), ("dense", "mla"),
-                                ("ssm", "none"), ("hybrid", "full"),
-                                ("moe", "full"))
+DENSE, MLA, SSM, HYBRID, MOE, VLM = (("dense", "full"), ("dense", "mla"),
+                                     ("ssm", "none"), ("hybrid", "full"),
+                                     ("moe", "full"), ("vlm", "full"))
 
 
 def _check_family(cfg: ArchConfig, what: str,
-                  ported: tuple = (DENSE, MLA, SSM, HYBRID, MOE)) -> None:
+                  ported: tuple = (DENSE, MLA, SSM, HYBRID, MOE, VLM)
+                  ) -> None:
     if (cfg.family, cfg.attention) not in ported:
         raise NotImplementedError(
             f"{what}: the port covers {' and '.join(map(str, ported))} as "
@@ -203,6 +208,8 @@ def param_shapes(cfg: ArchConfig) -> dict:
             shapes["layers.ln2"] = _norm_shapes(cfg, (L,))
         shapes.update({"layers.attn": _attn_shapes(cfg, (L,)),
                        "layers.mlp": _mlp_shapes(cfg, (L,))})
+        if cfg.family == "vlm":
+            shapes["frontend"] = {"adapter": ((d, d), d ** -0.5)}
     return shapes
 
 
@@ -241,10 +248,17 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator,
     different numbers from one seed: tests carry the JAX draw across with
     ``convert.params_from_numpy`` instead.)  ``trainable`` as in
     :func:`build_params`."""
+    return draw_params(param_shapes(cfg), cfg, generator, device, trainable)
+
+
+def draw_params(shapes: dict, cfg: ArchConfig, generator: torch.Generator,
+                device="cuda", trainable: bool = False) -> nn.ModuleDict:
+    """The parameter tree of ``shapes`` (as :func:`param_shapes` gives
+    them), drawn in their order as :func:`init_lm` describes."""
     device = resolve_device(device)
     dtype = getattr(torch, str(cfg.dtype))
     tensors = {}
-    for group, leaves in param_shapes(cfg).items():
+    for group, leaves in shapes.items():
         tensors[group] = {}
         for name, (shape, scale, *own) in leaves.items():
             dt = getattr(torch, own[0]) if own else dtype
@@ -337,16 +351,18 @@ def _with_mlp(lp: dict, x: torch.Tensor, h: torch.Tensor,
 
 
 def _block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
-           positions: torch.Tensor, want_cache: bool):
-    """One pre-norm attention layer (dense, or the hybrid's local layer):
-    returns the new residual and its K/V (MLA: its ``MLACache``)."""
+           positions: torch.Tensor, want_cache: bool, prefix_len: int = 0):
+    """One pre-norm attention layer (dense or vlm, with the prefix-LM's
+    ``prefix_len``; or the hybrid's local layer): returns the new residual
+    and its K/V (MLA: its ``MLACache``)."""
     h = apply_norm(lp["ln1"], x, cfg)
     if cfg.attention == "mla":
         a_out, kv = attn.mla_fwd(lp["attn"], h, cfg, positions=positions)
     else:
         a_out, kv = attn.attention_fwd(lp["attn"], h, cfg,
                                        positions=positions,
-                                       window=cfg.local_window)
+                                       window=cfg.local_window,
+                                       prefix_len=prefix_len)
     return _with_mlp(lp, x, h, a_out, cfg), kv
 
 
@@ -386,7 +402,7 @@ def _moe_local_block(lp: dict, x: torch.Tensor, cfg: ArchConfig,
     return _moe_block(lp, x, cfg, positions, want_cache, cfg.local_window)
 
 
-_BLOCKS = {"dense": _block, "local": _block, "ssm": _ssm_block,
+_BLOCKS = {"dense": _block, "vlm": _block, "local": _block, "ssm": _ssm_block,
            "rglru": _rglru_block, "moe": _moe_block, "moe_full": _moe_block,
            "moe_local": _moe_local_block}
 
@@ -433,10 +449,30 @@ def _stack_caches(cfg: ArchConfig, caches: list):
     return out
 
 
+def _embed_inputs(params, cfg: ArchConfig, tokens: torch.Tensor,
+                  patches: torch.Tensor | None) -> tuple[torch.Tensor, int]:
+    """The embedded sequence and its prefix length: the token embeddings,
+    behind the adapted patches (``patches @ frontend.adapter`` on K1, in
+    the model's dtype) for the vlm family, whose prefix they are."""
+    x = embed_tokens(params, tokens, cfg)
+    if cfg.family != "vlm":
+        return x, 0
+    if patches is None:
+        raise ValueError("the vlm family's forward takes patches (B, P, d) "
+                         "beside the tokens")
+    pe = ops.matmul(patches.to(x.dtype), params["frontend"]["adapter"],
+                    out_dtype=x.dtype)
+    return torch.cat([pe, x], dim=1), patches.shape[1]
+
+
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
-            want_cache: bool = True, with_aux: bool = False):
+            want_cache: bool = True, with_aux: bool = False,
+            patches: torch.Tensor | None = None):
     """Full-sequence forward: ``(hidden (B, S, d), cache)``, and the
-    forward's :class:`Aux` as a third element when ``with_aux``.  The cache
+    forward's :class:`Aux` as a third element when ``with_aux``.  The vlm
+    family takes ``patches (B, P, d)``: the sequence is the P adapted
+    patches, then the tokens (S = P + the tokens), and every layer
+    attends to it with the prefix-LM mask of ``prefix_len = P``.  The cache
     is the per-layer state stacked on the leading stack axes: K/V ``(L, B,
     S, KV, hd)`` each (dense; MLA an ``MLACache`` of ``c_kv (L, B, S,
     kv_rank)`` and ``k_pe (L, B, S, rope)``), an ``SSMCache`` of ``conv
@@ -474,11 +510,13 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
         layers = _moe_layers(params, cfg)
     else:
         layers = [(cfg.family, lp) for lp in _layers(params)]
-    x = embed_tokens(params, tokens, cfg)
+    x, prefix_len = _embed_inputs(params, cfg, tokens, patches)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     caches, stats = [], []
     for kind, lp in layers:
         block = _BLOCKS[kind]
+        if prefix_len:
+            block = functools.partial(block, prefix_len=prefix_len)
         if remat:
             x, c = checkpoint(block, lp, x, cfg, positions, want_cache,
                               use_reentrant=False, preserve_rng_state=False)
@@ -501,10 +539,12 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     return out + (Aux(aux.sum(), z.sum(), dropped.mean()),)
 
 
-def prefill(params, cfg: ArchConfig, tokens: torch.Tensor):
-    """Full-prompt forward; returns ``(last-position logits (B, vocab),
-    the per-layer cache in forward layout)``."""
-    hidden, cache = forward(params, cfg, tokens)
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
+            patches: torch.Tensor | None = None):
+    """Full-prompt forward (the vlm family's with its ``patches``);
+    returns ``(last-position logits (B, vocab), the per-layer cache in
+    forward layout)``."""
+    hidden, cache = forward(params, cfg, tokens, patches=patches)
     logits = logits_from_hidden(params, hidden[:, -1:], cfg)[:, 0]
     return logits, cache
 
@@ -535,13 +575,13 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                         device=resolve_device(device))
         return attn.KV(t, t.clone())
 
-    if cfg.family == "dense" and cfg.attention == "mla":
+    if cfg.family in ("dense", "vlm") and cfg.attention == "mla":
         _, kvr, _, rope, _ = attn.MLA_DIMS
         zeros = lambda n: torch.zeros((cfg.n_layers, batch, cache_len, n),
                                       dtype=dtype,
                                       device=resolve_device(device))
         return {"layers": attn.MLACache(zeros(kvr), zeros(rope))}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return {"layers": kv(cfg.n_layers)}
     if cfg.family == "moe" and cfg.layer_pattern:
         g, nl, nf = moe_groups(cfg)
@@ -582,14 +622,15 @@ def prefill_cache_to_decode(cfg: ArchConfig, cache, cache_len: int) -> dict:
     cache carries forward unchanged (the final state IS the decode state).
     The windowed dense and the hybrid families have no such re-layout in
     the reference (ring caches, grouped layers): they ingest their prompt
-    token by token (``train.serve_step.greedy_generate``), as does the moe
-    family, whose forward cache the reference does not re-lay either."""
-    if cfg.family == "moe":
+    token by token (``train.serve_step.greedy_generate``), as do the moe
+    and vlm families, whose forward caches the reference does not re-lay
+    either."""
+    if cfg.family in ("moe", "vlm"):
         raise NotImplementedError(
-            "prefill_cache_to_decode: the moe family has no forward->decode "
-            "cache re-layout in the reference (src/repro/models/"
-            "transformer.py:542-560 returns None); ingest the prompt token "
-            "by token (greedy_generate)")
+            f"prefill_cache_to_decode: the {cfg.family} family has no "
+            f"forward->decode cache re-layout in the reference (src/repro/"
+            f"models/transformer.py:542-560 returns None); ingest the prompt "
+            f"token by token (greedy_generate)")
     _check_family(cfg, "prefill_cache_to_decode", (DENSE, MLA, SSM))
     if not has_prefill_decode_relayout(cfg):
         raise NotImplementedError(
@@ -627,7 +668,7 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, pos,
     _check_family(cfg, "decode_step")
     x = embed_tokens(params, tokens[:, None], cfg)
     new = []
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         for lp, c in zip(_layers(params), _cache_slices(cache["layers"], 1)):
             h = apply_norm(lp["ln1"], x, cfg)
             if cfg.attention == "mla":
@@ -702,8 +743,10 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, pos,
 def _check_paged(cfg: ArchConfig, what: str) -> None:
     """The paged decode covers the dense family's K/V heads; MLA's latent
     cache has no paged view, and the reference refuses it too
-    (``src/repro/models/transformer.py:568``, ``:586``, ``:627``)."""
-    if cfg.attention == "mla":
+    (``src/repro/models/transformer.py:568``, ``:586``, ``:627``); the
+    reference's engine never pages the vlm family (its prefill takes
+    patches), and neither does the port."""
+    if cfg.attention == "mla" or cfg.family == "vlm":
         raise ValueError(f"{what}: paged pools cover dense GQA decode, not "
                          f"family={cfg.family!r} attention="
                          f"{cfg.attention!r}")
@@ -768,15 +811,19 @@ def decode_step_paged_batched(params, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
-            targets: torch.Tensor) -> tuple[torch.Tensor, dict]:
+            targets: torch.Tensor, patches: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, dict]:
     """``repro.models.transformer.lm_loss``: the mean next-token NLL (f32
     ``log_softmax`` of the logits, the NLL of each target, its mean) plus
     0.01 x the MoE load-balance loss and 1e-3 x its z-loss (the
     reference's default weights), which are zero but for the moe family;
     the metrics are the reference's (``nll``, ``moe_aux``, ``moe_z``,
-    ``dropped``)."""
+    ``dropped``).  The vlm family (with its ``patches``) is scored on the
+    text positions only."""
     hidden, _, aux = forward(params, cfg, tokens, want_cache=False,
-                             with_aux=True)
+                             with_aux=True, patches=patches)
+    if cfg.family == "vlm":
+        hidden = hidden[:, patches.shape[1]:]
     logits = logits_from_hidden(params, hidden, cfg)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]

@@ -29,10 +29,12 @@ the greedy argmax on the device and still ONE host transfer per iteration
 after every slot has launched; each slot's next input token stays on the
 device.  ``batched=False`` on a paged-capable model takes the same
 per-slot loop through ``decode_step_paged``: one K5 launch (at one slot)
-per layer and slot, each slot reading its own page table.  The hybrid
-and moe families raise ``NotImplementedError``: the reference's engine
-cannot serve them either, having no forward->decode cache re-layout for
-them (``greedy_generate`` is their generation entry).
+per layer and slot, each slot reading its own page table.  The hybrid,
+moe, vlm and audio families raise ``NotImplementedError`` at
+construction: the reference's engine cannot serve them either, having no
+forward->decode cache re-layout for them, and its prefill passes no
+patches or frames (``make_prefill`` and ``greedy_generate`` are their
+entries).
 """
 from __future__ import annotations
 
@@ -104,6 +106,15 @@ class ServeEngine:
                  batched: Optional[bool] = None, device="cuda"):
         self.device = resolve_device(device)
         self.paged = _paged_capable(cfg)
+        if cfg.family in ("vlm", "audio"):
+            extra = "patches" if cfg.family == "vlm" else "frames"
+            raise NotImplementedError(
+                f"family {cfg.family!r} prefills with {extra} beside the "
+                f"tokens, which the reference's engine never passes (src/"
+                f"repro/serving/engine.py:391-392 prefills with the tokens "
+                f"alone) and never pages (:71-76), so ServeEngine cannot "
+                f"serve it there either; prefill with repro_torch.train."
+                f"serve_step.make_prefill and generate with greedy_generate")
         if cfg.family == "hybrid":
             raise NotImplementedError(
                 "the hybrid family has no prefill-to-decode cache re-layout "

@@ -1,18 +1,23 @@
 """Serving steps (``repro.train.serve_step``): prefill, decode, and the
 batched greedy generation loop.
 
-    prefill = make_prefill(cfg)      # prefill(params, {"tokens"}) -> (logits, cache)
+    prefill = make_prefill(cfg)      # prefill(params, batch) -> (logits,
+                                     #                           cache)
     decode = make_decode(cfg)        # decode(params, tokens, pos, cache)
     out = greedy_generate(params, cfg, prompt, n_new, cache_len)
 
-``greedy_generate`` ingests the prompt as the reference does for each
-family: the dense (full attention, MLA) and ssm families in one prefill
-whose cache is re-laid as the decode cache (``transformer.
+All three go through ``models.registry``: a prefill batch is
+``{"tokens"}``, with the vlm family's ``patches`` or the audio family's
+``frames``.  ``greedy_generate`` ingests the prompt as the reference does
+for each family: the dense (full attention, MLA) and ssm families in one
+prefill whose cache is re-laid as the decode cache (``transformer.
 prefill_cache_to_decode``: the dense K/V or MLA latents padded to
-``cache_len``, the ssm state as it is); the hybrid family, whose ring caches and grouped layers
-have no forward-layout equivalent, and the moe family, whose forward cache
-the reference does not re-lay either, token by token through
-``decode_step``.
+``cache_len``, the ssm state as it is); the hybrid family, whose ring
+caches and grouped layers have no forward-layout equivalent, and the moe,
+vlm and audio families, whose forward caches the reference does not
+re-lay either, token by token through ``decode_step`` from
+``registry.init_cache`` (for vlm no patches, for audio zero cross-
+attention K/V: the reference's token-by-token path).
 Positions are device tensors and the argmax runs on the device, so a step
 reads nothing back to the host.
 """
@@ -21,18 +26,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.common import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import registry, transformer
 
 
 def make_prefill(cfg: ArchConfig):
     def prefill_step(params, batch: dict):
-        return transformer.prefill(params, cfg, batch["tokens"])
+        return registry.prefill(params, cfg, batch)
     return prefill_step
 
 
 def make_decode(cfg: ArchConfig):
     def decode(params, tokens: torch.Tensor, pos: torch.Tensor, cache):
-        return transformer.decode_step(params, cfg, tokens, pos, cache)
+        return registry.decode_step(params, cfg, tokens, pos, cache)
     return decode
 
 
@@ -49,9 +54,9 @@ def greedy_generate(params, cfg: ArchConfig, prompt: torch.Tensor,
         logits, fwd = make_prefill(cfg)(params, {"tokens": prompt})
         cache = transformer.prefill_cache_to_decode(cfg, fwd, cache_len)
     else:
-        cache = transformer.init_cache(cfg, b, cache_len,
-                                       dtype=getattr(torch, str(cfg.dtype)),
-                                       device=dev)
+        cache = registry.init_cache(cfg, b, cache_len,
+                                    dtype=getattr(torch, str(cfg.dtype)),
+                                    device=dev)
         logits = torch.zeros((b, cfg.vocab_size), device=dev)
         for t in range(s0):
             pos = torch.full((b,), t, dtype=torch.int32, device=dev)

@@ -12,6 +12,7 @@ returned state holds the same tensors.  Metrics stay device tensors.
     state = init_state(cfg, params, device)
     step = make_train_step(cfg, opt_cfg, microbatches)
     state, metrics = step(state, batch)      # batch: {"tokens", "targets"}
+                                             # (+ "patches" / "frames")
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch.configs.common import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import registry
 from repro_torch.optim import adamw
 
 
@@ -47,11 +48,11 @@ def init_state(cfg: ArchConfig, params, device="cuda") -> TrainState:
 
 def loss_and_grads(params, cfg: ArchConfig, batch: dict
                    ) -> tuple[torch.Tensor, dict, dict]:
-    """``(loss, metrics, {name: gradient})`` of ``lm_loss`` on one batch;
-    each gradient in its parameter's dtype."""
+    """``(loss, metrics, {name: gradient})`` of the family's loss
+    (``registry.loss``) on one batch; each gradient in its parameter's
+    dtype."""
     names, leaves = zip(*params.named_parameters())
-    loss, metrics = transformer.lm_loss(params, cfg, batch["tokens"],
-                                        batch["targets"])
+    loss, metrics = registry.loss(params, cfg, batch)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), metrics, dict(zip(names, grads))
 

@@ -1457,3 +1457,156 @@ def test_k9_tensor_core_tile_carries_inf_and_nan(h100, dtype):
         scale = torch.where(fin, want.abs(), zero).amax(-1, keepdim=True)
         err = torch.where(fin, (got - want).abs(), zero)
         assert bool((err <= K9_SUM_REL * terms * scale).all())
+
+
+#: K2-K4's prefix-LM form: (B, S, KV, G, hd, window, prefix) with the
+#: prefix below a tile (5), at the 64-row / 64-key tile edge, past it and
+#: not a multiple of any tile (100), with a window that cuts inside a key
+#: tile (40), at and past the sequence, paligemma-3b's 256 patches of one
+#: KV head under 8 query heads (one consumer warpgroup a block at S = 1000,
+#: two at B = 2 S = 2048) and a G that is no power of two
+PREFIX_SHAPES = [(1, 300, 1, 8, 256, 0, 5), (1, 300, 1, 8, 256, 0, 64),
+                 (1, 300, 1, 8, 256, 0, 100), (2, 300, 2, 4, 128, 40, 90),
+                 (1, 130, 1, 8, 256, 0, 130), (1, 130, 1, 8, 256, 0, 200),
+                 (1, 1000, 1, 8, 256, 0, 256), (2, 2048, 1, 8, 256, 0, 256),
+                 (1, 257, 2, 5, 64, 0, 33)]
+
+
+def _flash_bwd_args(q, k, v, do, out, m, l):
+    delta = (do.float() * out.reshape(do.shape).float()).sum(-1)
+    return (q, k, v, do, m, l, delta.permute(0, 2, 3, 1).contiguous())
+
+
+def _held(got, want, rel):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rel * want.float().abs().max().item(), err
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("dtype,atol,rel", [(_F32, 1e-5, 1e-4),
+                                            (_BF16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("b,s,kv,g,hd,window,prefix", PREFIX_SHAPES)
+def test_prefix_flash_kernels_match_plain(h100, dtype, atol, rel, b, s, kv,
+                                          g, hd, window, prefix):
+    """K2 (with and without its export), K3 and K4 with ``prefix_len``
+    against their plain versions (the prefix-LM mask: every pair below the
+    prefix re-admitted above the diagonal), held as the causal cases are;
+    the export leaves the output's bits, K4's rerun gives the same bits,
+    and the prefix is live (the output differs from the causal one's
+    where a prefix row sees a later prefix key)."""
+    q, k, v, do = _attn_case(h100, dtype, b, s, g, hd, 6, kv=kv)
+    kw = dict(scale=hd ** -0.5, window=window, prefix_len=prefix)
+    got = ops.attention(q, k, v, **kw)
+    out, m, l = ops.attention_stats(q, k, v, **kw)
+    args = _flash_bwd_args(q, k, v, do, out, m, l)
+    dq = ops.flash_dq(*args, **kw)
+    dk, dv = ops.flash_dkv(*args, **kw)
+    dk2, dv2 = ops.flash_dkv(*args, **kw)
+    causal = ops.attention(q, k, v, scale=hd ** -0.5, window=window)
+    torch.cuda.synchronize()
+    assert [ops.LAUNCHES[x] for x in ("K2", "K3", "K4")] == [3, 1, 2]
+    assert torch.equal(got, out)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert (causal[:, 0].float() - got[:, 0].float()).abs().max() > 1e-3
+    want = ref.attention_stats(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want[0].float(), rtol=0,
+                               atol=atol)
+    torch.testing.assert_close(m, want[1], rtol=0, atol=1e-4)
+    torch.testing.assert_close(l, want[2], rtol=1e-4, atol=0)
+    _held(dq, ref.flash_dq(*args, **kw), rel)
+    for a, w in zip((dk, dv), ref.flash_dkv(*args, **kw)):
+        _held(a, w, rel)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("b,s,kv,g,hd,window",
+                         [(2, 1000, 2, 16, 256, 300), (2, 1000, 2, 8, 128,
+                                                       300),
+                          (1, 4096, 1, 8, 256, 0), (2, 130, 1, 8, 256, 33)])
+def test_prefix_of_one_is_the_causal_kernel_bit_for_bit(h100, dtype, b, s,
+                                                        kv, g, hd, window):
+    """``prefix_len = 1`` adds no visible pair (key 0 is query 0's own)
+    and no key tile: K2, K3 and K4 give the causal call's bits, so the
+    prefix's code leaves the causal and windowed forms (prefix 0) as they
+    were."""
+    q, k, v, do = _attn_case(h100, dtype, b, s, g, hd, 7, kv=kv)
+    base = dict(scale=hd ** -0.5, window=window)
+    runs = []
+    for prefix in (0, 1):
+        kw = dict(base, prefix_len=prefix)
+        out, m, l = ops.attention_stats(q, k, v, **kw)
+        args = _flash_bwd_args(q, k, v, do, out, m, l)
+        runs.append((ops.attention(q, k, v, **kw), out, m, l,
+                     ops.flash_dq(*args, **kw), *ops.flash_dkv(*args, **kw)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(*runs))
+
+
+#: whisper-base's bidirectional attention: the encoder (Sq = Sk = 1500)
+#: and the cross-attention (448 decoder rows over 1500 encoder rows), 8 KV
+#: heads of 64, G = 1 (1500 is no multiple of any tile); a ragged Sq > Sk
+NONCAUSAL_SHAPES = [(2, 1500, 1500, 8, 1, 64), (2, 448, 1500, 8, 1, 64),
+                    (1, 130, 70, 2, 4, 128)]
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("dtype,atol,rel", [(_F32, 1e-5, 1e-4),
+                                            (_BF16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("b,sq,sk,kv,g,hd", NONCAUSAL_SHAPES)
+def test_noncausal_flash_kernels_match_plain(h100, dtype, atol, rel, b, sq,
+                                             sk, kv, g, hd):
+    """K2 (with and without its export), K3 and K4 with ``causal=False``
+    at Sq = Sk and Sq != Sk against their plain versions (no mask: every
+    key of Sk, the edges carried by the kernels' ``kp < Sk`` guards);
+    K4's rerun gives the same bits."""
+    gen = torch.Generator(device=h100).manual_seed(8)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen,
+                                     device=h100).to(dtype)
+    q, k, v, do = (rnd(b, sq, kv, g, hd), rnd(b, sk, kv, hd),
+                   rnd(b, sk, kv, hd), rnd(b, sq, kv, g, hd))
+    kw = dict(scale=hd ** -0.5, causal=False)
+    got = ops.attention(q, k, v, **kw)
+    out, m, l = ops.attention_stats(q, k, v, **kw)
+    args = _flash_bwd_args(q, k, v, do, out, m, l)
+    dq = ops.flash_dq(*args, **kw)
+    dk, dv = ops.flash_dkv(*args, **kw)
+    dk2, dv2 = ops.flash_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    assert [ops.LAUNCHES[x] for x in ("K2", "K3", "K4")] == [2, 1, 2]
+    assert torch.equal(got, out)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    want = ref.attention_stats(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want[0].float(), rtol=0,
+                               atol=atol)
+    torch.testing.assert_close(m, want[1], rtol=0, atol=1e-4)
+    torch.testing.assert_close(l, want[2], rtol=1e-4, atol=0)
+    _held(dq, ref.flash_dq(*args, **kw), rel)
+    for a, w in zip((dk, dv), ref.flash_dkv(*args, **kw)):
+        _held(a, w, rel)
+
+
+@pytest.mark.h100
+def test_whisper_head_on_unaligned_vocab_matches_plain(h100):
+    """whisper-base's tied head at V = 51865 (no multiple of 8): the
+    forward ``x table^T`` (tile route, an output row of 51865 f32) and
+    its VJP forms ``dx = g table`` and ``dw = g^T x`` (an f32 cotangent
+    whose stored row of 51865 TMA cannot read: K1's first FMA kernels)
+    against the plain products."""
+    gen = torch.Generator(device=h100).manual_seed(9)
+    rnd = lambda *shape, sc=1.0: (torch.randn(*shape, generator=gen,
+                                              device=h100) * sc)
+    t, d, vocab = 300, 512, 51865
+    x = rnd(t, d).to(_BF16)
+    table = rnd(vocab, d, sc=d ** -0.5).to(_BF16)
+    g = rnd(t, vocab, sc=1e-3)
+    forms = [(x, table, False, True, "tile"), (g, table, False, False, "fma"),
+             (g, x, True, False, "fma")]
+    for a, b_, ta, tb, route in forms:
+        assert ops._route(a, b_, ta, tb) == route
+        got = ops._gemm(a, b_, ta, tb)
+        want = ref.matmul(a, b_, tb, transpose_a=ta)
+        torch.cuda.synchronize()
+        _held(got, want, 1e-4)
+    assert ops.LAUNCHES["K1"] == 3

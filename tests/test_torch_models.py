@@ -97,9 +97,11 @@ def test_full_config_is_gemma_2b_full_width():
 
 
 def test_other_families_raise(gemma):
+    # the decoder-LM assembly lacks the audio family: that is the
+    # encoder-decoder's (models.encdec, reached through models.registry)
     *_, tcfg, _ = gemma
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.param_shapes(tcfg.with_(family="vlm"))
+        tt.param_shapes(tcfg.with_(family="audio"))
 
 
 @pytest.mark.parametrize("attn_impl", ["pallas", "xla"])

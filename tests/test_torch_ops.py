@@ -83,8 +83,10 @@ def test_attention_matches_jax_kernel_and_oracle(b, s, kv, g, hd, window):
 def test_attention_contract_errors():
     q, k, v = (torch.zeros(1, 4, 1, 2, 8), torch.zeros(1, 4, 1, 8),
                torch.zeros(1, 4, 1, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.attention(q, k, v, scale=1.0, prefix_len=2)
+    # a prefix (the prefix-LM) or a window refines the causal mask: both
+    # raise without it, as the reference's emit.py:289-292
+    with pytest.raises(ValueError, match="prefix_len=2 require causal"):
+        ops.attention(q, k, v, scale=1.0, causal=False, prefix_len=2)
     with pytest.raises(ValueError, match="causal"):
         ops.attention(q, k, v, scale=1.0, causal=False, window=2)
 

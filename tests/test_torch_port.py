@@ -27,8 +27,11 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
-        "assert len(mods) >= 43, mods\n"
+        "assert len(mods) >= 47, mods\n"
         "assert {'repro_torch.models.rglru', 'repro_torch.configs.minicpm3_4b', "
+        "'repro_torch.models.encdec', 'repro_torch.models.registry', "
+        "'repro_torch.configs.paligemma_3b', "
+        "'repro_torch.configs.whisper_base', "
         "'repro_torch.train.serve_step', 'repro_torch.core.expr', "
         "'repro_torch.core.schedule', 'repro_torch.kernels.emit'} "
         "<= set(mods), mods\n"

@@ -132,8 +132,14 @@ def test_engine_scope_and_device_policy(gemma, monkeypatch):
     assert engine.paged and not engine.batched
     with pytest.raises(NotImplementedError, match="re-layout.*greedy_generate"):
         ServeEngine(tcfg.with_(family="hybrid"), tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="contiguous"):
+    # vlm and audio prefill with patches / frames, which the reference's
+    # engine never passes: refused at construction, naming the entries
+    with pytest.raises(NotImplementedError,
+                       match="patches.*make_prefill.*greedy_generate"):
         ServeEngine(tcfg.with_(family="vlm"), tp, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="frames.*make_prefill.*greedy_generate"):
+        ServeEngine(tcfg.with_(family="audio"), tp, device="cpu")
     with pytest.raises(NotImplementedError,
                        match="forward->decode.*greedy_generate"):
         ServeEngine(tcfg.with_(family="moe"), tp, device="cpu")
