@@ -18,9 +18,11 @@ Twenty-two phases; any failure exits non-zero before the result line:
             2048 over S=4096 with 16 query heads), with the tolerance
             stated; kernel, plain and library times (CUDA events) and the
             roofline bound of each case.  Each K1 row prints its route
-            (ops.gemm_route), its device time in a CUDA graph (graph_ms)
-            and the time of K1's first kernels on the same operands
-            (old_ms); gemma-2b's six per-layer decode
+            (ops.gemm_route; the FMA kernel's form and split of k), its
+            device time in a CUDA graph (graph_ms), the time of the first
+            wmma kernel (old_ms, bf16) or of the exact-f32 FMA kernel
+            (fma_ms, other dtypes) on the same operands, and a rerun
+            that must give the same bits; gemma-2b's six per-layer decode
             products at 4 rows and the decode step's K1 total; K5 also at
             gemma-2b's whole 8192-token context (4 slots); each K5 and K8
             row prints its split count or chunk length and its CUDA-graph
@@ -43,10 +45,13 @@ Twenty-two phases; any failure exits non-zero before the result line:
             ragged stack, each with torch.bmm on f32 copies and a rerun;
             K2 (export), K3, K4 at its training attention (B=1 S=2048);
             K2 at llama4-scout-17b-a16e's prefill (8 KV heads of 128, G =
-            5, S=2048), windowed 8192 and causal.  K1's f32 FMA kernel at
-            the MoE routers (deepseek's (t, 2048) x (2048, 64) and its dw
-            VJP, llama4's (t, 5120) x (5120, 16); torch.matmul in f32 the
-            library row).  K1's head form (ops.head_matmul) at
+            5, S=2048), windowed 8192 and causal.  K1's exact-f32 FMA
+            kernel at the MoE routers (deepseek's (t, 2048) x (2048, 64)
+            and its dw VJP, llama4's (t, 5120) x (5120, 16); torch.matmul
+            in f32 the library row), at a ragged f32 product (1001 x 999
+            x 37, its k split), and a mixed product whose f32 operand's
+            row (515) TMA cannot read, on the split route through its
+            pitched parts.  K1's head form (ops.head_matmul) at
             minicpm3-4b's absorbed decode products (m = 1, 2, 4 rows over
             40 heads, strided views of one stored wkv_b table; torch.einsum
             on the same views the library row; a rerun), and a head form
@@ -64,7 +69,8 @@ Twenty-two phases; any failure exits non-zero before the result line:
             and cross-attention (448 rows over 1500), SDPA without a
             mask; K1 at paligemma's adapter and 257216-row head (and its
             VJP forms), and at whisper's products and 51865-row head,
-            whose VJP forms take K1's first FMA kernels.
+            whose VJP forms take the split route through the f32
+            cotangent's pitched bf16 parts.
 4. path     gemma-2b at full width (18 layers, bf16, random weights from a
             seeded generator) served by ServeEngine(max_slots=4,
             max_len=512) over 6 requests; every kernel of the path must
@@ -487,12 +493,21 @@ def _case(torch, rec, name, dtype, tol_key, kern, plain, library, flops,
 
 def _route(ops, a, b, ta, tb) -> str:
     """K1's route for ``op(a) @ op(b)`` (``ops.gemm_route``), with the
-    decode path's split of k."""
+    decode path's split of k, the FMA kernel's form and split of k, and
+    whether a split operand's parts are pitched (its row no multiple of
+    8)."""
     route = ops._route(a, b, ta, tb)
+    k, m = a.shape if ta else a.shape[::-1]
+    n = b.shape[0] if tb else b.shape[1]
     if route == "gemv":
-        m = a.shape[0]
-        n = b.shape[0] if tb else b.shape[1]
-        return f"gemv split-k={ops.gemv_splits(m, n, a.shape[1])}"
+        return f"gemv split-k={ops.gemv_splits(m, n, k)}"
+    if route == "fma":
+        f32 = a.element_size() == b.element_size() == 4
+        return (f"fma form={ops.fma_form(m, n, ta, f32)} split-k="
+                f"{ops.fma_splits(m, n, k, ta, tb, f32)}")
+    if route == "split":
+        f = a if a.element_size() == 4 else b
+        return "split pitched" if f.shape[-1] % 8 else "split"
     return route
 
 
@@ -515,10 +530,12 @@ def graph_ms(torch, fn) -> float:
 
 
 def _k1_extra(torch, ops, a, b, ta, tb, old=True, call=None) -> dict:
-    """K1's route; (``old``) the time of its first kernels on the same
-    operands (``gemm_bf16`` / ``gemm_fma``, PRs 11-12, kept for the shapes
-    TMA cannot read): the same call's before-and-after on this card; and
-    (``call``, the timed entry) its device time in a CUDA graph."""
+    """K1's route; (``old``) the time of the kernels TMA-less operands take
+    on the same operands (``repro_gemm``: the first ``gemm_bf16`` for bf16 x
+    bf16 without transpose_a, ``old_ms``; else the exact-f32 FMA kernel,
+    ``fma_ms``, in its own form and split): the same call's before-and-
+    after on this card; and (``call``, the timed entry) its device time in
+    a CUDA graph."""
     extra = {"path": _route(ops, a, b, ta, tb)}
     if call is not None:
         extra["graph_ms"] = graph_ms(torch, call)
@@ -526,13 +543,17 @@ def _k1_extra(torch, ops, a, b, ta, tb, old=True, call=None) -> dict:
         k, m = a.shape if ta else a.shape[::-1]
         n = b.shape[0] if tb else b.shape[1]
         out = torch.empty((m, n), device=a.device, dtype=torch.float32)
-        args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, int(ta),
+        wmma = a.dtype == b.dtype == torch.bfloat16 and not ta
+        form, nsplit, ws = ops._fma_plan(a, b, m, n, k, ta, tb,
+                                         "wmma" if wmma else "fma")
+        args = (a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(), m, n, k, int(ta),
                 int(tb), ops._DTYPE_CODE[a.dtype], ops._DTYPE_CODE[b.dtype],
                 int(ops._aligned16(a, m if ta else k)),
-                int(ops._aligned16(b, k if tb else n)))
-        extra["old_ms"] = time_ms(torch, lambda: ops._launch("repro_gemm",
-                                                             *args))
-        del out
+                int(ops._aligned16(b, k if tb else n)), form, nsplit)
+        extra["old_ms" if wmma else "fma_ms"] = time_ms(
+            torch, lambda: ops._launch("repro_gemm", *args))
+        del out, ws
     return extra
 
 
@@ -661,6 +682,7 @@ def phase_kernels(torch):
         _prefill_attention_case(torch, rec, gen, torch.bfloat16, MOE_S,
                                 kv=8, g=5, hd=128, window=window)
     _router_cases(torch, rec, gen)
+    _fma_cases(torch, rec, gen)
     _head_form_cases(torch, rec, gen)
     # minicpm3-4b's MLA attention at its chunked-branch length: 40 KV
     # heads of one query head, q.k 96 and v 64 zero-padded to 128, at
@@ -685,8 +707,8 @@ def _vlm_encdec_cases(torch, rec, gen):
     without a mask the library row.  K1 at paligemma's adapter and tied
     257216-row head (with its training VJP forms), and at whisper's
     products and its tied 51865-row head with the VJP forms: the f32
-    cotangent's stored row of 51865 (no multiple of 8) takes K1's first
-    FMA kernels."""
+    cotangent's stored row of 51865 (no multiple of 8) is read through its
+    three bf16 parts, written at a pitch of 51872 (the split route)."""
     from repro_torch.configs import paligemma_3b, whisper_base
     bf, f32 = torch.bfloat16, torch.float32
     vcfg, wcfg = paligemma_3b.full(), whisper_base.full()
@@ -733,14 +755,28 @@ def _router_cases(torch, rec, gen):
     (t, 2048) x (2048, 64) and llama4-scout-17b-a16e's (t, 5120) x (5120,
     16), at a 2048-token prefill and at the 2 rows of a decode step, and
     deepseek's dw = x^T g VJP at 2048 tokens; torch.matmul in f32 (TF32
-    off) is the library row."""
+    off) is the library row, timed by events and in a CUDA graph."""
     f32 = torch.float32
     forms = [(f"{name} fwd", (t, d), f32, (d, e), f32, False, False)
              for name, d, e in (("deepseek", 2048, 64), ("llama4", 5120, 16))
              for t in (MOE_S, MOE_GEN_B)]
     forms.append(("deepseek dw", (MOE_S, 2048), f32, (MOE_S, 64), f32, True,
                   False))
-    _gemm_forms(torch, rec, gen, "K1 router", forms)
+    _gemm_forms(torch, rec, gen, "K1 router", forms, lib_graph=True)
+
+
+def _fma_cases(torch, rec, gen):
+    """K1's exact-f32 FMA kernel at a ragged f32 product (m, n and k odd,
+    no multiple of any tile or k-step, its k split), and a mixed product
+    whose f32 operand's stored row (515) TMA cannot read, on the split
+    route through its pitched bf16 parts; torch.matmul on f32 operands the
+    library row."""
+    f32, bf = torch.float32, torch.bfloat16
+    _gemm_forms(torch, rec, gen, "K1 ragged", [
+        ("f32", (1001, 999), f32, (999, 37), f32, False, False)],
+        lib_graph=True)
+    _gemm_forms(torch, rec, gen, "K1 ragged", [
+        ("mixed pitched", (333, 515), f32, (515, 136), bf, False, False)])
 
 
 def _head_form_cases(torch, rec, gen):
@@ -1323,10 +1359,12 @@ def _gemm_training_cases(torch, rec, gen, label="", t=TRAIN_B * TRAIN_S,
     _gemm_forms(torch, rec, gen, f"K1 {label}train", forms)
 
 
-def _gemm_forms(torch, rec, gen, prefix, forms):
+def _gemm_forms(torch, rec, gen, prefix, forms, lib_graph=False):
     """Each K1 form ``(label, a shape, a dtype, b shape, b dtype,
     transpose_a, transpose_b)`` against its plain version, at the bf16
-    tolerance."""
+    tolerance, and rerun to the same bits; with ``lib_graph``, the
+    library call's CUDA-graph time beside the kernel's (``graph_ms``), as
+    a host-bound row compares them."""
     from repro_torch.kernels import ops, ref
     f32 = torch.float32
     randn = lambda *shape, dt, sc=1.0: (torch.randn(
@@ -1344,6 +1382,10 @@ def _gemm_forms(torch, rec, gen, prefix, forms):
             b.numel() * b.element_size() + m * n * 4
         extra = _k1_extra(torch, ops, a, b, ta, tb,
                           call=lambda: ops._gemm(a, b, ta, tb))
+        if lib_graph:
+            extra["library_graph_ms"] = graph_ms(
+                torch, lambda: torch.matmul(a.t() if ta else a,
+                                            b.t() if tb else b))
         bnd = None
         if extra["path"] == "split":
             # the split design's work: three bf16 products at the tensor
@@ -1356,9 +1398,9 @@ def _gemm_forms(torch, rec, gen, prefix, forms):
             extra["fma_bound_ms"] = bound(2.0 * m * n * k, nbytes,
                                           "float32")[0]
         elif mixed:
-            # a mixed product on the first FMA kernels (an unaligned
-            # stored row): the f32 FMA bound of its exact product beside
-            # the bf16 one
+            # a mixed product on the FMA kernel (a bf16 operand TMA cannot
+            # read): the f32 FMA bound of its exact product beside the
+            # bf16 one
             extra["fma_bound_ms"] = bound(2.0 * m * n * k, nbytes,
                                           "float32")[0]
         peak = "float32" if adt == bdt == f32 else "bfloat16"
@@ -1370,6 +1412,8 @@ def _gemm_forms(torch, rec, gen, prefix, forms):
               2.0 * m * n * k, nbytes,
               f"{prefix} {label} {str(adt)[6:]}x{str(bdt)[6:]} m={m} k={k} "
               f"n={n} ta={int(ta)} tb={int(tb)}", extra, bnd)
+        _rerun_equal(torch, lambda: ops._gemm(a, b, ta, tb),
+                     f"{prefix} {label} m={m} k={k} n={n}")
         del a, b, a32, b32, al, bl
 
 
@@ -3059,11 +3103,24 @@ def _moa_cases(torch, E, ops):
             lambda red=red: ops.apply(red, lone),
             lambda lib=lib, axis=axis: lib(lone, dim=axis), True,
             k9_bound(1.0 * m * m, (m * m + m) * 4))
+    # a lone max over two axes: adjacent axes merge into one (REDUCE, a
+    # warp an output); axes (0, 2) do not chain and stay on THREAD (its
+    # warp form)
     cube = rnd(MOA_N, 64, 64)
-    two = E.reduce("max", E.reduce("max", E.arr("A", (MOA_N, 64, 64)), 2), 1)
-    add(f"K9 float32 lone max over axes (1, 2) of ({MOA_N}, 64, 64)", "K9",
-        lambda: ops.apply(two, cube), lambda: torch.amax(cube, dim=(1, 2)),
-        True, k9_bound(1.0 * cube.numel(), (cube.numel() + MOA_N) * 4))
+    for axes, shape, t in (((1, 2), (MOA_N, 64, 64), cube),
+                           ((0, 2), (64, MOA_N, 64),
+                            cube.reshape(64, MOA_N, 64))):
+        lone2 = E.arr("A", shape)
+        for ax in sorted(axes, reverse=True):
+            lone2 = E.reduce("max", lone2, ax)
+        plan = ops._plan(E.normal_form(lone2), ("float32",), torch.float32,
+                         ops.H100, None, "float32", False)[1]
+        mode = {2: "REDUCE", 1: "THREAD"}[plan.mode]
+        add(f"K9 float32 lone max over axes {axes} of {shape} path={mode}"
+            f"{' warp' if plan.rows else ''} contracted={plan.red_ext}", "K9",
+            lambda lone2=lone2, t=t: ops.apply(lone2, t),
+            lambda t=t, axes=axes: torch.amax(t, dim=axes), True,
+            k9_bound(1.0 * t.numel(), (t.numel() + MOA_N) * 4))
     lsum = E.reduce("add", E.arr("A", (m, m)), 0)
     add(f"K9 float32 lone sum axis 0 {m}^2", "K9",
         lambda: ops.apply(lsum, lone), lambda: torch.sum(lone, dim=0), False,
@@ -3219,7 +3276,12 @@ def phase_moa_path(torch, rec):
         plain_ms = time_ms(torch, plain, iters=1, warmup=0)
         lib_ms = time_ms(torch, library) if library is not None else None
         # a sub-millisecond K9 call may be host-bound: its device time too
-        g_ms = graph_ms(torch, fn) if kid == "K9" and ms < 1.0 else None
+        # (and K1's f32 moa_gemm's, on the FMA kernel, with a rerun)
+        f32_k1 = kid == "K1" and "float32" in label
+        g_ms = graph_ms(torch, fn) if (kid == "K9" and ms < 1.0) or \
+            f32_k1 else None
+        if f32_k1 or "lone max over axes" in label:
+            _rerun_equal(torch, fn, f"[moa_path] {label}")
         note = "".join(f" {k}={v:.4f}" for k, v in extra.items())
         print(f"[moa_path] {label}{note}: max_abs_err={diff:.3e} "
               f"({'bit for bit' if exact else f'tol {MOA_SUM_TOL:g} x max|plain|'}"
@@ -4692,7 +4754,7 @@ def phase_encdec_train(torch, card):
     masks, routes = [], {}
 
     def count_route(args, out):
-        r = ops._route(*args[:4])
+        r = _route(ops, *args[:4])
         routes[r] = routes.get(r, 0) + 1
     tokens = ENC_TRAIN_B * ENC_TRAIN_S
     with _mask_spy(masks), _spy(ops, "_gemm", count_route):
@@ -4709,13 +4771,14 @@ def phase_encdec_train(torch, card):
     print(f"[encdec_train] launches over {TRAIN_STEPS} steps of {mb} "
           f"microbatches {launches} (derived {want}); masks "
           f"{_mask_counts(masks)}; K1 by route {routes} (the tied head's "
-          f"dx and dw on the first FMA kernels: derived {2 * n})",
-          flush=True)
+          f"dx and dw on the split route through pitched parts: derived "
+          f"{2 * n})", flush=True)
     require(launches == want, "kernel launches differ from the derived "
             "counts")
-    require(routes.get("fma") == 2 * n, "the head's VJPs (a stored row of "
-            f"{cfg.vocab_size}) must take K1's FMA kernels, and nothing "
-            "else")
+    require(routes.get("split pitched") == 2 * n and not any(
+        r.startswith("fma") for r in routes), "the head's VJPs (a stored "
+        f"row of {cfg.vocab_size}) must take the split route through "
+        "pitched parts, and no product the FMA kernel")
     require(_mask_counts(masks) == want_masks, "K2-K4's masks differ from "
             "the derived ones")
     prods, att = _encdec_flops(cfg, ENC_TRAIN_B, ENC_TRAIN_S, False)

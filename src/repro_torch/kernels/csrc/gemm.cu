@@ -52,7 +52,11 @@
 //         so transpose_a / transpose_b read the stored layout in place.
 //   split one f32 operand: the tile path with that operand's three parts
 //         (three wgmmas a k-step, the bf16 operand's tile read once),
-//         BN = 128, 3 stages, and the per-stage f32 promotion above.
+//         BN = 128, 3 stages, and the per-stage f32 promotion above.  The
+//         parts are written at a row pitch of a multiple of 8 elements, so
+//         TMA reads them whatever the f32 operand's own row (whisper's
+//         51865-wide logits gradient); only the bf16 operand must suit
+//         TMA.
 //   gemv  bf16 x bf16 with m <= 16 rows, no transpose_a, k % 32 == 0: the
 //         decode rows.  The weight is streamed once with 16-byte
 //         non-allocating loads straight into mma.sync m16n8k16 fragments
@@ -81,11 +85,14 @@
 //         kernel with the head as grid axis z, each operand read through
 //         its row and head strides (a multiple of 16 bytes), so a slice
 //         of a weight table is streamed in place, never copied.
-//   the first kernels where TMA cannot read an operand (a stored row
-//         length not a multiple of 8 elements, a base not 16-byte
-//         aligned, k = 0): bf16 x bf16 without transpose_a on
-//         nvcuda::wmma 64x64 tiles (gemm_bf16), every other form on f32
-//         FMA 128x128 tiles (gemm_fma); f32 x f32 always takes gemm_fma.
+//   fma   f32 x f32, and the forms whose bf16 operand TMA cannot read (a
+//         stored row length not a multiple of 8 elements, a base not
+//         16-byte aligned, k = 0) but bf16 x bf16 without transpose_a:
+//         exact f32 FMA (gemm_fma, namespace `exact` below: tiles by the
+//         width, a cp.async ring, k split where the tiles do not fill the
+//         card, a row form at most 16 rows).
+//   wmma  bf16 x bf16 without transpose_a that TMA cannot read: the
+//         first nvcuda::wmma 64x64 tiles (gemm_bf16).
 //
 // What bounds it on an H100: at prefill and training row counts the tile
 // and split paths are compute-bound (989 TFLOP/s bf16; the split path
@@ -102,6 +109,7 @@
 // crossover, and the padding of cap to 256 rows wastes 6%.  The head form
 // streams 1.31 MB a product at minicpm3-4b's decode (0.0004 ms at 3.35
 // TB/s): the launch, not the card, bounds it.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -208,85 +216,574 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-constexpr int FBM = 128, FBN = 128, FBK = 8, FTHREADS = 256;
+// out = the sum of the nsplit partials, in split order (no atomics:
+// reruns are the same bits)
+__global__ void gemv_reduce(const float* __restrict__ ws,
+                            float* __restrict__ out, long long total,
+                            int nsplit) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  float sum = ws[i];
+#pragma unroll 8
+  for (int s = 1; s < nsplit; ++s) sum += ws[(size_t)s * total + i];
+  out[i] = sum;
+}
 
-// C = op(A) op(B) with op(A) (M, K), op(B) (K, N); A stored (M, K), or
-// (K, M) when TA; B stored (K, N), or (N, K) when TB.
-template <typename AT, typename BT, bool TA, bool TB>
-__global__ void __launch_bounds__(FTHREADS)
+// ---------------------------------------------------------------------------
+// The exact-f32 FMA kernels: every f32 x f32 product, and the bf16 or mixed
+// forms whose bf16 operand TMA cannot read.  f32 FMA on the CUDA cores (no
+// TF32, no bf16 parts: the MoE routings depend on f32 router logits).
+//
+// What bounds them on an H100: f32 FMA at 67 TFLOP/s where a product is
+// large (4096^3: 2.05 ms), else the bytes of the larger operand (a
+// router's (2048, 5120) activations, 42 MB: 0.0125 ms) or, at decode's two
+// rows, the launch.  The first FMA kernel took one 128 x 128 tile a block and
+// walked k serially by 8 with two barriers a step and no copy in flight,
+// so the routers' grids held 1-16 blocks on 132 SMs.  Here:
+//   - the tile's width follows n: 128 x 128, 128 x 64 (n <= 64: deepseek's
+//     64 experts), 256 x 16 (n <= 16: llama4's 16), 256 threads, each an
+//     8 x 8, 8 x 4 or 4 x 4 patch of outputs;
+//   - k is staged 32 at a time through a three-stage cp.async ring, one
+//     barrier a stage: 16-byte copies where a stored row and the base are
+//     16-byte aligned, 4-byte ones otherwise, the ragged edges zero-filled
+//     by the copies' source size; bf16 operands are widened by the threads
+//     into the same f32 tiles;
+//   - each operand stays in shared memory in its stored orientation
+//     (A (m, k) or (k, m), B (k, n) or (n, k)) and a thread reads two k
+//     a step, as a float2 along k or as float4s across its 4-row (column)
+//     groups, so no operand is transposed on the way in;
+//   - where the output tiles are fewer than the SMs, k is split over
+//     blocks (ops.fma_splits: two blocks a SM), each writing its partial,
+//     and gemv_reduce adds them in split order (reruns are the same bits).
+// The row form (at most 16 rows, no transpose_a: the decode routers) is
+// the f32 twin of gemv_mma on the CUDA cores, below.  Measured on an
+// H100: the k split of a tile through a cluster's shared
+// memory ran slower than the workspace and second pass at every router
+// shape, BK of 16 or 8 and 4-6 stages gained nothing, and the row form's
+// time was fixed by its code size (every instruction fetched cold, once a
+// launch) until its unrolled rows were bounded by the rows it takes.
+// ---------------------------------------------------------------------------
+
+namespace exact {
+
+constexpr int THREADS = 256, BK = 32, STAGES = 3, PAD = 4;
+enum Form { ROWS = 0, T256x16 = 1, T128x64 = 2, T128x128 = 3 };
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage rows r0 .. r0 + ROWS - 1, columns c0 .. c0 + COLS - 1 of a stored
+// row-major matrix (R rows of C, ld elements apart) into tile[ROWS][COLS +
+// PAD] f32, zero past R and C.  f32 by cp.async (16 bytes with vec: rows
+// 16-byte aligned), bf16 widened by the threads.
+template <typename T, int ROWS, int COLS>
+__device__ __forceinline__ void stage(float* tile, const T* __restrict__ src,
+                                      long long ld, int R, int C, int r0,
+                                      int c0, bool vec) {
+  constexpr int P = COLS + PAD;
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      constexpr int CH = COLS / 4;
+#pragma unroll
+      for (int e = threadIdx.x; e < ROWS * CH; e += THREADS) {
+        const int r = e / CH, c = (e % CH) * 4;
+        const int gr = r0 + r, gc = c0 + c;
+        int bytes = gr < R ? 4 * (C - gc) : 0;
+        bytes = bytes < 0 ? 0 : (bytes > 16 ? 16 : bytes);
+        cp_async16(tile + r * P + c,
+                   bytes ? src + (size_t)gr * ld + gc : src, bytes);
+      }
+    } else {
+#pragma unroll 4
+      for (int e = threadIdx.x; e < ROWS * COLS; e += THREADS) {
+        const int r = e / COLS, c = e % COLS;
+        const int gr = r0 + r, gc = c0 + c;
+        const bool in = gr < R && gc < C;
+        cp_async4(tile + r * P + c, in ? src + (size_t)gr * ld + gc : src,
+                  in ? 4 : 0);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < ROWS * COLS; e += THREADS) {
+      const int r = e / COLS, c = e % COLS;
+      const int gr = r0 + r, gc = c0 + c;
+      tile[r * P + c] =
+          gr < R && gc < C ? to_f(src[(size_t)gr * ld + gc]) : 0.f;
+    }
+  }
+}
+
+// The row form's k split summed in split order: in a cluster of the
+// nsplit <= MAX_CLUSTER blocks of one column block, each
+// block leaves its `count` partial sums in its shared `part`, and block
+// rank r adds elements r * THREADS + t, ... over the ranks 0, 1, ... in
+// order (all ranks' loads issued first), read through distributed shared
+// memory, handing each total to out(e, v): one launch, no workspace, the
+// same bits as gemv_reduce's pass over a workspace.
+constexpr int MAX_CLUSTER = 8;
+
+template <typename Out>
+__device__ __forceinline__ void cluster_fold(float* part, int count,
+                                             Out out) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();
+  const int cs = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  for (int e = rank * THREADS + threadIdx.x; e < count;
+       e += cs * THREADS) {
+    float v[MAX_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r)
+      if (r < cs) v[r] = *cl.map_shared_rank(part + e, r);
+    float sum = v[0];
+#pragma unroll
+    for (int r = 1; r < MAX_CLUSTER; ++r)
+      if (r < cs) sum += v[r];
+    out(e, sum);
+  }
+  cl.sync();            // no block leaves while another reads its part
+}
+
+template <int BM, int BN, bool TA, bool TB>
+struct Tiles {
+  // stored orientation: A (BM, BK) or (BK, BM); B (BK, BN) or (BN, BK)
+  static constexpr int A = TA ? BK * (BM + PAD) : BM * (BK + PAD);
+  static constexpr int B = TB ? BN * (BK + PAD) : BK * (BN + PAD);
+  static constexpr int STAGE = A + B;
+  static constexpr size_t BYTES = (size_t)STAGES * STAGE * 4;
+};
+
+// C (or split z's partial in ws) = op(A) op(B) over this split's k-steps,
+// one BM x BN tile a block (blockIdx.x columns, .y rows, .z the split).
+// Thread (ty, tx) holds rows ty + TY i (A stored (m, k)) or the 4-row
+// groups ty * 4 + 4 TY q (A stored (k, m)), and columns tx + TX j (B
+// stored (n, k)) or the groups tx * 4 + 4 TX q (B stored (k, n)).
+// With more than one split (gridDim.z), split z writes its partial to ws
+// and gemv_reduce adds them.
+template <typename AT, typename BT, bool TA, bool TB, int BM, int BN, int TM,
+          int TN, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
 gemm_fma(const AT* __restrict__ A, const BT* __restrict__ B,
-         float* __restrict__ C, int M, int N, int K) {
-  // both tiles k-major (f32) so the inner loop reads rows of shared memory
-  __shared__ __align__(16) float As[FBK][FBM + 4];
-  __shared__ __align__(16) float Bs[FBK][FBN + 4];
-  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[8][8];
-  for (int i = 0; i < 8; ++i)
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+         float* __restrict__ C, float* __restrict__ ws, int M, int N, int K,
+         int vec_a, int vec_b) {
+  constexpr int TX = BN / TN, TY = BM / TM;
+  static_assert(TX * TY == THREADS, "a thread a TM x TN patch");
+  static_assert((!TA || TM % 4 == 0) && (TB || TN % 4 == 0),
+                "4-row (column) groups");
+  using L = Tiles<BM, BN, TA, TB>;
+  extern __shared__ __align__(16) float smem[];
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int KT = (K + BK - 1) / BK;
+  const int per = (KT + gridDim.z - 1) / gridDim.z;
+  const int kt0 = blockIdx.z * per;
+  const int nk = max(0, min(KT, kt0 + per) - kt0);
 
-  for (int k0 = 0; k0 < K; k0 += FBK) {
-    for (int e = threadIdx.x; e < FBM * FBK; e += FTHREADS) {
-      // consecutive threads walk the stored row: coalesced either way
-      const int r = TA ? e % FBM : e / FBK, c = TA ? e / FBM : e % FBK;
-      const int gm = m0 + r, gk = k0 + c;
-      float val = 0.f;
-      if (gm < M && gk < K)
-        val = to_f(TA ? A[(size_t)gk * M + gm] : A[(size_t)gm * K + gk]);
-      As[c][r] = val;
+  auto load = [&](int i) {             // k-step kt0 + i into its stage
+    if (i < nk) {
+      float* st = smem + (i % STAGES) * L::STAGE;
+      const int k0 = (kt0 + i) * BK;
+      if (TA)
+        stage<AT, BK, BM>(st, A, M, K, M, k0, m0, vec_a);
+      else
+        stage<AT, BM, BK>(st, A, K, M, K, m0, k0, vec_a);
+      if (TB)
+        stage<BT, BN, BK>(st + L::A, B, K, N, K, n0, k0, vec_b);
+      else
+        stage<BT, BK, BN>(st + L::A, B, N, K, N, k0, n0, vec_b);
     }
-    for (int e = threadIdx.x; e < FBN * FBK; e += FTHREADS) {
-      const int n = TB ? e / FBK : e % FBN, c = TB ? e % FBK : e / FBN;
-      const int gn = n0 + n, gk = k0 + c;
-      float val = 0.f;
-      if (gn < N && gk < K)
-        val = to_f(TB ? B[(size_t)gn * K + gk] : B[(size_t)gk * N + gn]);
-      Bs[c][n] = val;
+    cp_commit();
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) load(i);
+  for (int i = 0; i < nk; ++i) {
+    cp_wait<STAGES - 2>();             // this thread's copies of step i
+    __syncthreads();                   // everyone's; step i - 1 is done
+    load(i + STAGES - 1);              // into step i - 1's stage
+    const float* As = smem + (i % STAGES) * L::STAGE;
+    const float* Bs = As + L::A;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 2) {
+      float a[2][TM], b[2][TN];
+      if (TA) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int q = 0; q < TM / 4; ++q) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                As + (kk + s) * (BM + PAD) + q * 4 * TY + ty * 4);
+            a[s][4 * q] = v.x, a[s][4 * q + 1] = v.y;
+            a[s][4 * q + 2] = v.z, a[s][4 * q + 3] = v.w;
+          }
+      } else {
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              As + (ty + TY * r) * (BK + PAD) + kk);
+          a[0][r] = v.x, a[1][r] = v.y;
+        }
+      }
+      if (TB) {
+#pragma unroll
+        for (int c = 0; c < TN; ++c) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              Bs + (tx + TX * c) * (BK + PAD) + kk);
+          b[0][c] = v.x, b[1][c] = v.y;
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int q = 0; q < TN / 4; ++q) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                Bs + (kk + s) * (BN + PAD) + q * 4 * TX + tx * 4);
+            b[s][4 * q] = v.x, b[s][4 * q + 1] = v.y;
+            b[s][4 * q + 2] = v.z, b[s][4 * q + 3] = v.w;
+          }
+      }
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int r = 0; r < TM; ++r)
+#pragma unroll
+          for (int c = 0; c < TN; ++c)
+            acc[r][c] = fmaf(a[s][r], b[s][c], acc[r][c]);
     }
-    __syncthreads();
+  }
+  cp_wait<0>();
+
+  float* dst = gridDim.z == 1 ? C : ws + (size_t)blockIdx.z * M * N;
 #pragma unroll
-    for (int kk = 0; kk < FBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  for (int r = 0; r < TM; ++r) {
+    const int gm =
+        m0 + (TA ? (r / 4) * 4 * TY + ty * 4 + r % 4 : ty + TY * r);
+    if (gm >= M) continue;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int c = 0; c < TN; ++c) {
+      const int gn =
+          n0 + (TB ? tx + TX * c : (c / 4) * 4 * TX + tx * 4 + c % 4);
+      if (gn < N) dst[(size_t)gm * N + gn] = acc[r][c];
     }
+  }
+}
+
+constexpr int ROW_MAX = 16, WARPS = THREADS / 32, ROW_UNROLL = 16;
+//: A's k range staged a chunk in shared memory: ROW_CHUNK / M columns
+constexpr int ROW_CHUNK = 8192;
+
+// 4 consecutive elements of a row at p (n of them valid, < 4 at an edge):
+// one 16-byte load with VEC (f32, p 16-byte aligned and n >= 4)
+template <bool VEC, typename T>
+__device__ __forceinline__ float4 load4(const T* p, int n) {
+  if constexpr (VEC) {
+    if (n >= 4) return *reinterpret_cast<const float4*>(p);
+  }
+  return make_float4(n > 0 ? to_f(p[0]) : 0.f, n > 1 ? to_f(p[1]) : 0.f,
+                     n > 2 ? to_f(p[2]) : 0.f, n > 3 ? to_f(p[3]) : 0.f);
+}
+
+// The row form: out (M <= MR <= 16, N) = A (M, K) op(B), latency-bound
+// (MR bounds the unrolled code: 2 or 4 for the decode rows, which run it
+// once a launch, every instruction fetched cold), so each
+// thread issues a round of ROW_UNROLL 16-byte loads of B before it waits
+// on any (an f32 A's chunk copied to shared memory by cp.async meanwhile),
+// and a block's share of k is as a rule one round.  The k range is split
+// over the nsplit <= MAX_CLUSTER blocks blockIdx.x of a cluster, whose
+// partials fold in split order there (cluster_fold): one launch, where a
+// second pass over a workspace would cost as much again at decode's two
+// rows; blockIdx.y is the column block.  A's k range is staged a chunk at a
+// time in shared memory.
+//   !TB (B stored (K, N)), 128 columns a block: `lpr` lanes (4 columns
+//   each) cover a row of the block's columns and a warp 32 / lpr rows at
+//   once, the warps on interleaved rows; the sums are folded over the
+//   lanes of a column (xor shuffles) and over the warps in warp order.
+//   TB (B stored (N, K)), 32 columns a block: a warp owns 4 columns and
+//   its lanes walk k, 4 elements a lane, folded by an xor-shuffle tree.
+template <typename AT, typename BT, bool TB, bool VEC, int MR>
+__global__ void __launch_bounds__(THREADS)
+gemm_fma_rows(const AT* __restrict__ A, const BT* __restrict__ B,
+              float* __restrict__ C, int M, int N, int K) {
+  constexpr int COLS = TB ? 32 : 128;
+  constexpr int U = TB ? ROW_UNROLL / 4 : ROW_UNROLL;   // k steps a round
+  __shared__ __align__(16) float as[ROW_CHUNK];
+  __shared__ __align__(16) float part[MR * COLS];
+  static_assert(MR <= ROW_MAX, "at most ROW_MAX rows");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ns = gridDim.x;
+  const int per = ((K + ns - 1) / ns + 3) / 4 * 4;   // 16-byte aligned
+  const int kb = blockIdx.x * per, ke = min(K, kb + per);
+  const int kc = (ROW_CHUNK / M) / 4 * 4;       // a chunk's k, a multiple of 4
+  const int nb = blockIdx.y * COLS;
+  float acc[MR][4];
+#pragma unroll
+  for (int r = 0; r < MR; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+  // !TB: this lane's 4 columns and k row within the warp's rows
+  int lpr = 1;
+  while (lpr < 32 && lpr * 4 < min(N - nb, COLS)) lpr *= 2;
+  const int rw = 32 / lpr, kr = lane / lpr, n4 = nb + (lane % lpr) * 4;
+  // the k a round covers, from this thread's first k
+  const int step = TB ? 128 : WARPS * rw, k1 = TB ? lane * 4 : warp * rw + kr;
+  const int n0 = nb + warp * 4;                 // TB: this warp's columns
+  for (int c0 = kb; c0 < ke; c0 += kc) {
+    const int len = min(ke, c0 + kc) - c0;
+    const int ld = (len + 3) / 4 * 4;           // the chunk's row in `as`
+    const int rounds = (len + step * U - 1) / (step * U);
+    __syncthreads();                            // the last chunk is read
+    if constexpr (std::is_same<AT, float>::value) {
+      // f32 A: its chunk copied by cp.async, in flight beside B's loads
+      for (int e = threadIdx.x; e < M * ld; e += THREADS) {
+        const int r = e / ld, kk = e % ld;
+        const bool in = kk < len;
+        cp_async4(as + e, in ? A + (size_t)r * K + c0 + kk : A, in ? 4 : 0);
+      }
+      cp_commit();
+    }
+    for (int rd = 0; rd < rounds; ++rd) {
+      const int kbase = rd * step * U + k1;
+      float4 b[U][TB ? 4 : 1];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int kk = kbase + u * step;
+#pragma unroll
+        for (int c = 0; c < (TB ? 4 : 1); ++c) {
+          const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+          if constexpr (TB)
+            b[u][c] = kk < len && n0 + c < N
+                          ? load4<VEC>(B + (size_t)(n0 + c) * K + c0 + kk,
+                                       len - kk)
+                          : z;
+          else
+            b[u][c] = kk < len ? load4<VEC>(B + (size_t)(c0 + kk) * N + n4,
+                                            N - n4)
+                               : z;
+        }
+      }
+      if (rd == 0) {                            // stage the chunk of A
+        if constexpr (std::is_same<AT, float>::value) {
+          cp_wait<0>();                         // (copied before B's loads)
+        } else {
+          for (int e = threadIdx.x; e < M * ld; e += THREADS) {
+            const int r = e / ld, kk = e % ld;
+            as[e] = kk < len ? to_f(A[(size_t)r * K + c0 + kk]) : 0.f;
+          }
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int kk = kbase + u * step;
+        if (kk >= len) break;
+#pragma unroll
+        for (int r = 0; r < MR; ++r) {
+          if (r >= M) break;
+          if constexpr (TB) {
+            const float4 a =
+                *reinterpret_cast<const float4*>(as + r * ld + kk);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              float t = acc[r][c];
+              t = fmaf(a.x, b[u][c].x, t);
+              t = fmaf(a.y, b[u][c].y, t);
+              t = fmaf(a.z, b[u][c].z, t);
+              acc[r][c] = fmaf(a.w, b[u][c].w, t);
+            }
+          } else {
+            const float a = as[r * ld + kk];
+            acc[r][0] = fmaf(a, b[u][0].x, acc[r][0]);
+            acc[r][1] = fmaf(a, b[u][0].y, acc[r][1]);
+            acc[r][2] = fmaf(a, b[u][0].z, acc[r][2]);
+            acc[r][3] = fmaf(a, b[u][0].w, acc[r][3]);
+          }
+        }
+      }
+    }
+  }
+  // fold this block's sums into part[M][COLS]
+  if constexpr (!TB) {
+#pragma unroll
+    for (int r = 0; r < MR; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        for (int off = lpr; off < 32; off *= 2)
+          acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], off);
+    for (int w = 0; w < WARPS; ++w) {          // the warps in order
+      if (warp == w && kr == 0) {
+#pragma unroll
+        for (int r = 0; r < MR; ++r)
+          if (r < M)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float* q = part + r * COLS + (lane % lpr) * 4 + j;
+              *q = w == 0 ? acc[r][j] : *q + acc[r][j];
+            }
+      }
+      __syncthreads();
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < MR; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float v = acc[r][c];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane == 0 && r < M) part[r * COLS + warp * 4 + c] = v;
+      }
     __syncthreads();
   }
-  for (int i = 0; i < 8; ++i) {
-    const int r = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (r >= M) continue;
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (c < N) C[(size_t)r * N + c] = acc[i][j];
-    }
+  auto out = [&](int e, float v) {
+    const int r = e / COLS, n = nb + e % COLS;
+    if (r < M && n < N) C[(size_t)r * N + n] = v;
+  };
+  if (ns == 1) {
+    for (int e = threadIdx.x; e < M * COLS; e += THREADS) out(e, part[e]);
+  } else {
+    cluster_fold(part, M * COLS, out);
   }
+}
+
+// A kernel launched with its k split as a cluster of `cs` blocks along
+// grid axis x
+template <typename... P, typename... Args>
+cudaError_t launch_cluster(void (*kern)(P...), dim3 grid, size_t smem,
+                           cudaStream_t s, int cs, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, static_cast<P>(args)...);
+}
+
+template <typename AT, typename BT, bool TA, bool TB, int BM, int BN, int TM,
+          int TN, int MINB>
+int launch_tile(const void* a, const void* b, float* c, float* ws, int m,
+                int n, int k, int vec_a, int vec_b, int nsplit,
+                cudaStream_t s) {
+  using L = Tiles<BM, BN, TA, TB>;
+  auto kern = gemm_fma<AT, BT, TA, TB, BM, BN, TM, TN, MINB>;
+  static bool sized = false;               // once a kernel (host time)
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized = true;
+  }
+  if (nsplit > 1 && ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, nsplit);
+  kern<<<grid, THREADS, L::BYTES, s>>>(static_cast<const AT*>(a),
+                                       static_cast<const BT*>(b), c, ws, m,
+                                       n, k, vec_a, vec_b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename AT, typename BT, bool TA, bool TB>
+int launch_form(int form, const void* a, const void* b, float* c, float* ws,
+                int m, int n, int k, int vec_a, int vec_b, int nsplit,
+                cudaStream_t s) {
+  constexpr bool F32 =
+      std::is_same<AT, float>::value && std::is_same<BT, float>::value;
+  if (form == ROWS) {
+    if (TA || m > ROW_MAX || nsplit > MAX_CLUSTER || ws != nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(nsplit, (n + (TB ? 31 : 127)) / (TB ? 32 : 128));
+    auto A = static_cast<const AT*>(a);
+    auto B = static_cast<const BT*>(b);
+    auto kern = gemm_fma_rows<AT, BT, TB, false, ROW_MAX>;
+    if constexpr (F32) {
+      if (m <= 2)
+        kern = vec_b ? gemm_fma_rows<AT, BT, TB, true, 2>
+                     : gemm_fma_rows<AT, BT, TB, false, 2>;
+      else if (m <= 4)
+        kern = vec_b ? gemm_fma_rows<AT, BT, TB, true, 4>
+                     : gemm_fma_rows<AT, BT, TB, false, 4>;
+      else if (vec_b)
+        kern = gemm_fma_rows<AT, BT, TB, true, ROW_MAX>;
+    }
+    return static_cast<int>(
+        launch_cluster(kern, grid, 0, s, nsplit, A, B, c, m, n, k));
+  }
+  if (nsplit > 65535 || (m + 127) / 128 > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // two blocks a SM (128 registers) but where B stored (n, k) meets A
+  // stored (m, k): both read along k, and 128 registers spill there
+  if (form == T128x128)
+    return launch_tile<AT, BT, TA, TB, 128, 128, 8, 8, TB && !TA ? 1 : 2>(
+        a, b, c, ws, m, n, k, vec_a, vec_b, nsplit, s);
+  if constexpr (F32) {
+    if (form == T128x64)
+      return launch_tile<AT, BT, TA, TB, 128, 64, 8, 4, 2>(
+          a, b, c, ws, m, n, k, vec_a, vec_b, nsplit, s);
+    if (form == T256x16)
+      return launch_tile<AT, BT, TA, TB, 256, 16, 4, 4, 1>(
+          a, b, c, ws, m, n, k, vec_a, vec_b, nsplit, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename AT, typename BT>
-void launch_fma(const void* a, const void* b, float* c, int m, int n, int k,
-                int ta, int tb, cudaStream_t s) {
-  const dim3 grid((n + FBN - 1) / FBN, (m + FBM - 1) / FBM);
-  auto A = static_cast<const AT*>(a);
-  auto B = static_cast<const BT*>(b);
+int launch(int form, const void* a, const void* b, float* c, float* ws,
+           int m, int n, int k, int ta, int tb, int vec_a, int vec_b,
+           int nsplit, cudaStream_t s) {
+  int err;
   if (ta && tb)
-    gemm_fma<AT, BT, true, true><<<grid, FTHREADS, 0, s>>>(A, B, c, m, n, k);
+    err = launch_form<AT, BT, true, true>(form, a, b, c, ws, m, n, k, vec_a,
+                                          vec_b, nsplit, s);
   else if (ta)
-    gemm_fma<AT, BT, true, false><<<grid, FTHREADS, 0, s>>>(A, B, c, m, n, k);
+    err = launch_form<AT, BT, true, false>(form, a, b, c, ws, m, n, k, vec_a,
+                                           vec_b, nsplit, s);
   else if (tb)
-    gemm_fma<AT, BT, false, true><<<grid, FTHREADS, 0, s>>>(A, B, c, m, n, k);
+    err = launch_form<AT, BT, false, true>(form, a, b, c, ws, m, n, k, vec_a,
+                                           vec_b, nsplit, s);
   else
-    gemm_fma<AT, BT, false, false><<<grid, FTHREADS, 0, s>>>(A, B, c, m, n,
-                                                              k);
+    err = launch_form<AT, BT, false, false>(form, a, b, c, ws, m, n, k,
+                                            vec_a, vec_b, nsplit, s);
+  if (err != 0 || nsplit == 1 || form == ROWS) return err;
+  const long long total = (long long)m * n;
+  gemv_reduce<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(ws, c, total,
+                                                              nsplit);
+  return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace exact
 
 // ---------------------------------------------------------------------------
 // The tensor-core forms: the tile path (bf16 x bf16, and bf16 x the three
@@ -686,11 +1183,12 @@ static inline int encode_out_map(CUtensorMap* map, void* base, int m,
 }
 
 // The tile path; `a[1..2]` / `b[1..2]` the mid and lo parts of a split
-// operand (null when it is bf16).  BN = 256 where its tiles fill the SMs
+// operand (null when it is bf16); a_ld / b_ld the stored rows' pitch.  BN = 256 where its tiles fill the SMs
 // (and nothing is split), else 128.  C leaves by TMA when its rows are a
 // multiple of 16 bytes.
 int launch_tile(const void* const a[3], const void* const b[3], float* c,
-                int m, int n, int k, int ta, int tb, cudaStream_t s) {
+                int m, int n, int k, int ta, int tb, int a_ld, int b_ld,
+                cudaStream_t s) {
   const int pa = a[1] ? 3 : 1, pb = b[1] ? 3 : 1;
   const long long tiles256 =
       (long long)((m + TBM - 1) / TBM) * ((n + 255) / 256);
@@ -698,11 +1196,11 @@ int launch_tile(const void* const a[3], const void* const b[3], float* c,
   TileMaps maps;
   int err = 0;
   for (int h = 0; h < pa && err == 0; ++h)
-    err = ta ? encode_matrix_map(&maps.a[h], a[h], k, m, 64)
-             : encode_matrix_map(&maps.a[h], a[h], m, k, TBM);
+    err = ta ? encode_matrix_map(&maps.a[h], a[h], k, m, 64, a_ld)
+             : encode_matrix_map(&maps.a[h], a[h], m, k, TBM, a_ld);
   for (int h = 0; h < pb && err == 0; ++h)
-    err = tb ? encode_matrix_map(&maps.b[h], b[h], n, k, bn)
-             : encode_matrix_map(&maps.b[h], b[h], k, n, 64);
+    err = tb ? encode_matrix_map(&maps.b[h], b[h], n, k, bn, b_ld)
+             : encode_matrix_map(&maps.b[h], b[h], k, n, 64, b_ld);
   const int tma_c = n % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
   if (err == 0 && tma_c) err = encode_out_map(&maps.c, c, m, n);
   if (err != 0) return err;
@@ -803,30 +1301,43 @@ __device__ __forceinline__ void split3(float x, bf16& hi, bf16& mid,
   lo = __float2bfloat16(r1 - __bfloat162float(mid));
 }
 
+// rows x cols f32 (rows cols apart) -> the three parts, rows `pitch`
+// (a multiple of 8) apart, zeros past cols: eight columns a thread, one
+// 16-byte store a part
 __global__ void split_bf16(const float* __restrict__ g, bf16* __restrict__ hi,
                            bf16* __restrict__ mid, bf16* __restrict__ lo,
-                           long long n) {
-  const long long i =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (i + 4 <= n) {
-    const float4 v = *reinterpret_cast<const float4*>(g + i);
-    const float x[4] = {v.x, v.y, v.z, v.w};
-    uint32_t h[2], m[2], w[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      bf16 h0, m0, w0, h1, m1, w1;
-      split3(x[2 * e], h0, m0, w0);
-      split3(x[2 * e + 1], h1, m1, w1);
-      h[e] = __bfloat16_as_ushort(h0) | ((uint32_t)__bfloat16_as_ushort(h1) << 16);
-      m[e] = __bfloat16_as_ushort(m0) | ((uint32_t)__bfloat16_as_ushort(m1) << 16);
-      w[e] = __bfloat16_as_ushort(w0) | ((uint32_t)__bfloat16_as_ushort(w1) << 16);
-    }
-    *reinterpret_cast<uint2*>(hi + i) = make_uint2(h[0], h[1]);
-    *reinterpret_cast<uint2*>(mid + i) = make_uint2(m[0], m[1]);
-    *reinterpret_cast<uint2*>(lo + i) = make_uint2(w[0], w[1]);
+                           long long rows, int cols, int pitch) {
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int per = pitch / 8;
+  if (v >= rows * per) return;
+  const long long r = v / per;
+  const int c0 = (int)(v % per) * 8;
+  const float* src = g + r * cols + c0;
+  float x[8];
+  if (c0 + 8 <= cols && cols % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    const float4 p = *reinterpret_cast<const float4*>(src);
+    const float4 q = *reinterpret_cast<const float4*>(src + 4);
+    x[0] = p.x, x[1] = p.y, x[2] = p.z, x[3] = p.w;
+    x[4] = q.x, x[5] = q.y, x[6] = q.z, x[7] = q.w;
   } else {
-    for (long long j = i; j < n; ++j) split3(g[j], hi[j], mid[j], lo[j]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = c0 + e < cols ? src[e] : 0.f;
   }
+  uint32_t h[4], m[4], w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    bf16 h0, m0, w0, h1, m1, w1;
+    split3(x[2 * e], h0, m0, w0);
+    split3(x[2 * e + 1], h1, m1, w1);
+    h[e] = __bfloat16_as_ushort(h0) | ((uint32_t)__bfloat16_as_ushort(h1) << 16);
+    m[e] = __bfloat16_as_ushort(m0) | ((uint32_t)__bfloat16_as_ushort(m1) << 16);
+    w[e] = __bfloat16_as_ushort(w0) | ((uint32_t)__bfloat16_as_ushort(w1) << 16);
+  }
+  const long long o = r * pitch + c0;
+  *reinterpret_cast<uint4*>(hi + o) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(mid + o) = make_uint4(m[0], m[1], m[2], m[3]);
+  *reinterpret_cast<uint4*>(lo + o) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // ---- the decode rows: m <= 16 rows against a streamed weight ----
@@ -980,18 +1491,6 @@ gemv_mma(const bf16* __restrict__ x, const bf16* __restrict__ w,
     }
 }
 
-// out = the sum of the nsplit partials, in split order (no atomics:
-// reruns are the same bits)
-__global__ void gemv_reduce(const float* __restrict__ ws,
-                            float* __restrict__ out, long long total,
-                            int nsplit) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float sum = ws[i];
-  for (int s = 1; s < nsplit; ++s) sum += ws[(size_t)s * total + i];
-  out[i] = sum;
-}
-
 // st: null for row-major operands (x (e, m, k), w (e, k, n) or (e, n, k))
 int launch_gemv(const void* x, const void* w, float* c, float* ws, int m,
                 int n, int k, int tb, int nsplit, cudaStream_t s,
@@ -1030,16 +1529,26 @@ extern "C" const char* repro_error_string(int code) {
 // a_dtype / b_dtype: 0 = float32, 1 = bfloat16, per operand.  transpose_a:
 // A is stored (k, m); transpose_b: B is stored (n, k).  vec_a / vec_b: the
 // caller certifies 16-byte aligned rows (base pointer aligned and the row
-// length a multiple of 8 elements), allowing vector loads (wmma path).
-extern "C" int repro_gemm(const void* a, const void* b, void* c, int m,
-                          int n, int k, int transpose_a, int transpose_b,
-                          int a_dtype, int b_dtype, int vec_a, int vec_b,
+// length a multiple of 16 bytes), allowing 16-byte copies.  bf16 x bf16
+// without transpose_a runs gemm_bf16 (form < 0); every other form the FMA
+// kernel's `form` (exact::Form, ops.fma_form) with k split over nsplit blocks
+// (ops.fma_splits), the partials summed in split order: a tile's through
+// ws (nsplit x m x n f32) and a second pass, the row form's in the
+// cluster of its (at most 8) splits, ws null.
+extern "C" int repro_gemm(const void* a, const void* b, void* c, void* ws,
+                          int m, int n, int k, int transpose_a,
+                          int transpose_b, int a_dtype, int b_dtype,
+                          int vec_a, int vec_b, int form, int nsplit,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* C = static_cast<float*>(c);
-  if ((a_dtype != 0 && a_dtype != 1) || (b_dtype != 0 && b_dtype != 1))
+  float* W = static_cast<float*>(ws);
+  if ((a_dtype != 0 && a_dtype != 1) || (b_dtype != 0 && b_dtype != 1) ||
+      nsplit < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a_dtype == 1 && b_dtype == 1 && !transpose_a) {
+    if (form >= 0 || nsplit != 1)
+      return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
     auto A = static_cast<const __nv_bfloat16*>(a);
     auto B = static_cast<const __nv_bfloat16*>(b);
@@ -1049,36 +1558,41 @@ extern "C" int repro_gemm(const void* a, const void* b, void* c, int m,
     else
       gemm_bf16<false><<<grid, THREADS, 0, s>>>(A, B, C, m, n, k, vec_a,
                                                 vec_b);
-  } else if (a_dtype == 0 && b_dtype == 0) {
-    launch_fma<float, float>(a, b, C, m, n, k, transpose_a, transpose_b, s);
-  } else if (a_dtype == 0) {
-    launch_fma<float, __nv_bfloat16>(a, b, C, m, n, k, transpose_a,
-                                     transpose_b, s);
-  } else if (b_dtype == 0) {
-    launch_fma<__nv_bfloat16, float>(a, b, C, m, n, k, transpose_a,
-                                     transpose_b, s);
-  } else {
-    launch_fma<__nv_bfloat16, __nv_bfloat16>(a, b, C, m, n, k, transpose_a,
-                                             transpose_b, s);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  using bf = __nv_bfloat16;
+  if (a_dtype == 0 && b_dtype == 0)
+    return exact::launch<float, float>(form, a, b, C, W, m, n, k, transpose_a,
+                                     transpose_b, vec_a, vec_b, nsplit, s);
+  if (a_dtype == 0)
+    return exact::launch<float, bf>(form, a, b, C, W, m, n, k, transpose_a,
+                                  transpose_b, vec_a, vec_b, nsplit, s);
+  if (b_dtype == 0)
+    return exact::launch<bf, float>(form, a, b, C, W, m, n, k, transpose_a,
+                                  transpose_b, vec_a, vec_b, nsplit, s);
+  return exact::launch<bf, bf>(form, a, b, C, W, m, n, k, transpose_a,
+                             transpose_b, vec_a, vec_b, nsplit, s);
 }
 
 // The tile path: a, b bf16, or one of them the hi part of a split f32
 // operand whose mid and lo parts are a_mid, a_lo (or b_mid, b_lo; null
-// otherwise); every row stride a multiple of 16 bytes, bases 16-byte
-// aligned, k >= 1.
+// otherwise); a_ld / b_ld the stored rows' pitch in elements (the parts of
+// a split operand may be padded past its logical row), each a multiple of
+// 8, bases 16-byte aligned, k >= 1.
 extern "C" int repro_gemm_tc(const void* a, const void* a_mid,
                              const void* a_lo, const void* b,
                              const void* b_mid, const void* b_lo, void* c,
                              int m, int n, int k, int transpose_a,
-                             int transpose_b, void* stream) {
-  if ((a_mid && b_mid) || (a_mid && !a_lo) || (b_mid && !b_lo) || k < 1)
+                             int transpose_b, int a_ld, int b_ld,
+                             void* stream) {
+  if ((a_mid && b_mid) || (a_mid && !a_lo) || (b_mid && !b_lo) || k < 1 ||
+      a_ld % 8 != 0 || b_ld % 8 != 0 ||
+      a_ld < (transpose_a ? m : k) || b_ld < (transpose_b ? k : n))
     return static_cast<int>(cudaErrorInvalidValue);
   const void* const as[3] = {a, a_mid, a_lo};
   const void* const bs[3] = {b, b_mid, b_lo};
   return tc::launch_tile(as, bs, static_cast<float*>(c), m, n, k,
-                         transpose_a, transpose_b,
+                         transpose_a, transpose_b, a_ld, b_ld,
                          static_cast<cudaStream_t>(stream));
 }
 
@@ -1158,14 +1672,20 @@ extern "C" int repro_expert_gemm_split(const void* a, const void* a_mid,
                                 static_cast<cudaStream_t>(stream));
 }
 
-// The three bf16 parts (hi, mid, lo) of n f32 values (16-byte aligned).
+// The three bf16 parts (hi, mid, lo) of a rows x cols f32 matrix (rows
+// cols apart), each written rows `pitch` apart (a multiple of 8, >= cols;
+// 16-byte aligned part bases), zeros past cols.
 extern "C" int repro_split_bf16(const void* g, void* hi, void* mid, void* lo,
-                                long long n, void* stream) {
-  if (n <= 0) return 0;
-  const long long threads = 256, per = threads * 4;
-  tc::split_bf16<<<(unsigned)((n + per - 1) / per), (unsigned)threads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+                                long long rows, int cols, int pitch,
+                                void* stream) {
+  if (rows <= 0 || cols <= 0) return 0;
+  if (pitch % 8 != 0 || pitch < cols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long threads = 256, vecs = rows * (pitch / 8);
+  tc::split_bf16<<<(unsigned)((vecs + threads - 1) / threads),
+                   (unsigned)threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(g), static_cast<__nv_bfloat16*>(hi),
-      static_cast<__nv_bfloat16*>(mid), static_cast<__nv_bfloat16*>(lo), n);
+      static_cast<__nv_bfloat16*>(mid), static_cast<__nv_bfloat16*>(lo), rows,
+      cols, pitch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -657,25 +657,29 @@ static inline int encode_rows_map(CUtensorMap* map, const void* base, int B,
 // The map of a row-major bf16 (rows, cols) matrix read in boxes of
 // `box_rows` rows by 64 columns, 128-byte swizzled: box (c, r) is rows r ..
 // r + box_rows - 1 of columns c .. c + 63; what lies past the matrix reads
-// as zeros.  Needs a 16-byte aligned base and cols % 8 == 0 (the row
-// stride a multiple of 16 bytes).  Rows that are not a whole number of
-// 128-byte lines (mamba2's 50280-column head) put each box row across
-// two lines; there the loads are not widened to 256-byte L2 requests
-// (measured faster on an H100 there, slower on aligned rows).
+// as zeros.  Rows lie `pitch` elements apart (0: cols; a padded pitch
+// reads a matrix whose logical width TMA could not take, such as the
+// split parts of whisper's 51865-wide logits gradient).  Needs a 16-byte
+// aligned base and a pitch of a multiple of 8 (the row stride a multiple
+// of 16 bytes).  Rows that are not a whole number of 128-byte lines
+// (mamba2's 50280-column head) put each box row across two lines; there
+// the loads are not widened to 256-byte L2 requests (measured faster on an
+// H100 there, slower on aligned rows).
 static inline int encode_matrix_map(CUtensorMap* map, const void* base,
                                     long long rows, long long cols,
-                                    int box_rows) {
+                                    int box_rows, long long pitch = 0) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (pitch == 0) pitch = cols;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * 2};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                         const_cast<void*>(base), dims, strides, box, estr,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
-                        (cols * 2) % 128 == 0
+                        (pitch * 2) % 128 == 0
                             ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
                             : CU_TENSOR_MAP_L2_PROMOTION_NONE,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

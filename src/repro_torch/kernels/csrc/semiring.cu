@@ -96,8 +96,18 @@
 //    (+inf for min) from one j while another j wins, and c is +inf (-inf),
 //    the nest pairs -inf with +inf into NaN and the factored form does not
 //    (ROADMAP.md, Queue 3, deliberate deviations).
-//  - THREAD: one thread per output, strided loads through the read-only
-//    cache: every other nest (several contracted axes, no chain).
+//  - THREAD: every other nest (contracted axes whose strides do not
+//    chain, a 3-operand nest that is no chain; the host first merges
+//    adjacent contracted axes that one flattened index walks, so a lone
+//    reduce over adjacent axes is REDUCE's).  Where the contracted volume
+//    is at least 32 (Desc.rows), a warp an output: its lanes walk the
+//    flattened contracted index, the innermost axis fastest, so a
+//    stride-1 innermost axis is read in whole 128-byte lines (one thread
+//    an output read lines 16 KB apart and left the card mostly idle:
+//    the (4096, 64, 64) max over (1, 2) took 16x torch.amax there), each
+//    lane folding its own elements in order, 8 loads in flight, and the
+//    lanes folded by a fixed xor-shuffle tree (reruns are the same bits).
+//    Below 32, one thread an output through the read-only cache.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -1097,6 +1107,70 @@ k9_thread(const Desc d, const void* __restrict__ p0,
   store(out, ooff, acc, d.out_dtype);
 }
 
+// A warp an output cell: lane l folds the flattened contracted indices l,
+// l + 32, ... (innermost axis fastest, THREAD_UNROLL loads in flight, one
+// accumulator each), advanced by the mixed-radix digits of 32, then the
+// accumulators fold in order and the lanes by an xor-shuffle tree.
+constexpr int THREAD_UNROLL = 8;
+
+template <int COMB, int RED>
+__global__ void __launch_bounds__(BLOCK)
+k9_thread_warp(const Desc d, const void* __restrict__ p0,
+               const void* __restrict__ p1, const void* __restrict__ p2,
+               void* __restrict__ out) {
+  const int lane = threadIdx.x % 32;
+  const long long o =
+      (long long)blockIdx.x * WARPS + threadIdx.x / 32;   // the output
+  long long xr;
+  const long long z = divmod(o, d.out_ext[3], xr);
+  long long off[MAX_IN], ooff;
+  if (!locate(d, z, xr, off, ooff)) return;
+  const long long K0 = d.red_ext[0], K1 = d.red_ext[1], K2 = d.red_ext[2];
+  // the step of 32 in digits (c0, c1, c2), each below its radix
+  long long c2, c1, t;
+  t = divmod(32, K2, c2);
+  const long long c0 = divmod(t, K1, c1);
+  long long k2, k1;
+  t = divmod(lane, K2, k2);
+  long long k0 = divmod(t, K1, k1);
+  float acc[THREAD_UNROLL];
+#pragma unroll
+  for (int u = 0; u < THREAD_UNROLL; ++u) acc[u] = identity<RED>();
+  while (k0 < K0) {
+    float v[THREAD_UNROLL];
+    bool in[THREAD_UNROLL];
+#pragma unroll
+    for (int u = 0; u < THREAD_UNROLL; ++u) {
+      in[u] = k0 < K0;
+      if (in[u]) {
+        long long q[MAX_IN];
+#pragma unroll
+        for (int i = 0; i < MAX_IN; ++i)
+          q[i] = off[i] + k0 * d.stride[i][4] + k1 * d.stride[i][5] +
+                 k2 * d.stride[i][6];
+        v[u] = paired<COMB>(d, p0, p1, p2, q);
+      }
+      k2 += c2;
+      const long long e2 = k2 >= K2;
+      k2 -= e2 * K2;
+      k1 += c1 + e2;
+      const long long e1 = k1 >= K1;
+      k1 -= e1 * K1;
+      k0 += c0 + e1;
+    }
+#pragma unroll
+    for (int u = 0; u < THREAD_UNROLL; ++u)
+      if (in[u]) acc[u] = fold<RED>(acc[u], v[u]);
+  }
+  float r = acc[0];
+#pragma unroll
+  for (int u = 1; u < THREAD_UNROLL; ++u) r = fold<RED>(r, acc[u]);
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1)
+    r = fold<RED>(r, __shfl_xor_sync(0xffffffffu, r, s));
+  if (lane == 0) store(out, ooff, r, d.out_dtype);
+}
+
 // ---- launch -----------------------------------------------------------------
 
 constexpr long long GRID_YZ = 65535, GRID_X = 2147483647;
@@ -1175,8 +1249,14 @@ cudaError_t launch(const Desc& d, const void* p0, const void* p1,
     if (err != cudaSuccess || d.splits == 1) return err;
     return fold_splits<RED>(d, work, dst, st);
   }
-  // THREAD: lead cells z = blockIdx.z * gridDim.y + blockIdx.y (locate
-  // masks the overhang of the last z row)
+  if (d.rows) {   // THREAD, a warp an output
+    if (ceil_div(n, WARPS) > GRID_X) return cudaErrorInvalidValue;
+    k9_thread_warp<COMB, RED><<<(unsigned)ceil_div(n, WARPS), BLOCK, 0, st>>>(
+        d, p0, p1, p2, dst);
+    return cudaGetLastError();
+  }
+  // THREAD, a thread an output: lead cells z = blockIdx.z * gridDim.y +
+  // blockIdx.y (locate masks the overhang of the last z row)
   const long long gy = lead < GRID_YZ ? lead : GRID_YZ;
   const long long gz = ceil_div(lead, gy);
   if (gz > GRID_YZ) return cudaErrorInvalidValue;

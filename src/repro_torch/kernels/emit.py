@@ -18,7 +18,9 @@ no inert element (e.g. (max, mul)) raises the same ``ValueError`` exactly
 where its schedule needs padding.
 
 Every launch decision is made here, on the host, where the CPU tests can
-hold it: the path (``_mode``: TILE, MAP, REDUCE, CHAIN or THREAD), TILE's
+hold it: the merge of contracted axes that one flattened index walks
+(``merge_contracted``), the path (``_mode``: TILE, MAP, REDUCE, CHAIN or
+THREAD, and THREAD's warp or thread form), TILE's
 K split and REDUCE's variant and split (shapes only, in ``describe``),
 and each operand's orientation and copy width (``vector_ok``, at the
 launch's pointers, in ``Launch.c_descs``).  A chain becomes two TILE
@@ -53,7 +55,9 @@ ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 #:         axis and the N side free of M: 128x128 output tiles, K staged
 #:         through a two-stage ring, split over blocks where the tiles
 #:         alone do not fill the card;
-#: THREAD  a thread per output (every nest no other path takes);
+#: THREAD  every nest no other path takes: a warp per output where the
+#:         contracted volume is at least a warp's (``Launch.rows``), its
+#:         lanes walking the flattened contracted index, else a thread;
 #: REDUCE  one contracted axis: a warp per output where it is contiguous
 #:         in every operand that walks it (``Launch.rows``), else column
 #:         strips, split over blocks where they do not fill the card;
@@ -70,6 +74,8 @@ REDUCE_STRIP, REDUCE_WARPS = 128, 8
 RUN = 4
 #: the H100's SMs: a grid below this many blocks leaves SMs idle
 NUM_SM = 132
+#: the contracted volume from which THREAD takes a warp an output
+THREAD_WARP_MIN = 32
 #: the fewest contracted elements a split of TILE (REDUCE) takes
 TILE_SPLIT_MIN, REDUCE_SPLIT_MIN = 64, 256
 #: the CUDA grid's y and z limit (tile rows, leading out cells, splits)
@@ -207,7 +213,7 @@ class Launch:
     roles: tuple[int, int] = (0, 1)     # TILE: the M-side and N-side operand
     splits: int = 1              # TILE / REDUCE columns: blocks along K
     k_split: int = 0             # contracted elements a split
-    rows: bool = False           # REDUCE: a warp per output
+    rows: bool = False           # REDUCE / THREAD: a warp per output
     stages: tuple["Launch", ...] = ()   # CHAIN: T = op0 (x) op1, T (x) op2
     _descs: dict = field(default_factory=dict, compare=False, hash=False,
                          repr=False)
@@ -408,6 +414,32 @@ def _tile_launch(out_axes, out_ext, red_axes, red_ext, operands, combine,
                   combine, reduce_op, pad, TILE, roles, splits, k_split)
 
 
+def merge_contracted(red_axes, red_ext, operands, nout: int):
+    """Merge adjacent contracted axes whose strides chain in every operand
+    (the outer's stride is the inner's extent times the inner's stride,
+    both 0 included) into one axis, outermost first, as one flattened
+    index walks them.  Returns ``(red_axes, red_ext, operands)``; a merged
+    axis is named by its parts joined with ``*``.  The fold visits the same
+    elements in the same order, so the nest's value is unchanged (bit for
+    bit for max and min)."""
+    axes, ext = list(red_axes), list(red_ext)
+    strides = [list(o.strides) for o in operands]
+    r = len(ext) - 1
+    while r > 0:
+        outer, inner = nout + r - 1, nout + r
+        if all(st[outer] == ext[r] * st[inner] for st in strides):
+            axes[r - 1:r + 1] = [f"{axes[r - 1]}*{axes[r]}"]
+            ext[r - 1:r + 1] = [ext[r - 1] * ext[r]]
+            for st in strides:
+                del st[outer]
+        r -= 1
+    if len(ext) == len(red_ext):
+        return tuple(red_axes), tuple(red_ext), tuple(operands)
+    return tuple(axes), tuple(ext), tuple(
+        Operand(o.array, o.storage_shape, tuple(st), o.base)
+        for o, st in zip(operands, strides))
+
+
 def _mode(out_ext, red_ext, operands, combine: str = "mul",
           reduce_op: str = "add") -> tuple[int, tuple[int, int]]:
     """Which of K9's paths takes this nest (see ``TILE`` ... ``CHAIN``),
@@ -448,12 +480,22 @@ def _operands(nf: "E.NormalForm") -> tuple[Operand, ...]:
     return tuple(operands)
 
 
+def _nest(nf: "E.NormalForm"):
+    """``(out_ext, red_axes, red_ext, operands)`` of a normal form, its
+    chaining contracted axes merged (:func:`merge_contracted`)."""
+    ext = nf.extent_map
+    out_ext = tuple(ext[a] for a in nf.out_axes)
+    red_axes, red_ext, operands = merge_contracted(
+        tuple(nf.reduce_axes), tuple(ext[a] for a in nf.reduce_axes),
+        _operands(nf), len(out_ext))
+    return out_ext, red_axes, red_ext, operands
+
+
 def is_chain(nf: "E.NormalForm") -> bool:
     """Whether K9 contracts this normal form pairwise (CHAIN)."""
-    ext = nf.extent_map
-    return _mode(tuple(ext[a] for a in nf.out_axes),
-                 tuple(ext[a] for a in nf.reduce_axes), _operands(nf),
-                 nf.combine, nf.reduce_op)[0] == CHAIN
+    out_ext, _, red_ext, operands = _nest(nf)
+    return _mode(out_ext, red_ext, operands, nf.combine,
+                 nf.reduce_op)[0] == CHAIN
 
 
 def describe(bundle: Optional["sched_mod.ScheduleBundle"],
@@ -465,13 +507,10 @@ def describe(bundle: Optional["sched_mod.ScheduleBundle"],
     element."""
     pad = sched_mod.bundle_pad_value(bundle) if bundle is not None else \
         semiring.pad_value(nf.combine, nf.reduce_op)
-    ext = nf.extent_map
-    operands = _operands(nf)
-    out_ext = tuple(ext[a] for a in nf.out_axes)
-    red_ext = tuple(ext[a] for a in nf.reduce_axes)
+    out_ext, red_axes, red_ext, operands = _nest(nf)
     mode, roles = _mode(out_ext, red_ext, operands, nf.combine, nf.reduce_op)
-    common = (nf, tuple(nf.out_axes), out_ext, tuple(nf.reduce_axes),
-              red_ext, operands, nf.combine, nf.reduce_op, pad)
+    common = (nf, tuple(nf.out_axes), out_ext, red_axes, red_ext, operands,
+              nf.combine, nf.reduce_op, pad)
     if mode == TILE:
         return _tile_launch(*common[1:], roles, nf=nf)
     if mode == CHAIN:
@@ -483,6 +522,9 @@ def describe(bundle: Optional["sched_mod.ScheduleBundle"],
         splits, k_split = (1, red_ext[0]) if rows else reduce_splits(
             _prod(out_ext[:-1]), out_ext[-1] if out_ext else 1, red_ext[0])
         return Launch(*common, REDUCE, roles, splits, k_split, rows)
+    if mode == THREAD:
+        return Launch(*common, THREAD, roles,
+                      rows=_prod(red_ext) >= THREAD_WARP_MIN)
     return Launch(*common, mode, roles)
 
 

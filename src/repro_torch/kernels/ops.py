@@ -53,8 +53,10 @@ K1 takes one of its routes by :func:`gemm_route`, a shape rule applied
 before launch: the TMA + wgmma tile path (bf16), its split form (one f32
 operand as three bf16 parts, made once by :func:`split_bf16` for both of a
 backward's products, which is no K1 launch of its own), the decode rows'
-weight stream (at most 16 rows) or, where TMA cannot read an operand, the
-first kernels.  K4's bf16 tensor-core form splits each key tile's row
+weight stream (at most 16 rows) or, where TMA cannot read a bf16 operand
+and for every f32 x f32 product, the exact-f32 FMA kernel (tiles sized by
+the width, k split over :func:`fma_splits` blocks where the tiles do not
+fill the card, a row form at most 16 rows), or ``gemm_bf16``.  K4's bf16 tensor-core form splits each key tile's row
 stream over :func:`dkv_splits` blocks.  Either counts one launch a call.
 
 ``apply(expr, *arrays)`` is the MoA expression entry (the paper's
@@ -97,14 +99,14 @@ _P = ctypes.c_void_p
 _F = ctypes.c_float
 #: C entry point -> (library, argument types before the trailing stream)
 _SIGNATURES = {
-    "repro_gemm": ("gemm", [_P, _P, _P] + [_C] * 9),
-    "repro_gemm_tc": ("gemm", [_P] * 7 + [_C] * 5),
+    "repro_gemm": ("gemm", [_P] * 4 + [_C] * 11),
+    "repro_gemm_tc": ("gemm", [_P] * 7 + [_C] * 7),
     "repro_gemv": ("gemm", [_P] * 4 + [_C] * 5),
     "repro_expert_gemm": ("gemm", [_P] * 4 + [_C] * 6),
     "repro_expert_gemm_split": ("gemm", [_P] * 7 + [_C] * 6),
     "repro_head_gemm": ("gemm", [_P] * 4 + [_C] * 6
                         + [ctypes.c_longlong] * 4),
-    "repro_split_bf16": ("gemm", [_P] * 4 + [ctypes.c_longlong]),
+    "repro_split_bf16": ("gemm", [_P] * 4 + [ctypes.c_longlong, _C, _C]),
     "repro_flash_fwd": ("flash_fwd", [_P] * 6 + [_C] * 6 + [_F] + [_C] * 4),
     "repro_flash_dq": ("flash_bwd", [_P] * 8 + [_C] * 6 + [_F] + [_C] * 4),
     "repro_flash_dkv": ("flash_bwd", [_P] * 10 + [_C] * 6 + [_F] + [_C] * 5),
@@ -234,31 +236,36 @@ def gemm_route(m: int, n: int, k: int, a_dtype, b_dtype,
                a_base_ok: bool = True, b_base_ok: bool = True) -> str:
     """K1's kernel for one product, chosen from its shapes before launch:
 
-    - ``"fma"``: f32 x f32 (exact f32 FMA, ``gemm_fma``);
-    - ``"wmma"`` / ``"fma"``: the first kernels (``gemm_bf16``, bf16 x
-      bf16 without ``transpose_a``; ``gemm_fma`` otherwise) where TMA
-      cannot read an operand: a stored row length (``m`` or ``k`` of A,
-      ``k`` or ``n`` of B) not a multiple of 8 elements, a base not
-      16-byte aligned (``*_base_ok``), or ``k == 0``;
+    - ``"fma"``: f32 x f32 (exact f32 FMA on the CUDA cores,
+      ``gemm_fma``: tiles by :func:`fma_form`, k split by
+      :func:`fma_splits`), and every other form where TMA cannot read a
+      bf16 operand (a stored row length, ``m`` or ``k`` of A, ``k`` or
+      ``n`` of B, not a multiple of 8 elements, a base not 16-byte
+      aligned, ``*_base_ok``, or ``k == 0``), but for:
+    - ``"wmma"``: bf16 x bf16 without ``transpose_a`` that TMA cannot
+      read (``gemm_bf16``);
     - ``"gemv"``: bf16 x bf16 with at most ``K1_DECODE_ROWS`` rows,
       no ``transpose_a`` and ``k % 32 == 0`` (the weight-streaming decode
       kernel, split over k by :func:`gemv_splits`);
     - ``"tile"``: the other bf16 x bf16 products (TMA + wgmma);
-    - ``"split"``: one f32 and one bf16 operand: the f32 one as its three
-      bf16 parts (:func:`split_bf16`), three wgmmas a k-step on the tile
-      path."""
+    - ``"split"``: one f32 and one bf16 operand whose bf16 operand TMA can
+      read: the f32 one as its three bf16 parts (:func:`split_bf16`,
+      written at a row pitch of a multiple of 8 elements, so its own
+      stored row and base do not matter), three wgmmas a k-step on the
+      tile path."""
     f32, bf16 = torch.float32, torch.bfloat16
     if a_dtype == f32 and b_dtype == f32:
         return "fma"
     a_row = m if transpose_a else k
     b_row = k if transpose_b else n
+    if a_dtype != b_dtype:
+        row, ok = (b_row, b_base_ok) if a_dtype == f32 else (a_row,
+                                                              a_base_ok)
+        return "split" if k > 0 and row % 8 == 0 and ok else "fma"
     aligned = (k > 0 and a_row % 8 == 0 and b_row % 8 == 0 and a_base_ok
                and b_base_ok)
     if not aligned:
-        return "wmma" if a_dtype == b_dtype == bf16 and not transpose_a \
-            else "fma"
-    if a_dtype != b_dtype:
-        return "split"
+        return "fma" if transpose_a else "wmma"
     if m <= K1_DECODE_ROWS and not transpose_a and k % K1_GEMV_UNIT == 0:
         return "gemv"
     return "tile"
@@ -278,21 +285,81 @@ def gemv_splits(m: int, n: int, k: int, e: int = 1) -> int:
     return -(-units // per)
 
 
+#: the FMA kernel's forms (``gemm.cu``, ``exact::Form``): the row form, then
+#: its output tiles (rows, columns)
+FMA_ROWS, FMA_TILES = 0, {1: (256, 16), 2: (128, 64), 3: (128, 128)}
+#: the FMA tiles' k-step; the row form's columns a block (by
+#: ``transpose_b``), the fewest k a split of it takes and its most splits
+#: (the blocks of one cluster, which fold the partials)
+FMA_K, FMA_ROW_COLS, FMA_ROW_SPLIT_MIN = 32, {False: 128, True: 32}, 256
+FMA_ROW_CLUSTER = 8
+
+
+@functools.lru_cache(maxsize=1024)
+def fma_form(m: int, n: int, transpose_a: bool = False,
+             f32: bool = True) -> int:
+    """The FMA kernel's form for a product (``f32``: both operands f32):
+    the row form (``FMA_ROWS``) for at most ``K1_DECODE_ROWS`` rows
+    without ``transpose_a`` (the decode routers); else a tile by the
+    width, 256 x 16 for ``n <= 16`` (llama4's 16 experts), 128 x 64 for
+    ``n <= 64`` (deepseek's 64), 128 x 128 otherwise.  A bf16 or mixed
+    product (the rare forms TMA cannot read) takes the 128 x 128 tile or
+    the row form."""
+    if m <= K1_DECODE_ROWS and not transpose_a:
+        return FMA_ROWS
+    if not f32 or n > 64:
+        return 3
+    return 1 if n <= 16 else 2
+
+
+@functools.lru_cache(maxsize=1024)
+def fma_splits(m: int, n: int, k: int, transpose_a: bool = False,
+               transpose_b: bool = False, f32: bool = True) -> int:
+    """The FMA kernel's split of k over blocks, whose partials are added in
+    split order (a tile's through a workspace and a second pass, the row
+    form's in the cluster of its splits): where the form's blocks
+    without a split (output tiles, or the row form's column blocks) are
+    fewer than the card's SMs, as many splits as bring them to two a SM,
+    each of at least two k-steps of 32 (the row form: at most
+    ``FMA_ROW_CLUSTER`` splits of at least ``FMA_ROW_SPLIT_MIN`` k), and
+    no empty split."""
+    form = fma_form(m, n, transpose_a, f32)
+    most = k
+    if form == FMA_ROWS:
+        blocks = -(-n // FMA_ROW_COLS[transpose_b])
+        unit, least, most = 1, FMA_ROW_SPLIT_MIN, FMA_ROW_CLUSTER
+    else:
+        bm, bn = FMA_TILES[form]
+        blocks, unit, least = -(-m // bm) * -(-n // bn), FMA_K, 2
+    units = -(-k // unit)
+    if blocks >= SM_COUNT or units < 2 * least:
+        return 1
+    want = min(-(-2 * SM_COUNT // blocks), units // least, most)
+    per = -(-units // want)
+    return -(-units // per)
+
+
 def split_bf16(g: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """``(hi, mid, lo)`` bf16 of an f32 tensor (``ref.split_bf16``): ``g
     = hi + mid + lo`` within 2^-24 of ``|g|`` (a hand-written elementwise
-    pass on the card, not a K1 launch)."""
+    pass on the card, not a K1 launch).  On the card each part is a view
+    of rows padded to a multiple of 8 elements (zeros past the last
+    column), so TMA can read the parts of an operand whose own rows it
+    cannot (whisper's 51865-wide logits gradient); ``stride(-2)`` is the
+    pitch."""
     if not _use_kernel(g):
         return ref.split_bf16(g)
-    if g.dtype != torch.float32 or not g.is_contiguous() or \
-            g.data_ptr() % 16:
-        raise ValueError("split_bf16 takes a contiguous, 16-byte aligned "
-                         "float32 tensor")
-    parts = torch.empty((3,) + tuple(g.shape), device=g.device,
-                        dtype=torch.bfloat16)
+    if g.dtype != torch.float32 or not g.is_contiguous() or g.dim() == 0:
+        raise ValueError("split_bf16 takes a contiguous float32 tensor of "
+                         "at least one axis")
+    cols = g.shape[-1]
+    pitch = -(-cols // 8) * 8
+    parts = torch.empty((3,) + tuple(g.shape[:-1]) + (pitch,),
+                        device=g.device, dtype=torch.bfloat16)
     _launch("repro_split_bf16", g.data_ptr(), parts[0].data_ptr(),
-            parts[1].data_ptr(), parts[2].data_ptr(), g.numel())
-    return tuple(parts)
+            parts[1].data_ptr(), parts[2].data_ptr(), g.numel() // max(
+                cols, 1), cols, pitch)
+    return tuple(parts[..., :cols]) if pitch != cols else tuple(parts)
 
 
 def _route(a: torch.Tensor, b: torch.Tensor, transpose_a: bool,
@@ -323,14 +390,17 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
     if route in ("tile", "split"):
         a_ptrs, b_ptrs = (a.data_ptr(), None, None), (b.data_ptr(), None,
                                                       None)
+        a_ld, b_ld = a.stride(0), b.stride(0)
         if route == "split":
             parts = split if split is not None else \
                 split_bf16(a if code_a == 0 else b)
             ptrs = tuple(t.data_ptr() for t in parts)
-            a_ptrs, b_ptrs = (ptrs, b_ptrs) if code_a == 0 else (a_ptrs,
-                                                                 ptrs)
+            if code_a == 0:
+                a_ptrs, a_ld = ptrs, parts[0].stride(0)
+            else:
+                b_ptrs, b_ld = ptrs, parts[0].stride(0)
         _launch("repro_gemm_tc", *a_ptrs, *b_ptrs, out.data_ptr(), m, n, k,
-                int(transpose_a), int(transpose_b))
+                int(transpose_a), int(transpose_b), a_ld, b_ld)
     elif route == "gemv":
         nsplit = gemv_splits(m, n, k)
         ws = torch.empty((nsplit, m, n), device=a.device,
@@ -339,13 +409,30 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
                 None if ws is None else ws.data_ptr(), m, n, k,
                 int(transpose_b), nsplit)
     else:
-        vec_a = _aligned16(a, m if transpose_a else k)
-        vec_b = _aligned16(b, k if transpose_b else n)
-        _launch("repro_gemm", a.data_ptr(), b.data_ptr(), out.data_ptr(), m,
-                n, k, int(transpose_a), int(transpose_b), code_a, code_b,
-                int(vec_a), int(vec_b))
+        form, nsplit, ws = _fma_plan(a, b, m, n, k, transpose_a,
+                                     transpose_b, route)
+        _launch("repro_gemm", a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(), m, n, k,
+                int(transpose_a), int(transpose_b), code_a, code_b,
+                int(_aligned16(a, m if transpose_a else k)),
+                int(_aligned16(b, k if transpose_b else n)), form, nsplit)
     LAUNCHES["K1"] += 1
     return out
+
+
+def _fma_plan(a, b, m, n, k, transpose_a, transpose_b, route):
+    """``(form, nsplit, workspace)`` of the FMA kernel for a product on the
+    ``"fma"`` route (``form`` -1 and no split for ``"wmma"``): the
+    partials' workspace is ``(nsplit, m, n)`` f32 for a split tile, else
+    None (the row form folds its split in a cluster)."""
+    if route != "fma":
+        return -1, 1, None
+    f32 = a.dtype == b.dtype == torch.float32
+    form = fma_form(m, n, transpose_a, f32)
+    nsplit = fma_splits(m, n, k, transpose_a, transpose_b, f32)
+    ws = torch.empty((nsplit, m, n), device=a.device, dtype=torch.float32) \
+        if nsplit > 1 and form != FMA_ROWS else None
+    return form, nsplit, ws
 
 
 def _product(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
@@ -451,7 +538,9 @@ def expert_route(e: int, cap: int, d: int, f: int, x_dtype, w_dtype,
     - the two VJP forms of :func:`expert_matmul`, whose f32 cotangent
       meets a bf16 operand: ``dx = g wᵀ`` (f32 x bf16, ``transpose_b``)
       and ``dw = xᵀ g`` (bf16 x f32, ``transpose_a``), on ``"split"``
-      (the f32 operand as three bf16 parts; never ``"gemv"``).
+      (the f32 operand as three bf16 parts, read by rank-3 maps without
+      the 2-D route's row pitch, so its rows too must be a multiple of 8
+      elements; never ``"gemv"``).
 
     Everything else is ``"K9"`` (its batched TILE path, which takes each
     operand's own dtype): other dtypes or transposes, unaligned rows or
@@ -468,7 +557,10 @@ def expert_route(e: int, cap: int, d: int, f: int, x_dtype, w_dtype,
                 (("bfloat16", "float32"), True, False)):
         route = gemm_route(cap, f, d, *dts, transpose_a, transpose_b,
                            base_ok, base_ok)
-        return "split" if route == "split" else "K9"
+        # the expert form's rank-3 maps read the f32 operand's parts
+        # unpitched: its row (g's d for dx, f for dw) must suit TMA too
+        f32_row = d if transpose_b else f
+        return "split" if route == "split" and f32_row % 8 == 0 else "K9"
     return "K9"
 
 

@@ -35,9 +35,10 @@ Entry points:
     prefill(params, cfg, tokens, patches)      -> (logits, cache)
     init_cache(cfg, batch, cache_len, ...)     -> decode cache
     decode_step(params, cfg, tokens, pos, cache) -> (logits, cache)
-    dense, ssm:
-            prefill_cache_to_decode(cfg, cache, cache_len) -> decode cache
-    dense:  init_paged_pools(cfg, pool_tokens, ...) -> {"k", "v"}
+    all:    prefill_cache_to_decode(cfg, cache, cache_len)
+                                -> decode cache (dense, ssm) or None
+    dense, vlm:
+            init_paged_pools(cfg, pool_tokens, ...) -> {"k", "v"}
             decode_step_paged(params, cfg, tokens, pos, pools, table,
                               page)            -> logits  (one sequence)
             decode_step_paged_batched(params, cfg, tokens, pos, pools,
@@ -614,29 +615,19 @@ def has_prefill_decode_relayout(cfg: ArchConfig) -> bool:
             or cfg.family == "ssm")
 
 
-def prefill_cache_to_decode(cfg: ArchConfig, cache, cache_len: int) -> dict:
+def prefill_cache_to_decode(cfg: ArchConfig, cache, cache_len: int
+                            ) -> dict | None:
     """Re-lay a prefill cache as a decode cache: the dense family's K/V
     ``(L, B, S, KV, hd)`` (MLA's ``MLACache``, ``(L, B, S, rank)`` each)
     padded with zeros along the sequence to ``cache_len`` (later
     positions stay masked until written); the ssm
     cache carries forward unchanged (the final state IS the decode state).
-    The windowed dense and the hybrid families have no such re-layout in
-    the reference (ring caches, grouped layers): they ingest their prompt
-    token by token (``train.serve_step.greedy_generate``), as do the moe
-    and vlm families, whose forward caches the reference does not re-lay
-    either."""
-    if cfg.family in ("moe", "vlm"):
-        raise NotImplementedError(
-            f"prefill_cache_to_decode: the {cfg.family} family has no "
-            f"forward->decode cache re-layout in the reference (src/repro/"
-            f"models/transformer.py:542-560 returns None); ingest the prompt "
-            f"token by token (greedy_generate)")
-    _check_family(cfg, "prefill_cache_to_decode", (DENSE, MLA, SSM))
+    None, as in the reference, for every other family: the windowed dense
+    and hybrid ring caches, the moe family's grouped layers, vlm (its
+    prefill takes patches) and audio have no such re-layout, and ingest
+    their prompt token by token (``train.serve_step.greedy_generate``)."""
     if not has_prefill_decode_relayout(cfg):
-        raise NotImplementedError(
-            "prefill_cache_to_decode: windowed dense layers decode from "
-            "ring caches, which have no prefill re-layout in the reference; "
-            "ingest the prompt token by token (greedy_generate)")
+        return None
     if cfg.family == "ssm":
         return {"layers": cache}
     pad = lambda t: torch.nn.functional.pad(
@@ -741,16 +732,16 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor, pos,
 
 
 def _check_paged(cfg: ArchConfig, what: str) -> None:
-    """The paged decode covers the dense family's K/V heads; MLA's latent
-    cache has no paged view, and the reference refuses it too
-    (``src/repro/models/transformer.py:568``, ``:586``, ``:627``); the
-    reference's engine never pages the vlm family (its prefill takes
-    patches), and neither does the port."""
-    if cfg.attention == "mla" or cfg.family == "vlm":
-        raise ValueError(f"{what}: paged pools cover dense GQA decode, not "
-                         f"family={cfg.family!r} attention="
+    """The paged decode covers the dense and vlm families' K/V heads, as
+    the reference's three paged entries do (``src/repro/models/
+    transformer.py:568``, ``:586``, ``:627``); MLA's latent cache has no
+    paged view, and the reference refuses it too.  (The engine still
+    never pages vlm: its prefill takes patches.)"""
+    if cfg.attention == "mla":
+        raise ValueError(f"{what}: paged pools cover dense/vlm GQA decode, "
+                         f"not family={cfg.family!r} attention="
                          f"{cfg.attention!r}")
-    _check_family(cfg, what, (DENSE,))
+    _check_family(cfg, what, (DENSE, VLM))
 
 
 def init_paged_pools(cfg: ArchConfig, pool_tokens: int,

@@ -70,6 +70,11 @@ def make_train_step(cfg: ArchConfig,
         if microbatches == 1:
             loss, metrics, grads = loss_and_grads(state.params, cfg, batch)
         else:
+            for name, t in batch.items():
+                if t.shape[0] % microbatches:
+                    raise ValueError(
+                        f"batch[{name!r}] has {t.shape[0]} rows, which "
+                        f"{microbatches} microbatches do not divide")
             mbs = [dict(zip(batch, parts)) for parts in zip(
                 *(t.chunk(microbatches, dim=0) for t in batch.values()))]
             grads, losses, ms = None, [], []

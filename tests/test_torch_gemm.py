@@ -79,8 +79,17 @@ ROUTES = [
     (37, 130, 72, _BF16, _BF16, True, True, "fma"),        # m % 8, ta
     (37, 130, 72, _F32, _BF16, False, True, "split"),
     (3, 129, 257, _BF16, _BF16, False, True, "wmma"),      # k % 8
-    (130, 33, 5, _F32, _BF16, False, False, "fma"),
+    (130, 33, 5, _F32, _BF16, False, False, "fma"),       # bf16 row 33
     (8, 8, 0, _BF16, _BF16, False, False, "wmma"),         # k == 0
+    # the f32 operand's parts are pitched: only the bf16 one must suit TMA
+    (896, 512, 51865, _F32, _BF16, False, False, "split"),  # whisper dx
+    (51865, 512, 896, _F32, _BF16, True, False, "split"),   # whisper dw
+    (130, 40, 5, _F32, _BF16, False, False, "split"),
+    (37, 130, 71, _F32, _BF16, False, True, "fma"),        # bf16 row 71
+    (37, 136, 71, _BF16, _F32, False, False, "fma"),       # bf16 row 71
+    (37, 136, 72, _BF16, _F32, False, False, "split"),
+    (4, 50, 2048, _F32, _BF16, False, True, "split"),      # f32 row ok
+    (7, 50, 0, _F32, _BF16, False, False, "fma"),          # k == 0
 ]
 
 
@@ -90,14 +99,18 @@ def test_gemm_route_rule(m, n, k, a_dt, b_dt, ta, tb, route):
 
 
 @pytest.mark.parametrize("a_ok,b_ok", [(False, True), (True, False)])
-@pytest.mark.parametrize("a_dt,b_dt,old", [(_BF16, _BF16, "wmma"),
-                                           (_F32, _BF16, "fma"),
-                                           (_BF16, _F32, "fma")])
-def test_gemm_route_needs_aligned_bases(a_ok, b_ok, a_dt, b_dt, old):
-    """A base off a 16-byte boundary keeps the first kernels (TMA and the
-    split pass read 16-byte vectors)."""
+@pytest.mark.parametrize("a_dt,b_dt", [(_BF16, _BF16), (_F32, _BF16),
+                                       (_BF16, _F32)])
+def test_gemm_route_needs_aligned_bases(a_ok, b_ok, a_dt, b_dt):
+    """A bf16 operand's base off a 16-byte boundary keeps it off TMA
+    (``gemm_bf16`` for bf16 x bf16, the FMA kernel for a mixed product);
+    an f32 operand's base does not matter, since the split pass writes
+    its parts to fresh, aligned rows."""
+    bf16_ok = a_ok if a_dt == _BF16 else b_ok
+    want = ("tile" if a_ok and b_ok else "wmma") if a_dt == b_dt else \
+        ("split" if bf16_ok else "fma")
     assert ops.gemm_route(64, 64, 64, a_dt, b_dt, False, False, a_ok,
-                          b_ok) == old
+                          b_ok) == want
 
 
 def test_gemm_route_reads_the_tensors():
@@ -130,6 +143,63 @@ def test_gemv_splits_partition_k(m, n, k):
         assert per >= 4
     if -(-n // 64) >= 4 * ops.SM_COUNT:
         assert nsplit == 1
+
+
+#: (m, n, k, transpose_a, f32): the MoE routers (deepseek-moe-16b's 64
+#: and llama4-scout's 16 experts at a 2048-token prefill and 2 decode
+#: rows, deepseek's dw), a 4096^3 product, f32 at 128 and 4 rows, ragged
+#: and mixed forms, and the row form below its split minimum
+FMA_SHAPES = [(2048, 64, 2048, False, True), (2, 64, 2048, False, True),
+              (2048, 64, 2048, True, True), (2048, 16, 5120, False, True),
+              (2, 16, 5120, False, True), (4096, 4096, 4096, False, True),
+              (128, 2048, 2048, False, True), (4, 256000, 2048, False, True),
+              (1001, 37, 999, False, True), (13, 37, 999, True, True),
+              (130, 33, 5, False, False), (5, 3, 300, False, True),
+              (17, 9, 1, False, True), (2048, 2048, 64, False, True)]
+
+
+@pytest.mark.parametrize("m,n,k,ta,f32", FMA_SHAPES)
+def test_fma_splits_partition_k(m, n, k, ta, f32):
+    """The FMA kernel's split covers its k units (k-steps of 32; the row
+    form: single k) exactly once with no empty split, the kernel's own
+    ``per = ceil(units / nsplit)``; where the form's blocks are fewer than
+    the SMs and k allows, the split brings them to at least one a SM and
+    at most about two; else no split."""
+    form = ops.fma_form(m, n, ta, f32)
+    tb = n == 256000
+    nsplit = ops.fma_splits(m, n, k, ta, tb, f32)
+    if form == ops.FMA_ROWS:
+        assert m <= ops.K1_DECODE_ROWS and not ta
+        assert nsplit <= ops.FMA_ROW_CLUSTER
+        blocks, unit, least = -(-n // ops.FMA_ROW_COLS[tb]), 1, \
+            ops.FMA_ROW_SPLIT_MIN
+    else:
+        bm, bn = ops.FMA_TILES[form]
+        assert form == 3 or (f32 and n <= bn)
+        blocks, unit, least = -(-m // bm) * -(-n // bn), ops.FMA_K, 2
+    units = -(-k // unit)
+    per = -(-units // nsplit)
+    spans = [range(s * per, min(units, (s + 1) * per)) for s in range(nsplit)]
+    assert all(len(r) > 0 for r in spans)
+    assert sorted(u for r in spans for u in r) == list(range(units))
+    if blocks >= ops.SM_COUNT or units < 2 * least:
+        assert nsplit == 1
+    else:
+        assert per >= least
+        assert ops.SM_COUNT <= blocks * nsplit <= 2 * ops.SM_COUNT + blocks \
+            or nsplit in (units // least, ops.FMA_ROW_CLUSTER)
+
+
+@pytest.mark.parametrize("m,n,form", [(2048, 64, 2), (2048, 16, 1),
+                                      (2, 64, ops.FMA_ROWS),
+                                      (2, 16, ops.FMA_ROWS),
+                                      (4096, 4096, 3), (17, 65, 3)])
+def test_fma_form_by_width(m, n, form):
+    """128 x 64 tiles for deepseek's 64 router columns, 256 x 16 for
+    llama4's 16, the row form for the decode rows, 128 x 128 otherwise
+    (and for any bf16 or mixed product)."""
+    assert ops.fma_form(m, n) == form
+    assert ops.fma_form(m, n, f32=False) in (ops.FMA_ROWS, 3)
 
 
 #: (b, sq, kv, g, causal, window) of the K4 split plans

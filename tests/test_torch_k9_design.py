@@ -121,17 +121,60 @@ def test_mode_of_every_family(name):
 
 def test_mode_of_kron_and_of_a_two_axis_reduce():
     """``ops.kron``'s normal form (contracted extent 1, gamma-permuted
-    output) takes MAP; a lone reduce over two axes stays on THREAD, as
-    does a 3-operand nest that is no chain."""
+    output) takes MAP; a lone reduce over two adjacent axes, whose strides
+    chain, merges them into one axis of 30 and takes REDUCE; over axes
+    (0, 2), which do not chain, it stays on THREAD (its thread form below
+    a warp's volume, its warp form from 32), as does a 3-operand nest
+    that is no chain."""
     kron = E.transpose(ops._outer_expr(16, 24, 8, 12), (0, 2, 1, 3))
     assert _plan(kron)[1].mode == emit.MAP
     two = E.reduce("max", E.reduce("max", E.arr("A", (7, 6, 5)), 2), 1)
     launch = _plan(two)[1]
-    assert launch.mode == emit.THREAD and launch.red_ext == (6, 5)
+    assert launch.mode == emit.REDUCE and launch.red_ext == (30,)
+    assert launch.operands[0].strides == (30, 1)
+    apart = E.reduce("max", E.reduce("max", E.arr("A", (7, 6, 5)), 2), 0)
+    launch = _plan(apart)[1]
+    assert launch.mode == emit.THREAD and launch.red_ext == (7, 5)
+    assert launch.rows                       # 35 contracted: a warp
+    small = E.reduce("min", E.reduce("min", E.arr("A", (3, 6, 5)), 2), 0)
+    assert not _plan(small)[1].rows          # 15 contracted: a thread
     # B walks an out axis: not a chain
     nochain = E.combine("mul", E.reduce("add", E.combine(
         "mul", E.arr("A", (4, 5)), E.arr("B", (4, 5))), 1), E.arr("C", (4,)))
     assert _plan(nochain)[1].mode != emit.CHAIN
+
+
+@pytest.mark.parametrize("red,axes,shape", [
+    ("max", (1, 2), (5, 8, 6)), ("min", (1, 2, 3), (3, 4, 5, 6)),
+    ("add", (2, 3), (3, 4, 5, 6)), ("max", (0, 1), (4, 5, 7))])
+def test_merged_nest_equals_the_unmerged_nest(red, axes, shape):
+    """``emit.merge_contracted`` folds chaining contracted axes into one:
+    the merged launch's plain executor (``run_descriptor``) equals the
+    unmerged nest's (same operands, the axes kept apart) and
+    ``ref.eval_nf`` bit for bit, for max and min, and within the K9 sum
+    tolerance for add (the same elements, summed in the same order)."""
+    expr = E.arr("A", shape)
+    for ax in sorted(axes, reverse=True):
+        expr = E.reduce(red, expr, ax)
+    nf = E.normal_form(expr)
+    launch = _plan(expr)[1]
+    assert len(launch.red_ext) == 1
+    assert launch.red_ext[0] == math.prod(shape[a] for a in axes)
+    ext = nf.extent_map
+    whole = emit.Launch(
+        nf, tuple(nf.out_axes), tuple(ext[a] for a in nf.out_axes),
+        tuple(nf.reduce_axes), tuple(ext[a] for a in nf.reduce_axes),
+        emit._operands(nf), nf.combine, nf.reduce_op, launch.pad_value,
+        emit.THREAD)
+    x = torch.from_numpy(_inputs([shape], 11)[0])
+    got = emit.run_descriptor(launch, x)
+    want = emit.run_descriptor(whole, x)
+    if red == "add":
+        torch.testing.assert_close(got, want, rtol=0, atol=K9_SUM_REL * (
+            launch.red_ext[0] * float(x.abs().max())))
+    else:
+        assert torch.equal(got, want)
+        assert torch.equal(got, ref.eval_nf(nf, x))
 
 
 def test_chain_roles_and_stages():

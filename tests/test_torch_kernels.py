@@ -296,8 +296,10 @@ def test_gemm_decode_rows_match_plain(h100, m, k, n, tb):
 @pytest.mark.parametrize("dt", [_BF16, _F32])
 def test_gemm_alignment_boundary(h100, dt):
     """Rows of 104 elements take the tensor-core paths; rows of 100, or a
-    base off a 16-byte boundary, the first kernels; each agrees with the
-    plain version."""
+    base off a 16-byte boundary, keep a bf16 operand off TMA (gemm_bf16),
+    while an f32 operand's own rows and base do not matter (its split parts
+    are written pitched and aligned: the split route every time); each
+    agrees with the plain version."""
     g = torch.Generator(device=h100).manual_seed(32)
     w = torch.randn(104, 64, generator=g, device=h100).to(_BF16)
     for k, offset, want_route in ((104, 0, "tile" if dt == _BF16 else
@@ -306,13 +308,81 @@ def test_gemm_alignment_boundary(h100, dt):
         x = flat[offset:].view(64, k)
         route = ops._route(x, w[:k], False, False)
         if want_route is None:
-            assert route == ("wmma" if dt == _BF16 else "fma")
+            assert route == ("wmma" if dt == _BF16 else "split")
         else:
             assert route == want_route
         got = ops._gemm(x, w[:k])
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref.matmul(x, w[:k]), rtol=1e-5,
                                    atol=1e-4)
+
+
+#: (m, n, k, a dtype, b dtype) of K1's exact-f32 FMA kernel at ragged m, n
+#: and k (no multiple of any tile or k-step): each tile width (128 x 64 at
+#: n <= 64, 256 x 16 at n <= 16, 128 x 128) split over k (through the
+#: workspace; 1500 x 100 in 5 splits) and unsplit (3 k-steps; tiles that
+#: fill the card); the row form (at most 16 rows, no transpose_a; its
+#: split folded in a cluster; its code bounded to 2, 4 or 16 rows) split
+#: and unsplit, with 16-byte loads (k 2048) and without; and mixed
+#: products whose bf16 operand TMA cannot read (rows of 130, 515, 301 or 7)
+FMA_CASES = [(1001, 37, 999, _F32, _F32), (777, 13, 1333, _F32, _F32),
+             (300, 200, 77, _F32, _F32), (2100, 2100, 99, _F32, _F32),
+             (1500, 100, 300, _F32, _F32),
+             (2, 64, 2048, _F32, _F32), (4, 70, 1001, _F32, _F32),
+             (13, 37, 999, _F32, _F32),
+             (5, 3, 300, _F32, _F32), (333, 130, 515, _F32, _BF16),
+             (7, 70, 301, _BF16, _F32)]
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("ta,tb", [(False, False), (False, True),
+                                   (True, False), (True, True)])
+@pytest.mark.parametrize("m,n,k,a_dt,b_dt", FMA_CASES)
+def test_gemm_fma_kernel_forms_match_plain(h100, m, n, k, a_dt, b_dt, ta,
+                                           tb):
+    """The FMA kernel (route ``"fma"``) in its form (``ops.fma_form``) and
+    split (``ops.fma_splits``) against ``ref.matmul`` within 1e-4 of the
+    largest plain entry (f32 sums in another order), each rerun to the
+    same bits (the split partials are added in split order)."""
+    g = torch.Generator(device=h100).manual_seed(m + 3 * n + 7 * k)
+    a = torch.randn(*((k, m) if ta else (m, k)), generator=g,
+                    device=h100).to(a_dt)
+    b = (torch.randn(*((n, k) if tb else (k, n)), generator=g, device=h100)
+         * k ** -0.5).to(b_dt)
+    assert ops._route(a, b, ta, tb) == "fma"
+    f32 = a_dt == b_dt == _F32
+    form = ops.fma_form(m, n, ta, f32)
+    nsplit = ops.fma_splits(m, n, k, ta, tb, f32)
+    if (m, n, k) in ((1001, 37, 999), (777, 13, 1333), (13, 37, 999),
+                     (2, 64, 2048)):
+        assert nsplit > 1, (form, nsplit)
+    if (m, n, k) in ((300, 200, 77), (2100, 2100, 99)) or (
+            (m, n, k) == (5, 3, 300) and not ta):
+        assert nsplit == 1, (form, nsplit)
+    got = ops._gemm(a, b, ta, tb)
+    again = ops._gemm(a, b, ta, tb)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 2 and torch.equal(got, again)
+    _held(got, ref.matmul(a, b, tb, transpose_a=ta), 1e-4)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("rows,cols", [(5, 13), (3, 51865), (64, 104),
+                                       (1, 1)])
+def test_split_bf16_pitched_parts_match_plain(h100, rows, cols):
+    """The split pass writes each part at a row pitch rounded up to 8
+    elements, zero past the last column: the parts' views equal the plain
+    split bit for bit, and the padding is zero."""
+    g = torch.Generator(device=h100).manual_seed(rows + cols)
+    x = torch.randn(rows, cols, generator=g, device=h100) * 3.0
+    parts = ops.split_bf16(x)
+    pitch = -(-cols // 8) * 8
+    for got, want in zip(parts, ref.split_bf16(x)):
+        assert got.shape == (rows, cols) and got.stride(0) == pitch
+        assert got.data_ptr() % 16 == 0
+        assert torch.equal(got, want)
+        full = torch.as_strided(got, (rows, pitch), (pitch, 1))
+        assert (full[:, cols:] == 0).all()
 
 
 #: (e, cap, d, f, route) of K1's expert form: deepseek-moe-16b's decode
@@ -1318,6 +1388,44 @@ def test_k9_reduce_matches_plain(h100, m, n, in_dt, out_dt):
     _sum_close(got, want, n)
 
 
+@pytest.mark.h100
+@pytest.mark.parametrize("shape,axes,warp", [((64, 4096, 64), (0, 2), True),
+                                             ((5, 37, 9), (0, 2), True),
+                                             ((40, 6, 33), (0, 2), True),
+                                             ((3, 6, 5), (0, 2), False)])
+@pytest.mark.parametrize("dt", [_F32, _BF16])
+def test_k9_thread_forms_match_plain(h100, shape, axes, warp, dt):
+    """THREAD takes a lone reduce over axes whose strides do not chain: a
+    warp an output where the contracted volume is at least 32 (its lanes
+    on the flattened contracted index, a fixed shuffle tree), else a
+    thread.  max / min bit for bit, sums within K9_SUM_REL and rerun to
+    the same bits; an adjacent pair of the same axes merges to REDUCE."""
+    from repro_torch.kernels import emit
+    E = ops.E
+    g = torch.Generator(device=h100).manual_seed(sum(shape))
+    x = torch.randn(*shape, generator=g, device=h100).to(dt)
+    volume = 1
+    for a in axes:
+        volume *= shape[a]
+    for op in ("max", "min", "add"):
+        expr = E.arr("A", shape)
+        for a in sorted(axes, reverse=True):
+            expr = E.reduce(op, expr, a)
+        got, want, mode = _k9(expr, x)
+        plan = ops._plan(E.normal_form(expr), (str(dt)[6:],), _F32,
+                         ops.H100, None, "float32", False)
+        assert mode == emit.THREAD and plan[1].rows == warp
+        if op == "add":
+            _sum_close(got, want, volume)
+            again, _, _ = _k9(expr, x)
+            assert torch.equal(got, again)
+        else:
+            assert torch.equal(got, want)
+    near = E.reduce("max", E.reduce("max", E.arr("A", shape), 2), 1)
+    got, want, mode = _k9(near, x)
+    assert mode == emit.REDUCE and torch.equal(got, want)
+
+
 def _chain(E, plus, times, m, j, k, n, batch=0):
     shapes = [(m, j), (j, k), (k, n)]
     if batch:
@@ -1382,8 +1490,9 @@ def test_k9_sums_rerun_to_the_same_bits(h100):
 @pytest.mark.h100
 def test_k9_every_path_propagates_nan(h100):
     """A NaN input gives NaN where the plain version has one, on MAP,
-    REDUCE (rows and columns), CHAIN and THREAD, and the same values
-    elsewhere."""
+    REDUCE (rows and columns, and a lone reduce over two adjacent axes,
+    merged), CHAIN and THREAD (a lone reduce over axes (0, 2), its warp
+    form), and the same values elsewhere."""
     from repro_torch.kernels import emit
     E = ops.E
     g = torch.Generator(device=h100).manual_seed(43)
@@ -1401,7 +1510,9 @@ def test_k9_every_path_propagates_nan(h100):
              (E.reduce("min", E.arr("A", (40, 50)), 0), (a,), emit.REDUCE),
              (chain, (ca, cb, cc), emit.CHAIN),
              (E.reduce("max", E.reduce("max", E.arr("X", (20, 30, 40)), 2),
-                       1), (cube,), emit.THREAD)]
+                       1), (cube,), emit.REDUCE),
+             (E.reduce("max", E.reduce("max", E.arr("X", (20, 30, 40)), 2),
+                       0), (cube,), emit.THREAD)]
     for expr, arrays, path in cases:
         got, want, mode = _k9(expr, *arrays)
         assert mode == path
@@ -1588,25 +1699,32 @@ def test_noncausal_flash_kernels_match_plain(h100, dtype, atol, rel, b, sq,
 
 
 @pytest.mark.h100
-def test_whisper_head_on_unaligned_vocab_matches_plain(h100):
+@pytest.mark.parametrize("t", [300, 896])
+def test_whisper_head_on_unaligned_vocab_matches_plain(h100, t):
     """whisper-base's tied head at V = 51865 (no multiple of 8): the
     forward ``x table^T`` (tile route, an output row of 51865 f32) and
-    its VJP forms ``dx = g table`` and ``dw = g^T x`` (an f32 cotangent
-    whose stored row of 51865 TMA cannot read: K1's first FMA kernels)
-    against the plain products."""
+    its VJP forms ``dx = g table`` and ``dw = g^T x``, whose f32
+    cotangent's stored row of 51865 TMA cannot read: the split route on
+    its three bf16 parts, written pitched (made once, for both), each held
+    to the plain product within 1e-4 of its largest entry and rerun to the
+    same bits (896: a training microbatch's rows)."""
     gen = torch.Generator(device=h100).manual_seed(9)
     rnd = lambda *shape, sc=1.0: (torch.randn(*shape, generator=gen,
                                               device=h100) * sc)
-    t, d, vocab = 300, 512, 51865
+    d, vocab = 512, 51865
     x = rnd(t, d).to(_BF16)
     table = rnd(vocab, d, sc=d ** -0.5).to(_BF16)
     g = rnd(t, vocab, sc=1e-3)
-    forms = [(x, table, False, True, "tile"), (g, table, False, False, "fma"),
-             (g, x, True, False, "fma")]
-    for a, b_, ta, tb, route in forms:
+    parts = ops.split_bf16(g)
+    forms = [(x, table, False, True, "tile", None),
+             (g, table, False, False, "split", parts),
+             (g, x, True, False, "split", parts)]
+    for a, b_, ta, tb, route, split in forms:
         assert ops._route(a, b_, ta, tb) == route
-        got = ops._gemm(a, b_, ta, tb)
+        got = ops._gemm(a, b_, ta, tb, split)
+        again = ops._gemm(a, b_, ta, tb)
         want = ref.matmul(a, b_, tb, transpose_a=ta)
         torch.cuda.synchronize()
         _held(got, want, 1e-4)
-    assert ops.LAUNCHES["K1"] == 3
+        assert torch.equal(got, again)
+    assert ops.LAUNCHES["K1"] == 6

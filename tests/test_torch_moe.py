@@ -374,8 +374,8 @@ def test_greedy_generate_tokens_equal_reference(deepseek):
     equal the reference's."""
     cfg, params, tcfg, tp = deepseek
     assert not tt.has_prefill_decode_relayout(tcfg)
-    with pytest.raises(NotImplementedError, match="greedy_generate"):
-        tt.prefill_cache_to_decode(tcfg, None, 16)
+    assert tt.prefill_cache_to_decode(tcfg, None, 16) is None
+    assert jt.prefill_cache_to_decode(cfg, None, 16) is None
     prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 6))
     want = jserve.greedy_generate(params, cfg, jnp.asarray(prompt), 5, 16)
     got = serve_step.greedy_generate(tp, tcfg, torch.from_numpy(prompt), 5,
@@ -418,17 +418,16 @@ def test_engine_refuses_moe_with_the_reference_reason(deepseek):
 def test_layer_pattern_moe_raises(deepseek):
     """A moe config with a ``layer_pattern`` (llama4's grouped local and
     full layers) builds its parameters, but what the reference refuses it
-    still raises with the reference's reason: the forward->decode cache
-    re-layout (ring and grouped caches; ``greedy_generate`` ingests token
-    by token) and so the engine."""
+    still refuses with the reference's reason: it has no forward->decode
+    cache re-layout (None: ring and grouped caches; ``greedy_generate``
+    ingests token by token), so the engine raises."""
     *_, tcfg, _ = deepseek
     lcfg = port_config("llama4-scout-17b-a16e", reduced=True)
     shapes = tt.param_shapes(tcfg.with_(layer_pattern=("local", "full"),
                                         local_window=8, n_layers=4))
     assert shapes["groups.moe"]["wi"][0] == (2, 2, 8, 128, 128)
     assert not tt.has_prefill_decode_relayout(lcfg)
-    with pytest.raises(NotImplementedError, match="greedy_generate"):
-        tt.prefill_cache_to_decode(lcfg, None, 16)
+    assert tt.prefill_cache_to_decode(lcfg, None, 16) is None
     params = tt.init_lm(lcfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError,
                        match="forward->decode.*greedy_generate"):

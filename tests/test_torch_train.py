@@ -216,6 +216,27 @@ def test_microbatches_and_remat_give_the_same_step(gemma):
         ts.loss_and_grads(params, tcfg.with_(remat_policy="dots"), batch)
 
 
+@pytest.mark.parametrize("rows,microbatches", [(2, 3), (3, 2)])
+def test_microbatches_that_do_not_divide_the_batch_raise(gemma, rows,
+                                                         microbatches):
+    """A ``microbatches`` that does not divide the batch's rows raises on
+    both sides (the reference through its reshape, the port before it
+    splits), before any parameter moves."""
+    cfg, state, tcfg = gemma
+    batch = {k: np.concatenate([v] * 2)[:rows]
+             for k, v in _batches(cfg)[0].items()}
+    with pytest.raises(Exception):
+        jts.make_train_step(cfg, microbatches=microbatches)(
+            state, jax.tree.map(jnp.asarray, batch))
+    st = ts.init_state(tcfg, _port(state.params), device="cpu")
+    before = {k: p.detach().clone() for k, p in st.params.named_parameters()}
+    with pytest.raises(ValueError, match="do not divide"):
+        ts.make_train_step(tcfg, microbatches=microbatches)(st,
+                                                            _tensors(batch))
+    for k, p in st.params.named_parameters():
+        assert torch.equal(p.detach(), before[k]), k
+
+
 def test_init_state_makes_params_trainable_on_the_asked_device(gemma):
     _, state, tcfg = gemma
     params = _port(state.params, trainable=False)

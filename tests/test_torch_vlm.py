@@ -376,16 +376,12 @@ def test_lm_loss_and_gradients_match_reference(vlm):
 def test_decode_steps_match_reference(vlm):
     """The vlm family decodes as the dense one does (the reference's
     ``decode_step`` treats it so): 6 steps from ``registry.init_cache``
-    at per-row positions, logits and caches at every step; the relayout
-    stays the reference's None (a refusal here) and the paged entries
-    refuse it."""
+    at per-row positions, logits and caches at every step; there is no
+    prefill re-layout, as in the reference."""
     cfg, params, tcfg, tp = vlm
     rng = np.random.default_rng(6)
     assert not tt.has_prefill_decode_relayout(tcfg)
-    with pytest.raises(NotImplementedError, match="token by token"):
-        tt.prefill_cache_to_decode(tcfg, None, 8)
-    with pytest.raises(ValueError, match="paged"):
-        tt.init_paged_pools(tcfg, 16, device="cpu")
+    assert not jt.has_prefill_decode_relayout(cfg)
     jcache = jreg.init_cache(cfg, 2, 12, dtype=jnp.float32)
     tcache = registry.init_cache(tcfg, 2, 12, dtype=torch.float32,
                                  device="cpu")
@@ -399,6 +395,114 @@ def test_decode_steps_match_reference(vlm):
         _close(tl, jl)
         _close(tcache["layers"].k, jcache["layers"].k)
         pos = pos + 1
+
+
+@pytest.mark.parametrize("arch,window", [
+    ("deepseek-moe-16b", 0), (ARCH, 0), ("recurrentgemma-9b", 0),
+    ("whisper-base", 0), ("stablelm-1.6b", 5)])
+def test_prefill_cache_to_decode_is_none_where_reference_has_none(arch,
+                                                                  window):
+    """The moe, vlm, hybrid and audio families and a windowed dense model
+    have no forward->decode re-layout: ``prefill_cache_to_decode`` returns
+    None on both sides (callers ingest the prompt token by token)."""
+    cfg = get_config(arch, reduced=True)
+    tcfg = port_config(arch, True)
+    if window:
+        cfg, tcfg = (c.with_(local_window=window) for c in (cfg, tcfg))
+    assert jt.prefill_cache_to_decode(cfg, None, 8) is None
+    assert tt.prefill_cache_to_decode(tcfg, None, 8) is None
+    assert not tt.has_prefill_decode_relayout(tcfg)
+
+
+def _integer_params(tcfg, seed):
+    """Port parameters of the reduced model drawn as integers in [-3, 3],
+    the query projection's times 2^12: the attention scores then lie far
+    more than f32's exp range apart, each softmax is one-hot on both the
+    contiguous and the paged path, and the two steps can agree bit for
+    bit."""
+    tp = tt.init_lm(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in tp.named_parameters():
+            p.copy_(torch.from_numpy(
+                rng.integers(-3, 4, p.shape).astype(np.float32)))
+            if name.endswith("attn.wq"):
+                p.mul_(4096)
+    return tp
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_paged_decode_equals_decode_step_bit_for_bit(batched):
+    """The paged entries take the vlm family as the reference's do:
+    token-by-token decode through scrambled page tables (single slot, or
+    two live slots beside a dead one in the batched step) gives
+    ``decode_step``'s logits bit for bit on integer-valued parameters and
+    tokens, and the pools hold the contiguous cache's K/V rows."""
+    tcfg = port_config(ARCH, True)
+    tp = _integer_params(tcfg, 3)
+    page, n = 4, 9
+    rng = np.random.default_rng(4)
+    tables = torch.tensor([[5, 2, 7], [1, 3, 4], [0, 0, 0]],
+                          dtype=torch.int32)
+    live = 2 if batched else 1
+    prompts = torch.from_numpy(rng.integers(0, tcfg.vocab_size, (live, n)))
+    cache = registry.init_cache(tcfg, live, 16, dtype=torch.float32,
+                                device="cpu")
+    pools = tt.init_paged_pools(tcfg, 8 * page, device="cpu")
+    for t in range(n):
+        pos = torch.full((live,), t, dtype=torch.int32)
+        want, cache = tt.decode_step(tp, tcfg, prompts[:, t], pos, cache)
+        if batched:
+            got = tt.decode_step_paged_batched(
+                tp, tcfg, torch.cat([prompts[:, t], prompts[:1, t]]),
+                torch.cat([pos, torch.tensor([-1], dtype=torch.int32)]),
+                pools, tables=tables, page=page)[:live]
+        else:
+            got = tt.decode_step_paged(tp, tcfg, prompts[:, t], pos, pools,
+                                       table=tables[0], page=page)
+        assert torch.equal(got, want), t
+    ar = torch.arange(n)
+    for s in range(live):
+        rows = tables[s].long()[ar // page] * page + ar % page
+        for key, c in zip(("k", "v"), cache["layers"]):
+            assert torch.equal(pools[key][:, rows], c[:, s, :n]), (s, key)
+
+
+def test_paged_decode_matches_reference(vlm):
+    """The single-slot and the batched paged step (a dead slot beside two
+    live ones) against the reference's ``decode_step_paged`` /
+    ``decode_step_paged_batched`` (interpret-mode kernel) over 3 steps
+    after a token-by-token prompt: logits and pools within TOL."""
+    cfg, params, tcfg, tp = vlm
+    page, n = 4, 6
+    rng = np.random.default_rng(9)
+    tables = np.array([[4, 1, 5], [0, 2, 3], [0, 0, 0]], np.int32)
+    pools = tt.init_paged_pools(tcfg, 6 * page, device="cpu")
+    jpools = {k: jnp.asarray(t.numpy()) for k, t in pools.items()}
+    bpools = {k: t.clone() for k, t in pools.items()}
+    jbpools = dict(jpools)
+    for t in range(n + 3):
+        tok = rng.integers(0, cfg.vocab_size, 3).astype(np.int32)
+        pos = np.array([t, t, -1], np.int32)
+        jl, jpools = jt.decode_step_paged(
+            params, cfg, jnp.asarray(tok[:1]), jnp.asarray(pos[:1]), jpools,
+            page_table=tuple(tables[0].tolist()), page=page, interpret=True)
+        tl = tt.decode_step_paged(
+            tp, tcfg, torch.from_numpy(tok[:1]), torch.from_numpy(pos[:1]),
+            pools, table=torch.from_numpy(tables[0]), page=page)
+        jbl, jbpools = jt.decode_step_paged_batched(
+            params, cfg, jnp.asarray(tok), jnp.asarray(pos), jbpools,
+            page_tables=tuple(map(tuple, tables.tolist())), page=page,
+            interpret=True)
+        tbl = tt.decode_step_paged_batched(
+            tp, tcfg, torch.from_numpy(tok), torch.from_numpy(pos), bpools,
+            tables=torch.from_numpy(tables), page=page)
+        if t >= n:
+            _close(tl, jl)
+            _close(tbl[:2], np.asarray(jbl)[:2])
+    for key in ("k", "v"):
+        _close(pools[key], jpools[key])
+        _close(bpools[key], jbpools[key])
 
 
 def test_greedy_generate_matches_reference(vlm):
