@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-two phases; any failure exits non-zero before the result line:
+Twenty-three phases; any failure exits non-zero before the result line:
 
 1. device   the card's name, power limit and compute capability (9, 0).
 2. build    nvcc builds every kernel under src/repro_torch/kernels/csrc/
@@ -157,7 +157,25 @@ Twenty-two phases; any failure exits non-zero before the result line:
             1e-3).  K1 and K9 launch their derived counts; one apply runs
             under sync debug mode "error"; each case prints kernel, plain
             and library ms (CUDA events), the bound and the error.
-14. moe_path deepseek-moe-16b at full width and depth (28 layers: one
+14. derive_path the derivation on the H100 table: mamba2-780m at full
+            width and depth with ssm_chunk = 0 (the SSD chunk derived by
+            ops.default_ssd_chunk, 16 expected) serves ssm_path's 6
+            prompts and, depth cut to 12 of 48 layers, takes train steps
+            at B=2 S=2048 (derived launches;
+            prefill, decode, loss and gradients held to the pinned chunk
+            256 with ssm_path's and ssm_train's tolerances; step ms and
+            peak memory at each chunk; the derived chunk's step profiled
+            by kernel; K6 / K7 at both chunks on the same operands, from
+            the kernels rows); recurrentgemma-9b's derived gated chunk
+            (16 expected; hybrid_path's K8 ran at it) beside chunk 64,
+            each K8 row bound by the scan's own bytes, its workspace
+            traffic printed beside it; ops.apply(verify=True) and verify="kernel" on every
+            expression moa_path applied (0 error findings, the second call
+            a verification-cache hit, host us); verify_all's H100 summary;
+            K1's int8 form (apply with acc_dtype int32): 4096^3 bit for
+            bit with its plain version and torch._int_mm (ms, graph ms,
+            the 1979 TOPS bound) and a ragged 1001x37x999.
+15. moe_path deepseek-moe-16b at full width and depth (28 layers: one
             dense, 27 with 64 routed experts top-6 and 2 shared, bf16,
             16.38 B seeded parameters): make_prefill B=1 S=2048 (K1 250
             launches, 54 of them the expert form, K2 28) timed by events
@@ -170,7 +188,7 @@ Twenty-two phases; any failure exits non-zero before the result line:
             ingested one by one + 16 new (K1 250 a step); a decode step
             under sync debug mode "error", timed against every weight byte
             and against the active parameters' bytes; profiles.
-15. moe_train deepseek-moe-16b at full width, depth cut to 5 of 28 layers
+16. moe_train deepseek-moe-16b at full width, depth cut to 5 of 28 layers
             (the dense one and 4 MoE layers, 2.857 B parameters; the whole
             model's AdamW state, ~260 GB, fits no card): step 1 (its first
             microbatch) against the plain path: the loss with each path's
@@ -182,7 +200,7 @@ Twenty-two phases; any failure exits non-zero before the result line:
             on: K1 (its expert form and VJP forms), K2-K4 launch their
             derived counts, step 3 under sync debug mode "error", step ms
             against its bound, peak memory under 80 GB, a profiled step.
-16. llama4_path llama4-scout-17b-a16e at full width (40 heads over 8 KV
+17. llama4_path llama4-scout-17b-a16e at full width (40 heads over 8 KV
             heads of 128, 16 experts of 8192, top-1, 1 shared, vocab
             202048 untied), depth cut to 8 of 48 layers (two (local,
             local, local, full) groups, 19.69 B parameters, 39.4 GB): its
@@ -192,7 +210,7 @@ Twenty-two phases; any failure exits non-zero before the result line:
             steps (the same code); then one local layer's
             decode from a seeded 8192-slot ring at position 9000 (the ring
             has wrapped) against the plain path.
-17. mla_path minicpm3-4b at full width and depth (62 layers of MLA, 40
+18. mla_path minicpm3-4b at full width and depth (62 layers of MLA, 40
             heads, q rank 768, kv rank 256; 4.26 B seeded parameters):
             make_prefill B=1 S=4096 (K1 7L+1, K2 L on the padded MLA
             attention) against its bound; 6 requests through ServeEngine
@@ -203,13 +221,13 @@ Twenty-two phases; any failure exits non-zero before the result line:
             plain path (f32 on the same weights at full depth, bf16 beside
             the plain bf16 witness); a B=2 decode step under sync debug
             mode "error" against every weight byte; profiles.
-18. mla_train minicpm3-4b at full width, depth cut to 24 of 62 layers
+19. mla_train minicpm3-4b at full width, depth cut to 24 of 62 layers
             (1.88 B parameters): step 1's first microbatch against the
             plain path (loss and every gradient, f32 and bf16), 3 AdamW
             steps at B=2 S=4096 in 2 microbatches, remat on (K1, K2-K4 on
             the padded attention, derived counts), step 3 under sync debug
             "error", peak memory, a profiled step.
-19. vlm_path paligemma-3b at full width and depth (18 layers, 2.509 B
+20. vlm_path paligemma-3b at full width and depth (18 layers, 2.509 B
             seeded parameters): make_prefill B=1 over 256 patches + 3840
             tokens (K1 6L+2, K2 L, every K2 launch with prefix 256, read
             from the kernel's own arguments) against its bound; patches
@@ -219,12 +237,12 @@ Twenty-two phases; any failure exits non-zero before the result line:
             the plain bf16 witness); greedy_generate B=2, 64 + 16 token
             by token (the reference's path); a decode step under sync
             debug "error" against every weight byte; profiles.
-20. vlm_train paligemma-3b at full width and depth: step 1's first
+21. vlm_train paligemma-3b at full width and depth: step 1's first
             microbatch against the plain path (f32 and bf16), 3 AdamW
             steps at B=2 of 256 patches + 768 tokens in 2 microbatches,
             remat on (K1 24L+5 a microbatch, K2-K4 with prefix 256),
             step 3 under sync debug "error", peak memory, a profile.
-21. encdec_path whisper-base at full width and depth (6 + 6 layers, 67.4
+22. encdec_path whisper-base at full width and depth (6 + 6 layers, 67.4
             M): make_prefill B=4 over 1500 frames + 64 tokens (K1
             6E+12L+2; K2 bidirectional in the encoder and the
             cross-attention, causal in the decoder), 64 make_decode
@@ -232,7 +250,7 @@ Twenty-two phases; any failure exits non-zero before the result line:
             greedy_generate B=4, 8 + 32, the prefill's logits, self and
             cross K/V and a decode step against the plain path (f32 and
             bf16), a decode step under sync debug "error", profiles.
-22. encdec_train whisper-base: step 1's first microbatch against the
+23. encdec_train whisper-base: step 1's first microbatch against the
             plain path (the key biases' vanishing gradients held against
             their value biases'), 3 AdamW steps at B=8 of 1500 frames +
             448 tokens in 4 microbatches (K1 24E+40L+5 a microbatch,
@@ -252,6 +270,9 @@ import subprocess
 import sys
 import time
 
+#: the smoke's start: its whole wall time, the build included, is printed
+#: before the result line
+START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 #: each kernel case passes when max|kernel - plain| <= tol * max|plain|.
@@ -415,6 +436,20 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: a plain version slower than this (ms a call: a Python loop over the
+#: steps of a scan) is timed over 2 calls, not 10 after 3 warm-up calls
+SLOW_PLAIN_MS = 50.0
+
+
+def plain_time_ms(torch, fn) -> float:
+    """``time_ms`` of a plain version, over fewer calls where one call
+    takes ``SLOW_PLAIN_MS`` or more."""
+    first = time_ms(torch, fn, iters=1, warmup=0)
+    if first < SLOW_PLAIN_MS:
+        return time_ms(torch, fn)
+    return time_ms(torch, fn, iters=2, warmup=0)
+
+
 def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     from repro_torch.hardware import H100, H100_PEAK_FLOPS
     t_ops = flops / H100_PEAK_FLOPS[dtype] * 1e3
@@ -473,7 +508,7 @@ def _case(torch, rec, name, dtype, tol_key, kern, plain, library, flops,
     err = max(errs)
     rel = max(e / sc for e, sc in zip(errs, scales))
     tol = TOL[tol_key]
-    ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
+    ms, plain_ms = time_ms(torch, kern), plain_time_ms(torch, plain)
     lib_ms = time_ms(torch, library) if library is not None else None
     b_ms, b_by = bnd if bnd is not None else bound(flops, nbytes, dtype)
     ok = all(e <= tol * sc for e, sc in zip(errs, scales))
@@ -1124,61 +1159,73 @@ def _ssd_bounds(torch, flops, nbytes, call):
 def _ssd_cases(torch, rec, gen):
     """K6 (with and without its h_in export) and K7 at mamba2-780m's
     shapes (48 heads of 64, state 128): the training step's B=2 S=2048
-    q=256, a prefill of 175 tokens (q = 175, one ragged chunk) and one of
-    300 (q = 256, a padded second chunk, through the ops-level pad/slice
-    of ``ops.scan_ssd`` on both sides); and the training shape again with
-    a state of 64, another state width.  No single PyTorch call computes
-    the SSD scan, so neither has a library time; reruns of K6 and K7 give
-    the same bits."""
+    at q=256 (the config's chunk) and, on the same operands, at the chunk
+    the H100 table derives (``ops.default_ssd_chunk``: 16, shorter than a
+    64-row tile; its h_in export 16x q=256's), a prefill of 175 tokens (q
+    = 175, one ragged chunk) and one of 300 (q = 256, a padded second
+    chunk, through the ops-level pad/slice of ``ops.scan_ssd`` on both
+    sides); and the training shape again with a state of 64, another
+    state width.  No single PyTorch call computes the SSD scan, so neither
+    has a library time; reruns of K6 and K7 give the same bits."""
     from repro_torch.kernels import ops, ref
     h, p = 48, 64
     randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
-    for b, s, q, n in ((SSM_B, SSM_S, 256, 128), (1, 175, 175, 128),
-                       (1, 300, 256, 128), (SSM_B, SSM_S, 256, 64)):
-        x, B, C = randn(b, s, h, p), randn(b, s, n), randn(b, s, n)
-        dA, h0 = -0.3 * randn(b, s, h).abs(), 0.1 * randn(b, h, p, n)
-        nc = -(-s // q)
-        fwd, bwd = ssd_work(b, s, h, p, n, q)
-        io = 4 * (2 * b * s * n + 2 * b * s * h * p + b * s * h
-                  + 2 * b * h * p * n)
-        if s % q:
-            call = lambda: ops.scan_ssd(x, dA, B, C, init_state=h0, chunk=q)
-            bnd, extra = _ssd_bounds(torch, fwd, io, call)
-            _case(torch, rec, "K6", "float32", ("K6", "float32"), call,
-                  lambda: _plain(ops, ops.scan_ssd, x, dA, B, C,
-                                 init_state=h0, chunk=q),
-                  None, fwd, io,
-                  f"K6 float32 B={b} S={s} (padded) q={q} h={h} p={p} n={n}",
-                  extra, bnd)
-            continue
-        for export in (False, True):
-            call = lambda: ops.ssd_scan_chunked(x, dA, B, C, h0, q,
-                                                export)[:2 + export]
-            nbytes = io + export * 4 * b * nc * h * p * n
-            bnd, extra = _ssd_bounds(torch, fwd, nbytes, call)
-            _case(torch, rec, "K6", "float32", ("K6", "float32"), call,
-                  lambda: ref.ssd_scan(x, dA, B, C, h0, q,
-                                       export)[:2 + export],
-                  None, fwd, nbytes,
-                  f"K6 float32 B={b} S={s} q={q} h={h} p={p} n={n}"
-                  + (" export" if export else ""), extra, bnd)
-        if b == SSM_B:
-            _rerun_equal(torch, lambda: ops.ssd_scan_chunked(
-                x, dA, B, C, h0, q, True), f"K6 n={n}")
-            _, _, h_in = ops.ssd_scan_chunked(x, dA, B, C, h0, q, True)
-            dy, dhf = randn(b, s, h, p), randn(b, h, p, n)
-            args = (C, B, dy, x, dA, h_in, dhf)
-            call = lambda: ops.ssd_bwd_chunked(*args)
-            nbytes = 4 * (4 * b * s * n + 3 * b * s * h * p + 2 * b * s * h
-                          + 2 * b * h * p * n + b * nc * h * p * n)
-            bnd, extra = _ssd_bounds(torch, bwd, nbytes, call)
-            _case(torch, rec, "K7", "float32", ("K7", "float32"), call,
-                  lambda: ref.ssd_bwd(*args), None, bwd, nbytes,
-                  f"K7 float32 B={b} S={s} q={q} h={h} p={p} n={n}", extra,
-                  bnd)
-            _rerun_equal(torch, call, f"K7 n={n} (its head sums)")
-            del h_in, dy, dhf, args
-        del x, B, C, dA, h0
+    q_derived = ops.default_ssd_chunk(SSM_S, h, p, 128)
+    for b, s, qs, n in ((SSM_B, SSM_S, (256, q_derived), 128),
+                        (1, 175, (175,), 128), (1, 300, (256,), 128),
+                        (SSM_B, SSM_S, (256,), 64)):
+        ins = [randn(b, s, h, p), randn(b, s, n), randn(b, s, n),
+               -0.3 * randn(b, s, h).abs(), 0.1 * randn(b, h, p, n)]
+        ins += [randn(b, s, h, p), randn(b, h, p, n)] if b == SSM_B else \
+            [None, None]
+        for q in qs:
+            _ssd_rows(torch, rec, ops, ref, ins, b, s, q, n, h, p)
+        del ins
+
+
+def _ssd_rows(torch, rec, ops, ref, ins, b, s, q, n, h, p):
+    """``_ssd_cases``' rows of one chunk ``q`` on the operands ``ins`` (x,
+    B, C, dA, h0 and, at the training batch, K7's dy and dhf)."""
+    x, B, C, dA, h0, dy, dhf = ins
+    nc = -(-s // q)
+    fwd, bwd = ssd_work(b, s, h, p, n, q)
+    io = 4 * (2 * b * s * n + 2 * b * s * h * p + b * s * h
+              + 2 * b * h * p * n)
+    if s % q:
+        call = lambda: ops.scan_ssd(x, dA, B, C, init_state=h0, chunk=q)
+        bnd, extra = _ssd_bounds(torch, fwd, io, call)
+        _case(torch, rec, "K6", "float32", ("K6", "float32"), call,
+              lambda: _plain(ops, ops.scan_ssd, x, dA, B, C,
+                             init_state=h0, chunk=q),
+              None, fwd, io,
+              f"K6 float32 B={b} S={s} (padded) q={q} h={h} p={p} n={n}",
+              extra, bnd)
+        return
+    for export in (False, True):
+        call = lambda: ops.ssd_scan_chunked(x, dA, B, C, h0, q,
+                                            export)[:2 + export]
+        nbytes = io + export * 4 * b * nc * h * p * n
+        bnd, extra = _ssd_bounds(torch, fwd, nbytes, call)
+        _case(torch, rec, "K6", "float32", ("K6", "float32"), call,
+              lambda: ref.ssd_scan(x, dA, B, C, h0, q,
+                                   export)[:2 + export],
+              None, fwd, nbytes,
+              f"K6 float32 B={b} S={s} q={q} h={h} p={p} n={n}"
+              + (" export" if export else ""), extra, bnd)
+    if dy is None:
+        return
+    _rerun_equal(torch, lambda: ops.ssd_scan_chunked(
+        x, dA, B, C, h0, q, True), f"K6 n={n} q={q}")
+    _, _, h_in = ops.ssd_scan_chunked(x, dA, B, C, h0, q, True)
+    args = (C, B, dy, x, dA, h_in, dhf)
+    call = lambda: ops.ssd_bwd_chunked(*args)
+    nbytes = 4 * (4 * b * s * n + 3 * b * s * h * p + 2 * b * s * h
+                  + 2 * b * h * p * n + b * nc * h * p * n)
+    bnd, extra = _ssd_bounds(torch, bwd, nbytes, call)
+    _case(torch, rec, "K7", "float32", ("K7", "float32"), call,
+          lambda: ref.ssd_bwd(*args), None, bwd, nbytes,
+          f"K7 float32 B={b} S={s} q={q} h={h} p={p} n={n}", extra, bnd)
+    _rerun_equal(torch, call, f"K7 n={n} q={q} (its head sums)")
 
 
 def _plain(ops, fn, *args, **kw):
@@ -1305,29 +1352,41 @@ def _gated_cases(torch, rec, gen):
     without an entering state, and a ragged B=2 S=300.  It reads log_a and
     b and writes h (12 B an element; h0 read and the final state written
     besides), 3 f32 operations an element (exp, multiply, add).  No single
-    PyTorch call computes the scan: no library time.  Each row prints its
-    chunk length and its time in a CUDA graph, and is rerun for the same
-    bits."""
+    PyTorch call computes the scan: no library time.  Each row runs at the
+    chunk the H100 table derives (``ops.default_gated_chunk``: 16 at this
+    width) and prints it with its time in a CUDA graph, and is rerun for
+    the same bits; the B=1 S=4096 rows also run at chunk 64 (the chunk
+    the earlier occupancy rule on 64-channel strips picked there) on the
+    same operands.  The bound is the function's own bytes at every chunk;
+    the kernel's workspace traffic, the chunk aggregates (A, H) and group
+    folds written and read (8 bytes an aggregate, 4 a fold, a (batch,
+    chunk, channel) each), which the chunk sets, is printed beside it as
+    ``workspace_mb``."""
     from repro_torch.kernels import ops, ref
     w = 4096
     randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
     for b, s in ((1, HYB_S), (2, 300)):
         la, bb = -0.5 * randn(b, s, w).abs(), randn(b, s, w)
         h0 = 0.5 * randn(b, w)
+        derived = min(ops.default_gated_chunk(s, w), s)
         for reverse in (False, True):
             for with_h0 in ((False, True) if b == 1 else (True,)):
                 hh = h0 if with_h0 else None
-                call = lambda: ops.gated_recurrence(la, bb, hh, reverse)
-                shape = (f"K8 float32 B={b} S={s} w={w}"
-                         + " reverse" * reverse + " h0" * with_h0)
-                extra = {"chunk": ops.gated_chunks(b, s, w),
-                         "graph_ms": graph_ms(torch, call)}
-                _case(torch, rec, "K8", "float32", ("K8", "float32"), call,
-                      lambda: ref.gated_scan(la, bb, hh, reverse), None,
-                      3.0 * b * s * w,
-                      4 * (3 * b * s * w + (1 + with_h0) * b * w), shape,
-                      extra)
-                _rerun_equal(torch, call, shape)
+                for chunk in (derived, 64) if b == 1 else (derived,):
+                    call = lambda c=chunk: ops.gated_recurrence(
+                        la, bb, hh, reverse, chunk=c)
+                    shape = (f"K8 float32 B={b} S={s} w={w}"
+                             + " reverse" * reverse + " h0" * with_h0
+                             + f" chunk={chunk}")
+                    work = 2 * b * -(-s // chunk) * w * (8 + 4)
+                    extra = {"graph_ms": graph_ms(torch, call),
+                             "workspace_mb": work / 1e6}
+                    _case(torch, rec, "K8", "float32", ("K8", "float32"),
+                          call, lambda: ref.gated_scan(la, bb, hh, reverse),
+                          None, 3.0 * b * s * w,
+                          4 * (3 * b * s * w + (1 + with_h0) * b * w),
+                          shape, extra)
+                    _rerun_equal(torch, call, shape)
         del la, bb, h0
 
 
@@ -2235,12 +2294,7 @@ def phase_ssm_path(torch):
     print(f"[ssm_path] mamba2-780m full width: {n_params / 1e6:.1f} M params "
           f"bf16, init {time.perf_counter() - t0:.1f} s", flush=True)
     engine = ServeEngine(cfg, params, max_slots=4, max_len=512)
-    rng = np.random.default_rng(0)
-    # one prompt over one chunk (256): its prefill crosses a chunk boundary
-    # and pads its last chunk; the others are one ragged chunk each
-    lens = [300] + [int(n) for n in rng.integers(32, 201, 5)]
-    reqs = [(rng.integers(0, cfg.vocab_size, n).tolist(),
-             int(rng.integers(16, 33))) for n in lens]
+    reqs = _ssm_reqs(np, cfg)
     print(f"[ssm_path] prompts {[len(p) for p, _ in reqs]} max_new "
           f"{[n for _, n in reqs]}", flush=True)
 
@@ -2302,6 +2356,16 @@ def phase_ssm_path(torch):
     return launches
 
 
+def _ssm_reqs(np, cfg):
+    """mamba2-780m's 6 requests from seed 0: one prompt of 300 tokens
+    (over one 256-token chunk: its prefill crosses a chunk boundary and
+    pads its last chunk) and five of 32-200, 16-32 new tokens each."""
+    rng = np.random.default_rng(0)
+    lens = [300] + [int(n) for n in rng.integers(32, 201, 5)]
+    return [(rng.integers(0, cfg.vocab_size, n).tolist(),
+             int(rng.integers(16, 33))) for n in lens]
+
+
 def _f32_copy(params, trainable=False):
     """The same weights in float32 (every bf16 value is exact in f32)."""
     from repro_torch.models import transformer
@@ -2328,29 +2392,32 @@ def _ratio(kern, wit):
     return kern / wit if wit else (0.0 if not kern else math.inf)
 
 
-def _f32_witness(torch, tag, out, setting):
+def _f32_witness(torch, tag, out, setting, names=("kernels", "plain")):
     """Hold ``out[(dtype, plain)][what]`` (``dtype`` "float32" or
     "bfloat16", ``plain`` the plain path's) for each ``what``: the f32
     kernels within SSM_F32_TOL x max|plain| of the f32 plain path; the
     bf16 kernels no farther from the f32 plain path than SSM_BF16_RATIO
     x the plain bf16 path's own distance from it (the witness).
-    ``setting`` names the input in the printed lines."""
+    ``setting`` names the input in the printed lines, ``names`` the run
+    held and the run it is held to (``derive_path``: the derived chunk's
+    kernels and the pinned chunk's)."""
+    k, p = names
     for what, ref32 in out["float32", True].items():
         err = _rel(torch, out["float32", False][what], ref32)
-        print(f"[{tag}] float32 {what} {tuple(ref32.shape)} kernels vs "
-              f"plain ({setting}): {err:.3e} of max|plain| (tol "
+        print(f"[{tag}] float32 {what} {tuple(ref32.shape)} {k} vs "
+              f"{p} ({setting}): {err:.3e} of max|{p}| (tol "
               f"{SSM_F32_TOL:g})", flush=True)
-        require(err <= SSM_F32_TOL, f"float32 {what} disagrees with plain")
+        require(err <= SSM_F32_TOL, f"float32 {what} disagrees with {p}")
         kern = _rel(torch, out["bfloat16", False][what], ref32)
         wit = _rel(torch, out["bfloat16", True][what], ref32)
         both = _rel(torch, out["bfloat16", False][what],
                     out["bfloat16", True][what])
-        print(f"[{tag}] bfloat16 {what}, max|diff| / max|f32 plain|: "
-              f"kernels vs f32 {kern:.3e}, plain bf16 vs f32 {wit:.3e} "
+        print(f"[{tag}] bfloat16 {what}, max|diff| / max|f32 {p}|: "
+              f"{k} vs f32 {kern:.3e}, {p} bf16 vs f32 {wit:.3e} "
               f"(ratio {_ratio(kern, wit):.3f}, tol {SSM_BF16_RATIO:g}); "
-              f"kernels vs plain bf16 {both:.3e}", flush=True)
+              f"{k} vs {p} bf16 {both:.3e}", flush=True)
         require(kern <= SSM_BF16_RATIO * wit, f"bfloat16 {what}: the "
-                f"kernels sit farther from the f32 function than plain bf16")
+                f"{k} sit farther from the f32 function than {p} bf16")
 
 
 def _ssm_agreement(torch, cfg, params, prompt, tok):
@@ -2421,21 +2488,25 @@ def _ssm_layers(torch, cfg, params, prompt, tok):
                 f"with plain")
 
 
-def _grad_agreement(torch, tag, cfg, params, batch):
+def _grad_agreement(torch, tag, cfg, params, batch, against=None):
     """Step 1's loss and gradients through the kernels and the plain
     versions, in bf16 and on its weights in f32: f32 kernels against f32
     plain tightly; bf16 kernels against the f32 plain gradients beside the
     plain bf16 ones' own distance from them (the witness).  Returns the
-    bf16 kernels' loss.  ``tag`` heads the printed lines."""
+    bf16 kernels' loss.  ``tag`` heads the printed lines.  With
+    ``against`` (a config), the run held to is the kernels' under that
+    config, not the plain versions (``derive_path``: the pinned chunk)."""
     from repro_torch.kernels import ops
     from repro_torch.train import train_step as ts
-    cf, pf = cfg.with_(dtype="float32"), _f32_copy(params, trainable=True)
+    pf = _f32_copy(params, trainable=True)
     out = {}
-    for c, prm in ((cf, pf), (cfg, params)):
+    for dt, prm in (("float32", pf), ("bfloat16", params)):
         for plain in (False, True):
-            with _plain_if(ops, plain):
+            c = (against if plain and against is not None else cfg).with_(
+                dtype=dt)
+            with _plain_if(ops, plain and against is None):
                 loss, _, grads = ts.loss_and_grads(prm, c, batch)
-            out[c.dtype, plain] = (loss.item(), grads)
+            out[dt, plain] = (loss.item(), grads)
     del pf
     (lk, gk), (lp, gp) = out["float32", False], out["float32", True]
     (lkb, gkb), (lpb, gpb) = out["bfloat16", False], out["bfloat16", True]
@@ -2787,7 +2858,8 @@ def phase_hybrid_path(torch):
         want = _zero_launches(K1=k1, K2=n_att, K8=n_rec)
         print(f"[hybrid_path] make_prefill B=1 S={HYB_S}: {prefill_ms:.3f} ms"
               f" ({HYB_S / prefill_ms * 1e3:.1f} tok/s); launches "
-              f"{launches_p} (derived {want})", flush=True)
+              f"{launches_p} (derived {want}); K8 at the derived chunk "
+              f"{ops.default_gated_chunk(HYB_S, cfg.lru_width)}", flush=True)
         require(launches_p == want, "prefill launches differ from the "
                 "derived counts")
         d, hd, g = cfg.d_model, cfg.head_dim_, cfg.n_heads
@@ -3215,13 +3287,24 @@ def phase_moa_path(torch, rec):
     torch.cuda.synchronize()
 
     # the path: every case once, kron_compress's compressed apply (two
-    # moa_gemms), and one apply under sync debug mode "error"
+    # moa_gemms), and one apply under sync debug mode "error"; each
+    # ops.apply call is recorded (expression, operands, options) for
+    # derive_path's verification
+    applied = []
+    plain_apply = ops.apply
+
+    def recording(expr, *arrays, **kw):
+        applied.append((expr, arrays, kw))
+        return plain_apply(expr, *arrays, **kw)
+
     ops.reset_launches()
     t0 = time.perf_counter()
-    outs = [c[2]() for c in cases]
-    X = x.reshape(KRON, KRON)
-    T = ops.apply(E.matmul_expr(KRON, KRON, KRON, transpose_b=True), X, kb)
-    Y = ops.moa_gemm(ka, T)
+    with _patched(ops, "apply", recording):
+        outs = [c[2]() for c in cases]
+        X = x.reshape(KRON, KRON)
+        T = ops.apply(E.matmul_expr(KRON, KRON, KRON, transpose_b=True), X,
+                      kb)
+        Y = ops.moa_gemm(ka, T)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -3297,6 +3380,300 @@ def phase_moa_path(torch, rec):
             bound_ms=b_ms, bound_by=b_by, **extra)
         if g_ms is not None:
             rec[kid][label]["graph_ms"] = g_ms
+    return launches, applied
+
+
+# ---------------------------------------------------------------------------
+# derive_path: the recurrent derivation, the static verifier, int8 -> int32
+# ---------------------------------------------------------------------------
+
+#: derive_path's mamba2-780m train steps: depth cut to 12 of 48 layers
+#: (the smoke's time; each layer's SSD call is the same at any depth)
+DERIVE_TRAIN_LAYERS = 12
+#: the int8 product of derive_path (through ops.apply, acc_dtype int32):
+#: 4096^3, and a ragged (m, k, n) that torch._int_mm does not take
+INT8_N = 4096
+INT8_RAGGED = (1001, 37, 999)
+
+
+def _chunk_agreement(torch, cfg, pinned, params, prompt, tok, q):
+    """The 300-token prompt's prefill (logits, state, conv tail) and one
+    decode step from its cache at the derived chunk (``cfg``) against the
+    pinned chunk (``pinned``), both through the kernels, in f32 on the same
+    weights and in bf16 beside the pinned bf16 run's own distance from
+    f32 (``_f32_witness``: ``[ssm_path]``'s tolerances)."""
+    from repro_torch.models import transformer
+    pf = _f32_copy(params)
+    out = {}
+    for dt, prm in (("float32", pf), ("bfloat16", params)):
+        for ref_run, c in ((False, cfg), (True, pinned)):
+            c = c.with_(dtype=dt)
+            lg, cache = transformer.prefill(prm, c, prompt)
+            dec, _ = transformer.decode_step(
+                prm, c, tok, None,
+                transformer.prefill_cache_to_decode(c, cache, 512))
+            require(bool(torch.isfinite(lg).all() and torch.isfinite(dec)
+                         .all()), f"{dt} logits not finite")
+            out[dt, ref_run] = {"prefill logits": lg, "decode logits": dec,
+                                "state": cache.state, "conv tail": cache.conv}
+    del pf
+    _f32_witness(torch, "derive_path", out,
+                 f"{prompt.shape[1]}-token prompt",
+                 (f"chunk {q}", f"chunk {pinned.ssm_chunk}"))
+
+
+def _int8_rows(torch, rec, E, ops, ref):
+    """K1's int8 form through ``ops.apply`` (acc_dtype int32): the 4096^3
+    product equal to its plain version (exact int64 sums) and to
+    ``torch._int_mm`` bit for bit, timed by events and in a CUDA graph
+    beside ``torch._int_mm``, bound at the card's dense int8 rate (1979
+    TOPS, the H100 SXM data sheet); and a ragged product held to its plain
+    version only.  Returns the launches of the first call of each (the
+    path's)."""
+    i8, i32 = torch.int8, torch.int32
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    counts = _zero_launches()
+    for m, k, n in ((INT8_N,) * 3, INT8_RAGGED):
+        a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                          dtype=i8)
+        b = torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
+                          dtype=i8)
+        expr = E.matmul_expr(m, k, n)
+        call = lambda: ops.apply(expr, a, b, acc_dtype="int32",
+                                 out_dtype=i32)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        for kid, v in ops.LAUNCHES.items():
+            counts[kid] += v
+        require(ops.LAUNCHES["K1"] == 1 and out.dtype == i32,
+                "the int8 product did not run on K1's int8 form")
+        plain = _plain(ops, call)
+        same = torch.equal(out, plain)
+        lib = None
+        if (m, k, n) == (INT8_N,) * 3:
+            lib = lambda: torch._int_mm(a, b)
+            same = same and torch.equal(out, lib())
+        del plain
+        label = f"K1 int8 apply {m}x{k}x{n} acc int32 path=int8"
+        _rerun_equal(torch, call, label)
+        ms = time_ms(torch, call)
+        g_ms = graph_ms(torch, call)
+        plain_ms = time_ms(torch, lambda: _plain(ops, call), iters=2,
+                           warmup=1)
+        lib_ms = time_ms(torch, lib) if lib else None
+        lib_g = graph_ms(torch, lib) if lib else None
+        b_ms, b_by = bound(2.0 * m * n * k, m * k + k * n + 4 * m * n,
+                           "int8")
+        print(f"[derive_path] {label}: bit for bit with the plain version"
+              f"{' and torch._int_mm' if lib else ''}: {same}; ms={ms:.4f} "
+              f"graph_ms={g_ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+              f"{lib_ms if lib_ms is None else round(lib_ms, 4)} "
+              f"library_graph_ms="
+              f"{lib_g if lib_g is None else round(lib_g, 4)} bound_ms="
+              f"{b_ms:.4f} ({b_by}, {2.0 * m * n * k / 1e12:.3f} TOP at 1979 "
+              f"TOPS)", flush=True)
+        require(same, f"{label}: differs from its plain version or "
+                f"torch._int_mm")
+        rec["K1"][label] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                library_ms=lib_ms, bound_ms=b_ms,
+                                bound_by=b_by, graph_ms=g_ms,
+                                library_graph_ms=lib_g)
+        del a, b, out
+    return counts
+
+
+def phase_derive_path(torch, rec, applied):
+    """The derivation on the H100 table end to end: mamba2-780m at full
+    width and depth with ``ssm_chunk = 0`` (the SSD chunk derived:
+    ``ops.default_ssd_chunk``) served over ``[ssm_path]``'s prompts and
+    trained at B=2 S=2048 with its depth cut to ``DERIVE_TRAIN_LAYERS``,
+    held to the config's pinned chunk 256;
+    recurrentgemma-9b's derived gated chunk (``[hybrid_path]`` ran K8 at
+    it); ``apply(verify=True)`` and ``verify="kernel"`` on every
+    expression ``[moa_path]`` ran (zero error findings, the second call a
+    cache hit, host µs); the ``verify_all`` sweep's H100 summary; and K1's
+    int8 product.  Returns the launches of its driven paths."""
+    import numpy as np
+    from repro_torch import analysis
+    from repro_torch.analysis import verify_all
+    from repro_torch.configs import mamba2_780m, recurrentgemma_9b
+    from repro_torch.core import expr as E
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.hardware import TPU_V5E
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import ssm
+    from repro_torch.serving import ServeEngine
+    from repro_torch.train import train_step as ts
+
+    phase_t0 = time.perf_counter()
+    launches = _zero_launches()
+
+    def count(run):
+        for kid, v in run.items():
+            launches[kid] += v
+
+    # 1. mamba2-780m with ssm_chunk = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pinned, params = _model(torch, mamba2_780m)
+    cfg = pinned.with_(ssm_chunk=0)
+    h, hp, n = ssm.n_ssd_heads(cfg), cfg.ssm_head_dim, cfg.ssm_state
+    reqs = _ssm_reqs(np, cfg)
+    q = ops.default_ssd_chunk(SSM_S, h, hp, n)
+    served_q = sorted({min(ops.default_ssd_chunk(len(pr), h, hp, n), len(pr))
+                       for pr, _ in reqs})
+    print(f"[derive_path] mamba2-780m ssm_chunk=0: derived SSD chunk {q} "
+          f"at S={SSM_S} (h={h} p={hp} n={n}, the H100 table; carried state "
+          f"{2 * h * hp * n * 4 / 1e6:.2f} MB against a quarter of 227 KB; "
+          f"the v5e copy derives "
+          f"{ops.default_ssd_chunk(SSM_S, h, hp, n, hardware=TPU_V5E)}; "
+          f"the config pins {pinned.ssm_chunk}); the served prompts' "
+          f"derived chunks {served_q}", flush=True)
+    engine = ServeEngine(cfg, params, max_slots=4, max_len=512)
+    run = _run_engine(torch, engine, reqs)
+    rids, results, served = run[:3]
+    _serve_line(torch, np, "derive_path", reqs, *run, engine)
+    L = cfg.n_layers
+    want = _zero_launches(K1=len(rids) * (3 * L + 1)
+                          + engine.kernel_calls * (2 * L + 1),
+                          K6=L * len(rids))
+    print(f"[derive_path] serving launches {served} (derived {want})",
+          flush=True)
+    require(served == want, "derive_path serving launches differ from the "
+            "derived counts")
+    count(served)
+    del engine
+    with torch.inference_mode():
+        prompt = torch.tensor([reqs[0][0]], device="cuda")
+        tok = torch.tensor([results[rids[0]]["tokens"][0]], device="cuda")
+        _chunk_agreement(torch, cfg, pinned, params, prompt, tok,
+                         min(q, prompt.shape[1]))
+    del params
+    torch.cuda.empty_cache()
+
+    # train steps at B=2 S=2048 at the derived chunk and at 256 (the same
+    # batches, one optimizer state stepped through both), depth cut
+    cfg = cfg.with_(n_layers=DERIVE_TRAIN_LAYERS)
+    pinned = pinned.with_(n_layers=DERIVE_TRAIN_LAYERS)
+    L = cfg.n_layers
+    _, params = _model(torch, mamba2_780m, DERIVE_TRAIN_LAYERS,
+                       trainable=True)
+    data = SyntheticLM(PipelineConfig(cfg.vocab_size, SSM_S, SSM_B, seed=0))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                data.global_batch(i).items()} for i in range(2)]
+    print(f"[derive_path] step-1 loss and gradients at chunk {q} "
+          f"('kernels') against chunk {pinned.ssm_chunk} ('plain'), both "
+          f"through the kernels:", flush=True)
+    _grad_agreement(torch, "derive_path", cfg, params, batches[0],
+                    against=pinned)
+    torch.cuda.empty_cache()
+    state = ts.init_state(cfg, params, "cuda")
+    steps = {}
+    for c in (cfg, pinned):
+        step = ts.make_train_step(c)
+        state, rows, run, peak = _train_steps(
+            torch, "derive_path", step, state, batches, SSM_B * SSM_S)
+        steps[c.ssm_chunk] = (rows[-1][0], peak)
+        if c is cfg:
+            n2 = len(batches)
+            want = _zero_launches(K1=n2 * (2 * L + 1 + 2 * L
+                                           + 2 * (2 * L + 1)),
+                                  K6=n2 * 2 * L, K7=n2 * L)
+            require(run == want, f"derive_path train launches {run} != "
+                    f"{want}")
+            count(run)
+            # K6 / K7's share of the step by kernel at the derived chunk
+            # ([ssm_train]'s profile has them at 256)
+            profile_step(torch, lambda: step(state, batches[0]), n=1,
+                         what=f"derive_path train (chunk {q})")
+    (ms_q, peak_q), (ms_p, peak_p) = steps[0], steps[pinned.ssm_chunk]
+    print(f"[derive_path] mamba2-780m ({L} of 48 layers) train step "
+          f"B={SSM_B} S={SSM_S}: chunk "
+          f"{q} {ms_q:.3f} ms, peak {peak_q / 2**30:.2f} GiB; chunk "
+          f"{pinned.ssm_chunk} {ms_p:.3f} ms, peak {peak_p / 2**30:.2f} GiB",
+          flush=True)
+    for kid, what in (("K6", " export"), ("K6", ""), ("K7", "")):
+        rows = {qq: rec[kid][f"{kid} float32 B={SSM_B} S={SSM_S} q={qq} "
+                             f"h={h} p={hp} n={n}{what}"]
+                for qq in (q, 256)}
+        print(f"[derive_path] {kid}{what} on the same operands: q={q} "
+              f"{rows[q]['ms']:.4f} ms (graph {rows[q]['graph_ms']:.4f}) "
+              f"against q=256 {rows[256]['ms']:.4f} ms (graph "
+              f"{rows[256]['graph_ms']:.4f})", flush=True)
+    del state, params, batches
+    torch.cuda.empty_cache()
+
+    # 2. recurrentgemma-9b: the gated chunk its prefill derived
+    rcfg = recurrentgemma_9b.full()
+    qg = ops.default_gated_chunk(HYB_S, rcfg.lru_width)
+    print(f"[derive_path] recurrentgemma-9b: derived gated chunk {qg} at "
+          f"S={HYB_S} w={rcfg.lru_width} (the H100 table; the v5e copy "
+          f"derives {ops.default_gated_chunk(HYB_S, rcfg.lru_width, hardware=TPU_V5E)}); "
+          f"[hybrid_path]'s make_prefill ran K8 at it", flush=True)
+    for tail in ("", " reverse h0"):
+        rows = {c: rec["K8"][f"K8 float32 B=1 S={HYB_S} w=4096{tail} "
+                             f"chunk={c}"] for c in (qg, 64)}
+        print(f"[derive_path] K8{tail or ' forward'} on the same operands: "
+              f"chunk={qg} {rows[qg]['ms']:.4f} ms (graph "
+              f"{rows[qg]['graph_ms']:.4f}, bound {rows[qg]['bound_ms']:.4f})"
+              f" against chunk=64 {rows[64]['ms']:.4f} ms (graph "
+              f"{rows[64]['graph_ms']:.4f})", flush=True)
+
+    # 3. the static verifier on every expression moa_path ran
+    analysis.reset_verification_cache()
+    first, cached, plain_us = [], [], []
+    for expr, arrays, kw in applied:
+        for mode in (True, "kernel"):
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                before = analysis.verification_cache_stats()
+                t0 = time.perf_counter()
+                try:
+                    ops.apply(expr, *arrays, verify=mode, **kw)
+                except analysis.VerificationError as exc:
+                    fail(f"[derive_path] verify={mode!r}: {exc}")
+                times.append((time.perf_counter() - t0) * 1e6)
+                after = analysis.verification_cache_stats()
+            require(after["hits"] == before["hits"] + 1, "the second "
+                    "verified call did not hit the verification cache")
+            first.append(times[0])
+            cached.append(times[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.apply(expr, *arrays, **kw)
+        plain_us.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    print(f"[derive_path] verify=True and verify='kernel' on the "
+          f"{len(applied)} expressions [moa_path] applied: 0 error findings; "
+          f"every second call a verification-cache hit; host us a call "
+          f"(median / max): first {med(first):.1f} / {max(first):.1f}, "
+          f"cached {med(cached):.1f} / {max(cached):.1f}, unverified "
+          f"{med(plain_us):.1f} / {max(plain_us):.1f}; cache "
+          f"{analysis.verification_cache_stats()}", flush=True)
+
+    # 4. the sweep on the H100 table
+    t0 = time.perf_counter()
+    report = verify_all.run_sweep()
+    h_cases = {c: v for c, v in report["cases"].items()
+               if c.startswith("h100/")}
+    h_err = [f for f in report["findings"] if f["case"].startswith("h100/")]
+    print(f"[derive_path] verify_all on the H100 table: {report['forms']} "
+          f"forms x {len(report['dtypes'])} dtypes {report['dtypes']}: "
+          f"{sum(v == 'checked' for v in h_cases.values())} checked, "
+          f"{sum(v == 'refused' for v in h_cases.values())} refused, "
+          f"{len(h_err)} error findings ({time.perf_counter() - t0:.2f} s "
+          f"for both tables)", flush=True)
+    require(report["failed"] == 0, f"verify_all failures "
+            f"{report['failures']}")
+
+    # 5. K1's int8 form
+    count(_int8_rows(torch, rec, E, ops, ref))
+    print(f"[derive_path] phase wall {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
     return launches
 
 
@@ -4861,7 +5238,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     hybrid_train = phase_hybrid_train(torch)
     torch.cuda.empty_cache()
-    moa = phase_moa_path(torch, rec)
+    moa, applied = phase_moa_path(torch, rec)
+    torch.cuda.empty_cache()
+    derive = phase_derive_path(torch, rec, applied)
+    del applied
     torch.cuda.empty_cache()
     moe_serve = phase_moe_path(torch, smi_line)
     torch.cuda.empty_cache()
@@ -4881,6 +5261,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     encdec_train = phase_encdec_train(torch, smi_line)
 
+    from repro_torch.kernels import ops
     src = "src/repro_torch/kernels/csrc/"
     head = {"K1": ("K1_gemm", src + "gemm.cu",
                    "src/repro/kernels/emit.py:148",
@@ -4906,7 +5287,8 @@ def main() -> None:
                    f"K7 float32 B={SSM_B} S={SSM_S} q=256 h=48 p=64 n=128"),
             "K8": ("K8_gated_scan", src + "gated_scan.cu",
                    "src/repro/kernels/emit.py:461",
-                   f"K8 float32 B=1 S={HYB_S} w=4096"),
+                   f"K8 float32 B=1 S={HYB_S} w=4096 chunk="
+                   f"{ops.default_gated_chunk(HYB_S, 4096)}"),
             "K9": ("K9_semiring", src + "semiring.cu",
                    "src/repro/kernels/emit.py:125",
                    f"K9 float32 max-plus {MOA_BIG}x{MOA_BIG}x{MOA_BIG}")}
@@ -4916,6 +5298,7 @@ def main() -> None:
             "ssm_path": ssm_serve,
             "ssm_train": ssm_train, "hybrid_path": hybrid_serve,
             "hybrid_train": hybrid_train, "moa_path": moa,
+            "derive_path": derive,
             "moe_path": moe_serve, "moe_train": moe_train,
             "llama4_path": llama4_serve, "mla_path": mla_serve,
             "mla_train": mla_train, "vlm_path": vlm_serve,
@@ -4930,6 +5313,8 @@ def main() -> None:
                             launches=sum(by_path.values()),
                             launches_by_path=by_path,
                             shape=shape, **rec[kid][shape]))
+    print(f"[smoke] wall {time.perf_counter() - START:.1f} s, the build "
+          f"included", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

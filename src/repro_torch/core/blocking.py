@@ -8,8 +8,12 @@ buffered input blocks, the accumulator and, for semirings other than
 budget, maximize arithmetic intensity.  ``core.schedule`` derives its
 contraction blocks with it.  ``solve_recurrence_blocks`` picks the
 streamed-axis block of a chunked scan the same way; the port derives its
-KV page size with it (``kernels.ops.default_decode_page``), on the
-``H100`` table.
+KV page size and the SSD and gated-scan chunks with it
+(``kernels.ops.default_decode_page``, ``default_ssd_chunk``,
+``default_gated_chunk``), on the ``H100`` table.
+``solve_stream_blocks`` is the streamed two-contraction (online softmax)
+choice the recurrent schedules derive their (bq, bk) from, and
+``solve_blocks_square`` the paper's square-block rule.
 """
 from __future__ import annotations
 
@@ -76,6 +80,19 @@ def gemm_working_set(bm: int, bk: int, bn: int, esize: int, acc_size: int,
     ws = (bm * bk + bk * bn) * esize * buffering + bm * bn * acc_size
     if materialized_combine:
         ws += bm * bn * bk * acc_size
+    return ws
+
+
+def stream_working_set(bq: int, bk: int, hd: int, vd: int, esize: int,
+                       acc_size: int, buffering: int = 2,
+                       q_extra: int = 0, k_extra: int = 0,
+                       n_inter: int = 2, n_row_state: int = 2) -> int:
+    """Resident bytes of one streamed (bq, bk) step: inputs, output block,
+    carried accumulator + per-row state, and the in-block intermediates."""
+    ws = (bq * (hd + q_extra) + bk * (hd + vd + k_extra)) * esize * buffering
+    ws += bq * vd * esize                           # output block
+    ws += (bq * vd + n_row_state * bq) * acc_size   # acc + row state
+    ws += n_inter * bq * bk * acc_size              # scores/probs/grads
     return ws
 
 
@@ -160,6 +177,9 @@ class RecurrenceBlockChoice:
     arithmetic_intensity: float     # flops / byte moved into fast memory
     utilization: float              # fraction of the last chunk filled
 
+    def as_tuple(self) -> tuple[int]:
+        return (self.bs,)
+
 
 def solve_recurrence_blocks(s: int, *, token_elems: int, state_elems: int,
                             quad_elems: int = 0, lin_elems: int = 0,
@@ -213,3 +233,108 @@ def _recurrence_better(a: RecurrenceBlockChoice,
     if a.vmem_bytes != b.vmem_bytes:
         return a.vmem_bytes < b.vmem_bytes
     return a.bs < b.bs
+
+
+@dataclass(frozen=True)
+class StreamBlockChoice:
+    """Block choice for a streaming (online-softmax) reduction: the query
+    block ``bq`` and the streamed key block ``bk``."""
+    bq: int
+    bk: int
+    vmem_bytes: int                 # working set incl. buffering + state
+    arithmetic_intensity: float     # flops / byte moved HBM->VMEM
+    utilization: float              # fraction of the (bq, bk) tile filled
+
+    def as_tuple(self) -> tuple[int, int]:
+        return (self.bq, self.bk)
+
+
+def solve_stream_blocks(sq: int, sk: int, hd: int, vd: Optional[int] = None,
+                        dtype="bfloat16", hardware: HardwareShape = TPU_V5E,
+                        vmem_budget_frac: float = 0.5,
+                        buffering: int = 2,
+                        acc_dtype="float32",
+                        q_extra: int = 0, k_extra: int = 0,
+                        n_inter: int = 2,
+                        n_row_state: int = 2) -> StreamBlockChoice:
+    """Choose ``(bq, bk)`` for a streamed two-contraction reduction
+    (flash attention): per grid step the VMEM residents are the input
+    blocks q ``(bq, hd)``, k ``(bk, hd)``, v ``(bk, vd)`` (double-buffered),
+    the output block ``(bq, vd)``, the carried state — f32 accumulator
+    ``(bq, vd)``, running max and denominator ``(bq,)`` each — and the two
+    in-block f32 intermediates (scores and probabilities, ``(bq, bk)``).
+
+    Same shape as ``solve_blocks``: enumerate hardware-aligned candidates,
+    keep those whose working set (inputs + output + carried state +
+    intermediates) fits the VMEM budget, maximize arithmetic intensity.
+    This is the constraint set that replaces the hand-written fixed-512
+    flash-attention default: at large sequence lengths on the v5e table it
+    *lands on* (512, 512), and degrades gracefully when head_dim, dtype or
+    the budget push the state over.
+
+    The backward recurrence kinds reuse this model with extra terms:
+    ``q_extra``/``k_extra`` widen the per-row / per-streamed-element input
+    payload (e.g. the saved dO block riding the row axis, V riding the
+    stream), ``n_inter`` counts the (bq, bk) f32 in-block intermediates
+    (4 for flash backward: s, p, dp, ds) and ``n_row_state`` the f32
+    per-row state/statistics vectors (m, l, delta, ...).  The defaults
+    reproduce the forward model exactly.
+    """
+    vd = vd or hd
+    esize = dtype_size(dtype)
+    acc_size = dtype_size(acc_dtype)
+    budget = int(hardware.vmem.capacity_bytes * vmem_budget_frac)
+    lane = hardware.mxu_tile[1]
+    sub = _sublane_multiple(dtype) if hardware.mxu_tile == (128, 128) else 1
+    align_q = sub if sub > 1 else max(hardware.vreg_tile[0], 1)
+    align_k = lane if lane > 1 else hardware.vreg_tile[1]
+
+    best: StreamBlockChoice | None = None
+    cand_q = _candidates(max(min(sq, 4096), align_q), align_q)
+    cand_k = _candidates(max(min(sk, 4096), align_k), align_k)
+    for bq in cand_q:
+        for bk in cand_k:
+            ws = stream_working_set(bq, bk, hd, vd, esize, acc_size,
+                                    buffering=buffering, q_extra=q_extra,
+                                    k_extra=k_extra, n_inter=n_inter,
+                                    n_row_state=n_row_state)
+            if ws > budget:
+                continue
+            flops = 2.0 * bq * bk * (hd + vd)
+            moved = (bq * hd + bk * (hd + vd) + bq * vd) * esize
+            ai = flops / moved
+            util = (min(bq, sq) * min(bk, sk)) / float(bq * bk)
+            cand = StreamBlockChoice(bq, bk, ws, ai, util)
+            if best is None or _stream_better(cand, best):
+                best = cand
+    assert best is not None, "no feasible streaming block for the budget"
+    return best
+
+
+def _stream_better(a: StreamBlockChoice, b: StreamBlockChoice) -> bool:
+    if abs(a.arithmetic_intensity - b.arithmetic_intensity) > 1e-9:
+        return a.arithmetic_intensity > b.arithmetic_intensity
+    if a.vmem_bytes != b.vmem_bytes:
+        return a.vmem_bytes < b.vmem_bytes
+    return (a.bq, a.bk) < (b.bq, b.bk)
+
+
+def solve_blocks_square(hardware: HardwareShape, dtype="float64",
+                        n_arrays: int = 3, buffering: int = 1) -> int:
+    """The paper's exact derivation: largest square block b s.t.
+    ``n_arrays * b^2 * dtype_size * buffering <= L1/VMEM capacity``, rounded
+    down to the vector-register multiple.  With V100 + float64 this returns
+    32 (3 x 32x32 doubles = 24 KiB <= 32 KiB), the paper's measured optimum;
+    with shared-memory aggregation (capacity x4 = 128 KiB) it returns 64 —
+    the paper's second regime.
+    """
+    esize = dtype_size(dtype)
+    cap = hardware.vmem.capacity_bytes
+    b = int((cap / (n_arrays * esize * buffering)) ** 0.5)
+    align = max(hardware.vreg_tile[1], 1)
+    # the paper's observed optima are powers of two (32 -> 64): take the
+    # largest power-of-two multiple of the register width that fits
+    p = align
+    while p * 2 <= b:
+        p *= 2
+    return p

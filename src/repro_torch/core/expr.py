@@ -1,8 +1,6 @@
 """A lazy MoA expression algebra: compose, then normalize (DNF -> ONF).
 
-A copy of the expression part of ``repro.core.expr`` (the reference's
-``RecurrentForm`` families stay there: the port's K2-K8 entries take their
-shapes directly).  Callers *compose* an expression --
+A copy of ``repro.core.expr``.  Callers *compose* an expression --
 
     inner("add", "mul", arr("A", (m, k)), arr("B", (k, n)))          # GEMM
     inner("add", "mul", arr("A", (m, k)), transpose(arr("B", (n, k))))
@@ -22,6 +20,15 @@ accesses are what K9 reads in place (``kernels/emit.py``).
 
 The language is exactly as big as ONF: one combine op, one reduce op,
 affine indexing; anything larger is rejected at ``normal_form`` time.
+
+A carried-state recurrence (online softmax, the SSD and gated scans,
+paged decode) is a ``RecurrentForm``: N such normal forms welded through
+one streamed axis, with the typed state monoid (``StateSpec``) the stream
+carries.  The eleven forms, ``attention_form`` through
+``batched_decode_form``, are the reference's K2-K8 computations; the port's
+kernels take their shapes directly, and ``core.schedule`` derives their
+schedules and blocks on the port's tables (the static verifier and the
+derived chunks read them).
 """
 from __future__ import annotations
 
@@ -537,3 +544,690 @@ def normalize(expr: Expr, *, name: str = "expr",
     """``normal_form(...).onf()`` in one call — expression to loop nest."""
     return normal_form(expr, name=name, out_axes=out_axes,
                        reduce_axes=reduce_axes).onf()
+
+
+# ---------------------------------------------------------------------------
+# carried-state recurrences: N welded stages and the typed state monoid
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class StateSpec:
+    """The typed carried-state monoid of a recurrence: ``kind`` names a
+    registered init/step/flush body (``kernels.emit`` resolves it — the
+    nonlinearity is the kind's business exactly as a semiring name resolves
+    to a combine), ``carried`` declares each scratch array as (name, logical
+    axes), ``rescale`` marks that every step multiplies the carried state by
+    a data-dependent factor (online softmax's ``exp(m_prev - m_new)``,
+    SSD's chunk decay, RG-LRU's gate product), and ``exports`` makes the
+    final state a kernel output (the SSM/LRU decode caches).
+
+    ``export_names`` restricts *which* carried arrays export (empty = all);
+    ``per_step`` names carried arrays exported once **per streamed step**
+    rather than once at the end — their output operands gain the streamed
+    axis, block-1 and grid-indexed, so each step writes its own slab (the
+    forward-pass statistics and per-chunk checkpoints the derived backward
+    kernels consume)."""
+    kind: str
+    carried: Tuple[Tuple[str, Tuple[str, ...]], ...]
+    rescale: bool = True
+    exports: bool = False
+    export_names: Tuple[str, ...] = ()
+    per_step: Tuple[str, ...] = ()
+
+    def key(self) -> tuple:
+        return (self.kind, self.carried, self.rescale, self.exports,
+                self.export_names, self.per_step)
+
+    def exported(self) -> Tuple[Tuple[str, Tuple[str, ...]], ...]:
+        """The carried entries that become kernel outputs, in carried
+        order (``export_names`` filters; empty means all)."""
+        if not self.exports:
+            return ()
+        if not self.export_names:
+            return self.carried
+        return tuple(c for c in self.carried if c[0] in self.export_names)
+
+
+#: the online-softmax monoid: running max + denominator per output row, plus
+#: the rescaled accumulator — flash attention's carried state
+SOFTMAX_STATE = StateSpec("online_softmax",
+                          (("m", ("row",)), ("l", ("row",)),
+                           ("acc", ("row", "val"))))
+
+#: the SSD (Mamba-2) monoid: one inter-chunk state h per (head, head_dim,
+#: state_dim), stepped ``h' = chunk_decay * h + B'(decay . x)`` and exported
+#: as the decode cache
+SSD_STATE = StateSpec("ssd", (("h", ("h", "p", "n")),), exports=True)
+
+#: the RG-LRU gated monoid: one state per channel, ``h' = a h + b``
+GATED_STATE = StateSpec("gated", (("h", ("w",)),), exports=True)
+
+
+@dataclass(frozen=True)
+class RecurrentForm:
+    """The composite normal form of a *carried-state recurrence*: N
+    single-ONF stages welded through one streamed axis, plus the typed
+    monoid the stream carries (``StateSpec``).
+
+    Two shapes of weld, both instances of the same contract:
+
+    * **folding** (online softmax): the streamed axis is an *output* axis of
+      the first stage and the sole *reduction* of the last — each streamed
+      step computes one block of the intermediate and folds it into the
+      carried (m, l, acc) state.  The intermediate (the first leaf of the
+      next stage) never leaves VMEM.
+    * **chunked scan** (SSD, RG-LRU): the streamed axis is an *output* axis
+      of every stage — the sequence axis dimension-lifted ``S -> (chunks,
+      chunk_len)`` with the chunk index streamed.  Each step emits its own
+      output block and steps the carried state (the inter-chunk ``h``
+      recurrence); the state is optionally exported as a final output.
+
+    ``aux`` declares extra operands consumed only by the state monoid (the
+    SSD decay inputs ``dA``, the initial state) — they get derived
+    BlockSpecs like any stage leaf.  ``window``/``prefix_len`` are
+    streamed-axis masking metadata: the emitter derives its block-skip and
+    in-block masks from them, so windowed / prefix-LM attention schedules
+    are derived rather than falling back to the chunked jnp path.
+
+    ``page_table``/``paged``/``pool_pages`` make the streamed axis a *psi
+    view over paged storage*: each leaf named in ``paged`` binds one pool
+    buffer of ``pool_pages`` fixed-size slabs (slab length = the streamed
+    block), and streamed step ``k`` reads slab ``page_table[k]`` — the
+    per-page ``Access.const`` offsets of an index-0 psi view, lowered as a
+    static table lookup in the operand's BlockSpec index map instead of a
+    gather-copy.  The table is static metadata (it changes only when the
+    serving engine allocates a page, never per token) and rides ``key()``.
+
+    This is the artifact ``core.schedule.get_schedule`` accepts alongside a
+    plain ``NormalForm``; its ``key()`` keys the same LRU cache.
+    """
+    name: str
+    stages: Tuple[NormalForm, ...]
+    stream_axis: str
+    state: StateSpec
+    aux: Tuple[LeafSpec, ...] = ()
+    window: int = 0
+    prefix_len: int = 0
+    page_table: Tuple[int, ...] = ()
+    paged: Tuple[str, ...] = ()
+    pool_pages: int = 0
+    slot_axis: str = ""
+
+    def __post_init__(self):
+        if not self.stages:
+            raise ValueError("a RecurrentForm needs at least one stage")
+        ext: dict[str, int] = {}
+        for nf in self.stages:
+            for sym, e in nf.extent_map.items():
+                if ext.setdefault(sym, e) != e:
+                    raise ValueError(
+                        f"axis {sym!r} disagrees between stages "
+                        f"({ext[sym]} vs {e})")
+        if self.stream_axis not in self.stages[0].out_axes:
+            raise ValueError(
+                f"stream axis {self.stream_axis!r} is not an output axis of "
+                f"the first stage {self.stages[0].out_axes}")
+        if self.folding:
+            if len(self.stages) < 2:
+                raise ValueError("a folding recurrence chains >= 2 stages")
+            if self.stages[-1].reduce_axes != (self.stream_axis,):
+                raise ValueError(
+                    f"the last stage must reduce exactly the stream axis "
+                    f"{self.stream_axis!r}, got {self.stages[-1].reduce_axes}")
+        else:
+            for nf in self.stages:
+                if self.stream_axis not in nf.out_axes:
+                    raise ValueError(
+                        f"chunked-scan stream axis {self.stream_axis!r} must "
+                        f"be an output axis of every stage, missing from "
+                        f"{nf.out_axes}")
+        for prev, nxt in zip(self.stages, self.stages[1:]):
+            carrier = nxt.leaves[0]
+            c_syms = tuple(t for t, _ in carrier.dims if isinstance(t, str))
+            missing = [s for s in prev.out_axes if s not in c_syms]
+            if missing:
+                raise ValueError(
+                    f"stage {nxt.name!r}'s carrier leaf {c_syms} does not "
+                    f"cover the previous output axes (missing {missing}) — "
+                    "not a welded chain")
+            c_ext = dict((t, e) for t, e in carrier.dims
+                         if isinstance(t, str))
+            for s in prev.out_axes:
+                if c_ext[s] != ext[s]:
+                    raise ValueError(
+                        f"carrier extent of {s!r} ({c_ext[s]}) disagrees "
+                        f"with the stage extent ({ext[s]})")
+        if (self.window or self.prefix_len) and self.window < 0:
+            raise ValueError(f"negative window {self.window}")
+        if self.page_table or self.paged or self.pool_pages:
+            if not (self.page_table and self.paged and self.pool_pages > 0):
+                raise ValueError(
+                    "paged streaming needs all three of page_table / paged "
+                    "leaf names / pool_pages")
+            stacked = bool(self.page_table) and isinstance(
+                self.page_table[0], tuple)
+            if stacked != bool(self.slot_axis):
+                raise ValueError(
+                    "a stacked [slot, k] page table and slot_axis come "
+                    "together: got "
+                    f"slot_axis={self.slot_axis!r}, stacked={stacked}")
+            if stacked:
+                widths = {len(row) for row in self.page_table}
+                if len(widths) != 1:
+                    raise ValueError(
+                        f"stacked page table is ragged: row lengths {widths}")
+                if self.slot_axis == self.stream_axis:
+                    raise ValueError(
+                        f"slot axis {self.slot_axis!r} cannot be the "
+                        "streamed axis")
+                for nf in self.stages:
+                    if self.slot_axis not in nf.out_axes:
+                        raise ValueError(
+                            f"slot axis {self.slot_axis!r} must be a lifted "
+                            f"output axis of every stage, missing from "
+                            f"{nf.out_axes}")
+                if len(self.page_table) != ext.get(self.slot_axis):
+                    raise ValueError(
+                        f"stacked page table names {len(self.page_table)} "
+                        f"slots but axis {self.slot_axis!r} has extent "
+                        f"{ext.get(self.slot_axis)}")
+                entries = [t for row in self.page_table for t in row]
+            else:
+                entries = list(self.page_table)
+            bad = [t for t in entries
+                   if not 0 <= int(t) < self.pool_pages]
+            if bad:
+                raise ValueError(
+                    f"page-table entries {bad} outside the pool "
+                    f"[0, {self.pool_pages})")
+            leaf_names = {l.array for nf in self.stages for l in nf.leaves}
+            missing = [a for a in self.paged if a not in leaf_names]
+            if missing:
+                raise ValueError(
+                    f"paged leaves {missing} are not stage leaves")
+            for nf in self.stages:
+                for l in nf.leaves:
+                    if l.array not in self.paged:
+                        continue
+                    if not l.dims or l.dims[0][0] != self.stream_axis:
+                        raise ValueError(
+                            f"paged leaf {l.array!r} must store the streamed "
+                            f"axis {self.stream_axis!r} as its leading dim, "
+                            f"got {l.dims}")
+                    if self.slot_axis and any(
+                            t == self.slot_axis for t, _ in l.dims):
+                        raise ValueError(
+                            f"paged leaf {l.array!r} must not carry the slot "
+                            f"axis {self.slot_axis!r}: the pool is shared "
+                            "storage, slots address it through the stacked "
+                            "table")
+
+    @property
+    def folding(self) -> bool:
+        """True for the online-softmax shape (stream axis folded by the last
+        stage); False for the chunked-scan shape (stream axis an output)."""
+        return self.stream_axis in self.stages[-1].reduce_axes
+
+    # compat accessors for the two-stage streaming (attention) instance
+    @property
+    def scores(self) -> NormalForm:
+        return self.stages[0]
+
+    @property
+    def context(self) -> NormalForm:
+        return self.stages[-1]
+
+    def extent_map(self) -> dict[str, int]:
+        ext: dict[str, int] = {}
+        for nf in self.stages:
+            ext.update(nf.extent_map)
+        for leaf in self.aux:
+            for t, e in leaf.dims:
+                if isinstance(t, str):
+                    ext.setdefault(t, e)
+        return ext
+
+    def key(self) -> tuple:
+        """Cache key: every stage's canonical key, the stream axis's
+        structural position, the state monoid and the masking metadata."""
+        return ("recurrent", tuple(nf.key() for nf in self.stages),
+                self.stages[0].out_axes.index(self.stream_axis),
+                self.state.key(),
+                tuple((l.array, l.dims, l.layout) for l in self.aux),
+                self.window, self.prefix_len,
+                self.page_table, self.paged, self.pool_pages,
+                self.slot_axis)
+
+
+def StreamingForm(name: str, scores: NormalForm, context: NormalForm,
+                  stream_axis: str) -> RecurrentForm:
+    """.. deprecated:: the streaming (online-softmax) form is now the
+    two-stage folding instance of ``RecurrentForm``; this factory is kept
+    for one release."""
+    import warnings
+    warnings.warn("StreamingForm is deprecated; construct a RecurrentForm "
+                  "(or use attention_form)", DeprecationWarning, stacklevel=2)
+    return RecurrentForm(name, (scores, context), stream_axis, SOFTMAX_STATE)
+
+
+def attention_form(b: int, hkv: int, g: int, sq: int, sk: int, hd: int,
+                   vd: Optional[int] = None, *, window: int = 0,
+                   prefix_len: int = 0) -> RecurrentForm:
+    """Normalize the attention expression pair into the online-softmax
+    ``RecurrentForm`` instance.
+
+    Axis names: ``(b, h, g, i, j)`` + the score contraction ``c`` (head_dim)
+    and the context value axis ``d`` — ``j`` (key position) is the streamed
+    axis, an *output* of scores and the *reduction* of context.
+    ``window``/``prefix_len`` ride as streamed-axis masking metadata so the
+    emitter derives the windowed / prefix-LM block-skip.
+    """
+    scores, context = attention_expr(b, hkv, g, sq, sk, hd, vd)
+    scores_nf = normal_form(scores, name="attn_scores",
+                            out_axes=("b", "h", "g", "i", "j"),
+                            reduce_axes=("c",))
+    context_nf = normal_form(context, name="attn_context",
+                             out_axes=("b", "h", "g", "i", "d"),
+                             reduce_axes=("j",))
+    return RecurrentForm("flash_attention", (scores_nf, context_nf), "j",
+                         SOFTMAX_STATE, window=int(window),
+                         prefix_len=int(prefix_len))
+
+
+def ssd_form(b: int, nc: int, q: int, h: int, p: int, n: int) -> RecurrentForm:
+    """The Mamba-2 SSD chunked scan as a carried-state recurrence.
+
+    The sequence axis arrives already dimension-lifted ``S -> (c, q)``
+    (chunk index x chunk length — ``q`` comes from
+    ``solve_recurrence_blocks``, the same a-priori derivation as every other
+    block in the repo); the chunk index ``c`` is the streamed axis.  Two
+    welded stages, both ordinary ONFs over the *stored* (B, S, ...) model
+    buffers read through the chunked view (a pure reshape):
+
+    * ``ssd_scores``:   G[b,c,i,j] = sum_n C[b,c,i,n] * B[b,c,j,n]
+    * ``ssd_context``:  y[b,c,i,h,p] = sum_j P[b,c,h,i,j] * X[b,c,j,h,p]
+
+    The intermediate P is the segsum-decay-weighted score block ``G . L`` —
+    the SSD monoid's nonlinearity, exactly as softmax's ``exp`` sits between
+    attention's two stages; it broadcasts the head axis (L depends on the
+    per-head decay), which is why the carrier leaf carries ``h`` while the
+    scores output does not.  ``aux`` declares the decay input ``dA``
+    (b,c,j,h) and the initial state ``H0`` (b,h,p,n); the carried state
+    ``h`` (head, head_dim, state) steps ``h' = chunk_decay * h + B'(decay
+    . x)`` across chunks and is exported as the decode cache.
+    """
+    C = LeafSpec("C", (("b", b), ("c", nc), ("i", q), ("n", n)), "row")
+    B = LeafSpec("B", (("b", b), ("c", nc), ("j", q), ("n", n)), "row")
+    scores = NormalForm(
+        name="ssd_scores", out_axes=("b", "c", "i", "j"), reduce_axes=("n",),
+        extents=(("b", b), ("c", nc), ("i", q), ("j", q), ("n", n)),
+        leaves=(C, B), combine="mul", reduce_op="add")
+    P = LeafSpec("P", (("b", b), ("c", nc), ("h", h), ("i", q), ("j", q)),
+                 "row")
+    X = LeafSpec("X", (("b", b), ("c", nc), ("j", q), ("h", h), ("p", p)),
+                 "row")
+    context = NormalForm(
+        name="ssd_context", out_axes=("b", "c", "i", "h", "p"),
+        reduce_axes=("j",),
+        extents=(("b", b), ("c", nc), ("i", q), ("h", h), ("p", p),
+                 ("j", q)),
+        leaves=(P, X), combine="mul", reduce_op="add")
+    dA = LeafSpec("dA", (("b", b), ("c", nc), ("j", q), ("h", h)), "row")
+    H0 = LeafSpec("H0", (("b", b), ("h", h), ("p", p), ("n", n)), "row")
+    return RecurrentForm("ssd_scan", (scores, context), "c", SSD_STATE,
+                         aux=(dA, H0))
+
+
+#: the forward online-softmax monoid *with exported statistics*: identical
+#: body (kind "online_softmax" — same derived blocks, same kernel math),
+#: but the carried (m, l) flush as per-row kernel outputs so a derived
+#: backward can reconstruct p = exp(s - lse) without re-running the stream
+SOFTMAX_STATS_STATE = StateSpec("online_softmax",
+                                (("m", ("i",)), ("l", ("i",)),
+                                 ("acc", ("i", "d"))),
+                                exports=True, export_names=("m", "l"))
+
+#: flash backward dQ: the carried per-row gradient accumulator, streamed
+#: over keys exactly as the forward (no rescale — the softmax statistics
+#: are already final)
+FLASH_DQ_STATE = StateSpec("flash_dq", (("dq", ("i", "c")),), rescale=False)
+
+#: flash backward dK/dV: the transposed weld — rows are key positions, the
+#: stream is query positions; dV rides as carried state exported per row
+#: block (dK is the main output)
+FLASH_DKV_STATE = StateSpec("flash_dkv", (("dv", ("j", "d")),),
+                            rescale=False, exports=True,
+                            export_names=("dv",))
+
+#: the SSD monoid with per-chunk state checkpoints: same ``ssd`` body, but
+#: each streamed step also exports the state *entering* that chunk — the
+#: recomputation anchor the derived backward consumes
+SSD_CHK_STATE = StateSpec("ssd", (("h", ("h", "p", "n")),
+                                  ("h_in", ("h", "p", "n"))),
+                          exports=True, per_step=("h_in",))
+
+#: the SSD backward monoid: the inter-chunk state cotangent ``dh`` carried
+#: across (reversed) chunks, with the per-chunk projection/decay cotangents
+#: exported per streamed step
+SSD_BWD_STATE = StateSpec("ssd_backward",
+                          (("dh", ("h", "p", "n")), ("dB", ("j", "n")),
+                           ("dC", ("i", "n")), ("ddA", ("j", "h"))),
+                          rescale=False, exports=True,
+                          per_step=("dB", "dC", "ddA"))
+
+#: the gated backward monoid: the reversed recurrence ``z_k = a'_k z_{k-1}
+#: + b'_k`` is *itself* a gated scan on flipped operands — degenerate case
+GATED_BWD_STATE = StateSpec("gated_backward", (("h", ("w",)),),
+                            exports=True)
+
+
+def attention_stats_form(b: int, hkv: int, g: int, sq: int, sk: int, hd: int,
+                         vd: Optional[int] = None, *, window: int = 0,
+                         prefix_len: int = 0) -> RecurrentForm:
+    """``attention_form`` with the (m, l) statistics exported: the same two
+    welded stages and the same ``online_softmax`` kind (so the solver
+    derives the *same* (bq, bk) as the plain forward), but the carried
+    running max and denominator flush as per-row f32 outputs — the saved
+    activations the derived backward kernels reconstruct ``p`` from."""
+    scores, context = attention_expr(b, hkv, g, sq, sk, hd, vd)
+    scores_nf = normal_form(scores, name="attn_scores",
+                            out_axes=("b", "h", "g", "i", "j"),
+                            reduce_axes=("c",))
+    context_nf = normal_form(context, name="attn_context",
+                             out_axes=("b", "h", "g", "i", "d"),
+                             reduce_axes=("j",))
+    return RecurrentForm("flash_attention_stats", (scores_nf, context_nf),
+                         "j", SOFTMAX_STATS_STATE, window=int(window),
+                         prefix_len=int(prefix_len))
+
+
+def attention_dq_form(b: int, hkv: int, g: int, sq: int, sk: int, hd: int,
+                      vd: Optional[int] = None, *, window: int = 0,
+                      prefix_len: int = 0) -> RecurrentForm:
+    """Flash backward dQ as a carried-state recurrence: the same weld shape
+    as the forward (rows = query positions, stream = key positions), with
+    the recomputed score block as stage 1 and the ``dS . K`` contraction as
+    stage 2.  The saved statistics (M, L) and the precomputed row dot
+    ``D = rowsum(dO * O)`` ride as aux operands; the monoid's body turns
+    the streamed score block into ``dS = p * (dO.Vᵀ - D)`` and folds
+    ``dS . K`` into the carried dq accumulator.  K binds twice (stage 1
+    recompute and stage 2 contraction) — same buffer, two derived
+    BlockSpecs."""
+    vd = vd or hd
+    Q = LeafSpec("Q", (("b", b), ("i", sq), ("h", hkv), ("g", g),
+                       ("c", hd)), "row")
+    K = LeafSpec("K", (("b", b), ("j", sk), ("h", hkv), ("c", hd)), "row")
+    scores = NormalForm(
+        name="dq_scores", out_axes=("b", "h", "g", "i", "j"),
+        reduce_axes=("c",),
+        extents=(("b", b), ("h", hkv), ("g", g), ("i", sq), ("j", sk),
+                 ("c", hd)),
+        leaves=(Q, K), combine="mul", reduce_op="add")
+    dS = LeafSpec("dS", (("b", b), ("h", hkv), ("g", g), ("i", sq),
+                         ("j", sk)), "row")
+    out = NormalForm(
+        name="dq_out", out_axes=("b", "h", "g", "i", "c"),
+        reduce_axes=("j",),
+        extents=(("b", b), ("h", hkv), ("g", g), ("i", sq), ("c", hd),
+                 ("j", sk)),
+        leaves=(dS, K), combine="mul", reduce_op="add")
+    dO = LeafSpec("dO", (("b", b), ("i", sq), ("h", hkv), ("g", g),
+                         ("d", vd)), "row")
+    V = LeafSpec("V", (("b", b), ("j", sk), ("h", hkv), ("d", vd)), "row")
+    M = LeafSpec("M", (("b", b), ("h", hkv), ("g", g), ("i", sq)), "row")
+    L = LeafSpec("L", (("b", b), ("h", hkv), ("g", g), ("i", sq)), "row")
+    D = LeafSpec("D", (("b", b), ("h", hkv), ("g", g), ("i", sq)), "row")
+    return RecurrentForm("flash_dq", (scores, out), "j", FLASH_DQ_STATE,
+                         aux=(dO, V, M, L, D), window=int(window),
+                         prefix_len=int(prefix_len))
+
+
+def attention_dkv_form(b: int, hkv: int, g: int, sq: int, sk: int, hd: int,
+                       vd: Optional[int] = None, *, window: int = 0,
+                       prefix_len: int = 0) -> RecurrentForm:
+    """Flash backward dK/dV as the *transposed* weld: rows are key
+    positions ``j``, the streamed axis is query positions ``i``.  Stage 1
+    recomputes the transposed score block ``K . Qᵀ``; stage 2 contracts
+    ``dSᵀ . Q`` into the dK output while the monoid folds ``pᵀ . dO`` into
+    the carried dV, exported per row block.  Q binds twice; the per-group
+    dK/dV land on a ``(b, h, g, j, ...)`` layout the ops layer sums over
+    ``g`` (the GQA head-group reduction stays outside the kernel)."""
+    vd = vd or hd
+    K = LeafSpec("K", (("b", b), ("j", sk), ("h", hkv), ("c", hd)), "row")
+    Q = LeafSpec("Q", (("b", b), ("i", sq), ("h", hkv), ("g", g),
+                       ("c", hd)), "row")
+    scores = NormalForm(
+        name="dkv_scores", out_axes=("b", "h", "g", "j", "i"),
+        reduce_axes=("c",),
+        extents=(("b", b), ("h", hkv), ("g", g), ("j", sk), ("i", sq),
+                 ("c", hd)),
+        leaves=(K, Q), combine="mul", reduce_op="add")
+    dS = LeafSpec("dS", (("b", b), ("h", hkv), ("g", g), ("j", sk),
+                         ("i", sq)), "row")
+    out = NormalForm(
+        name="dkv_out", out_axes=("b", "h", "g", "j", "c"),
+        reduce_axes=("i",),
+        extents=(("b", b), ("h", hkv), ("g", g), ("j", sk), ("c", hd),
+                 ("i", sq)),
+        leaves=(dS, Q), combine="mul", reduce_op="add")
+    dO = LeafSpec("dO", (("b", b), ("i", sq), ("h", hkv), ("g", g),
+                         ("d", vd)), "row")
+    V = LeafSpec("V", (("b", b), ("j", sk), ("h", hkv), ("d", vd)), "row")
+    M = LeafSpec("M", (("b", b), ("h", hkv), ("g", g), ("i", sq)), "row")
+    L = LeafSpec("L", (("b", b), ("h", hkv), ("g", g), ("i", sq)), "row")
+    D = LeafSpec("D", (("b", b), ("h", hkv), ("g", g), ("i", sq)), "row")
+    return RecurrentForm("flash_dkv", (scores, out), "i", FLASH_DKV_STATE,
+                         aux=(dO, V, M, L, D), window=int(window),
+                         prefix_len=int(prefix_len))
+
+
+def ssd_chk_form(b: int, nc: int, q: int, h: int, p: int,
+                 n: int) -> RecurrentForm:
+    """``ssd_form`` with per-chunk state checkpoints: the same two welded
+    stages and the same ``ssd`` kind, but each streamed step additionally
+    exports the inter-chunk state *entering* that chunk (``h_in``,
+    (b, nc, h, p, n)) — the recomputation anchors the derived SSD backward
+    streams instead of re-scanning the whole sequence."""
+    fwd = ssd_form(b, nc, q, h, p, n)
+    return RecurrentForm("ssd_scan_chk", fwd.stages, fwd.stream_axis,
+                         SSD_CHK_STATE, aux=fwd.aux)
+
+
+def ssd_bwd_form(b: int, nc: int, q: int, h: int, p: int,
+                 n: int) -> RecurrentForm:
+    """The SSD backward as a carried-state recurrence over *reversed*
+    chunks: stage 1 recomputes the score block ``G = C . Bᵀ``, stage 2 is
+    the ``dX`` contraction ``Pᵀ . dY``; the monoid's body replays the
+    forward chunk factoring from the saved per-chunk state checkpoints
+    (aux ``Hin``) and chains every cotangent — ``dh`` carried across
+    chunks (seeded by aux ``dHf``), ``dB``/``dC``/``ddA`` exported per
+    streamed step, ``dh0`` flushed at the end."""
+    C = LeafSpec("C", (("b", b), ("c", nc), ("i", q), ("n", n)), "row")
+    B = LeafSpec("B", (("b", b), ("c", nc), ("j", q), ("n", n)), "row")
+    scores = NormalForm(
+        name="ssd_bwd_scores", out_axes=("b", "c", "i", "j"),
+        reduce_axes=("n",),
+        extents=(("b", b), ("c", nc), ("i", q), ("j", q), ("n", n)),
+        leaves=(C, B), combine="mul", reduce_op="add")
+    P = LeafSpec("P", (("b", b), ("c", nc), ("h", h), ("i", q), ("j", q)),
+                 "row")
+    dY = LeafSpec("dY", (("b", b), ("c", nc), ("i", q), ("h", h), ("p", p)),
+                  "row")
+    out = NormalForm(
+        name="ssd_bwd_out", out_axes=("b", "c", "j", "h", "p"),
+        reduce_axes=("i",),
+        extents=(("b", b), ("c", nc), ("j", q), ("h", h), ("p", p),
+                 ("i", q)),
+        leaves=(P, dY), combine="mul", reduce_op="add")
+    X = LeafSpec("X", (("b", b), ("c", nc), ("j", q), ("h", h), ("p", p)),
+                 "row")
+    dA = LeafSpec("dA", (("b", b), ("c", nc), ("j", q), ("h", h)), "row")
+    Hin = LeafSpec("Hin", (("b", b), ("c", nc), ("h", h), ("p", p),
+                           ("n", n)), "row")
+    dHf = LeafSpec("dHf", (("b", b), ("h", h), ("p", p), ("n", n)), "row")
+    return RecurrentForm("ssd_backward", (scores, out), "c", SSD_BWD_STATE,
+                         aux=(X, dA, Hin, dHf))
+
+
+def rglru_bwd_form(b: int, nc: int, q: int, w: int) -> RecurrentForm:
+    """The RG-LRU backward recurrence: the reversed cotangent scan
+    ``z_k = a'_k z_{k-1} + b'_k`` is *itself* a gated scan on flipped,
+    shifted operands — the degenerate (N=1) backward kind shares the
+    forward's body verbatim, only the ``StateSpec.kind`` registration
+    differs (the ops layer does the flip/shift/unflip)."""
+    A = LeafSpec("A", (("b", b), ("c", nc), ("i", q), ("w", w)), "row")
+    Bv = LeafSpec("Bv", (("b", b), ("c", nc), ("i", q), ("w", w)), "row")
+    stage = NormalForm(
+        name="rglru_bwd_stage", out_axes=("b", "c", "i", "w"),
+        reduce_axes=(),
+        extents=(("b", b), ("c", nc), ("i", q), ("w", w)),
+        leaves=(A, Bv), combine="mul", reduce_op="add")
+    H0 = LeafSpec("H0", (("b", b), ("w", w)), "row")
+    return RecurrentForm("rglru_backward", (stage,), "c", GATED_BWD_STATE,
+                         aux=(H0,))
+
+
+def rglru_form(b: int, nc: int, q: int, w: int) -> RecurrentForm:
+    """The RG-LRU gated scan as the degenerate (N=1, contraction-free)
+    carried-state recurrence: one elementwise stage over the chunked
+    sequence view, streamed over the chunk index, with the per-channel
+    state ``h' = a h + b`` carried across chunks and exported.  The stage
+    pairs the gate log ``A`` (log-space for the stable in-chunk cumsum) and
+    the gated input ``Bv`` — the recurrence itself is the ``gated`` monoid's
+    body, exactly as softmax is not part of attention's ONF pair."""
+    A = LeafSpec("A", (("b", b), ("c", nc), ("i", q), ("w", w)), "row")
+    Bv = LeafSpec("Bv", (("b", b), ("c", nc), ("i", q), ("w", w)), "row")
+    stage = NormalForm(
+        name="rglru_stage", out_axes=("b", "c", "i", "w"), reduce_axes=(),
+        extents=(("b", b), ("c", nc), ("i", q), ("w", w)),
+        leaves=(A, Bv), combine="mul", reduce_op="add")
+    H0 = LeafSpec("H0", (("b", b), ("w", w)), "row")
+    return RecurrentForm("rglru_scan", (stage,), "c", GATED_STATE, aux=(H0,))
+
+
+#: the windowed-decode monoid: the online-softmax carried state over the
+#: *query-group* row axis (decode has one query token; the GQA group axis
+#: is the blocked per-row axis), masked dynamically from the runtime
+#: position aux instead of statically from the grid step
+DECODE_STATE = StateSpec("windowed_decode",
+                         (("m", ("g",)), ("l", ("g",)),
+                          ("acc", ("g", "d"))))
+
+
+def windowed_decode_form(hkv: int, g: int, hd: int,
+                         vd: Optional[int] = None, *, page: int,
+                         view_pages: int, pool_pages: int,
+                         page_table: Tuple[int, ...],
+                         window: int = 0) -> RecurrentForm:
+    """One decode step over a *paged* KV cache as a folding recurrence.
+
+    The single query token's GQA group axis ``g`` is the blocked row axis
+    (it must be >= 2 — pure-MHA decode has no blocked per-row axis to fold
+    over and the derivation refuses); key positions ``j`` stream with block
+    = ``page``, so each streamed step is exactly one page and the K/V
+    BlockSpec index maps read ``page_table[k]`` — the per-page psi slab
+    offsets — straight from pool storage:
+
+    * ``decode_scores``:  s[h,g,j] = sum_c Q[h,g,c] * K[j,h,c]
+    * ``decode_context``: o[h,g,d] = sum_j P[h,g,j] * V[j,h,d]
+
+    K/V carry no ``g`` dim (the GQA zero-coefficient recovery) and store
+    the streamed axis leading, as the pools do.  The aux ``POS`` operand
+    carries the runtime view-relative query position — masking is dynamic
+    (position is data, the table is static), which is what keeps one
+    executor per table instead of one per token.  ``window`` > 0 masks
+    keys older than ``window`` positions; the engine then only binds the
+    ceil(window/page)+1 live pages, making decode O(window) regardless of
+    sequence length.
+    """
+    if g < 2:
+        raise ValueError(
+            f"windowed_decode folds over the GQA group axis; g={g} leaves "
+            "no blocked per-row axis (use the dense decode path)")
+    if len(page_table) != view_pages:
+        raise ValueError(
+            f"page table length {len(page_table)} != view_pages {view_pages}")
+    vd = vd or hd
+    sk = view_pages * page
+    Q = LeafSpec("Q", (("h", hkv), ("g", g), ("c", hd)), "row")
+    K = LeafSpec("K", (("j", sk), ("h", hkv), ("c", hd)), "row")
+    scores = NormalForm(
+        name="decode_scores", out_axes=("h", "g", "j"), reduce_axes=("c",),
+        extents=(("h", hkv), ("g", g), ("j", sk), ("c", hd)),
+        leaves=(Q, K), combine="mul", reduce_op="add")
+    P = LeafSpec("P", (("h", hkv), ("g", g), ("j", sk)), "row")
+    V = LeafSpec("V", (("j", sk), ("h", hkv), ("d", vd)), "row")
+    context = NormalForm(
+        name="decode_context", out_axes=("h", "g", "d"), reduce_axes=("j",),
+        extents=(("h", hkv), ("g", g), ("d", vd), ("j", sk)),
+        leaves=(P, V), combine="mul", reduce_op="add")
+    POS = LeafSpec("POS", (("_pr", 1), ("_pc", 2)), "row")
+    return RecurrentForm("windowed_decode", (scores, context), "j",
+                         DECODE_STATE, aux=(POS,), window=int(window),
+                         page_table=tuple(int(t) for t in page_table),
+                         paged=("K", "V"), pool_pages=int(pool_pages))
+
+
+def batched_decode_form(slots: int, hkv: int, g: int, hd: int,
+                        vd: Optional[int] = None, *, page: int,
+                        view_pages: int, pool_pages: int,
+                        page_tables: Tuple[Tuple[int, ...], ...],
+                        window: int = 0) -> RecurrentForm:
+    """One decode step for *every* active serving slot as a single folding
+    recurrence — ``windowed_decode`` with the slot axis dimension-lifted.
+
+    The slot axis ``s`` is an ordinary lifted output axis on both stages
+    (MoA's lifted inner product: the batched product is the same ONF with
+    one more lead dimension), so the derivation, the state monoid and the
+    kernel body are all ``windowed_decode``'s unchanged — each (s, h) grid
+    cell folds exactly the float ops the per-slot kernel folds, which is
+    what makes the batched launch bit-identical to N sequential launches.
+
+    What *does* change is addressing: the page table stacks to 2-D
+    ``[slot, k]`` static metadata, lowered in the K/V BlockSpec index maps
+    as ``(s, k) -> table[s][k]`` — the select-fold now keyed on two grid
+    axes.  K/V still bind the one shared pool (no slot dim: slots address
+    it only through their table rows), and POS promotes to one int32 row
+    per slot, so masking stays runtime data and the executor re-jits only
+    when the stacked table changes, never per token.  Engine-side, a dead
+    slot is just POS = -1 (every block-skip guard ``k*page <= pos`` is
+    then false, so no entry its row names ever folds), which is why
+    slot-count changes re-key nothing and a retirement merely reverts the
+    table to a previously-seen key.
+    """
+    if g < 2:
+        raise ValueError(
+            f"windowed_decode folds over the GQA group axis; g={g} leaves "
+            "no blocked per-row axis (use the dense decode path)")
+    page_tables = tuple(tuple(int(t) for t in row) for row in page_tables)
+    if len(page_tables) != slots:
+        raise ValueError(
+            f"stacked page table has {len(page_tables)} rows for "
+            f"{slots} slots")
+    for row in page_tables:
+        if len(row) != view_pages:
+            raise ValueError(
+                f"page table length {len(row)} != view_pages {view_pages}")
+    vd = vd or hd
+    sk = view_pages * page
+    Q = LeafSpec("Q", (("s", slots), ("h", hkv), ("g", g), ("c", hd)),
+                 "row")
+    K = LeafSpec("K", (("j", sk), ("h", hkv), ("c", hd)), "row")
+    scores = NormalForm(
+        name="batched_decode_scores", out_axes=("s", "h", "g", "j"),
+        reduce_axes=("c",),
+        extents=(("s", slots), ("h", hkv), ("g", g), ("j", sk), ("c", hd)),
+        leaves=(Q, K), combine="mul", reduce_op="add")
+    P = LeafSpec("P", (("s", slots), ("h", hkv), ("g", g), ("j", sk)),
+                 "row")
+    V = LeafSpec("V", (("j", sk), ("h", hkv), ("d", vd)), "row")
+    context = NormalForm(
+        name="batched_decode_context", out_axes=("s", "h", "g", "d"),
+        reduce_axes=("j",),
+        extents=(("s", slots), ("h", hkv), ("g", g), ("d", vd), ("j", sk)),
+        leaves=(P, V), combine="mul", reduce_op="add")
+    POS = LeafSpec("POS", (("s", slots), ("_pc", 2)), "row")
+    return RecurrentForm("batched_decode", (scores, context), "j",
+                         DECODE_STATE, aux=(POS,), window=int(window),
+                         page_table=page_tables, paged=("K", "V"),
+                         pool_pages=int(pool_pages), slot_axis="s")

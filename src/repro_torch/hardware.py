@@ -58,8 +58,12 @@ TPU_V5E = HardwareShape(
 
 # NVIDIA H100 SXM (data sheet): 132 SMs, 227 KB of shared memory usable by
 # one block (232,448 bytes), 80 GB HBM3 at 3.35 TB/s, 989 TFLOP/s dense
-# bf16 on the tensor cores, NVLink 900 GB/s.  Tensor cores accumulate in
-# f32 only.  The energy entries are model scales, like the reference's.
+# bf16 on the tensor cores, NVLink 900 GB/s.  The tensor cores accumulate
+# floating products in f32 and s8 x s8 products in s32 (mma.sync
+# ...s32.s8.s8.s32, wgmma ...s32.s8.s8): the table offers those two
+# accumulators.  They have no bf16 accumulator, so a bf16 accumulation
+# schedule is refused on this table, as on the reference's V100 entry.
+# The energy entries are model scales, like the reference's.
 H100 = HardwareShape(
     name="h100",
     mesh_axes=(("sm", 132),),
@@ -72,12 +76,13 @@ H100 = HardwareShape(
     peak_flops=989e12,
     flop_energy_pJ=0.4,
     mxu_tile=(16, 16),            # tensor-core m16n16k16 fragment
-    vreg_tile=(1, 32),            # one warp, coalesced 32-lane accesses
+    vreg_tile=(16, 32),           # an mma fragment's 16 rows; one warp's
+                                  # 32 coalesced lanes
     sa_power_W=700.0,
-    acc_dtypes=("float32",),
+    acc_dtypes=("float32", "int32"),
 )
 
 #: peak rates of one H100 SXM at its 700 W limit (data sheet, dense; f32
 #: outside the tensor cores): with ``H100.hbm.bandwidth_Bps``, the
 #: denominators of the roofline bounds ``chip_smoke.py`` reports
-H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}

@@ -25,17 +25,20 @@
 //
 // Design: chunk-parallel, as the TPU kernel's chunks (a scan inside the
 // chunk, a re-base onto the carried state), in one pass.  A block owns a
-// strip of STRIP channels (a thread each) over a chunk of L steps
-// (ops.gated_chunks picks L on the host), so the grid is batch x strips x
-// chunks: 4096 blocks at B=1, S=4096, w=4096.  Each block
+// strip of STRIP channels (a thread each) over a chunk of L steps (1 <= L
+// <= 1024: ops.default_gated_chunk derives L from the H100 table, 16 at
+// recurrentgemma-9b's width), so the grid is batch x strips x chunks:
+// 16384 blocks at B=1, S=4096, w=4096, L=16.  Each block
 //   1. takes a ticket (an atomic counter): tickets run over the chunks in
 //      walk order, so every chunk that a block waits for below has started;
-//   2. stages its chunk's log_a and b tile in shared memory (cp.async,
-//      16-byte copies when w % 4 == 0 and the bases are aligned, which the
-//      host decides), the gate rows one step ahead in reverse;
+//   2. stages its chunk's log_a and b tile in shared memory, PIECE steps
+//      at a time (cp.async, 16-byte copies when w % 4 == 0 and the bases
+//      are aligned, which the host decides), the gate rows one step ahead
+//      in reverse;
 //   3. walks its L steps from h = 0 to the chunk's aggregate (A_c, the
 //      product of its gates; H_c, its last h), keeping a = exp(log_a) in
-//      place of log_a, and publishes (A_c, H_c) behind a release flag;
+//      place of log_a when the chunk is one piece, and publishes (A_c, H_c)
+//      behind a release flag;
 //   4. forms its entering state h_in[c] = A_{c-1} h_in[c-1] + H_{c-1}, the
 //      fold from h0 over every earlier chunk in chunk order: it starts from
 //      the fold at the end of the previous group of GROUP chunks (published
@@ -44,10 +47,12 @@
 //      and add on the same values, so the state a block folds to is the
 //      same bits whichever block computes it and whenever it runs: two runs
 //      give the same bits, and no block reads more than GROUP aggregates;
-//   5. re-walks its staged tile from h_in[c] with the plain walk's own step
-//      (multiply and add rounded separately, no fused multiply-add) and
-//      writes h once; the block holding the walk's last step writes h_final
-//      from the same register, so h_final equals h's last step bit for bit.
+//   5. re-walks its chunk (the staged tile, or each piece staged again and
+//      its gates taken by the same expf) from h_in[c] with the plain walk's
+//      own step (multiply and add rounded separately, no fused
+//      multiply-add) and writes h once; the block holding the walk's last
+//      step writes h_final from the same register, so h_final equals h's
+//      last step bit for bit.
 // The flags and the ticket live in a workspace that the host allocates and
 // this entry clears on the stream (a memset node under graph capture).
 #include <cuda_runtime.h>
@@ -55,8 +60,9 @@
 
 namespace {
 
-constexpr int STRIP = 64;      // channels a block, one thread each
-constexpr int MAX_CHUNK = 64;  // longest chunk (32 KB of staged tile)
+constexpr int STRIP = 64;        // channels a block, one thread each
+constexpr int PIECE = 64;        // steps staged at once (32 KB of tile)
+constexpr int MAX_CHUNK = 1024;  // longest chunk
 constexpr int GROUP = 8;       // chunks between published folds
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -135,9 +141,9 @@ gated_chunk_scan(const float* __restrict__ log_a, const float* __restrict__ b,
                  const float* __restrict__ h0, float* __restrict__ h,
                  float* __restrict__ h_final, Work work, int batch, int S,
                  int W, int L, int C, int vec) {
-  extern __shared__ __align__(16) float tile[];   // a: (L, STRIP), b: after
+  extern __shared__ __align__(16) float tile[];   // a: (piece, STRIP), b: after
   float* a_s = tile;
-  float* b_s = tile + L * STRIP;
+  float* b_s = tile + (L < PIECE ? L : PIECE) * STRIP;
   __shared__ int s_ticket;
   const int tid = threadIdx.x;
   if (tid == 0) s_ticket = atomicAdd(work.ticket, 1);
@@ -158,46 +164,65 @@ gated_chunk_scan(const float* __restrict__ log_a, const float* __restrict__ b,
   const bool live = tid < cols;
   const size_t base = (size_t)bi * S * W + c0;
 
-  // stage rows [0, n) of b (times t0 + i) and of log_a (the gate's times,
-  // one ahead in reverse; past S a zero log, a gate of 1); channels past w
-  // are zero-filled and never stored
+  // stage the chunk's rows, PIECE at a time: rows [r0, r0 + np) of b
+  // (times t0 + r0 + i) and of log_a (the gate's times, one ahead in
+  // reverse; past S a zero log, a gate of 1); channels past w are
+  // zero-filled and never stored
   const int gate = REVERSE ? 1 : 0;
-  if (vec) {
-    constexpr int V = STRIP / 4;
-    for (int e = tid; e < 2 * n * V; e += STRIP) {
-      const int r = e / V, j = (e - r * V) * 4;
-      const bool is_b = r >= n;
-      const int i = is_b ? r - n : r;
-      const int t = t0 + i + (is_b ? 0 : gate);
-      const bool ok = t < S && j < cols;
-      const float* src = (is_b ? b : log_a) + base + (size_t)t * W + j;
-      cp16((is_b ? b_s : a_s) + i * STRIP + j, ok ? src : log_a, ok);
+  auto stage = [&](int r0, int np) {
+    if (vec) {
+      constexpr int V = STRIP / 4;
+      for (int e = tid; e < 2 * np * V; e += STRIP) {
+        const int r = e / V, j = (e - r * V) * 4;
+        const bool is_b = r >= np;
+        const int i = is_b ? r - np : r;
+        const int t = t0 + r0 + i + (is_b ? 0 : gate);
+        const bool ok = t < S && j < cols;
+        const float* src = (is_b ? b : log_a) + base + (size_t)t * W + j;
+        cp16((is_b ? b_s : a_s) + i * STRIP + j, ok ? src : log_a, ok);
+      }
+    } else {
+      for (int e = tid; e < 2 * np * STRIP; e += STRIP) {
+        const int r = e / STRIP, j = e - r * STRIP;
+        const bool is_b = r >= np;
+        const int i = is_b ? r - np : r;
+        const int t = t0 + r0 + i + (is_b ? 0 : gate);
+        const bool ok = t < S && j < cols;
+        const float* src = (is_b ? b : log_a) + base + (size_t)t * W + j;
+        cp4((is_b ? b_s : a_s) + i * STRIP + j, ok ? src : log_a, ok);
+      }
     }
-  } else {
-    for (int e = tid; e < 2 * n * STRIP; e += STRIP) {
-      const int r = e / STRIP, j = e - r * STRIP;
-      const bool is_b = r >= n;
-      const int i = is_b ? r - n : r;
-      const int t = t0 + i + (is_b ? 0 : gate);
-      const bool ok = t < S && j < cols;
-      const float* src = (is_b ? b : log_a) + base + (size_t)t * W + j;
-      cp4((is_b ? b_s : a_s) + i * STRIP + j, ok ? src : log_a, ok);
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+  };
+  // the pieces in walk order (each walked backwards in reverse); a chunk
+  // of one piece is staged once and its gates kept as exp(log_a) for the
+  // re-walk, a longer one is staged again piece by piece for the re-walk
+  const int pieces = (n + PIECE - 1) / PIECE;
+  const bool once = pieces == 1;
+  auto piece = [&](int q, int& r0, int& np) {
+    const int p = REVERSE ? pieces - 1 - q : q;
+    r0 = p * PIECE;
+    np = min(PIECE, n - r0);
+  };
 
   // the chunk's aggregate, walking from h = 0 (each thread reads and
   // rewrites only its own column, so no barrier until the publish)
   float A = 1.f, H = 0.f;
+  for (int q = 0; q < pieces; ++q) {
+    int r0, np;
+    piece(q, r0, np);
+    if (!once) __syncthreads();   // every thread is done with the piece
+    stage(r0, np);
 #pragma unroll 8
-  for (int s = 0; s < n; ++s) {
-    const int i = (REVERSE ? n - 1 - s : s) * STRIP + tid;
-    const float a = expf(a_s[i]);
-    a_s[i] = a;
-    A = __fmul_rn(A, a);
-    H = step(a, H, b_s[i]);
+    for (int s = 0; s < np; ++s) {
+      const int i = (REVERSE ? np - 1 - s : s) * STRIP + tid;
+      const float a = expf(a_s[i]);
+      if (once) a_s[i] = a;
+      A = __fmul_rn(A, a);
+      H = step(a, H, b_s[i]);
+    }
   }
   const long long row = (long long)bi * C;    // (batch row, chunk) rows
   const int flags = (bi * strips + strip) * C;
@@ -234,17 +259,27 @@ gated_chunk_scan(const float* __restrict__ log_a, const float* __restrict__ b,
     if (tid == 0) set_flag(work.fold_flag + flags + k);
   }
 
-  // the re-walk from the entering state: h written once
-  if (!live) return;
+  // the re-walk from the entering state (the same gates, exp(log_a) of the
+  // same staged values): h written once
   float hh = hin;
   float* out = h + base + (size_t)t0 * W + tid;
+  for (int q = 0; q < pieces; ++q) {
+    int r0, np;
+    piece(q, r0, np);
+    if (!once) {
+      __syncthreads();
+      stage(r0, np);
+    }
 #pragma unroll 8
-  for (int s = 0; s < n; ++s) {
-    const int i = REVERSE ? n - 1 - s : s;
-    hh = step(a_s[i * STRIP + tid], hh, b_s[i * STRIP + tid]);
-    out[(size_t)i * W] = hh;
+    for (int s = 0; s < np; ++s) {
+      const int i = REVERSE ? np - 1 - s : s;
+      const float a = once ? a_s[i * STRIP + tid]
+                           : expf(a_s[i * STRIP + tid]);
+      hh = step(a, hh, b_s[i * STRIP + tid]);
+      if (live) out[(size_t)(r0 + i) * W] = hh;
+    }
   }
-  if (k == C - 1) h_final[(size_t)bi * W + c] = hh;
+  if (live && k == C - 1) h_final[(size_t)bi * W + c] = hh;
 }
 
 bool aligned16(const void* p) {
@@ -285,7 +320,7 @@ extern "C" int repro_gated_scan(const void* log_a, const void* b,
   if (err != cudaSuccess) return static_cast<int>(err);
   const Work work = carve(ws, batch, W, C);
   const int vec = W % 4 == 0 && aligned16(log_a) && aligned16(b);
-  const size_t smem = 2 * sizeof(float) * L * STRIP;
+  const size_t smem = 2 * sizeof(float) * (L < PIECE ? L : PIECE) * STRIP;
   const float* la = static_cast<const float*>(log_a);
   const float* bp = static_cast<const float*>(b);
   const float* hp = static_cast<const float*>(h0);

@@ -93,6 +93,10 @@
 //         card, a row form at most 16 rows).
 //   wmma  bf16 x bf16 without transpose_a that TMA cannot read: the
 //         first nvcuda::wmma 64x64 tiles (gemm_bf16).
+//   int8  int8 x int8 (repro_gemm_int8, the route of ops.apply with
+//         acc_dtype int32; 2-D with either operand transposed, or the
+//         expert form): mma.sync s8 x s8 -> s32, exact integer sums into
+//         an int32 C (namespace i8 below).
 //
 // What bounds it on an H100: at prefill and training row counts the tile
 // and split paths are compute-bound (989 TFLOP/s bf16; the split path
@@ -1520,6 +1524,219 @@ int launch_gemv(const void* x, const void* w, float* c, float* ws, int m,
 
 }  // namespace tc
 
+
+// ---- the int8 form: int8 x int8 -> int32, exact --------------------------
+//
+// The counterpart of emit_pallas at acc_dtype = int32 (the MXU's s8 x s8
+// -> s32 product, preferred_element_type=int32): every product and every
+// sum is an exact integer (wrapping past 2^31, as the reference's int32
+// accumulator does).  A block computes a 128 x 128 tile of C with 8 warps
+// (4 along m, 2 along n, 32 x 64 each) on mma.sync m16n8k32 s8 -> s32,
+// over k in 64-deep stages of a three-stage ring.  mma.sync takes A row-
+// major and B "col" (n-major), so both tiles are wanted K-contiguous in
+// shared memory: an operand stored with k contiguous (A (m, k), B (n, k)
+// with transpose_b) is copied as it lies; one stored with k strided (A
+// (k, m) with transpose_a, B (k, n)) is copied as it lies and then
+// transposed in shared memory, 4 x 4 bytes at a time by byte permutes.
+// Copies are 16-byte cp.async where the contiguous extent is a multiple
+// of 16 bytes and the base 16-byte aligned (the ring keeps two stages in
+// flight), else byte loads through registers (ragged shapes), zero-filled
+// past the matrix either way.  The expert form runs the same kernel with
+// the expert as grid axis z, each operand's experts stored one after
+// another.
+namespace i8 {
+
+constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3, THREADS = 256;
+constexpr int KP = BK + 16;         // pitch of a K-contiguous tile row
+constexpr int MNP = BM + 16;        // pitch of a copied MN-contiguous row
+constexpr int TILE = BM * KP;       // bytes of a stage of one operand
+constexpr int SMEM = (2 * STAGES + 2) * TILE;
+
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One operand of a block: rows r0.. of its M (A) or N (B) axis.
+struct Operand {
+  const int8_t* p;   // this expert's matrix
+  int rows;          // extent of the M / N axis
+  int k;             // extent of K
+  bool kmaj;         // stored with K contiguous
+  bool vec;          // 16-byte copies
+};
+
+// Copy stage k0 of rows r0..r0+127 as it lies in memory: K-contiguous
+// into t[r][KP], MN-contiguous into t[k][MNP].
+__device__ __forceinline__ void fetch(const Operand& o, unsigned char* t,
+                                      long long r0, long long k0) {
+  if (o.kmaj) {
+    const long long ld = o.k;
+    if (o.vec) {
+      for (int c = threadIdx.x; c < BM * BK / 16; c += THREADS) {
+        const int r = c / (BK / 16), j = c % (BK / 16) * 16;
+        const bool ok = r0 + r < o.rows && k0 + j < o.k;
+        cp16(t + r * KP + j, ok ? o.p + (r0 + r) * ld + k0 + j : o.p, ok);
+      }
+    } else {
+      for (int e = threadIdx.x; e < BM * BK; e += THREADS) {
+        const int r = e / BK, j = e % BK;
+        const bool ok = r0 + r < o.rows && k0 + j < o.k;
+        t[r * KP + j] = ok ? o.p[(r0 + r) * ld + k0 + j] : 0;
+      }
+    }
+  } else {
+    const long long ld = o.rows;
+    if (o.vec) {
+      for (int c = threadIdx.x; c < BK * BM / 16; c += THREADS) {
+        const int kr = c / (BM / 16), j = c % (BM / 16) * 16;
+        const bool ok = k0 + kr < o.k && r0 + j < o.rows;
+        cp16(t + kr * MNP + j, ok ? o.p + (k0 + kr) * ld + r0 + j : o.p, ok);
+      }
+    } else {
+      for (int e = threadIdx.x; e < BK * BM; e += THREADS) {
+        const int kr = e / BM, j = e % BM;
+        const bool ok = k0 + kr < o.k && r0 + j < o.rows;
+        t[kr * MNP + j] = ok ? o.p[(k0 + kr) * ld + r0 + j] : 0;
+      }
+    }
+  }
+}
+
+// raw[k][MNP] -> out[mn][KP], a 4 x 4 byte block at a time
+__device__ __forceinline__ void transpose(const unsigned char* raw,
+                                          unsigned char* out) {
+  for (int blk = threadIdx.x; blk < (BK / 4) * (BM / 4); blk += THREADS) {
+    const int kb = blk / (BM / 4), mb = blk % (BM / 4);
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = *reinterpret_cast<const uint32_t*>(raw + (4 * kb + i) * MNP +
+                                                4 * mb);
+    const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+    const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
+    const uint32_t u0 = __byte_perm(w[2], w[3], 0x5140);
+    const uint32_t u1 = __byte_perm(w[2], w[3], 0x7362);
+    const uint32_t o[4] = {__byte_perm(t0, u0, 0x5410),
+                           __byte_perm(t0, u0, 0x7632),
+                           __byte_perm(t1, u1, 0x5410),
+                           __byte_perm(t1, u1, 0x7632)};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<uint32_t*>(out + (4 * mb + j) * KP + 4 * kb) = o[j];
+  }
+}
+
+__device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma(int* c, const uint32_t* a,
+                                    const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__global__ void __launch_bounds__(THREADS)
+gemm_int8(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+          int32_t* __restrict__ c, int m, int n, int k, int ta, int tb,
+          int vec_a, int vec_b) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring_a = smem;
+  unsigned char* ring_b = smem + STAGES * TILE;
+  unsigned char* t_a = smem + 2 * STAGES * TILE;
+  unsigned char* t_b = t_a + TILE;
+  const long long e = blockIdx.z;
+  const Operand A = {a + e * m * (long long)k, m, k, !ta, vec_a != 0};
+  const Operand B = {b + e * n * (long long)k, n, k, tb != 0, vec_b != 0};
+  const long long m0 = (long long)blockIdx.y * BM, n0 =
+      (long long)blockIdx.x * BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wm = warp % 4 * 32, wn = warp / 4 * 64;
+  int acc[2][8][4] = {};
+
+  const int nk = (k + BK - 1) / BK;
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p) {
+    if (p < nk) {
+      fetch(A, ring_a + p * TILE, m0, (long long)p * BK);
+      fetch(B, ring_b + p * TILE, n0, (long long)p * BK);
+    }
+    commit();
+  }
+  for (int s = 0; s < nk; ++s) {
+    const int cur = s % STAGES;
+    wait<STAGES - 2>();
+    __syncthreads();   // stage s is in; every warp is done with stage s - 1
+    if (s + STAGES - 1 < nk) {
+      const int nxt = (s + STAGES - 1) % STAGES;
+      fetch(A, ring_a + nxt * TILE, m0, (long long)(s + STAGES - 1) * BK);
+      fetch(B, ring_b + nxt * TILE, n0, (long long)(s + STAGES - 1) * BK);
+    }
+    commit();
+    const unsigned char* fa = ring_a + cur * TILE;
+    const unsigned char* fb = ring_b + cur * TILE;
+    if (!A.kmaj) transpose(fa, t_a);
+    if (!B.kmaj) transpose(fb, t_b);
+    if (!A.kmaj || !B.kmaj) __syncthreads();
+    if (!A.kmaj) fa = t_a;
+    if (!B.kmaj) fb = t_b;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      uint32_t af[2][4], bf[8][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const unsigned char* r = fa + (wm + 16 * i + g) * KP + kk + 4 * t4;
+        af[i][0] = ld32(r);
+        af[i][1] = ld32(r + 8 * KP);
+        af[i][2] = ld32(r + 16);
+        af[i][3] = ld32(r + 8 * KP + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const unsigned char* r = fb + (wn + 8 * j + g) * KP + kk + 4 * t4;
+        bf[j][0] = ld32(r);
+        bf[j][1] = ld32(r + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mma(acc[i][j], af[i], bf[j]);
+    }
+  }
+
+  int32_t* out = c + e * m * (long long)n;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = m0 + wm + 16 * i + g + 8 * h;
+        const long long col = n0 + wn + 8 * j + 2 * t4;
+        if (row >= m) continue;
+        if (col < n) out[row * n + col] = acc[i][j][2 * h];
+        if (col + 1 < n) out[row * n + col + 1] = acc[i][j][2 * h + 1];
+      }
+}
+
+}  // namespace i8
+
 }  // namespace
 
 extern "C" const char* repro_error_string(int code) {
@@ -1687,5 +1904,42 @@ extern "C" int repro_split_bf16(const void* g, void* hi, void* mid, void* lo,
       static_cast<const float*>(g), static_cast<__nv_bfloat16*>(hi),
       static_cast<__nv_bfloat16*>(mid), static_cast<__nv_bfloat16*>(lo), rows,
       cols, pitch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int8 form: a (e, m, k), or (e, k, m) with transpose_a, times b (e, k,
+// n), or (e, n, k) with transpose_b, int8, into c (e, m, n) int32, each
+// expert's matrices stored one after another (e = 1: one 2-D product).
+// Exact integer products and sums (wrapping past 2^31).
+extern "C" int repro_gemm_int8(const void* a, const void* b, void* c, int e,
+                               int m, int n, int k, int transpose_a,
+                               int transpose_b, void* stream) {
+  if (e < 1 || m < 0 || n < 0 || k < 0 || e > 65535 ||
+      (m + i8::BM - 1) / i8::BM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0 || n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k == 0)
+    return static_cast<int>(
+        cudaMemsetAsync(c, 0, sizeof(int32_t) * (size_t)e * m * n, s));
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        i8::gemm_int8, cudaFuncAttributeMaxDynamicSharedMemorySize, i8::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  // the contiguous extent of each stored row: k where K is contiguous
+  const int a_row = transpose_a ? m : k, b_row = transpose_b ? k : n;
+  const int vec_a = aligned(a) && a_row % 16 == 0;
+  const int vec_b = aligned(b) && b_row % 16 == 0;
+  const dim3 grid((n + i8::BN - 1) / i8::BN, (m + i8::BM - 1) / i8::BM, e);
+  i8::gemm_int8<<<grid, i8::THREADS, i8::SMEM, s>>>(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
+      static_cast<int32_t*>(c), m, n, k, transpose_a, transpose_b, vec_a,
+      vec_b);
   return static_cast<int>(cudaGetLastError());
 }

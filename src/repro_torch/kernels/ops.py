@@ -56,8 +56,17 @@ backward's products, which is no K1 launch of its own), the decode rows'
 weight stream (at most 16 rows) or, where TMA cannot read a bf16 operand
 and for every f32 x f32 product, the exact-f32 FMA kernel (tiles sized by
 the width, k split over :func:`fma_splits` blocks where the tiles do not
-fill the card, a row form at most 16 rows), or ``gemm_bf16``.  K4's bf16 tensor-core form splits each key tile's row
-stream over :func:`dkv_splits` blocks.  Either counts one launch a call.
+fill the card, a row form at most 16 rows), or ``gemm_bf16``; int8 x int8
+takes its int8 form (``mma.sync`` s8 x s8 into exact int32 sums, the
+route of ``apply(..., acc_dtype="int32")``).  K4's bf16 tensor-core form
+splits each key tile's row stream over :func:`dkv_splits` blocks.  Either
+counts one launch a call.
+
+``scan_ssd`` and ``gated_scan`` take the chunk the H100 table derives
+(:func:`default_ssd_chunk`, :func:`default_gated_chunk`: the reference's
+formulas through ``core.blocking.solve_recurrence_blocks``) when none is
+given; ``apply(verify=...)`` runs the static verifier
+(``repro_torch.analysis``) before its launch.
 
 ``apply(expr, *arrays)`` is the MoA expression entry (the paper's
 pipeline): the expression is psi-reduced to its normal form
@@ -101,6 +110,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "repro_gemm": ("gemm", [_P] * 4 + [_C] * 11),
     "repro_gemm_tc": ("gemm", [_P] * 7 + [_C] * 7),
+    "repro_gemm_int8": ("gemm", [_P] * 3 + [_C] * 6),
     "repro_gemv": ("gemm", [_P] * 4 + [_C] * 5),
     "repro_expert_gemm": ("gemm", [_P] * 4 + [_C] * 6),
     "repro_expert_gemm_split": ("gemm", [_P] * 7 + [_C] * 6),
@@ -230,6 +240,10 @@ K1_GEMV_UNIT = 32
 SM_COUNT = dict(H100.mesh_axes)["sm"]
 
 
+#: K1's routes (``gemm_route``; the expert and head forms take some of them)
+K1_ROUTES = ("tile", "split", "gemv", "fma", "wmma", "int8")
+
+
 @functools.lru_cache(maxsize=4096)
 def gemm_route(m: int, n: int, k: int, a_dtype, b_dtype,
                transpose_a: bool = False, transpose_b: bool = False,
@@ -252,8 +266,18 @@ def gemm_route(m: int, n: int, k: int, a_dtype, b_dtype,
       read: the f32 one as its three bf16 parts (:func:`split_bf16`,
       written at a row pitch of a multiple of 8 elements, so its own
       stored row and base do not matter), three wgmmas a k-step on the
-      tile path."""
-    f32, bf16 = torch.float32, torch.bfloat16
+      tile path;
+    - ``"int8"``: int8 x int8, the int8 form (``gemm_int8``: mma.sync
+      s8 x s8 into exact int32 sums, any shape and transposes); an int8
+      operand takes no other route, and no other operand this one.  Its
+      accumulator is int32: ``apply`` refuses int8 operands under any
+      other ``acc_dtype`` (``_plan``)."""
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    if i8 in (a_dtype, b_dtype):
+        if a_dtype != b_dtype:
+            raise TypeError(f"K1's int8 form takes int8 x int8, got "
+                            f"{a_dtype} x {b_dtype}")
+        return "int8"
     if a_dtype == f32 and b_dtype == f32:
         return "fma"
     a_row = m if transpose_a else k
@@ -370,6 +394,26 @@ def _route(a: torch.Tensor, b: torch.Tensor, transpose_a: bool,
                       a.data_ptr() % 16 == 0, b.data_ptr() % 16 == 0)
 
 
+def _gemm_int8(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
+               transpose_b: bool = False) -> torch.Tensor:
+    """Launch K1's int8 form on ``op(a) @ op(b)``, 2-D operands or a stack
+    of experts ``(e, ., .)``, contiguous int8; returns the exact int32
+    ``(m, n)`` or ``(e, m, n)`` (wrapping past 2^31, as an int32
+    accumulator does)."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8 or \
+            not (a.is_contiguous() and b.is_contiguous()):
+        raise TypeError("K1's int8 form takes contiguous int8 operands")
+    e = a.shape[0] if a.dim() == 3 else 1
+    k, m = a.shape[-2:] if transpose_a else a.shape[-2:][::-1]
+    n = b.shape[-2] if transpose_b else b.shape[-1]
+    out = torch.empty(a.shape[:-2] + (m, n), device=a.device,
+                      dtype=torch.int32)
+    _launch("repro_gemm_int8", a.data_ptr(), b.data_ptr(), out.data_ptr(), e,
+            m, n, k, int(transpose_a), int(transpose_b))
+    LAUNCHES["K1"] += 1
+    return out
+
+
 def _gemm(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
           transpose_b: bool = False, split=None) -> torch.Tensor:
     """Launch K1 on 2-D operands; returns the f32 ``op(a) @ op(b)``, where
@@ -438,7 +482,13 @@ def _fma_plan(a, b, m, n, k, transpose_a, transpose_b, route):
 def _product(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
              transpose_b: bool = False, split=None) -> torch.Tensor:
     """The f32 2-D product through K1 (CUDA) or its plain version (which
-    ignores ``split`` and multiplies the f32 operand exactly)."""
+    ignores ``split`` and multiplies the f32 operand exactly); int8
+    operands give the exact int32 product (K1's int8 form)."""
+    if a.dtype == torch.int8 or b.dtype == torch.int8:
+        gemm_route(1, 1, 1, a.dtype, b.dtype)        # int8 x int8 only
+        if _use_kernel(a, b):
+            return _gemm_int8(a, b, transpose_a, transpose_b)
+        return ref.matmul_int8(a, b, transpose_a, transpose_b)
     if _use_kernel(a, b):
         return _gemm(a, b, transpose_a, transpose_b, split)
     return ref.matmul(a, b, transpose_b, transpose_a=transpose_a)
@@ -542,13 +592,17 @@ def expert_route(e: int, cap: int, d: int, f: int, x_dtype, w_dtype,
       the 2-D route's row pitch, so its rows too must be a multiple of 8
       elements; never ``"gemv"``).
 
-    Everything else is ``"K9"`` (its batched TILE path, which takes each
-    operand's own dtype): other dtypes or transposes, unaligned rows or
-    bases.  Dtypes are torch dtypes or their names."""
+    int8 x int8 with no transpose takes the int8 form (``"int8"``, any
+    shape and alignment).  Everything else is ``"K9"`` (its batched TILE
+    path, which takes each operand's own dtype): other dtypes or
+    transposes, unaligned rows or bases.  Dtypes are torch dtypes or their
+    names."""
     names = tuple(str(t).removeprefix("torch.") for t in (x_dtype, w_dtype))
     if not (e and cap and f and d):
         return "K9"
     form = (names, bool(transpose_a), bool(transpose_b))
+    if form == (("int8", "int8"), False, False):
+        return "int8"
     dts = tuple(getattr(torch, n) for n in names)
     if form == (("bfloat16", "bfloat16"), False, False):
         route = gemm_route(cap, f, d, *dts, False, False, base_ok, base_ok)
@@ -612,7 +666,13 @@ def _expert_gemm(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
 
 
 def _expert_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The f32 expert form through K1 (CUDA) or its plain version."""
+    """The f32 expert form through K1 (CUDA) or its plain version; int8
+    experts give the exact int32 product (K1's int8 form)."""
+    if x.dtype == torch.int8 or w.dtype == torch.int8:
+        gemm_route(1, 1, 1, x.dtype, w.dtype)        # int8 x int8 only
+        if _use_kernel(x, w):
+            return _gemm_int8(x, w)
+        return ref.matmul_int8(x, w)
     if _use_kernel(x, w):
         return _expert_gemm(x, w)
     return ref.expert_gemm(x, w)
@@ -1206,6 +1266,25 @@ def ssd_head_groups(h: int) -> list[tuple[int, int]]:
             for g in range(ng)]
 
 
+def default_ssd_chunk(s: int, h: int, p: int, n: int, dtype="float32",
+                      hardware: HardwareShape = H100) -> int:
+    """The derived SSD chunk length (``repro.kernels.ops.default_ssd_chunk``,
+    its formula verbatim): ``solve_recurrence_blocks`` with the carried
+    ``(h, p, n)`` state (and the entering state operand), the
+    double-buffered per-token operands and the quadratic segsum
+    intermediates (scores and the per-head decay mask) in the working-set
+    model, on ``hardware`` (the H100 table by default).  On the H100's 227
+    KB of shared memory mamba2-780m's 3 MB carried state fits no chunk,
+    and the solver returns its smallest aligned chunk, 16."""
+    return solve_recurrence_blocks(
+        s,
+        token_elems=2 * n + h * (p + 1) + h * p,     # B, C, x, dA in + y out
+        state_elems=2 * h * p * n,                   # carried h + H0 operand
+        quad_elems=1 + h,                            # scores G + decay L
+        lin_elems=4 * h,                             # cumsum/decay vectors
+        dtype=dtype, hardware=hardware).bs
+
+
 def _ssd_workspace(backward: bool, b: int, s: int, h: int, n: int, q: int,
                    device: torch.device) -> torch.Tensor:
     """The scratch of one K6 (``backward`` False) or K7 call, its size from
@@ -1362,12 +1441,13 @@ def scan_ssd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     sequence pads to a multiple of the chunk with the identity step (zero
     input, zero log decay) and ``y`` is sliced back.  Differentiable in
     all five inputs: when a gradient is wanted the forward exports the
-    per-chunk entering states and the backward runs K7."""
+    per-chunk entering states and the backward runs K7.  ``chunk=None``
+    derives the chunk on the H100 table (:func:`default_ssd_chunk`), as
+    the reference derives it on its own."""
     b, s, h, p = xdt.shape
     if chunk is None:
-        raise NotImplementedError(
-            "the derived SSD chunk (ssm_chunk = 0, ops.default_ssd_chunk) "
-            "is not ported; pass the config's chunk (ROADMAP.md, Queue 1)")
+        chunk = default_ssd_chunk(s, h, p, B.shape[-1],
+                                  str(xdt.dtype).removeprefix("torch."))
     chunk = max(1, min(int(chunk), s))
     if init_state is None:
         init_state = xdt.new_zeros((b, h, p, B.shape[-1]))
@@ -1382,36 +1462,35 @@ def scan_ssd(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
 # K8: the RG-LRU gated scan, forward and reverse
 # ---------------------------------------------------------------------------
 
-#: channels a K8 block walks (the kernel's ``STRIP``, a thread each) and
-#: the chunk lengths it takes, longest first
-GATED_STRIP = 64
-GATED_CHUNKS = (64, 32, 16)
+#: the longest chunk K8 takes (it stages a chunk 64 steps at a time)
+GATED_MAX_CHUNK = 1024
 
 
-@functools.lru_cache(maxsize=256)
-def gated_chunks(b: int, s: int, w: int) -> int:
-    """K8's chunk length at ``(b, s, w)``: the longest of
-    ``GATED_CHUNKS`` that still gives four blocks a SM over the grid of
-    (batch row, ``GATED_STRIP``-channel strip, chunk), else the shortest.
-    Chunk ``c`` covers steps ``[c L, min(s, (c + 1) L))``.  (The
-    reference's ``default_gated_chunk`` sizes a full-width TPU block, not
-    a channel strip: not ported, ROADMAP Queue 2.)"""
-    strips = -(-w // GATED_STRIP)
-    for chunk in GATED_CHUNKS[:-1]:
-        if b * strips * -(-s // chunk) >= 4 * SM_COUNT:
-            return chunk
-    return GATED_CHUNKS[-1]
+def default_gated_chunk(s: int, w: int, dtype="float32",
+                        hardware: HardwareShape = H100) -> int:
+    """The derived RG-LRU chunk length (``repro.kernels.ops.
+    default_gated_chunk``, its formula verbatim): per-channel state, three
+    per-token streams (gate log, input, output) and linear scan
+    intermediates in ``solve_recurrence_blocks``'s working-set model, on
+    ``hardware`` (the H100 table by default: 16 at recurrentgemma-9b's
+    width 4096).  Chunk ``c`` covers steps ``[c L, min(s, (c + 1) L))``."""
+    return solve_recurrence_blocks(
+        s, token_elems=3 * w, state_elems=2 * w, quad_elems=0,
+        lin_elems=2 * w, dtype=dtype, hardware=hardware).bs
 
 
 def gated_recurrence(log_a: torch.Tensor, b_in: torch.Tensor,
-                     h0: torch.Tensor | None = None, reverse: bool = False
+                     h0: torch.Tensor | None = None, reverse: bool = False,
+                     chunk: int | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """K8 or its plain version: ``h_t = exp(log_a_t) h_{t-1} + b_t`` over
     ``log_a/b_in (B, S, w)`` f32 contiguous, from ``h0 (B, w)`` (zeros when
     None); ``reverse`` walks backwards with the gate one step ahead (see
     ``ref.gated_scan``).  Returns ``(h (B, S, w), final (B, w))`` f32.  The
-    kernel takes any ``S`` and ``w`` without padding: its last chunk
-    (:func:`gated_chunks`) and channel strip may be short."""
+    kernel takes any ``S`` and ``w`` without padding, in chunks of
+    ``chunk`` steps (``None``: :func:`default_gated_chunk`; at most ``S``
+    and ``GATED_MAX_CHUNK``; the last chunk and channel strip may be
+    short).  The plain walk takes no chunk."""
     if log_a.dim() != 3 or b_in.shape != log_a.shape or (
             h0 is not None and h0.shape != (log_a.shape[0],
                                             log_a.shape[2])):
@@ -1427,7 +1506,12 @@ def gated_recurrence(log_a: torch.Tensor, b_in: torch.Tensor,
     if any(not t.is_contiguous() for t in operands):
         raise ValueError("gated_scan kernel takes contiguous operands")
     b, s, w = log_a.shape
-    chunk = gated_chunks(b, s, w)
+    if chunk is None:
+        chunk = default_gated_chunk(s, w)
+    chunk = max(1, min(int(chunk), s))
+    if chunk > GATED_MAX_CHUNK:
+        raise ValueError(f"gated_scan kernel takes chunks of at most "
+                         f"{GATED_MAX_CHUNK} steps, got {chunk}")
     h = torch.empty_like(b_in)
     final = torch.empty((b, w), device=b_in.device, dtype=torch.float32)
     nbytes = _entry("repro_gated_workspace")[0](b, s, w, chunk)
@@ -1450,9 +1534,10 @@ class _GatedScan(torch.autograd.Function):
     h_prev``, ``db = dbar``, ``dh0 = a_0 dbar_0``."""
 
     @staticmethod
-    def forward(ctx, log_a, b_in, h0):
-        h, final = gated_recurrence(log_a, b_in, h0)
+    def forward(ctx, log_a, b_in, h0, chunk):
+        h, final = gated_recurrence(log_a, b_in, h0, chunk=chunk)
         ctx.save_for_backward(log_a, h0, h)
+        ctx.chunk = chunk
         return h, final
 
     @staticmethod
@@ -1460,7 +1545,7 @@ class _GatedScan(torch.autograd.Function):
         log_a, h0, h = ctx.saved_tensors
         dy = gy.float().clone(memory_format=torch.contiguous_format)
         dy[:, -1] += gfin.float()
-        dbar, _ = gated_recurrence(log_a, dy, reverse=True)
+        dbar, _ = gated_recurrence(log_a, dy, reverse=True, chunk=ctx.chunk)
         a = torch.exp(log_a.float())
         first = h.new_zeros(h[:, :1].shape) if h0 is None else \
             h0.float()[:, None]
@@ -1469,23 +1554,29 @@ class _GatedScan(torch.autograd.Function):
         dh0 = None
         if h0 is not None and ctx.needs_input_grad[2]:
             dh0 = (a[:, 0] * dbar[:, 0]).to(h0.dtype)
-        return dlog_a, dbar, dh0
+        return dlog_a, dbar, dh0, None
 
 
 def gated_scan(log_a: torch.Tensor, b_in: torch.Tensor, *,
-               init_state: torch.Tensor | None = None
+               init_state: torch.Tensor | None = None,
+               chunk: int | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The RG-LRU gated linear scan (``repro.kernels.ops.gated_scan``):
     ``h_t = exp(log_a_t) h_{t-1} + b_t`` over ``log_a/b_in (B, S, w)`` f32
     from ``init_state (B, w)`` f32 (zeros when None).  Returns ``(h (B, S,
-    w), final (B, w))`` f32, at any ``S``.  Differentiable in all three
-    inputs: the backward runs K8's reverse walk (the reference's
-    ``gated_backward`` kind)."""
+    w), final (B, w))`` f32, at any ``S``.  K8 runs in chunks of ``chunk``
+    steps, derived on the H100 table when None (:func:`default_gated_chunk`,
+    the reference's derivation on its own table).  Differentiable in all
+    three inputs: the backward runs K8's reverse walk (the reference's
+    ``gated_backward`` kind) at the same chunk."""
+    if chunk is None:
+        chunk = default_gated_chunk(log_a.shape[1], log_a.shape[2],
+                                    str(log_a.dtype).removeprefix("torch."))
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (log_a, b_in, init_state)):
-        return _GatedScan.apply(log_a, b_in, init_state)
-    return gated_recurrence(log_a, b_in, init_state)
+        return _GatedScan.apply(log_a, b_in, init_state, chunk)
+    return gated_recurrence(log_a, b_in, init_state, chunk=chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -1545,7 +1636,9 @@ def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
     form takes K1 where :func:`expert_route` gives it one of K1's routes
     (``aligned``: every base 16-byte aligned), a head form (``batched``
     ``"head"``) where :func:`head_route` does (``aligned``: the views'
-    strides as :func:`head_aligned` reads them), else K9."""
+    strides as :func:`head_aligned` reads them), else K9.  int8 operands
+    take an int32 accumulator only (K1's int8 form sums them exactly; an
+    f32 accumulator would round past 2^24): any other raises."""
     block_key = blocks.as_tuple() if hasattr(blocks, "as_tuple") else (
         tuple(blocks) if isinstance(blocks, (list, tuple)) else blocks)
     key = (nf.key(), dtypes, out_dtype, hardware.name, block_key, acc_dtype,
@@ -1555,6 +1648,10 @@ def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
         if plan is not None:
             _PLANS.move_to_end(key)
             return plan
+    if "int8" in dtypes and acc_dtype != "int32":
+        raise ValueError(
+            f"int8 operands accumulate in int32 (K1's int8 form, exact), "
+            f"not in {acc_dtype}: pass acc_dtype='int32'")
     # K9 contracts a chain pairwise and reads no schedule blocks (the
     # derived working set models the reference's nest, which the H100's
     # 227 KB refuse for tropical chains from a few dozen elements on): a
@@ -1624,18 +1721,24 @@ def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
     same ``(n, k)`` array, as they share a normal form.  The normal form is
     scheduled on ``hardware`` (cached per normal form) and run on K1 or K9
     (CUDA tensors) or their plain versions (CPU tensors); the result is in
-    ``out_dtype`` (default the first array's dtype), accumulated in f32.
+    ``out_dtype`` (default the first array's dtype), accumulated in
+    ``acc_dtype``: f32, or int32 for int8 operands, which K1's int8 form
+    sums exactly (a 2-D product, either operand transposed, or the
+    expert form).  int32 accumulation on K1's head form or on K9 raises.
     A strided view binds like its contiguous copy: it is copied first,
     but by K1's head form, which reads it in place.
+
+    ``verify=True`` runs the static verifier (``repro_torch.analysis.
+    verify_expr``) on the derived schedule before the launch and raises
+    ``VerificationError`` on an error finding; ``verify="kernel"`` also
+    checks the launch plan (``analysis.conformance``: K1's route, K9's
+    descriptor).  Both cache on the schedule's key, so a repeated call
+    pays a dictionary lookup.
     """
     if mesh is not None or shard is not None:
         raise NotImplementedError(
             "apply(mesh=/shard=) runs a distributed plan; it is not ported "
             "yet (ROADMAP.md, Queue 1, Distributed)")
-    if verify:
-        raise NotImplementedError(
-            "apply(verify=) runs the static verifier of repro.analysis; it "
-            "is not ported yet (ROADMAP.md, Queue 1)")
     nf = E.normal_form(expr)
     shapes = nf.leaf_storage_shapes()
     if len(arrays) != len(shapes):
@@ -1647,21 +1750,34 @@ def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
                              f"storage shape {s}, got {tuple(a.shape)}")
     out_dtype = out_dtype or arrays[0].dtype
     dtypes = tuple(str(a.dtype).removeprefix("torch.") for a in arrays)
-    flags = _k1_form(nf)
-    if flags is not None and flags[2] == "head":
-        # K1's head form reads its operands through their strides (a
-        # slice of a weight table is not copied)
-        plan = _plan(nf, dtypes, out_dtype, hardware, blocks, str(acc_dtype),
-                     head_aligned(*arrays))
+    acc_dtype = str(acc_dtype).removeprefix("torch.")
+    head = (_k1_form(nf) or (None,) * 3)[2] == "head"
+    if not head:
+        # the other kernels read row-major storage buffers: a strided view
+        # (a transpose, a slice) is copied, as the reference takes any
+        # array
+        arrays = tuple(a.contiguous() for a in arrays)
+    # K1's head form reads its operands through their strides (a slice of
+    # a weight table is not copied)
+    aligned = head_aligned(*arrays) if head else all(
+        a.data_ptr() % 16 == 0 for a in arrays)
+    if verify:
+        from repro_torch import analysis
+        analysis.verify_expr(nf, dtype=dtypes[0], hardware=hardware,
+                             blocks=blocks, acc_dtype=acc_dtype,
+                             kernel=verify == "kernel", dtypes=dtypes,
+                             aligned=aligned)
+    plan = _plan(nf, dtypes, out_dtype, hardware, blocks, acc_dtype, aligned)
+    if acc_dtype == "int32" and plan[0] != "K1":
+        raise NotImplementedError(
+            "int32 accumulation runs on K1's int8 form (2-D and expert "
+            "products); on K1's head form and on K9 it is not ported yet "
+            "(ROADMAP.md, Queue 2, form 3)")
+    if head:
         if plan[0] == "K1":
             return _head_product(*arrays, plan[2]).to(out_dtype)
         return semiring_contract(plan[1], *(a.contiguous() for a in arrays),
                                  out_dtype=out_dtype)
-    # the other kernels read row-major storage buffers: a strided view (a
-    # transpose, a slice) is copied, as the reference takes any array
-    arrays = tuple(a.contiguous() for a in arrays)
-    plan = _plan(nf, dtypes, out_dtype, hardware, blocks, str(acc_dtype),
-                 all(a.data_ptr() % 16 == 0 for a in arrays))
     if plan[0] == "K1":
         if plan[3]:
             return _expert_product(*arrays).to(out_dtype)

@@ -33,6 +33,30 @@ def matmul(x2: torch.Tensor, w2: torch.Tensor, transpose_b: bool = False,
     return (x.t() if transpose_a else x) @ (w.t() if transpose_b else w)
 
 
+def exact_int32(x: torch.Tensor) -> torch.Tensor:
+    """Integer-valued f64 sums (exact below 2^53) as int32, checked: a sum
+    past int32's range raises instead of wrapping."""
+    y = x.to(torch.int64)
+    info = torch.iinfo(torch.int32)
+    if y.numel() and (int(y.max()) > info.max or int(y.min()) < info.min):
+        raise OverflowError("an int8 product's exact sum overflows int32")
+    return y.to(torch.int32)
+
+
+def matmul_int8(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
+                transpose_b: bool = False) -> torch.Tensor:
+    """K1's int8 form: ``op(a) (m, k) @ op(b) (k, n)`` (``op`` the
+    transpose of an ``(k, m)`` / ``(n, k)`` stored operand, or of the last
+    two axes of a stacked ``(e, ., .)`` expert operand) of int8 operands,
+    accumulated exactly and returned as int32 (``exact_int32``).  The sums
+    run in float64, where every product of two int8 values and every sum
+    of fewer than 2^39 of them is an exact integer, so the result is the
+    int64 sum; PyTorch has no int64 matrix product on the card."""
+    x = a.transpose(-1, -2) if transpose_a else a
+    w = b.transpose(-1, -2) if transpose_b else b
+    return exact_int32(torch.matmul(x.double(), w.double()))
+
+
 def expert_gemm(x: torch.Tensor, w: torch.Tensor,
                 out_dtype=torch.float32) -> torch.Tensor:
     """The capacity-padded expert GEMM ``x (E, cap, d) @ w (E, d, f) ->

@@ -9,7 +9,9 @@ Recurrence (elementwise over the lru_width channels, f32):
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
 The full-sequence scan is ``ops.gated_scan`` (K8, its backward K8's
-reverse walk); the one-token decode step is the recurrence itself, in
+reverse walk) at the chunk derived on the H100 table
+(``ops.default_gated_chunk``, as the reference's ``gated_scan`` derives
+it on its own); the one-token decode step is the recurrence itself, in
 plain PyTorch as in the reference.  The block is (x-branch: linear ->
 causal conv -> RG-LRU) gated by (gate-branch: linear -> gelu), then an
 output projection.  Every product is ``ops.matmul`` (K1): the reference's

@@ -1,8 +1,10 @@
 """The Mamba-2 block (``repro.models.ssm``): the chunked SSD for prefill
 and training, the recurrent form for decode.  [arXiv:2405.21060]
 
-The scan is ``ops.scan_ssd`` (K6, its backward K7); the projections are
-``ops.matmul`` (K1).  The causal conv, the gates, softplus and the gated
+The scan is ``ops.scan_ssd`` (K6, its backward K7), at the config's
+``ssm_chunk`` or, for ``ssm_chunk = 0``, at the chunk derived on the H100
+table (``ops.default_ssd_chunk``, as the reference derives it on its
+own); the projections are ``ops.matmul`` (K1).  The causal conv, the gates, softplus and the gated
 RMSNorm, and the one-token decode step's state update stay plain
 PyTorch, as the reference computes them outside any Pallas kernel.
 """

@@ -843,10 +843,13 @@ def test_ssd_bwd_kernel_matches_plain(h100, q, s):
 #: shape rules: h = 48 (three head groups of 16) and h = 20 (two groups of
 #: 10: the group size does not divide it); n = 128, 64, 16 and 30 (not a
 #: multiple of 4: 4-byte copies); q = 256, 175 (a ragged last tile and a
-#: padded tail), 64 and 1
+#: padded tail), 64 and 1; and the chunks shorter than a 64-row tile that
+#: the H100 table derives (16 for mamba2-780m, ops.default_ssd_chunk) or
+#: that lie between: 16, 32, 48
 SSD_WIDE = [(48, 128, 256), (48, 128, 175), (48, 128, 64), (48, 128, 1),
             (48, 64, 256), (48, 16, 256), (48, 30, 256), (20, 128, 256),
-            (20, 128, 64), (20, 30, 175)]
+            (20, 128, 64), (20, 30, 175), (48, 128, 16), (48, 128, 32),
+            (48, 128, 48)]
 
 
 @pytest.mark.h100
@@ -942,17 +945,37 @@ def test_gated_scan_kernel_is_exact_where_log_a_is_zero(h100, reverse):
                                    (2, 33, 70), (1, 129, 260),
                                    (1, 2049, 256), (1, 4096, 4096)])
 def test_gated_scan_at_chunk_and_strip_edges(h100, reverse, b, s, w):
-    """K8's chunks (``ops.gated_chunks``: 16 steps at the short shapes, 64
-    at 4096 x 4096) and 64-channel strips at their edges: one step short
-    of a chunk, exactly one, one past, ragged strips, and past groups of
-    eight chunks (129 and 2049 steps of 16-step chunks), with an entering
-    state."""
+    """K8's chunks (derived, ``ops.default_gated_chunk``: 16 steps on the
+    H100 table at each of these shapes, 4096 x 4096 included) and
+    64-channel strips at their edges: one step short of a chunk, exactly
+    one, one past, ragged strips, and past groups of eight chunks (129 and
+    2049 steps of 16-step chunks), with an entering state."""
     la, bb, h0 = _gated_case(h100, b, s, w, seed=20 + s)
+    assert ops.default_gated_chunk(s, w) == 16
     h, f = ops.gated_recurrence(la, bb, h0, reverse=reverse)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["K8"] == 1
     hr, fr = ref.gated_scan(la, bb, h0, reverse=reverse)
     assert _rel_err(h, hr) <= GATED_REL and _rel_err(f, fr) <= GATED_REL
+    assert torch.equal(f, h[:, 0] if reverse else h[:, -1])
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("chunk", [16, 48, 64, 128, 1024])
+def test_gated_scan_at_derived_chunks(h100, reverse, chunk):
+    """K8 at the chunks a derivation can give (multiples of 16 up to 1024:
+    the H100 table's 16, the v5e copy's 128, the solver's cap 1024), a
+    chunk of more than one 64-step piece staged piece by piece: against
+    the plain walk, a rerun the same bits."""
+    la, bb, h0 = _gated_case(h100, 2, 2049, 260, seed=chunk)
+    h, f = ops.gated_recurrence(la, bb, h0, reverse=reverse, chunk=chunk)
+    again = ops.gated_recurrence(la, bb, h0, reverse=reverse, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K8"] == 2
+    hr, fr = ref.gated_scan(la, bb, h0, reverse=reverse)
+    assert _rel_err(h, hr) <= GATED_REL and _rel_err(f, fr) <= GATED_REL
+    assert torch.equal(h, again[0]) and torch.equal(f, again[1])
     assert torch.equal(f, h[:, 0] if reverse else h[:, -1])
 
 
@@ -1001,6 +1024,84 @@ def test_gated_scan_backward_runs_the_reverse_walk(h100):
     assert ops.LAUNCHES["K8"] == 2
     for got, want in zip(*grads):
         assert _rel_err(got, want) <= GATED_REL
+
+
+# ---------------------------------------------------------------------------
+# K1's int8 form: int8 x int8 -> exact int32 (ops.apply, acc_dtype="int32")
+# ---------------------------------------------------------------------------
+
+#: (m, k, n): ragged (no multiple of the 128 x 128 x 64 tiles, k not a
+#: multiple of 16: byte copies), aligned (16-byte copies), k of one
+#: element, and mamba-width rows
+INT8_SHAPES = [(37, 72, 130), (1001, 37, 999), (256, 4096, 512),
+               (130, 1, 33), (2048, 2560, 1024)]
+
+
+def _int8(dev, *shape, seed=0, lo=-128, hi=128):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(lo, hi, shape, generator=g, device=dev,
+                         dtype=torch.int8)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("ta,tb", [(False, False), (True, False),
+                                   (False, True), (True, True)])
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_gemm_int8_form_matches_plain_bit_for_bit(h100, m, k, n, ta, tb):
+    """K1's int8 form with either operand transposed (read in its stored
+    layout, transposed in shared memory) equals the exact plain version
+    (int64 sums checked into int32) bit for bit, and a rerun too."""
+    a = _int8(h100, *((k, m) if ta else (m, k)), seed=m + k)
+    b = _int8(h100, *((n, k) if tb else (k, n)), seed=n + 3 * k)
+    assert ops.gemm_route(m, n, k, a.dtype, b.dtype, ta, tb) == "int8"
+    got = ops._product(a, b, ta, tb)
+    again = ops._product(a, b, ta, tb)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 2 and got.dtype == torch.int32
+    assert torch.equal(got, ref.matmul_int8(a, b, ta, tb))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.h100
+def test_gemm_int8_form_at_the_int32_edge(h100):
+    """All operands -128 over k = 4096: every sum is 2^26, far past f32's
+    exact integers (2^24) and exact in int32; an unaligned base takes the
+    byte copies."""
+    k = 4096
+    a = torch.full((40, k), -128, dtype=torch.int8, device=h100)
+    b = torch.full((k, 24), -128, dtype=torch.int8, device=h100)
+    got = ops._product(a, b)
+    assert torch.equal(got, torch.full((40, 24), 128 * 128 * k,
+                                       dtype=torch.int32, device=h100))
+    flat = _int8(h100, 40 * k + 1, seed=5)
+    a2 = flat[1:].view(40, k)
+    assert a2.data_ptr() % 16
+    assert torch.equal(ops._product(a2, b), ref.matmul_int8(a2, b))
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("e,cap,d,f", [(4, 60, 96, 72), (8, 8, 2048, 2816),
+                                       (3, 200, 37, 130)])
+def test_gemm_int8_expert_form_matches_plain(h100, e, cap, d, f):
+    """The expert form through ``ops.apply`` (acc_dtype int32) on K1's int8
+    form: each expert's product exact, bit for bit."""
+    x, w = _int8(h100, e, cap, d, seed=e), _int8(h100, e, d, f, seed=f)
+    expr = ops.E.expert_gemm_expr(e, cap, d, f)
+    got = ops.apply(expr, x, w, acc_dtype="int32", out_dtype=torch.int32)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 1 and ops.LAUNCHES["K9"] == 0
+    assert torch.equal(got, ref.matmul_int8(x, w))
+
+
+@pytest.mark.h100
+def test_gemm_int8_head_form_and_k9_refuse_int32(h100):
+    """int32 accumulation is K1's int8 form's alone: the head form and K9
+    raise, naming the form still to port."""
+    x, w = _int8(h100, 4, 2, 32), _int8(h100, 32, 2, 16, seed=1)
+    with pytest.raises(NotImplementedError, match="Queue 2, form 3"):
+        ops.apply(ops.E.head_gemm_expr(2, 4, 32, 16), x, w,
+                  acc_dtype="int32", out_dtype=torch.int32)
+    assert ops.LAUNCHES["K1"] == ops.LAUNCHES["K9"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -439,8 +439,11 @@ def test_errors_match_the_reference():
         ops.apply(col, torch.zeros(4, 6), torch.zeros(6, 8))
     with pytest.raises(NotImplementedError, match="Distributed"):
         ops.apply(expr, torch.zeros(4, 6), torch.zeros(6, 5), mesh=object())
-    with pytest.raises(NotImplementedError, match="verif"):
-        ops.apply(expr, torch.zeros(4, 6), torch.zeros(6, 5), verify=True)
+    # apply(verify=) runs the static verifier (it raised before the port
+    # had one): a sound derivation passes and the result is unchanged
+    x, w = torch.arange(24.).reshape(4, 6), torch.arange(30.).reshape(6, 5)
+    assert torch.equal(ops.apply(expr, x, w, verify=True),
+                       ops.apply(expr, x, w))
     with pytest.raises(ValueError, match="accumulation"):
         ops.apply(expr, torch.zeros(4, 6, dtype=torch.bfloat16),
                   torch.zeros(6, 5, dtype=torch.bfloat16),

@@ -10,7 +10,8 @@ shapes:
   card tests' ``GATED_REL``), bit for bit where log_a = 0 on integers, and
   against the JAX ``gated_scan`` in interpret mode; the fold published at
   group ends gives the same bits as the fold from h0;
-- ``ops.gated_chunks``: every step in exactly one chunk;
+- ``ops.default_gated_chunk``: the derived chunk (the reference's
+  formula; 16 on the H100 table) covers every step in exactly one chunk;
 - K5's split-and-combine: each split's online softmax over 16-key tiles
   of its pages, p rounded to the pool's dtype before P V, and the splits'
   partials folded in split order; against ``ref.paged_decode_batched`` and
@@ -189,25 +190,32 @@ def test_fold_from_group_ends_is_the_fold_from_h0(group):
                                    (3, 33, 4096), (4, 4096, 4096),
                                    (1, 1000, 256)])
 def test_gated_chunks_cover_every_step_once(b, s, w):
-    chunk = ops.gated_chunks(b, s, w)
-    assert chunk in ops.GATED_CHUNKS
+    """The derived chunk (``ops.default_gated_chunk`` on the H100 table,
+    clamped to S as ``gated_recurrence`` clamps it) is a multiple of 16
+    within K8's limit, or the whole of a shorter sequence, and its chunks
+    cover every step once; on the v5e copy it is the reference's
+    ``default_gated_chunk`` on its own v5e table."""
+    chunk = min(ops.default_gated_chunk(s, w), s)
+    assert chunk == s or (chunk % 16 == 0
+                          and chunk <= ops.GATED_MAX_CHUNK)
     seen = np.zeros(s, int)
     for c in range(-(-s // chunk)):
         seen[c * chunk:min(s, (c + 1) * chunk)] += 1
     assert (seen == 1).all()
-    blocks = b * -(-w // ops.GATED_STRIP) * -(-s // chunk)
-    # the longest chunk that still gives four blocks a SM, else the shortest
-    assert blocks >= 4 * ops.SM_COUNT or chunk == ops.GATED_CHUNKS[-1]
-    if chunk != ops.GATED_CHUNKS[0]:
-        longer = ops.GATED_CHUNKS[ops.GATED_CHUNKS.index(chunk) - 1]
-        assert b * -(-w // ops.GATED_STRIP) * -(-s // longer) \
-            < 4 * ops.SM_COUNT
+    from repro.core import hardware as jhw
+    from repro_torch.hardware import TPU_V5E
+    assert ops.default_gated_chunk(s, w, hardware=TPU_V5E) == \
+        jops.default_gated_chunk(s, w, hardware=jhw.get_entry("tpu_v5e"))
 
 
 def test_gated_chunks_at_the_hybrid_prefill():
-    """recurrentgemma-9b's B=1 S=4096 lru width 4096: 64 strips x 64
-    chunks of 64 steps."""
-    assert ops.gated_chunks(1, 4096, 4096) == 64
+    """recurrentgemma-9b's B=1 S=4096 lru width 4096: the H100 table
+    derives 16 (the per-channel state and three streams of 4096 channels
+    leave no room in a quarter of 227 KB, so the smallest aligned chunk);
+    the reference's v5e table 128."""
+    from repro_torch.hardware import TPU_V5E
+    assert ops.default_gated_chunk(4096, 4096) == 16
+    assert ops.default_gated_chunk(4096, 4096, hardware=TPU_V5E) == 128
 
 
 # ---------------------------------------------------------------------------

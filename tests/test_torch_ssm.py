@@ -336,6 +336,10 @@ def test_other_families_still_raise(mamba):
                                    torch.tensor([0]), cache)
     assert logits.shape == (1, gcfg.vocab_size)
     assert cache["layers"].k.shape == (gcfg.n_layers, 1, 8, 1, 32)
-    with pytest.raises(NotImplementedError, match="derived SSD chunk"):
-        ops.scan_ssd(*[torch.zeros(1, 4, 1, 4)] + [torch.zeros(1, 4, 1)]
-                     + [torch.zeros(1, 4, 2)] * 2)
+    # scan_ssd(chunk=None) derives its chunk (it raised before the port
+    # derived one): the H100 table's 16, clamped to S = 4 here
+    args = [torch.ones(1, 4, 1, 4)] + [torch.full((1, 4, 1), -0.5)] \
+        + [torch.ones(1, 4, 2)] * 2
+    assert ops.default_ssd_chunk(4, 1, 4, 2) == 16
+    for got, want in zip(ops.scan_ssd(*args), ops.scan_ssd(*args, chunk=4)):
+        assert torch.equal(got, want)
