@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-three phases; any failure exits non-zero before the result line:
+Twenty-four phases; any failure exits non-zero before the result line:
 
 1. device   the card's name, power limit and compute capability (9, 0).
 2. build    nvcc builds every kernel under src/repro_torch/kernels/csrc/
@@ -57,10 +57,12 @@ Twenty-three phases; any failure exits non-zero before the result line:
             on the same views the library row; a rerun), and a head form
             K1 refuses (64 rows) on K9; K2 (prefill and export), K3, K4 at
             minicpm3-4b's MLA attention (B=1 S=4096, 40 KV heads of one
-            query head, q.k 96 and v 64 zero-padded to 128), SDPA on the
-            unpadded tensors the library row, the unpadded work's bound
-            beside the padded one's.  K2-K4's prefix-LM form at
-            paligemma-3b's prefill (B=1 S=4096, one KV head of 256 under
+            query head) at its own widths, q.k 96 and v 64, and the same
+            work zero-padded to 128 beside it (SDPA on the unpadded
+            tensors the library row, the unpadded work's bound beside the
+            padded one's); (96, 64) also at a ragged length, G = 8, the
+            window and prefix-LM forms and in f32 (the FMA form).  K2-K4's
+            prefix-LM form at paligemma-3b's prefill (B=1 S=4096, one KV head of 256 under
             8 query heads, prefix 256; K2 alone and with export, K3, K4)
             and training microbatch (B=1, 256 + 768 positions), and in
             f32 at a ragged shape (S=1000, prefix 100), SDPA with the
@@ -175,7 +177,18 @@ Twenty-three phases; any failure exits non-zero before the result line:
             K1's int8 form (apply with acc_dtype int32): 4096^3 bit for
             bit with its plain version and torch._int_mm (ms, graph ms,
             the 1979 TOPS bound) and a ragged 1001x37x999.
-15. moe_path deepseek-moe-16b at full width and depth (28 layers: one
+15. energy_path the paper's energy model against the card's own energy
+            counter (NVML's total energy through ctypes; nvidia-smi's
+            power.draw sampled and integrated where NVML refuses): idle
+            power over 1 s, then square products at N = 1024 .. 8192 in
+            three families, moa_gemm bf16 (K1, B row-major), the same
+            product with a col-layout B through apply, and max-plus f32
+            on K9, each over >= 1 s of CUDA-graph replays: ms, J (total
+            and above idle) and mean W a product, the model's ms, J, W
+            and bound beside the bf16 rows, the slopes log2(E(2N)/E(N))
+            and the power and time ratios; each family's 1024 product
+            against its plain version.
+16. moe_path deepseek-moe-16b at full width and depth (28 layers: one
             dense, 27 with 64 routed experts top-6 and 2 shared, bf16,
             16.38 B seeded parameters): make_prefill B=1 S=2048 (K1 250
             launches, 54 of them the expert form, K2 28) timed by events
@@ -188,7 +201,7 @@ Twenty-three phases; any failure exits non-zero before the result line:
             ingested one by one + 16 new (K1 250 a step); a decode step
             under sync debug mode "error", timed against every weight byte
             and against the active parameters' bytes; profiles.
-16. moe_train deepseek-moe-16b at full width, depth cut to 5 of 28 layers
+17. moe_train deepseek-moe-16b at full width, depth cut to 5 of 28 layers
             (the dense one and 4 MoE layers, 2.857 B parameters; the whole
             model's AdamW state, ~260 GB, fits no card): step 1 (its first
             microbatch) against the plain path: the loss with each path's
@@ -200,7 +213,7 @@ Twenty-three phases; any failure exits non-zero before the result line:
             on: K1 (its expert form and VJP forms), K2-K4 launch their
             derived counts, step 3 under sync debug mode "error", step ms
             against its bound, peak memory under 80 GB, a profiled step.
-17. llama4_path llama4-scout-17b-a16e at full width (40 heads over 8 KV
+18. llama4_path llama4-scout-17b-a16e at full width (40 heads over 8 KV
             heads of 128, 16 experts of 8192, top-1, 1 shared, vocab
             202048 untied), depth cut to 8 of 48 layers (two (local,
             local, local, full) groups, 19.69 B parameters, 39.4 GB): its
@@ -210,10 +223,11 @@ Twenty-three phases; any failure exits non-zero before the result line:
             steps (the same code); then one local layer's
             decode from a seeded 8192-slot ring at position 9000 (the ring
             has wrapped) against the plain path.
-18. mla_path minicpm3-4b at full width and depth (62 layers of MLA, 40
+19. mla_path minicpm3-4b at full width and depth (62 layers of MLA, 40
             heads, q rank 768, kv rank 256; 4.26 B seeded parameters):
-            make_prefill B=1 S=4096 (K1 7L+1, K2 L on the padded MLA
-            attention) against its bound; 6 requests through ServeEngine
+            make_prefill B=1 S=4096 (K1 7L+1, K2 L on MLA's attention at
+            its widths, q.k 96 and v 64, read from the launches' own
+            arguments) against its bound; 6 requests through ServeEngine
             over contiguous per-slot latent caches (tokens/s, TTFT;
             K1 8L+1 a slot-step, 2L of them the head form, counted by a
             spy on ops._head_gemm); greedy_generate B=2, 64 + 16; the
@@ -221,13 +235,13 @@ Twenty-three phases; any failure exits non-zero before the result line:
             plain path (f32 on the same weights at full depth, bf16 beside
             the plain bf16 witness); a B=2 decode step under sync debug
             mode "error" against every weight byte; profiles.
-19. mla_train minicpm3-4b at full width, depth cut to 24 of 62 layers
+20. mla_train minicpm3-4b at full width, depth cut to 24 of 62 layers
             (1.88 B parameters): step 1's first microbatch against the
             plain path (loss and every gradient, f32 and bf16), 3 AdamW
-            steps at B=2 S=4096 in 2 microbatches, remat on (K1, K2-K4 on
-            the padded attention, derived counts), step 3 under sync debug
+            steps at B=2 S=4096 in 2 microbatches, remat on (K1, K2-K4 at
+            (96, 64), derived counts), step 3 under sync debug
             "error", peak memory, a profiled step.
-20. vlm_path paligemma-3b at full width and depth (18 layers, 2.509 B
+21. vlm_path paligemma-3b at full width and depth (18 layers, 2.509 B
             seeded parameters): make_prefill B=1 over 256 patches + 3840
             tokens (K1 6L+2, K2 L, every K2 launch with prefix 256, read
             from the kernel's own arguments) against its bound; patches
@@ -237,12 +251,12 @@ Twenty-three phases; any failure exits non-zero before the result line:
             the plain bf16 witness); greedy_generate B=2, 64 + 16 token
             by token (the reference's path); a decode step under sync
             debug "error" against every weight byte; profiles.
-21. vlm_train paligemma-3b at full width and depth: step 1's first
+22. vlm_train paligemma-3b at full width and depth: step 1's first
             microbatch against the plain path (f32 and bf16), 3 AdamW
             steps at B=2 of 256 patches + 768 tokens in 2 microbatches,
             remat on (K1 24L+5 a microbatch, K2-K4 with prefix 256),
             step 3 under sync debug "error", peak memory, a profile.
-22. encdec_path whisper-base at full width and depth (6 + 6 layers, 67.4
+23. encdec_path whisper-base at full width and depth (6 + 6 layers, 67.4
             M): make_prefill B=4 over 1500 frames + 64 tokens (K1
             6E+12L+2; K2 bidirectional in the encoder and the
             cross-attention, causal in the decoder), 64 make_decode
@@ -250,7 +264,7 @@ Twenty-three phases; any failure exits non-zero before the result line:
             greedy_generate B=4, 8 + 32, the prefill's logits, self and
             cross K/V and a decode step against the plain path (f32 and
             bf16), a decode step under sync debug "error", profiles.
-23. encdec_train whisper-base: step 1's first microbatch against the
+24. encdec_train whisper-base: step 1's first microbatch against the
             plain path (the key biases' vanishing gradients held against
             their value biases'), 3 AdamW steps at B=8 of 1500 frames +
             448 tokens in 4 microbatches (K1 24E+40L+5 a microbatch,
@@ -387,8 +401,8 @@ LLAMA4_LAYERS = 8
 LLAMA4_RING_POS = 9000
 #: minicpm3-4b (MLA): the prefill and training sequence (the reference's
 #: chunked-branch length, attn_chunk_min_seq), the absorbed decode's K1
-#: head-form rows (1-4 slots), MLA's attention widths (q.k 96, v 64) that
-#: K2-K4 take zero-padded to 128, and the training run: depth cut to 24
+#: head-form rows (1-4 slots), MLA's attention widths (q.k 96, v 64), a
+#: pair K2-K4 are built for, and the training run: depth cut to 24
 #: of 62 layers (1.880 B parameters by param_count, ~34 GB of AdamW
 #: state; the whole model's ~77 GB leaves no room for activations), B=2
 #: in 2 microbatches
@@ -719,16 +733,38 @@ def phase_kernels(torch):
     _router_cases(torch, rec, gen)
     _fma_cases(torch, rec, gen)
     _head_form_cases(torch, rec, gen)
-    # minicpm3-4b's MLA attention at its chunked-branch length: 40 KV
-    # heads of one query head, q.k 96 and v 64 zero-padded to 128, at
-    # MLA's scale; the prefill's K2, then K2 (export), K3, K4 in training
-    _prefill_attention_case(torch, rec, gen, torch.bfloat16, MLA_S, kv=40,
-                            g=1, hd=128, native=MLA_WIDTHS)
-    _attention_training_cases(torch, rec, gen, torch.bfloat16, "bfloat16",
-                              2, b=1, s=MLA_S, g=1, kv=40, hd=128,
-                              native=MLA_WIDTHS)
+    _mla_width_cases(torch, rec, gen)
     _vlm_encdec_cases(torch, rec, gen)
     return rec
+
+
+def _mla_width_cases(torch, rec, gen):
+    """K2-K4 at MLA's widths, q.k 96 and v 64, as they take them:
+    minicpm3-4b's attention at its chunked-branch length (B=1 S=4096, 40
+    KV heads of one query head, MLA's scale): the prefill's K2, then K2
+    (export), K3, K4 in training; beside them the same work zero-padded to
+    128 (the form K2-K4 ran MLA at before they took vd apart from hd).
+    Then (96, 64) at a ragged length (B=2 S=300), G > 1 (8 query heads a
+    KV head), the window and prefix-LM forms, and the f32 FMA form."""
+    bf, f32 = torch.bfloat16, torch.float32
+    qk, vd = MLA_WIDTHS
+    _prefill_attention_case(torch, rec, gen, bf, MLA_S, kv=40, g=1, hd=qk,
+                            vd=vd)
+    _attention_training_cases(torch, rec, gen, bf, "bfloat16", 2, b=1,
+                              s=MLA_S, g=1, kv=40, hd=qk, vd=vd)
+    _prefill_attention_case(torch, rec, gen, bf, MLA_S, kv=40, g=1, hd=128,
+                            native=MLA_WIDTHS)
+    _attention_training_cases(torch, rec, gen, bf, "bfloat16", 2, b=1,
+                              s=MLA_S, g=1, kv=40, hd=128,
+                              native=MLA_WIDTHS)
+    for dt, kw in ((bf, dict(b=2, s=300, kv=40, g=1)),
+                   (bf, dict(b=1, s=2048, kv=4, g=8)),
+                   (bf, dict(b=1, s=4096, kv=8, g=2, window=1024)),
+                   (bf, dict(b=1, s=1024, kv=2, g=4, prefix=256)),
+                   (f32, dict(b=1, s=1000, kv=4, g=2))):
+        _attention_training_cases(torch, rec, gen, dt,
+                                  str(dt).removeprefix("torch."),
+                                  dt.itemsize, hd=qk, vd=vd, **kw)
 
 
 def _vlm_encdec_cases(torch, rec, gen):
@@ -993,7 +1029,7 @@ def _dense_family_cases(torch, rec, gen):
 def _padded(torch, native, q, k, v, do=None):
     """With ``native`` ``(qk, vd)`` widths (MLA's), zero the columns of q
     and k past ``qk`` and of v (and dO) past ``vd`` in place, as
-    ``attention.mla_attention`` pads them; returns the unpadded (B, heads,
+    ``ops`` pads a pair it is not built for; returns the unpadded (B, heads,
     S, width) copies of q, k, v for the library yardstick (None
     otherwise)."""
     if not native:
@@ -1025,28 +1061,37 @@ def _mask_form(ref, s, sk, causal, window, prefix):
             f"window={window}" if window else "causal")
 
 
+def _attention_bytes(b, s, sk, kv, g, hd, vd, es):
+    """Bytes of q, k, v and out (dO) of one attention call at widths
+    ``hd`` (q, k) and ``vd`` (v, out): each read or written once."""
+    return dict(q=b * s * kv * g * hd * es, k=b * sk * kv * hd * es,
+                v=b * sk * kv * vd * es, o=b * s * kv * g * vd * es)
+
+
 def _prefill_attention_case(torch, rec, gen, dt, s, kv, g, hd, b=1,
                             window=0, native=None, prefix=0, causal=True,
-                            sk=None):
+                            sk=None, vd=None):
     """K2 without its export (the prefill's form), causal (windowed by
     ``window``, or with the prefix-LM's ``prefix``) or bidirectional
     (``causal=False``, over ``sk`` keys: the encoder's and the
     cross-attention's form), at ``kv`` KV heads of ``hd`` under ``g``
     query heads each, against SDPA (a window that cuts or a prefix as a
     boolean mask, else ``is_causal`` or no mask), with its CUDA-graph time
-    and a rerun for the same bits.  ``native`` ``(qk, vd)``: the inputs
-    zero-padded from those widths (MLA), SDPA timed on the unpadded
-    tensors, and the bound of the unpadded work printed beside the padded
-    one's."""
+    and a rerun for the same bits.  ``vd``: v's width apart from q's and
+    k's ``hd`` (MLA's (96, 64), as K2 takes it).  ``native`` ``(qk,
+    vd)``: the inputs zero-padded from those widths, SDPA timed on the
+    unpadded tensors, and the bound of the unpadded work printed beside
+    the padded one's."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     dname = str(dt).removeprefix("torch.")
     es = torch.tensor([], dtype=dt).element_size()
     sk = sk or s
+    vd = vd or hd
     randn = lambda *shape: torch.randn(*shape, generator=gen,
                                        device="cuda").to(dt)
     q, k, v = randn(b, s, kv, g, hd), randn(b, sk, kv, hd), randn(b, sk, kv,
-                                                                  hd)
+                                                                  vd)
     qs = q.reshape(b, s, kv * g, hd).transpose(1, 2)
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
     unpadded = _padded(torch, native, q, k, v)
@@ -1058,21 +1103,22 @@ def _prefill_attention_case(torch, rec, gen, dt, s, kv, g, hd, b=1,
     visible, mask, is_causal, tag = _mask_form(ref, s, sk, causal,
                                                window, prefix)
     call = lambda: ops.attention(q, k, v, **args)
-    shape = (f"K2 {dname} B={b} S={s} KV={kv} G={g} hd={hd} {tag}"
+    shape = (f"K2 {dname} B={b} S={s} KV={kv} G={g} hd={hd}"
+             + (f" vd={vd}" if vd != hd else "") + f" {tag}"
              + (f" padded from {native}" if native else ""))
     pairs = b * kv * g * visible
     extra = {"graph_ms": graph_ms(torch, call)}
     if native:
-        qk, vd = native
-        extra["unpadded_bound_ms"] = bound(
-            2.0 * pairs * (qk + vd),
-            b * s * kv * (g + 1) * (qk + vd) * es, dname)[0]
+        nat = _attention_bytes(b, s, sk, kv, g, *native, es)
+        extra["unpadded_bound_ms"] = bound(2.0 * pairs * sum(native),
+                                           sum(nat.values()), dname)[0]
     _case(torch, rec, "K2", dname, ("K2", dname), call,
           lambda: ref.attention(q, k, v, **args),
           lambda: F.scaled_dot_product_attention(
               qs, ks, vs, attn_mask=mask, is_causal=is_causal,
               enable_gqa=True),
-          4.0 * pairs * hd, (b * s * g * 2 + 2 * b * sk) * kv * hd * es,
+          2.0 * pairs * (hd + vd),
+          sum(_attention_bytes(b, s, sk, kv, g, hd, vd, es).values()),
           shape, extra)
     _rerun_equal(torch, call, shape)
 
@@ -1242,7 +1288,8 @@ def _pairs(s: int, window: int = 0) -> int:
 
 def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
                               s=TRAIN_S, g=8, window=0, kv=1, hd=256,
-                              native=None, prefix=0, causal=True, sk=None):
+                              native=None, prefix=0, causal=True, sk=None,
+                              vd=None):
     """K2 with its (m, l) export, then K3 and K4, at a training shape (by
     default gemma-2b's: q (2, 512, 1, 8, 256), k/v (2, 512, 1, 256),
     m/l/delta (2, 1, 8, 512)); with a ``window``, K2 without the export
@@ -1251,22 +1298,23 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
     yardstick of K3 and K4 is one pair: the backward alone of SDPA
     (enable_gqa, a window or a prefix as a boolean mask) through
     torch.autograd.grad.  Each row also prints its CUDA-graph time, and
-    each kernel is rerun for the same bits.  ``native`` ``(qk, vd)``: the
-    inputs zero-padded from those widths (MLA's, at its own scale), SDPA
-    timed on the unpadded tensors, and the bound of the unpadded work
-    printed beside each padded row's."""
+    each kernel is rerun for the same bits.  ``vd``: v's and dO's width
+    apart from q's and k's ``hd`` (MLA's (96, 64), as K2-K4 take it).
+    ``native`` ``(qk, vd)``: the inputs zero-padded from those widths
+    (MLA's, at its own scale), SDPA timed on the unpadded tensors, and the
+    bound of the unpadded work printed beside each padded row's."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     scale = (native[0] if native else hd) ** -0.5
     sk = sk or s
+    vd_ = vd or hd
     randn = lambda *shape: torch.randn(*shape, generator=gen,
                                        device="cuda").to(dt)
     q, k, v, do = (randn(b, s, kv, g, hd), randn(b, sk, kv, hd),
-                   randn(b, sk, kv, hd), randn(b, s, kv, g, hd))
+                   randn(b, sk, kv, vd_), randn(b, s, kv, g, vd_))
     visible, mask, is_causal, tag = _mask_form(ref, s, sk, causal,
                                                window, prefix)
     pairs = b * kv * g * visible
-    qkv_bytes = (2 * b * s * g + 2 * b * sk) * kv * hd * es
     stat_bytes = b * kv * g * s * 4
     args = dict(scale=scale, causal=causal, window=window)
     if prefix:
@@ -1278,37 +1326,43 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
         qs, ks, vs = unpadded
     sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(
         q_, k_, v_, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
-    shape = f"B={b} S={s} KV={kv} G={g} hd={hd} {tag}" + (
-        f" padded from {native}" if native else "")
+    shape = (f"B={b} S={s} KV={kv} G={g} hd={hd}"
+             + (f" vd={vd_}" if vd_ != hd else "") + f" {tag}"
+             + (f" padded from {native}" if native else ""))
 
-    def graph(call, flops=None, nbytes=None):
+    # the work of each kernel at widths (w_qk, w_v): the products' flops
+    # and the bytes each operand and output moves once
+    def work(w_qk, w_v):
+        by = _attention_bytes(b, s, sk, kv, g, w_qk, w_v, es)
+        fwd = by["q"] + by["k"] + by["v"] + by["o"]
+        bwd = fwd + 3 * stat_bytes           # q, k, v, dO and m, l, delta
+        return {"fwd": (2.0 * pairs * (w_qk + w_v), fwd),
+                "export": (2.0 * pairs * (w_qk + w_v), fwd + 2 * stat_bytes),
+                "dq": (2.0 * pairs * (2 * w_qk + w_v), bwd + by["q"]),
+                "dkv": (2.0 * pairs * (2 * w_qk + 2 * w_v),
+                        bwd + by["k"] + by["v"])}
+
+    ran = work(hd, vd_)
+    nat = work(*native) if native else None
+
+    def graph(call, form):
         extra = {"graph_ms": graph_ms(torch, call)}
         if native:          # the same work at the unpadded widths
-            extra["unpadded_bound_ms"] = bound(flops, nbytes, dname)[0]
+            extra["unpadded_bound_ms"] = bound(*nat[form], dname)[0]
         return extra
 
-    # the unpadded widths' work: (q.k, v) widths and their bytes
-    qk, vd = native or (hd, hd)
-    rows, krows = b * s * kv, b * sk * kv
-    nat = dict(q=rows * g * qk * es, k=krows * qk * es, v=krows * vd * es,
-               o=rows * g * vd * es)
-    fwd_flops = 2.0 * pairs * (qk + vd)
-    fwd_bytes = nat["q"] + nat["k"] + nat["v"] + nat["o"]
     if window:
         fwd = lambda: ops.attention(q, k, v, **args)
         _case(torch, rec, "K2", dname, ("K2", dname), fwd,
               lambda: ref.attention(q, k, v, **args),
-              lambda: sdpa(qs, ks, vs), 4.0 * pairs * hd,
-              (b * s * g * 2 + 2 * b * sk) * kv * hd * es,
-              f"K2 {dname} {shape}", graph(fwd, fwd_flops, fwd_bytes))
+              lambda: sdpa(qs, ks, vs), *ran["fwd"],
+              f"K2 {dname} {shape}", graph(fwd, "fwd"))
         _rerun_equal(torch, fwd, f"K2 {dname} {shape}")
     export = lambda: ops.attention_stats(q, k, v, **args)
     _case(torch, rec, "K2", dname, ("K2", dname), export,
           lambda: ref.attention_stats(q, k, v, **args),
-          lambda: sdpa(qs, ks, vs),
-          4.0 * pairs * hd, (b * s * g * 2 + 2 * b * sk) * kv * hd * es
-          + 2 * stat_bytes, f"K2 {dname} {shape} export",
-          graph(export, fwd_flops, fwd_bytes + 2 * stat_bytes))
+          lambda: sdpa(qs, ks, vs), *ran["export"],
+          f"K2 {dname} {shape} export", graph(export, "export"))
     _rerun_equal(torch, export, f"K2 {dname} {shape} export")
     out, m, l = ops.attention_stats(q, k, v, **args)
     delta = (do.float() * out.reshape(do.shape).float()).sum(-1)
@@ -1318,30 +1372,24 @@ def _attention_training_cases(torch, rec, gen, dt, dname, es, b=TRAIN_B,
     kg = ks.detach().requires_grad_(True)
     vg = vs.detach().requires_grad_(True)
     og = sdpa(qg, kg, vg)
-    dos = do.reshape(b, s, kv * g, hd).transpose(1, 2)[..., :vd]
+    dos = do.reshape(b, s, kv * g, vd_).transpose(1, 2)[..., :vs.shape[-1]]
     sdpa_bwd = lambda: torch.autograd.grad(og, (qg, kg, vg), dos,
                                            retain_graph=True)
     dq = lambda: ops.flash_dq(*bwd, **args)
-    # unpadded: s = q k^T, dp = dO v^T, dq = ds k; K4 also dv = p^T dO,
-    # dk = ds^T q
-    bwd_bytes = fwd_bytes + nat["o"] + 3 * stat_bytes
+    # s = q k^T, dp = dO v^T, dq = ds k; K4 also dv = p^T dO, dk = ds^T q
     _case(torch, rec, "K3", dname, ("K3", dname), dq,
-          lambda: ref.flash_dq(*bwd, **args), sdpa_bwd,
-          2.0 * 3 * pairs * hd, qkv_bytes + 3 * stat_bytes
-          + b * s * kv * g * hd * es, f"K3 {dname} {shape}",
-          graph(dq, 2.0 * pairs * (2 * qk + vd), bwd_bytes + nat["q"]))
+          lambda: ref.flash_dq(*bwd, **args), sdpa_bwd, *ran["dq"],
+          f"K3 {dname} {shape}", graph(dq, "dq"))
     _rerun_equal(torch, dq, f"K3 {dname} {shape}")
     nsplit = ops.dkv_splits(b, s, sk, kv, g, causal, window, prefix)
+    k4_tc = dt == torch.bfloat16 and ops.DKV_ROWS % g == 0
     _case(torch, rec, "K4", dname, ("K4", dname),
           lambda: ops.flash_dkv(*bwd, **args),
-          lambda: ref.flash_dkv(*bwd, **args), sdpa_bwd,
-          2.0 * 4 * pairs * hd, qkv_bytes + 3 * stat_bytes
-          + 2 * b * sk * kv * hd * es, f"K4 {dname} {shape}",
-          {"path": "tc" if dt == torch.bfloat16 else "fma",
-           "row_splits": nsplit if dt == torch.bfloat16 else 1,
-           **graph(lambda: ops.flash_dkv(*bwd, **args),
-                   2.0 * pairs * (2 * qk + 2 * vd),
-                   bwd_bytes + nat["k"] + nat["v"])})
+          lambda: ref.flash_dkv(*bwd, **args), sdpa_bwd, *ran["dkv"],
+          f"K4 {dname} {shape}",
+          {"path": "tc" if k4_tc else "fma",
+           "row_splits": nsplit if k4_tc else 1,
+           **graph(lambda: ops.flash_dkv(*bwd, **args), "dkv")})
     _rerun_equal(torch, lambda: ops.flash_dkv(*bwd, **args),
                  f"K4 {dname} {shape}")
 
@@ -3681,6 +3729,336 @@ def phase_derive_path(torch, rec, applied):
 # moe_path: deepseek-moe-16b, the MoE family's serving path
 # ---------------------------------------------------------------------------
 
+#: [energy_path]: the square GEMM sizes; the least device time of one
+#: CUDA-graph replay (r products captured, so a small N is not bound by the
+#: host's launches); the least window of replays between two reads of the
+#: energy counter; the idle window; nvidia-smi's sampling period where NVML
+#: refuses the counter
+ENERGY_NS = (1024, 2048, 4096, 8192)
+ENERGY_REPLAY_MS = 20.0
+ENERGY_WINDOW_S = 1.0
+ENERGY_IDLE_S = 1.0
+ENERGY_SMI_MS = 100
+
+
+class _NvmlEnergy:
+    """The card's own energy counter: NVML's
+    ``nvmlDeviceGetTotalEnergyConsumption`` (mJ since the driver loaded),
+    bound by ctypes to ``libnvidia-ml.so.1``, on the device at torch's
+    device 0's PCI bus id (its UUID where the bus id is not known)."""
+
+    def __init__(self, torch):
+        import ctypes
+        self.ct = ctypes
+        self.lib = ctypes.CDLL("libnvidia-ml.so.1")
+        self._ok("nvmlInit_v2", self.lib.nvmlInit_v2())
+        self.handle = ctypes.c_void_p()
+        props = torch.cuda.get_device_properties(0)
+        if hasattr(props, "pci_bus_id"):
+            self.bus = (f"{getattr(props, 'pci_domain_id', 0):08x}:"
+                        f"{props.pci_bus_id:02x}:"
+                        f"{props.pci_device_id:02x}.0")
+            self._ok("nvmlDeviceGetHandleByPciBusId_v2",
+                     self.lib.nvmlDeviceGetHandleByPciBusId_v2(
+                         self.bus.encode(), ctypes.byref(self.handle)))
+        else:
+            self.bus = None
+            self._ok("nvmlDeviceGetHandleByUUID",
+                     self.lib.nvmlDeviceGetHandleByUUID(
+                         f"GPU-{props.uuid}".encode(),
+                         ctypes.byref(self.handle)))
+        self.source = (f"NVML nvmlDeviceGetTotalEnergyConsumption (mJ), "
+                       f"device {self.bus or props.uuid}")
+        self.read()
+
+    def _ok(self, what, code):
+        if code != 0:
+            raise RuntimeError(f"{what} returned NVML error {code}")
+
+    def read(self) -> float:
+        """Joules since the driver loaded."""
+        mj = self.ct.c_ulonglong()
+        self._ok("nvmlDeviceGetTotalEnergyConsumption",
+                 self.lib.nvmlDeviceGetTotalEnergyConsumption(
+                     self.handle, self.ct.byref(mj)))
+        return mj.value / 1e3
+
+    def close(self) -> None:
+        self.lib.nvmlShutdown()
+
+
+class _SmiEnergy:
+    """Where NVML refuses: ``nvidia-smi --query-gpu=power.draw`` sampled
+    every ENERGY_SMI_MS by one ``nvidia-smi -lms`` process, integrated on
+    the host's clock (trapezoids between arrivals); ``read`` is the
+    integral so far, so a window's ends are as coarse as the period."""
+
+    def __init__(self, bus):
+        import threading
+        self.joules, self.last, self.lock = 0.0, None, threading.Lock()
+        target = [f"--id={bus}"] if bus else []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", *target, "--query-gpu=power.draw",
+             "--format=csv,noheader,nounits", "-lms", str(ENERGY_SMI_MS)],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.source = (f"nvidia-smi power.draw sampled every "
+                       f"{ENERGY_SMI_MS} ms, integrated on the host clock")
+        self.thread = threading.Thread(target=self._pump, daemon=True)
+        self.thread.start()
+        t0 = time.perf_counter()
+        while self.last is None and time.perf_counter() - t0 < 10:
+            time.sleep(0.01)
+        require(self.last is not None, "nvidia-smi gave no power sample")
+
+    def _pump(self):
+        for line in self.proc.stdout:
+            try:
+                watts = float(line.strip())
+            except ValueError:
+                continue
+            now = time.perf_counter()
+            with self.lock:
+                if self.last is not None:
+                    t, w = self.last
+                    self.joules += 0.5 * (w + watts) * (now - t)
+                self.last = (now, watts)
+
+    def read(self) -> float:
+        with self.lock:
+            return self.joules
+
+    def close(self) -> None:
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=10)
+        self.thread.join(timeout=10)
+
+
+def _energy_meter(torch):
+    """NVML's counter, or nvidia-smi's sampled power where NVML refuses;
+    the phase prints which."""
+    try:
+        return _NvmlEnergy(torch)
+    except (OSError, AttributeError, RuntimeError) as err:
+        print(f"[energy_path] NVML refused ({err}); falling back to "
+              f"nvidia-smi power.draw", flush=True)
+    props = torch.cuda.get_device_properties(0)
+    bus = (f"{getattr(props, 'pci_domain_id', 0):08x}:"
+           f"{props.pci_bus_id:02x}:{props.pci_device_id:02x}.0"
+           if hasattr(props, "pci_bus_id") else None)
+    return _SmiEnergy(bus)
+
+
+def _edge(meter, since=None) -> tuple[float, float]:
+    """``(joules, host time)`` at the counter's next update after ``since``
+    (a value read before; now by default), polled every 0.5 ms: the
+    counter moves in steps (about every 100 ms on an H100), so a window
+    read between two steps' edges counts whole steps, where a read at a
+    random instant would miss up to a step at either end.  Gives up
+    after 1 s and returns the value it holds then."""
+    v0 = meter.read() if since is None else since
+    t_start = time.perf_counter()
+    while True:
+        v, t = meter.read(), time.perf_counter()
+        if v != v0 or t - t_start > 1.0:
+            return v, t
+        time.sleep(0.0005)
+
+
+def _idle_power(torch, meter) -> tuple[float, int]:
+    """Mean watts over at least ENERGY_IDLE_S with nothing launched, from
+    one counter edge to another, and how many times the counter changed
+    in that window (its update rate)."""
+    torch.cuda.synchronize()
+    time.sleep(0.2)
+    e0, t0 = _edge(meter)
+    last, changes = e0, 0
+    while time.perf_counter() - t0 < ENERGY_IDLE_S:
+        time.sleep(0.001)
+        now = meter.read()
+        changes += now != last
+        last = now
+    e1, t1 = _edge(meter, last)
+    return (e1 - e0) / (t1 - t0), changes + 1
+
+
+def _energy_row(torch, meter, fn, idle_w) -> dict:
+    """``fn``'s time, energy and power over a window of at least
+    ENERGY_WINDOW_S: r calls captured in one CUDA graph (a replay at least
+    ENERGY_REPLAY_MS of device time), the graph replayed R times from one
+    counter edge (``_edge``) until the synchronize after the last, the
+    next edge read after that and the idle power of the tail between
+    the two taken off; the same replays timed by CUDA events."""
+    one = time_ms(torch, fn, iters=3, warmup=2)
+    r = max(1, math.ceil(ENERGY_REPLAY_MS / one))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        fn()
+        with torch.cuda.graph(graph):
+            for _ in range(r):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    replay_ms = time_ms(torch, graph.replay, iters=2, warmup=1)
+    reps = max(1, math.ceil(ENERGY_WINDOW_S * 1e3 / replay_ms))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0, t0 = _edge(meter)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    e1, t1 = _edge(meter)
+    del graph
+    n = reps * r
+    wall = t_end - t0
+    joules = e1 - e0 - idle_w * (t1 - t_end)
+    return dict(ms=start.elapsed_time(end) / n, J=joules / n,
+                J_above_idle=(joules - idle_w * wall) / n, W=joules / wall,
+                products=n, per_replay=r, window_s=wall, rose=e1 > e0)
+
+
+def _slopes(values) -> list:
+    """log2(v(2N) / v(N)) between neighbouring sizes."""
+    return [round(math.log2(b / a), 3) if a > 0 and b > 0 else None
+            for a, b in zip(values, values[1:])]
+
+
+def phase_energy_path(torch, card) -> dict:
+    """The paper's energy model held against the card's own energy
+    counter: idle power, then for N in ENERGY_NS three families of
+    square products, each timed and metered over a window of CUDA-graph
+    replays: (a) ``ops.moa_gemm`` in bf16 (K1, B row-major: MoA's
+    contiguous normal form), (b) the same product with B stored
+    column-major through ``ops.apply`` (the classical column walk of B,
+    its route printed), (c) max-plus in f32 on K9 (CUDA cores, as the
+    paper's V100).  The bf16 rows print the model's ms, J, W and bound
+    (``energy.gemm_energy`` on the H100 table's solved blocks) beside
+    the derived block and K1's tile, and the classical HBM bytes the
+    model charges; then the slopes log2(E(2N)/E(N)) and the paper's
+    §3.6.3 ratios.  Each family's 1024 product is held to its plain
+    version.  Returns the launches of its driven calls."""
+    from repro_torch.core import energy
+    from repro_torch.core import expr as E
+    from repro_torch.core.blocking import solve_blocks
+    from repro_torch.hardware import H100
+    from repro_torch.kernels import ops
+
+    phase_t0 = time.perf_counter()
+    limit_w = float(card.rsplit(",", 1)[1].strip().split()[0])
+    meter = _energy_meter(torch)
+    try:
+        idle_w, changes = _idle_power(torch, meter)
+        print(f"[energy_path] source: {meter.source}; idle {idle_w:.2f} W "
+              f"over {ENERGY_IDLE_S:.1f} s, the counter changed {changes} "
+              f"times in it ({card})", flush=True)
+        require(0 < idle_w <= 1.05 * limit_w, f"idle power {idle_w} W "
+                f"outside (0, 1.05 x {limit_w} W]")
+        gen = torch.Generator(device="cuda").manual_seed(28)
+        rows = {"a": [], "b": [], "c": [], "model": []}
+        ops.reset_launches()
+        for n in ENERGY_NS:
+            a = torch.randn(n, n, generator=gen, device="cuda").bfloat16()
+            b = (torch.randn(n, n, generator=gen, device="cuda")
+                 * n ** -0.5).bfloat16()
+            bt = b.t().contiguous()              # B stored column-major
+            col = E.inner("add", "mul", E.arr("A", (n, n)),
+                          E.arr("B", (n, n), layout="col"))
+            a32, b32 = a.float(), b.float()
+            fams = {
+                "a": (f"moa_gemm bf16 (K1 {_route(ops, a, b, False, False)}"
+                      f", B row-major)",
+                      lambda: ops.moa_gemm(a, b, out_dtype=torch.float32)),
+                "b": (None, lambda: ops.apply(col, a, bt,
+                                              out_dtype=torch.float32)),
+                "c": ("max-plus f32 (K9, B row-major)",
+                      lambda: ops.semiring_matmul(a32, b32, plus="max",
+                                                  times="add"))}
+            before = dict(ops.LAUNCHES)
+            fams["b"][1]()
+            torch.cuda.synchronize()
+            kid = next(k for k in ops.LAUNCHES
+                       if ops.LAUNCHES[k] > before[k])
+            fams["b"] = (f"apply bf16, B col-layout ({kid}"
+                         + (f" {_route(ops, a, bt, False, True)} tb=1"
+                            if kid == "K1" else "") + ")", fams["b"][1])
+            if n == ENERGY_NS[0]:
+                for key, (label, fn) in fams.items():
+                    got = fn()
+                    with ops.reference_mode():
+                        want = fn()
+                    torch.cuda.synchronize()
+                    if key == "c":
+                        ok = torch.equal(got, want)
+                    else:
+                        err = (got - want).abs().max().item()
+                        ok = err <= TOL[("K1", "bfloat16")] * \
+                            want.abs().max().item()
+                    print(f"[energy_path] {label} N={n}: equals its plain "
+                          f"version: {ok}", flush=True)
+                    require(ok, f"[energy_path] {label}: differs from its "
+                            f"plain version")
+                    del got, want
+            bc = solve_blocks(n, n, n, "bfloat16", H100)
+            model = energy.gemm_energy(n, n, n, bc, hardware=H100)
+            bn = 256 if -(-n // 128) * -(-n // 256) >= ops.SM_COUNT else 128
+            rows["model"].append(model)
+            for key, (label, fn) in fams.items():
+                row = _energy_row(torch, meter, fn, idle_w)
+                rows[key].append(row)
+                require(row["rose"] and row["J"] > 0, f"[energy_path] "
+                        f"{label} N={n}: the energy counter did not rise")
+                require(0 < row["W"] <= 1.05 * limit_w, f"[energy_path] "
+                        f"{label} N={n}: mean power {row['W']:.1f} W "
+                        f"outside (0, 1.05 x {limit_w} W]")
+                line = (f"[energy_path] {label} N={n}: {row['ms']:.4f} ms, "
+                        f"{row['J']:.6f} J a product ({row['J_above_idle']:.6f}"
+                        f" J above idle), mean {row['W']:.1f} W over "
+                        f"{row['window_s']:.3f} s ({row['products']} "
+                        f"products, {row['per_replay']} a replay)")
+                if key in ("a", "b"):
+                    line += (f"; model {model.time_s * 1e3:.4f} ms, "
+                             f"{model.energy_J:.6f} J, {model.power_W:.1f} "
+                             f"W, {model.bound}-bound, derived block "
+                             f"{bc.as_tuple()} vs K1 tile (128, {bn}, 64); "
+                             f"classical HBM bytes "
+                             f"{energy.gemm_unblocked_traffic(n, n, n):.4e}")
+                print(line, flush=True)
+            del a, b, bt, a32, b32
+            torch.cuda.empty_cache()
+        launches = dict(ops.LAUNCHES)
+        for key, label in (("a", "moa_gemm bf16"),
+                           ("b", "apply bf16 col-layout B"),
+                           ("c", "max-plus f32")):
+            rs = rows[key]
+            p = [r["W"] for r in rs]
+            t = [r["ms"] for r in rs]
+            print(f"[energy_path] {label}: slopes log2(E(2N)/E(N)) total "
+                  f"{_slopes([r['J'] for r in rs])}, above idle "
+                  f"{_slopes([r['J_above_idle'] for r in rs])}, time "
+                  f"{_slopes(t)}; power max/min {max(p) / min(p):.3f} "
+                  f"against time max/min {max(t) / min(t):.1f}", flush=True)
+        ms_ = rows["model"]
+        print(f"[energy_path] model (H100 table, bf16): slopes energy "
+              f"{_slopes([m.energy_J for m in ms_])}, time "
+              f"{_slopes([m.time_s for m in ms_])}; power max/min "
+              f"{max(m.power_W for m in ms_) / min(m.power_W for m in ms_):.3f}"
+              f" against time max/min "
+              f"{ms_[-1].time_s / ms_[0].time_s:.1f}", flush=True)
+    finally:
+        meter.close()
+    print(f"[energy_path] launches {launches}; phase wall "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return launches
+
+
 def _moe_counts(cfg):
     """``(K1 launches of one forward, those of K1's expert form)``: 6 a
     dense layer (q, k, v, o and the MLP's two), 9 a MoE layer (q, k, v,
@@ -4343,7 +4721,8 @@ def _mla_agreement(torch, cfg, params, tokens, cache_len):
 
 def phase_mla_path(torch, card):
     """minicpm3-4b at full width and depth: make_prefill B=1 S=MLA_S (K2 on
-    the padded MLA attention), ServeEngine over contiguous per-slot latent
+    MLA's attention at its widths, q.k 96 and v 64, read from the launches'
+    own arguments), ServeEngine over contiguous per-slot latent
     caches, greedy_generate (K1's head form in each decode step), the
     agreement with the plain path, a decode step under sync debug
     "error", profiles."""
@@ -4382,10 +4761,12 @@ def phase_mla_path(torch, card):
         ops.reset_launches()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        logits, cache = prefill(params, {"tokens": tokens})
-        end.record()
-        torch.cuda.synchronize()
+        widths = {}
+        with _width_spy(widths):
+            start.record()
+            logits, cache = prefill(params, {"tokens": tokens})
+            end.record()
+            torch.cuda.synchronize()
         launches_p = dict(ops.LAUNCHES)
         prefill_ms = start.elapsed_time(end)
         require(tuple(logits.shape) == (1, V) and
@@ -4401,15 +4782,17 @@ def phase_mla_path(torch, card):
         require(launches_p == want, "prefill launches differ from the "
                 "derived counts")
         qk, vd = MLA_WIDTHS
+        print(f"[mla_path] K2 launched at (kernel, hd, vd): {widths}",
+              flush=True)
+        require(widths == {("K2", qk, vd): L}, "MLA's K2 must run at its "
+                f"own widths {MLA_WIDTHS}, no zero column")
         pairs = MLA_S * (MLA_S + 1) // 2
         mm = _mla_mm_params(params) - V * d        # the head: one row
         att = L * h * pairs * 2 * (qk + vd)
         flops = 2 * MLA_S * mm + 2 * V * d + att
-        padded = L * h * pairs * 4 * 128
         print(f"[mla_path] prefill bound: {flops / 1e12:.3f} TFLOP at 989 "
               f"TFLOP/s = {flops / H100_PEAK_FLOPS['bfloat16'] * 1e3:.3f} ms "
-              f"(attention {att / 1e12:.3f} TFLOP unpadded, "
-              f"{padded / 1e12:.3f} padded to 128 as K2 runs it); peak "
+              f"(attention {att / 1e12:.3f} TFLOP at ({qk}, {vd})); peak "
               f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
               f"({card})", flush=True)
         torch.cuda.empty_cache()
@@ -4535,9 +4918,16 @@ def phase_mla_train(torch, card):
 
     state = ts.init_state(cfg, params, "cuda")
     step = ts.make_train_step(cfg, microbatches=mb)
-    state, rows, launches, peak = _train_steps(
-        torch, "mla_train", step, state, batches, tokens)
+    widths = {}
+    with _width_spy(widths):
+        state, rows, launches, peak = _train_steps(
+            torch, "mla_train", step, state, batches, tokens)
     n = TRAIN_STEPS * mb
+    qk, vd = MLA_WIDTHS
+    print(f"[mla_train] K2-K4 launched at (kernel, hd, vd): {widths}",
+          flush=True)
+    require(set(widths) == {(x, qk, vd) for x in ("K2", "K3", "K4")},
+            f"MLA's K2-K4 must run at its own widths {MLA_WIDTHS}")
     k1 = _mla_counts(cfg)[0]
     # per microbatch: the forward's products, the layers' again under
     # remat, two VJP products each; K2 a layer forward and in its remat
@@ -4548,7 +4938,6 @@ def phase_mla_train(torch, card):
           f"microbatches {launches} (derived {want})", flush=True)
     require(launches == want, "kernel launches differ from the derived "
             "counts")
-    qk, vd = MLA_WIDTHS
     pairs = MLA_TRAIN_B * MLA_S * (MLA_S + 1) // 2
     att = L * cfg.n_heads * pairs * 2 * (qk + vd)
     flops = 3 * (2 * tokens * _mla_mm_params(params) + att)
@@ -4558,7 +4947,7 @@ def phase_mla_train(torch, card):
     print(f"[mla_train] step ms {[round(r[0], 3) for r in rows]} (steps 2-3 "
           f"mean {mean_ms:.3f} ms, {tokens / mean_ms * 1e3:.1f} tok/s); peak "
           f"memory {peak / 2**30:.2f} GiB", flush=True)
-    print(f"[mla_train] bound: products and unpadded attention "
+    print(f"[mla_train] bound: products and attention at ({qk}, {vd}) "
           f"{flops / 1e12:.3f} TFLOP at 989 TFLOP/s = {ops_ms:.3f} ms + "
           f"AdamW {n_params * 28 / 1e9:.3f} GB at 3.35 TB/s = {opt_ms:.3f} "
           f"ms = {ops_ms + opt_ms:.3f} ms ({card})", flush=True)
@@ -4582,6 +4971,24 @@ def _mask_spy(record):
         if name.startswith("repro_flash"):
             i = ops._SIGNATURES[name][1].index(ops._F)
             record.append((name, *args[i + 1:i + 4]))
+        return orig(name, *args)
+    return _patched(ops, "_launch", wrapped)
+
+
+def _width_spy(record):
+    """``ops._launch`` wrapped to count ``{(kernel, hd, vd): launches}`` of
+    every K2-K4 launch: the widths the kernels receive (the two ints
+    before the scale)."""
+    from repro_torch.kernels import ops
+    orig = ops._launch
+    names = {"repro_flash_fwd": "K2", "repro_flash_dq": "K3",
+             "repro_flash_dkv": "K4"}
+
+    def wrapped(name, *args):
+        if name in names:
+            i = ops._SIGNATURES[name][1].index(ops._F)
+            key = (names[name], *args[i - 2:i])
+            record[key] = record.get(key, 0) + 1
         return orig(name, *args)
     return _patched(ops, "_launch", wrapped)
 
@@ -5243,6 +5650,8 @@ def main() -> None:
     derive = phase_derive_path(torch, rec, applied)
     del applied
     torch.cuda.empty_cache()
+    energy = phase_energy_path(torch, smi_line)
+    torch.cuda.empty_cache()
     moe_serve = phase_moe_path(torch, smi_line)
     torch.cuda.empty_cache()
     moe_train = phase_moe_train(torch, smi_line)
@@ -5298,7 +5707,7 @@ def main() -> None:
             "ssm_path": ssm_serve,
             "ssm_train": ssm_train, "hybrid_path": hybrid_serve,
             "hybrid_train": hybrid_train, "moa_path": moa,
-            "derive_path": derive,
+            "derive_path": derive, "energy_path": energy,
             "moe_path": moe_serve, "moe_train": moe_train,
             "llama4_path": llama4_serve, "mla_path": mla_serve,
             "mla_train": mla_train, "vlm_path": vlm_serve,

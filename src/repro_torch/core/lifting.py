@@ -7,7 +7,9 @@ grid extents, the innermost (fast-memory) block and the per-chip local
 shape.  The hardware tables (``HardwareShape``, ``MemoryLevel``) are the
 port's own, in ``repro_torch.hardware``.  The reference's
 ``partition_spec`` emits a ``jax.sharding.PartitionSpec`` and comes with
-the distributed slice.
+the distributed slice.  ``batch_lifting`` and ``model_lifting`` are the
+canonical liftings of activations (the batch over the data-parallel mesh
+axes) and of a feature axis (over the model axis).
 """
 from __future__ import annotations
 
@@ -98,3 +100,22 @@ def lift_shape(hardware: HardwareShape,
                                     Sequence[tuple[Optional[str], int]]]]
                ) -> LiftedShape:
     return LiftedShape(tuple(lift(n, s, sp) for n, s, sp in axes), hardware)
+
+
+def batch_lifting(hardware: HardwareShape, batch: int, *rest: tuple[str, int]
+                  ) -> LiftedShape:
+    """Lift the batch axis over every data-parallel mesh axis (pod, data);
+    the other axes stay unlifted: the activation sharding rule."""
+    dp_axes = [(n, s) for n, s in hardware.mesh_axes if n in ("pod", "data")]
+    axes = [("batch", batch, [(n, s) for n, s in dp_axes])]
+    axes += [(n, s, []) for n, s in rest]
+    return lift_shape(hardware, axes)
+
+
+def model_lifting(hardware: HardwareShape, axis_name: str, size: int,
+                  *rest: tuple[str, int]) -> LiftedShape:
+    """Lift a feature axis over the model mesh axis (tensor parallelism)."""
+    tp = dict(hardware.mesh_axes).get("model", 1)
+    axes = [(axis_name, size, [("model", tp)] if tp > 1 else [])]
+    axes += [(n, s, []) for n, s in rest]
+    return lift_shape(hardware, axes)

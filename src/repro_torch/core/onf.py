@@ -6,6 +6,8 @@ tags) with one flat affine ``Access`` per operand and for the output
 (paper eq. 3/4: ``C[(i*p)+j] += A[(i*n)+k] * B[(k*p)+j]``), and the
 semiring's combine/reduce names.  ``execute`` is the numpy oracle,
 ``key()`` the schedule-cache key, ``lift_loop`` the dimension lift.
+The paper's liftings of the GEMM (figs 2, 4, 5), the classical baseline,
+the expert GEMM and the blocked Hadamard are built from these.
 """
 from __future__ import annotations
 
@@ -143,6 +145,16 @@ def gemm_onf(m: int, n: int, p: int) -> Onf:
                        reduce_axes=("k",))
 
 
+def gemm_classical_onf(m: int, n: int, p: int) -> Onf:
+    """The row-by-column baseline: ``gemm_onf``'s normal form with the
+    sigma loop rotated innermost, loops (i, j, k), so the innermost loop
+    strides B by p."""
+    import dataclasses
+    return reorder_loops(
+        dataclasses.replace(gemm_onf(m, n, p), name="classical_gemm"),
+        ("i", "j", "k"))
+
+
 def hadamard_onf(m: int, n: int) -> Onf:
     """Elementwise product: the same nest shape, an empty reduce set."""
     from repro_torch.core import expr as E
@@ -200,3 +212,58 @@ def reorder_loops(onf: Onf, order: Sequence[str]) -> Onf:
                          f"{tuple(by_name)}")
     return Onf(onf.name, tuple(by_name[i] for i in order), onf.out, onf.ins,
                onf.reduce_indices, onf.combine, onf.reduce_op)
+
+
+def gemm_lifted_rows(m: int, n: int, p: int, np_procs: int) -> Onf:
+    """Paper fig 4 (ip_rows.c): lift i over processors."""
+    return lift_loop(gemm_onf(m, n, p), "i", np_procs, "proc")
+
+
+def gemm_lifted_cols(m: int, n: int, p: int, rsize: int) -> Onf:
+    """Paper fig 5 (ip_cols.c): lift j into groups of ``rsize`` (vector
+    registers / thread groups)."""
+    if p % rsize:
+        raise ValueError(f"rsize {rsize} does not divide p = {p}")
+    return lift_loop(gemm_onf(m, n, p), "j", p // rsize, "vector")
+
+
+def gemm_fully_lifted(m: int, n: int, p: int, *, procs: int, bk: int,
+                      bn: int) -> Onf:
+    """The paper's full schedule (fig 2): rows over processors, k into
+    sigma-blocks (the extra addition loop over blocks), j into register
+    groups: a 6-deep nest from the 3-deep ONF."""
+    o = gemm_onf(m, n, p)
+    o = lift_loop(o, "i", procs, "proc")
+    o = lift_loop(o, "k", max(n // bk, 1), "block")
+    o = lift_loop(o, "j", max(p // bn, 1), "vector")
+    return o
+
+
+def expert_gemm_onf(e: int, cap: int, d: int, f: int) -> Onf:
+    """The capacity-padded MoE expert GEMM,
+    ``C[(ee*cap + i)*f + j] += X[(ee*cap + i)*d + k] * W[(ee*d + k)*f + j]``:
+    the expert axis batches ``e`` MoA GEMMs over flat row-major buffers."""
+    from repro_torch.core import expr as E
+    return E.normalize(E.expert_gemm_expr(e, cap, d, f),
+                       name="expert_gemm", out_axes=("e", "i", "j"),
+                       reduce_axes=("k",))
+
+
+def expert_gemm_fully_lifted(e: int, cap: int, d: int, f: int, *, bm: int,
+                             bk: int, bn: int) -> Onf:
+    """One more dimension lift of fig 2: the expert axis lifts fully onto a
+    processor resource, then rows, sigma-blocks and register groups."""
+    o = expert_gemm_onf(e, cap, d, f)
+    o = lift_loop(o, "e", e, "proc")
+    o = lift_loop(o, "i", max(cap // bm, 1), "proc")
+    o = lift_loop(o, "k", max(d // bk, 1), "block")
+    o = lift_loop(o, "j", max(f // bn, 1), "vector")
+    return o
+
+
+def hadamard_lifted(m: int, n: int, *, bm: int, bn: int) -> Onf:
+    """Blocked Hadamard: both axes lifted, no sigma loop."""
+    o = hadamard_onf(m, n)
+    o = lift_loop(o, "i", max(m // bm, 1), "proc")
+    o = lift_loop(o, "j", max(n // bn, 1), "vector")
+    return o

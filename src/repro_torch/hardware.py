@@ -2,15 +2,19 @@
 ``MemoryLevel``/``HardwareShape`` schema of ``repro.core.lifting``), plus
 the H100 the port runs on.
 
-``TPU_V5E`` is copied unchanged so tests can hold the port's solver
-against the reference's on the same table.  ``H100`` describes the card
-the way the reference's ``GPU_A100`` describes an A100: the SM's shared
-memory stands in for VMEM, the SMs form the mesh axis, the tensor-core
-fragment is the matrix tile and a warp is the register tile.
+``TPU_V5E``, ``TPU_V5E_2POD``, ``GPU_A100`` and ``V100`` (the paper's
+Table 1) are copied unchanged so tests can hold the port's solver and
+energy model against the reference's on the same tables.  ``H100``
+describes the card the way the reference's ``GPU_A100`` describes an
+A100: the SM's shared memory stands in for VMEM, the SMs form the mesh
+axis, the tensor-core fragment is the matrix tile and a warp is the
+register tile.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from functools import reduce
 
 
 @dataclass(frozen=True)
@@ -39,8 +43,15 @@ class HardwareShape:
     sa_power_W: float = 200.0
     acc_dtypes: tuple = ("float32", "bfloat16", "int32")
 
+    @property
+    def n_chips(self) -> int:
+        return reduce(lambda a, b: a * b, (s for _, s in self.mesh_axes), 1)
+
     def mesh_axis_names(self) -> tuple[str, ...]:
         return tuple(n for n, _ in self.mesh_axes)
+
+    def mesh_shape(self) -> tuple[int, ...]:
+        return tuple(s for _, s in self.mesh_axes)
 
 
 TPU_V5E = HardwareShape(
@@ -56,6 +67,43 @@ TPU_V5E = HardwareShape(
     flop_energy_pJ=0.25,
 )
 
+TPU_V5E_2POD = dataclasses.replace(
+    TPU_V5E, mesh_axes=(("pod", 2), ("data", 16), ("model", 16)))
+
+# the reference's A100 table (the SM's shared memory as VMEM, the
+# tensor-core fragment as the matrix tile, a warp as the register tile)
+GPU_A100 = HardwareShape(
+    name="gpu_a100",
+    mesh_axes=(("sm", 108),),
+    vmem=MemoryLevel("smem", capacity_bytes=164 * 2**10, bandwidth_Bps=1.9e13,
+                     energy_pJ_per_byte=0.09),
+    hbm=MemoryLevel("hbm", capacity_bytes=40 * 2**30, bandwidth_Bps=1555e9,
+                    energy_pJ_per_byte=4.0),
+    ici_Bps=600e9,
+    ici_energy_pJ_per_byte=8.0,
+    peak_flops=312e12,
+    flop_energy_pJ=0.4,
+    mxu_tile=(16, 16),
+    vreg_tile=(1, 32),
+)
+
+# the paper's V100 (its Table 1), as the reference's table gives it
+V100 = HardwareShape(
+    name="v100",
+    mesh_axes=(("sm", 80),),
+    vmem=MemoryLevel("l1", capacity_bytes=32 * 2**10, bandwidth_Bps=1.2e13,
+                     energy_pJ_per_byte=0.1),
+    hbm=MemoryLevel("global", capacity_bytes=16 * 2**30, bandwidth_Bps=900e9,
+                    energy_pJ_per_byte=6.0),
+    ici_Bps=32e9,
+    ici_energy_pJ_per_byte=12.0,
+    peak_flops=7.8e12,            # fp64
+    flop_energy_pJ=6.0,
+    mxu_tile=(1, 1),
+    vreg_tile=(1, 8),
+    acc_dtypes=("float32",),
+)
+
 # NVIDIA H100 SXM (data sheet): 132 SMs, 227 KB of shared memory usable by
 # one block (232,448 bytes), 80 GB HBM3 at 3.35 TB/s, 989 TFLOP/s dense
 # bf16 on the tensor cores, NVLink 900 GB/s.  The tensor cores accumulate
@@ -63,7 +111,15 @@ TPU_V5E = HardwareShape(
 # ...s32.s8.s8.s32, wgmma ...s32.s8.s8): the table offers those two
 # accumulators.  They have no bf16 accumulator, so a bf16 accumulation
 # schedule is refused on this table, as on the reference's V100 entry.
-# The energy entries are model scales, like the reference's.
+# The energy entries are model assumptions, neither measured on the card
+# nor fitted to it (core/energy.py charges them; chip_smoke.py's
+# [energy_path] holds the model's predictions against the card's own
+# energy counter):
+#   - flop_energy_pJ 0.4, the shared memory's 0.09 pJ/B, HBM's 4.0 pJ/B
+#     and NVLink's 8.0 pJ/B are the reference's GPU_A100 entries, carried
+#     over unchanged;
+#   - sa_power_W 700 is the card's power limit, which the model charges as
+#     static power for the whole modeled time, on top of the dynamic terms.
 H100 = HardwareShape(
     name="h100",
     mesh_axes=(("sm", 132),),

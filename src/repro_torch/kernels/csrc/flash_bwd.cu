@@ -1,9 +1,9 @@
 // K3 and K4: the flash-attention backward over the grouped-query layout
 //
-//   q, dO (B, Sq, KV, G, hd); k, v (B, Sk, KV, hd);
-//   m, l, delta (B, KV, G, Sq) float32   (the forward's exported
-//   statistics and delta = rowsum(dO * out))
-//   K3 -> dq (B, Sq, KV, G, hd);  K4 -> dk, dv (B, Sk, KV, hd)
+//   q (B, Sq, KV, G, hd), dO (B, Sq, KV, G, vd); k (B, Sk, KV, hd),
+//   v (B, Sk, KV, vd); m, l, delta (B, KV, G, Sq) float32   (the
+//   forward's exported statistics and delta = rowsum(dO * out))
+//   K3 -> dq (B, Sq, KV, G, hd);  K4 -> dk (B, Sk, KV, hd), dv (.., vd)
 //
 // Replaces: src/repro/kernels/emit.py, _flash_dq_kind (K3) and
 // _flash_dkv_kind (K4), the two recurrence kinds that ops.attention's VJP
@@ -18,6 +18,19 @@
 // :541-551, :646); K3 widens its key range as K2 does, K4 its row range
 // with the roles swapped (a key tile that starts below the prefix is seen
 // from row 0).
+//
+// Widths: the q.k width hd and the value width vd are template parameters
+// apart (the reference's kinds read vd from the value block, emit.py:529,
+// :633), over the pairs of REPRO_FLASH_WIDTHS (hopper.cuh), MLA's (96, 64)
+// among them.  K3 reads q, k at hd and dO, v at vd and writes dq at hd; K4
+// writes dk at hd and dv at vd.  In the bf16 forms every product that
+// contracts over a width runs width / 16 k-steps (6 at hd = 96), and a
+// 96-wide row takes two 64-column swizzle tiles whose last 32 columns TMA
+// fills with zeros.  The two products whose output width is hd (K3's dQ
+// += dS K and K4's dK += dS^T Q) read K or Q MN-major, and a 128-byte
+// swizzle atom is 64 columns wide, so at hd = 96 they run at N = 128 over
+// the zero columns and store the first 96: 1/8 of K3's product work and
+// 1/10 of K4's at MLA's widths.
 //
 // What bounds them on an H100: at gemma-2b training shapes (B = 2, S =
 // 512, G = 8 query heads over one KV head, hd = 256) each kernel does 3
@@ -125,14 +138,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
-// Copy `rows` rows of HD elements into shared memory (row pitch `pitch`);
+// Copy `rows` rows of W elements into shared memory (row pitch `pitch`);
 // row i comes from `src + row_off(i)`, or is zero when row_off(i) < 0.
-template <typename T, int HD, typename RowOff>
+template <typename T, int W, typename RowOff>
 __device__ __forceinline__ void load_rows(T* dst, int pitch,
                                           const T* __restrict__ src,
                                           int rows, RowOff row_off) {
   constexpr int PER_VEC = 16 / sizeof(T);
-  constexpr int VECS = HD / PER_VEC;
+  constexpr int VECS = W / PER_VEC;
   for (int e = threadIdx.x; e < rows * VECS; e += THREADS) {
     const int r = e / VECS, c = (e % VECS) * PER_VEC;
     const long long off = row_off(r);
@@ -163,7 +176,7 @@ __device__ __forceinline__ bool visible(int kp, int qp, int causal,
 
 constexpr int BM = 64;           // query rows per block (4 threads a row)
 
-template <typename T, int HD, int BN>
+template <typename T, int HD, int VD, int BN>
 __global__ void __launch_bounds__(THREADS)
 flash_dq(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, const T* __restrict__ dout,
@@ -172,14 +185,15 @@ flash_dq(const T* __restrict__ q, const T* __restrict__ k,
          int Sk, int KV, int G, float scale, int causal, int window,
          int prefix) {
   constexpr int PITCH = HD + 16 / sizeof(T);
+  constexpr int VPITCH = VD + 16 / sizeof(T);
   constexpr int KPT = BN / 4;                  // keys scored per thread
   constexpr int DPT = HD / 4;                  // dq columns per thread
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* Os = Qs + BM * PITCH;                     // dO rows
-  T* Ks = Os + BM * PITCH;
+  T* Ks = Os + BM * VPITCH;
   T* Vs = Ks + BN * PITCH;
-  float* Ds = reinterpret_cast<float*>(Vs + BN * PITCH);   // (BM, BN + 1)
+  float* Ds = reinterpret_cast<float*>(Vs + BN * VPITCH);  // (BM, BN + 1)
 
   const int r0 = blockIdx.x * BM, kvh = blockIdx.y, b = blockIdx.z;
   const int rows = Sq * G;
@@ -188,15 +202,18 @@ flash_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int qpos = row / G;
   const bool row_ok = row < rows;
 
-  // row (pos, g) of q, dO and dq: ((b*Sq + pos)*KV + kvh)*G*HD + g*HD
-  auto q_off = [&](int i) -> long long {
+  // row (pos, g) of q and dq: ((b*Sq + pos)*KV + kvh)*G*HD + g*HD; of dO
+  // the same with VD
+  auto row_off = [&](int i, int w) -> long long {
     const int rr = r0 + i;
     if (rr >= rows) return -1;
-    return ((long long)(b * Sq + rr / G) * KV + kvh) * G * HD +
-           (long long)(rr % G) * HD;
+    return ((long long)(b * Sq + rr / G) * KV + kvh) * G * w +
+           (long long)(rr % G) * w;
   };
+  auto q_off = [&](int i) { return row_off(i, HD); };
   load_rows<T, HD>(Qs, PITCH, q, BM, q_off);
-  load_rows<T, HD>(Os, PITCH, dout, BM, q_off);
+  load_rows<T, VD>(Os, VPITCH, dout, BM,
+                   [&](int i) { return row_off(i, VD); });
 
   float lse = 0.f, dl = 0.f;
   if (row_ok) {
@@ -224,19 +241,20 @@ flash_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
 
   for (int k0 = kstart; k0 < kend; k0 += BN) {
-    auto kv_off = [&](int i) -> long long {
+    auto kv_off = [&](int i, int w) -> long long {
       const int kp = k0 + i;
       if (kp >= Sk) return -1;
-      return ((long long)(b * Sk + kp) * KV + kvh) * HD;
+      return ((long long)(b * Sk + kp) * KV + kvh) * w;
     };
-    load_rows<T, HD>(Ks, PITCH, k, BN, kv_off);
-    load_rows<T, HD>(Vs, PITCH, v, BN, kv_off);
+    load_rows<T, HD>(Ks, PITCH, k, BN, [&](int i) { return kv_off(i, HD); });
+    load_rows<T, VD>(Vs, VPITCH, v, BN,
+                     [&](int i) { return kv_off(i, VD); });
     __syncthreads();
 
     for (int j = 0; j < KPT; ++j) {
       const int c = q4 + 4 * j;
       const float dot = dot_row<T, HD>(Qs + r * PITCH, Ks + c * PITCH);
-      const float dpv = dot_row<T, HD>(Os + r * PITCH, Vs + c * PITCH);
+      const float dpv = dot_row<T, VD>(Os + r * VPITCH, Vs + c * VPITCH);
       const int kp = k0 + c;
       const bool ok = kp < Sk && visible(kp, qpos, causal, window, prefix);
       const float s = ok ? dot * scale : MASK_NEG_INF;
@@ -267,7 +285,7 @@ flash_dq(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int BJ = 16;           // keys per block (16 threads a key)
 constexpr int BI = 32;           // streamed query rows per tile
 
-template <typename T, int HD>
+template <typename T, int HD, int VD>
 __global__ void __launch_bounds__(THREADS)
 flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
@@ -276,15 +294,17 @@ flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
           T* __restrict__ dv, int Sq, int Sk, int KV, int G, float scale,
           int causal, int window, int prefix) {
   constexpr int PITCH = HD + 16 / sizeof(T);
+  constexpr int VPITCH = VD + 16 / sizeof(T);
   constexpr int TPK = THREADS / BJ;            // threads per key
   constexpr int RPT = BI / TPK;                // streamed rows per thread
-  constexpr int DPT = HD / TPK;                // dk / dv columns per thread
+  constexpr int DPT = HD / TPK;                // dk columns per thread
+  constexpr int VPT = VD / TPK;                // dv columns per thread
   extern __shared__ __align__(16) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);
   T* Vs = Ks + BJ * PITCH;
-  T* Qs = Vs + BJ * PITCH;
+  T* Qs = Vs + BJ * VPITCH;
   T* Os = Qs + BI * PITCH;                     // dO rows
-  float* Ps = reinterpret_cast<float*>(Os + BI * PITCH);   // (BJ, BI + 1)
+  float* Ps = reinterpret_cast<float*>(Os + BI * VPITCH);  // (BJ, BI + 1)
   float* Ds = Ps + BJ * (BI + 1);                          // (BJ, BI + 1)
   float* lse_s = Ds + BJ * (BI + 1);                       // (BI,)
   float* dl_s = lse_s + BI;                                // (BI,)
@@ -294,13 +314,13 @@ flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
   const int jl = threadIdx.x / TPK, t = threadIdx.x % TPK;
   const int kpos = j0 + jl;
 
-  auto kv_off = [&](int i) -> long long {
+  auto kv_off = [&](int i, int w) -> long long {
     const int kp = j0 + i;
     if (kp >= Sk) return -1;
-    return ((long long)(b * Sk + kp) * KV + kvh) * HD;
+    return ((long long)(b * Sk + kp) * KV + kvh) * w;
   };
-  load_rows<T, HD>(Ks, PITCH, k, BJ, kv_off);
-  load_rows<T, HD>(Vs, PITCH, v, BJ, kv_off);
+  load_rows<T, HD>(Ks, PITCH, k, BJ, [&](int i) { return kv_off(i, HD); });
+  load_rows<T, VD>(Vs, VPITCH, v, BJ, [&](int i) { return kv_off(i, VD); });
 
   // streamed rows that can see a key of this tile (the forward's causal,
   // window and prefix block-skip with the roles swapped: a tile that starts
@@ -319,18 +339,20 @@ flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
   }
   rstart = (rstart / BI) * BI;
 
-  float dk_acc[DPT], dv_acc[DPT];
-  for (int j = 0; j < DPT; ++j) dk_acc[j] = dv_acc[j] = 0.f;
+  float dk_acc[DPT], dv_acc[VPT];
+  for (int j = 0; j < DPT; ++j) dk_acc[j] = 0.f;
+  for (int j = 0; j < VPT; ++j) dv_acc[j] = 0.f;
 
   for (int r0 = rstart; r0 < rend; r0 += BI) {
-    auto q_off = [&](int i) -> long long {
+    auto row_off = [&](int i, int w) -> long long {
       const int rr = r0 + i;
       if (rr >= rows) return -1;
-      return ((long long)(b * Sq + rr / G) * KV + kvh) * G * HD +
-             (long long)(rr % G) * HD;
+      return ((long long)(b * Sq + rr / G) * KV + kvh) * G * w +
+             (long long)(rr % G) * w;
     };
-    load_rows<T, HD>(Qs, PITCH, q, BI, q_off);
-    load_rows<T, HD>(Os, PITCH, dout, BI, q_off);
+    load_rows<T, HD>(Qs, PITCH, q, BI, [&](int i) { return row_off(i, HD); });
+    load_rows<T, VD>(Os, VPITCH, dout, BI,
+                     [&](int i) { return row_off(i, VD); });
     if (threadIdx.x < BI) {
       const int rr = r0 + threadIdx.x;
       float lse = 0.f, dl = 0.f;
@@ -349,7 +371,7 @@ flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
       const int c = t + TPK * i;
       const int rr = r0 + c;
       const float dot = dot_row<T, HD>(Ks + jl * PITCH, Qs + c * PITCH);
-      const float dpv = dot_row<T, HD>(Vs + jl * PITCH, Os + c * PITCH);
+      const float dpv = dot_row<T, VD>(Vs + jl * VPITCH, Os + c * VPITCH);
       const bool ok = rr < rows && kpos < Sk &&
                       visible(kpos, rr / G, causal, window, prefix);
       const float s = ok ? dot * scale : MASK_NEG_INF;
@@ -363,35 +385,46 @@ flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
       const float p = Ps[jl * (BI + 1) + c];
       const float ds = Ds[jl * (BI + 1) + c];
       const T* qr = Qs + c * PITCH + t;
-      const T* orow = Os + c * PITCH + t;
+      const T* orow = Os + c * VPITCH + t;
+      if constexpr (HD == VD) {
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        dk_acc[j] = fmaf(ds, to_f(qr[TPK * j]), dk_acc[j]);
-        dv_acc[j] = fmaf(p, to_f(orow[TPK * j]), dv_acc[j]);
+        for (int j = 0; j < DPT; ++j) {
+          dk_acc[j] = fmaf(ds, to_f(qr[TPK * j]), dk_acc[j]);
+          dv_acc[j] = fmaf(p, to_f(orow[TPK * j]), dv_acc[j]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < DPT; ++j)
+          dk_acc[j] = fmaf(ds, to_f(qr[TPK * j]), dk_acc[j]);
+#pragma unroll
+        for (int j = 0; j < VPT; ++j)
+          dv_acc[j] = fmaf(p, to_f(orow[TPK * j]), dv_acc[j]);
       }
     }
     __syncthreads();
   }
 
   if (kpos < Sk) {
-    const long long off = kv_off(jl);
-    for (int j = 0; j < DPT; ++j) {
-      dk[off + t + TPK * j] = from_f<T>(dk_acc[j] * scale);
-      dv[off + t + TPK * j] = from_f<T>(dv_acc[j]);
-    }
+    const long long ok = kv_off(jl, HD), ov = kv_off(jl, VD);
+    for (int j = 0; j < DPT; ++j)
+      dk[ok + t + TPK * j] = from_f<T>(dk_acc[j] * scale);
+    for (int j = 0; j < VPT; ++j)
+      dv[ov + t + TPK * j] = from_f<T>(dv_acc[j]);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int VD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* m, const float* l, const float* delta, void* dq,
               int B, int Sq, int Sk, int KV, int G, float scale, int causal,
               int window, int prefix, cudaStream_t s) {
   constexpr int BN = sizeof(T) == 2 ? 32 : 16;
   constexpr int PITCH = HD + 16 / sizeof(T);
-  const size_t smem = (size_t)(2 * BM + 2 * BN) * PITCH * sizeof(T) +
-                      (size_t)BM * (BN + 1) * sizeof(float);
-  auto kern = flash_dq<T, HD, BN>;
+  constexpr int VPITCH = VD + 16 / sizeof(T);
+  const size_t smem =
+      (size_t)(BM + BN) * (PITCH + VPITCH) * sizeof(T) +
+      (size_t)BM * (BN + 1) * sizeof(float);
+  auto kern = flash_dq<T, HD, VD, BN>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -403,15 +436,16 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int VD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* m, const float* l, const float* delta, void* dk,
                void* dv, int B, int Sq, int Sk, int KV, int G, float scale,
                int causal, int window, int prefix, cudaStream_t s) {
   constexpr int PITCH = HD + 16 / sizeof(T);
-  const size_t smem = (size_t)(2 * BJ + 2 * BI) * PITCH * sizeof(T) +
+  constexpr int VPITCH = VD + 16 / sizeof(T);
+  const size_t smem = (size_t)(BJ + BI) * (PITCH + VPITCH) * sizeof(T) +
                       (size_t)(2 * BJ * (BI + 1) + 2 * BI) * sizeof(float);
-  auto kern = flash_dkv<T, HD>;
+  auto kern = flash_dkv<T, HD, VD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -426,7 +460,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // which = 0: K3 (out0 = dq), its FMA form (f32 only: bf16 takes
 // tc::dispatch_dq); which = 1: K4 (out0 = dk, out1 = dv)
-template <typename T, int HD>
+template <typename T, int HD, int VD>
 int launch_which(int which, const void* q, const void* k, const void* v,
                  const void* dout, const float* m, const float* l,
                  const float* delta, void* out0, void* out1, int B, int Sq,
@@ -434,36 +468,30 @@ int launch_which(int which, const void* q, const void* k, const void* v,
                  int prefix, cudaStream_t s) {
   if (which == 0) {
     if constexpr (std::is_same_v<T, float>)
-      return launch_dq<T, HD>(q, k, v, dout, m, l, delta, out0, B, Sq, Sk,
-                              KV, G, scale, causal, window, prefix, s);
+      return launch_dq<T, HD, VD>(q, k, v, dout, m, l, delta, out0, B, Sq,
+                                  Sk, KV, G, scale, causal, window, prefix,
+                                  s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_dkv<T, HD>(q, k, v, dout, m, l, delta, out0, out1, B, Sq, Sk,
-                           KV, G, scale, causal, window, prefix, s);
+  return launch_dkv<T, HD, VD>(q, k, v, dout, m, l, delta, out0, out1, B, Sq,
+                               Sk, KV, G, scale, causal, window, prefix, s);
 }
 
 template <typename T>
-int dispatch_hd(int which, int hd, const void* q, const void* k,
-                const void* v, const void* dout, const float* m,
-                const float* l, const float* delta, void* out0, void* out1,
-                int B, int Sq, int Sk, int KV, int G, float scale, int causal,
-                int window, int prefix, cudaStream_t s) {
-  switch (hd) {
-    case 64:
-      return launch_which<T, 64>(which, q, k, v, dout, m, l, delta, out0,
-                                 out1, B, Sq, Sk, KV, G, scale, causal,
+int dispatch_widths(int which, int hd, int vd, const void* q, const void* k,
+                    const void* v, const void* dout, const float* m,
+                    const float* l, const float* delta, void* out0,
+                    void* out1, int B, int Sq, int Sk, int KV, int G,
+                    float scale, int causal, int window, int prefix,
+                    cudaStream_t s) {
+#define REPRO_CASE(H, V)                                                   \
+  if (hd == H && vd == V)                                                  \
+    return launch_which<T, H, V>(which, q, k, v, dout, m, l, delta, out0,   \
+                                 out1, B, Sq, Sk, KV, G, scale, causal,     \
                                  window, prefix, s);
-    case 128:
-      return launch_which<T, 128>(which, q, k, v, dout, m, l, delta, out0,
-                                  out1, B, Sq, Sk, KV, G, scale, causal,
-                                  window, prefix, s);
-    case 256:
-      return launch_which<T, 256>(which, q, k, v, dout, m, l, delta, out0,
-                                  out1, B, Sq, Sk, KV, G, scale, causal,
-                                  window, prefix, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  REPRO_FLASH_WIDTHS(REPRO_CASE)
+#undef REPRO_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -483,14 +511,17 @@ __host__ __device__ constexpr int keys_per_tile(int hd) {
 }
 
 // K/V ring depth: as many stages as fit beside the Q and dO tiles (3 at
-// hd = 256 with two consumer warpgroups, 4 with one), at most 4
-__host__ __device__ constexpr int dq_stages(int hd, int nwg) {
-  const int fit = (225 * 1024 - 2 * nwg * (int)tile_bytes(64, hd)) /
-                  (2 * (int)tile_bytes(keys_per_tile(hd), hd));
+// hd = vd = 256 with two consumer warpgroups, 4 with one), at most 4; hk
+// and hv are the widths padded to whole 64-column tiles
+__host__ __device__ constexpr int dq_stages(int hk, int hv, int nwg) {
+  const int bn = keys_per_tile(hk);
+  const int fit = (225 * 1024 - nwg * (int)(tile_bytes(64, hk) +
+                                            tile_bytes(64, hv))) /
+                  ((int)tile_bytes(bn, hk) + (int)tile_bytes(bn, hv));
   return fit < 4 ? fit : 4;
 }
 
-template <int HD, int NWG>
+template <int HD, int VD, int NWG>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 flash_dq_tc(const __grid_constant__ CUtensorMap tm_k,
             const __grid_constant__ CUtensorMap tm_v,
@@ -499,14 +530,16 @@ flash_dq_tc(const __grid_constant__ CUtensorMap tm_k,
             const float* __restrict__ delta, bf16* __restrict__ dq, int Sq,
             int Sk, int KV, int G, float scale, int causal, int window,
             int prefix) {
-  constexpr int BN = keys_per_tile(HD);
-  constexpr uint32_t Q_BYTES = tile_bytes(64, HD);
-  using Ring = KVRing<HD, BN, dq_stages(HD, NWG)>;
+  constexpr int HK = pad64(HD), HV = pad64(VD);
+  constexpr int BN = keys_per_tile(HK);
+  constexpr uint32_t Q_BYTES = tile_bytes(64, HK);
+  constexpr uint32_t O_BYTES = tile_bytes(64, HV);
+  using Ring = KVRing<HK, HV, BN, dq_stages(HK, HV, NWG)>;
   const float scale_log2 = scale * LOG2E;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);           // NWG x Q_BYTES
-  uint8_t* Os = Qs + NWG * Q_BYTES;            // dO rows, NWG x Q_BYTES
-  Ring ring(Os + NWG * Q_BYTES);
+  uint8_t* Os = Qs + NWG * Q_BYTES;            // dO rows, NWG x O_BYTES
+  Ring ring(Os + NWG * O_BYTES);
 
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int rows = Sq * G;
@@ -535,16 +568,18 @@ flash_dq_tc(const __grid_constant__ CUtensorMap tm_k,
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int rw = blockIdx.x * 64 * NWG + wg * 64;   // its first row
     uint8_t* Qw = Qs + wg * Q_BYTES;
-    uint8_t* Ow = Os + wg * Q_BYTES;
-    // row (pos, g) of q, dO and dq: ((b*Sq + pos)*KV + kvh)*G*HD + g*HD
-    auto row_off = [&](int row) -> long long {
+    uint8_t* Ow = Os + wg * O_BYTES;
+    // row (pos, g) of q and dq: ((b*Sq + pos)*KV + kvh)*G*HD + g*HD; of dO
+    // the same with VD
+    auto row_off = [&](int row, int w) -> long long {
       if (row >= rows) return -1;
-      return ((long long)(b * Sq + row / G) * KV + kvh) * G * HD +
-             (long long)(row % G) * HD;
+      return ((long long)(b * Sq + row / G) * KV + kvh) * G * w +
+             (long long)(row % G) * w;
     };
-    load_rows_sw128<HD>(Qw, q, tid, [&](int i) { return row_off(rw + i); });
-    load_rows_sw128<HD>(Ow, dout, tid,
-                        [&](int i) { return row_off(rw + i); });
+    load_rows_sw128<HD>(Qw, q, tid,
+                        [&](int i) { return row_off(rw + i, HD); });
+    load_rows_sw128<VD>(Ow, dout, tid,
+                        [&](int i) { return row_off(rw + i, VD); });
 
     const int row0 = rw + warp * 16 + lane / 4, row1 = row0 + 8;
     const int qp0 = row0 / G, qp1 = row1 / G;
@@ -569,15 +604,15 @@ flash_dq_tc(const __grid_constant__ CUtensorMap tm_k,
 
     const uint64_t dq_desc = make_desc(Qw, 16, 1024);
     const uint64_t do_desc = make_desc(Ow, 16, 1024);
-    float acc[HD / 2];
+    float acc[HK / 2];
     float sc[BN / 2], dp[BN / 2];
     uint32_t ds[BN / 16][4], dsn[BN / 16][4];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < HK / 2; ++i) acc[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
 
-    // S = Q K^T and dP = dO V^T of tile t over hd in steps of 16, both
+    // S = Q K^T over hd and dP = dO V^T over vd, in steps of 16, both
     // K-major, committed as one group
     auto issue_s_dp = [&](int t) {
       const uint64_t dk = make_desc(ring.k_tile(t), 16, 1024);
@@ -592,7 +627,7 @@ flash_dq_tc(const __grid_constant__ CUtensorMap tm_k,
       }
       ring.wait_v(t);
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < VD / 16; ++kk) {
         const uint32_t qo = (kk / 4) * 8192 + (kk % 4) * 32;
         const uint32_t ko = (kk / 4) * BN * 128 + (kk % 4) * 32;
         wgmma_ss<BN>(dp, do_desc + (qo >> 4), dv + (ko >> 4), kk > 0);
@@ -600,11 +635,12 @@ flash_dq_tc(const __grid_constant__ CUtensorMap tm_k,
       wgmma_commit();
     };
     // dQ += dS K of tile t over its keys in steps of 16, K read MN-major
+    // (at N = HK: whole 64-column swizzle atoms)
     auto issue_dq = [&](int t, uint32_t (&da)[BN / 16][4]) {
       const uint64_t dk_mn = make_desc(ring.k_tile(t), BN * 128, 1024);
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs_mn<HD>(acc, da[kk], dk_mn + ((kk * 2048) >> 4), 1);
+        wgmma_rs_mn<HK>(acc, da[kk], dk_mn + ((kk * 2048) >> 4), 1);
       wgmma_commit();
     };
     // p = exp(s - lse) (f32, not rounded), dS = p (dP - delta), then dS
@@ -691,7 +727,7 @@ flash_dq_tc(const __grid_constant__ CUtensorMap tm_k,
     }
 
     // the scale once, then the cast to q's dtype
-    const long long o0 = row_off(row0), o1 = row_off(row1);
+    const long long o0 = row_off(row0, HD), o1 = row_off(row1, HD);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int col = 8 * j + 2 * t4;
@@ -705,19 +741,21 @@ flash_dq_tc(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
-template <int HD, int NWG>
+template <int HD, int VD, int NWG>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* m, const float* l, const float* delta, void* dq,
               int B, int Sq, int Sk, int KV, int G, float scale, int causal,
               int window, int prefix, cudaStream_t s) {
-  constexpr int BN = keys_per_tile(HD);
+  constexpr int HK = pad64(HD), HV = pad64(VD);
+  constexpr int BN = keys_per_tile(HK);
   CUtensorMap tm_k, tm_v;
   int err = encode_rows_map(&tm_k, k, B, Sk, KV, HD, BN);
-  if (err == 0) err = encode_rows_map(&tm_v, v, B, Sk, KV, HD, BN);
+  if (err == 0) err = encode_rows_map(&tm_v, v, B, Sk, KV, VD, BN);
   if (err != 0) return err;
-  constexpr size_t smem = 1024 + 2 * NWG * tile_bytes(64, HD) +
-                          KVRing<HD, BN, dq_stages(HD, NWG)>::BYTES;
-  auto kern = flash_dq_tc<HD, NWG>;
+  constexpr size_t smem =
+      1024 + NWG * (tile_bytes(64, HK) + tile_bytes(64, HV)) +
+      KVRing<HK, HV, BN, dq_stages(HK, HV, NWG)>::BYTES;
+  auto kern = flash_dq_tc<HD, VD, NWG>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -730,7 +768,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // two consumer warpgroups (128-row blocks) once those blocks fill the SMs
-template <int HD>
+template <int HD, int VD>
 int launch_dq_rows(const void* q, const void* k, const void* v,
                    const void* dout, const float* m, const float* l,
                    const float* delta, void* dq, int B, int Sq, int Sk,
@@ -738,30 +776,24 @@ int launch_dq_rows(const void* q, const void* k, const void* v,
                    int prefix, cudaStream_t s) {
   const long long blocks128 = (long long)((Sq * G + 127) / 128) * KV * B;
   if (blocks128 >= sm_count())
-    return launch_dq<HD, 2>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk, KV, G,
-                            scale, causal, window, prefix, s);
-  return launch_dq<HD, 1>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk, KV, G,
-                          scale, causal, window, prefix, s);
+    return launch_dq<HD, VD, 2>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk,
+                                KV, G, scale, causal, window, prefix, s);
+  return launch_dq<HD, VD, 1>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk, KV,
+                              G, scale, causal, window, prefix, s);
 }
 
-int dispatch_dq(int hd, const void* q, const void* k, const void* v,
+int dispatch_dq(int hd, int vd, const void* q, const void* k, const void* v,
                 const void* dout, const float* m, const float* l,
                 const float* delta, void* dq, int B, int Sq, int Sk, int KV,
                 int G, float scale, int causal, int window, int prefix,
                 cudaStream_t s) {
-  switch (hd) {
-    case 64:
-      return launch_dq_rows<64>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk, KV,
-                                G, scale, causal, window, prefix, s);
-    case 128:
-      return launch_dq_rows<128>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk,
-                                 KV, G, scale, causal, window, prefix, s);
-    case 256:
-      return launch_dq_rows<256>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk,
-                                 KV, G, scale, causal, window, prefix, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define REPRO_CASE(H, V)                                                   \
+  if (hd == H && vd == V)                                                  \
+    return launch_dq_rows<H, V>(q, k, v, dout, m, l, delta, dq, B, Sq, Sk, \
+                                KV, G, scale, causal, window, prefix, s);
+  REPRO_FLASH_WIDTHS(REPRO_CASE)
+#undef REPRO_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -797,23 +829,28 @@ __device__ inline void dkv_row_tiles(int j0, int Sq, int Sk, int G,
 
 // Shared memory: K and V resident, two f32 P^T tiles, the ring's Q and dO
 // tiles (1024-byte aligned), its rows' statistics, the barriers; as many
-// stages as fit, at most 4
-template <int HD>
+// stages as fit, at most 4.  HK, HV: the widths padded to 64 columns.
+template <int HK, int HV>
 struct DkvSmem {
   static constexpr int R = DKV_ROWS;
-  static constexpr uint32_t KV = tile_bytes(DKV_KEYS, HD);
-  static constexpr uint32_t ROWS = tile_bytes(R, HD);
+  static constexpr uint32_t KT = tile_bytes(DKV_KEYS, HK);
+  static constexpr uint32_t VT = tile_bytes(DKV_KEYS, HV);
+  static constexpr uint32_t QROWS = tile_bytes(R, HK);
+  static constexpr uint32_t OROWS = tile_bytes(R, HV);
   static constexpr uint32_t P = DKV_KEYS * R * 4;       // one f32 P^T tile
-  static constexpr int FIT =
-      (225 * 1024 - 2 * (int)KV - 2 * (int)P) / (2 * (int)ROWS + 8 * R);
+  static constexpr int FIT = (225 * 1024 - (int)(KT + VT) - 2 * (int)P) /
+                             ((int)(QROWS + OROWS) + 8 * R);
   static constexpr int STAGES = FIT < 4 ? FIT : 4;
-  static constexpr size_t BYTES = 1024 + 2 * KV + 2 * P +
-                                  STAGES * (2 * ROWS + 8 * R) +
+  static constexpr size_t BYTES = 1024 + KT + VT + 2 * P +
+                                  STAGES * (QROWS + OROWS + 8 * R) +
                                   (2 * STAGES + 1) * sizeof(uint64_t);
   static_assert(BYTES <= 232448, "K4 shared memory");
 };
 
-template <int HD>
+template <int N>
+using Width = std::integral_constant<int, N>;
+
+template <int HD, int VD>
 __global__ void __launch_bounds__(384, 1)
 flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_do,
@@ -824,23 +861,25 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
              bf16* __restrict__ dv, float* __restrict__ ws, int Sq, int Sk,
              int KV, int G, float scale, int causal, int window, int prefix,
              int nsplit) {
-  using L = DkvSmem<HD>;
+  constexpr int HK = pad64(HD), HV = pad64(VD);
+  using L = DkvSmem<HK, HV>;
   constexpr int S = L::STAGES, R = L::R;
   constexpr uint32_t CHUNK = R * 128;      // 64 columns of a row tile
+  constexpr uint32_t STAGE = L::QROWS + L::OROWS;
   const float scale_log2 = scale * LOG2E;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Ks = align1024(smem_raw);
-  uint8_t* Vs = Ks + L::KV;
-  float* Pbuf = reinterpret_cast<float*>(Vs + L::KV);     // 2 x 64 x R f32
+  uint8_t* Vs = Ks + L::KT;
+  float* Pbuf = reinterpret_cast<float*>(Vs + L::VT);     // 2 x 64 x R f32
   uint8_t* ring = reinterpret_cast<uint8_t*>(Pbuf + 2 * DKV_KEYS * R);
-  auto q_tile = [&](int s) { return ring + s * 2 * L::ROWS; };
-  auto do_tile = [&](int s) { return q_tile(s) + L::ROWS; };
+  auto q_tile = [&](int s) { return ring + s * STAGE; };
+  auto do_tile = [&](int s) { return q_tile(s) + L::QROWS; };
   // lse (log2 domain) then delta of the stage's R rows
   auto stats = [&](int s) {
-    return reinterpret_cast<float*>(ring + S * 2 * L::ROWS) + s * 2 * R;
+    return reinterpret_cast<float*>(ring + S * STAGE) + s * 2 * R;
   };
   uint64_t* full =
-      reinterpret_cast<uint64_t*>(ring + S * (2 * L::ROWS + 8 * R));
+      reinterpret_cast<uint64_t*>(ring + S * (STAGE + 8 * R));
   uint64_t* empty = full + S;
   uint64_t* kv_full = empty + S;
 
@@ -873,24 +912,26 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
     if (tid == 0) {
       prefetch_map(&tm_q);
       prefetch_map(&tm_do);
-      mbar_expect_tx(kv_full, 2 * L::KV);
+      mbar_expect_tx(kv_full, L::KT + L::VT);
 #pragma unroll
-      for (int c = 0; c < HD / 64; ++c) {
+      for (int c = 0; c < HK / 64; ++c)
         tma_load_4d(Ks + c * 8192, &tm_k, kv_full, c * 64, kvh, j0, b);
+#pragma unroll
+      for (int c = 0; c < HV / 64; ++c)
         tma_load_4d(Vs + c * 8192, &tm_v, kv_full, c * 64, kvh, j0, b);
-      }
       for (int i = 0; i < ntiles; ++i) {
         const int s = i % S;
         const int pos0 = (first + i) * R / G;
         mbar_wait(empty + s, ((i / S) & 1) ^ 1);
-        mbar_expect_tx(full + s, 2 * L::ROWS);
+        mbar_expect_tx(full + s, STAGE);
 #pragma unroll
-        for (int c = 0; c < HD / 64; ++c) {
+        for (int c = 0; c < HK / 64; ++c)
           tma_load_5d(q_tile(s) + c * CHUNK, &tm_q, full + s, c * 64, 0, kvh,
                       pos0, b);
+#pragma unroll
+        for (int c = 0; c < HV / 64; ++c)
           tma_load_5d(do_tile(s) + c * CHUNK, &tm_do, full + s, c * 64, 0,
                       kvh, pos0, b);
-        }
       }
     } else if (tid >= 32 && tid < 64) {
       const int lane = tid - 32;
@@ -922,139 +963,164 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
     const int kp0 = j0 + warp * 16 + lane / 4, kp1 = kp0 + 8;   // its keys
     const uint64_t dk_desc = make_desc(Ks, 16, 1024);
     const uint64_t dv_desc = make_desc(Vs, 16, 1024);
-    float acc[HD / 2];
-    float sc[R / 2];
-    uint32_t pa[R / 16][4];
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
     mbar_wait(kv_full, 0);
 
-    for (int i = 0; i < ntiles; ++i) {
-      const int s = i % S;
-      const int r0 = (first + i) * R;
-      mbar_wait(full + s, (i / S) & 1);
-      const float* st = stats(s);
-      // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1): 64 keys x R rows,
-      // both operands K-major over hd
-      const uint64_t a_desc = wg == 0 ? dk_desc : dv_desc;
-      const uint64_t b_desc =
-          make_desc(wg == 0 ? q_tile(s) : do_tile(s), 16, 1024);
-      wgmma_fence();
+    // A warpgroup's loop and flush: its first product contracts over KC
+    // columns (hd for S^T, vd for dP^T), its accumulator is N wide (HV for
+    // dV, HK for dK) and W of its columns are stored (vd, hd)
+    auto consume = [&](auto kc, auto nw, auto ww) {
+      constexpr int KC = decltype(kc)::value, N = decltype(nw)::value;
+      constexpr int W = decltype(ww)::value;
+      float acc[N / 2];
+      float sc[R / 2];
+      uint32_t pa[R / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t oa = (kk / 4) * 8192 + (kk % 4) * 32;
-        const uint32_t ob = (kk / 4) * CHUNK + (kk % 4) * 32;
-        wgmma_ss<R>(sc, a_desc + (oa >> 4), b_desc + (ob >> 4), kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(sc);
-      float* P = Pbuf + (i & 1) * (DKV_KEYS * R);
-      if (wg == 0) {
-        // P^T = exp(s * scale - lse) of the visible pairs, 0 elsewhere
-        const bool need_mask =
-            j0 + DKV_KEYS > Sk || r0 + R > rows ||
-            (causal && (r0 / G < j0 + DKV_KEYS - 1 ||
-                        (window > 0 && (r0 + R - 1) / G >= j0 + window)));
-#pragma unroll
-        for (int j = 0; j < R / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int rl = 8 * j + 2 * t4 + e;
-            const float lse = st[rl];
-            float p0 = exp2_fast(fmaf(sc[4 * j + e], scale_log2, -lse));
-            float p1 = exp2_fast(fmaf(sc[4 * j + 2 + e], scale_log2, -lse));
-            if (need_mask) {
-              const int r = r0 + rl, qp = r / G;
-              const bool row_ok = r < rows;
-              if (!row_ok || kp0 >= Sk || !visible(kp0, qp, causal, window,
-                                                   prefix))
-                p0 = 0.f;
-              if (!row_ok || kp1 >= Sk || !visible(kp1, qp, causal, window,
-                                                   prefix))
-                p1 = 0.f;
-            }
-            sc[4 * j + e] = p0;
-            sc[4 * j + 2 + e] = p1;
-          }
-        }
-        // hand P^T (f32) to warpgroup 1: thread i's values at [k][i], so
-        // each of its threads reads the positions it holds itself
-        if (i >= 2) named_bar_sync(3 + (i & 1), 256);
-#pragma unroll
-        for (int e = 0; e < R / 2; ++e) P[e * 128 + tid] = sc[e];
-        named_bar_arrive(1 + (i & 1), 256);
-      } else {
-        // dS^T = P^T (dP^T - delta), P^T from warpgroup 0
-        named_bar_sync(1 + (i & 1), 256);
-#pragma unroll
-        for (int j = 0; j < R / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float dl = st[R + 8 * j + 2 * t4 + e];
-            sc[4 * j + e] = P[(4 * j + e) * 128 + tid] * (sc[4 * j + e] - dl);
-            sc[4 * j + 2 + e] =
-                P[(4 * j + 2 + e) * 128 + tid] * (sc[4 * j + 2 + e] - dl);
-          }
-        }
-        if (i + 2 < ntiles) named_bar_arrive(3 + (i & 1), 256);
-      }
-      // dV += P^T dO (0) or dK += dS^T Q (1): the f32 tile rounded to bf16
-      // as the register A operand, dO / Q read MN-major (no transpose copy)
-#pragma unroll
-      for (int kk = 0; kk < R / 16; ++kk) {
-        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-      }
-      const uint64_t mn_desc =
-          make_desc(wg == 0 ? do_tile(s) : q_tile(s), CHUNK, 1024);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < R / 16; ++kk)
-        wgmma_rs_mn<HD>(acc, pa[kk], mn_desc + ((kk * 2048) >> 4), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      fence_regs(pa);
-      mbar_arrive(empty + s);
-    }
+      for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
 
-    // flush: dv (warpgroup 0) and dk (1, scaled once), in bf16 straight
-    // to the outputs when the block is the key tile's only split, else as
-    // f32 partials that dkv_reduce sums in split order
-    const float mul = wg == 1 ? scale : 1.f;
-    const size_t plane = (size_t)gridDim.z * Sk * HD;    // B * KV * Sk * HD
-    bf16* out = wg == 0 ? dv : dk;
-    float* part = ws + ((size_t)(wg == 0 ? 1 : 0) * nsplit + split) * plane;
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % S;
+        const int r0 = (first + i) * R;
+        mbar_wait(full + s, (i / S) & 1);
+        const float* st = stats(s);
+        // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1): 64 keys x R
+        // rows, both operands K-major over KC
+        const uint64_t a_desc = wg == 0 ? dk_desc : dv_desc;
+        const uint64_t b_desc =
+            make_desc(wg == 0 ? q_tile(s) : do_tile(s), 16, 1024);
+        wgmma_fence();
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int kp = h ? kp1 : kp0;
-      if (kp >= Sk) continue;
-      const size_t o = ((size_t)(b * Sk + kp) * KV + kvh) * HD;
+        for (int kk = 0; kk < KC / 16; ++kk) {
+          const uint32_t oa = (kk / 4) * 8192 + (kk % 4) * 32;
+          const uint32_t ob = (kk / 4) * CHUNK + (kk % 4) * 32;
+          wgmma_ss<R>(sc, a_desc + (oa >> 4), b_desc + (ob >> 4), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        float* P = Pbuf + (i & 1) * (DKV_KEYS * R);
+        if (wg == 0) {
+          // P^T = exp(s * scale - lse) of the visible pairs, 0 elsewhere
+          const bool need_mask =
+              j0 + DKV_KEYS > Sk || r0 + R > rows ||
+              (causal && (r0 / G < j0 + DKV_KEYS - 1 ||
+                          (window > 0 && (r0 + R - 1) / G >= j0 + window)));
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        const int col = 8 * j + 2 * t4;
-        const float x0 = acc[4 * j + 2 * h] * mul;
-        const float x1 = acc[4 * j + 2 * h + 1] * mul;
-        if (nsplit == 1)
-          *reinterpret_cast<uint32_t*>(out + o + col) = pack_bf16(x0, x1);
-        else
-          *reinterpret_cast<float2*>(part + o + col) = make_float2(x0, x1);
+          for (int j = 0; j < R / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int rl = 8 * j + 2 * t4 + e;
+              const float lse = st[rl];
+              float p0 = exp2_fast(fmaf(sc[4 * j + e], scale_log2, -lse));
+              float p1 =
+                  exp2_fast(fmaf(sc[4 * j + 2 + e], scale_log2, -lse));
+              if (need_mask) {
+                const int r = r0 + rl, qp = r / G;
+                const bool row_ok = r < rows;
+                if (!row_ok || kp0 >= Sk ||
+                    !visible(kp0, qp, causal, window, prefix))
+                  p0 = 0.f;
+                if (!row_ok || kp1 >= Sk ||
+                    !visible(kp1, qp, causal, window, prefix))
+                  p1 = 0.f;
+              }
+              sc[4 * j + e] = p0;
+              sc[4 * j + 2 + e] = p1;
+            }
+          }
+          // hand P^T (f32) to warpgroup 1: thread i's values at [k][i], so
+          // each of its threads reads the positions it holds itself
+          if (i >= 2) named_bar_sync(3 + (i & 1), 256);
+#pragma unroll
+          for (int e = 0; e < R / 2; ++e) P[e * 128 + tid] = sc[e];
+          named_bar_arrive(1 + (i & 1), 256);
+        } else {
+          // dS^T = P^T (dP^T - delta), P^T from warpgroup 0
+          named_bar_sync(1 + (i & 1), 256);
+#pragma unroll
+          for (int j = 0; j < R / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float dl = st[R + 8 * j + 2 * t4 + e];
+              sc[4 * j + e] =
+                  P[(4 * j + e) * 128 + tid] * (sc[4 * j + e] - dl);
+              sc[4 * j + 2 + e] =
+                  P[(4 * j + 2 + e) * 128 + tid] * (sc[4 * j + 2 + e] - dl);
+            }
+          }
+          if (i + 2 < ntiles) named_bar_arrive(3 + (i & 1), 256);
+        }
+        // dV += P^T dO (0) or dK += dS^T Q (1): the f32 tile rounded to
+        // bf16 as the register A operand, dO / Q read MN-major (no
+        // transpose copy) in whole 64-column swizzle atoms
+#pragma unroll
+        for (int kk = 0; kk < R / 16; ++kk) {
+          pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+        const uint64_t mn_desc =
+            make_desc(wg == 0 ? do_tile(s) : q_tile(s), CHUNK, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < R / 16; ++kk)
+          wgmma_rs_mn<N>(acc, pa[kk], mn_desc + ((kk * 2048) >> 4), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(pa);
+        mbar_arrive(empty + s);
       }
+
+      // flush: dv (warpgroup 0) and dk (1, scaled once), in bf16 straight
+      // to the outputs when the block is the key tile's only split, else
+      // as f32 partials that dkv_reduce sums in split order (ws: nsplit dk
+      // planes, then nsplit dv planes)
+      const float mul = wg == 1 ? scale : 1.f;
+      const size_t rows_kv = (size_t)gridDim.z * Sk;      // B * KV * Sk
+      bf16* out = wg == 0 ? dv : dk;
+      float* part = wg == 1 ? ws + split * rows_kv * HD
+                            : ws + nsplit * rows_kv * HD +
+                                  split * rows_kv * VD;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kp = h ? kp1 : kp0;
+        if (kp >= Sk) continue;
+        const size_t o = ((size_t)(b * Sk + kp) * KV + kvh) * W;
+#pragma unroll
+        for (int j = 0; j < W / 8; ++j) {
+          const int col = 8 * j + 2 * t4;
+          const float x0 = acc[4 * j + 2 * h] * mul;
+          const float x1 = acc[4 * j + 2 * h + 1] * mul;
+          if (nsplit == 1)
+            *reinterpret_cast<uint32_t*>(out + o + col) = pack_bf16(x0, x1);
+          else
+            *reinterpret_cast<float2*>(part + o + col) = make_float2(x0, x1);
+        }
+      }
+    };
+    if constexpr (HD == VD) {
+      consume(Width<HD>{}, Width<HK>{}, Width<HD>{});
+    } else {
+      if (wg == 0)
+        consume(Width<HD>{}, Width<HV>{}, Width<VD>{});
+      else
+        consume(Width<VD>{}, Width<HK>{}, Width<HD>{});
     }
   }
 }
 
 // dk = bf16(sum of the dk partials), dv the same, over the splits in
-// order (no atomics: reruns are the same bits); four elements a thread
+// order (no atomics: reruns are the same bits); four elements a thread.
+// plane_k, plane_v: the elements of dk and of dv (B * Sk * KV * hd, vd)
 __global__ void dkv_reduce(const float* __restrict__ ws, bf16* __restrict__ dk,
-                           bf16* __restrict__ dv, size_t plane, int nsplit) {
+                           bf16* __restrict__ dv, size_t plane_k,
+                           size_t plane_v, int nsplit) {
   const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (i >= plane) return;
   for (int which = 0; which < 2; ++which) {
-    const float* src = ws + (size_t)which * nsplit * plane + i;
+    const size_t plane = which == 0 ? plane_k : plane_v;
+    if (i >= plane) continue;
+    const float* src = ws + (size_t)which * nsplit * plane_k + i;
     float4 sum = *reinterpret_cast<const float4*>(src);
     for (int s = 1; s < nsplit; ++s) {
       const float4 v = *reinterpret_cast<const float4*>(src + s * plane);
@@ -1069,7 +1135,7 @@ __global__ void dkv_reduce(const float* __restrict__ ws, bf16* __restrict__ dk,
   }
 }
 
-template <int HD>
+template <int HD, int VD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* m, const float* l, const float* delta, void* dk,
                void* dv, float* ws, int B, int Sq, int Sk, int KV, int G,
@@ -1079,12 +1145,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   constexpr int R = DKV_ROWS;
   int err = encode_group_rows_map(&tm_q, q, B, Sq, KV, G, HD, R);
   if (err == 0)
-    err = encode_group_rows_map(&tm_do, dout, B, Sq, KV, G, HD, R);
+    err = encode_group_rows_map(&tm_do, dout, B, Sq, KV, G, VD, R);
   if (err == 0) err = encode_rows_map(&tm_k, k, B, Sk, KV, HD, DKV_KEYS);
-  if (err == 0) err = encode_rows_map(&tm_v, v, B, Sk, KV, HD, DKV_KEYS);
+  if (err == 0) err = encode_rows_map(&tm_v, v, B, Sk, KV, VD, DKV_KEYS);
   if (err != 0) return err;
-  constexpr size_t smem = DkvSmem<HD>::BYTES;
-  auto kern = flash_dkv_tc<HD>;
+  constexpr size_t smem = DkvSmem<pad64(HD), pad64(VD)>::BYTES;
+  auto kern = flash_dkv_tc<HD, VD>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1094,39 +1160,34 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<bf16*>(dv), ws, Sq, Sk, KV, G, scale, causal, window, prefix,
       nsplit);
   if (nsplit > 1) {
-    const size_t plane = (size_t)B * Sk * KV * HD;
+    const size_t plane_k = (size_t)B * Sk * KV * HD;
+    const size_t plane_v = (size_t)B * Sk * KV * VD;
+    const size_t most = plane_k > plane_v ? plane_k : plane_v;
     const int threads = 256;
-    const unsigned blocks = (unsigned)((plane / 4 + threads - 1) / threads);
+    const unsigned blocks = (unsigned)((most / 4 + threads - 1) / threads);
     dkv_reduce<<<blocks, threads, 0, s>>>(ws, static_cast<bf16*>(dk),
-                                          static_cast<bf16*>(dv), plane,
-                                          nsplit);
+                                          static_cast<bf16*>(dv), plane_k,
+                                          plane_v, nsplit);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_dkv(int hd, const void* q, const void* k, const void* v,
-                 const void* dout, const float* m, const float* l,
-                 const float* delta, void* dk, void* dv, float* ws, int B,
-                 int Sq, int Sk, int KV, int G, float scale, int causal,
-                 int window, int prefix, int nsplit, cudaStream_t s) {
+int dispatch_dkv(int hd, int vd, const void* q, const void* k,
+                 const void* v, const void* dout, const float* m,
+                 const float* l, const float* delta, void* dk, void* dv,
+                 float* ws, int B, int Sq, int Sk, int KV, int G, float scale,
+                 int causal, int window, int prefix, int nsplit,
+                 cudaStream_t s) {
   if (G <= 0 || DKV_ROWS % G != 0 || nsplit < 1 ||
       (nsplit > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (hd) {
-    case 64:
-      return launch_dkv<64>(q, k, v, dout, m, l, delta, dk, dv, ws, B, Sq, Sk,
+#define REPRO_CASE(H, V)                                                     \
+  if (hd == H && vd == V)                                                    \
+    return launch_dkv<H, V>(q, k, v, dout, m, l, delta, dk, dv, ws, B, Sq, Sk, \
                             KV, G, scale, causal, window, prefix, nsplit, s);
-    case 128:
-      return launch_dkv<128>(q, k, v, dout, m, l, delta, dk, dv, ws, B, Sq,
-                             Sk, KV, G, scale, causal, window, prefix, nsplit,
-                             s);
-    case 256:
-      return launch_dkv<256>(q, k, v, dout, m, l, delta, dk, dv, ws, B, Sq,
-                             Sk, KV, G, scale, causal, window, prefix, nsplit,
-                             s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  REPRO_FLASH_WIDTHS(REPRO_CASE)
+#undef REPRO_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace tc
@@ -1134,27 +1195,27 @@ int dispatch_dkv(int hd, const void* q, const void* k, const void* v,
 int run(int which, const void* q, const void* k, const void* v,
         const void* dout, const void* m, const void* l, const void* delta,
         void* out0, void* out1, float* ws, int B, int Sq, int Sk, int KV,
-        int G, int hd, float scale, int causal, int window, int prefix,
-        int dtype, int nsplit, void* stream) {
+        int G, int hd, int vd, float scale, int causal, int window,
+        int prefix, int dtype, int nsplit, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto M = static_cast<const float*>(m);
   auto L = static_cast<const float*>(l);
   auto D = static_cast<const float*>(delta);
   if (which == 0 && dtype == 1)
-    return tc::dispatch_dq(hd, q, k, v, dout, M, L, D, out0, B, Sq, Sk, KV, G,
-                           scale, causal, window, prefix, s);
+    return tc::dispatch_dq(hd, vd, q, k, v, dout, M, L, D, out0, B, Sq, Sk,
+                           KV, G, scale, causal, window, prefix, s);
   if (which == 1 && dtype == 1 && nsplit > 0)
-    return tc::dispatch_dkv(hd, q, k, v, dout, M, L, D, out0, out1, ws, B, Sq,
-                            Sk, KV, G, scale, causal, window, prefix, nsplit,
-                            s);
+    return tc::dispatch_dkv(hd, vd, q, k, v, dout, M, L, D, out0, out1, ws, B,
+                            Sq, Sk, KV, G, scale, causal, window, prefix,
+                            nsplit, s);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(which, hd, q, k, v, dout, M, L, D, out0,
-                                      out1, B, Sq, Sk, KV, G, scale, causal,
-                                      window, prefix, s);
+    return dispatch_widths<__nv_bfloat16>(which, hd, vd, q, k, v, dout, M, L,
+                                          D, out0, out1, B, Sq, Sk, KV, G,
+                                          scale, causal, window, prefix, s);
   if (dtype == 0)
-    return dispatch_hd<float>(which, hd, q, k, v, dout, M, L, D, out0, out1,
-                              B, Sq, Sk, KV, G, scale, causal, window, prefix,
-                              s);
+    return dispatch_widths<float>(which, hd, vd, q, k, v, dout, M, L, D, out0,
+                                  out1, B, Sq, Sk, KV, G, scale, causal,
+                                  window, prefix, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1165,31 +1226,32 @@ extern "C" const char* repro_error_string(int code) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs alike);
-// m, l, delta float32 (B, KV, G, Sq); hd = vd in {64, 128, 256}; all
-// tensors contiguous and 16-byte aligned; window and prefix as the
-// forward's (causal = 1 only).
+// m, l, delta float32 (B, KV, G, Sq); (hd, vd) a pair of
+// REPRO_FLASH_WIDTHS (hopper.cuh); all tensors contiguous and 16-byte
+// aligned; window and prefix as the forward's (causal = 1 only).
 extern "C" int repro_flash_dq(const void* q, const void* k, const void* v,
                               const void* dout, const void* m, const void* l,
                               const void* delta, void* dq, int B, int Sq,
-                              int Sk, int KV, int G, int hd, float scale,
-                              int causal, int window, int prefix, int dtype,
-                              void* stream) {
+                              int Sk, int KV, int G, int hd, int vd,
+                              float scale, int causal, int window, int prefix,
+                              int dtype, void* stream) {
   return run(0, q, k, v, dout, m, l, delta, dq, nullptr, nullptr, B, Sq, Sk,
-             KV, G, hd, scale, causal, window, prefix, dtype, 0, stream);
+             KV, G, hd, vd, scale, causal, window, prefix, dtype, 0, stream);
 }
 
 // nsplit: 0 takes the FMA kernel (float32, or a G that does not divide
 // 64); >= 1 the bf16 tensor-core kernel with each key tile's row stream
-// split over nsplit blocks, whose f32 partials (ws: 2 x nsplit x B x Sk x
-// KV x hd, needed when nsplit > 1) a second pass sums in split order.
+// split over nsplit blocks, whose f32 partials (ws: nsplit x B x Sk x KV x
+// hd for dk, then nsplit x B x Sk x KV x vd for dv, needed when nsplit > 1)
+// a second pass sums in split order.
 extern "C" int repro_flash_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const void* m,
                                const void* l, const void* delta, void* dk,
                                void* dv, void* ws, int B, int Sq, int Sk,
-                               int KV, int G, int hd, float scale, int causal,
-                               int window, int prefix, int dtype, int nsplit,
-                               void* stream) {
+                               int KV, int G, int hd, int vd, float scale,
+                               int causal, int window, int prefix, int dtype,
+                               int nsplit, void* stream) {
   return run(1, q, k, v, dout, m, l, delta, dk, dv, static_cast<float*>(ws),
-             B, Sq, Sk, KV, G, hd, scale, causal, window, prefix, dtype, nsplit,
-             stream);
+             B, Sq, Sk, KV, G, hd, vd, scale, causal, window, prefix, dtype,
+             nsplit, stream);
 }

@@ -1,6 +1,7 @@
 // K2: flash attention forward (online softmax) over the grouped-query layout
 //
-//   q (B, Sq, KV, G, hd), k / v (B, Sk, KV, hd)  ->  out (B, Sq, KV*G, hd)
+//   q (B, Sq, KV, G, hd), k (B, Sk, KV, hd), v (B, Sk, KV, vd)
+//     ->  out (B, Sq, KV*G, vd)
 //   optional export: m, l (B, KV, G, Sq) float32
 //
 // Replaces: src/repro/kernels/emit.py, _softmax_kind (the online-softmax
@@ -62,6 +63,15 @@
 // threads a row, products on plain f32 FMA from shared memory (bound by
 // the CUDA cores and shared-memory bandwidth).
 //
+// Widths: the q.k width hd and the value width vd are template parameters
+// apart, as the reference's kind reads vd from the value block (emit.py
+// :529): the pairs of REPRO_FLASH_WIDTHS (hopper.cuh), MLA's (96, 64)
+// among them.  q and k are read at hd, v and out at vd.  In the bf16 form
+// a 96-wide row takes two 64-column swizzle tiles (TMA fills K's columns
+// 96-127 with zeros, for no extra device-memory traffic) and S = Q.K^T
+// runs hd / 16 = 6 k-steps; P.V runs at N = vd.  O is vd / 2 registers a
+// thread, and the key tile is chosen by vd (80 keys only at vd = 256).
+//
 // Both forms, as in emit.py: masked scores take MASK_NEG_INF (the bf16
 // form adds their p = exp(MASK_NEG_INF - m) = 0 as an exact 0), p is cast
 // to V's dtype before P.V, and the flush divides by max(l, 1e-30).
@@ -101,14 +111,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
-// Copy `rows` rows of hd elements into shared memory (row pitch `pitch`);
+// Copy `rows` rows of W elements into shared memory (row pitch `pitch`);
 // row i comes from `src + row_off(i)`, or is zero when row_off(i) < 0.
-template <typename T, int HD, typename RowOff>
+template <typename T, int W, typename RowOff>
 __device__ __forceinline__ void load_rows(T* dst, int pitch,
                                           const T* __restrict__ src,
                                           int rows, RowOff row_off) {
   constexpr int PER_VEC = 16 / sizeof(T);
-  constexpr int VECS = HD / PER_VEC;
+  constexpr int VECS = W / PER_VEC;
   for (int v = threadIdx.x; v < rows * VECS; v += THREADS) {
     const int r = v / VECS, c = (v % VECS) * PER_VEC;
     const long long off = row_off(r);
@@ -118,7 +128,7 @@ __device__ __forceinline__ void load_rows(T* dst, int pitch,
   }
 }
 
-template <typename T, int HD, int BN>
+template <typename T, int HD, int VD, int BN>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out,
@@ -126,13 +136,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           int Sk, int KV, int G, float scale, int causal, int window,
           int prefix) {
   constexpr int PITCH = HD + 16 / sizeof(T);   // 16-byte rows, staggered banks
+  constexpr int VPITCH = VD + 16 / sizeof(T);
   constexpr int KPT = BN / 4;                  // keys scored per thread
-  constexpr int DPT = HD / 4;                  // acc columns per thread
+  constexpr int DPT = VD / 4;                  // acc columns per thread
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* Ks = Qs + BM * PITCH;
   T* Vs = Ks + BN * PITCH;
-  float* Ps = reinterpret_cast<float*>(Vs + BN * PITCH);   // (BM, BN + 1)
+  float* Ps = reinterpret_cast<float*>(Vs + BN * VPITCH);  // (BM, BN + 1)
 
   const int r0 = blockIdx.x * BM, kvh = blockIdx.y, b = blockIdx.z;
   const int rows = Sq * G;
@@ -142,13 +153,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const bool row_ok = row < rows;
 
   // q row (pos, g) lives at ((b*Sq + pos)*KV + kvh)*G*HD + g*HD; the
-  // output's (B, Sq, KV*G, hd) row has the same offset
-  auto q_off = [&](int i) -> long long {
+  // output's (B, Sq, KV*G, vd) row at the same index with VD
+  auto row_off = [&](int i, int w) -> long long {
     const int rr = r0 + i;
     if (rr >= rows) return -1;
-    return ((long long)(b * Sq + rr / G) * KV + kvh) * G * HD +
-           (long long)(rr % G) * HD;
+    return ((long long)(b * Sq + rr / G) * KV + kvh) * G * w +
+           (long long)(rr % G) * w;
   };
+  auto q_off = [&](int i) { return row_off(i, HD); };
   load_rows<T, HD>(Qs, PITCH, q, BM, q_off);
 
   // key range this tile of rows can see (causal block-skip + window; rows
@@ -171,13 +183,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
 
   for (int k0 = kstart; k0 < kend; k0 += BN) {
-    auto kv_off = [&](int i) -> long long {
+    auto kv_off = [&](int i, int w) -> long long {
       const int kp = k0 + i;
       if (kp >= Sk) return -1;
-      return ((long long)(b * Sk + kp) * KV + kvh) * HD;
+      return ((long long)(b * Sk + kp) * KV + kvh) * w;
     };
-    load_rows<T, HD>(Ks, PITCH, k, BN, kv_off);
-    load_rows<T, HD>(Vs, PITCH, v, BN, kv_off);
+    load_rows<T, HD>(Ks, PITCH, k, BN, [&](int i) { return kv_off(i, HD); });
+    load_rows<T, VD>(Vs, VPITCH, v, BN,
+                     [&](int i) { return kv_off(i, VD); });
     __syncthreads();
 
     float s[KPT];
@@ -216,7 +229,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < DPT; ++j) acc[j] *= corr;
     for (int c = 0; c < BN; ++c) {
       const float p = Ps[r * (BN + 1) + c];
-      const T* vr = Vs + c * PITCH + q4;
+      const T* vr = Vs + c * VPITCH + q4;
 #pragma unroll 16
       for (int j = 0; j < DPT; ++j) acc[j] = fmaf(p, to_f(vr[4 * j]), acc[j]);
     }
@@ -225,7 +238,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row_ok) {
     const float inv = 1.f / fmaxf(l_run, 1e-30f);
-    T* o = out + q_off(r);
+    T* o = out + row_off(r, VD);
     for (int j = 0; j < DPT; ++j) o[q4 + 4 * j] = from_f<T>(acc[j] * inv);
     if (m_out != nullptr && q4 == 0) {   // (b, kvh, g, pos) of (B, KV, G, Sq)
       const size_t idx = ((size_t)(b * KV + kvh) * G + row % G) * Sq + qpos;
@@ -235,14 +248,16 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, int BN>
+template <typename T, int HD, int VD, int BN>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* m_out, float* l_out, int B, int Sq, int Sk, int KV, int G,
            float scale, int causal, int window, int prefix, cudaStream_t s) {
   constexpr int PITCH = HD + 16 / sizeof(T);
-  const size_t smem = (size_t)(BM + 2 * BN) * PITCH * sizeof(T) +
+  constexpr int VPITCH = VD + 16 / sizeof(T);
+  const size_t smem = ((size_t)(BM + BN) * PITCH + (size_t)BN * VPITCH) *
+                          sizeof(T) +
                       (size_t)BM * (BN + 1) * sizeof(float);
-  auto kern = flash_fwd<T, HD, BN>;
+  auto kern = flash_fwd<T, HD, VD, BN>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -255,23 +270,17 @@ int launch(const void* q, const void* k, const void* v, void* out,
 }
 
 template <typename T, int BN>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                void* out, float* m_out, float* l_out, int B, int Sq, int Sk,
-                int KV, int G, float scale, int causal, int window, int prefix,
-                cudaStream_t s) {
-  switch (hd) {
-    case 64:
-      return launch<T, 64, BN>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
+int dispatch_widths(int hd, int vd, const void* q, const void* k,
+                    const void* v, void* out, float* m_out, float* l_out,
+                    int B, int Sq, int Sk, int KV, int G, float scale,
+                    int causal, int window, int prefix, cudaStream_t s) {
+#define REPRO_CASE(H, V)                                                    \
+  if (hd == H && vd == V)                                                   \
+    return launch<T, H, V, BN>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G, \
                                scale, causal, window, prefix, s);
-    case 128:
-      return launch<T, 128, BN>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
-                                scale, causal, window, prefix, s);
-    case 256:
-      return launch<T, 256, BN>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
-                                scale, causal, window, prefix, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  REPRO_FLASH_WIDTHS(REPRO_CASE)
+#undef REPRO_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -283,18 +292,20 @@ namespace tc {
 using bf16 = __nv_bfloat16;
 using namespace hopper;
 
-// keys per tile: 80 at hd = 256 with two consumer warpgroups (fewer, longer
+// keys per tile: 80 at vd = 256 with two consumer warpgroups (fewer, longer
 // tiles where the grid is large; S 40 registers, two P tiles 20 each, O
 // 128), else 64 (the small grids' latency is lower with shorter tiles)
-__host__ __device__ constexpr int keys_per_tile(int hd, int nwg) {
-  return hd == 256 && nwg == 2 ? 80 : 64;
+__host__ __device__ constexpr int keys_per_tile(int vd, int nwg) {
+  return vd == 256 && nwg == 2 ? 80 : 64;
 }
 
-// K/V ring depth: as many stages as fit beside the Q tiles (2 at hd =
-// 256), at most 4
-__host__ __device__ constexpr int stages(int hd, int nwg) {
-  const int fit = (225 * 1024 - nwg * (int)tile_bytes(64, hd)) /
-                  (2 * (int)tile_bytes(keys_per_tile(hd, nwg), hd));
+// K/V ring depth: as many stages as fit beside the Q tiles (2 at hd = vd
+// = 256), at most 4; hk and hv are the widths padded to whole 64-column
+// tiles
+__host__ __device__ constexpr int stages(int hk, int hv, int nwg) {
+  const int bn = keys_per_tile(hv, nwg);
+  const int fit = (225 * 1024 - nwg * (int)tile_bytes(64, hk)) /
+                  ((int)tile_bytes(bn, hk) + (int)tile_bytes(bn, hv));
   return fit < 4 ? fit : 4;
 }
 
@@ -306,7 +317,7 @@ __device__ __forceinline__ bool visible(int kp, int qp, int Sk, int causal,
          (qp < prefix && kp < prefix);
 }
 
-template <int HD, int NWG>
+template <int HD, int VD, int NWG>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v,
@@ -314,9 +325,10 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_k,
              float* __restrict__ m_out, float* __restrict__ l_out, int Sq,
              int Sk, int KV, int G, float scale_log2, int causal,
              int window, int prefix) {
-  constexpr int BN = keys_per_tile(HD, NWG);
-  constexpr uint32_t Q_BYTES = tile_bytes(64, HD);
-  using Ring = KVRing<HD, BN, stages(HD, NWG)>;
+  constexpr int HK = pad64(HD), HV = pad64(VD);
+  constexpr int BN = keys_per_tile(VD, NWG);
+  constexpr uint32_t Q_BYTES = tile_bytes(64, HK);
+  using Ring = KVRing<HK, HV, BN, stages(HK, HV, NWG)>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);           // NWG x Q_BYTES
   Ring ring(Qs + NWG * Q_BYTES);
@@ -346,13 +358,15 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_k,
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int rw = blockIdx.x * 64 * NWG + wg * 64;   // its first row
     uint8_t* Qw = Qs + wg * Q_BYTES;
-    // row (pos, g) of q and of out: ((b*Sq + pos)*KV + kvh)*G*HD + g*HD
-    auto row_off = [&](int row) -> long long {
+    // row (pos, g) of q: ((b*Sq + pos)*KV + kvh)*G*HD + g*HD; of out the
+    // same with VD
+    auto row_off = [&](int row, int w) -> long long {
       if (row >= rows) return -1;
-      return ((long long)(b * Sq + row / G) * KV + kvh) * G * HD +
-             (long long)(row % G) * HD;
+      return ((long long)(b * Sq + row / G) * KV + kvh) * G * w +
+             (long long)(row % G) * w;
     };
-    load_rows_sw128<HD>(Qw, q, tid, [&](int i) { return row_off(rw + i); });
+    load_rows_sw128<HD>(Qw, q, tid,
+                        [&](int i) { return row_off(rw + i, HD); });
     cp_async_wait_all();
     fence_proxy_async();
     named_bar_sync(1 + wg, 128);
@@ -367,16 +381,16 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_k,
     const uint64_t dq = make_desc(Qw, 16, 1024);
     float m0 = MASK_NEG_INF, m1 = MASK_NEG_INF, l0 = 0.f, l1 = 0.f;
     float corr0 = 1.f, corr1 = 1.f;
-    float o[HD / 2];
+    float o[HV / 2];
     float sc[BN / 2];
     uint32_t p[BN / 16][4], pn[BN / 16][4];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < HV / 2; ++i) o[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
 
     // S = Q K^T of tile t over hd in steps of 16 (32 bytes along a
-    // swizzled row), committed as one group
+    // swizzled row; 6 steps at hd = 96), committed as one group
     auto issue_s = [&](int t) {
       const uint64_t dk = make_desc(ring.k_tile(t), 16, 1024);
       ring.wait_k(t);
@@ -396,7 +410,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_k,
       ring.wait_v(t);
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs_mn<HD>(o, pa[kk], dv + ((kk * 2048) >> 4), 1);
+        wgmma_rs_mn<HV>(o, pa[kk], dv + ((kk * 2048) >> 4), 1);
       wgmma_commit();
     };
     // scale (log2 domain), mask and the online softmax of tile t's scores
@@ -490,7 +504,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_k,
       fence_regs(cur);
       ring.release_v(t - 1);
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < HV / 8; ++j) {
         o[4 * j + 0] *= corr0;
         o[4 * j + 1] *= corr0;
         o[4 * j + 2] *= corr1;
@@ -527,9 +541,9 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_k,
     // (staging them in shared memory for 16-byte stores measured slower)
     const float inv0 = 1.f / fmaxf(l0, 1e-30f);
     const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-    const long long o0 = row_off(row0), o1 = row_off(row1);
+    const long long o0 = row_off(row0, VD), o1 = row_off(row1, VD);
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < VD / 8; ++j) {
       const int col = 8 * j + 2 * t4;
       if (o0 >= 0)
         *reinterpret_cast<uint32_t*>(out + o0 + col) =
@@ -553,18 +567,19 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
-template <int HD, int NWG>
+template <int HD, int VD, int NWG>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* m_out, float* l_out, int B, int Sq, int Sk, int KV, int G,
            float scale, int causal, int window, int prefix, cudaStream_t s) {
-  constexpr int BN = keys_per_tile(HD, NWG);
+  constexpr int HK = pad64(HD), HV = pad64(VD);
+  constexpr int BN = keys_per_tile(VD, NWG);
   CUtensorMap tm_k, tm_v;
   int err = encode_rows_map(&tm_k, k, B, Sk, KV, HD, BN);
-  if (err == 0) err = encode_rows_map(&tm_v, v, B, Sk, KV, HD, BN);
+  if (err == 0) err = encode_rows_map(&tm_v, v, B, Sk, KV, VD, BN);
   if (err != 0) return err;
-  constexpr size_t smem = 1024 + NWG * tile_bytes(64, HD) +
-                          KVRing<HD, BN, stages(HD, NWG)>::BYTES;
-  auto kern = flash_fwd_tc<HD, NWG>;
+  constexpr size_t smem = 1024 + NWG * tile_bytes(64, HK) +
+                          KVRing<HK, HV, BN, stages(HK, HV, NWG)>::BYTES;
+  auto kern = flash_fwd_tc<HD, VD, NWG>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -576,36 +591,30 @@ int launch(const void* q, const void* k, const void* v, void* out,
 }
 
 // two consumer warpgroups (128-row blocks) once those blocks fill the SMs
-template <int HD>
+template <int HD, int VD>
 int launch_rows(const void* q, const void* k, const void* v, void* out,
                 float* m_out, float* l_out, int B, int Sq, int Sk, int KV,
                 int G, float scale, int causal, int window, int prefix,
                 cudaStream_t s) {
   const long long blocks128 = (long long)((Sq * G + 127) / 128) * KV * B;
   if (blocks128 >= sm_count())
-    return launch<HD, 2>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G, scale,
-                         causal, window, prefix, s);
-  return launch<HD, 1>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G, scale,
-                       causal, window, prefix, s);
+    return launch<HD, VD, 2>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
+                             scale, causal, window, prefix, s);
+  return launch<HD, VD, 1>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
+                           scale, causal, window, prefix, s);
 }
 
-int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
-             float* m_out, float* l_out, int B, int Sq, int Sk, int KV,
-             int G, float scale, int causal, int window, int prefix,
+int dispatch(int hd, int vd, const void* q, const void* k, const void* v,
+             void* out, float* m_out, float* l_out, int B, int Sq, int Sk,
+             int KV, int G, float scale, int causal, int window, int prefix,
              cudaStream_t s) {
-  switch (hd) {
-    case 64:
-      return launch_rows<64>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
+#define REPRO_CASE(H, V)                                                   \
+  if (hd == H && vd == V)                                                  \
+    return launch_rows<H, V>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G, \
                              scale, causal, window, prefix, s);
-    case 128:
-      return launch_rows<128>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
-                              scale, causal, window, prefix, s);
-    case 256:
-      return launch_rows<256>(q, k, v, out, m_out, l_out, B, Sq, Sk, KV, G,
-                              scale, causal, window, prefix, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  REPRO_FLASH_WIDTHS(REPRO_CASE)
+#undef REPRO_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace tc
@@ -616,13 +625,14 @@ extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike); hd in
-// {64, 128, 256}; all tensors contiguous and 16-byte aligned.  m_out and
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike); (hd, vd) a
+// pair of REPRO_FLASH_WIDTHS (hopper.cuh); all tensors contiguous and
+// 16-byte aligned.  m_out and
 // l_out: both null (no export) or both (B, KV, G, Sq) float32.  window and
 // prefix apply with causal = 1 only (0: none).
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, void* m_out, void* l_out, int B,
-                               int Sq, int Sk, int KV, int G, int hd,
+                               int Sq, int Sk, int KV, int G, int hd, int vd,
                                float scale, int causal, int window, int prefix,
                                int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -631,10 +641,10 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
   float* mo = static_cast<float*>(m_out);
   float* lo = static_cast<float*>(l_out);
   if (dtype == 1)
-    return tc::dispatch(hd, q, k, v, out, mo, lo, B, Sq, Sk, KV, G, scale,
-                        causal, window, prefix, s);
+    return tc::dispatch(hd, vd, q, k, v, out, mo, lo, B, Sq, Sk, KV, G,
+                        scale, causal, window, prefix, s);
   if (dtype == 0)
-    return dispatch_hd<float, 32>(hd, q, k, v, out, mo, lo, B, Sq, Sk, KV, G,
-                                  scale, causal, window, prefix, s);
+    return dispatch_widths<float, 32>(hd, vd, q, k, v, out, mo, lo, B, Sq, Sk,
+                                      KV, G, scale, causal, window, prefix, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,8 +7,11 @@
 // Shared-memory tiles use the 128-byte swizzle that TMA writes and wgmma
 // reads: a tile of R rows by 64 bf16 (128 bytes a row) is R * 128 bytes,
 // row r at r * 128, its 16-byte chunk c stored at chunk c ^ (r % 8); a
-// row of hd > 64 columns is hd / 64 such tiles one after another.  Every
-// tile starts on a 1024-byte boundary, so the swizzle (which reads address
+// row of hd > 64 columns is pad64(hd) / 64 such tiles one after another
+// (at hd = 96 the second tile's last 32 columns are TMA's zero fill, or
+// left unwritten by cp.async: the products contract over hd columns only,
+// and an output of width hd takes only its own columns).  Every tile
+// starts on a 1024-byte boundary, so the swizzle (which reads address
 // bits 4-9) is the same whoever wrote the tile.
 #pragma once
 #include <cuda.h>
@@ -461,8 +464,9 @@ __device__ __forceinline__ void wgmma_ss_t256(float (&d)[128], uint64_t a,
 
 // ---- warpgroup tiles -------------------------------------------------------
 
-// Start copying 64 rows of HD bf16 into a warpgroup's swizzled tile (HD /
-// 64 tiles of 64 rows x 128 bytes, 8 KB each) with cp.async, 16 bytes a
+// Start copying 64 rows of HD bf16 (HD a multiple of 16) into a
+// warpgroup's swizzled tile (pad64(HD) / 64 tiles of 64 rows x 128 bytes,
+// 8 KB each; columns past HD are not written) with cp.async, 16 bytes a
 // thread a step, neighbours on neighbouring addresses, every copy in
 // flight at once; row i comes from `src + row_off(i)`, or is zero when
 // row_off(i) < 0.  Run by the warpgroup's 128 threads (`tid` 0-127);
@@ -495,6 +499,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
 __host__ __device__ constexpr uint32_t tile_bytes(int rows, int hd) {
   return (uint32_t)rows * hd * 2;
 }
+
+// A row width rounded up to whole 64-column (128-byte) swizzle tiles: the
+// width a row takes in shared memory.
+__host__ __device__ constexpr int pad64(int w) { return (w + 63) / 64 * 64; }
+
+// The (q.k width hd, value width vd) pairs the flash kernels (K2-K4) are
+// built for, as X(hd, vd); ops.FLASH_WIDTHS is the same list.  hd = 96,
+// vd = 64 is MLA's (minicpm3-4b): its rows take two 64-column tiles, the
+// second half zeros, and its products contract over the 96 columns only.
+#define REPRO_FLASH_WIDTHS(X) X(64, 64) X(128, 128) X(256, 256) X(96, 64)
 
 // Round the dynamic shared-memory base up to 1024 bytes (the launch asks
 // for 1024 more than it uses).
@@ -532,16 +546,19 @@ __device__ __forceinline__ void key_tiles(int r0, int bm, int Sq, int Sk,
   ntiles = max(1, (kend - kstart + bn - 1) / bn);
 }
 
-// A ring of STAGES K and V tiles of BN keys (HD / 64 swizzled 64-column
-// tiles each) in shared memory, with a full and an empty mbarrier for
-// each K and each V tile: one producer thread fills it with TMA, the
-// consumer warpgroups wait on `full`, and release a K or a V tile (every
-// consumer thread arrives) as soon as their products no longer read it.
-template <int HD, int BN, int STAGES>
+// A ring of STAGES K and V tiles of BN keys (HK / 64 and HV / 64 swizzled
+// 64-column tiles each: K's and V's widths rounded up to 64, the columns
+// past a tensor's own width read by TMA as zeros) in shared memory, with
+// a full and an empty mbarrier for each K and each V tile: one producer
+// thread fills it with TMA, the consumer warpgroups wait on `full`, and
+// release a K or a V tile (every consumer thread arrives) as soon as their
+// products no longer read it.
+template <int HK, int HV, int BN, int STAGES>
 struct KVRing {
-  static constexpr uint32_t TILE = tile_bytes(BN, HD);
+  static constexpr uint32_t K_TILE = tile_bytes(BN, HK);
+  static constexpr uint32_t V_TILE = tile_bytes(BN, HV);
   static constexpr size_t BYTES =
-      2 * STAGES * TILE + 4 * STAGES * sizeof(uint64_t);
+      STAGES * (K_TILE + V_TILE) + 4 * STAGES * sizeof(uint64_t);
   uint8_t* k;
   uint8_t* v;
   uint64_t* full_k;
@@ -551,8 +568,9 @@ struct KVRing {
 
   __device__ explicit KVRing(uint8_t* base)
       : k(base),
-        v(base + STAGES * TILE),
-        full_k(reinterpret_cast<uint64_t*>(base + 2 * STAGES * TILE)),
+        v(base + STAGES * K_TILE),
+        full_k(reinterpret_cast<uint64_t*>(base +
+                                           STAGES * (K_TILE + V_TILE))),
         full_v(full_k + STAGES),
         empty_k(full_v + STAGES),
         empty_v(empty_k + STAGES) {}
@@ -576,22 +594,26 @@ struct KVRing {
       const uint32_t ph = (t / STAGES) & 1;
       const int k0 = kstart + t * BN;
       mbar_wait(empty_k + s, ph ^ 1);
-      mbar_expect_tx(full_k + s, TILE);
+      mbar_expect_tx(full_k + s, K_TILE);
 #pragma unroll
-      for (int c = 0; c < HD / 64; ++c)
-        tma_load_4d(k + s * TILE + c * BN * 128, tm_k, full_k + s, c * 64,
+      for (int c = 0; c < HK / 64; ++c)
+        tma_load_4d(k + s * K_TILE + c * BN * 128, tm_k, full_k + s, c * 64,
                     kvh, k0, b);
       mbar_wait(empty_v + s, ph ^ 1);
-      mbar_expect_tx(full_v + s, TILE);
+      mbar_expect_tx(full_v + s, V_TILE);
 #pragma unroll
-      for (int c = 0; c < HD / 64; ++c)
-        tma_load_4d(v + s * TILE + c * BN * 128, tm_v, full_v + s, c * 64,
+      for (int c = 0; c < HV / 64; ++c)
+        tma_load_4d(v + s * V_TILE + c * BN * 128, tm_v, full_v + s, c * 64,
                     kvh, k0, b);
     }
   }
 
-  __device__ uint8_t* k_tile(int t) const { return k + (t % STAGES) * TILE; }
-  __device__ uint8_t* v_tile(int t) const { return v + (t % STAGES) * TILE; }
+  __device__ uint8_t* k_tile(int t) const {
+    return k + (t % STAGES) * K_TILE;
+  }
+  __device__ uint8_t* v_tile(int t) const {
+    return v + (t % STAGES) * V_TILE;
+  }
   __device__ void wait_k(int t) {
     mbar_wait(full_k + t % STAGES, (t / STAGES) & 1);
   }

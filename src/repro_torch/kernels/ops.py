@@ -117,9 +117,9 @@ _SIGNATURES = {
     "repro_head_gemm": ("gemm", [_P] * 4 + [_C] * 6
                         + [ctypes.c_longlong] * 4),
     "repro_split_bf16": ("gemm", [_P] * 4 + [ctypes.c_longlong, _C, _C]),
-    "repro_flash_fwd": ("flash_fwd", [_P] * 6 + [_C] * 6 + [_F] + [_C] * 4),
-    "repro_flash_dq": ("flash_bwd", [_P] * 8 + [_C] * 6 + [_F] + [_C] * 4),
-    "repro_flash_dkv": ("flash_bwd", [_P] * 10 + [_C] * 6 + [_F] + [_C] * 5),
+    "repro_flash_fwd": ("flash_fwd", [_P] * 6 + [_C] * 7 + [_F] + [_C] * 4),
+    "repro_flash_dq": ("flash_bwd", [_P] * 8 + [_C] * 7 + [_F] + [_C] * 4),
+    "repro_flash_dkv": ("flash_bwd", [_P] * 10 + [_C] * 7 + [_F] + [_C] * 5),
     "repro_paged_decode": ("paged_decode", [_P] * 7 + [_C] * 7
                            + [_F, _C, _C]),
     "repro_ssd_workspace": ("ssd", [_C] * 7),
@@ -899,21 +899,60 @@ def _check_attention(q, k, v, causal, window, prefix_len) -> None:
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
 
 
-def _check_flash(what: str, tensors, hd: int) -> int:
+#: the (q.k width, value width) pairs K2-K4 are built for
+#: (``REPRO_FLASH_WIDTHS`` in ``csrc/hopper.cuh``): MLA's (96, 64) beside
+#: the equal widths
+FLASH_WIDTHS = ((64, 64), (128, 128), (256, 256), (96, 64))
+#: the widest q.k or value width K2-K4 take (one wgmma's N)
+FLASH_MAX_WIDTH = 256
+
+
+def flash_widths(hd: int, vd: int) -> tuple[int, int]:
+    """The pair of :data:`FLASH_WIDTHS` that K2-K4 run a q.k width ``hd``
+    and value width ``vd`` at: the pair itself where it is built, else the
+    smallest built pair that covers both (least ``hd + vd``), to which
+    ``ops`` zero-pads the operands (exact: a zero column adds nothing to a
+    score, and the padded output columns are cut off).  Widths above 256
+    raise: that is a form the port does not build."""
+    if (hd, vd) in FLASH_WIDTHS:
+        return hd, vd
+    if min(hd, vd) < 1 or max(hd, vd) > FLASH_MAX_WIDTH:
+        raise ValueError(f"K2-K4 take q.k and value widths from 1 to "
+                         f"{FLASH_MAX_WIDTH}, got (hd, vd) = ({hd}, {vd}): "
+                         f"wider heads are a flash form the port does not "
+                         f"build")
+    return min((p for p in FLASH_WIDTHS if p[0] >= hd and p[1] >= vd),
+               key=lambda p: (p[0] + p[1], p[0]))
+
+
+def _pad_width(t: torch.Tensor, width: int) -> torch.Tensor:
+    if t.shape[-1] == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def _check_flash(what: str, tensors, hd: int, vd: int) -> int:
+    """The dtype code of K2-K4's operands: ``tensors[:2]`` (q, k) of
+    width ``hd``, the rest (v, dO) of width ``vd``, ``(hd, vd)`` a built
+    pair, one dtype, contiguous and 16-byte aligned."""
     # the common case in one pass over the operands (host time of small
     # calls); anything off falls through to the checks that name it
     code = _DTYPE_CODE.get(tensors[0].dtype)
-    if code is not None and hd in (64, 128, 256):
-        for t in tensors:
-            if t.dtype != tensors[0].dtype or t.shape[-1] != hd or \
+    if code is not None and (hd, vd) in FLASH_WIDTHS:
+        for i, t in enumerate(tensors):
+            if t.dtype != tensors[0].dtype or \
+                    t.shape[-1] != (hd if i < 2 else vd) or \
                     not t.is_contiguous() or t.data_ptr() % 16:
                 break
         else:
             return code
     dtype = _check_kernel_dtype(what, *tensors)
-    if hd not in (64, 128, 256) or any(t.shape[-1] != hd for t in tensors):
-        raise ValueError(f"{what} kernel takes hd = vd in (64, 128, 256), "
-                         f"got {[tuple(t.shape) for t in tensors]}")
+    if (hd, vd) not in FLASH_WIDTHS or \
+            any(t.shape[-1] != (hd if i < 2 else vd)
+                for i, t in enumerate(tensors)):
+        raise ValueError(f"{what} kernel takes (hd, vd) in {FLASH_WIDTHS} "
+                         f"(q, k at hd; v, dO at vd), got "
+                         f"{[tuple(t.shape) for t in tensors]}")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what} kernel takes 16-byte aligned operands")
     return dtype
@@ -937,8 +976,15 @@ def _flash_fwd(q, k, v, scale, causal, window, prefix_len, export: bool):
             return ref.attention_stats(q, k, v, **args)
         return ref.attention(q, k, v, **args)
     b, sq, kv, g, hd = q.shape
-    dtype = _check_flash("flash_fwd", (q, k, v), hd)
-    out = torch.empty((b, sq, kv * g, hd), device=q.device, dtype=q.dtype)
+    vd = v.shape[-1]
+    wide = flash_widths(hd, vd)
+    if wide != (hd, vd):
+        res = _flash_fwd(_pad_width(q, wide[0]), _pad_width(k, wide[0]),
+                         _pad_width(v, wide[1]), scale, causal, window,
+                         prefix_len, export)
+        return (res[0][..., :vd], *res[1:]) if export else res[..., :vd]
+    dtype = _check_flash("flash_fwd", (q, k, v), hd, vd)
+    out = torch.empty((b, sq, kv * g, vd), device=q.device, dtype=q.dtype)
     m = l = None
     if export:
         m = torch.empty((b, kv, g, sq), device=q.device, dtype=torch.float32)
@@ -946,7 +992,8 @@ def _flash_fwd(q, k, v, scale, causal, window, prefix_len, export: bool):
     _launch("repro_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), m.data_ptr() if export else None,
             l.data_ptr() if export else None, b, sq, k.shape[1], kv, g, hd,
-            float(scale), int(causal), int(window), int(prefix_len), dtype)
+            vd, float(scale), int(causal), int(window), int(prefix_len),
+            dtype)
     LAUNCHES["K2"] += 1
     return (out, m, l) if export else out
 
@@ -957,7 +1004,9 @@ class _FlashAttention(torch.autograd.Function):
     with the (m, l) export and saves ``(q, k, v, out, m, l)``; the
     backward computes ``delta = rowsum(dO * out)`` in plain PyTorch (the
     reference's one jnp reduction) and runs K3 for dq and K4 for dk, dv,
-    the latter already summed over the query heads of each KV head."""
+    the latter already summed over the query heads of each KV head.  q
+    and k keep their width hd, v, out and dO theirs, vd; a pair that is
+    not built is padded once, in :func:`attention`, before this."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window, prefix_len):
@@ -987,19 +1036,26 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               prefix_len: int = 0) -> torch.Tensor:
     """Grouped-query attention, the flash forward.
 
-    ``q (B, Sq, KV, G, hd)`` (K/V heads never repeated), ``k/v (B, Sk, KV,
-    hd)`` -> ``(B, Sq, KV*G, hd)`` in ``q.dtype``.  ``causal=False`` is
-    the bidirectional form (any Sq, Sk: the encoder, cross-attention);
-    ``window`` (causal only) drops keys more than ``window`` behind the
-    query; ``prefix_len`` (causal only, the prefix-LM) makes the leading
+    ``q (B, Sq, KV, G, hd)`` (K/V heads never repeated), ``k (B, Sk, KV,
+    hd)``, ``v (B, Sk, KV, vd)`` -> ``(B, Sq, KV*G, vd)`` in ``q.dtype``;
+    on the card ``(hd, vd)`` runs at :func:`flash_widths`' pair.
+    ``causal=False`` is the bidirectional form (any Sq, Sk: the encoder,
+    cross-attention); ``window`` (causal only) drops keys more than
+    ``window`` behind the query; ``prefix_len`` (causal only, the
+    prefix-LM) makes the leading
     ``prefix_len`` positions attend to each other both ways.
     Differentiable: when a gradient is wanted the forward exports (m, l)
     and the backward runs K3 and K4."""
     _check_attention(q, k, v, causal, window, prefix_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, float(scale), bool(causal),
-                                     int(window), int(prefix_len))
+        hd, vd = q.shape[-1], v.shape[-1]
+        wide = flash_widths(hd, vd) if _use_kernel(q, k, v) else (hd, vd)
+        out = _FlashAttention.apply(
+            _pad_width(q, wide[0]), _pad_width(k, wide[0]),
+            _pad_width(v, wide[1]), float(scale), bool(causal), int(window),
+            int(prefix_len))
+        return out if wide[1] == vd else out[..., :vd]
     return _flash_fwd(q, k, v, scale, causal, window, prefix_len,
                       export=False)
 
@@ -1021,7 +1077,7 @@ def _bwd_args(what, q, k, v, do, m, l, delta):
     if do.shape != q.shape[:4] + (v.shape[-1],):
         raise ValueError(f"{what}: dO {tuple(do.shape)} does not match q "
                          f"{tuple(q.shape)} / v {tuple(v.shape)}")
-    dtype = _check_flash(what, (q, k, v, do), hd)
+    dtype = _check_flash(what, (q, k, v, do), hd, v.shape[-1])
     _check_stats(what, (b, kv, g, sq), m, l, delta)
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             m.data_ptr(), l.data_ptr(), delta.data_ptr()), dtype
@@ -1039,12 +1095,19 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_dq(q, k, v, do, m, l, delta, scale=scale,
                             causal=causal, window=window,
                             prefix_len=prefix_len)
-    ptrs, dtype = _bwd_args("flash_dq", q, k, v, do, m, l, delta)
     b, sq, kv, g, hd = q.shape
+    vd = v.shape[-1]
+    wide = flash_widths(hd, vd)
+    if wide != (hd, vd):
+        return flash_dq(_pad_width(q, wide[0]), _pad_width(k, wide[0]),
+                        _pad_width(v, wide[1]), _pad_width(do, wide[1]), m,
+                        l, delta, scale=scale, causal=causal, window=window,
+                        prefix_len=prefix_len)[..., :hd]
+    ptrs, dtype = _bwd_args("flash_dq", q, k, v, do, m, l, delta)
     dq = torch.empty_like(q)
     _launch("repro_flash_dq", *ptrs, dq.data_ptr(), b, sq, k.shape[1], kv,
-            g, hd, float(scale), int(causal), int(window), int(prefix_len),
-            dtype)
+            g, hd, vd, float(scale), int(causal), int(window),
+            int(prefix_len), dtype)
     LAUNCHES["K3"] += 1
     return dq
 
@@ -1054,7 +1117,8 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               delta: torch.Tensor, *, scale: float, causal: bool = True,
               window: int = 0, prefix_len: int = 0
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4: ``(dk, dv)``, each ``(B, Sk, KV, hd)`` in k's / v's dtype,
+    """K4: ``(dk, dv)``, ``(B, Sk, KV, hd)`` and ``(B, Sk, KV, vd)`` in
+    k's / v's dtype,
     summed over the G query heads that share each KV head; the mask as
     :func:`attention`'s."""
     _check_attention(q, k, v, causal, window, prefix_len)
@@ -1062,8 +1126,16 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_dkv(q, k, v, do, m, l, delta, scale=scale,
                              causal=causal, window=window,
                              prefix_len=prefix_len)
-    ptrs, dtype = _bwd_args("flash_dkv", q, k, v, do, m, l, delta)
     b, sq, kv, g, hd = q.shape
+    vd = v.shape[-1]
+    wide = flash_widths(hd, vd)
+    if wide != (hd, vd):
+        dk, dv = flash_dkv(_pad_width(q, wide[0]), _pad_width(k, wide[0]),
+                           _pad_width(v, wide[1]), _pad_width(do, wide[1]),
+                           m, l, delta, scale=scale, causal=causal,
+                           window=window, prefix_len=prefix_len)
+        return dk[..., :hd], dv[..., :vd]
+    ptrs, dtype = _bwd_args("flash_dkv", q, k, v, do, m, l, delta)
     sk = k.shape[1]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     # the tensor-core form (bf16, G dividing its row tile) with its row
@@ -1072,10 +1144,12 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nsplit = dkv_splits(b, sq, sk, kv, g, bool(causal), int(window),
                         int(prefix_len)) \
         if dtype == 1 and DKV_ROWS % g == 0 else 0
-    ws = torch.empty((2, nsplit, b, sk, kv, hd), device=q.device,
+    # the partials: nsplit dk planes (B, Sk, KV, hd), then nsplit dv
+    # planes of vd
+    ws = torch.empty(nsplit * b * sk * kv * (hd + vd), device=q.device,
                      dtype=torch.float32) if nsplit > 1 else None
     _launch("repro_flash_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(),
-            None if ws is None else ws.data_ptr(), b, sq, sk, kv, g, hd,
+            None if ws is None else ws.data_ptr(), b, sq, sk, kv, g, hd, vd,
             float(scale), int(causal), int(window), int(prefix_len), dtype,
             nsplit)
     LAUNCHES["K4"] += 1

@@ -258,10 +258,6 @@ def attention_decode_ring(p, x: torch.Tensor, cache: KV, pos: torch.Tensor,
 
 #: MLA widths (MiniCPM3-4B): q_rank, kv_rank, qk_nope, qk_rope, v_head
 MLA_DIMS = (768, 256, 64, 32, 64)
-#: the head width K2 takes MLA's attention at: its q.k width (nope + rope
-#: = 96) and v width (64) are not among K2's 64 / 128 / 256, so both are
-#: zero-padded to this
-MLA_PAD_HD = 128
 
 
 class MLACache(NamedTuple):
@@ -300,22 +296,17 @@ def mla_attention(q_nope: torch.Tensor, q_pe: torch.Tensor,
     """MLA's causal full-sequence attention on K2 (K3 / K4 for its
     gradients): ``q'' = [q_nope, q_pe]`` and ``k'' = [k_nope, k_pe
     broadcast over the heads]`` (the reference's chunked branch folds its
-    two score terms alike), zero-padded with ``v`` to ``MLA_PAD_HD`` and
-    taken as ``h`` KV heads of one query head each, at MLA's own
-    ``scale``; the output is sliced back to v's width ``(B, S, h, vd)``.
-    Exact: a zero column adds nothing to a score, the padded output
-    columns are zeros, and their gradients fall away at the slice."""
+    two score terms alike) at their q.k width (nope + rope, 96 at
+    minicpm3-4b) and ``v`` at its own (64), taken as ``h`` KV heads of one
+    query head each at MLA's own ``scale`` -> ``(B, S, h, vd)``.  K2-K4
+    are built for (96, 64) (``ops.FLASH_WIDTHS``): no zero column."""
     b, s, h, nope = q_nope.shape
-    rope, vd = q_pe.shape[-1], v.shape[-1]
-    zeros = lambda n: q_nope.new_zeros(()).expand(b, s, h, n)
-    pad = MLA_PAD_HD - nope - rope
-    q = torch.cat([q_nope, q_pe, zeros(pad)], dim=-1)
-    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, rope),
-                   zeros(pad)], dim=-1)
-    v = torch.cat([v, zeros(MLA_PAD_HD - vd)], dim=-1)
-    out = ops.attention(q.reshape(b, s, h, 1, MLA_PAD_HD), k, v,
-                        scale=scale, causal=True)
-    return out[..., :vd]
+    rope = q_pe.shape[-1]
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, rope)],
+                  dim=-1)
+    return ops.attention(q.reshape(b, s, h, 1, nope + rope), k,
+                         v.contiguous(), scale=scale, causal=True)
 
 
 def mla_fwd(p, x: torch.Tensor, cfg: ArchConfig, *,

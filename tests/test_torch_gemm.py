@@ -266,3 +266,43 @@ def test_flash_dkv_plain_version_on_the_cpu_counts_no_launch():
     rk, rv = ref.flash_dkv(q, k, v, do, m, l, delta.contiguous(),
                            scale=0.125)
     assert torch.equal(dk, rk) and torch.equal(dv, rv)
+
+
+@pytest.mark.parametrize("hd,vd,pair", [
+    (64, 64, (64, 64)), (128, 128, (128, 128)), (256, 256, (256, 256)),
+    (96, 64, (96, 64)), (32, 32, (64, 64)), (80, 64, (96, 64)),
+    (96, 32, (96, 64)), (16, 64, (64, 64)), (64, 96, (128, 128)),
+    (96, 96, (128, 128)), (128, 64, (128, 128)), (160, 128, (256, 256)),
+    (256, 1, (256, 256)), (1, 256, (256, 256))])
+def test_flash_width_rule_picks_the_smallest_built_pair(hd, vd, pair):
+    """K2-K4's width rule (``ops.flash_widths``): a built pair runs as it
+    is, any other pair with both widths <= 256 at the built pair of least
+    hd + vd that covers it, zero-padded inside ``ops``."""
+    assert ops.flash_widths(hd, vd) == pair
+    assert pair in ops.FLASH_WIDTHS
+    covering = [p for p in ops.FLASH_WIDTHS if p[0] >= hd and p[1] >= vd]
+    assert sum(pair) == min(sum(p) for p in covering)
+
+
+@pytest.mark.parametrize("hd,vd", [(257, 64), (96, 320), (512, 512),
+                                   (0, 64)])
+def test_flash_width_rule_raises_past_its_widths(hd, vd):
+    with pytest.raises(ValueError, match="flash form"):
+        ops.flash_widths(hd, vd)
+
+
+def test_flash_plain_versions_take_apart_widths_on_the_cpu():
+    """On the CPU the wrappers take the plain versions at any (hd, vd):
+    MLA's (96, 64) attention and its K3 / K4 give widths hd for q, k, dq,
+    dk and vd for v, out, dv, and count no launch."""
+    ops.reset_launches()
+    rng = np.random.default_rng(3)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).requires_grad_(True)
+    q, k, v = mk(2, 9, 3, 2, 96), mk(2, 9, 3, 96), mk(2, 9, 3, 64)
+    out = ops.attention(q, k, v, scale=96 ** -0.5)
+    assert out.shape == (2, 9, 6, 64)
+    dq, dk, dv = torch.autograd.grad(out.sum(), (q, k, v))
+    assert dq.shape == q.shape and dk.shape == k.shape
+    assert dv.shape == v.shape
+    assert sum(ops.LAUNCHES.values()) == 0

@@ -60,9 +60,9 @@ MOE_FLASH_SHAPES = [(1, 2048, 16, 1, 128, 0)]
 #: ones); a ragged length with a window that cuts inside a key tile
 LLAMA4_FLASH_SHAPES = [(1, 2048, 8, 5, 128, 8192), (1, 2048, 8, 5, 128, 0),
                        (1, 300, 8, 5, 128, 100)]
-#: minicpm3-4b's MLA attention as K2-K4 take it: 40 KV heads of one query
-#: head each, its q.k (96) and v (64) widths zero-padded to 128; its
-#: chunked-branch length and a ragged one at B = 2
+#: minicpm3-4b's MLA attention shapes at hd = vd = 128: 40 KV heads of
+#: one query head each, its chunked-branch length and a ragged one at B =
+#: 2 (its own widths, q.k 96 and v 64, are in WIDTH_CASES)
 MLA_FLASH_SHAPES = [(1, 4096, 40, 1, 128, 0), (2, 300, 40, 1, 128, 0)]
 
 
@@ -508,7 +508,7 @@ def test_head_form_routes_refused_forms_to_k9(h100, case):
 @pytest.mark.parametrize("s", [300, 4096])
 def test_mla_padded_attention_matches_plain(h100, s):
     """minicpm3-4b's attention through ``attention.mla_attention`` (q''
-    and k'' of width 96 and v of 64 zero-padded to 128; one K2 launch
+    and k'' of width 96 and v of 64, no zero column; one K2 launch
     forward, K3 and K4 backward) against the same function on the plain
     versions, in bf16: the output and the gradients of q_nope, q_pe,
     k_nope, k_pe (summed over the heads) and v, each within 2e-2 of its
@@ -1829,3 +1829,95 @@ def test_whisper_head_on_unaligned_vocab_matches_plain(h100, t):
         _held(got, want, 1e-4)
         assert torch.equal(got, again)
     assert ops.LAUNCHES["K1"] == 6
+
+
+#: (b, sq, sk, kv, g, hd, vd, mask) of the flash kernels with a value width
+#: apart from the q.k width: MLA's (96, 64), built as such, at minicpm3-4b's
+#: prefill (40 KV heads of one query head each, two consumer warpgroups),
+#: ragged at B = 2, G > 1 (8 and 16), a G that does not divide 64 (K4's
+#: FMA form in bf16), windowed, prefix-LM, bidirectional at Sq != Sk; then
+#: pairs that are not built, which ``ops`` zero-pads to the smallest built
+#: pair that covers them: (80, 48) -> (96, 64), (96, 96) -> (128, 128),
+#: (32, 160) -> (256, 256)
+WIDTH_CASES = [
+    (1, 4096, 4096, 40, 1, 96, 64, "causal"),
+    (2, 300, 300, 40, 1, 96, 64, "causal"),
+    (2, 1000, 1000, 2, 8, 96, 64, "causal"),
+    (1, 513, 513, 1, 16, 96, 64, "window"),
+    (1, 200, 200, 2, 5, 96, 64, "causal"),
+    (2, 130, 130, 2, 4, 96, 64, "prefix"),
+    (2, 448, 1500, 2, 1, 96, 64, "bidirectional"),
+    (2, 130, 130, 2, 4, 80, 48, "causal"),
+    (1, 300, 300, 2, 2, 96, 96, "window"),
+    (1, 257, 257, 1, 8, 32, 160, "prefix"),
+]
+_WIDTH_MASKS = {"causal": {}, "window": dict(window=37),
+                "prefix": dict(prefix_len=70),
+                "bidirectional": dict(causal=False)}
+
+
+def _width_case(dev, dtype, b, sq, sk, kv, g, hd, vd, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen,
+                                     device=dev).to(dtype)
+    return (rnd(b, sq, kv, g, hd), rnd(b, sk, kv, hd), rnd(b, sk, kv, vd),
+            rnd(b, sq, kv, g, vd))
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("dtype,atol,rel", [(_F32, 1e-5, 1e-4),
+                                            (_BF16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("b,sq,sk,kv,g,hd,vd,mask", WIDTH_CASES)
+def test_apart_width_flash_kernels_match_plain(h100, dtype, atol, rel, b, sq,
+                                               sk, kv, g, hd, vd, mask):
+    """K2 (with and without its export), K3 and K4 with q, k of width hd
+    and v, dO of width vd against their plain versions, held as the equal
+    widths are: out and dv of width vd, dq and dk of width hd, K4's rerun
+    the same bits, one launch a call whether the pair is built or
+    padded."""
+    q, k, v, do = _width_case(h100, dtype, b, sq, sk, kv, g, hd, vd, 9)
+    kw = dict(scale=hd ** -0.5, **_WIDTH_MASKS[mask])
+    got = ops.attention(q, k, v, **kw)
+    out, m, l = ops.attention_stats(q, k, v, **kw)
+    args = _flash_bwd_args(q, k, v, do, out, m, l)
+    dq = ops.flash_dq(*args, **kw)
+    dk, dv = ops.flash_dkv(*args, **kw)
+    dk2, dv2 = ops.flash_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    assert [ops.LAUNCHES[x] for x in ("K2", "K3", "K4")] == [2, 1, 2]
+    assert got.shape == (b, sq, kv * g, vd)
+    assert torch.equal(got, out)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    want = ref.attention_stats(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want[0].float(), rtol=0,
+                               atol=atol)
+    torch.testing.assert_close(m, want[1], rtol=0, atol=1e-4)
+    torch.testing.assert_close(l, want[2], rtol=1e-4, atol=0)
+    _held(dq, ref.flash_dq(*args, **kw), rel)
+    for a, w in zip((dk, dv), ref.flash_dkv(*args, **kw)):
+        _held(a, w, rel)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("hd,vd", [(96, 64), (80, 48), (32, 160)])
+def test_apart_width_attention_gradients_match_plain(h100, hd, vd):
+    """``ops.attention``'s autograd path at a built and at padded pairs in
+    bf16 (G = 4, a ragged length): one K2, K3 and K4 launch, the output
+    and the gradients of q, k, v within 2e-2 of their largest plain entry
+    (the flash kernels' bf16 tolerance), of their own widths."""
+    q, k, v, do = _width_case(h100, _BF16, 2, 300, 300, 2, 4, hd, vd, 10)
+    ins = [t.requires_grad_(True) for t in (q, k, v)]
+    dout = do.reshape(2, 300, 8, vd)
+    results = []
+    for plain in (False, True):
+        ctx = ops.reference_mode() if plain else torch.enable_grad()
+        with ctx:
+            out = ops.attention(*ins, scale=hd ** -0.5)
+            grads = torch.autograd.grad(out, ins, dout)
+        results.append((out, *grads))
+    torch.cuda.synchronize()
+    assert [ops.LAUNCHES[x] for x in ("K2", "K3", "K4")] == [1, 1, 1]
+    for got, want in zip(*results):
+        assert got.shape == want.shape and got.dtype == _BF16
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 * want.float().abs().max().item(), err

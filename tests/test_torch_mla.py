@@ -5,8 +5,8 @@ rope 32, v 64) in float32, on the same weights (carried across with
 ``params_from_numpy``; the norm scales, ones at init, redrawn as seeded
 normals on both sides) and the same numpy inputs.
 
-The port runs MLA's full-sequence attention on K2 with its widths
-zero-padded to 128 (``attention.mla_attention``), where the reference uses
+The port runs MLA's full-sequence attention on K2 at its own widths, q.k
+96 and v 64 (``attention.mla_attention``), where the reference uses
 einsums below ``attn_chunk_min_seq`` and chunked attention above it: both
 branches are compared.  The absorbed decode's two products go through
 ``ops.head_matmul`` (K1's head form on the card; here its plain version,
@@ -161,8 +161,7 @@ def test_mla_fwd_matches_reference(mla, chunk_min):
     """One layer's ``mla_fwd`` at S = 16: the output and the ``MLACache``
     (the normed kv latent, the rotated shared key).  ``chunk_min`` = 8
     makes the reference take its chunked branch (the two score terms
-    folded into one contraction, as the port's padded K2 call folds
-    them)."""
+    folded into one contraction, as the port's K2 call folds them)."""
     cfg, params, tcfg, tp = mla
     if chunk_min:
         cfg = cfg.with_(attn_chunk_min_seq=chunk_min, attn_chunk=4)
@@ -309,12 +308,13 @@ def test_head_matmul_takes_k9_where_k1_refuses(case):
 
 
 def test_padded_attention_is_the_unpadded_function():
-    """The padding identity of ``mla_attention``: q'' and k'' zero-padded
+    """``mla_attention`` (q'' and k'' of width 96, v of 64) gives the
+    attention at those widths (scores at scale 96^-1/2, the materialised
+    causal softmax) within 1e-5 with every gradient of its inputs, and the
+    identity the width rule of ``ops`` pads by: q'' and k'' zero-padded
     from 96 to 128 and v from 64, through the flash entry's plain version,
-    give the unpadded attention (scores of width 96 at scale 96^-1/2, the
-    materialised causal softmax) within 1e-5, and every gradient of the
-    inputs matches the unpadded function's, so the padded columns' share
-    is zero."""
+    leave zeros in every padded column of the output and of the padded
+    tensors' gradients."""
     rng = np.random.default_rng(4)
     b, s, h = 2, 9, 3
     mk = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(
