@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-four phases; any failure exits non-zero before the result line:
+Twenty-six phases; any failure exits non-zero before the result line:
 
 1. device   the card's name, power limit and compute capability (9, 0).
 2. build    nvcc builds every kernel under src/repro_torch/kernels/csrc/
@@ -89,6 +89,31 @@ Twenty-four phases; any failure exits non-zero before the result line:
             against the plain path; every kernel of the path must have
             launched its derived number of times; the third step runs
             under sync debug mode "error"; one step is profiled.
+5a. remat_dots gemma-2b at train's shape (B=2, S=512, full width and
+            depth, its first batch), forward and backward under remat
+            "full", off and "dots": K1-K4 launches and peak memory above
+            the parameters for each ("dots" also its memo's bytes), then
+            the three in turn over 6 rounds (ms, min / median / max) and
+            one profiled step each (device busy); "dots" launches K1 as often as
+            off and "full" 18 x one layer's forward products more, and
+            "dots"' loss and gradients equal "full"'s within LOSS_TOL /
+            GRAD_TOL (bit for bit or not, printed); peaks full <= dots <=
+            off.
+5b. launch_path the launchers at full width: launch.train.main on
+            gemma-2b (B=2, S=512, 3 steps) without and with
+            --compress-grads (derived launches; step 1's loss equal; each
+            step's host seconds, compress_grads' ms and peak a step, and
+            at step 2 three leaves, a 2^26 + 768-element slice of wi
+            among them, compressed on the card equal to the same function
+            on CPU copies bit for bit); whisper-base 4 steps straight
+            against 2 steps and a resume to 4 (checkpoints every 2 under
+            build/smoke_ckpt, removed after): the step-4 checkpoints
+            equal leaf for leaf, save / save_async / restore seconds and
+            the GB on disk (save timed alone, save_async's snapshot apart
+            from its wait on the earlier write); launch.serve.main on
+            gemma-2b, 4 requests of 16 + 32 tokens, then twice 32
+            requests of 128 + 32 tokens over 8 slots: tokens/s a call,
+            K5 launches (18 x the decode iterations).
 6. stablelm_path stablelm-1.6b at full width (24 layers, 32 heads of 64
             over 32 KV heads, LayerNorm and biases, rotary on a quarter of
             each head, bf16, 1.645 B seeded parameters) served by
@@ -183,8 +208,10 @@ Twenty-four phases; any failure exits non-zero before the result line:
             power over 1 s, then square products at N = 1024 .. 8192 in
             three families, moa_gemm bf16 (K1, B row-major), the same
             product with a col-layout B through apply, and max-plus f32
-            on K9, each over >= 1 s of CUDA-graph replays: ms, J (total
-            and above idle) and mean W a product, the model's ms, J, W
+            on K9, and beside them torch.matmul on the bf16 operands (the
+            library row), each over >= 1 s of CUDA-graph replays: ms, J
+            (total and above idle), mean W and the bound a product (bf16
+            at 989 TFLOP/s, max-plus by k9_bound), the model's ms, J, W
             and bound beside the bf16 rows, the slopes log2(E(2N)/E(N))
             and the power and time ratios; each family's 1024 product
             against its plain version.
@@ -280,6 +307,7 @@ import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1990,6 +2018,478 @@ def _train_steps(torch, tag, step, state, batches, tokens,
     require(changed == len(before), f"only {changed} of {len(before)} f32 "
             f"master leaves changed")
     return state, rows, launches, peak
+
+
+#: the training extras' phases: gemma-2b's [train] shape under each remat
+#: policy, then the launchers at full width (whisper-base's checkpoints
+#: under build/, removed after)
+REMAT_POLICIES = ("full", "off", "dots")
+REMAT_ROUNDS = 6
+LAUNCH_STEPS = 3
+LAUNCH_CKPT_DIR = os.path.join(ROOT, "build", "smoke_ckpt")
+WHISPER_LAUNCH = ("--batch", "8", "--seq", "128")
+#: the serve launcher's calls: first its default traffic (4 requests of
+#: 16 + 32 tokens, 4 slots: too few tokens to keep a rate), then SERVE_RUNS
+#: times 32 requests of 128 prompt tokens (within [path]'s 32-200) and 32
+#: new ones over 8 slots, whose rates and spread are kept
+SERVE_SMALL = ("--requests", "4", "--prompt-len", "16", "--new-tokens", "32")
+SERVE_LAUNCH = ("--requests", "32", "--prompt-len", "128", "--new-tokens",
+                "32", "--max-slots", "8")
+SERVE_RUNS = 2
+
+
+def phase_remat_dots(torch, card):
+    """gemma-2b at full width and depth, B=2 S=512 (``[train]``'s shape,
+    its first batch): the forward and backward (``loss_and_grads``)
+    under remat "full", off and "dots".  Each policy's first run after a
+    warm one counts the launches and reads the peak memory above what is
+    held before it ("dots" also the bytes its memo keeps); then
+    REMAT_ROUNDS rounds run the three policies in turn, each timed by
+    CUDA events, and one profiled step a policy gives its device busy
+    time.  "dots" must launch K1 as often as off, "full" one layer's
+    forward products (counted in a no-grad forward) 18 times more;
+    "dots"' loss and gradients must equal "full"'s within LOSS_TOL /
+    GRAD_TOL (printed: bit for bit or not); peaks full <= dots <= off."""
+    from repro_torch.configs import gemma_2b
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.train import train_step as ts
+
+    phase_t0 = time.perf_counter()
+    cfg, params = _model(torch, gemma_2b, trainable=True)
+    batch = _batches(torch, cfg)[0]
+    L = cfg.n_layers
+    ops.reset_launches()
+    with torch.no_grad():
+        registry.loss(params, cfg, batch)
+    torch.cuda.synchronize()
+    forward_k1 = ops.LAUNCHES["K1"]
+    per_layer = (forward_k1 - 1) // L
+    print(f"[remat_dots] gemma-2b full width, {L} layers, B={TRAIN_B} "
+          f"S={TRAIN_S}: a no-grad forward launches K1 {forward_k1} times "
+          f"({per_layer} a layer + the head) ({card})", flush=True)
+    runs, steps, total = {}, {}, _zero_launches()
+    memo = [0]
+    inner_dots = ops._dots_matmul
+
+    def dots_matmul(dots, *args):
+        y = inner_dots(dots, *args)
+        if dots[1] is None:                      # recorded, not replayed
+            memo[0] += y.nbytes
+        return y
+
+    for policy in REMAT_POLICIES:
+        c = cfg.with_(remat=policy != "off",
+                      remat_policy="dots" if policy == "dots" else "full")
+        steps[policy] = loss_and_grads = \
+            lambda c=c: ts.loss_and_grads(params, c, batch)
+        loss_and_grads()                         # warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with _patched(ops, "_dots_matmul", dots_matmul):
+            (loss, _, grads), ms = _timed(torch, loss_and_grads)
+        launches = dict(ops.LAUNCHES)
+        for k in total:
+            total[k] += launches[k]
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"[remat_dots] {policy}: forward+backward {ms:.3f} ms (the "
+              f"counted run), loss {loss.item():.6f}, K1 {launches['K1']} "
+              f"K2 {launches['K2']} K3 {launches['K3']} K4 "
+              f"{launches['K4']}, peak {peak / 2**30:.3f} GiB above the "
+              f"{base / 2**30:.3f} GiB held ({card})", flush=True)
+        runs[policy] = (loss, launches, peak)
+        if policy == "full":
+            ref_grads = grads
+        else:
+            ref_loss = runs["full"][0]
+            lk, lp = loss.item(), ref_loss.item()
+            rel = abs(lk - lp) / abs(lp)
+            worst = max(_rel(torch, grads[k], ref_grads[k], norm=True)
+                        for k in grads)
+            same = torch.equal(loss, ref_loss) and all(
+                torch.equal(grads[k], ref_grads[k]) for k in grads)
+            print(f"[remat_dots] {policy} vs full: loss rel {rel:.3e} (tol "
+                  f"{LOSS_TOL:g}), worst gradient rel norm err {worst:.3e} "
+                  f"(tol {GRAD_TOL:g}) over {len(grads)} leaves; bit for "
+                  f"bit: {same}", flush=True)
+            require(rel <= LOSS_TOL and worst <= GRAD_TOL,
+                    f"[remat_dots] {policy}'s loss or gradients differ "
+                    f"from full's")
+        del grads
+        torch.cuda.empty_cache()
+    del ref_grads
+    torch.cuda.empty_cache()
+    k1 = {p: r[1]["K1"] for p, r in runs.items()}
+    k2 = {p: r[1]["K2"] for p, r in runs.items()}
+    want_off = 3 * (per_layer * L + 1)
+    require(k1["off"] == want_off, f"remat off launched K1 {k1['off']} "
+            f"times, derived {want_off}")
+    require(k1["dots"] == k1["off"], f"dots launched K1 {k1['dots']} "
+            f"times, off {k1['off']}: its backward reran a forward product")
+    require(k1["full"] - k1["dots"] == L * per_layer,
+            f"full - dots = {k1['full'] - k1['dots']} K1 launches, not "
+            f"{L} x {per_layer}")
+    require(k2 == {"full": 2 * L, "off": L, "dots": 2 * L},
+            f"K2 launches {k2}")
+    peaks = {p: r[2] for p, r in runs.items()}
+    require(peaks["full"] <= peaks["dots"] <= peaks["off"],
+            f"peaks (GiB) {({p: v / 2**30 for p, v in peaks.items()})} "
+            f"break full <= dots <= off")
+    # the policies in turn, so that a drift of the host's speed reaches
+    # each of them alike
+    times = {p: [] for p in REMAT_POLICIES}
+    for _ in range(REMAT_ROUNDS):
+        for policy in REMAT_POLICIES:
+            times[policy].append(_timed(torch, steps[policy])[1])
+    med = {p: statistics.median(t) for p, t in times.items()}
+    for policy, t in times.items():
+        print(f"[remat_dots] {policy}: {REMAT_ROUNDS} rounds in turn, ms "
+              f"{[round(x, 3) for x in t]}: min {min(t):.3f}, median "
+              f"{med[policy]:.3f}, max {max(t):.3f} ({card})", flush=True)
+    paired = [f - d for f, d in zip(times["full"], times["dots"])]
+    print(f"[remat_dots] full - dots a round, ms "
+          f"{[round(x, 3) for x in paired]}: median "
+          f"{statistics.median(paired):.3f}", flush=True)
+    busy = {p: profile_step(torch, steps[p], n=1, what=f"remat {p} fwd+bwd",
+                            detail=False)[1] for p in REMAT_POLICIES}
+    print(f"[remat_dots] dots saves {med['full'] - med['dots']:.3f} ms of "
+          f"full's median {med['full']:.3f} ms (device busy a step: full "
+          f"{busy['full']:.3f}, dots {busy['dots']:.3f}, off "
+          f"{busy['off']:.3f} ms; busy saved "
+          f"{busy['full'] - busy['dots']:.3f} ms) and holds "
+          f"{(peaks['dots'] - peaks['full']) / 2**30:.3f} GiB more at its "
+          f"peak, its memo {memo[0] / 2**30:.3f} GiB; off median "
+          f"{med['off']:.3f} ms, {(peaks['off'] - peaks['dots']) / 2**30:.3f}"
+          f" GiB above dots; phase wall "
+          f"{time.perf_counter() - phase_t0:.1f} s ({card})", flush=True)
+    return total
+
+
+class _Tee:
+    """Writes to stdout and keeps the text (a launcher's prints)."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, text):
+        self.parts.append(text)
+        return sys.__stdout__.write(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def _launch(main, argv, tag):
+    """``main(argv)`` with its prints shown (prefixed by the caller's
+    tag line) and kept; returns ``(result, printed text)``."""
+    print(f"[launch_path] {tag}: main({' '.join(argv)})", flush=True)
+    tee = _Tee()
+    with contextlib.redirect_stdout(tee):
+        out = main(list(argv))
+    return out, tee.text()
+
+
+#: the compressed run's leaves compared with the same function on CPU
+#: copies at its second step (a non-zero error state): a block-aligned
+#: slice of wi of 2^26 + 768 elements (two of the CPU's slices), the whole
+#: stacked wo and the final norm's scale
+COMPRESS_LEAVES = {"layers.mlp.wi": 2 ** 26 + 768, "layers.attn.wo": None,
+                   "final_norm.scale": None}
+
+
+def _compress_spy(torch, compression, record):
+    """A ``compress_grads`` that times each call (CUDA events), reads its
+    peak memory above what it starts with, and at its second call keeps
+    CPU copies of COMPRESS_LEAVES' inputs and outputs."""
+    inner = compression.compress_grads
+    cut = lambda t, k: t.reshape(-1)[:COMPRESS_LEAVES[k]] \
+        if COMPRESS_LEAVES[k] else t
+    host = lambda t: t.to("cpu", copy=True)
+
+    def spy(cfg, grads, err):
+        if not cfg.enabled:
+            return inner(cfg, grads, err)
+        n = len(record["events"])
+        keep = n == 1
+        if keep:
+            record["inputs"] = {k: (host(cut(grads[k], k)),
+                                    host(cut(err[k], k)))
+                                for k in COMPRESS_LEAVES}
+        record["peak_before"] = max(record.get("peak_before", 0),
+                                    torch.cuda.max_memory_allocated())
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(cfg, grads, err)
+        end.record()
+        record["events"].append((start, end))
+        record["peaks"].append(torch.cuda.max_memory_allocated() - base)
+        if keep:
+            record["outputs"] = {k: (host(cut(out[0][k], k)),
+                                     host(cut(out[1][k], k)))
+                                 for k in COMPRESS_LEAVES}
+        return out
+    return spy
+
+
+def _step_spy(record):
+    """A ``StepWatchdog.stop`` that keeps each step's host seconds."""
+    from repro_torch.distributed.fault import StepWatchdog
+    inner = StepWatchdog.stop
+
+    def stop(self, step):
+        dt = inner(self, step)
+        record.append(dt)
+        return dt
+    return stop
+
+
+def _gemma_launches(cfg, steps):
+    """[train]'s derived launches for ``steps`` remat-"full" steps."""
+    L = cfg.n_layers
+    return _zero_launches(K1=steps * (6 * L + 1 + 6 * L + 2 * (6 * L + 1)),
+                          K2=steps * 2 * L, K3=steps * L, K4=steps * L)
+
+
+def _launch_train_gemma(torch, card, total):
+    """(a): gemma-2b at full width and depth through ``launch.train.main``
+    without and with ``--compress-grads``."""
+    from repro_torch.configs import gemma_2b
+    from repro_torch.distributed import compression, fault
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    argv = ["--arch", "gemma-2b", "--batch", str(TRAIN_B), "--seq",
+            str(TRAIN_S), "--steps", str(LAUNCH_STEPS), "--log-every", "1"]
+    losses = {}
+    for comp in (False, True):
+        tag = "gemma-2b " + ("--compress-grads" if comp else "uncompressed")
+        steps, rec = [], {"events": [], "peaks": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with _patched(fault.StepWatchdog, "stop", _step_spy(steps)), \
+                _patched(compression, "compress_grads",
+                         _compress_spy(torch, compression, rec)):
+            out, text = _launch(train.main, argv + (["--compress-grads"]
+                                                    if comp else []), tag)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        for k in total:
+            total[k] += launches[k]
+        peak = max(torch.cuda.max_memory_allocated(),
+                   rec.get("peak_before", 0))
+        losses[comp] = out
+        want = _gemma_launches(gemma_2b.full(), LAUNCH_STEPS)
+        require(text.startswith("mesh: {'data': 1, 'model': 1} "
+                                "device=cuda"), "the launcher's first line")
+        require(len(out) == LAUNCH_STEPS and all(map(math.isfinite, out)),
+                f"{tag}: losses {out}")
+        require(launches == want, f"{tag}: launches {launches}, derived "
+                f"{want}")
+        line = (f"[launch_path] {tag}: step s (host, to the loss on the "
+                f"host) {[round(s, 6) for s in steps]}, losses "
+                f"{[round(x, 6) for x in out]}, launches {launches}, peak "
+                f"{peak / 2**30:.3f} GiB")
+        if comp:
+            cms = [a.elapsed_time(b) for a, b in rec["events"]]
+            line += (f"; compress_grads ms a step {[round(x, 3) for x in cms]}"
+                     f", its peak above its start "
+                     f"{max(rec['peaks']) / 2**30:.3f} GiB")
+        print(line + f" ({card})", flush=True)
+        if comp:
+            cfg = compression.CompressionConfig(enabled=True)
+            cpu_g = {k: g.clone() for k, (g, _) in rec["inputs"].items()}
+            cpu_e = {k: e.clone() for k, (_, e) in rec["inputs"].items()}
+            want_g, want_e = compression.compress_grads(cfg, cpu_g, cpu_e)
+            for k, (g, e) in rec["outputs"].items():
+                same = torch.equal(g, want_g[k]) and torch.equal(e, want_e[k])
+                print(f"[launch_path] compress_grads at step 2, {k} "
+                      f"{tuple(g.shape)} {g.dtype}: card equals the CPU bit "
+                      f"for bit: {same}", flush=True)
+                require(same, f"compress_grads on the card differs from the "
+                        f"CPU on {k}")
+        del out
+        torch.cuda.empty_cache()
+    l0, l1 = losses[False][0], losses[True][0]
+    print(f"[launch_path] step-1 loss uncompressed {l0:.6f}, compressed "
+          f"{l1:.6f} (equal: {l0 == l1})", flush=True)
+    require(abs(l0 - l1) <= 1e-6 * abs(l0), "step 1's loss moved with "
+            "compression, which acts after the gradients")
+
+
+def _launch_train_whisper(torch, card, total):
+    """(b): whisper-base at full width and depth: run A 4 steps straight,
+    run B 2 steps then resumed to 4, checkpoints every 2 steps; B's step-4
+    arrays equal A's bit for bit."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    shutil.rmtree(LAUNCH_CKPT_DIR, ignore_errors=True)
+    dirs = {r: os.path.join(LAUNCH_CKPT_DIR, r) for r in ("a", "b", "save")}
+    argv = ["--arch", "whisper-base", *WHISPER_LAUNCH, "--log-every", "1",
+            "--ckpt-every", "2"]
+    timing = {"wait": [], "save_async": [], "save": [], "restore": []}
+    inner_async, inner_restore = Checkpointer.save_async, Checkpointer.restore
+
+    def save_async(self, step, tree, metadata=None):
+        # the wait on the earlier write apart from the snapshot
+        t0 = time.perf_counter()
+        self.wait()
+        timing["wait"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        inner_async(self, step, tree, metadata)
+        timing["save_async"].append(time.perf_counter() - t0)
+        if not timing["save"]:
+            # the same state, blocking, once this write has ended: no
+            # other write runs beside it
+            self.wait()
+            t0 = time.perf_counter()
+            Checkpointer(dirs["save"]).save(step, tree, metadata)
+            timing["save"].append(time.perf_counter() - t0)
+
+    def restore(self, like, step=None):
+        t0 = time.perf_counter()
+        out = inner_restore(self, like, step)
+        torch.cuda.synchronize()
+        timing["restore"].append(time.perf_counter() - t0)
+        return out
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with _patched(Checkpointer, "save_async", save_async), \
+            _patched(Checkpointer, "restore", restore):
+        a, _ = _launch(train.main, argv + ["--steps", "4", "--ckpt-dir",
+                                           dirs["a"]], "whisper-base run A")
+        b1, _ = _launch(train.main, argv + ["--steps", "2", "--ckpt-dir",
+                                            dirs["b"]], "whisper-base run B")
+        b2, text = _launch(train.main, argv + ["--steps", "4", "--ckpt-dir",
+                                               dirs["b"]],
+                           "whisper-base run B, again")
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for k in total:
+        total[k] += launches[k]
+    require("resumed from step 2" in text, "run B did not resume")
+    # step 2's checkpoints come from two runs of the same steps: equal
+    # unless training itself does not repeat on the card
+    (f2a, _), (f2b, _) = (Checkpointer(dirs[r])._load_step(2)
+                          for r in ("a", "b"))
+    same2 = all(torch.equal(f2a[k], f2b[k]) for k in f2a)
+    print(f"[launch_path] whisper-base step-2 checkpoints of runs A and B "
+          f"(no resume yet) equal: {same2}", flush=True)
+    require(b1 + b2 == a, f"run B's losses {b1 + b2} != run A's {a}")
+    (fa, ma), (fb, mb) = (Checkpointer(dirs[r])._load_step(4)
+                          for r in ("a", "b"))
+    require(ma["metadata"] == mb["metadata"] == {"data_step": 4},
+            "the step-4 manifests' data step")
+    differ = [k for k in fa if not torch.equal(fa[k], fb[k])]
+    gb = os.path.getsize(os.path.join(dirs["a"], "step_0000000004",
+                                      "arrays.npz")) / 1e9
+    n_params = sum(int(np.prod(t.shape)) for k, t in fa.items()
+                   if k.startswith("params/"))
+    print(f"[launch_path] whisper-base ({n_params / 1e6:.2f} M params): B's "
+          f"step-4 checkpoint equals A's leaf for leaf: {not differ} "
+          f"({len(fa)} leaves; differ {differ[:4]}); losses A "
+          f"{[round(x, 6) for x in a]}; launches {launches}; the three "
+          f"runs {wall:.1f} s ({card})", flush=True)
+    require(not differ and fa.keys() == fb.keys(),
+            f"resumed checkpoint differs from the straight one: {differ}")
+    print(f"[launch_path] whisper-base checkpoint {gb:.3f} GB on disk a "
+          f"step; host-blocking s: save {timing['save']} (alone), "
+          f"save_async's snapshot "
+          f"{[round(x, 4) for x in timing['save_async']]} (its wait on the "
+          f"earlier write apart: {[round(x, 4) for x in timing['wait']]}); "
+          f"restore s "
+          f"{[round(x, 4) for x in timing['restore']]} (files warm in the "
+          f"page cache)", flush=True)
+    shutil.rmtree(LAUNCH_CKPT_DIR, ignore_errors=True)
+
+
+def _launch_serve_gemma(torch, card, total):
+    """(c): ``launch.serve.main`` on gemma-2b at full width, once over
+    SERVE_SMALL's traffic, then SERVE_RUNS times over SERVE_LAUNCH's:
+    each call's tokens/s."""
+    from repro_torch.configs import gemma_2b
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    engines = []
+    inner = serve.ServeEngine
+
+    class Engine(inner):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            engines.append(self)
+
+    L = gemma_2b.full().n_layers
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rates = []
+    with _patched(serve, "ServeEngine", Engine):
+        for run, argv in enumerate([SERVE_SMALL]
+                                   + [SERVE_LAUNCH] * SERVE_RUNS):
+            results, text = _launch(serve.main, ["--arch", "gemma-2b",
+                                                 *argv],
+                                    f"gemma-2b serve, call {run + 1}")
+            n_req, n_new = int(argv[1]), int(argv[5])
+            require(len(results) == n_req and all(
+                len(r["tokens"]) == n_new for r in results.values()),
+                "the serve launcher's results")
+            line = next(x for x in text.splitlines() if "tok/s" in x)
+            rates.append(float(line.split("=")[-1].split()[0]))
+            del results
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for k in total:
+        total[k] += launches[k]
+    iters = sum(e.kernel_calls for e in engines)
+    require(all(e.batched for e in engines) and launches["K5"] == L * iters,
+            f"K5 {launches['K5']} != {L} x {iters} decode iterations")
+    kept = rates[1:]
+    spread = 100 * (max(kept) - min(kept)) / min(kept)
+    print(f"[launch_path] gemma-2b serve: tok/s {rates[0]} over "
+          f"{' '.join(SERVE_SMALL)} (not kept), then {kept} over "
+          f"{' '.join(SERVE_LAUNCH)} (spread {spread:.1f}%); K5 "
+          f"{launches['K5']} launches ({iters} decode iterations x {L} "
+          f"layers), K1 {launches['K1']}, K2 {launches['K2']}; the "
+          f"{len(rates)} calls {wall:.2f} s with the parameters' draws "
+          f"({card})", flush=True)
+
+
+def phase_launch_path(torch, card):
+    """The launchers at full width: (a) ``launch.train.main`` on gemma-2b
+    (depth 18, B=2 S=512, 3 steps) without and with ``--compress-grads``:
+    derived launches, step 1's loss equal, the compression's ms and peak
+    memory a step, three leaves' compression equal to the CPU's bit for
+    bit; (b) whisper-base's straight and resumed runs, their step-4
+    checkpoints equal bit for bit, the save / save_async / restore
+    seconds and the GB on disk; (c) ``launch.serve.main`` on gemma-2b,
+    4 requests of 16 + 32 tokens, then SERVE_RUNS times 32 requests of
+    128 + 32 tokens over 8 slots: tokens/s a call and K5's launches."""
+    phase_t0 = time.perf_counter()
+    total = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
+                            "K9")}
+    _launch_train_gemma(torch, card, total)
+    torch.cuda.empty_cache()
+    _launch_train_whisper(torch, card, total)
+    torch.cuda.empty_cache()
+    _launch_serve_gemma(torch, card, total)
+    print(f"[launch_path] launches {total}; phase wall "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return total
 
 
 def _dense_reqs(cfg, n: int):
@@ -3939,12 +4439,16 @@ def phase_energy_path(torch, card) -> dict:
     contiguous normal form), (b) the same product with B stored
     column-major through ``ops.apply`` (the classical column walk of B,
     its route printed), (c) max-plus in f32 on K9 (CUDA cores, as the
-    paper's V100).  The bf16 rows print the model's ms, J, W and bound
-    (``energy.gemm_energy`` on the H100 table's solved blocks) beside
-    the derived block and K1's tile, and the classical HBM bytes the
-    model charges; then the slopes log2(E(2N)/E(N)) and the paper's
-    §3.6.3 ratios.  Each family's 1024 product is held to its plain
-    version.  Returns the launches of its driven calls."""
+    paper's V100), and the library row, ``torch.matmul`` on (a)'s
+    operands.  Every row prints its bound (the bytes or the operations:
+    bf16 at 989 TFLOP/s, max-plus by ``k9_bound``); the bf16 rows print
+    the model's ms, J, W and bound (``energy.gemm_energy`` on the H100
+    table's solved blocks) beside the derived block and K1's tile, and
+    the classical HBM bytes the model charges; a line a size gathers the
+    kernel table's row (with the plain versions' ms of (a) and (c)); then
+    the slopes log2(E(2N)/E(N)) and the paper's
+    §3.6.3 ratios.  Each kernel family's 1024 product is held to its
+    plain version.  Returns the launches of its driven calls."""
     from repro_torch.core import energy
     from repro_torch.core import expr as E
     from repro_torch.core.blocking import solve_blocks
@@ -3962,7 +4466,7 @@ def phase_energy_path(torch, card) -> dict:
         require(0 < idle_w <= 1.05 * limit_w, f"idle power {idle_w} W "
                 f"outside (0, 1.05 x {limit_w} W]")
         gen = torch.Generator(device="cuda").manual_seed(28)
-        rows = {"a": [], "b": [], "c": [], "model": []}
+        rows = {"a": [], "b": [], "c": [], "lib": [], "model": []}
         ops.reset_launches()
         for n in ENERGY_NS:
             a = torch.randn(n, n, generator=gen, device="cuda").bfloat16()
@@ -3980,7 +4484,13 @@ def phase_energy_path(torch, card) -> dict:
                                               out_dtype=torch.float32)),
                 "c": ("max-plus f32 (K9, B row-major)",
                       lambda: ops.semiring_matmul(a32, b32, plus="max",
-                                                  times="add"))}
+                                                  times="add")),
+                # the library call on the same bf16 operands, timed and
+                # metered as the others; used nowhere in the port.  It
+                # writes bf16 where (a) and (b) write f32: n * n * 2
+                # fewer bytes, 0.6 us at N = 1024 at 3.35 TB/s
+                "lib": ("library torch.matmul bf16, bf16 out (B row-major)",
+                        lambda: torch.matmul(a, b))}
             before = dict(ops.LAUNCHES)
             fams["b"][1]()
             torch.cuda.synchronize()
@@ -3991,6 +4501,8 @@ def phase_energy_path(torch, card) -> dict:
                             if kid == "K1" else "") + ")", fams["b"][1])
             if n == ENERGY_NS[0]:
                 for key, (label, fn) in fams.items():
+                    if key == "lib":
+                        continue
                     got = fn()
                     with ops.reference_mode():
                         want = fn()
@@ -4012,6 +4524,9 @@ def phase_energy_path(torch, card) -> dict:
             rows["model"].append(model)
             for key, (label, fn) in fams.items():
                 row = _energy_row(torch, meter, fn, idle_w)
+                if key in ("a", "c"):        # the plain versions' time
+                    row["plain_ms"] = plain_time_ms(
+                        torch, lambda: _plain(ops, fn))
                 rows[key].append(row)
                 require(row["rose"] and row["J"] > 0, f"[energy_path] "
                         f"{label} N={n}: the energy counter did not rise")
@@ -4023,6 +4538,18 @@ def phase_energy_path(torch, card) -> dict:
                         f" J above idle), mean {row['W']:.1f} W over "
                         f"{row['window_s']:.3f} s ({row['products']} "
                         f"products, {row['per_replay']} a replay)")
+                if key in ("a", "b", "lib"):
+                    # each operand read once (bf16), C written once (f32;
+                    # bf16 for the library call)
+                    row["bound_ms"], row["bound_by"] = bound(
+                        2.0 * n ** 3, n * n * (2 + 2 + (2 if key == "lib"
+                                                       else 4)), "bfloat16")
+                else:
+                    # an add and a max a term, f32 lane instructions
+                    row["bound_ms"], row["bound_by"] = k9_bound(
+                        2.0 * n ** 3, 3 * n * n * 4)
+                line += (f"; bound {row['bound_ms']:.4f} ms "
+                         f"({row['bound_by']})")
                 if key in ("a", "b"):
                     line += (f"; model {model.time_s * 1e3:.4f} ms, "
                              f"{model.energy_J:.6f} J, {model.power_W:.1f} "
@@ -4034,9 +4561,23 @@ def phase_energy_path(torch, card) -> dict:
             del a, b, bt, a32, b32
             torch.cuda.empty_cache()
         launches = dict(ops.LAUNCHES)
+        for i, n in enumerate(ENERGY_NS):
+            print(f"[energy_path] N={n} table row: moa_gemm bf16 "
+                  f"{rows['a'][i]['ms']:.4f} ms / library torch.matmul "
+                  f"{rows['lib'][i]['ms']:.4f} ms / bound "
+                  f"{rows['a'][i]['bound_ms']:.4f} ms / plain "
+                  f"{rows['a'][i]['plain_ms']:.4f} ms; max-plus "
+                  f"{rows['c'][i]['ms']:.4f} ms / bound "
+                  f"{rows['c'][i]['bound_ms']:.4f} ms / plain "
+                  f"{rows['c'][i]['plain_ms']:.4f} ms "
+                  f"({rows['c'][i]['bound_by']}); J a product moa_gemm "
+                  f"{rows['a'][i]['J']:.6f}, library "
+                  f"{rows['lib'][i]['J']:.6f}, max-plus "
+                  f"{rows['c'][i]['J']:.6f} ({card})", flush=True)
         for key, label in (("a", "moa_gemm bf16"),
                            ("b", "apply bf16 col-layout B"),
-                           ("c", "max-plus f32")):
+                           ("c", "max-plus f32"),
+                           ("lib", "library torch.matmul bf16")):
             rs = rows[key]
             p = [r["W"] for r in rs]
             t = [r["ms"] for r in rs]
@@ -5586,8 +6127,11 @@ def phase_encdec_train(torch, card):
     return launches
 
 
-def profile_step(torch, step, n: int = 3, what: str = "decode") -> None:
-    """Device time by kernel over ``n`` steps (torch.profiler)."""
+def profile_step(torch, step, n: int = 3, what: str = "decode",
+                 detail: bool = True) -> tuple[float, float]:
+    """Device time by kernel over ``n`` steps (torch.profiler); the
+    kernels' rows only with ``detail``.  Returns ``(wall ms, device busy
+    ms)`` over the ``n`` steps."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -5606,6 +6150,8 @@ def profile_step(torch, step, n: int = 3, what: str = "decode") -> None:
     print(f"[profile] {n} {what} steps: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {kernels:.0f} "
           f"device kernels and copies a step", flush=True)
+    if not detail:
+        return wall_ms, busy_ms
     # the 12 largest rows, then every other row of the port's own kernels
     # (their symbols open with an anonymous namespace, PyTorch's name
     # at::), so each kernel's share of the step shows
@@ -5615,6 +6161,7 @@ def profile_step(torch, step, n: int = 3, what: str = "decode") -> None:
         if i < 12 or (e.key.startswith(ours) and "at::" not in e.key):
             print(f"[profile]   {e.self_device_time_total / 1e3 / n:9.4f} "
                   f"ms/step  x{e.count // n:<4d} {e.key[:70]}")
+    return wall_ms, busy_ms
 
 
 def main() -> None:
@@ -5630,6 +6177,10 @@ def main() -> None:
     serve, serve_per_slot = phase_path(torch, smi_line)
     torch.cuda.empty_cache()
     train = phase_train(torch)
+    torch.cuda.empty_cache()
+    remat = phase_remat_dots(torch, smi_line)
+    torch.cuda.empty_cache()
+    launch = phase_launch_path(torch, smi_line)
     torch.cuda.empty_cache()
     stablelm_serve = phase_stablelm_path(torch, smi_line)
     torch.cuda.empty_cache()
@@ -5702,6 +6253,7 @@ def main() -> None:
                    "src/repro/kernels/emit.py:125",
                    f"K9 float32 max-plus {MOA_BIG}x{MOA_BIG}x{MOA_BIG}")}
     runs = {"path": serve, "path_per_slot": serve_per_slot, "train": train,
+            "remat_dots": remat, "launch_path": launch,
             "stablelm_path": stablelm_serve,
             "stablelm_train": stablelm_train, "cmdr_path": cmdr_serve,
             "ssm_path": ssm_serve,

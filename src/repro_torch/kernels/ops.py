@@ -83,6 +83,7 @@ descriptor (``kernels/emit.py``), which reads every leaf in place.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import ctypes
 import functools
 import threading
@@ -507,18 +508,25 @@ class _MatmulF32(torch.autograd.Function):
     "split" route; the parts hold ``g`` within 2^-24 of its magnitude, so
     only the order of the f32 sums differs from the reference's).  Their
     f32 results are cast to ``x2.dtype`` / ``w2.dtype``, as
-    ``_pallas_matmul_bwd`` does."""
+    ``_pallas_matmul_bwd`` does.
+
+    ``saved``, the product's output kept by the "dots" memo
+    (:func:`dots_contexts`), makes the forward return it and launch
+    nothing; its cotangent arrives in the saved dtype and is cast to f32
+    first, as the cast after the product would have done."""
 
     @staticmethod
-    def forward(ctx, x2, w2, transpose_b):
+    def forward(ctx, x2, w2, transpose_b, saved=None):
         ctx.save_for_backward(x2, w2)
         ctx.transpose_b = transpose_b
+        if saved is not None:
+            return saved
         return _product(x2, w2, transpose_b=transpose_b)
 
     @staticmethod
     def backward(ctx, g):
         x2, w2 = ctx.saved_tensors
-        g = g.contiguous()
+        g = g.float().contiguous()
         need_x, need_w = ctx.needs_input_grad[:2]
         if ctx.transpose_b:
             # y = x w^T: dx = g @ w (stored layout); dw = g^T @ x
@@ -535,7 +543,58 @@ class _MatmulF32(torch.autograd.Function):
         dx, dw = (None if f is None else _product(*f, split=split)
                   for f in forms)
         return (None if dx is None else dx.to(x2.dtype),
-                None if dw is None else dw.to(w2.dtype), None)
+                None if dw is None else dw.to(w2.dtype), None, None)
+
+
+#: the "dots" remat memo of the layer being run in this thread (the
+#: recompute runs in autograd's own thread): None, or ``(list, None)``
+#: while a checkpointed layer's forward records its products' outputs,
+#: ``(list, [index])`` while its recompute replays them
+_DOTS: contextvars.ContextVar = contextvars.ContextVar("dots", default=None)
+
+
+@contextlib.contextmanager
+def _dots_mode(memo: list, replay: bool):
+    token = _DOTS.set((memo, [0] if replay else None))
+    try:
+        yield
+    finally:
+        _DOTS.reset(token)
+
+
+def dots_contexts():
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for
+    ``remat_policy="dots"`` (the reference's
+    ``dots_with_no_batch_dims_saveable``): in the layer's forward every
+    differentiable :func:`matmul` (a 2-D K1 product) keeps its output; in
+    the recompute it returns them in order through :class:`_MatmulF32`,
+    launching nothing, while attention, norms, activations and the
+    expert and head products (which carry a batch axis) run again.  A
+    fresh memo per checkpointed call."""
+    memo: list = []
+    return _dots_mode(memo, False), _dots_mode(memo, True)
+
+
+def _dots_matmul(dots, x2, w2, transpose_b: bool, dtype) -> torch.Tensor:
+    memo, at = dots
+    if at is None:
+        y = _MatmulF32.apply(x2, w2, transpose_b).to(dtype)
+        memo.append((y, y._version))
+        return y
+    if at[0] >= len(memo):
+        raise RuntimeError("remat 'dots': the recompute ran more products "
+                           "than the forward recorded")
+    y, version = memo[at[0]]
+    at[0] += 1
+    rows = x2.shape[0]
+    cols = w2.shape[0] if transpose_b else w2.shape[1]
+    if y.shape != (rows, cols) or y.dtype != dtype or y._version != version:
+        raise RuntimeError(
+            f"remat 'dots': the recompute's product {at[0] - 1} "
+            f"({rows}, {cols}) {dtype} does not match the recorded "
+            f"{tuple(y.shape)} {y.dtype}, or the output was modified in "
+            f"place")
+    return _MatmulF32.apply(x2, w2, transpose_b, y)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *, transpose_b: bool = False,
@@ -564,7 +623,11 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, transpose_b: bool = False,
     # (e.g. an einsum's permuted result) is copied, never a weight
     x2 = x.reshape(-1, kdim).contiguous()
     if torch.is_grad_enabled() and (x2.requires_grad or w2.requires_grad):
-        y = _MatmulF32.apply(x2, w2, transpose_b)
+        dots = _DOTS.get()
+        if dots is not None:
+            y = _dots_matmul(dots, x2, w2, transpose_b, out_dtype or x.dtype)
+        else:
+            y = _MatmulF32.apply(x2, w2, transpose_b)
     else:          # serving: no autograd node per product
         y = _product(x2, w2, transpose_b=transpose_b)
     return y.to(out_dtype or x.dtype).reshape(*x.shape[:-1], *out_tail)

@@ -97,14 +97,51 @@ def sinusoid_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+class _EmbedRows(torch.autograd.Function):
+    """``table.index_select(0, idx)`` whose backward sums each token's
+    rows in a fixed order, so that a training run repeats bit for bit on
+    the card: ``index_add_`` of the rows themselves adds a repeated token
+    with float atomics there, in an order that changes between runs.  The
+    rows are sorted by token (a stable sort), summed as a running f64 sum,
+    and each token's total, taken at its last row, is the only nonzero
+    row ``index_add_`` puts into its table row (adding exact zeros
+    commutes).  Nothing is read back to the host."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        order = torch.argsort(idx, stable=True)
+        st = idx.index_select(0, order)
+        run = g.index_select(0, order).double().cumsum(0)
+        last = torch.ones_like(st, dtype=torch.bool)
+        last[:-1] = st[1:] != st[:-1]
+        # the running sum up to the previous token's last row (none: 0)
+        pos = torch.arange(st.numel(), device=st.device)
+        ends = torch.where(last, pos, -1).cummax(0).values
+        prev = torch.cat([ends.new_full((1,), -1), ends[:-1]])
+        base = run.index_select(0, prev.clamp(min=0)) * (prev >= 0)[:, None]
+        total = ((run - base) * last[:, None]).to(g.dtype)
+        grad = torch.zeros(ctx.table_shape, dtype=g.dtype, device=g.device)
+        return grad.index_add_(0, st, total), None
+
+
 def embed_tokens(params, tokens: torch.Tensor,
                  cfg: ArchConfig) -> torch.Tensor:
-    # index_select: its backward is one index_add_ into the table, which
-    # (unlike advanced indexing's sorted scatter) reads nothing back to
-    # the host
+    # index_select, and under autograd its deterministic backward
+    # (:class:`_EmbedRows`); neither reads anything back to the host
     table = params["embed"]["table"]
-    x = table.index_select(0, tokens.reshape(-1)).reshape(
-        *tokens.shape, table.shape[-1])
+    idx = tokens.reshape(-1)
+    if torch.is_grad_enabled() and table.requires_grad:
+        rows = _EmbedRows.apply(table, idx)
+    else:
+        rows = table.index_select(0, idx)
+    x = rows.reshape(*tokens.shape, table.shape[-1])
     if cfg.tie_embeddings:
         # gemma convention, the factor rounded to x's dtype; a CPU scalar
         # tensor, so no host-to-device copy (and no stream sync) per call

@@ -493,7 +493,11 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     kernels included.  The reference checkpoints its scanned body (the
     hybrid's whole 3-layer group, its 2 tail layers not at all); per layer
     is the same function (the reference also checkpoints each sublayer
-    of a moe group).  ``remat_policy="dots"`` is not ported.
+    of a moe group).  ``remat_policy="dots"`` also keeps the outputs of
+    the layer's 2-D K1 products (``ops.matmul``), which the backward's
+    rerun replays instead of launching them again
+    (``ops.dots_contexts``); attention, norms, activations and the expert
+    and head products run again.  Either policy computes the same values.
 
     The :class:`Aux` sums the MoE layers' load-balance and z losses; its
     dropped share is their mean, except with a ``layer_pattern``, where
@@ -501,10 +505,8 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     groups) it is the sum over a group's layers averaged over groups."""
     _check_family(cfg, "forward")
     remat = cfg.remat and torch.is_grad_enabled()
-    if remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported; the port "
-            f"rematerializes whole layers (remat_policy='full')")
+    context = ({"context_fn": ops.dots_contexts}
+               if cfg.remat_policy == "dots" else {})
     if cfg.family == "hybrid":
         layers = _hybrid_layers(params, cfg)
     elif cfg.family == "moe":
@@ -520,7 +522,8 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             block = functools.partial(block, prefix_len=prefix_len)
         if remat:
             x, c = checkpoint(block, lp, x, cfg, positions, want_cache,
-                              use_reentrant=False, preserve_rng_state=False)
+                              use_reentrant=False, preserve_rng_state=False,
+                              **context)
         else:
             x, c = block(lp, x, cfg, positions, want_cache)
         if kind.startswith("moe"):

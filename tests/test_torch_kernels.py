@@ -1921,3 +1921,99 @@ def test_apart_width_attention_gradients_match_plain(h100, hd, vd):
         assert got.shape == want.shape and got.dtype == _BF16
         err = (got.float() - want.float()).abs().max().item()
         assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
+#: remat "dots" at gemma-2b's full width (2 of its 18 layers, bf16): the
+#: K1 forward products of a layer, each launched once under "dots"
+GEMMA_LAYER_PRODUCTS = 6
+
+
+def _gemma_dots_case(device, layers=2, s=256):
+    from repro_torch.configs import gemma_2b
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.models import transformer
+    cfg = gemma_2b.full().with_(n_layers=layers)
+    params = transformer.init_lm(
+        cfg, torch.Generator(device=device).manual_seed(0), device,
+        trainable=True)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in SyntheticLM(
+        PipelineConfig(cfg.vocab_size, s, 1)).global_batch(0).items()}
+    return cfg, params, batch
+
+
+@pytest.mark.h100
+def test_remat_dots_launches_no_forward_product_in_its_backward(h100):
+    """A "dots" step at gemma-2b's per-layer shapes launches K1 as often
+    as remat off (the backward replays each layer's forward products),
+    "full" 6 a layer more, and "dots"' loss and gradients equal "full"'s
+    bit for bit (the kernels are deterministic and the replayed outputs
+    are the forward's)."""
+    from repro_torch.train import train_step as ts
+    cfg, params, batch = _gemma_dots_case(h100)
+    runs = {}
+    for name, c in (("off", cfg.with_(remat=False)),
+                    ("full", cfg.with_(remat_policy="full")),
+                    ("dots", cfg.with_(remat_policy="dots"))):
+        ops.reset_launches()
+        loss, _, grads = ts.loss_and_grads(params, c, batch)
+        torch.cuda.synchronize()
+        runs[name] = (loss, grads, dict(ops.LAUNCHES))
+    k1 = {n: r[2]["K1"] for n, r in runs.items()}
+    assert k1["dots"] == k1["off"]
+    assert k1["full"] - k1["dots"] == GEMMA_LAYER_PRODUCTS * cfg.n_layers
+    assert runs["dots"][2]["K2"] == runs["full"][2]["K2"] == 2 * cfg.n_layers
+    assert torch.equal(runs["dots"][0], runs["full"][0])
+    for k, g in runs["full"][1].items():
+        assert torch.equal(runs["dots"][1][k], g), k
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compress_grads_on_the_card_equals_the_cpu(h100, dtype):
+    """``compress_grads`` on a leaf of 2^26 + 37 elements (two slices, the
+    last one padded) and a small one, on the card and on CPU copies: the
+    dequantized gradients and the error state equal bit for bit."""
+    from repro_torch.distributed import compression
+    cfg = compression.CompressionConfig(enabled=True, block_size=256)
+    g = torch.Generator(device=h100).manual_seed(0)
+    sizes = {"big": 2 ** 26 + 37, "small": 1000}
+    grads = {k: (torch.randn(n, generator=g, device=h100) * 3).to(dtype)
+             for k, n in sizes.items()}
+    err = {k: torch.randn(n, generator=g, device=h100) * 1e-2
+           for k, n in sizes.items()}
+    cpu_g = {k: t.cpu() for k, t in grads.items()}
+    cpu_e = {k: t.cpu() for k, t in err.items()}
+    got_g, got_e = compression.compress_grads(cfg, grads, err)
+    want_g, want_e = compression.compress_grads(cfg, cpu_g, cpu_e)
+    torch.cuda.synchronize()
+    for k in sizes:
+        assert torch.equal(got_g[k].cpu(), want_g[k]), k
+        assert torch.equal(got_e[k].cpu(), want_e[k]), k
+
+
+@pytest.mark.h100
+def test_embedding_backward_reruns_bit_for_bit(h100):
+    """The token embedding's gradient (``layers.embed_tokens`` under
+    autograd) at whisper-base's training shape, 1024 tokens with repeats
+    over a 51865 x 512 bf16 table: two runs give the same bits with no
+    host sync, and the sum equals ``index_add_``'s in f64 within bf16's
+    rounding."""
+    from repro_torch.models.layers import _EmbedRows
+    g = torch.Generator(device=h100).manual_seed(0)
+    idx = torch.randint(0, 300, (1024,), generator=g, device=h100)
+    cot = torch.randn(1024, 512, generator=g, device=h100).bfloat16()
+    table = torch.zeros(51865, 512, device=h100, dtype=torch.bfloat16,
+                        requires_grad=True)
+    runs = []
+    for _ in range(2):
+        torch.cuda.set_sync_debug_mode("error")     # nothing read back
+        try:
+            runs.append(torch.autograd.grad(_EmbedRows.apply(table, idx),
+                                            table, cot)[0])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(runs[0], runs[1])
+    want = torch.zeros(51865, 512, device=h100, dtype=torch.float64)
+    want.index_add_(0, idx, cot.double())
+    torch.testing.assert_close(runs[0].double(), want, rtol=2 ** -8,
+                               atol=1e-6)
