@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-six phases; any failure exits non-zero before the result line:
+Twenty-seven phases; any failure exits non-zero before the result line:
 
 1. device   the card's name, power limit and compute capability (9, 0).
 2. build    nvcc builds every kernel under src/repro_torch/kernels/csrc/
@@ -297,6 +297,32 @@ Twenty-six phases; any failure exits non-zero before the result line:
             448 tokens in 4 microbatches (K1 24E+40L+5 a microbatch,
             K2-K4 bidirectional and causal as derived), step 3 under
             sync debug "error", peak memory, a profile.
+25. dist_path the distributed layer.  (a) A world of 1 over NCCL in
+            this process, mesh (1, 1): gemma-2b at full width and depth,
+            prefill B=2 S=512 and 32 greedy tokens under planned_mesh,
+            bit for bit and launch for launch against the unplanned
+            path; deepseek-moe-16b's MoE layer (64 experts, S=2048)
+            through _apply_moe_shardmap against _apply_moe_global (the
+            same routings, within PATH_TOL).  (b) 4 spawned ranks sharing
+            the card over gloo (not a multi-card measurement), held to
+            this process's results: ops.apply(mesh=) at 4096^3 bf16 for
+            K1's six plans (row, col, sigma, both, gather, scatter) and
+            K9's max-plus with its rows sharded (bit for bit where no
+            sigma is sharded and the per-shard route is the single
+            product's; each row's per-shard ms and bound, the plain
+            version's and torch.matmul's ms at the per-shard shape,
+            collective ms and the single-device ms); gemma-2b
+            tensor-parallel over model = 4 at full width and depth, the
+            same 32 tokens; deepseek-moe-16b (2 of 28 layers, 16
+            experts a rank) expert-parallel, prefill B=1 S=2048, 0
+            routings differing on the single process's input to the MoE
+            layer, at most DIST_ROUTE_E2E_MAX end to end; the sharded
+            train step of gemma-2b (4 of 18 layers) on (data 2, model
+            2), 2 steps against one process's (the loss; after each
+            step AdamW's m, v and update, DIST_CLEAR); whisper-
+            base's sharded state saved at (2, 2) and restored at (4, 1)
+            and in one process bit for bit.  Each rank's peak memory,
+            step and collective ms and K1 / K9 launches.
 
 Each path phase resets the peak memory statistics before it runs.  The
 last two lines before the final one are the kernels' JSON record and
@@ -6127,6 +6153,823 @@ def phase_encdec_train(torch, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# dist_path: the distributed layer (plans and their collectives, the
+# tensor- and expert-parallel layers, the sharded train step, the
+# re-meshed checkpoint)
+# ---------------------------------------------------------------------------
+
+DIST_DIR = os.path.join(ROOT, "build", "dist_smoke")
+#: ranks of the spawned world; they share the one card over gloo (NCCL
+#: refuses two ranks on one card)
+DIST_RANKS = 4
+#: the phase's sizes (passed to the spawned ranks): products at n^3, the
+#: gemma-2b prompt and greedy tokens, deepseek's MoE layers and prefill,
+#: the sharded train step's depth, batch, sequence and steps
+DIST_SIZES = dict(n=4096, prompt=(2, 512), tokens=32, moe_layers=2,
+                  moe_s=2048, train_layers=4, train_b=4, train_s=512,
+                  train_steps=2)
+#: the K1 plans at n^3 bf16: (label, mesh axes, shard, keywords)
+DIST_PLANS = (("row", (("x", 4),), {"i": "x"}, {}),
+              ("col", (("x", 4),), {"j": "x"}, {}),
+              ("sigma", (("x", 4),), {"k": "x"}, {}),
+              ("both", (("dx", 2), ("dy", 2)), {"i": "dx", "j": "dy"}, {}),
+              ("gather", (("x", 4),), {"i": "x"}, {"replicate_out": True}),
+              ("scatter", (("x", 4),), {"k": "x"}, {"scatter_axis": "i"}))
+#: a plan whose route or k split differs from the single product's (a
+#: sharded sigma: the k split's f32 partials summed by the psum) holds
+#: to it within K1's TOL, relative to the largest magnitude
+DIST_PLAN_TOL = TOL[("K1", "bfloat16")]
+#: the tensor-parallel layers sum their partials in f32 before the cast
+#: to bf16 (one product casts one f32 sum): logits and MoE outputs within
+#: PATH_TOL of the single process's, relative to their largest magnitude
+DIST_PATH_TOL = PATH_TOL
+#: the sharded train step against the single process's, after each step,
+#: on a grid sample of at most DIST_SAMPLE elements of each held leaf
+#: (``_grid_strides``): the loss within LOSS_TOL; AdamW's first and second
+#: moments m and v within GRAD_TOL in relative norm, as the other train
+#: phases hold bf16 gradients (the TP partials and the data reduction sum
+#: in another order).  A first step moves each element by about lr *
+#: sign(g) whatever the gradient's size, so where the rounding flips the
+#: sign of a gradient near zero the element moves the other way: the
+#: step's update (the f32 master's change) holds within GRAD_TOL in
+#: relative norm on the elements whose |m| clears DIST_CLEAR times the
+#: m's noise (the root mean square of the two runs' m difference), and
+#: its sign agrees on at least DIST_SIGN_AGREE of all elements; the
+#: flipped elements' |m| over that noise is printed
+DIST_SAMPLE = 1 << 20
+DIST_CLEAR = 4.0
+DIST_SIGN_AGREE = 0.99
+DIST_LEAVES = ("embed.table", "layers.mlp.wi", "layers.mlp.wo",
+               "layers.attn.wq", "final_norm.scale")
+#: deepseek's EP prefill routes its own residual, which the dense
+#: layer's TP rounding moves: the (token, layer) routings that differ end
+#: to end from the single process's are at most 3x the 24 of 2048
+#: measured on an H100 80GB HBM3 at 700 W (an EP fault scrambles far
+#: more)
+DIST_ROUTE_E2E_MAX = 72
+
+
+def _dist_cfg(module, full, n_layers=None):
+    cfg = full(module)
+    return cfg.with_(n_layers=n_layers) if n_layers else cfg
+
+
+def _dist_params(torch, cfg, device, seed=0, trainable=False):
+    from repro_torch.models import registry
+    return registry.init(cfg, torch.Generator(device=device).manual_seed(seed),
+                         device, trainable=trainable)
+
+
+def _dist_operands(torch, device, S):
+    """The plans' operands, seeded alike on every rank: bf16 for K1's
+    six plans, f32 for K9's max-plus."""
+    g = torch.Generator(device=device).manual_seed(30)
+    n = S['n']
+    mk = lambda dt: torch.randn(n, n, generator=g, device=device).to(dt)
+    return mk(torch.bfloat16), mk(torch.bfloat16), mk(torch.float32), \
+        mk(torch.float32)
+
+
+def _dist_prompt(torch, cfg, device, shape, seed=31):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, shape, generator=g,
+                         device=device)
+
+
+def _dist_batches(torch, cfg, device, S):
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    data = SyntheticLM(PipelineConfig(cfg.vocab_size, S['train_s'],
+                                      S['train_b'], seed=0), cfg)
+    return [{k: torch.from_numpy(v).to(device) for k, v in
+             data.global_batch(i).items()} for i in range(S['train_steps'])]
+
+
+def _routes(moe, record):
+    """A spy on ``moe.route`` keeping each call's top-k."""
+    return _spy(moe, "route", lambda args, out: record.append(
+        out[3].detach().clone()))
+
+
+def _hash_leaves(state) -> dict:
+    """sha256 of each whole leaf's bytes (DTensor leaves gathered)."""
+    import hashlib
+
+    from repro_torch.checkpoint.checkpointer import _flatten
+    return {k: hashlib.sha256(arr.tobytes()).hexdigest()
+            for k, (arr, _) in _flatten(state).items()}
+
+
+def _dist_whisper_step(torch, cfg, state, step_fn, mesh, device):
+    """One sharded step of whisper-base on this rank's rows of a global
+    batch of 4."""
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    data = SyntheticLM(PipelineConfig(cfg.vocab_size, 16, 4, seed=0), cfg)
+    row, dp = mesh.get_coordinate()[0], mesh.size(0)
+    rows = slice(row * 4 // dp, (row + 1) * 4 // dp)
+    batch = {k: torch.from_numpy(v[rows]).to(device)
+             for k, v in data.global_batch(0).items()}
+    return step_fn(state, batch)[0]
+
+
+def _grid_strides(shape, world=DIST_RANKS, budget=DIST_SAMPLE) -> tuple:
+    """Per-dim strides of a grid sample of at most ``budget`` elements of a
+    tensor of ``shape`` (or as few as the strides allow).  Each stride
+    divides its dim's extent over any chunking a world of ``world`` ranks
+    gives it, so a rank's chunk's grid is its chunk of the whole grid."""
+    room = []
+    for e in shape:
+        c = world
+        while c > 1 and e % c:
+            c //= 2
+        room.append(e // c)
+    strides = [1] * len(shape)
+    while math.prod(e // st for e, st in zip(shape, strides)) > budget:
+        free = [i for i, st in enumerate(strides) if room[i] % (2 * st) == 0]
+        if not free:
+            break
+        i = max(free, key=lambda j: shape[j] // strides[j])
+        strides[i] *= 2
+    return tuple(strides)
+
+
+def _grid(t, strides):
+    """``t``'s grid sample at ``strides``, in f32."""
+    return t[tuple(slice(None, None, st) for st in strides)].float().clone()
+
+
+def _dist_time(torch, device, fn, **kw) -> float:
+    """``time_ms`` on the card; 0 on the CPU rehearsal (no events)."""
+    return time_ms(torch, fn, **kw) if device == "cuda" else 0.0
+
+
+def _dist_single(torch, device, full, card, S):
+    """The single-process results the spawned world is held to: the
+    plans' products (and their times), gemma-2b's tokens and last
+    logits, deepseek's routings and logits, gemma-2b's train steps.
+    Returns them as a dict (saved for the ranks)."""
+    from repro_torch.configs import deepseek_moe_16b, gemma_2b
+    from repro_torch.core import expr as E
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.train import serve_step
+    from repro_torch.train import train_step as ts
+    ref = {}
+    a, b, fa, fb = _dist_operands(torch, device, S)
+    n = S['n']
+    mm = E.matmul_expr(n, n, n)
+    mp = E.inner("max", "add", E.arr("A", (n, n)), E.arr("B", (n, n)))
+    ref["K1"] = ops.apply(mm, a, b, out_dtype=torch.float32)
+    ref["K1_ms"] = _dist_time(torch, device, lambda: ops.apply(
+        mm, a, b, out_dtype=torch.float32))
+    ref["K1_route"] = _route(ops, a, b, False, False)
+    ref["K9"] = ops.apply(mp, fa, fb)
+    ref["K9_ms"] = _dist_time(torch, device, lambda: ops.apply(mp, fa, fb),
+                              iters=3, warmup=1)
+    del a, b, fa, fb
+
+    cfg = _dist_cfg(gemma_2b, full)
+    params = _dist_params(torch, cfg, device)
+    prompt = _dist_prompt(torch, cfg, device, S['prompt'])
+    with torch.no_grad():
+        logits, _ = serve_step.make_prefill(cfg)(params, {"tokens": prompt})
+        ref["gemma_last"] = logits[:, -1].float().clone()
+        del logits
+        ref["gemma_tokens"] = serve_step.greedy_generate(
+            params, cfg, prompt, S['tokens'], S['prompt'][1] + S['tokens'])
+    del params
+
+    cfg = _dist_cfg(deepseek_moe_16b, full, S['moe_layers'])
+    params = _dist_params(torch, cfg, device)
+    tokens = _dist_prompt(torch, cfg, device, (1, S['moe_s']), seed=32)
+    routes, layer = [], []
+    with torch.no_grad(), _routes(moe, routes), _spy(
+            moe, "apply_moe", lambda args, out: layer.append(
+                (args[1].clone(), out[0].clone()))):
+        logits, _ = serve_step.make_prefill(cfg)(params, {"tokens": tokens})
+    ref["moe_last"] = logits[:, -1].float().clone()
+    ref["moe_routes"] = routes
+    # the first MoE layer's input and output: the ranks route the same
+    # input (the prefill's own input to it differs by TP's rounding)
+    ref["moe_in"], ref["moe_out"] = layer[0]
+    del params, logits
+
+    cfg = _dist_cfg(gemma_2b, full, S['train_layers'])
+    params = _dist_params(torch, cfg, device, trainable=True)
+    strides = {k: _grid_strides(params.get_parameter(k).shape)
+               for k in DIST_LEAVES}
+    start = {k: _grid(params.get_parameter(k).detach(), strides[k])
+             for k in DIST_LEAVES}
+    state = ts.init_state(cfg, params, device)
+    step = ts.make_train_step(cfg)
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, ms, moments = [], [], []
+    for batch in _dist_batches(torch, cfg, device, S):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))          # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+        moments.append({k: tuple(_grid(tree[k], strides[k]) for tree in (
+            state.opt.master, state.opt.m, state.opt.v))
+            for k in DIST_LEAVES})
+    ref["train_losses"] = losses
+    ref["train_ms"] = ms
+    ref["train_peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+    ref["train_start"] = start
+    ref["train_strides"] = strides
+    ref["train_moments"] = moments
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[dist_path] single process: K1 {n}^3 bf16 {ref['K1_ms']:.4f} ms "
+          f"({ref['K1_route']}), K9 max-plus {n}^3 f32 {ref['K9_ms']:.4f} "
+          f"ms; gemma-2b {S['train_layers']} layers {n_params / 1e9:.3f} B "
+          f"params: step ms {[round(x, 1) for x in ms]}, losses {losses}, "
+          f"peak {ref['train_peak'] / 2**30:.2f} GiB ({card})", flush=True)
+    del state, params
+    return ref
+
+
+def _dist_barrier(torch):
+    """Every rank here: an all-reduce of a host tensor (gloo's own
+    barrier is not relied on after collectives of CUDA tensors)."""
+    import torch.distributed as dist
+    dist.all_reduce(torch.zeros(1))
+
+
+class _CollectiveClock:
+    """Host seconds inside the port's collectives (each blocks the host
+    until its transfer is done on a gloo world)."""
+
+    def __init__(self, comm):
+        self.comm, self.s, self.calls = comm, 0.0, 0
+
+    def __enter__(self):
+        self.saved = {}
+        for name in ("all_reduce", "reduce_scatter", "all_gather"):
+            orig = getattr(self.comm, name)
+            self.saved[name] = orig
+
+            def timed(*a, _orig=orig, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(*a, **k)
+                finally:
+                    self.s += time.perf_counter() - t0
+                    self.calls += 1
+            setattr(self.comm, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self.saved.items():
+            setattr(self.comm, name, orig)
+
+
+def _hold_moments(torch, moments: list, ref: dict) -> dict:
+    """Each step's sharded m, v and master update against the single
+    process's, on each held leaf's grid (the rules at DIST_CLEAR):
+    ``{leaf: [per step {m_err, v_err, upd_err, clear, sign_agree,
+    flipped, flip_m_med, flip_m_max}]}``."""
+    held = {}
+    for k in DIST_LEAVES:
+        prev_k = prev_p = ref["train_start"][k]
+        rows = []
+        for got, want in zip(moments, ref["train_moments"]):
+            (mk, m1k, v1k), (mp, m1p, v1p) = got[k], want[k]
+            rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+            duk, dup = mk - prev_k, mp - prev_p
+            noise = (m1k - m1p).square().mean().sqrt()
+            clear = m1p.abs() > DIST_CLEAR * noise
+            flip = torch.sign(duk) != torch.sign(dup)
+            ratio = m1p.abs()[flip] / noise
+            rows.append(dict(
+                m_err=rel(m1k, m1p), v_err=rel(v1k, v1p),
+                upd_err=rel(duk[clear], dup[clear]) if clear.any() else 0.0,
+                clear=clear.float().mean().item(),
+                sign_agree=1.0 - flip.float().mean().item(),
+                flipped=int(flip.sum()),
+                flip_m_med=ratio.median().item() if flip.any() else 0.0,
+                flip_m_max=ratio.max().item() if flip.any() else 0.0))
+            prev_k, prev_p = mk, mp
+        held[k] = rows
+    return held
+
+
+def _dist_rank(rank: int, world: int, directory: str, device: str,
+               full_name: str, S: dict) -> None:
+    """One rank of the spawned world: the plans, gemma-2b TP over model
+    = 4, deepseek's MoE layers EP over model = 4, the sharded train
+    step of gemma-2b on (data 2, model 2), whisper-base's checkpoint
+    saved at (2, 2) and restored at (4, 1).  Writes its results to
+    ``<directory>/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import warnings
+    warnings.simplefilter("ignore")     # all_gather_into_tensor's notice
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import deepseek_moe_16b, gemma_2b, whisper_base
+    from repro_torch.core import expr as E
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import plan as dplan
+    from repro_torch.distributed.compression import CompressionConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models import moe
+    from repro_torch.train import serve_step
+    from repro_torch.train import train_step as ts
+    full = _DIST_FULL[full_name]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{directory}/store",
+                            rank=rank, world_size=world)
+    out = {"launches": {}, "peak": {}, "ms": {}, "coll_ms": {}}
+    ref = torch.load(os.path.join(directory, "ref.pt"), map_location=device)
+    meshes = {}
+
+    def mesh(axes):
+        if axes not in meshes:
+            shape = tuple(s for _, s in axes)
+            meshes[axes] = DeviceMesh(device, torch.arange(world).reshape(
+                shape), mesh_dim_names=tuple(a for a, _ in axes))
+        return meshes[axes]
+
+    def phase(name):
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        return time.perf_counter()
+
+    def done(name, t0):
+        if device == "cuda":
+            torch.cuda.synchronize()
+            out["peak"][name] = torch.cuda.max_memory_allocated()
+        out["ms"][name] = (time.perf_counter() - t0) * 1e3
+        out["launches"][name] = dict(ops.LAUNCHES)
+
+    # 1. the plans at S['n']^3: K1's six, K9's max-plus (rows sharded)
+    t0 = phase("plans")
+    a, b, fa, fb = _dist_operands(torch, device, S)
+    n = S['n']
+    mm = E.matmul_expr(n, n, n)
+    mp = E.inner("max", "add", E.arr("A", (n, n)), E.arr("B", (n, n)))
+    rows = []
+    plan_launches = {k: 0 for k in ops.LAUNCHES}
+    cases = [(lab, axes, sh, kw, mm, (a, b), torch.float32, "K1")
+             for lab, axes, sh, kw in DIST_PLANS]
+    cases.append(("max-plus rows", (("x", 4),), {"i": "x"}, {}, mp, (fa, fb),
+                  None, "K9"))
+    for label, axes, shard, kw, form, ins, odt, kid in cases:
+        m = mesh(axes)
+        plan = dplan.derive_plan(form, m, shard=shard,
+                                 dtype=str(ins[0].dtype)[6:], **kw)
+        before = dict(ops.LAUNCHES)
+        y = ops.apply(form, *ins, mesh=m, shard=shard, out_dtype=odt,
+                      verify=True, **kw)
+        for k in plan_launches:
+            plan_launches[k] += ops.LAUNCHES[k] - before[k]
+        whole = comm.gather_full(y.to_local(), m, y.placements)
+        shards = [comm.local_chunk(x, m, pl).contiguous()
+                  for x, pl in zip(ins, plan.in_placements(m))]
+        local = lambda: ops.apply_normal_form(plan.local_nf, *shards,
+                                              out_dtype=torch.float32)
+        part = local()
+        # the per-shard product alone: rank 0 times it while the others wait
+        _dist_barrier(torch)
+        shard_ms = _dist_time(torch, device, local, iters=5, warmup=2) \
+            if rank == 0 else 0.0
+        # the plain version and one library call (K1's; K9 has none) at
+        # the per-shard shape
+        plain = (lambda: kref.matmul(*shards)) if kid == "K1" else \
+            (lambda: kref.eval_nf(plan.local_nf, *shards))
+        plain_ms = _dist_time(torch, device, plain, iters=3, warmup=1) \
+            if rank == 0 else 0.0
+        lib_ms = _dist_time(torch, device, lambda: torch.matmul(*shards),
+                            iters=5, warmup=2) \
+            if rank == 0 and kid == "K1" else None
+        _dist_barrier(torch)
+        coll = [0.0]
+
+        def collectives():
+            t = time.perf_counter()
+            yy = part
+            for st in plan.collectives:
+                g = m.get_group(st.mesh_axis)
+                yy = (comm.all_reduce(yy, g) if st.kind == "psum" else
+                      comm.reduce_scatter(yy, g, st.out_dim)
+                      if st.kind == "reduce_scatter" else
+                      comm.all_gather(yy, g, st.out_dim))
+            if device == "cuda":
+                torch.cuda.synchronize()
+            coll[0] = (time.perf_counter() - t) * 1e3
+        for _ in range(3):
+            collectives()
+        t = time.perf_counter()
+        y = ops.apply(form, *ins, mesh=m, shard=shard, out_dtype=odt, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t) * 1e3
+        if rank == 0:
+            want = ref[kid]
+            err = (whole.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            lm, ln = plan.local_extent("i"), plan.local_extent("j")
+            lk = plan.local_extent("k")
+            route = _route(ops, *shards, False, False) if kid == "K1" \
+                else "K9"
+            rows.append(dict(label=label, kid=kid, local=(lm, lk, ln),
+                             route=route, collective=plan.collective,
+                             max_abs_err=err, scale=scale, shard_ms=shard_ms,
+                             plain_ms=plain_ms, lib_ms=lib_ms,
+                             coll_ms=coll[0], total_ms=total_ms,
+                             bits=bool(torch.equal(whole.float(),
+                                                   want.float()))))
+    done("plans", t0)
+    out["launches"]["plans"] = plan_launches      # the sharded applies'
+    out["plans"] = rows
+    del a, b, fa, fb, y, whole, shards, part
+
+    # 2. gemma-2b tensor-parallel over model = 4, full width and depth
+    t0 = phase("gemma_tp")
+    m14 = mesh((("data", 1), ("model", world)))
+    cfg = _dist_cfg(gemma_2b, full)
+    params = _dist_params(torch, cfg, device)
+    prompt = _dist_prompt(torch, cfg, device, S['prompt'])
+    with torch.no_grad(), dplan.planned_mesh(m14), \
+            _CollectiveClock(comm) as clock:
+        t = time.perf_counter()
+        logits, _ = serve_step.make_prefill(cfg)(params, {"tokens": prompt})
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out["gemma_prefill_ms"] = (time.perf_counter() - t) * 1e3
+        last = logits[:, -1].float()
+        del logits
+        t = time.perf_counter()
+        toks = serve_step.greedy_generate(params, cfg, prompt, S['tokens'],
+                                          S['prompt'][1] + S['tokens'])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out["gemma_generate_ms"] = (time.perf_counter() - t) * 1e3
+    out["coll_ms"]["gemma_tp"] = clock.s * 1e3
+    out["gemma_tokens_equal"] = bool(torch.equal(toks, ref["gemma_tokens"]))
+    out["gemma_token_diffs"] = int((toks != ref["gemma_tokens"]).sum())
+    out["gemma_last_err"] = ((last - ref["gemma_last"]).abs().max() /
+                             ref["gemma_last"].abs().max()).item()
+    done("gemma_tp", t0)
+    del params
+
+    # 3. deepseek-moe-16b's MoE layers expert-parallel over model = 4
+    t0 = phase("moe_ep")
+    cfg = _dist_cfg(deepseek_moe_16b, full, S['moe_layers'])
+    params = _dist_params(torch, cfg, device)
+    tokens = _dist_prompt(torch, cfg, device, (1, S['moe_s']), seed=32)
+    routes = []
+    held = []
+    with torch.no_grad(), dplan.planned_mesh(m14), \
+            _CollectiveClock(comm) as clock:
+        with _routes(moe, routes):
+            logits, _ = serve_step.make_prefill(cfg)(params,
+                                                     {"tokens": tokens})
+        # the first MoE layer on the single process's input to it
+        with _routes(moe, held):
+            y, _ = moe.apply_moe({k: v[0] for k, v in
+                                  params["layers"]["moe"].items()},
+                                 ref["moe_in"], cfg)
+    out["coll_ms"]["moe_ep"] = clock.s * 1e3
+    last = logits[:, -1].float()
+    flips = lambda got: sum(
+        int((r.sort(-1).values != w.sort(-1).values).any(-1).sum())
+        for r, w in zip(got, ref["moe_routes"]))
+    out["moe_last_err"] = ((last - ref["moe_last"]).abs().max() /
+                           ref["moe_last"].abs().max()).item()
+    out["moe_route_diffs_e2e"] = flips(routes)
+    out["moe_route_diffs"] = flips(held)
+    out["moe_layer_err"] = ((y.float() - ref["moe_out"].float()).abs().max()
+                            / ref["moe_out"].float().abs().max()).item()
+    out["moe_routes_n"] = (len(routes), len(ref["moe_routes"]))
+    out["moe_experts_a_rank"] = cfg.n_experts // world
+    done("moe_ep", t0)
+    del params, logits
+
+    # 4. the sharded train step of gemma-2b on (data 2, model 2)
+    t0 = phase("train")
+    m22 = mesh((("data", 2), ("model", world // 2)))
+    cfg = _dist_cfg(gemma_2b, full, S['train_layers'])
+    params = _dist_params(torch, cfg, device, trainable=True)
+    state = ts.init_sharded_state(cfg, params, m22)
+    del params
+    step = ts.make_sharded_train_step(cfg, m22)
+    row = m22.get_coordinate()[0]
+    losses, step_ms, coll_ms, moments = [], [], [], []
+    for batch in _dist_batches(torch, cfg, device, S):
+        rows_b = {k: v.chunk(2)[row] for k, v in batch.items()}
+        with _CollectiveClock(comm) as clock:
+            t = time.perf_counter()
+            state, mt = step(state, rows_b)
+            if device == "cuda":
+                torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        coll_ms.append(clock.s * 1e3)
+        losses.append(float(mt["loss"]))
+        # each held leaf's master, m and v: every rank's chunk's grid,
+        # gathered into the whole leaf's grid
+        moments.append({k: tuple(comm.gather_full(
+            _grid(tree[k].to_local(), ref["train_strides"][k]), m22,
+            tree[k].placements) for tree in (
+                state.opt.master, state.opt.m, state.opt.v))
+            for k in DIST_LEAVES})
+    out["train_losses"], out["train_ms"] = losses, step_ms
+    out["coll_ms"]["train"] = coll_ms
+    if rank == 0:
+        out["train_held"] = _hold_moments(torch, moments, ref)
+    done("train", t0)
+    del state
+
+    # 5. whisper-base's state saved at (2, 2), restored at (4, 1)
+    t0 = phase("checkpoint")
+    cfg = _dist_cfg(whisper_base, full)
+    comp = CompressionConfig(enabled=True)
+    state = ts.init_sharded_state(cfg, _dist_params(
+        torch, cfg, device, trainable=True), m22, comp)
+    state = _dist_whisper_step(torch, cfg, state,
+                               ts.make_sharded_train_step(cfg, m22,
+                                                          comp=comp),
+                               m22, device)
+    ck = Checkpointer(os.path.join(directory, "ckpt"))
+    t = time.perf_counter()
+    ck.save(1, state)
+    out["save_ms"] = (time.perf_counter() - t) * 1e3
+    saved = _hash_leaves(state)
+    del state
+    m41 = mesh((("data", world), ("model", 1)))
+    fresh = ts.init_sharded_state(cfg, _dist_params(
+        torch, cfg, device, seed=9, trainable=True), m41, comp)
+    t = time.perf_counter()
+    fresh, _ = ck.restore(fresh)
+    out["restore_ms"] = (time.perf_counter() - t) * 1e3
+    restored = _hash_leaves(fresh)
+    out["ckpt_equal"] = saved == restored
+    out["ckpt_hashes"] = saved
+    done("checkpoint", t0)
+    del fresh
+    torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+#: a config module's config at full width (the smoke's), or its reduced
+#: one (a rehearsal on the CPU)
+_DIST_FULL = {"full": lambda module: module.full(),
+              "reduced": lambda module: module.reduced()}
+
+
+def phase_dist_path(torch, card, device="cuda", full_name="full",
+                    S=DIST_SIZES):
+    """(a) a world of 1 over NCCL in this process, mesh (1, 1): gemma-2b
+    prefill and greedy tokens under planned_mesh bit for bit against the
+    unplanned path, deepseek's MoE layers through _apply_moe_shardmap
+    against _apply_moe_global; (b) DIST_RANKS spawned ranks sharing the
+    card over gloo (``_dist_rank``), held to this process's results."""
+    import shutil
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import deepseek_moe_16b, gemma_2b, whisper_base
+    from repro_torch.distributed import plan as dplan
+    from repro_torch.distributed.compression import CompressionConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.layers import embed_tokens
+    from repro_torch.train import serve_step
+    from repro_torch.train import train_step as ts
+    full = _DIST_FULL[full_name]
+    phase_t0 = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    launches = {k: 0 for k in ops.LAUNCHES}
+
+    # (a) one rank over NCCL (gloo on the CPU rehearsal)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"file://{DIST_DIR}/store1",
+                            rank=0, world_size=1)
+    try:
+        m11 = make_host_mesh(1, 1, device)
+        cfg = _dist_cfg(gemma_2b, full)
+        params = _dist_params(torch, cfg, device)
+        prompt = _dist_prompt(torch, cfg, device, S['prompt'])
+        got = {}
+        for planned in (False, True):
+            ops.reset_launches()
+            ctx = dplan.planned_mesh(m11) if planned else \
+                contextlib.nullcontext()
+            with torch.no_grad(), ctx:
+                logits, _ = serve_step.make_prefill(cfg)(
+                    params, {"tokens": prompt})
+                toks = serve_step.greedy_generate(
+                    params, cfg, prompt, S['tokens'],
+                    S['prompt'][1] + S['tokens'])
+            got[planned] = (logits, toks, dict(ops.LAUNCHES))
+            del logits
+        same = torch.equal(got[True][0], got[False][0]) and \
+            torch.equal(got[True][1], got[False][1])
+        for k, v in got[True][2].items():
+            launches[k] += v
+        print(f"[dist_path] (a) NCCL world of 1, mesh (1, 1): gemma-2b "
+              f"full width and depth, prefill B={S['prompt'][0]} "
+              f"S={S['prompt'][1]} + {S['tokens']} greedy tokens under "
+              f"planned_mesh bit for bit = {same}; K1 launches planned "
+              f"{got[True][2]['K1']} / unplanned {got[False][2]['K1']}",
+              flush=True)
+        require(same, "planned_mesh on (1, 1) differs from the unplanned "
+                "path")
+        require(got[True][2] == got[False][2], "planned_mesh on (1, 1) "
+                "launched other kernels than the unplanned path")
+        del got, params
+        cfg = _dist_cfg(deepseek_moe_16b, full, S['moe_layers'])
+        params = _dist_params(torch, cfg, device)
+        x = _dist_prompt(torch, cfg, device, (1, S['moe_s']), seed=32)
+        with torch.no_grad():
+            h = embed_tokens(params, x, cfg)
+        # the first MoE layer's FFN, fed the embedded tokens
+        lp = {k: v[0] for k, v in params["layers"]["moe"].items()}
+        r_g, r_s = [], []
+        with torch.no_grad():
+            with _routes(moe, r_g):
+                yg, sg = moe._apply_moe_global(lp, h, cfg)
+            ops.reset_launches()
+            with _routes(moe, r_s):
+                ys, ss = moe._apply_moe_shardmap(lp, h, cfg, m11)
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        err = ((ys.float() - yg.float()).abs().max() /
+               yg.float().abs().max()).item()
+        flips = sum(int((a != b).any(-1).sum()) for a, b in zip(r_s, r_g))
+        print(f"[dist_path] (a) deepseek-moe-16b MoE layer (full width, "
+              f"{cfg.n_experts} experts, S={S['moe_s']}) _apply_moe_shardmap "
+              f"on (1, 1) against _apply_moe_global: routings differing "
+              f"{flips}, max |diff| / max |global| {err:.3e} (tolerance "
+              f"{DIST_PATH_TOL}), bit for bit {torch.equal(ys, yg)}, "
+              f"dropped {float(ss.dropped_frac):.4f} / "
+              f"{float(sg.dropped_frac):.4f}", flush=True)
+        require(flips == 0 and err <= DIST_PATH_TOL, "the shard-local MoE "
+                "on (1, 1) differs from the global dispatch")
+        del params, h, lp, yg, ys
+    finally:
+        dist.destroy_process_group()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) the spawned world, held to this process's results
+    t0 = time.perf_counter()
+    ref = _dist_single(torch, device, full, card, S)
+    torch.save(ref, os.path.join(DIST_DIR, "ref.pt"))
+    single_peak = ref["train_peak"]
+    del ref
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[dist_path] single-process references "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    mp.spawn(_dist_rank, args=(DIST_RANKS, DIST_DIR, device, full_name, S),
+             nprocs=DIST_RANKS, join=True)
+    print(f"[dist_path] (b) {DIST_RANKS} spawned ranks sharing the card over "
+          f"gloo: {time.perf_counter() - t0:.1f} s (not a multi-card "
+          f"measurement; {card})", flush=True)
+    outs = [torch.load(os.path.join(DIST_DIR, f"rank{r}.pt"))
+            for r in range(DIST_RANKS)]
+    ref = torch.load(os.path.join(DIST_DIR, "ref.pt"), map_location="cpu")
+    o = outs[0]
+    rows = []
+    for r in o["plans"]:
+        lm, lk, ln = r["local"]
+        if r["kid"] == "K1":
+            b_ms, by = bound(2.0 * lm * ln * lk, 2 * (lm * lk + lk * ln)
+                             + 4 * lm * ln, "bfloat16")
+            single = ref["K1_ms"]
+        else:
+            b_ms, by = k9_bound(2.0 * lm * ln * lk, 4 * (lm * lk + lk * ln
+                                                         + lm * ln))
+            single = ref["K9_ms"]
+        same_route = r["route"] == ref["K1_route"] if r["kid"] == "K1" \
+            else True
+        exact = r["kid"] == "K9" or (r["collective"] in ("none",
+                                                         "all_gather")
+                                     and same_route)
+        print(f"[dist_path] {r['kid']} {r['label']:<13} local "
+              f"{lm}x{lk}x{ln} route {r['route']} (single "
+              f"{ref['K1_route'] if r['kid'] == 'K1' else 'K9'}) "
+              f"collective {r['collective']}: per-shard "
+              f"{r['shard_ms']:.4f} ms (bound {b_ms:.4f} ms, {by}; plain "
+              f"{r['plain_ms']:.4f} ms; torch.matmul at that shape "
+              f"{'none' if r['lib_ms'] is None else round(r['lib_ms'], 4)}"
+              f"{'' if r['lib_ms'] is None else ' ms'}), "
+              f"collective {r['coll_ms']:.3f} ms (host clock, gloo), apply "
+              f"{r['total_ms']:.3f} ms, single device {single:.4f} ms; "
+              f"max|err| {r['max_abs_err']:.3e} of {r['scale']:.3e}, "
+              f"bit for bit {r['bits']} (required {exact})", flush=True)
+        require(r["bits"] if exact else
+                r["max_abs_err"] <= DIST_PLAN_TOL * r["scale"],
+                f"plan {r['label']} differs from the single-device product")
+        rows.append(dict(r, bound_ms=b_ms, bound_by=by, single_ms=single))
+    print(f"[dist_path] gemma-2b TP over model={DIST_RANKS}: prefill "
+          f"{o['gemma_prefill_ms']:.1f} ms, greedy {S['tokens']} tokens "
+          f"{o['gemma_generate_ms']:.1f} ms (host clock, collectives "
+          f"{o['coll_ms']['gemma_tp']:.1f} ms); tokens equal the single "
+          f"process's {o['gemma_tokens_equal']} ({o['gemma_token_diffs']} "
+          f"differ); last logits max|diff| / max {o['gemma_last_err']:.3e}",
+          flush=True)
+    require(o["gemma_tokens_equal"], "TP tokens differ from the single "
+            "process's")
+    require(o["gemma_last_err"] <= DIST_PATH_TOL, "TP logits off")
+    print(f"[dist_path] deepseek-moe-16b {S['moe_layers']} layers EP over "
+          f"model={DIST_RANKS} ({o['moe_experts_a_rank']} experts a rank), "
+          f"prefill B=1 S={S['moe_s']}: last logits max|diff| / max "
+          f"{o['moe_last_err']:.3e} (routings differing end to end "
+          f"{o['moe_route_diffs_e2e']} of {S['moe_s']} over "
+          f"{o['moe_routes_n']} routers, at most {DIST_ROUTE_E2E_MAX}: the "
+          f"dense layer's TP rounding moves near-ties); the MoE layer on the "
+          f"single process's input: routings differing "
+          f"{o['moe_route_diffs']}, output max|diff| / max "
+          f"{o['moe_layer_err']:.3e} (collectives "
+          f"{o['coll_ms']['moe_ep']:.1f} ms)", flush=True)
+    require(o["moe_route_diffs"] == 0 and o["moe_routes_n"][0] ==
+            o["moe_routes_n"][1] and o["moe_last_err"] <= DIST_PATH_TOL
+            and o["moe_route_diffs_e2e"] <= DIST_ROUTE_E2E_MAX
+            and o["moe_layer_err"] <= DIST_PATH_TOL,
+            "EP MoE differs from the single process")
+    print(f"[dist_path] gemma-2b sharded train step on (data 2, model 2), "
+          f"{S['train_layers']} of 18 layers, B={S['train_b']} "
+          f"S={S['train_s']}: losses {o['train_losses']} (single "
+          f"{ref['train_losses']}); step ms "
+          f"{[round(x, 1) for x in o['train_ms']]} "
+          f"(single {[round(x, 1) for x in ref['train_ms']]}), collectives "
+          f"ms {[round(x, 1) for x in o['coll_ms']['train']]}", flush=True)
+    for a, b in zip(o["train_losses"], ref["train_losses"]):
+        require(abs(a - b) <= LOSS_TOL * abs(b), "sharded loss off")
+    for k, steps in o["train_held"].items():
+        for i, h in enumerate(steps):
+            print(f"[dist_path] train step {i + 1} {k}: m rel err "
+                  f"{h['m_err']:.3e}, v rel err {h['v_err']:.3e} (tol "
+                  f"{GRAD_TOL:g}); update rel err {h['upd_err']:.3e} on "
+                  f"the {h['clear']:.4f} of elements whose |m| > "
+                  f"{DIST_CLEAR:g} x the m noise (tol {GRAD_TOL:g}); update "
+                  f"sign agrees on {h['sign_agree']:.6f} (tol "
+                  f"{DIST_SIGN_AGREE:g}); {h['flipped']} flipped, their |m| "
+                  f"/ noise median {h['flip_m_med']:.3f} max "
+                  f"{h['flip_m_max']:.3f}", flush=True)
+            require(h["m_err"] <= GRAD_TOL and h["v_err"] <= GRAD_TOL,
+                    f"the sharded step's moments of {k} off (step {i + 1})")
+            require(h["upd_err"] <= GRAD_TOL and
+                    h["sign_agree"] >= DIST_SIGN_AGREE,
+                    f"the sharded step's update of {k} off (step {i + 1})")
+    require(all(x["ckpt_equal"] for x in outs), "re-meshed checkpoint "
+            "differs")
+
+    # the same checkpoint in one process
+    cfg = _dist_cfg(whisper_base, full)
+    comp = CompressionConfig(enabled=True)
+    one = ts.init_state(cfg, _dist_params(torch, cfg, device, seed=9,
+                                          trainable=True), device, comp)
+    one, _ = Checkpointer(os.path.join(DIST_DIR, "ckpt")).restore(one)
+    one_equal = _hash_leaves(one) == o["ckpt_hashes"]
+    print(f"[dist_path] whisper-base state saved at (2, 2) "
+          f"({o['save_ms']:.1f} ms), restored at (4, 1) "
+          f"({o['restore_ms']:.1f} ms) and in one process: bit for bit "
+          f"{o['ckpt_equal']} / {one_equal}", flush=True)
+    require(one_equal, "the checkpoint restored in one process differs")
+    del one
+    for r, x in enumerate(outs):
+        peaks = {k: round(v / 2**30, 2) for k, v in x["peak"].items()}
+        launched = {k: {kid: v for kid, v in d.items() if v}
+                    for k, d in x["launches"].items()}
+        print(f"[dist_path] rank {r}: peak GiB {peaks} (single process's "
+              f"train step {single_peak / 2**30:.2f}); launches {launched}; "
+              f"wall ms {({k: round(v) for k, v in x['ms'].items()})}",
+              flush=True)
+        for d in x["launches"].values():
+            for kid, v in d.items():
+                launches[kid] += v
+        if device == "cuda":           # every path launched its kernels
+            for path, want in (("plans", ("K1", "K9")),
+                               ("gemma_tp", ("K1", "K2")),
+                               ("moe_ep", ("K1", "K2")),
+                               ("train", ("K1", "K2", "K3", "K4"))):
+                require(all(x["launches"][path][k] > 0 for k in want),
+                        f"rank {r}'s {path} launched none of {want}")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    print(f"[dist_path] phase wall {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    return launches, rows
+
+
 def profile_step(torch, step, n: int = 3, what: str = "decode",
                  detail: bool = True) -> tuple[float, float]:
     """Device time by kernel over ``n`` steps (torch.profiler); the
@@ -6220,6 +7063,8 @@ def main() -> None:
     encdec_serve = phase_encdec_path(torch, smi_line)
     torch.cuda.empty_cache()
     encdec_train = phase_encdec_train(torch, smi_line)
+    torch.cuda.empty_cache()
+    dist_launches, _ = phase_dist_path(torch, smi_line)
 
     from repro_torch.kernels import ops
     src = "src/repro_torch/kernels/csrc/"
@@ -6264,7 +7109,7 @@ def main() -> None:
             "llama4_path": llama4_serve, "mla_path": mla_serve,
             "mla_train": mla_train, "vlm_path": vlm_serve,
             "vlm_train": vlm_train, "encdec_path": encdec_serve,
-            "encdec_train": encdec_train}
+            "encdec_train": encdec_train, "dist_path": dist_launches}
     kernels = []
     for kid, (name, source, replaces, shape) in head.items():
         # launches: the path runs', each counted from 0

@@ -21,15 +21,17 @@ kernel:
 ``kernels.ops.apply(..., verify=True)`` runs the schedule checks before
 the launch (``verify="kernel"`` adds the plan checks); results are
 LRU-cached on the normal-form keys, so ``verify=False`` paths pay nothing.
-The reference's distributed-plan checks (``verify_plan``,
-``verify_sharded``) and its jaxpr lint wait for the port's distributed
-layer and have no JAX program to read, respectively.
+``verify_plan`` / ``verify_sharded`` check a distributed plan (its
+per-shard bundle, the collective order, the replication fallbacks) and
+run before ``apply(mesh=..., verify=True)``; the reference's jaxpr lint
+has no JAX program to read in the port.
 """
 from repro_torch.analysis.verify import (Finding, VerificationError, errors,
                                          reset_verification_cache,
                                          verification_cache_stats,
                                          verify_bundle, verify_expr,
-                                         verify_schedule)
+                                         verify_plan, verify_schedule,
+                                         verify_sharded)
 from repro_torch.analysis.conformance import kernel_findings, plan_findings
 
 __all__ = [
@@ -42,5 +44,7 @@ __all__ = [
     "verification_cache_stats",
     "verify_bundle",
     "verify_expr",
+    "verify_plan",
     "verify_schedule",
+    "verify_sharded",
 ]

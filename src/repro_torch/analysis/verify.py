@@ -478,3 +478,78 @@ def verify_expr(op, *, dtype: str = "float32", hardware=None, blocks=None,
     return verify_bundle(bundle, hardware=hw_shape, dtype=dtype, key=key,
                          strict=strict, kernel=kernel, nf=nf, dtypes=dtypes,
                          aligned=aligned)
+
+
+def verify_plan(plan, *, hardware=None, dtype: str = "float32", key=None,
+                strict: bool = False) -> tuple[Finding, ...]:
+    """Verify a ``DistributedPlan``: the per-shard bundle (at its real,
+    possibly widened, ``acc_dtype``), the collective ordering, and the
+    replication fallbacks surfaced as warnings naming the axis."""
+
+    def compute():
+        findings = list(verify_bundle(plan.bundle, hardware=hardware,
+                                      dtype=dtype))
+        mesh_size = dict(plan.mesh.axes)
+        for sym, axis in plan.dropped:
+            findings.append(Finding(
+                "replication-fallback", "warning", plan.name,
+                f"axis {sym!r} is not divisible by mesh axis {axis!r} "
+                f"(size {mesh_size.get(axis)}) — operand replicated "
+                f"instead of sharded"))
+        # a gather replicates whatever the shard holds now: a psum or
+        # reduce_scatter sequenced after an all_gather reads partial sums
+        # another step may still be accumulating
+        gathered = None
+        for step in plan.collectives:
+            if step.kind == "all_gather":
+                gathered = step
+            elif step.kind in ("psum", "reduce_scatter") and gathered:
+                findings.append(Finding(
+                    "collective-order", "error", plan.name,
+                    f"{step.kind} over {step.mesh_axis!r} is sequenced "
+                    f"after all_gather over {gathered.mesh_axis!r} — the "
+                    f"gather replicates partial sums before the reduction "
+                    f"completes"))
+            if step.kind in ("reduce_scatter", "all_gather"):
+                if step.out_dim is None or not (
+                        0 <= step.out_dim < len(plan.out_shape)):
+                    findings.append(Finding(
+                        "collective-order", "error", plan.name,
+                        f"{step.kind} over {step.mesh_axis!r} targets "
+                        f"output dim {step.out_dim} of a rank-"
+                        f"{len(plan.out_shape)} result"))
+        return tuple(findings)
+
+    findings = _cached(key, compute)
+    if strict and errors(findings):
+        raise VerificationError(findings)
+    return findings
+
+
+def verify_sharded(op, mesh, shard, *, hardware=None, dtype: str = "float32",
+                   replicate_out: bool = False, scatter_axis=None,
+                   acc_dtype: str = "float32",
+                   strict: bool = True) -> tuple[Finding, ...]:
+    """Derive (via the plan cache) and verify a distributed plan, the
+    ``ops.apply(mesh=..., verify=True)`` entry; ``mesh`` a ``DeviceMesh``
+    or a ``MeshShape``."""
+    from repro_torch.core.mesh import from_device_mesh
+    from repro_torch.distributed import plan as dplan
+    if hardware is None:
+        raise TypeError("verify_sharded requires a hardware shape")
+    dtype = str(dtype).removeprefix("torch.")
+    acc_dtype = str(acc_dtype).removeprefix("torch.")
+    plan = dplan.derive_plan(op, mesh, shard=shard, hardware=hardware,
+                             dtype=dtype, replicate_out=replicate_out,
+                             scatter_axis=scatter_axis, acc_dtype=acc_dtype)
+    if isinstance(op, (expr_mod.NormalForm, expr_mod.RecurrentForm)):
+        nf = op
+    else:
+        nf = expr_mod.normal_form(op, name=getattr(op, "name", None)
+                                  or "expr")
+    hw_shape = getattr(hardware, "shape", hardware)
+    key = ("plan", nf.key(), from_device_mesh(mesh).axes,
+           tuple(sorted(shard.items())), bool(replicate_out), scatter_axis,
+           dtype, hw_shape.name, acc_dtype)
+    return verify_plan(plan, hardware=hw_shape, dtype=dtype, key=key,
+                       strict=strict)

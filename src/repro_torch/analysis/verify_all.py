@@ -2,7 +2,9 @@
 
 Derives and statically verifies every registered form x hardware table
 (``H100``, the card the port runs on, and the ``TPU_V5E`` copy the tests
-hold against the reference) x dtype x accumulation.  Pure derivation and
+hold against the reference) x dtype x accumulation, and the distributed
+plans of ``_plan_cases`` on each table (``verify_sharded``; cases
+``<table>/<plan>/<dtype>``).  Pure derivation and
 verification on the host: no kernel launches and no card is needed.
 
 A combination the registries refuse to derive (a dtype / accumulator pair
@@ -19,9 +21,12 @@ from __future__ import annotations
 
 import json
 import sys
+import warnings
 
 from repro_torch import analysis
 from repro_torch.core import expr as E
+from repro_torch.core.mesh import MeshShape
+from repro_torch.distributed.plan import ReplicationFallbackWarning
 from repro_torch.hardware import H100, TPU_V5E
 
 #: the tables the sweep derives on
@@ -76,6 +81,41 @@ _DTYPE_MATRIX = (("float32", "float32"),
 BLOCK_OVERRIDES = {"batched_decode": (4, 16)}
 
 
+def _plan_cases():
+    """(label, form, mesh, shard, keywords) of the distributed plans the
+    sweep derives and verifies (``verify_sharded``)."""
+    mesh = MeshShape((("x", 2),))
+    mesh2 = MeshShape((("dx", 2), ("dy", 2)))
+    m, k, n = 64, 96, 32
+    f = E.matmul_expr(m, k, n)
+    yield "plan_row", f, mesh, {"i": "x"}, {}
+    yield "plan_col", f, mesh, {"j": "x"}, {}
+    yield "plan_sigma", f, mesh, {"k": "x"}, {}
+    yield "plan_both", f, mesh2, {"i": "dx", "j": "dy"}, {}
+    yield "plan_gather", f, mesh, {"i": "x"}, {"replicate_out": True}
+    yield "plan_scatter", f, mesh, {"k": "x"}, {"scatter_axis": "i"}
+    yield ("plan_fallback", E.matmul_expr(31, 96, 32), mesh, {"i": "x"}, {})
+    yield ("plan_expert", E.expert_gemm_expr(4, 60, 96, 72), mesh,
+           {"i": "x"}, {})
+    yield ("plan_bf16_acc", f, mesh, {"k": "x"},
+           {"dtype": "bfloat16", "acc_dtype": "bfloat16"})
+
+
+def _record(case, findings, rows, failures, verbose) -> int:
+    """Add one checked case's error findings to the report; returns its
+    warnings."""
+    errs = analysis.errors(findings)
+    if errs:
+        failures.append(case)
+        for f in errs:
+            rows.append({"case": case, "rule": f.rule, "level": f.level,
+                         "subject": f.subject, "message": f.message})
+            print(f"FAIL {case}: {f}")
+    elif verbose:
+        print(f"  ok {case}")
+    return len(findings) - len(errs)
+
+
 def run_sweep(verbose=False):
     """Sweep every table; returns the report dict ``--json`` serializes."""
     checked = refused = warned = 0
@@ -101,22 +141,35 @@ def run_sweep(verbose=False):
                     continue
                 checked += 1
                 cases[case] = "checked"
-                errs = analysis.errors(findings)
-                warned += len(findings) - len(errs)
-                if errs:
-                    failures.append(case)
-                    for f in errs:
-                        rows.append({"case": case, "rule": f.rule,
-                                     "level": f.level, "subject": f.subject,
-                                     "message": f.message})
-                        print(f"FAIL {case}: {f}")
-                elif verbose:
-                    print(f"  ok {case}")
+                warned += _record(case, findings, rows, failures, verbose)
+
+        for label, form, mesh, shard, kw in _plan_cases():
+            kw = dict(kw)
+            dtype = kw.pop("dtype", "float32")
+            case = f"{table.name}/{label}/{dtype}"
+            try:
+                with warnings.catch_warnings():
+                    # the fallback case's warning is its finding
+                    warnings.simplefilter("ignore",
+                                          ReplicationFallbackWarning)
+                    findings = analysis.verify_sharded(
+                        form, mesh, shard, hardware=table, dtype=dtype,
+                        strict=False, **kw)
+            except (ValueError, AssertionError) as exc:
+                refused += 1
+                cases[case] = "refused"
+                if verbose:
+                    print(f"  refused {case}: {exc}")
+                continue
+            checked += 1
+            cases[case] = "checked"
+            warned += _record(case, findings, rows, failures, verbose)
 
     return {
         "sweep": "verify_all",
         "hardware": [t.name for t in TABLES],
         "forms": len(list(_forms())),
+        "plans": len(list(_plan_cases())),
         "dtypes": [f"{d}+{a}" for d, a in _DTYPE_MATRIX],
         "checked": checked,
         "refused": refused,

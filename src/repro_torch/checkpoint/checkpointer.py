@@ -26,9 +26,17 @@ Guarantees:
 
 ``restore`` copies into the tensors of ``like`` in place, so that the
 parameters, the optimizer's dicts and a train step built on them keep
-pointing at the same storage.  The reference's ``shardings`` argument
-(restore onto another mesh) waits for the multi-card slice (ROADMAP.md,
-Queue 1 item 4).
+pointing at the same storage.
+
+Sharded trees (the DTensor leaves of ``train_step.init_sharded_state``):
+``save`` gathers every DTensor leaf whole on every rank (each rank of the
+mesh calls it) and rank 0 of the world writes the same npz + manifest,
+so a checkpoint holds no trace of the mesh it was saved at; the ranks
+then wait for the file.  ``restore`` reads the whole leaves and copies
+this rank's chunk into each DTensor leaf under its own placements, or
+under ``shardings`` (``{name: (mesh, placements)}``, the reference's
+re-shard argument) into a plain leaf of the chunk's shape: a checkpoint
+saved at one mesh restores at another, and in one process.
 """
 from __future__ import annotations
 
@@ -66,9 +74,37 @@ def _leaves(tree, prefix: str = ""):
                         f"{prefix!r}")
 
 
+def _whole(leaf: torch.Tensor) -> torch.Tensor:
+    """A DTensor leaf gathered whole (every rank of its mesh calls this);
+    any other leaf as it is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        from repro_torch.distributed import comm
+        return comm.gather_full(leaf.to_local(), leaf.device_mesh,
+                                leaf.placements)
+    return leaf
+
+
+def _writer() -> bool:
+    """Rank 0 of the world writes (every process, with no world)."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _wait_for_writer() -> None:
+    """Every rank of the world waits here for rank 0's write: an
+    all-reduce on the host for gloo (its barrier after collectives of
+    CUDA tensors is not relied on), on the card for NCCL."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend() == dist.Backend.NCCL else "cpu")
+        dist.all_reduce(torch.zeros(1, device=dev))
+
+
 def _to_host(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
     """A copy of ``leaf`` on the host as npz can hold it, and its tag."""
-    t = leaf.detach()
+    t = _whole(leaf).detach()
     if t.dtype == torch.bfloat16:
         host = t.view(torch.int16).to("cpu", copy=True)
         return host.numpy().view(np.uint16), "bfloat16"
@@ -110,13 +146,19 @@ class Checkpointer:
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Any, metadata: Optional[dict] = None):
         self.wait()
-        self._save_impl(step, _flatten(tree), metadata or {})
+        flat = _flatten(tree)
+        if _writer():
+            self._save_impl(step, flat, metadata or {})
+        _wait_for_writer()
 
     def save_async(self, step: int, tree: Any,
                    metadata: Optional[dict] = None):
-        """Snapshot ``tree`` to the host now, write it on a thread."""
+        """Snapshot ``tree`` to the host now, write it on a thread (rank
+        0's; the other ranks of a world return once they have gathered)."""
         self.wait()
         host = _flatten(tree)
+        if not _writer():
+            return
         self._thread = threading.Thread(
             target=self._save_thread, args=(step, host, metadata or {}),
             daemon=True)
@@ -182,12 +224,19 @@ class Checkpointer:
                     for k in data.files}
         return flat, manifest
 
-    def restore(self, like: Any, step: Optional[int] = None
-                ) -> tuple[Any, dict]:
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Optional[dict] = None) -> tuple[Any, dict]:
         """Copy the newest valid checkpoint (or ``step``'s) into the
         tensors of ``like`` in place, each leaf found by its name and held
         to its shape and dtype; falls back to older checkpoints on
-        corruption.  Returns ``(like, manifest)``."""
+        corruption.  A DTensor leaf takes this rank's chunk under its
+        placements; a leaf named in ``shardings`` (``{leaf name: (mesh,
+        placements)}``, by the checkpoint's names, ``params/layers/...``)
+        its chunk under those.  Returns ``(like, manifest)``."""
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.distributed import comm
+        shardings = shardings or {}
         steps = self.all_steps()
         if step is not None:
             steps = [s for s in steps if s == step]
@@ -209,6 +258,16 @@ class Checkpointer:
                     raise KeyError(f"checkpoint step {manifest['step']} has "
                                    f"no leaf {name!r}")
                 src = flat[name]
+                if isinstance(leaf, DTensor) or name in shardings:
+                    mesh, pl = shardings[name] if name in shardings else (
+                        leaf.device_mesh, leaf.placements)
+                    if isinstance(leaf, DTensor):
+                        if tuple(pl) != tuple(leaf.placements):
+                            raise ValueError(
+                                f"{name}: placed {tuple(leaf.placements)}, "
+                                f"the shardings say {tuple(pl)}")
+                        leaf = leaf.to_local()
+                    src = comm.local_chunk(src, mesh, pl)
                 if src.shape != leaf.shape or src.dtype != leaf.dtype:
                     raise ValueError(
                         f"{name}: checkpoint holds {tuple(src.shape)} "

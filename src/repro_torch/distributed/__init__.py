@@ -1,4 +1,5 @@
-"""Distribution layer (``repro.distributed`` counterparts): gradient
-compression and the fault-tolerance policies.  The mesh, the sharding
-rules, the planned collectives and the elastic re-mesh wait for the
-multi-card slice (ROADMAP.md, Queue 1 item 4)."""
+"""Distribution layer (``repro.distributed`` counterparts): the sharding
+rule table, the derived plans and their collectives on
+``torch.distributed`` (one process a rank), the overlapped collective
+matmuls, gradient compression, and the fault-tolerance policies with the
+elastic re-mesh."""

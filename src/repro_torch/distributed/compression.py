@@ -102,3 +102,51 @@ def compress_grads(cfg: CompressionConfig, grads: dict, err_state: dict
 def compressed_bytes(n_params: int, block_size: int = 256) -> int:
     """Wire bytes for one compressed DP reduction of n_params f32 grads."""
     return n_params + (n_params // block_size) * 4
+
+
+def _block_aligned(shape, placements, mesh, block: int) -> bool:
+    """True when every contiguous run of a rank's chunk in the whole
+    leaf's flat order is a multiple of ``block`` long, so the chunk's
+    blocks are the whole leaf's."""
+    inner = None
+    for i, pl in enumerate(placements):
+        if pl.is_shard() and mesh.size(i) > 1:
+            inner = pl.dim if inner is None else max(inner, pl.dim)
+    if inner is None:
+        return True
+    c = shape[inner]
+    for i, pl in enumerate(placements):
+        if pl.is_shard() and pl.dim == inner:
+            c //= mesh.size(i)
+    run = c
+    for s in shape[inner + 1:]:
+        run *= s
+    return run % block == 0
+
+
+def compress_sharded(cfg: CompressionConfig, grads: dict, err_state: dict,
+                     shapes: dict, placements: dict, mesh
+                     ) -> tuple[dict, dict]:
+    """:func:`compress_grads` on this rank's chunks of sharded leaves
+    (``shapes``: each whole leaf's shape; ``placements``: its DTensor
+    placements on ``mesh``), with the whole leaf's blocks: a chunk whose
+    runs are whole blocks (``_block_aligned``) is compressed where it is;
+    any other leaf's gradient and error are gathered, compressed whole
+    (every rank alike) and cut back to the chunk.  In place, as
+    :func:`compress_grads`."""
+    from repro_torch.distributed import comm
+    if not cfg.enabled:
+        return grads, err_state
+    for name, g in grads.items():
+        pl = placements[name]
+        if _block_aligned(shapes[name], pl, mesh, cfg.block_size):
+            grads[name] = compress_grads(cfg, {name: g},
+                                         {name: err_state[name]})[0][name]
+            continue
+        full_g = comm.gather_full(g, mesh, pl)
+        full_e = comm.gather_full(err_state[name], mesh, pl)
+        compress_grads(cfg, {name: full_g}, {name: full_e})
+        with torch.no_grad():
+            g.copy_(comm.local_chunk(full_g, mesh, pl))
+            err_state[name].copy_(comm.local_chunk(full_e, mesh, pl))
+    return grads, err_state

@@ -10,16 +10,19 @@ cluster runtime implements.
   ``report_straggler``.
 * ``best_mesh_shape``: the largest model-parallel width from a divisor
   ladder that divides the devices; the rest is data-parallel.
-
-The reference's ``ElasticManager`` (rebuild the mesh and re-shard the
-state after a membership change) waits for the multi-card slice
-(ROADMAP.md, Queue 1 item 4).
+* ``ElasticManager``: on a membership change, rebuild the mesh over the
+  world's ranks through ``best_mesh_shape`` and re-derive every
+  placement from the same rule table (``distributed.sharding``);
+  ``Checkpointer.restore`` then fills the new chunks.  Data order is kept:
+  the pipeline is a function of the step.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
 from typing import Optional
+
+import torch
 
 
 class Coordinator:
@@ -80,3 +83,38 @@ def best_mesh_shape(n_devices: int,
         if n_devices % tp == 0:
             return (n_devices // tp, tp)
     return (n_devices, 1)
+
+
+@dataclass
+class ElasticManager:
+    """Rebuilds the mesh and the placements after membership changes."""
+    axis_names: tuple[str, str] = ("data", "model")
+
+    def make_mesh(self, device_type="cuda"):
+        """A ``(dp, tp)`` ``DeviceMesh`` over the world's ranks, shaped by
+        :func:`best_mesh_shape`."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from repro_torch.device import resolve_device
+        n = dist.get_world_size()
+        dp, tp = best_mesh_shape(n)
+        ranks = torch.arange(n).reshape(dp, tp)
+        return DeviceMesh(resolve_device(device_type).type, ranks,
+                          mesh_dim_names=self.axis_names)
+
+    def reshard(self, tree, axes_tree, mesh) -> dict:
+        """``{name: DTensor}``: this rank's chunk of each whole tensor of
+        ``tree`` (every rank holds it, e.g. restored on the host) under
+        the rule table's placements on ``mesh``."""
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.distributed import comm
+        from repro_torch.distributed.sharding import param_placements
+        if isinstance(tree, torch.nn.Module):
+            tree = dict(tree.named_parameters())
+        pls = param_placements(tree, axes_tree, mesh)
+        return {k: DTensor.from_local(
+                    comm.local_chunk(t.detach(), mesh, pls[k]).clone(),
+                    mesh, pls[k], run_check=False)
+                for k, t in tree.items()}

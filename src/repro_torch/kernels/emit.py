@@ -29,6 +29,10 @@ stages whose operands are the chain's leaves and the f32 scratch T.
 ``run_descriptor`` is a plain PyTorch executor of a descriptor through
 ``torch.as_strided``: it reads exactly the strides, base offsets and
 extents that K9 is given (the CPU tests drive it).
+
+``emit_shard_map`` runs a distributed plan (``distributed.plan``) on a
+``DeviceMesh``: each rank the per-shard normal form on K1 or K9, then
+the plan's collectives (``distributed.comm``).
 """
 from __future__ import annotations
 
@@ -552,3 +556,97 @@ def run_descriptor(launch: Launch, *arrays: torch.Tensor,
         v = semiring.reduce_def(launch.reduce_op).torch_reducer(
             v, dim=tuple(range(len(launch.out_ext), len(size))))
     return v.to(out_dtype or arrays[0].dtype)
+
+
+# ---------------------------------------------------------------------------
+# the mesh level: the same plan per shard, then the plan's collectives
+# ---------------------------------------------------------------------------
+
+def _same_placements(got, want, mesh) -> bool:
+    """Placements equal dim for dim, a shard over a mesh dim of size 1
+    being a replica."""
+    norm = lambda p, s: "R" if s == 1 or p.is_replicate() else p
+    return len(got) == len(want) and all(
+        norm(a, s) == norm(b, s) for a, b, s in zip(got, want, mesh.shape))
+
+
+def _local_operand(x: torch.Tensor, entries, want, mesh) -> torch.Tensor:
+    """This rank's shard of an operand placed by ``entries``: a DTensor
+    already so placed gives its local tensor; a plain tensor is the whole
+    operand, as every rank holds it (``shard_map``'s global array), and
+    gives its chunk along each sharded dim (:func:`comm.shard_local`,
+    whose gradient gathers the chunks again)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.sharding import spec_axes
+    if isinstance(x, DTensor):
+        if not _same_placements(x.placements, want, mesh):
+            raise ValueError(f"operand placed {tuple(x.placements)}, the "
+                             f"plan reads it as {tuple(want)}: redistribute "
+                             f"it first")
+        return x.to_local()
+    for d, entry in enumerate(entries):
+        for axis in spec_axes(entry):
+            x = comm.shard_local(x, mesh.get_group(axis), d)
+    return x
+
+
+def emit_shard_map(plan, mesh, local_fn=None, *, out_dtype=None,
+                   defer: tuple = ()):
+    """Run a ``DistributedPlan`` (``repro.kernels.emit.emit_shard_map``):
+    per rank, the plan's per-shard product on this rank's operand shards,
+    then the plan's collective schedule on the groups of ``mesh``'s axes.
+
+    ``mesh`` is a ``torch.distributed`` ``DeviceMesh`` whose axis names and
+    sizes are the plan's.  ``local_fn(*shards)`` computes one shard's
+    result in f32; by default the per-shard normal form through the route
+    ``ops.apply`` takes at those local extents (K1 or K9 on CUDA tensors,
+    their plain versions on CPU tensors).  Returns ``fn(*operands) ->
+    DTensor`` placed as ``plan.out_placements(mesh)``, in ``out_dtype``
+    (default f32).  Operands bind by storage shape as in ``ops.apply``:
+    DTensors placed as ``plan.in_placements(mesh)``, or whole tensors
+    every rank holds.
+
+    Differentiable where ``local_fn`` is: an operand replicated over a
+    mesh axis that the plan shards the work over gets the sum of the
+    ranks' partial gradients over that axis, except over the axes named
+    in ``defer``, where each rank keeps its own share (a data-parallel
+    step reduces those once, over all its parameters)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.sharding import spec_axes
+    plan.check_mesh(mesh)
+    if local_fn is None:
+        from repro_torch.kernels import ops
+        local_fn = functools.partial(ops.apply_normal_form, plan.local_nf,
+                                     out_dtype=torch.float32)
+    in_pl, out_pl = plan.in_placements(mesh), plan.out_placements(mesh)
+    worked = {axis for _, axis in plan.applied} - set(defer)
+    groups = {name: mesh.get_group(name) for name in mesh.mesh_dim_names}
+
+    def call(*operands):
+        shards = []
+        for x, entries, want in zip(operands, plan.in_entries, in_pl):
+            x = _local_operand(x, entries, want, mesh)
+            held = {a for e in entries for a in spec_axes(e)}
+            for axis in sorted(worked - held):
+                x = comm.replicated_in(x, groups[axis])
+            shards.append(x.contiguous())
+        y = local_fn(*shards)
+        for step in plan.collectives:
+            group = groups[step.mesh_axis]
+            if step.kind == "psum":
+                y = comm.psum(y, group)
+            elif step.kind == "reduce_scatter":
+                y = comm.psum_scatter(y, group, step.out_dim)
+            elif step.kind == "all_gather":
+                y = comm.gather(y, group, step.out_dim)
+            else:
+                raise ValueError(f"unknown collective kind {step.kind!r}")
+        if out_dtype is not None:
+            y = y.to(out_dtype)
+        return DTensor.from_local(y, mesh, out_pl, run_check=False)
+
+    return call

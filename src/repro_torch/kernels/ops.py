@@ -62,6 +62,12 @@ route of ``apply(..., acc_dtype="int32")``).  K4's bf16 tensor-core form
 splits each key tile's row stream over :func:`dkv_splits` blocks.  Either
 counts one launch a call.
 
+``apply``, ``matmul`` and ``expert_matmul`` take a ``mesh=`` (a
+``torch.distributed`` ``DeviceMesh``) and ``shard=``: the normal form is
+lifted onto the mesh (``distributed.plan.derive_plan``) and run by
+``emit.emit_shard_map``, each rank its shard on the route below, then the
+plan's collectives; they return DTensors.
+
 ``scan_ssd`` and ``gated_scan`` take the chunk the H100 table derives
 (:func:`default_ssd_chunk`, :func:`default_gated_chunk`: the reference's
 formulas through ``core.blocking.solve_recurrence_blocks``) when none is
@@ -597,15 +603,74 @@ def _dots_matmul(dots, x2, w2, transpose_b: bool, dtype) -> torch.Tensor:
     return _MatmulF32.apply(x2, w2, transpose_b, y)
 
 
+def _matmul_local(transpose_b: bool):
+    """The single-device 2-D product in f32 that a matmul plan runs per
+    shard: differentiable (:class:`_MatmulF32`) when a gradient is due."""
+    def local(a, b):
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _MatmulF32.apply(a, b, transpose_b)
+        return _product(a, b, transpose_b=transpose_b)
+    return local
+
+
+def _matmul_sharded(x2, w2, transpose_b, mesh, shard, replicate_out,
+                    out_dtype):
+    """The mesh path of :func:`matmul`: the 2-D product's plan
+    (``matmul_plan``'s roles) through ``emit_shard_map``, K1 per shard."""
+    from repro_torch.distributed.plan import MATMUL_ROLES, _translate
+    m, kdim = x2.shape
+    n = w2.shape[0] if transpose_b else w2.shape[1]
+    if shard is None:                      # rows over the first mesh axis,
+        names = tuple(mesh.mesh_dim_names)  # columns over the second
+        shard = {"m": names[0]}
+        if len(names) > 1:
+            shard["n"] = names[1]
+    nf = E.normal_form(E.matmul_expr(m, kdim, n, transpose_b=transpose_b),
+                       name="matmul")
+    fn = _sharded_callable(nf, str(x2.dtype).removeprefix("torch."),
+                           out_dtype, H100, mesh,
+                           _translate(shard, MATMUL_ROLES), replicate_out,
+                           None, "float32", _matmul_local(transpose_b),
+                           ("matmul", transpose_b))
+    return fn(x2, w2)
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor, *, transpose_b: bool = False,
-           out_dtype=None) -> torch.Tensor:
+           out_dtype=None, mesh=None, shard=None,
+           replicate_out: bool = False) -> torch.Tensor:
     """``y[..., :] = x[..., k] @ w[k, ...]``, accumulated and returned in
     f32, then cast to ``out_dtype`` (default ``x.dtype``).
 
     Leading dims of ``x`` and trailing dims of ``w`` collapse to one 2-D
     product.  ``transpose_b`` contracts against the stored layout of a
     ``(..., k)`` weight, ``y = x @ w.T``, with no transpose copy (the tied
-    logits head).  Differentiable in ``x`` and ``w``."""
+    logits head).  Differentiable in ``x`` and ``w``.
+
+    ``mesh`` / ``shard`` / ``replicate_out`` lift the 2-D product to named
+    device axes (roles ``{"m", "n", "k"}``, default rows over the mesh's
+    first axis and columns over its second; sharding "k" derives the
+    tensor-parallel psum) and run the same differentiable product per
+    shard through the derived plan (:func:`apply`'s mesh path).  The
+    operands are then 2-D DTensors placed as the plan reads them, or
+    whole tensors every rank holds, and the result the ``(rows, cols)``
+    DTensor placed as the plan leaves it."""
+    if mesh is not None or shard is not None:
+        if mesh is None:
+            raise ValueError("matmul(shard=...) needs a mesh")
+        from torch.distributed.tensor import DTensor
+        if not isinstance(x, DTensor):
+            x = x.reshape(-1, x.shape[-1])
+        if not isinstance(w, DTensor):
+            w = w.reshape(-1, w.shape[-1]) if transpose_b else \
+                w.reshape(w.shape[0], -1)
+        if x.dim() != 2 or w.dim() != 2:
+            raise ValueError("matmul(mesh=...) takes 2-D DTensors")
+        if (w.shape[1] if transpose_b else w.shape[0]) != x.shape[1]:
+            raise ValueError(f"matmul contraction mismatch {tuple(x.shape)} "
+                             f"@ {tuple(w.shape)}"
+                             f"{'.T' if transpose_b else ''}")
+        return _matmul_sharded(x, w, transpose_b, mesh, shard,
+                               replicate_out, out_dtype or x.dtype)
     kdim = x.shape[-1]
     if transpose_b:
         if w.shape[-1] != kdim:
@@ -820,23 +885,40 @@ class _ExpertMatmulF32(torch.autograd.Function):
         return tuple(out)
 
 
+def _expert_local(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The single-device expert product in f32, differentiable
+    (:class:`_ExpertMatmulF32`) when a gradient is due."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _ExpertMatmulF32.apply(a, b)
+    return expert_gemm(a, b, out_dtype=torch.float32)
+
+
 def expert_matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
                   mesh=None, shard=None) -> torch.Tensor:
     """The batched expert contraction ``ecd,edf->ecf``
     (``repro.kernels.ops.expert_matmul``), the MoE dispatch's hot path:
     :func:`expert_gemm` in f32, cast to ``out_dtype`` (default
     ``x.dtype``).  Differentiable in ``x`` and ``w`` (K1's expert VJP
-    forms on the card).  ``mesh=`` / ``shard=`` (expert parallelism)
-    raise."""
+    forms on the card).  ``mesh`` / ``shard`` lift it across device axes
+    (roles ``{"e", "m", "n", "k"}``, default ``{"e": first axis}``:
+    expert parallelism) through the derived plan, K1's expert form per
+    shard; operands and result as :func:`matmul`'s mesh path."""
     if mesh is not None or shard is not None:
-        raise NotImplementedError(
-            "expert_matmul(mesh=/shard=) runs a distributed plan; it is not "
-            "ported yet (ROADMAP.md, Queue 1, Distributed)")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        y = _ExpertMatmulF32.apply(x, w)
-    else:
-        y = expert_gemm(x, w, out_dtype=torch.float32)
-    return y.to(out_dtype or x.dtype)
+        if mesh is None:
+            raise ValueError("expert_matmul(shard=...) needs a mesh")
+        from repro_torch.distributed.plan import EXPERT_ROLES, _translate
+        e, cap, d = x.shape
+        f = w.shape[2]
+        if shard is None:
+            shard = {"e": tuple(mesh.mesh_dim_names)[0]}
+        nf = E.normal_form(E.expert_gemm_expr(e, cap, d, f),
+                           name="expert_gemm")
+        fn = _sharded_callable(nf, str(x.dtype).removeprefix("torch."),
+                               out_dtype or x.dtype, H100, mesh,
+                               _translate(shard, EXPERT_ROLES), False,
+                               None, "float32", _expert_local, "expert")
+        return fn(x, w)
+    return _expert_local(x, w).to(out_dtype or x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -1848,6 +1930,7 @@ def semiring_contract(launch: "emit.Launch", *arrays: torch.Tensor,
 def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
           blocks=None, acc_dtype: str = "float32",
           hardware: HardwareShape = H100, mesh=None, shard=None,
+          replicate_out: bool = False, scatter_axis=None,
           verify=False) -> torch.Tensor:
     """Evaluate a composed MoA expression (``repro.kernels.ops.apply``).
 
@@ -1865,18 +1948,52 @@ def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
     A strided view binds like its contiguous copy: it is copied first,
     but by K1's head form, which reads it in place.
 
+    With ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``) the normal
+    form is lifted one level further: ``shard`` maps its axis symbols to
+    mesh axes, and the derived ``DistributedPlan``
+    (``distributed.plan.derive_plan``; ``replicate_out`` and
+    ``scatter_axis`` as there) runs through ``emit.emit_shard_map``: each
+    rank runs the per-shard normal form on the same route as here, then
+    the plan's collectives.  Operands are DTensors placed as the plan
+    reads them, or whole tensors every rank holds; the result is a
+    DTensor placed as the plan leaves it.  ``blocks=`` is refused there:
+    the plan derives the per-shard blocks.
+
     ``verify=True`` runs the static verifier (``repro_torch.analysis.
-    verify_expr``) on the derived schedule before the launch and raises
-    ``VerificationError`` on an error finding; ``verify="kernel"`` also
-    checks the launch plan (``analysis.conformance``: K1's route, K9's
-    descriptor).  Both cache on the schedule's key, so a repeated call
+    verify_expr``, or ``verify_sharded`` on the mesh path) on the derived
+    schedule before the launch and raises ``VerificationError`` on an
+    error finding; ``verify="kernel"`` also checks the launch plan
+    (``analysis.conformance``: K1's route, K9's descriptor; single-device
+    path only).  Both cache on the schedule's key, so a repeated call
     pays a dictionary lookup.
     """
-    if mesh is not None or shard is not None:
-        raise NotImplementedError(
-            "apply(mesh=/shard=) runs a distributed plan; it is not ported "
-            "yet (ROADMAP.md, Queue 1, Distributed)")
     nf = E.normal_form(expr)
+    if mesh is not None or shard is not None:
+        if mesh is None:
+            raise ValueError("apply(shard=...) needs a mesh")
+        if blocks is not None:
+            raise ValueError(
+                "apply(mesh=...) derives per-shard blocks from the plan; "
+                "pinning blocks= is not supported on the sharded path")
+        _check_leaves(nf, arrays)
+        dtype_s = str(arrays[0].dtype).removeprefix("torch.")
+        if verify:
+            from repro_torch import analysis
+            analysis.verify_sharded(nf, mesh, shard or {}, hardware=hardware,
+                                    dtype=dtype_s,
+                                    replicate_out=replicate_out,
+                                    scatter_axis=scatter_axis,
+                                    acc_dtype=acc_dtype)
+        fn = _sharded_callable(nf, dtype_s, out_dtype or arrays[0].dtype,
+                               hardware, mesh, shard or {}, replicate_out,
+                               scatter_axis, acc_dtype)
+        return fn(*arrays)
+    return apply_normal_form(nf, *arrays, out_dtype=out_dtype, blocks=blocks,
+                             acc_dtype=acc_dtype, hardware=hardware,
+                             verify=verify)
+
+
+def _check_leaves(nf: "E.NormalForm", arrays) -> None:
     shapes = nf.leaf_storage_shapes()
     if len(arrays) != len(shapes):
         raise ValueError(f"expression has {len(shapes)} leaves, got "
@@ -1885,6 +2002,55 @@ def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
         if tuple(a.shape) != s:
             raise ValueError(f"leaf {i} ({nf.leaves[i].array!r}) expects "
                              f"storage shape {s}, got {tuple(a.shape)}")
+
+
+#: memoised sharded executables, per (normal form, mesh, sharding, dtypes)
+_SHARDED: "OrderedDict[tuple, object]" = OrderedDict()
+
+
+def _sharded_callable(nf: "E.NormalForm", dtype_s: str, out_dtype,
+                      hardware: HardwareShape, mesh, shard: dict,
+                      replicate_out: bool, scatter_axis, acc_dtype: str,
+                      local_fn=None, local_tag=None):
+    """The memoised ``emit_shard_map`` executable of one (normal form,
+    mesh, sharding, dtypes): derives (or re-reads from the plan cache)
+    the ``DistributedPlan`` and wraps its collectives around the
+    per-shard product (``local_fn``, tagged ``local_tag`` in the key, or
+    the normal form's own route).  The gradient axes the active
+    ``planned_mesh`` defers are part of the key."""
+    from repro_torch.distributed import plan as dplan
+    defer = dplan.deferred_axes(mesh)
+    key = (nf.key(), dtype_s, str(out_dtype), hardware.name, id(mesh),
+           tuple(sorted(shard.items())), bool(replicate_out), scatter_axis,
+           str(acc_dtype), local_tag, defer)
+    with _PLANS_LOCK:
+        fn = _SHARDED.get(key)
+        if fn is not None and fn[0] is mesh:
+            _SHARDED.move_to_end(key)
+            return fn[1]
+    plan = dplan.derive_plan(nf, mesh, shard=shard, hardware=hardware,
+                             dtype=dtype_s, replicate_out=replicate_out,
+                             scatter_axis=scatter_axis, acc_dtype=acc_dtype)
+    if local_fn is None:
+        local_fn = functools.partial(apply_normal_form, plan.local_nf,
+                                     out_dtype=torch.float32,
+                                     acc_dtype=acc_dtype, hardware=hardware)
+    fn = emit.emit_shard_map(plan, mesh, local_fn, out_dtype=out_dtype,
+                             defer=defer)
+    with _PLANS_LOCK:
+        _SHARDED[key] = (mesh, fn)
+        while len(_SHARDED) > _PLANS_SIZE:
+            _SHARDED.popitem(last=False)
+    return fn
+
+
+def apply_normal_form(nf: "E.NormalForm", *arrays: torch.Tensor,
+                      out_dtype=None, blocks=None, acc_dtype: str = "float32",
+                      hardware: HardwareShape = H100,
+                      verify=False) -> torch.Tensor:
+    """:func:`apply` on a normal form, on one device (the per-shard
+    product of a plan runs here)."""
+    _check_leaves(nf, arrays)
     out_dtype = out_dtype or arrays[0].dtype
     dtypes = tuple(str(a.dtype).removeprefix("torch.") for a in arrays)
     acc_dtype = str(acc_dtype).removeprefix("torch.")

@@ -1,3 +1,3 @@
-"""Launchers (``repro.launch`` counterparts): the train and serve drivers.
-The production mesh and the multi-pod dry-run wait for the multi-card
-slice (ROADMAP.md, Queue 1 item 4)."""
+"""Launchers (``repro.launch`` counterparts): the train and serve command
+lines and the device meshes over a world's ranks.  The multi-pod dry-run
+is not ported (ROADMAP.md, Queue 1)."""

@@ -70,6 +70,12 @@ def param_shapes(cfg: ArchConfig) -> dict:
     return shapes
 
 
+def param_axes(cfg: ArchConfig) -> dict:
+    """Each leaf's logical axes beside :func:`param_shapes`
+    (``transformer.axes_of``)."""
+    return tt.axes_of(param_shapes(cfg), cfg)
+
+
 def init_encdec(cfg: ArchConfig, generator: torch.Generator,
                 device="cuda", trainable: bool = False) -> nn.ModuleDict:
     """Random parameters with the reference's shapes and scales, drawn as

@@ -6,8 +6,12 @@ top-k assignments are sorted by expert (stably, so a token keeps its place
 within its expert), the first ``cap`` of each expert are kept, and the
 expert FFN runs as two capacity-padded expert GEMMs over every expert
 (``ops.expert_matmul``, K1's expert form).  This is the reference's global
-path (``_apply_moe_global``), which it also takes with no mesh; its
-shard-local path waits for the distributed slice.
+path (``_apply_moe_global``), taken with no planned mesh.  Under a planned
+mesh with a ``"model"`` axis wider than one, :func:`apply_moe` takes the
+shard-local path (``_apply_moe_shardmap``): each rank routes its own
+tokens, keeps the assignments to its slice of the experts, runs their
+FFNs on K1's expert form and sums the ranks' contributions with one psum
+over ``"model"``.
 
 The reference scatters with ``.at[].add``; on the card a scatter-add sums
 in an order that changes from run to run, so here dispatch and combine are
@@ -28,6 +32,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.common import ArchConfig
+from repro_torch.distributed import comm
+from repro_torch.distributed import plan as dplan
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _gate_act
 
@@ -137,7 +143,56 @@ def apply_moe(p, x: torch.Tensor, cfg: ArchConfig
     """``x (B, S, d) -> (B, S, d)`` and its stats: the load-balance loss
     ``e sum(mean prob x assigned share)``, the router z-loss ``mean
     (logsumexp^2)`` and the share of assignments dropped past capacity,
-    each a device tensor."""
+    each a device tensor.  Shard-local (``_apply_moe_shardmap``) under a
+    planned mesh whose ``"model"`` axis is wider than one, else global."""
+    mesh = dplan.current_planned_mesh()
+    if mesh is not None and "model" in mesh.mesh_dim_names and \
+            mesh.size(mesh.mesh_dim_names.index("model")) > 1:
+        return _apply_moe_shardmap(p, x, cfg, mesh)
+    return _apply_moe_global(p, x, cfg)
+
+
+def _combine(ye: torch.Tensor, slot: torch.Tensor, slot_asg: torch.Tensor,
+             weights: torch.Tensor, by_expert: torch.Tensor, t: int,
+             pad: bool) -> torch.Tensor:
+    """Each assignment's slot of ``ye (slots, d)`` (the zero row past the
+    end where ``pad``), times its weight, and a token's k contributions
+    summed in expert order: ``(t, d)`` in ``ye``'s dtype."""
+    k = by_expert.shape[1]
+    d = ye.shape[-1]
+    contrib = _GatherRows.apply(ye.reshape(-1, d), slot, slot_asg[:, None],
+                                pad)
+    contrib = (contrib * weights.to(ye.dtype)[:, None]).reshape(t, k, d)
+    y = torch.zeros((t, d), dtype=ye.dtype, device=ye.device)
+    for j in range(k):
+        y = y + contrib.gather(1, by_expert[:, j, None, None].expand(
+            t, 1, d))[:, 0]
+    return y
+
+
+def _experts(p, xe: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+             cfg: ArchConfig, dtype) -> torch.Tensor:
+    """The routed experts' gated FFNs on ``xe (e, cap, d)`` (K1's expert
+    form for both products)."""
+    h = ops.expert_matmul(xe, wi, out_dtype=torch.float32)
+    u, v = h.chunk(2, dim=-1)
+    h = (_gate_act(cfg, u) * v).to(dtype)
+    return ops.expert_matmul(h, wo, out_dtype=dtype)
+
+
+def _shared(p, x: torch.Tensor, y: torch.Tensor,
+            cfg: ArchConfig) -> torch.Tensor:
+    if cfg.n_shared_experts:
+        hs = ops.matmul(x, p["shared_wi"], out_dtype=torch.float32)
+        us, vs = hs.chunk(2, dim=-1)
+        hs = (_gate_act(cfg, us) * vs).to(x.dtype)
+        y = y + ops.matmul(hs, p["shared_wo"], out_dtype=x.dtype)
+    return y
+
+
+def _apply_moe_global(p, x: torch.Tensor, cfg: ArchConfig
+                      ) -> tuple[torch.Tensor, MoEStats]:
+    """The dispatch over every expert on one device."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
@@ -154,27 +209,86 @@ def apply_moe(p, x: torch.Tensor, cfg: ArchConfig
     xe = _GatherRows.apply(xt, slot_asg.div(k, rounding_mode="floor"),
                            tok_slots, True).reshape(e, cap, d)
 
-    h = ops.expert_matmul(xe, p["wi"], out_dtype=torch.float32)
-    u, v = h.chunk(2, dim=-1)
-    h = (_gate_act(cfg, u) * v).to(x.dtype)
-    ye = ops.expert_matmul(h, p["wo"], out_dtype=x.dtype)
+    ye = _experts(p, xe, p["wi"], p["wo"], cfg, x.dtype)
 
     # combine: each assignment's slot, its gate (0 past capacity), and the
     # k contributions of a token summed in expert order
-    contrib = _GatherRows.apply(ye.reshape(e * cap, d), slot,
-                                slot_asg[:, None], False)
-    contrib = (contrib * (gates.reshape(-1) * keep).to(x.dtype)[:, None]
-               ).reshape(t, k, d)
-    y = torch.zeros((t, d), dtype=x.dtype, device=dev)
-    for j in range(k):
-        y = y + contrib.gather(1, by_expert[:, j, None, None].expand(
-            t, 1, d))[:, 0]
-    y = y.reshape(b, s, d)
-
-    if cfg.n_shared_experts:
-        hs = ops.matmul(x, p["shared_wi"], out_dtype=torch.float32)
-        us, vs = hs.chunk(2, dim=-1)
-        hs = (_gate_act(cfg, us) * vs).to(x.dtype)
-        y = y + ops.matmul(hs, p["shared_wo"], out_dtype=x.dtype)
+    y = _combine(ye, slot, slot_asg, gates.reshape(-1) * keep, by_expert, t,
+                 False).reshape(b, s, d)
     dropped = 1.0 - keep.sum() / (t * k)
-    return y, MoEStats(aux, z, dropped)
+    return _shared(p, x, y, cfg), MoEStats(aux, z, dropped)
+
+
+def _apply_moe_shardmap(p, x: torch.Tensor, cfg: ArchConfig, mesh
+                        ) -> tuple[torch.Tensor, MoEStats]:
+    """Token-local routing with the experts sharded over ``"model"``
+    (expert parallelism), one process a rank.
+
+    ``x`` is this rank's rows of the batch (its data shard), the same on
+    every rank of ``"model"``; the parameters are whole on every rank.
+    Each rank routes its tokens with the whole router, keeps the
+    assignments to its ``e / tp`` experts (the rest go to a drop bucket
+    it never runs), dispatches them at the capacity of its tokens, runs
+    its experts' FFNs on K1's expert form and combines; one psum over
+    ``"model"`` then sums each token's contributions.  Under remat the
+    local function is checkpointed, the psum is not.
+
+    Gradients are whole on every rank of ``"model"``: the expert
+    weights' slices gather back (``comm.shard_local``), and the
+    dispatched tokens' and the gates' partial gradients are summed over
+    the axis (``comm.replicated_in``).  The stats are this rank's tokens'
+    (the data-parallel mean is the caller's, as for the loss), but
+    ``dropped``, the share over all ranks' assignments."""
+    from torch.utils.checkpoint import checkpoint
+    names = tuple(mesh.mesh_dim_names)
+    mg = mesh.get_group("model")
+    tp, r = comm.group_size(mg), comm.group_rank(mg)
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    if e % tp:
+        raise ValueError(f"{e} experts over a model axis of {tp}")
+    e_loc, e0 = e // tp, r * (e // tp)
+    t = b * s
+    xt = x.reshape(t, d)
+    wi = comm.shard_local(p["wi"], mg, 0)
+    wo = comm.shard_local(p["wo"], mg, 0)
+
+    def local(xt, gates_in, idx, wi, wo):
+        cap = capacity(cfg, t)
+        mine = (idx >= e0) & (idx < e0 + e_loc)
+        idx_l = torch.where(mine, idx - e0, e_loc)        # e_loc: drop bucket
+        counts, slot_asg, slot, keep, _, by_expert = slot_maps(
+            idx_l, e_loc + 1, cap)
+        keep = keep & mine.reshape(-1)
+        tok_slots = torch.where(keep, slot, e_loc * cap).reshape(
+            t, k).gather(1, by_expert)
+        slot_asg = slot_asg[:e_loc * cap]
+        xe = _GatherRows.apply(comm.replicated_in(xt, mg),
+                               slot_asg.div(k, rounding_mode="floor"),
+                               tok_slots, True).reshape(e_loc, cap, d)
+        ye = _experts(p, xe, wi, wo, cfg, x.dtype)
+        gates = comm.replicated_in(gates_in, mg).reshape(-1) * keep
+        y = _combine(ye, torch.where(keep, slot, e_loc * cap), slot_asg,
+                     gates, by_expert, t, True)
+        lost = (mine.reshape(-1) & ~keep).sum()
+        return y, lost
+
+    logits, probs, gates, idx = route(p, xt, cfg)
+    counts = torch.bincount(idx.reshape(-1), minlength=e)
+    aux = e * torch.sum(probs.mean(0) * (counts.float() / (t * k)))
+    z = torch.logsumexp(logits, dim=-1).square().mean()
+    if cfg.remat and torch.is_grad_enabled():
+        y, lost = checkpoint(local, xt, gates, idx, wi, wo,
+                             use_reentrant=False)
+    else:
+        y, lost = local(xt, gates, idx, wi, wo)
+    y = comm.psum(y, mg).reshape(b, s, d)
+    # drops among every rank's assignments over every rank's tokens
+    lost = lost.float()
+    for a in names:
+        lost = comm.all_reduce(lost, mesh.get_group(a))
+    ranks = 1
+    for a in names:
+        ranks *= mesh.size(names.index(a))
+    dropped = lost / (t * k * (ranks // tp))
+    return _shared(p, x, y, cfg), MoEStats(aux, z, dropped)

@@ -8,11 +8,13 @@ encoder-decoder (``encdec``: the audio family).
     decode_step(params, cfg, tokens, pos, cache) -> (logits, cache)
     init_cache(cfg, batch, cache_len, dtype, device) -> decode cache
 
+    param_axes(cfg)                         -> {group: {name: axes}}
+    cache_logical_axes(cache)               -> the cache's axes, mirrored
+
 A batch is ``{"tokens", "targets"}`` (``targets`` for the loss), with the
 vlm family's ``patches (B, P, d)`` or the audio family's ``frames (B,
-encoder_seq, d)``.  The reference's ``input_specs`` and
-``cache_logical_axes`` (dry-run stand-ins, cache sharding) are not ported
-(ROADMAP.md, Queue 1).
+encoder_seq, d)``.  The reference's ``input_specs`` (the dry-run's
+stand-ins) is not ported (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -58,3 +60,46 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
     if cfg.family == "audio":
         return encdec.init_encdec_cache(cfg, batch, cache_len, dtype, device)
     return transformer.init_cache(cfg, batch, cache_len, dtype, device)
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """``{group: {name: logical axes}}`` of the family's parameters (the
+    reference's axes tree from ``init``)."""
+    if cfg.family == "audio":
+        return encdec.param_axes(cfg)
+    return transformer.param_axes(cfg)
+
+
+def cache_logical_axes(cache):
+    """The logical axes of a decode cache, mirroring its structure (a
+    NamedTuple field by field, a dict by key, a list or tuple by item),
+    keyed off each leaf's field name as the reference's: K / V ``(...,
+    batch, kv_seq, kv_heads, hd)``, MLA's ``c_kv`` / ``k_pe`` ``(...,
+    batch, kv_seq, rank)``, SSM ``state`` / ``conv``, RG-LRU ``h``."""
+    def axes_for(name, leaf) -> tuple:
+        nd = leaf.dim()
+        lead = lambda used: (None,) * (nd - used)
+        if name in ("k", "v"):
+            return lead(4) + ("batch", "kv_seq", "kv_heads", None)
+        if name in ("c_kv", "k_pe"):
+            return lead(3) + ("batch", "kv_seq", None)
+        if name == "state":
+            return lead(4) + ("batch", "ssm_heads", None, None)
+        if name == "conv":
+            return lead(3) + ("batch", None, "d_inner")
+        if name == "h":
+            return lead(2) + ("batch", "lru")
+        return (None,) * nd
+
+    def walk(node, name=None):
+        if isinstance(node, torch.Tensor):
+            return axes_for(name, node)
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(getattr(node, f), f)
+                                for f in node._fields))
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, name) for v in node)
+        return None
+    return walk(cache)

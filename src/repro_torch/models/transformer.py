@@ -214,6 +214,78 @@ def param_shapes(cfg: ArchConfig) -> dict:
     return shapes
 
 
+#: each leaf's logical axes past its stack axes (the reference's
+#: ``Collector`` axes), by the kind of the group it sits in
+_LEAF_AXES = {
+    "norm": {"scale": ("d_model",), "bias": ("d_model",)},
+    "attn": {"wq": ("d_model", "heads", None),
+             "wk": ("d_model", "kv_heads", None),
+             "wv": ("d_model", "kv_heads", None),
+             "wo": ("heads", None, "d_model"),
+             "bq": ("heads", None), "bk": ("kv_heads", None),
+             "bv": ("kv_heads", None), "bo": ("d_model",)},
+    "mla": {"wq_a": ("d_model", None), "q_norm": (None,),
+            "wq_b": (None, "heads", None), "wkv_a": ("d_model", None),
+            "kv_norm": (None,), "wkv_b": (None, "heads", None),
+            "wo": ("heads", None, "d_model")},
+    "mlp": {"wi": ("d_model", "d_ff"), "wo": ("d_ff", "d_model"),
+            "bi": ("d_ff",), "bo": ("d_model",)},
+    "moe": {"router": ("d_model", "experts"),
+            "wi": ("experts", "d_model", "moe_ff"),
+            "wo": ("experts", "moe_ff", "d_model"),
+            "shared_wi": ("d_model", "d_ff"),
+            "shared_wo": ("d_ff", "d_model")},
+    "rglru": {"w_x": ("d_model", "lru"), "w_gate": ("d_model", "lru"),
+              "conv_w": (None, "lru"), "conv_b": ("lru",),
+              "wa": (None, "lru"), "wi": (None, "lru"), "ba": ("lru",),
+              "bi": ("lru",), "lam": ("lru",), "w_out": ("lru", "d_model")},
+    "ssm": {"w_in": ("d_model", "d_inner"), "conv_w": (None, "d_inner"),
+            "conv_b": ("d_inner",), "A_log": ("ssm_heads",),
+            "D": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+            "norm_scale": ("d_inner",), "w_out": ("d_inner", "d_model")},
+    "embed": {"table": ("vocab", "d_model")},
+    "unembed": {"w": ("d_model", "vocab")},
+    "frontend": {"adapter": ("d_model", None)},
+}
+
+
+def _group_kind(group: str, cfg: ArchConfig) -> str:
+    last = group.split(".")[-1]
+    if last in ("embed", "unembed", "frontend", "moe"):
+        return last
+    if last in ("attn", "att", "self_attn", "cross_attn"):
+        return "mla" if cfg.attention == "mla" else "attn"
+    if last.endswith("mlp"):
+        return "mlp"
+    if last == "rec":
+        return "rglru"
+    if last == "mixer":
+        return "ssm"
+    return "norm"                 # ln1, ln2, ln_x, *_ln1, final_norm, ...
+
+
+def axes_of(shapes: dict, cfg: ArchConfig) -> dict:
+    """``{group: {name: logical axes}}`` beside ``shapes`` (as
+    :func:`param_shapes` gives them), in its order: a stacked leaf's
+    first stack axis is ``"layers"``, any further one None."""
+    out = {}
+    for group, leaves in shapes.items():
+        table = _LEAF_AXES[_group_kind(group, cfg)]
+        out[group] = {}
+        for name, spec in leaves.items():
+            tail = table[name]
+            lead = len(spec[0]) - len(tail)
+            out[group][name] = (("layers",) + (None,) * (lead - 1)
+                                if lead else ()) + tail
+    return out
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """Each leaf's logical axes (the reference's ``Collector`` axes tree),
+    beside :func:`param_shapes`; ``distributed.sharding`` places them."""
+    return axes_of(param_shapes(cfg), cfg)
+
+
 def build_params(tensors: dict, trainable: bool = False) -> nn.ModuleDict:
     """Nest ``{"group.sub": {name: tensor}}`` into the parameter tree.
     Serving keeps the parameters frozen; ``trainable`` makes them

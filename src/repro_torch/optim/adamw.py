@@ -87,12 +87,16 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 
 def update(cfg: AdamWConfig, grads: dict, state: AdamWState,
-           params: dict) -> tuple[dict, AdamWState, dict]:
+           params: dict, gnorm: torch.Tensor = None
+           ) -> tuple[dict, AdamWState, dict]:
     """One AdamW step, in place.  ``grads``: in the parameters' names
     (any float dtype).  Returns ``(params, state, {"grad_norm", "lr"})``,
-    the params and the state's tensors being those passed in, updated."""
+    the params and the state's tensors being those passed in, updated.
+    ``gnorm``, the norm to clip by, defaults to :func:`global_norm` of
+    ``grads`` (a sharded step passes the norm over every shard)."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
     stepf = step.float()

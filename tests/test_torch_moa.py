@@ -437,8 +437,11 @@ def test_errors_match_the_reference():
                    PE.arr("B", (6, 8), layout="col"))
     with pytest.raises(ValueError, match="storage shape"):
         ops.apply(col, torch.zeros(4, 6), torch.zeros(6, 8))
-    with pytest.raises(NotImplementedError, match="Distributed"):
-        ops.apply(expr, torch.zeros(4, 6), torch.zeros(6, 5), mesh=object())
+    # the sharded path derives its per-shard blocks (the reference's
+    # test_apply_rejects_blocks_on_sharded_path): pinned blocks raise
+    with pytest.raises(ValueError, match="blocks"):
+        ops.apply(expr, torch.zeros(4, 6), torch.zeros(6, 5), mesh=object(),
+                  shard={"i": "x"}, blocks=(64, 64, 64))
     # apply(verify=) runs the static verifier (it raised before the port
     # had one): a sound derivation passes and the result is unchanged
     x, w = torch.arange(24.).reshape(4, 6), torch.arange(30.).reshape(6, 5)
