@@ -1918,6 +1918,11 @@ def phase_train(torch):
     del grads_k, grads_p
 
     state = ts.init_state(cfg, params, "cuda")
+    TRAIN_STATE.update(cfg=cfg, bytes={
+        "params": _tree_bytes(params.parameters()),
+        "master": _tree_bytes(state.opt.master.values()),
+        "m": _tree_bytes(state.opt.m.values()),
+        "v": _tree_bytes(state.opt.v.values())})
     step = ts.make_train_step(cfg)
     # the f32 masters must move; a bf16 parameter moves only where the
     # update exceeds half its ulp (warmup's lr is 3e-6 a step)
@@ -3633,6 +3638,12 @@ def phase_hybrid_train(torch):
 #: moa_path: the demo's GEMM size (examples/moa_gemm_demo.py), the
 #: tropical sizes, and examples/kron_compress.py at 64x64 (x) 64x64
 MOA_N, MOA_BIG, MOA_RAGGED, KRON = 4096, 8192, (4000, 3000, 5000), 64
+#: K9's wide forms in [moa_path]: the cube edge of the 6-axis Kronecker
+#: product (16^6: 16.8 M outputs) and (i, the contracted edges) of the
+#: 4-axis contraction (1024 x 1024 outputs, 256 terms each: the H100
+#: table's derived schedule refuses a contracted volume of 6^4 and up,
+#: its blocks past 227 KB, before K9 is reached)
+WIDE_KRON, WIDE_RED = 16, (1024, 4)
 #: kron_compress's own tolerance on |Wx - vec(B X A^T)|_inf
 KRON_TOL = 1e-3
 #: K9's (mul, add) and (add, add) sums and moa_gemm's (K1) f32 products
@@ -3793,6 +3804,48 @@ def _moa_cases(torch, E, ops):
     add(f"K9 float32 max-plus psi((3,), (8, {n}, {n})) A {n}^3", "K9",
         lambda: ops.apply(psi, stack, b), None, True,
         k9_bound(2.0 * n ** 3, 3 * n * n * 4))
+    # past K9's old ranks: a Kronecker product of two cubes (6 out axes,
+    # interleaved, none merging) and a contraction over 4 axes in
+    # reversed order (no two merge: THREAD over 4 contracted axes)
+    c = WIDE_KRON
+    k3a, k3b = rnd(c, c, c), rnd(c, c, c)
+    kron6 = E.transpose(E.inner("add", "mul", E.arr("A", (c, c, c, 1)),
+                                E.arr("B", (1, c, c, c))),
+                        (0, 3, 1, 4, 2, 5))
+    add(f"K9 float32 kron of ({c},{c},{c}) (x) ({c},{c},{c}): 6 out axes, "
+        f"{c ** 6} outputs", "K9",
+        lambda: ops.apply(kron6, k3a.reshape(c, c, c, 1),
+                          k3b.reshape(1, c, c, c)),
+        lambda: torch.kron(k3a, k3b).reshape((c,) * 6), True,
+        k9_bound(1.0 * c ** 6, (2 * c ** 3 + c ** 6) * 4))
+    i, r = WIDE_RED
+    ra, rb = rnd(i, r, r, r, r) * r ** -2, rnd(r, r, r, r, i)
+    red4 = E.inner("add", "mul",
+                   E.transpose(E.arr("A", (i, r, r, r, r)), (1, 2, 3, 0, 4)),
+                   E.transpose(E.arr("B", (r, r, r, r, i)), (3, 2, 1, 0, 4)),
+                   batch=3)
+    for _ in range(3):
+        red4 = E.reduce("add", red4, 0)
+    add(f"K9 float32 A[i,a,b,c,d] B[d,c,b,a,j] i=j={i} a..d={r}: 4 "
+        f"contracted axes path=THREAD warp", "K9",
+        lambda: ops.apply(red4, ra, rb),
+        lambda: torch.einsum("iabcd,dcbaj->ij", ra, rb), False,
+        k9_bound(1.0 * i * i * r ** 4, (2 * i * r ** 4 + i * i) * 4))
+    # float16 operands under the f32 accumulator (K9: K1 has no f16 form)
+    n = MOA_N
+    ha16, hb16 = rnd(n, n, dt=torch.float16), \
+        rnd(n, n, dt=torch.float16) * n ** -0.5
+    # the function: one f16 x f16 product a term at the f16 peak; beside
+    # it the design's three bf16 products a term
+    f16_bytes = 2 * n * n * 2 + n * n * 4
+    add(f"K9 float16 moa_gemm {n}^3 (f32 accumulator)", "K9",
+        lambda: ops.moa_gemm(ha16, hb16, out_dtype=torch.float32),
+        lambda: torch.matmul(ha16, hb16), False,
+        bound(2.0 * n ** 3, f16_bytes, "float16"),
+        {"split3_bound_ms": k9_tc_bound(1.0 * n ** 3, f16_bytes)[0][0]})
+    add(f"K9 float16 max-plus {n}x{n}x{n}", "K9",
+        lambda: ops.semiring_matmul(ha16, hb16, plus="max", times="add"),
+        None, True, k9_bound(2.0 * n ** 3, 2 * n * n * 2 + n * n * 4))
     ka, kb = rnd(KRON, KRON), rnd(KRON, KRON)
     add(f"K9 float32 kron {KRON}x{KRON} (x) {KRON}x{KRON}", "K9",
         lambda: ops.ipophp(ka, kb, "kp"), lambda: torch.kron(ka, kb), True,
@@ -4058,6 +4111,112 @@ def _int8_rows(torch, rec, E, ops, ref):
     return counts
 
 
+#: K9's integer accumulator in [derive_path]: the batched product (B
+#: stored transposed: no form of K1's), the Hadamard, the lone sum, the
+#: chain and minicpm3-4b's absorbed head products (40 heads, 1-4 rows) in
+#: int8 -> int32; one IMAD a term on the CUDA cores (64 INT32 lanes an SM
+#: where f32 has 128: half the 33.5 T FMA lane-instructions a second)
+#: beside the int8 bound
+INT32_E, INT32_N, INT32_BIG, INT32_CHAIN = 16, 1024, 8192, 512
+IMAD_PER_S = 16.75e12
+
+
+def _int32_k9_cases(torch, E, ops):
+    """``(label, call, library call or None, why none, terms, bytes)`` of
+    K9's int8 -> int32 forms on seeded card operands."""
+    i8 = torch.int8
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    ints = lambda *s: torch.randint(-128, 128, s, generator=gen,
+                                    device="cuda", dtype=i8)
+    apply = lambda expr, *a: (lambda: ops.apply(
+        expr, *a, acc_dtype="int32", out_dtype=torch.int32))
+    cases = []
+    e, n = INT32_E, INT32_N
+    x, wt = ints(e, n, n), ints(e, n, n)
+    batched = E.inner("add", "mul", E.arr("X", (e, n, n)),
+                      E.transpose(E.arr("W", (e, n, n)), (0, 2, 1)),
+                      batch=1)
+    cases.append((f"K9 int8 batched (B transposed) e={e} {n}^3 acc int32",
+                  apply(batched, x, wt), None,
+                  "torch.bmm takes no int8 on the card; torch._int_mm is 2-D",
+                  e * n ** 3, 2 * e * n * n + 4 * e * n * n))
+    m = INT32_BIG
+    ha, hb = ints(m, m), ints(m, m)
+    cases.append((f"K9 int8 hadamard {m}^2 acc int32",
+                  apply(E.hadamard_expr(m, m), ha, hb), None,
+                  "no one PyTorch call multiplies int8 into int32",
+                  m * m, 2 * m * m + 4 * m * m))
+    lone = ints(m, m)
+    cases.append((f"K9 int8 lone sum axis 0 {m}^2 acc int32",
+                  apply(E.reduce("add", E.arr("A", (m, m)), 0), lone),
+                  lambda: torch.sum(lone, dim=0, dtype=torch.int32), None,
+                  m * m, m * m + 4 * m))
+    c = INT32_CHAIN
+    ca, cb, cc = ints(c, c), ints(c, c), ints(c, c)
+    chain = E.arr("A", (c, c)) @ E.arr("B", (c, c)) @ E.arr("C", (c, c))
+    cases.append((f"K9 int8 chain A@B@C {c}^4 terms (pairwise) acc int32",
+                  apply(chain, ca, cb, cc), None,
+                  "two torch._int_mm calls (no single call)",
+                  2 * c ** 3, 3 * c * c + 4 * c * c))
+    table = ints(256, 40, 128)
+    for rows in MLA_HEAD_ROWS:
+        q = ints(rows, 40, 64)
+        head = E.head_gemm_expr(40, rows, 64, 256, transpose_b=True)
+        w = table[..., :64].contiguous()
+        cases.append((f"K9 int8 head q_lat m={rows} h=40 k=64 n=256 tb=1 "
+                      f"acc int32", apply(head, q, w), None,
+                      "torch.einsum takes no int8 on the card",
+                      40 * rows * 256 * 64,
+                      q.numel() + w.numel() + 4 * 40 * rows * 256))
+    return cases
+
+
+def _int32_k9_rows(torch, rec, E, ops):
+    """Each K9 int8 -> int32 case once with the launches counted from 0
+    (the path's), bit for bit its plain version's exact sums (and the
+    library call's, where one computes the same function), a rerun the
+    same bits; timed by events and in a CUDA graph beside its plain
+    version, library call and bound.  Returns the path's launches."""
+    counts = _zero_launches()
+    for label, call, lib, why, terms, nbytes in _int32_k9_cases(torch, E,
+                                                                ops):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        for kid, v in ops.LAUNCHES.items():
+            counts[kid] += v
+        require(ops.LAUNCHES["K9"] == 1 and ops.LAUNCHES["K1"] == 0
+                and out.dtype == torch.int32,
+                f"{label}: launches {ops.LAUNCHES}, not one K9 into int32")
+        plain = _plain(ops, call)
+        same = torch.equal(out, plain)
+        if lib is not None:
+            same = same and torch.equal(out, lib())
+        del plain
+        _rerun_equal(torch, call, label)
+        ms = time_ms(torch, call)
+        g_ms = graph_ms(torch, call)
+        plain_ms = time_ms(torch, lambda: _plain(ops, call), iters=2,
+                           warmup=1)
+        lib_ms = time_ms(torch, lib) if lib is not None else None
+        b_ms, b_by = bound(2.0 * terms, nbytes, "int8")
+        imad_ms = terms / IMAD_PER_S * 1e3
+        print(f"[derive_path] {label}: bit for bit with the plain version"
+              f"{' and the library call' if lib else ''}: {same}; "
+              f"ms={ms:.4f} graph_ms={g_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)}"
+              f"{'' if lib else f' ({why})'} bound_ms={b_ms:.4f} ({b_by}) "
+              f"imad_bound_ms={imad_ms:.4f}", flush=True)
+        require(same, f"{label}: differs from its plain version")
+        rec["K9"][label] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                library_ms=lib_ms, bound_ms=b_ms,
+                                bound_by=b_by, graph_ms=g_ms,
+                                imad_bound_ms=imad_ms)
+        del out
+    return counts
+
+
 def phase_derive_path(torch, rec, applied):
     """The derivation on the H100 table end to end: mamba2-780m at full
     width and depth with ``ssm_chunk = 0`` (the SSD chunk derived:
@@ -4067,8 +4226,8 @@ def phase_derive_path(torch, rec, applied):
     recurrentgemma-9b's derived gated chunk (``[hybrid_path]`` ran K8 at
     it); ``apply(verify=True)`` and ``verify="kernel"`` on every
     expression ``[moa_path]`` ran (zero error findings, the second call a
-    cache hit, host µs); the ``verify_all`` sweep's H100 summary; and K1's
-    int8 product.  Returns the launches of its driven paths."""
+    cache hit, host µs); the ``verify_all`` sweep's H100 summary; K1's
+    int8 product and K9's int8 -> int32 forms (``_int32_k9_rows``).  Returns the launches of its driven paths."""
     import numpy as np
     from repro_torch import analysis
     from repro_torch.analysis import verify_all
@@ -4244,8 +4403,9 @@ def phase_derive_path(torch, rec, applied):
     require(report["failed"] == 0, f"verify_all failures "
             f"{report['failures']}")
 
-    # 5. K1's int8 form
+    # 5. K1's int8 form, then K9's integer accumulator
     count(_int8_rows(torch, rec, E, ops, ref))
+    count(_int32_k9_rows(torch, rec, E, ops))
     print(f"[derive_path] phase wall {time.perf_counter() - phase_t0:.1f} s",
           flush=True)
     return launches
@@ -6970,6 +7130,82 @@ def phase_dist_path(torch, card, device="cuda", full_name="full",
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# dryrun_path: the dry-run's counterpart and the launch-plan sweep, in this
+# process (no JAX on the card's machine)
+# ---------------------------------------------------------------------------
+
+#: what [train] built on the card: the per-leaf bytes of its TrainState's
+#: parameters, f32 masters, m and v, and the config it trained
+TRAIN_STATE: dict = {}
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun_smoke")
+
+
+def _tree_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_dryrun_path(torch):
+    """``python -m repro_torch.launch.dryrun --all --mesh both`` and
+    ``python -m repro_torch.analysis.conformance_all --hardware h100``,
+    each through its ``main`` in this process: 80 records (66 OK, 14
+    SKIP, none FAIL) and no failure, with no JAX module imported; then
+    the dry-run's per-rank state bytes for gemma-2b on a (1, 1) mesh held
+    equal to the bytes of the TrainState ``[train]`` built on the card.
+    Launches nothing on the card."""
+    import shutil
+
+    from repro_torch.analysis import conformance_all
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    rc = dryrun.main(["--all", "--mesh", "both", "--out", DRYRUN_DIR])
+    recs = [json.load(open(os.path.join(DRYRUN_DIR, f)))
+            for f in sorted(os.listdir(DRYRUN_DIR))]
+    status = [r["status"] for r in recs]
+    dry_s = time.perf_counter() - t0
+    print(f"[dryrun_path] dryrun --all --mesh both: rc {rc}, {len(recs)} "
+          f"records, {status.count('OK')} OK, {status.count('SKIP')} SKIP, "
+          f"{status.count('FAIL')} FAIL in {dry_s:.2f} s", flush=True)
+    require(rc == 0 and len(recs) == 80 and status.count("OK") == 66
+            and status.count("SKIP") == 14, "the dry-run's records")
+    t1 = time.perf_counter()
+    report = conformance_all.run_sweep(hardware="h100")
+    print(f"[dryrun_path] conformance_all --hardware h100: "
+          f"{report['checked']} checked, {report['refused']} refused, "
+          f"{report['not_planned']} not planned, {report['failed']} failed "
+          f"in {time.perf_counter() - t1:.2f} s", flush=True)
+    require(report["failed"] == 0, f"conformance failures "
+            f"{report['failures']}")
+    jax_mods = sorted(m for m in sys.modules if m == "jax"
+                      or m.startswith("jax.") or m == "repro"
+                      or m.startswith("repro."))
+    require(not jax_mods, f"JAX or the JAX package imported: {jax_mods}")
+    cfg, built = TRAIN_STATE["cfg"], TRAIN_STATE["bytes"]
+    model = dryrun.state_bytes(cfg, dryrun.SizedMesh({"data": 1,
+                                                      "model": 1}))
+    print(f"[dryrun_path] gemma-2b ({cfg.n_layers} layers) state bytes on a "
+          f"(1, 1) mesh: dry-run {model}, [train]'s TrainState on the card "
+          f"{built}", flush=True)
+    require(model == built, "the dry-run's state bytes differ from the "
+            "TrainState's")
+    for r in recs:
+        if r["arch"] == "gemma-2b" and r["status"] == "OK":
+            pr = r["per_rank_bytes"]
+            print(f"[dryrun_path] {r['arch']} {r['shape']} {r['mesh']}: "
+                  f"{r['n_chips']} chips, per rank params "
+                  f"{pr['params'] / 2**20:.1f} MiB, state "
+                  f"{sum(pr.get(k, 0) for k in ('master', 'm', 'v')) / 2**20:.1f}"
+                  f" MiB, activations {pr['activations'] / 2**30:.2f} GiB, "
+                  f"cache {pr['cache'] / 2**30:.2f} GiB, collectives "
+                  f"{ {k: round(v / 2**30, 2) for k, v in r['collectives_bytes'].items()} }"
+                  f" GiB, dominant {r['roofline']['dominant']}", flush=True)
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    print(f"[dryrun_path] phase wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return _zero_launches()
+
+
 def profile_step(torch, step, n: int = 3, what: str = "decode",
                  detail: bool = True) -> tuple[float, float]:
     """Device time by kernel over ``n`` steps (torch.profiler); the
@@ -7039,7 +7275,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     hybrid_train = phase_hybrid_train(torch)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     moa, applied = phase_moa_path(torch, rec)
+    print(f"[moa_path] phase wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
     torch.cuda.empty_cache()
     derive = phase_derive_path(torch, rec, applied)
     del applied
@@ -7065,6 +7304,7 @@ def main() -> None:
     encdec_train = phase_encdec_train(torch, smi_line)
     torch.cuda.empty_cache()
     dist_launches, _ = phase_dist_path(torch, smi_line)
+    dryrun_launches = phase_dryrun_path(torch)
 
     from repro_torch.kernels import ops
     src = "src/repro_torch/kernels/csrc/"
@@ -7109,7 +7349,8 @@ def main() -> None:
             "llama4_path": llama4_serve, "mla_path": mla_serve,
             "mla_train": mla_train, "vlm_path": vlm_serve,
             "vlm_train": vlm_train, "encdec_path": encdec_serve,
-            "encdec_train": encdec_train, "dist_path": dist_launches}
+            "encdec_train": encdec_train, "dist_path": dist_launches,
+            "dryrun_path": dryrun_launches}
     kernels = []
     for kid, (name, source, replaces, shape) in head.items():
         # launches: the path runs', each counted from 0

@@ -17,8 +17,9 @@ with typed ``Finding``s in five rule classes:
   are the normal form's, TILE's and REDUCE's splits (``emit.tile_splits``,
   ``reduce_splits``) cover the contracted axis with no empty split and no
   16-deep TILE slab staged by two splits, a path that folds no splits has
-  none, MAP folds nothing, and a chain's two stages meet through a scratch
-  of the first stage's extent; K1's own split of k (``ops.fma_splits``,
+  none, MAP folds nothing, a chain's two stages meet through a scratch
+  of the first stage's extent, and a factored nest's two stages fold the
+  contracted volume between them; K1's own split of k (``ops.fma_splits``,
   ``gemv_splits``) covers its k units once;
 * ``bounds`` -- every operand's strides times (extent - 1) plus its base
   stays inside its storage buffer (a psi slab's base inside its pool, the
@@ -27,8 +28,9 @@ with typed ``Finding``s in five rule classes:
 * ``pad-value`` -- where the bundle pads, the masking value is the
   bundle's inert element (``bundle_pad_value``);
 * ``acc-dtype`` -- the route's accumulator is the bundle's ``acc_dtype``:
-  K9 accumulates in f32 only, K1 in f32, or exactly in int32 on its int8
-  form;
+  K9 accumulates in f32, or exactly in int32 on int8 operands under
+  (mul, add) (its integer accumulator, ``emit.k9_acc``); K1 in f32, or
+  exactly in int32 on its int8 form;
 * ``route`` -- a K1 plan's transposes and batching are ``ops._k1_form`` of
   the normal form, and the form's route rule gives K1 that route; a K9
   TILE plan's M- and N-side operands are the nest's.
@@ -48,9 +50,6 @@ from repro_torch.core import schedule as sched_mod
 from repro_torch.core import semiring
 from repro_torch.hardware import H100
 from repro_torch.kernels import emit, ops
-
-#: K9's accumulator (every path folds in f32)
-K9_ACC = "float32"
 
 
 def _prod(xs) -> int:
@@ -133,6 +132,25 @@ def _launch_findings(launch, subject, out_ext, red_volume, sizes):
             "coverage", "error", subject,
             f"{len(launch.operands)} operands for {len(sizes)} leaves"))
     mode = launch.mode
+    if mode == emit.FACTOR:
+        first, second = launch.stages
+        if launch.tmp_elems < _prod(first.out_ext):
+            out.append(Finding(
+                "bounds", "error", subject,
+                f"the scratch holds {launch.tmp_elems} elements, the first "
+                f"stage writes {_prod(first.out_ext)}"))
+        folded = _prod(first.red_ext)
+        if red_volume % folded:
+            out.append(Finding(
+                "coverage", "error", subject,
+                f"the first stage folds {folded} contracted elements, which "
+                f"do not divide the normal form's {red_volume}"))
+        out += _launch_findings(first, subject + " (stage 1)",
+                                first.out_ext, folded, sizes[:emit.MAX_IN])
+        out += _launch_findings(second, subject + " (stage 2)", out_ext,
+                                red_volume // folded, (launch.tmp_elems,)
+                                + tuple(sizes[emit.MAX_IN:]))
+        return out
     if mode == emit.CHAIN:
         first, second = launch.stages
         t_elems = _prod(first.out_ext)
@@ -262,10 +280,17 @@ def plan_findings(plan, bundle, nf, dtypes,
         out += _k1_findings(plan, nf, dtypes, subject)
         return tuple(out)
     launch = plan[1]
-    if acc != K9_ACC:
+    try:
+        route_acc = str(emit.k9_acc(dtypes, launch.combine,
+                                    launch.reduce_op)).removeprefix("torch.")
+    except TypeError as exc:
+        route_acc = f"none ({exc})"
+    if acc != route_acc:
         out.append(Finding(
             "acc-dtype", "error", subject,
-            f"K9 accumulates in {K9_ACC} only; the bundle asks for {acc}"))
+            f"K9 accumulates {tuple(dtypes)} under ({launch.combine}, "
+            f"{launch.reduce_op}) in {route_acc}; the bundle asks for "
+            f"{acc}"))
     try:
         if bundle is None:
             pad, padded = semiring.pad_value(nf.combine, nf.reduce_op), True
@@ -283,7 +308,8 @@ def plan_findings(plan, bundle, nf, dtypes,
             f"{pad!r}"))
     ext = nf.extent_map
     sizes = tuple(_prod(s) for s in nf.leaf_storage_shapes())
-    out += _launch_findings(launch, subject, nf.out_shape(),
+    # the nest's out extents, composing axes merged as K9 reads them
+    out += _launch_findings(launch, subject, emit._nest(nf)[1],
                             _prod(ext[a] for a in nf.reduce_axes), sizes)
     return tuple(out)
 

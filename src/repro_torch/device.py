@@ -21,3 +21,12 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def cache_device(device=None) -> torch.device:
+    """:func:`resolve_device` for a decode cache's constructor, which also
+    takes ``"meta"``: the cache's shapes and dtypes without an allocation
+    (``models.registry.input_specs``, the dry-run's stand-ins)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)

@@ -139,20 +139,29 @@ class DistributedPlan:
     def ici_bytes_per_device(self, dtype="float32", acc_bytes: int = 4) -> int:
         """Interconnect bytes per device for the derived collective schedule
         (ring algorithms; partial sums travel at accumulator width)."""
+        return int(sum(self.ici_bytes_by_kind(dtype, acc_bytes).values()))
+
+    def ici_bytes_by_kind(self, dtype="float32",
+                          acc_bytes: int = 4) -> dict[str, float]:
+        """:meth:`ici_bytes_per_device` by collective kind (``"psum"``,
+        ``"reduce_scatter"``, ``"all_gather"``)."""
         esize = _dtype_size(dtype)
         out_elems = pi(self.out_shape)
-        total = 0.0
+        out: dict[str, float] = {}
         for step in self.collectives:
             p = self.mesh.axis_size(step.mesh_axis)
             if p <= 1:
                 continue
             if step.kind == "psum":                   # ring all-reduce
-                total += 2.0 * (p - 1) / p * out_elems * acc_bytes
+                b = 2.0 * (p - 1) / p * out_elems * acc_bytes
             elif step.kind == "reduce_scatter":
-                total += (p - 1) / p * out_elems * acc_bytes
+                b = (p - 1) / p * out_elems * acc_bytes
             elif step.kind == "all_gather":
-                total += (p - 1) / p * out_elems * esize
-        return int(total)
+                b = (p - 1) / p * out_elems * esize
+            else:
+                continue
+            out[step.kind] = out.get(step.kind, 0.0) + b
+        return out
 
 
 # ---------------------------------------------------------------------------

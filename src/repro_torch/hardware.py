@@ -141,4 +141,5 @@ H100 = HardwareShape(
 #: peak rates of one H100 SXM at its 700 W limit (data sheet, dense; f32
 #: outside the tensor cores): with ``H100.hbm.bandwidth_Bps``, the
 #: denominators of the roofline bounds ``chip_smoke.py`` reports
-H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+H100_PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
+                   "int8": 1979e12}

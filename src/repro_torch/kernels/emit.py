@@ -19,12 +19,19 @@ where its schedule needs padding.
 
 Every launch decision is made here, on the host, where the CPU tests can
 hold it: the merge of contracted axes that one flattened index walks
-(``merge_contracted``), the path (``_mode``: TILE, MAP, REDUCE, CHAIN or
-THREAD, and THREAD's warp or thread form), TILE's
+(``merge_contracted``) and, past K9's ``MAX_OUT`` out axes, of out axes
+that compose (``merge_out``), the path (``_mode``: TILE, MAP, REDUCE,
+CHAIN or THREAD, and THREAD's warp or thread form), TILE's
 K split and REDUCE's variant and split (shapes only, in ``describe``),
 and each operand's orientation and copy width (``vector_ok``, at the
 launch's pointers, in ``Launch.c_descs``).  A chain becomes two TILE
-stages whose operands are the chain's leaves and the f32 scratch T.
+stages whose operands are the chain's leaves and the scratch T; a nest
+of more than ``MAX_IN`` operands two stages too (FACTOR: the first
+``MAX_IN`` paired into T, contracting the axes no later operand reads
+where the combine distributes over the reduce, then T and the rest).
+int8 operands under (mul, add) take K9's integer accumulator (int32 sums,
+an int32 scratch): :func:`k9_acc` is the rule, which ``c_struct``,
+``ops.semiring_contract`` and the conformance check all read.
 
 ``run_descriptor`` is a plain PyTorch executor of a descriptor through
 ``torch.as_strided``: it reads exactly the strides, base offsets and
@@ -37,6 +44,7 @@ the plan's collectives (``distributed.comm``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from dataclasses import dataclass, field
 from typing import Optional
@@ -47,13 +55,24 @@ from repro_torch.core import expr as E
 from repro_torch.core import schedule as sched_mod
 from repro_torch.core import semiring
 
-#: K9's limits: out axes, contracted axes, operands
-MAX_OUT, MAX_RED, MAX_IN = 4, 3, 3
+#: K9's limits: out axes, contracted axes, operands of a descriptor
+MAX_OUT, MAX_RED, MAX_IN = 8, 6, 4
+#: the input buffers one call binds (a factored nest's), and the ``src``
+#: code of the call's scratch
+MAX_BUFS = 2 * MAX_IN - 1
+SRC_TMP = MAX_BUFS
 #: K9's op codes (csrc/semiring.cu)
 COMBINE_CODE = {"mul": 0, "add": 1}
 REDUCE_CODE = {"add": 0, "max": 1, "min": 2}
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+              torch.int8: 3, torch.int32: 4}
+ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2,
+              torch.int8: 1, torch.int32: 4}
+#: operand and output dtypes of the f32 accumulator, and of the integer
+#: one ((mul, add) on int8; int32 is the scratch's)
+FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+INT_DTYPES = (torch.int8, torch.int32)
+INT_OUT_DTYPES = (torch.int32, torch.float32)
 #: K9's paths (``Launch.mode``, chosen by :func:`_mode`):
 #: TILE    two operands, one contracted axis, the M side free of the N
 #:         axis and the N side free of M: 128x128 output tiles, K staged
@@ -68,8 +87,12 @@ ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 #: MAP     no contracted axis, or only contracted extents of 1: runs of 4
 #:         outputs along the last out axis;
 #: CHAIN   three operands contracted pairwise, as two TILE stages
-#:         (``Launch.stages``) through an f32 scratch buffer.
-TILE, THREAD, REDUCE, MAP, CHAIN = 0, 1, 2, 3, 4
+#:         (``Launch.stages``) through a scratch buffer;
+#: FACTOR  more than ``MAX_IN`` operands: a first stage pairs the first
+#:         ``MAX_IN`` into the scratch, folding the contracted axes that no
+#:         later operand reads (where the combine distributes over the
+#:         reduce), a second stage takes it and the rest.
+TILE, THREAD, REDUCE, MAP, CHAIN, FACTOR = 0, 1, 2, 3, 4, 5
 #: TILE's output tile (rows and columns) and slab depth
 TILE_M, TILE_K = 128, 16
 #: a REDUCE column strip (32 lanes of 4) and the warps of a block
@@ -87,21 +110,48 @@ GRID_YZ = 65535
 #: (combine, reduce) pairs whose chains contract pairwise: the combine
 #: distributes over the reduce
 CHAIN_PAIRS = {("mul", "add"), ("add", "max"), ("add", "min")}
+#: the share of the card's memory that one call's scratch (a staged
+#: launch's T and a split's partials) may take; past it the launch raises
+SCRATCH_SHARE = 0.5
+
+
+def k9_acc(dtypes, combine: str, reduce_op: str) -> torch.dtype:
+    """K9's accumulator for operands of ``dtypes`` (torch dtypes or their
+    names) under the semiring: int32 where the operands are integers
+    (``INT_DTYPES``: int8, or a stage's int32 scratch), which (mul, add)
+    alone takes, else float32.  Raises ``TypeError`` for a mix of integer
+    and float operands, integers under another semiring, or a dtype K9
+    does not load."""
+    dts = tuple(getattr(torch, d) if isinstance(d, str) else d
+                for d in dtypes)
+    if any(dt in INT_DTYPES for dt in dts):
+        if (combine, reduce_op) != ("mul", "add") or \
+                not all(dt in INT_DTYPES for dt in dts):
+            raise TypeError(
+                f"K9's integer accumulator takes (mul, add) on int8 "
+                f"operands, got ({combine}, {reduce_op}) on {dts}")
+        return torch.int32
+    if not all(dt in FLOAT_DTYPES for dt in dts):
+        raise TypeError(f"K9 takes float32, bfloat16 or float16 operands "
+                        f"(int8 under int32), got {dts}")
+    return torch.float32
 
 
 class K9Desc(ctypes.Structure):
     """The fixed-size descriptor ``csrc/semiring.cu`` takes by value (its
-    ``Desc``, field for field): out axes right-aligned into 4 slots and
-    contracted axes into 3 (extent 1, stride 0 before them, so the last
-    contracted axis is the kernel's innermost loop); per operand a stride
-    per slot (out slots 0-3, contracted 4-6) and a base offset, all int64
-    elements; then what the host decided for the launch: the contracted
-    elements of a split and the number of splits, per operand whether
-    TILE reads it along K (``k_fast``) and whether it is read by vectors
+    ``Desc``, field for field): out axes right-aligned into ``MAX_OUT``
+    slots and contracted axes into ``MAX_RED`` (extent 1, stride 0 before
+    them, so the last contracted axis is the kernel's innermost loop); per
+    operand a stride per slot (out slots first, then the contracted ones)
+    and a base offset, all int64 elements; then what the host decided for
+    the launch: the contracted elements of a split and the number of
+    splits, per operand its dtype code (``DTYPE_CODE``), whether TILE
+    reads it along K (``k_fast``) and whether it is read by vectors
     (``vec``), whether the output is stored by vectors, REDUCE's variant,
-    and which buffer each operand reads (``src``: 0-2 the inputs, 3 the
-    chain's scratch) and the descriptor writes (``dst``: 0 the output, 1
-    the scratch)."""
+    which buffer each operand reads (``src``: 0 to ``MAX_BUFS - 1`` the
+    call's inputs, ``SRC_TMP`` its scratch) and the descriptor writes
+    (``dst``: 0 the output, 1 the scratch), and the accumulator (``acc``:
+    0 f32, 1 int32)."""
     _fields_ = [("out_ext", ctypes.c_longlong * MAX_OUT),
                 ("red_ext", ctypes.c_longlong * MAX_RED),
                 ("stride", (ctypes.c_longlong * (MAX_OUT + MAX_RED)) * MAX_IN),
@@ -121,7 +171,8 @@ class K9Desc(ctypes.Structure):
                 ("splits", ctypes.c_int),
                 ("rows", ctypes.c_int),
                 ("vec_out", ctypes.c_int),
-                ("dst", ctypes.c_int)]
+                ("dst", ctypes.c_int),
+                ("acc", ctypes.c_int)]
 
 
 @dataclass(frozen=True)
@@ -218,7 +269,10 @@ class Launch:
     splits: int = 1              # TILE / REDUCE columns: blocks along K
     k_split: int = 0             # contracted elements a split
     rows: bool = False           # REDUCE / THREAD: a warp per output
-    stages: tuple["Launch", ...] = ()   # CHAIN: T = op0 (x) op1, T (x) op2
+    # CHAIN: T = op0 (x) op1, T (x) op2; FACTOR: T = op0 (x) .. (x) op3,
+    # T (x) op4 (x) ..
+    stages: tuple["Launch", ...] = ()
+    srcs: tuple[int, ...] = ()   # a stage's buffers (``K9Desc.src``)
     _descs: dict = field(default_factory=dict, compare=False, hash=False,
                          repr=False)
 
@@ -228,8 +282,15 @@ class Launch:
         return _row_major(self.out_ext)
 
     @property
+    def out_shape(self) -> tuple[int, ...]:
+        """The logical output's shape (``out_ext`` may have merged axes)."""
+        return tuple(self.nf.out_shape()) if self.nf is not None else \
+            tuple(self.out_ext)
+
+    @property
     def tmp_elems(self) -> int:
-        """f32 elements of the chain's scratch buffer T (0: none)."""
+        """Elements (4 bytes each) of the scratch buffer T that the first
+        stage writes (0: none)."""
         return _prod(self.stages[0].out_ext) if self.stages else 0
 
     @property
@@ -270,17 +331,22 @@ class Launch:
 
     def c_struct(self, in_dtypes, out_dtype, ptrs) -> K9Desc:
         """Pack for the kernel; raises for what K9 cannot take.  ``ptrs``
-        are the operands' data pointers, which the vector rule reads."""
+        are the operands' data pointers, which the vector rule reads.
+        The accumulator is :func:`k9_acc`'s; the integer one writes int32
+        or f32, the f32 one f32, bf16 or f16."""
         nout, nred, nin = (len(self.out_ext), len(self.red_ext),
                            len(self.operands))
         if nout > MAX_OUT or nred > MAX_RED or not 1 <= nin <= MAX_IN:
+            name = self.nf.name if self.nf is not None else "a stage"
             raise ValueError(
                 f"K9 takes at most {MAX_OUT} out axes, {MAX_RED} contracted "
-                f"axes and 1-{MAX_IN} operands; got {nout}, {nred}, {nin}")
-        for dt in tuple(in_dtypes) + (out_dtype,):
-            if dt not in DTYPE_CODE:
-                raise TypeError(f"K9 takes float32 or bfloat16 operands and "
-                                f"output, got {dt}")
+                f"axes and 1-{MAX_IN} operands (2 * {MAX_IN} - 1 in two "
+                f"stages); {name!r} has {nout}, {nred}, {nin} after merging")
+        in_dtypes = tuple(in_dtypes)
+        acc = k9_acc(in_dtypes, self.combine, self.reduce_op) == torch.int32
+        if out_dtype not in (INT_OUT_DTYPES if acc else FLOAT_DTYPES):
+            raise TypeError(f"K9's {'int32' if acc else 'float32'} "
+                            f"accumulator does not write {out_dtype}")
         ptrs = tuple(ptrs)
         d = K9Desc()
         lead, rlead = MAX_OUT - nout, MAX_RED - nred
@@ -308,15 +374,16 @@ class Launch:
         d.rows = int(self.rows)
         d.vec_out = int(bool(self.out_ext) and self.out_ext[-1] % RUN == 0)
         d.dst = 0
+        d.acc = int(acc)
         return d
 
     def c_descs(self, in_dtypes, out_dtype, ptrs, tmp_ptr: int = 0):
         """The descriptors one ``repro_semiring`` call runs, in order: this
-        launch's own, or a chain's two stages (T = op0 (x) op1 into the f32
-        scratch at ``tmp_ptr``, 0 for a launch with none, then T (x) op2
-        into the output).  ``ptrs``: the operands' data pointers.  Memoised
-        by dtypes and the pointers' alignment (all the vector rule reads
-        of them)."""
+        launch's own, or its two stages (the first writes the scratch T at
+        ``tmp_ptr``, 0 for a launch with none: f32, or int32 under the
+        integer accumulator; the second reads T and writes the output).
+        ``ptrs``: the operands' data pointers.  Memoised by dtypes and the
+        pointers' alignment (all the vector rule reads of them)."""
         ptrs = tuple(ptrs)
         key = (tuple(in_dtypes), out_dtype, tuple(p % 16 for p in ptrs),
                tmp_ptr % 16)
@@ -329,13 +396,22 @@ class Launch:
     def _build_descs(self, in_dtypes, out_dtype, ptrs, tmp_ptr):
         if not self.stages:
             return (K9Desc * 1)(self.c_struct(in_dtypes, out_dtype, ptrs))
-        first, second = self.stages
-        d1 = first.c_struct(in_dtypes[:2], torch.float32, ptrs[:2])
-        d2 = second.c_struct((torch.float32, in_dtypes[2]), out_dtype,
-                             (tmp_ptr, ptrs[2]))
-        d1.dst = 1
-        d2.src[0], d2.src[1] = 3, 2
-        return (K9Desc * 2)(d1, d2)
+        if len(in_dtypes) > MAX_BUFS:
+            raise ValueError(f"K9 binds at most {MAX_BUFS} operands in a "
+                             f"call; {self.nf.name!r} has {len(in_dtypes)}")
+        tmp_dt = k9_acc(in_dtypes, self.combine, self.reduce_op)
+        bufs = list(zip(in_dtypes, ptrs))
+        descs = []
+        for n, stage in enumerate(self.stages):
+            last = n == len(self.stages) - 1
+            dts, ps = zip(*((tmp_dt, tmp_ptr) if s == SRC_TMP else bufs[s]
+                            for s in stage.srcs))
+            d = stage.c_struct(dts, out_dtype if last else tmp_dt, ps)
+            for i, s in enumerate(stage.srcs):
+                d.src[i] = s
+            d.dst = 0 if last else 1
+            descs.append(d)
+        return (K9Desc * len(descs))(*descs)
 
 
 def _tile_roles(out_ext, red_ext, operands) -> Optional[tuple[int, int]]:
@@ -404,18 +480,20 @@ def _chain_stages(out_ext, red_ext, operands, combine, reduce_op, pad):
     if r1 is None or r2 is None:
         return None
     s1 = _tile_launch(s1_out, t_ext, ("j",), (red_ext[j - nout],), s1_ops,
-                      combine, reduce_op, pad, r1)
+                      combine, reduce_op, pad, r1, srcs=(0, 1))
     s2 = _tile_launch(tuple(f"o{i}" for i in range(nout)), out_ext, ("k",),
-                      (kx,), s2_ops, combine, reduce_op, pad, r2)
+                      (kx,), s2_ops, combine, reduce_op, pad, r2,
+                      srcs=(SRC_TMP, 2))
     return s1, s2
 
 
 def _tile_launch(out_axes, out_ext, red_axes, red_ext, operands, combine,
-                 reduce_op, pad, roles, nf=None) -> Launch:
+                 reduce_op, pad, roles, nf=None, srcs=()) -> Launch:
     splits, k_split = tile_splits(_prod(out_ext[:-2]), out_ext[-2],
                                   out_ext[-1], red_ext[0])
     return Launch(nf, out_axes, out_ext, red_axes, red_ext, operands,
-                  combine, reduce_op, pad, TILE, roles, splits, k_split)
+                  combine, reduce_op, pad, TILE, roles, splits, k_split,
+                  srcs=srcs)
 
 
 def merge_contracted(red_axes, red_ext, operands, nout: int):
@@ -444,19 +522,47 @@ def merge_contracted(red_axes, red_ext, operands, nout: int):
         for o, st in zip(operands, strides))
 
 
+def merge_out(out_axes, out_ext, operands):
+    """Merge adjacent out axes whose strides chain in every operand (the
+    outer's stride is the inner's extent times the inner's, 0 included;
+    the row-major output always chains) into one axis, as
+    :func:`merge_contracted` does for contracted axes.  Returns
+    ``(out_axes, out_ext, operands)`` with each operand's contracted
+    strides kept after its out strides."""
+    axes, ext = list(out_axes), list(out_ext)
+    strides = [list(o.strides) for o in operands]
+    r = len(ext) - 1
+    while r > 0:
+        if all(st[r - 1] == ext[r] * st[r] for st in strides):
+            axes[r - 1:r + 1] = [f"{axes[r - 1]}*{axes[r]}"]
+            ext[r - 1:r + 1] = [ext[r - 1] * ext[r]]
+            for st in strides:
+                del st[r - 1]
+        r -= 1
+    if len(ext) == len(out_ext):
+        return tuple(out_axes), tuple(out_ext), tuple(operands)
+    return tuple(axes), tuple(ext), tuple(
+        Operand(o.array, o.storage_shape, tuple(st), o.base)
+        for o, st in zip(operands, strides))
+
+
 def _mode(out_ext, red_ext, operands, combine: str = "mul",
-          reduce_op: str = "add") -> tuple[int, tuple[int, int]]:
-    """Which of K9's paths takes this nest (see ``TILE`` ... ``CHAIN``),
-    and for TILE which operand feeds the M side: MAP where every
-    contracted extent is 1, then TILE, CHAIN, REDUCE (one contracted
-    axis), THREAD for the rest."""
+          reduce_op: str = "add",
+          chain: bool = True) -> tuple[int, tuple[int, int]]:
+    """Which of K9's paths takes this nest (see ``TILE`` ... ``FACTOR``),
+    and for TILE which operand feeds the M side: FACTOR past ``MAX_IN``
+    operands, MAP where every contracted extent is 1, then TILE, CHAIN
+    (where ``chain``), REDUCE (one contracted axis), THREAD for the
+    rest."""
+    if len(operands) > MAX_IN:
+        return FACTOR, (0, 1)
     if all(e == 1 for e in red_ext):
         return MAP, (0, 1)
     roles = _tile_roles(out_ext, red_ext, operands)
     if roles is not None:
         return TILE, roles
-    if _chain_stages(out_ext, red_ext, operands, combine, reduce_op,
-                     0.0) is not None:
+    if chain and _chain_stages(out_ext, red_ext, operands, combine,
+                               reduce_op, 0.0) is not None:
         return CHAIN, (0, 1)
     if len(red_ext) == 1 and _prod(out_ext[:-1]) <= GRID_YZ:
         return REDUCE, (0, 1)
@@ -485,19 +591,24 @@ def _operands(nf: "E.NormalForm") -> tuple[Operand, ...]:
 
 
 def _nest(nf: "E.NormalForm"):
-    """``(out_ext, red_axes, red_ext, operands)`` of a normal form, its
-    chaining contracted axes merged (:func:`merge_contracted`)."""
+    """``(out_axes, out_ext, red_axes, red_ext, operands)`` of a normal
+    form, its chaining contracted axes merged (:func:`merge_contracted`)
+    and, where it has more than ``MAX_OUT`` out axes, its composing out
+    axes (:func:`merge_out`)."""
     ext = nf.extent_map
-    out_ext = tuple(ext[a] for a in nf.out_axes)
+    out_axes = tuple(nf.out_axes)
+    out_ext = tuple(ext[a] for a in out_axes)
     red_axes, red_ext, operands = merge_contracted(
         tuple(nf.reduce_axes), tuple(ext[a] for a in nf.reduce_axes),
         _operands(nf), len(out_ext))
-    return out_ext, red_axes, red_ext, operands
+    if len(out_ext) > MAX_OUT:
+        out_axes, out_ext, operands = merge_out(out_axes, out_ext, operands)
+    return out_axes, out_ext, red_axes, red_ext, operands
 
 
 def is_chain(nf: "E.NormalForm") -> bool:
     """Whether K9 contracts this normal form pairwise (CHAIN)."""
-    out_ext, _, red_ext, operands = _nest(nf)
+    _, out_ext, _, red_ext, operands = _nest(nf)
     return _mode(out_ext, red_ext, operands, nf.combine,
                  nf.reduce_op)[0] == CHAIN
 
@@ -511,15 +622,95 @@ def describe(bundle: Optional["sched_mod.ScheduleBundle"],
     element."""
     pad = sched_mod.bundle_pad_value(bundle) if bundle is not None else \
         semiring.pad_value(nf.combine, nf.reduce_op)
-    out_ext, red_axes, red_ext, operands = _nest(nf)
-    mode, roles = _mode(out_ext, red_ext, operands, nf.combine, nf.reduce_op)
-    common = (nf, tuple(nf.out_axes), out_ext, red_axes, red_ext, operands,
-              nf.combine, nf.reduce_op, pad)
+    return _describe_nest(nf, *_nest(nf), nf.combine, nf.reduce_op, pad)
+
+
+def _factor_stages(out_axes, out_ext, red_axes, red_ext, operands, combine,
+                   reduce_op, pad):
+    """FACTOR's two stages, or None where the rest still has more than
+    ``MAX_IN - 1`` operands.  Stage 1 pairs the first ``MAX_IN`` operands
+    (left to right, as the nest pairs them) into T, row-major over the
+    axes they walk; where the combine distributes over the reduce
+    (``CHAIN_PAIRS``) it also folds the contracted axes that they walk
+    and no later operand does, so T keeps only what the rest needs (a
+    5-matrix chain's T is one (rows, cols) matrix, not the outer product
+    of its first four).  Stage 2 is the nest over T and the rest, its
+    contracted axes less those stage 1 folded."""
+    first, rest = operands[:MAX_IN], operands[MAX_IN:]
+    if len(rest) > MAX_IN - 1:
+        return None
+    nout = len(out_ext)
+    joint = tuple(out_axes) + tuple(red_axes)
+    ext = tuple(out_ext) + tuple(red_ext)
+    walks = lambda ops, a: any(o.strides[a] != 0 for o in ops)
+    folded = [a for a in range(nout, len(ext))
+              if (combine, reduce_op) in CHAIN_PAIRS and walks(first, a)
+              and not walks(rest, a)]
+    kept = [a for a in range(len(ext))
+            if walks(first, a) and a not in folded]
+    t_ext = tuple(ext[a] for a in kept)
+    s1_ops = tuple(Operand(o.array, o.storage_shape,
+                           tuple(o.strides[a] for a in kept + folded),
+                           o.base)
+                   for o in first)
+    s1_red, s1_red_ext, s1_ops = merge_contracted(
+        tuple(joint[a] for a in folded), tuple(ext[a] for a in folded),
+        s1_ops, len(kept))
+    t_axes = tuple(joint[a] for a in kept)
+    if len(t_ext) > MAX_OUT:
+        t_axes, t_ext, s1_ops = merge_out(t_axes, t_ext, s1_ops)
+    s1 = _describe_nest(None, t_axes, t_ext, s1_red, s1_red_ext, s1_ops,
+                        combine, reduce_op, pad, chain=False)
+    s1 = dataclasses.replace(s1, srcs=tuple(range(MAX_IN)))
+    t_shape = tuple(ext[a] for a in kept)
+    t_str = dict(zip(kept, _row_major(t_shape)))
+    left = [a for a in range(nout, len(ext)) if a not in folded]
+    t_op = Operand("T", t_shape, tuple(t_str.get(a, 0) for a in
+                                       list(range(nout)) + left), 0)
+    ops2 = (t_op,) + tuple(
+        Operand(o.array, o.storage_shape,
+                tuple(o.strides[a] for a in list(range(nout)) + left),
+                o.base) for o in rest)
+    red2, red2_ext, ops2 = merge_contracted(
+        tuple(joint[a] for a in left), tuple(ext[a] for a in left), ops2,
+        nout)
+    s2 = _describe_nest(None, out_axes, out_ext, red2, red2_ext, ops2,
+                        combine, reduce_op, pad, chain=False)
+    s2 = dataclasses.replace(s2, srcs=(SRC_TMP,) + tuple(
+        range(MAX_IN, len(operands))))
+    return s1, s2
+
+
+def check_scratch(launch: Launch, capacity: int) -> None:
+    """Raise ``ValueError`` naming the form where the call's scratch (T and
+    the split partials, 4 bytes an element) would take more than
+    ``SCRATCH_SHARE`` of ``capacity`` bytes of device memory."""
+    need = 4 * (launch.tmp_elems + launch.work_elems)
+    if need > SCRATCH_SHARE * capacity:
+        name = launch.nf.name if launch.nf is not None else "a stage"
+        raise ValueError(
+            f"K9's scratch for {name!r} would take {need} bytes, more than "
+            f"{SCRATCH_SHARE} of the card's {capacity}")
+
+
+def _describe_nest(nf, out_axes, out_ext, red_axes, red_ext, operands,
+                   combine, reduce_op, pad, chain: bool = True) -> Launch:
+    """The launch of one (merged) nest: :func:`describe`'s body, also a
+    FACTOR stage's (``chain`` False: one scratch buffer a call)."""
+    mode, roles = _mode(out_ext, red_ext, operands, combine, reduce_op,
+                        chain)
+    common = (nf, tuple(out_axes), out_ext, red_axes, red_ext, operands,
+              combine, reduce_op, pad)
+    if mode == FACTOR:
+        stages = _factor_stages(*common[1:])
+        if stages is not None:
+            return Launch(*common, FACTOR, stages=stages)
+        mode = THREAD           # wider than two stages: c_struct refuses it
     if mode == TILE:
         return _tile_launch(*common[1:], roles, nf=nf)
     if mode == CHAIN:
-        stages = _chain_stages(out_ext, red_ext, operands, nf.combine,
-                               nf.reduce_op, pad)
+        stages = _chain_stages(out_ext, red_ext, operands, combine,
+                               reduce_op, pad)
         return Launch(*common, CHAIN, stages=stages)
     if mode == REDUCE:
         rows = reduce_rows(out_ext, red_ext, operands)
@@ -537,8 +728,10 @@ def run_descriptor(launch: Launch, *arrays: torch.Tensor,
     """Execute a descriptor in plain PyTorch through ``torch.as_strided``
     views of the bound (contiguous) buffers: each operand is read at
     ``base + sum(stride * index)`` over exactly the logical (out +
-    contracted) extents, cast to f32, paired left to right with the
+    contracted) extents, cast to f32 (integer operands to f64, whose
+    sums of int8 products are exact), paired left to right with the
     combine op and folded over the contracted axes with the reduce op.
+    The result has the descriptor's (possibly merged) ``out_ext``.
     Materializes the whole nest: small shapes only."""
     if len(arrays) != len(launch.operands):
         raise ValueError(f"descriptor has {len(launch.operands)} operands, "
@@ -549,12 +742,15 @@ def run_descriptor(launch: Launch, *arrays: torch.Tensor,
         if tuple(x.shape) != opn.storage_shape or not x.is_contiguous():
             raise ValueError(f"operand {opn.array!r} expects a contiguous "
                              f"{opn.storage_shape}, got {tuple(x.shape)}")
-        views.append(torch.as_strided(x, size, opn.strides,
-                                      x.storage_offset() + opn.base).float())
+        v = torch.as_strided(x, size, opn.strides,
+                             x.storage_offset() + opn.base)
+        views.append(v.float() if x.is_floating_point() else v.double())
     v = functools.reduce(semiring.combine_def(launch.combine).torch_fn, views)
     if launch.red_ext:
         v = semiring.reduce_def(launch.reduce_op).torch_reducer(
             v, dim=tuple(range(len(launch.out_ext), len(size))))
+    if v.dtype == torch.float64:
+        v = v.to(torch.int64)
     return v.to(out_dtype or arrays[0].dtype)
 
 

@@ -99,6 +99,7 @@ import torch
 
 from repro_torch.core import expr as E
 from repro_torch.core import schedule as sched_mod
+from repro_torch.core import semiring
 from repro_torch.core.blocking import solve_recurrence_blocks
 from repro_torch.hardware import H100, HardwareShape
 from repro_torch.kernels import build, emit, ref
@@ -135,7 +136,8 @@ _SIGNATURES = {
     "repro_gated_workspace": ("gated_scan", [_C] * 4),
     "repro_gated_scan": ("gated_scan", [_P] * 6 + [ctypes.c_longlong]
                          + [_C] * 5),
-    "repro_semiring": ("semiring", [_P, _C] + [_P] * 6 + [_C] * 2),
+    "repro_semiring": ("semiring", [_P, _C, _P, _C] + [_P] * 3
+                       + [_C] * 2),
 }
 
 
@@ -276,9 +278,14 @@ def gemm_route(m: int, n: int, k: int, a_dtype, b_dtype,
       tile path;
     - ``"int8"``: int8 x int8, the int8 form (``gemm_int8``: mma.sync
       s8 x s8 into exact int32 sums, any shape and transposes); an int8
-      operand takes no other route, and no other operand this one.  Its
-      accumulator is int32: ``apply`` refuses int8 operands under any
-      other ``acc_dtype`` (``_plan``)."""
+      operand takes no other route of K1, and no other operand this one.
+      Its accumulator is int32: ``apply`` refuses int8 operands under any
+      other ``acc_dtype`` (``_plan``), and sends the int8 forms K1 does
+      not take (the head form, every K9 path) to K9's integer
+      accumulator.
+
+    float16 operands take no route of K1: ``_plan`` sends every form with
+    a float16 operand to K9, which loads them beside f32 and bf16."""
     f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
     if i8 in (a_dtype, b_dtype):
         if a_dtype != b_dtype:
@@ -948,8 +955,9 @@ def head_route(h: int, m: int, k: int, n: int, x_dtype, w_dtype,
     gives one head's product ``"gemv"`` (bf16 x bf16, ``m <=
     K1_DECODE_ROWS``, ``k % 32 == 0``, rows of a multiple of 8 elements)
     and every operand is ``aligned`` (:func:`head_aligned`); ``"K9"``
-    otherwise (its batched path on row-major copies).  Dtypes are torch
-    dtypes or their names."""
+    otherwise (its batched path on row-major copies): f32, float16 and
+    mixed operands under its f32 accumulator, int8 ones under its int32
+    accumulator (exact).  Dtypes are torch dtypes or their names."""
     names = tuple(str(t).removeprefix("torch.") for t in (x_dtype, w_dtype))
     if not (h and m and k and n) or names != ("bfloat16", "bfloat16"):
         return "K9"
@@ -1855,9 +1863,14 @@ def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
     form takes K1 where :func:`expert_route` gives it one of K1's routes
     (``aligned``: every base 16-byte aligned), a head form (``batched``
     ``"head"``) where :func:`head_route` does (``aligned``: the views'
-    strides as :func:`head_aligned` reads them), else K9.  int8 operands
-    take an int32 accumulator only (K1's int8 form sums them exactly; an
-    f32 accumulator would round past 2^24): any other raises."""
+    strides as :func:`head_aligned` reads them), else K9.  A form with a
+    float16 operand takes K9 (K1 has no float16 form; K9 loads float16
+    beside f32 and bf16 under its f32 accumulator).  An accumulator other
+    than f32 or int32 (a table's bf16) raises: no kernel has one.  int8 operands take an
+    int32 accumulator only (an f32 accumulator would round past 2^24), on
+    (mul, add) only: any other raises.  K1's int8 form sums the 2-D and
+    expert products exactly; every other int8 form (the head form, every
+    K9 path) takes K9's integer accumulator, exact too."""
     block_key = blocks.as_tuple() if hasattr(blocks, "as_tuple") else (
         tuple(blocks) if isinstance(blocks, (list, tuple)) else blocks)
     key = (nf.key(), dtypes, out_dtype, hardware.name, block_key, acc_dtype,
@@ -1869,16 +1882,28 @@ def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
             return plan
     if "int8" in dtypes and acc_dtype != "int32":
         raise ValueError(
-            f"int8 operands accumulate in int32 (K1's int8 form, exact), "
-            f"not in {acc_dtype}: pass acc_dtype='int32'")
+            f"int8 operands accumulate in int32 (exact), not in "
+            f"{acc_dtype}: pass acc_dtype='int32'")
     # K9 contracts a chain pairwise and reads no schedule blocks (the
     # derived working set models the reference's nest, which the H100's
     # 227 KB refuse for tropical chains from a few dozen elements on): a
     # chain takes the semiring's inert element for its padding
-    bundle = None if emit.is_chain(nf) else sched_mod.get_schedule(
+    chain = emit.is_chain(nf)
+    if chain:
+        # the schedule's own check of the (input, accumulator, semiring)
+        # triple, which a chain does not derive
+        for dt in set(dtypes):
+            semiring.check_accum(acc_dtype, dt, nf.combine, nf.reduce_op)
+    bundle = None if chain else sched_mod.get_schedule(
         nf, dtype=dtypes[0], hardware=hardware, blocks=blocks,
         acc_dtype=acc_dtype)
-    flags = _k1_form(nf)
+    if acc_dtype not in ("float32", "int32"):
+        # a table with a narrower accumulator (the v5e's bf16) derives it;
+        # K1 and K9 have none, and would not honour the bundle
+        raise ValueError(
+            f"K1 and K9 accumulate in float32 (int32 for int8 operands); "
+            f"a {acc_dtype} accumulation has no kernel path")
+    flags = None if "float16" in dtypes else _k1_form(nf)
     if flags is not None and flags[2] == "head":
         (m, h, k), w_shape = nf.leaf_storage_shapes()
         n = w_shape[0] if flags[1] else w_shape[2]
@@ -1912,19 +1937,28 @@ def semiring_contract(launch: "emit.Launch", *arrays: torch.Tensor,
             raise ValueError("K9 takes contiguous storage buffers")
     dev = arrays[0].device
     ptrs = [t.data_ptr() for t in arrays]
+    # the kernel writes what its accumulator stores (int32 or f32 from
+    # int32; f32, bf16 or f16 from f32), other dtypes by a cast after
+    outs = emit.INT_OUT_DTYPES if emit.k9_acc(
+        dtypes, launch.combine, launch.reduce_op) == torch.int32 \
+        else emit.FLOAT_DTYPES
+    k_dtype = out_dtype if out_dtype in outs else outs[0]
+    emit.check_scratch(launch, torch.cuda.get_device_properties(
+        dev).total_memory)
     scratch = [torch.empty(n, device=dev, dtype=torch.float32) if n else None
                for n in (launch.tmp_elems, launch.work_elems)]
-    descs = launch.c_descs(dtypes, out_dtype, ptrs, scratch[0].data_ptr()
+    descs = launch.c_descs(dtypes, k_dtype, ptrs, scratch[0].data_ptr()
                            if scratch[0] is not None else 0)
-    out = torch.empty(launch.out_ext, device=dev, dtype=out_dtype)
+    out = torch.empty(launch.out_shape, device=dev, dtype=k_dtype)
+    ins = (ctypes.c_void_p * len(ptrs))(*ptrs)
     if out.numel():
         _launch("repro_semiring", ctypes.addressof(descs), len(descs),
-                *(ptrs + [None] * (3 - len(arrays))), out.data_ptr(),
+                ctypes.addressof(ins), len(ptrs), out.data_ptr(),
                 *(None if t is None else t.data_ptr() for t in scratch),
                 emit.COMBINE_CODE[launch.combine],
                 emit.REDUCE_CODE[launch.reduce_op])
         LAUNCHES["K9"] += 1
-    return out
+    return out.to(out_dtype)
 
 
 def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
@@ -1942,9 +1976,10 @@ def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
     scheduled on ``hardware`` (cached per normal form) and run on K1 or K9
     (CUDA tensors) or their plain versions (CPU tensors); the result is in
     ``out_dtype`` (default the first array's dtype), accumulated in
-    ``acc_dtype``: f32, or int32 for int8 operands, which K1's int8 form
-    sums exactly (a 2-D product, either operand transposed, or the
-    expert form).  int32 accumulation on K1's head form or on K9 raises.
+    ``acc_dtype``: f32, or int32 for int8 operands under (mul, add),
+    summed exactly by K1's int8 form (a 2-D product, either operand
+    transposed, or the expert form) or by K9's integer accumulator (every
+    other form).  float16 operands run on K9 under the f32 accumulator.
     A strided view binds like its contiguous copy: it is copied first,
     but by K1's head form, which reads it in place.
 
@@ -2071,11 +2106,6 @@ def apply_normal_form(nf: "E.NormalForm", *arrays: torch.Tensor,
                              kernel=verify == "kernel", dtypes=dtypes,
                              aligned=aligned)
     plan = _plan(nf, dtypes, out_dtype, hardware, blocks, acc_dtype, aligned)
-    if acc_dtype == "int32" and plan[0] != "K1":
-        raise NotImplementedError(
-            "int32 accumulation runs on K1's int8 form (2-D and expert "
-            "products); on K1's head form and on K9 it is not ported yet "
-            "(ROADMAP.md, Queue 2, form 3)")
     if head:
         if plan[0] == "K1":
             return _head_product(*arrays, plan[2]).to(out_dtype)

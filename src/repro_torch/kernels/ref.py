@@ -420,7 +420,10 @@ def eval_nf(nf, *arrays: torch.Tensor, slab_elems: int = SLAB_ELEMS
 
     Leaves bind by storage shape (a col-layout leaf takes the reversed
     buffer, a constant dim is indexed out); every operand is cast to f32
-    and aligned to the (out + contracted) axes; (mul, add) is an einsum,
+    and aligned to the (out + contracted) axes; (mul, add) is an einsum
+    (on int8 operands, K9's integer accumulator's plain version: an
+    einsum in f64, exact for these sums, returned as int32 by
+    :func:`exact_int32`, which raises past int32's range),
     any other semiring pairs with its combine op and folds the contracted
     axes with its reduce op, the first contracted axis in slabs of at most
     ``slab_elems`` paired elements."""
@@ -441,14 +444,18 @@ def eval_nf(nf, *arrays: torch.Tensor, slab_elems: int = SLAB_ELEMS
         if len(set(syms)) != len(syms):
             raise NotImplementedError(
                 f"leaf {leaf.array!r} repeats an index (diagonal access)")
-        bound.append((syms, x.float()))
+        bound.append((syms, x))
     joint = tuple(nf.out_axes) + tuple(nf.reduce_axes)
     if (nf.combine, nf.reduce_op) == ("mul", "add"):
+        exact = any(x.dtype == torch.int8 for _, x in bound)
         letters = dict(zip(joint, _letters(len(joint))))
         spec = ",".join("".join(letters[s] for s in syms)
                         for syms, _ in bound)
         spec += "->" + "".join(letters[s] for s in nf.out_axes)
-        return torch.einsum(spec, *(x for _, x in bound))
+        out = torch.einsum(spec, *(x.double() if exact else x.float()
+                                   for _, x in bound))
+        return exact_int32(out) if exact else out
+    bound = [(syms, x.float()) for syms, x in bound]
     aligned = []
     for syms, x in bound:
         x = x.permute(*sorted(range(len(syms)),

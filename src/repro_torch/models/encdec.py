@@ -35,7 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.common import ArchConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import cache_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tt
@@ -197,7 +197,7 @@ def init_encdec_cache(cfg: ArchConfig, batch: int, cache_len: int,
     """The decode cache, zeros: the decoder's self-attention K/V of
     ``cache_len`` positions and the cross-attention K/V of
     ``cfg.encoder_seq`` encoder rows."""
-    device = resolve_device(device)
+    device = cache_device(device)
     hd, kv, L = cfg.head_dim_, cfg.n_kv_heads, cfg.n_layers
     mk = lambda s: attn.KV(
         torch.zeros((L, batch, s, kv, hd), dtype=dtype, device=device),

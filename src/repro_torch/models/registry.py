@@ -10,11 +10,11 @@ encoder-decoder (``encdec``: the audio family).
 
     param_axes(cfg)                         -> {group: {name: axes}}
     cache_logical_axes(cache)               -> the cache's axes, mirrored
+    input_specs(cfg, shape)                 -> a cell's inputs, on "meta"
 
 A batch is ``{"tokens", "targets"}`` (``targets`` for the loss), with the
 vlm family's ``patches (B, P, d)`` or the audio family's ``frames (B,
-encoder_seq, d)``.  The reference's ``input_specs`` (the dry-run's
-stand-ins) is not ported (ROADMAP.md, Queue 1).
+encoder_seq, d)``.
 """
 from __future__ import annotations
 
@@ -103,3 +103,33 @@ def cache_logical_axes(cache):
             return type(node)(walk(v, name) for v in node)
         return None
     return walk(cache)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape) -> dict:
+    """Model inputs for one (arch x shape) cell as ``device="meta"``
+    tensors (shapes and dtypes; no allocation, no draw from a generator),
+    as the reference's ``input_specs`` gives ``ShapeDtypeStruct``s.
+
+    train / prefill: the token batch (+ the vlm family's patch and the
+    audio family's frame embeddings; the patches are part of the sequence
+    budget, so the text is ``seq_len - num_patches``); decode: one new
+    token a row, its position and the whole decode cache of ``seq_len``
+    (:func:`init_cache` on "meta")."""
+    b, s = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind in ("train", "prefill"):
+        text = s - cfg.num_patches if cfg.family == "vlm" else s
+        batch = {"tokens": _meta((b, text), i32)}
+        if shape.kind == "train":
+            batch["targets"] = _meta((b, text), i32)
+        if cfg.family == "vlm":
+            batch["patches"] = _meta((b, cfg.num_patches, cfg.d_model), bf16)
+        if cfg.family == "audio":
+            batch["frames"] = _meta((b, cfg.encoder_seq, cfg.d_model), bf16)
+        return {"batch": batch}
+    return {"tokens": _meta((b,), i32), "pos": _meta((b,), i32),
+            "cache": init_cache(cfg, b, s, device="meta")}

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.common import ArchConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import cache_device
 from repro_torch.kernels import ops
 from repro_torch.models.ssm import _causal_conv
 
@@ -64,7 +64,7 @@ class RGLRUCache(NamedTuple):
 def init_rglru_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16,
                      device="cuda") -> RGLRUCache:
     """A zero cache on the card (``device="cpu"`` asks for the host)."""
-    device = resolve_device(device)
+    device = cache_device(device)
     w = lru_width(cfg)
     return RGLRUCache(
         h=torch.zeros((batch, w), dtype=torch.float32, device=device),

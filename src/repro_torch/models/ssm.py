@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.common import ArchConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import cache_device
 from repro_torch.kernels import ops
 
 
@@ -59,7 +59,7 @@ class SSMCache(NamedTuple):
 def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16,
                    device="cuda") -> SSMCache:
     """A zero cache on the card (``device="cpu"`` asks for the host)."""
-    device = resolve_device(device)
+    device = cache_device(device)
     h, p, n = n_ssd_heads(cfg), cfg.ssm_head_dim, cfg.ssm_state
     return SSMCache(
         conv=torch.zeros((batch, cfg.conv_width - 1, conv_dim(cfg)),

@@ -54,7 +54,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.common import ArchConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import cache_device, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, rglru, ssm
@@ -648,14 +648,14 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
     def kv(*lead: int, length: int = cache_len) -> attn.KV:
         t = torch.zeros((*lead, batch, length, cfg.n_kv_heads,
                          cfg.head_dim_), dtype=dtype,
-                        device=resolve_device(device))
+                        device=cache_device(device))
         return attn.KV(t, t.clone())
 
     if cfg.family in ("dense", "vlm") and cfg.attention == "mla":
         _, kvr, _, rope, _ = attn.MLA_DIMS
         zeros = lambda n: torch.zeros((cfg.n_layers, batch, cache_len, n),
                                       dtype=dtype,
-                                      device=resolve_device(device))
+                                      device=cache_device(device))
         return {"layers": attn.MLACache(zeros(kvr), zeros(rope))}
     if cfg.family in ("dense", "vlm"):
         return {"layers": kv(cfg.n_layers)}

@@ -446,8 +446,9 @@ def test_int8_operands_refuse_other_accumulators(acc, verify):
 
 
 def test_int32_expert_form_and_refused_forms():
-    """The expert form's int32 accumulation equals the reference's; the
-    head form and K9 forms refuse int32 (Queue 2, form 3); bf16
+    """The expert form's int32 accumulation equals the reference's; so do
+    the head form's and a K9 form's (both layouts of the head form and a
+    batched product on K9's integer accumulator), bit for bit; bf16
     accumulation raises the reference's own table error on the H100."""
     rng = np.random.default_rng(9)
     x = rng.integers(-128, 128, (3, 20, 33)).astype(np.int8)
@@ -459,11 +460,21 @@ def test_int32_expert_form_and_refused_forms():
                     torch.from_numpy(w), acc_dtype="int32",
                     out_dtype=torch.int32)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    hx = torch.from_numpy(rng.integers(-9, 9, (4, 2, 32)).astype(np.int8))
-    hw_ = torch.from_numpy(rng.integers(-9, 9, (32, 2, 16)).astype(np.int8))
-    with pytest.raises(NotImplementedError, match="Queue 2, form 3"):
-        ops.apply(PE.head_gemm_expr(2, 4, 32, 16), hx, hw_,
-                  acc_dtype="int32", out_dtype=torch.int32)
+    hx = rng.integers(-128, 128, (4, 2, 32)).astype(np.int8)
+    for tb, shape in ((False, (32, 2, 16)), (True, (16, 2, 32))):
+        hw_ = rng.integers(-128, 128, shape).astype(np.int8)
+        want = jops.apply(JE.head_gemm_expr(2, 4, 32, 16, transpose_b=tb),
+                          jnp.asarray(hx), jnp.asarray(hw_),
+                          acc_dtype="int32", out_dtype=jnp.int32,
+                          interpret=True)
+        expr = PE.head_gemm_expr(2, 4, 32, 16, transpose_b=tb)
+        nf = PE.normal_form(expr)
+        assert ops._plan(nf, ("int8", "int8"), torch.int32, H100, None,
+                         "int32")[0] == "K9"
+        got = ops.apply(expr, torch.from_numpy(hx), torch.from_numpy(hw_),
+                        acc_dtype="int32", out_dtype=torch.int32)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     a = torch.zeros(4, 6)
     expr = PE.matmul_expr(4, 6, 5)
     with pytest.raises(ValueError) as port_err:

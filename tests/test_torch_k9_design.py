@@ -192,7 +192,7 @@ def test_chain_roles_and_stages():
     assert launch.tmp_elems == 15 and launch.work_elems == 0
     ds = launch.c_descs((torch.float32,) * 3, torch.bfloat16, (0, 0, 0))
     assert len(ds) == 2 and ds[0].dst == 1 and ds[1].dst == 0
-    assert list(ds[1].src)[:2] == [3, 2] and ds[0].out_dtype == 0
+    assert list(ds[1].src)[:2] == [emit.SRC_TMP, 2] and ds[0].out_dtype == 0
     assert ds[1].out_dtype == 1
     e, m = 3, 512
     batched = E.inner("add", "mul", E.inner(

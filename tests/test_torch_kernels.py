@@ -1095,13 +1095,18 @@ def test_gemm_int8_expert_form_matches_plain(h100, e, cap, d, f):
 
 @pytest.mark.h100
 def test_gemm_int8_head_form_and_k9_refuse_int32(h100):
-    """int32 accumulation is K1's int8 form's alone: the head form and K9
-    raise, naming the form still to port."""
+    """int32 accumulation off K1's int8 form: the head form (no int8 head
+    form of K1's) runs on K9's integer accumulator, one K9 launch and no
+    K1 launch, bit for bit the plain version's exact sums."""
     x, w = _int8(h100, 4, 2, 32), _int8(h100, 32, 2, 16, seed=1)
-    with pytest.raises(NotImplementedError, match="Queue 2, form 3"):
-        ops.apply(ops.E.head_gemm_expr(2, 4, 32, 16), x, w,
-                  acc_dtype="int32", out_dtype=torch.int32)
-    assert ops.LAUNCHES["K1"] == ops.LAUNCHES["K9"] == 0
+    expr = ops.E.head_gemm_expr(2, 4, 32, 16)
+    got = ops.apply(expr, x, w, acc_dtype="int32", out_dtype=torch.int32)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 0 and ops.LAUNCHES["K9"] == 1
+    with ops.reference_mode():
+        want = ops.apply(expr, x, w, acc_dtype="int32",
+                         out_dtype=torch.int32)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -1693,6 +1698,219 @@ def _held(got, want, rel):
     assert got.dtype == want.dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs().max().item()
     assert err <= rel * want.float().abs().max().item(), err
+
+
+# K9's integer accumulator (int8 under int32 on every (mul, add) form K1's
+# int8 form does not take), its wide forms (past 4 out axes, 3 contracted
+# axes and 3 operands) and its float16 loads
+
+def _int_forms(E, h=3, m=5):
+    """(label) -> (expr, storage shapes, K9's path) of the int8 (mul, add)
+    forms K9 takes, at ragged sizes (off every tile, slab and run)."""
+    from repro_torch.kernels import emit
+    A = E.arr
+    return {
+        "head": (E.head_gemm_expr(h, m, 40, 17), [(m, h, 40), (40, h, 17)],
+                 emit.TILE),
+        "head_tb": (E.head_gemm_expr(h, m, 40, 17, transpose_b=True),
+                    [(m, h, 40), (17, h, 40)], emit.TILE),
+        "batched": (E.inner("add", "mul", A("X", (3, 130, 70)),
+                            E.transpose(A("W", (3, 65, 70)), (0, 2, 1)),
+                            batch=1), [(3, 130, 70), (3, 65, 70)],
+                    emit.TILE),
+        "hadamard": (E.hadamard_expr(130, 67), [(130, 67)] * 2, emit.MAP),
+        "hadamard_vec": (E.hadamard_expr(128, 64), [(128, 64)] * 2,
+                         emit.MAP),
+        "kron": (E.transpose(E.inner("add", "mul", A("A", (3, 4, 1)),
+                                     A("B", (1, 5, 6))), (0, 2, 1, 3)),
+                 [(3, 4, 1), (1, 5, 6)], emit.MAP),
+        "lone_sum_rows": (E.reduce("add", A("A", (9, 301)), 1), [(9, 301)],
+                          emit.REDUCE),
+        "lone_sum_cols": (E.reduce("add", A("A", (3000, 130)), 0),
+                          [(3000, 130)], emit.REDUCE),
+        "thread": (E.reduce("add", E.reduce("add", A("A", (6, 7, 40)), 2), 0),
+                   [(6, 7, 40)], emit.THREAD),
+        "thread_small": (E.reduce("add", E.reduce("add", A("A", (6, 70, 4)),
+                                                  2), 0),
+                         [(6, 70, 4)], emit.THREAD),
+        "chain": (A("A", (37, 70)) @ A("B", (70, 33)) @ A("C", (33, 20)),
+                  [(37, 70), (70, 33), (33, 20)], emit.CHAIN),
+        "psi": (E.inner("add", "mul", E.psi((1,), A("S", (3, 130, 70))),
+                        A("B", (70, 65))), [(3, 130, 70), (70, 65)],
+                emit.TILE),
+        "psi_ksplit": (E.inner("add", "mul", E.psi((2,), A("S", (3, 100,
+                                                                  3000))),
+                               A("B", (3000, 90))),
+                       [(3, 100, 3000), (3000, 90)], emit.TILE),
+    }
+
+
+def _k9_int(expr, *arrays, out_dtype=torch.int32):
+    """K9's integer accumulator on the card twice (the plan of unaligned
+    bases), then its plain version (exact sums, checked into int32)."""
+    nf = ops.E.normal_form(expr)
+    plan = ops._plan(nf, ("int8",) * len(arrays), out_dtype, ops.H100, None,
+                     "int32", False)
+    assert plan[0] == "K9"
+    got = ops.semiring_contract(plan[1], *arrays, out_dtype=out_dtype)
+    again = ops.semiring_contract(plan[1], *arrays, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    with ops.reference_mode():
+        want = ops.apply(expr, *arrays, out_dtype=out_dtype,
+                         acc_dtype="int32")
+    return got, again, want, plan[1]
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("out_dt", [torch.int32, _F32])
+@pytest.mark.parametrize("name", sorted(_int_forms(ops.E)))
+def test_k9_int32_forms_match_plain_bit_for_bit(h100, name, out_dt):
+    """int8 x int8 under int32 on each of K9's paths (the integer tile,
+    its K split and the chain's int32 scratch, MAP, REDUCE rows and
+    columns, THREAD's warp and thread forms): bit for bit the plain
+    version's exact sums, into int32 and f32, and a rerun gives the same
+    bits; ``apply`` routes each form to K9."""
+    expr, shapes, path = _int_forms(ops.E)[name]
+    g = torch.Generator(device=h100).manual_seed(len(name))
+    arrays = [torch.randint(-128, 128, s, generator=g, device=h100,
+                            dtype=torch.int8) for s in shapes]
+    got, again, want, launch = _k9_int(expr, *arrays, out_dtype=out_dt)
+    assert launch.mode == path and ops.LAUNCHES["K9"] == 2
+    assert got.dtype == out_dt and torch.equal(got, want)
+    assert torch.equal(again, got)
+    if name == "psi_ksplit":
+        assert launch.splits > 1
+    ops.reset_launches()
+    assert torch.equal(ops.apply(expr, *arrays, out_dtype=out_dt,
+                                 acc_dtype="int32"), want)
+    assert ops.LAUNCHES["K9"] == 1
+
+
+@pytest.mark.h100
+def test_k9_int32_sums_wrap_as_an_int32_accumulator(h100):
+    """Past int32's range the card's integer sums wrap (two's
+    complement), as K1's int8 form's do, where the plain version raises:
+    (-128)^2 over 2^17 + 8 terms is 2^31 + 2^17."""
+    k = 2 ** 17 + 8
+    x = torch.full((2, k), -128, dtype=torch.int8, device=h100)
+    expr = ops.E.reduce("add", ops.E.hadamard_expr(2, k), 1)
+    plan = ops._plan(ops.E.normal_form(expr), ("int8", "int8"), torch.int32,
+                     ops.H100, None, "int32")
+    got = ops.semiring_contract(plan[1], x, x, out_dtype=torch.int32)
+    wrapped = (2 ** 14 * k + 2 ** 31) % 2 ** 32 - 2 ** 31
+    assert got.tolist() == [wrapped, wrapped]
+    with pytest.raises(OverflowError), ops.reference_mode():
+        ops.apply(expr, x, x, acc_dtype="int32", out_dtype=torch.int32)
+
+
+def _wide_forms(E):
+    """(label) -> (expr, storage shapes, path) of K9's wide forms."""
+    from repro_torch.kernels import emit
+    A = E.arr
+    hada = lambda n, s: E.combine("mul", hada(n - 1, s) if n > 2 else
+                                  A("H0", s), A(f"H{n - 1}", s))
+    chain = lambda n, d: (A("M0", (d[0], d[1])) if n == 1 else
+                          chain(n - 1, d) @ A(f"M{n - 1}", (d[n - 1], d[n])))
+    at = E.transpose(A("A", (6, 3, 4, 5, 2)), (1, 2, 3, 0, 4))
+    bt = E.transpose(A("B", (2, 5, 4, 3, 7)), (3, 2, 1, 0, 4))
+    red4 = E.inner("add", "mul", at, bt, batch=3)
+    for _ in range(3):
+        red4 = E.reduce("add", red4, 0)
+    nine = (2, 3, 2, 2, 3, 2, 2, 2, 3)
+    return {
+        "kron6": (E.transpose(E.inner("add", "mul", A("A", (4, 5, 6, 1)),
+                                      A("B", (1, 3, 2, 7))),
+                              (0, 3, 1, 4, 2, 5)),
+                  [(4, 5, 6, 1), (1, 3, 2, 7)], emit.MAP),
+        "red4": (red4, [(6, 3, 4, 5, 2), (2, 5, 4, 3, 7)], emit.THREAD),
+        "chain4": (chain(4, (5, 6, 7, 8, 9)),
+                   [(5, 6), (6, 7), (7, 8), (8, 9)], emit.THREAD),
+        "hadamard4": (hada(4, (13, 70)), [(13, 70)] * 4, emit.MAP),
+        "hadamard5": (hada(5, (13, 70)), [(13, 70)] * 5, emit.FACTOR),
+        "chain5": (chain(5, (3, 4, 5, 6, 4, 3)),
+                   [(3, 4), (4, 5), (5, 6), (6, 4), (4, 3)], emit.FACTOR),
+        "hadamard9d": (E.combine("mul", A("A", nine), A("B", nine)),
+                       [nine, nine], emit.MAP),
+    }
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("name", sorted(_wide_forms(ops.E)))
+def test_k9_wide_forms_match_plain(h100, name):
+    """K9 past its old limits (6 interleaved out axes, 4 contracted axes
+    that do not merge, 4 operands on one descriptor, 5 through the
+    scratch, 9 out axes merged into one): within K9_SUM_REL of the plain
+    version (which pairs 4 operands in einsum's order), in one call."""
+    expr, shapes, path = _wide_forms(ops.E)[name]
+    g = torch.Generator(device=h100).manual_seed(len(name) + 7)
+    arrays = [torch.randn(*s, generator=g, device=h100) for s in shapes]
+    got, want, mode = _k9(expr, *arrays)
+    assert mode == path and ops.LAUNCHES["K9"] == 1
+    nf = ops.E.normal_form(expr)
+    k = 1
+    for a in nf.reduce_axes:
+        k *= nf.extent_map[a]
+    mags = [a.abs() for a in arrays]
+    with ops.reference_mode():
+        mag = ops.apply(expr, *mags, out_dtype=_F32)
+    tol = K9_SUM_REL * max(len(arrays), k) * mag.max().item()
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("out_dt", [_F32, torch.float16])
+@pytest.mark.parametrize("name", ["moa_gemm", "moa_gemm_ksplit", "max_plus",
+                                  "hadamard", "lone_sum_rows",
+                                  "lone_sum_cols", "head", "thread", "mixed"])
+def test_k9_float16_forms_match_plain(h100, name, out_dt):
+    """float16 operands under the f32 accumulator on K9 (``_plan`` sends
+    every float16 form there): the tensor-core tile (f16 values are their
+    bf16 hi + lo parts exactly), its K split, max-plus bit for bit, MAP,
+    REDUCE, THREAD, the head form and an f16 x f32 pair; within
+    K9_SUM_REL of the plain version, and a float16 output within its own
+    rounding."""
+    E = ops.E
+    A = E.arr
+    forms = {
+        "moa_gemm": (E.matmul_expr(130, 70, 65), [(130, 70), (70, 65)]),
+        "moa_gemm_ksplit": (E.matmul_expr(100, 3000, 90),
+                            [(100, 3000), (3000, 90)]),
+        "max_plus": (E.inner("max", "add", A("A", (130, 70)),
+                             A("B", (70, 65))), [(130, 70), (70, 65)]),
+        "hadamard": (E.hadamard_expr(130, 68), [(130, 68)] * 2),
+        "lone_sum_rows": (E.reduce("add", A("A", (9, 300)), 1), [(9, 300)]),
+        "lone_sum_cols": (E.reduce("add", A("A", (3000, 130)), 0),
+                          [(3000, 130)]),
+        "head": (E.head_gemm_expr(3, 5, 40, 17), [(5, 3, 40), (40, 3, 17)]),
+        "thread": (E.reduce("add", E.reduce("add", A("A", (6, 7, 40)), 2), 0),
+                   [(6, 7, 40)]),
+        "mixed": (E.matmul_expr(130, 70, 65), [(130, 70), (70, 65)]),
+    }
+    expr, shapes = forms[name]
+    g = torch.Generator(device=h100).manual_seed(len(name) + 11)
+    arrays = [torch.randn(*s, generator=g, device=h100).half()
+              for s in shapes]
+    if name == "mixed":
+        arrays[1] = arrays[1].float()
+    got, want, _ = _k9(expr, *arrays, out_dtype=out_dt)
+    assert got.dtype == out_dt
+    if name == "max_plus":
+        assert torch.equal(got, want)
+        return
+    nf = ops.E.normal_form(expr)
+    k = 1
+    for a in nf.reduce_axes:
+        k *= nf.extent_map[a]
+    with ops.reference_mode():
+        mag = ops.apply(expr, *(a.abs() for a in arrays), out_dtype=_F32)
+    tol = K9_SUM_REL * k * mag.max().item()
+    if out_dt == torch.float16:
+        tol += 2.0 ** -11 * want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    # apply routes every float16 form to K9
+    ops.reset_launches()
+    ops.apply(expr, *arrays, out_dtype=out_dt)
+    assert ops.LAUNCHES["K9"] == 1 and ops.LAUNCHES["K1"] == 0
 
 
 @pytest.mark.h100

@@ -500,15 +500,26 @@ def test_descriptor_reads_col_and_psi_leaves_in_place():
     assert psi.out_ext == (20, 17) and psi.red_ext == (30,)
     assert psi.pad_value == float("inf")             # padded on the v5e grid
     d = psi.c_struct((torch.float32, torch.float32), torch.bfloat16, (0, 0))
-    assert list(d.out_ext) == [1, 1, 20, 17] and list(d.red_ext) == [1, 1, 30]
-    assert d.base[0] == 600 and list(d.stride[0])[:7] == [0, 0, 30, 0, 0, 0, 1]
-    assert d.out_dtype == 1
+    lead, rlead = emit.MAX_OUT - 2, emit.MAX_RED - 1
+    assert list(d.out_ext) == [1] * lead + [20, 17] and \
+        list(d.red_ext) == [1] * rlead + [30]
+    assert d.base[0] == 600 and list(d.stride[0]) == \
+        [0] * lead + [30, 0] + [0] * rlead + [1]
+    assert d.out_dtype == 1 and d.acc == 0
     chain = _launch("chain")[1]
     assert chain.mode == emit.CHAIN and len(chain.operands) == 3
     assert _launch("lone_max")[1].mode == emit.REDUCE
     assert _launch("lone_min")[1].mode == emit.REDUCE
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        col.c_struct((torch.float16, torch.float32), torch.float32, (0, 0))
+    d = col.c_struct((torch.float16, torch.float32), torch.float32, (0, 0))
+    assert list(d.in_dtype)[:2] == [2, 0] and d.acc == 0
+    # float16 operands: K9's (the port) against the reference's kernel,
+    # bit for bit (f16 values are exact in f32, the tropical fold too)
+    a, b = (x.astype(np.float16) for x in _inputs("max_plus_col"))
+    want = jops.apply(J_FAM["max_plus_col"][0], jnp.asarray(a),
+                      jnp.asarray(b), interpret=True, out_dtype=jnp.float32)
+    got = ops.apply(P_FAM["max_plus_col"][0], torch.from_numpy(a),
+                    torch.from_numpy(b), out_dtype=torch.float32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("plus,times", [("max", "add"), ("min", "add"),

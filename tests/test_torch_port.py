@@ -27,8 +27,10 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
-        "assert len(mods) >= 47, mods\n"
+        "assert len(mods) >= 50, mods\n"
         "assert {'repro_torch.models.rglru', 'repro_torch.configs.minicpm3_4b', "
+        "'repro_torch.analysis.conformance_all', "
+        "'repro_torch.launch.dryrun', 'repro_torch.models.common', "
         "'repro_torch.models.encdec', 'repro_torch.models.registry', "
         "'repro_torch.configs.paligemma_3b', "
         "'repro_torch.configs.whisper_base', "

@@ -392,17 +392,22 @@ def test_conformance_flags_a_wrong_pad():
 
 
 def test_conformance_flags_an_f32_plan_under_int32():
-    """An int8 product with an int32 bundle planned on K9 (an f32
-    accumulator) is an acc-dtype defect; the K1 plan (its int8 form) is
-    clean, and a K1 plan whose flags are not the normal form's is a route
+    """A K9 plan on f32 operands (its f32 accumulator) under an int32
+    bundle is an acc-dtype defect, and so is an int8 plan (its int32
+    accumulator) under an f32 one; the int8 product on K9 under int32 is
+    clean (K9's integer accumulator), so is the K1 plan (its int8 form),
+    and a K1 plan whose flags are not the normal form's is a route
     defect."""
     nf, bundle, plan = _plan(PE.matmul_expr(37, 53, 29), ("int8", "int8"),
                              "int32")
     assert plan == ("K1", False, False, False)
     assert not conformance.plan_findings(plan, bundle, nf, ("int8", "int8"))
     launch = emit.describe(bundle, nf)
-    assert _k9_rules(nf, bundle, launch, ("int8", "int8"),
+    assert not _k9_rules(nf, bundle, launch, ("int8", "int8"), "int32")
+    assert _k9_rules(nf, bundle, launch, ("float32", "float32"),
                      "int32") == ["acc-dtype"]
+    assert _k9_rules(nf, None, launch, ("int8", "int8"),
+                     "float32") == ["acc-dtype"]
     bad = ("K1", False, True, False)
     assert _rules(conformance.plan_findings(bad, bundle, nf,
                                             ("int8", "int8"))) == ["route"]
