@@ -6633,7 +6633,7 @@ def _dist_rank(rank: int, world: int, directory: str, device: str,
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import deepseek_moe_16b, gemma_2b, whisper_base
     from repro_torch.core import expr as E
-    from repro_torch.distributed import comm
+    from repro_torch.distributed import comm, fsdp
     from repro_torch.distributed import plan as dplan
     from repro_torch.distributed.compression import CompressionConfig
     from repro_torch.kernels import ops
@@ -6817,7 +6817,8 @@ def _dist_rank(rank: int, world: int, directory: str, device: str,
     done("moe_ep", t0)
     del params, logits
 
-    # 4. the sharded train step of gemma-2b on (data 2, model 2)
+    # 4. the sharded train step of gemma-2b on (data 2, model 2): every
+    # leaf at its stored chunk, each layer's weights gathered in the layer
     t0 = phase("train")
     m22 = mesh((("data", 2), ("model", world // 2)))
     cfg = _dist_cfg(gemma_2b, full, S['train_layers'])
@@ -6825,6 +6826,7 @@ def _dist_rank(rank: int, world: int, directory: str, device: str,
     state = ts.init_sharded_state(cfg, params, m22)
     del params
     step = ts.make_sharded_train_step(cfg, m22)
+    fsdp.GATHERED.reset()
     row = m22.get_coordinate()[0]
     losses, step_ms, coll_ms, moments = [], [], [], []
     for batch in _dist_batches(torch, cfg, device, S):
@@ -6846,6 +6848,7 @@ def _dist_rank(rank: int, world: int, directory: str, device: str,
             for k in DIST_LEAVES})
     out["train_losses"], out["train_ms"] = losses, step_ms
     out["coll_ms"]["train"] = coll_ms
+    out["gathered_high"] = fsdp.GATHERED.high
     if rank == 0:
         out["train_held"] = _hold_moments(torch, moments, ref)
     done("train", t0)
@@ -7106,6 +7109,29 @@ def phase_dist_path(torch, card, device="cuda", full_name="full",
           f"{o['ckpt_equal']} / {one_equal}", flush=True)
     require(one_equal, "the checkpoint restored in one process differs")
     del one
+    # the dry-run's per-rank model of the sharded step's cell: the state at
+    # its placements, the activations and the gathered weights
+    from repro_torch.launch import dryrun
+    from repro_torch.models.common import ShapeConfig
+    cfg = _dist_cfg(gemma_2b, full, S['train_layers'])
+    sized = dryrun.SizedMesh({"data": 2, "model": DIST_RANKS // 2})
+    state_b = sum(dryrun.state_bytes(cfg, sized).values())
+    act_b = dryrun._activation_bytes(cfg, ShapeConfig(
+        "dist_train", S['train_s'], S['train_b'], "train"), sized, 1)
+    layer_b, table_b = dryrun.gathered_bytes(cfg, sized)
+    for r, x in enumerate(outs):
+        peak = x["peak"].get("train", 0)
+        print(f"[dist_path] rank {r}: sharded train step peak "
+              f"{peak / 2**30:.3f} GiB; GATHERED high-water "
+              f"{x['gathered_high'] / 2**30:.3f} GiB (largest layer "
+              f"{layer_b / 2**30:.3f} + table {table_b / 2**30:.3f} GiB); "
+              f"dry-run model {(state_b + act_b) / 2**30:.3f} GiB (state "
+              f"{state_b / 2**30:.3f} + activations {act_b / 2**30:.3f}), "
+              f"peak / model {peak / (state_b + act_b):.3f} ({card})",
+              flush=True)
+        require(x["gathered_high"] <= layer_b + table_b,
+                f"rank {r} held more gathered weights than a layer and the "
+                f"table")
     for r, x in enumerate(outs):
         peaks = {k: round(v / 2**30, 2) for k, v in x["peak"].items()}
         launched = {k: {kid: v for kid, v in d.items() if v}

@@ -52,12 +52,13 @@ def group_size(group) -> int:
 
 
 @torch.no_grad()
-def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``t`` over ``group`` (a new tensor; these raw forms
-    carry no gradient, the rules below do)."""
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """The sum (``op="max"``: the maximum) of ``t`` over ``group`` (a new
+    tensor; these raw forms carry no gradient, the rules below do)."""
     out = t.detach().contiguous().clone()
     if group_size(group) > 1:
-        dist.all_reduce(out, group=group)
+        dist.all_reduce(out, group=group, op={
+            "sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op])
     return out
 
 

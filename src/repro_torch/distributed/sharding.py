@@ -160,6 +160,45 @@ def param_placements(tree, axes_tree, mesh) -> dict:
             for k, s in param_specs(shapes, axes_tree, mesh).items()}
 
 
+#: the GQA attention leaves read at their chunk over "model" (its heads)
+_HEAD_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+
+def heads_keep_groups(heads: int, kv_heads: int, tp: int) -> bool:
+    """Whether ``heads`` query heads over ``tp`` ranks give each rank whole
+    K/V groups (``heads / kv_heads`` query heads a K/V head): ``heads`` a
+    multiple of ``tp``, and either ``kv_heads`` too (each rank its stored
+    K/V chunk) or a rank's heads a multiple or a divisor of a group."""
+    if heads % tp:
+        return False
+    if kv_heads % tp == 0:
+        return True
+    local, group = heads // tp, heads // kv_heads
+    return local % group == 0 or group % local == 0
+
+
+def reads_model_chunk(group: str, leaf: str, shapes: dict, tp: int) -> bool:
+    """Whether the sharded train step's layers read parameter ``leaf`` of
+    ``group`` (the last part of the group's name as the layer's slice
+    names it: ``"attn"``, ``"mlp"``, ``"moe"``, ...) at its stored chunk
+    over ``"model"`` (``tp`` ranks) rather than whole: an MLP's ``wi`` /
+    ``bi`` / ``wo``, the routed and shared experts, GQA attention's
+    projections and biases but ``bo`` where each rank's query heads read
+    whole K/V groups (:func:`heads_keep_groups` of ``shapes``, the group's
+    leaves' shapes, read from their last dims), the embedding table and
+    the untied head.  The router, MLA and the recurrent mixers are read
+    whole.  A leaf the rule table stores replicated over ``"model"`` is
+    whole whatever this says."""
+    if group.endswith("mlp"):
+        return leaf in ("wi", "bi", "wo")
+    if group == "moe":
+        return leaf in ("wi", "wo", "shared_wi", "shared_wo")
+    if group in ("attn", "self_attn", "cross_attn") and "wq" in shapes:
+        return leaf in _HEAD_LEAVES and heads_keep_groups(
+            shapes["wq"][-2], shapes["wk"][-2], tp)
+    return (group, leaf) in (("embed", "table"), ("unembed", "w"))
+
+
 # ---------------------------------------------------------------------------
 # the current mesh: activation constraints are checked against it
 # ---------------------------------------------------------------------------

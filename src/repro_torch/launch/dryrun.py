@@ -30,9 +30,11 @@ lowering.  Per cell:
   (``cache_logical_axes`` + ``act_spec``); ``activations`` under this
   model: a train microbatch keeps one residual ``(rows, S, d)`` a layer
   for the backward (remat "full") plus the f32 logits and their gradient
-  over the vocab's ``model`` shard; a prefill holds two residual streams
-  and the last position's f32 logits; a decode step two ``(rows, d)``
-  residuals and its f32 logits ("rows": the batch over the data axes);
+  over the vocab's ``model`` shard, and the sharded step's gathered
+  weights (:func:`gathered_bytes`: the largest layer's and the table's,
+  each with its gradient); a prefill holds two residual streams and the
+  last position's f32 logits; a decode step two ``(rows, d)`` residuals
+  and its f32 logits ("rows": the batch over the data axes);
 * ``collectives_bytes``: per-device interconnect bytes by op of the
   plans' ring model (``DistributedPlan.ici_bytes_by_kind``) for every
   product the step plans (``models.layers``' tensor-parallel MLP: its
@@ -73,6 +75,7 @@ import os
 import time
 import traceback
 import warnings
+from typing import NamedTuple
 
 import torch
 
@@ -245,6 +248,71 @@ def _tp(mesh) -> int:
     return _sizes(mesh).get("model", 1)
 
 
+class _Stacked(NamedTuple):
+    """A parameter leaf's shape, dtype and stored placements, sliced per
+    layer as the model's layer loop slices a tensor (``unbind``: the
+    leading stack axis dropped, a ``Shard`` dim moved down one)."""
+    shape: tuple
+    dtype: torch.dtype
+    placements: tuple
+
+    def unbind(self, dim: int = 0) -> list:
+        from torch.distributed.tensor import Shard
+        assert dim == 0 and not any(p.is_shard() and p.dim == 0
+                                    for p in self.placements)
+        pl = tuple(Shard(p.dim - 1) if p.is_shard() else p
+                   for p in self.placements)
+        return [_Stacked(self.shape[1:], self.dtype, pl)] * self.shape[0]
+
+
+def gathered_layers(cfg: ArchConfig, mesh) -> tuple[list, int]:
+    """``([(kind, bytes) a layer], table)``: the bytes of each layer's
+    weights as the sharded train step gathers them inside the layer
+    (``distributed.fsdp``: whole over the data axes; over ``"model"`` the
+    stored chunk where ``sharding.reads_model_chunk`` says the layer
+    reads it, else whole), the layers in order as the model's own loops
+    slice and name them (``transformer.layer_params``; the
+    encoder-decoder's ``"encoder"`` then ``"decoder"`` stack), and the
+    embedding table's (the untied head's alike)."""
+    from repro_torch.distributed.fsdp import read_placements
+    from repro_torch.models import transformer
+    leaves = param_leaves(cfg)
+    placed = shard_rules.param_placements(
+        {k: s for k, (s, _) in leaves.items()}, registry.param_axes(cfg),
+        mesh)
+    tree: dict = {}
+    for name, (shape, dt) in leaves.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = _Stacked(shape, dt, placed[name])
+    names, tp = tuple(mesh.mesh_dim_names), _tp(mesh)
+
+    def read(group: str, p: dict) -> int:
+        shapes = {k: v.shape for k, v in p.items()}
+        return sum(_nbytes(_local_shape(v.shape, read_placements(
+            v.placements, names, shard_rules.reads_model_chunk(
+                group, k, shapes, tp)), mesh), v.dtype)
+            for k, v in p.items())
+    if cfg.family == "audio":
+        layers = [(stack, lp) for stack in ("encoder", "decoder")
+                  for lp in transformer._slices(tree[stack], 1)]
+    else:
+        layers = transformer.layer_params(tree, cfg)
+    table = max(read(g, {k: tree[g][k]})
+                for g, k in (("embed", "table"), ("unembed", "w"))
+                if k in tree.get(g, {}))
+    return [(kind, sum(read(g, p) for g, p in lp.items()))
+            for kind, lp in layers], table
+
+
+def gathered_bytes(cfg: ArchConfig, mesh) -> tuple[int, int]:
+    """``(largest layer, table)`` of :func:`gathered_layers`."""
+    layers, table = gathered_layers(cfg, mesh)
+    return max(b for _, b in layers), table
+
+
 def _activation_bytes(cfg: ArchConfig, shp: ShapeConfig, mesh,
                       mb: int) -> int:
     """The activation model of the module docstring, per rank."""
@@ -255,8 +323,9 @@ def _activation_bytes(cfg: ArchConfig, shp: ShapeConfig, mesh,
     if shp.kind == "train":
         r = rows / mb
         layers = cfg.n_layers + cfg.encoder_layers
+        layer, table = gathered_bytes(cfg, mesh)
         return int(r * s * d * esize * (layers + 1)
-                   + 2 * r * s * vocab_local * F32)
+                   + 2 * r * s * vocab_local * F32 + 2 * (layer + table))
     if shp.kind == "prefill":
         return int(2 * rows * s * d * esize + rows * vocab_local * F32)
     return int(2 * rows * d * esize + rows * vocab_local * F32)

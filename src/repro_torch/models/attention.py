@@ -11,6 +11,14 @@ latent cache on K1's head form).  The q/k/v and output biases
 Grouped-query attention never repeats K/V heads: queries are reshaped to
 ``(kv_heads, group)`` and the kernels contract them against the
 un-repeated K/V.
+
+In the sharded train step (``wq`` the ``DTensor`` of its stored chunk of
+the heads over ``"model"``) the full-sequence forward runs this rank's
+query heads (:func:`local_heads`) against the K/V heads they read: the
+stored ``wk`` / ``wv`` chunk, or this rank's groups of the whole ones.
+The output projection is the ``"sigma"`` plan with its psum
+(``layers.sigma_matmul``), and the input's gradient is summed over
+``"model"``.
 """
 from __future__ import annotations
 
@@ -19,9 +27,11 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.common import ArchConfig
+from repro_torch.distributed import comm
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import MASK_NEG_INF
-from repro_torch.models.layers import apply_rope, rope_tables
+from repro_torch.models.layers import (_global_rows, _model_chunk, apply_rope,
+                                       rope_tables, sigma_matmul)
 
 
 class KV(NamedTuple):
@@ -75,6 +85,49 @@ def _out(p, out: torch.Tensor, cfg: ArchConfig, dtype) -> torch.Tensor:
     return o + p["bo"].to(dtype) if cfg.use_bias else o
 
 
+class LocalHeads(NamedTuple):
+    """This rank's heads of a layer: ``p`` its ``wq`` / ``bq`` chunks and
+    ``wk`` / ``wv`` / ``bk`` / ``bv`` for the K/V heads they read (plain
+    tensors), ``wo`` its chunk of the output projection, ``group`` the
+    ``"model"`` group."""
+    p: dict
+    wo: torch.Tensor
+    group: object
+    mesh: object
+
+
+def local_heads(p) -> LocalHeads | None:
+    """This rank's heads where ``wq`` arrives as the ``DTensor`` of its
+    chunk over ``"model"`` (the sharded step reads it so only where each
+    rank's query heads read whole K/V groups,
+    ``distributed.sharding.reads_model_chunk``), else None.  Whole ``wk``
+    / ``wv`` (``bk`` / ``bv``) are sliced to this rank's groups, their
+    gradients summed over ``"model"``."""
+    wq, dim = _model_chunk(p["wq"])
+    if dim is None:
+        return None
+    mesh = p["wq"].device_mesh
+    group = mesh.get_group("model")
+    tp, r = comm.group_size(group), comm.group_rank(group)
+    hl = wq.shape[1]
+    out = {"wq": wq}
+    if "bq" in p:
+        out["bq"] = _model_chunk(p["bq"])[0]
+    wk, kdim = _model_chunk(p["wk"])
+    kv = wk.shape[1] * (tp if kdim is not None else 1)
+    g = hl * tp // kv                       # query heads a K/V head
+    for name in ("wk", "wv", "bk", "bv"):
+        if name not in p:
+            continue
+        w, wdim = _model_chunk(p[name])
+        if wdim is None:
+            lo = r * hl // g
+            w = comm.replicated_in(w, group).narrow(
+                w.dim() - 2, lo, max(hl // g, 1))
+        out[name] = w
+    return LocalHeads(out, _model_chunk(p["wo"])[0], group, mesh)
+
+
 def attention_fwd(p, x: torch.Tensor, cfg: ArchConfig, *,
                   positions: torch.Tensor, window: int = 0,
                   causal: bool = True, prefix_len: int = 0,
@@ -89,6 +142,11 @@ def attention_fwd(p, x: torch.Tensor, cfg: ArchConfig, *,
     cross-attention; the queries are not rotated, as in the reference).
     A window or a prefix without ``causal`` raises (``ops.attention``)."""
     b, s, _ = x.shape
+    heads = local_heads(p)
+    full = p
+    if heads is not None:
+        p = heads.p
+        x = comm.replicated_in(x, heads.group)
     hd = p["wq"].shape[-1]
     if kv_override is None:
         q, k, v = _qkv(p, x, cfg, positions)
@@ -101,7 +159,15 @@ def attention_fwd(p, x: torch.Tensor, cfg: ArchConfig, *,
     qg = q.reshape(b, s, kvh, q.shape[2] // kvh, hd)
     out = ops.attention(qg, k, v, scale=hd ** -0.5, causal=causal,
                         window=window, prefix_len=prefix_len)
-    return _out(p, out, cfg, x.dtype), KV(k, v)
+    if heads is None:
+        return _out(p, out, cfg, x.dtype), KV(k, v)
+    o = sigma_matmul(out.reshape(b * s, -1).to(x.dtype),
+                     heads.wo.reshape(-1, heads.wo.shape[-1]), heads.mesh,
+                     _global_rows(x.reshape(b * s, -1), heads.mesh),
+                     chunk=True).reshape(b, s, -1)
+    if cfg.use_bias:
+        o = o + full["bo"].to(x.dtype)
+    return o, KV(k, v)
 
 
 def attention_decode_paged(p, x: torch.Tensor, k_pool: torch.Tensor,

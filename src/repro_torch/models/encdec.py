@@ -36,12 +36,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.common import ArchConfig
 from repro_torch.device import cache_device
+from repro_torch.distributed import comm, fsdp
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tt
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        logits_from_hidden,
-                                       sinusoid_positions)
+                                       sinusoid_positions, token_nll)
 
 
 def param_shapes(cfg: ArchConfig) -> dict:
@@ -109,23 +110,33 @@ def encode(params, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
     sinusoids, the bidirectional layers (each rematerialized under
     autograd when ``cfg.remat``), the encoder norm."""
     dtype = getattr(torch, str(cfg.dtype))
-    x = ops.matmul(frames.to(dtype), params["frontend"]["adapter"],
+    x = ops.matmul(frames.to(dtype), fsdp.gather(params["frontend"]
+                                                 ["adapter"]),
                    out_dtype=dtype)
     s = x.shape[1]
     x = _positions(s, cfg, x)
     positions = torch.arange(s, device=x.device)[None, :]
+    layer = fsdp.gathering(_encoder_layer)
     for lp in tt._slices(params["encoder"], 1):
         if _remat(cfg):
-            x = checkpoint(_encoder_layer, lp, x, cfg, positions,
+            x = checkpoint(layer, lp, x, cfg, positions,
                            use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _encoder_layer(lp, x, cfg, positions)
-    return apply_norm(params["encoder_norm"], x, cfg)
+            with fsdp.regather_saved():
+                x = layer(lp, x, cfg, positions)
+    return apply_norm(fsdp.gather_group("encoder_norm",
+                                        params["encoder_norm"]), x, cfg)
 
 
 def _cross_kv(lp, enc: torch.Tensor, cfg: ArchConfig) -> attn.KV:
     """The cross-attention K/V ``(B, Senc, KV, hd)`` each of the encoder
-    states, with their biases (``use_bias``), in enc's dtype."""
+    states, with their biases (``use_bias``), in enc's dtype: this rank's
+    K/V heads where the layer's heads are over ``"model"``
+    (``attention.local_heads``)."""
+    heads = attn.local_heads(lp)
+    if heads is not None:
+        lp = heads.p
+        enc = comm.replicated_in(enc, heads.group)
     k = attn._proj(enc, lp["wk"])
     v = attn._proj(enc, lp["wv"])
     if "bk" in lp:
@@ -162,27 +173,32 @@ def decoder_forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     x = _positions(s, cfg, x)
     positions = torch.arange(s, device=x.device)[None, :]
     kvs = []
+    layer = fsdp.gathering(_decoder_layer)
     for lp in tt._slices(params["decoder"], 1):
         if _remat(cfg):
-            x, kv = checkpoint(_decoder_layer, lp, x, enc, cfg, positions,
+            x, kv = checkpoint(layer, lp, x, enc, cfg, positions,
                                use_reentrant=False, preserve_rng_state=False)
         else:
-            x, kv = _decoder_layer(lp, x, enc, cfg, positions)
+            with fsdp.regather_saved():
+                x, kv = layer(lp, x, enc, cfg, positions)
         kvs.append(kv)
     cache = tt._stacked(kvs, (len(kvs),)) if want_cache else None
-    return apply_norm(params["final_norm"], x, cfg), cache
+    return apply_norm(fsdp.gather_group("final_norm", params["final_norm"]),
+                      x, cfg), cache
 
 
 def encdec_loss(params, cfg: ArchConfig, frames: torch.Tensor,
                 tokens: torch.Tensor, targets: torch.Tensor
                 ) -> tuple[torch.Tensor, dict]:
     """The mean next-token NLL of the decoder over the encoded frames (f32
-    ``log_softmax``), and the reference's metrics (``nll``)."""
+    ``log_softmax``; vocabulary-parallel where a planned mesh shards the
+    head's columns, ``layers.token_nll``), and the reference's metrics
+    (``nll``)."""
+    params = tt.tie_gathered(params, cfg)
     enc = encode(params, cfg, frames)
     hidden, _ = decoder_forward(params, cfg, tokens, enc, want_cache=False)
-    logits = logits_from_hidden(params, hidden, cfg)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    nll = token_nll(logits_from_hidden(params, hidden, cfg,
+                                       vocab_shard=True), targets)
     loss = nll.mean()
     return loss, {"nll": loss.detach()}
 

@@ -14,20 +14,27 @@ column-sharded over ``"model"`` with no collective (a gated MLP's two
 halves sharded alike, so each rank holds matching gate and value
 columns), ``wo`` sigma-sharded with the TP psum, and the head
 column-sharded over the vocabulary, then gathered, so every rank holds
-the whole logits of its rows.  A weight arrives whole on every rank (a
-plain tensor, sliced here), or as the ``DTensor`` of its stored chunk
-over ``"model"`` (the sharded train step's, :func:`takes_model_chunk`),
-which the plans read as it is; the embedding then looks up each rank's
-vocabulary rows and sums them over ``"model"``.  Without a mesh the
+the whole logits of its rows; the loss alone keeps its rows' logits on
+this rank's vocabulary columns (``vocab_shard``) and takes a
+vocabulary-parallel log-softmax over them (:func:`token_nll`).  A weight
+arrives whole on every rank (a plain tensor, sliced here), or as the
+``DTensor`` of its stored chunk over ``"model"`` (the sharded train
+step's, ``distributed.sharding.reads_model_chunk``), which the plans
+read as it is; the embedding then looks up each rank's vocabulary rows
+and sums them over ``"model"``.  The sharded step's embedding table
+and head arrive at their stored chunks and are gathered over the data
+axes at their use (``distributed.fsdp.gather``).  Without a mesh the
 path is the single-device one, unchanged.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.common import ArchConfig
-from repro_torch.distributed import comm
+from repro_torch.distributed import comm, fsdp
 from repro_torch.distributed import plan as dplan
 from repro_torch.kernels import ops
 
@@ -80,16 +87,6 @@ class _GatedColumns(torch.autograd.Function):
         # (.., p, 2, c) -> (.., 2, p, c): the ranks' [u_r, v_r] -> [u, v]
         full = full.reshape(*lead, p, 2, c2 // 2).transpose(-3, -2)
         return full.reshape(*lead, p * c2), None
-
-
-def takes_model_chunk(name: str) -> bool:
-    """Whether the tensor-parallel layers here read parameter ``name`` (a
-    flat ``"group.leaf"``) as its stored chunk over ``"model"``: an MLP's
-    ``wi`` / ``bi`` / ``wo``, the embedding table and the untied head."""
-    group, leaf = name.rsplit(".", 1)
-    if group.rsplit(".", 1)[-1].endswith("mlp"):
-        return leaf in ("wi", "bi", "wo")
-    return name in ("embed.table", "unembed.w")
 
 
 def _model_chunk(w: torch.Tensor):
@@ -147,7 +144,8 @@ def _tp_mlp(p, x: torch.Tensor, cfg: ArchConfig, mesh) -> torch.Tensor:
         # value columns, the weight its plan reads being their interleave
         mg = mesh.get_group(axis)
         if comm.group_size(mg) > 1:
-            wi = _rows(_gated_chunk(wi_local, mg) if wi_dim is not None
+            wi = _rows(fsdp.derived(lambda w: _gated_chunk(w, mg), wi_local)
+                       if wi_dim is not None
                        else _GatedColumns.apply(wi_local, mg), mesh, w_pl)
             if bi is not None:
                 bi = _gated_chunk(bi, mg) if bi_dim is not None else \
@@ -163,18 +161,34 @@ def _tp_mlp(p, x: torch.Tensor, cfg: ArchConfig, mesh) -> torch.Tensor:
         h = _gate_act(cfg, u) * v
     else:
         h = _gate_act(cfg, h)
-    shard = dplan.tp_matmul_shard(mesh, "sigma")
     wo = p["wo"]
     if _model_chunk(wo)[1] is None:
         wo = _model_chunk(wo)[0]
-    plan = dplan.matmul_plan(m, wo.shape[0], wo.shape[1], mesh, shard=shard,
-                             dtype=str(x.dtype).removeprefix("torch."))
-    out = ops.matmul(_rows(h.to(x.dtype), mesh, plan.in_placements(mesh)[0]),
-                     wo, out_dtype=x.dtype, mesh=mesh, shard=shard).to_local()
+    out = sigma_matmul(h.to(x.dtype), wo, mesh, m)
     out = out.reshape(*x.shape[:-1], out.shape[-1])
     if cfg.use_bias:
         out = out + p["bo"].to(x.dtype)
     return out
+
+
+def sigma_matmul(h: torch.Tensor, wo: torch.Tensor, mesh, m: int,
+                 chunk: bool = False) -> torch.Tensor:
+    """``h (rows, k) @ wo (k, n)`` with ``k`` over ``"model"``: the
+    ``"sigma"`` plan, each rank's partial product summed by its psum in
+    f32 and cast to ``h``'s dtype; ``m`` the whole batch's rows.  ``h`` is
+    this rank's columns of ``k`` where ``wo`` is its chunk of ``k`` (a
+    ``DTensor``, or with ``chunk`` the plain local tensor), else the whole
+    ``k`` that the plan slices."""
+    shard = dplan.tp_matmul_shard(mesh, "sigma")
+    k = wo.shape[0] * (comm.group_size(mesh.get_group("model")) if chunk
+                       else 1)
+    plan = dplan.matmul_plan(m, k, wo.shape[1], mesh, shard=shard,
+                             dtype=str(h.dtype).removeprefix("torch."))
+    x_pl, w_pl = plan.in_placements(mesh)
+    if chunk:
+        wo = _rows(wo, mesh, w_pl)
+    return ops.matmul(_rows(h, mesh, x_pl), wo, out_dtype=h.dtype,
+                      mesh=mesh, shard=shard).to_local()
 
 
 def apply_mlp(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -275,13 +289,14 @@ def embed_tokens(params, tokens: torch.Tensor,
                  cfg: ArchConfig) -> torch.Tensor:
     # index_select, and under autograd its deterministic backward
     # (:class:`_EmbedRows`); neither reads anything back to the host
-    table, dim = _model_chunk(params["embed"]["table"])
+    stored = fsdp.gather(params["embed"]["table"], keep_model=True)
+    table, dim = _model_chunk(stored)
     idx = tokens.reshape(-1)
     if dim is not None:
         # the table's vocabulary rows over "model": each rank looks up the
         # tokens in its rows, zeros elsewhere, and the ranks' rows summed
         # are the whole lookup (one nonzero a row: exact)
-        group = params["embed"]["table"].device_mesh.get_group("model")
+        group = stored.device_mesh.get_group("model")
         lo = comm.group_rank(group) * table.shape[0]
         inside = (idx >= lo) & (idx < lo + table.shape[0])
         idx = torch.where(inside, idx - lo, 0)
@@ -299,12 +314,22 @@ def embed_tokens(params, tokens: torch.Tensor,
     return x
 
 
-def _tp_logits(w: torch.Tensor, x: torch.Tensor, mesh,
-               transpose_b: bool) -> torch.Tensor:
+class VocabShard(NamedTuple):
+    """A rank's logits on its columns of the vocabulary: ``logits (...,
+    V / tp)`` f32, its ``"model"`` ``group`` and its first column
+    ``start``."""
+    logits: torch.Tensor
+    group: object
+    start: int
+
+
+def _tp_logits(w: torch.Tensor, x: torch.Tensor, mesh, transpose_b: bool,
+               vocab_shard: bool):
     """The vocab head column-sharded over ``"model"`` (the tied table's
     spec lands on its stored vocab dim; no collective in the plan), its
     columns then gathered over that axis, so every rank holds its rows'
-    whole logits in f32."""
+    whole logits in f32; with ``vocab_shard`` they stay this rank's
+    columns, a :class:`VocabShard`."""
     x2 = x.reshape(-1, x.shape[-1])
     n = w.shape[0] if transpose_b else w.shape[1]
     shard = dplan.tp_matmul_shard(mesh, "col")
@@ -315,19 +340,29 @@ def _tp_logits(w: torch.Tensor, x: torch.Tensor, mesh,
                    transpose_b=transpose_b, out_dtype=torch.float32,
                    mesh=mesh, shard=shard).to_local()
     if plan.out_entries[1] is not None:
-        y = comm.gather(y, mesh.get_group(plan.out_entries[1]), 1)
+        group = mesh.get_group(plan.out_entries[1])
+        if vocab_shard:
+            return VocabShard(y.reshape(*x.shape[:-1], y.shape[-1]), group,
+                              comm.group_rank(group) * y.shape[-1])
+        y = comm.gather(y, group, 1)
     return y.reshape(*x.shape[:-1], n)
 
 
-def logits_from_hidden(params, x: torch.Tensor,
-                       cfg: ArchConfig) -> torch.Tensor:
+def logits_from_hidden(params, x: torch.Tensor, cfg: ArchConfig,
+                       vocab_shard: bool = False):
+    """The f32 logits of ``x`` (softcapped where ``cfg.logit_softcap``);
+    under a planned mesh with ``vocab_shard`` (the loss) a
+    :class:`VocabShard` where the plan shards the vocabulary over
+    ``"model"``, else the whole logits."""
     mesh = dplan.current_planned_mesh()
     if mesh is not None:
-        w = params["embed"]["table"] if cfg.tie_embeddings else \
-            params["unembed"]["w"]
+        w = fsdp.gather(params["embed"]["table"] if cfg.tie_embeddings
+                        else params["unembed"]["w"], keep_model=True)
         if _model_chunk(w)[1] is None:
             w = _model_chunk(w)[0]
-        logits = _tp_logits(w, x, mesh, cfg.tie_embeddings)
+        logits = _tp_logits(w, x, mesh, cfg.tie_embeddings, vocab_shard)
+        if isinstance(logits, VocabShard):
+            return logits._replace(logits=_softcap(logits.logits, cfg))
     elif cfg.tie_embeddings:
         # the (vocab, d) table in its stored layout: never copied transposed
         logits = ops.matmul(x, params["embed"]["table"], transpose_b=True,
@@ -335,7 +370,51 @@ def logits_from_hidden(params, x: torch.Tensor,
     else:
         logits = ops.matmul(x, params["unembed"]["w"],
                             out_dtype=torch.float32)
+    return _softcap(logits, cfg)
+
+
+def _softcap(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
     return logits
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Each row's NLL of its target from this rank's columns of the
+    logits: the row max and the sum of exponentials all-reduced over the
+    vocabulary's group in f32, the target's logit taken on the rank that
+    holds its column and summed.  The backward is ``softmax - onehot`` on
+    the local columns, with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, group, start):
+        n = logits.shape[-1]
+        m = comm.all_reduce(logits.amax(-1), group, op="max")
+        s = comm.all_reduce((logits - m[..., None]).exp().sum(-1), group)
+        lse = m + s.log()
+        t = targets.long() - start
+        inside = (t >= 0) & (t < n)
+        t = torch.where(inside, t, 0)
+        picked = logits.gather(-1, t[..., None])[..., 0]
+        picked = comm.all_reduce(torch.where(inside, picked, 0.0), group)
+        ctx.save_for_backward(logits, lse, t, inside)
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, t, inside = ctx.saved_tensors
+        p = (logits - lse[..., None]).exp()
+        p.scatter_add_(-1, t[..., None], -inside[..., None].to(p.dtype))
+        return p.mul_(g[..., None]), None, None, None
+
+
+def token_nll(logits, targets: torch.Tensor) -> torch.Tensor:
+    """Each position's NLL of its target: the f32 ``log_softmax`` of whole
+    ``logits`` (the reference's), or the vocabulary-parallel one of a
+    :class:`VocabShard`."""
+    if isinstance(logits, VocabShard):
+        return _VocabParallelNLL.apply(logits.logits.float(), targets,
+                                       logits.group, logits.start)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]

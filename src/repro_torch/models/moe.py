@@ -35,7 +35,7 @@ from repro_torch.configs.common import ArchConfig
 from repro_torch.distributed import comm
 from repro_torch.distributed import plan as dplan
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _gate_act
+from repro_torch.models.layers import _gate_act, _model_chunk, _tp_mlp
 
 
 def moe_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
@@ -170,7 +170,7 @@ def _combine(ye: torch.Tensor, slot: torch.Tensor, slot_asg: torch.Tensor,
     return y
 
 
-def _experts(p, xe: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+def _experts(xe: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
              cfg: ArchConfig, dtype) -> torch.Tensor:
     """The routed experts' gated FFNs on ``xe (e, cap, d)`` (K1's expert
     form for both products)."""
@@ -182,6 +182,15 @@ def _experts(p, xe: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
 
 def _shared(p, x: torch.Tensor, y: torch.Tensor,
             cfg: ArchConfig) -> torch.Tensor:
+    """``y`` plus the shared experts' gated FFN of ``x``: tensor-parallel
+    (``layers._tp_mlp``) where they arrive as their stored chunks over
+    ``"model"``."""
+    if cfg.n_shared_experts and _model_chunk(p["shared_wi"])[1] is not None:
+        # the experts are gated whatever cfg.mlp says: gelu's is geglu
+        gated = cfg.with_(use_bias=False, mlp="swiglu" if cfg.mlp ==
+                          "swiglu" else "geglu")
+        return y + _tp_mlp({"wi": p["shared_wi"], "wo": p["shared_wo"]}, x,
+                           gated, p["shared_wi"].device_mesh)
     if cfg.n_shared_experts:
         hs = ops.matmul(x, p["shared_wi"], out_dtype=torch.float32)
         us, vs = hs.chunk(2, dim=-1)
@@ -209,7 +218,7 @@ def _apply_moe_global(p, x: torch.Tensor, cfg: ArchConfig
     xe = _GatherRows.apply(xt, slot_asg.div(k, rounding_mode="floor"),
                            tok_slots, True).reshape(e, cap, d)
 
-    ye = _experts(p, xe, p["wi"], p["wo"], cfg, x.dtype)
+    ye = _experts(xe, p["wi"], p["wo"], cfg, x.dtype)
 
     # combine: each assignment's slot, its gate (0 past capacity), and the
     # k contributions of a token summed in expert order
@@ -225,16 +234,20 @@ def _apply_moe_shardmap(p, x: torch.Tensor, cfg: ArchConfig, mesh
     (expert parallelism), one process a rank.
 
     ``x`` is this rank's rows of the batch (its data shard), the same on
-    every rank of ``"model"``; the parameters are whole on every rank.
-    Each rank routes its tokens with the whole router, keeps the
+    every rank of ``"model"``; the parameters are whole on every rank, or
+    (the sharded train step) the expert weights arrive as the
+    ``DTensor`` of their stored chunk over ``"model"``, this rank's
+    experts, and the router whole.  Each rank routes its tokens with the
+    whole router, keeps the
     assignments to its ``e / tp`` experts (the rest go to a drop bucket
     it never runs), dispatches them at the capacity of its tokens, runs
     its experts' FFNs on K1's expert form and combines; one psum over
     ``"model"`` then sums each token's contributions.  Under remat the
     local function is checkpointed, the psum is not.
 
-    Gradients are whole on every rank of ``"model"``: the expert
-    weights' slices gather back (``comm.shard_local``), and the
+    Gradients of whole weights are whole on every rank of ``"model"``:
+    the expert weights' slices gather back (``comm.shard_local``); those
+    of stored chunks stay this rank's experts'.  The
     dispatched tokens' and the gates' partial gradients are summed over
     the axis (``comm.replicated_in``).  The stats are this rank's tokens'
     (the data-parallel mean is the caller's, as for the loss), but
@@ -250,9 +263,12 @@ def _apply_moe_shardmap(p, x: torch.Tensor, cfg: ArchConfig, mesh
     e_loc, e0 = e // tp, r * (e // tp)
     t = b * s
     xt = x.reshape(t, d)
-    wi = comm.shard_local(p["wi"], mg, 0)
-    wo = comm.shard_local(p["wo"], mg, 0)
+    wi, wo = (w if dim is not None else comm.shard_local(w, mg, 0)
+              for w, dim in map(_model_chunk, (p["wi"], p["wo"])))
+    dtype = x.dtype
 
+    # reads no tensor but its arguments: a checkpoint keeps this function
+    # until its backward, and with it whatever it closes over
     def local(xt, gates_in, idx, wi, wo):
         cap = capacity(cfg, t)
         mine = (idx >= e0) & (idx < e0 + e_loc)
@@ -266,7 +282,7 @@ def _apply_moe_shardmap(p, x: torch.Tensor, cfg: ArchConfig, mesh
         xe = _GatherRows.apply(comm.replicated_in(xt, mg),
                                slot_asg.div(k, rounding_mode="floor"),
                                tok_slots, True).reshape(e_loc, cap, d)
-        ye = _experts(p, xe, wi, wo, cfg, x.dtype)
+        ye = _experts(xe, wi, wo, cfg, dtype)
         gates = comm.replicated_in(gates_in, mg).reshape(-1) * keep
         y = _combine(ye, torch.where(keep, slot, e_loc * cap), slot_asg,
                      gates, by_expert, t, True)

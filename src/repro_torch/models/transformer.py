@@ -55,11 +55,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.common import ArchConfig
 from repro_torch.device import cache_device, resolve_device
+from repro_torch.distributed import fsdp
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, rglru, ssm
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
-                                       logits_from_hidden)
+                                       logits_from_hidden, token_nll)
 
 DENSE, MLA, SSM, HYBRID, MOE, VLM = (("dense", "full"), ("dense", "mla"),
                                      ("ssm", "none"), ("hybrid", "full"),
@@ -412,6 +413,19 @@ def _moe_layers(params, cfg: ArchConfig) -> list[tuple[str, dict]]:
     return out + [("moe", lp) for lp in _layers(params)]
 
 
+def layer_params(params, cfg: ArchConfig) -> list[tuple[str, dict]]:
+    """The stack's layers in order as ``(kind, params)``, each layer's
+    slices named as its block reads them (the hybrid's
+    :func:`_hybrid_layers`, the moe family's :func:`_moe_layers`, else
+    the ``layers`` stack with the family as its kind).  The slicing only
+    ``unbind``s each leaf, so any leaf that has ``unbind`` passes."""
+    if cfg.family == "hybrid":
+        return _hybrid_layers(params, cfg)
+    if cfg.family == "moe":
+        return _moe_layers(params, cfg)
+    return [(cfg.family, lp) for lp in _layers(params)]
+
+
 def _with_mlp(lp: dict, x: torch.Tensor, h: torch.Tensor,
               a_out: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """The residual after an attention layer's MLP: ``x + a_out +
@@ -533,7 +547,8 @@ def _embed_inputs(params, cfg: ArchConfig, tokens: torch.Tensor,
     if patches is None:
         raise ValueError("the vlm family's forward takes patches (B, P, d) "
                          "beside the tokens")
-    pe = ops.matmul(patches.to(x.dtype), params["frontend"]["adapter"],
+    pe = ops.matmul(patches.to(x.dtype),
+                    fsdp.gather(params["frontend"]["adapter"]),
                     out_dtype=x.dtype)
     return torch.cat([pe, x], dim=1), patches.shape[1]
 
@@ -560,6 +575,13 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     ``want_cache`` (the loss: under ``jax.jit`` the reference's XLA drops
     what the loss does not read, and eager PyTorch would compute it).
 
+    The sharded train step's parameters arrive at their stored chunks:
+    each layer gathers its slices at the top of its block
+    (``distributed.fsdp.gathering``, inside the remat ``checkpoint``, so
+    the rerun gathers again; with remat off the gathered weights autograd
+    saves are regathered in the backward, ``fsdp.regather_saved``), the
+    leaves outside the stacks at their use.
+
     Under autograd, ``cfg.remat`` rematerializes each layer: only the
     layer inputs are kept, and the backward reruns each layer's forward,
     kernels included.  The reference checkpoints its scanned body (the
@@ -579,17 +601,12 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     remat = cfg.remat and torch.is_grad_enabled()
     context = ({"context_fn": ops.dots_contexts}
                if cfg.remat_policy == "dots" else {})
-    if cfg.family == "hybrid":
-        layers = _hybrid_layers(params, cfg)
-    elif cfg.family == "moe":
-        layers = _moe_layers(params, cfg)
-    else:
-        layers = [(cfg.family, lp) for lp in _layers(params)]
+    layers = layer_params(params, cfg)
     x, prefix_len = _embed_inputs(params, cfg, tokens, patches)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     caches, stats = [], []
     for kind, lp in layers:
-        block = _BLOCKS[kind]
+        block = fsdp.gathering(_BLOCKS[kind])
         if prefix_len:
             block = functools.partial(block, prefix_len=prefix_len)
         if remat:
@@ -597,12 +614,14 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
                               use_reentrant=False, preserve_rng_state=False,
                               **context)
         else:
-            x, c = block(lp, x, cfg, positions, want_cache)
+            with fsdp.regather_saved():
+                x, c = block(lp, x, cfg, positions, want_cache)
         if kind.startswith("moe"):
             c, st = c
             stats.append(st)
         caches.append((kind, c))
-    x = apply_norm(params["final_norm"], x, cfg)
+    x = apply_norm(fsdp.gather_group("final_norm", params["final_norm"]), x,
+                   cfg)
     out = (x, _stack_caches(cfg, caches) if want_cache else None)
     if not with_aux:
         return out
@@ -876,6 +895,19 @@ def decode_step_paged_batched(params, cfg: ArchConfig, tokens: torch.Tensor,
     return logits_from_hidden(params, x, cfg)[:, 0]
 
 
+def tie_gathered(params, cfg: ArchConfig):
+    """``params`` with a tied table that arrives at its stored chunk
+    gathered once (``distributed.fsdp.gather``), the copy the lookup and
+    the head both read, so that their gradients sum on it before its one
+    reduce-scatter; else ``params``."""
+    from torch.distributed.tensor import DTensor
+    table = params["embed"]["table"]
+    if not cfg.tie_embeddings or not isinstance(table, DTensor):
+        return params
+    return dict(params.items(),
+                embed={"table": fsdp.gather(table, keep_model=True)})
+
+
 def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
             targets: torch.Tensor, patches: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, dict]:
@@ -885,14 +917,16 @@ def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
     reference's default weights), which are zero but for the moe family;
     the metrics are the reference's (``nll``, ``moe_aux``, ``moe_z``,
     ``dropped``).  The vlm family (with its ``patches``) is scored on the
-    text positions only."""
+    text positions only.  Where a planned mesh shards the head's columns
+    over ``"model"``, the log-softmax is vocabulary-parallel
+    (``layers.token_nll``)."""
+    params = tie_gathered(params, cfg)
     hidden, _, aux = forward(params, cfg, tokens, want_cache=False,
                              with_aux=True, patches=patches)
     if cfg.family == "vlm":
         hidden = hidden[:, patches.shape[1]:]
-    logits = logits_from_hidden(params, hidden, cfg)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    nll = token_nll(logits_from_hidden(params, hidden, cfg,
+                                       vocab_shard=True), targets)
     mean = nll.mean()
     loss = mean
     if cfg.family == "moe":

@@ -24,18 +24,20 @@ The sharded step (the counterpart of the reference launcher's
 "model")``).  Its state holds ``DTensor``s placed by the rule table
 (``distributed.sharding.param_placements`` on ``param_axes``): each
 rank stores its chunk of every parameter, f32 master, m, v and error
-state.  A step redistributes every parameter to its compute placement:
-replicated over the data axes (an all-gather along the FSDP dim); over
-``"model"`` the stored chunk where a tensor-parallel layer reads it
-(the MLP, the embedding and the head: ``models.layers.
-takes_model_chunk``), else whole.  It runs the loss on this rank's rows
-under ``planned_mesh`` with the data axes' gradient reduction deferred,
-then reduces each gradient over the data axes onto the stored chunk (a
-reduce-scatter along the FSDP dim, else an all-reduce; the data-parallel
-mean; a leaf computed whole over ``"model"`` then takes its chunk),
-compresses it with the whole leaf's blocks, and updates the chunks with
-AdamW clipped by the norm over every shard (a replicated leaf counted
-once):
+state.  A step computes on the stored chunks themselves: each layer
+gathers its slice of every stacked leaf inside its block, over the data
+axes along the FSDP dim, and over ``"model"`` only where a layer reads
+the leaf whole (the leaves outside the stacks at their use, the tied
+table once a step; ``distributed.fsdp``), so one layer's gathered
+weights are alive at a time; the backward of each gather
+reduce-scatters its gradient onto the stored chunk.  The loss runs on
+this rank's rows under ``planned_mesh`` with the data axes' gradient
+reduction deferred, and vocabulary-parallel where the head's columns
+are over ``"model"``.  What is left of each gradient's reduction is
+then done on the chunk (an all-reduce over a data axis the leaf is not
+sharded on; the data-parallel mean); it is compressed with the whole
+leaf's blocks, and the chunks are updated with AdamW clipped by the
+norm over every shard (a replicated leaf counted once):
 
     state = init_sharded_state(cfg, params, mesh, comp)
     step = make_sharded_train_step(cfg, mesh, opt_cfg, comp)
@@ -50,6 +52,7 @@ import torch
 from repro_torch.configs.common import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed import compression
+from repro_torch.distributed.fsdp import DATA_AXES
 from repro_torch.models import registry, transformer
 from repro_torch.optim import adamw
 
@@ -202,10 +205,6 @@ def _accumulate(params, cfg: ArchConfig, batch: dict, microbatches: int):
 # the sharded step: DTensor state placed by the rule table
 # ---------------------------------------------------------------------------
 
-#: the mesh axes a batch is split over (data parallelism)
-DATA_AXES = ("pod", "data")
-
-
 def _placed(cfg: ArchConfig, mesh, shapes: dict) -> dict:
     """``{name: placements}`` of every parameter on ``mesh``."""
     from repro_torch.distributed.sharding import param_placements
@@ -241,36 +240,6 @@ def init_sharded_state(cfg: ArchConfig, params, mesh,
     return TrainState({k: dt(c, k) for k, c in chunks.items()}, opt,
                       zeros() if comp.enabled else None,
                       torch.zeros((), dtype=torch.int32, device=dev))
-
-
-def _compute_placements(name: str, stored, mesh, data_axes) -> tuple:
-    """The placements a step computes parameter ``name`` in: replicated
-    over the data axes; over the others its stored shard where a
-    tensor-parallel layer reads that chunk, else replicated."""
-    from torch.distributed.tensor import Replicate
-
-    from repro_torch.models.layers import takes_model_chunk
-    keep = takes_model_chunk(name)
-    return tuple(Replicate() if a in data_axes or not keep else pl
-                 for a, pl in zip(mesh.mesh_dim_names, stored))
-
-
-def _to_compute(t, want, mesh):
-    """A sharded parameter ``t`` at placements ``want`` (each a
-    ``Replicate()`` or ``t``'s own shard): its chunks gathered over the
-    mesh dims ``want`` replicates, the inner first; a DTensor where
-    ``want`` keeps a shard, else the whole tensor."""
-    from torch.distributed.tensor import DTensor
-
-    from repro_torch.distributed import comm
-    local, names = t.to_local(), mesh.mesh_dim_names
-    for i in reversed(range(len(want))):
-        if t.placements[i].is_shard() and not want[i].is_shard():
-            local = comm.all_gather(local, mesh.get_group(names[i]),
-                                    t.placements[i].dim)
-    if any(pl.is_shard() for pl in want):
-        return DTensor.from_local(local, mesh, want, run_check=False)
-    return local
 
 
 def _grouped(flat: dict) -> dict:
@@ -313,22 +282,16 @@ def make_sharded_train_step(cfg: ArchConfig, mesh,
     names = tuple(mesh.mesh_dim_names)
     data_axes, dp = _data_axes(mesh)
 
-    def reduce_grad(g: torch.Tensor, pl, want) -> torch.Tensor:
-        """The data-parallel mean of ``g`` (this rank's share, at the
-        compute placements ``want``) on the stored chunk under ``pl``,
-        summed in the gradient's dtype (as the reference's reduce-scatter
-        of its gradients), divided in f32."""
+    def reduce_grad(g: torch.Tensor, pl) -> torch.Tensor:
+        """The data-parallel mean of ``g``, this rank's share of the
+        gradient on the stored chunk under ``pl`` (the gathers'
+        backward reduce-scattered it over the data axes the leaf is
+        sharded on): summed over the others in the gradient's dtype (as
+        the reference's reduction of its gradients), divided in f32."""
         for a in data_axes:
-            i = names.index(a)
-            group = mesh.get_group(a)
-            g = comm.reduce_scatter(g, group, pl[i].dim) if \
-                pl[i].is_shard() else comm.all_reduce(g, group)
-        g = g.float() / dp
-        for i, a in enumerate(names):
-            if a not in data_axes and pl[i].is_shard() and \
-                    not want[i].is_shard():
-                g = comm.chunk_of(g, mesh.get_group(a), pl[i].dim)
-        return g.contiguous()
+            if not pl[names.index(a)].is_shard():
+                g = comm.all_reduce(g, mesh.get_group(a))
+        return (g.float() / dp).contiguous()
 
     def train_step(state: TrainState, batch: dict):
         if comp.enabled and state.err_fb is None:
@@ -337,18 +300,16 @@ def make_sharded_train_step(cfg: ArchConfig, mesh,
                              "init_sharded_state(..., comp=comp)")
         pls = {k: t.placements for k, t in state.params.items()}
         shapes = {k: tuple(t.shape) for k, t in state.params.items()}
-        want = {k: _compute_placements(k, pl, mesh, data_axes)
-                for k, pl in pls.items()}
-        compute = transformer.build_params(_grouped(
-            {k: _to_compute(t, want[k], mesh)
-             for k, t in state.params.items()}), trainable=True)
+        # the stored chunks themselves, gathered by the layers at their use
+        compute = transformer.build_params(_grouped(dict(state.params)),
+                                           trainable=True)
         with dplan.planned_mesh(mesh, data_axes):
             loss, metrics, grads = _accumulate(compute, cfg, batch,
                                                microbatches)
         del compute
         local = {k: t.to_local() for k, t in state.params.items()}
-        grads = {k: reduce_grad(_local_of(g), pls[k], want[k])
-                 .to(local[k].dtype) for k, g in grads.items()}
+        grads = {k: reduce_grad(_local_of(g), pls[k]).to(local[k].dtype)
+                 for k, g in grads.items()}
         err = None if state.err_fb is None else \
             {k: t.to_local() for k, t in state.err_fb.items()}
         grads, _ = compression.compress_sharded(comp, grads, err, shapes,

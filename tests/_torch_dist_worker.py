@@ -138,11 +138,12 @@ def job_moe(arch, tree, x, axes):
             [float(v) for v in st])
 
 
-def job_train(arch, tree, batches, axes, comp_on, lr):
+def job_train(arch, tree, batches, axes, comp_on, lr, remat=True):
     """Sharded train steps (``make_sharded_train_step``) from the
-    parameters ``tree``: the metrics of each step, the whole parameters
-    after the last, and whether every rank's leaves (parameters, masters,
-    m, v) hold exactly its rule-table chunk."""
+    parameters ``tree``, ``cfg.remat`` as ``remat`` says: the metrics of
+    each step, the whole parameters after the last, and whether every
+    rank's leaves (parameters, masters, m, v) hold exactly its rule-table
+    chunk."""
     from repro_torch.convert import params_from_numpy
     from repro_torch.distributed import comm
     from repro_torch.distributed.compression import CompressionConfig
@@ -150,7 +151,7 @@ def job_train(arch, tree, batches, axes, comp_on, lr):
     from repro_torch.models import registry
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import train_step as ts
-    cfg = _config(arch)
+    cfg = _config(arch).with_(remat=remat)
     mesh = _mesh(axes)
     comp = CompressionConfig(enabled=comp_on)
     opt = AdamWConfig(lr_peak=lr, warmup_steps=2, decay_steps=10)
@@ -175,6 +176,91 @@ def job_train(arch, tree, batches, axes, comp_on, lr):
         placed &= all(tuple(t.placements) == tuple(want[k])
                       for k, t in tree.items())
     return metrics, {k: _np(v) for k, v in whole.items()}, bool(placed)
+
+
+def job_gathered(arch, tree, batch, axes):
+    """One sharded step with ``cfg.remat`` on, and one with it off, each
+    from the parameters ``tree``: the high-water of ``fsdp.GATHERED``
+    in each step, the bytes still counted after it, and the losses."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.distributed import fsdp
+    from repro_torch.train import train_step as ts
+    mesh = _mesh(axes)
+    row, dp = mesh.get_coordinate()[0], mesh.size(0)
+    rows = {k: torch.from_numpy(v).chunk(dp)[row] for k, v in batch.items()}
+    out = {}
+    for remat in (True, False):
+        cfg = _config(arch).with_(remat=remat)
+        state = ts.init_sharded_state(
+            cfg, params_from_numpy(tree, device="cpu", trainable=True), mesh)
+        fsdp.GATHERED.reset()
+        state, m = ts.make_sharded_train_step(cfg, mesh)(state, rows)
+        out[remat] = (fsdp.GATHERED.high, fsdp.GATHERED.alive,
+                      float(m["loss"]))
+    return out
+
+
+def job_fsdp_gather(whole, grad, axes, layer):
+    """``fsdp.gather`` of layer ``layer``'s slice of a stacked leaf
+    ``whole (L, d, h)`` stored at (d over "data", h over "model"), read at
+    its "model" chunk and whole: each gathered tensor, and the stored
+    chunk's gradient of ``sum(gathered * grad)`` (``grad`` whole, this
+    rank's "model" chunk of it where the chunk is read) beside
+    ``comm.reduce_scatter`` of the same gradient over "data"."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.distributed import comm, fsdp
+    mesh = _mesh(axes)
+    pl = (Shard(1), Shard(2))
+    dg, mg = mesh.get_group("data"), mesh.get_group("model")
+    out = {}
+    for keep in (True, False):
+        local = comm.local_chunk(torch.tensor(whole), mesh, pl).clone()
+        local.requires_grad_(True)
+        stored = DTensor.from_local(local, mesh, pl, run_check=False)
+        # every layer gathered, as the model's loop does; the gradient
+        # flows from layer ``layer`` alone
+        outs = [fsdp.gather(t, keep_model=keep) for t in stored.unbind(0)]
+        got = outs[layer]
+        got_local = got.to_local() if keep else got
+        g = torch.tensor(grad)
+        if keep:
+            g = comm.chunk_of(g, mg, 1).contiguous()
+        sum(((o.to_local() if keep else o) * (g if i == layer else 0)).sum()
+            for i, o in enumerate(outs)).backward()
+        want = comm.reduce_scatter(g if keep else
+                                   comm.chunk_of(g, mg, 1).contiguous(),
+                                   dg, 0)
+        out[keep] = (got_local.detach().numpy(),
+                     isinstance(got, DTensor),
+                     local.grad[layer].numpy(), want.numpy(),
+                     bool(local.grad[:layer].eq(0).all()
+                          and local.grad[layer + 1:].eq(0).all()))
+    return out
+
+
+def job_vocab_nll(logits, targets, cap, axes):
+    """``layers.token_nll`` of a ``VocabShard``, this rank's columns of
+    ``logits`` over "model" softcapped by ``cap`` there, and the
+    gradient of the NLLs' sum on those columns; beside the whole
+    softcapped logits' ``token_nll`` and its gradient's chunk."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import comm
+    from repro_torch.models import layers
+    mesh = _mesh(axes)
+    mg = mesh.get_group("model")
+    cfg = get_config("gemma-2b", reduced=True).with_(logit_softcap=cap)
+    whole = torch.tensor(logits, requires_grad=True)
+    tg = torch.tensor(targets)
+    want = layers.token_nll(layers._softcap(whole, cfg), tg)
+    want.sum().backward()
+    cols = comm.chunk_of(whole.detach(), mg, 1).clone().requires_grad_(True)
+    shard = layers.VocabShard(layers._softcap(cols, cfg), mg,
+                              comm.group_rank(mg) * cols.shape[1])
+    got = layers.token_nll(shard, tg)
+    got.sum().backward()
+    return (got.detach().numpy(), want.detach().numpy(),
+            _np(comm.all_gather(cols.grad, mg, 1)), _np(whole.grad))
 
 
 def job_train_planned(arch, tree, batches, axes, lr):
@@ -302,7 +388,8 @@ def job_compress(shapes_specs, arrays, errors):
 
 JOBS = {"apply": job_apply, "rings": job_rings,
         "lm_planned": job_lm_planned, "moe": job_moe, "train": job_train,
-        "train_planned": job_train_planned,
+        "train_planned": job_train_planned, "gathered": job_gathered,
+        "fsdp_gather": job_fsdp_gather, "vocab_nll": job_vocab_nll,
         "checkpoint": job_checkpoint, "compress": job_compress}
 
 

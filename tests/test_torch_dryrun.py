@@ -27,6 +27,7 @@ from repro.models import registry as jreg  # noqa: E402
 from repro_torch import configs as pconfigs  # noqa: E402
 from repro_torch.core import cost as pcost  # noqa: E402
 from repro_torch.hardware import TPU_V5E  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models import common as pcommon  # noqa: E402
 from repro_torch.models import registry as preg  # noqa: E402
@@ -268,6 +269,50 @@ def test_collective_bytes_are_one_devices_by_hand(mesh_kind, dp):
             "all-gather": gather}
     assert rec["collectives_bytes"] == pytest.approx(want, rel=1e-12)
     assert rec["replication_fallbacks"] == []
+
+
+def test_train_activations_count_the_gathered_weights_by_hand():
+    """gemma-2b train_4k's per-rank activation bytes on the 16 x 16 mesh,
+    counted by hand: each of 2 microbatches' 256 / 16 / 2 = 8 sequences
+    of 4096 rows keeps a bf16 residual of 2048 a layer (18) and one more,
+    the f32 logits and their gradient over the vocab's 256000 / 16
+    columns, and the sharded step's gathered weights with their
+    gradients: the largest layer's (both norms' 2 x 2048; wq and wo 2048
+    x 8 x 256 each and wk and wv 2048 x 256 each, whole: neither 8 heads
+    nor 1 KV head divide over 16; the MLP's wi 2048 x 32768 and wo 16384
+    x 2048 over 16) and the table's 256000 x 2048 over 16, in bf16."""
+    rec = dryrun.run_cell("gemma-2b", "train_4k", "single", None)
+    rows = 8 * 4096
+    layer = 2 * (2 * 2048 + 2 * 2048 * 8 * 256 + 2 * 2048 * 256
+                 + 2048 * 32768 // 16 + 16384 * 2048 // 16)
+    table = 2 * 256000 * 2048 // 16
+    assert dryrun.gathered_bytes(get_config("gemma-2b"),
+                                 dryrun.production_mesh(False)) == \
+        (layer, table)
+    want = rows * 2048 * 2 * 19 + 2 * rows * 16000 * 4 + 2 * (layer + table)
+    assert rec["per_rank_bytes"]["activations"] == want
+
+
+def test_hybrid_gathered_layers_by_hand():
+    """recurrentgemma-9b on the 16 x 16 mesh, each layer's gathered bytes
+    counted by hand in bf16, in the model's order (12 groups of two
+    RG-LRU layers and a local attention layer, then 2 RG-LRU layers): an
+    RG-LRU layer reads its mixer whole (both norms' 2 x 4096; w_x,
+    w_gate, wa, wi and w_out 4096 x 4096 each; conv_w 4 x 4096; conv_b,
+    ba, bi and lam 4096 each) and its MLP's wi 4096 x 24576 and wo 12288
+    x 4096 over 16; a local layer reads its 16 query heads over 16 (wq
+    4096 x 16 x 256 and wo 16 x 256 x 4096, one head a rank), its one KV
+    head whole (wk and wv 4096 x 256 each) and the same MLP.  The table
+    is 256000 x 4096 over 16."""
+    mlp = 4096 * 24576 // 16 + 12288 * 4096 // 16
+    rec = 2 * (2 * 4096 + 5 * 4096 * 4096 + 4 * 4096 + 4 * 4096 + mlp)
+    local = 2 * (2 * 4096 + 2 * 4096 * 16 * 256 // 16 + 2 * 4096 * 256
+                 + mlp)
+    layers, table = dryrun.gathered_layers(get_config("recurrentgemma-9b"),
+                                           dryrun.production_mesh(False))
+    assert layers == (12 * [("rglru", rec), ("rglru", rec), ("local", local)]
+                      + 2 * [("rglru", rec)])
+    assert table == 2 * 256000 * 4096 // 16
 
 
 def test_run_cell_records_a_failure(tmp_path, monkeypatch):

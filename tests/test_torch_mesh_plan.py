@@ -437,28 +437,66 @@ class _SizedFakeMesh(_FakeDeviceMesh):
 
 @pytest.mark.parametrize("arch,chunked", [
     ("gemma-2b", {"embed.table": ("R", "S(0)"),
+                  "layers.attn.wq": ("R", "S(2)"),
+                  "layers.attn.wo": ("R", "S(1)"),
                   "layers.mlp.wi": ("R", "S(2)"),
                   "layers.mlp.wo": ("R", "S(1)")}),
     ("stablelm-1.6b", {"embed.table": ("R", "S(0)"),
                        "unembed.w": ("R", "S(1)"),
+                       "layers.attn.wq": ("R", "S(2)"),
+                       "layers.attn.wk": ("R", "S(2)"),
+                       "layers.attn.wv": ("R", "S(2)"),
+                       "layers.attn.wo": ("R", "S(1)"),
+                       "layers.attn.bq": ("R", "S(1)"),
+                       "layers.attn.bk": ("R", "S(1)"),
+                       "layers.attn.bv": ("R", "S(1)"),
                        "layers.mlp.wi": ("R", "S(2)"),
                        "layers.mlp.wo": ("R", "S(1)"),
                        "layers.mlp.bi": ("R", "S(1)")})])
 def test_sharded_step_computes_tp_leaves_at_their_chunks(arch, chunked):
     """On (data 2, model 2) at the full config's shapes, the sharded step
-    computes the MLP's weights, the embedding table and the untied head
-    at their stored chunk over "model" (the tensor-parallel layers read
-    them so) and every other leaf whole; over "data" every leaf is
-    gathered."""
-    from repro_torch.train import train_step as ts
+    computes the MLP's weights, GQA attention's heads (gemma-2b's one KV
+    head is replicated, so its wk / wv are read whole), the embedding
+    table and the untied head at their stored chunk over "model" (the
+    tensor-parallel layers read them so) and every other leaf whole;
+    over "data" every leaf is gathered."""
+    from repro_torch.distributed import fsdp
     cfg = get_config(arch)
     fake = _SizedFakeMesh({"data": 2, "model": 2})
     shapes = {name: shape for name, shape, _ in _param_leaves(arch)}
     stored = psr.param_placements(shapes, preg.param_axes(cfg), fake)
+    groups = {}
+    for name in stored:
+        group, leaf = name.rsplit(".", 1)
+        groups.setdefault(group, {})[leaf] = shapes[name]
     got = {}
     for name, pl in stored.items():
-        want = ts._compute_placements(name, pl, fake, ("data",))
+        group, leaf = name.rsplit(".", 1)
+        want = fsdp.read_placements(pl, ("data", "model"),
+                                    psr.reads_model_chunk(
+                                        group.rsplit(".", 1)[-1], leaf,
+                                        groups[group], 2))
         if any(p.is_shard() for p in want):
             got[name] = tuple(str(p) for p in want)
             assert want[1] == pl[1], name
     assert got == chunked
+
+
+@pytest.mark.parametrize("heads,kv,tp,keep", [
+    (8, 1, 2, True), (4, 4, 2, True), (16, 1, 16, True), (16, 16, 16, True),
+    (12, 3, 2, False), (40, 8, 16, False), (6, 2, 4, False)])
+def test_attention_reads_its_chunk_only_where_heads_keep_kv_groups(
+        heads, kv, tp, keep):
+    """GQA attention's leaves are read at their chunk over "model" only
+    where each rank's query heads read whole K/V groups: ``heads`` a
+    multiple of ``tp`` and the K/V heads too, or a rank's heads a multiple
+    or a divisor of a group (12 heads in groups of 4 over 2 ranks cut a
+    group, and the layer is read whole); ``bo`` and the router never."""
+    shapes = {"wq": (64, heads, 16), "wk": (64, kv, 16), "wv": (64, kv, 16),
+              "wo": (heads, 16, 64), "bo": (64,)}
+    assert psr.heads_keep_groups(heads, kv, tp) == keep
+    for leaf in ("wq", "wk", "wv", "wo"):
+        assert psr.reads_model_chunk("attn", leaf, shapes, tp) == keep
+    assert not psr.reads_model_chunk("attn", "bo", shapes, tp)
+    assert not psr.reads_model_chunk("moe", "router", {}, tp)
+    assert not psr.reads_model_chunk("rec", "wi", {}, tp)
