@@ -330,6 +330,7 @@ the card's ``nvidia-smi`` name and power limit; the final line is
 ``{"ok": true, "device": {...}}``.  Needs no network and one card.
 """
 import contextlib
+import importlib
 import json
 import math
 import os
@@ -789,6 +790,7 @@ def phase_kernels(torch):
     _head_form_cases(torch, rec, gen)
     _mla_width_cases(torch, rec, gen)
     _vlm_encdec_cases(torch, rec, gen)
+    _shard_cases(torch, rec, gen)
     return rec
 
 
@@ -1464,32 +1466,61 @@ def _gated_cases(torch, rec, gen):
     folds written and read (8 bytes an aggregate, 4 a fold, a (batch,
     chunk, channel) each), which the chunk sets, is printed beside it as
     ``workspace_mb``."""
-    from repro_torch.kernels import ops, ref
     w = 4096
-    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
     for b, s in ((1, HYB_S), (2, 300)):
-        la, bb = -0.5 * randn(b, s, w).abs(), randn(b, s, w)
-        h0 = 0.5 * randn(b, w)
-        derived = min(ops.default_gated_chunk(s, w), s)
-        for reverse in (False, True):
-            for with_h0 in ((False, True) if b == 1 else (True,)):
-                hh = h0 if with_h0 else None
-                for chunk in (derived, 64) if b == 1 else (derived,):
-                    call = lambda c=chunk: ops.gated_recurrence(
-                        la, bb, hh, reverse, chunk=c)
-                    shape = (f"K8 float32 B={b} S={s} w={w}"
-                             + " reverse" * reverse + " h0" * with_h0
-                             + f" chunk={chunk}")
-                    work = 2 * b * -(-s // chunk) * w * (8 + 4)
-                    extra = {"graph_ms": graph_ms(torch, call),
-                             "workspace_mb": work / 1e6}
-                    _case(torch, rec, "K8", "float32", ("K8", "float32"),
-                          call, lambda: ref.gated_scan(la, bb, hh, reverse),
-                          None, 3.0 * b * s * w,
-                          4 * (3 * b * s * w + (1 + with_h0) * b * w),
-                          shape, extra)
-                    _rerun_equal(torch, call, shape)
-        del la, bb, h0
+        _gated_rows(torch, rec, gen, b, s, w, with_64=b == 1)
+
+
+def _gated_rows(torch, rec, gen, b, s, w, with_64=False):
+    """``_gated_cases``' rows of one (b, s, w) shape: each walk at the
+    derived chunk (with ``with_64`` also at chunk 64, and without an
+    entering state as well as with one)."""
+    from repro_torch.kernels import ops, ref
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    la, bb = -0.5 * randn(b, s, w).abs(), randn(b, s, w)
+    h0 = 0.5 * randn(b, w)
+    derived = min(ops.default_gated_chunk(s, w), s)
+    for reverse in (False, True):
+        for with_h0 in ((False, True) if with_64 else (True,)):
+            hh = h0 if with_h0 else None
+            for chunk in (derived, 64) if with_64 else (derived,):
+                call = lambda c=chunk: ops.gated_recurrence(
+                    la, bb, hh, reverse, chunk=c)
+                shape = (f"K8 float32 B={b} S={s} w={w}"
+                         + " reverse" * reverse + " h0" * with_h0
+                         + f" chunk={chunk}")
+                work = 2 * b * -(-s // chunk) * w * (8 + 4)
+                extra = {"graph_ms": graph_ms(torch, call),
+                         "workspace_mb": work / 1e6}
+                _case(torch, rec, "K8", "float32", ("K8", "float32"),
+                      call, lambda: ref.gated_scan(la, bb, hh, reverse),
+                      None, 3.0 * b * s * w,
+                      4 * (3 * b * s * w + (1 + with_h0) * b * w),
+                      shape, extra)
+                _rerun_equal(torch, call, shape)
+    del la, bb, h0
+
+
+def _shard_cases(torch, rec, gen):
+    """The kernels at the per-shard shapes ``[dist_path]``'s sharded train
+    steps give them on (data 2, model 2), each rank its 2 of the batch's
+    4 rows at S = 512: K2 (export), K3, K4 on minicpm3-4b's 20 of 40 MLA
+    heads at (96, 64); K6 (with and without its export) and K7 on
+    mamba2-780m's 24 of 48 SSD heads of 64 (state 128, q = 256); K8 on
+    recurrentgemma-9b's 2048 of 4096 channels."""
+    from repro_torch.kernels import ops, ref
+    b, s = DIST_SIZES['train_b'] // 2, DIST_SIZES['train_s']
+    qk, vd = MLA_WIDTHS
+    _attention_training_cases(torch, rec, gen, torch.bfloat16, "bfloat16",
+                              2, b=b, s=s, g=1, kv=20, hd=qk, vd=vd)
+    h, p, n = 24, 64, 128
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    ins = [randn(b, s, h, p), randn(b, s, n), randn(b, s, n),
+           -0.3 * randn(b, s, h).abs(), 0.1 * randn(b, h, p, n),
+           randn(b, s, h, p), randn(b, h, p, n)]
+    _ssd_rows(torch, rec, ops, ref, ins, b, s, 256, n, h, p)
+    del ins
+    _gated_rows(torch, rec, gen, b, s, 2048)
 
 
 def _gemm_training_cases(torch, rec, gen, label="", t=TRAIN_B * TRAIN_S,
@@ -6325,9 +6356,11 @@ DIST_DIR = os.path.join(ROOT, "build", "dist_smoke")
 DIST_RANKS = 4
 #: the phase's sizes (passed to the spawned ranks): products at n^3, the
 #: gemma-2b prompt and greedy tokens, deepseek's MoE layers and prefill,
-#: the sharded train step's depth, batch, sequence and steps
+#: the sharded train step's depth (gemma-2b's at 2 of 18 layers, cut from
+#: 4 to keep the smoke's time when DIST_STEPS' steps joined the phase),
+#: batch, sequence and steps
 DIST_SIZES = dict(n=4096, prompt=(2, 512), tokens=32, moe_layers=2,
-                  moe_s=2048, train_layers=4, train_b=4, train_s=512,
+                  moe_s=2048, train_layers=2, train_b=4, train_s=512,
                   train_steps=2)
 #: the K1 plans at n^3 bf16: (label, mesh axes, shard, keywords)
 DIST_PLANS = (("row", (("x", 4),), {"i": "x"}, {}),
@@ -6354,7 +6387,9 @@ DIST_PATH_TOL = PATH_TOL
 #: sign of a gradient near zero the element moves the other way: the
 #: step's update (the f32 master's change) holds within GRAD_TOL in
 #: relative norm on the elements whose |m| clears DIST_CLEAR times the
-#: m's noise (the root mean square of the two runs' m difference), and
+#: m's noise (the root mean square of the two runs' m difference over
+#: the elements either run's m touched: the rows of an untied table that
+#: no token looked up hold exact zeros in both runs and no noise), and
 #: its sign agrees on at least DIST_SIGN_AGREE of all elements; the
 #: flipped elements' |m| over that noise is printed
 DIST_SAMPLE = 1 << 20
@@ -6362,6 +6397,28 @@ DIST_CLEAR = 4.0
 DIST_SIGN_AGREE = 0.99
 DIST_LEAVES = ("embed.table", "layers.mlp.wi", "layers.mlp.wo",
                "layers.attn.wq", "final_norm.scale")
+#: the sharded train steps beside gemma-2b's, each on (data 2, model 2)
+#: at train_b x train_s from one seed, held to the single process's as
+#: gemma-2b's is: (name, config module, layers, the leaves whose master,
+#: m and v are held, the kernels the step must launch).  minicpm3-4b's
+#: MLA runs 20 of its 40 heads a rank (K2-K4 at (96, 64)),
+#: recurrentgemma-9b's (rglru, rglru, local) group 2048 of its 4096
+#: channels a rank (K8), mamba2-780m 24 of its 48 SSD heads a rank (K6 /
+#: K7)
+DIST_STEPS = (
+    ("minicpm3-4b", "minicpm3_4b", 2,
+     ("layers.attn.wq_b", "layers.attn.wkv_a", "layers.attn.wo",
+      "layers.mlp.wi", "embed.table"), ("K1", "K2", "K3", "K4")),
+    ("recurrentgemma-9b", "recurrentgemma_9b", 3,
+     ("groups.rec.w_x", "groups.rec.wa", "groups.rec.w_out",
+      "groups.att.wq", "embed.table"), ("K1", "K2", "K3", "K4", "K8")),
+    ("mamba2-780m", "mamba2_780m", 2,
+     ("layers.mixer.w_in", "layers.mixer.conv_w", "layers.mixer.norm_scale",
+      "layers.mixer.w_out", "embed.table"), ("K1", "K6", "K7")))
+#: the dry-run's collective model of a sharded step's cell against the
+#: bytes its collectives sent (``comm.SENT``), per op: within 1% (the
+#: model leaves out the f32 scalars), as the CPU test holds it
+DIST_SENT_TOL = 0.01
 #: deepseek's EP prefill routes its own residual, which the dense
 #: layer's TP rounding moves: the (token, layer) routings that differ end
 #: to end from the single process's are at most 3x the 24 of 2048
@@ -6515,11 +6572,36 @@ def _dist_single(torch, device, full, card, S):
     del params, logits
 
     cfg = _dist_cfg(gemma_2b, full, S['train_layers'])
+    ref["train"] = _dist_single_steps(torch, device, cfg, DIST_LEAVES, S)
+    tr = ref["train"]
+    print(f"[dist_path] single process: K1 {n}^3 bf16 {ref['K1_ms']:.4f} ms "
+          f"({ref['K1_route']}), K9 max-plus {n}^3 f32 {ref['K9_ms']:.4f} "
+          f"ms; gemma-2b {S['train_layers']} layers {tr['params'] / 1e9:.3f} "
+          f"B params: step ms {[round(x, 1) for x in tr['ms']]}, losses "
+          f"{tr['losses']}, peak {tr['peak'] / 2**30:.2f} GiB ({card})",
+          flush=True)
+    for name, module, layers, leaves, _ in DIST_STEPS:
+        cfg = _dist_cfg(importlib.import_module(
+            f"repro_torch.configs.{module}"), full, layers)
+        tr = ref[name] = _dist_single_steps(torch, device, cfg, leaves, S)
+        print(f"[dist_path] single process: {name} {layers} layers "
+              f"{tr['params'] / 1e9:.3f} B params: step ms "
+              f"{[round(x, 1) for x in tr['ms']]}, losses {tr['losses']}, "
+              f"peak {tr['peak'] / 2**30:.2f} GiB ({card})", flush=True)
+    return ref
+
+
+def _dist_single_steps(torch, device, cfg, leaves, S) -> dict:
+    """``S['train_steps']`` AdamW steps of ``cfg`` in one process on
+    ``_dist_batches``: the losses, step ms, peak, parameter count, and
+    each held leaf's grid strides, starting values and (master, m, v)
+    after each step."""
+    from repro_torch.train import train_step as ts
     params = _dist_params(torch, cfg, device, trainable=True)
     strides = {k: _grid_strides(params.get_parameter(k).shape)
-               for k in DIST_LEAVES}
+               for k in leaves}
     start = {k: _grid(params.get_parameter(k).detach(), strides[k])
-             for k in DIST_LEAVES}
+             for k in leaves}
     state = ts.init_state(cfg, params, device)
     step = ts.make_train_step(cfg)
     cuda = device == "cuda"
@@ -6533,22 +6615,15 @@ def _dist_single(torch, device, full, card, S):
         losses.append(float(m["loss"]))          # waits for the step
         ms.append((time.perf_counter() - t0) * 1e3)
         moments.append({k: tuple(_grid(tree[k], strides[k]) for tree in (
-            state.opt.master, state.opt.m, state.opt.v))
-            for k in DIST_LEAVES})
-    ref["train_losses"] = losses
-    ref["train_ms"] = ms
-    ref["train_peak"] = torch.cuda.max_memory_allocated() if cuda else 0
-    ref["train_start"] = start
-    ref["train_strides"] = strides
-    ref["train_moments"] = moments
-    n_params = sum(p.numel() for p in params.parameters())
-    print(f"[dist_path] single process: K1 {n}^3 bf16 {ref['K1_ms']:.4f} ms "
-          f"({ref['K1_route']}), K9 max-plus {n}^3 f32 {ref['K9_ms']:.4f} "
-          f"ms; gemma-2b {S['train_layers']} layers {n_params / 1e9:.3f} B "
-          f"params: step ms {[round(x, 1) for x in ms]}, losses {losses}, "
-          f"peak {ref['train_peak'] / 2**30:.2f} GiB ({card})", flush=True)
+            state.opt.master, state.opt.m, state.opt.v)) for k in leaves})
+    out = {"losses": losses, "ms": ms, "start": start, "strides": strides,
+           "moments": moments,
+           "peak": torch.cuda.max_memory_allocated() if cuda else 0,
+           "params": sum(p.numel() for p in params.parameters())}
     del state, params
-    return ref
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
 
 
 def _dist_barrier(torch):
@@ -6588,24 +6663,37 @@ class _CollectiveClock:
 
 def _hold_moments(torch, moments: list, ref: dict) -> dict:
     """Each step's sharded m, v and master update against the single
-    process's, on each held leaf's grid (the rules at DIST_CLEAR):
-    ``{leaf: [per step {m_err, v_err, upd_err, clear, sign_agree,
-    flipped, flip_m_med, flip_m_max}]}``."""
+    process's (``ref``, from ``_dist_single_steps``), on each held leaf's
+    grid (the rules at DIST_CLEAR): ``{leaf: [per step {m_err, v_err,
+    upd_err, upd_err_all, clear, sign_agree, flipped, flip_m_med,
+    flip_m_max}]}``."""
     held = {}
-    for k in DIST_LEAVES:
-        prev_k = prev_p = ref["train_start"][k]
+    for k in ref["start"]:
+        prev_k = prev_p = ref["start"][k]
         rows = []
-        for got, want in zip(moments, ref["train_moments"]):
+        for got, want in zip(moments, ref["moments"]):
             (mk, m1k, v1k), (mp, m1p, v1p) = got[k], want[k]
-            rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+            # in f64: the f32 sum of squares of v (g^2 summed) overflows
+            # on recurrentgemma's tied table
+            rel = lambda a, b: ((a - b).double().norm()
+                                / b.double().norm()).item()
             duk, dup = mk - prev_k, mp - prev_p
-            noise = (m1k - m1p).square().mean().sqrt()
+            touched = (m1k != 0) | (m1p != 0)
+            noise = (m1k - m1p)[touched].square().mean().sqrt() \
+                if touched.any() else torch.zeros(())
             clear = m1p.abs() > DIST_CLEAR * noise
+            # printed beside: the noise over every element, never-read
+            # rows' zeros included
+            clear_all = m1p.abs() > DIST_CLEAR * (
+                m1k - m1p).square().mean().sqrt()
             flip = torch.sign(duk) != torch.sign(dup)
             ratio = m1p.abs()[flip] / noise
             rows.append(dict(
+                touched=touched.float().mean().item(),
                 m_err=rel(m1k, m1p), v_err=rel(v1k, v1p),
                 upd_err=rel(duk[clear], dup[clear]) if clear.any() else 0.0,
+                upd_err_all=rel(duk[clear_all], dup[clear_all])
+                if clear_all.any() else 0.0,
                 clear=clear.float().mean().item(),
                 sign_agree=1.0 - flip.float().mean().item(),
                 flipped=int(flip.sum()),
@@ -6614,6 +6702,48 @@ def _hold_moments(torch, moments: list, ref: dict) -> dict:
             prev_k, prev_p = mk, mp
         held[k] = rows
     return held
+
+
+def _dist_sharded_steps(torch, cfg, mesh, device, S, ref, rank) -> dict:
+    """``S['train_steps']`` sharded AdamW steps of ``cfg`` on ``mesh``
+    (data 2, model 2) from the single process's seed, this rank's rows of
+    each ``_dist_batches`` batch: the losses, step and collective ms, the
+    ``fsdp.GATHERED`` high-water, the bytes the first step's collectives
+    sent by op (``comm.SENT``) and, on rank 0, the held leaves' moments
+    against ``ref`` (``_hold_moments``)."""
+    from repro_torch.distributed import comm, fsdp
+    from repro_torch.train import train_step as ts
+    params = _dist_params(torch, cfg, device, trainable=True)
+    state = ts.init_sharded_state(cfg, params, mesh)
+    del params
+    step = ts.make_sharded_train_step(cfg, mesh)
+    fsdp.GATHERED.reset()
+    row = mesh.get_coordinate()[0]
+    losses, step_ms, coll_ms, moments, sent = [], [], [], [], None
+    for batch in _dist_batches(torch, cfg, device, S):
+        rows_b = {k: v.chunk(2)[row] for k, v in batch.items()}
+        comm.SENT.clear()
+        with _CollectiveClock(comm) as clock:
+            t = time.perf_counter()
+            state, mt = step(state, rows_b)
+            if device == "cuda":
+                torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        coll_ms.append(clock.s * 1e3)
+        sent = dict(comm.SENT) if sent is None else sent
+        losses.append(float(mt["loss"]))
+        # each held leaf's master, m and v: every rank's chunk's grid,
+        # gathered into the whole leaf's grid
+        moments.append({k: tuple(comm.gather_full(
+            _grid(tree[k].to_local(), ref["strides"][k]), mesh,
+            tree[k].placements).cpu() for tree in (
+                state.opt.master, state.opt.m, state.opt.v))
+            for k in ref["start"]})
+    del state
+    return {"losses": losses, "ms": step_ms, "coll_ms": coll_ms,
+            "gathered_high": fsdp.GATHERED.high, "sent": sent,
+            "held": _hold_moments(torch, moments, ref) if rank == 0
+            else None}
 
 
 def _dist_rank(rank: int, world: int, directory: str, device: str,
@@ -6649,6 +6779,13 @@ def _dist_rank(rank: int, world: int, directory: str, device: str,
                             rank=rank, world_size=world)
     out = {"launches": {}, "peak": {}, "ms": {}, "coll_ms": {}}
     ref = torch.load(os.path.join(directory, "ref.pt"), map_location=device)
+    # the sharded steps' references are held on the host, so that a rank's
+    # peak in a step is the step's own
+    names = ("train", *(name for name, *_ in DIST_STEPS))
+    steps = torch.load(os.path.join(directory, "ref.pt"), map_location="cpu")
+    steps = {k: steps[k] for k in names}
+    for k in names:
+        del ref[k]
     meshes = {}
 
     def mesh(axes):
@@ -6822,37 +6959,18 @@ def _dist_rank(rank: int, world: int, directory: str, device: str,
     t0 = phase("train")
     m22 = mesh((("data", 2), ("model", world // 2)))
     cfg = _dist_cfg(gemma_2b, full, S['train_layers'])
-    params = _dist_params(torch, cfg, device, trainable=True)
-    state = ts.init_sharded_state(cfg, params, m22)
-    del params
-    step = ts.make_sharded_train_step(cfg, m22)
-    fsdp.GATHERED.reset()
-    row = m22.get_coordinate()[0]
-    losses, step_ms, coll_ms, moments = [], [], [], []
-    for batch in _dist_batches(torch, cfg, device, S):
-        rows_b = {k: v.chunk(2)[row] for k, v in batch.items()}
-        with _CollectiveClock(comm) as clock:
-            t = time.perf_counter()
-            state, mt = step(state, rows_b)
-            if device == "cuda":
-                torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        coll_ms.append(clock.s * 1e3)
-        losses.append(float(mt["loss"]))
-        # each held leaf's master, m and v: every rank's chunk's grid,
-        # gathered into the whole leaf's grid
-        moments.append({k: tuple(comm.gather_full(
-            _grid(tree[k].to_local(), ref["train_strides"][k]), m22,
-            tree[k].placements) for tree in (
-                state.opt.master, state.opt.m, state.opt.v))
-            for k in DIST_LEAVES})
-    out["train_losses"], out["train_ms"] = losses, step_ms
-    out["coll_ms"]["train"] = coll_ms
-    out["gathered_high"] = fsdp.GATHERED.high
-    if rank == 0:
-        out["train_held"] = _hold_moments(torch, moments, ref)
+    out["train"] = _dist_sharded_steps(torch, cfg, m22, device, S,
+                                       steps["train"], rank)
     done("train", t0)
-    del state
+    # 4b. minicpm3-4b's MLA heads, recurrentgemma-9b's RG-LRU channels and
+    # mamba2-780m's SSD heads at their "model" chunks, the same way
+    for name, module, layers, _, _ in DIST_STEPS:
+        t0 = phase(name)
+        cfg = _dist_cfg(importlib.import_module(
+            f"repro_torch.configs.{module}"), full, layers)
+        out[name] = _dist_sharded_steps(torch, cfg, m22, device, S,
+                                        steps[name], rank)
+        done(name, t0)
 
     # 5. whisper-base's state saved at (2, 2), restored at (4, 1)
     t0 = phase("checkpoint")
@@ -6883,6 +7001,73 @@ def _dist_rank(rank: int, world: int, directory: str, device: str,
     del fresh
     torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
     dist.destroy_process_group()
+
+
+def _dist_report_steps(outs, key, name, cfg, ref, S, card) -> None:
+    """Print and hold one sharded step's results (``_dist_sharded_steps``
+    under ``key`` in each rank's ``outs``) against the single process's
+    ``ref``: the losses within LOSS_TOL, the held leaves' m, v and
+    updates at DIST_CLEAR; each rank's peak beside the dry-run's per-rank
+    model of the cell (state + activations), its ``fsdp.GATHERED``
+    high-water beside the model's largest layer and table (held at most
+    their sum), and the bytes its collectives sent by op beside the
+    dry-run's ``collective_bytes`` of the cell (held within
+    DIST_SENT_TOL, the same ops)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.common import ShapeConfig
+    o = outs[0][key]
+    print(f"[dist_path] {name} sharded train step on (data 2, model 2), "
+          f"{cfg.n_layers} layers, B={S['train_b']} S={S['train_s']}: "
+          f"losses {o['losses']} (single {ref['losses']}); step ms "
+          f"{[round(x, 1) for x in o['ms']]} (single "
+          f"{[round(x, 1) for x in ref['ms']]}), collectives ms "
+          f"{[round(x, 1) for x in o['coll_ms']]}", flush=True)
+    for a, b in zip(o["losses"], ref["losses"]):
+        require(abs(a - b) <= LOSS_TOL * abs(b), f"{name}'s sharded loss off")
+    for k, steps in o["held"].items():
+        for i, h in enumerate(steps):
+            print(f"[dist_path] {name} step {i + 1} {k}: m rel err "
+                  f"{h['m_err']:.3e}, v rel err {h['v_err']:.3e} (tol "
+                  f"{GRAD_TOL:g}); update rel err {h['upd_err']:.3e} on "
+                  f"the {h['clear']:.4f} of elements whose |m| > "
+                  f"{DIST_CLEAR:g} x the m noise on the {h['touched']:.4f} "
+                  f"touched (tol {GRAD_TOL:g}; {h['upd_err_all']:.3e} "
+                  f"at the noise over every element); update "
+                  f"sign agrees on {h['sign_agree']:.6f} (tol "
+                  f"{DIST_SIGN_AGREE:g}); {h['flipped']} flipped, their |m| "
+                  f"/ noise median {h['flip_m_med']:.3f} max "
+                  f"{h['flip_m_max']:.3f}", flush=True)
+            require(h["m_err"] <= GRAD_TOL and h["v_err"] <= GRAD_TOL,
+                    f"{name}'s sharded moments of {k} off (step {i + 1})")
+            require(h["upd_err"] <= GRAD_TOL and
+                    h["sign_agree"] >= DIST_SIGN_AGREE,
+                    f"{name}'s sharded update of {k} off (step {i + 1})")
+    sized = dryrun.SizedMesh({"data": 2, "model": DIST_RANKS // 2})
+    shp = ShapeConfig("dist_train", S['train_s'], S['train_b'], "train")
+    state_b = sum(dryrun.state_bytes(cfg, sized).values())
+    act_b = dryrun._activation_bytes(cfg, shp, sized, 1)
+    layer_b, table_b = dryrun.gathered_bytes(cfg, sized)
+    model = dryrun.collective_bytes(cfg, shp, sized, 1)
+    for r, x in enumerate(outs):
+        peak, got = x["peak"].get(key, 0), x[key]
+        sent = got["sent"]
+        print(f"[dist_path] {name} rank {r}: peak {peak / 2**30:.3f} GiB, "
+              f"dry-run model {(state_b + act_b) / 2**30:.3f} GiB (state "
+              f"{state_b / 2**30:.3f} + activations {act_b / 2**30:.3f}), "
+              f"peak / model {peak / (state_b + act_b):.3f}; GATHERED "
+              f"high-water {got['gathered_high'] / 2**30:.3f} GiB (largest "
+              f"layer {layer_b / 2**30:.3f} + table {table_b / 2**30:.3f} "
+              f"GiB); step 1 collectives sent MiB "
+              f"{ {k: round(v / 2**20, 3) for k, v in sorted(sent.items())} }"
+              f", dry-run "
+              f"{ {k: round(v / 2**20, 3) for k, v in sorted(model.items())} }"
+              f" ({card})", flush=True)
+        require(got["gathered_high"] <= layer_b + table_b,
+                f"{name} rank {r} held more gathered weights than a layer "
+                f"and the table")
+        require(sorted(sent) == sorted(model) and all(
+            abs(sent[k] - v) <= DIST_SENT_TOL * v for k, v in model.items()),
+            f"{name} rank {r}'s collectives differ from the dry-run's model")
 
 
 #: a config module's config at full width (the smoke's), or its reduced
@@ -6994,7 +7179,7 @@ def phase_dist_path(torch, card, device="cuda", full_name="full",
     t0 = time.perf_counter()
     ref = _dist_single(torch, device, full, card, S)
     torch.save(ref, os.path.join(DIST_DIR, "ref.pt"))
-    single_peak = ref["train_peak"]
+    single_peak = ref["train"]["peak"]
     del ref
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -7068,31 +7253,12 @@ def phase_dist_path(torch, card, device="cuda", full_name="full",
             and o["moe_route_diffs_e2e"] <= DIST_ROUTE_E2E_MAX
             and o["moe_layer_err"] <= DIST_PATH_TOL,
             "EP MoE differs from the single process")
-    print(f"[dist_path] gemma-2b sharded train step on (data 2, model 2), "
-          f"{S['train_layers']} of 18 layers, B={S['train_b']} "
-          f"S={S['train_s']}: losses {o['train_losses']} (single "
-          f"{ref['train_losses']}); step ms "
-          f"{[round(x, 1) for x in o['train_ms']]} "
-          f"(single {[round(x, 1) for x in ref['train_ms']]}), collectives "
-          f"ms {[round(x, 1) for x in o['coll_ms']['train']]}", flush=True)
-    for a, b in zip(o["train_losses"], ref["train_losses"]):
-        require(abs(a - b) <= LOSS_TOL * abs(b), "sharded loss off")
-    for k, steps in o["train_held"].items():
-        for i, h in enumerate(steps):
-            print(f"[dist_path] train step {i + 1} {k}: m rel err "
-                  f"{h['m_err']:.3e}, v rel err {h['v_err']:.3e} (tol "
-                  f"{GRAD_TOL:g}); update rel err {h['upd_err']:.3e} on "
-                  f"the {h['clear']:.4f} of elements whose |m| > "
-                  f"{DIST_CLEAR:g} x the m noise (tol {GRAD_TOL:g}); update "
-                  f"sign agrees on {h['sign_agree']:.6f} (tol "
-                  f"{DIST_SIGN_AGREE:g}); {h['flipped']} flipped, their |m| "
-                  f"/ noise median {h['flip_m_med']:.3f} max "
-                  f"{h['flip_m_max']:.3f}", flush=True)
-            require(h["m_err"] <= GRAD_TOL and h["v_err"] <= GRAD_TOL,
-                    f"the sharded step's moments of {k} off (step {i + 1})")
-            require(h["upd_err"] <= GRAD_TOL and
-                    h["sign_agree"] >= DIST_SIGN_AGREE,
-                    f"the sharded step's update of {k} off (step {i + 1})")
+    cfg = _dist_cfg(gemma_2b, full, S['train_layers'])
+    _dist_report_steps(outs, "train", "gemma-2b", cfg, ref["train"], S, card)
+    for name, module, layers, _, _ in DIST_STEPS:
+        cfg = _dist_cfg(importlib.import_module(
+            f"repro_torch.configs.{module}"), full, layers)
+        _dist_report_steps(outs, name, name, cfg, ref[name], S, card)
     require(all(x["ckpt_equal"] for x in outs), "re-meshed checkpoint "
             "differs")
 
@@ -7109,29 +7275,6 @@ def phase_dist_path(torch, card, device="cuda", full_name="full",
           f"{o['ckpt_equal']} / {one_equal}", flush=True)
     require(one_equal, "the checkpoint restored in one process differs")
     del one
-    # the dry-run's per-rank model of the sharded step's cell: the state at
-    # its placements, the activations and the gathered weights
-    from repro_torch.launch import dryrun
-    from repro_torch.models.common import ShapeConfig
-    cfg = _dist_cfg(gemma_2b, full, S['train_layers'])
-    sized = dryrun.SizedMesh({"data": 2, "model": DIST_RANKS // 2})
-    state_b = sum(dryrun.state_bytes(cfg, sized).values())
-    act_b = dryrun._activation_bytes(cfg, ShapeConfig(
-        "dist_train", S['train_s'], S['train_b'], "train"), sized, 1)
-    layer_b, table_b = dryrun.gathered_bytes(cfg, sized)
-    for r, x in enumerate(outs):
-        peak = x["peak"].get("train", 0)
-        print(f"[dist_path] rank {r}: sharded train step peak "
-              f"{peak / 2**30:.3f} GiB; GATHERED high-water "
-              f"{x['gathered_high'] / 2**30:.3f} GiB (largest layer "
-              f"{layer_b / 2**30:.3f} + table {table_b / 2**30:.3f} GiB); "
-              f"dry-run model {(state_b + act_b) / 2**30:.3f} GiB (state "
-              f"{state_b / 2**30:.3f} + activations {act_b / 2**30:.3f}), "
-              f"peak / model {peak / (state_b + act_b):.3f} ({card})",
-              flush=True)
-        require(x["gathered_high"] <= layer_b + table_b,
-                f"rank {r} held more gathered weights than a layer and the "
-                f"table")
     for r, x in enumerate(outs):
         peaks = {k: round(v / 2**30, 2) for k, v in x["peak"].items()}
         launched = {k: {kid: v for kid, v in d.items() if v}
@@ -7147,7 +7290,9 @@ def phase_dist_path(torch, card, device="cuda", full_name="full",
             for path, want in (("plans", ("K1", "K9")),
                                ("gemma_tp", ("K1", "K2")),
                                ("moe_ep", ("K1", "K2")),
-                               ("train", ("K1", "K2", "K3", "K4"))):
+                               ("train", ("K1", "K2", "K3", "K4")),
+                               *((name, kids) for name, _, _, _, kids
+                                 in DIST_STEPS)):
                 require(all(x["launches"][path][k] > 0 for k in want),
                         f"rank {r}'s {path} launched none of {want}")
     shutil.rmtree(DIST_DIR, ignore_errors=True)

@@ -99,7 +99,8 @@ def _wait_for_writer() -> None:
     if dist.is_initialized():
         dev = (torch.device("cuda", torch.cuda.current_device())
                if dist.get_backend() == dist.Backend.NCCL else "cpu")
-        dist.all_reduce(torch.zeros(1, device=dev))
+        from repro_torch.distributed import comm
+        comm.all_reduce(torch.zeros(1, device=dev), None)
 
 
 def _to_host(leaf: torch.Tensor) -> tuple[np.ndarray, str]:

@@ -80,6 +80,7 @@ def psum_matmul(x: torch.Tensor, w: torch.Tensor, mesh, axis: str
     parts, works = [], []
     for lo, hi in bounds:
         part = ops.matmul(x[lo:hi], w, out_dtype=torch.float32).contiguous()
+        comm.count("all-reduce", p, comm.nbytes(part))
         works.append(dist.all_reduce(part, group=group, async_op=True)
                      if p > 1 else None)
         parts.append(part)

@@ -19,7 +19,21 @@ carry an operand into a per-rank product: :func:`shard_local` (a
 replicated tensor's slice; backward all-gathers the slices) and
 :func:`replicated_in` (identity; backward sums the partial gradients of a
 replicated operand that the ranks of an axis used on different shards of
-the work).
+the work).  :func:`gather_partial` is the all-gather whose backward
+reduce-scatters: each rank reads the whole gathered tensor with its own
+shard of the work (its columns of a weight), so its gradient is a part
+of the whole one.
+
+``SENT`` counts the bytes each op moves from this rank, by op name
+(``"all-reduce"``, ``"all-gather"``, ``"reduce-scatter"`` and, for the
+rings' point-to-point steps, ``"send"``), in the per-device ring
+convention of ``plan.DistributedPlan.ici_bytes_by_kind``: an
+all-reduce 2 (p - 1) / p of its tensor, a reduce-scatter (p - 1) / p of
+its input, an all-gather (p - 1) / p of its output, a send the tensor
+sent.  Every collective of the port counts there, whatever its backend.
+Each layer kind lists beside its forward the ``"model"`` collectives it
+sends in the sharded train step as :class:`Traffic` (its module's
+``train_traffic``), which the dry-run's model of the step adds up.
 
 ``torch``'s collectives concatenate along dim 0, so a scatter or gather
 along another dim moves it there and back.  gloo takes CUDA tensors for
@@ -31,8 +45,46 @@ raises.
 """
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 import torch.distributed as dist
+
+
+#: the bytes this process's collectives moved, by op (module docstring);
+#: ``SENT.clear()`` starts a count
+SENT: dict[str, float] = {}
+
+
+def count(op: str, p: int, nbytes: int) -> None:
+    """Add one collective of ``op`` over ``p`` ranks on a tensor of
+    ``nbytes`` (the all-reduce's tensor, the reduce-scatter's input, the
+    all-gather's output, the bytes sent) to :data:`SENT`."""
+    if p <= 1:
+        return
+    share = {"all-reduce": 2.0 * (p - 1) / p, "send": 1.0}.get(
+        op, (p - 1) / p)
+    SENT[op] = SENT.get(op, 0.0) + share * nbytes
+
+
+class Traffic(NamedTuple):
+    """One collective over ``"model"`` that a layer sends a microbatch
+    of the sharded train step: ``op`` a :data:`SENT` key, ``nbytes`` the
+    tensor :func:`count` takes, and ``when`` it runs: ``"fwd"`` in the
+    forward (again in the remat rerun, but a layer's last, where the
+    rerun stops), ``"bwd"`` once in the backward, or ``"weight"`` a
+    weight gathered in the forward (again in the remat rerun or, with
+    remat off, where autograd unpacks it: ``fsdp.regather_saved``)."""
+    op: str
+    nbytes: int
+    when: str
+
+
+def nbytes(t) -> int:
+    """The bytes of ``t``, a tensor or anything with its ``shape`` and
+    ``dtype``."""
+    return math.prod(t.shape) * t.dtype.itemsize
 
 
 def stages_through_host(group, t: torch.Tensor) -> bool:
@@ -57,6 +109,7 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     tensor; these raw forms carry no gradient, the rules below do)."""
     out = t.detach().contiguous().clone()
     if group_size(group) > 1:
+        count("all-reduce", group_size(group), nbytes(out))
         dist.all_reduce(out, group=group, op={
             "sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op])
     return out
@@ -78,6 +131,7 @@ def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
                          f"over {p} ranks")
     src = _to_front(t, dim)
     out = src.new_empty((src.shape[0] // p,) + tuple(src.shape[1:]))
+    count("reduce-scatter", p, nbytes(src))
     dist.reduce_scatter_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous() if dim else out
 
@@ -91,6 +145,7 @@ def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
         return t.detach().contiguous().clone()
     src = _to_front(t, dim)
     out = src.new_empty((src.shape[0] * p,) + tuple(src.shape[1:]))
+    count("all-gather", p, nbytes(out))
     dist.all_gather_into_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous() if dim else out
 
@@ -111,6 +166,7 @@ def start_exchange(t: torch.Tensor, group, dst: int, src: int):
     staged = stages_through_host(group, t)
     out = t.cpu() if staged else t.contiguous()
     buf = torch.empty_like(out)
+    count("send", group_size(group), nbytes(out))
     glob = lambda r: dist.get_global_rank(group, r)
     reqs = dist.batch_isend_irecv([
         dist.P2POp(dist.isend, out, glob(dst), group=group),
@@ -159,6 +215,17 @@ class _AllGather(torch.autograd.Function):
         return chunk_of(g, ctx.group, ctx.dim).contiguous(), None, None
 
 
+class _AllGatherPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
 class _ShardLocal(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -191,6 +258,14 @@ def psum_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 def gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return _AllGather.apply(x, group, dim)
+
+
+def gather_partial(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The chunks of ``x`` over ``group`` concatenated along ``dim`` in
+    rank order, for ranks that each read the whole with their own shard
+    of the work: its gradient, a part on each rank, is summed over
+    ``group`` and scattered back onto the chunks (a reduce-scatter)."""
+    return _AllGatherPartial.apply(x, group, dim)
 
 
 def shard_local(x: torch.Tensor, group, dim: int) -> torch.Tensor:

@@ -228,6 +228,24 @@ def derived(fn, *srcs) -> torch.Tensor:
     return out
 
 
+def saved_regathers(leaf: str, dtype: torch.dtype, conv_width: int) -> int:
+    """How often the backward regathers a gathered leaf ``leaf`` (of
+    ``dtype``) of a layer with remat off (:func:`regather_saved`: one
+    regather each time autograd unpacks a saved view of it), by how the
+    port's layers read their leaves: a bias only by an add, which saves
+    nothing; a norm scale by an f32 product, which saves the leaf itself
+    in f32 and, below f32, its f32 copy instead; a depthwise conv's
+    weight a tap at a time (``conv_width`` saved slices); any other leaf
+    by one product that saves it once."""
+    if leaf == "conv_w":
+        return conv_width
+    if leaf == "scale":
+        return int(dtype == torch.float32)
+    if leaf in ("bias", "conv_b", "bo", "bi", "bq", "bk", "bv", "ba"):
+        return 0
+    return 1
+
+
 def _pack(t: torch.Tensor):
     remake = _remake_of(t)
     return t if remake is None else remake

@@ -180,22 +180,33 @@ def heads_keep_groups(heads: int, kv_heads: int, tp: int) -> bool:
 def reads_model_chunk(group: str, leaf: str, shapes: dict, tp: int) -> bool:
     """Whether the sharded train step's layers read parameter ``leaf`` of
     ``group`` (the last part of the group's name as the layer's slice
-    names it: ``"attn"``, ``"mlp"``, ``"moe"``, ...) at its stored chunk
-    over ``"model"`` (``tp`` ranks) rather than whole: an MLP's ``wi`` /
-    ``bi`` / ``wo``, the routed and shared experts, GQA attention's
-    projections and biases but ``bo`` where each rank's query heads read
-    whole K/V groups (:func:`heads_keep_groups` of ``shapes``, the group's
-    leaves' shapes, read from their last dims), the embedding table and
-    the untied head.  The router, MLA and the recurrent mixers are read
-    whole.  A leaf the rule table stores replicated over ``"model"`` is
-    whole whatever this says."""
+    names it: ``"attn"``, ``"mlp"``, ``"moe"``, ``"rec"``, ``"mixer"``,
+    ...) at its stored chunk over ``"model"`` (``tp`` ranks) rather than
+    whole: an MLP's ``wi`` / ``bi`` / ``wo``, the routed and shared
+    experts, GQA attention's projections and biases but ``bo`` where each
+    rank's query heads read whole K/V groups (:func:`heads_keep_groups` of
+    ``shapes``, the group's leaves' shapes, read from their last dims),
+    MLA's head-wise ``wq_b`` / ``wkv_b`` / ``wo`` (its latents' leaves
+    whole), every RG-LRU leaf (its channels; ``wa`` / ``wi`` their
+    columns), Mamba-2's ``norm_scale`` and ``w_out`` where its SSD heads
+    divide over ``tp`` (``w_in`` and the conv straddle the ``[z | x | B |
+    C | dt]`` split and stay whole), the embedding table and the untied
+    head.  The router is read whole.  A leaf the rule table stores
+    replicated over ``"model"`` is whole whatever this says."""
     if group.endswith("mlp"):
         return leaf in ("wi", "bi", "wo")
     if group == "moe":
         return leaf in ("wi", "wo", "shared_wi", "shared_wo")
+    if group in ("attn", "self_attn", "cross_attn") and "wq_b" in shapes:
+        return leaf in ("wq_b", "wkv_b", "wo")
     if group in ("attn", "self_attn", "cross_attn") and "wq" in shapes:
         return leaf in _HEAD_LEAVES and heads_keep_groups(
             shapes["wq"][-2], shapes["wk"][-2], tp)
+    if group == "rec":
+        return True
+    if group == "mixer":
+        return leaf in ("norm_scale", "w_out") and \
+            shapes["A_log"][-1] % tp == 0
     return (group, leaf) in (("embed", "table"), ("unembed", "w"))
 
 

@@ -35,21 +35,24 @@ lowering.  Per cell:
   each with its gradient); a prefill holds two residual streams and the
   last position's f32 logits; a decode step two ``(rows, d)`` residuals
   and its f32 logits ("rows": the batch over the data axes);
-* ``collectives_bytes``: per-device interconnect bytes by op of the
-  plans' ring model (``DistributedPlan.ici_bytes_by_kind``) for every
-  product the step plans (``models.layers``' tensor-parallel MLP: its
-  ``"col"`` and ``"sigma"`` plans a layer, on the decoder's rows or the
-  encoder's frames; the vocab head's ``"col"`` plan with its columns
-  gathered).  Each plan is derived on one data rank's rows (the batch
-  split over ``pod`` x ``data``, as the activations' batch axis is), its
-  rows left whole and only its ``"model"`` roles sharded: the ring model
-  charges the plan's whole output, which is then one device's.  A train
-  step's microbatches each count twice (the forward and the
-  input-gradient products, whose collective is the transposed plan's of
-  the same size), plus the gradient reduction: a ring all-reduce of the
-  per-rank f32 gradient over the data axes.  The routed experts' exchange
-  (``moe``'s shard-local dispatch) has no plan and is listed in
-  ``not_modeled``;
+* ``collectives_bytes``: per-device interconnect bytes by op.  A train
+  cell's is the sharded train step as it runs
+  (:func:`train_collective_bytes`: each layer's parameter gathers over
+  the data axes, again in the remat rerun, and their reduce-scatters; the
+  leaves outside the stacks once a microbatch; every layer's ``"model"``
+  collectives, the MLP's, GQA's, MLA's, the RG-LRU's, Mamba-2's and the
+  MoE's; the embedding's psum and the vocabulary-parallel loss; the
+  gradient reduction over the data axes a chunk is not sharded on),
+  held to what the step sends (``comm.SENT``) by
+  ``tests/test_torch_distributed.py``.  A prefill or decode cell's is
+  the plans' ring model (``DistributedPlan.ici_bytes_by_kind``) for
+  every product the step plans (``models.layers``' tensor-parallel MLP:
+  its ``"col"`` and ``"sigma"`` plans a layer, on the decoder's rows or
+  the encoder's frames; the vocab head's ``"col"`` plan with its columns
+  gathered), each derived on one data rank's rows (the batch split over
+  ``pod`` x ``data``), its rows left whole and only its ``"model"`` roles
+  sharded; the routed experts' exchange there has no plan and is listed
+  in ``not_modeled``;
 * ``roofline``: ``cost.from_quantities`` on the ``H100`` table at the
   mesh's chip count, with ``model_flops_lm`` (6 N D training, 2 N D
   inference, active parameters for MoE) as both the useful and the
@@ -202,9 +205,10 @@ def param_leaves(cfg: ArchConfig) -> dict[str, tuple]:
         cfg.dtype
     out = {}
     for group, leaves in shapes.items():
-        for name, spec in leaves.items():
-            leaf_dt = getattr(torch, spec[3]) if len(spec) > 3 else dt
-            out[f"{group}.{name}"] = (tuple(spec[0]), leaf_dt)
+        for name, (shape, _, *own) in leaves.items():
+            # a leaf's own dtype (the MoE router's f32), as draw_params
+            leaf_dt = getattr(torch, own[0]) if own else dt
+            out[f"{group}.{name}"] = (tuple(shape), leaf_dt)
     return out
 
 
@@ -265,17 +269,9 @@ class _Stacked(NamedTuple):
         return [_Stacked(self.shape[1:], self.dtype, pl)] * self.shape[0]
 
 
-def gathered_layers(cfg: ArchConfig, mesh) -> tuple[list, int]:
-    """``([(kind, bytes) a layer], table)``: the bytes of each layer's
-    weights as the sharded train step gathers them inside the layer
-    (``distributed.fsdp``: whole over the data axes; over ``"model"`` the
-    stored chunk where ``sharding.reads_model_chunk`` says the layer
-    reads it, else whole), the layers in order as the model's own loops
-    slice and name them (``transformer.layer_params``; the
-    encoder-decoder's ``"encoder"`` then ``"decoder"`` stack), and the
-    embedding table's (the untied head's alike)."""
-    from repro_torch.distributed.fsdp import read_placements
-    from repro_torch.models import transformer
+def _leaf_tree(cfg: ArchConfig, mesh) -> dict:
+    """The parameter tree of :class:`_Stacked` leaves (shape, dtype,
+    stored placements), nested by the dotted group names."""
     leaves = param_leaves(cfg)
     placed = shard_rules.param_placements(
         {k: s for k, (s, _) in leaves.items()}, registry.param_axes(cfg),
@@ -287,24 +283,48 @@ def gathered_layers(cfg: ArchConfig, mesh) -> tuple[list, int]:
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = _Stacked(shape, dt, placed[name])
-    names, tp = tuple(mesh.mesh_dim_names), _tp(mesh)
+    return tree
+
+
+def _layer_slices(cfg: ArchConfig, tree: dict) -> list:
+    """``[(kind, {group: {leaf: _Stacked}})]`` a layer, in order, as the
+    model's own loops slice and name them (``transformer.layer_params``;
+    the encoder-decoder's ``"encoder"`` then ``"decoder"`` stack)."""
+    from repro_torch.models import transformer
+    if cfg.family == "audio":
+        return [(stack, lp) for stack in ("encoder", "decoder")
+                for lp in transformer._slices(tree[stack], 1)]
+    return transformer.layer_params(tree, cfg)
+
+
+def _read(group: str, leaf: str, v: _Stacked, shapes: dict, mesh
+          ) -> tuple[tuple, bool]:
+    """``(shape as the layer reads it, read at its "model" chunk)``."""
+    from repro_torch.distributed.fsdp import read_placements
+    keep = shard_rules.reads_model_chunk(group, leaf, shapes, _tp(mesh))
+    return _local_shape(v.shape, read_placements(
+        v.placements, tuple(mesh.mesh_dim_names), keep), mesh), keep
+
+
+def gathered_layers(cfg: ArchConfig, mesh) -> tuple[list, int]:
+    """``([(kind, bytes) a layer], table)``: the bytes of each layer's
+    weights as the sharded train step gathers them inside the layer
+    (``distributed.fsdp``: whole over the data axes; over ``"model"`` the
+    stored chunk where ``sharding.reads_model_chunk`` says the layer
+    reads it, else whole), the layers in order as the model's own loops
+    slice and name them, and the embedding table's (the untied head's
+    alike)."""
+    tree = _leaf_tree(cfg, mesh)
 
     def read(group: str, p: dict) -> int:
         shapes = {k: v.shape for k, v in p.items()}
-        return sum(_nbytes(_local_shape(v.shape, read_placements(
-            v.placements, names, shard_rules.reads_model_chunk(
-                group, k, shapes, tp)), mesh), v.dtype)
-            for k, v in p.items())
-    if cfg.family == "audio":
-        layers = [(stack, lp) for stack in ("encoder", "decoder")
-                  for lp in transformer._slices(tree[stack], 1)]
-    else:
-        layers = transformer.layer_params(tree, cfg)
+        return sum(_nbytes(_read(group, k, v, shapes, mesh)[0], v.dtype)
+                   for k, v in p.items())
     table = max(read(g, {k: tree[g][k]})
                 for g, k in (("embed", "table"), ("unembed", "w"))
                 if k in tree.get(g, {}))
     return [(kind, sum(read(g, p) for g, p in lp.items()))
-            for kind, lp in layers], table
+            for kind, lp in _layer_slices(cfg, tree)], table
 
 
 def gathered_bytes(cfg: ArchConfig, mesh) -> tuple[int, int]:
@@ -348,12 +368,13 @@ def _mlp_pairs(cfg: ArchConfig):
 def collective_bytes(cfg: ArchConfig, shp: ShapeConfig, mesh,
                      mb: int) -> dict[str, float]:
     """Per-device interconnect bytes by op (the module docstring's
-    model)."""
+    model); a train cell's is :func:`train_collective_bytes`."""
+    if shp.kind == "train":
+        return train_collective_bytes(cfg, shp, mesh, mb)
     dtype = cfg.dtype if isinstance(cfg.dtype, str) else \
         str(cfg.dtype).removeprefix("torch.")
-    # one data rank's sequences a microbatch
-    b = max(shp.global_batch // (mb if shp.kind == "train" else 1)
-            // _dp(mesh), 1)
+    # one data rank's sequences
+    b = max(shp.global_batch // _dp(mesh), 1)
     rows = b * (1 if shp.kind == "decode" else shp.seq_len)
     enc_rows = b * cfg.encoder_seq
     if shp.kind == "decode":
@@ -368,7 +389,6 @@ def collective_bytes(cfg: ArchConfig, shp: ShapeConfig, mesh,
         for kind, v in plan.ici_bytes_by_kind(dtype).items():
             out[OP_NAMES[kind]] = out.get(OP_NAMES[kind], 0.0) + v * times
 
-    per_step = 2 * mb if shp.kind == "train" else 1
     for count, d, n_wi, k_wo, enc in _mlp_pairs(cfg):
         m = enc_rows if enc else rows
         if not m:
@@ -377,22 +397,162 @@ def collective_bytes(cfg: ArchConfig, shp: ShapeConfig, mesh,
                                 dtype=dtype)
         sigma = dplan.matmul_plan(m, k_wo, d, mesh, shard=tp("sigma"),
                                   dtype=dtype)
-        add(col, count * per_step)
-        add(sigma, count * per_step)
-    head_rows = rows if shp.kind == "train" else b
-    head = dplan.matmul_plan(head_rows, cfg.d_model, cfg.vocab_size, mesh,
+        add(col, count)
+        add(sigma, count)
+    head = dplan.matmul_plan(b, cfg.d_model, cfg.vocab_size, mesh,
                              shard=tp("col"),
                              transpose_b=cfg.tie_embeddings,
                              replicate_out=True, dtype=dtype)
-    add(head, per_step)
-    if shp.kind == "train":
-        p = _dp(mesh)
-        grad = state_bytes(cfg, mesh, train=False)["params"] * F32 // \
-            torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
-        if p > 1:
-            out["all-reduce"] = out.get("all-reduce", 0.0) + \
-                2.0 * (p - 1) / p * grad
+    add(head, 1)
     return out
+
+
+def _share(op: str, p: int) -> float:
+    """``comm.count``'s per-device ring share of a tensor's bytes."""
+    if p <= 1:
+        return 0.0
+    return 2.0 * (p - 1) / p if op == "all-reduce" else (p - 1) / p
+
+
+def train_collective_bytes(cfg: ArchConfig, shp: ShapeConfig, mesh,
+                           mb: int) -> dict[str, float]:
+    """The sharded train step's per-device interconnect bytes by op, as
+    ``train.train_step.make_sharded_train_step`` sends them (``comm.SENT``
+    counts the same ops in the same convention), on one data rank's rows
+    of each of ``mb`` microbatches:
+
+    * the parameter gathers (``distributed.fsdp``): each layer's leaves
+      all-gathered over the data axes where stored there, and over
+      ``"model"`` where stored there and read whole
+      (``sharding.reads_model_chunk``), once a forward and again in the
+      remat rerun (``cfg.remat``), or with remat off once more each time
+      the backward unpacks a saved view of it
+      (``fsdp.saved_regathers``); each
+      data gather's gradient reduce-scattered once; the leaves outside
+      the stacks (the table, tied or not, the head, the final norms, the
+      frontend) gathered and reduce-scattered once a microbatch;
+    * each layer's ``"model"`` collectives on one data rank's rows, as
+      each layer kind lists them beside its forward (``comm.Traffic``:
+      ``attention``, ``rglru``, ``ssm`` and ``moe``'s ``train_traffic``,
+      ``layers.mlp_traffic``), in the order the layer runs them; the
+      remat rerun repeats its forward ones but the last (the rerun stops
+      at the last tensor the backward saves);
+    * the embedding's psum of its rows, the head's input gradient and the
+      vocabulary-parallel NLL's three f32 row all-reduces where
+      ``"model"`` divides the vocabulary (else the head and the loss run
+      whole: nothing over ``"model"``);
+    * ``reduce_grad``'s all-reduce of each stored chunk over the data
+      axes it is not sharded on (in the leaf's dtype for one microbatch,
+      else f32).
+
+    The f32 scalars (the norm, the metrics, the MoE's drop count) are
+    left out; they move a few bytes."""
+    from repro_torch.distributed.fsdp import saved_regathers
+    from repro_torch.models import attention, moe, rglru, ssm
+    from repro_torch.models.layers import mlp_traffic
+    remat = cfg.remat
+    sizes = _sizes(mesh)
+    names = tuple(mesh.mesh_dim_names)
+    tp = sizes.get("model", 1)
+    data_axes = [a for a in ("pod", "data") if a in sizes]
+    esz = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    b = max(shp.global_batch // mb // _dp(mesh), 1)
+    rows = b * shp.seq_len
+    enc_rows = b * cfg.encoder_seq
+    d = cfg.d_model
+    out: dict[str, float] = {}
+
+    def add(op, p, nbytes, times=1):
+        share = _share(op, p)
+        if share and nbytes and times:
+            out[op] = out.get(op, 0.0) + share * nbytes * times
+
+    def gathers(group, leaf, v, shapes, layer: bool):
+        """One leaf's gathers (each forward, the reruns or regathers)
+        and its gradient's reduce-scatters."""
+        shape = list(_local_shape(v.shape, v.placements, mesh))
+        moves = []
+        for a in reversed(data_axes):            # the inner axis first
+            pl = v.placements[names.index(a)]
+            if pl.is_shard() and sizes[a] > 1:
+                shape[pl.dim] *= sizes[a]
+                moves.append((a, _nbytes(shape, v.dtype)))
+        keep = _read(group, leaf, v, shapes, mesh)[1]
+        pl = v.placements[names.index("model")] if "model" in names \
+            else None
+        if pl is not None and pl.is_shard() and not keep and tp > 1:
+            shape[pl.dim] *= tp
+            moves.append(("model", _nbytes(shape, v.dtype)))
+        times = 1
+        if layer:
+            times = 2 if remat else \
+                1 + saved_regathers(leaf, v.dtype, cfg.conv_width)
+        for a, n in moves:
+            add("all-gather", sizes[a], n, times)
+            if a != "model":
+                add("reduce-scatter", sizes[a], n)
+
+    def traffic(kind, lp) -> list:
+        """The layer's ``"model"`` collectives a block at a time, in the
+        order it runs its blocks."""
+        r = enc_rows if kind == "encoder" else rows
+        gated = cfg.mlp in ("swiglu", "geglu")
+        blocks = [attention.train_traffic(
+            lp[g], cfg, r, tp, esz, enc_rows if g == "cross_attn" else 0)
+            for g in ("self_attn", "attn", "cross_attn") if g in lp]
+        blocks += [fn(lp[g], cfg, r, tp, esz)
+                   for g, fn in (("rec", rglru.train_traffic),
+                                 ("mixer", ssm.train_traffic),
+                                 ("moe", moe.train_traffic)) if g in lp]
+        if "mlp" in lp:
+            blocks.append(mlp_traffic(lp["mlp"]["wi"], cfg, r, tp, esz,
+                                      gated))
+        return blocks
+
+    tree = _leaf_tree(cfg, mesh)
+    for kind, lp in _layer_slices(cfg, tree):
+        for group, p in lp.items():
+            shapes = {k: v.shape for k, v in p.items()}
+            for leaf, v in p.items():
+                gathers(group, leaf, v, shapes, True)
+        blocks = traffic(kind, lp)
+        # the rerun stops at the psum that ends the layer: the last
+        # forward collective of its last block
+        ends = max((i for i, t in enumerate(blocks[-1]) if t.when == "fwd"),
+                   default=None) if blocks else None
+        for j, block in enumerate(blocks):
+            for i, t in enumerate(block):
+                again = t.when == "weight" or (
+                    t.when == "fwd" and remat
+                    and (j, i) != (len(blocks) - 1, ends))
+                add(t.op, tp, t.nbytes, 2 if again else 1)
+    for group, p in tree.items():
+        if all(isinstance(v, _Stacked) for v in p.values()):
+            for leaf, v in p.items():
+                gathers(group, leaf, v, {}, False)
+    if cfg.vocab_size % tp == 0:
+        text = rows - b * cfg.num_patches if cfg.family == "vlm" else rows
+        table = tree["embed"]["table"]
+        add("all-reduce", tp, text * d * table.dtype.itemsize)
+        add("all-reduce", tp, text * d * esz)
+        add("all-reduce", tp, text * F32, 3)
+    if mb > 1:
+        out = {k: v * mb for k, v in out.items()}
+    for name, v in param_leaves(cfg).items():
+        placed = _leaf_of(tree, name)
+        local = _local_shape(placed.shape, placed.placements, mesh)
+        for a in data_axes:
+            if not placed.placements[names.index(a)].is_shard():
+                add("all-reduce", sizes[a], _nbytes(
+                    local, v[1] if mb == 1 else torch.float32))
+    return out
+
+
+def _leaf_of(tree: dict, name: str) -> _Stacked:
+    node = tree
+    for part in name.split("."):
+        node = node[part]
+    return node
 
 
 def _model_flops(cfg: ArchConfig, shp: ShapeConfig) -> float:
@@ -434,7 +594,12 @@ def model_cell(cfg: ArchConfig, shape_name: str, multi_pod: bool) -> dict:
     rec["collectives_bytes"] = coll
     # a plan's axis that its mesh axis does not divide stays replicated
     rec["replication_fallbacks"] = sorted({str(w.message) for w in fallbacks})
-    rec["not_modeled"] = ["moe expert dispatch"] if cfg.moe else []
+    if train and cfg.vocab_size % _tp(mesh):
+        rec["replication_fallbacks"].append(
+            f"vocab {cfg.vocab_size} over model {_tp(mesh)}: the head and "
+            f"the loss run whole")
+    rec["not_modeled"] = ["moe expert dispatch"] if cfg.moe and not train \
+        else []
     mf = _model_flops(cfg, shp)
     reads = per_rank["params"] * (3 * mb if train else 1)
     if train:

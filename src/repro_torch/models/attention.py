@@ -18,7 +18,8 @@ query heads (:func:`local_heads`) against the K/V heads they read: the
 stored ``wk`` / ``wv`` chunk, or this rank's groups of the whole ones.
 The output projection is the ``"sigma"`` plan with its psum
 (``layers.sigma_matmul``), and the input's gradient is summed over
-``"model"``.
+``"model"``.  MLA (``wq_b`` / ``wkv_b`` / ``wo`` at their head chunks)
+runs this rank's heads alike (:func:`mla_fwd`).
 """
 from __future__ import annotations
 
@@ -168,6 +169,36 @@ def attention_fwd(p, x: torch.Tensor, cfg: ArchConfig, *,
     if cfg.use_bias:
         o = o + full["bo"].to(x.dtype)
     return o, KV(k, v)
+
+
+def train_traffic(p, cfg: ArchConfig, rows: int, tp: int, esz: int,
+                  cross_rows: int = 0) -> list:
+    """The ``"model"`` collectives (``comm.Traffic``) of one layer's
+    attention in the sharded train step, ``p`` its leaves (shapes and
+    dtypes), on ``rows`` rows of ``esz``-byte activations over ``tp``
+    ranks, where its heads are read at their chunk: the gradient sums of
+    what every rank reads on its heads (GQA's input and, for a
+    cross-attention, the ``cross_rows`` encoder states; MLA's three
+    latents), GQA's whole K/V leaves' gradient sums, and the output's f32
+    psum (:func:`attention_fwd`, :func:`mla_fwd`)."""
+    from repro_torch.distributed.sharding import reads_model_chunk
+    shapes = {k: v.shape for k, v in p.items()}
+    d = cfg.d_model
+    if "wq_b" in p:
+        if shapes["wq_b"][-2] % tp:
+            return []
+        qr, kvr, _, rope, _ = MLA_DIMS
+        out = [comm.Traffic("all-reduce", rows * w * esz, "bwd")
+               for w in (qr, kvr, rope)]
+    else:
+        if not reads_model_chunk("attn", "wq", shapes, tp):
+            return []
+        out = [comm.Traffic("all-reduce", r * d * esz, "bwd")
+               for r in (rows, cross_rows) if r]
+        if shapes["wk"][-2] % tp:
+            out += [comm.Traffic("all-reduce", comm.nbytes(p[k]), "bwd")
+                    for k in ("wk", "wv", "bk", "bv") if k in p]
+    return out + [comm.Traffic("all-reduce", rows * d * 4, "fwd")]
 
 
 def attention_decode_paged(p, x: torch.Tensor, k_pool: torch.Tensor,
@@ -339,20 +370,25 @@ def _rms(x: torch.Tensor, scale: torch.Tensor,
             * scale.float()).to(x.dtype)
 
 
-def _mla_qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+def _mla_qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+             group=None):
     """``(q_nope, q_pe, c_kv, k_pe)`` of ``x (B, S, d)``: the queries
     ``(B, S, h, nope)`` / ``(B, S, h, rope)`` through the normed q latent,
     the normed kv latent ``(B, S, kv_rank)`` and the shared rotary key
     ``(B, S, rope)``, the rotary embedding of ``positions``
-    (broadcastable to ``(B, S)``) on ``q_pe`` and ``k_pe``."""
+    (broadcastable to ``(B, S)``) on ``q_pe`` and ``k_pe``.  With the
+    ``"model"`` ``group`` (``wq_b`` this rank's heads) the three latents'
+    gradients are summed over it: each rank reads them on its heads."""
     _, kvr, nope, rope, _ = MLA_DIMS
-    cq = _rms(_proj(x, p["wq_a"]), p["q_norm"])
+    shared = (lambda t: t) if group is None else \
+        (lambda t: comm.replicated_in(t, group))
+    cq = shared(_rms(_proj(x, p["wq_a"]), p["q_norm"]))
     q = _proj(cq, p["wq_b"])                        # (B, S, h, nope + rope)
     kv_all = _proj(x, p["wkv_a"])                   # (B, S, kv_rank + rope)
-    c_kv = _rms(kv_all[..., :kvr], p["kv_norm"])
+    c_kv = shared(_rms(kv_all[..., :kvr], p["kv_norm"]))
     sin, cos = rope_tables(positions, rope, cfg.rope_theta)
     q_pe = apply_rope(q[..., nope:], sin, cos)
-    k_pe = apply_rope(kv_all[..., None, kvr:], sin, cos)[:, :, 0, :]
+    k_pe = shared(apply_rope(kv_all[..., None, kvr:], sin, cos)[:, :, 0, :])
     return q[..., :nope], q_pe, c_kv, k_pe
 
 
@@ -382,13 +418,30 @@ def mla_fwd(p, x: torch.Tensor, cfg: ArchConfig, *,
     :func:`mla_attention` on K2 at every length (the reference computes
     the same function in einsums below ``cfg.attn_chunk_min_seq`` and by
     chunks above it).  Returns the output and the ``MLACache`` (the normed
-    kv latent and the rotated shared key)."""
+    kv latent and the rotated shared key).
+
+    In the sharded train step (``wq_b`` the ``DTensor`` of its stored
+    chunk of the heads over ``"model"``) each rank computes the latents
+    whole (their leaves are stored whole), then its heads' queries, keys
+    and values from its ``wq_b`` / ``wkv_b`` chunks, and ``wo``'s chunk is
+    the ``"sigma"`` plan with its psum."""
     _, _, nope, rope, _ = MLA_DIMS
-    q_nope, q_pe, c_kv, k_pe = _mla_qkv(p, x, cfg, positions)
-    kv = _proj(c_kv, p["wkv_b"])                    # (B, S, h, nope + vd)
+    wq_b, dim = _model_chunk(p["wq_b"])
+    mesh = None if dim is None else p["wq_b"].device_mesh
+    group = None if mesh is None else mesh.get_group("model")
+    q_nope, q_pe, c_kv, k_pe = _mla_qkv(dict(p, wq_b=wq_b), x, cfg,
+                                        positions, group)
+    kv = _proj(c_kv, _model_chunk(p["wkv_b"])[0])   # (B, S, h, nope + vd)
     out = mla_attention(q_nope, q_pe, kv[..., :nope], k_pe, kv[..., nope:],
                         (nope + rope) ** -0.5)
-    return _out_proj(out, p["wo"], x.dtype), MLACache(c_kv, k_pe)
+    if mesh is None:
+        return _out_proj(out, p["wo"], x.dtype), MLACache(c_kv, k_pe)
+    b, s = x.shape[:2]
+    wo = _model_chunk(p["wo"])[0]
+    o = sigma_matmul(out.reshape(b * s, -1).to(x.dtype),
+                     wo.reshape(-1, wo.shape[-1]), mesh,
+                     _global_rows(x.reshape(b * s, -1), mesh), chunk=True)
+    return o.reshape(b, s, -1), MLACache(c_kv, k_pe)
 
 
 def mla_decode(p, x: torch.Tensor, cache: MLACache, pos: torch.Tensor,

@@ -133,7 +133,7 @@ def _tp_mlp(p, x: torch.Tensor, cfg: ArchConfig, mesh) -> torch.Tensor:
     shard = dplan.tp_matmul_shard(mesh, "col")
     plan = dplan.matmul_plan(m, d, wi.shape[-1], mesh, shard=shard,
                              dtype=str(x.dtype).removeprefix("torch."))
-    x_pl, w_pl = plan.in_placements(mesh)
+    w_pl = plan.in_placements(mesh)[1]
     wi_local, wi_dim = _model_chunk(wi)
     if wi_dim is None:
         wi = wi_local
@@ -152,8 +152,7 @@ def _tp_mlp(p, x: torch.Tensor, cfg: ArchConfig, mesh) -> torch.Tensor:
                     _GatedColumns.apply(bi, mg)
     elif bi is not None and axis is not None and bi_dim is None:
         bi = comm.shard_local(bi, mesh.get_group(axis), 0)
-    h = ops.matmul(_rows(x2, mesh, x_pl), wi, out_dtype=torch.float32,
-                   mesh=mesh, shard=shard).to_local()
+    h = col_matmul(x2, wi, mesh, torch.float32)
     if bi is not None:
         h = h + bi.float()
     if gated:
@@ -169,6 +168,40 @@ def _tp_mlp(p, x: torch.Tensor, cfg: ArchConfig, mesh) -> torch.Tensor:
     if cfg.use_bias:
         out = out + p["bo"].to(x.dtype)
     return out
+
+
+def mlp_traffic(wi, cfg: ArchConfig, rows: int, tp: int, esz: int,
+                gated: bool) -> list:
+    """The ``"model"`` collectives (``comm.Traffic``) of one
+    tensor-parallel MLP (:func:`_tp_mlp`, ``wi`` its leaf's shape and
+    dtype) in the sharded train step on ``rows`` rows of ``esz``-byte
+    activations over ``tp`` ranks: the input's gradient sum, a gated
+    ``wi`` gathered whole for its interleave (:class:`_GatedColumns`) and
+    its gradient gathered back, and the output's f32 psum."""
+    if wi.shape[-1] % tp:
+        return []
+    out = [comm.Traffic("all-reduce", rows * cfg.d_model * esz, "bwd")]
+    if gated:
+        out += [comm.Traffic("all-gather", comm.nbytes(wi), "weight"),
+                comm.Traffic("all-gather", comm.nbytes(wi), "bwd")]
+    return out + [comm.Traffic("all-reduce", rows * cfg.d_model * 4, "fwd")]
+
+
+def col_matmul(x: torch.Tensor, w: torch.Tensor, mesh,
+               out_dtype) -> torch.Tensor:
+    """This rank's columns of ``x (..., k) @ w (k, n)`` with ``n`` over
+    ``"model"``: the ``"col"`` plan on ``w`` the ``DTensor`` of its stored
+    column chunk (or whole, which the plan slices), ``x`` this rank's rows
+    of the batch; ``x``'s gradient is summed over ``"model"`` (the plan
+    works the columns over it).  In ``out_dtype`` from its f32 sums."""
+    x2 = x.reshape(-1, x.shape[-1])
+    shard = dplan.tp_matmul_shard(mesh, "col")
+    plan = dplan.matmul_plan(_global_rows(x2, mesh), x2.shape[1],
+                             w.shape[-1], mesh, shard=shard,
+                             dtype=str(x.dtype).removeprefix("torch."))
+    y = ops.matmul(_rows(x2, mesh, plan.in_placements(mesh)[0]), w,
+                   out_dtype=out_dtype, mesh=mesh, shard=shard).to_local()
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def sigma_matmul(h: torch.Tensor, wo: torch.Tensor, mesh, m: int,

@@ -35,7 +35,8 @@ from repro_torch.configs.common import ArchConfig
 from repro_torch.distributed import comm
 from repro_torch.distributed import plan as dplan
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _gate_act, _model_chunk, _tp_mlp
+from repro_torch.models.layers import (_gate_act, _model_chunk, _tp_mlp,
+                                       mlp_traffic)
 
 
 def moe_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
@@ -226,6 +227,24 @@ def _apply_moe_global(p, x: torch.Tensor, cfg: ArchConfig
                  False).reshape(b, s, d)
     dropped = 1.0 - keep.sum() / (t * k)
     return _shared(p, x, y, cfg), MoEStats(aux, z, dropped)
+
+
+def train_traffic(p, cfg: ArchConfig, rows: int, tp: int, esz: int) -> list:
+    """The ``"model"`` collectives (``comm.Traffic``) of one MoE layer
+    (:func:`_apply_moe_shardmap`, ``p`` its leaves' shapes and dtypes) in
+    the sharded train step on ``rows`` rows of ``esz``-byte activations
+    over ``tp`` ranks: the dispatched tokens' and the f32 gates' gradient
+    sums, the output's psum, then the shared experts' tensor-parallel
+    MLP's (``layers.mlp_traffic``)."""
+    if cfg.n_experts % tp:
+        return []
+    d = cfg.d_model
+    out = [comm.Traffic("all-reduce", rows * d * esz, "bwd"),
+           comm.Traffic("all-reduce", rows * cfg.top_k * 4, "bwd"),
+           comm.Traffic("all-reduce", rows * d * esz, "fwd")]
+    if cfg.n_shared_experts:
+        out += mlp_traffic(p["shared_wi"], cfg, rows, tp, esz, True)
+    return out
 
 
 def _apply_moe_shardmap(p, x: torch.Tensor, cfg: ArchConfig, mesh

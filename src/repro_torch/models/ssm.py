@@ -7,6 +7,15 @@ table (``ops.default_ssd_chunk``, as the reference derives it on its
 own); the projections are ``ops.matmul`` (K1).  The causal conv, the gates, softplus and the gated
 RMSNorm, and the one-token decode step's state update stay plain
 PyTorch, as the reference computes them outside any Pallas kernel.
+
+In the sharded train step (``norm_scale`` / ``w_out`` the ``DTensor``
+of their stored chunk of ``d_inner`` over ``"model"``, whole SSD heads a
+rank) each rank computes ``w_in``'s product and the conv whole (their
+columns' chunks straddle the ``[z | x | B | C | dt]`` split), sums the
+gradients of ``z``, the conv's output and ``dt`` over ``"model"`` (each
+rank reads them on its heads), then runs K6 / K7 on its heads, the gated
+RMSNorm with its sum of squares psummed over ``"model"`` in f32, and
+``w_out``'s rows on the ``"sigma"`` plan with its psum.
 """
 from __future__ import annotations
 
@@ -17,7 +26,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.common import ArchConfig
 from repro_torch.device import cache_device
+from repro_torch.distributed import comm
 from repro_torch.kernels import ops
+from repro_torch.models.layers import _global_rows, _model_chunk, sigma_matmul
 
 
 def d_inner(cfg: ArchConfig) -> int:
@@ -93,11 +104,19 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                   dtype) -> torch.Tensor:
+                   dtype, group=None, width: int = 0) -> torch.Tensor:
+    """``y * silu(z)`` RMS-normed over its last dim; with the ``"model"``
+    ``group`` that dim is this rank's part of ``width`` channels, whose
+    sum of squares is psummed over the group in f32 (its gradient, a
+    part on each rank, summed back)."""
     y = y * F.silu(z.float()).to(dtype)
     yf = y.float()
-    return (yf * torch.rsqrt(yf.square().mean(-1, keepdim=True) + 1e-6)
-            * scale.float()).to(dtype)
+    if group is None:
+        ms = yf.square().mean(-1, keepdim=True)
+    else:
+        ms = comm.replicated_in(comm.psum(
+            yf.square().sum(-1, keepdim=True), group), group) / width
+    return (yf * torch.rsqrt(ms + 1e-6) * scale.float()).to(dtype)
 
 
 def apply_mamba2(p, x: torch.Tensor, cfg: ArchConfig,
@@ -107,29 +126,73 @@ def apply_mamba2(p, x: torch.Tensor, cfg: ArchConfig,
     ``want_cache=False`` skips the cache (the conv tail's product and the
     final state): under ``jax.jit`` the reference's loss drops that dead
     code, and here an eager forward would otherwise pay one more K1
-    launch a layer."""
+    launch a layer.  In the sharded step (the module docstring) each
+    rank runs its SSD heads; its cache would hold the whole conv tail and
+    its heads' state, and is not made under autograd (the loss does not
+    read it)."""
     b, s, _ = x.shape
     din, h, n = d_inner(cfg), n_ssd_heads(cfg), cfg.ssm_state
+    sharded = _model_chunk(p["w_out"])[1] is not None
+    group, tp, r = None, 1, 0
+    if sharded:
+        mesh = p["w_out"].device_mesh
+        group = mesh.get_group("model")
+        tp, r = comm.group_size(group), comm.group_rank(group)
+    hl, dl = h // tp, din // tp
+    # this rank's heads (of a width per rank) of a tensor every rank
+    # reads, whose gradient is then summed over "model"
+    shared = (lambda t: t) if group is None else \
+        (lambda t: comm.replicated_in(t, group))
+    mine = lambda t, width: t if tp == 1 else t.narrow(-1, r * width, width)
     zxbcdt = ops.matmul(x, p["w_in"], out_dtype=x.dtype)
     z, xbc, dt = torch.split(zxbcdt, [din, din + 2 * n, h], dim=-1)
     xbc = _causal_conv(xbc, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype))
     xbc = F.silu(xbc)
+    z, xbc, dt = shared(z), shared(xbc), shared(dt)
     xs, B, C = torch.split(xbc, [din, n, n], dim=-1)
-    dtv = F.softplus(dt.float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"].float())
-    xh = xs.reshape(b, s, h, cfg.ssm_head_dim)
+    dtv = F.softplus(mine(dt, hl).float()
+                     + mine(shared(p["dt_bias"]), hl).float())
+    A = -torch.exp(mine(shared(p["A_log"]), hl).float())
+    xh = mine(xs, dl).reshape(b, s, hl, cfg.ssm_head_dim)
     y, final = ssd_chunked(xh, dtv, A, B, C,
                            min(cfg.ssm_chunk, s) if cfg.ssm_chunk else None)
-    y = y + p["D"].float()[None, None, :, None] * xh.float()
-    y = _gated_rmsnorm(y.reshape(b, s, din).to(x.dtype), z,
-                       p["norm_scale"], x.dtype)
-    out = ops.matmul(y, p["w_out"], out_dtype=x.dtype)
-    if not want_cache:
+    y = y + mine(shared(p["D"]), hl).float()[None, None, :, None] \
+        * xh.float()
+    y = _gated_rmsnorm(y.reshape(b, s, dl).to(x.dtype), mine(z, dl),
+                       _model_chunk(p["norm_scale"])[0], x.dtype, group, din)
+    if sharded:
+        y2 = y.reshape(b * s, dl)
+        out = sigma_matmul(y2, p["w_out"], mesh,
+                           _global_rows(y2, mesh)).reshape(b, s, -1)
+    else:
+        out = ops.matmul(y, p["w_out"], out_dtype=x.dtype)
+    if not want_cache or (sharded and torch.is_grad_enabled()):
         return out, None
     # the cache: the last conv_width-1 pre-conv inputs and the final state
     pre = ops.matmul(x[:, -(cfg.conv_width - 1):], p["w_in"],
                      out_dtype=x.dtype)
     return out, SSMCache(conv=pre[..., din:2 * din + 2 * n], state=final)
+
+
+def train_traffic(p, cfg: ArchConfig, rows: int, tp: int, esz: int) -> list:
+    """The ``"model"`` collectives (``comm.Traffic``) of one Mamba-2 mixer
+    (:func:`apply_mamba2`, ``p`` its leaves' shapes and dtypes) in the
+    sharded train step on ``rows`` rows of ``esz``-byte activations over
+    ``tp`` ranks, where its SSD heads divide: the gradient sums of ``z``,
+    the conv's output and ``dt`` and of the three head leaves, the gated
+    RMSNorm's f32 sum of squares psummed and its gradient summed, and the
+    output's f32 psum."""
+    heads = p["A_log"].shape[-1]
+    if heads % tp:
+        return []
+    din = p["norm_scale"].shape[-1]
+    out = [comm.Traffic("all-reduce", rows * w * esz, "bwd")
+           for w in (din, din + 2 * cfg.ssm_state, heads)]
+    out += [comm.Traffic("all-reduce", comm.nbytes(p[k]), "bwd")
+            for k in ("A_log", "D", "dt_bias")]
+    return out + [comm.Traffic("all-reduce", rows * 4, "fwd"),
+                  comm.Traffic("all-reduce", rows * 4, "bwd"),
+                  comm.Traffic("all-reduce", rows * cfg.d_model * 4, "fwd")]
 
 
 def decode_mamba2(p, x: torch.Tensor, cache: SSMCache, cfg: ArchConfig):

@@ -141,9 +141,10 @@ def job_moe(arch, tree, x, axes):
 def job_train(arch, tree, batches, axes, comp_on, lr, remat=True):
     """Sharded train steps (``make_sharded_train_step``) from the
     parameters ``tree``, ``cfg.remat`` as ``remat`` says: the metrics of
-    each step, the whole parameters after the last, and whether every
+    each step, the whole parameters after the last, whether every
     rank's leaves (parameters, masters, m, v) hold exactly its rule-table
-    chunk."""
+    chunk, and the bytes this rank's collectives sent in the first step
+    by op (``comm.SENT``)."""
     from repro_torch.convert import params_from_numpy
     from repro_torch.distributed import comm
     from repro_torch.distributed.compression import CompressionConfig
@@ -160,10 +161,12 @@ def job_train(arch, tree, batches, axes, comp_on, lr, remat=True):
     step = ts.make_sharded_train_step(cfg, mesh, opt, comp)
     row = mesh.get_coordinate()[0]
     dp = mesh.size(0)
-    metrics = []
+    metrics, sent = [], None
     for b in batches:
         rows = {k: torch.from_numpy(v).chunk(dp)[row] for k, v in b.items()}
+        comm.SENT.clear()
         state, m = step(state, rows)
+        sent = dict(comm.SENT) if sent is None else sent
         metrics.append({k: float(v) for k, v in m.items()})
     whole = {k: comm.gather_full(t.to_local(), mesh, t.placements)
              for k, t in state.params.items()}
@@ -175,7 +178,29 @@ def job_train(arch, tree, batches, axes, comp_on, lr, remat=True):
     for tree in (state.opt.master, state.opt.m, state.opt.v):
         placed &= all(tuple(t.placements) == tuple(want[k])
                       for k, t in tree.items())
-    return metrics, {k: _np(v) for k, v in whole.items()}, bool(placed)
+    return (metrics, {k: _np(v) for k, v in whole.items()}, bool(placed),
+            sent)
+
+
+def job_sent(arch, batch, axes, microbatches, remat, dtype):
+    """One sharded train step of ``arch`` in ``dtype`` (the parameters
+    ``registry.init`` draws from seed 0, at the leaves' own dtypes) on
+    this rank's rows of ``batch`` in ``microbatches``: the bytes its
+    collectives sent by op (``comm.SENT``)."""
+    from repro_torch.distributed import comm
+    from repro_torch.models import registry
+    from repro_torch.train import train_step as ts
+    cfg = _config(arch).with_(remat=remat, dtype=dtype)
+    mesh = _mesh(axes)
+    row, dp = mesh.get_coordinate()[0], mesh.size(0)
+    rows = {k: torch.from_numpy(v).chunk(dp)[row] for k, v in batch.items()}
+    params = registry.init(cfg, torch.Generator().manual_seed(0), "cpu",
+                           trainable=True)
+    state = ts.init_sharded_state(cfg, params, mesh)
+    step = ts.make_sharded_train_step(cfg, mesh, microbatches=microbatches)
+    comm.SENT.clear()
+    step(state, rows)
+    return dict(comm.SENT)
 
 
 def job_gathered(arch, tree, batch, axes):
@@ -198,6 +223,65 @@ def job_gathered(arch, tree, batch, axes):
         out[remat] = (fsdp.GATHERED.high, fsdp.GATHERED.alive,
                       float(m["loss"]))
     return out
+
+
+#: each mixer's parameter group as its layer names it, and the kind of its
+#: leaves' logical axes (``transformer._LEAF_AXES``)
+MIXERS = {"mla": ("attn", "mla"), "rglru": ("rec", "rglru"),
+          "ssm": ("mixer", "ssm")}
+
+
+def run_mixer(kind, p, x, cfg):
+    """The mixer ``kind``'s full-sequence output on ``x (B, S, d)``."""
+    from repro_torch.models import attention, rglru, ssm
+    if kind == "mla":
+        pos = torch.arange(x.shape[1])[None, :]
+        return attention.mla_fwd(p, x, cfg, positions=pos)[0]
+    if kind == "rglru":
+        return rglru.apply_rglru(p, x, cfg)[0]
+    return ssm.apply_mamba2(p, x, cfg, want_cache=False)[0]
+
+
+def job_mixer(arch, kind, tree, x, cot, axes):
+    """One layer's mixer ``kind`` (``MIXERS``) on a planned mesh: its
+    leaves stored at their rule-table chunks and gathered as the sharded
+    step's layer reads them (``fsdp.gather_group``), this rank's rows of
+    ``x``; the whole output, every leaf's whole gradient of ``sum(out *
+    cot)`` (reduced over "data" as the step reduces it), and the leaves
+    that arrived at their "model" chunk."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import comm, fsdp
+    from repro_torch.distributed import plan as dplan
+    from repro_torch.distributed.sharding import param_placements
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import _model_chunk
+    cfg = _config(arch)
+    mesh = _mesh(axes)
+    group, axes_kind = MIXERS[kind]
+    table = transformer._LEAF_AXES[axes_kind]
+    pls = param_placements({k: v.shape for k, v in tree.items()},
+                           {k: table[k] for k in tree}, mesh)
+    local = {k: comm.local_chunk(torch.tensor(v), mesh, pls[k]).clone()
+             .requires_grad_(True) for k, v in tree.items()}
+    stored = {k: DTensor.from_local(t, mesh, pls[k], run_check=False)
+              for k, t in local.items()}
+    dg = mesh.get_group("data")
+    rows = lambda a: comm.chunk_of(torch.tensor(a), dg, 0).contiguous()
+    with dplan.planned_mesh(mesh, ("data",)):
+        p = fsdp.gather_group(group, stored)
+        chunked = sorted(k for k, v in p.items()
+                         if _model_chunk(v)[1] is not None)
+        out = run_mixer(kind, p, rows(x), cfg)
+        (out * rows(cot)).sum().backward()
+    names = mesh.mesh_dim_names
+    grads = {}
+    for k, t in local.items():
+        g = t.grad
+        if not pls[k][names.index("data")].is_shard():
+            g = comm.all_reduce(g, dg)
+        grads[k] = _np(comm.gather_full(g, mesh, pls[k]))
+    return _np(comm.all_gather(out.detach(), dg, 0)), grads, chunked
 
 
 def job_fsdp_gather(whole, grad, axes, layer):
@@ -389,7 +473,8 @@ def job_compress(shapes_specs, arrays, errors):
 JOBS = {"apply": job_apply, "rings": job_rings,
         "lm_planned": job_lm_planned, "moe": job_moe, "train": job_train,
         "train_planned": job_train_planned, "gathered": job_gathered,
-        "fsdp_gather": job_fsdp_gather, "vocab_nll": job_vocab_nll,
+        "sent": job_sent,
+        "fsdp_gather": job_fsdp_gather, "mixer": job_mixer, "vocab_nll": job_vocab_nll,
         "checkpoint": job_checkpoint, "compress": job_compress}
 
 

@@ -46,9 +46,11 @@ from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.distributed.compression import CompressionConfig  # noqa
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
+from repro_torch.models.common import ShapeConfig  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.train import train_step as ts  # noqa: E402
 
@@ -180,13 +182,47 @@ def _compress_inputs():
 #: mesh each data rank routes its own rows (the reference's shard_map
 #: routing): the experts' capacity and the load-balance and z losses are
 #: its rows', averaged over the data ranks, which is what one device
-#: computes with each data rank's rows a microbatch
+#: computes with each data rank's rows a microbatch.  minicpm3-4b: MLA's
+#: heads over "model" (its latents whole); recurrentgemma-9b: the
+#: RG-LRU's channels over "model" (its conv output gathered for ``wa`` /
+#: ``wi``), its local layer's query heads; mamba2-780m: the SSD heads
+#: over "model" (``w_in`` and the conv whole); the last two also with
+#: ``cfg.remat`` off
 SHARDED_STEPS = {"gemma-2b": ("gemma-2b", 1, True),
                  "deepseek-moe-16b": ("deepseek-moe-16b", 2, True),
                  "whisper-base": ("whisper-base", 1, True),
                  "gemma-2b-remat-off": ("gemma-2b", 1, False),
                  "deepseek-moe-16b-remat-off": ("deepseek-moe-16b", 2,
-                                                False)}
+                                                False),
+                 "minicpm3-4b": ("minicpm3-4b", 1, True),
+                 "recurrentgemma-9b": ("recurrentgemma-9b", 1, True),
+                 "mamba2-780m": ("mamba2-780m", 1, True),
+                 "recurrentgemma-9b-remat-off": ("recurrentgemma-9b", 1,
+                                                 False),
+                 "mamba2-780m-remat-off": ("mamba2-780m", 1, False)}
+
+#: the dry-run's train model held to ``comm.SENT`` past the sharded
+#: steps' cases (each one microbatch, f32): by case, the architecture,
+#: the microbatches, ``cfg.remat`` and the dtype of one sharded step from
+#: ``registry.init``'s parameters (``job_sent``).  Two microbatches: each
+#: gathers a microbatch, and ``reduce_grad`` sums the f32 accumulated
+#: gradient, which differs from the leaf's dtype only below f32.  bf16
+#: with remat off: a norm scale's product saves its f32 copy, not the
+#: gathered weight (``fsdp.saved_regathers``); deepseek's router keeps
+#: f32 in a bf16 model
+SENT_STEPS = {"gemma-2b-mb2": ("gemma-2b", 2, True, "float32"),
+              "gemma-2b-mb2-bf16": ("gemma-2b", 2, True, "bfloat16"),
+              "gemma-2b-bf16-remat-off": ("gemma-2b", 1, False, "bfloat16"),
+              "deepseek-moe-16b-mb2-bf16": ("deepseek-moe-16b", 2, True,
+                                            "bfloat16"),
+              "whisper-base-mb2-bf16-remat-off": ("whisper-base", 2, False,
+                                                  "bfloat16"),
+              "minicpm3-4b-mb2-bf16-remat-off": ("minicpm3-4b", 2, False,
+                                                 "bfloat16"),
+              "recurrentgemma-9b-bf16-remat-off": ("recurrentgemma-9b", 1,
+                                                   False, "bfloat16"),
+              "mamba2-780m-bf16-remat-off": ("mamba2-780m", 1, False,
+                                             "bfloat16")}
 
 #: an element whose reference gradient, in some step, is nonzero and
 #: within 100 f32 roundings (``eps``) of its leaf's root mean square is
@@ -207,6 +243,33 @@ def _gather_inputs():
     rng = np.random.default_rng(12)
     return (rng.standard_normal((3, 8, 4)).astype(np.float32),
             rng.standard_normal((8, 4)).astype(np.float32))
+
+
+#: the mixers held on a planned mesh against their whole-weight run: the
+#: architecture whose reduced config sizes them, and the layer's group
+MIXER_CASES = {"mla": "minicpm3-4b", "rglru": "recurrentgemma-9b",
+               "ssm": "mamba2-780m"}
+
+
+def _mixer_inputs(kind):
+    """One layer's mixer leaves (seeded normals at the init scales; the
+    ones and zeros of norms, biases and decays redrawn as normals so that
+    every gradient is alive), an input (4, 16, d) and a cotangent."""
+    from repro_torch.models import rglru, ssm, transformer
+    cfg = port_config(MIXER_CASES[kind], reduced=True)
+    shapes = {"mla": lambda: transformer._mla_shapes(cfg, ()),
+              "rglru": lambda: rglru.param_shapes(cfg, ()),
+              "ssm": lambda: ssm.param_shapes(cfg, ())}[kind]()
+    rng = np.random.default_rng(14)
+    tree = {}
+    for name, (shape, scale, *_) in shapes.items():
+        base = {"ones": 1.0, "zeros": 0.0}.get(scale)
+        z = rng.standard_normal(shape)
+        tree[name] = (z * scale if base is None else base + 0.3 * z).astype(
+            np.float32)
+    x = rng.standard_normal((4, 16, cfg.d_model)).astype(np.float32)
+    cot = rng.standard_normal((4, 16, cfg.d_model)).astype(np.float32)
+    return tree, x, cot
 
 
 def _nll_inputs():
@@ -260,9 +323,15 @@ def world4(tmp_path_factory):
                      (arch, _jparams(arch),
                       [_batch(arch, step=i) for i in range(3)], m22, False,
                       LR, remat)))
+    for case, (arch, mb, remat, dtype) in SENT_STEPS.items():
+        jobs.append((f"sent_{case}", "sent",
+                     (arch, _batch(arch), m22, mb, remat, dtype)))
     for arch in GATHERED_BYTES:
         jobs.append((f"gathered_{arch}", "gathered",
                      (arch, _jparams(arch), _batch(arch), m22)))
+    for kind, arch in MIXER_CASES.items():
+        jobs.append((f"mixer_{kind}", "mixer",
+                     (arch, kind, *_mixer_inputs(kind), m22)))
     jobs.append(("fsdp_gather", "fsdp_gather", (*_gather_inputs(), m22, 1)))
     jobs.append(("vocab_nll", "vocab_nll", (*_nll_inputs(), 30.0, m22)))
     jobs.append(("train_gemma_planned", "train_planned",
@@ -490,7 +559,7 @@ def _hold_sharded_steps(world, job, arch, microbatches=1, noise=False):
     steps and the single-device port's, each in ``microbatches``; with
     ``noise``, the elements whose reference gradient is at rounding
     (:func:`_noisy`) held in their leaf's norm only."""
-    metrics, whole, placed = _result(world, job)
+    metrics, whole, placed, _ = _result(world, job)
     assert placed
     jm, jparams, pm, pparams, jgrads = _one_device_steps(arch, microbatches)
     for got, want, port in zip(metrics, jm, pm):
@@ -520,10 +589,13 @@ def test_sharded_steps_at_stored_chunks_match_one_device(world4, case):
     head; the tied table gathered once for the lookup and the head),
     deepseek-moe-16b (experts read at their stored chunk, the shared
     experts tensor-parallel, the router whole; held to one device's
-    steps in a microbatch a data rank) and whisper-base (the encoder's
+    steps in a microbatch a data rank), whisper-base (the encoder's
     and decoder's layers gathered per layer, self- and cross-attention on
-    local heads), the first two also with ``cfg.remat`` off (the saved
-    gathered weights regathered in the backward), held as stablelm is:
+    local heads), minicpm3-4b (MLA's heads), recurrentgemma-9b (the
+    RG-LRU's channels) and mamba2-780m (the SSD heads), each on its
+    "model" chunk, gemma-2b, deepseek, recurrentgemma and mamba2 also
+    with ``cfg.remat`` off (the saved gathered weights regathered in the
+    backward), held as stablelm is:
     rule-table chunks, losses and gradient norms within ``TOL``, updates
     within ``_hold_update``'s bound but where the reference's gradient is
     at rounding (``GRAD_NOISE``)."""
@@ -532,25 +604,71 @@ def test_sharded_steps_at_stored_chunks_match_one_device(world4, case):
                         noise=True)
 
 
+@pytest.mark.parametrize("case", [*SHARDED_STEPS, *SENT_STEPS])
+def test_dryrun_collectives_match_the_bytes_the_step_sends(world4, case):
+    """The bytes each rank's collectives sent in the first sharded step
+    (``comm.SENT``, by op) against the dry-run's model of the same cell
+    (``dryrun.collective_bytes``: batch 4 of 16 tokens, the case's
+    microbatches, remat and dtype (``SENT_STEPS``; the sharded steps'
+    cases one microbatch in f32), on a ``SizedMesh`` of (data 2, model
+    2)): the same ops, each within 1% (the model leaves out the f32
+    scalars of the norm, the metrics and the MoE's drop count)."""
+    if case in SENT_STEPS:
+        arch, mb, remat, dtype = SENT_STEPS[case]
+        sent = _result(world4, f"sent_{case}")
+    else:
+        (arch, _, remat), mb = SHARDED_STEPS[case], 1
+        dtype = port_config(arch, reduced=True).dtype
+        sent = _result(world4, f"train_{case}")[3]
+    cfg = port_config(arch, reduced=True).with_(remat=remat, dtype=dtype)
+    model = dryrun.collective_bytes(
+        cfg, ShapeConfig("sharded_step", 16, 4, "train"),
+        dryrun.SizedMesh({"data": 2, "model": 2}), mb)
+    assert sorted(sent) == sorted(model)
+    for op, n in model.items():
+        assert n > 0 and abs(sent[op] - n) <= 0.01 * n, (op, sent[op], n)
+
+
 #: one layer's gathered bytes (f32, each leaf as its layer reads it on
 #: (data 2, model 2): gathered over "data", over "model" the chunk where
-#: a tensor-parallel layer reads it) and the table's.  gemma-2b (d 128,
-#: 4 heads of 32, one KV head, gated d_ff 256, vocab 512): ln1 and ln2
-#: 2 x 128, wq and wo 128 x 4 x 32 / 2 each, wk and wv 128 x 32 each
-#: (whole: one KV head), mlp wi 128 x 512 / 2, wo 256 x 128 / 2; the
-#: table 512 x 128 / 2.  deepseek-moe-16b's MoE layer (4 KV heads, 8
-#: experts of 64, one shared): ln1 and ln2 2 x 128, wq / wk / wv / wo
-#: 128 x 4 x 32 / 2 each, the router 128 x 8 (whole), wi 8 x 128 x 128
-#: / 2, wo 8 x 64 x 128 / 2, shared_wi 128 x 128 / 2, shared_wo 64 x
-#: 128 / 2; its table and its untied head 512 x 128 / 2 each
+#: a tensor-parallel layer reads it; a leaf stored on no data axis and
+#: read at its "model" chunk, or replicated, is read as stored and not
+#: gathered) and the table's.  gemma-2b (d 128, 4 heads of 32, one KV
+#: head, gated d_ff 256, vocab 512): ln1 and ln2 2 x 128, wq and wo 128 x
+#: 4 x 32 / 2 each, wk and wv 128 x 32 each (whole: one KV head), mlp wi
+#: 128 x 512 / 2, wo 256 x 128 / 2; the table 512 x 128 / 2.
+#: deepseek-moe-16b's MoE layer (4 KV heads, 8 experts of 64, one
+#: shared): ln1 and ln2 2 x 128, wq / wk / wv / wo 128 x 4 x 32 / 2 each,
+#: the router 128 x 8 (whole), wi 8 x 128 x 128 / 2, wo 8 x 64 x 128 / 2,
+#: shared_wi 128 x 128 / 2, shared_wo 64 x 128 / 2; its table and its
+#: untied head 512 x 128 / 2 each.  minicpm3-4b (MLA, 4 heads): ln1 and
+#: ln2 2 x 128, wq_a 128 x 768 and wkv_a 128 x 288 whole, wo 4 x 64 x
+#: 128 / 2, the MLP's wi 128 x 512 / 2 and wo 256 x 128 / 2 (wq_b and
+#: wkv_b are read at their stored head chunks, q_norm and kv_norm as
+#: stored: none gathered); its untied head 128 x 512 / 2.
+#: recurrentgemma-9b: an RG-LRU layer's ln1 and ln2 2 x 128, w_x, w_gate
+#: and w_out 128 x 128 / 2 each (conv_w, conv_b, wa, wi, ba, bi and lam
+#: hold no data axis: read at their stored channel chunks, wa / wi with
+#: every row), the MLP's 128 x 512 / 2 and 256 x 128 / 2; its local
+#: layer the same bytes (wq and wo 128 x 4 x 32 / 2, wk and wv 128 x 32
+#: whole); the tied table 512 x 128 / 2.  mamba2-780m: ln1 64, w_in 64 x
+#: 296 and conv_w 4 x 160 and conv_b 160 whole, w_out 128 x 64 / 2
+#: (norm_scale read at its stored chunk, A_log / D / dt_bias as
+#: stored); its untied head 64 x 512 / 2
 GATHERED_BYTES = {
     "gemma-2b": (4 * (256 + 2 * 8192 + 2 * 4096 + 32768 + 16384),
                  4 * 32768, 2),
     "deepseek-moe-16b": (4 * (256 + 4 * 8192 + 1024 + 65536 + 32768 + 8192
-                              + 4096), 4 * 32768, 3)}
+                              + 4096), 4 * 32768, 3),
+    "minicpm3-4b": (4 * (256 + 128 * 768 + 128 * 288 + 16384 + 32768
+                         + 16384), 4 * 32768, 2),
+    "recurrentgemma-9b": (4 * (256 + 3 * 8192 + 32768 + 16384),
+                          4 * 32768, 5),
+    "mamba2-780m": (4 * (64 + 64 * 296 + 4 * 160 + 160 + 4096),
+                    4 * 16384, 2)}
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", list(GATHERED_BYTES))
 def test_gathered_high_water_is_one_layer_and_the_table(world4, arch):
     """The sharded step gathers each layer's weights inside the layer: the
     high-water of ``fsdp.GATHERED`` is at least the largest layer's
@@ -567,6 +685,36 @@ def test_gathered_high_water_is_one_layer_and_the_table(world4, arch):
         assert high < n_layers * layer + table
         assert alive == 0
     assert out[True][2] == out[False][2]
+
+
+@pytest.mark.parametrize("kind", list(MIXER_CASES))
+def test_mixer_on_model_chunks_matches_whole_weights(world4, kind):
+    """MLA (its heads), the RG-LRU (its channels) and the Mamba-2 mixer
+    (its SSD heads) of a reduced layer on a planned (data 2, model 2)
+    mesh, each leaf at its rule-table chunk and gathered as the sharded
+    step's layer reads it, each rank its rows: the whole output and every
+    leaf's gradient (the latents' leaves, the ``wa`` / ``wi`` rows and
+    ``w_in`` / the conv / the SSD heads' leaves read whole included)
+    against the whole-weight mixer on the whole input within ``TOL``; the
+    head- or channel-wise leaves arrive at their "model" chunk."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("_torch_dist_worker",
+                                                  WORKER)
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    out, grads, chunked = _result(world4, f"mixer_{kind}")
+    tree, x, cot = _mixer_inputs(kind)
+    cfg = port_config(MIXER_CASES[kind], reduced=True)
+    p = {k: torch.tensor(v, requires_grad=True) for k, v in tree.items()}
+    y = worker.run_mixer(kind, p, torch.tensor(x), cfg)
+    (y * torch.tensor(cot)).sum().backward()
+    _close(out, y.detach().numpy(), what=(kind, "out"))
+    assert sorted(grads) == sorted(p)
+    for k, t in p.items():
+        _close(grads[k], t.grad.numpy(), what=(kind, k))
+    assert chunked == {"mla": ["wkv_b", "wo", "wq_b"],
+                       "rglru": sorted(tree),
+                       "ssm": ["norm_scale", "w_out"]}[kind]
 
 
 def test_fsdp_gather_forward_and_backward_bit_for_bit(world4):

@@ -250,25 +250,42 @@ def test_all_cells_both_meshes_write_80_records_without_jax(tmp_path):
 @pytest.mark.parametrize("mesh_kind,dp", [("single", 16), ("multi", 32)])
 def test_collective_bytes_are_one_devices_by_hand(mesh_kind, dp):
     """gemma-2b train_4k's collective bytes, counted by hand for one
-    device: each of 2 microbatches' 256 / 2 / dp sequences of 4096 rows,
-    twice (forward and input gradient); per layer (18) the MLP's sigma
-    product's ring psum over "model" (16) of its (rows, 2048) f32 partial
-    sums, the col product none; the tied head's all-gather over "model"
-    of its (rows, 256000) bf16 logits; then the ring all-reduce of the
-    rank's f32 gradient over the dp data ranks."""
+    device of the sharded step as it runs (bf16, remat "full", 2
+    microbatches, each of 256 / 2 / dp sequences of 4096 rows, R rows):
+    per layer (18) and microbatch, its weights (``layer``: both norms,
+    wq / wo and wk / wv whole over "model", neither 8 heads nor 1 KV
+    head dividing over 16, and the MLP's wi / wo at their "model"
+    chunks) all-gathered over the dp data ranks twice (the forward and
+    the remat rerun) and their gradients reduce-scattered once; the
+    table (its "model" chunk) and the final norm gathered and
+    reduce-scattered once a microbatch; per layer the MLP's input
+    gradient (R x 2048 bf16) summed over "model" (16), its sigma psum of
+    (R, 2048) f32 partial sums once (the rerun stops before a layer's
+    last psum) and the whole wi (2048 x 32768 bf16) all-gathered over
+    "model" three times (the forward, the rerun, its gradient); the
+    embedding's psum of its rows and the head's input gradient (R x 2048
+    bf16 each) and the vocabulary-parallel loss's three f32 row sums;
+    every leaf sharded over the data axes, so no gradient all-reduce.
+    The attention has no "model" collective: its heads are whole."""
     rec = dryrun.run_cell("gemma-2b", "train_4k", mesh_kind, None)
     mb = rec["microbatches"]
     assert mb == 2
     rows = 256 // mb // dp * 4096
-    ring = 15 / 16
-    passes = 2 * mb
-    psum = 18 * passes * 2 * ring * rows * 2048 * 4
-    gather = passes * ring * rows * 256000 * 2
-    grad = rec["per_rank_bytes"]["params"] * 2       # bf16 -> f32
-    want = {"all-reduce": psum + 2 * (dp - 1) / dp * grad,
-            "all-gather": gather}
+    ring, data = 15 / 16, (dp - 1) / dp
+    layer = 2 * (2 * 2048 + 2 * 2048 * 8 * 256 + 2 * 2048 * 256
+                 + 2048 * 32768 // 16 + 16384 * 2048 // 16)
+    outside = 2 * 256000 * 2048 // 16 + 2 * 2048
+    wi = 2 * 2048 * 32768
+    want = {
+        "all-gather": mb * (18 * (2 * data * layer + 3 * ring * wi)
+                            + data * outside),
+        "reduce-scatter": mb * (18 * data * layer + data * outside),
+        "all-reduce": mb * 2 * ring * (
+            18 * (rows * 2048 * 2 + rows * 2048 * 4)
+            + 2 * rows * 2048 * 2 + 3 * rows * 4)}
     assert rec["collectives_bytes"] == pytest.approx(want, rel=1e-12)
     assert rec["replication_fallbacks"] == []
+    assert rec["not_modeled"] == []
 
 
 def test_train_activations_count_the_gathered_weights_by_hand():
@@ -297,15 +314,18 @@ def test_hybrid_gathered_layers_by_hand():
     """recurrentgemma-9b on the 16 x 16 mesh, each layer's gathered bytes
     counted by hand in bf16, in the model's order (12 groups of two
     RG-LRU layers and a local attention layer, then 2 RG-LRU layers): an
-    RG-LRU layer reads its mixer whole (both norms' 2 x 4096; w_x,
-    w_gate, wa, wi and w_out 4096 x 4096 each; conv_w 4 x 4096; conv_b,
-    ba, bi and lam 4096 each) and its MLP's wi 4096 x 24576 and wo 12288
-    x 4096 over 16; a local layer reads its 16 query heads over 16 (wq
-    4096 x 16 x 256 and wo 16 x 256 x 4096, one head a rank), its one KV
-    head whole (wk and wv 4096 x 256 each) and the same MLP.  The table
-    is 256000 x 4096 over 16."""
+    RG-LRU layer reads both norms' 2 x 4096 whole and its mixer at its
+    "model" chunk of the 4096 channels (w_x, w_gate, wa and wi 4096 x
+    4096 / 16 each, wa / wi with every row and their columns' chunk,
+    w_out 4096 / 16 x 4096; conv_w 4 x 4096 / 16; conv_b, ba, bi and lam
+    4096 / 16 each) and its MLP's wi 4096 x 24576 and wo 12288 x 4096
+    over 16; a local layer reads its 16 query heads over 16 (wq 4096 x
+    16 x 256 and wo 16 x 256 x 4096, one head a rank), its one KV head
+    whole (wk and wv 4096 x 256 each) and the same MLP.  The table is
+    256000 x 4096 over 16."""
     mlp = 4096 * 24576 // 16 + 12288 * 4096 // 16
-    rec = 2 * (2 * 4096 + 5 * 4096 * 4096 + 4 * 4096 + 4 * 4096 + mlp)
+    rec = 2 * (2 * 4096 + 5 * 4096 * 4096 // 16 + 4 * 4096 // 16
+               + 4 * 4096 // 16 + mlp)
     local = 2 * (2 * 4096 + 2 * 4096 * 16 * 256 // 16 + 2 * 4096 * 256
                  + mlp)
     layers, table = dryrun.gathered_layers(get_config("recurrentgemma-9b"),

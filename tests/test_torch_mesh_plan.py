@@ -491,7 +491,8 @@ def test_attention_reads_its_chunk_only_where_heads_keep_kv_groups(
     where each rank's query heads read whole K/V groups: ``heads`` a
     multiple of ``tp`` and the K/V heads too, or a rank's heads a multiple
     or a divisor of a group (12 heads in groups of 4 over 2 ranks cut a
-    group, and the layer is read whole); ``bo`` and the router never."""
+    group, and the layer is read whole); ``bo`` and the router never, the
+    RG-LRU's ``wi`` (its columns of every row) always."""
     shapes = {"wq": (64, heads, 16), "wk": (64, kv, 16), "wv": (64, kv, 16),
               "wo": (heads, 16, 64), "bo": (64,)}
     assert psr.heads_keep_groups(heads, kv, tp) == keep
@@ -499,4 +500,30 @@ def test_attention_reads_its_chunk_only_where_heads_keep_kv_groups(
         assert psr.reads_model_chunk("attn", leaf, shapes, tp) == keep
     assert not psr.reads_model_chunk("attn", "bo", shapes, tp)
     assert not psr.reads_model_chunk("moe", "router", {}, tp)
-    assert not psr.reads_model_chunk("rec", "wi", {}, tp)
+    assert psr.reads_model_chunk("rec", "wi", {}, tp)
+
+
+@pytest.mark.parametrize("tp", [2, 16])
+def test_mla_and_recurrent_mixers_read_their_chunks(tp):
+    """MLA reads its head-wise ``wq_b`` / ``wkv_b`` / ``wo`` at their
+    "model" chunk and its latents' leaves whole; the RG-LRU every leaf at
+    its chunk of the channels; Mamba-2 ``norm_scale`` and ``w_out`` at
+    their chunk of ``d_inner`` where its SSD heads divide over ``tp`` (48
+    at full size; 8 at reduced size do not divide over 16), ``w_in``, the
+    conv and the head leaves whole."""
+    mla = {"wq_a": (2560, 768), "q_norm": (768,), "wq_b": (768, 40, 96),
+           "wkv_a": (2560, 288), "kv_norm": (256,), "wkv_b": (256, 40, 128),
+           "wo": (40, 64, 2560)}
+    assert sorted(k for k in mla if psr.reads_model_chunk(
+        "attn", k, mla, tp)) == ["wkv_b", "wo", "wq_b"]
+    for leaf in ("w_x", "w_gate", "conv_w", "conv_b", "wa", "wi", "ba",
+                 "bi", "lam", "w_out"):
+        assert psr.reads_model_chunk("rec", leaf, {}, tp)
+    for heads, din in ((48, 3072), (8, 128)):
+        ssm = {"w_in": (1536, 2 * din + 256 + heads), "conv_w": (4, din + 256),
+               "conv_b": (din + 256,), "A_log": (heads,), "D": (heads,),
+               "dt_bias": (heads,), "norm_scale": (din,),
+               "w_out": (din, 1536)}
+        want = ["norm_scale", "w_out"] if heads % tp == 0 else []
+        assert sorted(k for k in ssm if psr.reads_model_chunk(
+            "mixer", k, ssm, tp)) == want

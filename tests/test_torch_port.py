@@ -3,11 +3,13 @@ device policy, the copied block solver against the reference's, the H100
 page-size derivation, the kernel build command, and ``chip_smoke.py``
 refusing to run without a card."""
 import dataclasses
+import importlib.util
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -177,6 +179,58 @@ def test_nvcc_command_and_build_directory():
                  "-O3", "-shared", "-Xcompiler -fPIC"):
         assert flag in flags
     assert cmd[-3:] == ["-o", str(out), str(build.CSRC / "gemm.cu")]
+
+
+def _smoke_module():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _table_step(read_rows: int, pad_rows: int, bad_row=None):
+    """One AdamW step of a (rows, 32) table in two runs, as
+    ``_hold_moments`` takes them: ``read_rows`` rows a token read (m
+    ~ N(0, 1), the runs' m 1e-3 apart, the update -1e-3 m / sqrt(v)),
+    then ``pad_rows`` rows no token read (exact zeros in both runs);
+    ``bad_row`` a read row whose m and update have the other sign in the
+    first run (a row-local error)."""
+    rng = np.random.default_rng(3)
+    m_p = torch.tensor(rng.standard_normal((read_rows, 32)),
+                       dtype=torch.float32)
+    m_k = m_p + 1e-3 * torch.tensor(rng.standard_normal(m_p.shape),
+                                    dtype=torch.float32)
+    if bad_row is not None:
+        m_k[bad_row] = -m_k[bad_row]
+    v = m_p.square() + 1e-2
+    pad = lambda t: torch.cat([t, torch.zeros(pad_rows, 32)])
+    upd = lambda m: pad(-1e-3 * m / v.sqrt())
+    start = {"t": torch.zeros(read_rows + pad_rows, 32)}
+    return ([{"t": (upd(m_k), pad(m_k), pad(v))}],
+            {"start": start, "moments": [{"t": (upd(m_p), pad(m_p),
+                                                pad(v))}]})
+
+
+@pytest.mark.parametrize("bad_row", [None, 5])
+def test_dist_moment_check_is_blind_to_never_read_rows(bad_row):
+    """``chip_smoke._hold_moments`` takes the m noise over the elements
+    either run touched: a table's never-read rows (exact zeros in both
+    runs, 1960 of 2000 here) change none of its errors, so they neither
+    hide a row-local error nor widen the update check.  A read row of
+    the other sign fails the update check (``upd_err`` over GRAD_TOL)
+    with those rows as without them; a clean table passes both."""
+    smoke = _smoke_module()
+    alone, padded = (smoke._hold_moments(
+        torch, *_table_step(40, pad, bad_row))["t"][0] for pad in (0, 1960))
+    assert padded["touched"] == pytest.approx(40 / 2000)
+    for key in ("m_err", "v_err", "upd_err", "flipped", "flip_m_med",
+                "flip_m_max"):
+        assert padded[key] == pytest.approx(alone[key], rel=1e-9), key
+    assert (padded["upd_err"] > smoke.GRAD_TOL) == (bad_row is not None)
+    if bad_row is None:
+        assert padded["m_err"] <= smoke.GRAD_TOL
+        assert padded["sign_agree"] >= smoke.DIST_SIGN_AGREE
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
