@@ -167,7 +167,8 @@ Twenty-seven phases; any failure exits non-zero before the result line:
             "error"; one step is profiled.
 13. moa_path the MoA expression pipeline (ops.apply -> normal form ->
             derived schedule on the H100 table -> K1 or K9) through its
-            user entries: moa_gemm at 4096^3 (bf16, f32; K1), max-plus and
+            user entries: moa_gemm at 4096^3 (bf16, f32 and f16, the f16
+            pair on K1's tile route by f16 wgmma; K1), max-plus and
             min-plus at 4096^3, 8192^3, ragged 4000x3000x5000 and bf16
             4096^3 (K9, bit for bit against the plain version), and
             through apply (K9): (add, add) 2048^3, a batched (mul, add)
@@ -179,6 +180,10 @@ Twenty-seven phases; any failure exits non-zero before the result line:
             (the profiler must list K9 alone: no operand copy), max-plus
             2048^3 on strided views (a column slice of a wider A and a
             transposed B, which apply copies first), and
+            a 6-axis kron (MAP), A[i,a,b,c,d] B[d,c,b,a,j] over 4 contracted
+            axes that do not merge (TILE over the flattened K; (mul, add)
+            through apply, max-plus through K9's wrapper, as apply's
+            schedule derivation refuses that nest), float16 max-plus (K9),
             examples/kron_compress.py at 64x64 (x) 64x64 (kron on K9, the
             compressed apply on two K1 products, |Wx - vec(B X A^T)| <=
             1e-3).  K1 and K9 launch their derived counts; one apply runs
@@ -361,7 +366,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: step by step, a last-bit difference that the gates decay.
 #: K9 bf16 (mul, add): bf16 products are exact in f32 on both sides; the
 #: sums differ in order only (moa_path's MOA_SUM_TOL).
+#: K1 float16 (the tile route's f16 wgmma): as bf16, each f16 x f16
+#: product is exact in f32 (11-bit significands make 22 bits) on both
+#: sides, so the sums differ in order and in the tensor cores' truncated
+#: adds, which gemm.cu bounds past 8192 terms by promoting each stage.
 TOL = {("K1", "bfloat16"): 1e-4, ("K1", "float32"): 1e-4,
+       ("K1", "float16"): 1e-4,
        ("K2", "bfloat16"): 2e-2, ("K2", "float32"): 1e-4,
        ("K3", "bfloat16"): 2e-2, ("K3", "float32"): 1e-4,
        ("K4", "bfloat16"): 2e-2, ("K4", "float32"): 1e-4,
@@ -3709,12 +3719,27 @@ def k9_tc_bound(terms: float, nbytes: float) -> tuple[tuple[float, str],
             {"fma_bound_ms": k9_bound(terms, nbytes)[0]})
 
 
+def _k9_path(launch) -> str:
+    """K9's path of a launch as the rows print it (THREAD's and REDUCE's
+    warp form marked)."""
+    from repro_torch.kernels import emit
+    name = {emit.TILE: "TILE", emit.THREAD: "THREAD", emit.REDUCE: "REDUCE",
+            emit.MAP: "MAP", emit.CHAIN: "CHAIN",
+            emit.FACTOR: "FACTOR"}[launch.mode]
+    warp = launch.rows and launch.mode in (emit.THREAD, emit.REDUCE)
+    return name + (" warp" if warp else "")
+
+
 def _moa_cases(torch, E, ops):
     """The moa_path cases: ``(label, kernel id, path call, plain call,
     library call or None, exact?, (bound ms, by), extra)`` on seeded card
     inputs (``extra``: further numbers for the row, or {}); each path
     call goes through a user entry (``ops.moa_gemm``,
-    ``semiring_matmul``, ``apply``, ``hadamard``, ``ipophp``)."""
+    ``semiring_matmul``, ``apply``, ``hadamard``, ``ipophp``), but the
+    max-plus contraction over 4 axes, which apply refuses at its
+    schedule's derivation, through K9's wrapper
+    (``ops.semiring_contract``)."""
+    from repro_torch.kernels import emit
     gen = torch.Generator(device="cuda").manual_seed(15)
     rnd = lambda *s, dt=torch.float32: torch.randn(
         *s, generator=gen, device="cuda").to(dt)
@@ -3803,9 +3828,8 @@ def _moa_cases(torch, E, ops):
             lone2 = E.reduce("max", lone2, ax)
         plan = ops._plan(E.normal_form(lone2), ("float32",), torch.float32,
                          ops.H100, None, "float32", False)[1]
-        mode = {2: "REDUCE", 1: "THREAD"}[plan.mode]
-        add(f"K9 float32 lone max over axes {axes} of {shape} path={mode}"
-            f"{' warp' if plan.rows else ''} contracted={plan.red_ext}", "K9",
+        add(f"K9 float32 lone max over axes {axes} of {shape} "
+            f"path={_k9_path(plan)} contracted={plan.red_ext}", "K9",
             lambda lone2=lone2, t=t: ops.apply(lone2, t),
             lambda t=t, axes=axes: torch.amax(t, dim=axes), True,
             k9_bound(1.0 * t.numel(), (t.numel() + MOA_N) * 4))
@@ -3837,7 +3861,7 @@ def _moa_cases(torch, E, ops):
         k9_bound(2.0 * n ** 3, 3 * n * n * 4))
     # past K9's old ranks: a Kronecker product of two cubes (6 out axes,
     # interleaved, none merging) and a contraction over 4 axes in
-    # reversed order (no two merge: THREAD over 4 contracted axes)
+    # reversed order (no two merge: TILE over the flattened 4 axes)
     c = WIDE_KRON
     k3a, k3b = rnd(c, c, c), rnd(c, c, c)
     kron6 = E.transpose(E.inner("add", "mul", E.arr("A", (c, c, c, 1)),
@@ -3857,23 +3881,42 @@ def _moa_cases(torch, E, ops):
                    batch=3)
     for _ in range(3):
         red4 = E.reduce("add", red4, 0)
+    wide_bytes = (2 * i * r ** 4 + i * i) * 4
+    plan = ops._plan(E.normal_form(red4), ("float32",) * 2, torch.float32,
+                     ops.H100, None, "float32", False)[1]
     add(f"K9 float32 A[i,a,b,c,d] B[d,c,b,a,j] i=j={i} a..d={r}: 4 "
-        f"contracted axes path=THREAD warp", "K9",
+        f"contracted axes path={_k9_path(plan)}", "K9",
         lambda: ops.apply(red4, ra, rb),
         lambda: torch.einsum("iabcd,dcbaj->ij", ra, rb), False,
-        k9_bound(1.0 * i * i * r ** 4, (2 * i * r ** 4 + i * i) * 4))
-    # float16 operands under the f32 accumulator (K9: K1 has no f16 form)
+        *k9_tc_bound(1.0 * i * i * r ** 4, wide_bytes))
+    # the same nest in max-plus: its derived schedule (the reference's
+    # nest model, the combine materialized) passes the card's shared
+    # memory, so apply refuses it before any kernel; K9 reads no schedule
+    # blocks, and its descriptor with the semiring's inert element runs it
+    # (ops.semiring_contract, the wrapper apply calls)
+    mp4 = E.inner("max", "add",
+                  E.transpose(E.arr("A", (i, r, r, r, r)), (1, 2, 3, 0, 4)),
+                  E.transpose(E.arr("B", (r, r, r, r, i)), (3, 2, 1, 0, 4)),
+                  batch=3)
+    for _ in range(3):
+        mp4 = E.reduce("max", mp4, 0)
+    mp4_launch = emit.describe(None, E.normal_form(mp4))
+    ma, mb = rnd(i, r, r, r, r), rnd(r, r, r, r, i)
+    add(f"K9 float32 max-plus A[i,a,b,c,d] B[d,c,b,a,j] i=j={i} a..d={r}: "
+        f"4 contracted axes path={_k9_path(mp4_launch)}", "K9",
+        lambda: ops.semiring_contract(mp4_launch, ma, mb), None, True,
+        k9_bound(2.0 * i * i * r ** 4, wide_bytes))
+    # float16 operands under the f32 accumulator: moa_gemm on K1's tile
+    # route (f16 wgmma, one product a term at the f16 peak)
     n = MOA_N
     ha16, hb16 = rnd(n, n, dt=torch.float16), \
         rnd(n, n, dt=torch.float16) * n ** -0.5
-    # the function: one f16 x f16 product a term at the f16 peak; beside
-    # it the design's three bf16 products a term
     f16_bytes = 2 * n * n * 2 + n * n * 4
-    add(f"K9 float16 moa_gemm {n}^3 (f32 accumulator)", "K9",
+    add(f"K1 float16 moa_gemm {n}^3 (f32 accumulator) "
+        f"path={_route(ops, ha16, hb16, False, False)}", "K1",
         lambda: ops.moa_gemm(ha16, hb16, out_dtype=torch.float32),
         lambda: torch.matmul(ha16, hb16), False,
-        bound(2.0 * n ** 3, f16_bytes, "float16"),
-        {"split3_bound_ms": k9_tc_bound(1.0 * n ** 3, f16_bytes)[0][0]})
+        bound(2.0 * n ** 3, f16_bytes, "float16"))
     add(f"K9 float16 max-plus {n}x{n}x{n}", "K9",
         lambda: ops.semiring_matmul(ha16, hb16, plus="max", times="add"),
         None, True, k9_bound(2.0 * n ** 3, 2 * n * n * 2 + n * n * 4))
@@ -4007,8 +4050,9 @@ def phase_moa_path(torch, rec):
         torch.cuda.synchronize()
         diff = (out.float() - want_out.float()).abs().max().item()
         scale = want_out.float().abs().max().item()
-        ok = torch.equal(out, want_out) if exact else \
-            diff <= MOA_SUM_TOL * scale
+        dname = label.split()[1]
+        tol = TOL.get((kid, dname), MOA_SUM_TOL)
+        ok = torch.equal(out, want_out) if exact else diff <= tol * scale
         del want_out
         big = MOA_BIG in (out.shape[0], out.shape[-1]) and out.dim() == 2 \
             and "hadamard" not in label and "lone" not in label
@@ -4017,15 +4061,22 @@ def phase_moa_path(torch, rec):
         plain_ms = time_ms(torch, plain, iters=1, warmup=0)
         lib_ms = time_ms(torch, library) if library is not None else None
         # a sub-millisecond K9 call may be host-bound: its device time too
-        # (and K1's f32 moa_gemm's, on the FMA kernel, with a rerun)
-        f32_k1 = kid == "K1" and "float32" in label
+        # (and K1's f32 moa_gemm's, on the FMA kernel, and f16's, on the
+        # tile route, each with a rerun)
+        k1_other = kid == "K1" and dname in ("float32", "float16")
         g_ms = graph_ms(torch, fn) if (kid == "K9" and ms < 1.0) or \
-            f32_k1 else None
-        if f32_k1 or "lone max over axes" in label:
+            k1_other else None
+        if k1_other or "lone max over axes" in label or \
+                "contracted axes" in label:
             _rerun_equal(torch, fn, f"[moa_path] {label}")
+        # the float16 tile and the wide TILE rows: the library call's
+        # device time too
+        if library is not None and g_ms is not None and (
+                "contracted axes" in label or dname == "float16"):
+            extra = dict(extra, library_graph_ms=graph_ms(torch, library))
         note = "".join(f" {k}={v:.4f}" for k, v in extra.items())
         print(f"[moa_path] {label}{note}: max_abs_err={diff:.3e} "
-              f"({'bit for bit' if exact else f'tol {MOA_SUM_TOL:g} x max|plain|'}"
+              f"({'bit for bit' if exact else f'tol {tol:g} x max|plain|'}"
               f") ms={ms:.4f}"
               f"{'' if g_ms is None else f' graph_ms={g_ms:.4f}'} "
               f"plain_ms={plain_ms:.4f} library_ms="

@@ -41,6 +41,8 @@ checks a given (possibly mutated) plan.
 """
 from __future__ import annotations
 
+import collections
+import itertools
 import math
 
 import torch
@@ -113,8 +115,61 @@ def _bounds_findings(subject, operands, red_ext, out_ext, sizes):
     return out
 
 
-def _launch_findings(launch, subject, out_ext, red_volume, sizes):
-    """Coverage and bounds of one K9 descriptor (a chain's stage too)."""
+#: TILE's slab walk over several contracted axes is enumerated up to this
+#: contracted volume (its splits are checked at any volume)
+WALK_MAX = 1 << 16
+
+
+def _walk_findings(subject, launch, dtypes=None):
+    """TILE over several contracted axes: the slabs of every split, each
+    decoded index by index (``emit.flat_index``, the kernel's
+    ``k_offsets``), visit each contracted element exactly once; and (with
+    the operands' ``dtypes``) no operand is read by 16-byte copies along
+    K unless the innermost axis has stride 1 and an extent the copy
+    divides, at 16-byte aligned bases (where the most copies are
+    allowed)."""
+    red_ext = tuple(launch.red_ext)
+    volume = _prod(red_ext)
+    out = []
+    if dtypes is not None:
+        dts = tuple(getattr(torch, d) for d in dtypes)
+        k_fast, vec = launch._vectors(dts, (0,) * len(dts))
+        for i, (opn, dt) in enumerate(zip(launch.operands, dts)):
+            elems = 16 // emit.ELEM_BYTES[dt]
+            if k_fast[i] and vec[i] and (opn.strides[-1] != 1
+                                         or red_ext[-1] % elems):
+                out.append(Finding(
+                    "bounds", "error", subject,
+                    f"operand {opn.array!r} is read by {elems}-element "
+                    f"copies along K, but its innermost contracted axis "
+                    f"(extent {red_ext[-1]}, stride {opn.strides[-1]}) "
+                    f"does not hold whole copies"))
+    if volume > WALK_MAX:
+        return out
+    k_split = launch.k_split or volume
+    seen = collections.Counter(
+        emit.flat_index(red_ext, k)
+        for s in range(launch.splits)
+        for k0 in range(s * k_split, min((s + 1) * k_split, volume),
+                        emit.TILE_K)
+        for k in range(k0, min(k0 + emit.TILE_K, (s + 1) * k_split, volume)))
+    grid = set(itertools.product(*(range(e) for e in red_ext)))
+    missed = grid - set(seen)
+    twice = sorted(i for i, c in seen.items() if c > 1)
+    stray = sorted(set(seen) - grid)
+    if missed or twice or stray:
+        out.append(Finding(
+            "coverage", "error", subject,
+            f"TILE's slab walk over contracted extents {red_ext} misses "
+            f"{len(missed)}, visits {len(twice)} twice and {len(stray)} "
+            f"outside them (first: {(sorted(missed) + twice + stray)[0]})"))
+    return out
+
+
+def _launch_findings(launch, subject, out_ext, red_volume, sizes,
+                     dtypes=None):
+    """Coverage and bounds of one K9 descriptor (a chain's stage too;
+    ``dtypes``, the operands' dtype names, for the top-level one)."""
     out = []
     if tuple(launch.out_ext) != tuple(out_ext):
         short = _prod(launch.out_ext) < _prod(out_ext)
@@ -176,11 +231,13 @@ def _launch_findings(launch, subject, out_ext, red_volume, sizes):
                             launch.out_ext, sizes)
     folds = mode == emit.TILE or (mode == emit.REDUCE and not launch.rows)
     if folds:
-        depth = launch.red_ext[-1] if launch.red_ext else 1
+        depth = _prod(launch.red_ext)
         out += _split_findings(
-            subject, "K9's split of the contracted axis", depth,
+            subject, "K9's split of the contracted axes", depth,
             launch.splits, launch.k_split or depth,
             emit.TILE_K if mode == emit.TILE else 0)
+        if mode == emit.TILE and len(launch.red_ext) > 1:
+            out += _walk_findings(subject, launch, dtypes)
         need = launch.splits * _prod(launch.out_ext)
         if launch.splits > 1 and launch.work_elems < need:
             out.append(Finding(
@@ -310,7 +367,8 @@ def plan_findings(plan, bundle, nf, dtypes,
     sizes = tuple(_prod(s) for s in nf.leaf_storage_shapes())
     # the nest's out extents, composing axes merged as K9 reads them
     out += _launch_findings(launch, subject, emit._nest(nf)[1],
-                            _prod(ext[a] for a in nf.reduce_axes), sizes)
+                            _prod(ext[a] for a in nf.reduce_axes), sizes,
+                            tuple(dtypes)[:len(launch.operands)])
     return tuple(out)
 
 

@@ -16,11 +16,13 @@ for the message (``kernels/ops.py`` raises with it).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -64,9 +66,18 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+#: sources whose many independent kernels nvcc optimises in parallel
+#: (``--split-compile``, one thread a core): K9's, the longest build, its
+#: tile alone instantiated for 7 semirings x one or several contracted
+#: axes; split, it no longer outlasts ``gemm.cu``
+SPLIT_COMPILE = ("semiring",)
+
+
 def nvcc_command(name: str, out: Path, nvcc: str = "nvcc") -> list[str]:
     """The command line that compiles ``csrc/<name>.cu`` into ``out``."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+    split = ("--split-compile=0",) if name in SPLIT_COMPILE else ()
+    return [nvcc, *NVCC_FLAGS, *split, "-o", str(out),
+            str(CSRC / f"{name}.cu")]
 
 
 def build(names=None) -> dict[str, str]:
@@ -81,20 +92,29 @@ def build(names=None) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
-    for n in todo:
-        tmp = library_path(n).with_suffix(f".tmp{os.getpid()}.so")
-        procs[n] = (tmp, subprocess.Popen(
-            nvcc_command(n, tmp, nvcc), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
     reports, failed = {}, []
-    for n, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {n}.cu (nvcc exit {proc.returncode})\n{out}")
-            tmp.unlink(missing_ok=True)
-            continue
-        os.replace(tmp, library_path(n))
-        reports[n] = out
+    with contextlib.ExitStack() as logs:
+        for n in todo:
+            tmp = library_path(n).with_suffix(f".tmp{os.getpid()}.so")
+            # each compiler's report into a file of its own: a pipe read one
+            # process at a time stalls the others once their reports pass
+            # the pipe's 64 KB (K9's ptxas report is larger)
+            log = logs.enter_context(
+                tempfile.TemporaryFile(mode="w+", dir=BUILD_DIR))
+            procs[n] = (tmp, log, subprocess.Popen(
+                nvcc_command(n, tmp, nvcc), stdout=log,
+                stderr=subprocess.STDOUT))
+        for n, (tmp, log, proc) in procs.items():
+            proc.wait()
+            log.seek(0)
+            out = log.read()
+            if proc.returncode != 0:
+                failed.append(
+                    f"--- {n}.cu (nvcc exit {proc.returncode})\n{out}")
+                tmp.unlink(missing_ok=True)
+                continue
+            os.replace(tmp, library_path(n))
+            reports[n] = out
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports

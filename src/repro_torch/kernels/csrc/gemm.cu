@@ -23,13 +23,14 @@
 // is ever copied transposed.  C is row-major (m, n) float32; the caller
 // casts to its out dtype.
 //
-// Operand types: A and B are each float32 or bfloat16.  In a training
+// Operand types: A and B are each float32 or bfloat16, or both float16
+// (the tile route only, repro_gemm_tc's f16 flag).  In a training
 // step the cotangent reaching the VJP products is f32 (the primal returns
 // f32; the cast to bf16 sits outside) while weights and activations are
 // bf16.
 //
-// Precision contract.  bf16 x bf16: every product is exact in f32 and the
-// sums are f32.  f32 x f32: exact f32 FMA (no TF32).  Mixed (f32 x bf16):
+// Precision contract.  bf16 x bf16 and f16 x f16: every product is exact
+// in f32 (8- or 11-bit significands) and the sums are f32.  f32 x f32: exact f32 FMA (no TF32).  Mixed (f32 x bf16):
 // the f32 operand is split, once per backward for both of its products
 // (ops.split_bf16, the `split_bf16` pass below), into three bf16 parts
 // hi = bf16(g), mid = bf16(g - hi), lo = bf16(g - hi - mid), which hold g
@@ -50,6 +51,10 @@
 //         128-row tile; BN = 256 when those tiles fill the SMs, else 128.
 //         A and B are K-major or MN-major through wgmma's transpose bits,
 //         so transpose_a / transpose_b read the stored layout in place.
+//         f16 x f16 (m > 16, both operands TMA-readable; ops.gemm_route)
+//         takes the same kernel with float16 tensor maps and f16 wgmma,
+//         one product a term; past F16_PROMOTE_K terms at BN = 128 with
+//         each stage promoted as on the split route.
 //   split one f32 operand: the tile path with that operand's three parts
 //         (three wgmmas a k-step, the bf16 operand's tile read once),
 //         BN = 128, 3 stages, and the per-stage f32 promotion above.  The
@@ -800,6 +805,13 @@ using bf16 = __nv_bfloat16;
 using namespace hopper;
 
 constexpr int TBM = 128, TBK = 64;
+// float16 products are exact in f32 as bf16 ones are, but the tensor cores
+// add each k16 step's sum into the f32 accumulator without rounding to
+// nearest, each add dropping up to 2^-23 of the partial sum, all one way:
+// up to 8192 terms (512 adds) that stays near 2^-14 of the sum, within the
+// card tests' 1e-4 of max|C|; past it each 64-k stage is promoted with f32
+// adds, as on the split route
+constexpr int F16_PROMOTE_K = 8192;
 
 // Shared memory of the tile path: a ring of stages, each the PA parts of
 // the A tile (128 rows x 64 k) and the PB parts of the B tile (BN x 64 k),
@@ -867,14 +879,14 @@ __device__ __forceinline__ void bulk_wait_all() {
 }
 
 // wgmma's transpose bits mark an MN-major operand: A stored (K, M) (TA),
-// B stored (K, N) (not TB)
-template <int BN, int TA, int TB>
+// B stored (K, N) (not TB); F16: float16 operands, else bf16
+template <int BN, int TA, int TB, bool F16>
 __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t a,
                                            uint64_t b, int scale_d) {
   if constexpr (BN == 256)
-    wgmma_ss_t256<TA, 1 - TB>(d, a, b, scale_d);
+    wgmma_ss_t256<TA, 1 - TB, F16>(d, a, b, scale_d);
   else
-    wgmma_ss_t128<TA, 1 - TB>(d, a, b, scale_d);
+    wgmma_ss_t128<TA, 1 - TB, F16>(d, a, b, scale_d);
 }
 
 // C = op(A) op(B), 128 x BN tiles over all of K, a persistent block
@@ -890,7 +902,12 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t a,
 // expert.  Three forms: the forward (bf16 x bf16, A (M, K), B (K, N)) and
 // its two VJP forms, dx = g w^T (A the split f32 g (M, K), B w stored (N,
 // K)) and dw = x^T g (A x stored (K, M), B the split g (K, N)).
-template <int BN, int TA, int TB, int PA, int PB, bool EX = false>
+// F16: both operands float16 (2-D, unsplit): the same ring, swizzle and
+// warps, wgmma on f16.  PROMOTE: each 64-k stage's products go to a fresh
+// tile of registers, added into the accumulator with f32 adds (the split
+// route always; float16 past F16_PROMOTE_K).
+template <int BN, int TA, int TB, int PA, int PB, bool EX = false,
+          bool F16 = false, bool PROMOTE = (PA * PB > 1)>
 __global__ void __launch_bounds__(384, 1)
 gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
         int N, int K, int tma_c, int n_fast, int E) {
@@ -898,6 +915,9 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
                     (TA == 0 && TB == 1 && PA == 3 && PB == 1) ||
                     (TA == 1 && TB == 0 && PA == 1 && PB == 3),
                 "the expert forms: x w, g w^T (g split), x^T g (g split)");
+  static_assert(!F16 || (!EX && PA == 1 && PB == 1),
+                "float16 takes the 2-D unsplit form only");
+  static_assert(!PROMOTE || BN == 128, "the stage tiles fit at BN = 128");
   using L = TileSmem<BN, PA, PB>;
   constexpr int S = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -996,9 +1016,9 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
     constexpr uint32_t A_STEP = TA ? 2048 : 32, B_STEP = TB ? 32 : 2048;
     // The tensor cores' f32 sums lose low bits over a long k (they do not
     // round to nearest); a split operand's products run over the longest
-    // k (the vocab), so there each stage's products go to a fresh tile of
-    // registers, added into `acc` in f32 while the next stage runs.
-    constexpr bool PROMOTE = PA * PB > 1;
+    // k (the vocab), so there (and for float16 past F16_PROMOTE_K) each
+    // stage's products go to a fresh tile of registers, added into `acc`
+    // in f32 while the next stage runs.
     float acc[BN / 2];
     int it0 = 0;                  // the ring's k-steps before this tile
     // stage it0 + kt's products into d
@@ -1012,7 +1032,7 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
         for (int ha = 0; ha < PA; ++ha)
 #pragma unroll
           for (int hb = 0; hb < PB; ++hb)
-            wgmma_tile<BN, TA, TB>(
+            wgmma_tile<BN, TA, TB, F16>(
                 d,
                 make_desc(a_tile(s, ha) + wg * 8192, A_LBO, 1024) +
                     ((kk * A_STEP) >> 4),
@@ -1134,11 +1154,12 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
   }
 }
 
-template <int BN, int TA, int TB, int PA, int PB, bool EX = false>
+template <int BN, int TA, int TB, int PA, int PB, bool EX = false,
+          bool F16 = false, bool PROMOTE = (PA * PB > 1)>
 int launch_tile_t(const TileMaps& maps, float* c, int m, int n, int k,
                   int tma_c, int n_fast, cudaStream_t s, int e = 1) {
   constexpr size_t smem = TileSmem<BN, PA, PB>::BYTES;
-  auto kern = gemm_tc<BN, TA, TB, PA, PB, EX>;
+  auto kern = gemm_tc<BN, TA, TB, PA, PB, EX, F16, PROMOTE>;
   static bool sized = false;               // once a kernel (host time)
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1153,19 +1174,21 @@ int launch_tile_t(const TileMaps& maps, float* c, int m, int n, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN, int PA, int PB>
+template <int BN, int PA, int PB, bool F16 = false,
+          bool PROMOTE = (PA * PB > 1)>
 int launch_tile_parts(int ta, int tb, const TileMaps& maps, float* c, int m,
                       int n, int k, int tma_c, int n_fast, cudaStream_t s) {
   if (ta && tb)
-    return launch_tile_t<BN, 1, 1, PA, PB>(maps, c, m, n, k, tma_c, n_fast,
-                                           s);
+    return launch_tile_t<BN, 1, 1, PA, PB, false, F16, PROMOTE>(
+        maps, c, m, n, k, tma_c, n_fast, s);
   if (ta)
-    return launch_tile_t<BN, 1, 0, PA, PB>(maps, c, m, n, k, tma_c, n_fast,
-                                           s);
+    return launch_tile_t<BN, 1, 0, PA, PB, false, F16, PROMOTE>(
+        maps, c, m, n, k, tma_c, n_fast, s);
   if (tb)
-    return launch_tile_t<BN, 0, 1, PA, PB>(maps, c, m, n, k, tma_c, n_fast,
-                                           s);
-  return launch_tile_t<BN, 0, 0, PA, PB>(maps, c, m, n, k, tma_c, n_fast, s);
+    return launch_tile_t<BN, 0, 1, PA, PB, false, F16, PROMOTE>(
+        maps, c, m, n, k, tma_c, n_fast, s);
+  return launch_tile_t<BN, 0, 0, PA, PB, false, F16, PROMOTE>(
+      maps, c, m, n, k, tma_c, n_fast, s);
 }
 
 // The map of the f32 (m, n) output, boxes of 64 rows x 32 columns,
@@ -1187,28 +1210,42 @@ static inline int encode_out_map(CUtensorMap* map, void* base, int m,
 }
 
 // The tile path; `a[1..2]` / `b[1..2]` the mid and lo parts of a split
-// operand (null when it is bf16); a_ld / b_ld the stored rows' pitch.  BN = 256 where its tiles fill the SMs
-// (and nothing is split), else 128.  C leaves by TMA when its rows are a
-// multiple of 16 bytes.
+// operand (null when it is bf16); a_ld / b_ld the stored rows' pitch; f16:
+// both operands float16 (none split).  BN = 256 where its tiles fill the
+// SMs (nothing split, no promotion), else 128.  C leaves by TMA when its
+// rows are a multiple of 16 bytes.
 int launch_tile(const void* const a[3], const void* const b[3], float* c,
                 int m, int n, int k, int ta, int tb, int a_ld, int b_ld,
-                cudaStream_t s) {
+                int f16, cudaStream_t s) {
   const int pa = a[1] ? 3 : 1, pb = b[1] ? 3 : 1;
+  if (f16 && (pa != 1 || pb != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool promote = f16 && k > F16_PROMOTE_K;
   const long long tiles256 =
       (long long)((m + TBM - 1) / TBM) * ((n + 255) / 256);
-  const int bn = pa == 1 && pb == 1 && tiles256 >= sm_count() ? 256 : 128;
+  const int bn =
+      pa == 1 && pb == 1 && !promote && tiles256 >= sm_count() ? 256 : 128;
   TileMaps maps;
   int err = 0;
   for (int h = 0; h < pa && err == 0; ++h)
-    err = ta ? encode_matrix_map(&maps.a[h], a[h], k, m, 64, a_ld)
-             : encode_matrix_map(&maps.a[h], a[h], m, k, TBM, a_ld);
+    err = ta ? encode_matrix_map(&maps.a[h], a[h], k, m, 64, a_ld, f16)
+             : encode_matrix_map(&maps.a[h], a[h], m, k, TBM, a_ld, f16);
   for (int h = 0; h < pb && err == 0; ++h)
-    err = tb ? encode_matrix_map(&maps.b[h], b[h], n, k, bn, b_ld)
-             : encode_matrix_map(&maps.b[h], b[h], k, n, 64, b_ld);
+    err = tb ? encode_matrix_map(&maps.b[h], b[h], n, k, bn, b_ld, f16)
+             : encode_matrix_map(&maps.b[h], b[h], k, n, 64, b_ld, f16);
   const int tma_c = n % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
   if (err == 0 && tma_c) err = encode_out_map(&maps.c, c, m, n);
   if (err != 0) return err;
   const int n_fast = (long long)m * pa > (long long)n * pb;   // A larger
+  if (promote)
+    return launch_tile_parts<128, 1, 1, true, true>(ta, tb, maps, c, m, n, k,
+                                                    tma_c, n_fast, s);
+  if (f16 && bn == 256)
+    return launch_tile_parts<256, 1, 1, true>(ta, tb, maps, c, m, n, k,
+                                              tma_c, n_fast, s);
+  if (f16)
+    return launch_tile_parts<128, 1, 1, true>(ta, tb, maps, c, m, n, k,
+                                              tma_c, n_fast, s);
   if (pa == 3)
     return launch_tile_parts<128, 3, 1>(ta, tb, maps, c, m, n, k, tma_c,
                                         n_fast, s);
@@ -1793,23 +1830,24 @@ extern "C" int repro_gemm(const void* a, const void* b, void* c, void* ws,
 
 // The tile path: a, b bf16, or one of them the hi part of a split f32
 // operand whose mid and lo parts are a_mid, a_lo (or b_mid, b_lo; null
-// otherwise); a_ld / b_ld the stored rows' pitch in elements (the parts of
-// a split operand may be padded past its logical row), each a multiple of
-// 8, bases 16-byte aligned, k >= 1.
+// otherwise), or (f16 = 1) a, b both float16 and neither split; a_ld /
+// b_ld the stored rows' pitch in elements (the parts of a split operand
+// may be padded past its logical row), each a multiple of 8, bases
+// 16-byte aligned, k >= 1.
 extern "C" int repro_gemm_tc(const void* a, const void* a_mid,
                              const void* a_lo, const void* b,
                              const void* b_mid, const void* b_lo, void* c,
                              int m, int n, int k, int transpose_a,
-                             int transpose_b, int a_ld, int b_ld,
+                             int transpose_b, int a_ld, int b_ld, int f16,
                              void* stream) {
   if ((a_mid && b_mid) || (a_mid && !a_lo) || (b_mid && !b_lo) || k < 1 ||
-      a_ld % 8 != 0 || b_ld % 8 != 0 ||
+      a_ld % 8 != 0 || b_ld % 8 != 0 || (f16 != 0 && f16 != 1) ||
       a_ld < (transpose_a ? m : k) || b_ld < (transpose_b ? k : n))
     return static_cast<int>(cudaErrorInvalidValue);
   const void* const as[3] = {a, a_mid, a_lo};
   const void* const bs[3] = {b, b_mid, b_lo};
   return tc::launch_tile(as, bs, static_cast<float*>(c), m, n, k,
-                         transpose_a, transpose_b, a_ld, b_ld,
+                         transpose_a, transpose_b, a_ld, b_ld, f16,
                          static_cast<cudaStream_t>(stream));
 }
 

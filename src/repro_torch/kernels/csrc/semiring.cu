@@ -52,9 +52,17 @@
 //
 // Design: one C call runs one to two descriptors (kernels/emit.py picks
 // the path on the host, Launch.mode, and every copy width and split):
-//  - TILE: two operands, one contracted axis, the M-side operand free of
+//  - TILE: two operands, 1-6 contracted axes, the M-side operand free of
 //    the N axis and the N-side free of M (matmul forms, batched, col-layout
-//    and psi leaves, masked edges).  One 256-thread block per 128x128 tile
+//    and psi leaves, masked edges, contractions over axes whose strides do
+//    not chain, such as A[i,a,b,c,d] B[d,c,b,a,j]).  K is the flattened
+//    contracted index, the innermost axis fastest; over several axes
+//    (k9_tile's MK) the first 32 threads decode each slab's 16 indices
+//    once into a shared table of offsets per operand, a slab ahead of its
+//    fetch, and every copy adds the table's offset where one axis adds k
+//    times its stride (16-byte copies along K only where the innermost
+//    axis has stride 1 and an extent the vector divides; the host
+//    decides).  One 256-thread block per 128x128 tile
 //    of the last two out axes (leading out axes and the splits of K on
 //    grid.z), 8x8 outputs a thread in registers from the identity.  K is
 //    staged in slabs of 16 through a three-stage ring in shared memory
@@ -111,10 +119,11 @@
 //    that pairs the first 4 into the scratch over the axes they walk, then
 //    the scratch and the rest (the pair runs left to right either way, so
 //    the value is the nest's, bit for bit).
-//  - THREAD: every other nest (contracted axes whose strides do not
-//    chain, a 3-operand nest that is no chain; the host first merges
-//    adjacent contracted axes that one flattened index walks, so a lone
-//    reduce over adjacent axes is REDUCE's).  Where the contracted volume
+//  - THREAD: every other nest (a lone reduce over axes whose strides do
+//    not chain, a 3- or 4-operand nest that is no chain, a grid past the
+//    CUDA limits; the host first merges adjacent contracted axes that one
+//    flattened index walks, so a lone reduce over adjacent axes is
+//    REDUCE's).  Where the contracted volume
 //    is at least 32 (Desc.rows), a warp an output: its lanes walk the
 //    flattened contracted index, the innermost axis fastest, so a
 //    stride-1 innermost axis is read in whole 128-byte lines (one thread
@@ -523,10 +532,21 @@ __device__ __forceinline__ int elem_r(int k_fast, int i) {
 // and ST_I8 operands load into registers (stored by commit).  Rows past
 // the extent get zeros or the pad (their outputs are never stored).  Any
 // slab: each element's address and bounds from the operand's strides.
-template <typename T>
+// MK (several contracted axes): the offset of slab element kk along K is
+// kt[kk] (k_offsets), not k * s_k; a 16-byte chunk along K stays inside
+// one run of the innermost axis (the host's vector rule), so its elements
+// lie kt[kk] + 0, 1, ...
+template <typename T, bool MK = false>
 __device__ __forceinline__ void fetch_edge(Operand& o, Slab& dst,
-                                           long long k0, long long kend) {
+                                           long long k0, long long kend,
+                                           const long long* kt = nullptr) {
   const int t = threadIdx.x;
+  auto koff = [&](int kk, long long k) -> long long {
+    if constexpr (MK)
+      return kt[kk];
+    else
+      return k * o.s_k;
+  };
   if constexpr (IS_INT<T>) {
     if (o.how == ST_I8) {               // the integer tile's int8 operand
 #pragma unroll
@@ -536,7 +556,7 @@ __device__ __forceinline__ void fetch_edge(Operand& o, Slab& dst,
         o.r[i] = (k < kend && r < o.rows)
                      ? (unsigned)(int)__ldg(
                            static_cast<const signed char*>(o.p) + o.off +
-                           r * o.s_row + k * o.s_k)
+                           r * o.s_row + koff(kk, k))
                      : 0u;              // (mul, add) pads with 0
       }
       return;
@@ -556,7 +576,7 @@ __device__ __forceinline__ void fetch_edge(Operand& o, Slab& dst,
       const long long rem = o.rows - r;
       const int bytes = rem >= 4 ? 16 : (rem > 0 ? (int)rem * 4 : 0);
       const float* src = static_cast<const float*>(o.p) +
-                         (bytes ? o.off + r + k * o.s_k : 0);
+                         (bytes ? o.off + r + koff(kk, k) : 0);
       cp16(d, src, bytes);
     }
   } else if (o.how == ST_CP4) {         // f32, element by element
@@ -571,7 +591,7 @@ __device__ __forceinline__ void fetch_edge(Operand& o, Slab& dst,
       }
       const bool ok = r < o.rows;
       const float* src = static_cast<const float*>(o.p) +
-                         (ok ? o.off + r * o.s_row + k * o.s_k : 0);
+                         (ok ? o.off + r * o.s_row + koff(kk, k) : 0);
       cp4(d, src, ok ? 4 : 0);
     }
   } else if (!o.half) {                 // f32 along K, 2 x 4 aligned
@@ -581,7 +601,7 @@ __device__ __forceinline__ void fetch_edge(Operand& o, Slab& dst,
       const int r = c >> 2, kq = (c & 3) * 4;
       const long long k = k0 + kq;
       const float* src = static_cast<const float*>(o.p) + o.off +
-                         r * o.s_row + k;
+                         r * o.s_row + (MK ? kt[kq] : k);   // stride 1
       if (r < o.rows && k + 4 <= kend) {
         const uint4 q = __ldg(reinterpret_cast<const uint4*>(src));
         o.r[4 * i] = q.x, o.r[4 * i + 1] = q.y;
@@ -597,7 +617,7 @@ __device__ __forceinline__ void fetch_edge(Operand& o, Slab& dst,
     const int r = o.k_fast ? (t >> 1) : (t & 15) * 8;
     const int kk = o.k_fast ? (t & 1) * 8 : (t >> 4);
     const long long k = k0 + kk;
-    const long long at = o.off + r * o.s_row + k * o.s_k;
+    const long long at = o.off + r * o.s_row + koff(kk, k);
     const bool full = o.k_fast ? (r < o.rows && k + 8 <= kend)
                                : (k < kend && r + 8 <= o.rows);
     if (full) {
@@ -608,12 +628,12 @@ __device__ __forceinline__ void fetch_edge(Operand& o, Slab& dst,
       const unsigned short pad = raw16(o.pad, o.dt);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const long long ke = o.k_fast ? k + e : k;
+        const int ke = o.k_fast ? kk + e : kk;
         const long long re = o.k_fast ? r : r + e;
         const unsigned short v =
-            (re < o.rows && ke < kend)
+            (re < o.rows && k0 + ke < kend)
                 ? __ldg(static_cast<const unsigned short*>(o.p) + o.off +
-                        re * o.s_row + ke * o.s_k)
+                        re * o.s_row + koff(ke, k0 + ke))
                 : pad;
         o.r[e >> 1] = (e & 1) ? (o.r[e >> 1] | ((unsigned)v << 16)) : v;
       }
@@ -627,7 +647,7 @@ __device__ __forceinline__ void fetch_edge(Operand& o, Slab& dst,
       const unsigned short v =
           (k < kend && r < o.rows)
               ? __ldg(static_cast<const unsigned short*>(o.p) + o.off +
-                      r * o.s_row + k * o.s_k)
+                      r * o.s_row + koff(kk, k))
               : pad;
       o.r[i >> 1] = (i & 1) ? (o.r[i >> 1] | ((unsigned)v << 16)) : v;
     }
@@ -695,14 +715,48 @@ __device__ __forceinline__ void fetch_full(Operand& o, Slab& dst,
   }
 }
 
-template <typename T>
+// MK: every slab by its table of offsets (fetch_edge); else a slab inside
+// K by the precomputed addresses
+template <typename T, bool MK = false>
 __device__ __forceinline__ void fetch(Operand& o, Slab& dst, long long k0,
-                                      long long kend) {
+                                      long long kend,
+                                      const long long* kt = nullptr) {
+  if constexpr (MK) {
+    fetch_edge<T, true>(o, dst, k0, kend, kt);
+    return;
+  }
   if (k0 + TK <= kend)
     fetch_full<T>(o, dst, k0, kend);
   else
     fetch_edge<T>(o, dst, k0, kend);
   o.cur += o.dk;
+}
+
+// MK: the element offsets, in the M-side (row h = 0) and N-side (h = 1)
+// operand, of the flattened contracted indices k0 .. k0 + TK - 1 (0 past
+// kend), the innermost contracted slot fastest (THREAD's and
+// run_descriptor's order): one index a thread of the first 2 TK, decoded
+// once a slab in 32-bit arithmetic (the host keeps the volume below 2^31)
+__device__ __forceinline__ void k_offsets(const Desc& d,
+                                          long long (*tab)[TK], long long k0,
+                                          long long kend) {
+  const int t = threadIdx.x;
+  if (t >= 2 * TK) return;
+  const int h = t / TK, kk = t % TK;
+  const int op = h ? d.b_op : d.a_op;
+  long long off = 0;
+  if (k0 + kk < kend) {
+    unsigned k = (unsigned)(k0 + kk);
+#pragma unroll
+    for (int s = MAX_RED - 1; s >= 0; --s) {
+      if (s < MAX_RED - d.n_red) break;
+      const unsigned e = (unsigned)d.red_ext[s];
+      const unsigned q = k / e;
+      off += (long long)(k - q * e) * d.stride[op][MAX_OUT + s];
+      k = q;
+    }
+  }
+  tab[h][kk] = off;
 }
 
 // Store an ST_REG (ST_I8) operand's registers into its slab, widened (as
@@ -896,16 +950,24 @@ __device__ __forceinline__ void store2(void* p, long long off, float x,
 
 // Output (or, with splits, partial) tile of rows m0.., columns n0...;
 // TC: (mul, add) on the tensor cores (mma_slab), else FMA / pair-fold;
-// T int: the integer tile (IMAD on int32 bits in the slabs).
-template <int COMB, int RED, bool TC, typename T>
+// T int: the integer tile (IMAD on int32 bits in the slabs).  MK: several
+// contracted axes, K their flattened index (innermost fastest); each
+// slab's operand offsets are decoded once into a table (k_offsets) a
+// slab ahead of its fetch, one table a ring stage.
+template <int COMB, int RED, bool TC, typename T, bool MK>
 __global__ void __launch_bounds__(TILE_THREADS)
 k9_tile(const Desc d, const Ins in, void* __restrict__ out,
         float* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ long long ktab[MK ? STAGES : 1][2][TK];
   Slab* sa = reinterpret_cast<Slab*>(smem);
   Slab* sb = sa + STAGES;
   const long long M = d.out_ext[ROW], N = d.out_ext[LAST];
-  const long long K = d.red_ext[MAX_RED - 1];
+  long long K = d.red_ext[MAX_RED - 1];
+  if constexpr (MK) {
+#pragma unroll
+    for (int s = 0; s < MAX_RED - 1; ++s) K *= d.red_ext[s];
+  }
   const long long m0 = (long long)blockIdx.y * TM;
   const long long n0 = (long long)blockIdx.x * TM;
   long long cell = blockIdx.z / d.splits;
@@ -938,13 +1000,18 @@ k9_tile(const Desc d, const Ins in, void* __restrict__ out,
     for (int j = 0; j < 8; ++j) acc[i][j] = identity<RED, T>();
 
   const long long nslab = kend > kbeg ? (kend - kbeg + TK - 1) / TK : 0;
+  if constexpr (MK) {          // the tables of the ring's first 3 slabs
+#pragma unroll
+    for (int p = 0; p < STAGES; ++p) k_offsets(d, ktab[p], kbeg + p * TK, kend);
+    __syncthreads();
+  }
   // the ring's first two slabs; a group is committed per slab (empty past
   // the last) so that wait_group 1 always leaves only the next one open
 #pragma unroll
   for (int p = 0; p < STAGES - 1; ++p) {
     if (p < nslab) {
-      fetch<T>(A, sa[p], kbeg + p * TK, kend);
-      fetch<T>(B, sb[p], kbeg + p * TK, kend);
+      fetch<T, MK>(A, sa[p], kbeg + p * TK, kend, ktab[MK ? p : 0][0]);
+      fetch<T, MK>(B, sb[p], kbeg + p * TK, kend, ktab[MK ? p : 0][1]);
       commit<T>(A, sa[p]);
       commit<T>(B, sb[p]);
     }
@@ -957,9 +1024,16 @@ k9_tile(const Desc d, const Ins in, void* __restrict__ out,
     __syncthreads();   // slab s is in; every thread is done with slab s - 1
     const bool more = s + STAGES - 1 < nslab;
     if (more) {
-      fetch<T>(A, sa[ahead], kbeg + (s + STAGES - 1) * TK, kend);
-      fetch<T>(B, sb[ahead], kbeg + (s + STAGES - 1) * TK, kend);
+      fetch<T, MK>(A, sa[ahead], kbeg + (s + STAGES - 1) * TK, kend,
+                   ktab[MK ? ahead : 0][0]);
+      fetch<T, MK>(B, sb[ahead], kbeg + (s + STAGES - 1) * TK, kend,
+                   ktab[MK ? ahead : 0][1]);
     }
+    // slab s + 3's table into slab s's (last read by slab s's fetch, two
+    // barriers ago); read after the next barrier
+    if constexpr (MK)
+      if (s + STAGES < nslab)
+        k_offsets(d, ktab[cur], kbeg + (s + STAGES) * TK, kend);
     cp_commit();
     const Slab& as = sa[cur];
     const Slab& bs = sb[cur];
@@ -1423,6 +1497,22 @@ cudaError_t launch_thread(const Desc& d, const Ins& in, void* dst,
   return cudaGetLastError();
 }
 
+template <int COMB, int RED, typename T, bool MK>
+cudaError_t launch_tile(const Desc& d, const Ins& in, void* dst, float* work,
+                        dim3 grid, cudaStream_t st) {
+  constexpr bool TC = !IS_INT<T> && COMB == 0 && RED == 0;
+  auto kern = k9_tile<COMB, RED, TC, T, MK>;
+  static bool sized = false;    // once per instantiation and process
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TILE_SMEM);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  kern<<<grid, TILE_THREADS, TILE_SMEM, st>>>(d, in, dst, work);
+  return cudaGetLastError();
+}
+
 template <int COMB, int RED, typename T>
 cudaError_t launch(const Desc& d, const Ins& in, void* dst, float* work,
                    cudaStream_t st) {
@@ -1436,18 +1526,11 @@ cudaError_t launch(const Desc& d, const Ins& in, void* dst, float* work,
     if (gy > GRID_YZ || gz > GRID_YZ) return cudaErrorInvalidValue;
     const dim3 grid((unsigned)ceil_div(d.out_ext[LAST], TM), (unsigned)gy,
                     (unsigned)gz);
-    constexpr bool TC = !IS_INT<T> && COMB == 0 && RED == 0;
-    static bool sized = false;    // once per instantiation and process
-    if (!sized) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          k9_tile<COMB, RED, TC, T>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, TILE_SMEM);
-      if (e != cudaSuccess) return e;
-      sized = true;
-    }
-    k9_tile<COMB, RED, TC, T><<<grid, TILE_THREADS, TILE_SMEM, st>>>(
-        d, in, dst, work);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = d.n_red > 1
+                          ? launch_tile<COMB, RED, T, true>(d, in, dst, work,
+                                                            grid, st)
+                          : launch_tile<COMB, RED, T, false>(d, in, dst, work,
+                                                             grid, st);
     if (err != cudaSuccess || d.splits == 1) return err;
     return fold_splits<RED, T>(d, work, dst, st);
   }
@@ -1497,16 +1580,22 @@ bool valid(const Desc& d, int n_ins) {
   if (d.n_in < 1 || d.n_in > MAX_IN || d.n_red < 0 || d.n_red > MAX_RED ||
       d.mode < MODE_TILE || d.mode > MODE_MAP || d.dst < 0 || d.dst > 1 ||
       d.acc < 0 || d.acc > 1 ||
-      (d.mode == MODE_TILE && (d.n_in != 2 || d.n_red != 1)) ||
+      (d.mode == MODE_TILE && (d.n_in != 2 || d.n_red < 1)) ||
       (d.mode == MODE_REDUCE && d.n_red != 1) ||
       (d.mode != MODE_TILE && d.mode != MODE_REDUCE && d.splits != 1) ||
       (d.splits > 1 && d.k_split < 1))
     return false;
   for (int i = 0; i < MAX_OUT; ++i)
     if (d.out_ext[i] < 1) return false;
-  for (int i = 0; i < MAX_RED; ++i)
+  long long volume = 1;
+  for (int i = 0; i < MAX_RED; ++i) {
     if (d.red_ext[i] < 0 || (d.mode == MODE_MAP && d.red_ext[i] != 1))
       return false;
+    volume *= d.red_ext[i];
+  }
+  // TILE decodes a flattened index over several axes in 32 bits
+  if (d.mode == MODE_TILE && d.n_red > 1 && volume >= (1LL << 31))
+    return false;
   for (int i = 0; i < d.n_in; ++i) {
     if (d.src[i] != SRC_TMP && (d.src[i] < 0 || d.src[i] >= n_ins))
       return false;

@@ -74,13 +74,16 @@ FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 INT_DTYPES = (torch.int8, torch.int32)
 INT_OUT_DTYPES = (torch.int32, torch.float32)
 #: K9's paths (``Launch.mode``, chosen by :func:`_mode`):
-#: TILE    two operands, one contracted axis, the M side free of the N
-#:         axis and the N side free of M: 128x128 output tiles, K staged
-#:         through a two-stage ring, split over blocks where the tiles
-#:         alone do not fill the card;
-#: THREAD  every nest no other path takes: a warp per output where the
-#:         contracted volume is at least a warp's (``Launch.rows``), its
-#:         lanes walking the flattened contracted index, else a thread;
+#: TILE    two operands, 1 to ``MAX_RED`` contracted axes (K their
+#:         flattened index, the innermost axis fastest), the M side free
+#:         of the N axis and the N side free of M: 128x128 output tiles, K
+#:         staged through a three-stage ring of 16-deep slabs, split over
+#:         blocks where the tiles alone do not fill the card;
+#: THREAD  every nest no other path takes (three or more operands that
+#:         form no chain, a lone reduce over axes that do not merge, grids
+#:         past the CUDA limits): a warp per output where the contracted
+#:         volume is at least a warp's (``Launch.rows``), its lanes
+#:         walking the flattened contracted index, else a thread;
 #: REDUCE  one contracted axis: a warp per output where it is contiguous
 #:         in every operand that walks it (``Launch.rows``), else column
 #:         strips, split over blocks where they do not fill the card;
@@ -107,6 +110,9 @@ THREAD_WARP_MIN = 32
 TILE_SPLIT_MIN, REDUCE_SPLIT_MIN = 64, 256
 #: the CUDA grid's y and z limit (tile rows, leading out cells, splits)
 GRID_YZ = 65535
+#: TILE over several contracted axes decodes its flattened K index in
+#: 32-bit arithmetic: the contracted volume stays below this
+TILE_FLAT_K = 2 ** 31
 #: (combine, reduce) pairs whose chains contract pairwise: the combine
 #: distributes over the reduce
 CHAIN_PAIRS = {("mul", "add"), ("add", "max"), ("add", "min")}
@@ -220,9 +226,10 @@ def tile_k_fast(s_row: int, s_k: int) -> bool:
 
 
 def tile_splits(lead: int, m: int, n: int, k: int) -> tuple[int, int]:
-    """``(splits, k_split)``: TILE splits K over blocks only where its
-    128x128 tiles do not fill the SMs, into at most one split per
-    ``TILE_SPLIT_MIN`` contracted elements, each a multiple of the slab."""
+    """``(splits, k_split)``: TILE splits K (the contracted volume, its
+    flattened index) over blocks only where its 128x128 tiles do not fill
+    the SMs, into at most one split per ``TILE_SPLIT_MIN`` contracted
+    elements, each a multiple of the slab."""
     tiles = lead * -(-m // TILE_M) * -(-n // TILE_M)
     s = 1
     if tiles < NUM_SM:
@@ -233,6 +240,17 @@ def tile_splits(lead: int, m: int, n: int, k: int) -> tuple[int, int]:
     k_split = -(-k // s)
     k_split = -(-k_split // TILE_K) * TILE_K
     return -(-k // k_split), k_split
+
+
+def flat_index(red_ext, k: int) -> tuple[int, ...]:
+    """The contracted index that TILE's (and THREAD's) flattened index
+    ``k`` stands for, the innermost axis fastest: what ``k9_tile``'s
+    ``k_offsets`` decodes once a slab into each operand's offsets."""
+    idx = []
+    for e in reversed(red_ext):
+        k, r = divmod(k, e)
+        idx.append(r)
+    return tuple(reversed(idx))
 
 
 def reduce_splits(lead: int, x: int, k: int) -> tuple[int, int]:
@@ -303,7 +321,10 @@ class Launch:
     def _vectors(self, in_dtypes, ptrs) -> tuple[list[int], list[int]]:
         """Per operand: TILE's orientation (k_fast) and whether the path
         reads it in vectors (16 bytes for TILE; runs of ``RUN`` for MAP and
-        REDUCE), by :func:`vector_ok` at this launch's pointers."""
+        REDUCE), by :func:`vector_ok` at this launch's pointers.  TILE's K
+        is its innermost contracted axis; over several contracted axes a
+        vector along K must also stay inside one run of that axis (its
+        extent a multiple of the vector)."""
         nout = len(self.out_ext)
         k_fast, vec = [0] * MAX_IN, [0] * MAX_IN
         for i, (opn, dt) in enumerate(zip(self.operands, in_dtypes)):
@@ -311,10 +332,14 @@ class Launch:
             st = opn.strides
             if self.mode == TILE:
                 row = nout - 2 if i == self.roles[0] else nout - 1
-                kf = tile_k_fast(st[row], st[nout])
+                inner = len(st) - 1
+                kf = tile_k_fast(st[row], st[inner])
                 k_fast[i] = int(kf)
-                fast = nout if kf else row
+                fast = inner if kf else row
                 elems = 16 // size
+                if kf and len(self.red_ext) > 1 and \
+                        self.red_ext[-1] % elems:
+                    continue
             elif self.mode == MAP:
                 fast, elems = nout - 1, RUN
                 st = st[:nout]
@@ -416,9 +441,14 @@ class Launch:
 
 def _tile_roles(out_ext, red_ext, operands) -> Optional[tuple[int, int]]:
     """TILE's (M-side, N-side) operands, or None where TILE cannot take
-    the nest (or its grid would pass the CUDA limits)."""
+    the nest: not two operands, no contracted axis (MAP's), fewer than two
+    out axes, a contracted volume past ``TILE_FLAT_K`` over several axes,
+    a grid past the CUDA limits, or each operand walking both tile
+    axes."""
     nout = len(out_ext)
-    if len(operands) != 2 or len(red_ext) != 1 or nout < 2:
+    if len(operands) != 2 or not 1 <= len(red_ext) <= MAX_RED or nout < 2:
+        return None
+    if len(red_ext) > 1 and _prod(red_ext) >= TILE_FLAT_K:
         return None
     lead = _prod(out_ext[:-2])
     if lead > GRID_YZ or -(-out_ext[-2] // TILE_M) > GRID_YZ:
@@ -490,7 +520,7 @@ def _chain_stages(out_ext, red_ext, operands, combine, reduce_op, pad):
 def _tile_launch(out_axes, out_ext, red_axes, red_ext, operands, combine,
                  reduce_op, pad, roles, nf=None, srcs=()) -> Launch:
     splits, k_split = tile_splits(_prod(out_ext[:-2]), out_ext[-2],
-                                  out_ext[-1], red_ext[0])
+                                  out_ext[-1], _prod(red_ext))
     return Launch(nf, out_axes, out_ext, red_axes, red_ext, operands,
                   combine, reduce_op, pad, TILE, roles, splits, k_split,
                   srcs=srcs)

@@ -50,7 +50,8 @@ its builders                               semiring, ``_general_combine``
 ================  =======================  =============================
 
 K1 takes one of its routes by :func:`gemm_route`, a shape rule applied
-before launch: the TMA + wgmma tile path (bf16), its split form (one f32
+before launch: the TMA + wgmma tile path (bf16, or two float16 operands
+that :func:`f16_route` admits), its split form (one f32
 operand as three bf16 parts, made once by :func:`split_bf16` for both of a
 backward's products, which is no K1 launch of its own), the decode rows'
 weight stream (at most 16 rows) or, where TMA cannot read a bf16 operand
@@ -117,7 +118,7 @@ _F = ctypes.c_float
 #: C entry point -> (library, argument types before the trailing stream)
 _SIGNATURES = {
     "repro_gemm": ("gemm", [_P] * 4 + [_C] * 11),
-    "repro_gemm_tc": ("gemm", [_P] * 7 + [_C] * 7),
+    "repro_gemm_tc": ("gemm", [_P] * 7 + [_C] * 8),
     "repro_gemm_int8": ("gemm", [_P] * 3 + [_C] * 6),
     "repro_gemv": ("gemm", [_P] * 4 + [_C] * 5),
     "repro_expert_gemm": ("gemm", [_P] * 4 + [_C] * 6),
@@ -270,7 +271,9 @@ def gemm_route(m: int, n: int, k: int, a_dtype, b_dtype,
     - ``"gemv"``: bf16 x bf16 with at most ``K1_DECODE_ROWS`` rows,
       no ``transpose_a`` and ``k % 32 == 0`` (the weight-streaming decode
       kernel, split over k by :func:`gemv_splits`);
-    - ``"tile"``: the other bf16 x bf16 products (TMA + wgmma);
+    - ``"tile"``: the other bf16 x bf16 products (TMA + wgmma), and
+      float16 x float16 where :func:`f16_route` gives it (f16 wgmma, one
+      product a term);
     - ``"split"``: one f32 and one bf16 operand whose bf16 operand TMA can
       read: the f32 one as its three bf16 parts (:func:`split_bf16`,
       written at a row pitch of a multiple of 8 elements, so its own
@@ -284,14 +287,26 @@ def gemm_route(m: int, n: int, k: int, a_dtype, b_dtype,
       not take (the head form, every K9 path) to K9's integer
       accumulator.
 
-    float16 operands take no route of K1: ``_plan`` sends every form with
-    a float16 operand to K9, which loads them beside f32 and bf16."""
-    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    A float16 operand takes the tile route or none: a product K1 does not
+    take (:func:`f16_route` ``"K9"``, or float16 beside another dtype)
+    raises ``TypeError``; ``_plan`` sends those forms to K9."""
+    f32, i8, f16 = torch.float32, torch.int8, torch.float16
     if i8 in (a_dtype, b_dtype):
         if a_dtype != b_dtype:
             raise TypeError(f"K1's int8 form takes int8 x int8, got "
                             f"{a_dtype} x {b_dtype}")
         return "int8"
+    if f16 in (a_dtype, b_dtype):
+        if a_dtype != b_dtype or f16_route(
+                m, n, k, transpose_a, transpose_b,
+                a_base_ok and b_base_ok) != "tile":
+            raise TypeError(
+                f"K1 takes float16 x float16 on its tile route only (rows "
+                f"of a multiple of 8 elements, 16-byte bases, m > "
+                f"{K1_DECODE_ROWS}); got {a_dtype} x {b_dtype} at (m, n, k) "
+                f"= ({m}, {n}, {k}), transposes ({transpose_a}, "
+                f"{transpose_b})")
+        return "tile"
     if a_dtype == f32 and b_dtype == f32:
         return "fma"
     a_row = m if transpose_a else k
@@ -300,13 +315,37 @@ def gemm_route(m: int, n: int, k: int, a_dtype, b_dtype,
         row, ok = (b_row, b_base_ok) if a_dtype == f32 else (a_row,
                                                               a_base_ok)
         return "split" if k > 0 and row % 8 == 0 and ok else "fma"
-    aligned = (k > 0 and a_row % 8 == 0 and b_row % 8 == 0 and a_base_ok
-               and b_base_ok)
-    if not aligned:
+    if not tma_reads(m, n, k, transpose_a, transpose_b,
+                     a_base_ok and b_base_ok):
         return "fma" if transpose_a else "wmma"
     if m <= K1_DECODE_ROWS and not transpose_a and k % K1_GEMV_UNIT == 0:
         return "gemv"
     return "tile"
+
+
+def tma_reads(m: int, n: int, k: int, transpose_a: bool, transpose_b: bool,
+              aligned: bool) -> bool:
+    """Whether TMA reads both 16-bit operands of a 2-D product in place:
+    ``k >= 1``, each stored row (``m`` or ``k`` of A, ``k`` or ``n`` of B)
+    a multiple of 8 elements (16 bytes), and ``aligned`` 16-byte bases."""
+    a_row = m if transpose_a else k
+    b_row = k if transpose_b else n
+    return k > 0 and a_row % 8 == 0 and b_row % 8 == 0 and aligned
+
+
+def f16_route(m: int, n: int, k: int, transpose_a: bool = False,
+              transpose_b: bool = False, aligned: bool = True) -> str:
+    """K1's route for a float16 x float16 2-D product, or ``"K9"``: the
+    tile route (TMA + f16 wgmma into f32, one product a term) where TMA
+    reads both operands (:func:`tma_reads`) and there are more than
+    ``K1_DECODE_ROWS`` rows (K1 has no float16 decode-row kernel); K9
+    otherwise, which loads float16 beside f32 and bf16.  The batched,
+    expert and head forms with a float16 operand, float16 beside another
+    dtype and every other semiring take K9 too (``_plan``)."""
+    if m > K1_DECODE_ROWS and tma_reads(m, n, k, transpose_a, transpose_b,
+                                        aligned):
+        return "tile"
+    return "K9"
 
 
 @functools.lru_cache(maxsize=1024)
@@ -433,12 +472,19 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
     """Launch K1 on 2-D operands; returns the f32 ``op(a) @ op(b)``, where
     ``op(a)`` reads a stored ``(k, m)`` as its transpose when
     ``transpose_a`` and ``op(b)`` a stored ``(n, k)`` when
-    ``transpose_b``.  Operands may be f32, bf16 or one of each; the route
-    is :func:`gemm_route`'s.  ``split``: the three bf16 parts of the f32
-    operand of a mixed product, when the caller has made them (else they
-    are made here)."""
-    code_a = _check_kernel_dtype("gemm", a, b, mixed=True)
-    code_b = _DTYPE_CODE[b.dtype]
+    ``transpose_b``.  Operands may be f32, bf16 or one of each, or both
+    float16 (the tile route's f16 form); the route is
+    :func:`gemm_route`'s, which refuses a float16 product off the tile
+    route.  ``split``: the three bf16 parts of the f32 operand of a mixed
+    product, when the caller has made them (else they are made here)."""
+    f16 = a.dtype == b.dtype == torch.float16
+    if f16:
+        if not (a.is_contiguous() and b.is_contiguous()):
+            raise ValueError("gemm kernel takes contiguous operands")
+        code_a = code_b = None
+    else:
+        code_a = _check_kernel_dtype("gemm", a, b, mixed=True)
+        code_b = _DTYPE_CODE[b.dtype]
     k, m = a.shape if transpose_a else a.shape[::-1]
     n = b.shape[0] if transpose_b else b.shape[1]
     out = torch.empty((m, n), device=a.device, dtype=torch.float32)
@@ -458,7 +504,7 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
             else:
                 b_ptrs, b_ld = ptrs, parts[0].stride(0)
         _launch("repro_gemm_tc", *a_ptrs, *b_ptrs, out.data_ptr(), m, n, k,
-                int(transpose_a), int(transpose_b), a_ld, b_ld)
+                int(transpose_a), int(transpose_b), a_ld, b_ld, int(f16))
     elif route == "gemv":
         nsplit = gemv_splits(m, n, k)
         ws = torch.empty((nsplit, m, n), device=a.device,
@@ -1854,6 +1900,16 @@ def _k1_form(nf: "E.NormalForm"):
     return (*flags, batched)
 
 
+def _f16_tile(nf: "E.NormalForm", flags, aligned: bool) -> bool:
+    """Whether :func:`f16_route` gives the 2-D float16 product ``nf`` (K1
+    form ``flags``) the tile route."""
+    ta, tb, _ = flags
+    a_shape, b_shape = nf.leaf_storage_shapes()
+    k, m = a_shape if ta else a_shape[::-1]
+    n = b_shape[0] if tb else b_shape[1]
+    return f16_route(m, n, k, ta, tb, aligned) == "tile"
+
+
 def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
           blocks, acc_dtype: str, aligned: bool = True) -> tuple:
     """The memoised route of one normal form: ``("K1", transpose_a,
@@ -1863,9 +1919,11 @@ def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
     form takes K1 where :func:`expert_route` gives it one of K1's routes
     (``aligned``: every base 16-byte aligned), a head form (``batched``
     ``"head"``) where :func:`head_route` does (``aligned``: the views'
-    strides as :func:`head_aligned` reads them), else K9.  A form with a
-    float16 operand takes K9 (K1 has no float16 form; K9 loads float16
-    beside f32 and bf16 under its f32 accumulator).  An accumulator other
+    strides as :func:`head_aligned` reads them), else K9.  A float16
+    form takes K1's tile route where it is a 2-D product of two float16
+    operands that :func:`f16_route` gives the tile (``aligned``: both
+    bases 16-byte aligned), else K9, which loads float16 beside f32 and
+    bf16 under its f32 accumulator.  An accumulator other
     than f32 or int32 (a table's bf16) raises: no kernel has one.  int8 operands take an
     int32 accumulator only (an f32 accumulator would round past 2^24), on
     (mul, add) only: any other raises.  K1's int8 form sums the 2-D and
@@ -1903,8 +1961,11 @@ def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
         raise ValueError(
             f"K1 and K9 accumulate in float32 (int32 for int8 operands); "
             f"a {acc_dtype} accumulation has no kernel path")
-    flags = None if "float16" in dtypes else _k1_form(nf)
-    if flags is not None and flags[2] == "head":
+    flags = _k1_form(nf)
+    if flags is not None and "float16" in dtypes:
+        flags = flags if not flags[2] and dtypes[:2] == (
+            "float16", "float16") and _f16_tile(nf, flags, aligned) else None
+    elif flags is not None and flags[2] == "head":
         (m, h, k), w_shape = nf.leaf_storage_shapes()
         n = w_shape[0] if flags[1] else w_shape[2]
         if head_route(h, m, k, n, *dtypes[:2], flags[1], aligned) == "K9":
@@ -1979,7 +2040,9 @@ def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
     ``acc_dtype``: f32, or int32 for int8 operands under (mul, add),
     summed exactly by K1's int8 form (a 2-D product, either operand
     transposed, or the expert form) or by K9's integer accumulator (every
-    other form).  float16 operands run on K9 under the f32 accumulator.
+    other form).  float16 operands run under the f32 accumulator: a 2-D
+    product of two on K1's tile route where :func:`f16_route` allows it,
+    every other float16 form on K9.
     A strided view binds like its contiguous copy: it is copied first,
     but by K1's head form, which reads it in place.
 

@@ -26,8 +26,9 @@ def matmul(x2: torch.Tensor, w2: torch.Tensor, transpose_b: bool = False,
            *, transpose_a: bool = False) -> torch.Tensor:
     """``x2 (m, k) @ w2 (k, n)`` with an f32 result accumulated in f32;
     ``transpose_b`` takes ``w2`` stored ``(n, k)``, ``transpose_a`` takes
-    ``x2`` stored ``(k, m)``.  Either operand may be f32 or bf16: a bf16
-    operand is promoted to f32 exactly, as the reference's einsum does."""
+    ``x2`` stored ``(k, m)``.  Either operand may be f32, bf16 or f16: a
+    16-bit operand is promoted to f32 exactly, as the reference's einsum
+    does, so a product of two 16-bit values is exact in f32 too."""
     x = x2.float()
     w = w2.float()
     return (x.t() if transpose_a else x) @ (w.t() if transpose_b else w)

@@ -177,7 +177,7 @@ def _wide_forms(E):
                               (0, 3, 1, 4, 2, 5)),
                   [(4, 5, 6, 1), (1, 3, 2, 7)], (6, 1, 2), emit.MAP),
         "red4": (red4, [(6, 3, 4, 5, 2), (2, 5, 4, 3, 7)], (2, 4, 2),
-                 emit.THREAD),
+                 emit.TILE),
         "chain4": (chain(4, (5, 6, 7, 8, 9)),
                    [(5, 6), (6, 7), (7, 8), (8, 9)], (2, 3, 4), emit.THREAD),
         "hadamard4": (hada(4, (13, 70)), [(13, 70)] * 4, (2, 0, 4),
@@ -399,3 +399,253 @@ def test_float16_forms_match_the_reference(name, out):
     d = plan[1].c_descs((torch.float16,) * len(ins), getattr(torch, out),
                         (0,) * len(ins))[0]
     assert list(d.in_dtype)[:len(ins)] == [2] * len(ins) and d.acc == 0
+
+
+def _f16_plan_forms(E):
+    """(label) -> (expr, storage shapes, dtypes, plan head): float16 forms
+    and the route ``_plan`` gives each (K1's form flags, or "K9")."""
+    A = E.arr
+    ta = E.inner("add", "mul", E.transpose(A("A", (64, 40))), A("B", (64, 48)))
+    return {
+        "moa_gemm": (E.matmul_expr(40, 64, 48), [(40, 64), (64, 48)],
+                     ("float16",) * 2, ("K1", False, False, False)),
+        "moa_gemm_tb": (E.matmul_expr(40, 64, 48, transpose_b=True),
+                        [(40, 64), (48, 64)], ("float16",) * 2,
+                        ("K1", False, True, False)),
+        "moa_gemm_ta": (ta, [(64, 40), (64, 48)], ("float16",) * 2,
+                        ("K1", True, False, False)),
+        # a stored row of 70 elements: TMA cannot read it
+        "unreadable_row": (E.matmul_expr(37, 70, 45), [(37, 70), (70, 45)],
+                           ("float16",) * 2, "K9"),
+        "rows16": (E.matmul_expr(16, 64, 48), [(16, 64), (64, 48)],
+                   ("float16",) * 2, "K9"),
+        "mixed_f32": (E.matmul_expr(40, 64, 48), [(40, 64), (64, 48)],
+                      ("float16", "float32"), "K9"),
+        "batched": (E.expert_gemm_expr(3, 40, 64, 48),
+                    [(3, 40, 64), (3, 64, 48)], ("float16",) * 2, "K9"),
+        "head": (E.head_gemm_expr(3, 40, 64, 48), [(40, 3, 64), (64, 3, 48)],
+                 ("float16",) * 2, "K9"),
+        "max_plus": (E.inner("max", "add", A("A", (40, 64)),
+                             A("B", (64, 48))), [(40, 64), (64, 48)],
+                     ("float16",) * 2, "K9"),
+    }
+
+
+J_F16P, P_F16P = _f16_plan_forms(JE), _f16_plan_forms(PE)
+
+
+@pytest.mark.parametrize("name", sorted(J_F16P))
+def test_float16_forms_take_k1_tile_or_k9_by_rule(name):
+    """``_plan`` sends a 2-D (mul, add) product of two float16 operands
+    that TMA reads (with or without transposes, more than 16 rows) to K1's
+    tile route, and every other float16 form (an unreadable row, m <= 16,
+    float16 beside f32, batched, head, another semiring) to K9; each
+    equals the reference within ``F16_REL`` (max-plus bit for bit), and
+    the plan checks clean (``verify="kernel"``)."""
+    expr_j, shapes, dtypes, route = J_F16P[name]
+    expr_p = P_F16P[name][0]
+    ins = [x.astype(np.float32 if dt == "float32" else np.float16)
+           for x, dt in zip(_floats(shapes, len(name)), dtypes)]
+    want = np.asarray(jops.apply(expr_j, *map(jnp.asarray, ins),
+                                 interpret=True, out_dtype=jnp.float32))
+    got = ops.apply(expr_p, *map(torch.from_numpy, ins),
+                    out_dtype=torch.float32, verify="kernel")
+    if name == "max_plus":
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        mag = np.asarray(jops.apply(expr_j, *(jnp.abs(jnp.asarray(x))
+                                              for x in ins),
+                                    interpret=True, out_dtype=jnp.float32))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=F16_REL * float(mag.max()))
+    nf, plan = _plan(expr_p, dtypes)
+    assert plan[:4] == route if route != "K9" else plan[0] == "K9"
+    if route != "K9":
+        k, m = shapes[0] if route[1] else shapes[0][::-1]
+        n = shapes[1][0] if route[2] else shapes[1][1]
+        assert ops.gemm_route(m, n, k, torch.float16, torch.float16,
+                              route[1], route[2]) == "tile"
+    # unaligned bases keep even a readable float16 product on K9
+    if route != "K9":
+        assert _plan_unaligned(expr_p, dtypes)[0] == "K9"
+
+
+def _plan_unaligned(expr, dtypes):
+    return ops._plan(PE.normal_form(expr), tuple(dtypes), torch.float32,
+                     H100, None, "float32", False)
+
+
+# ---------------------------------------------------------------------------
+# TILE over several contracted axes that do not merge
+# ---------------------------------------------------------------------------
+
+def _reversed(E, i, ext, j, plus="add", times="mul"):
+    """``A[i, a1..an] . B[an..a1, j]`` over (a1..an) under the semiring:
+    a1..a(n-1) as batch axes of an inner over an, then folded one by one.
+    No two contracted axes merge (B walks them in the reverse order)."""
+    n = len(ext)
+    at = E.transpose(E.arr("A", (i,) + tuple(ext)),
+                     tuple(range(1, n)) + (0, n))
+    bt = E.transpose(E.arr("B", tuple(reversed(ext)) + (j,)),
+                     tuple(range(n - 1, -1, -1)) + (n,))
+    expr = E.inner(plus, times, at, bt, batch=n - 1)
+    for _ in range(n - 1):
+        expr = E.reduce(plus, expr, 0)
+    return expr, [(i,) + tuple(ext), tuple(reversed(ext)) + (j,)]
+
+
+#: label -> (i, contracted extents, j, (plus, times), operand dtype)
+WIDE_TILE = {
+    "red4": (6, (3, 4, 5, 2), 7, ("add", "mul"), "float32"),
+    "red4_maxplus": (4, (2, 3, 2, 2), 5, ("max", "add"), "float32"),
+    "red4_int8": (6, (3, 4, 5, 2), 7, ("add", "mul"), "int8"),
+    "red4_vec": (130, (4, 4, 4, 4), 140, ("add", "mul"), "float32"),
+    "red4_bf16": (40, (2, 3, 8), 33, ("add", "mul"), "bfloat16"),
+    "ragged3": (9, (3, 5, 7), 11, ("add", "mul"), "float32"),
+    "ragged3_minplus": (9, (3, 5, 7), 11, ("min", "add"), "float32"),
+    "red2": (20, (5, 3), 24, ("add", "mul"), "float16"),
+    "red6": (5, (2, 3, 2, 2, 3, 2), 6, ("add", "mul"), "float32"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_TILE))
+def test_wide_tile_forms_match_the_reference(name):
+    """Two operands over 2-6 contracted axes that do not merge take TILE:
+    K is the flattened contracted volume, split into whole slabs; the
+    descriptor carries every contracted slot, and a 16-byte copy along K
+    only where the innermost axis holds whole copies.  The port's value
+    equals the reference (interpret mode; for max-plus and min-plus its
+    normal form's own executor: the reference's interpret-mode schedule
+    of such a nest passes its table's VMEM) within ``WIDE_REL`` (max-plus
+    and min-plus bit for bit, int8 into int32 exactly), through ``apply``
+    (``verify="kernel"``) and through the descriptor's ``torch.as_strided``
+    run; ``conformance`` finds nothing."""
+    from repro_torch.analysis import conformance
+    i, ext, j, (plus, times), dt = WIDE_TILE[name]
+    expr_j, shapes = _reversed(JE, i, ext, j, plus, times)
+    expr_p, _ = _reversed(PE, i, ext, j, plus, times)
+    if dt == "int8":
+        ins, acc, out = _ints(shapes, len(name)), "int32", "int32"
+    else:
+        ins, acc, out = _floats(shapes, len(name)), "float32", "float32"
+        if dt != "float32":
+            # values the 16-bit type holds exactly, held as f32 for JAX
+            ins = [torch.from_numpy(x).to(getattr(torch, dt)).float()
+                   .numpy() for x in ins]
+    tins = [torch.from_numpy(x).to(getattr(torch, dt)) for x in ins]
+    if plus == "add":
+        want = np.asarray(jops.apply(expr_j, *map(jnp.asarray, ins),
+                                     interpret=True, acc_dtype=acc,
+                                     out_dtype=getattr(jnp, out)))
+    else:
+        o = JE.normalize(expr_j)
+        want = o.execute(o.init_out(i * j), *(x.ravel() for x in ins))
+        want = want.reshape(i, j).astype(np.float32)
+    got = ops.apply(expr_p, *tins, acc_dtype=acc,
+                    out_dtype=getattr(torch, out), verify="kernel")
+    nf, plan = _plan(expr_p, [dt] * 2, acc, getattr(torch, out))
+    launch = plan[1]
+    assert plan[0] == "K9" and launch.mode == emit.TILE
+    # the normal form's order of the contracted axes, none merged
+    red = launch.red_ext
+    assert launch.roles == (0, 1) and sorted(red) == sorted(ext)
+    volume = int(np.prod(ext))
+    assert launch.splits * launch.k_split >= volume
+    assert launch.splits == 1 or launch.k_split % emit.TILE_K == 0
+    d = launch.c_descs((getattr(torch, dt),) * 2, getattr(torch, out),
+                       (0, 0))[0]
+    assert d.mode == emit.TILE and d.n_red == len(ext)
+    assert list(d.red_ext) == [1] * (emit.MAX_RED - len(ext)) + list(red)
+    assert d.k_split == launch.k_split and d.splits == launch.splits
+    assert d.acc == int(dt == "int8")
+    elems = 16 // emit.ELEM_BYTES[getattr(torch, dt)]
+    for op in range(2):
+        if d.k_fast[op] and d.vec[op]:
+            assert red[-1] % elems == 0 and \
+                d.stride[op][emit.MAX_OUT + emit.MAX_RED - 1] == 1
+    run = emit.run_descriptor(launch, *tins, out_dtype=got.dtype)
+    if plus != "add" or dt == "int8":
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(run.numpy(), want)
+    else:
+        mag = np.asarray(jops.apply(expr_j, *(jnp.abs(jnp.asarray(x))
+                                              for x in ins),
+                                    interpret=True, out_dtype=jnp.float32))
+        tol = WIDE_REL * max(float(mag.max()), 1.0) + 1e-6
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+        np.testing.assert_allclose(run.numpy(), want, rtol=0, atol=tol)
+    bundle = ops.sched_mod.get_schedule(nf, dtype=dt, hardware=H100,
+                                        acc_dtype=acc)
+    assert conformance.plan_findings(plan, bundle, nf, (dt, dt), acc) == ()
+    assert conformance.kernel_findings(bundle, nf, (dt, dt),
+                                       acc_dtype=acc) == ()
+
+
+def test_wide_tile_walk_checks_catch_a_bad_split_and_copy():
+    """``conformance``'s walk over TILE's slabs: a split that leaves the
+    flattened K's tail unfolded, and a 16-byte copy along a K whose
+    innermost extent does not hold whole copies, are both errors."""
+    import dataclasses
+
+    from repro_torch.analysis import conformance
+    expr, _ = _reversed(PE, 300, (4, 4, 4, 4), 300)
+    nf, plan = _plan(expr, ["float32"] * 2)
+    launch = plan[1]
+    assert launch.splits > 1
+    short = dataclasses.replace(launch, k_split=launch.k_split - emit.TILE_K)
+    found = conformance._walk_findings("red4", short)
+    assert found and found[0].rule == "coverage"
+    assert conformance._walk_findings("red4", launch,
+                                      ("float32", "float32")) == []
+    # A's innermost contracted axis (stride 1) has extent 2: a vector rule
+    # that forgot the extent would copy 4 f32 across two runs of it
+    expr, _ = _reversed(PE, 300, (4, 4, 4, 2), 300)
+    launch = _plan(expr, ["float32"] * 2)[1][1]
+    assert conformance._walk_findings("red4", launch,
+                                      ("float32", "float32")) == []
+    vectors = emit.Launch._vectors
+
+    def forgetful(self, in_dtypes, ptrs):
+        k_fast, vec = vectors(self, in_dtypes, ptrs)
+        return k_fast, [v or kf for v, kf in zip(vec, k_fast)]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(emit.Launch, "_vectors", forgetful)
+        found = conformance._walk_findings("red4", launch,
+                                           ("float32", "float32"))
+    assert [f.rule for f in found] == ["bounds"]
+    assert "innermost" in found[0].message
+
+
+@pytest.mark.parametrize("i,ext,j", [(6, (3, 4, 5, 2), 7),
+                                     (5, (2, 3, 2, 2, 3, 2), 6)])
+def test_wide_tropical_nest_past_the_derivation_runs_on_tile(i, ext, j):
+    """A max-plus nest over 4 or 6 contracted axes whose derived schedule
+    (the reference's nest model, its combine materialized) passes the
+    H100's 227 KB: ``apply`` refuses it before any kernel on both
+    packages' tables, as the reference does; K9 reads no schedule blocks,
+    so its descriptor with the semiring's inert element
+    (``emit.describe(None, nf)``) runs it on TILE through
+    ``ops.semiring_contract``, bit for bit the reference's normal-form
+    executor, and checks clean."""
+    from repro_torch.analysis import conformance
+    expr_j, shapes = _reversed(JE, i, ext, j, "max", "add")
+    expr_p, _ = _reversed(PE, i, ext, j, "max", "add")
+    ins = _floats(shapes, i + j)
+    tins = [torch.from_numpy(x) for x in ins]
+    with pytest.raises(ValueError, match="VMEM"):
+        ops.apply(expr_p, *tins)
+    with pytest.raises(ValueError, match="VMEM"):
+        jops.apply(expr_j, *map(jnp.asarray, ins), interpret=True)
+    o = JE.normalize(expr_j)
+    want = o.execute(o.init_out(i * j), *(x.ravel() for x in ins))
+    want = want.reshape(i, j).astype(np.float32)
+    nf = PE.normal_form(expr_p)
+    launch = emit.describe(None, nf)
+    assert launch.mode == emit.TILE and len(launch.red_ext) == len(ext)
+    np.testing.assert_array_equal(
+        ops.semiring_contract(launch, *tins).numpy(), want)
+    np.testing.assert_array_equal(
+        emit.run_descriptor(launch, *tins).numpy(), want)
+    assert conformance.plan_findings(("K9", launch), None, nf,
+                                     ("float32", "float32")) == ()

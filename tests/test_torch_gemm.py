@@ -98,6 +98,45 @@ def test_gemm_route_rule(m, n, k, a_dt, b_dt, ta, tb, route):
     assert ops.gemm_route(m, n, k, a_dt, b_dt, ta, tb) == route
 
 
+_F16 = torch.float16
+#: float16 x float16 takes K1's tile route where TMA reads both operands
+#: (rows of a multiple of 8 elements, 16-byte bases) and m > 16; K9 (None:
+#: ``gemm_route`` raises) otherwise, and beside any other dtype
+F16_ROUTES = [
+    (4096, 4096, 4096, _F16, _F16, False, False, True, "tile"),
+    (4096, 4096, 4096, _F16, _F16, False, True, True, "tile"),
+    (4096, 4096, 4096, _F16, _F16, True, False, True, "tile"),
+    (4096, 4096, 4096, _F16, _F16, True, True, True, "tile"),
+    (1001, 520, 1032, _F16, _F16, False, False, True, "tile"),  # ragged m
+    (1024, 512, 65536, _F16, _F16, False, False, True, "tile"),  # long k
+    (17, 64, 64, _F16, _F16, False, False, True, "tile"),
+    (16, 64, 64, _F16, _F16, False, False, True, None),    # m <= 16
+    (4, 2048, 2048, _F16, _F16, True, False, True, None),  # m <= 16, ta
+    (37, 45, 70, _F16, _F16, False, False, True, None),    # a row 70
+    (64, 45, 64, _F16, _F16, False, False, True, None),    # b row 45
+    (36, 64, 64, _F16, _F16, True, False, True, None),     # a row 36 (ta)
+    (64, 64, 0, _F16, _F16, False, False, True, None),     # k == 0
+    (64, 64, 64, _F16, _F16, False, False, False, None),   # base
+    (64, 64, 64, _F16, _F32, False, False, True, None),    # mixed
+    (64, 64, 64, _BF16, _F16, False, False, True, None),   # mixed
+]
+
+
+@pytest.mark.parametrize("m,n,k,a_dt,b_dt,ta,tb,aligned,route", F16_ROUTES)
+def test_float16_route_rule(m, n, k, a_dt, b_dt, ta, tb, aligned, route):
+    """``gemm_route`` gives a float16 pair the tile route by
+    ``f16_route``'s rule and raises ``TypeError`` for every float16 form
+    K1 does not take (``_plan`` sends those to K9)."""
+    if a_dt == b_dt:
+        assert ops.f16_route(m, n, k, ta, tb, aligned) == (route or "K9")
+    if route is None:
+        with pytest.raises(TypeError, match="float16"):
+            ops.gemm_route(m, n, k, a_dt, b_dt, ta, tb, aligned, aligned)
+    else:
+        assert ops.gemm_route(m, n, k, a_dt, b_dt, ta, tb, aligned,
+                              aligned) == route
+
+
 @pytest.mark.parametrize("a_ok,b_ok", [(False, True), (True, False)])
 @pytest.mark.parametrize("a_dt,b_dt", [(_BF16, _BF16), (_F32, _BF16),
                                        (_BF16, _F32)])

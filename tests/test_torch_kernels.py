@@ -1822,7 +1822,7 @@ def _wide_forms(E):
                                       A("B", (1, 3, 2, 7))),
                               (0, 3, 1, 4, 2, 5)),
                   [(4, 5, 6, 1), (1, 3, 2, 7)], emit.MAP),
-        "red4": (red4, [(6, 3, 4, 5, 2), (2, 5, 4, 3, 7)], emit.THREAD),
+        "red4": (red4, [(6, 3, 4, 5, 2), (2, 5, 4, 3, 7)], emit.TILE),
         "chain4": (chain(4, (5, 6, 7, 8, 9)),
                    [(5, 6), (6, 7), (7, 8), (8, 9)], emit.THREAD),
         "hadamard4": (hada(4, (13, 70)), [(13, 70)] * 4, emit.MAP),
@@ -1864,7 +1864,9 @@ def test_k9_wide_forms_match_plain(h100, name):
                                   "lone_sum_cols", "head", "thread", "mixed"])
 def test_k9_float16_forms_match_plain(h100, name, out_dt):
     """float16 operands under the f32 accumulator on K9 (``_plan`` sends
-    every float16 form there): the tensor-core tile (f16 values are their
+    each of these forms there: none is a 2-D product whose rows TMA
+    reads, or it is not (mul, add) of two float16 operands; those take
+    K1's tile, held above): the tensor-core tile (f16 values are their
     bf16 hi + lo parts exactly), its K split, max-plus bit for bit, MAP,
     REDUCE, THREAD, the head form and an f16 x f32 pair; within
     K9_SUM_REL of the plain version, and a float16 output within its own
@@ -1907,10 +1909,135 @@ def test_k9_float16_forms_match_plain(h100, name, out_dt):
     if out_dt == torch.float16:
         tol += 2.0 ** -11 * want.float().abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
-    # apply routes every float16 form to K9
+    # apply routes each of these float16 forms to K9
     ops.reset_launches()
     ops.apply(expr, *arrays, out_dtype=out_dt)
     assert ops.LAUNCHES["K9"] == 1 and ops.LAUNCHES["K1"] == 0
+
+
+#: float16 x float16 on K1's tile route, (m, k, n, transpose_a,
+#: transpose_b): moa_gemm's 4096^3, a transposed B, a transposed A, a
+#: ragged shape TMA still reads (rows of 1032 and 520 elements, m = 1001),
+#: and a long k past gemm.cu's F16_PROMOTE_K (each stage promoted)
+F16_TILE_SHAPES = [(4096, 4096, 4096, False, False),
+                   (4096, 4096, 4096, False, True),
+                   (1024, 2048, 1536, True, False),
+                   (1001, 1032, 520, False, False),
+                   (1024, 65536, 512, False, False)]
+#: the tolerance of the smoke's TOL[("K1", "float16")]: each f16 product
+#: is exact in f32 on both sides, the sums differ in order (and in the
+#: tensor cores' truncated adds, bounded by the promotion past 8192 terms)
+F16_TILE_REL = 1e-4
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("m,k,n,ta,tb", F16_TILE_SHAPES)
+def test_k1_float16_tile_matches_plain(h100, m, k, n, ta, tb):
+    """float16 x float16 on K1's tile route (TMA in float16, f16 wgmma
+    into f32, one product a term): within F16_TILE_REL of the largest
+    entry of the plain version (the f32 product of the f16 values), a
+    rerun gives the same bits, and ``apply`` routes the 2-D form to K1
+    alone."""
+    g = torch.Generator(device=h100).manual_seed(m + k + n)
+    a = torch.randn(*((k, m) if ta else (m, k)), generator=g,
+                    device=h100).half()
+    b = (torch.randn(*((n, k) if tb else (k, n)), generator=g,
+                     device=h100) * k ** -0.5).half()
+    assert ops._route(a, b, ta, tb) == "tile"
+    got = ops._product(a, b, ta, tb)
+    again = ops._product(a, b, ta, tb)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 2
+    want = ref.matmul(a, b, tb, transpose_a=ta)
+    err = (got - want).abs().max().item()
+    assert err <= F16_TILE_REL * want.abs().max().item(), err
+    assert torch.equal(got, again)
+    E = ops.E
+    expr = E.inner("add", "mul",
+                   E.transpose(E.arr("A", (k, m))) if ta else
+                   E.arr("A", (m, k)),
+                   E.transpose(E.arr("B", (n, k))) if tb else
+                   E.arr("B", (k, n)))
+    ops.reset_launches()
+    out = ops.apply(expr, a, b, out_dtype=torch.float32)
+    assert ops.LAUNCHES["K1"] == 1 and ops.LAUNCHES["K9"] == 0
+    assert torch.equal(out, got)
+
+
+def _reversed(E, i, ext, j, plus="add", times="mul"):
+    """``A[i, a1..an] . B[an..a1, j]`` over (a1..an): no two contracted
+    axes merge (as ``tests/test_torch_forms.py``'s)."""
+    n = len(ext)
+    at = E.transpose(E.arr("A", (i,) + tuple(ext)),
+                     tuple(range(1, n)) + (0, n))
+    bt = E.transpose(E.arr("B", tuple(reversed(ext)) + (j,)),
+                     tuple(range(n - 1, -1, -1)) + (n,))
+    expr = E.inner(plus, times, at, bt, batch=n - 1)
+    for _ in range(n - 1):
+        expr = E.reduce(plus, expr, 0)
+    return expr, [(i,) + tuple(ext), tuple(reversed(ext)) + (j,)]
+
+
+#: TILE over several contracted axes that do not merge: label -> (i,
+#: extents, j, (plus, times), dtype); K = 256 split over blocks, a K of
+#: 105 that no slab divides, 16-bit copies along K, 6 axes
+WIDE_TILE_CASES = {
+    "red4": (300, (4, 4, 4, 4), 300, ("add", "mul"), _F32),
+    "red4_maxplus": (300, (4, 4, 4, 4), 300, ("max", "add"), _F32),
+    "red4_int8": (300, (4, 4, 4, 4), 300, ("add", "mul"), torch.int8),
+    "ragged3": (130, (3, 5, 7), 70, ("add", "mul"), _F32),
+    "ragged3_minplus": (130, (3, 5, 7), 70, ("min", "add"), _F32),
+    "ragged3_int8": (130, (3, 5, 7), 70, ("add", "mul"), torch.int8),
+    "red3_bf16": (200, (2, 3, 8), 150, ("add", "mul"), _BF16),
+    "red2_f16": (150, (5, 3), 130, ("add", "mul"), torch.float16),
+    "red6": (64, (2, 3, 2, 2, 3, 2), 80, ("add", "mul"), _F32),
+}
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("name", sorted(WIDE_TILE_CASES))
+def test_k9_wide_tile_matches_plain(h100, name):
+    """Two operands over 2-6 contracted axes that do not merge, on TILE
+    (each slab's offsets decoded once into a shared table): (mul, add)
+    within K9_SUM_REL of the plain version's sums, max-plus and min-plus
+    bit for bit, int8 under int32 exactly; a rerun gives the same bits.
+    The descriptor is K9's with the semiring's inert element
+    (``emit.describe(None, nf)``): the tropical nests' derived schedule
+    passes the card's shared memory, which K9 does not read."""
+    from repro_torch.kernels import emit
+    i, ext, j, (plus, times), dt = WIDE_TILE_CASES[name]
+    expr, shapes = _reversed(ops.E, i, ext, j, plus, times)
+    g = torch.Generator(device=h100).manual_seed(len(name))
+    if dt == torch.int8:
+        arrays = [torch.randint(-128, 128, s, generator=g, device=h100,
+                                dtype=dt) for s in shapes]
+        out_dt = torch.int32
+    else:
+        arrays = [torch.randn(*s, generator=g, device=h100).to(dt)
+                  for s in shapes]
+        out_dt = _F32
+    nf = ops.E.normal_form(expr)
+    launch = emit.describe(None, nf)
+    assert launch.mode == emit.TILE and len(launch.red_ext) == len(ext)
+    if name == "red4":
+        assert launch.splits > 1
+    got = ops.semiring_contract(launch, *arrays, out_dtype=out_dt)
+    again = ops.semiring_contract(launch, *arrays, out_dtype=out_dt)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K9"] == 2
+    with ops.reference_mode():
+        want = ops.semiring_contract(launch, *arrays, out_dtype=out_dt)
+    assert torch.equal(got, again)
+    if plus != "add" or dt == torch.int8:
+        assert torch.equal(got, want)
+        return
+    with ops.reference_mode():
+        mag = ops.semiring_contract(launch, *(a.abs() for a in arrays))
+    k = 1
+    for e in ext:
+        k *= e
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=K9_SUM_REL * k * mag.max().item())
 
 
 @pytest.mark.h100
