@@ -53,9 +53,12 @@ Twenty-seven phases; any failure exits non-zero before the result line:
             row (515) TMA cannot read, on the split route through its
             pitched parts.  K1's head form (ops.head_matmul) at
             minicpm3-4b's absorbed decode products (m = 1, 2, 4 rows over
-            40 heads, strided views of one stored wkv_b table; torch.einsum
-            on the same views the library row; a rerun), and a head form
-            K1 refuses (64 rows) on K9; K2 (prefill and export), K3, K4 at
+            40 heads on the decode rows, 64 rows on the head tile, strided
+            views of one stored wkv_b table; torch.einsum on the same
+            views the library row, by events and, at 64 rows, in a CUDA
+            graph beside the tile's, with head_matmul's events time and
+            its one K1 launch; a rerun), and a head form K1 refuses
+            (float16 at 64 rows) on K9; K2 (prefill and export), K3, K4 at
             minicpm3-4b's MLA attention (B=1 S=4096, 40 KV heads of one
             query head) at its own widths, q.k 96 and v 64, and the same
             work zero-padded to 128 beside it (SDPA on the unpadded
@@ -184,7 +187,9 @@ Twenty-seven phases; any failure exits non-zero before the result line:
             axes that do not merge (TILE over the flattened K; (mul, add)
             through apply, max-plus through K9's wrapper, as apply's
             schedule derivation refuses that nest), float16 max-plus (K9),
-            examples/kron_compress.py at 64x64 (x) 64x64 (kron on K9, the
+            examples/kron_compress.py at 64x64 (x) 64x64 (kron on K9's
+            MAP, as the 6-axis kron, each beside torch.kron in a CUDA
+            graph too; the
             compressed apply on two K1 products, |Wx - vec(B X A^T)| <=
             1e-3).  K1 and K9 launch their derived counts; one apply runs
             under sync debug mode "error"; each case prints kernel, plain
@@ -266,7 +271,11 @@ Twenty-seven phases; any failure exits non-zero before the result line:
             prefill's logits and MLACache and one decode step against the
             plain path (f32 on the same weights at full depth, bf16 beside
             the plain bf16 witness); a B=2 decode step under sync debug
-            mode "error" against every weight byte; profiles.
+            mode "error" against every weight byte; a B=32 make_decode
+            step from a prefill cache (its absorbed products on K1's head
+            tile: 2L head-tile launches, no K9; its logits held as the
+            agreement's, f32 and bf16 beside the witness) against every
+            weight byte and its cache; profiles.
 20. mla_train minicpm3-4b at full width, depth cut to 24 of 62 layers
             (1.88 B parameters): step 1's first microbatch against the
             plain path (loss and every gradient, f32 and bf16), 3 AdamW
@@ -339,6 +348,7 @@ import importlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -378,7 +388,7 @@ TOL = {("K1", "bfloat16"): 1e-4, ("K1", "float32"): 1e-4,
        ("K5", "bfloat16"): 2e-2, ("K5", "float32"): 1e-4,
        ("K6", "float32"): 1e-4, ("K7", "float32"): 1e-4,
        ("K8", "float32"): 1e-6,
-       ("K9", "bfloat16"): 1e-4}
+       ("K9", "bfloat16"): 1e-4, ("K9", "float16"): 1e-4}
 #: the served path's logits (kernels vs plain versions, 18 bf16 layers):
 #: per-layer bf16 rounding differences compound through the residual stream
 PATH_TOL = 5e-2
@@ -473,6 +483,10 @@ LLAMA4_RING_POS = 9000
 #: in 2 microbatches
 MLA_S = 4096
 MLA_HEAD_ROWS = (1, 2, 4)
+#: the head form's tile rows in [kernels] (MLA's decode at B = 64) and the
+#: decode batch of [mla_path]'s second timed step (past K1_DECODE_ROWS:
+#: its absorbed products on the head tile)
+MLA_TILE_ROWS, MLA_TILE_B = 64, 32
 MLA_WIDTHS = (96, 64)
 MLA_TRAIN_LAYERS, MLA_TRAIN_B, MLA_TRAIN_MB = 24, 2, 2
 #: paligemma-3b (vlm): the prefill is the reference's 4k budget, its 256
@@ -918,26 +932,27 @@ def _fma_cases(torch, rec, gen):
 
 def _head_form_cases(torch, rec, gen):
     """K1's head form (``ops._head_gemm``, the launch ``ops.head_matmul``
-    makes) at minicpm3-4b's absorbed decode products, ``MLA_HEAD_ROWS``
-    rows over 40 heads, each weight a strided view of one stored (256, 40,
-    128) ``wkv_b`` table: ``q_lat = q_nope w_uk^T`` (q_nope the first 64
-    of each head's 96 columns, w_uk the table's first 64: k 64, n 256,
-    ``transpose_b``) and ``out = ctx w_uv`` (w_uv its last 64: k 256, n
-    64).  Each is held to ``ref.head_gemm``, with its route, its
-    CUDA-graph time, ``torch.einsum`` on the same views as the library
-    row, its bound (bytes) and a rerun that must give the same bits.
-    Then a form K1 refuses (64 rows) lands on K9 and matches the plain
-    version."""
+    makes) at minicpm3-4b's absorbed decode products over 40 heads, each
+    weight a strided view of one stored (256, 40, 128) ``wkv_b`` table:
+    ``q_lat = q_nope w_uk^T`` (q_nope the first 64 of each head's 96
+    columns, w_uk the table's first 64: k 64, n 256, ``transpose_b``) and
+    ``out = ctx w_uv`` (w_uv its last 64: k 256, n 64).  At
+    ``MLA_HEAD_ROWS`` rows on the decode rows, at ``MLA_TILE_ROWS`` on the
+    head tile (where ``ops.head_matmul`` makes one K1 launch and no K9,
+    timed by events beside the kernel's CUDA-graph time and
+    ``torch.einsum``'s).  Each is held to ``ref.head_gemm``, with its
+    route, its CUDA-graph time, ``torch.einsum`` on the same views as the
+    library row, its bound (bytes) and a rerun that must give the same
+    bits.  Then a form K1 refuses (float16 at 64 rows) lands on K9 and
+    matches the plain version."""
     from repro_torch.kernels import ops, ref
     bf = torch.bfloat16
     randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
     table = (randn(256, 40, 128) * 256 ** -0.5).to(bf)
-    for m in MLA_HEAD_ROWS + (64,):
+    for m in MLA_HEAD_ROWS + (MLA_TILE_ROWS,):
         q, ctx = randn(m, 40, 96).to(bf), randn(m, 40, 256).to(bf)
         for name, x, w, tb in (("q_lat", q[..., :64], table[..., :64], True),
                                ("out", ctx, table[..., 64:], False)):
-            if m == 64 and name == "out":
-                continue
             k = x.shape[-1]
             n = w.shape[0] if tb else w.shape[2]
             eq = "mhk,nhk->hmn" if tb else "mhk,khn->hmn"
@@ -947,32 +962,53 @@ def _head_form_cases(torch, rec, gen):
             nbytes = (x.numel() + w.numel()) * 2 + 40 * m * n * 4
             shape = (f"K1 bfloat16 head {name} m={m} h=40 k={k} n={n} "
                      f"tb={int(tb)}")
-            if m == 64:
-                # 64 rows: no decode-row product, so K9 (row-major copies)
-                require(route == "K9", f"{shape}: route {route}, not K9")
-                ops.reset_launches()
-                call = lambda: ops.head_matmul(x[:, None], w,
+            call = lambda: ops._head_gemm(x, w, tb)
+            library = lambda: torch.einsum(eq, x, w)
+            if m <= ops.K1_DECODE_ROWS:
+                require(route == "gemv", f"{shape}: route {route}, not gemv")
+                extra = {"path": f"head gemv split-k="
+                                 f"{ops.gemv_splits(m, n, k, 40)}",
+                         "graph_ms": graph_ms(torch, call)}
+            else:
+                require(route == "tile", f"{shape}: route {route}, not tile")
+                user = lambda: ops.head_matmul(x[:, None], w,
                                                transpose_b=tb,
                                                out_dtype=torch.float32)
-                call()
+                ops.reset_launches()
+                user()
                 torch.cuda.synchronize()
-                require(ops.LAUNCHES["K9"] == 1 and ops.LAUNCHES["K1"] == 0,
-                        f"{shape}: launches {ops.LAUNCHES}, not one K9")
-                _case(torch, rec, "K9", "bfloat16", ("K9", "bfloat16"),
-                      lambda: call()[:, 0].transpose(0, 1),
-                      lambda: ref.head_gemm(x, w, tb),
-                      lambda: torch.einsum(eq, x, w), flops, nbytes,
-                      shape.replace("K1", "K9"), {"path": "K9"})
-                continue
-            require(route == "gemv", f"{shape}: route {route}, not gemv")
-            call = lambda: ops._head_gemm(x, w, tb)
+                require(ops.LAUNCHES["K1"] == 1 and ops.LAUNCHES["K9"] == 0,
+                        f"{shape}: head_matmul launches {ops.LAUNCHES}, not "
+                        f"one K1")
+                extra = {"path": "head tile",
+                         "graph_ms": graph_ms(torch, call),
+                         "library_graph_ms": graph_ms(torch, library),
+                         "head_matmul_ms": time_ms(torch, user)}
             _case(torch, rec, "K1", "bfloat16", ("K1", "bfloat16"), call,
-                  lambda: ref.head_gemm(x, w, tb),
-                  lambda: torch.einsum(eq, x, w), flops, nbytes, shape,
-                  {"path": f"head gemv split-k="
-                           f"{ops.gemv_splits(m, n, k, 40)}",
-                   "graph_ms": graph_ms(torch, call)})
+                  lambda: ref.head_gemm(x, w, tb), library, flops, nbytes,
+                  shape, extra)
             _rerun_equal(torch, call, f"K1 head {name} m={m}")
+    # a form K1 refuses: float16 (K1's head form is bf16), on K9 through
+    # its row-major copies
+    m, f16 = MLA_TILE_ROWS, torch.float16
+    x, w = randn(m, 40, 96).to(f16)[..., :64], table[..., :64].to(f16)
+    route = ops.head_route(40, m, 64, 256, f16, f16, True,
+                           ops.head_aligned(x, w))
+    shape = f"K9 float16 head q_lat m={m} h=40 k=64 n=256 tb=1"
+    require(route == "K9", f"{shape}: route {route}, not K9")
+    ops.reset_launches()
+    call = lambda: ops.head_matmul(x[:, None], w, transpose_b=True,
+                                   out_dtype=torch.float32)
+    call()
+    torch.cuda.synchronize()
+    require(ops.LAUNCHES["K9"] == 1 and ops.LAUNCHES["K1"] == 0,
+            f"{shape}: launches {ops.LAUNCHES}, not one K9")
+    _case(torch, rec, "K9", "float16", ("K9", "float16"),
+          lambda: call()[:, 0].transpose(0, 1),
+          lambda: ref.head_gemm(x, w, True),
+          lambda: torch.einsum("mhk,nhk->hmn", x, w), 2.0 * m * 40 * 256 * 64,
+          (x.numel() + w.numel()) * 2 + 40 * m * 256 * 4, shape,
+          {"path": "K9"})
 
 
 def _expert_cases(torch, rec, gen):
@@ -4069,10 +4105,11 @@ def phase_moa_path(torch, rec):
         if k1_other or "lone max over axes" in label or \
                 "contracted axes" in label:
             _rerun_equal(torch, fn, f"[moa_path] {label}")
-        # the float16 tile and the wide TILE rows: the library call's
-        # device time too
+        # the float16 tile, the wide TILE rows and the kron rows (MAP's
+        # span walk): the library call's device time too
         if library is not None and g_ms is not None and (
-                "contracted axes" in label or dname == "float16"):
+                "contracted axes" in label or dname == "float16"
+                or "kron" in label):
             extra = dict(extra, library_graph_ms=graph_ms(torch, library))
         note = "".join(f" {k}={v:.4f}" for k, v in extra.items())
         print(f"[moa_path] {label}{note}: max_abs_err={diff:.3e} "
@@ -5528,6 +5565,74 @@ def _mla_agreement(torch, cfg, params, tokens, cache_len):
              f"decode at position {n}")
 
 
+def _mla_tile_step(torch, cfg, params, prefill, decode, card, k1_step):
+    """One make_decode step at B = MLA_TILE_B (past K1_DECODE_ROWS) from
+    the prefill cache of MLA_TILE_B seeded prompts: its launches (K1
+    8L+1, the 2L absorbed products on the head tile, no K9), its logits
+    against the plain path (``_witness``: f32 kernels within SSM_F32_TOL,
+    bf16 beside the plain bf16 witness), its ms by CUDA events and its
+    bound (every weight byte and the latent cache at 3.35 TB/s)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    b, L = MLA_TILE_B, cfg.n_layers
+    rng = np.random.default_rng(1)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (b, MOE_PROMPT))).cuda()
+    pos = torch.full((b,), MOE_PROMPT, dtype=torch.int32, device="cuda")
+    _, fwd = prefill(params, {"tokens": prompts})
+    cache = transformer.prefill_cache_to_decode(cfg, fwd, MOE_CACHE)
+    del fwd
+    tok = prompts[:, -1]
+    step = lambda: decode(params, tok, pos, cache)
+    step()
+    torch.cuda.synchronize()
+    routes = []
+
+    def record(args, out):
+        x, w = args[0], args[1]
+        tb = args[2] if len(args) > 2 else False
+        m, h, k = x.shape
+        n = w.shape[0] if tb else w.shape[2]
+        routes.append(ops.head_route(h, m, k, n, x.dtype, w.dtype, tb,
+                                     ops.head_aligned(x, w)))
+    ops.reset_launches()
+    with _spy(ops, "_head_gemm", record):
+        logits, _ = step()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    want = _zero_launches(K1=k1_step, K2=0)
+    print(f"[mla_path] decode step B={b} (latent cache of {MOE_CACHE}): "
+          f"launches {launches} (derived {want}); K1's head form "
+          f"{len(routes)} launches, routes {sorted(set(routes))}",
+          flush=True)
+    require(launches == want and routes == ["tile"] * (2 * L),
+            f"the B={b} decode step must run its {2 * L} absorbed products "
+            f"on K1's head tile and no K9")
+    require(tuple(logits.shape) == (b, cfg.vocab_size) and
+            bool(torch.isfinite(logits).all()), "B=32 decode logits")
+
+    def run(c, prm):
+        _, fc = transformer.prefill(prm, c, prompts)
+        dec, _ = transformer.decode_step(
+            prm, c, tok, pos,
+            transformer.prefill_cache_to_decode(c, fc, MOE_CACHE))
+        return {"decode logits": dec}
+    _witness(torch, "mla_path", cfg, params, run, f"B={b} decode at "
+             f"position {MOE_PROMPT}")
+    step_ms = time_ms(torch, step, iters=5, warmup=1)
+    s_bytes = _step_bytes(params, cfg)
+    c_bytes = sum(t.numel() * t.element_size() for t in cache["layers"])
+    b_ms, _ = bound(0.0, s_bytes + c_bytes, "bfloat16")
+    print(f"[mla_path] decode step (B={b}, latent cache of {MOE_CACHE}, "
+          f"the absorbed products on the head tile): {step_ms:.3f} ms (CUDA "
+          f"events); bound {b_ms:.3f} ms: weights {s_bytes / 1e9:.3f} GB + "
+          f"latent cache {c_bytes / 1e9:.4f} GB at 3.35 TB/s ({card})",
+          flush=True)
+    del cache, logits
+    torch.cuda.empty_cache()
+
+
 def phase_mla_path(torch, card):
     """minicpm3-4b at full width and depth: make_prefill B=1 S=MLA_S (K2 on
     MLA's attention at its widths, q.k 96 and v 64, read from the launches'
@@ -5685,6 +5790,9 @@ def phase_mla_path(torch, card):
               f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
               f"({card})", flush=True)
         profile_step(torch, step, n=2, what="mla decode")
+        del cache, fwd
+        torch.cuda.empty_cache()
+        _mla_tile_step(torch, cfg, params, prefill, decode, card, k1_step)
         profile_step(torch, lambda: prefill(params, {"tokens": tokens}), n=1,
                      what="mla prefill")
     print(f"[mla_path] phase wall {time.perf_counter() - phase_t0:.1f} s",
@@ -7577,11 +7685,17 @@ def main() -> None:
     for kid, (name, source, replaces, shape) in head.items():
         # launches: the path runs', each counted from 0
         by_path = {k: run[kid] for k, run in runs.items()}
+        # the kernel's routes over its [kernels] rows (K1's decode rows,
+        # head tile, ...), their split counts and forms left out
+        routes = sorted({re.sub(r" (split-k|form)=\S+", "", str(r["path"]))
+                         for r in rec[kid].values() if "path" in r})
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
                             launches=sum(by_path.values()),
-                            launches_by_path=by_path,
+                            launches_by_path=by_path, routes=routes,
                             shape=shape, **rec[kid][shape]))
+    require("head tile" in kernels[0]["routes"],
+            f"K1's routes {kernels[0]['routes']} lack the head tile")
     print(f"[smoke] wall {time.perf_counter() - START:.1f} s, the build "
           f"included", flush=True)
     print(json.dumps({"kernels": kernels}))

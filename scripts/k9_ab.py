@@ -1,6 +1,7 @@
-"""Time K9's paths (``csrc/semiring.cu``) of two source trees on one card,
-in the order A B B A, so that a change to the kernel is read beside the
-build it changes and not across calls or hosts.
+"""Time K9's paths (``csrc/semiring.cu``) and the head form (K9 or K1's
+head tile, ``csrc/gemm.cu``) of two source trees on one card, in the
+order A B B A, so that a change to the kernel is read beside the build it
+changes and not across calls or hosts.
 
     python scripts/k9_ab.py OTHER_TREE [--out FILE]
 
@@ -11,8 +12,11 @@ its own (both packages are named ``repro_torch``), builds its K9 library
 into its own ``build/``, and times each case through the user entry that
 reaches it: device time as ten calls captured in one CUDA graph and
 replayed (the host's launch path drops out), and the mean of ten calls by
-CUDA events.  Only cases both trees take are timed.  The table gives
-every run's graph ms and the change over the two runs of each side.
+CUDA events.  Each case makes one launch, of K9 or of K1.  Beside them
+each side times the one PyTorch call that computes each function it can
+(``torch.kron``, ``torch.einsum``), the same in both trees.  The table
+gives every run's graph ms and the change over the two runs of each
+side.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ import torch
 from repro_torch.core import expr as E
 from repro_torch.kernels import build, ops
 t0 = time.time()
-build.build(["semiring"])
+build.build(["semiring", "gemm"])
 if sys.argv[2] == "build":
     print(json.dumps({"build_s": time.time() - t0}))
     sys.exit(0)
@@ -46,7 +50,29 @@ ta, tb = rnd(n, n), rnd(n, n)
 cube = rnd(64, m, 64)
 lone = lambda op, ax, shape: E.reduce(op, E.arr("A", shape), ax)
 mx02 = E.reduce("max", E.reduce("max", E.arr("A", (64, m, 64)), 2), 0)
+c = 16
+k3a, k3b = rnd(c, c, c), rnd(c, c, c)
+kron6 = E.transpose(E.inner("add", "mul", E.arr("A", (c, c, c, 1)),
+                            E.arr("B", (1, c, c, c))), (0, 3, 1, 4, 2, 5))
+i8a = torch.randint(-100, 100, (m, m), generator=g, device="cuda",
+                    dtype=torch.int8)
+i8b = torch.randint(-100, 100, (m, m), generator=g, device="cuda",
+                    dtype=torch.int8)
+bf = torch.bfloat16
+table = (rnd(256, 40, 128) * 256 ** -0.5).to(bf)
+q, ctx = rnd(64, 1, 40, 96).to(bf), rnd(64, 1, 40, 256).to(bf)
+qn, w_uk, w_uv = q[..., :64], table[..., :64], table[..., 64:]
+f32 = torch.float32
 cases = {
+    "MAP kron (16,16,16) (x) (16,16,16)": lambda: ops.apply(
+        kron6, k3a.reshape(c, c, c, 1), k3b.reshape(1, c, c, c)),
+    "MAP int8 Hadamard 8192^2 acc int32": lambda: ops.apply(
+        E.hadamard_expr(m, m), i8a, i8b, acc_dtype="int32",
+        out_dtype=torch.int32),
+    "HEAD q_lat m=64 (head_matmul)": lambda: ops.head_matmul(
+        qn, w_uk, transpose_b=True, out_dtype=f32),
+    "HEAD out m=64 (head_matmul)": lambda: ops.head_matmul(
+        ctx, w_uv, out_dtype=f32),
     "MAP kron 64x64 (x) 64x64": lambda: ops.ipophp(ka, kb, "kp"),
     "MAP Hadamard 8192^2": lambda: ops.hadamard(a, b),
     "REDUCE lone min axis 0 8192^2":
@@ -87,13 +113,27 @@ def graph_ms(fn):
     return ms
 
 
+library = {
+    "MAP kron (16,16,16) (x) (16,16,16)": lambda: torch.kron(k3a, k3b),
+    "MAP kron 64x64 (x) 64x64": lambda: torch.kron(ka, kb),
+    "HEAD q_lat m=64 (head_matmul)": lambda: torch.einsum(
+        "bshk,nhk->bshn", qn, w_uk),
+    "HEAD out m=64 (head_matmul)": lambda: torch.einsum(
+        "bshk,khn->bshn", ctx, w_uv),
+}
 out = {}
 for label, fn in cases.items():
     ops.reset_launches()
     fn()
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["K9"] == 1, (label, dict(ops.LAUNCHES))
-    out[label] = {"graph_ms": graph_ms(fn), "ms": events_ms(fn)}
+    assert ops.LAUNCHES["K9"] + ops.LAUNCHES["K1"] == 1, (
+        label, dict(ops.LAUNCHES))
+    kid = "K9" if ops.LAUNCHES["K9"] else "K1"
+    out[label] = {"graph_ms": graph_ms(fn), "ms": events_ms(fn),
+                  "kernel": kid}
+    if label in library:
+        out[label]["library_graph_ms"] = graph_ms(library[label])
+        out[label]["library_ms"] = events_ms(library[label])
 print(json.dumps(out))
 """
 
@@ -135,11 +175,18 @@ def main(argv=None) -> int:
     for label in runs[0][1]:
         g = [r[label]["graph_ms"] for _, r in runs]
         a_mean, b_mean = (g[0] + g[3]) / 2, (g[1] + g[2]) / 2
-        print(f"[k9_ab] {label}: A {g[0]:.4f} / {g[3]:.4f}, B {g[1]:.4f} / "
-              f"{g[2]:.4f}; B / A {b_mean / a_mean:.3f}; events ms A "
-              f"{runs[0][1][label]['ms']:.4f} / {runs[3][1][label]['ms']:.4f}"
-              f", B {runs[1][1][label]['ms']:.4f} / "
-              f"{runs[2][1][label]['ms']:.4f}")
+        lib = [r[label].get("library_graph_ms") for _, r in runs]
+        lib_ms = [r[label].get("library_ms") for _, r in runs]
+        libs = "" if lib[0] is None else (
+            f"; library graph ms {' / '.join(f'{x:.4f}' for x in lib)}, "
+            f"events ms {' / '.join(f'{x:.4f}' for x in lib_ms)}")
+        print(f"[k9_ab] {label}: A ({runs[0][1][label]['kernel']}) "
+              f"{g[0]:.4f} / {g[3]:.4f}, B ({runs[1][1][label]['kernel']}) "
+              f"{g[1]:.4f} / {g[2]:.4f}; B / A {b_mean / a_mean:.3f}; "
+              f"events ms A {runs[0][1][label]['ms']:.4f} / "
+              f"{runs[3][1][label]['ms']:.4f}, B "
+              f"{runs[1][1][label]['ms']:.4f} / "
+              f"{runs[2][1][label]['ms']:.4f}{libs}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -310,6 +310,8 @@ def _k1_findings(plan, nf, dtypes, subject):
         out += _split_findings(subject, "K1's split of k", units, nsplit,
                                -(-units // nsplit))
     elif route == "gemv":
+        # the decode rows split k (the head form's too); the tile, the head
+        # form's past 16 rows included, folds all of k in one block
         units = k // ops.K1_GEMV_UNIT
         nsplit = ops.gemv_splits(m, n, k, e)
         out += _split_findings(subject, "K1's split of k", units, nsplit,

@@ -89,7 +89,21 @@
 //   the head form (repro_head_gemm, bf16 x bf16, m <= 16): the decode-row
 //         kernel with the head as grid axis z, each operand read through
 //         its row and head strides (a multiple of 16 bytes), so a slice
-//         of a weight table is streamed in place, never copied.
+//         of a weight table is streamed in place, never copied.  Past 16
+//         rows (repro_head_gemm_tc): the tile path with the heads' tiles
+//         one after another in the persistent walk (the expert form's
+//         walk), x (m, h, k) read K-major and w read K-major ((n, h, k),
+//         transpose_b) or MN-major ((k, h, n)), each through a rank-3 map
+//         built from the view's own strides with its dimensions in stride
+//         order, (inner, head, row): the head is the map's middle
+//         coordinate and a box of (64, 1, rows) is the same 2-D tile in
+//         shared memory, so each head's ragged row and k edges read as
+//         zeros; C (h, m, n) f32 goes out on the expert form's map.  No
+//         operand is copied, k is not split, and one launch does all the
+//         heads.  The tile stays 128 rows high: at MLA's decode batches
+//         (m = 17-128) the rows past m are zeros that cost the tensor
+//         cores a few hundred cycles a tile, against a load and a store
+//         that bound it.
 //   fma   f32 x f32, and the forms whose bf16 operand TMA cannot read (a
 //         stored row length not a multiple of 8 elements, a base not
 //         16-byte aligned, k = 0) but bf16 x bf16 without transpose_a:
@@ -117,7 +131,10 @@
 // at prefill (cap 240) the products are at the bytes / operations
 // crossover, and the padding of cap to 256 rows wastes 6%.  The head form
 // streams 1.31 MB a product at minicpm3-4b's decode (0.0004 ms at 3.35
-// TB/s): the launch, not the card, bounds it.
+// TB/s): the launch, not the card, bounds it.  Past 16 rows its tile
+// route is bytes-bound too: q_lat at 64 rows reads 1.64 MB and writes 2.62
+// MB (0.0013 ms at 3.35 TB/s), in 80 tiles of one 64-deep stage each, so
+// what remains is a TMA load's and a store's latency a tile.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -905,16 +922,22 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t a,
 // F16: both operands float16 (2-D, unsplit): the same ring, swizzle and
 // warps, wgmma on f16.  PROMOTE: each 64-k stage's products go to a fresh
 // tile of registers, added into the accumulator with f32 adds (the split
-// route always; float16 past F16_PROMOTE_K).
+// route always; float16 past F16_PROMOTE_K).  HM: the head form, E = the
+// heads; A's and B's maps have the head as their middle coordinate (box
+// (c, head, row)), C's is the expert form's.
 template <int BN, int TA, int TB, int PA, int PB, bool EX = false,
-          bool F16 = false, bool PROMOTE = (PA * PB > 1)>
+          bool F16 = false, bool PROMOTE = (PA * PB > 1), bool HM = false>
 __global__ void __launch_bounds__(384, 1)
 gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
         int N, int K, int tma_c, int n_fast, int E) {
   static_assert(!EX || (TA == 0 && TB == 0 && PA == 1 && PB == 1) ||
+                    (TA == 0 && TB == 1 && PA == 1 && PB == 1) ||
                     (TA == 0 && TB == 1 && PA == 3 && PB == 1) ||
                     (TA == 1 && TB == 0 && PA == 1 && PB == 3),
-                "the expert forms: x w, g w^T (g split), x^T g (g split)");
+                "the expert and head forms: x w, x w^T, g w^T (g split), "
+                "x^T g (g split)");
+  static_assert(!HM || (EX && TA == 0 && PA == 1 && PB == 1),
+                "the head form: x w or x w^T, bf16");
   static_assert(!F16 || (!EX && PA == 1 && PB == 1),
                 "float16 takes the 2-D unsplit form only");
   static_assert(!PROMOTE || BN == 128, "the stage tiles fit at BN = 128");
@@ -950,6 +973,13 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
       mbar_init(empty + s, 256);
     }
     fence_barrier_init();
+    // the head form's few tiles a block are latency-bound: fetch the
+    // maps while the barriers settle
+    if constexpr (HM) {
+      prefetch_map(&maps.a[0]);
+      prefetch_map(&maps.b[0]);
+      if (tma_c) prefetch_map(&maps.c);
+    }
   }
   __syncthreads();
 
@@ -960,6 +990,15 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
   if (wg == 2) {
     // ---- producer: one thread keeps the ring full by TMA ----
     setmaxnreg_dec<24>();
+    // a rank-3 box at (c, row, matrix e): the head form's maps take the
+    // head as their middle coordinate
+    auto load3 = [&](void* dst, const CUtensorMap* map, uint64_t* bar,
+                     int c, int r, int e) {
+      if constexpr (HM)
+        tma_load_3d(dst, map, bar, c, e, r);
+      else
+        tma_load_3d(dst, map, bar, c, r, e);
+    };
     if (threadIdx.x == 256) {
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -980,7 +1019,7 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
               tma_load_2d(a_tile(s, h) + 8192, &maps.a[h], full + s,
                           m0 + 64, k0);
             } else if constexpr (EX) {
-              tma_load_3d(a_tile(s, h), &maps.a[h], full + s, k0, m0, e);
+              load3(a_tile(s, h), &maps.a[h], full + s, k0, m0, e);
             } else {
               tma_load_2d(a_tile(s, h), &maps.a[h], full + s, k0, m0);
             }
@@ -988,15 +1027,15 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
 #pragma unroll
           for (int h = 0; h < PB; ++h) {
             if constexpr (TB && EX) {
-              tma_load_3d(b_tile(s, h), &maps.b[h], full + s, k0, n0, e);
+              load3(b_tile(s, h), &maps.b[h], full + s, k0, n0, e);
             } else if constexpr (TB) {
               tma_load_2d(b_tile(s, h), &maps.b[h], full + s, k0, n0);
             } else {
 #pragma unroll
               for (int c = 0; c < BN / 64; ++c) {
                 if constexpr (EX)
-                  tma_load_3d(b_tile(s, h) + c * 8192, &maps.b[h], full + s,
-                              n0 + 64 * c, k0, e);
+                  load3(b_tile(s, h) + c * 8192, &maps.b[h], full + s,
+                        n0 + 64 * c, k0, e);
                 else
                   tma_load_2d(b_tile(s, h) + c * 8192, &maps.b[h], full + s,
                               n0 + 64 * c, k0);
@@ -1086,6 +1125,11 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
         }
       }
       it0 += KT;
+      // the head form at m <= 64 (MLA's decode batches): the second
+      // warpgroup's rows are all past M, and nothing of them is stored
+      if constexpr (HM) {
+        if (m0 + wg * 64 >= M) continue;
+      }
 
       // f32 C: thread (warp, lane) holds rows 16 warp + lane / 4 (+ 8),
       // columns 8 j + 2 (lane % 4) (+ 1).  With tma_c, 64 columns at a
@@ -1155,11 +1199,11 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
 }
 
 template <int BN, int TA, int TB, int PA, int PB, bool EX = false,
-          bool F16 = false, bool PROMOTE = (PA * PB > 1)>
+          bool F16 = false, bool PROMOTE = (PA * PB > 1), bool HM = false>
 int launch_tile_t(const TileMaps& maps, float* c, int m, int n, int k,
                   int tma_c, int n_fast, cudaStream_t s, int e = 1) {
   constexpr size_t smem = TileSmem<BN, PA, PB>::BYTES;
-  auto kern = gemm_tc<BN, TA, TB, PA, PB, EX, F16, PROMOTE>;
+  auto kern = gemm_tc<BN, TA, TB, PA, PB, EX, F16, PROMOTE, HM>;
   static bool sized = false;               // once a kernel (host time)
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1259,24 +1303,34 @@ int launch_tile(const void* const a[3], const void* const b[3], float* c,
                                       n_fast, s);
 }
 
-// The rank-3 map of E row-major (rows, cols) matrices, one after another
-// (bf16 operands in boxes of box_rows x 64 columns, 128-byte swizzled;
-// the f32 output in boxes of 64 rows x 32 columns, swizzled as the
-// staging buffer is written): box (c, r, e) is rows r .. of columns c ..
-// of matrix e, and what lies past that matrix's rows or columns reads as
-// zeros (or is not stored), whatever the next matrix holds.  Needs a
-// 16-byte aligned base and rows a multiple of 16 bytes.
-static inline int encode_expert_map(CUtensorMap* map, const void* base,
-                                    int E, int rows, int cols, int box_rows,
-                                    bool out) {
+// The rank-3 map of E (rows, cols) matrices whose rows lie row_st
+// elements apart and whose matrices lie mat_st apart, the columns
+// contiguous (bf16 operands in boxes of box_rows x 64 columns, 128-byte
+// swizzled; the f32 output in boxes of 64 rows x 32 columns, swizzled as
+// the staging buffer is written): what lies past a matrix's rows or
+// columns reads as zeros (or is not stored), whatever the next matrix or
+// the view's other columns hold.  The dimensions go in stride order:
+// (cols, rows, E), box (c, r, e), where the matrices are stacked (mid
+// false, the expert form); (cols, E, rows), box (c, e, r), where the
+// matrix axis lies between the two (mid, the head form's head-middle
+// views: a (m, h, k) activation, a (k, h, n) or (n, h, k) slice of a
+// weight table), which is the same 2-D box in shared memory.  Needs a
+// 16-byte aligned base and both strides a multiple of 16 bytes.
+static inline int encode_rank3_map(CUtensorMap* map, const void* base,
+                                   int E, int rows, int cols,
+                                   long long row_st, long long mat_st,
+                                   int box_rows, bool out, bool mid) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t es = out ? 4 : 2;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
-                              (cuuint64_t)E};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * es,
-                                 (cuuint64_t)rows * cols * es};
-  const cuuint32_t box[3] = {out ? 32u : 64u, (cuuint32_t)box_rows, 1};
+  const cuuint32_t inner = out ? 32u : 64u;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols,
+                              (cuuint64_t)(mid ? E : rows),
+                              (cuuint64_t)(mid ? rows : E)};
+  const cuuint64_t strides[2] = {(cuuint64_t)(mid ? mat_st : row_st) * es,
+                                 (cuuint64_t)(mid ? row_st : mat_st) * es};
+  const cuuint32_t box[3] = {inner, mid ? 1u : (cuuint32_t)box_rows,
+                             mid ? (cuuint32_t)box_rows : 1u};
   const cuuint32_t estr[3] = {1, 1, 1};
   const CUresult r = fn(
       map, out ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
@@ -1287,6 +1341,14 @@ static inline int encode_expert_map(CUtensorMap* map, const void* base,
                                     : CU_TENSOR_MAP_L2_PROMOTION_NONE,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// E row-major (rows, cols) matrices one after another (the expert form)
+static inline int encode_expert_map(CUtensorMap* map, const void* base,
+                                    int E, int rows, int cols, int box_rows,
+                                    bool out) {
+  return encode_rank3_map(map, base, E, rows, cols, cols,
+                          (long long)rows * cols, box_rows, out, false);
 }
 
 // The expert forms on the tile path, c (E, m, n) f32 = op(a) op(b) per
@@ -1329,6 +1391,44 @@ int launch_tile_expert(const void* const a[3], const void* const b[3],
                                                 n_fast, s, e);
   return launch_tile_t<128, 0, 0, 1, 1, true>(maps, c, m, n, k, tma_c,
                                               n_fast, s, e);
+}
+
+// The head form on the tile path, c (h, m, n) f32 = x[:, e] w[:, e] per
+// head e: x (m, h, k) bf16, rows x_row and heads x_head elements apart; w
+// (k, h, n), or (n, h, k) with tb, rows (its first axis) w_row and heads
+// w_head apart (BN = 256 where its tiles fill the SMs).  Every stride is
+// that of a real axis: the caller gives an axis of one element the stride
+// its contiguous copy would have.
+int launch_tile_head(const void* x, const void* w, float* c, int h, int m,
+                     int n, int k, int tb, long long x_row, long long x_head,
+                     long long w_row, long long w_head, cudaStream_t s) {
+  const long long tiles256 =
+      (long long)h * ((m + TBM - 1) / TBM) * ((n + 255) / 256);
+  const int bn = tiles256 >= sm_count() ? 256 : 128;
+  TileMaps maps;
+  int err = encode_rank3_map(&maps.a[0], x, h, m, k, x_row, x_head, TBM,
+                             false, true);
+  if (err == 0)
+    err = tb ? encode_rank3_map(&maps.b[0], w, h, n, k, w_row, w_head, bn,
+                                false, true)
+             : encode_rank3_map(&maps.b[0], w, h, k, n, w_row, w_head, 64,
+                                false, true);
+  const int tma_c = n % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  if (err == 0 && tma_c)
+    err = encode_expert_map(&maps.c, c, h, m, n, 64, true);
+  if (err != 0) return err;
+  const int n_fast = m > n;                      // A larger
+  if (tb && bn == 256)
+    return launch_tile_t<256, 0, 1, 1, 1, true, false, false, true>(
+        maps, c, m, n, k, tma_c, n_fast, s, h);
+  if (tb)
+    return launch_tile_t<128, 0, 1, 1, 1, true, false, false, true>(
+        maps, c, m, n, k, tma_c, n_fast, s, h);
+  if (bn == 256)
+    return launch_tile_t<256, 0, 0, 1, 1, true, false, false, true>(
+        maps, c, m, n, k, tma_c, n_fast, s, h);
+  return launch_tile_t<128, 0, 0, 1, 1, true, false, false, true>(
+      maps, c, m, n, k, tma_c, n_fast, s, h);
 }
 
 // g = hi + mid + lo + r: hi = bf16(g), mid = bf16(g - hi), lo = bf16(g -
@@ -1905,6 +2005,27 @@ extern "C" int repro_head_gemm(const void* x, const void* w, void* c,
   return tc::launch_gemv(x, w, static_cast<float*>(c),
                          static_cast<float*>(ws), m, n, k, transpose_b,
                          nsplit, static_cast<cudaStream_t>(stream), h, &st);
+}
+
+// The head form's tile route: x (m, h, k) times w (k, h, n), or (n, h, k)
+// with transpose_b, bf16, into c (h, m, n) f32, strides as repro_head_gemm
+// takes them (of real axes: an axis of one element is given the stride
+// of its contiguous copy), each a positive multiple of 8 elements, bases
+// 16-byte aligned, k and (without transpose_b) n multiples of 8.
+extern "C" int repro_head_gemm_tc(const void* x, const void* w, void* c,
+                                  int h, int m, int n, int k,
+                                  int transpose_b, long long x_row,
+                                  long long x_head, long long w_row,
+                                  long long w_head, void* stream) {
+  if (h < 1 || m < 1 || n < 1 || k < 8 || k % 8 != 0 ||
+      (!transpose_b && n % 8 != 0) || x_row <= 0 || x_head <= 0 ||
+      w_row <= 0 || w_head <= 0 || (x_row | x_head | w_row | w_head) % 8 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tc::launch_tile_head(x, w, static_cast<float*>(c), h, m, n, k,
+                              transpose_b, x_row, x_head, w_row, w_head,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // The expert VJP forms on the split route, c (e, m, n) f32: dx = g w^T

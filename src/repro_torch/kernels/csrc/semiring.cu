@@ -89,11 +89,24 @@
 //    f32 bits) into the same slabs as int32 bits and multiplies and adds
 //    in int32 (IMAD), its partials int32.
 //  - MAP: no contracted axis, or only contracted extents of 1 (Hadamard,
-//    outer, Kronecker).  A thread pairs a run of 4 consecutive outputs
-//    along the last out axis, its coordinates found once a run; each
-//    operand is read as one vector (aligned, stride 1), one broadcast
-//    scalar (stride 0) or 4 strided scalars; the run is stored as one
-//    vector.
+//    outer, Kronecker).  A run is 4 consecutive outputs along the last
+//    out axis; a thread takes a span of runs (the host's Desc.span),
+//    MAP_STEP (a block's threads) apart, so each step of a block stores one
+//    contiguous stretch.  Its first run's coordinates are decoded once
+//    (the run in its row, then each walked out slot, innermost first: a
+//    mixed-radix number), by a multiplier and shift a digit that the host
+//    computed into the descriptor; every further run adds the step's
+//    digits (the host's too) with carries, and each operand's offset and
+//    the output's by the host's step and carry offsets: no division and
+//    no multiply a run.  Where the output's cells and every operand's
+//    offsets fit in 31 bits the walk is 32-bit (the 6-axis Kronecker
+//    product's old full decode a run took ~6 divisions and ~21 64-bit
+//    multiply-adds for each 16 bytes stored, instruction-bound near its
+//    bytes bound).  Each operand is read as one vector (aligned, stride 1),
+//    one broadcast scalar (stride 0) or 4 strided scalars; the run is
+//    stored as one vector, with a streaming hint (st.global.cs) where
+//    the output passes the L2 (the host's stream_out), so it does not
+//    evict the operands.
 //  - REDUCE: one contracted axis that no tile takes.  Contiguous in every
 //    operand that walks it: a warp an output, lanes taking 4-wide vectors
 //    (4 independent accumulators a lane, 4 vectors in flight), then a
@@ -179,6 +192,19 @@ struct Desc {
   int vec_out;           // vector stores along the last out axis
   int dst;               // 0 the output, 1 the call's scratch
   int acc;               // 0 f32, 1 int32 ((mul, add) on int8)
+  // MAP's walk (kernels/emit.py, map_walk): digit 0 the run in its row
+  // (radix: the runs a row), digit p >= 1 out slot LAST - p; the last
+  // walked digit takes what is left (no radix)
+  long long walk_digit[MAX_OUT];             // a step's digits
+  long long walk_step[MAX_IN + 1];           // a step's offset change:
+                                             // each operand's, the output's
+  long long walk_wrap[MAX_IN + 1][MAX_OUT];  // and more where digit p carries
+  unsigned walk_mul[MAX_OUT];   // a / radix = (a walk_mul) >> walk_shift,
+  int walk_shift[MAX_OUT];      // for a < 2^31
+  int walk_top;          // the outermost digit a step adds to
+  int narrow;            // MAP: 32-bit index arithmetic
+  int stream_out;        // MAP: streaming vector stores
+  int span;              // MAP: runs a thread
 };
 
 // one descriptor's operand buffers, by value in the kernels' parameters
@@ -355,27 +381,50 @@ __device__ __forceinline__ unsigned pack16(float x, float y, int dtype) {
   return *reinterpret_cast<const unsigned*>(&b);
 }
 
-// 4 consecutive outputs at an offset aligned to 4
+// 16 bytes (4 words) or 8 (2), plainly or with the evict-first streaming
+// hint (cs: the data is written once and not read back soon)
+__device__ __forceinline__ void st_v4(void* p, unsigned a, unsigned b,
+                                      unsigned c, unsigned d, bool cs) {
+  if (cs)
+    asm volatile("st.global.cs.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+                 "r"(a), "r"(b), "r"(c), "r"(d)
+                 : "memory");
+  else
+    *static_cast<uint4*>(p) = make_uint4(a, b, c, d);
+}
+
+__device__ __forceinline__ void st_v2(void* p, unsigned a, unsigned b,
+                                      bool cs) {
+  if (cs)
+    asm volatile("st.global.cs.v2.b32 [%0], {%1, %2};\n" ::"l"(p), "r"(a),
+                 "r"(b)
+                 : "memory");
+  else
+    *static_cast<uint2*>(p) = make_uint2(a, b);
+}
+
+// 4 consecutive outputs at an offset aligned to 4 (cs: streaming)
 template <typename T>
 __device__ __forceinline__ void store4(void* p, long long off,
-                                       const T (&v)[RUN], int dtype) {
+                                       const T (&v)[RUN], int dtype,
+                                       bool cs = false) {
   if constexpr (IS_INT<T>) {
     if (dtype == DT_I32) {
-      *reinterpret_cast<int4*>(static_cast<int*>(p) + off) =
-          make_int4(v[0], v[1], v[2], v[3]);
+      st_v4(static_cast<int*>(p) + off, v[0], v[1], v[2], v[3], cs);
     } else {
-      *reinterpret_cast<float4*>(static_cast<float*>(p) + off) =
-          make_float4(__int2float_rn(v[0]), __int2float_rn(v[1]),
-                      __int2float_rn(v[2]), __int2float_rn(v[3]));
+      st_v4(static_cast<float*>(p) + off,
+            __float_as_uint(__int2float_rn(v[0])),
+            __float_as_uint(__int2float_rn(v[1])),
+            __float_as_uint(__int2float_rn(v[2])),
+            __float_as_uint(__int2float_rn(v[3])), cs);
     }
   } else if (dtype == DT_F32) {
-    *reinterpret_cast<float4*>(static_cast<float*>(p) + off) =
-        make_float4(v[0], v[1], v[2], v[3]);
+    st_v4(static_cast<float*>(p) + off, __float_as_uint(v[0]),
+          __float_as_uint(v[1]), __float_as_uint(v[2]),
+          __float_as_uint(v[3]), cs);
   } else {
-    uint2 q;
-    q.x = pack16(v[0], v[1], dtype);
-    q.y = pack16(v[2], v[3], dtype);
-    *reinterpret_cast<uint2*>(static_cast<unsigned short*>(p) + off) = q;
+    st_v2(static_cast<unsigned short*>(p) + off, pack16(v[0], v[1], dtype),
+          pack16(v[2], v[3], dtype), cs);
   }
 }
 
@@ -411,31 +460,14 @@ __device__ __forceinline__ long long lead_cells(const Desc& d) {
 
 // Offsets of lead cell z (row-major over the out slots [0, NS)): per
 // operand (its base included; the first N, those the kernel reads) and
-// in the output.  W < NS: only the last W slots are walked, each but the
-// outermost by one division and without a test of its extent (the short
-// walk of MAP's common case, up to W + 1 out axes).
-template <int NS, int N = MAX_IN, int W = NS>
+// in the output.
+template <int NS, int N = MAX_IN>
 __device__ __forceinline__ void cell_offsets(const Desc& d, long long z,
                                              long long (&off)[MAX_IN],
                                              long long& ooff) {
 #pragma unroll
   for (int i = 0; i < N; ++i) off[i] = d.base[i];
   ooff = 0;
-  if constexpr (W < NS) {
-#pragma unroll
-    for (int s = NS - 1; s >= NS - W; --s) {
-      long long c;
-      if (s > NS - W) {
-        z = divmod(z, d.out_ext[s], c);
-      } else {
-        c = z;                 // the outermost walked slot: no division
-      }
-#pragma unroll
-      for (int i = 0; i < N; ++i) off[i] += c * d.stride[i][s];
-      ooff += c * d.out_stride[s];
-    }
-    return;
-  }
 #pragma unroll
   for (int s = NS - 1; s >= 0; --s) {
     const long long e = d.out_ext[s];
@@ -1136,35 +1168,99 @@ k9_fold(const float* __restrict__ work, long long n, int splits,
 // W: the lead out slots walked, the last W (MAP_SHORT where the nest has
 // at most MAP_SHORT + 1 out axes, else all LAST)
 constexpr int MAP_SHORT = 3;
+// the runs between two of a thread's runs (must match kernels/emit.py's
+// MAP_STEP; the host picks how many a thread takes, Desc.span)
+constexpr int MAP_STEP = BLOCK;
 
-template <int COMB, int N, typename T, int W>
+// z / radix: by the host's multiplier and shift (32-bit walk, z < 2^31),
+// else by division
+template <typename I>
+__device__ __forceinline__ I walk_div(const Desc& d, int p, I z, I radix) {
+  if constexpr (sizeof(I) == 4)
+    return (I)(((unsigned long long)z * d.walk_mul[p]) >> d.walk_shift[p]);
+  else
+    return z / radix;
+}
+
+// I: the walk's index type, unsigned (the host's narrow) or unsigned long
+// long; offsets add modulo 2^32 (2^64), and every offset a run reads is in
+// range, so the wrapped sums are the offsets
+template <int COMB, int N, typename T, int W, typename I>
 __global__ void __launch_bounds__(BLOCK)
 k9_map(const Desc d, const Ins in, void* __restrict__ out) {
+  constexpr int P = W + 1;                   // the run's digit, W slots
   const long long X = d.out_ext[LAST];
-  const long long per_row = (X + RUN - 1) / RUN;
-  const long long runs = lead_cells<LAST, W>(d) * per_row;
-  const long long run = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  const I per_row = (I)((X + RUN - 1) / RUN);
+  const long long runs = lead_cells<LAST, W>(d) * (long long)per_row;
+  long long run = (long long)blockIdx.x * MAP_STEP * d.span + threadIdx.x;
   if (run >= runs) return;
-  long long xr, off[MAX_IN], ooff;
-  cell_offsets<LAST, N, W>(d, divmod(run, per_row, xr), off, ooff);
-  const long long x0 = xr * RUN, rem = X - x0;
-  T v[RUN];
+  auto radix = [&](int p) -> I {
+    return p == 0 ? per_row : (I)d.out_ext[LAST - p];
+  };
+  // the first run: its digits, then the offsets they give
+  I dig[P], off[MAX_IN], oo;
+  I z = (I)run;
+#pragma unroll
+  for (int p = 0; p + 1 < P; ++p) {
+    const I r = radix(p), q = walk_div<I>(d, p, z, r);
+    dig[p] = z - q * r;
+    z = q;
+  }
+  dig[P - 1] = z;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    T w[RUN];
-    load_run<T>(pick(in, i), off[i] + x0 * d.stride[i][LAST],
-                d.stride[i][LAST], d.in_dtype[i], d.vec[i], rem, w);
+    I o = (I)d.base[i] + dig[0] * (I)(RUN * d.stride[i][LAST]);
 #pragma unroll
-    for (int e = 0; e < RUN; ++e)
-      v[e] = i == 0 ? w[e] : pair<COMB, T>(v[e], w[e]);
+    for (int p = 1; p < P; ++p) o += dig[p] * (I)d.stride[i][LAST - p];
+    off[i] = o;
   }
-  const long long o = ooff + x0;
-  if (d.vec_out && rem >= RUN) {
-    store4<T>(out, o, v, d.out_dtype);
-  } else {
+  oo = dig[0] * (I)RUN;                      // out_stride[LAST] is 1
 #pragma unroll
-    for (int e = 0; e < RUN; ++e)
-      if (e < rem) store<T>(out, o + e, v[e], d.out_dtype);
+  for (int p = 1; p < P; ++p) oo += dig[p] * (I)d.out_stride[LAST - p];
+
+  for (int j = 0;;) {
+    const long long x0 = (long long)dig[0] * RUN, rem = X - x0;
+    T v[RUN];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      T w[RUN];
+      load_run<T>(pick(in, i), (long long)off[i], d.stride[i][LAST],
+                  d.in_dtype[i], d.vec[i], rem, w);
+#pragma unroll
+      for (int e = 0; e < RUN; ++e)
+        v[e] = i == 0 ? w[e] : pair<COMB, T>(v[e], w[e]);
+    }
+    const long long o = (long long)oo;
+    if (d.vec_out && rem >= RUN) {
+      store4<T>(out, o, v, d.out_dtype, d.stream_out);
+    } else {
+#pragma unroll
+      for (int e = 0; e < RUN; ++e)
+        if (e < rem) store<T>(out, o + e, v[e], d.out_dtype);
+    }
+    if (++j == d.span) break;
+    run += MAP_STEP;
+    if (run >= runs) break;
+    // add the step's digits, innermost first, with carries; past the
+    // outermost digit the step adds to, only a carry goes on
+    I carry = 0;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (p > d.walk_top && carry == 0) break;
+      I t = dig[p] + (I)d.walk_digit[p] + carry;
+      carry = 0;
+      if (p + 1 < P && t >= radix(p)) {
+        t -= radix(p);
+        carry = 1;
+#pragma unroll
+        for (int i = 0; i < N; ++i) off[i] += (I)d.walk_wrap[i][p];
+        oo += (I)d.walk_wrap[MAX_IN][p];
+      }
+      dig[p] = t;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) off[i] += (I)d.walk_step[i];
+    oo += (I)d.walk_step[MAX_IN];
   }
 }
 
@@ -1536,16 +1632,28 @@ cudaError_t launch(const Desc& d, const Ins& in, void* dst, float* work,
   }
   if (d.mode == MODE_MAP) {
     const long long runs = lead * ceil_div(d.out_ext[LAST], RUN);
-    if (ceil_div(runs, BLOCK) > GRID_X) return cudaErrorInvalidValue;
-    const unsigned g = (unsigned)ceil_div(runs, BLOCK);
+    const long long blocks = ceil_div(runs, (long long)MAP_STEP * d.span);
+    if (blocks > GRID_X || (d.narrow && n >= (1LL << 31)))
+      return cudaErrorInvalidValue;
+    const unsigned g = (unsigned)blocks;
     const bool short_walk = host_cells(d, LAST - MAP_SHORT) == 1;
+    using U32 = unsigned;
+    using U64 = unsigned long long;
+#define K9_MAP_W(NI, W)                                                  \
+  if (d.narrow)                                                          \
+    k9_map<COMB, NI, T, W, U32><<<g, BLOCK, 0, st>>>(d, in, dst);        \
+  else                                                                   \
+    k9_map<COMB, NI, T, W, U64><<<g, BLOCK, 0, st>>>(d, in, dst);
 #define K9_MAP(NI)                                                       \
-  if (d.n_in == NI && short_walk)                                        \
-    k9_map<COMB, NI, T, MAP_SHORT><<<g, BLOCK, 0, st>>>(d, in, dst);     \
-  if (d.n_in == NI && !short_walk)                                       \
-    k9_map<COMB, NI, T, LAST><<<g, BLOCK, 0, st>>>(d, in, dst);
+  if (d.n_in == NI && short_walk) {                                      \
+    K9_MAP_W(NI, MAP_SHORT)                                              \
+  }                                                                      \
+  if (d.n_in == NI && !short_walk) {                                     \
+    K9_MAP_W(NI, LAST)                                                   \
+  }
     K9_MAP(1) K9_MAP(2) K9_MAP(3) K9_MAP(4)
 #undef K9_MAP
+#undef K9_MAP_W
     return cudaGetLastError();
   }
   if (d.mode == MODE_REDUCE && d.rows) {
@@ -1596,6 +1704,16 @@ bool valid(const Desc& d, int n_ins) {
   // TILE decodes a flattened index over several axes in 32 bits
   if (d.mode == MODE_TILE && d.n_red > 1 && volume >= (1LL << 31))
     return false;
+  // MAP's walk: the host's digits, shifts and index width
+  if (d.mode == MODE_MAP) {
+    if (d.walk_top < 0 || d.walk_top >= MAX_OUT || d.narrow < 0 ||
+        d.narrow > 1 || d.stream_out < 0 || d.stream_out > 1 || d.span < 1)
+      return false;
+    for (int p = 0; p < MAX_OUT; ++p)
+      if (d.walk_digit[p] < 0 ||
+          (d.narrow && (d.walk_shift[p] < 31 || d.walk_shift[p] > 62)))
+        return false;
+  }
   for (int i = 0; i < d.n_in; ++i) {
     if (d.src[i] != SRC_TMP && (d.src[i] < 0 || d.src[i] >= n_ins))
       return false;

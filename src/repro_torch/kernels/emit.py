@@ -24,7 +24,10 @@ that compose (``merge_out``), the path (``_mode``: TILE, MAP, REDUCE,
 CHAIN or THREAD, and THREAD's warp or thread form), TILE's
 K split and REDUCE's variant and split (shapes only, in ``describe``),
 and each operand's orientation and copy width (``vector_ok``, at the
-launch's pointers, in ``Launch.c_descs``).  A chain becomes two TILE
+launch's pointers, in ``Launch.c_descs``), and MAP's walk (``map_walk``:
+each thread's span, the step's digits and offset changes, the
+multipliers of its one decode, the index width, streaming stores), whose
+plain model ``map_walk_offsets`` the CPU tests hold to a full decode.  A chain becomes two TILE
 stages whose operands are the chain's leaves and the scratch T; a nest
 of more than ``MAX_IN`` operands two stages too (FACTOR: the first
 ``MAX_IN`` paired into T, contracting the axes no later operand reads
@@ -102,6 +105,18 @@ TILE_M, TILE_K = 128, 16
 REDUCE_STRIP, REDUCE_WARPS = 128, 8
 #: MAP and REDUCE read and write runs of this many elements
 RUN = 4
+#: MAP: the runs a thread walks, ``MAP_STEP`` (a block's threads) apart,
+#: where a run's decode takes more than one division (one run a thread
+#: where it takes one or none, as a Hadamard product's two axes: there
+#: one-run threads stream faster, ``scripts/k9_map_walk.py``), and the
+#: lead out slots its short walk takes (the last ``MAP_SHORT`` where the
+#: slots before them hold one cell; else all ``MAX_OUT - 1``)
+MAP_SPAN, MAP_STEP, MAP_SHORT = 4, 256, 3
+#: MAP's walk is 32-bit where every index it forms is below this
+MAP_NARROW = 2 ** 31
+#: the H100's L2: MAP stores an output larger than this with the
+#: streaming hint
+L2_BYTES = 50 * 2 ** 20
 #: the H100's SMs: a grid below this many blocks leaves SMs idle
 NUM_SM = 132
 #: the contracted volume from which THREAD takes a warp an output
@@ -157,7 +172,9 @@ class K9Desc(ctypes.Structure):
     which buffer each operand reads (``src``: 0 to ``MAX_BUFS - 1`` the
     call's inputs, ``SRC_TMP`` its scratch) and the descriptor writes
     (``dst``: 0 the output, 1 the scratch), and the accumulator (``acc``:
-    0 f32, 1 int32)."""
+    0 f32, 1 int32); last MAP's walk (:func:`map_walk`: a step's digits,
+    offset changes and carry offsets, each digit's multiplier and shift,
+    the index width, the streaming stores)."""
     _fields_ = [("out_ext", ctypes.c_longlong * MAX_OUT),
                 ("red_ext", ctypes.c_longlong * MAX_RED),
                 ("stride", (ctypes.c_longlong * (MAX_OUT + MAX_RED)) * MAX_IN),
@@ -178,7 +195,16 @@ class K9Desc(ctypes.Structure):
                 ("rows", ctypes.c_int),
                 ("vec_out", ctypes.c_int),
                 ("dst", ctypes.c_int),
-                ("acc", ctypes.c_int)]
+                ("acc", ctypes.c_int),
+                ("walk_digit", ctypes.c_longlong * MAX_OUT),
+                ("walk_step", ctypes.c_longlong * (MAX_IN + 1)),
+                ("walk_wrap", (ctypes.c_longlong * MAX_OUT) * (MAX_IN + 1)),
+                ("walk_mul", ctypes.c_uint * MAX_OUT),
+                ("walk_shift", ctypes.c_int * MAX_OUT),
+                ("walk_top", ctypes.c_int),
+                ("narrow", ctypes.c_int),
+                ("stream_out", ctypes.c_int),
+                ("span", ctypes.c_int)]
 
 
 @dataclass(frozen=True)
@@ -216,6 +242,151 @@ def vector_ok(fast_stride: int, other_strides, base: int, ptr: int,
     return (fast_stride == 1 and ptr % (elems * elem_bytes) == 0
             and base % elems == 0
             and all(s % elems == 0 for s in other_strides))
+
+
+def div_magic(radix: int) -> tuple[int, int]:
+    """``(mul, shift)`` with ``a // radix == (a * mul) >> shift`` for
+    every ``0 <= a < MAP_NARROW`` (2^31) and ``1 <= radix <= 2^31``:
+    ``shift = 31 + l`` with ``2^l >= radix``, ``mul = ceil(2^shift /
+    radix) < 2^32``.  The error ``a (mul - 2^shift / radix) / 2^shift`` is
+    below ``2^-l <= 1 / radix``, too little to reach the next multiple."""
+    l = (radix - 1).bit_length()
+    shift = 31 + l
+    return -(-(1 << shift) // radix), shift
+
+
+def map_walk(d: "K9Desc") -> None:
+    """Fill MAP's walk into the descriptor ``d`` (its extents, strides
+    and bases set): the run index (row-major over the walked lead slots,
+    then the runs of ``RUN`` along the last out axis) is a mixed-radix
+    number, digit 0 the run in its row (radix: the row's runs), digit
+    ``p >= 1`` out slot ``LAST - p``; the short walk takes ``MAP_SHORT``
+    slots, the long one all.  A thread decodes its first run once (each
+    digit by :func:`div_magic`'s multiplier where the walk is narrow),
+    then adds ``MAP_STEP`` runs at a time: the step's digits with
+    carries, each operand's offset and the output's by ``walk_step``,
+    and by ``walk_wrap[i][p]`` where digit ``p`` carries out (it loses
+    its radix, the next digit gains one).  Narrow (32-bit) where the
+    output's cells and every operand's offsets lie in [0, 2^31).  A
+    thread takes ``MAP_SPAN`` runs, one where a run's decode takes at
+    most one division.
+    Raises unless the digits compose ``MAP_STEP`` (then stepping from a
+    decoded run visits the runs ``MAP_STEP`` on, and the grid's spans
+    each run once)."""
+    last = MAX_OUT - 1
+    ext = list(d.out_ext)
+    digits, radix, _ = _walk_shape(d)
+    n_in = d.n_in
+
+    def place(i: int, p: int) -> int:
+        st = d.out_stride if i == MAX_IN else d.stride[i]
+        return RUN * st[last] if p == 0 else st[last - p]
+
+    rest = MAP_STEP
+    dig = []
+    for p in range(digits):
+        if p + 1 < digits:
+            rest, r = divmod(rest, radix[p])
+            dig.append(r)
+        else:
+            dig.append(rest)
+    value, scale = 0, 1
+    for p in range(digits):
+        value += dig[p] * scale
+        scale *= radix[p]
+    if value != MAP_STEP or any(not 0 <= dg < r for dg, r in
+                                zip(dig[:-1], radix)):
+        raise ValueError(f"MAP's step digits {dig} over radices {radix} "
+                         f"do not compose {MAP_STEP} runs")
+    for p in range(MAX_OUT):
+        d.walk_digit[p] = dig[p] if p < digits else 0
+        d.walk_mul[p], d.walk_shift[p] = div_magic(
+            radix[p] if p < digits else 1)
+    d.walk_top = max((p for p in range(digits) if dig[p]), default=0)
+    for i in list(range(n_in)) + [MAX_IN]:
+        d.walk_step[i] = sum(dig[p] * place(i, p) for p in range(digits))
+        for p in range(MAX_OUT):
+            d.walk_wrap[i][p] = (place(i, p + 1) - radix[p] * place(i, p)
+                                 if p + 1 < digits else 0)
+    cells = _prod(ext)
+    lo_hi = []
+    for i in range(n_in):
+        spans = [d.stride[i][s] * (ext[s] - 1) for s in range(MAX_OUT)]
+        lo_hi.append((d.base[i] + sum(v for v in spans if v < 0),
+                      d.base[i] + sum(v for v in spans if v > 0)))
+    d.narrow = int(cells < MAP_NARROW and all(
+        0 <= lo and hi < MAP_NARROW for lo, hi in lo_hi))
+    divisions = sum(r > 1 for r in radix) - 1
+    d.span = MAP_SPAN if divisions > 1 else 1
+
+
+def _walk_shape(d: "K9Desc") -> tuple[int, list[int], int]:
+    """``(digits, radices, runs)`` of MAP's walk on ``d``: the short walk
+    where the out slots before the last ``MAP_SHORT`` lead ones hold one
+    cell (the kernel's own test), else the long one."""
+    last = MAX_OUT - 1
+    ext = list(d.out_ext)
+    per_row = -(-ext[last] // RUN)
+    short = _prod(ext[:last - MAP_SHORT]) == 1
+    digits = MAP_SHORT + 1 if short else MAX_OUT
+    radix = [per_row] + [ext[last - p] for p in range(1, digits)]
+    return digits, radix, _prod(radix)
+
+
+def map_walk_offsets(d: "K9Desc") -> tuple[torch.Tensor, torch.Tensor]:
+    """A plain model of ``k9_map``'s walk on the descriptor ``d`` (filled
+    by :func:`map_walk`), run for every thread of its grid: the first run
+    decoded by the multipliers (by division on the wide walk), each later
+    one reached by adding the step's digits with carries and the host's
+    offset changes, in int64 with the narrow walk's 32-bit wrap.  Returns
+    ``(runs, offsets)``: each visited run's index and its offsets (a row
+    per operand, then the output), in the kernel's visit order (block,
+    step, thread), which is the run order."""
+    last = MAX_OUT - 1
+    digits, radix, runs = _walk_shape(d)
+    i64 = torch.int64
+    wrap = (lambda t: t & 0xFFFFFFFF) if d.narrow else (lambda t: t)
+    block = MAP_STEP * d.span
+    run = (torch.arange(-(-runs // block), dtype=i64)[:, None] * block
+           + torch.arange(MAP_STEP, dtype=i64)).reshape(-1)
+    run = run[run < runs]
+    z, dig = run, []
+    for p in range(digits - 1):
+        q = (z * d.walk_mul[p]) >> d.walk_shift[p] if d.narrow \
+            else z // radix[p]
+        dig.append(z - q * radix[p])
+        z = q
+    dig.append(z)
+    n = d.n_in
+    rows = [(list(d.stride[i]), d.base[i], i) for i in range(n)] + \
+        [(list(d.out_stride), 0, MAX_IN)]
+    off = []
+    for st, base, _ in rows:
+        o = torch.full_like(run, base)
+        for p in range(digits):
+            o = o + dig[p] * (RUN * st[last] if p == 0 else st[last - p])
+        off.append(wrap(o))
+    seen_run, seen_off = [run], [torch.stack(off)]
+    for _ in range(1, d.span):
+        go = run + MAP_STEP < runs
+        run = run[go] + MAP_STEP
+        dig = [t[go] for t in dig]
+        off = [t[go] for t in off]
+        carry = torch.zeros_like(run)
+        for p in range(digits):
+            t = dig[p] + d.walk_digit[p] + carry
+            if p + 1 < digits:
+                carry = (t >= radix[p]).to(i64)
+                t = t - carry * radix[p]
+                off = [wrap(o + carry * d.walk_wrap[k][p])
+                       for o, (_, _, k) in zip(off, rows)]
+            dig[p] = t
+        off = [wrap(o + d.walk_step[k]) for o, (_, _, k) in zip(off, rows)]
+        seen_run.append(run)
+        seen_off.append(torch.stack(off))
+    runs_all = torch.cat(seen_run)
+    order = torch.argsort(runs_all)
+    return runs_all[order], torch.cat(seen_off, dim=1)[:, order]
 
 
 def tile_k_fast(s_row: int, s_k: int) -> bool:
@@ -400,6 +571,10 @@ class Launch:
         d.vec_out = int(bool(self.out_ext) and self.out_ext[-1] % RUN == 0)
         d.dst = 0
         d.acc = int(acc)
+        if self.mode == MAP:
+            map_walk(d)
+            d.stream_out = int(_prod(self.out_ext) * ELEM_BYTES[out_dtype]
+                               > L2_BYTES)
         return d
 
     def c_descs(self, in_dtypes, out_dtype, ptrs, tmp_ptr: int = 0):

@@ -84,7 +84,10 @@ a stack of them over a shared leading (expert) axis to K1's expert form
 where :func:`expert_route` allows (aligned bf16), and a stack over a head
 axis in the middle of both operands (``head_gemm_expr``) to K1's head
 form where :func:`head_route` allows, reading both operands through
-their strides; every other normal form goes to K9 through its launch
+their strides: the decode rows at most 16 rows, else the tile, whose
+rank-3 tensor maps take the views' strides in stride order (inner, head,
+row), so no operand is copied, k is not split and one launch does all
+the heads; every other normal form goes to K9 through its launch
 descriptor (``kernels/emit.py``), which reads every leaf in place.
 """
 from __future__ import annotations
@@ -125,6 +128,8 @@ _SIGNATURES = {
     "repro_expert_gemm_split": ("gemm", [_P] * 7 + [_C] * 6),
     "repro_head_gemm": ("gemm", [_P] * 4 + [_C] * 6
                         + [ctypes.c_longlong] * 4),
+    "repro_head_gemm_tc": ("gemm", [_P] * 3 + [_C] * 5
+                           + [ctypes.c_longlong] * 4),
     "repro_split_bf16": ("gemm", [_P] * 4 + [ctypes.c_longlong, _C, _C]),
     "repro_flash_fwd": ("flash_fwd", [_P] * 6 + [_C] * 7 + [_F] + [_C] * 4),
     "repro_flash_dq": ("flash_bwd", [_P] * 8 + [_C] * 7 + [_F] + [_C] * 4),
@@ -995,50 +1000,71 @@ def head_aligned(*tensors: torch.Tensor) -> bool:
 def head_route(h: int, m: int, k: int, n: int, x_dtype, w_dtype,
                transpose_b: bool = False, aligned: bool = True) -> str:
     """The kernel of one head form ``x (m, h, k) @ w (k, h, n) -> (h, m,
-    n)`` (``transpose_b``: w stored ``(n, h, k)``): ``"gemv"``, K1's
-    decode-row kernel with a head grid axis, reading both operands in
-    place through their row and head strides, where :func:`gemm_route`
-    gives one head's product ``"gemv"`` (bf16 x bf16, ``m <=
-    K1_DECODE_ROWS``, ``k % 32 == 0``, rows of a multiple of 8 elements)
-    and every operand is ``aligned`` (:func:`head_aligned`); ``"K9"``
-    otherwise (its batched path on row-major copies): f32, float16 and
-    mixed operands under its f32 accumulator, int8 ones under its int32
-    accumulator (exact).  Dtypes are torch dtypes or their names."""
+    n)`` (``transpose_b``: w stored ``(n, h, k)``), from :func:`gemm_route`
+    on one head's product, for bf16 x bf16 operands that are all
+    ``aligned`` (:func:`head_aligned`), each read in place through its row
+    and head strides:
+
+    - ``"gemv"``: K1's decode-row kernel with a head grid axis (``m <=
+      K1_DECODE_ROWS``, ``k % 32 == 0``);
+    - ``"tile"``: K1's TMA + wgmma tile with the heads as its walk's
+      outer axis, through rank-3 maps of the views (the other forms TMA
+      reads: rows of a multiple of 8 elements, ``k >= 8``).
+
+    ``"K9"`` otherwise (its batched path on row-major copies): rows TMA
+    cannot read, unaligned views, f32, float16 and mixed operands under
+    its f32 accumulator, int8 ones under its int32 accumulator (exact).
+    Dtypes are torch dtypes or their names."""
     names = tuple(str(t).removeprefix("torch.") for t in (x_dtype, w_dtype))
     if not (h and m and k and n) or names != ("bfloat16", "bfloat16"):
         return "K9"
     bf = torch.bfloat16
     route = gemm_route(m, n, k, bf, bf, False, bool(transpose_b), aligned,
                        aligned)
-    return "gemv" if route == "gemv" else "K9"
+    return route if route in ("gemv", "tile") else "K9"
+
+
+def _head_strides(t: torch.Tensor, route: str) -> tuple[int, int]:
+    """The row and head strides (elements) of a head form's operand as
+    its route reads them.  An axis of one element is never stepped: the
+    decode rows take 0; the tile's maps take the stride its contiguous
+    copy would have (a tensor map's strides are positive multiples of 16
+    bytes)."""
+    inner = t.shape[2]
+    dense = (t.shape[1] * inner, inner)
+    return tuple(t.stride(i) if t.shape[i] > 1 else
+                 (dense[i] if route == "tile" else 0) for i in (0, 1))
 
 
 def _head_gemm(x: torch.Tensor, w: torch.Tensor,
                transpose_b: bool = False) -> torch.Tensor:
     """Launch K1's head form on ``x (m, h, k)`` and ``w (k, h, n)`` (``(n,
-    h, k)`` with ``transpose_b``), strided views read in place; returns the
-    f32 ``(h, m, n)``.  The k range is split over :func:`gemv_splits`
-    blocks, whose partials a second pass sums in split order."""
+    h, k)`` with ``transpose_b``), strided views read in place, on the
+    route :func:`head_route` gives; returns the f32 ``(h, m, n)``.  The
+    decode rows split the k range over :func:`gemv_splits` blocks, whose
+    partials a second pass sums in split order; the tile does not split
+    k."""
     m, h, k = x.shape
     n = w.shape[0] if transpose_b else w.shape[2]
     route = head_route(h, m, k, n, x.dtype, w.dtype, transpose_b,
                        head_aligned(x, w))
-    if route != "gemv":
-        raise ValueError(f"K1's head form takes aligned bf16 operands of at "
-                         f"most {K1_DECODE_ROWS} rows and k % "
-                         f"{K1_GEMV_UNIT} == 0; {tuple(x.shape)} {x.dtype} "
-                         f"x {tuple(w.shape)} {w.dtype} (transpose_b="
+    if route == "K9":
+        raise ValueError(f"K1's head form takes aligned bf16 operands whose "
+                         f"rows TMA reads; {tuple(x.shape)} {x.dtype} x "
+                         f"{tuple(w.shape)} {w.dtype} (transpose_b="
                          f"{transpose_b}) is K9's (ops.head_route)")
-    nsplit = gemv_splits(m, n, k, h)
     out = torch.empty((h, m, n), device=x.device, dtype=torch.float32)
-    ws = torch.empty((nsplit, h, m, n), device=x.device,
-                     dtype=torch.float32) if nsplit > 1 else None
-    # the stride of an axis of one element is never stepped
-    st = lambda t, i: t.stride(i) if t.shape[i] > 1 else 0
-    _launch("repro_head_gemm", x.data_ptr(), w.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), h, m, n, k,
-            int(transpose_b), nsplit, st(x, 0), st(x, 1), st(w, 0),
-            st(w, 1))
+    strides = (*_head_strides(x, route), *_head_strides(w, route))
+    if route == "tile":
+        _launch("repro_head_gemm_tc", x.data_ptr(), w.data_ptr(),
+                out.data_ptr(), h, m, n, k, int(transpose_b), *strides)
+    else:
+        nsplit = gemv_splits(m, n, k, h)
+        ws = torch.empty((nsplit, h, m, n), device=x.device,
+                         dtype=torch.float32) if nsplit > 1 else None
+        _launch("repro_head_gemm", x.data_ptr(), w.data_ptr(),
+                out.data_ptr(), None if ws is None else ws.data_ptr(), h, m,
+                n, k, int(transpose_b), nsplit, *strides)
     LAUNCHES["K1"] += 1
     return out
 

@@ -563,3 +563,154 @@ def test_reduce_splits_fill_the_card(shape, x, k):
                             and k >= 2 * emit.REDUCE_SPLIT_MIN)
     assert k_split >= emit.REDUCE_SPLIT_MIN or splits == 1
     assert (splits - 1) * k_split < k <= splits * k_split
+
+
+# ---- MAP's span walk ----------------------------------------------------
+
+def test_div_magic_reproduces_divmod():
+    """``emit.div_magic``'s multiplier and shift give ``a // radix`` for
+    every radix from 1 to 65536, at numerators next to each multiple the
+    walk can meet (0, radix - 1, radix, 2^31 - 1 and around sampled
+    multiples), and at the largest radices below 2^31."""
+    i64 = torch.int64
+    radix = torch.arange(1, 65537, dtype=i64)
+    magic = [emit.div_magic(r) for r in range(1, 65537)]
+    mul = torch.tensor([m for m, _ in magic], dtype=i64)
+    shift = torch.tensor([s for _, s in magic], dtype=i64)
+    assert int(mul.max()) < 2 ** 32
+    top = 2 ** 31 - 1
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randint(0, 2 ** 31, (65536, 8), generator=gen) // radix[:, None]
+    a = torch.cat([torch.zeros(65536, 1, dtype=i64), radix[:, None] - 1,
+                   radix[:, None], torch.full((65536, 1), top),
+                   q * radix[:, None], q * radix[:, None] - 1,
+                   q * radix[:, None] + radix[:, None] - 1], dim=1)
+    a = a.clamp(0, top)
+    got = (a * mul[:, None]) >> shift[:, None]
+    assert torch.equal(got, a // radix[:, None])
+    for r in (2 ** 31, 2 ** 31 - 1, 3 * 2 ** 29, 1000003):
+        m, s = emit.div_magic(r)
+        for x in (0, r - 1, r, top, top - top % r, top - top % r - 1):
+            if 0 <= x <= top:
+                assert (x * m) >> s == x // r
+
+
+def _map_descriptor(expr, dtypes, out_dtype=torch.float32):
+    plan = ops._plan(E.normal_form(expr), tuple(str(d)[6:] for d in dtypes),
+                     out_dtype, ops.H100, None, "float32", False)
+    launch = plan[1]
+    assert launch.mode == emit.MAP
+    return launch, launch.c_struct(dtypes, out_dtype, (0,) * len(dtypes))
+
+
+def _map_exprs():
+    """(label) -> (expr, dtypes): the [moa_path] MAP rows' descriptors
+    (the 6-axis Kronecker product, kron 64, Hadamard), a ragged last axis
+    and an operand broadcast along it."""
+    A = E.arr
+    f32 = torch.float32
+    c = 16
+    return {
+        "kron6": (E.transpose(E.inner("add", "mul", A("A", (c, c, c, 1)),
+                                      A("B", (1, c, c, c))),
+                              (0, 3, 1, 4, 2, 5)), (f32, f32)),
+        "kron64": (E.transpose(ops._outer_expr(64, 64, 64, 64),
+                               (0, 2, 1, 3)), (f32, f32)),
+        "hadamard": (E.hadamard_expr(1024, 1024), (f32, f32)),
+        "ragged": (E.transpose(E.inner("add", "mul", A("A", (7, 9, 1)),
+                                       A("B", (1, 11, 1001))),
+                               (0, 2, 1, 3)), (f32, torch.bfloat16)),
+        "broadcast": (ops._outer_expr(30, 5, 3, 130), (f32, f32)),
+    }
+
+
+def _direct_offsets(launch):
+    """Each run's offsets decoded from its index, as the old walk did (a
+    division a slot), in run order: a row per operand, then the output."""
+    nout = len(launch.out_ext)
+    ext = launch.out_ext
+    per_row = -(-ext[-1] // emit.RUN)
+    runs = math.prod(ext[:-1]) * per_row
+    run = torch.arange(runs, dtype=torch.int64)
+    xr, z = run % per_row, run // per_row
+    coords = [xr * emit.RUN]
+    for e in reversed(ext[:-1]):
+        coords.append(z % e)
+        z = z // e
+    coords = coords[::-1]                      # out axes in order
+    rows = []
+    for opn in launch.operands:
+        o = torch.full_like(run, opn.base)
+        for ax in range(nout):
+            o = o + coords[ax] * opn.strides[ax]
+        rows.append(o)
+    o = torch.zeros_like(run)
+    for ax, st in enumerate(launch.out_strides):
+        o = o + coords[ax] * st
+    rows.append(o)
+    return run, torch.stack(rows)
+
+
+@pytest.mark.parametrize("name", sorted(_map_exprs()))
+def test_map_span_walk_visits_every_output_once_in_order(name):
+    """A plain model of ``k9_map``'s span walk on the host's descriptor
+    (``emit.map_walk_offsets``: first runs by the multipliers, the rest by
+    the step's digits with carries, 32-bit where the descriptor is
+    narrow) visits every run exactly once, in order, at the offsets a
+    full decode of each run gives; so every output element is written
+    once (the runs of a row tile its last axis, the edge run its
+    remainder), and the wide (64-bit, dividing) walk agrees with it."""
+    launch, d = _map_descriptor(*_map_exprs()[name])
+    runs, offsets = emit.map_walk_offsets(d)
+    want_runs, want = _direct_offsets(launch)
+    assert torch.equal(runs, want_runs)
+    assert torch.equal(offsets, want)
+    assert d.narrow == 1
+    x = launch.out_ext[-1]
+    cover = torch.zeros(math.prod(launch.out_ext), dtype=torch.int32)
+    for e in range(emit.RUN):
+        keep = (runs % -(-x // emit.RUN)) * emit.RUN + e < x
+        cover.index_add_(0, offsets[-1][keep] + e,
+                         torch.ones(int(keep.sum()), dtype=torch.int32))
+    assert bool((cover == 1).all())
+    d.narrow = 0
+    runs64, offsets64 = emit.map_walk_offsets(d)
+    assert torch.equal(runs64, want_runs) and torch.equal(offsets64, want)
+
+
+def test_map_walk_width_streaming_and_digits():
+    """The host's walk choices: the 6-axis Kronecker product takes the long
+    walk (8 digits, a step of MAP_STEP = 256 runs is (0, 0, 4) over radices
+    (4, 16, 16)), 32-bit, MAP_SPAN runs a thread, with streaming stores (67
+    MB past the 50 MB L2); a small Hadamard (a decode of one division: one
+    run a thread) stores plainly; an output of 2^32 cells is wide
+    (64-bit)."""
+    launch, d = _map_descriptor(*_map_exprs()["kron6"])
+    assert list(d.walk_digit)[:3] == [0, 0, 4] and d.walk_top == 2
+    assert d.narrow == 1 and d.stream_out == 1 and d.span == emit.MAP_SPAN
+    assert list(d.walk_shift)[:3] == [33, 35, 35]
+    _, small = _map_descriptor(E.hadamard_expr(64, 64),
+                               (torch.float32, torch.float32))
+    assert small.stream_out == 0 and small.narrow == 1 and small.span == 1
+    _, big = _map_descriptor(ops._outer_expr(2 ** 16, 1, 1, 2 ** 16),
+                             (torch.float32, torch.float32))
+    assert big.narrow == 0 and big.stream_out == 1
+
+
+def test_k9_descriptor_mirrors_the_kernels_struct():
+    """``emit.K9Desc`` lists ``csrc/semiring.cu``'s ``struct Desc`` field
+    for field, in order (the kernel reads it by value)."""
+    import pathlib
+    import re
+    src = (pathlib.Path(emit.__file__).parent / "csrc" /
+           "semiring.cu").read_text()
+    body = src[src.index("struct Desc {"):]
+    body = body[:body.index("};")]
+    names = []
+    for decl in re.sub(r"//[^\n]*", "", body).split("{", 1)[1].split(";"):
+        decl = decl.strip()
+        if decl:
+            decl = re.sub(r"^(long long|int|unsigned)\s+", "", decl)
+            names += [re.match(r"\w+", v.strip()).group(0)
+                      for v in decl.split(",")]
+    assert names == [n for n, _ in emit.K9Desc._fields_]

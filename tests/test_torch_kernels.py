@@ -481,16 +481,74 @@ def test_head_form_matches_plain(h100, m, tb):
                                atol=1e-4)
 
 
+#: the head form's tile rows: one past K1_DECODE_ROWS, MLA's decode at
+#: B = 64, and a batch off every tile multiple
+HEAD_TILE_ROWS = [17, 64, 100]
+#: the tile's f32 sums (the tensor cores', over k = 64 or 256) run in
+#: another order than the plain version's: 1e-5 of the largest plain
+#: entry a term, as K9_SUM_REL
+HEAD_TILE_REL = 1e-5
+
+
 @pytest.mark.h100
-@pytest.mark.parametrize("case", ["rows", "f32", "unaligned"])
+@pytest.mark.parametrize("tb", [True, False])
+@pytest.mark.parametrize("m", HEAD_TILE_ROWS)
+def test_head_tile_matches_plain(h100, m, tb):
+    """Past 16 rows ``ops.head_matmul`` at minicpm3-4b's absorbed decode
+    products (q_lat, ``transpose_b``, and out, on strided views of one
+    (256, 40, 128) ``wkv_b`` table) runs K1's head tile (``ops.head_route``
+    "tile"; one launch, no K9, no copy), agrees with ``ref.head_gemm``
+    within HEAD_TILE_REL x k x max|plain|, and a rerun gives the same
+    bits."""
+    x, w = _mla_head_operands(h100, m, tb)
+    k, n = x.shape[-1], 256 if tb else 64
+    assert ops.head_aligned(x.reshape(m, 40, k), w)
+    assert ops.head_route(40, m, k, n, _BF16, _BF16, tb) == "tile"
+    got = ops.head_matmul(x, w, transpose_b=tb, out_dtype=torch.float32)
+    again = ops.head_matmul(x, w, transpose_b=tb, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 2 and ops.LAUNCHES["K9"] == 0
+    assert got.shape == (m, 1, 40, n) and torch.equal(got, again)
+    want = ref.head_gemm(x.reshape(m, 40, k), w, tb).transpose(0, 1)
+    torch.testing.assert_close(got.reshape(m, 40, n), want, rtol=0,
+                               atol=HEAD_TILE_REL * k *
+                               want.abs().max().item())
+
+
+@pytest.mark.h100
+def test_head_tile_reads_a_head_major_view(h100):
+    """An activation stored head-major, (h, m, k), and read as its (m, h,
+    k) transpose (head stride above the row stride: the tile's map takes
+    its dimensions in that order) on the tile, against ``ref.head_gemm``
+    on a contiguous copy."""
+    gen = torch.Generator(device=h100).manual_seed(73)
+    x = torch.randn(40, 64, 64, generator=gen, device=h100).to(_BF16)
+    table = (torch.randn(256, 40, 128, generator=gen, device=h100)
+             * 256 ** -0.5).to(_BF16)
+    xv, w = x.transpose(0, 1), table[..., :64]
+    assert xv.stride(1) > xv.stride(0)
+    assert ops.head_route(40, 64, 64, 256, _BF16, _BF16, True,
+                          ops.head_aligned(xv, w)) == "tile"
+    got = ops._head_gemm(xv, w, True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 1
+    want = ref.head_gemm(xv.contiguous(), w, True)
+    torch.testing.assert_close(got, want, rtol=0, atol=HEAD_TILE_REL * 64 *
+                               want.abs().max().item())
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("case", ["f16", "f32", "unaligned"])
 def test_head_form_routes_refused_forms_to_k9(h100, case):
-    """A head form that K1 refuses (64 rows; f32 operands; a view whose
-    base is off 16 bytes) takes K9 (on row-major copies) and agrees with
-    ``ref.head_gemm``."""
-    m = 64 if case == "rows" else 4
+    """A head form that K1 refuses (float16 operands at 64 rows; f32
+    operands; a view whose base is off 16 bytes) takes K9 (on row-major
+    copies) and agrees with ``ref.head_gemm``."""
+    m = 64 if case == "f16" else 4
     x, w = _mla_head_operands(h100, m, True)
     if case == "f32":
         x, w = x.float(), w.float()
+    if case == "f16":
+        x, w = x.half(), w.half()
     if case == "unaligned":
         x = torch.cat([x, x[..., :1]], dim=-1)[..., 1:]
     assert ops.head_route(40, m, 64, 256, x.dtype, w.dtype, True,
@@ -1292,6 +1350,72 @@ def test_k9_elementwise_reduce_chain_and_kron(h100, dtype):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["K9"] == 1
     assert torch.equal(got, ref.kron_ref(p, q))
+
+
+def _map_cases(E, rnd, ints):
+    """(label) -> (expr, operands, out dtype, apply's acc_dtype) of MAP's
+    span walk: the 6-axis Kronecker product of two (16, 16, 16) cubes
+    (the long walk, 32-bit, streaming stores), kron 64x64 (x) 64x64, a
+    last axis no multiple of 4 (scalar edge stores, a ragged row of
+    runs), an operand broadcast along the last axis, int8 -> int32
+    Hadamard and a nest of 6 operands (FACTOR's first stage pairs 4 on
+    MAP), the last two on small integers (exact products)."""
+    A = E.arr
+    c = 16
+    hada = lambda n, s: E.combine("mul", hada(n - 1, s) if n > 2 else
+                                  A("H0", s), A(f"H{n - 1}", s))
+    i8 = ints(300, 1001).to(torch.int8), ints(300, 1001).to(torch.int8)
+    return {
+        "kron6": (E.transpose(E.inner("add", "mul", A("A", (c, c, c, 1)),
+                                      A("B", (1, c, c, c))),
+                              (0, 3, 1, 4, 2, 5)),
+                  (rnd(c, c, c, 1), rnd(1, c, c, c)), _F32, "float32"),
+        "kron64": (E.transpose(ops._outer_expr(64, 64, 64, 64),
+                               (0, 2, 1, 3)),
+                   (rnd(64, 64, 1), rnd(1, 64, 64)), _F32, "float32"),
+        "ragged": (E.transpose(E.inner("add", "mul", A("A", (7, 9, 1)),
+                                       A("B", (1, 11, 1001))),
+                               (0, 2, 1, 3)),
+                   (rnd(7, 9, 1), rnd(1, 11, 1001)), _BF16, "float32"),
+        "broadcast": (ops._outer_expr(300, 5, 3, 1024),
+                      (rnd(300, 5, 1), rnd(1, 3, 1024)), _F32, "float32"),
+        "int8": (E.hadamard_expr(300, 1001), i8, torch.int32, "int32"),
+        "nest6": (hada(6, (130, 1000)),
+                  tuple(ints(130, 1000) for _ in range(6)), _F32,
+                  "float32"),
+    }
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("name", ["kron6", "kron64", "ragged", "broadcast",
+                                  "int8", "nest6"])
+def test_k9_map_span_walk_bit_for_bit(h100, name):
+    """MAP's span walk (a thread's first run decoded once, the rest
+    reached by carries; 32-bit where its indices fit; streaming stores
+    past the L2) through ``ops.apply``: one K9 launch, bit for bit
+    against the plain version, and the descriptor's walk as the host's
+    model of it (``emit.map_walk_offsets``) holds on the CPU."""
+    from repro_torch.kernels import emit
+    g = torch.Generator(device=h100).manual_seed(len(name) + 41)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=h100)
+    ints = lambda *s: torch.randint(-3, 4, s, generator=g,
+                                    device=h100).float()
+    expr, arrays, out_dt, acc = _map_cases(ops.E, rnd, ints)[name]
+    ops.reset_launches()
+    got = ops.apply(expr, *arrays, out_dtype=out_dt, acc_dtype=acc)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == dict(ops.LAUNCHES, K1=0, K9=1)
+    with ops.reference_mode():
+        want = ops.apply(expr, *arrays, out_dtype=out_dt, acc_dtype=acc)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    plan = ops._plan(ops.E.normal_form(expr),
+                     tuple(str(a.dtype)[6:] for a in arrays), out_dt,
+                     ops.H100, None, acc, True)[1]
+    first = plan.stages[0] if plan.stages else plan
+    assert first.mode == emit.MAP
+    if name in ("kron6", "kron64"):
+        d = plan.c_struct((_F32, _F32), _F32, (0, 0))
+        assert d.narrow == 1 and d.stream_out == 1
 
 
 @pytest.mark.h100

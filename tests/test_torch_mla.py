@@ -207,12 +207,15 @@ def test_mla_decode_steps_match_reference(mla):
 
 
 @pytest.mark.parametrize("transpose_b", [False, True])
-def test_head_matmul_matches_reference(transpose_b):
+@pytest.mark.parametrize("m", [6, 64])
+def test_head_matmul_matches_reference(m, transpose_b):
     """``ops.head_matmul`` in both layouts (the weight a strided view of
     one head-middle table, as MLA's decode passes it) against the
-    reference's ``head_matmul`` in interpret mode and the einsum."""
+    reference's ``head_matmul`` in interpret mode and the einsum, at 6
+    rows (the decode rows' count) and 64 (past them: the tile's)."""
     rng = np.random.default_rng(3)
-    b, s, h, k, n = 2, 3, 4, 32, 24
+    b, s = (2, 3) if m == 6 else (8, 8)
+    h, k, n = 4, 32, 24
     x = rng.standard_normal((b, s, h, k)).astype(np.float32)
     table = rng.standard_normal((64, h, 48)).astype(np.float32)
     if transpose_b:
@@ -235,17 +238,21 @@ def test_head_matmul_matches_reference(transpose_b):
 
 
 #: (h, m, k, n, dtypes, transpose_b, aligned) -> route: K1's head form
-#: where one head's product is K1's decode-row product, else K9
+#: where one head's product is K1's decode-row product ("gemv") or its
+#: tile ("tile": past 16 rows, or k no multiple of 32), else K9
 HEAD_ROUTES = [
     ((40, 1, 64, 256, "bfloat16", True, True), "gemv"),
     ((40, 4, 256, 64, "bfloat16", False, True), "gemv"),
     ((40, 16, 256, 64, "bfloat16", False, True), "gemv"),
-    ((40, 17, 256, 64, "bfloat16", False, True), "K9"),      # rows
-    ((40, 64, 64, 256, "bfloat16", True, True), "K9"),
-    ((40, 4, 48, 64, "bfloat16", False, True), "K9"),        # k % 32
+    ((40, 17, 256, 64, "bfloat16", False, True), "tile"),    # rows
+    ((40, 64, 64, 256, "bfloat16", True, True), "tile"),
+    ((40, 4, 48, 64, "bfloat16", False, True), "tile"),      # k % 32
     ((40, 4, 256, 60, "bfloat16", False, True), "K9"),       # row of n
     ((40, 4, 256, 64, "bfloat16", False, False), "K9"),      # strides
     ((40, 4, 256, 64, "float32", False, True), "K9"),
+    ((40, 100, 64, 256, "bfloat16", True, True), "tile"),
+    ((40, 64, 64, 256, "float16", True, True), "K9"),        # float16
+    ((40, 64, 64, 256, "bfloat16", True, False), "K9"),      # strides
 ]
 
 
@@ -253,8 +260,8 @@ HEAD_ROUTES = [
 def test_head_route_rule(case, route):
     """``ops.head_route`` (a host rule) and the memoised plan of
     ``head_gemm_expr``: K1 with the lifted head axis (``("K1", False,
-    transpose_b, "head")``) where the route is K1's decode-row kernel,
-    else K9's launch descriptor."""
+    transpose_b, "head")``) where the route is one of K1's (the decode
+    rows or the tile), else K9's launch descriptor."""
     from repro_torch.kernels import emit
     h, m, k, n, dt, tb, aligned = case
     assert ops.head_route(h, m, k, n, dt, dt, tb, aligned) == route
@@ -282,15 +289,16 @@ def test_head_aligned_reads_view_strides():
                                                       .transpose(0, 1))
 
 
-@pytest.mark.parametrize("case", ["rows", "f32", "unaligned"])
+@pytest.mark.parametrize("case", ["f16", "f32", "unaligned"])
 def test_head_matmul_takes_k9_where_k1_refuses(case):
-    """A head form that K1 refuses (64 rows; f32; a bf16 view whose base
-    is off 16 bytes) is planned on K9 from the operands as given, runs it
-    (its plain version here) on their row-major copies, and agrees with
-    the einsum."""
+    """A head form that K1 refuses (float16 at 64 rows; f32; a bf16 view
+    whose base is off 16 bytes) is planned on K9 from the operands as
+    given, runs it (its plain version here) on their row-major copies, and
+    agrees with the einsum."""
     rng = np.random.default_rng(9)
-    m = 64 if case == "rows" else 4
-    dt = torch.float32 if case == "f32" else torch.bfloat16
+    m = 64 if case == "f16" else 4
+    dt = {"f16": torch.float16, "f32": torch.float32}.get(case,
+                                                          torch.bfloat16)
     x = torch.from_numpy(rng.standard_normal((m, 1, 40, 96)).astype(
         np.float32)).to(dt)[..., :64]
     table = torch.from_numpy(rng.standard_normal((256, 40, 128)).astype(

@@ -413,6 +413,27 @@ def test_conformance_flags_an_f32_plan_under_int32():
                                             ("int8", "int8"))) == ["route"]
 
 
+@pytest.mark.parametrize("m,tb", [(17, False), (64, True), (100, True)])
+def test_conformance_passes_a_head_plan_on_the_tile(m, tb):
+    """A bf16 head form past 16 rows is planned on K1's head form
+    (``ops.head_route`` "tile"), and its plan has no error finding (the
+    tile splits no k: nothing to cover); a float16 one, which the route
+    refuses, is planned on K9, and the K1 plan forced onto it is a route
+    defect."""
+    k, n = (64, 256) if tb else (256, 64)
+    expr = PE.head_gemm_expr(40, m, k, n, transpose_b=tb)
+    nf, bundle, plan = _plan(expr, ("bfloat16", "bfloat16"))
+    assert plan == ("K1", False, tb, "head")
+    assert ops.head_route(40, m, k, n, "bfloat16", "bfloat16", tb) == "tile"
+    assert not _rules(conformance.plan_findings(plan, bundle, nf,
+                                                ("bfloat16", "bfloat16")))
+    nf, bundle, refused = _plan(expr, ("float16", "float16"))
+    assert refused[0] == "K9"
+    assert _rules(conformance.plan_findings(plan, bundle, nf,
+                                            ("float16", "float16"))) == \
+        ["route"]
+
+
 def _moa_exprs(n=64):
     """Every expression ``chip_smoke.py``'s ``[moa_path]`` runs, at a small
     size: (expr, dtypes)."""
