@@ -375,7 +375,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: entering state is folded from the chunks' aggregates rather than walked
 #: step by step, a last-bit difference that the gates decay.
 #: K9 bf16 (mul, add): bf16 products are exact in f32 on both sides; the
-#: sums differ in order only (moa_path's MOA_SUM_TOL).
+#: sums differ in order only (moa_path's MOA_SUM_TOL).  K9 float16: a
+#: float16 x bf16 product is exact in f32 too (11 + 8 significant bits).
 #: K1 float16 (the tile route's f16 wgmma): as bf16, each f16 x f16
 #: product is exact in f32 (11-bit significands make 22 bits) on both
 #: sides, so the sums differ in order and in the tensor cores' truncated
@@ -487,6 +488,9 @@ MLA_HEAD_ROWS = (1, 2, 4)
 #: decode batch of [mla_path]'s second timed step (past K1_DECODE_ROWS:
 #: its absorbed products on the head tile)
 MLA_TILE_ROWS, MLA_TILE_B = 64, 32
+#: the float16 head form on the head tile in [kernels]: (rows, product)
+F16_HEAD_CASES = ((MLA_TILE_ROWS, "q_lat"), (MLA_TILE_ROWS, "out"),
+                  (4, "q_lat"))
 MLA_WIDTHS = (96, 64)
 MLA_TRAIN_LAYERS, MLA_TRAIN_B, MLA_TRAIN_MB = 24, 2, 2
 #: paligemma-3b (vlm): the prefill is the reference's 4k budget, its 256
@@ -943,8 +947,13 @@ def _head_form_cases(torch, rec, gen):
     ``torch.einsum``'s).  Each is held to ``ref.head_gemm``, with its
     route, its CUDA-graph time, ``torch.einsum`` on the same views as the
     library row, its bound (bytes) and a rerun that must give the same
-    bits.  Then a form K1 refuses (float16 at 64 rows) lands on K9 and
-    matches the plain version."""
+    bits.  Then the float16 form (``F16_HEAD_CASES``: q_lat and out at
+    ``MLA_TILE_ROWS``, q_lat at 4 rows, on a float16 copy of the table)
+    on the head tile at every row count: one K1 launch and no K9 through
+    ``ops.head_matmul``, its CUDA-graph time beside ``torch.einsum``'s,
+    ``head_matmul``'s time by events.  Last a form K1 refuses (a float16
+    activation against the bf16 table at ``MLA_TILE_ROWS``) lands on K9,
+    one launch, and matches the plain version."""
     from repro_torch.kernels import ops, ref
     bf = torch.bfloat16
     randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
@@ -988,27 +997,60 @@ def _head_form_cases(torch, rec, gen):
                   lambda: ref.head_gemm(x, w, tb), library, flops, nbytes,
                   shape, extra)
             _rerun_equal(torch, call, f"K1 head {name} m={m}")
-    # a form K1 refuses: float16 (K1's head form is bf16), on K9 through
-    # its row-major copies
-    m, f16 = MLA_TILE_ROWS, torch.float16
-    x, w = randn(m, 40, 96).to(f16)[..., :64], table[..., :64].to(f16)
-    route = ops.head_route(40, m, 64, 256, f16, f16, True,
+    # float16 x float16 on the head tile (float16 maps, f16 wgmma) at
+    # every row count: K1 has no float16 decode-row kernel
+    f16 = torch.float16
+    table16 = table.to(f16)
+    for m, name in F16_HEAD_CASES:
+        tb = name == "q_lat"
+        x, w = (randn(m, 40, 96).to(f16)[..., :64], table16[..., :64]) \
+            if tb else (randn(m, 40, 256).to(f16), table16[..., 64:])
+        k, n = x.shape[-1], 256 if tb else 64
+        eq = "mhk,nhk->hmn" if tb else "mhk,khn->hmn"
+        shape = (f"K1 float16 head {name} m={m} h=40 k={k} n={n} "
+                 f"tb={int(tb)}")
+        route = ops.head_route(40, m, k, n, f16, f16, tb,
+                               ops.head_aligned(x, w))
+        require(route == "tile", f"{shape}: route {route}, not tile")
+        user = lambda: ops.head_matmul(x[:, None], w, transpose_b=tb,
+                                       out_dtype=torch.float32)
+        ops.reset_launches()
+        user()
+        torch.cuda.synchronize()
+        require(ops.LAUNCHES["K1"] == 1 and sum(ops.LAUNCHES.values()) == 1,
+                f"{shape}: head_matmul launches {ops.LAUNCHES}, not one K1")
+        call = lambda: ops._head_gemm(x, w, tb)
+        library = lambda: torch.einsum(eq, x, w)
+        extra = {"path": "head tile float16",
+                 "graph_ms": graph_ms(torch, call),
+                 "library_graph_ms": graph_ms(torch, library),
+                 "head_matmul_ms": time_ms(torch, user)}
+        _case(torch, rec, "K1", "float16", ("K1", "float16"), call,
+              lambda: ref.head_gemm(x, w, tb), library,
+              2.0 * m * 40 * n * k,
+              (x.numel() + w.numel()) * 2 + 40 * m * n * 4, shape, extra)
+        _rerun_equal(torch, call, f"K1 float16 head {name} m={m}")
+    # a form K1 refuses (a float16 activation against the bf16 table), on
+    # K9 through its row-major copies; no one PyTorch call takes the pair
+    m = MLA_TILE_ROWS
+    x, w = randn(m, 40, 96).to(f16)[..., :64], table[..., :64]
+    route = ops.head_route(40, m, 64, 256, f16, bf, True,
                            ops.head_aligned(x, w))
-    shape = f"K9 float16 head q_lat m={m} h=40 k=64 n=256 tb=1"
+    shape = f"K9 float16 x bfloat16 head q_lat m={m} h=40 k=64 n=256 tb=1"
     require(route == "K9", f"{shape}: route {route}, not K9")
-    ops.reset_launches()
     call = lambda: ops.head_matmul(x[:, None], w, transpose_b=True,
                                    out_dtype=torch.float32)
+    ops.reset_launches()
     call()
     torch.cuda.synchronize()
-    require(ops.LAUNCHES["K9"] == 1 and ops.LAUNCHES["K1"] == 0,
+    require(ops.LAUNCHES["K9"] == 1 and sum(ops.LAUNCHES.values()) == 1,
             f"{shape}: launches {ops.LAUNCHES}, not one K9")
-    _case(torch, rec, "K9", "float16", ("K9", "float16"),
-          lambda: call()[:, 0].transpose(0, 1),
-          lambda: ref.head_gemm(x, w, True),
-          lambda: torch.einsum("mhk,nhk->hmn", x, w), 2.0 * m * 40 * 256 * 64,
+    kern = lambda: call()[:, 0].transpose(0, 1)
+    _case(torch, rec, "K9", "float16", ("K9", "float16"), kern,
+          lambda: ref.head_gemm(x, w, True), None, 2.0 * m * 40 * 256 * 64,
           (x.numel() + w.numel()) * 2 + 40 * m * 256 * 4, shape,
           {"path": "K9"})
+    _rerun_equal(torch, kern, shape)
 
 
 def _expert_cases(torch, rec, gen):
@@ -4230,14 +4272,79 @@ def _int8_rows(torch, rec, E, ops, ref):
     return counts
 
 
-#: K9's integer accumulator in [derive_path]: the batched product (B
-#: stored transposed: no form of K1's), the Hadamard, the lone sum, the
-#: chain and minicpm3-4b's absorbed head products (40 heads, 1-4 rows) in
-#: int8 -> int32; one IMAD a term on the CUDA cores (64 INT32 lanes an SM
-#: where f32 has 128: half the 33.5 T FMA lane-instructions a second)
-#: beside the int8 bound
+#: K9's integer accumulator in [derive_path]: the Hadamard, the lone sum,
+#: the chain and minicpm3-4b's absorbed head products (40 heads, 1-4 rows)
+#: in int8 -> int32; one IMAD a term on the CUDA cores (64 INT32 lanes an
+#: SM where f32 has 128: half the 33.5 T FMA lane-instructions a second)
+#: beside the int8 bound.  The batched product (e = 16 stacks of 1024^3,
+#: B stored transposed) is K1's int8 tile (``_int8_stack_row``).
 INT32_E, INT32_N, INT32_BIG, INT32_CHAIN = 16, 1024, 8192, 512
 IMAD_PER_S = 16.75e12
+
+
+def _int8_stack_row(torch, rec, E, ops):
+    """The int8 stack with B transposed (e = 16 of 1024^3, x (e, m, k), w
+    stored (e, n, k)) through ``ops.apply`` (acc_dtype int32) on K1's int8
+    tile (TMA + wgmma s8, ``ops.expert_route`` "int8_tile"): once with the
+    launches counted from 0 (the path's: one K1, no K9), bit for bit its
+    plain version's exact sums, a rerun the same bits; timed by events and
+    in a CUDA graph beside its plain version, the tile's wrapper alone by
+    events (``ops._gemm_int8_tile``: apply's host path apart), its bound
+    (bytes) and K1's ``mma.sync`` int8 form on the same operands
+    (``ops._gemm_int8``, the same bits).  No PyTorch call computes it
+    (``torch.bmm`` takes no int8 on the card; ``torch._int_mm`` is 2-D).
+    Returns the path's launches."""
+    i8 = torch.int8
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    e, n = INT32_E, INT32_N
+    x, wt = (torch.randint(-128, 128, (e, n, n), generator=gen,
+                           device="cuda", dtype=i8) for _ in range(2))
+    expr = E.inner("add", "mul", E.arr("X", (e, n, n)),
+                   E.transpose(E.arr("W", (e, n, n)), (0, 2, 1)), batch=1)
+    call = lambda: ops.apply(expr, x, wt, acc_dtype="int32",
+                             out_dtype=torch.int32)
+    label = f"K1 int8 batched (B transposed) e={e} {n}^3 acc int32"
+    route = ops.expert_route(e, n, n, n, i8, i8, True, False, True)
+    require(route == "int8_tile", f"{label}: route {route}, not int8_tile")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = call()
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    require(ops.LAUNCHES["K1"] == 1 and sum(ops.LAUNCHES.values()) == 1
+            and out.dtype == torch.int32,
+            f"{label}: launches {ops.LAUNCHES}, not one K1 into int32")
+    form = lambda: ops._gemm_int8(x, wt, False, True)
+    plain = _plain(ops, call)
+    same = torch.equal(out, plain) and torch.equal(out, form())
+    del plain
+    _rerun_equal(torch, call, label)
+    ms, g_ms = time_ms(torch, call), graph_ms(torch, call)
+    plain_ms = time_ms(torch, lambda: _plain(ops, call), iters=2, warmup=1)
+    form_ms, form_g = time_ms(torch, form), graph_ms(torch, form)
+    # the tile's wrapper alone by events: apart from the graph time, what
+    # apply's host path adds to the call
+    tile_ms = time_ms(torch, lambda: ops._gemm_int8_tile(x, wt))
+    terms, nbytes = e * n ** 3, 2 * e * n * n + 4 * e * n * n
+    b_ms, b_by = bound(2.0 * terms, nbytes, "int8")
+    print(f"[derive_path] {label} path=int8 tile: bit for bit with the "
+          f"plain version and the int8 form: {same}; ms={ms:.4f} "
+          f"graph_ms={g_ms:.4f} tile_ms={tile_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} int8_form_ms="
+          f"{form_ms:.4f} int8_form_graph_ms={form_g:.4f} library_ms=None "
+          f"(torch.bmm takes no int8 on the card; torch._int_mm is 2-D) "
+          f"bound_ms={b_ms:.4f} ({b_by}; {g_ms and b_ms / g_ms:.1%} of it "
+          f"in the graph)", flush=True)
+    require(same, f"{label}: differs from its plain version or the int8 "
+            f"form")
+    rec["K1"][label] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                            graph_ms=g_ms, tile_ms=tile_ms,
+                            path="int8 tile",
+                            int8_form_ms=form_ms,
+                            int8_form_graph_ms=form_g)
+    del out, x, wt
+    return counts
 
 
 def _int32_k9_cases(torch, E, ops):
@@ -4250,15 +4357,6 @@ def _int32_k9_cases(torch, E, ops):
     apply = lambda expr, *a: (lambda: ops.apply(
         expr, *a, acc_dtype="int32", out_dtype=torch.int32))
     cases = []
-    e, n = INT32_E, INT32_N
-    x, wt = ints(e, n, n), ints(e, n, n)
-    batched = E.inner("add", "mul", E.arr("X", (e, n, n)),
-                      E.transpose(E.arr("W", (e, n, n)), (0, 2, 1)),
-                      batch=1)
-    cases.append((f"K9 int8 batched (B transposed) e={e} {n}^3 acc int32",
-                  apply(batched, x, wt), None,
-                  "torch.bmm takes no int8 on the card; torch._int_mm is 2-D",
-                  e * n ** 3, 2 * e * n * n + 4 * e * n * n))
     m = INT32_BIG
     ha, hb = ints(m, m), ints(m, m)
     cases.append((f"K9 int8 hadamard {m}^2 acc int32",
@@ -4346,7 +4444,9 @@ def phase_derive_path(torch, rec, applied):
     it); ``apply(verify=True)`` and ``verify="kernel"`` on every
     expression ``[moa_path]`` ran (zero error findings, the second call a
     cache hit, host µs); the ``verify_all`` sweep's H100 summary; K1's
-    int8 product and K9's int8 -> int32 forms (``_int32_k9_rows``).  Returns the launches of its driven paths."""
+    int8 product, the int8 stack on K1's int8 tile (``_int8_stack_row``)
+    and K9's int8 -> int32 forms (``_int32_k9_rows``).  Returns the
+    launches of its driven paths."""
     import numpy as np
     from repro_torch import analysis
     from repro_torch.analysis import verify_all
@@ -4524,6 +4624,7 @@ def phase_derive_path(torch, rec, applied):
 
     # 5. K1's int8 form, then K9's integer accumulator
     count(_int8_rows(torch, rec, E, ops, ref))
+    count(_int8_stack_row(torch, rec, E, ops))
     count(_int32_k9_rows(torch, rec, E, ops))
     print(f"[derive_path] phase wall {time.perf_counter() - phase_t0:.1f} s",
           flush=True)
@@ -7694,8 +7795,9 @@ def main() -> None:
                             launches=sum(by_path.values()),
                             launches_by_path=by_path, routes=routes,
                             shape=shape, **rec[kid][shape]))
-    require("head tile" in kernels[0]["routes"],
-            f"K1's routes {kernels[0]['routes']} lack the head tile")
+    for route in ("head tile", "head tile float16", "int8 tile"):
+        require(route in kernels[0]["routes"],
+                f"K1's routes {kernels[0]['routes']} lack the {route}")
     print(f"[smoke] wall {time.perf_counter() - START:.1f} s, the build "
           f"included", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
-"""Time K9's paths (``csrc/semiring.cu``) and the head form (K9 or K1's
-head tile, ``csrc/gemm.cu``) of two source trees on one card, in the
+"""Time K9's paths (``csrc/semiring.cu``), the head form in bf16 and
+float16 and the int8 stack with B transposed (K9, or K1's head tile and
+int8 tile, ``csrc/gemm.cu``) of two source trees on one card, in the
 order A B B A, so that a change to the kernel is read beside the build it
 changes and not across calls or hosts.
 
@@ -16,7 +17,11 @@ CUDA events.  Each case makes one launch, of K9 or of K1.  Beside them
 each side times the one PyTorch call that computes each function it can
 (``torch.kron``, ``torch.einsum``), the same in both trees.  The table
 gives every run's graph ms and the change over the two runs of each
-side.
+side.  A tree whose ``ops`` has the int8 tile also times, as a
+measurement beside no route, a 2-D int8 product of 4096^3 with B stored
+(n, k) on the int8 tile (a stack of one), on K1's ``mma.sync`` int8 form
+and by ``torch._int_mm(a, b.t())`` (cuBLASLt's own layout), each held to
+the others bit for bit.
 """
 from __future__ import annotations
 
@@ -62,6 +67,19 @@ bf = torch.bfloat16
 table = (rnd(256, 40, 128) * 256 ** -0.5).to(bf)
 q, ctx = rnd(64, 1, 40, 96).to(bf), rnd(64, 1, 40, 256).to(bf)
 qn, w_uk, w_uv = q[..., :64], table[..., :64], table[..., 64:]
+f16 = torch.float16
+table16 = table.to(f16)
+q16, ctx16 = q.to(f16), ctx.to(f16)
+qn16, w_uk16, w_uv16 = q16[..., :64], table16[..., :64], table16[..., 64:]
+qn16_4 = rnd(4, 1, 40, 96).to(f16)[..., :64]
+ie, i_n = 16, 1024
+i8x = torch.randint(-128, 128, (ie, i_n, i_n), generator=g, device="cuda",
+                    dtype=torch.int8)
+i8wt = torch.randint(-128, 128, (ie, i_n, i_n), generator=g, device="cuda",
+                     dtype=torch.int8)
+stack_bt = E.inner("add", "mul", E.arr("X", (ie, i_n, i_n)),
+                   E.transpose(E.arr("W", (ie, i_n, i_n)), (0, 2, 1)),
+                   batch=1)
 f32 = torch.float32
 cases = {
     "MAP kron (16,16,16) (x) (16,16,16)": lambda: ops.apply(
@@ -73,6 +91,15 @@ cases = {
         qn, w_uk, transpose_b=True, out_dtype=f32),
     "HEAD out m=64 (head_matmul)": lambda: ops.head_matmul(
         ctx, w_uv, out_dtype=f32),
+    "HEAD float16 q_lat m=64 (head_matmul)": lambda: ops.head_matmul(
+        qn16, w_uk16, transpose_b=True, out_dtype=f32),
+    "HEAD float16 out m=64 (head_matmul)": lambda: ops.head_matmul(
+        ctx16, w_uv16, out_dtype=f32),
+    "HEAD float16 q_lat m=4 (head_matmul)": lambda: ops.head_matmul(
+        qn16_4, w_uk16, transpose_b=True, out_dtype=f32),
+    "INT8 stack e=16 1024^3 B transposed (apply, acc int32)":
+        lambda: ops.apply(stack_bt, i8x, i8wt, acc_dtype="int32",
+                          out_dtype=torch.int32),
     "MAP kron 64x64 (x) 64x64": lambda: ops.ipophp(ka, kb, "kp"),
     "MAP Hadamard 8192^2": lambda: ops.hadamard(a, b),
     "REDUCE lone min axis 0 8192^2":
@@ -120,6 +147,12 @@ library = {
         "bshk,nhk->bshn", qn, w_uk),
     "HEAD out m=64 (head_matmul)": lambda: torch.einsum(
         "bshk,khn->bshn", ctx, w_uv),
+    "HEAD float16 q_lat m=64 (head_matmul)": lambda: torch.einsum(
+        "bshk,nhk->bshn", qn16, w_uk16),
+    "HEAD float16 out m=64 (head_matmul)": lambda: torch.einsum(
+        "bshk,khn->bshn", ctx16, w_uv16),
+    "HEAD float16 q_lat m=4 (head_matmul)": lambda: torch.einsum(
+        "bshk,nhk->bshn", qn16_4, w_uk16),
 }
 out = {}
 for label, fn in cases.items():
@@ -134,6 +167,28 @@ for label, fn in cases.items():
     if label in library:
         out[label]["library_graph_ms"] = graph_ms(library[label])
         out[label]["library_ms"] = events_ms(library[label])
+del i8x, i8wt
+# the 2-D int8 product on the int8 tile (a stack of one), beside K1's
+# mma.sync form and cuBLASLt's own layout: a measurement, no route
+if hasattr(ops, "_gemm_int8_tile"):
+    n2 = 4096
+    a2 = torch.randint(-128, 128, (n2, n2), generator=g, device="cuda",
+                       dtype=torch.int8)
+    bt2 = torch.randint(-128, 128, (n2, n2), generator=g, device="cuda",
+                        dtype=torch.int8)
+    measure = {
+        "int8 tile": lambda: ops._gemm_int8_tile(a2[None], bt2[None])[0],
+        "int8 form (mma.sync)": lambda: ops._gemm_int8(a2, bt2, False,
+                                                       True),
+        "torch._int_mm(a, b.t())": lambda: torch._int_mm(a2, bt2.t()),
+    }
+    outs = [fn() for fn in measure.values()]
+    same = all(torch.equal(outs[0], o) for o in outs[1:])
+    del outs
+    out["__measure__"] = {
+        "label": f"2-D int8 {n2}^3, B stored (n, k)", "bit_equal": same,
+        "rows": {k: {"graph_ms": graph_ms(fn), "ms": events_ms(fn)}
+                 for k, fn in measure.items()}}
 print(json.dumps(out))
 """
 
@@ -173,6 +228,8 @@ def main(argv=None) -> int:
     runs = [(k, _child(trees[k], "time")) for k in "ABBA"]
     print(f"[k9_ab] {smi}; graph ms (device time) per run, order A B B A")
     for label in runs[0][1]:
+        if label == "__measure__":
+            continue
         g = [r[label]["graph_ms"] for _, r in runs]
         a_mean, b_mean = (g[0] + g[3]) / 2, (g[1] + g[2]) / 2
         lib = [r[label].get("library_graph_ms") for _, r in runs]
@@ -187,6 +244,14 @@ def main(argv=None) -> int:
               f"{runs[3][1][label]['ms']:.4f}, B "
               f"{runs[1][1][label]['ms']:.4f} / "
               f"{runs[2][1][label]['ms']:.4f}{libs}")
+    for side, run in runs:
+        meas = run.get("__measure__")
+        if meas is None:
+            continue
+        rows = "; ".join(f"{k} graph {v['graph_ms']:.4f} events "
+                         f"{v['ms']:.4f}" for k, v in meas["rows"].items())
+        print(f"[k9_ab] {side} measure {meas['label']} (bit equal: "
+              f"{meas['bit_equal']}): {rows}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -285,8 +285,10 @@ def _k1_findings(plan, nf, dtypes, subject):
         route = ops.head_route(h, m, k, n, *dts, tb)
         e = h
     elif batched:
-        (e, m, k), (_, _, n) = shapes
-        route = ops.expert_route(e, m, k, n, *dts)
+        e, m, k, n = ops._expert_dims(*shapes, ta, tb)
+        route = ops.expert_route(e, m, k, n, *dts, True, ta, tb)
+        if route not in ops.APPLY_STACK_ROUTES:
+            route = f"{route} (not a route apply takes for a stack)"
     else:
         e = 1
         k, m = shapes[0] if ta else shapes[0][::-1]

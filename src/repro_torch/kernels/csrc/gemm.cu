@@ -24,7 +24,9 @@
 // casts to its out dtype.
 //
 // Operand types: A and B are each float32 or bfloat16, or both float16
-// (the tile route only, repro_gemm_tc's f16 flag).  In a training
+// (the tile route and the head form's tile only, the f16 flag of
+// repro_gemm_tc and repro_head_gemm_tc), or both int8 (into int32: the
+// int8 form and the int8 tile).  In a training
 // step the cotangent reaching the VJP products is f32 (the primal returns
 // f32; the cast to bf16 sits outside) while weights and activations are
 // bf16.
@@ -103,7 +105,11 @@
 //         heads.  The tile stays 128 rows high: at MLA's decode batches
 //         (m = 17-128) the rows past m are zeros that cost the tensor
 //         cores a few hundred cycles a tile, against a load and a store
-//         that bound it.
+//         that bound it.  float16 x float16 (repro_head_gemm_tc's f16
+//         flag) takes the same tile with float16 maps and f16 wgmma at
+//         every m, k <= F16_PROMOTE_K (no promotion): there is no float16
+//         decode-row kernel, and at m = 4 the tile is one 128-row tile a
+//         head whose 124 padding rows TMA fills with zeros.
 //   fma   f32 x f32, and the forms whose bf16 operand TMA cannot read (a
 //         stored row length not a multiple of 8 elements, a base not
 //         16-byte aligned, k = 0) but bf16 x bf16 without transpose_a:
@@ -116,6 +122,16 @@
 //         acc_dtype int32; 2-D with either operand transposed, or the
 //         expert form): mma.sync s8 x s8 -> s32, exact integer sums into
 //         an int32 C (namespace i8 below).
+//   int8 tile  a stack of int8 products with both operands K-major, x (e,
+//         m, k) times w stored (e, n, k) (repro_gemm_int8_tc; k % 16 == 0,
+//         16-byte bases): the expert form's persistent walk and rank-3
+//         maps on int8 (a stage is 128 k of the same 128-byte swizzled
+//         rows, so ring, barriers and descriptor steps are bf16's), wgmma
+//         m64nNk32 s8 x s8 -> s32 (8-bit wgmma takes K-major operands
+//         only, which this form already is), C int32 out through an int32
+//         map.  Exact: integer products and sums wrap past 2^31 as the
+//         reference's int32 accumulator does (emit_pallas at acc_dtype
+//         int32), and TMA's zero fill adds nothing at ragged edges.
 //
 // What bounds it on an H100: at prefill and training row counts the tile
 // and split paths are compute-bound (989 TFLOP/s bf16; the split path
@@ -134,7 +150,11 @@
 // TB/s): the launch, not the card, bounds it.  Past 16 rows its tile
 // route is bytes-bound too: q_lat at 64 rows reads 1.64 MB and writes 2.62
 // MB (0.0013 ms at 3.35 TB/s), in 80 tiles of one 64-deep stage each, so
-// what remains is a TMA load's and a store's latency a tile.
+// what remains is a TMA load's and a store's latency a tile.  The int8
+// tile is bytes-bound wherever its int32 output is wider than its inputs:
+// at e = 16 stacks of 1024^3 it reads 32 MB and writes 64 MB (0.0300 ms
+// at 3.35 TB/s) for 34 G integer operations (0.0174 ms at 1979 TOPS), so
+// its C leaves by TMA stores that drain under the next tile's products.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -896,14 +916,28 @@ __device__ __forceinline__ void bulk_wait_all() {
 }
 
 // wgmma's transpose bits mark an MN-major operand: A stored (K, M) (TA),
-// B stored (K, N) (not TB); F16: float16 operands, else bf16
-template <int BN, int TA, int TB, bool F16>
-__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t a,
+// B stored (K, N) (not TB); F16: float16 operands, else bf16.  An int32
+// accumulator takes int8 operands (s8 x s8 -> s32, k32 a step), both
+// K-major: 8-bit wgmma has no transpose bits.
+template <int BN, int TA, int TB, bool F16, typename Acc>
+__device__ __forceinline__ void wgmma_tile(Acc (&d)[BN / 2], uint64_t a,
                                            uint64_t b, int scale_d) {
-  if constexpr (BN == 256)
+  if constexpr (std::is_same_v<Acc, int32_t>) {
+    static_assert(TA == 0 && TB == 1 && !F16, "int8 wgmma: K-major only");
+    wgmma_s8<BN>(d, a, b, scale_d);
+  } else if constexpr (BN == 256) {
     wgmma_ss_t256<TA, 1 - TB, F16>(d, a, b, scale_d);
-  else
+  } else {
     wgmma_ss_t128<TA, 1 - TB, F16>(d, a, b, scale_d);
+  }
+}
+
+// a pair of accumulator entries as one 8-byte store
+__device__ __forceinline__ float2 pair2(float x, float y) {
+  return make_float2(x, y);
+}
+__device__ __forceinline__ int2 pair2(int32_t x, int32_t y) {
+  return make_int2(x, y);
 }
 
 // C = op(A) op(B), 128 x BN tiles over all of K, a persistent block
@@ -919,16 +953,22 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t a,
 // expert.  Three forms: the forward (bf16 x bf16, A (M, K), B (K, N)) and
 // its two VJP forms, dx = g w^T (A the split f32 g (M, K), B w stored (N,
 // K)) and dw = x^T g (A x stored (K, M), B the split g (K, N)).
-// F16: both operands float16 (2-D, unsplit): the same ring, swizzle and
-// warps, wgmma on f16.  PROMOTE: each 64-k stage's products go to a fresh
-// tile of registers, added into the accumulator with f32 adds (the split
-// route always; float16 past F16_PROMOTE_K).  HM: the head form, E = the
-// heads; A's and B's maps have the head as their middle coordinate (box
-// (c, head, row)), C's is the expert form's.
+// F16: both operands float16 (the 2-D form or the head form, unsplit):
+// the same ring, swizzle and warps, wgmma on f16.  PROMOTE: each 64-k
+// stage's products go to a fresh tile of registers, added into the
+// accumulator with f32 adds (the split route always; 2-D float16 past
+// F16_PROMOTE_K).  HM: the head form, E = the heads; A's and B's maps have
+// the head as their middle coordinate (box (c, head, row)), C's is the
+// expert form's.  I8: the int8 tile, the expert form's x w^T on int8
+// operands (both K-major, as 8-bit wgmma wants them): a stage is 128 k of
+// the same 128-byte rows (so the ring's bytes, the swizzle and the
+// descriptors' 32-byte k-steps are bf16's), wgmma s8 x s8 into int32
+// accumulators, C int32 through an int32 map.
 template <int BN, int TA, int TB, int PA, int PB, bool EX = false,
-          bool F16 = false, bool PROMOTE = (PA * PB > 1), bool HM = false>
+          bool F16 = false, bool PROMOTE = (PA * PB > 1), bool HM = false,
+          bool I8 = false>
 __global__ void __launch_bounds__(384, 1)
-gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
+gemm_tc(const __grid_constant__ TileMaps maps, void* __restrict__ Cv, int M,
         int N, int K, int tma_c, int n_fast, int E) {
   static_assert(!EX || (TA == 0 && TB == 0 && PA == 1 && PB == 1) ||
                     (TA == 0 && TB == 1 && PA == 1 && PB == 1) ||
@@ -936,13 +976,21 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
                     (TA == 1 && TB == 0 && PA == 1 && PB == 3),
                 "the expert and head forms: x w, x w^T, g w^T (g split), "
                 "x^T g (g split)");
-  static_assert(!HM || (EX && TA == 0 && PA == 1 && PB == 1),
-                "the head form: x w or x w^T, bf16");
-  static_assert(!F16 || (!EX && PA == 1 && PB == 1),
-                "float16 takes the 2-D unsplit form only");
+  static_assert(!HM || (EX && TA == 0 && PA == 1 && PB == 1 && !PROMOTE),
+                "the head form: x w or x w^T, unsplit, bf16 or float16");
+  static_assert(!F16 || (PA == 1 && PB == 1 && (!EX || HM)),
+                "float16 takes the 2-D or the head form, unsplit");
+  static_assert(!I8 || (EX && !HM && !F16 && !PROMOTE && TA == 0 &&
+                        TB == 1 && PA == 1 && PB == 1),
+                "int8 takes the stacked x w^T form, both operands K-major");
   static_assert(!PROMOTE || BN == 128, "the stage tiles fit at BN = 128");
   using L = TileSmem<BN, PA, PB>;
+  using Acc = std::conditional_t<I8, int32_t, float>;
+  using Acc2 = decltype(pair2(Acc(), Acc()));
+  Acc* const C = static_cast<Acc*>(Cv);
   constexpr int S = L::STAGES;
+  // k elements a stage: a 128-byte row of bf16 / f16, or of int8
+  constexpr int KS = I8 ? 2 * TBK : TBK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = align1024(smem_raw);
   uint8_t* cstage = ring + S * L::STAGE;          // 2 x CST
@@ -954,7 +1002,7 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
     return ring + s * L::STAGE + PA * L::A + h * L::B;
   };
 
-  const int KT = (K + TBK - 1) / TBK;
+  const int KT = (K + KS - 1) / KS;
   const int mt = (M + TBM - 1) / TBM, nt = (N + BN - 1) / BN;
   const int tiles = EX ? E * mt * nt : mt * nt;
   // tile -> (e, m0, n0): the experts in order; within one, the larger
@@ -1005,7 +1053,7 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
         int e, m0, n0;
         origin(tile, e, m0, n0);
         for (int kt = 0; kt < KT; ++kt, ++it) {
-          const int s = it % S, k0 = kt * TBK;
+          const int s = it % S, k0 = kt * KS;
           mbar_wait(empty + s, ((it / S) & 1) ^ 1);
           mbar_expect_tx(full + s, L::STAGE);
 #pragma unroll
@@ -1058,10 +1106,10 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
     // k (the vocab), so there (and for float16 past F16_PROMOTE_K) each
     // stage's products go to a fresh tile of registers, added into `acc`
     // in f32 while the next stage runs.
-    float acc[BN / 2];
+    Acc acc[BN / 2];
     int it0 = 0;                  // the ring's k-steps before this tile
     // stage it0 + kt's products into d
-    auto issue = [&](int kt, float (&d)[BN / 2]) {
+    auto issue = [&](int kt, Acc (&d)[BN / 2]) {
       const int it = it0 + kt, s = it % S;
       mbar_wait(full + s, (it / S) & 1);
       wgmma_fence();
@@ -1085,7 +1133,7 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
       int e, m0, n0;
       origin(tile, e, m0, n0);
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) acc[i] = Acc(0);
       if constexpr (!PROMOTE) {
         for (int kt = 0; kt < KT; ++kt) {
           issue(kt, acc);
@@ -1096,9 +1144,9 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
         fence_regs(acc);
         release(KT - 1);
       } else {
-        float t0[BN / 2], t1[BN / 2];
+        Acc t0[BN / 2], t1[BN / 2];
         // stage kt's products are in `t`: add them, release the stage
-        auto fold = [&](int kt, float (&t)[BN / 2]) {
+        auto fold = [&](int kt, Acc (&t)[BN / 2]) {
           fence_regs(t);
 #pragma unroll
           for (int i = 0; i < BN / 2; ++i) acc[i] += t[i];
@@ -1131,11 +1179,12 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
         if (m0 + wg * 64 >= M) continue;
       }
 
-      // f32 C: thread (warp, lane) holds rows 16 warp + lane / 4 (+ 8),
-      // columns 8 j + 2 (lane % 4) (+ 1).  With tma_c, 64 columns at a
-      // time go through the warpgroup's staging buffer and out by TMA
-      // (which clips the ragged edge), so the stores drain while the next
-      // tile's products run; else they are stored from registers, masked.
+      // C (f32, or int32 from the int8 tile, in the same layout): thread
+      // (warp, lane) holds rows 16 warp + lane / 4 (+ 8), columns 8 j + 2
+      // (lane % 4) (+ 1).  With tma_c, 64 columns at a time go through
+      // the warpgroup's staging buffer and out by TMA (which clips the
+      // ragged edge), so the stores drain while the next tile's products
+      // run; else they are stored from registers, masked.
       if (tma_c) {
         uint8_t* cw = cstage + wg * L::CST;
 #pragma unroll
@@ -1150,11 +1199,11 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
               const int rr = warp * 16 + lane / 4 + 8 * h;
               const int cl = 8 * jj + 2 * (lane % 4);      // < CCOLS
               const int cb = cl % 32;
-              float* dst = reinterpret_cast<float*>(
+              Acc* dst = reinterpret_cast<Acc*>(
                   cw + (cl / 32) * 8192 + rr * 128 +
                   (((cb / 4) ^ (rr % 8)) << 4) + (cb % 4) * 4);
-              *reinterpret_cast<float2*>(dst) =
-                  make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+              *reinterpret_cast<Acc2*>(dst) =
+                  pair2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
             }
           }
           fence_proxy_async();
@@ -1179,13 +1228,13 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
         for (int h = 0; h < 2; ++h) {
           const int r = r0 + 8 * h;
           if (r >= M) continue;
-          float* row = C + ((size_t)e * M + r) * N;
+          Acc* row = C + ((size_t)e * M + r) * N;
 #pragma unroll
           for (int j = 0; j < BN / 8; ++j) {
             const int c = n0 + 8 * j + 2 * (lane % 4);
-            const float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
+            const Acc x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
             if (pairs && c + 1 < N) {
-              *reinterpret_cast<float2*>(row + c) = make_float2(x0, x1);
+              *reinterpret_cast<Acc2*>(row + c) = pair2(x0, x1);
             } else {
               if (c < N) row[c] = x0;
               if (c + 1 < N) row[c + 1] = x1;
@@ -1199,11 +1248,12 @@ gemm_tc(const __grid_constant__ TileMaps maps, float* __restrict__ C, int M,
 }
 
 template <int BN, int TA, int TB, int PA, int PB, bool EX = false,
-          bool F16 = false, bool PROMOTE = (PA * PB > 1), bool HM = false>
-int launch_tile_t(const TileMaps& maps, float* c, int m, int n, int k,
+          bool F16 = false, bool PROMOTE = (PA * PB > 1), bool HM = false,
+          bool I8 = false>
+int launch_tile_t(const TileMaps& maps, void* c, int m, int n, int k,
                   int tma_c, int n_fast, cudaStream_t s, int e = 1) {
   constexpr size_t smem = TileSmem<BN, PA, PB>::BYTES;
-  auto kern = gemm_tc<BN, TA, TB, PA, PB, EX, F16, PROMOTE, HM>;
+  auto kern = gemm_tc<BN, TA, TB, PA, PB, EX, F16, PROMOTE, HM, I8>;
   static bool sized = false;               // once a kernel (host time)
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1253,6 +1303,14 @@ static inline int encode_out_map(CUtensorMap* map, void* base, int m,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// BN of the tiles over e (m, n) outputs (a 2-D product is e = 1): 256
+// where the 256-wide tiles fill the SMs, else 128
+static inline int tile_bn(int e, int m, int n) {
+  const long long tiles256 =
+      (long long)e * ((m + TBM - 1) / TBM) * ((n + 255) / 256);
+  return tiles256 >= sm_count() ? 256 : 128;
+}
+
 // The tile path; `a[1..2]` / `b[1..2]` the mid and lo parts of a split
 // operand (null when it is bf16); a_ld / b_ld the stored rows' pitch; f16:
 // both operands float16 (none split).  BN = 256 where its tiles fill the
@@ -1265,10 +1323,7 @@ int launch_tile(const void* const a[3], const void* const b[3], float* c,
   if (f16 && (pa != 1 || pb != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool promote = f16 && k > F16_PROMOTE_K;
-  const long long tiles256 =
-      (long long)((m + TBM - 1) / TBM) * ((n + 255) / 256);
-  const int bn =
-      pa == 1 && pb == 1 && !promote && tiles256 >= sm_count() ? 256 : 128;
+  const int bn = pa == 1 && pb == 1 && !promote ? tile_bn(1, m, n) : 128;
   TileMaps maps;
   int err = 0;
   for (int h = 0; h < pa && err == 0; ++h)
@@ -1303,14 +1358,19 @@ int launch_tile(const void* const a[3], const void* const b[3], float* c,
                                       n_fast, s);
 }
 
+// The element types of the rank-3 maps: 16-bit operands, int8 operands,
+// and the 4-byte outputs
+enum class Elem { bf16, f16, s8, f32, s32 };
+
 // The rank-3 map of E (rows, cols) matrices whose rows lie row_st
 // elements apart and whose matrices lie mat_st apart, the columns
-// contiguous (bf16 operands in boxes of box_rows x 64 columns, 128-byte
-// swizzled; the f32 output in boxes of 64 rows x 32 columns, swizzled as
-// the staging buffer is written): what lies past a matrix's rows or
-// columns reads as zeros (or is not stored), whatever the next matrix or
-// the view's other columns hold.  The dimensions go in stride order:
-// (cols, rows, E), box (c, r, e), where the matrices are stacked (mid
+// contiguous (operands in boxes of box_rows rows x 128 bytes, 64 bf16 or
+// f16 or 128 int8, 128-byte swizzled; the f32 or int32 output in boxes of
+// 64 rows x 32 columns, swizzled as the staging buffer is written): what
+// lies past a matrix's rows or columns reads as zeros (or is not stored),
+// whatever the next matrix or the view's other columns hold.  The
+// dimensions go in stride order: (cols, rows, E), box (c, r, e), where
+// the matrices are stacked (mid
 // false, the expert form); (cols, E, rows), box (c, e, r), where the
 // matrix axis lies between the two (mid, the head form's head-middle
 // views: a (m, h, k) activation, a (k, h, n) or (n, h, k) slice of a
@@ -1319,11 +1379,12 @@ int launch_tile(const void* const a[3], const void* const b[3], float* c,
 static inline int encode_rank3_map(CUtensorMap* map, const void* base,
                                    int E, int rows, int cols,
                                    long long row_st, long long mat_st,
-                                   int box_rows, bool out, bool mid) {
+                                   int box_rows, Elem el, bool mid) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t es = out ? 4 : 2;
-  const cuuint32_t inner = out ? 32u : 64u;
+  const bool out = el == Elem::f32 || el == Elem::s32;
+  const cuuint64_t es = out ? 4 : el == Elem::s8 ? 1 : 2;
+  const cuuint32_t inner = (cuuint32_t)(128 / es);  // one swizzled row
   const cuuint64_t dims[3] = {(cuuint64_t)cols,
                               (cuuint64_t)(mid ? E : rows),
                               (cuuint64_t)(mid ? rows : E)};
@@ -1332,13 +1393,17 @@ static inline int encode_rank3_map(CUtensorMap* map, const void* base,
   const cuuint32_t box[3] = {inner, mid ? 1u : (cuuint32_t)box_rows,
                              mid ? (cuuint32_t)box_rows : 1u};
   const cuuint32_t estr[3] = {1, 1, 1};
+  const CUtensorMapDataType type =
+      el == Elem::f32   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : el == Elem::s32 ? CU_TENSOR_MAP_DATA_TYPE_INT32
+      : el == Elem::s8  ? CU_TENSOR_MAP_DATA_TYPE_UINT8   // bytes as stored
+      : el == Elem::f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const CUresult r = fn(
-      map, out ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      3, const_cast<void*>(base), dims, strides, box, estr,
+      map, type, 3, const_cast<void*>(base), dims, strides, box, estr,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      !out && (cols * 2) % 128 == 0 ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
-                                    : CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      !out && (cols * es) % 128 == 0 ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
+                                     : CU_TENSOR_MAP_L2_PROMOTION_NONE,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1346,9 +1411,18 @@ static inline int encode_rank3_map(CUtensorMap* map, const void* base,
 // E row-major (rows, cols) matrices one after another (the expert form)
 static inline int encode_expert_map(CUtensorMap* map, const void* base,
                                     int E, int rows, int cols, int box_rows,
-                                    bool out) {
+                                    Elem el) {
   return encode_rank3_map(map, base, E, rows, cols, cols,
-                          (long long)rows * cols, box_rows, out, false);
+                          (long long)rows * cols, box_rows, el, false);
+}
+
+// C's rank-3 map over e row-major (m, n) outputs of `el` (f32 or s32),
+// where TMA can store the rows (n a multiple of 4, a 16-byte base;
+// *tma_c says so); else the epilogue stores them itself
+static inline int encode_stack_out(TileMaps& maps, void* c, int e, int m,
+                                   int n, Elem el, int* tma_c) {
+  *tma_c = n % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  return *tma_c ? encode_expert_map(&maps.c, c, e, m, n, 64, el) : 0;
 }
 
 // The expert forms on the tile path, c (E, m, n) f32 = op(a) op(b) per
@@ -1364,20 +1438,17 @@ int launch_tile_expert(const void* const a[3], const void* const b[3],
   const bool dx = pa == 3 && pb == 1 && !ta && tb;
   const bool dw = pa == 1 && pb == 3 && ta && !tb;
   if (!(fwd || dx || dw)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles256 =
-      (long long)e * ((m + TBM - 1) / TBM) * ((n + 255) / 256);
-  const int bn = fwd && tiles256 >= sm_count() ? 256 : 128;
+  const int bn = fwd ? tile_bn(e, m, n) : 128;
   TileMaps maps;
   int err = 0;
   for (int h = 0; h < pa && err == 0; ++h)
-    err = ta ? encode_expert_map(&maps.a[h], a[h], e, k, m, 64, false)
-             : encode_expert_map(&maps.a[h], a[h], e, m, k, TBM, false);
+    err = ta ? encode_expert_map(&maps.a[h], a[h], e, k, m, 64, Elem::bf16)
+             : encode_expert_map(&maps.a[h], a[h], e, m, k, TBM, Elem::bf16);
   for (int h = 0; h < pb && err == 0; ++h)
-    err = tb ? encode_expert_map(&maps.b[h], b[h], e, n, k, bn, false)
-             : encode_expert_map(&maps.b[h], b[h], e, k, n, 64, false);
-  const int tma_c = n % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
-  if (err == 0 && tma_c)
-    err = encode_expert_map(&maps.c, c, e, m, n, 64, true);
+    err = tb ? encode_expert_map(&maps.b[h], b[h], e, n, k, bn, Elem::bf16)
+             : encode_expert_map(&maps.b[h], b[h], e, k, n, 64, Elem::bf16);
+  int tma_c = 0;
+  if (err == 0) err = encode_stack_out(maps, c, e, m, n, Elem::f32, &tma_c);
   if (err != 0) return err;
   const int n_fast = (long long)m * pa > (long long)n * pb;   // A larger
   if (dx)
@@ -1393,42 +1464,76 @@ int launch_tile_expert(const void* const a[3], const void* const b[3],
                                               n_fast, s, e);
 }
 
-// The head form on the tile path, c (h, m, n) f32 = x[:, e] w[:, e] per
-// head e: x (m, h, k) bf16, rows x_row and heads x_head elements apart; w
-// (k, h, n), or (n, h, k) with tb, rows (its first axis) w_row and heads
-// w_head apart (BN = 256 where its tiles fill the SMs).  Every stride is
-// that of a real axis: the caller gives an axis of one element the stride
-// its contiguous copy would have.
-int launch_tile_head(const void* x, const void* w, float* c, int h, int m,
-                     int n, int k, int tb, long long x_row, long long x_head,
-                     long long w_row, long long w_head, cudaStream_t s) {
-  const long long tiles256 =
-      (long long)h * ((m + TBM - 1) / TBM) * ((n + 255) / 256);
-  const int bn = tiles256 >= sm_count() ? 256 : 128;
-  TileMaps maps;
-  int err = encode_rank3_map(&maps.a[0], x, h, m, k, x_row, x_head, TBM,
-                             false, true);
-  if (err == 0)
-    err = tb ? encode_rank3_map(&maps.b[0], w, h, n, k, w_row, w_head, bn,
-                                false, true)
-             : encode_rank3_map(&maps.b[0], w, h, k, n, w_row, w_head, 64,
-                                false, true);
-  const int tma_c = n % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
-  if (err == 0 && tma_c)
-    err = encode_expert_map(&maps.c, c, h, m, n, 64, true);
-  if (err != 0) return err;
-  const int n_fast = m > n;                      // A larger
+template <bool F16>
+int launch_head_t(int tb, int bn, const TileMaps& maps, float* c, int m,
+                  int n, int k, int tma_c, int n_fast, cudaStream_t s, int h) {
   if (tb && bn == 256)
-    return launch_tile_t<256, 0, 1, 1, 1, true, false, false, true>(
+    return launch_tile_t<256, 0, 1, 1, 1, true, F16, false, true>(
         maps, c, m, n, k, tma_c, n_fast, s, h);
   if (tb)
-    return launch_tile_t<128, 0, 1, 1, 1, true, false, false, true>(
+    return launch_tile_t<128, 0, 1, 1, 1, true, F16, false, true>(
         maps, c, m, n, k, tma_c, n_fast, s, h);
   if (bn == 256)
-    return launch_tile_t<256, 0, 0, 1, 1, true, false, false, true>(
+    return launch_tile_t<256, 0, 0, 1, 1, true, F16, false, true>(
         maps, c, m, n, k, tma_c, n_fast, s, h);
-  return launch_tile_t<128, 0, 0, 1, 1, true, false, false, true>(
+  return launch_tile_t<128, 0, 0, 1, 1, true, F16, false, true>(
       maps, c, m, n, k, tma_c, n_fast, s, h);
+}
+
+// The head form on the tile path, c (h, m, n) f32 = x[:, e] w[:, e] per
+// head e: x (m, h, k) bf16 (f16: both operands float16), rows x_row and
+// heads x_head elements apart; w (k, h, n), or (n, h, k) with tb, rows
+// (its first axis) w_row and heads w_head apart (BN = 256 where its tiles
+// fill the SMs).  Every stride is that of a real axis: the caller gives
+// an axis of one element the stride its contiguous copy would have.
+// float16 takes no promotion: k is at most F16_PROMOTE_K.
+int launch_tile_head(const void* x, const void* w, float* c, int h, int m,
+                     int n, int k, int tb, long long x_row, long long x_head,
+                     long long w_row, long long w_head, int f16,
+                     cudaStream_t s) {
+  if (f16 && k > F16_PROMOTE_K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Elem el = f16 ? Elem::f16 : Elem::bf16;
+  const int bn = tile_bn(h, m, n);
+  TileMaps maps;
+  int err = encode_rank3_map(&maps.a[0], x, h, m, k, x_row, x_head, TBM, el,
+                             true);
+  if (err == 0)
+    err = tb ? encode_rank3_map(&maps.b[0], w, h, n, k, w_row, w_head, bn,
+                                el, true)
+             : encode_rank3_map(&maps.b[0], w, h, k, n, w_row, w_head, 64,
+                                el, true);
+  int tma_c = 0;
+  if (err == 0) err = encode_stack_out(maps, c, h, m, n, Elem::f32, &tma_c);
+  if (err != 0) return err;
+  const int n_fast = m > n;                      // A larger
+  return f16 ? launch_head_t<true>(tb, bn, maps, c, m, n, k, tma_c, n_fast,
+                                   s, h)
+             : launch_head_t<false>(tb, bn, maps, c, m, n, k, tma_c, n_fast,
+                                    s, h);
+}
+
+// The int8 tile, c (e, m, n) int32 = a[e] b[e]^T: a (e, m, k) and b (e, n,
+// k) int8, both K-major in their stored layout (8-bit wgmma reads no
+// other), k a multiple of 16 (TMA's 16-byte rows), bases 16-byte aligned;
+// the expert form's persistent walk and rank-3 maps, BN = 256 where its
+// tiles fill the SMs.  Exact: every product and sum is an integer, and
+// TMA's zero fill past a ragged edge adds nothing.
+int launch_tile_int8(const void* a, const void* b, int32_t* c, int e, int m,
+                     int n, int k, cudaStream_t s) {
+  const int bn = tile_bn(e, m, n);
+  TileMaps maps;
+  int err = encode_expert_map(&maps.a[0], a, e, m, k, TBM, Elem::s8);
+  if (err == 0) err = encode_expert_map(&maps.b[0], b, e, n, k, bn, Elem::s8);
+  int tma_c = 0;
+  if (err == 0) err = encode_stack_out(maps, c, e, m, n, Elem::s32, &tma_c);
+  if (err != 0) return err;
+  const int n_fast = m > n;                      // A larger
+  if (bn == 256)
+    return launch_tile_t<256, 0, 1, 1, 1, true, false, false, false, true>(
+        maps, c, m, n, k, tma_c, n_fast, s, e);
+  return launch_tile_t<128, 0, 1, 1, 1, true, false, false, false, true>(
+      maps, c, m, n, k, tma_c, n_fast, s, e);
 }
 
 // g = hi + mid + lo + r: hi = bf16(g), mid = bf16(g - hi), lo = bf16(g -
@@ -2008,23 +2113,25 @@ extern "C" int repro_head_gemm(const void* x, const void* w, void* c,
 }
 
 // The head form's tile route: x (m, h, k) times w (k, h, n), or (n, h, k)
-// with transpose_b, bf16, into c (h, m, n) f32, strides as repro_head_gemm
-// takes them (of real axes: an axis of one element is given the stride
-// of its contiguous copy), each a positive multiple of 8 elements, bases
-// 16-byte aligned, k and (without transpose_b) n multiples of 8.
+// with transpose_b, bf16, or (f16 = 1) both float16 with k at most
+// F16_PROMOTE_K, into c (h, m, n) f32, strides as repro_head_gemm takes
+// them (of real axes: an axis of one element is given the stride of its
+// contiguous copy), each a positive multiple of 8 elements, bases 16-byte
+// aligned, k and (without transpose_b) n multiples of 8.
 extern "C" int repro_head_gemm_tc(const void* x, const void* w, void* c,
                                   int h, int m, int n, int k,
                                   int transpose_b, long long x_row,
                                   long long x_head, long long w_row,
-                                  long long w_head, void* stream) {
+                                  long long w_head, int f16, void* stream) {
   if (h < 1 || m < 1 || n < 1 || k < 8 || k % 8 != 0 ||
       (!transpose_b && n % 8 != 0) || x_row <= 0 || x_head <= 0 ||
       w_row <= 0 || w_head <= 0 || (x_row | x_head | w_row | w_head) % 8 ||
+      (f16 != 0 && f16 != 1) ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return tc::launch_tile_head(x, w, static_cast<float*>(c), h, m, n, k,
-                              transpose_b, x_row, x_head, w_row, w_head,
+                              transpose_b, x_row, x_head, w_row, w_head, f16,
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -2064,6 +2171,21 @@ extern "C" int repro_split_bf16(const void* g, void* hi, void* mid, void* lo,
       static_cast<__nv_bfloat16*>(mid), static_cast<__nv_bfloat16*>(lo), rows,
       cols, pitch);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The int8 tile: a (e, m, k) times b (e, n, k) read as its transpose,
+// int8, into c (e, m, n) int32 (e = 1: one 2-D product), each stack's
+// matrices stored one after another; k a multiple of 16 and every base
+// 16-byte aligned.  Exact integer products and sums (wrapping past 2^31).
+extern "C" int repro_gemm_int8_tc(const void* a, const void* b, void* c,
+                                  int e, int m, int n, int k, void* stream) {
+  if (e < 1 || m < 1 || n < 1 || k < 16 || k % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(b) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(c) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tc::launch_tile_int8(a, b, static_cast<int32_t*>(c), e, m, n, k,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // The int8 form: a (e, m, k), or (e, k, m) with transpose_a, times b (e, k,

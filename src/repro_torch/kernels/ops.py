@@ -59,7 +59,9 @@ and for every f32 x f32 product, the exact-f32 FMA kernel (tiles sized by
 the width, k split over :func:`fma_splits` blocks where the tiles do not
 fill the card, a row form at most 16 rows), or ``gemm_bf16``; int8 x int8
 takes its int8 form (``mma.sync`` s8 x s8 into exact int32 sums, the
-route of ``apply(..., acc_dtype="int32")``).  K4's bf16 tensor-core form
+route of ``apply(..., acc_dtype="int32")``), and an int8 stack with both
+operands K-major its int8 tile (TMA + wgmma s8 x s8 into exact int32
+sums, :func:`expert_route`'s ``"int8_tile"``).  K4's bf16 tensor-core form
 splits each key tile's row stream over :func:`dkv_splits` blocks.  Either
 counts one launch a call.
 
@@ -81,9 +83,10 @@ pipeline): the expression is psi-reduced to its normal form
 the ``H100`` table by default), and run.  A (mul, add) normal form that is
 one 2-D product of stored operands goes to K1 with its transpose flags,
 a stack of them over a shared leading (expert) axis to K1's expert form
-where :func:`expert_route` allows (aligned bf16), and a stack over a head
-axis in the middle of both operands (``head_gemm_expr``) to K1's head
-form where :func:`head_route` allows, reading both operands through
+where :func:`expert_route` allows (aligned bf16, or int8 of any
+transpose), and a stack over a head axis in the middle of both operands
+(``head_gemm_expr``) to K1's head form where :func:`head_route` allows
+(bf16, or two float16 operands on the tile), reading both operands through
 their strides: the decode rows at most 16 rows, else the tile, whose
 rank-3 tensor maps take the views' strides in stride order (inner, head,
 row), so no operand is copied, k is not split and one launch does all
@@ -123,13 +126,14 @@ _SIGNATURES = {
     "repro_gemm": ("gemm", [_P] * 4 + [_C] * 11),
     "repro_gemm_tc": ("gemm", [_P] * 7 + [_C] * 8),
     "repro_gemm_int8": ("gemm", [_P] * 3 + [_C] * 6),
+    "repro_gemm_int8_tc": ("gemm", [_P] * 3 + [_C] * 4),
     "repro_gemv": ("gemm", [_P] * 4 + [_C] * 5),
     "repro_expert_gemm": ("gemm", [_P] * 4 + [_C] * 6),
     "repro_expert_gemm_split": ("gemm", [_P] * 7 + [_C] * 6),
     "repro_head_gemm": ("gemm", [_P] * 4 + [_C] * 6
                         + [ctypes.c_longlong] * 4),
     "repro_head_gemm_tc": ("gemm", [_P] * 3 + [_C] * 5
-                           + [ctypes.c_longlong] * 4),
+                           + [ctypes.c_longlong] * 4 + [_C]),
     "repro_split_bf16": ("gemm", [_P] * 4 + [ctypes.c_longlong, _C, _C]),
     "repro_flash_fwd": ("flash_fwd", [_P] * 6 + [_C] * 7 + [_F] + [_C] * 4),
     "repro_flash_dq": ("flash_bwd", [_P] * 8 + [_C] * 7 + [_F] + [_C] * 4),
@@ -255,8 +259,16 @@ K1_GEMV_UNIT = 32
 SM_COUNT = dict(H100.mesh_axes)["sm"]
 
 
-#: K1's routes (``gemm_route``; the expert and head forms take some of them)
-K1_ROUTES = ("tile", "split", "gemv", "fma", "wmma", "int8")
+#: K1's routes (``gemm_route``; the expert and head forms take some of
+#: them; ``"int8_tile"`` is the int8 stacks' TMA + wgmma tile,
+#: :func:`expert_route`)
+K1_ROUTES = ("tile", "split", "gemv", "fma", "wmma", "int8", "int8_tile")
+#: the most k the float16 tile sums without promoting a stage (``gemm.cu``'s
+#: ``F16_PROMOTE_K``); the head form's float16 tile takes no more
+F16_PROMOTE_K = 8192
+#: the int8 tile's k granule: each K-major int8 row a multiple of 16 bytes,
+#: as TMA reads it
+INT8_TILE_K = 16
 
 
 @functools.lru_cache(maxsize=4096)
@@ -286,11 +298,12 @@ def gemm_route(m: int, n: int, k: int, a_dtype, b_dtype,
       tile path;
     - ``"int8"``: int8 x int8, the int8 form (``gemm_int8``: mma.sync
       s8 x s8 into exact int32 sums, any shape and transposes); an int8
-      operand takes no other route of K1, and no other operand this one.
-      Its accumulator is int32: ``apply`` refuses int8 operands under any
-      other ``acc_dtype`` (``_plan``), and sends the int8 forms K1 does
-      not take (the head form, every K9 path) to K9's integer
-      accumulator.
+      operand takes no other route of K1's 2-D products, and no other
+      operand this one.  Its accumulator is int32: ``apply`` refuses int8
+      operands under any other ``acc_dtype`` (``_plan``), and sends the
+      int8 forms K1 does not take (the head form, every K9 path) to K9's
+      integer accumulator.  A stack of int8 products with both operands
+      K-major takes the int8 tile where :func:`expert_route` gives it.
 
     A float16 operand takes the tile route or none: a product K1 does not
     take (:func:`f16_route` ``"K9"``, or float16 beside another dtype)
@@ -469,6 +482,30 @@ def _gemm_int8(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
     _launch("repro_gemm_int8", a.data_ptr(), b.data_ptr(), out.data_ptr(), e,
             m, n, k, int(transpose_a), int(transpose_b))
     LAUNCHES["K1"] += 1
+    return out
+
+
+def _gemm_int8_tile(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """Launch K1's int8 tile (TMA + wgmma s8 x s8 into exact int32) on a
+    stack ``a (e, m, k)`` times ``bt (e, n, k)`` read as its transpose:
+    both operands K-major, contiguous int8, ``k`` a multiple of
+    ``INT8_TILE_K`` and 16-byte bases; returns the int32 ``(e, m, n)``
+    (wrapping past 2^31)."""
+    if a.dtype != torch.int8 or bt.dtype != torch.int8 or a.dim() != 3 or \
+            bt.dim() != 3 or not (a.is_contiguous() and bt.is_contiguous()):
+        raise TypeError("K1's int8 tile takes contiguous int8 stacks")
+    e, m, k = a.shape
+    n = bt.shape[1]
+    if bt.shape[0] != e or bt.shape[2] != k or k % INT8_TILE_K or \
+            a.data_ptr() % 16 or bt.data_ptr() % 16:
+        raise ValueError(f"K1's int8 tile takes (e, m, k) x (e, n, k) with "
+                         f"k % {INT8_TILE_K} == 0 and 16-byte bases; got "
+                         f"{tuple(a.shape)} x {tuple(bt.shape)}")
+    out = torch.empty((e, m, n), device=a.device, dtype=torch.int32)
+    if out.numel():
+        _launch("repro_gemm_int8_tc", a.data_ptr(), bt.data_ptr(),
+                out.data_ptr(), e, m, n, k)
+        LAUNCHES["K1"] += 1
     return out
 
 
@@ -778,17 +815,21 @@ def expert_route(e: int, cap: int, d: int, f: int, x_dtype, w_dtype,
       the 2-D route's row pitch, so its rows too must be a multiple of 8
       elements; never ``"gemv"``).
 
-    int8 x int8 with no transpose takes the int8 form (``"int8"``, any
-    shape and alignment).  Everything else is ``"K9"`` (its batched TILE
-    path, which takes each operand's own dtype): other dtypes or
-    transposes, unaligned rows or bases.  Dtypes are torch dtypes or their
-    names."""
+    int8 x int8 takes K1 whatever its transposes: the int8 tile
+    (``"int8_tile"``: TMA + wgmma s8, which reads only K-major operands)
+    where x is untransposed, w stored ``(e, f, d)`` (``transpose_b``),
+    ``d % INT8_TILE_K == 0`` and ``base_ok``; else the int8 form
+    (``"int8"``, any shape, transposes and alignment).  Everything else is
+    ``"K9"`` (its batched TILE path, which takes each operand's own
+    dtype): other dtypes or transposes, unaligned rows or bases.  Dtypes
+    are torch dtypes or their names."""
     names = tuple(str(t).removeprefix("torch.") for t in (x_dtype, w_dtype))
     if not (e and cap and f and d):
         return "K9"
     form = (names, bool(transpose_a), bool(transpose_b))
-    if form == (("int8", "int8"), False, False):
-        return "int8"
+    if names == ("int8", "int8"):
+        return "int8_tile" if form[1:] == (False, True) and \
+            d % INT8_TILE_K == 0 and base_ok else "int8"
     dts = tuple(getattr(torch, n) for n in names)
     if form == (("bfloat16", "bfloat16"), False, False):
         route = gemm_route(cap, f, d, *dts, False, False, base_ok, base_ok)
@@ -804,12 +845,14 @@ def expert_route(e: int, cap: int, d: int, f: int, x_dtype, w_dtype,
     return "K9"
 
 
-def _expert_shape(a: torch.Tensor, b: torch.Tensor, transpose_a: bool,
-                  transpose_b: bool) -> tuple[int, int, int, int]:
-    """``(e, m, k, n)`` of ``op(a) (e, m, k) @ op(b) (e, k, n)``."""
-    e = a.shape[0]
-    m, k = (a.shape[2], a.shape[1]) if transpose_a else a.shape[1:]
-    n = b.shape[1] if transpose_b else b.shape[2]
+def _expert_dims(a_shape, b_shape, transpose_a: bool,
+                 transpose_b: bool) -> tuple[int, int, int, int]:
+    """``(e, m, k, n)`` of ``op(a) (e, m, k) @ op(b) (e, k, n)`` from the
+    stored shapes (``(e, k, m)`` with ``transpose_a``, ``(e, n, k)`` with
+    ``transpose_b``)."""
+    e = a_shape[0]
+    m, k = (a_shape[2], a_shape[1]) if transpose_a else tuple(a_shape[1:])
+    n = b_shape[1] if transpose_b else b_shape[2]
     return e, m, k, n
 
 
@@ -820,7 +863,7 @@ def _expert_gemm(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
     the split route, whose f32 operand's three bf16 parts ``split`` the
     caller may have made); returns the f32 ``(e, m, n)``."""
     code_a = _check_kernel_dtype("expert gemm", a, b, mixed=True)
-    e, m, k, n = _expert_shape(a, b, transpose_a, transpose_b)
+    e, m, k, n = _expert_dims(a.shape, b.shape, transpose_a, transpose_b)
     route = expert_route(e, m, k, n, a.dtype, b.dtype,
                          a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0,
                          transpose_a, transpose_b)
@@ -851,14 +894,24 @@ def _expert_gemm(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
     return out
 
 
-def _expert_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _expert_product(x: torch.Tensor, w: torch.Tensor,
+                    transpose_a: bool = False,
+                    transpose_b: bool = False) -> torch.Tensor:
     """The f32 expert form through K1 (CUDA) or its plain version; int8
-    experts give the exact int32 product (K1's int8 form)."""
+    experts give the exact int32 product of ``op(x) @ op(w)`` (K1's int8
+    tile or int8 form, :func:`expert_route`).  Only int8 stacks come
+    transposed."""
     if x.dtype == torch.int8 or w.dtype == torch.int8:
         gemm_route(1, 1, 1, x.dtype, w.dtype)        # int8 x int8 only
-        if _use_kernel(x, w):
-            return _gemm_int8(x, w)
-        return ref.matmul_int8(x, w)
+        if not _use_kernel(x, w):
+            return ref.matmul_int8(x, w, transpose_a, transpose_b)
+        if expert_route(*_expert_dims(x.shape, w.shape, transpose_a,
+                                      transpose_b),
+                        x.dtype, w.dtype,
+                        x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
+                        transpose_a, transpose_b) == "int8_tile":
+            return _gemm_int8_tile(x, w)
+        return _gemm_int8(x, w, transpose_a, transpose_b)
     if _use_kernel(x, w):
         return _expert_gemm(x, w)
     return ref.expert_gemm(x, w)
@@ -923,7 +976,8 @@ class _ExpertMatmulF32(torch.autograd.Function):
         forms = [form if want else None for form, want in zip(
             ((g, w, False, True), (x, g, True, False)), need)]
         routes = [None if form is None else expert_route(
-            *_expert_shape(*form), form[0].dtype, form[1].dtype,
+            *_expert_dims(form[0].shape, form[1].shape, *form[2:]),
+            form[0].dtype, form[1].dtype,
             form[0].data_ptr() % 16 == 0 and form[1].data_ptr() % 16 == 0,
             *form[2:]) for form in forms]
         split = split_bf16(g) if "split" in routes else None
@@ -1001,9 +1055,9 @@ def head_route(h: int, m: int, k: int, n: int, x_dtype, w_dtype,
                transpose_b: bool = False, aligned: bool = True) -> str:
     """The kernel of one head form ``x (m, h, k) @ w (k, h, n) -> (h, m,
     n)`` (``transpose_b``: w stored ``(n, h, k)``), from :func:`gemm_route`
-    on one head's product, for bf16 x bf16 operands that are all
-    ``aligned`` (:func:`head_aligned`), each read in place through its row
-    and head strides:
+    on one head's product, for operands that are all ``aligned``
+    (:func:`head_aligned`), each read in place through its row and head
+    strides.  bf16 x bf16:
 
     - ``"gemv"``: K1's decode-row kernel with a head grid axis (``m <=
       K1_DECODE_ROWS``, ``k % 32 == 0``);
@@ -1011,12 +1065,22 @@ def head_route(h: int, m: int, k: int, n: int, x_dtype, w_dtype,
       outer axis, through rank-3 maps of the views (the other forms TMA
       reads: rows of a multiple of 8 elements, ``k >= 8``).
 
+    float16 x float16: ``"tile"`` (float16 maps, f16 wgmma) at every
+    ``m`` where TMA reads the rows (:func:`tma_reads`) and ``k <=
+    F16_PROMOTE_K`` (the head tile promotes no stage); there is no
+    float16 decode-row kernel.
+
     ``"K9"`` otherwise (its batched path on row-major copies): rows TMA
-    cannot read, unaligned views, f32, float16 and mixed operands under
-    its f32 accumulator, int8 ones under its int32 accumulator (exact).
-    Dtypes are torch dtypes or their names."""
+    cannot read, unaligned views, a float16 k past ``F16_PROMOTE_K``, f32,
+    and mixed operands under its f32 accumulator, int8 ones under its
+    int32 accumulator (exact).  Dtypes are torch dtypes or their names."""
     names = tuple(str(t).removeprefix("torch.") for t in (x_dtype, w_dtype))
-    if not (h and m and k and n) or names != ("bfloat16", "bfloat16"):
+    if not (h and m and k and n):
+        return "K9"
+    if names == ("float16", "float16"):
+        return "tile" if k <= F16_PROMOTE_K and tma_reads(
+            m, n, k, False, bool(transpose_b), aligned) else "K9"
+    if names != ("bfloat16", "bfloat16"):
         return "K9"
     bf = torch.bfloat16
     route = gemm_route(m, n, k, bf, bf, False, bool(transpose_b), aligned,
@@ -1039,25 +1103,27 @@ def _head_strides(t: torch.Tensor, route: str) -> tuple[int, int]:
 def _head_gemm(x: torch.Tensor, w: torch.Tensor,
                transpose_b: bool = False) -> torch.Tensor:
     """Launch K1's head form on ``x (m, h, k)`` and ``w (k, h, n)`` (``(n,
-    h, k)`` with ``transpose_b``), strided views read in place, on the
-    route :func:`head_route` gives; returns the f32 ``(h, m, n)``.  The
-    decode rows split the k range over :func:`gemv_splits` blocks, whose
-    partials a second pass sums in split order; the tile does not split
-    k."""
+    h, k)`` with ``transpose_b``), strided views read in place, bf16 or
+    both float16, on the route :func:`head_route` gives; returns the f32
+    ``(h, m, n)``.  The decode rows split the k range over
+    :func:`gemv_splits` blocks, whose partials a second pass sums in split
+    order; the tile does not split k."""
     m, h, k = x.shape
     n = w.shape[0] if transpose_b else w.shape[2]
     route = head_route(h, m, k, n, x.dtype, w.dtype, transpose_b,
                        head_aligned(x, w))
     if route == "K9":
-        raise ValueError(f"K1's head form takes aligned bf16 operands whose "
-                         f"rows TMA reads; {tuple(x.shape)} {x.dtype} x "
+        raise ValueError(f"K1's head form takes aligned bf16 (or float16) "
+                         f"operands whose rows TMA reads; "
+                         f"{tuple(x.shape)} {x.dtype} x "
                          f"{tuple(w.shape)} {w.dtype} (transpose_b="
                          f"{transpose_b}) is K9's (ops.head_route)")
     out = torch.empty((h, m, n), device=x.device, dtype=torch.float32)
     strides = (*_head_strides(x, route), *_head_strides(w, route))
     if route == "tile":
         _launch("repro_head_gemm_tc", x.data_ptr(), w.data_ptr(),
-                out.data_ptr(), h, m, n, k, int(transpose_b), *strides)
+                out.data_ptr(), h, m, n, k, int(transpose_b), *strides,
+                int(x.dtype == torch.float16))
     else:
         nsplit = gemv_splits(m, n, k, h)
         ws = torch.empty((nsplit, h, m, n), device=x.device,
@@ -1885,14 +1951,18 @@ def gated_scan(log_a: torch.Tensor, b_in: torch.Tensor, *,
 _PLANS: "OrderedDict[tuple, tuple]" = OrderedDict()
 _PLANS_LOCK = threading.Lock()
 _PLANS_SIZE = 512
+#: the :func:`expert_route` routes a stack takes through ``apply`` (the
+#: forward's; every int8 stack's): not the split VJP forms
+APPLY_STACK_ROUTES = ("gemv", "tile", "int8", "int8_tile")
 
 
 def _k1_form(nf: "E.NormalForm"):
     """``(transpose_a, transpose_b, batched)`` when ``nf`` is one (mul,
     add) 2-D product of stored operands, each read row-wise or column-wise
     (K1's forms), or a stack of such products over one leading axis that
-    both row-major leaves and the output share, read untransposed (the
-    lifted expert axis of ``expert_gemm_expr``: ``batched`` True); or
+    both leaves and the output share, each matrix read either way (the
+    lifted expert axis of ``expert_gemm_expr``, or a stack with a
+    transposed operand: ``batched`` True); or
     ``(False, transpose_b, "head")`` for a stack over an axis in the
     middle of both stored leaves, x ``(m, h, k)`` and w ``(k, h, n)`` or
     ``(n, h, k)`` (the lifted head axis of ``head_gemm_expr``); None
@@ -1919,7 +1989,7 @@ def _k1_form(nf: "E.NormalForm"):
         cols = j if rows == k else k
         if syms == (rows, cols):
             flags.append(False)
-        elif syms == (cols, rows) and not batched:
+        elif syms == (cols, rows):
             flags.append(True)
         else:
             return None
@@ -1942,19 +2012,24 @@ def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
     transpose_b, batched)`` or ``("K9", launch descriptor)``; derives (or
     re-reads from the schedule cache) its bundle first, whose padding
     policy the descriptor applies (a chain has none).  A batched (expert)
-    form takes K1 where :func:`expert_route` gives it one of K1's routes
-    (``aligned``: every base 16-byte aligned), a head form (``batched``
-    ``"head"``) where :func:`head_route` does (``aligned``: the views'
-    strides as :func:`head_aligned` reads them), else K9.  A float16
-    form takes K1's tile route where it is a 2-D product of two float16
-    operands that :func:`f16_route` gives the tile (``aligned``: both
-    bases 16-byte aligned), else K9, which loads float16 beside f32 and
-    bf16 under its f32 accumulator.  An accumulator other
-    than f32 or int32 (a table's bf16) raises: no kernel has one.  int8 operands take an
-    int32 accumulator only (an f32 accumulator would round past 2^24), on
-    (mul, add) only: any other raises.  K1's int8 form sums the 2-D and
-    expert products exactly; every other int8 form (the head form, every
-    K9 path) takes K9's integer accumulator, exact too."""
+    form takes K1 where :func:`expert_route`, given its transposes, gives
+    it the forward's routes or an int8 one (``aligned``: every base
+    16-byte aligned), a head form (``batched`` ``"head"``) where
+    :func:`head_route` does (``aligned``: the views' strides as
+    :func:`head_aligned` reads them; bf16, or two float16 operands),
+    else K9.  A 2-D float16 form takes K1's tile route where both
+    operands are float16 and :func:`f16_route` gives it the tile
+    (``aligned``: both bases 16-byte aligned); every other float16 form
+    (a stack, float16 beside another dtype) takes K9, which loads float16
+    beside f32 and bf16 under its f32 accumulator.  A stack with a
+    transposed operand takes K1 only in int8: the split VJP forms and a
+    bf16 x wᵀ stack stay on K9 through ``apply``.  An accumulator other
+    than f32 or int32 (a table's bf16) raises: no kernel has one.  int8
+    operands take an int32 accumulator only (an f32 accumulator would
+    round past 2^24), on (mul, add) only: any other raises.  K1 sums the
+    2-D int8 products and every int8 stack exactly (the int8 tile or the
+    int8 form); every other int8 form (the head form, every K9 path)
+    takes K9's integer accumulator, exact too."""
     block_key = blocks.as_tuple() if hasattr(blocks, "as_tuple") else (
         tuple(blocks) if isinstance(blocks, (list, tuple)) else blocks)
     key = (nf.key(), dtypes, out_dtype, hardware.name, block_key, acc_dtype,
@@ -1988,17 +2063,19 @@ def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
             f"K1 and K9 accumulate in float32 (int32 for int8 operands); "
             f"a {acc_dtype} accumulation has no kernel path")
     flags = _k1_form(nf)
-    if flags is not None and "float16" in dtypes:
-        flags = flags if not flags[2] and dtypes[:2] == (
-            "float16", "float16") and _f16_tile(nf, flags, aligned) else None
-    elif flags is not None and flags[2] == "head":
+    if flags is not None and flags[2] == "head":
         (m, h, k), w_shape = nf.leaf_storage_shapes()
         n = w_shape[0] if flags[1] else w_shape[2]
         if head_route(h, m, k, n, *dtypes[:2], flags[1], aligned) == "K9":
             flags = None
+    elif flags is not None and "float16" in dtypes:
+        flags = flags if not flags[2] and dtypes[:2] == (
+            "float16", "float16") and _f16_tile(nf, flags, aligned) else None
     elif flags is not None and flags[2]:
-        (e, cap, d), (_, _, f) = nf.leaf_storage_shapes()
-        if expert_route(e, cap, d, f, *dtypes[:2], aligned) == "K9":
+        ta, tb = flags[:2]
+        e, cap, d, f = _expert_dims(*nf.leaf_storage_shapes(), ta, tb)
+        if expert_route(e, cap, d, f, *dtypes[:2], aligned, ta,
+                        tb) not in APPLY_STACK_ROUTES:
             flags = None
     plan = ("K1",) + flags if flags is not None else (
         "K9", emit.describe(bundle, nf))
@@ -2064,11 +2141,13 @@ def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
     (CUDA tensors) or their plain versions (CPU tensors); the result is in
     ``out_dtype`` (default the first array's dtype), accumulated in
     ``acc_dtype``: f32, or int32 for int8 operands under (mul, add),
-    summed exactly by K1's int8 form (a 2-D product, either operand
-    transposed, or the expert form) or by K9's integer accumulator (every
+    summed exactly by K1 (a 2-D product, either operand transposed, on
+    its int8 form; a stack of any transpose on its int8 tile or int8
+    form, :func:`expert_route`) or by K9's integer accumulator (every
     other form).  float16 operands run under the f32 accumulator: a 2-D
     product of two on K1's tile route where :func:`f16_route` allows it,
-    every other float16 form on K9.
+    a head form of two on K1's head tile where :func:`head_route` allows
+    it, every other float16 form on K9.
     A strided view binds like its contiguous copy: it is copied first,
     but by K1's head form, which reads it in place.
 
@@ -2202,7 +2281,7 @@ def apply_normal_form(nf: "E.NormalForm", *arrays: torch.Tensor,
                                  out_dtype=out_dtype)
     if plan[0] == "K1":
         if plan[3]:
-            return _expert_product(*arrays).to(out_dtype)
+            return _expert_product(*arrays, plan[1], plan[2]).to(out_dtype)
         return _product(*arrays, transpose_a=plan[1],
                         transpose_b=plan[2]).to(out_dtype)
     return semiring_contract(plan[1], *arrays, out_dtype=out_dtype)

@@ -26,17 +26,20 @@ from repro_torch.kernels import emit, ops  # noqa: E402
 
 def _int_forms(E):
     """(label) -> (expr, storage shapes, K9's path) of the (mul, add) forms
-    whose int8 x int8 -> int32 product K9 takes."""
+    whose int8 x int8 -> int32 product K9 takes, and the stack with B
+    transposed, which K1 takes (its plan in place of a path)."""
     A = E.arr
     return {
         "head": (E.head_gemm_expr(3, 5, 40, 17), [(5, 3, 40), (40, 3, 17)],
                  emit.TILE),
         "head_tb": (E.head_gemm_expr(3, 5, 40, 17, transpose_b=True),
                     [(5, 3, 40), (17, 3, 40)], emit.TILE),
-        # a batched product with a transposed B: no form of K1's
+        # a batched product with a transposed B: K1's int8 stack (on the
+        # card the int8 form here, k = 33 being no multiple of 16)
         "batched": (E.inner("add", "mul", A("X", (3, 20, 33)),
                             E.transpose(A("W", (3, 17, 33)), (0, 2, 1)),
-                            batch=1), [(3, 20, 33), (3, 17, 33)], emit.TILE),
+                            batch=1), [(3, 20, 33), (3, 17, 33)],
+                    ("K1", False, True, True)),
         "hadamard": (E.hadamard_expr(37, 70), [(37, 70), (37, 70)],
                      emit.MAP),
         "kron": (E.transpose(E.inner("add", "mul", A("A", (3, 4, 1)),
@@ -76,7 +79,8 @@ def test_int32_forms_match_the_reference_bit_for_bit(name, out):
     plain version here) equals the reference's interpret-mode kernel bit
     for bit, into int32 and into f32; K9's descriptor takes the integer
     accumulator, and run through ``torch.as_strided`` gives the same
-    values."""
+    values.  The stack with B transposed is planned on K1 (``("K1",
+    False, True, True)``) and equals the reference all the same."""
     expr_j, shapes, path = J_INT[name]
     expr_p = P_INT[name][0]
     ins = _ints(shapes, len(name))
@@ -88,6 +92,9 @@ def test_int32_forms_match_the_reference_bit_for_bit(name, out):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     nf, plan = _plan(expr_p, ["int8"] * len(ins), "int32",
                      getattr(torch, out))
+    if isinstance(path, tuple):
+        assert plan == path
+        return
     assert plan[0] == "K9" and plan[1].mode == path
     launch = plan[1]
     descs = launch.c_descs((torch.int8,) * len(ins), getattr(torch, out),
@@ -102,6 +109,41 @@ def test_int32_forms_match_the_reference_bit_for_bit(name, out):
         np.testing.assert_array_equal(
             run.reshape(nf.out_shape()).numpy().astype(np.float64),
             np.asarray(want).astype(np.float64))
+
+
+def _int8_stack(E, ta, tb, e=3, m=20, k=33, n=17):
+    """An int8 stack ``op(X) (e, m, k) @ op(W) (e, k, n)`` with X stored
+    ``(e, k, m)`` where ``ta`` and W ``(e, n, k)`` where ``tb``; its
+    storage shapes."""
+    xs, ws = (e, k, m) if ta else (e, m, k), (e, n, k) if tb else (e, k, n)
+    x, w = E.arr("X", xs), E.arr("W", ws)
+    return E.inner("add", "mul", E.transpose(x, (0, 2, 1)) if ta else x,
+                   E.transpose(w, (0, 2, 1)) if tb else w, batch=1), [xs, ws]
+
+
+@pytest.mark.parametrize("k", [33, 64])
+@pytest.mark.parametrize("ta,tb", [(False, False), (False, True),
+                                   (True, False), (True, True)])
+def test_int8_stacks_take_k1_at_any_transpose(ta, tb, k):
+    """Every int8 stack is K1's (``("K1", ta, tb, True)``): the port's
+    ``apply`` (the plain version here) equals the reference's
+    interpret-mode kernel bit for bit into int32, and the plan checks
+    clean (``verify="kernel"``); on the card k = 64 with B transposed is
+    the int8 tile's, the others the int8 form's."""
+    expr_j, shapes = _int8_stack(JE, ta, tb, k=k)
+    expr_p = _int8_stack(PE, ta, tb, k=k)[0]
+    ins = _ints(shapes, 7 + k)
+    want = jops.apply(expr_j, *map(jnp.asarray, ins), acc_dtype="int32",
+                      out_dtype=jnp.int32, interpret=True)
+    got = ops.apply(expr_p, *map(torch.from_numpy, ins), acc_dtype="int32",
+                    out_dtype=torch.int32, verify="kernel")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    _, plan = _plan(expr_p, ["int8"] * 2, "int32", torch.int32)
+    assert plan == ("K1", ta, tb, True)
+    route = ops.expert_route(3, 20, k, 17, "int8", "int8", True, ta, tb)
+    assert route == ("int8_tile" if (ta, tb, k) == (False, True, 64)
+                     else "int8")
 
 
 def test_int32_chain_stages_through_an_int32_scratch():
@@ -424,7 +466,7 @@ def _f16_plan_forms(E):
         "batched": (E.expert_gemm_expr(3, 40, 64, 48),
                     [(3, 40, 64), (3, 64, 48)], ("float16",) * 2, "K9"),
         "head": (E.head_gemm_expr(3, 40, 64, 48), [(40, 3, 64), (64, 3, 48)],
-                 ("float16",) * 2, "K9"),
+                 ("float16",) * 2, ("K1", False, False, "head")),
         "max_plus": (E.inner("max", "add", A("A", (40, 64)),
                              A("B", (64, 48))), [(40, 64), (64, 48)],
                      ("float16",) * 2, "K9"),
@@ -438,10 +480,11 @@ J_F16P, P_F16P = _f16_plan_forms(JE), _f16_plan_forms(PE)
 def test_float16_forms_take_k1_tile_or_k9_by_rule(name):
     """``_plan`` sends a 2-D (mul, add) product of two float16 operands
     that TMA reads (with or without transposes, more than 16 rows) to K1's
-    tile route, and every other float16 form (an unreadable row, m <= 16,
-    float16 beside f32, batched, head, another semiring) to K9; each
-    equals the reference within ``F16_REL`` (max-plus bit for bit), and
-    the plan checks clean (``verify="kernel"``)."""
+    tile route, the head form of two float16 operands TMA reads to K1's
+    head tile (``ops.head_route`` "tile"), and every other float16 form (an
+    unreadable row, m <= 16 in 2-D, float16 beside f32, batched, another
+    semiring) to K9; each equals the reference within ``F16_REL`` (max-plus
+    bit for bit), and the plan checks clean (``verify="kernel"``)."""
     expr_j, shapes, dtypes, route = J_F16P[name]
     expr_p = P_F16P[name][0]
     ins = [x.astype(np.float32 if dt == "float32" else np.float16)
@@ -460,7 +503,11 @@ def test_float16_forms_take_k1_tile_or_k9_by_rule(name):
                                    atol=F16_REL * float(mag.max()))
     nf, plan = _plan(expr_p, dtypes)
     assert plan[:4] == route if route != "K9" else plan[0] == "K9"
-    if route != "K9":
+    if route != "K9" and route[3] == "head":
+        (m, h, k), (_, _, n) = shapes
+        assert ops.head_route(h, m, k, n, torch.float16, torch.float16,
+                              route[2]) == "tile"
+    elif route != "K9":
         k, m = shapes[0] if route[1] else shapes[0][::-1]
         n = shapes[1][0] if route[2] else shapes[1][1]
         assert ops.gemm_route(m, n, k, torch.float16, torch.float16,

@@ -137,6 +137,69 @@ def test_float16_route_rule(m, n, k, a_dt, b_dt, ta, tb, aligned, route):
                               aligned) == route
 
 
+_I8 = torch.int8
+#: (e, cap, d, f, transpose_a, transpose_b, aligned) -> the route of an
+#: int8 stack: the int8 tile where x is untransposed, w stored (e, f, d),
+#: d % 16 == 0 and the bases aligned (both operands K-major, as 8-bit
+#: wgmma reads them); the int8 form (any shape and transposes) otherwise;
+#: never K9
+INT8_STACK_ROUTES = [
+    ((16, 1024, 1024, 1024, False, True, True), "int8_tile"),
+    ((3, 130, 64, 70, False, True, True), "int8_tile"),    # ragged m, n
+    ((3, 20, 16, 17, False, True, True), "int8_tile"),     # one k granule
+    ((3, 20, 33, 17, False, True, True), "int8"),          # k % 16
+    ((3, 20, 40, 17, False, True, True), "int8"),          # k % 16 (8)
+    ((16, 1024, 1024, 1024, False, True, False), "int8"),  # bases
+    ((16, 1024, 1024, 1024, False, False, True), "int8"),  # w (e, d, f)
+    ((16, 1024, 1024, 1024, True, False, True), "int8"),   # x (e, d, cap)
+    ((16, 1024, 1024, 1024, True, True, True), "int8"),
+    ((3, 20, 33, 17, True, True, False), "int8"),
+]
+
+
+@pytest.mark.parametrize("case,route", INT8_STACK_ROUTES)
+def test_int8_stack_route_rule(case, route):
+    """``ops.expert_route`` for int8 stacks of each transpose: K1's int8
+    tile only for (ta, tb) = (False, True), k a multiple of
+    ``INT8_TILE_K`` and aligned bases, else K1's int8 form; no int8 stack
+    is K9's.  ``_plan`` takes the same route for the stack's normal form,
+    with its transposes as K1's flags."""
+    from repro_torch.core import expr as E
+    e, cap, d, f, ta, tb, aligned = case
+    got = ops.expert_route(e, cap, d, f, _I8, _I8, aligned, ta, tb)
+    assert got == route and got in ops.K1_ROUTES
+    x = E.arr("X", (e, d, cap) if ta else (e, cap, d))
+    w = E.arr("W", (e, f, d) if tb else (e, d, f))
+    expr = E.inner("add", "mul", E.transpose(x, (0, 2, 1)) if ta else x,
+                   E.transpose(w, (0, 2, 1)) if tb else w, batch=1)
+    plan = ops._plan(E.normal_form(expr), ("int8", "int8"), torch.int32,
+                     ops.H100, None, "int32", aligned)
+    assert plan == ("K1", ta, tb, True)
+
+
+#: the non-int8 stacks with a transposed operand stay on K9 through
+#: ``apply`` (bf16 x wᵀ, and the split VJP forms, which ``expert_route``
+#: gives K1's split route for ``_ExpertMatmulF32``'s own launches)
+@pytest.mark.parametrize("dts,ta,tb", [
+    (("bfloat16", "bfloat16"), False, True),
+    (("bfloat16", "bfloat16"), True, False),
+    (("float32", "bfloat16"), False, True),
+    (("bfloat16", "float32"), True, False),
+    (("float32", "float32"), False, True)])
+def test_transposed_stacks_but_int8_stay_on_k9(dts, ta, tb):
+    from repro_torch.core import expr as E
+    from repro_torch.kernels import emit
+    e, cap, d, f = 8, 24, 136, 200
+    x = E.arr("X", (e, d, cap) if ta else (e, cap, d))
+    w = E.arr("W", (e, f, d) if tb else (e, d, f))
+    nf = E.normal_form(E.inner(
+        "add", "mul", E.transpose(x, (0, 2, 1)) if ta else x,
+        E.transpose(w, (0, 2, 1)) if tb else w, batch=1))
+    assert ops._k1_form(nf) == (ta, tb, True)
+    plan = ops._plan(nf, dts, torch.float32, ops.H100, None, "float32")
+    assert plan[0] == "K9" and isinstance(plan[1], emit.Launch)
+
+
 @pytest.mark.parametrize("a_ok,b_ok", [(False, True), (True, False)])
 @pytest.mark.parametrize("a_dt,b_dt", [(_BF16, _BF16), (_F32, _BF16),
                                        (_BF16, _F32)])

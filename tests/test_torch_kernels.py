@@ -203,7 +203,7 @@ def test_paged_decode_single_slot_matches_plain(h100, dtype, atol, kv, g, hd,
     assert torch.equal(plain, want) and ops.LAUNCHES["K5"] == 1
 
 
-_F32, _BF16 = torch.float32, torch.bfloat16
+_F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
 
 
 @pytest.mark.h100
@@ -444,18 +444,20 @@ def test_expert_gemm_routes_other_forms_to_k9(h100):
 HEAD_ROWS = [1, 2, 3, 4, 8, 16]
 
 
-def _mla_head_operands(dev, m, tb, seed=71):
+def _mla_head_operands(dev, m, tb, seed=71, dtype=None):
     """``(x, w)`` of one of minicpm3-4b's absorbed decode products, as
-    ``mla_decode`` passes them: strided views of one (256, 40, 128) bf16
-    ``wkv_b`` table, ``w_uk`` its first 64 columns (``transpose_b``: q_nope
-    (m, 1, 40, 64), itself the first 64 of 96 columns) or ``w_uv`` its last
-    64 (the latent context (m, 1, 40, 256))."""
+    ``mla_decode`` passes them: strided views of one (256, 40, 128)
+    ``wkv_b`` table (bf16, or ``dtype``), ``w_uk`` its first 64 columns
+    (``transpose_b``: q_nope (m, 1, 40, 64), itself the first 64 of 96
+    columns) or ``w_uv`` its last 64 (the latent context (m, 1, 40,
+    256))."""
+    dtype = dtype or _BF16
     gen = torch.Generator(device=dev).manual_seed(seed + m)
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
-    table = (rnd(256, 40, 128) * 256 ** -0.5).to(_BF16)
+    table = (rnd(256, 40, 128) * 256 ** -0.5).to(dtype)
     if tb:
-        return rnd(m, 1, 40, 96).to(_BF16)[..., :64], table[..., :64]
-    return rnd(m, 1, 40, 256).to(_BF16), table[..., 64:]
+        return rnd(m, 1, 40, 96).to(dtype)[..., :64], table[..., :64]
+    return rnd(m, 1, 40, 256).to(dtype), table[..., 64:]
 
 
 @pytest.mark.h100
@@ -537,18 +539,48 @@ def test_head_tile_reads_a_head_major_view(h100):
                                want.abs().max().item())
 
 
+#: the float16 head tile's rows: a decode step of 4 (one 128-row tile a
+#: head, no float16 decode-row kernel) and the bf16 tile's rows
+HEAD_F16_ROWS = [4] + HEAD_TILE_ROWS
+
+
 @pytest.mark.h100
-@pytest.mark.parametrize("case", ["f16", "f32", "unaligned"])
+@pytest.mark.parametrize("tb", [True, False])
+@pytest.mark.parametrize("m", HEAD_F16_ROWS)
+def test_head_tile_float16_matches_plain(h100, m, tb):
+    """Two float16 operands (minicpm3-4b's q_lat and out on strided views
+    of a float16 (256, 40, 128) table) take K1's head tile at every row
+    count (``ops.head_route`` "tile", the float16 maps and f16 wgmma; one
+    K1 launch, no K9, no copy), agree with ``ref.head_gemm`` within the
+    bf16 tile's HEAD_TILE_REL x k x max|plain| (every f16 product is
+    exact in f32, as a bf16 one is), and a rerun gives the same bits."""
+    x, w = _mla_head_operands(h100, m, tb, dtype=_F16)
+    k, n = x.shape[-1], 256 if tb else 64
+    assert ops.head_aligned(x.reshape(m, 40, k), w) and not w.is_contiguous()
+    assert ops.head_route(40, m, k, n, _F16, _F16, tb) == "tile"
+    got = ops.head_matmul(x, w, transpose_b=tb, out_dtype=torch.float32)
+    again = ops.head_matmul(x, w, transpose_b=tb, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 2 and ops.LAUNCHES["K9"] == 0
+    assert got.shape == (m, 1, 40, n) and torch.equal(got, again)
+    want = ref.head_gemm(x.reshape(m, 40, k), w, tb).transpose(0, 1)
+    torch.testing.assert_close(got.reshape(m, 40, n), want, rtol=0,
+                               atol=HEAD_TILE_REL * k *
+                               want.abs().max().item())
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("case", ["f16_bf16", "f32", "unaligned"])
 def test_head_form_routes_refused_forms_to_k9(h100, case):
-    """A head form that K1 refuses (float16 operands at 64 rows; f32
-    operands; a view whose base is off 16 bytes) takes K9 (on row-major
-    copies) and agrees with ``ref.head_gemm``."""
-    m = 64 if case == "f16" else 4
+    """A head form that K1 refuses (a float16 activation against a bf16
+    table at 64 rows; f32 operands; a view whose base is off 16 bytes)
+    takes K9 (on row-major copies) and agrees with ``ref.head_gemm``."""
+    m = 64 if case == "f16_bf16" else 4
     x, w = _mla_head_operands(h100, m, True)
     if case == "f32":
         x, w = x.float(), w.float()
-    if case == "f16":
-        x, w = x.half(), w.half()
+    if case == "f16_bf16":
+        x = x.half()
     if case == "unaligned":
         x = torch.cat([x, x[..., :1]], dim=-1)[..., 1:]
     assert ops.head_route(40, m, 64, 256, x.dtype, w.dtype, True,
@@ -1149,6 +1181,65 @@ def test_gemm_int8_expert_form_matches_plain(h100, e, cap, d, f):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["K1"] == 1 and ops.LAUNCHES["K9"] == 0
     assert torch.equal(got, ref.matmul_int8(x, w))
+
+
+#: int8 stacks (e, m, k, n): e = 16 of 1024^3 (the [derive_path] row),
+#: ragged m and n (130, 70: clipped TMA stores; n % 4 != 0: register
+#: stores), one k granule (16), k = 4096 past every tile, and k % 16 != 0
+#: (65: the int8 form)
+INT8_STACKS = [(16, 1024, 1024, 1024), (3, 130, 64, 70), (5, 200, 16, 136),
+               (2, 257, 4096, 300), (3, 130, 65, 70)]
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("ta,tb", [(False, True), (False, False),
+                                   (True, True)])
+@pytest.mark.parametrize("e,m,k,n", INT8_STACKS)
+def test_int8_stack_matches_plain_bit_for_bit(h100, e, m, k, n, ta, tb):
+    """An int8 stack through ``ops.apply`` (acc_dtype int32) of each
+    transpose is one K1 launch and no K9: the int8 tile (TMA + wgmma s8)
+    where B is stored (e, n, k), A (e, m, k) and k % 16 == 0, else the
+    int8 form; each bit for bit the exact plain version, and a rerun the
+    same bits."""
+    x = _int8(h100, *((e, k, m) if ta else (e, m, k)), seed=e + m)
+    w = _int8(h100, *((e, n, k) if tb else (e, k, n)), seed=n + k)
+    route = ops.expert_route(e, m, k, n, x.dtype, w.dtype, True, ta, tb)
+    assert route == ("int8_tile" if (ta, tb) == (False, True) and k % 16
+                     == 0 else "int8")
+    E = ops.E
+    xe, we = E.arr("X", tuple(x.shape)), E.arr("W", tuple(w.shape))
+    expr = E.inner("add", "mul", E.transpose(xe, (0, 2, 1)) if ta else xe,
+                   E.transpose(we, (0, 2, 1)) if tb else we, batch=1)
+    call = lambda: ops.apply(expr, x, w, acc_dtype="int32",
+                             out_dtype=torch.int32)
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 2 and ops.LAUNCHES["K9"] == 0
+    assert got.dtype == torch.int32 and got.shape == (e, m, n)
+    assert torch.equal(got, ref.matmul_int8(x, w, ta, tb))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.h100
+def test_int8_tile_sums_wrap_as_an_int32_accumulator(h100):
+    """The int8 tile's integer sums wrap (two's complement) past 2^31, as
+    the int8 form's (the same bits on the same operands) and the
+    reference's int32 accumulator do: (-128)^2 over 2^17 + 16 terms is
+    2^31 + 2^18; at k = 4096 every sum is 2^26, far past f32's exact
+    integers, and exact."""
+    k = 2 ** 17 + 16
+    x = torch.full((2, 3, k), -128, dtype=torch.int8, device=h100)
+    w = torch.full((2, 5, k), -128, dtype=torch.int8, device=h100)
+    got = ops._gemm_int8_tile(x, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 1
+    wrapped = (2 ** 14 * k + 2 ** 31) % 2 ** 32 - 2 ** 31
+    assert torch.equal(got, torch.full_like(got, wrapped))
+    assert torch.equal(got, ops._gemm_int8(x, w, False, True))
+    x, w = x[..., :4096].contiguous(), w[..., :4096].contiguous()
+    assert torch.equal(ops._gemm_int8_tile(x, w),
+                       torch.full((2, 3, 5), 2 ** 26, dtype=torch.int32,
+                                  device=h100))
 
 
 @pytest.mark.h100
@@ -1870,19 +1961,22 @@ def _int_forms(E, h=3, m=5):
 
 
 def _k9_int(expr, *arrays, out_dtype=torch.int32):
-    """K9's integer accumulator on the card twice (the plan of unaligned
-    bases), then its plain version (exact sums, checked into int32)."""
+    """K9's integer accumulator on the card twice (its descriptor for the
+    normal form, as ``_plan`` builds it for the forms it sends to K9),
+    then its plain version (exact sums, checked into int32)."""
+    from repro_torch.core import schedule
+    from repro_torch.kernels import emit
     nf = ops.E.normal_form(expr)
-    plan = ops._plan(nf, ("int8",) * len(arrays), out_dtype, ops.H100, None,
-                     "int32", False)
-    assert plan[0] == "K9"
-    got = ops.semiring_contract(plan[1], *arrays, out_dtype=out_dtype)
-    again = ops.semiring_contract(plan[1], *arrays, out_dtype=out_dtype)
+    bundle = None if emit.is_chain(nf) else schedule.get_schedule(
+        nf, dtype="int8", hardware=ops.H100, acc_dtype="int32")
+    launch = emit.describe(bundle, nf)
+    got = ops.semiring_contract(launch, *arrays, out_dtype=out_dtype)
+    again = ops.semiring_contract(launch, *arrays, out_dtype=out_dtype)
     torch.cuda.synchronize()
     with ops.reference_mode():
         want = ops.apply(expr, *arrays, out_dtype=out_dtype,
                          acc_dtype="int32")
-    return got, again, want, plan[1]
+    return got, again, want, launch
 
 
 @pytest.mark.h100
@@ -1893,7 +1987,8 @@ def test_k9_int32_forms_match_plain_bit_for_bit(h100, name, out_dt):
     its K split and the chain's int32 scratch, MAP, REDUCE rows and
     columns, THREAD's warp and thread forms): bit for bit the plain
     version's exact sums, into int32 and f32, and a rerun gives the same
-    bits; ``apply`` routes each form to K9."""
+    bits; ``apply`` routes each form to K9 but the stack with B
+    transposed, which it routes to K1 (its int8 form at k = 70)."""
     expr, shapes, path = _int_forms(ops.E)[name]
     g = torch.Generator(device=h100).manual_seed(len(name))
     arrays = [torch.randint(-128, 128, s, generator=g, device=h100,
@@ -1907,7 +2002,8 @@ def test_k9_int32_forms_match_plain_bit_for_bit(h100, name, out_dt):
     ops.reset_launches()
     assert torch.equal(ops.apply(expr, *arrays, out_dtype=out_dt,
                                  acc_dtype="int32"), want)
-    assert ops.LAUNCHES["K9"] == 1
+    kid = "K1" if name == "batched" else "K9"
+    assert ops.LAUNCHES[kid] == 1 and sum(ops.LAUNCHES.values()) == 1
 
 
 @pytest.mark.h100

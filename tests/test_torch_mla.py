@@ -239,7 +239,8 @@ def test_head_matmul_matches_reference(m, transpose_b):
 
 #: (h, m, k, n, dtypes, transpose_b, aligned) -> route: K1's head form
 #: where one head's product is K1's decode-row product ("gemv") or its
-#: tile ("tile": past 16 rows, or k no multiple of 32), else K9
+#: tile ("tile": past 16 rows, or k no multiple of 32; float16 at every m
+#: where TMA reads the rows and k <= F16_PROMOTE_K), else K9
 HEAD_ROUTES = [
     ((40, 1, 64, 256, "bfloat16", True, True), "gemv"),
     ((40, 4, 256, 64, "bfloat16", False, True), "gemv"),
@@ -251,8 +252,15 @@ HEAD_ROUTES = [
     ((40, 4, 256, 64, "bfloat16", False, False), "K9"),      # strides
     ((40, 4, 256, 64, "float32", False, True), "K9"),
     ((40, 100, 64, 256, "bfloat16", True, True), "tile"),
-    ((40, 64, 64, 256, "float16", True, True), "K9"),        # float16
+    ((40, 64, 64, 256, "float16", True, True), "tile"),      # float16
     ((40, 64, 64, 256, "bfloat16", True, False), "K9"),      # strides
+    ((40, 4, 64, 256, "float16", True, True), "tile"),       # float16 m=4
+    ((40, 1, 256, 64, "float16", False, True), "tile"),
+    ((40, 64, 64, 256, "float16", True, False), "K9"),       # strides
+    ((40, 4, 256, 60, "float16", False, True), "K9"),        # row of n
+    ((40, 4, 60, 256, "float16", True, True), "K9"),         # row of k
+    ((4, 4, 8192, 64, "float16", True, True), "tile"),       # k at the rule
+    ((4, 4, 8200, 64, "float16", True, True), "K9"),         # k past it
 ]
 
 
@@ -289,30 +297,66 @@ def test_head_aligned_reads_view_strides():
                                                       .transpose(0, 1))
 
 
-@pytest.mark.parametrize("case", ["f16", "f32", "unaligned"])
+@pytest.mark.parametrize("case", ["f16_bf16", "f32", "unaligned"])
 def test_head_matmul_takes_k9_where_k1_refuses(case):
-    """A head form that K1 refuses (float16 at 64 rows; f32; a bf16 view
-    whose base is off 16 bytes) is planned on K9 from the operands as
-    given, runs it (its plain version here) on their row-major copies, and
-    agrees with the einsum."""
+    """A head form that K1 refuses (a float16 activation against a bf16
+    table at 64 rows; f32; a bf16 view whose base is off 16 bytes) is
+    planned on K9 from the operands as given, runs it (its plain version
+    here) on their row-major copies, and agrees with the einsum."""
     rng = np.random.default_rng(9)
-    m = 64 if case == "f16" else 4
-    dt = {"f16": torch.float16, "f32": torch.float32}.get(case,
-                                                          torch.bfloat16)
+    m = 64 if case == "f16_bf16" else 4
+    dt = {"f16_bf16": torch.float16, "f32": torch.float32}.get(
+        case, torch.bfloat16)
     x = torch.from_numpy(rng.standard_normal((m, 1, 40, 96)).astype(
         np.float32)).to(dt)[..., :64]
     table = torch.from_numpy(rng.standard_normal((256, 40, 128)).astype(
-        np.float32)).to(dt)
+        np.float32)).to(torch.bfloat16 if case == "f16_bf16" else dt)
     if case == "unaligned":
         x = torch.cat([x, x[..., :1]], dim=-1)[..., 1:]
     x3 = x.reshape(m, 40, 64)
-    assert ops.head_route(40, m, 64, 256, dt, dt, True,
+    assert ops.head_route(40, m, 64, 256, dt, table.dtype, True,
                           ops.head_aligned(x3, table[..., :64])) == "K9"
+    nf = E.normal_form(E.head_gemm_expr(40, m, 64, 256, transpose_b=True))
+    assert ops._plan(nf, (str(dt)[6:], str(table.dtype)[6:]),
+                     torch.float32, ops.H100, None, "float32",
+                     ops.head_aligned(x3, table[..., :64]))[0] == "K9"
     got = ops.head_matmul(x, table[..., :64], transpose_b=True,
                           out_dtype=torch.float32)
     want = torch.einsum("bshk,nhk->bshn", x.float(), table[..., :64].float())
     assert got.shape == (m, 1, 40, 256)
     _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("m", [4, 64])
+def test_head_matmul_float16_takes_k1_head_tile(m):
+    """Two float16 operands (MLA's q_lat on a strided float16 table view)
+    take K1's head tile at 4 and 64 rows (``ops.head_route`` "tile", the
+    plan ``("K1", False, True, "head")``: there is no float16 decode-row
+    kernel), and the port (its plain version here) agrees with the
+    reference's ``head_matmul(interpret=True)`` and with the einsum on the
+    f32 values within 1e-5 (every f16 product is exact in f32; the sums
+    run in another order)."""
+    rng = np.random.default_rng(10 + m)
+    f16 = np.float16
+    x = rng.standard_normal((m, 1, 40, 96)).astype(f16)[..., :64]
+    table = (rng.standard_normal((256, 40, 128)) * 256 ** -0.5).astype(f16)
+    tx, tt = torch.from_numpy(np.ascontiguousarray(x)), \
+        torch.from_numpy(table)
+    w = tt[..., :64]
+    assert ops.head_aligned(tx.reshape(m, 40, 64), w)
+    assert ops.head_route(40, m, 64, 256, torch.float16, torch.float16,
+                          True) == "tile"
+    nf = E.normal_form(E.head_gemm_expr(40, m, 64, 256, transpose_b=True))
+    assert ops._plan(nf, ("float16", "float16"), torch.float32, ops.H100,
+                     None, "float32") == ("K1", False, True, "head")
+    got = ops.head_matmul(tx, w, transpose_b=True, out_dtype=torch.float32)
+    want = jops.head_matmul(jnp.asarray(x), jnp.asarray(table[..., :64]),
+                            transpose_b=True, interpret=True,
+                            out_dtype=jnp.float32, hardware=CPU)
+    assert got.shape == (m, 1, 40, 256)
+    _close(got, want, 1e-5)
+    _close(got, np.einsum("bshk,nhk->bshn", x.astype(np.float32),
+                          table[..., :64].astype(np.float32)), 1e-5)
 
 
 def test_padded_attention_is_the_unpadded_function():

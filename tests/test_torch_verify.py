@@ -417,9 +417,10 @@ def test_conformance_flags_an_f32_plan_under_int32():
 def test_conformance_passes_a_head_plan_on_the_tile(m, tb):
     """A bf16 head form past 16 rows is planned on K1's head form
     (``ops.head_route`` "tile"), and its plan has no error finding (the
-    tile splits no k: nothing to cover); a float16 one, which the route
-    refuses, is planned on K9, and the K1 plan forced onto it is a route
-    defect."""
+    tile splits no k: nothing to cover); so is a float16 one (the head
+    tile's float16 maps); a float16 activation against a bf16 weight,
+    which the route refuses, is planned on K9, and the K1 plan forced onto
+    it is a route defect."""
     k, n = (64, 256) if tb else (256, 64)
     expr = PE.head_gemm_expr(40, m, k, n, transpose_b=tb)
     nf, bundle, plan = _plan(expr, ("bfloat16", "bfloat16"))
@@ -427,11 +428,45 @@ def test_conformance_passes_a_head_plan_on_the_tile(m, tb):
     assert ops.head_route(40, m, k, n, "bfloat16", "bfloat16", tb) == "tile"
     assert not _rules(conformance.plan_findings(plan, bundle, nf,
                                                 ("bfloat16", "bfloat16")))
-    nf, bundle, refused = _plan(expr, ("float16", "float16"))
+    nf, bundle, f16 = _plan(expr, ("float16", "float16"))
+    assert f16 == plan
+    assert not _rules(conformance.plan_findings(f16, bundle, nf,
+                                                ("float16", "float16")))
+    nf, bundle, refused = _plan(expr, ("float16", "bfloat16"))
     assert refused[0] == "K9"
     assert _rules(conformance.plan_findings(plan, bundle, nf,
-                                            ("float16", "float16"))) == \
+                                            ("float16", "bfloat16"))) == \
         ["route"]
+
+
+@pytest.mark.parametrize("ta,tb", [(False, False), (False, True),
+                                   (True, False), (True, True)])
+def test_conformance_judges_a_stack_by_its_transposes(ta, tb):
+    """An int8 stack of each transpose is planned on K1 with its flags
+    (``expert_route`` given them: the int8 tile for (False, True), else
+    the int8 form) and checks clean; the same plan with its flags
+    dropped is a route defect, and so is a K1 plan forced onto a bf16 or
+    an (f32, bf16) stack with that transpose, which ``apply`` leaves on
+    K9."""
+    e, cap, d, f = 4, 60, 96, 72
+    x = PE.arr("X", (e, d, cap) if ta else (e, cap, d))
+    w = PE.arr("W", (e, f, d) if tb else (e, d, f))
+    expr = PE.inner("add", "mul", PE.transpose(x, (0, 2, 1)) if ta else x,
+                    PE.transpose(w, (0, 2, 1)) if tb else w, batch=1)
+    i8 = ("int8", "int8")
+    nf, bundle, plan = _plan(expr, i8, "int32")
+    assert plan == ("K1", ta, tb, True)
+    assert not _rules(conformance.plan_findings(plan, bundle, nf, i8,
+                                                "int32"))
+    if ta or tb:
+        assert _rules(conformance.plan_findings(
+            ("K1", False, False, True), bundle, nf, i8, "int32")) == \
+            ["route"]
+        for dts in (("bfloat16", "bfloat16"), ("float32", "bfloat16")):
+            nf, bundle, k9 = _plan(expr, dts)
+            assert k9[0] == "K9"
+            assert _rules(conformance.plan_findings(plan, bundle, nf,
+                                                    dts)) == ["route"]
 
 
 def _moa_exprs(n=64):
