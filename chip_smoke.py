@@ -209,9 +209,16 @@ Twenty-seven phases; any failure exits non-zero before the result line:
             traffic printed beside it; ops.apply(verify=True) and verify="kernel" on every
             expression moa_path applied (0 error findings, the second call
             a verification-cache hit, host us); verify_all's H100 summary;
-            K1's int8 form (apply with acc_dtype int32): 4096^3 bit for
-            bit with its plain version and torch._int_mm (ms, graph ms,
-            the 1979 TOPS bound) and a ragged 1001x37x999.
+            K1's int8 tile (apply with acc_dtype int32; an operand
+            8-bit wgmma cannot read in place packed K-major first):
+            4096^3 with B stored (k, n) and (n, k), bit for bit with its
+            plain version, K1's mma.sync int8 form and torch._int_mm on
+            the same storage (ms, graph ms, the pack's share, the 1979
+            TOPS bound), a ragged 1001x37x999 and e = 16 stacks of 1024^3
+            with w stored (e, n, k) and (e, k, n); the int8 head form
+            (minicpm3-4b's q_lat at 1 / 2 / 4 rows, out at 4) on K1's
+            int8 decode rows beside K9 on the same operands; K9's int8
+            Hadamard, lone sum and chain.
 15. energy_path the paper's energy model against the card's own energy
             counter (NVML's total energy through ctypes; nvidia-smi's
             power.draw sampled and integrated where NVML refuses): idle
@@ -4210,140 +4217,235 @@ def _chunk_agreement(torch, cfg, pinned, params, prompt, tok, q):
                  (f"chunk {q}", f"chunk {pinned.ssm_chunk}"))
 
 
+def _int8_tile_row(torch, rec, ops, label, call, a, b, ta, tb, k, terms,
+                   nbytes, lib, lib_name):
+    """One int8 product on K1's int8 tile through the user entry ``call``:
+    once with the launches counted from 0 (the path's: one K1, no K9) and
+    the operands packed K-major counted (``ops.PACKED``, the rule's), bit
+    for bit its plain version's exact sums, K1's ``mma.sync`` int8 form's
+    on the same operands (no route takes it: the comparison) and the
+    library call's (where one computes it), a rerun the same bits; timed
+    by events and in a CUDA graph beside the plain version, the ``mma.sync``
+    form, the pack alone (its share of the graph time) and the library
+    call, bound at the card's dense int8 rate (1979 TOPS, the H100 SXM
+    data sheet) or its bytes.  ``lib_name`` names the library call, or
+    says why there is none.  Returns the path's launches."""
+    # the operands the tile packs K-major (its rule, aligned bases), as
+    # (operand, MN-major)
+    packs = [(t, mn) for t, mn in zip((a, b), (ta, not tb))
+             if not ops.int8_reads_in_place(k, mn, True)]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = call()
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    packed = ops.PACKED["int8"]
+    require(ops.LAUNCHES["K1"] == 1 and sum(ops.LAUNCHES.values()) == 1
+            and out.dtype == torch.int32 and packed == len(packs),
+            f"{label}: launches {ops.LAUNCHES}, {packed} packs, not one "
+            f"K1 into int32 after {len(packs)} packs")
+    form = lambda: ops._gemm_int8(a, b, ta, tb)
+    plain = _plain(ops, call)
+    same = torch.equal(out, plain) and torch.equal(out, form())
+    if lib is not None:
+        same = same and torch.equal(out, lib())
+    del plain
+    _rerun_equal(torch, call, label)
+    ms, g_ms = time_ms(torch, call), graph_ms(torch, call)
+    plain_ms = time_ms(torch, lambda: _plain(ops, call), iters=2, warmup=1)
+    form_ms, form_g = time_ms(torch, form), graph_ms(torch, form)
+    pack_g = graph_ms(torch, lambda: [ops.pack_kmajor_int8(t, mn)
+                                      for t, mn in packs]) if packs else 0.0
+    lib_ms = time_ms(torch, lib) if lib is not None else None
+    lib_g = graph_ms(torch, lib) if lib is not None else None
+    b_ms, b_by = bound(2.0 * terms, nbytes, "int8")
+    r4 = lambda x: x if x is None else round(x, 4)
+    print(f"[derive_path] {label} path=int8 tile: {len(packs)} operand(s) "
+          f"packed K-major; bit for bit with the plain version, the int8 "
+          f"form{' and ' + lib_name if lib else ''}: {same}; ms={ms:.4f} "
+          f"graph_ms={g_ms:.4f} pack_graph_ms={pack_g:.4f} (its share "
+          f"{g_ms and pack_g / g_ms:.1%}) plain_ms={plain_ms:.4f} "
+          f"int8_form_ms={form_ms:.4f} int8_form_graph_ms={form_g:.4f} "
+          f"library_ms={r4(lib_ms)} library_graph_ms={r4(lib_g)} "
+          f"({lib_name}) "
+          f"bound_ms={b_ms:.4f} ({b_by}; {g_ms and b_ms / g_ms:.1%} of it "
+          f"in the graph)", flush=True)
+    require(same, f"{label}: differs from its plain version, the int8 "
+            f"form or {lib_name}")
+    rec["K1"][label] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                            graph_ms=g_ms, library_graph_ms=lib_g,
+                            path="int8 tile", packed=len(packs),
+                            pack_graph_ms=pack_g, int8_form_ms=form_ms,
+                            int8_form_graph_ms=form_g)
+    del out
+    return counts
+
+
 def _int8_rows(torch, rec, E, ops, ref):
-    """K1's int8 form through ``ops.apply`` (acc_dtype int32): the 4096^3
-    product equal to its plain version (exact int64 sums) and to
-    ``torch._int_mm`` bit for bit, timed by events and in a CUDA graph
-    beside ``torch._int_mm``, bound at the card's dense int8 rate (1979
-    TOPS, the H100 SXM data sheet); and a ragged product held to its plain
-    version only.  Returns the launches of the first call of each (the
-    path's)."""
+    """Every 2-D int8 product is K1's int8 tile, through ``ops.apply``
+    (acc_dtype int32; ``_int8_tile_row``): 4096^3 with B stored (k, n)
+    (B packed K-major first; beside ``torch._int_mm(a, b)`` on the same
+    storage), the same with B stored (n, k) (both read in place; beside
+    ``torch._int_mm(a, b.t())``, cuBLASLt's own layout), and the ragged
+    1001x37x999 (both operands packed to k_pad 48; no library call takes
+    it).  Returns the launches of the first call of each (the path's)."""
     i8, i32 = torch.int8, torch.int32
     gen = torch.Generator(device="cuda").manual_seed(27)
     counts = _zero_launches()
-    for m, k, n in ((INT8_N,) * 3, INT8_RAGGED):
+    for (m, k, n), tb in (((INT8_N,) * 3, False), ((INT8_N,) * 3, True),
+                          (INT8_RAGGED, False)):
         a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
                           dtype=i8)
-        b = torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
-                          dtype=i8)
-        expr = E.matmul_expr(m, k, n)
+        b = torch.randint(-128, 128, (n, k) if tb else (k, n),
+                          generator=gen, device="cuda", dtype=i8)
+        route = ops.gemm_route(m, n, k, i8, i8, False, tb)
+        require(route == "int8_tile", f"int8 {m}x{k}x{n}: route {route}")
+        expr = E.matmul_expr(m, k, n, transpose_b=tb)
         call = lambda: ops.apply(expr, a, b, acc_dtype="int32",
                                  out_dtype=i32)
+        lib, lib_name = None, "torch._int_mm takes no k or n off a " \
+            "multiple of 8"
+        if (m, k, n) == (INT8_N,) * 3:
+            lib = (lambda: torch._int_mm(a, b.t())) if tb else (
+                lambda: torch._int_mm(a, b))
+            lib_name = f"torch._int_mm(a, {'b.t()' if tb else 'b'})"
+        label = f"K1 int8 apply {m}x{k}x{n}{' tb=1' if tb else ''} acc int32"
+        run = _int8_tile_row(torch, rec, ops, label, call, a, b, False, tb,
+                             k, m * n * k, m * k + k * n + 4 * m * n, lib,
+                             lib_name)
+        for kid, v in run.items():
+            counts[kid] += v
+        del a, b
+    return counts
+
+
+#: K9's integer accumulator in [derive_path]: the Hadamard, the lone sum
+#: and the chain in int8 -> int32; one IMAD a term on the CUDA cores (64
+#: INT32 lanes an SM where f32 has 128: half the 33.5 T FMA
+#: lane-instructions a second) beside the int8 bound.  The int8 stacks
+#: (e = 16 of 1024^3, B stored (e, n, k) or (e, k, n)) are K1's int8 tile
+#: (``_int8_stack_row``), and minicpm3-4b's absorbed head products (40
+#: heads, 1-4 rows) K1's int8 decode rows (``_int8_head_rows``).
+INT32_E, INT32_N, INT32_BIG, INT32_CHAIN = 16, 1024, 8192, 512
+IMAD_PER_S = 16.75e12
+
+
+def _int8_stack_row(torch, rec, E, ops):
+    """The int8 stacks (e = 16 of 1024^3, x (e, m, k)) through
+    ``ops.apply`` (acc_dtype int32) on K1's int8 tile
+    (``_int8_tile_row``): w stored (e, n, k) (both read in place) and w
+    stored (e, k, n) (w packed K-major first).  No PyTorch call computes
+    it (``torch.bmm`` takes no int8 on the card; ``torch._int_mm`` is
+    2-D).  The first also times the tile's wrapper alone by events
+    (``ops._gemm_int8_tile``: apply's host path apart).  Returns the
+    path's launches."""
+    i8 = torch.int8
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    e, n = INT32_E, INT32_N
+    counts = _zero_launches()
+    for tb in (True, False):
+        x, w = (torch.randint(-128, 128, (e, n, n), generator=gen,
+                              device="cuda", dtype=i8) for _ in range(2))
+        we = E.arr("W", (e, n, n))
+        expr = E.inner("add", "mul", E.arr("X", (e, n, n)),
+                       E.transpose(we, (0, 2, 1)) if tb else we, batch=1)
+        call = lambda: ops.apply(expr, x, w, acc_dtype="int32",
+                                 out_dtype=torch.int32)
+        label = (f"K1 int8 batched (B transposed) e={e} {n}^3 acc int32"
+                 if tb else f"K1 int8 batched (B stored (e, k, n)) e={e} "
+                 f"{n}^3 acc int32")
+        route = ops.expert_route(e, n, n, n, i8, i8, True, False, tb)
+        require(route == "int8_tile", f"{label}: route {route}")
+        run = _int8_tile_row(torch, rec, ops, label, call, x, w, False, tb,
+                             n, e * n ** 3, 2 * e * n * n + 4 * e * n * n,
+                             None, "torch.bmm takes no int8 on the card; "
+                             "torch._int_mm is 2-D")
+        for kid, v in run.items():
+            counts[kid] += v
+        if tb:
+            # the tile's wrapper alone by events: apart from the graph
+            # time, what apply's host path adds to the call
+            rec["K1"][label]["tile_ms"] = time_ms(
+                torch, lambda: ops._gemm_int8_tile(x, w, False, True))
+            print(f"[derive_path] {label}: the tile's wrapper alone "
+                  f"{rec['K1'][label]['tile_ms']:.4f} ms by events",
+                  flush=True)
+        del x, w
+    return counts
+
+
+def _int8_head_rows(torch, rec, E, ops, ref):
+    """minicpm3-4b's absorbed head products in int8 (40 heads, views of a
+    stored (256, 40, 128) table read in place): q_lat at 1, 2 and 4 rows
+    (k 64, n 256, w stored (n, h, k)) and out at 4 rows (k 256, n 64, w
+    stored (k, h, n), its k split), through ``ops.apply`` (acc_dtype
+    int32) on K1's int8 decode rows: once with the launches counted from 0
+    (the path's: one K1, no K9), bit for bit ``ref.head_gemm_int8``, a
+    rerun the same bits; timed by events and in a CUDA graph beside the
+    plain version and K9's integer TILE on the same operands (the plan of
+    unaligned views, on the row-major copies ``apply`` makes for it, the
+    route before this one), bound by bytes.  No PyTorch call computes it
+    (``torch.einsum`` takes no int8 on the card).  Returns the path's
+    launches."""
+    i8 = torch.int8
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    ints = lambda *s: torch.randint(-128, 128, s, generator=gen,
+                                    device="cuda", dtype=i8)
+    table = ints(256, 40, 128)
+    counts = _zero_launches()
+    cases = [(rows, True, 64, 256) for rows in MLA_HEAD_ROWS] + [
+        (4, False, 256, 64)]
+    for rows, tb, k, n in cases:
+        x = ints(rows, 40, k)
+        w = table[..., :64] if tb else ints(256, 40, 128)[..., 64:]
+        name = "q_lat" if tb else "out"
+        label = (f"K1 int8 head {name} m={rows} h=40 k={k} n={n} "
+                 f"tb={int(tb)} acc int32")
+        route = ops.head_route(40, rows, k, n, i8, i8, tb,
+                               ops.head_aligned(x, w))
+        require(route == "gemv", f"{label}: route {route}, not gemv")
+        expr = E.head_gemm_expr(40, rows, k, n, transpose_b=tb)
+        call = lambda: ops.apply(expr, x, w, acc_dtype="int32",
+                                 out_dtype=torch.int32)
         torch.cuda.synchronize()
         ops.reset_launches()
         out = call()
         torch.cuda.synchronize()
         for kid, v in ops.LAUNCHES.items():
             counts[kid] += v
-        require(ops.LAUNCHES["K1"] == 1 and out.dtype == i32,
-                "the int8 product did not run on K1's int8 form")
-        plain = _plain(ops, call)
-        same = torch.equal(out, plain)
-        lib = None
-        if (m, k, n) == (INT8_N,) * 3:
-            lib = lambda: torch._int_mm(a, b)
-            same = same and torch.equal(out, lib())
-        del plain
-        label = f"K1 int8 apply {m}x{k}x{n} acc int32 path=int8"
+        require(ops.LAUNCHES["K1"] == 1 and sum(ops.LAUNCHES.values()) == 1
+                and out.dtype == torch.int32,
+                f"{label}: launches {ops.LAUNCHES}, not one K1 into int32")
+        plan = ops._plan(E.normal_form(expr), ("int8", "int8"), torch.int32,
+                         ops.H100, None, "int32", False)
+        require(plan[0] == "K9", f"{label}: the unaligned plan {plan[0]}")
+        k9 = lambda: ops.semiring_contract(
+            plan[1], x.contiguous(), w.contiguous(), out_dtype=torch.int32)
+        same = torch.equal(out, ref.head_gemm_int8(x, w, tb)) and \
+            torch.equal(out, k9())
         _rerun_equal(torch, call, label)
-        ms = time_ms(torch, call)
-        g_ms = graph_ms(torch, call)
+        ms, g_ms = time_ms(torch, call), graph_ms(torch, call)
         plain_ms = time_ms(torch, lambda: _plain(ops, call), iters=2,
                            warmup=1)
-        lib_ms = time_ms(torch, lib) if lib else None
-        lib_g = graph_ms(torch, lib) if lib else None
-        b_ms, b_by = bound(2.0 * m * n * k, m * k + k * n + 4 * m * n,
-                           "int8")
-        print(f"[derive_path] {label}: bit for bit with the plain version"
-              f"{' and torch._int_mm' if lib else ''}: {same}; ms={ms:.4f} "
-              f"graph_ms={g_ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-              f"{lib_ms if lib_ms is None else round(lib_ms, 4)} "
-              f"library_graph_ms="
-              f"{lib_g if lib_g is None else round(lib_g, 4)} bound_ms="
-              f"{b_ms:.4f} ({b_by}, {2.0 * m * n * k / 1e12:.3f} TOP at 1979 "
-              f"TOPS)", flush=True)
-        require(same, f"{label}: differs from its plain version or "
-                f"torch._int_mm")
+        k9_ms, k9_g = time_ms(torch, k9), graph_ms(torch, k9)
+        nsplit = ops.gemv_splits(rows, n, k, 40, *ops.K1_GEMV8[tb])
+        terms = 40 * rows * n * k
+        b_ms, b_by = bound(2.0 * terms, x.numel() + 40 * n * k
+                           + 4 * 40 * rows * n, "int8")
+        print(f"[derive_path] {label} path=int8 decode rows split-k="
+              f"{nsplit}: bit for bit with the plain version and K9: "
+              f"{same}; ms={ms:.4f} graph_ms={g_ms:.4f} plain_ms="
+              f"{plain_ms:.4f} k9_ms={k9_ms:.4f} k9_graph_ms={k9_g:.4f} "
+              f"library_ms=None (torch.einsum takes no int8 on the card) "
+              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        require(same, f"{label}: differs from its plain version or K9")
         rec["K1"][label] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                                library_ms=lib_ms, bound_ms=b_ms,
+                                library_ms=None, bound_ms=b_ms,
                                 bound_by=b_by, graph_ms=g_ms,
-                                library_graph_ms=lib_g)
-        del a, b, out
-    return counts
-
-
-#: K9's integer accumulator in [derive_path]: the Hadamard, the lone sum,
-#: the chain and minicpm3-4b's absorbed head products (40 heads, 1-4 rows)
-#: in int8 -> int32; one IMAD a term on the CUDA cores (64 INT32 lanes an
-#: SM where f32 has 128: half the 33.5 T FMA lane-instructions a second)
-#: beside the int8 bound.  The batched product (e = 16 stacks of 1024^3,
-#: B stored transposed) is K1's int8 tile (``_int8_stack_row``).
-INT32_E, INT32_N, INT32_BIG, INT32_CHAIN = 16, 1024, 8192, 512
-IMAD_PER_S = 16.75e12
-
-
-def _int8_stack_row(torch, rec, E, ops):
-    """The int8 stack with B transposed (e = 16 of 1024^3, x (e, m, k), w
-    stored (e, n, k)) through ``ops.apply`` (acc_dtype int32) on K1's int8
-    tile (TMA + wgmma s8, ``ops.expert_route`` "int8_tile"): once with the
-    launches counted from 0 (the path's: one K1, no K9), bit for bit its
-    plain version's exact sums, a rerun the same bits; timed by events and
-    in a CUDA graph beside its plain version, the tile's wrapper alone by
-    events (``ops._gemm_int8_tile``: apply's host path apart), its bound
-    (bytes) and K1's ``mma.sync`` int8 form on the same operands
-    (``ops._gemm_int8``, the same bits).  No PyTorch call computes it
-    (``torch.bmm`` takes no int8 on the card; ``torch._int_mm`` is 2-D).
-    Returns the path's launches."""
-    i8 = torch.int8
-    gen = torch.Generator(device="cuda").manual_seed(29)
-    e, n = INT32_E, INT32_N
-    x, wt = (torch.randint(-128, 128, (e, n, n), generator=gen,
-                           device="cuda", dtype=i8) for _ in range(2))
-    expr = E.inner("add", "mul", E.arr("X", (e, n, n)),
-                   E.transpose(E.arr("W", (e, n, n)), (0, 2, 1)), batch=1)
-    call = lambda: ops.apply(expr, x, wt, acc_dtype="int32",
-                             out_dtype=torch.int32)
-    label = f"K1 int8 batched (B transposed) e={e} {n}^3 acc int32"
-    route = ops.expert_route(e, n, n, n, i8, i8, True, False, True)
-    require(route == "int8_tile", f"{label}: route {route}, not int8_tile")
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    out = call()
-    torch.cuda.synchronize()
-    counts = dict(ops.LAUNCHES)
-    require(ops.LAUNCHES["K1"] == 1 and sum(ops.LAUNCHES.values()) == 1
-            and out.dtype == torch.int32,
-            f"{label}: launches {ops.LAUNCHES}, not one K1 into int32")
-    form = lambda: ops._gemm_int8(x, wt, False, True)
-    plain = _plain(ops, call)
-    same = torch.equal(out, plain) and torch.equal(out, form())
-    del plain
-    _rerun_equal(torch, call, label)
-    ms, g_ms = time_ms(torch, call), graph_ms(torch, call)
-    plain_ms = time_ms(torch, lambda: _plain(ops, call), iters=2, warmup=1)
-    form_ms, form_g = time_ms(torch, form), graph_ms(torch, form)
-    # the tile's wrapper alone by events: apart from the graph time, what
-    # apply's host path adds to the call
-    tile_ms = time_ms(torch, lambda: ops._gemm_int8_tile(x, wt))
-    terms, nbytes = e * n ** 3, 2 * e * n * n + 4 * e * n * n
-    b_ms, b_by = bound(2.0 * terms, nbytes, "int8")
-    print(f"[derive_path] {label} path=int8 tile: bit for bit with the "
-          f"plain version and the int8 form: {same}; ms={ms:.4f} "
-          f"graph_ms={g_ms:.4f} tile_ms={tile_ms:.4f} "
-          f"plain_ms={plain_ms:.4f} int8_form_ms="
-          f"{form_ms:.4f} int8_form_graph_ms={form_g:.4f} library_ms=None "
-          f"(torch.bmm takes no int8 on the card; torch._int_mm is 2-D) "
-          f"bound_ms={b_ms:.4f} ({b_by}; {g_ms and b_ms / g_ms:.1%} of it "
-          f"in the graph)", flush=True)
-    require(same, f"{label}: differs from its plain version or the int8 "
-            f"form")
-    rec["K1"][label] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                            library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                            graph_ms=g_ms, tile_ms=tile_ms,
-                            path="int8 tile",
-                            int8_form_ms=form_ms,
-                            int8_form_graph_ms=form_g)
-    del out, x, wt
+                                path=f"int8 decode rows split-k={nsplit}",
+                                k9_ms=k9_ms, k9_graph_ms=k9_g)
+        del out, x, w
     return counts
 
 
@@ -4375,16 +4477,6 @@ def _int32_k9_cases(torch, E, ops):
                   apply(chain, ca, cb, cc), None,
                   "two torch._int_mm calls (no single call)",
                   2 * c ** 3, 3 * c * c + 4 * c * c))
-    table = ints(256, 40, 128)
-    for rows in MLA_HEAD_ROWS:
-        q = ints(rows, 40, 64)
-        head = E.head_gemm_expr(40, rows, 64, 256, transpose_b=True)
-        w = table[..., :64].contiguous()
-        cases.append((f"K9 int8 head q_lat m={rows} h=40 k=64 n=256 tb=1 "
-                      f"acc int32", apply(head, q, w), None,
-                      "torch.einsum takes no int8 on the card",
-                      40 * rows * 256 * 64,
-                      q.numel() + w.numel() + 4 * 40 * rows * 256))
     return cases
 
 
@@ -4444,8 +4536,10 @@ def phase_derive_path(torch, rec, applied):
     it); ``apply(verify=True)`` and ``verify="kernel"`` on every
     expression ``[moa_path]`` ran (zero error findings, the second call a
     cache hit, host µs); the ``verify_all`` sweep's H100 summary; K1's
-    int8 product, the int8 stack on K1's int8 tile (``_int8_stack_row``)
-    and K9's int8 -> int32 forms (``_int32_k9_rows``).  Returns the
+    int8 products and stacks on K1's int8 tile (``_int8_rows``,
+    ``_int8_stack_row``), the int8 head form on its int8 decode rows
+    (``_int8_head_rows``) and K9's int8 -> int32 forms
+    (``_int32_k9_rows``).  Returns the
     launches of its driven paths."""
     import numpy as np
     from repro_torch import analysis
@@ -4622,9 +4716,11 @@ def phase_derive_path(torch, rec, applied):
     require(report["failed"] == 0, f"verify_all failures "
             f"{report['failures']}")
 
-    # 5. K1's int8 form, then K9's integer accumulator
+    # 5. K1's int8 tile and int8 decode rows, then K9's integer
+    # accumulator
     count(_int8_rows(torch, rec, E, ops, ref))
     count(_int8_stack_row(torch, rec, E, ops))
+    count(_int8_head_rows(torch, rec, E, ops, ref))
     count(_int32_k9_rows(torch, rec, E, ops))
     print(f"[derive_path] phase wall {time.perf_counter() - phase_t0:.1f} s",
           flush=True)
@@ -7795,7 +7891,8 @@ def main() -> None:
                             launches=sum(by_path.values()),
                             launches_by_path=by_path, routes=routes,
                             shape=shape, **rec[kid][shape]))
-    for route in ("head tile", "head tile float16", "int8 tile"):
+    for route in ("head tile", "head tile float16", "int8 tile",
+                  "int8 decode rows"):
         require(route in kernels[0]["routes"],
                 f"K1's routes {kernels[0]['routes']} lack the {route}")
     print(f"[smoke] wall {time.perf_counter() - START:.1f} s, the build "

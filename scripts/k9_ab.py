@@ -1,8 +1,8 @@
-"""Time K9's paths (``csrc/semiring.cu``), the head form in bf16 and
-float16 and the int8 stack with B transposed (K9, or K1's head tile and
-int8 tile, ``csrc/gemm.cu``) of two source trees on one card, in the
-order A B B A, so that a change to the kernel is read beside the build it
-changes and not across calls or hosts.
+"""Time K9's paths (``csrc/semiring.cu``), the head form in bf16, float16
+and int8, and the int8 products and stacks (K9, or K1's head tile, int8
+decode rows and int8 tile, ``csrc/gemm.cu``) of two source trees on one
+card, in the order A B B A, so that a change to the kernel is read beside
+the build it changes and not across calls or hosts.
 
     python scripts/k9_ab.py OTHER_TREE [--out FILE]
 
@@ -13,15 +13,12 @@ its own (both packages are named ``repro_torch``), builds its K9 library
 into its own ``build/``, and times each case through the user entry that
 reaches it: device time as ten calls captured in one CUDA graph and
 replayed (the host's launch path drops out), and the mean of ten calls by
-CUDA events.  Each case makes one launch, of K9 or of K1.  Beside them
-each side times the one PyTorch call that computes each function it can
-(``torch.kron``, ``torch.einsum``), the same in both trees.  The table
-gives every run's graph ms and the change over the two runs of each
-side.  A tree whose ``ops`` has the int8 tile also times, as a
-measurement beside no route, a 2-D int8 product of 4096^3 with B stored
-(n, k) on the int8 tile (a stack of one), on K1's ``mma.sync`` int8 form
-and by ``torch._int_mm(a, b.t())`` (cuBLASLt's own layout), each held to
-the others bit for bit.
+CUDA events.  Each case makes one launch, of K9 or of K1 (the int8
+tile's K-major pack of an operand is its input stage, not a K1 launch).
+Beside them each side times the one PyTorch call that computes each
+function it can (``torch.kron``, ``torch.einsum``, ``torch._int_mm`` on
+the same storage), the same in both trees.  The table gives every run's
+graph ms and the change over the two runs of each side.
 """
 from __future__ import annotations
 
@@ -80,6 +77,18 @@ i8wt = torch.randint(-128, 128, (ie, i_n, i_n), generator=g, device="cuda",
 stack_bt = E.inner("add", "mul", E.arr("X", (ie, i_n, i_n)),
                    E.transpose(E.arr("W", (ie, i_n, i_n)), (0, 2, 1)),
                    batch=1)
+stack_b = E.inner("add", "mul", E.arr("X", (ie, i_n, i_n)),
+                  E.arr("W", (ie, i_n, i_n)), batch=1)
+n2, rag = 4096, (1001, 37, 999)
+i8 = lambda *s: torch.randint(-128, 128, s, generator=g, device="cuda",
+                              dtype=torch.int8)
+a2, b2 = i8(n2, n2), i8(n2, n2)
+ra, rb = i8(rag[0], rag[1]), i8(rag[1], rag[2])
+i8table = i8(256, 40, 128)
+i8q = {r: i8(r, 40, 64) for r in (1, 2, 4)}
+i8ctx, i8w_uv = i8(4, 40, 256), i8(256, 40, 128)[..., 64:]
+int32 = lambda expr, *a: (lambda: ops.apply(expr, *a, acc_dtype="int32",
+                                            out_dtype=torch.int32))
 f32 = torch.float32
 cases = {
     "MAP kron (16,16,16) (x) (16,16,16)": lambda: ops.apply(
@@ -98,8 +107,20 @@ cases = {
     "HEAD float16 q_lat m=4 (head_matmul)": lambda: ops.head_matmul(
         qn16_4, w_uk16, transpose_b=True, out_dtype=f32),
     "INT8 stack e=16 1024^3 B transposed (apply, acc int32)":
-        lambda: ops.apply(stack_bt, i8x, i8wt, acc_dtype="int32",
-                          out_dtype=torch.int32),
+        int32(stack_bt, i8x, i8wt),
+    "INT8 stack e=16 1024^3 w stored (e, k, n) (apply, acc int32)":
+        int32(stack_b, i8x, i8wt),
+    "INT8 2-D 4096^3 B stored (k, n) (apply, acc int32)":
+        int32(E.matmul_expr(n2, n2, n2), a2, b2),
+    "INT8 2-D 4096^3 B stored (n, k) (apply, acc int32)":
+        int32(E.matmul_expr(n2, n2, n2, transpose_b=True), a2, b2),
+    "INT8 2-D ragged 1001x37x999 (apply, acc int32)":
+        int32(E.matmul_expr(*rag), ra, rb),
+    **{f"HEAD int8 q_lat m={r} (apply, acc int32)": int32(
+        E.head_gemm_expr(40, r, 64, 256, transpose_b=True), q,
+        i8table[..., :64]) for r, q in i8q.items()},
+    "HEAD int8 out m=4 (apply, acc int32)": int32(
+        E.head_gemm_expr(40, 4, 256, 64), i8ctx, i8w_uv),
     "MAP kron 64x64 (x) 64x64": lambda: ops.ipophp(ka, kb, "kp"),
     "MAP Hadamard 8192^2": lambda: ops.hadamard(a, b),
     "REDUCE lone min axis 0 8192^2":
@@ -153,6 +174,10 @@ library = {
         "bshk,khn->bshn", ctx16, w_uv16),
     "HEAD float16 q_lat m=4 (head_matmul)": lambda: torch.einsum(
         "bshk,nhk->bshn", qn16_4, w_uk16),
+    "INT8 2-D 4096^3 B stored (k, n) (apply, acc int32)":
+        lambda: torch._int_mm(a2, b2),
+    "INT8 2-D 4096^3 B stored (n, k) (apply, acc int32)":
+        lambda: torch._int_mm(a2, b2.t()),
 }
 out = {}
 for label, fn in cases.items():
@@ -167,28 +192,6 @@ for label, fn in cases.items():
     if label in library:
         out[label]["library_graph_ms"] = graph_ms(library[label])
         out[label]["library_ms"] = events_ms(library[label])
-del i8x, i8wt
-# the 2-D int8 product on the int8 tile (a stack of one), beside K1's
-# mma.sync form and cuBLASLt's own layout: a measurement, no route
-if hasattr(ops, "_gemm_int8_tile"):
-    n2 = 4096
-    a2 = torch.randint(-128, 128, (n2, n2), generator=g, device="cuda",
-                       dtype=torch.int8)
-    bt2 = torch.randint(-128, 128, (n2, n2), generator=g, device="cuda",
-                        dtype=torch.int8)
-    measure = {
-        "int8 tile": lambda: ops._gemm_int8_tile(a2[None], bt2[None])[0],
-        "int8 form (mma.sync)": lambda: ops._gemm_int8(a2, bt2, False,
-                                                       True),
-        "torch._int_mm(a, b.t())": lambda: torch._int_mm(a2, bt2.t()),
-    }
-    outs = [fn() for fn in measure.values()]
-    same = all(torch.equal(outs[0], o) for o in outs[1:])
-    del outs
-    out["__measure__"] = {
-        "label": f"2-D int8 {n2}^3, B stored (n, k)", "bit_equal": same,
-        "rows": {k: {"graph_ms": graph_ms(fn), "ms": events_ms(fn)}
-                 for k, fn in measure.items()}}
 print(json.dumps(out))
 """
 
@@ -228,8 +231,6 @@ def main(argv=None) -> int:
     runs = [(k, _child(trees[k], "time")) for k in "ABBA"]
     print(f"[k9_ab] {smi}; graph ms (device time) per run, order A B B A")
     for label in runs[0][1]:
-        if label == "__measure__":
-            continue
         g = [r[label]["graph_ms"] for _, r in runs]
         a_mean, b_mean = (g[0] + g[3]) / 2, (g[1] + g[2]) / 2
         lib = [r[label].get("library_graph_ms") for _, r in runs]
@@ -244,14 +245,6 @@ def main(argv=None) -> int:
               f"{runs[3][1][label]['ms']:.4f}, B "
               f"{runs[1][1][label]['ms']:.4f} / "
               f"{runs[2][1][label]['ms']:.4f}{libs}")
-    for side, run in runs:
-        meas = run.get("__measure__")
-        if meas is None:
-            continue
-        rows = "; ".join(f"{k} graph {v['graph_ms']:.4f} events "
-                         f"{v['ms']:.4f}" for k, v in meas["rows"].items())
-        print(f"[k9_ab] {side} measure {meas['label']} (bit equal: "
-              f"{meas['bit_equal']}): {rows}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -20,7 +20,9 @@ with typed ``Finding``s in five rule classes:
   none, MAP folds nothing, a chain's two stages meet through a scratch
   of the first stage's extent, and a factored nest's two stages fold the
   contracted volume between them; K1's own split of k (``ops.fma_splits``,
-  ``gemv_splits``) covers its k units once;
+  ``gemv_splits``, the int8 decode rows' in their own units) covers its k
+  units once, and the int8 tile's K-major pack writes an operand's k at
+  the least 16-byte pitch that holds it, zeros past k;
 * ``bounds`` -- every operand's strides times (extent - 1) plus its base
   stays inside its storage buffer (a psi slab's base inside its pool, the
   chain's scratch inside its allocation), and the split partials inside
@@ -30,9 +32,10 @@ with typed ``Finding``s in five rule classes:
 * ``acc-dtype`` -- the route's accumulator is the bundle's ``acc_dtype``:
   K9 accumulates in f32, or exactly in int32 on int8 operands under
   (mul, add) (its integer accumulator, ``emit.k9_acc``); K1 in f32, or
-  exactly in int32 on its int8 form;
+  exactly in int32 on its int8 tile and int8 decode rows;
 * ``route`` -- a K1 plan's transposes and batching are ``ops._k1_form`` of
-  the normal form, and the form's route rule gives K1 that route; a K9
+  the normal form, and the form's route rule gives K1 that route (the
+  int8 tile reads in place only a K-major operand of 16-byte rows); a K9
   TILE plan's M- and N-side operands are the nest's.
 
 ``kernel_findings`` is what ``analysis.verify_bundle(..., kernel=True)``
@@ -51,7 +54,7 @@ from repro_torch.analysis.verify import Finding
 from repro_torch.core import schedule as sched_mod
 from repro_torch.core import semiring
 from repro_torch.hardware import H100
-from repro_torch.kernels import emit, ops
+from repro_torch.kernels import emit, ops, ref
 
 
 def _prod(xs) -> int:
@@ -312,12 +315,47 @@ def _k1_findings(plan, nf, dtypes, subject):
         out += _split_findings(subject, "K1's split of k", units, nsplit,
                                -(-units // nsplit))
     elif route == "gemv":
-        # the decode rows split k (the head form's too); the tile, the head
-        # form's past 16 rows included, folds all of k in one block
-        units = k // ops.K1_GEMV_UNIT
-        nsplit = ops.gemv_splits(m, n, k, e)
+        # the decode rows split k (the head form's too, the int8 rows in
+        # their own units); the tile, the head form's past 16 rows
+        # included, folds all of k in one block
+        cols, unit = ops.K1_GEMV8[bool(tb)] if torch.int8 in dts else (
+            64, ops.K1_GEMV_UNIT)
+        units = -(-k // unit)
+        nsplit = ops.gemv_splits(m, n, k, e, cols, unit)
         out += _split_findings(subject, "K1's split of k", units, nsplit,
                                -(-units // nsplit))
+    elif route == "int8_tile":
+        out += _int8_pack_findings(subject, k, ta, tb)
+    return out
+
+
+def _int8_pack_findings(subject, k: int, ta: bool, tb: bool) -> list:
+    """K1's int8 tile reads each operand K-major at a row pitch of a
+    multiple of 16 bytes: one read in place (``ops.int8_reads_in_place``,
+    aligned bases) must be K-major with ``k`` rows of such a pitch; one
+    packed (``ref.pack_kmajor_int8``, the pack's plain version, on a
+    one-row stand-in) must come out K-major at the least such pitch that
+    holds ``k``, zeros past it."""
+    out = []
+    for name, mn in (("A", ta), ("B", not tb)):
+        if ops.int8_reads_in_place(k, mn, True):
+            if mn or k % ops.INT8_TILE_K:
+                out.append(Finding(
+                    "route", "error", subject,
+                    f"the int8 tile reads {name} in place, "
+                    f"{'MN-major' if mn else f'at a pitch of {k} bytes'}"))
+            continue
+        stored = torch.ones((k, 1) if mn else (1, k), dtype=torch.int8)
+        packed = ref.pack_kmajor_int8(stored, mn, ops.INT8_TILE_K)
+        pitch = packed.shape[-1]
+        if packed.shape[0] != 1 or pitch % ops.INT8_TILE_K or \
+                not 0 <= pitch - k < ops.INT8_TILE_K or \
+                int(packed[0, :k].sum()) != k or packed[0, k:].any():
+            out.append(Finding(
+                "coverage", "error", subject,
+                f"the int8 pack writes {name}'s {k} k at a pitch of "
+                f"{pitch}, not K-major at k rounded up to "
+                f"{ops.INT8_TILE_K} with zeros past k"))
     return out
 
 

@@ -14,7 +14,10 @@
 // head form replaces emit_pallas on head_gemm_expr (src/repro/kernels/
 // ops.py, head_matmul: MLA decode's absorbed products x (m, h, k) @ w (k,
 // h, n), or w (n, h, k) read transposed, -> (h, m, n), the weight a
-// head-middle slice of the stored (kv_rank, h, nope + v) table).
+// head-middle slice of the stored (kv_rank, h, nope + v) table).  Its
+// int8 routes (the int8 tile and the int8 decode rows) replace emit_pallas
+// at acc_dtype int32 (src/repro/kernels/emit.py:183-190, the MXU's exact
+// s8 x s8 -> s32 sums) on the 2-D, expert and head forms.
 //
 // Layouts: A is row-major (m, k), or with transpose_a row-major (k, m)
 // read as its transpose in place.  B is row-major (k, n), or with
@@ -26,7 +29,8 @@
 // Operand types: A and B are each float32 or bfloat16, or both float16
 // (the tile route and the head form's tile only, the f16 flag of
 // repro_gemm_tc and repro_head_gemm_tc), or both int8 (into int32: the
-// int8 form and the int8 tile).  In a training
+// int8 tile, with the K-major pack where it needs one, and the int8
+// decode rows of the head form).  In a training
 // step the cotangent reaching the VJP products is f32 (the primal returns
 // f32; the cast to bf16 sits outside) while weights and activations are
 // bf16.
@@ -118,20 +122,32 @@
 //         card, a row form at most 16 rows).
 //   wmma  bf16 x bf16 without transpose_a that TMA cannot read: the
 //         first nvcuda::wmma 64x64 tiles (gemm_bf16).
-//   int8  int8 x int8 (repro_gemm_int8, the route of ops.apply with
-//         acc_dtype int32; 2-D with either operand transposed, or the
-//         expert form): mma.sync s8 x s8 -> s32, exact integer sums into
-//         an int32 C (namespace i8 below).
-//   int8 tile  a stack of int8 products with both operands K-major, x (e,
-//         m, k) times w stored (e, n, k) (repro_gemm_int8_tc; k % 16 == 0,
-//         16-byte bases): the expert form's persistent walk and rank-3
-//         maps on int8 (a stage is 128 k of the same 128-byte swizzled
-//         rows, so ring, barriers and descriptor steps are bf16's), wgmma
-//         m64nNk32 s8 x s8 -> s32 (8-bit wgmma takes K-major operands
-//         only, which this form already is), C int32 out through an int32
-//         map.  Exact: integer products and sums wrap past 2^31 as the
+//   int8 tile  every int8 x int8 product (the route of ops.apply with
+//         acc_dtype int32: 2-D with either operand transposed, or a stack
+//         of any transposes; repro_gemm_int8_tc): the expert form's
+//         persistent walk and rank-3 maps on int8 (a stage is 128 k of the
+//         same 128-byte swizzled rows, so ring, barriers and descriptor
+//         steps are bf16's), wgmma m64nNk32 s8 x s8 -> s32, C int32 out
+//         through an int32 map.  8-bit wgmma takes K-major operands only:
+//         A (m, k) and B stored (n, k) with rows of a multiple of 16 bytes
+//         and 16-byte bases are read in place; any other operand (B stored
+//         (k, n), A stored (k, m), k % 16 != 0, an unaligned base) is first
+//         written K-major at a row pitch of k rounded up to 16 by the pack
+//         (pack_kmajor_int8, repro_pack_kmajor_int8: one pass over the
+//         operand), and the tile reads the packed rows at that pitch.
+//         Exact: integer products and sums wrap past 2^31 as the
 //         reference's int32 accumulator does (emit_pallas at acc_dtype
-//         int32), and TMA's zero fill adds nothing at ragged edges.
+//         int32), and the zeros past k add nothing.
+//   int8 decode rows  the int8 head form at m <= 16 rows, k % 32 == 0
+//         (repro_head_gemm_s8): the decode rows' weight stream on mma.sync
+//         m16n8k32 s8 -> s32 (gemv_mma_s8), each operand through its row
+//         and head strides, the k split's int32 partials summed by
+//         gemv_reduce.
+//   int8 form  (repro_gemm_int8, namespace i8 below; no route takes it)
+//         mma.sync s8 x s8 -> s32 with per-stage transposes in shared
+//         memory: the first int8 design, kept as the timed comparison on
+//         the same operands until the benchmark's simplification removes
+//         it.
 //
 // What bounds it on an H100: at prefill and training row counts the tile
 // and split paths are compute-bound (989 TFLOP/s bf16; the split path
@@ -154,7 +170,11 @@
 // tile is bytes-bound wherever its int32 output is wider than its inputs:
 // at e = 16 stacks of 1024^3 it reads 32 MB and writes 64 MB (0.0300 ms
 // at 3.35 TB/s) for 34 G integer operations (0.0174 ms at 1979 TOPS), so
-// its C leaves by TMA stores that drain under the next tile's products.
+// its C leaves by TMA stores that drain under the next tile's products; a
+// 2-D int8 product of 4096^3 is operations-bound (137 G operations, 0.0694
+// ms at 1979 TOPS), and a B stored (k, n) adds the pack's round trip (32
+// MB, 0.0100 ms at 3.35 TB/s), which a transposer warpgroup between TMA
+// and wgmma would save.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -263,16 +283,19 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 }
 
 // out = the sum of the nsplit partials, in split order (no atomics:
-// reruns are the same bits)
-__global__ void gemv_reduce(const float* __restrict__ ws,
-                            float* __restrict__ out, long long total,
-                            int nsplit) {
+// reruns are the same bits); int32 partials (the int8 decode rows) are
+// added with wrapping adds, as an int32 accumulator's
+template <typename T>
+__global__ void gemv_reduce(const T* __restrict__ ws, T* __restrict__ out,
+                            long long total, int nsplit) {
+  using Sum = std::conditional_t<std::is_same_v<T, int32_t>, uint32_t, T>;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
-  float sum = ws[i];
+  Sum sum = static_cast<Sum>(ws[i]);
 #pragma unroll 8
-  for (int s = 1; s < nsplit; ++s) sum += ws[(size_t)s * total + i];
-  out[i] = sum;
+  for (int s = 1; s < nsplit; ++s)
+    sum += static_cast<Sum>(ws[(size_t)s * total + i]);
+  out[i] = static_cast<T>(sum);
 }
 
 // ---------------------------------------------------------------------------
@@ -1514,17 +1537,24 @@ int launch_tile_head(const void* x, const void* w, float* c, int h, int m,
 }
 
 // The int8 tile, c (e, m, n) int32 = a[e] b[e]^T: a (e, m, k) and b (e, n,
-// k) int8, both K-major in their stored layout (8-bit wgmma reads no
-// other), k a multiple of 16 (TMA's 16-byte rows), bases 16-byte aligned;
-// the expert form's persistent walk and rank-3 maps, BN = 256 where its
-// tiles fill the SMs.  Exact: every product and sum is an integer, and
-// TMA's zero fill past a ragged edge adds nothing.
+// k) int8, both K-major (8-bit wgmma reads no other), each matrix's rows
+// a_ld / b_ld bytes apart (a multiple of 16: TMA's row stride; the K-major
+// pack's k_pad, or k where an operand is read in place) and its matrices
+// rows x ld apart, bases 16-byte aligned; the expert form's persistent
+// walk and rank-3 maps, BN = 256 where its tiles fill the SMs.  The maps
+// span k columns, so the k loop covers k_pad and TMA's zero fill past k
+// (or the pack's zeros) adds nothing.  Exact: every product and sum is an
+// integer.
 int launch_tile_int8(const void* a, const void* b, int32_t* c, int e, int m,
-                     int n, int k, cudaStream_t s) {
+                     int n, int k, long long a_ld, long long b_ld,
+                     cudaStream_t s) {
   const int bn = tile_bn(e, m, n);
   TileMaps maps;
-  int err = encode_expert_map(&maps.a[0], a, e, m, k, TBM, Elem::s8);
-  if (err == 0) err = encode_expert_map(&maps.b[0], b, e, n, k, bn, Elem::s8);
+  int err = encode_rank3_map(&maps.a[0], a, e, m, k, a_ld, m * a_ld, TBM,
+                             Elem::s8, false);
+  if (err == 0)
+    err = encode_rank3_map(&maps.b[0], b, e, n, k, b_ld, n * b_ld, bn,
+                           Elem::s8, false);
   int tma_c = 0;
   if (err == 0) err = encode_stack_out(maps, c, e, m, n, Elem::s32, &tma_c);
   if (err != 0) return err;
@@ -1599,7 +1629,7 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint4 ld_stream(const bf16* p) {
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
   uint4 v;
   asm volatile(
       "ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
@@ -1764,6 +1794,281 @@ int launch_gemv(const void* x, const void* w, float* c, float* ws, int m,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the int8 decode rows: the head form's m <= 16 rows in int8 ----
+//
+// The int8 twin of gemv_mma for K1's head form at acc_dtype int32 (MLA's
+// absorbed products with int8 operands, at most 16 rows): x and w read
+// through the same row and head strides (GemvStrides, bytes here), the
+// weight streamed once with 16-byte non-allocating loads into mma.sync
+// m16n8k32 s8 x s8 -> s32 fragments.  Bound, as the bf16 rows: the bytes
+// of the weight (q_lat's 0.66 MB at minicpm3-4b's decode, 0.0002 ms at
+// 3.35 TB/s), in truth the launch; one launch (and the split's int32
+// reduce) where K9's integer TILE ran on row-major copies at one IMAD a
+// term.
+//   TB (w stored (N, K), q_lat): units of 64 k; thread (g, t) loads k 16 t
+//   .. 16 t + 15 of the unit of row n = nb + 8 j + g and of x's rows g and
+//   g + 8, and its two halves are two m16n8k32 products, the k order
+//   permuted alike in x and w (every product is paired once, so the
+//   integer sums are the same); a last unit of 32 k reads zeros in its
+//   upper half.  64 columns a block, as gemv_mma.
+//   !TB (w stored (K, N), out): units of 32 k, one m16n8k32 product; thread
+//   (g, t) loads columns nb + 16 g .. + 15 of k rows 4 t .. 4 t + 3 and 16 +
+//   4 t .. + 3 (eight 16-byte loads) and turns each column's four bytes of
+//   a k quad into one fragment word by a 4 x 4 byte transpose (__byte_perm,
+//   as i8::transpose below); tile j is the columns nb + 16 g + j, 128
+//   columns a block, N a multiple of 16.
+// The four warps' sums are added in warp order; with nsplit > 1 a block
+// writes its split's partial into the int32 workspace, summed by
+// gemv_reduce.  Integer adds wrap (two's complement, as the reference's
+// int32 accumulator) and are associative: any order gives the same bits.
+__device__ __forceinline__ void mma_s8(int32_t (&d)[4], uint32_t a0,
+                                       uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// four rows' words w[0..3] (4 bytes each, one column a byte) -> o[j], the
+// four rows' bytes of column j (row i in byte i)
+__device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4],
+                                             uint32_t (&o)[4]) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t u0 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t u1 = __byte_perm(w[2], w[3], 0x7362);
+  o[0] = __byte_perm(t0, u0, 0x5410);
+  o[1] = __byte_perm(t0, u0, 0x7632);
+  o[2] = __byte_perm(t1, u1, 0x5410);
+  o[3] = __byte_perm(t1, u1, 0x7632);
+}
+
+// columns a block and k a unit of the int8 decode rows (ops.K1_GEMV8)
+__host__ __device__ constexpr int gemv8_cols(bool tb) {
+  return tb ? 64 : 128;
+}
+__host__ __device__ constexpr int gemv8_unit(bool tb) {
+  return tb ? 64 : 32;
+}
+
+template <bool TB>
+__global__ void __launch_bounds__(GEMV_WARPS * 32)
+gemv_mma_s8(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+            int32_t* __restrict__ out, int32_t* __restrict__ ws, int M,
+            int N, int K, int nsplit, GemvStrides st) {
+  constexpr int NT = TB ? 8 : 16;              // n8 tiles a warp
+  constexpr int UNIT = gemv8_unit(TB);
+  __shared__ int32_t red[GEMV_WARPS - 1][4 * NT][33];
+  const size_t ex = blockIdx.z;
+  x += ex * st.x_ex;
+  w += ex * st.w_ex;
+  out += ex * M * N;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int nb = blockIdx.x * gemv8_cols(TB);
+  const int units = (K + UNIT - 1) / UNIT;
+  const int per = (units + nsplit - 1) / nsplit;
+  const int u0 = blockIdx.y * per, u1 = min(units, u0 + per);
+  const bool row0 = g < M, row1 = g + 8 < M;
+  const int8_t* x0 = x + g * st.x_row;
+  const int8_t* x1 = x + (g + 8) * st.x_row;
+  int32_t acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+#pragma unroll 2
+  for (int u = u0 + warp; u < u1; u += GEMV_WARPS) {
+    const int k0 = u * UNIT;
+    if constexpr (TB) {
+      const bool in = k0 + 16 * t < K;     // a last unit of 32 k: zeros
+      uint4 wv[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = nb + 8 * j + g;
+        wv[j] = in && n < N ? ld_stream(w + n * st.w_row + k0 + 16 * t)
+                            : zero;
+      }
+      const uint4 xa = in && row0 ? *reinterpret_cast<const uint4*>(
+                                        x0 + k0 + 16 * t)
+                                  : zero;
+      const uint4 xb = in && row1 ? *reinterpret_cast<const uint4*>(
+                                        x1 + k0 + 16 * t)
+                                  : zero;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mma_s8(acc[j], xa.x, xb.x, xa.y, xb.y, wv[j].x, wv[j].y);
+        mma_s8(acc[j], xa.z, xb.z, xa.w, xb.w, wv[j].z, wv[j].w);
+      }
+    } else {
+      const bool col_ok = nb + 16 * g < N;
+      uint4 wr[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          wr[h][r] = col_ok ? ld_stream(w + (k0 + 16 * h + 4 * t + r) *
+                                                st.w_row + nb + 16 * g)
+                            : zero;
+      auto x32 = [&](const int8_t* row, bool ok, int kk) {
+        return ok ? *reinterpret_cast<const uint32_t*>(row + kk) : 0u;
+      };
+      const uint32_t xa0 = x32(x0, row0, k0 + 4 * t);
+      const uint32_t xa1 = x32(x0, row0, k0 + 16 + 4 * t);
+      const uint32_t xb0 = x32(x1, row1, k0 + 4 * t);
+      const uint32_t xb1 = x32(x1, row1, k0 + 16 + 4 * t);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t b[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t rows[4] = {word(wr[h][0], q), word(wr[h][1], q),
+                                    word(wr[h][2], q), word(wr[h][3], q)};
+          transpose4x4(rows, b[h]);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          mma_s8(acc[4 * q + jj], xa0, xb0, xa1, xb1, b[0][jj], b[1][jj]);
+      }
+    }
+  }
+
+  // the warps' sums in warp order (wrapping adds)
+  if (warp > 0) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[warp - 1][4 * j + e][lane] = acc[j][e];
+  }
+  __syncthreads();
+  if (warp != 0) return;
+#pragma unroll
+  for (int q = 0; q < GEMV_WARPS - 1; ++q)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[j][e] = static_cast<int32_t>(
+            static_cast<uint32_t>(acc[j][e]) +
+            static_cast<uint32_t>(red[q][4 * j + e][lane]));
+  int32_t* dst = nsplit == 1
+                     ? out
+                     : ws + ((size_t)blockIdx.y * gridDim.z + ex) * M * N;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = g + 8 * (e / 2);
+      const int n = TB ? nb + 8 * j + 2 * t + (e % 2)
+                       : nb + 16 * (2 * t + (e % 2)) + j;
+      if (r < M && n < N) dst[(size_t)r * N + n] = acc[j][e];
+    }
+}
+
+int launch_gemv_s8(const void* x, const void* w, int32_t* c, int32_t* ws,
+                   int m, int n, int k, int tb, int nsplit, cudaStream_t s,
+                   int e, const GemvStrides& st) {
+  if (m < 1 || m > 16 || k < 32 || k % 32 != 0 || n < 1 || nsplit < 1 ||
+      (nsplit > 1 && ws == nullptr) || e < 1 || e > 65535 ||
+      (!tb && n % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cols = gemv8_cols(tb);
+  const dim3 grid((n + cols - 1) / cols, nsplit, e);
+  auto X = static_cast<const int8_t*>(x);
+  auto W = static_cast<const int8_t*>(w);
+  if (tb)
+    gemv_mma_s8<true><<<grid, GEMV_WARPS * 32, 0, s>>>(X, W, c, ws, m, n, k,
+                                                       nsplit, st);
+  else
+    gemv_mma_s8<false><<<grid, GEMV_WARPS * 32, 0, s>>>(X, W, c, ws, m, n,
+                                                        k, nsplit, st);
+  if (nsplit > 1) {
+    const long long total = (long long)e * m * n;
+    gemv_reduce<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(ws, c, total,
+                                                                nsplit);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the K-major pack of an int8 operand for the int8 tile ----
+//
+// No TPU kernel: the int8 tile's input stage.  8-bit wgmma reads K-major
+// operands only, and TMA rows of a multiple of 16 bytes from a 16-byte
+// base.  An operand stored MN-major (B (k, n); A (k, m) with transpose_a;
+// either as a stack) is written once K-major into a workspace (rows,
+// k_pad), k_pad = k rounded up to 16, zeros past k (the sums stay exact, as
+// TMA's zero fill keeps them); so is a K-major one whose rows or base TMA
+// cannot read (k % 16 != 0, an unaligned base).  Bound: its bytes, each
+// read and written once (32 MB for a 4096^2 pair, 0.0100 ms at 3.35
+// TB/s): a 64 x 64-byte tile a block, one 16-byte load and one 16-byte
+// store a thread (byte loads only at a ragged or unaligned edge); an
+// MN-major tile goes through shared memory and is transposed there once, 4
+// x 4 bytes a thread by byte permutes (transpose4x4), where the int8
+// form transposes every stage in every block that reads it.  The
+// transposed tile's 16-byte chunks are XOR-swizzled by row, so the
+// threads' 4-byte writes spread over the banks and the 16-byte reads stay
+// whole.
+constexpr int PACK = 64, PACK_PITCH = PACK + 16;
+
+template <bool MN>
+__global__ void __launch_bounds__(256)
+pack_kmajor_int8(const int8_t* __restrict__ src, int8_t* __restrict__ dst,
+                 int rows, int k, int kp, long long ld, long long mat_st,
+                 int vec) {
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * PACK, r0 = blockIdx.y * PACK;
+  src += (long long)blockIdx.z * mat_st;
+  dst += (long long)blockIdx.z * rows * kp;
+  // 16 bytes of a stored row from element c on, zeros past its n elements
+  auto load16 = [&](long long off, int c, int n) {
+    if (vec && c + 16 <= n)
+      return *reinterpret_cast<const uint4*>(src + off + c);
+    uint32_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (c + i < n)
+        v[i / 4] |= (uint32_t)(uint8_t)src[off + c + i] << (8 * (i % 4));
+    return make_uint4(v[0], v[1], v[2], v[3]);
+  };
+  const int r = tid / 4, q = tid % 4;          // a 16-byte chunk of a row
+  if constexpr (MN) {
+    __shared__ __align__(16) uint8_t raw[PACK * PACK_PITCH];   // [k][mn]
+    __shared__ __align__(16) uint8_t tr[PACK * PACK];          // [mn][k]
+    *reinterpret_cast<uint4*>(raw + r * PACK_PITCH + 16 * q) =
+        k0 + r < k ? load16((long long)(k0 + r) * ld, r0 + 16 * q, rows)
+                   : make_uint4(0, 0, 0, 0);
+    __syncthreads();
+    // the 4 x 4 block (k 4 kb.., mn 4 mb..); mn row 4 mb + j's chunk c
+    // lands at chunk c ^ (mb % 4) of its row
+    const int kb = tid / 16, mb = tid % 16;
+    uint32_t wv[4], o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      wv[i] = *reinterpret_cast<const uint32_t*>(
+          raw + (4 * kb + i) * PACK_PITCH + 4 * mb);
+    transpose4x4(wv, o);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<uint32_t*>(tr + (4 * mb + j) * PACK +
+                                   (((kb / 4) ^ (mb % 4)) * 16) +
+                                   (kb % 4) * 4) = o[j];
+    __syncthreads();
+    if (r0 + r < rows && k0 + 16 * q < kp)
+      *reinterpret_cast<uint4*>(dst + (long long)(r0 + r) * kp + k0 +
+                                16 * q) = *reinterpret_cast<const uint4*>(
+          tr + r * PACK + ((q ^ ((r / 4) % 4)) * 16));
+  } else {
+    if (r0 + r < rows && k0 + 16 * q < kp)
+      *reinterpret_cast<uint4*>(dst + (long long)(r0 + r) * kp + k0 +
+                                16 * q) =
+          load16((long long)(r0 + r) * ld, k0 + 16 * q, k);
+  }
+}
+
 }  // namespace tc
 
 
@@ -1785,7 +2090,10 @@ int launch_gemv(const void* x, const void* w, float* c, float* ws, int m,
 // flight), else byte loads through registers (ragged shapes), zero-filled
 // past the matrix either way.  The expert form runs the same kernel with
 // the expert as grid axis z, each operand's experts stored one after
-// another.
+// another.  Since the int8 tile took every int8 product (with the K-major
+// pack for the operands 8-bit wgmma cannot read), no route reaches this
+// form: it stays as the comparison on the same operands (chip_smoke.py's
+// int8_form_ms), at 8% of its operations bound at 4096^3.
 namespace i8 {
 
 constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3, THREADS = 256;
@@ -1861,19 +2169,12 @@ __device__ __forceinline__ void transpose(const unsigned char* raw,
                                           unsigned char* out) {
   for (int blk = threadIdx.x; blk < (BK / 4) * (BM / 4); blk += THREADS) {
     const int kb = blk / (BM / 4), mb = blk % (BM / 4);
-    uint32_t w[4];
+    uint32_t w[4], o[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       w[i] = *reinterpret_cast<const uint32_t*>(raw + (4 * kb + i) * MNP +
                                                 4 * mb);
-    const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
-    const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
-    const uint32_t u0 = __byte_perm(w[2], w[3], 0x5140);
-    const uint32_t u1 = __byte_perm(w[2], w[3], 0x7362);
-    const uint32_t o[4] = {__byte_perm(t0, u0, 0x5410),
-                           __byte_perm(t0, u0, 0x7632),
-                           __byte_perm(t1, u1, 0x5410),
-                           __byte_perm(t1, u1, 0x7632)};
+    tc::transpose4x4(w, o);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       *reinterpret_cast<uint32_t*>(out + (4 * mb + j) * KP + 4 * kb) = o[j];
@@ -2174,24 +2475,82 @@ extern "C" int repro_split_bf16(const void* g, void* hi, void* mid, void* lo,
 }
 
 // The int8 tile: a (e, m, k) times b (e, n, k) read as its transpose,
-// int8, into c (e, m, n) int32 (e = 1: one 2-D product), each stack's
-// matrices stored one after another; k a multiple of 16 and every base
-// 16-byte aligned.  Exact integer products and sums (wrapping past 2^31).
+// int8, into c (e, m, n) int32 (e = 1: one 2-D product); each operand
+// K-major with its rows a_ld / b_ld bytes apart (multiples of 16, at least
+// k: the K-major pack's k_pad, or k for an operand read in place) and its
+// matrices rows x ld apart; every base 16-byte aligned.  Exact integer
+// products and sums (wrapping past 2^31).
 extern "C" int repro_gemm_int8_tc(const void* a, const void* b, void* c,
-                                  int e, int m, int n, int k, void* stream) {
-  if (e < 1 || m < 1 || n < 1 || k < 16 || k % 16 != 0 ||
+                                  int e, int m, int n, int k, int a_ld,
+                                  int b_ld, void* stream) {
+  if (e < 1 || m < 1 || n < 1 || k < 1 || a_ld < k || b_ld < k ||
+      a_ld % 16 != 0 || b_ld % 16 != 0 ||
       reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(b) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(c) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return tc::launch_tile_int8(a, b, static_cast<int32_t*>(c), e, m, n, k,
-                              static_cast<cudaStream_t>(stream));
+                              a_ld, b_ld, static_cast<cudaStream_t>(stream));
+}
+
+// The K-major pack of e int8 matrices for the int8 tile: src stored
+// MN-major (mn = 1: each matrix (k, rows), rows contiguous) or K-major (mn
+// = 0: (rows, k)), stored rows ld bytes apart and matrices mat_st apart;
+// dst (e, rows, kp) K-major, kp a multiple of 16 at least k, zeros past
+// k, 16-byte aligned.
+extern "C" int repro_pack_kmajor_int8(const void* src, void* dst, int e,
+                                      int rows, int k, int kp, long long ld,
+                                      long long mat_st, int mn,
+                                      void* stream) {
+  if (e < 1 || e > 65535 || rows < 1 || k < 1 || kp < k || kp % 16 != 0 ||
+      (rows + tc::PACK - 1) / tc::PACK > 65535 || (mn != 0 && mn != 1) ||
+      reinterpret_cast<uintptr_t>(dst) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+                  ld % 16 == 0 && mat_st % 16 == 0;
+  const dim3 grid((kp + tc::PACK - 1) / tc::PACK,
+                  (rows + tc::PACK - 1) / tc::PACK, e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto S = static_cast<const int8_t*>(src);
+  auto D = static_cast<int8_t*>(dst);
+  if (mn)
+    tc::pack_kmajor_int8<true><<<grid, 256, 0, s>>>(S, D, rows, k, kp, ld,
+                                                    mat_st, vec);
+  else
+    tc::pack_kmajor_int8<false><<<grid, 256, 0, s>>>(S, D, rows, k, kp, ld,
+                                                     mat_st, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int8 head form at m <= 16 rows (the int8 decode rows): x (m, h, k)
+// times w (k, h, n), or (n, h, k) with transpose_b, int8, into c (h, m, n)
+// int32, head by head, each operand read through its strides (bytes; the
+// last axis contiguous) as repro_head_gemm takes them; k % 32 == 0, every
+// stride a multiple of 16 and the bases 16-byte aligned, n % 16 == 0
+// without transpose_b; ws: nsplit x h x m x n int32 when nsplit > 1, the
+// partials summed with wrapping adds.
+extern "C" int repro_head_gemm_s8(const void* x, const void* w, void* c,
+                                  void* ws, int h, int m, int n, int k,
+                                  int transpose_b, int nsplit,
+                                  long long x_row, long long x_head,
+                                  long long w_row, long long w_head,
+                                  void* stream) {
+  if ((x_row | x_head | w_row | w_head) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const tc::GemvStrides st = {x_row, x_head, w_row, w_head};
+  return tc::launch_gemv_s8(x, w, static_cast<int32_t*>(c),
+                            static_cast<int32_t*>(ws), m, n, k, transpose_b,
+                            nsplit, static_cast<cudaStream_t>(stream), h,
+                            st);
 }
 
 // The int8 form: a (e, m, k), or (e, k, m) with transpose_a, times b (e, k,
 // n), or (e, n, k) with transpose_b, int8, into c (e, m, n) int32, each
 // expert's matrices stored one after another (e = 1: one 2-D product).
-// Exact integer products and sums (wrapping past 2^31).
+// Exact integer products and sums (wrapping past 2^31).  No route takes
+// it (the int8 tile does): kept as the timed comparison beside the tile.
 extern "C" int repro_gemm_int8(const void* a, const void* b, void* c, int e,
                                int m, int n, int k, int transpose_a,
                                int transpose_b, void* stream) {

@@ -57,13 +57,14 @@ backward's products, which is no K1 launch of its own), the decode rows'
 weight stream (at most 16 rows) or, where TMA cannot read a bf16 operand
 and for every f32 x f32 product, the exact-f32 FMA kernel (tiles sized by
 the width, k split over :func:`fma_splits` blocks where the tiles do not
-fill the card, a row form at most 16 rows), or ``gemm_bf16``; int8 x int8
-takes its int8 form (``mma.sync`` s8 x s8 into exact int32 sums, the
-route of ``apply(..., acc_dtype="int32")``), and an int8 stack with both
-operands K-major its int8 tile (TMA + wgmma s8 x s8 into exact int32
-sums, :func:`expert_route`'s ``"int8_tile"``).  K4's bf16 tensor-core form
-splits each key tile's row stream over :func:`dkv_splits` blocks.  Either
-counts one launch a call.
+fill the card, a row form at most 16 rows), or ``gemm_bf16``; every int8
+x int8 product and stack (the route of ``apply(..., acc_dtype="int32")``)
+takes its int8 tile (TMA + wgmma s8 x s8 into exact int32 sums,
+``"int8_tile"``), each operand 8-bit wgmma cannot read in place first
+written K-major by :func:`pack_kmajor_int8` (no K1 launch of its own),
+and the int8 head form at most 16 rows the int8 decode rows.  K4's bf16
+tensor-core form splits each key tile's row stream over
+:func:`dkv_splits` blocks.  Either counts one launch a call.
 
 ``apply``, ``matmul`` and ``expert_matmul`` take a ``mesh=`` (a
 ``torch.distributed`` ``DeviceMesh``) and ``shard=``: the normal form is
@@ -86,8 +87,9 @@ a stack of them over a shared leading (expert) axis to K1's expert form
 where :func:`expert_route` allows (aligned bf16, or int8 of any
 transpose), and a stack over a head axis in the middle of both operands
 (``head_gemm_expr``) to K1's head form where :func:`head_route` allows
-(bf16, or two float16 operands on the tile), reading both operands through
-their strides: the decode rows at most 16 rows, else the tile, whose
+(bf16, two float16 operands on the tile, or two int8 ones on the int8
+decode rows), reading both operands through their strides: the decode
+rows at most 16 rows, else the tile, whose
 rank-3 tensor maps take the views' strides in stride order (inner, head,
 row), so no operand is copied, k is not split and one launch does all
 the heads; every other normal form goes to K9 through its launch
@@ -115,6 +117,9 @@ from repro_torch.kernels import build, emit, ref
 #: a wrapper adds one exactly where it launches its kernel
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
             "K8": 0, "K9": 0}
+#: operands written K-major by :func:`pack_kmajor_int8` for K1's int8 tile
+#: (its input stage, not a launch of K1's own), reset with ``LAUNCHES``
+PACKED = {"int8": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PLAIN = False
@@ -126,7 +131,9 @@ _SIGNATURES = {
     "repro_gemm": ("gemm", [_P] * 4 + [_C] * 11),
     "repro_gemm_tc": ("gemm", [_P] * 7 + [_C] * 8),
     "repro_gemm_int8": ("gemm", [_P] * 3 + [_C] * 6),
-    "repro_gemm_int8_tc": ("gemm", [_P] * 3 + [_C] * 4),
+    "repro_gemm_int8_tc": ("gemm", [_P] * 3 + [_C] * 6),
+    "repro_pack_kmajor_int8": ("gemm", [_P] * 2 + [_C] * 4
+                               + [ctypes.c_longlong] * 2 + [_C]),
     "repro_gemv": ("gemm", [_P] * 4 + [_C] * 5),
     "repro_expert_gemm": ("gemm", [_P] * 4 + [_C] * 6),
     "repro_expert_gemm_split": ("gemm", [_P] * 7 + [_C] * 6),
@@ -134,6 +141,8 @@ _SIGNATURES = {
                         + [ctypes.c_longlong] * 4),
     "repro_head_gemm_tc": ("gemm", [_P] * 3 + [_C] * 5
                            + [ctypes.c_longlong] * 4 + [_C]),
+    "repro_head_gemm_s8": ("gemm", [_P] * 4 + [_C] * 6
+                           + [ctypes.c_longlong] * 4),
     "repro_split_bf16": ("gemm", [_P] * 4 + [ctypes.c_longlong, _C, _C]),
     "repro_flash_fwd": ("flash_fwd", [_P] * 6 + [_C] * 7 + [_F] + [_C] * 4),
     "repro_flash_dq": ("flash_bwd", [_P] * 8 + [_C] * 7 + [_F] + [_C] * 4),
@@ -154,6 +163,7 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+    PACKED["int8"] = 0
 
 
 @contextlib.contextmanager
@@ -260,15 +270,21 @@ SM_COUNT = dict(H100.mesh_axes)["sm"]
 
 
 #: K1's routes (``gemm_route``; the expert and head forms take some of
-#: them; ``"int8_tile"`` is the int8 stacks' TMA + wgmma tile,
-#: :func:`expert_route`)
-K1_ROUTES = ("tile", "split", "gemv", "fma", "wmma", "int8", "int8_tile")
+#: them; ``"int8_tile"`` is every int8 product's TMA + wgmma s8 tile)
+K1_ROUTES = ("tile", "split", "gemv", "fma", "wmma", "int8_tile")
 #: the most k the float16 tile sums without promoting a stage (``gemm.cu``'s
 #: ``F16_PROMOTE_K``); the head form's float16 tile takes no more
 F16_PROMOTE_K = 8192
 #: the int8 tile's k granule: each K-major int8 row a multiple of 16 bytes,
-#: as TMA reads it
+#: as TMA reads it (an operand read in place has k % INT8_TILE_K == 0; the
+#: K-major pack writes rows of k rounded up to it)
 INT8_TILE_K = 16
+#: the int8 decode rows' (columns a block, k a unit) by ``transpose_b``
+#: (``gemm.cu``'s ``gemv8_cols`` / ``gemv8_unit``): w stored (n, k) streams
+#: 64 columns in units of 64 k (a 16-byte load a thread), w stored (k, n)
+#: 128 columns (16 a thread, ``n % K1_GEMV8_N == 0``) in units of 32 k
+K1_GEMV8 = {True: (64, 64), False: (128, 32)}
+K1_GEMV8_N = 16
 
 
 @functools.lru_cache(maxsize=4096)
@@ -296,14 +312,17 @@ def gemm_route(m: int, n: int, k: int, a_dtype, b_dtype,
       written at a row pitch of a multiple of 8 elements, so its own
       stored row and base do not matter), three wgmmas a k-step on the
       tile path;
-    - ``"int8"``: int8 x int8, the int8 form (``gemm_int8``: mma.sync
-      s8 x s8 into exact int32 sums, any shape and transposes); an int8
-      operand takes no other route of K1's 2-D products, and no other
-      operand this one.  Its accumulator is int32: ``apply`` refuses int8
-      operands under any other ``acc_dtype`` (``_plan``), and sends the
-      int8 forms K1 does not take (the head form, every K9 path) to K9's
-      integer accumulator.  A stack of int8 products with both operands
-      K-major takes the int8 tile where :func:`expert_route` gives it.
+    - ``"int8_tile"``: int8 x int8 at any shape and transposes, the int8
+      tile (TMA + wgmma s8 x s8 into exact int32 sums); an operand 8-bit
+      wgmma cannot read in place (MN-major: B stored ``(k, n)``, A
+      stored ``(k, m)``; or K-major with ``k % INT8_TILE_K`` or an
+      unaligned base) is first written K-major by
+      :func:`pack_kmajor_int8`.  An int8 operand takes no other route of
+      K1's 2-D products, and no other operand this one.  Its accumulator
+      is int32: ``apply`` refuses int8 operands under any other
+      ``acc_dtype`` (``_plan``), and sends the int8 forms K1 does not take
+      (the head form past 16 rows, every K9 path) to K9's integer
+      accumulator.
 
     A float16 operand takes the tile route or none: a product K1 does not
     take (:func:`f16_route` ``"K9"``, or float16 beside another dtype)
@@ -311,9 +330,9 @@ def gemm_route(m: int, n: int, k: int, a_dtype, b_dtype,
     f32, i8, f16 = torch.float32, torch.int8, torch.float16
     if i8 in (a_dtype, b_dtype):
         if a_dtype != b_dtype:
-            raise TypeError(f"K1's int8 form takes int8 x int8, got "
+            raise TypeError(f"K1's int8 tile takes int8 x int8, got "
                             f"{a_dtype} x {b_dtype}")
-        return "int8"
+        return "int8_tile"
     if f16 in (a_dtype, b_dtype):
         if a_dtype != b_dtype or f16_route(
                 m, n, k, transpose_a, transpose_b,
@@ -367,14 +386,16 @@ def f16_route(m: int, n: int, k: int, transpose_a: bool = False,
 
 
 @functools.lru_cache(maxsize=1024)
-def gemv_splits(m: int, n: int, k: int, e: int = 1) -> int:
-    """The decode-row kernel's split of k: enough blocks of 64 columns (of
-    each of the ``e`` experts of the expert form) for four a SM (``n``
-    alone fills the card at the vocab head, ``e x n`` at a MoE layer's
-    experts: no split), at least four units of 32 k a split, and no empty
-    split."""
-    units = k // K1_GEMV_UNIT
-    tiles = e * -(-n // 64)
+def gemv_splits(m: int, n: int, k: int, e: int = 1, cols: int = 64,
+                unit: int = K1_GEMV_UNIT) -> int:
+    """The decode-row kernel's split of k: enough blocks of ``cols``
+    columns (of each of the ``e`` experts of the expert form, or heads of
+    the head form) for four a SM (``n`` alone fills the card at the vocab
+    head, ``e x n`` at a MoE layer's experts: no split), at least four
+    units of ``unit`` k a split (the int8 rows' ``cols`` and ``unit``:
+    ``K1_GEMV8``), and no empty split."""
+    units = -(-k // unit)
+    tiles = e * -(-n // cols)
     want = max(1, min(-(-4 * SM_COUNT // tiles), units // 4))
     per = -(-units // want)
     return -(-units // per)
@@ -467,10 +488,12 @@ def _route(a: torch.Tensor, b: torch.Tensor, transpose_a: bool,
 
 def _gemm_int8(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
                transpose_b: bool = False) -> torch.Tensor:
-    """Launch K1's int8 form on ``op(a) @ op(b)``, 2-D operands or a stack
-    of experts ``(e, ., .)``, contiguous int8; returns the exact int32
-    ``(m, n)`` or ``(e, m, n)`` (wrapping past 2^31, as an int32
-    accumulator does)."""
+    """Launch K1's ``mma.sync`` int8 form on ``op(a) @ op(b)``, 2-D
+    operands or a stack of experts ``(e, ., .)``, contiguous int8; returns
+    the exact int32 ``(m, n)`` or ``(e, m, n)`` (wrapping past 2^31, as an
+    int32 accumulator does).  No route takes it (every int8 product is the
+    int8 tile's, :func:`_gemm_int8_tile`): it is kept as the timed
+    comparison on the same operands."""
     if a.dtype != torch.int8 or b.dtype != torch.int8 or \
             not (a.is_contiguous() and b.is_contiguous()):
         raise TypeError("K1's int8 form takes contiguous int8 operands")
@@ -485,27 +508,78 @@ def _gemm_int8(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
     return out
 
 
-def _gemm_int8_tile(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
-    """Launch K1's int8 tile (TMA + wgmma s8 x s8 into exact int32) on a
-    stack ``a (e, m, k)`` times ``bt (e, n, k)`` read as its transpose:
-    both operands K-major, contiguous int8, ``k`` a multiple of
-    ``INT8_TILE_K`` and 16-byte bases; returns the int32 ``(e, m, n)``
-    (wrapping past 2^31)."""
-    if a.dtype != torch.int8 or bt.dtype != torch.int8 or a.dim() != 3 or \
-            bt.dim() != 3 or not (a.is_contiguous() and bt.is_contiguous()):
-        raise TypeError("K1's int8 tile takes contiguous int8 stacks")
-    e, m, k = a.shape
-    n = bt.shape[1]
-    if bt.shape[0] != e or bt.shape[2] != k or k % INT8_TILE_K or \
-            a.data_ptr() % 16 or bt.data_ptr() % 16:
-        raise ValueError(f"K1's int8 tile takes (e, m, k) x (e, n, k) with "
-                         f"k % {INT8_TILE_K} == 0 and 16-byte bases; got "
-                         f"{tuple(a.shape)} x {tuple(bt.shape)}")
-    out = torch.empty((e, m, n), device=a.device, dtype=torch.int32)
+def int8_reads_in_place(k: int, mn_major: bool, base_ok: bool) -> bool:
+    """Whether K1's int8 tile reads an int8 operand as it is stored: K-major
+    (A ``(m, k)``, B stored ``(n, k)``: 8-bit wgmma reads no other
+    layout), its rows a multiple of ``INT8_TILE_K`` bytes and its base
+    16-byte aligned (TMA's row stride and base).  Any other operand is
+    written K-major first (:func:`pack_kmajor_int8`)."""
+    return not mn_major and k % INT8_TILE_K == 0 and base_ok
+
+
+def pack_kmajor_int8(t: torch.Tensor, mn_major: bool) -> torch.Tensor:
+    """The int8 tile's K-major pack of an int8 matrix or stack ``t``:
+    stored ``(..., k, rows)`` (``mn_major``) or ``(..., rows, k)``; returns
+    the contiguous ``(..., rows, k_pad)`` int8, ``k_pad`` the next multiple
+    of ``INT8_TILE_K``, zeros past ``k`` (``ref.pack_kmajor_int8``).  On the
+    card one launch of the hand-written pack (64 x 64-byte tiles, 16-byte
+    loads and stores, an MN-major tile transposed once in shared memory by
+    byte permutes); it counts in ``PACKED``, not as a K1 launch."""
+    if not _use_kernel(t):
+        return ref.pack_kmajor_int8(t, mn_major)
+    if t.dtype != torch.int8 or t.dim() not in (2, 3) or \
+            not t.is_contiguous():
+        raise TypeError("the int8 pack takes a contiguous int8 matrix or "
+                        "stack")
+    k, rows = t.shape[-2:] if mn_major else t.shape[-2:][::-1]
+    k_pad = -(-k // INT8_TILE_K) * INT8_TILE_K
+    out = torch.empty(t.shape[:-2] + (rows, k_pad), device=t.device,
+                      dtype=torch.int8)
     if out.numel():
-        _launch("repro_gemm_int8_tc", a.data_ptr(), bt.data_ptr(),
-                out.data_ptr(), e, m, n, k)
-        LAUNCHES["K1"] += 1
+        ld = t.shape[-1]
+        _launch("repro_pack_kmajor_int8", t.data_ptr(), out.data_ptr(),
+                t.shape[0] if t.dim() == 3 else 1, rows, k, k_pad, ld,
+                ld * t.shape[-2], int(mn_major))
+        PACKED["int8"] += 1
+    return out
+
+
+def _gemm_int8_tile(a: torch.Tensor, b: torch.Tensor,
+                    transpose_a: bool = False,
+                    transpose_b: bool = False) -> torch.Tensor:
+    """Launch K1's int8 tile (TMA + wgmma s8 x s8 into exact int32) on
+    ``op(a) @ op(b)``: 2-D operands (a stack of one) or stacks ``(e, .,
+    .)``, contiguous int8, ``a`` stored ``(m, k)`` (``(k, m)`` with
+    ``transpose_a``) and ``b`` stored ``(k, n)`` (``(n, k)`` with
+    ``transpose_b``).  An operand the tile cannot read in place
+    (:func:`int8_reads_in_place`) is packed K-major first
+    (:func:`pack_kmajor_int8`), and the tile reads its rows at their
+    padded pitch; ``k = 0`` gives zeros without a launch.  Returns the
+    int32 ``(m, n)`` or ``(e, m, n)`` (wrapping past 2^31); one K1 launch
+    a product."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8 or \
+            a.dim() not in (2, 3) or b.dim() != a.dim() or \
+            not (a.is_contiguous() and b.is_contiguous()):
+        raise TypeError("K1's int8 tile takes contiguous int8 matrices or "
+                        "stacks of one rank")
+    k, m = a.shape[-2:] if transpose_a else a.shape[-2:][::-1]
+    n, kb = b.shape[-2:] if transpose_b else b.shape[-2:][::-1]
+    if kb != k or a.shape[:-2] != b.shape[:-2]:
+        raise ValueError(f"K1's int8 tile: op(a) {tuple(a.shape)} and op(b) "
+                         f"{tuple(b.shape)} (transposes {transpose_a}, "
+                         f"{transpose_b}) do not multiply")
+    out = torch.empty(a.shape[:-2] + (m, n), device=a.device,
+                      dtype=torch.int32)
+    if not out.numel() or k == 0:
+        return out.zero_()
+    # each operand K-major, as read: in place, or packed (rows of k_pad)
+    ak, bk = (t if int8_reads_in_place(k, mn, t.data_ptr() % 16 == 0)
+              else pack_kmajor_int8(t, mn)
+              for t, mn in ((a, transpose_a), (b, not transpose_b)))
+    _launch("repro_gemm_int8_tc", ak.data_ptr(), bk.data_ptr(),
+            out.data_ptr(), a.shape[0] if a.dim() == 3 else 1, m, n, k,
+            ak.shape[-1], bk.shape[-1])
+    LAUNCHES["K1"] += 1
     return out
 
 
@@ -585,11 +659,11 @@ def _product(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
              transpose_b: bool = False, split=None) -> torch.Tensor:
     """The f32 2-D product through K1 (CUDA) or its plain version (which
     ignores ``split`` and multiplies the f32 operand exactly); int8
-    operands give the exact int32 product (K1's int8 form)."""
+    operands give the exact int32 product (K1's int8 tile)."""
     if a.dtype == torch.int8 or b.dtype == torch.int8:
         gemm_route(1, 1, 1, a.dtype, b.dtype)        # int8 x int8 only
         if _use_kernel(a, b):
-            return _gemm_int8(a, b, transpose_a, transpose_b)
+            return _gemm_int8_tile(a, b, transpose_a, transpose_b)
         return ref.matmul_int8(a, b, transpose_a, transpose_b)
     if _use_kernel(a, b):
         return _gemm(a, b, transpose_a, transpose_b, split)
@@ -815,21 +889,20 @@ def expert_route(e: int, cap: int, d: int, f: int, x_dtype, w_dtype,
       the 2-D route's row pitch, so its rows too must be a multiple of 8
       elements; never ``"gemv"``).
 
-    int8 x int8 takes K1 whatever its transposes: the int8 tile
-    (``"int8_tile"``: TMA + wgmma s8, which reads only K-major operands)
-    where x is untransposed, w stored ``(e, f, d)`` (``transpose_b``),
-    ``d % INT8_TILE_K == 0`` and ``base_ok``; else the int8 form
-    (``"int8"``, any shape, transposes and alignment).  Everything else is
-    ``"K9"`` (its batched TILE path, which takes each operand's own
-    dtype): other dtypes or transposes, unaligned rows or bases.  Dtypes
-    are torch dtypes or their names."""
+    int8 x int8 takes K1's int8 tile (``"int8_tile"``: TMA + wgmma s8)
+    whatever its transposes, shape and alignment: an operand the tile
+    cannot read in place (:func:`int8_reads_in_place`: x stored ``(e, d,
+    cap)``, w stored ``(e, d, f)``, ``d % INT8_TILE_K``, an unaligned
+    base) is packed K-major first.  Everything else is ``"K9"`` (its
+    batched TILE path, which takes each operand's own dtype): other dtypes
+    or transposes, unaligned rows or bases.  Dtypes are torch dtypes or
+    their names."""
     names = tuple(str(t).removeprefix("torch.") for t in (x_dtype, w_dtype))
     if not (e and cap and f and d):
         return "K9"
     form = (names, bool(transpose_a), bool(transpose_b))
     if names == ("int8", "int8"):
-        return "int8_tile" if form[1:] == (False, True) and \
-            d % INT8_TILE_K == 0 and base_ok else "int8"
+        return "int8_tile"
     dts = tuple(getattr(torch, n) for n in names)
     if form == (("bfloat16", "bfloat16"), False, False):
         route = gemm_route(cap, f, d, *dts, False, False, base_ok, base_ok)
@@ -899,19 +972,13 @@ def _expert_product(x: torch.Tensor, w: torch.Tensor,
                     transpose_b: bool = False) -> torch.Tensor:
     """The f32 expert form through K1 (CUDA) or its plain version; int8
     experts give the exact int32 product of ``op(x) @ op(w)`` (K1's int8
-    tile or int8 form, :func:`expert_route`).  Only int8 stacks come
-    transposed."""
+    tile, each operand it cannot read in place packed K-major first).
+    Only int8 stacks come transposed."""
     if x.dtype == torch.int8 or w.dtype == torch.int8:
         gemm_route(1, 1, 1, x.dtype, w.dtype)        # int8 x int8 only
         if not _use_kernel(x, w):
             return ref.matmul_int8(x, w, transpose_a, transpose_b)
-        if expert_route(*_expert_dims(x.shape, w.shape, transpose_a,
-                                      transpose_b),
-                        x.dtype, w.dtype,
-                        x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
-                        transpose_a, transpose_b) == "int8_tile":
-            return _gemm_int8_tile(x, w)
-        return _gemm_int8(x, w, transpose_a, transpose_b)
+        return _gemm_int8_tile(x, w, transpose_a, transpose_b)
     if _use_kernel(x, w):
         return _expert_gemm(x, w)
     return ref.expert_gemm(x, w)
@@ -1070,13 +1137,23 @@ def head_route(h: int, m: int, k: int, n: int, x_dtype, w_dtype,
     F16_PROMOTE_K`` (the head tile promotes no stage); there is no
     float16 decode-row kernel.
 
+    int8 x int8 (under its int32 accumulator): ``"gemv"``, the int8
+    decode rows (``mma.sync`` m16n8k32 s8 into exact int32 sums, the
+    split's partials summed with wrapping adds), at ``m <=
+    K1_DECODE_ROWS``, ``k % 32 == 0`` and, with w stored ``(k, h, n)``,
+    ``n % K1_GEMV8_N == 0`` (whole 16-byte loads along n).
+
     ``"K9"`` otherwise (its batched path on row-major copies): rows TMA
     cannot read, unaligned views, a float16 k past ``F16_PROMOTE_K``, f32,
-    and mixed operands under its f32 accumulator, int8 ones under its
-    int32 accumulator (exact).  Dtypes are torch dtypes or their names."""
+    and mixed operands under its f32 accumulator, int8 ones past 16 rows
+    or off those rows' shapes under its int32 accumulator (exact).  Dtypes
+    are torch dtypes or their names."""
     names = tuple(str(t).removeprefix("torch.") for t in (x_dtype, w_dtype))
     if not (h and m and k and n):
         return "K9"
+    if names == ("int8", "int8"):
+        return "gemv" if m <= K1_DECODE_ROWS and k % K1_GEMV_UNIT == 0 and \
+            (transpose_b or n % K1_GEMV8_N == 0) and aligned else "K9"
     if names == ("float16", "float16"):
         return "tile" if k <= F16_PROMOTE_K and tma_reads(
             m, n, k, False, bool(transpose_b), aligned) else "K9"
@@ -1103,43 +1180,52 @@ def _head_strides(t: torch.Tensor, route: str) -> tuple[int, int]:
 def _head_gemm(x: torch.Tensor, w: torch.Tensor,
                transpose_b: bool = False) -> torch.Tensor:
     """Launch K1's head form on ``x (m, h, k)`` and ``w (k, h, n)`` (``(n,
-    h, k)`` with ``transpose_b``), strided views read in place, bf16 or
-    both float16, on the route :func:`head_route` gives; returns the f32
-    ``(h, m, n)``.  The decode rows split the k range over
-    :func:`gemv_splits` blocks, whose partials a second pass sums in split
-    order; the tile does not split k."""
+    h, k)`` with ``transpose_b``), strided views read in place, bf16, both
+    float16 or both int8, on the route :func:`head_route` gives; returns
+    the f32 ``(h, m, n)`` (int32 from int8, exact).  The decode rows split
+    the k range over :func:`gemv_splits` blocks, whose partials a second
+    pass sums in split order; the tile does not split k."""
     m, h, k = x.shape
     n = w.shape[0] if transpose_b else w.shape[2]
     route = head_route(h, m, k, n, x.dtype, w.dtype, transpose_b,
                        head_aligned(x, w))
     if route == "K9":
-        raise ValueError(f"K1's head form takes aligned bf16 (or float16) "
-                         f"operands whose rows TMA reads; "
+        raise ValueError(f"K1's head form takes aligned bf16 (or float16, "
+                         f"or int8 at most {K1_DECODE_ROWS} rows) operands "
+                         f"whose rows it reads; "
                          f"{tuple(x.shape)} {x.dtype} x "
                          f"{tuple(w.shape)} {w.dtype} (transpose_b="
                          f"{transpose_b}) is K9's (ops.head_route)")
-    out = torch.empty((h, m, n), device=x.device, dtype=torch.float32)
     strides = (*_head_strides(x, route), *_head_strides(w, route))
+    int8 = x.dtype == torch.int8
+    acc = torch.int32 if int8 else torch.float32
+    out = torch.empty((h, m, n), device=x.device, dtype=acc)
     if route == "tile":
         _launch("repro_head_gemm_tc", x.data_ptr(), w.data_ptr(),
                 out.data_ptr(), h, m, n, k, int(transpose_b), *strides,
                 int(x.dtype == torch.float16))
     else:
-        nsplit = gemv_splits(m, n, k, h)
+        # the int8 rows stream in their own columns and k units
+        nsplit = gemv_splits(m, n, k, h, *(K1_GEMV8[bool(transpose_b)]
+                                           if int8 else ()))
         ws = torch.empty((nsplit, h, m, n), device=x.device,
-                         dtype=torch.float32) if nsplit > 1 else None
-        _launch("repro_head_gemm", x.data_ptr(), w.data_ptr(),
-                out.data_ptr(), None if ws is None else ws.data_ptr(), h, m,
-                n, k, int(transpose_b), nsplit, *strides)
+                         dtype=acc) if nsplit > 1 else None
+        _launch("repro_head_gemm_s8" if int8 else "repro_head_gemm",
+                x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(), h, m, n, k,
+                int(transpose_b), nsplit, *strides)
     LAUNCHES["K1"] += 1
     return out
 
 
 def _head_product(x: torch.Tensor, w: torch.Tensor,
                   transpose_b: bool = False) -> torch.Tensor:
-    """The f32 head form through K1 (CUDA) or its plain version."""
+    """The f32 head form through K1 (CUDA) or its plain version; int8
+    operands give the exact int32 product (K1's int8 decode rows)."""
     if _use_kernel(x, w):
         return _head_gemm(x, w, transpose_b)
+    if x.dtype == torch.int8:
+        return ref.head_gemm_int8(x, w, transpose_b)
     return ref.head_gemm(x, w, transpose_b)
 
 
@@ -1953,7 +2039,7 @@ _PLANS_LOCK = threading.Lock()
 _PLANS_SIZE = 512
 #: the :func:`expert_route` routes a stack takes through ``apply`` (the
 #: forward's; every int8 stack's): not the split VJP forms
-APPLY_STACK_ROUTES = ("gemv", "tile", "int8", "int8_tile")
+APPLY_STACK_ROUTES = ("gemv", "tile", "int8_tile")
 
 
 def _k1_form(nf: "E.NormalForm"):
@@ -2016,9 +2102,10 @@ def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
     it the forward's routes or an int8 one (``aligned``: every base
     16-byte aligned), a head form (``batched`` ``"head"``) where
     :func:`head_route` does (``aligned``: the views' strides as
-    :func:`head_aligned` reads them; bf16, or two float16 operands),
-    else K9.  A 2-D float16 form takes K1's tile route where both
-    operands are float16 and :func:`f16_route` gives it the tile
+    :func:`head_aligned` reads them; bf16, two float16 operands, or two
+    int8 ones at most 16 rows), else K9.  A 2-D float16 form takes K1's
+    tile route where both operands are float16 and :func:`f16_route`
+    gives it the tile
     (``aligned``: both bases 16-byte aligned); every other float16 form
     (a stack, float16 beside another dtype) takes K9, which loads float16
     beside f32 and bf16 under its f32 accumulator.  A stack with a
@@ -2027,9 +2114,10 @@ def _plan(nf: "E.NormalForm", dtypes: tuple, out_dtype, hardware,
     than f32 or int32 (a table's bf16) raises: no kernel has one.  int8
     operands take an int32 accumulator only (an f32 accumulator would
     round past 2^24), on (mul, add) only: any other raises.  K1 sums the
-    2-D int8 products and every int8 stack exactly (the int8 tile or the
-    int8 form); every other int8 form (the head form, every K9 path)
-    takes K9's integer accumulator, exact too."""
+    2-D int8 products and every int8 stack exactly (the int8 tile), and
+    the int8 head form at most 16 rows (its int8 decode rows); every other
+    int8 form (the head form past 16 rows or off those rows' shapes, every
+    K9 path) takes K9's integer accumulator, exact too."""
     block_key = blocks.as_tuple() if hasattr(blocks, "as_tuple") else (
         tuple(blocks) if isinstance(blocks, (list, tuple)) else blocks)
     key = (nf.key(), dtypes, out_dtype, hardware.name, block_key, acc_dtype,
@@ -2141,10 +2229,10 @@ def apply(expr: "E.Expr", *arrays: torch.Tensor, out_dtype=None,
     (CUDA tensors) or their plain versions (CPU tensors); the result is in
     ``out_dtype`` (default the first array's dtype), accumulated in
     ``acc_dtype``: f32, or int32 for int8 operands under (mul, add),
-    summed exactly by K1 (a 2-D product, either operand transposed, on
-    its int8 form; a stack of any transpose on its int8 tile or int8
-    form, :func:`expert_route`) or by K9's integer accumulator (every
-    other form).  float16 operands run under the f32 accumulator: a 2-D
+    summed exactly by K1 (a 2-D product or a stack, either operand
+    transposed, on its int8 tile; the head form at most 16 rows on its
+    int8 decode rows) or by K9's integer accumulator (every other
+    form).  float16 operands run under the f32 accumulator: a 2-D
     product of two on K1's tile route where :func:`f16_route` allows it,
     a head form of two on K1's head tile where :func:`head_route` allows
     it, every other float16 form on K9.

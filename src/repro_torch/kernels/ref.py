@@ -58,6 +58,21 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor, transpose_a: bool = False,
     return exact_int32(torch.matmul(x.double(), w.double()))
 
 
+def pack_kmajor_int8(t: torch.Tensor, mn_major: bool,
+                     granule: int = 16) -> torch.Tensor:
+    """The K-major pack of K1's int8 tile: an int8 matrix or stack stored
+    ``(..., k, rows)`` (``mn_major``) or ``(..., rows, k)``, as the
+    contiguous ``(..., rows, k_pad)`` copy, ``k_pad`` the next multiple of
+    ``granule`` (the tile's 16-byte rows), zeros past ``k`` (they add
+    nothing to the sums)."""
+    x = t.transpose(-1, -2) if mn_major else t
+    k = x.shape[-1]
+    out = torch.zeros(x.shape[:-1] + (-(-k // granule) * granule,),
+                      dtype=t.dtype, device=t.device)
+    out[..., :k] = x
+    return out
+
+
 def expert_gemm(x: torch.Tensor, w: torch.Tensor,
                 out_dtype=torch.float32) -> torch.Tensor:
     """The capacity-padded expert GEMM ``x (E, cap, d) @ w (E, d, f) ->
@@ -75,6 +90,16 @@ def head_gemm(x: torch.Tensor, w: torch.Tensor,
     for bf16), accumulated and returned in f32.  Any strides."""
     eq = "mhk,nhk->hmn" if transpose_b else "mhk,khn->hmn"
     return torch.einsum(eq, x.float(), w.float())
+
+
+def head_gemm_int8(x: torch.Tensor, w: torch.Tensor,
+                   transpose_b: bool = False) -> torch.Tensor:
+    """K1's int8 head form: ``x (m, h, k) @ w (k, h, n) -> (h, m, n)``
+    (``w`` stored ``(n, h, k)`` with ``transpose_b``) of int8 operands,
+    summed in float64 (exact, as ``matmul_int8``) and returned as int32
+    (``exact_int32``).  Any strides."""
+    eq = "mhk,nhk->hmn" if transpose_b else "mhk,khn->hmn"
+    return exact_int32(torch.einsum(eq, x.double(), w.double()))
 
 
 def split_bf16(g: torch.Tensor) -> tuple[torch.Tensor, ...]:

@@ -447,8 +447,9 @@ def test_int8_operands_refuse_other_accumulators(acc, verify):
 
 def test_int32_expert_form_and_refused_forms():
     """The expert form's int32 accumulation equals the reference's; so do
-    the head form's and a K9 form's (both layouts of the head form and a
-    batched product on K9's integer accumulator), bit for bit; bf16
+    the head form's, bit for bit: both layouts at k = 32 on K1's int8
+    decode rows (``("K1", False, tb, "head")``), and at k = 40 (no
+    multiple of 32: refused by K1) on K9's integer accumulator; bf16
     accumulation raises the reference's own table error on the H100."""
     rng = np.random.default_rng(9)
     x = rng.integers(-128, 128, (3, 20, 33)).astype(np.int8)
@@ -460,17 +461,22 @@ def test_int32_expert_form_and_refused_forms():
                     torch.from_numpy(w), acc_dtype="int32",
                     out_dtype=torch.int32)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    hx = rng.integers(-128, 128, (4, 2, 32)).astype(np.int8)
-    for tb, shape in ((False, (32, 2, 16)), (True, (16, 2, 32))):
-        hw_ = rng.integers(-128, 128, shape).astype(np.int8)
-        want = jops.apply(JE.head_gemm_expr(2, 4, 32, 16, transpose_b=tb),
+    for tb, k in ((False, 32), (True, 32), (False, 40)):
+        hx = rng.integers(-128, 128, (4, 2, k)).astype(np.int8)
+        hw_ = rng.integers(-128, 128, (16, 2, k) if tb else (k, 2, 16)
+                           ).astype(np.int8)
+        want = jops.apply(JE.head_gemm_expr(2, 4, k, 16, transpose_b=tb),
                           jnp.asarray(hx), jnp.asarray(hw_),
                           acc_dtype="int32", out_dtype=jnp.int32,
                           interpret=True)
-        expr = PE.head_gemm_expr(2, 4, 32, 16, transpose_b=tb)
+        expr = PE.head_gemm_expr(2, 4, k, 16, transpose_b=tb)
         nf = PE.normal_form(expr)
-        assert ops._plan(nf, ("int8", "int8"), torch.int32, H100, None,
-                         "int32")[0] == "K9"
+        plan = ops._plan(nf, ("int8", "int8"), torch.int32, H100, None,
+                         "int32")
+        if k % 32:
+            assert plan[0] == "K9"
+        else:
+            assert plan == ("K1", False, tb, "head")
         got = ops.apply(expr, torch.from_numpy(hx), torch.from_numpy(hw_),
                         acc_dtype="int32", out_dtype=torch.int32)
         assert got.dtype == torch.int32

@@ -1,6 +1,7 @@
 """The forms K1 / K9 used to refuse, held to the JAX package on the CPU:
 int8 operands under an int32 accumulator on every (mul, add) form that
-K1's int8 form does not take (K9's integer accumulator), K9 past its old
+K1's int8 tile and int8 decode rows do not take (K9's integer
+accumulator), and on the head form K1's int8 decode rows take, K9 past its old
 rank limits (more out axes, more unmergeable contracted axes, more
 operands), and float16 operands under the f32 accumulator.
 
@@ -26,16 +27,24 @@ from repro_torch.kernels import emit, ops  # noqa: E402
 
 def _int_forms(E):
     """(label) -> (expr, storage shapes, K9's path) of the (mul, add) forms
-    whose int8 x int8 -> int32 product K9 takes, and the stack with B
-    transposed, which K1 takes (its plan in place of a path)."""
+    whose int8 x int8 -> int32 product K9 takes, and the forms K1 takes
+    (its plan in place of a path): the stack with B transposed, and the
+    head form at k = 64 (K1's int8 decode rows; at k = 40, no multiple of
+    32, the head form stays on K9)."""
     A = E.arr
     return {
         "head": (E.head_gemm_expr(3, 5, 40, 17), [(5, 3, 40), (40, 3, 17)],
                  emit.TILE),
         "head_tb": (E.head_gemm_expr(3, 5, 40, 17, transpose_b=True),
                     [(5, 3, 40), (17, 3, 40)], emit.TILE),
+        "head_k1": (E.head_gemm_expr(3, 4, 64, 32), [(4, 3, 64), (64, 3, 32)],
+                    ("K1", False, False, "head")),
+        "head_k1_tb": (E.head_gemm_expr(3, 4, 64, 17, transpose_b=True),
+                       [(4, 3, 64), (17, 3, 64)],
+                       ("K1", False, True, "head")),
         # a batched product with a transposed B: K1's int8 stack (on the
-        # card the int8 form here, k = 33 being no multiple of 16)
+        # card the int8 tile, both operands packed to a pitch of 48, k =
+        # 33 being no multiple of 16)
         "batched": (E.inner("add", "mul", A("X", (3, 20, 33)),
                             E.transpose(A("W", (3, 17, 33)), (0, 2, 1)),
                             batch=1), [(3, 20, 33), (3, 17, 33)],
@@ -128,8 +137,9 @@ def test_int8_stacks_take_k1_at_any_transpose(ta, tb, k):
     """Every int8 stack is K1's (``("K1", ta, tb, True)``): the port's
     ``apply`` (the plain version here) equals the reference's
     interpret-mode kernel bit for bit into int32, and the plan checks
-    clean (``verify="kernel"``); on the card k = 64 with B transposed is
-    the int8 tile's, the others the int8 form's."""
+    clean (``verify="kernel"``); on the card each is the int8 tile's
+    (k = 64 with B transposed reads both operands in place, the others
+    pack one or both K-major first)."""
     expr_j, shapes = _int8_stack(JE, ta, tb, k=k)
     expr_p = _int8_stack(PE, ta, tb, k=k)[0]
     ins = _ints(shapes, 7 + k)
@@ -142,8 +152,7 @@ def test_int8_stacks_take_k1_at_any_transpose(ta, tb, k):
     _, plan = _plan(expr_p, ["int8"] * 2, "int32", torch.int32)
     assert plan == ("K1", ta, tb, True)
     route = ops.expert_route(3, 20, k, 17, "int8", "int8", True, ta, tb)
-    assert route == ("int8_tile" if (ta, tb, k) == (False, True, 64)
-                     else "int8")
+    assert route == "int8_tile"
 
 
 def test_int32_chain_stages_through_an_int32_scratch():

@@ -139,31 +139,28 @@ def test_float16_route_rule(m, n, k, a_dt, b_dt, ta, tb, aligned, route):
 
 _I8 = torch.int8
 #: (e, cap, d, f, transpose_a, transpose_b, aligned) -> the route of an
-#: int8 stack: the int8 tile where x is untransposed, w stored (e, f, d),
-#: d % 16 == 0 and the bases aligned (both operands K-major, as 8-bit
-#: wgmma reads them); the int8 form (any shape and transposes) otherwise;
-#: never K9
+#: int8 stack: the int8 tile at every shape, transpose and alignment (an
+#: operand it cannot read in place is packed K-major first); never K9
 INT8_STACK_ROUTES = [
     ((16, 1024, 1024, 1024, False, True, True), "int8_tile"),
     ((3, 130, 64, 70, False, True, True), "int8_tile"),    # ragged m, n
     ((3, 20, 16, 17, False, True, True), "int8_tile"),     # one k granule
-    ((3, 20, 33, 17, False, True, True), "int8"),          # k % 16
-    ((3, 20, 40, 17, False, True, True), "int8"),          # k % 16 (8)
-    ((16, 1024, 1024, 1024, False, True, False), "int8"),  # bases
-    ((16, 1024, 1024, 1024, False, False, True), "int8"),  # w (e, d, f)
-    ((16, 1024, 1024, 1024, True, False, True), "int8"),   # x (e, d, cap)
-    ((16, 1024, 1024, 1024, True, True, True), "int8"),
-    ((3, 20, 33, 17, True, True, False), "int8"),
+    ((3, 20, 33, 17, False, True, True), "int8_tile"),     # k % 16
+    ((3, 20, 40, 17, False, True, True), "int8_tile"),     # k % 16 (8)
+    ((16, 1024, 1024, 1024, False, True, False), "int8_tile"),  # bases
+    ((16, 1024, 1024, 1024, False, False, True), "int8_tile"),  # w (e, d, f)
+    ((16, 1024, 1024, 1024, True, False, True), "int8_tile"),   # x (e, d, cap)
+    ((16, 1024, 1024, 1024, True, True, True), "int8_tile"),
+    ((3, 20, 33, 17, True, True, False), "int8_tile"),
 ]
 
 
 @pytest.mark.parametrize("case,route", INT8_STACK_ROUTES)
 def test_int8_stack_route_rule(case, route):
     """``ops.expert_route`` for int8 stacks of each transpose: K1's int8
-    tile only for (ta, tb) = (False, True), k a multiple of
-    ``INT8_TILE_K`` and aligned bases, else K1's int8 form; no int8 stack
-    is K9's.  ``_plan`` takes the same route for the stack's normal form,
-    with its transposes as K1's flags."""
+    tile at every shape, transpose and alignment; no int8 stack is K9's.
+    ``_plan`` takes the same route for the stack's normal form, with its
+    transposes as K1's flags."""
     from repro_torch.core import expr as E
     e, cap, d, f, ta, tb, aligned = case
     got = ops.expert_route(e, cap, d, f, _I8, _I8, aligned, ta, tb)
@@ -198,6 +195,67 @@ def test_transposed_stacks_but_int8_stay_on_k9(dts, ta, tb):
     assert ops._k1_form(nf) == (ta, tb, True)
     plan = ops._plan(nf, dts, torch.float32, ops.H100, None, "float32")
     assert plan[0] == "K9" and isinstance(plan[1], emit.Launch)
+
+
+#: (m, n, k, transpose_a, transpose_b, bases aligned): 2-D int8 products,
+#: each the int8 tile's ("int8_tile"), however its operands lie
+INT8_2D = [
+    (4096, 4096, 4096, False, False, True),     # B stored (k, n): packed
+    (4096, 4096, 4096, False, True, True),      # both K-major: in place
+    (4096, 4096, 4096, True, False, True),      # both MN-major
+    (4096, 4096, 4096, True, True, True),       # A stored (k, m)
+    (1001, 999, 37, False, False, True),        # ragged, k % 16
+    (37, 130, 72, True, True, True),            # k % 16 (8)
+    (130, 33, 1, False, True, True),            # one k
+    (40, 24, 4096, False, False, False),        # unaligned bases
+    (3, 5, 0, False, True, True),               # k = 0: zeros, no launch
+]
+
+
+@pytest.mark.parametrize("m,n,k,ta,tb,aligned", INT8_2D)
+def test_int8_2d_products_take_the_int8_tile(m, n, k, ta, tb, aligned):
+    """``ops.gemm_route`` gives every 2-D int8 product K1's int8 tile
+    (the ``mma.sync`` int8 form is no route); ``int8_reads_in_place``
+    reads an operand as stored only where it is K-major (A untransposed,
+    B stored (n, k)) with k a multiple of 16 and an aligned base, and
+    ``_plan`` plans the product on K1 with its transposes."""
+    from repro_torch.core import expr as E
+    assert ops.gemm_route(m, n, k, _I8, _I8, ta, tb, aligned,
+                          aligned) == "int8_tile"
+    assert "int8" not in ops.K1_ROUTES and "int8_tile" in ops.K1_ROUTES
+    for mn in (ta, not tb):
+        assert ops.int8_reads_in_place(k, mn, aligned) == (
+            not mn and k % 16 == 0 and aligned)
+    if not k:                        # no expression has an empty axis
+        return
+    a = E.arr("A", (k, m) if ta else (m, k))
+    b = E.arr("B", (n, k) if tb else (k, n))
+    expr = E.inner("add", "mul", E.transpose(a) if ta else a,
+                   E.transpose(b) if tb else b)
+    plan = ops._plan(E.normal_form(expr), ("int8", "int8"), torch.int32,
+                     ops.H100, None, "int32", aligned)
+    assert plan == ("K1", ta, tb, False)
+
+
+@pytest.mark.parametrize("shape,mn", [((37, 5), True), ((5, 37), False),
+                                      ((2, 64, 130), True),
+                                      ((2, 130, 48), False),
+                                      ((3, 16, 7), True), ((1, 1), False)])
+def test_pack_kmajor_int8_plain_version(shape, mn):
+    """``ref.pack_kmajor_int8`` (the pack's plain version, which the CPU
+    path of ``ops.pack_kmajor_int8`` returns) against numpy: the operand
+    K-major, (..., rows, k_pad) with k_pad the next multiple of 16, the
+    values where numpy's transpose puts them and zeros past k."""
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    x = rng.integers(-128, 128, shape).astype(np.int8)
+    kmaj = np.swapaxes(x, -1, -2) if mn else x
+    k = kmaj.shape[-1]
+    want = np.zeros(kmaj.shape[:-1] + (-(-k // 16) * 16,), np.int8)
+    want[..., :k] = kmaj
+    got = ops.pack_kmajor_int8(torch.from_numpy(x), mn)
+    assert got.dtype == torch.int8 and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert ops.PACKED["int8"] == 0           # no launch on the CPU
 
 
 @pytest.mark.parametrize("a_ok,b_ok", [(False, True), (True, False)])
@@ -408,3 +466,50 @@ def test_flash_plain_versions_take_apart_widths_on_the_cpu():
     assert dq.shape == q.shape and dk.shape == k.shape
     assert dv.shape == v.shape
     assert sum(ops.LAUNCHES.values()) == 0
+
+
+#: (h, m, k, n, transpose_b, aligned, w dtype) -> the route of an int8
+#: head form: K1's int8 decode rows ("gemv") at most 16 rows, k % 32 == 0,
+#: n % 16 == 0 where w is stored (k, h, n), views it reads in place; K9
+#: (its integer accumulator) past 16 rows, at a ragged k or n, on
+#: unaligned views and beside another dtype
+INT8_HEAD_ROUTES = [
+    ((40, 1, 64, 256, True, True, _I8), "gemv"),       # minicpm3's q_lat
+    ((40, 4, 64, 256, True, True, _I8), "gemv"),
+    ((40, 16, 64, 256, True, True, _I8), "gemv"),
+    ((40, 4, 256, 64, False, True, _I8), "gemv"),      # its out
+    ((40, 4, 96, 64, True, True, _I8), "gemv"),        # a half unit of 64
+    ((40, 17, 64, 256, True, True, _I8), "K9"),        # rows
+    ((40, 4, 40, 256, True, True, _I8), "K9"),         # k % 32
+    ((40, 4, 256, 72, False, True, _I8), "K9"),        # n % 16, w (k, h, n)
+    ((40, 4, 64, 72, True, True, _I8), "gemv"),        # n free with tb
+    ((40, 4, 64, 256, True, False, _I8), "K9"),        # views
+    ((40, 4, 64, 256, True, True, torch.bfloat16), "K9"),   # int8 x bf16
+]
+
+
+@pytest.mark.parametrize("case,route", INT8_HEAD_ROUTES)
+def test_int8_head_route_rule(case, route):
+    """``ops.head_route`` for int8 head forms, and the plan of
+    ``head_gemm_expr`` under int32: K1's head form (``("K1", False,
+    transpose_b, "head")``) on the int8 decode rows, else K9's launch
+    descriptor; the decode rows' split of k covers its units once."""
+    from repro_torch.core import expr as E
+    from repro_torch.kernels import emit
+    h, m, k, n, tb, aligned, w_dt = case
+    assert ops.head_route(h, m, k, n, _I8, w_dt, tb, aligned) == route
+    if w_dt != _I8:
+        return
+    nf = E.normal_form(E.head_gemm_expr(h, m, k, n, transpose_b=tb))
+    plan = ops._plan(nf, ("int8", "int8"), torch.int32, ops.H100, None,
+                     "int32", aligned)
+    if route == "K9":
+        assert plan[0] == "K9" and isinstance(plan[1], emit.Launch)
+        return
+    assert plan == ("K1", False, tb, "head")
+    cols, unit = ops.K1_GEMV8[tb]
+    nsplit = ops.gemv_splits(m, n, k, h, cols, unit)
+    units = -(-k // unit)
+    per = -(-units // nsplit)
+    assert 1 <= nsplit <= units and (nsplit - 1) * per < units <= \
+        nsplit * per

@@ -1117,12 +1117,13 @@ def test_gated_scan_backward_runs_the_reverse_walk(h100):
 
 
 # ---------------------------------------------------------------------------
-# K1's int8 form: int8 x int8 -> exact int32 (ops.apply, acc_dtype="int32")
+# K1's int8 tile: int8 x int8 -> exact int32 (ops.apply, acc_dtype="int32")
 # ---------------------------------------------------------------------------
 
-#: (m, k, n): ragged (no multiple of the 128 x 128 x 64 tiles, k not a
-#: multiple of 16: byte copies), aligned (16-byte copies), k of one
-#: element, and mamba-width rows
+#: (m, k, n): ragged (no multiple of the 128 x BN x 128 tiles, k not a
+#: multiple of 16: both operands packed to k_pad), aligned (each operand
+#: read in place or packed by its layout), k of one element, and
+#: mamba-width rows
 INT8_SHAPES = [(37, 72, 130), (1001, 37, 999), (256, 4096, 512),
                (130, 1, 33), (2048, 2560, 1024)]
 
@@ -1133,30 +1134,40 @@ def _int8(dev, *shape, seed=0, lo=-128, hi=128):
                          dtype=torch.int8)
 
 
+def _packs(k, ta, tb, aligned=True):
+    """The operands K1's int8 tile packs K-major for op(a) @ op(b)."""
+    return sum(not ops.int8_reads_in_place(k, mn, aligned)
+               for mn in (ta, not tb))
+
+
 @pytest.mark.h100
 @pytest.mark.parametrize("ta,tb", [(False, False), (True, False),
                                    (False, True), (True, True)])
 @pytest.mark.parametrize("m,k,n", INT8_SHAPES)
 def test_gemm_int8_form_matches_plain_bit_for_bit(h100, m, k, n, ta, tb):
-    """K1's int8 form with either operand transposed (read in its stored
-    layout, transposed in shared memory) equals the exact plain version
-    (int64 sums checked into int32) bit for bit, and a rerun too."""
+    """Every 2-D int8 product is K1's int8 tile (TMA + wgmma s8), each
+    operand 8-bit wgmma cannot read in place packed K-major first: equal
+    to the exact plain version (int64 sums checked into int32) bit for
+    bit, to K1's ``mma.sync`` int8 form (no route: the comparison) on
+    the same operands, and a rerun too."""
     a = _int8(h100, *((k, m) if ta else (m, k)), seed=m + k)
     b = _int8(h100, *((n, k) if tb else (k, n)), seed=n + 3 * k)
-    assert ops.gemm_route(m, n, k, a.dtype, b.dtype, ta, tb) == "int8"
+    assert ops.gemm_route(m, n, k, a.dtype, b.dtype, ta, tb) == "int8_tile"
     got = ops._product(a, b, ta, tb)
     again = ops._product(a, b, ta, tb)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["K1"] == 2 and got.dtype == torch.int32
+    assert ops.PACKED["int8"] == 2 * _packs(k, ta, tb)
     assert torch.equal(got, ref.matmul_int8(a, b, ta, tb))
     assert torch.equal(got, again)
+    assert torch.equal(got, ops._gemm_int8(a, b, ta, tb))
 
 
 @pytest.mark.h100
 def test_gemm_int8_form_at_the_int32_edge(h100):
     """All operands -128 over k = 4096: every sum is 2^26, far past f32's
-    exact integers (2^24) and exact in int32; an unaligned base takes the
-    byte copies."""
+    exact integers (2^24) and exact in int32; an unaligned base is packed
+    (its byte loads) before the tile reads it."""
     k = 4096
     a = torch.full((40, k), -128, dtype=torch.int8, device=h100)
     b = torch.full((k, 24), -128, dtype=torch.int8, device=h100)
@@ -1166,7 +1177,9 @@ def test_gemm_int8_form_at_the_int32_edge(h100):
     flat = _int8(h100, 40 * k + 1, seed=5)
     a2 = flat[1:].view(40, k)
     assert a2.data_ptr() % 16
+    ops.reset_launches()
     assert torch.equal(ops._product(a2, b), ref.matmul_int8(a2, b))
+    assert ops.LAUNCHES["K1"] == 1 and ops.PACKED["int8"] == 2
 
 
 @pytest.mark.h100
@@ -1174,19 +1187,21 @@ def test_gemm_int8_form_at_the_int32_edge(h100):
                                        (3, 200, 37, 130)])
 def test_gemm_int8_expert_form_matches_plain(h100, e, cap, d, f):
     """The expert form through ``ops.apply`` (acc_dtype int32) on K1's int8
-    form: each expert's product exact, bit for bit."""
+    tile, w stored (e, d, f) packed K-major first: each expert's product
+    exact, bit for bit."""
     x, w = _int8(h100, e, cap, d, seed=e), _int8(h100, e, d, f, seed=f)
     expr = ops.E.expert_gemm_expr(e, cap, d, f)
     got = ops.apply(expr, x, w, acc_dtype="int32", out_dtype=torch.int32)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["K1"] == 1 and ops.LAUNCHES["K9"] == 0
+    assert ops.PACKED["int8"] == _packs(d, False, False)
     assert torch.equal(got, ref.matmul_int8(x, w))
 
 
 #: int8 stacks (e, m, k, n): e = 16 of 1024^3 (the [derive_path] row),
 #: ragged m and n (130, 70: clipped TMA stores; n % 4 != 0: register
 #: stores), one k granule (16), k = 4096 past every tile, and k % 16 != 0
-#: (65: the int8 form)
+#: (65: both operands packed to a pitch of 80)
 INT8_STACKS = [(16, 1024, 1024, 1024), (3, 130, 64, 70), (5, 200, 16, 136),
                (2, 257, 4096, 300), (3, 130, 65, 70)]
 
@@ -1197,15 +1212,14 @@ INT8_STACKS = [(16, 1024, 1024, 1024), (3, 130, 64, 70), (5, 200, 16, 136),
 @pytest.mark.parametrize("e,m,k,n", INT8_STACKS)
 def test_int8_stack_matches_plain_bit_for_bit(h100, e, m, k, n, ta, tb):
     """An int8 stack through ``ops.apply`` (acc_dtype int32) of each
-    transpose is one K1 launch and no K9: the int8 tile (TMA + wgmma s8)
-    where B is stored (e, n, k), A (e, m, k) and k % 16 == 0, else the
-    int8 form; each bit for bit the exact plain version, and a rerun the
-    same bits."""
+    transpose is one K1 launch and no K9: the int8 tile, which reads in
+    place an operand stored K-major (A (e, m, k), B (e, n, k)) with k %
+    16 == 0 and packs every other one K-major first; each bit for bit the
+    exact plain version, and a rerun the same bits."""
     x = _int8(h100, *((e, k, m) if ta else (e, m, k)), seed=e + m)
     w = _int8(h100, *((e, n, k) if tb else (e, k, n)), seed=n + k)
     route = ops.expert_route(e, m, k, n, x.dtype, w.dtype, True, ta, tb)
-    assert route == ("int8_tile" if (ta, tb) == (False, True) and k % 16
-                     == 0 else "int8")
+    assert route == "int8_tile"
     E = ops.E
     xe, we = E.arr("X", tuple(x.shape)), E.arr("W", tuple(w.shape))
     expr = E.inner("add", "mul", E.transpose(xe, (0, 2, 1)) if ta else xe,
@@ -1215,6 +1229,7 @@ def test_int8_stack_matches_plain_bit_for_bit(h100, e, m, k, n, ta, tb):
     got, again = call(), call()
     torch.cuda.synchronize()
     assert ops.LAUNCHES["K1"] == 2 and ops.LAUNCHES["K9"] == 0
+    assert ops.PACKED["int8"] == 2 * _packs(k, ta, tb)
     assert got.dtype == torch.int32 and got.shape == (e, m, n)
     assert torch.equal(got, ref.matmul_int8(x, w, ta, tb))
     assert torch.equal(got, again)
@@ -1230,32 +1245,129 @@ def test_int8_tile_sums_wrap_as_an_int32_accumulator(h100):
     k = 2 ** 17 + 16
     x = torch.full((2, 3, k), -128, dtype=torch.int8, device=h100)
     w = torch.full((2, 5, k), -128, dtype=torch.int8, device=h100)
-    got = ops._gemm_int8_tile(x, w)
+    got = ops._gemm_int8_tile(x, w, False, True)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["K1"] == 1
+    assert ops.LAUNCHES["K1"] == 1 and ops.PACKED["int8"] == 0
     wrapped = (2 ** 14 * k + 2 ** 31) % 2 ** 32 - 2 ** 31
     assert torch.equal(got, torch.full_like(got, wrapped))
     assert torch.equal(got, ops._gemm_int8(x, w, False, True))
+    assert torch.equal(ops._gemm_int8_tile(x.transpose(1, 2).contiguous(),
+                                           w, True, True), got)
     x, w = x[..., :4096].contiguous(), w[..., :4096].contiguous()
-    assert torch.equal(ops._gemm_int8_tile(x, w),
+    assert torch.equal(ops._gemm_int8_tile(x, w, False, True),
                        torch.full((2, 3, 5), 2 ** 26, dtype=torch.int32,
                                   device=h100))
 
 
+#: (stored shape, MN-major): the pack's cases: 4096^2 B stored (k, n) (the
+#: [derive_path] row), a stack of MN-major experts, ragged rows and k (no
+#: multiple of its 64 x 64 tiles), K-major rows of k % 16 != 0, one k,
+#: and an unaligned base (byte loads)
+PACK_CASES = [((4096, 4096), True), ((16, 1024, 1024), True),
+              ((999, 37), True), ((3, 65, 130), True), ((1001, 37), False),
+              ((2, 70, 65), False), ((1, 33), True), ((130, 1), False)]
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("shape,mn", PACK_CASES)
+def test_int8_pack_matches_plain(h100, shape, mn):
+    """The K-major pack (``ops.pack_kmajor_int8``, one launch, counted in
+    ``PACKED``) equals ``ref.pack_kmajor_int8`` byte for byte: the
+    operand K-major at k rounded up to 16, zeros past k; so does a pack
+    from an unaligned base."""
+    t = _int8(h100, *shape, seed=sum(shape))
+    got = ops.pack_kmajor_int8(t, mn)
+    torch.cuda.synchronize()
+    assert ops.PACKED["int8"] == 1 and ops.LAUNCHES["K1"] == 0
+    assert torch.equal(got, ref.pack_kmajor_int8(t, mn))
+    flat = _int8(h100, t.numel() + 1, seed=3)
+    u = flat[1:].view(shape)
+    assert u.data_ptr() % 16
+    assert torch.equal(ops.pack_kmajor_int8(u, mn),
+                       ref.pack_kmajor_int8(u, mn))
+
+
+def _int8_head_operands(dev, m, tb, k=None, seed=11):
+    """minicpm3-4b's absorbed decode products in int8: q_lat (``tb``: x
+    (m, 40, 64) a column slice of (m, 40, 96), w the (n=256, 40, 64)
+    slice of a (256, 40, 128) table) or out (x (m, 40, 256), w the (k=256,
+    40, 64) slice at column 64); ``k`` widens q_lat's (its table's
+    columns grow with it)."""
+    k = k or (64 if tb else 256)
+    if tb:
+        x = _int8(dev, m, 40, k + 32, seed=seed + m)[..., :k]
+        table = _int8(dev, 256, 40, 2 * k, seed=seed)
+        return x, table[..., :k]
+    table = _int8(dev, k, 40, 128, seed=seed)
+    return _int8(dev, m, 40, k, seed=seed + m), table[..., 64:]
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("tb,k", [(True, 64), (True, 96), (True, 2048),
+                                  (False, 256), (False, 32), (False, 4096)])
+@pytest.mark.parametrize("m", [1, 2, 4, 16])
+def test_int8_head_rows_match_plain_bit_for_bit(h100, m, tb, k):
+    """The int8 head form at most 16 rows on K1's int8 decode rows
+    (``ops.head_route`` "gemv"): through ``ops.apply`` (acc_dtype int32)
+    on the strided views of the stored table, one K1 launch, no K9 and no
+    copy; bit for bit ``ref.head_gemm_int8``, unsplit (q_lat, k 64) and
+    split over k (k 2048 / 4096; out at k 256 splits 2 ways), at a half
+    unit (k 96 with w stored (n, h, k)); a rerun the same bits."""
+    x, w = _int8_head_operands(h100, m, tb, k)
+    n = w.shape[0] if tb else w.shape[2]
+    assert ops.head_aligned(x, w)
+    assert ops.head_route(40, m, k, n, x.dtype, w.dtype, tb) == "gemv"
+    nsplit = ops.gemv_splits(m, n, k, 40, *ops.K1_GEMV8[tb])
+    expr = ops.E.head_gemm_expr(40, m, k, n, transpose_b=tb)
+    call = lambda: ops.apply(expr, x, w, acc_dtype="int32",
+                             out_dtype=torch.int32)
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 2 and ops.LAUNCHES["K9"] == 0
+    assert got.dtype == torch.int32 and got.shape == (40, m, n)
+    assert torch.equal(got, ref.head_gemm_int8(x, w, tb))
+    assert torch.equal(got, again)
+    # the k split (ops.gemv_splits in the int8 rows' units): q_lat's k 64
+    # and 96 and out's k 32 unsplit, the rest split
+    assert (nsplit > 1) == (k >= 2048 or (not tb and k >= 256))
+
+
+@pytest.mark.h100
+@pytest.mark.parametrize("tb", [True, False])
+def test_int8_head_rows_wrap_as_an_int32_accumulator(h100, tb):
+    """The int8 decode rows' sums wrap past 2^31 as the reference's int32
+    accumulator does, split or not: (-128)^2 over 2^17 + 32 terms is
+    2^31 + 2^19 (two's complement)."""
+    k, n = 2 ** 17 + 32, 16
+    x = torch.full((4, 2, k), -128, dtype=torch.int8, device=h100)
+    w = torch.full((n, 2, k) if tb else (k, 2, n), -128, dtype=torch.int8,
+                   device=h100)
+    got = ops._head_gemm(x, w, tb)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["K1"] == 1
+    assert ops.gemv_splits(4, n, k, 2, *ops.K1_GEMV8[tb]) > 1
+    wrapped = (2 ** 14 * k + 2 ** 31) % 2 ** 32 - 2 ** 31
+    assert torch.equal(got, torch.full((2, 4, n), wrapped,
+                                       dtype=torch.int32, device=h100))
+
+
 @pytest.mark.h100
 def test_gemm_int8_head_form_and_k9_refuse_int32(h100):
-    """int32 accumulation off K1's int8 form: the head form (no int8 head
-    form of K1's) runs on K9's integer accumulator, one K9 launch and no
-    K1 launch, bit for bit the plain version's exact sums."""
-    x, w = _int8(h100, 4, 2, 32), _int8(h100, 32, 2, 16, seed=1)
-    expr = ops.E.head_gemm_expr(2, 4, 32, 16)
-    got = ops.apply(expr, x, w, acc_dtype="int32", out_dtype=torch.int32)
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES["K1"] == 0 and ops.LAUNCHES["K9"] == 1
-    with ops.reference_mode():
-        want = ops.apply(expr, x, w, acc_dtype="int32",
-                         out_dtype=torch.int32)
-    assert got.dtype == torch.int32 and torch.equal(got, want)
+    """int32 accumulation of the head form: at k = 32, m = 4 on K1's int8
+    decode rows, one K1 launch and no K9; at k = 40 (no multiple of 32,
+    refused by K1) on K9's integer accumulator, one K9 launch and no K1;
+    each bit for bit the plain version's exact sums."""
+    for k, kid in ((32, "K1"), (40, "K9")):
+        x, w = _int8(h100, 4, 2, k), _int8(h100, k, 2, 16, seed=1)
+        expr = ops.E.head_gemm_expr(2, 4, k, 16)
+        ops.reset_launches()
+        got = ops.apply(expr, x, w, acc_dtype="int32", out_dtype=torch.int32)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[kid] == 1 and sum(ops.LAUNCHES.values()) == 1
+        with ops.reference_mode():
+            want = ops.apply(expr, x, w, acc_dtype="int32",
+                             out_dtype=torch.int32)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from repro_torch.core import schedule as psched  # noqa: E402
 from repro_torch.core import semiring as psemiring  # noqa: E402
 from repro_torch.hardware import H100, TPU_V5E  # noqa: E402
 from repro_torch.kernels import emit, ops  # noqa: E402
+from repro_torch.kernels import ref as pref  # noqa: E402
 
 JHW = jhw.get_entry("cpu")          # the reference's v5e-shaped entry
 SIDES = {"port": (PE, psched, analysis, TPU_V5E),
@@ -525,3 +526,55 @@ def test_moa_path_plans_verify_clean(i):
                              kernel=kernel, dtypes=dtypes)
         after = analysis.verification_cache_stats()
         assert after["hits"] >= before["hits"] + 1
+
+
+@pytest.mark.parametrize("ta,tb,k", [(False, False, 64), (False, True, 64),
+                                     (True, True, 37), (False, True, 33)])
+def test_conformance_checks_the_int8_pack(ta, tb, k, monkeypatch):
+    """A 2-D int8 product is planned on K1's int8 tile at any transpose
+    and k, and checks clean; an operand read in place that is MN-major or
+    of a pitch TMA cannot take is a route defect (``int8_reads_in_place``
+    mutated to read every operand in place), and a pack that leaves k
+    unpadded or pads past the next 16 is a coverage defect
+    (``ref.pack_kmajor_int8`` mutated)."""
+    a = PE.arr("A", (k, 40) if ta else (40, k))
+    b = PE.arr("B", (24, k) if tb else (k, 24))
+    expr = PE.inner("add", "mul", PE.transpose(a) if ta else a,
+                    PE.transpose(b) if tb else b)
+    i8 = ("int8", "int8")
+    nf, bundle, plan = _plan(expr, i8, "int32")
+    assert plan == ("K1", ta, tb, False)
+    assert not _rules(conformance.plan_findings(plan, bundle, nf, i8,
+                                                "int32"))
+    packs = not ops.int8_reads_in_place(k, ta, True) or \
+        not ops.int8_reads_in_place(k, not tb, True)
+    with monkeypatch.context() as mp:
+        mp.setattr(ops, "int8_reads_in_place", lambda *a: True)
+        assert _rules(conformance.plan_findings(plan, bundle, nf, i8,
+                                                "int32")) == (
+            ["route"] if packs else [])
+    pack = pref.pack_kmajor_int8
+    unpadded = lambda t, mn, granule=16: (
+        t.transpose(-1, -2) if mn else t).contiguous()
+    overpadded = lambda t, mn, granule=16: torch.nn.functional.pad(
+        pack(t, mn, granule), (0, 16))
+    for bad, want in ((unpadded, packs and k % 16 != 0),
+                      (overpadded, packs)):
+        with monkeypatch.context() as mp:
+            mp.setattr(pref, "pack_kmajor_int8", bad)
+            assert _rules(conformance.plan_findings(
+                plan, bundle, nf, i8, "int32")) == (
+                ["coverage"] if want else [])
+
+
+def test_conformance_passes_an_int8_head_plan_on_the_decode_rows():
+    """minicpm3-4b's int8 q_lat and out at 4 rows are planned on K1's int8
+    decode rows (``ops.head_route`` "gemv") and check clean: the split of
+    k in the int8 rows' own units (64 with w stored (n, h, k), 32 else)
+    covers k once."""
+    for tb, k, n in ((True, 64, 256), (False, 256, 64)):
+        expr = PE.head_gemm_expr(40, 4, k, n, transpose_b=tb)
+        nf, bundle, plan = _plan(expr, ("int8", "int8"), "int32")
+        assert plan == ("K1", False, tb, "head")
+        assert not _rules(conformance.plan_findings(
+            plan, bundle, nf, ("int8", "int8"), "int32"))
